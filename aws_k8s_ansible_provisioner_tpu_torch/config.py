@@ -1,0 +1,158 @@
+"""Configuration of the PyTorch/CUDA serving port.
+
+The port keeps its own copy of the architecture and serving knobs it reads,
+field for field with the JAX package's ``config.py`` so that a test can hand
+one config to both sides (``dataclasses.asdict`` round-trips between them).
+Only the serving fields this slice reads are here; the rest of the JAX
+``ServingConfig`` (int8 KV, checkpoint loading, prefix cache, host tier,
+pipeline, spec decode, LoRA, deadlines, telemetry) comes over with the
+slices that port those features.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for a decoder-only LM (same schema as the
+    JAX package's ``ModelConfig``). The port's forward pass serves the Qwen3
+    family: ``norm="rmsnorm"``, ``pos_embed="rope"``, gated SiLU MLP, optional
+    qk-norm, no MoE, no sliding window."""
+
+    name: str
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    max_seq_len: int = 4096
+    sliding_window: int = 0
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    rope_scaling: str = "none"
+    rope_factor: float = 1.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_pos: int = 8192
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-6
+    norm_zero_centered: bool = False
+    embed_scale: bool = False
+    qk_norm: bool = False
+    act: str = "silu"
+    pos_embed: str = "rope"
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    parallel_block: bool = False
+    tie_embeddings: bool = False
+    bos_token_id: Optional[int] = None
+    eos_token_id: int = 0
+    extra_eos_token_ids: tuple = ()
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    moe_impl: str = "ragged"
+    moe_capacity_factor: float = 2.0
+    hf_repo: str = ""
+
+    @property
+    def q_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        """Return a copy with fields overridden (used for tiny test configs)."""
+        return dataclasses.replace(self, **overrides)
+
+
+# Public HF config.json values of the served default model.
+QWEN3_0_6B = ModelConfig(
+    name="Qwen/Qwen3-0.6B",
+    vocab_size=151936,
+    hidden_size=1024,
+    intermediate_size=3072,
+    num_layers=28,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=128,
+    max_seq_len=40960,
+    rope_theta=1e6,
+    qk_norm=True,
+    tie_embeddings=True,
+    bos_token_id=151643,
+    eos_token_id=151645,
+    hf_repo="Qwen/Qwen3-0.6B",
+)
+
+MODEL_REGISTRY = {
+    "Qwen/Qwen3-0.6B": QWEN3_0_6B,
+}
+
+
+def tiny_qwen3(**overrides) -> ModelConfig:
+    """A miniature Qwen3-shaped config for unit tests (CPU-fast, GQA exercised)."""
+    base = dict(
+        name="tiny-qwen3",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        max_seq_len=128,
+        rope_theta=1e6,
+        qk_norm=True,
+        tie_embeddings=True,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Engine knobs this slice reads; defaults equal the JAX package's."""
+
+    model: str = "Qwen/Qwen3-0.6B"
+    port: int = 8000
+    host: str = "0.0.0.0"
+    # Decode slots = max concurrent sequences in flight.
+    max_decode_slots: int = 32
+    # Prefill length buckets: prompts are right-padded to the smallest bucket
+    # that holds them.
+    prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024, 2048)
+    # Max tokens of KV cache per slot.
+    max_cache_len: int = 2048
+    # Decode substeps per dispatch when no admission is possible.
+    decode_horizon: int = 8
+    # Paged KV pool geometry: rows per page, and physical pages (0 =
+    # max_decode_slots * ceil(max_cache_len / page_size)).
+    page_size: int = 64
+    kv_pool_pages: int = 0
+    # Up to this many fresh prompts share one prefill dispatch.
+    max_prefill_batch: int = 4
+    # Prompts longer than this are prefilled in chunks of this many tokens,
+    # each chunk packed beside the decode batch in one ragged dispatch.
+    # 0 disables chunking.
+    prefill_chunk: int = 0
+    max_tokens_default: int = 256
+    # Admissions past this queue depth are refused (0 = unbounded).
+    max_queue_depth: int = 256
+    # Seed of the engine's sampling generator; None draws it from os.urandom.
+    derived_seed: object = None
+    # Activation and KV dtype (the KV pool is stored in this dtype).
+    dtype: str = "bfloat16"
+    # "int8" = weights-only per-out-channel int8 (the default); "bf16"/"auto"
+    # keep the weights as loaded.
+    weights_dtype: str = "int8"

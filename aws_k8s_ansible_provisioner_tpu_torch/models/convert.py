@@ -1,0 +1,82 @@
+"""Conversion of a JAX parameter tree (as numpy arrays) into the port's tree.
+
+The layouts are the same on both sides (``models/layers.py``), so the
+conversion is a leaf-by-leaf copy that keeps every bit: float32, int8 and
+bfloat16 leaves all arrive unchanged. A bfloat16 numpy array (the
+``ml_dtypes`` type JAX hands out) has no torch counterpart in
+``torch.from_numpy``, so its bits travel as int16 and are viewed back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+
+_NUMPY_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int32): torch.int32,
+}
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:           # a JAX array's host view is read-only
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    if a.dtype not in _NUMPY_TO_TORCH:
+        raise TypeError(f"unsupported parameter dtype {a.dtype}")
+    return torch.from_numpy(a).to(device)
+
+
+def _expected_shapes(cfg: ModelConfig) -> dict:
+    L, H = cfg.num_layers, cfg.hidden_size
+    shapes = {
+        ("embed", "weight"): (cfg.vocab_size, H),
+        ("final_norm", "weight"): (H,),
+        ("layers", "wq", "kernel"): (L, H, cfg.q_size),
+        ("layers", "wk", "kernel"): (L, H, cfg.kv_size),
+        ("layers", "wv", "kernel"): (L, H, cfg.kv_size),
+        ("layers", "wo", "kernel"): (L, cfg.q_size, H),
+        ("layers", "w_gate", "kernel"): (L, H, cfg.intermediate_size),
+        ("layers", "w_up", "kernel"): (L, H, cfg.intermediate_size),
+        ("layers", "w_down", "kernel"): (L, cfg.intermediate_size, H),
+        ("layers", "input_norm", "weight"): (L, H),
+        ("layers", "post_norm", "weight"): (L, H),
+    }
+    if cfg.qk_norm:
+        shapes[("layers", "q_norm", "weight")] = (L, cfg.head_dim)
+        shapes[("layers", "k_norm", "weight")] = (L, cfg.head_dim)
+    if not cfg.tie_embeddings:
+        shapes[("lm_head", "kernel")] = (H, cfg.vocab_size)
+    return shapes
+
+
+def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> dict:
+    """JAX parameter pytree (nested dicts of numpy or JAX arrays; bf16, f32
+    or int8-quantized) -> the port's nested dict of torch tensors.
+
+    Shapes are checked against ``cfg``; quantized leaves (int8 kernel plus
+    float32 ``scale``) convert like any other.
+    """
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _leaf(node, device)
+
+    out = convert(tree)
+    for path, expect in _expected_shapes(cfg).items():
+        node = out
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"parameter {'/'.join(path)} missing")
+            node = node[key]
+        if tuple(node.shape) != expect:
+            raise ValueError(f"parameter {'/'.join(path)}: shape "
+                             f"{tuple(node.shape)} != {expect}")
+    return out

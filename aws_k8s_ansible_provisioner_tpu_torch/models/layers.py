@@ -1,0 +1,335 @@
+"""Decoder-only transformer (Qwen3 family) in PyTorch.
+
+The same functions as the JAX package's ``models/layers.py``, written over
+torch tensors, with its parameter layout kept unchanged so that a converted
+JAX parameter tree runs here as it is (``models/convert.py``):
+
+- per-layer weights are stacked with a leading ``[num_layers]`` axis;
+- projection kernels are ``[in, out]`` (``x @ W``), i.e. transposed from
+  ``nn.Linear``;
+- a weights-only int8 projection is ``{"kernel": int8, "scale": f32}``
+  (``models/quant.py``), dequantized to the activation dtype before the
+  matmul with the per-out-channel scale folded in after it.
+
+Norms and softmax accumulate in float32. ``model_forward`` takes an
+``attend`` callback so that the same block stack serves causal prefill,
+decode against the paged pool and the ragged mixed dispatch; with the carry
+form (``model_forward_carry``) the callback receives ``(pool, layer)`` and
+updates the pool in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+
+# attend(q [B,T,Hq,D], k [B,T,Hkv,D], v [B,T,Hkv,D], cache_l)
+#   -> (context [B,T,Hq,D], cache_l); q/k are already qk-normed and RoPE'd.
+AttendFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Any],
+                    Tuple[torch.Tensor, Any]]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for architecture options this port does not serve yet."""
+    unsupported = {
+        "norm": cfg.norm != "rmsnorm",
+        "pos_embed": cfg.pos_embed != "rope",
+        "act": cfg.act != "silu",
+        "num_experts": cfg.num_experts > 0,
+        "sliding_window": cfg.sliding_window > 0,
+        "parallel_block": cfg.parallel_block,
+        "rope_scaling": cfg.rope_scaling != "none",
+        "rotary_pct": cfg.rotary_pct != 1.0,
+        "norm_zero_centered": cfg.norm_zero_centered,
+        "embed_scale": cfg.embed_scale,
+    }
+    bad = sorted(k for k, v in unsupported.items() if v)
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not serve {bad} yet")
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with float32 accumulation (HF Qwen3 semantics)."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+def rope_cos_sin(positions: torch.Tensor, rotary_dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 cos/sin tables for integer positions [..., T] (HF rotate_half
+    convention): returns [..., T, rotary_dim] each."""
+    exponent = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                            device=positions.device) / rotary_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Full-dimension RoPE. x: [B, T, H, D]; cos/sin: [B, T, D]."""
+    dtype = x.dtype
+    rot = x.float()
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return (rot * cos + _rotate_half(rot) * sin).to(dtype)
+
+
+def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, T, Hkv, D] -> [B, T, Hq, D] by repeating each kv head."""
+    num_kv = k.shape[-2]
+    if num_kv == num_heads:
+        return k
+    return torch.repeat_interleave(k, num_heads // num_kv, dim=-2)
+
+
+def causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full causal self-attention over the current window, float32 softmax.
+
+    q: [B, T, Hq, D]; k/v: [B, T, Hkv, D]; ``seq_lens`` [B] masks right
+    padding. Masked logits are -1e30, as in the JAX reference.
+    """
+    B, T, Hq, D = q.shape
+    k = repeat_kv(k, Hq).float()
+    v = repeat_kv(v, Hq).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(D)
+    pos = torch.arange(T, device=q.device)
+    mask = pos[None, :] <= pos[:, None]                      # [Tq, Tk]
+    if seq_lens is not None:
+        valid = pos[None, :] < seq_lens[:, None]             # [B, Tk]
+        mask = (mask[None] & valid[:, None, :])[:, None]     # [B,1,Tq,Tk]
+    else:
+        mask = mask[None, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "scale" in p:
+        # weights-only int8: dequantize to the activation dtype, matmul, fold
+        # the per-out-channel float32 scale in after (exact: the scale is
+        # constant along the contraction axis)
+        y = ((x @ p["kernel"].to(x.dtype)) * p["scale"]).to(x.dtype)
+    else:
+        y = x @ p["kernel"]
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def _mlp(h: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(h)) * up(h))."""
+    return _linear(F.silu(_linear(h, p["w_gate"])) * _linear(h, p["w_up"]),
+                   p["w_down"])
+
+
+def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  cos: torch.Tensor, sin: torch.Tensor, attend: AttendFn,
+                  cache_l: Any) -> Tuple[torch.Tensor, Any]:
+    """One transformer block; ``p`` is a per-layer slice (no leading L)."""
+    B, T, _ = x.shape
+    h = rms_norm(x, p["input_norm"]["weight"], cfg.norm_eps)
+    q = _linear(h, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = _linear(h, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = _linear(h, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["weight"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"]["weight"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    ctx, cache_l = attend(q, k, v, cache_l)
+    x = x + _linear(ctx.reshape(B, T, cfg.q_size), p["wo"])
+    h2 = rms_norm(x, p["post_norm"]["weight"], cfg.norm_eps)
+    return x + _mlp(h2, p), cache_l
+
+
+def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor):
+    """Token embedding (int8 table dequantized per gathered row) + RoPE
+    tables."""
+    emb = params["embed"]
+    if "scale" in emb:
+        dt = params["final_norm"]["weight"].dtype
+        x = (emb["weight"][tokens].float()
+             * emb["scale"][tokens][..., None]).to(dt)
+    else:
+        x = emb["weight"][tokens]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    return x, cos, sin
+
+
+def _final_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
+                  ) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"]["weight"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        emb = params["embed"]
+        if "scale" in emb:
+            # per-vocab-row scales become per-logit-column scales
+            return ((x @ emb["weight"].T.to(x.dtype))
+                    * emb["scale"]).to(x.dtype)
+        return x @ emb["weight"].T
+    return _linear(x, params["lm_head"])
+
+
+def layer_slices(params: dict, num_layers: int) -> List[dict]:
+    """Per-layer views of the stacked ``params["layers"]`` tree."""
+    layers = params["layers"]
+    return [{name: {leaf: t[l] for leaf, t in p.items()}
+             for name, p in layers.items()} for l in range(num_layers)]
+
+
+def _default_attend(q, k, v, cache_l):
+    return causal_attend(q, k, v), cache_l
+
+
+def model_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, attend: Optional[AttendFn] = None,
+                  layers: Optional[List[dict]] = None) -> torch.Tensor:
+    """Run the decoder with full causal attention (or ``attend`` with a
+    per-layer cache of None); returns logits [B, T, V]."""
+    attend = attend or _default_attend
+    layers = layers or layer_slices(params, cfg.num_layers)
+    x, cos, sin = _embed_inputs(params, cfg, tokens, positions)
+    for p_l in layers:
+        x, _ = decoder_block(cfg, p_l, x, cos, sin, attend, None)
+    return _final_logits(params, cfg, x)
+
+
+def model_forward_carry(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                        positions: torch.Tensor, cache: Any, attend: AttendFn,
+                        layers: Optional[List[dict]] = None
+                        ) -> Tuple[torch.Tensor, Any]:
+    """Decoder forward with the whole cache handed to every layer:
+    ``attend`` receives ``(cache, layer_idx)`` and writes the layer's rows in
+    place (the serving decode, prefill and mixed paths)."""
+    layers = layers or layer_slices(params, cfg.num_layers)
+    x, cos, sin = _embed_inputs(params, cfg, tokens, positions)
+    for l, p_l in enumerate(layers):
+        x, (cache, _) = decoder_block(cfg, p_l, x, cos, sin, attend,
+                                      (cache, l))
+    return _final_logits(params, cfg, x), cache
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random parameters (normal, std 0.02; norms at one) on the generator's
+    device, in the JAX package's layout. Same distribution as the JAX
+    ``init_params``; not the same numbers (the generators differ)."""
+    check_supported(cfg)
+    dev = generator.device
+    L, H = cfg.num_layers, cfg.hidden_size
+
+    def normal(*shape):
+        return (0.02 * torch.randn(shape, generator=generator, device=dev,
+                                   dtype=torch.float32)).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    layers = {
+        "input_norm": {"weight": ones(L, H)},
+        "wq": {"kernel": normal(L, H, cfg.q_size)},
+        "wk": {"kernel": normal(L, H, cfg.kv_size)},
+        "wv": {"kernel": normal(L, H, cfg.kv_size)},
+        "wo": {"kernel": normal(L, cfg.q_size, H)},
+        "w_gate": {"kernel": normal(L, H, cfg.intermediate_size)},
+        "w_up": {"kernel": normal(L, H, cfg.intermediate_size)},
+        "w_down": {"kernel": normal(L, cfg.intermediate_size, H)},
+        "post_norm": {"weight": ones(L, H)},
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = {"weight": ones(L, cfg.head_dim)}
+        layers["k_norm"] = {"weight": ones(L, cfg.head_dim)}
+    params = {
+        "embed": {"weight": normal(cfg.vocab_size, H)},
+        "layers": layers,
+        "final_norm": {"weight": ones(H)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"kernel": normal(H, cfg.vocab_size)}
+    return params
+
+
+def _flatten(tree: dict, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    out = []
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.extend(_flatten(val, name + "__"))
+        else:
+            out.append((name, val))
+    return out
+
+
+class DecoderLM(nn.Module):
+    """The decoder as an ``nn.Module``: parameters are buffers (serving only,
+    no gradients), named after their place in the JAX tree with ``__``
+    separators; ``params`` rebuilds that nested dict."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self._names = []
+        for name, t in _flatten(params):
+            self.register_buffer(name, t, persistent=False)
+            self._names.append(name)
+        self._views = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._views = None          # device/dtype moves replace the buffers
+        return super()._apply(fn, *args, **kwargs)
+
+    @property
+    def params(self) -> dict:
+        tree: dict = {}
+        for name in self._names:
+            node = tree
+            *path, leaf = name.split("__")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = getattr(self, name)
+        return tree
+
+    def _cached(self):
+        if self._views is None:
+            params = self.params
+            self._views = (params, layer_slices(params, self.cfg.num_layers))
+        return self._views
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed__weight.device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.final_norm__weight.dtype
+
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                attend: Optional[AttendFn] = None) -> torch.Tensor:
+        params, layers = self._cached()
+        return model_forward(params, self.cfg, tokens, positions, attend,
+                             layers)
+
+    def forward_carry(self, tokens: torch.Tensor, positions: torch.Tensor,
+                      cache: Any, attend: AttendFn):
+        params, layers = self._cached()
+        return model_forward_carry(params, self.cfg, tokens, positions, cache,
+                                   attend, layers)

@@ -1,0 +1,70 @@
+"""Weights-only int8 quantization (the serving default).
+
+Symmetric per-out-channel scales ``s = max|W[:, o]| / 127`` (float32, floored
+at 1e-12) and ``q = clip(round(W / s), -127, 127)`` as int8, with round half
+to even: the same rule, in the same float32 arithmetic, as the JAX package's
+jit-compiled ``models/quant.py`` path (the one its single-device engine
+takes), so the int8 values and scales come out bit-identical.
+
+Quantized: the seven per-layer projections (scales ``[L, out]``), the
+embedding table (per-vocab-row scales ``[V]``) and an untied ``lm_head``.
+Norms stay in the model dtype. A quantized leaf is the same dict with
+``kernel``/``weight`` turned int8 plus a sibling ``scale``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+
+# projection -> contraction (in) axis of its stacked [L, in, out] kernel
+_DENSE_AXES = {"wq": 1, "wk": 1, "wv": 1, "wo": 1,
+               "w_gate": 1, "w_up": 1, "w_down": 1}
+
+
+def quant_kernel(w: torch.Tensor, in_axis: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-out-channel int8: (q int8, float32 scale with
+    ``in_axis`` reduced away)."""
+    w32 = w.float()
+    # XLA compiles the JAX package's ``max / 127.0`` into a multiply by the
+    # float32 reciprocal; the same product here keeps the scales bit-equal
+    s = w32.abs().amax(dim=in_axis) * (1.0 / 127.0)
+    s = torch.clamp_min(s, 1e-12)
+    q = torch.clamp(torch.round(w32 / s.unsqueeze(in_axis)), -127, 127)
+    return q.to(torch.int8), s
+
+
+def weights_quantized(params: dict) -> bool:
+    """Whether ``params`` carries int8 weight leaves (scale siblings)."""
+    try:
+        return "scale" in params["layers"]["wq"]
+    except (KeyError, TypeError):
+        return False
+
+
+def quantize_params(params: dict, cfg: ModelConfig) -> dict:
+    """Quantize a bf16/f32 parameter tree to weights-only int8; returns a new
+    tree (leaves that are not quantized are shared, not copied)."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE expert quantization is not ported")
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key, in_axis in _DENSE_AXES.items():
+        if key not in layers:
+            continue
+        p = dict(layers[key])
+        p["kernel"], p["scale"] = quant_kernel(p["kernel"], in_axis)
+        layers[key] = p
+    out["layers"] = layers
+    emb = dict(params["embed"])
+    emb["weight"], emb["scale"] = quant_kernel(emb["weight"], 1)   # [V, H]
+    out["embed"] = emb
+    if "lm_head" in params:
+        p = dict(params["lm_head"])
+        p["kernel"], p["scale"] = quant_kernel(p["kernel"], 0)     # [H, V]
+        out["lm_head"] = p
+    return out

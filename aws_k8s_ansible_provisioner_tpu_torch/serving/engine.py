@@ -1,0 +1,520 @@
+"""Continuous-batching serving engine over the paged KV pool.
+
+The host-side scheduler of the port: FCFS admission gated on free pages,
+batched prefill of fresh prompts, decode of every active slot with a fused
+horizon, and chunked prefill packed beside the decode batch in one ragged
+dispatch (``programs.mixed_step``). It follows the JAX package's
+``serving/engine.py`` and ``programs.EnginePrograms`` wherever this slice
+reaches, with these differences:
+
+- dispatch is synchronous: every step launches its program and then fetches
+  its tokens (the JAX engine's one-deep pipeline produces the same streams);
+- every chunked prefill, and every preemption resume, goes through
+  ``mixed_step``, also when no decode row is active;
+- not ported yet: the prefix cache and host tier, spec decode, guided
+  decoding, LoRA, penalties, logit bias, min_tokens, logprobs, deadlines,
+  drain and the admission-pressure preemption.
+
+Idle slots keep decoding into the scratch page 0, as in the JAX engine: their
+tables point there, and their outputs are discarded.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import logging
+import os
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from aws_k8s_ansible_provisioner_tpu_torch.config import (ModelConfig,
+                                                          ServingConfig)
+from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+    DecoderLM, check_supported)
+from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
+    quantize_params, weights_quantized)
+from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
+    decode_steps, mixed_step, prefill_batch_step)
+
+log = logging.getLogger(__name__)
+
+_REQUEST_IDS = itertools.count()
+
+
+class ContextLengthExceeded(ValueError):
+    """The prompt does not fit the engine's context window (HTTP 400)."""
+
+    def __init__(self, n_prompt: int, limit: int, max_len: int):
+        self.n_prompt, self.limit, self.max_len = n_prompt, limit, max_len
+        super().__init__(
+            f"This model's maximum prompt length is {limit} tokens "
+            f"(context window {max_len}); your prompt has {n_prompt} tokens.")
+
+
+class EngineOverloaded(RuntimeError):
+    """The bounded queue is full; nothing was generated (HTTP 429)."""
+
+
+@dataclass
+class Request:
+    """One generation request."""
+
+    prompt_ids: List[int]
+    max_tokens: int = 256
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    ignore_eos: bool = False
+    cancelled: bool = False
+    id: int = field(default_factory=lambda: next(_REQUEST_IDS))
+    generated: List[int] = field(default_factory=list)
+    # None is put here when the request finishes
+    out_queue: "queue.Queue" = field(default_factory=queue.Queue)
+    finish_reason: str = ""
+
+    def wait(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until completion; returns the generated token ids."""
+        deadline = time.monotonic() + timeout if timeout else None
+        while True:
+            remaining = (deadline - time.monotonic()) if deadline else None
+            if remaining is not None and remaining <= 0:
+                raise TimeoutError(f"request {self.id} timed out")
+            if self.out_queue.get(timeout=remaining) is None:
+                return self.generated
+
+
+class Engine:
+    """Continuous-batching engine over a fixed set of decode slots."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, serving: ServingConfig,
+                 eos_token_id: Optional[int] = None, device=None):
+        check_supported(cfg)
+        if serving.weights_dtype not in ("auto", "bf16", "int8"):
+            raise ValueError(f"weights_dtype={serving.weights_dtype!r}: "
+                             f"expected 'int8', 'bf16' or 'auto'")
+        if serving.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"dtype={serving.dtype!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.serving = serving
+        self.dtype = (torch.bfloat16 if serving.dtype == "bfloat16"
+                      else torch.float32)
+        params = _to_device(params, self.device)
+        if serving.weights_dtype == "int8" and not weights_quantized(params):
+            params = quantize_params(params, cfg)
+        self.model = DecoderLM(cfg, params)
+        self.eos_token_id = cfg.eos_token_id if eos_token_id is None \
+            else eos_token_id
+        self._eos_set = ({self.eos_token_id, cfg.eos_token_id}
+                         | set(cfg.extra_eos_token_ids))
+        self.num_slots = serving.max_decode_slots
+        # the JAX engine rounds the window up to a 256 multiple
+        self.max_len = -(-serving.max_cache_len // 256) * 256 \
+            if serving.max_cache_len > 256 else serving.max_cache_len
+        self.max_len = min(self.max_len, cfg.max_seq_len)
+        self.buckets = tuple(b for b in serving.prefill_buckets
+                             if b <= self.max_len)
+        ps = self.page_size = serving.page_size
+        if ps <= 0 or ps % 8:
+            raise ValueError(f"page_size={ps} must be a positive multiple "
+                             f"of 8")
+        self.pages_per_slot = -(-self.max_len // ps)
+        pool_pages = serving.kv_pool_pages \
+            or self.num_slots * self.pages_per_slot
+        if pool_pages < self.pages_per_slot:
+            raise ValueError(f"kv_pool_pages={pool_pages} < pages for one "
+                             f"full window ({self.pages_per_slot})")
+        # +1: physical page 0 is the scratch page idle slots point at
+        self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
+                                   self.device)
+        self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
+        self.table = np.zeros((self.num_slots, self.pages_per_slot),
+                              np.int32)
+        self._slot_pages: List[List[int]] = [[] for _ in
+                                             range(self.num_slots)]
+        self.lengths = np.zeros(self.num_slots, np.int32)
+        self.last_token = np.zeros(self.num_slots, np.int32)
+        self.temps = np.zeros(self.num_slots, np.float32)
+        self.top_ks = np.zeros(self.num_slots, np.int32)
+        self.top_ps = np.ones(self.num_slots, np.float32)
+        self.slot_req: List[Optional[Request]] = [None] * self.num_slots
+        # free slots: admit from the front, release to the back
+        self._free: collections.deque = collections.deque(
+            range(self.num_slots))
+        self._admit_seq = np.zeros(self.num_slots, np.int64)
+        self._seq_counter = 0
+        self._queue: collections.deque = collections.deque()
+        # request id -> prompt + generated context of a preempted request
+        self._resume_ctx: dict = {}
+        self._lock = threading.Lock()
+        self._work_event = threading.Event()
+        self._chunk: Optional[dict] = None
+        seed = serving.derived_seed
+        if seed is None:
+            seed = int.from_bytes(os.urandom(8), "little")
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        self.counts = collections.Counter()
+        self.last_error = ""
+
+    # -- submission ---------------------------------------------------------
+
+    @property
+    def prompt_limit(self) -> int:
+        """Longest prompt a slot can hold: the largest bucket, or the window
+        itself when chunked prefill is on."""
+        if self.serving.prefill_chunk > 0:
+            return self.max_len - 2
+        return min(self.buckets[-1], self.max_len - 2)
+
+    @property
+    def _chunk_size(self) -> int:
+        if self.serving.prefill_chunk > 0:
+            return self.serving.prefill_chunk
+        return self.buckets[-1]
+
+    def _should_chunk(self, n: int) -> bool:
+        return self.serving.prefill_chunk > 0 and (
+            n > self.serving.prefill_chunk or n > self.buckets[-1])
+
+    @property
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def submit(self, req: Request) -> Request:
+        n = len(req.prompt_ids)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n > self.prompt_limit:
+            raise ContextLengthExceeded(n, self.prompt_limit, self.max_len)
+        if min(req.prompt_ids) < 0 or max(req.prompt_ids) >= \
+                self.cfg.vocab_size:
+            raise ValueError(f"prompt token ids must lie in "
+                             f"[0, {self.cfg.vocab_size})")
+        req.max_tokens = max(1, min(req.max_tokens, self.max_len - n - 1))
+        with self._lock:
+            depth = self.serving.max_queue_depth
+            if depth and len(self._queue) >= depth:
+                raise EngineOverloaded(f"engine queue is full "
+                                       f"({len(self._queue)} waiting)")
+            self._queue.append(req)
+        self._work_event.set()
+        return req
+
+    def cancel(self, req: Request):
+        """Mark a request cancelled; its slot frees on the next step."""
+        req.cancelled = True
+        self._work_event.set()
+
+    # -- slots and pages ----------------------------------------------------
+
+    def _active_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _release_slot(self, slot: int):
+        """Return the slot's pages, point its table at scratch, free it."""
+        self.allocator.release_all(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self.table[slot, :] = 0
+        self.lengths[slot] = 0
+        self._free.append(slot)
+
+    def _ensure_pages(self, new_rows: int) -> bool:
+        """Grow every active slot's pages to cover rows
+        [0, min(length + new_rows, window)) before a dispatch writes them;
+        when the pool runs dry, preempt the newest admission (recompute
+        later). Returns whether any slot is still active."""
+        ps = self.page_size
+        for slot in sorted(self._active_slots(),
+                           key=lambda s: self._admit_seq[s]):
+            if self.slot_req[slot] is None:         # preempted this round
+                continue
+            rows = min(int(self.lengths[slot]) + new_rows,
+                       self.pages_per_slot * ps)
+            pages = self._slot_pages[slot]
+            while len(pages) < -(-rows // ps):
+                need = -(-rows // ps) - len(pages)
+                got = self.allocator.alloc(need)
+                if got is not None:
+                    self.table[slot, len(pages):len(pages) + need] = got
+                    pages.extend(got)
+                    break
+                victim = max(self._active_slots(),
+                             key=lambda s: self._admit_seq[s])
+                self._preempt(victim)
+                if victim == slot:
+                    break
+        return bool(self._active_slots())
+
+    def _preempt(self, slot: int):
+        """Release a running request's pages and requeue it at the front;
+        it resumes by re-prefilling prompt + generated so far."""
+        req = self.slot_req[slot]
+        self._resume_ctx[req.id] = req.prompt_ids + req.generated
+        self.slot_req[slot] = None
+        self._release_slot(slot)
+        with self._lock:
+            self._queue.appendleft(req)
+        self.counts["preemptions"] += 1
+
+    # -- the step -----------------------------------------------------------
+
+    def step(self) -> bool:
+        """One scheduling step: advance a chunked prefill (one mixed
+        dispatch), else admit waiting prompts, else decode. Returns whether
+        any work was done."""
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and r.cancelled:
+                r.finish_reason = "cancelled"
+                self._finish(slot)
+        if self._chunk is not None:
+            self._advance_chunk()
+            return True
+        batch, chunk_next = self._admit()
+        if batch:
+            self._prefill_batch(batch)
+        if chunk_next is not None:
+            self._start_chunk(*chunk_next)
+            if not batch:
+                self._advance_chunk()
+        if batch or chunk_next is not None:
+            return True
+        if self._active_slots():
+            self._decode()
+            return True
+        return False
+
+    def _admit(self):
+        """FCFS admission: pop queue heads while a slot is free and the pool
+        holds the head's pages; fresh fitting prompts form the prefill batch,
+        a prompt that chunks (or a resume) ends it."""
+        batch, chunk_next = [], None
+        ps = self.page_size
+        while len(batch) < max(1, self.serving.max_prefill_batch) \
+                and self._free:
+            with self._lock:
+                if not self._queue:
+                    break
+                req = self._queue[0]
+                if req.cancelled:
+                    self._queue.popleft()
+                    self._resume_ctx.pop(req.id, None)
+                    req.finish_reason = "cancelled"
+                    req.out_queue.put(None)
+                    continue
+                ids = self._resume_ctx.get(req.id, req.prompt_ids)
+                if -(-(len(ids) + 1) // ps) > self.allocator.free_pages:
+                    break                  # head-of-line blocking: FCFS
+                self._queue.popleft()
+            slot = self._free.popleft()
+            pages = self.allocator.alloc(-(-len(ids) // ps))
+            self._slot_pages[slot] = pages
+            self.table[slot, :] = 0
+            self.table[slot, :len(pages)] = pages
+            self._seq_counter += 1
+            self._admit_seq[slot] = self._seq_counter
+            resumed = self._resume_ctx.pop(req.id, None) is not None
+            if resumed or self._should_chunk(len(ids)):
+                chunk_next = (req, slot, list(ids), resumed)
+                break
+            batch.append((req, slot))
+        return batch, chunk_next
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _prefill_batch(self, batch):
+        N = len(batch)
+        T = self._bucket_for(max(len(r.prompt_ids) for r, _ in batch))
+        tokens = np.zeros((N, T), np.int32)
+        true_lens = np.zeros(N, np.int32)
+        for i, (req, _) in enumerate(batch):
+            tokens[i, :len(req.prompt_ids)] = req.prompt_ids
+            true_lens[i] = len(req.prompt_ids)
+        slots = [s for _, s in batch]
+        self.cache, toks = prefill_batch_step(
+            self.model, self.cache, self._dev(tokens), self._dev(true_lens),
+            self._dev(self.table[slots]),
+            self._dev(np.array([r.temperature for r, _ in batch], np.float32)),
+            self._dev(np.array([r.top_k for r, _ in batch], np.int32)),
+            self._dev(np.array([r.top_p for r, _ in batch], np.float32)),
+            self.generator)
+        toks = toks.cpu().numpy()
+        self.counts["prefill_dispatches"] += 1
+        for i, (req, slot) in enumerate(batch):
+            self._activate(req, slot, int(toks[i]), req.prompt_ids, False)
+
+    def _start_chunk(self, req: Request, slot: int, ids: List[int],
+                     resumed: bool):
+        self.lengths[slot] = 0
+        self._chunk = {"req": req, "slot": slot, "ids": ids, "off": 0,
+                       "resumed": resumed}
+
+    def _advance_chunk(self):
+        """One mixed dispatch: the walk's next chunk packed beside a decode
+        step of every active slot."""
+        st = self._chunk
+        req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
+        if req.cancelled:
+            self._chunk = None
+            self._release_slot(slot)
+            req.finish_reason = "cancelled"
+            req.out_queue.put(None)
+            return
+        C = self._chunk_size
+        chunk = ids[off:off + C]
+        # page headroom for the decode rows' writes; the chunking slot is not
+        # active, so it is never the one preempted here
+        self._ensure_pages(1)
+        active = self._active_slots()
+        ptokens = np.zeros((1, C), np.int32)
+        ptokens[0, :len(chunk)] = chunk
+        self.cache, out, ptok = mixed_step(
+            self.model, self.cache, self._dev(self.last_token),
+            self._dev(self.lengths), self._dev(ptokens), slot, off,
+            len(chunk), self._dev(self.table), self._dev(self.temps),
+            self._dev(self.top_ks), self._dev(self.top_ps),
+            req.temperature, req.top_k, req.top_p, self.generator)
+        out = out.cpu().numpy()
+        ptok = int(ptok.cpu()[0])
+        self.counts["mixed_dispatches"] += 1
+        st["off"] = off + len(chunk)
+        self.lengths[slot] = st["off"]
+        for s in active:
+            if self.slot_req[s] is not None:
+                self.lengths[s] += 1
+                self._emit(s, int(out[0, s]))
+        if st["off"] >= len(ids):
+            self._chunk = None
+            self._activate(req, slot, ptok, ids, st["resumed"])
+
+    def _decode(self):
+        with self._lock:
+            waiting = bool(self._queue)
+        horizon = 1 if (waiting and self._free) \
+            else max(1, self.serving.decode_horizon)
+        if not self._ensure_pages(horizon):
+            return
+        active = self._active_slots()
+        self.cache, out = decode_steps(
+            self.model, horizon, self.cache, self._dev(self.last_token),
+            self._dev(self.lengths), self._dev(self.table),
+            self._dev(self.temps), self._dev(self.top_ks),
+            self._dev(self.top_ps), self.generator)
+        out = out.cpu().numpy()
+        self.counts["decode_dispatches"] += 1
+        for s in range(horizon):
+            for slot in active:
+                if self.slot_req[slot] is None:
+                    continue                 # finished earlier this horizon
+                self.lengths[slot] += 1
+                self._emit(slot, int(out[s, slot]))
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    def _activate(self, req: Request, slot: int, token: int,
+                  ids: List[int], resumed: bool):
+        """Post-prefill bookkeeping. A resume rebuilt the cache of
+        prompt + generated: its sampled token is discarded and decode
+        continues from the last real token, whose row it rewrites."""
+        self.slot_req[slot] = req
+        self.lengths[slot] = len(ids) - 1 if resumed else len(ids)
+        self.temps[slot] = req.temperature
+        self.top_ks[slot] = req.top_k
+        self.top_ps[slot] = req.top_p
+        if resumed:
+            self.last_token[slot] = ids[-1]
+        else:
+            self._emit(slot, token)
+
+    def _emit(self, slot: int, token: int):
+        """Record one generated token; handle stop conditions."""
+        req = self.slot_req[slot]
+        req.generated.append(token)
+        self.last_token[slot] = token
+        self.counts["generated_tokens"] += 1
+        hit_eos = token in self._eos_set and not req.ignore_eos
+        out_of_budget = (len(req.generated) >= req.max_tokens
+                         or self.lengths[slot] + 1 >= self.max_len)
+        if hit_eos or out_of_budget:
+            req.finish_reason = "stop" if hit_eos else "length"
+            self._finish(slot)
+
+    def _finish(self, slot: int):
+        req = self.slot_req[slot]
+        self.slot_req[slot] = None
+        self._release_slot(slot)
+        self.counts["finished"] += 1
+        req.out_queue.put(None)
+
+    # -- loop ---------------------------------------------------------------
+
+    def idle(self) -> bool:
+        return (self._chunk is None and not self._active_slots()
+                and not self.pending)
+
+    def run_until_idle(self, max_steps: int = 1_000_000):
+        """Step until nothing is queued, chunking or active."""
+        for _ in range(max_steps):
+            if self.idle():
+                return
+            self.step()
+        raise RuntimeError("engine did not go idle")
+
+    def run_forever(self, stop: threading.Event):
+        """Engine thread body: step until stopped, sleeping when idle. A
+        failing step fails every in-flight and queued request (their waiters
+        get the sentinel) and the loop keeps serving."""
+        while not stop.is_set():
+            try:
+                did_work = self.step()
+            # boundary that must keep serving: record, fail the affected
+            # requests, continue
+            except Exception as e:  # noqa: BLE001
+                log.exception("engine step failed; failing in-flight "
+                              "requests")
+                self.last_error = f"{type(e).__name__}: {e}"
+                self._fail_all()
+                did_work = False
+            if not did_work:
+                self._work_event.wait(timeout=0.05)
+                self._work_event.clear()
+
+    def _fail_all(self):
+        if self._chunk is not None:
+            st, self._chunk = self._chunk, None
+            self._release_slot(st["slot"])
+            st["req"].finish_reason = "error"
+            st["req"].out_queue.put(None)
+        for slot, r in enumerate(self.slot_req):
+            if r is not None:
+                r.finish_reason = "error"
+                self._finish(slot)
+        with self._lock:
+            queued, self._queue = list(self._queue), collections.deque()
+        self._resume_ctx.clear()
+        for r in queued:
+            r.finish_reason = "error"
+            r.out_queue.put(None)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

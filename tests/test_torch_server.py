@@ -1,0 +1,110 @@
+"""The port's HTTP server on the CPU: ``/v1/models``, ``/v1/completions``
+and ``/health`` over a real socket, with tiny_qwen3 and the byte tokenizer.
+"""
+
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import pytest
+import torch
+
+from aws_k8s_ansible_provisioner_tpu_torch.config import ServingConfig
+from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (build_state,
+                                                                  main,
+                                                                  make_server)
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def server():
+    serving = ServingConfig(model="tiny-qwen3", max_decode_slots=4,
+                            max_cache_len=128, page_size=8,
+                            prefill_buckets=(16, 32, 64), dtype="float32",
+                            prefill_chunk=16)
+    state = build_state(serving, device="cpu")
+    srv = make_server(state, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+    yield f"http://127.0.0.1:{srv.server_address[1]}", state
+    srv.shutdown()
+    srv.server_close()
+    state.stop_engine()
+    th.join(10)
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _post(url, body):
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_models_lists_the_served_model(server):
+    base, state = server
+    status, out = _get(base + "/v1/models")
+    assert status == 200
+    assert out["object"] == "list"
+    assert out["data"][0]["id"] == "tiny-qwen3"
+    assert out["data"][0]["max_model_len"] == state.engine.max_len
+
+
+@pytest.mark.parametrize("prompt", ["Hello", "a longer prompt that the "
+                                    "engine walks in chunks of sixteen"])
+def test_completion_returns_text_and_usage(server, prompt):
+    base, _ = server
+    status, out = _post(base + "/v1/completions",
+                        {"prompt": prompt, "max_tokens": 7})
+    assert status == 200
+    assert out["object"] == "text_completion"
+    choice = out["choices"][0]
+    assert isinstance(choice["text"], str)
+    assert choice["finish_reason"] in ("length", "stop")
+    usage = out["usage"]
+    assert usage["prompt_tokens"] == len(prompt.encode())
+    assert 1 <= usage["completion_tokens"] <= 7
+    assert usage["total_tokens"] == usage["prompt_tokens"] + \
+        usage["completion_tokens"]
+
+
+def test_token_id_prompt_and_greedy_repeatability(server):
+    base, _ = server
+    body = {"prompt": [72, 105, 33], "max_tokens": 5, "ignore_eos": True}
+    first = _post(base + "/v1/completions", body)
+    second = _post(base + "/v1/completions", body)
+    assert first[0] == second[0] == 200
+    assert first[1]["choices"][0]["text"] == second[1]["choices"][0]["text"]
+    assert first[1]["usage"]["completion_tokens"] == 5
+
+
+def test_bad_requests_get_4xx(server):
+    base, _ = server
+    assert _post(base + "/v1/completions", b"{not json")[0] == 400
+    assert _post(base + "/v1/completions", {"prompt": 3})[0] == 400
+    assert _post(base + "/v1/completions", {"prompt": "x" * 500})[0] == 400
+    assert _post(base + "/v1/nothing", {})[0] == 404
+
+
+def test_health_reports_ok(server):
+    base, _ = server
+    status, out = _get(base + "/health")
+    assert status == 200 and out["status"] == "ok" and out["device"] == "cpu"
+
+
+def test_cli_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the check is for a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "tiny-qwen3", "--port", "0"])
