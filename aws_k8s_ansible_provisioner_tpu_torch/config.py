@@ -3,10 +3,10 @@
 The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
-Only the serving fields this slice reads are here; the rest of the JAX
-``ServingConfig`` (int8 KV, checkpoint loading, prefix cache, host tier,
-pipeline, spec decode, LoRA, deadlines, telemetry) comes over with the
-slices that port those features.
+Only the serving fields the port reads are here; the rest of the JAX
+``ServingConfig`` (checkpoint loading, prefix cache, host tier, pipeline,
+spec decode, LoRA, deadlines, telemetry) comes over with the slices that
+port those features.
 """
 
 from __future__ import annotations
@@ -149,10 +149,14 @@ class ServingConfig:
     max_tokens_default: int = 256
     # Admissions past this queue depth are refused (0 = unbounded).
     max_queue_depth: int = 256
-    # Seed of the engine's sampling generator; None draws it from os.urandom.
+    # Seed of the engine's draws of per-request sampling seeds for requests
+    # that set none; None draws it from os.urandom.
     derived_seed: object = None
-    # Activation and KV dtype (the KV pool is stored in this dtype).
+    # Activation dtype; the KV pool is stored in it unless kv_dtype is int8.
     dtype: str = "bfloat16"
+    # "auto" = KV pool in ``dtype``; "int8" = per-row int8 K/V with a float32
+    # scale per (row, kv head) (vLLM's kv_cache_dtype): half the bytes.
+    kv_dtype: str = "auto"
     # "int8" = weights-only per-out-channel int8 (the default); "bf16"/"auto"
     # keep the weights as loaded.
     weights_dtype: str = "int8"

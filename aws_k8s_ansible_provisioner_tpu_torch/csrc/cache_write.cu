@@ -1,8 +1,11 @@
-// Paged K/V row write: one new K row and one new V row per packed query row,
-// written in place into the page pool.
+// Paged K/V row writes: one new K row and one new V row per packed query
+// row, written in place into the page pool; copied as they are
+// (cache_write_rows_paged) or quantized to int8 with a float32 scale per
+// row and kv head (cache_write_rows_quant_paged).
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
-//   cache_write_row_paged (called once for K and once for V per layer).
+//   cache_write_row_paged and cache_write_row_quant_paged (each called once
+//   for K and once for V per layer).
 //
 // Contract (same as the TPU kernel): pool [L, P, Hkv, ps, D]; new rows
 // [N, Hkv, D]; rows [N] int32; table [N, max_pages] int32. Row n lands at
@@ -18,11 +21,28 @@
 // bytes of a head row (one D=128 bf16 row is 256 bytes); K and V go in one
 // launch (the attention paths always write both). The copy is byte-exact,
 // so one kernel serves bf16 and float32 pools.
+//
+// The quantizing write follows serving/kv_cache.py's quantize_rows as the
+// JAX engine's compiled programs compute it: per (row, kv head),
+// scale = max(amax, 1e-6) * float32(1/127) (XLA turns the division by the
+// constant into that product), q = round_half_even(x / scale) with an IEEE
+// division, so its int8 rows and scales are bit-identical to the plain
+// version. Bytes bound it too: D elements in, D int8 bytes and one float32
+// out per (row, kv head). One CTA per (packed row, K or V); a warp per kv
+// head reads the row once into registers, takes amax with a shuffle
+// reduction and stores D bytes, 32 neighbouring lanes on 32 neighbouring
+// bytes. The same drop checks as the copy come first. Rows that share a
+// page land at their own offsets, every one of them (the Pallas kernel's
+// scale block spans a whole page; see ROADMAP C6).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kMaxD = 256;
+constexpr float kInv127 = 1.0f / 127.0f;
 
 __global__ void cache_write_rows_paged_kernel(
     uint4* __restrict__ pool_k, uint4* __restrict__ pool_v,
@@ -49,6 +69,60 @@ __global__ void cache_write_rows_paged_kernel(
   }
 }
 
+template <typename T>
+__device__ __forceinline__ float to_float(T x);
+template <>
+__device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void cache_write_rows_quant_kernel(
+    int8_t* __restrict__ pool_k, int8_t* __restrict__ pool_v,
+    float* __restrict__ scale_k, float* __restrict__ scale_v,
+    const T* __restrict__ k_new, const T* __restrict__ v_new,
+    const int32_t* __restrict__ rows, const int32_t* __restrict__ table,
+    int layer, int num_pages, int hkv, int ps, int d, int max_pages) {
+  const int n = blockIdx.x;
+  const bool is_v = blockIdx.y == 1;
+  const int row = rows[n];
+  if (row < 0 || row >= max_pages * ps) return;   // dropped: table unread
+  const int page = table[(int64_t)n * max_pages + row / ps];
+  if (page < 0 || page >= num_pages) return;
+  const int off = row % ps;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const T* src = (is_v ? v_new : k_new) + (int64_t)n * hkv * d;
+  int8_t* pool = is_v ? pool_v : pool_k;
+  float* scales = is_v ? scale_v : scale_k;
+  for (int h = threadIdx.x >> 5; h < hkv; h += warps) {
+    const T* x = src + (int64_t)h * d;
+    float vals[kMaxD / 32];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxD / 32; ++i) {
+      const int c = lane + 32 * i;
+      vals[i] = c < d ? to_float(x[c]) : 0.f;
+      amax = fmaxf(amax, fabsf(vals[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = fmaxf(amax, 1e-6f) * kInv127;
+    const int64_t dst = ((((int64_t)layer * num_pages + page) * hkv + h) * ps
+                         + off);
+    int8_t* out = pool + dst * d;
+#pragma unroll
+    for (int i = 0; i < kMaxD / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < d) out[c] = (int8_t)rintf(__fdiv_rn(vals[i], scale));
+    }
+    if (lane == 0) scales[dst] = scale;
+  }
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -67,5 +141,37 @@ extern "C" int cache_write_rows_paged(
       (uint4*)pool_k, (uint4*)pool_v, (const uint4*)k_new,
       (const uint4*)v_new, (const int32_t*)rows, (const int32_t*)table,
       layer, num_pages, hkv, ps, vec_per_row, max_pages);
+  return (int)cudaGetLastError();
+}
+
+// Quantizing row write into an int8 pool and its float32 scale pools
+// [L, P, Hkv, ps]. dtype of the new rows: 0 = float32, 1 = bfloat16.
+// D <= 256 (the wrapper checks). Returns cudaGetLastError() after the
+// launch (0 = launched).
+extern "C" int cache_write_rows_quant_paged(
+    void* pool_k, void* pool_v, void* scale_k, void* scale_v,
+    const void* k_new, const void* v_new, const void* rows,
+    const void* table, int n_rows, int layer, int num_pages, int hkv,
+    int ps, int d, int max_pages, int dtype, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
+  int threads = 32 * hkv;
+  threads = threads > 1024 ? 1024 : threads;
+  dim3 grid(n_rows, 2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    cache_write_rows_quant_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        (int8_t*)pool_k, (int8_t*)pool_v, (float*)scale_k, (float*)scale_v,
+        (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
+        (const int32_t*)rows, (const int32_t*)table, layer, num_pages, hkv,
+        ps, d, max_pages);
+  } else if (dtype == 0) {
+    cache_write_rows_quant_kernel<float><<<grid, threads, 0, s>>>(
+        (int8_t*)pool_k, (int8_t*)pool_v, (float*)scale_k, (float*)scale_v,
+        (const float*)k_new, (const float*)v_new, (const int32_t*)rows,
+        (const int32_t*)table, layer, num_pages, hkv, ps, d, max_pages);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

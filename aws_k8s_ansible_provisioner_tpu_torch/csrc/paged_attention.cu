@@ -1,8 +1,10 @@
-// Paged flash attention with per-row (table row, live-column limit).
+// Paged flash attention with per-row (table row, live-column limit), over a
+// bf16/f32 pool or an int8 pool with per-row float32 scales.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
-//   _paged_flash_db / _paged_db_body (bf16, R=1, window 0), the body behind
-//   decode_attend_pallas_paged and ragged_attend_pallas_paged.
+//   _paged_flash_db / _paged_db_body (R=1, window 0), the body behind
+//   decode_attend_pallas_paged and ragged_attend_pallas_paged: the bf16 body
+//   _paged_db_kernel and the int8 scale-folding body _paged_db_kernel_quant.
 //
 // Contract (same as the TPU kernel): q [N, Hq, D]; pools [L, P, Hkv, ps, D];
 // limits [N] int32; table [N, max_pages] int32; output [N, Hq, D] in q's
@@ -16,22 +18,32 @@
 // dead passenger row; its output is discarded). Page ids are clamped into
 // [0, P), as Pallas clamps a block index.
 //
+// Int8 pools (scale pools ks, vs [L, P, Hkv, ps] float32) fold the scales
+// into the flash loop in the TPU body's order and never build a dequantized
+// copy: s = (q * 1/sqrt(D)) . k_int8 * kscale[col], then the mask and the
+// online max; l sums the UNSCALED p, and p * vscale[col] enters P.V.
+//
 // What bounds it on the H100: bytes. A decode row reads its live K and V
-// pages once (2 * ps * D * 2 bytes per page and kv head) and does 4 * G * D
-// flops per column, about one flop per byte against the card's ~295
-// flop/byte ridge. The design keeps every byte read exactly once per
-// (row, kv head): one CTA per (query row, kv head) and the G = Hq / Hkv
-// query heads of that kv head share its page stream (GQA in the kernel); a
-// page tile of K and V is copied into shared memory with 16-byte loads,
-// scores, running max, denominator and the accumulator stay in float32 in
-// shared memory, and the output is written once. This first version does
-// not overlap the next page's copy with the current page's arithmetic, uses
-// no tensor cores, and does not split long rows across CTAs; rows that share
-// a slot (chunk rows) re-read that slot's pages. Those are the known costs.
+// pages once (2 * ps * D * elem bytes per page and kv head, plus 2 * ps * 4
+// bytes of scales for int8) and does 4 * G * D flops per column, about one
+// flop per byte against the card's ~295 flop/byte ridge. The design keeps
+// every byte read exactly once per (row, kv head): one CTA per (query row,
+// kv head) and the G = Hq / Hkv query heads of that kv head share its page
+// stream (GQA in the kernel); a page tile of K and V is copied into shared
+// memory with 16-byte loads (the page's scales with 4-byte loads), scores,
+// running max, denominator and the accumulator stay in float32 in shared
+// memory, and the output is written once. An int8 pool halves the tile's
+// bytes; the values are converted to float32 as they are read from shared
+// memory. This first version does not overlap the next page's copy with the
+// current page's arithmetic, uses no tensor cores, and does not split long
+// rows across CTAs; rows that share a slot (chunk rows) re-read that slot's
+// pages. Those are the known costs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,6 +59,10 @@ __device__ __forceinline__ float to_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
+  return (float)x;
 }
 
 template <typename T>
@@ -71,26 +87,32 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Shared memory: K tile, V tile [ps, D] (T), then float32 q [G, D],
-// scores [G, ps], acc [G, D], m [G], l [G], corr [G].
-template <typename T>
+// Shared memory: K tile, V tile [ps, D] (TP), then float32 q [G, D],
+// scores [G, ps], acc [G, D], m [G], l [G], corr [G], and for an int8 pool
+// the page's K and V scales [ps] each.
+template <typename T, typename TP>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
-                       const T* __restrict__ pool_k,
-                       const T* __restrict__ pool_v,
+                       const TP* __restrict__ pool_k,
+                       const TP* __restrict__ pool_v,
+                       const float* __restrict__ pool_ks,
+                       const float* __restrict__ pool_vs,
                        const int32_t* __restrict__ limits,
                        const int32_t* __restrict__ table, int layer,
                        int num_pages, int hkv, int ps, int d, int groups,
                        int max_pages, float scale) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + ps * d;
+  TP* ks = reinterpret_cast<TP*>(smem);
+  TP* vs = ks + ps * d;
   float* qs = reinterpret_cast<float*>(vs + ps * d);
   float* sc = qs + groups * d;
   float* acc = sc + groups * ps;
   float* m_run = acc + groups * d;
   float* l_run = m_run + groups;
   float* corr = l_run + groups;
+  float* k_scale = corr + groups;          // kQuant only
+  float* v_scale = k_scale + ps;
 
   const int n = blockIdx.x;
   const int h = blockIdx.y;
@@ -113,13 +135,13 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
     l_run[tid] = 0.f;
   }
 
-  const int tile_vecs = ps * d * (int)sizeof(T) / 16;
+  const int tile_vecs = ps * d * (int)sizeof(TP) / 16;
   const int32_t* table_row = table + (int64_t)n * max_pages;
   for (int c = 0; c <= hi; ++c) {
     int page = table_row[c];
     page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-    const int64_t base = (((int64_t)layer * num_pages + page) * hkv + h) *
-                         (int64_t)ps * d;
+    const int64_t head = ((int64_t)layer * num_pages + page) * hkv + h;
+    const int64_t base = head * (int64_t)ps * d;
     const uint4* k_src = reinterpret_cast<const uint4*>(pool_k + base);
     const uint4* v_src = reinterpret_cast<const uint4*>(pool_v + base);
     uint4* k_dst = reinterpret_cast<uint4*>(ks);
@@ -128,9 +150,16 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
       k_dst[i] = k_src[i];
       v_dst[i] = v_src[i];
     }
+    if (kQuant) {
+      for (int i = tid; i < ps; i += kThreads) {
+        k_scale[i] = pool_ks[head * ps + i];
+        v_scale[i] = pool_vs[head * ps + i];
+      }
+    }
     __syncthreads();
 
-    // scores: one warp per column, lanes split D, all G heads at once
+    // scores: one warp per column, lanes split D, all G heads at once;
+    // int8: the dot of the raw values, times the column's K scale
     for (int j = warp; j < ps; j += kWarps) {
       float part[kMaxGroups];
 #pragma unroll
@@ -145,14 +174,16 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
         if (g < groups) {
-          const float s = warp_sum(part[g]);
+          float s = warp_sum(part[g]);
+          if (kQuant) s *= k_scale[j];
           if (lane == 0) sc[g * ps + j] = live ? s : kNegInf;
         }
       }
     }
     __syncthreads();
 
-    // online softmax: one warp per head of the group
+    // online softmax: one warp per head of the group; l sums the unscaled
+    // p, and P.V takes p times the column's V scale (int8)
     for (int g = warp; g < groups; g += kWarps) {
       float mx = kNegInf;
       for (int j = lane; j < ps; j += 32) mx = fmaxf(mx, sc[g * ps + j]);
@@ -162,7 +193,7 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
       float sum = 0.f;
       for (int j = lane; j < ps; j += 32) {
         const float p = expf(sc[g * ps + j] - m_cur);
-        sc[g * ps + j] = p;
+        sc[g * ps + j] = kQuant ? p * v_scale[j] : p;
         sum += p;
       }
       sum = warp_sum(sum);
@@ -201,47 +232,57 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
-           const void* limits, const void* table, int n_rows, int hkv,
-           int groups, int d, int num_pages, int ps, int max_pages, int layer,
-           float scale, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)ps * d * sizeof(T) +
+           const void* pool_ks, const void* pool_vs, const void* limits,
+           const void* table, int n_rows, int hkv, int groups, int d,
+           int num_pages, int ps, int max_pages, int layer, float scale,
+           cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
+  const size_t smem = 2 * (size_t)ps * d * sizeof(TP) +
                       sizeof(float) * ((size_t)groups * (2 * d + ps) +
-                                       3 * (size_t)groups);
+                                       3 * (size_t)groups +
+                                       (kQuant ? 2 * (size_t)ps : 0));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
+        paged_attention_kernel<T, TP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_rows, hkv);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (T*)out, (const T*)q, (const T*)pool_k, (const T*)pool_v,
-      (const int32_t*)limits, (const int32_t*)table, layer, num_pages, hkv,
-      ps, d, groups, max_pages, scale);
+  paged_attention_kernel<T, TP><<<grid, kThreads, smem, stream>>>(
+      (T*)out, (const T*)q, (const TP*)pool_k, (const TP*)pool_v,
+      (const float*)pool_ks, (const float*)pool_vs, (const int32_t*)limits,
+      (const int32_t*)table, layer, num_pages, hkv, ps, d, groups, max_pages,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = launched). groups <= 8 and D % 8 == 0 (the wrapper checks).
+// dtype (q and output): 0 = float32, 1 = bfloat16. pool_dtype: 0 = float32,
+// 1 = bfloat16 (both the q type), 2 = int8 with the float32 scale pools
+// pool_ks / pool_vs (ignored otherwise). Returns cudaGetLastError() after
+// the launch (0 = launched). groups <= 8, D % 8 == 0 and, for int8,
+// D % 16 == 0 (the wrapper checks).
 extern "C" int paged_attention(void* out, const void* q, const void* pool_k,
-                               const void* pool_v, const void* limits,
+                               const void* pool_v, const void* pool_ks,
+                               const void* pool_vs, const void* limits,
                                const void* table, int n_rows, int hkv,
                                int groups, int d, int num_pages, int ps,
                                int max_pages, int layer, float scale,
-                               int dtype, void* stream) {
+                               int dtype, int pool_dtype, void* stream) {
   if (n_rows <= 0) return 0;
   if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(out, q, pool_k, pool_v, limits, table,
-                                 n_rows, hkv, groups, d, num_pages, ps,
-                                 max_pages, layer, scale, s);
-  if (dtype == 0)
-    return launch<float>(out, q, pool_k, pool_v, limits, table, n_rows, hkv,
-                         groups, d, num_pages, ps, max_pages, layer, scale, s);
+#define PA_LAUNCH(T, TP)                                                    \
+  return launch<T, TP>(out, q, pool_k, pool_v, pool_ks, pool_vs, limits,    \
+                       table, n_rows, hkv, groups, d, num_pages, ps,        \
+                       max_pages, layer, scale, s)
+  if (dtype == 1 && pool_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 0 && pool_dtype == 0) PA_LAUNCH(float, float);
+  if (dtype == 1 && pool_dtype == 2) PA_LAUNCH(__nv_bfloat16, int8_t);
+  if (dtype == 0 && pool_dtype == 2) PA_LAUNCH(float, int8_t);
+#undef PA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

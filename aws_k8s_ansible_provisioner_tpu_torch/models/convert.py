@@ -1,4 +1,5 @@
-"""Conversion of a JAX parameter tree (as numpy arrays) into the port's tree.
+"""Conversion of a JAX parameter tree or KV page pool (as numpy arrays) into
+the port's.
 
 The layouts are the same on both sides (``models/layers.py``), so the
 conversion is a leaf-by-leaf copy that keeps every bit: float32, int8 and
@@ -80,3 +81,12 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> dict:
             raise ValueError(f"parameter {'/'.join(path)}: shape "
                              f"{tuple(node.shape)} != {expect}")
     return out
+
+
+def from_jax_pool(pool: dict, device="cpu") -> dict:
+    """JAX paged KV pool (``{"k", "v"}`` and, int8, ``{"ks", "vs"}``; numpy
+    or JAX arrays) -> the port's pool, leaf for leaf and bit for bit, so a
+    test can hand one pool to both sides. The leaves are copies: the port
+    writes its pool in place, and that must not reach the caller's
+    arrays."""
+    return {name: _leaf(np.array(arr), device) for name, arr in pool.items()}

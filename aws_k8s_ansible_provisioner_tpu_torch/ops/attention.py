@@ -12,10 +12,14 @@ rows into the pool in place and attends:
   attention over the prompt window plus the paged scatter (no kernel, as in
   the JAX package).
 
-The decode and mixed callbacks go through the two kernels of
-``ops/paged_attention.py``. As in the JAX reference, all N row writes land
-before any row attends, so a chunk row sees exactly its prefix and a decode
-row exactly its own slot.
+The decode and mixed callbacks go through the kernels of
+``ops/paged_attention.py``: the row write and the attention over a bf16/f32
+pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
+the quantizing row write and the scale-folding attention. As in the JAX
+reference, all N row writes land before any row attends, so a chunk row
+sees exactly its prefix and a decode row exactly its own slot. The prefill
+callback attends over the fresh, unquantized K/V and scatters (quantized)
+rows into the pool.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import causal_attend
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
-    cache_write_rows_paged, decode_attend_paged, ragged_attend_paged)
+    cache_write_rows_paged, cache_write_rows_quant_paged, decode_attend_paged,
+    ragged_attend_paged)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 
 
@@ -52,6 +57,21 @@ def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
     return ctx.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def _write_rows(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                rows: torch.Tensor, layer: int, tables: torch.Tensor) -> dict:
+    """The layer's new K/V rows into the pool through the row-write kernel
+    (quantizing when the pool is int8); returns the scale pools as the
+    attention kernels take them (none for a bf16/f32 pool)."""
+    if "ks" in pool:
+        cache_write_rows_quant_paged(pool["k"], pool["v"], pool["ks"],
+                                     pool["vs"], k_new, v_new, rows, layer,
+                                     tables)
+        return {"pool_ks": pool["ks"], "pool_vs": pool["vs"]}
+    cache_write_rows_paged(pool["k"], pool["v"], k_new, v_new, rows, layer,
+                           tables)
+    return {}
+
+
 def make_decode_attend_carry_paged(lengths: torch.Tensor,
                                    table: torch.Tensor):
     """Decode over the paged pool: slot b writes its new K/V row at row
@@ -61,10 +81,10 @@ def make_decode_attend_carry_paged(lengths: torch.Tensor,
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
-        cache_write_rows_paged(pool["k"], pool["v"], k[:, 0].contiguous(),
-                               v[:, 0].contiguous(), lengths, layer, table)
+        scales = _write_rows(pool, k[:, 0].contiguous(), v[:, 0].contiguous(),
+                             lengths, layer, table)
         ctx = decode_attend_paged(q, pool["k"], pool["v"], limits, layer,
-                                  table)
+                                  table, **scales)
         return ctx, (pool, layer)
 
     return attend
@@ -81,11 +101,10 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
-        cache_write_rows_paged(pool["k"], pool["v"], k[0].contiguous(),
-                               v[0].contiguous(), write_rows, layer,
-                               row_tables)
+        scales = _write_rows(pool, k[0].contiguous(), v[0].contiguous(),
+                             write_rows, layer, row_tables)
         ctx = ragged_attend_paged(q[0], pool["k"], pool["v"], row_limits,
-                                  layer, row_tables)
+                                  layer, row_tables, **scales)
         return ctx[None], (pool, layer)
 
     return attend
@@ -94,8 +113,9 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
 def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
                                           seq_lens: torch.Tensor):
     """Batched prefill over the paged pool: causal attention over each
-    right-padded prompt, then its rows scatter through ``tables`` (padding
-    rows carry OOB_PAGE and drop)."""
+    right-padded prompt's fresh K/V, then its rows scatter through
+    ``tables`` (quantized into an int8 pool; padding rows carry OOB_PAGE
+    and drop)."""
 
     def attend(q, k, v, cache_l):
         pool, layer = cache_l

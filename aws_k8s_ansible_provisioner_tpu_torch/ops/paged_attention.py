@@ -1,15 +1,22 @@
-"""The two kernels of the serving path, their wrappers and plain versions.
+"""The kernels of the serving path, their wrappers and plain versions.
 
 - :func:`paged_attention` (``csrc/paged_attention.cu``) replaces the TPU
   kernel ``_paged_flash_db``/``_paged_db_body`` behind
   ``decode_attend_pallas_paged`` and ``ragged_attend_pallas_paged``
   (bf16, one query row per table row, no window): flash attention over the
   paged pool where every packed query row carries its own page-table row
-  and live-column limit. :func:`decode_attend_paged` and
-  :func:`ragged_attend_paged` are its two entry points.
+  and live-column limit. :func:`paged_attention_quant` is the same kernel
+  over an int8 pool with per-row float32 scales (the TPU body
+  ``_paged_db_kernel_quant``), folding the scales into the loop.
+  :func:`decode_attend_paged` and :func:`ragged_attend_paged` are the two
+  entry points of both; scale pools select the int8 form.
 - :func:`cache_write_rows_paged` (``csrc/cache_write.cu``) replaces
   ``cache_write_row_paged``: one K and one V row per packed row, written in
   place through the table, rows outside ``[0, max_pages * page)`` dropped.
+  :func:`cache_write_rows_quant_paged` (same source) replaces
+  ``cache_write_row_quant_paged``: the rows quantized
+  (``serving/kv_cache.quantize_rows``) into an int8 pool, their scales into
+  the scale pools.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
@@ -22,14 +29,19 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
+from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+    quantize_rows
 
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_POOL = 2
+_MAX_QUANT_D = 256
 _MAX_GROUPS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,14 +58,22 @@ def _live_pages(limits: torch.Tensor, page_size: int,
 
 def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
                           pool_v: torch.Tensor, limits: torch.Tensor,
-                          layer: int, table: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`paged_attention`: gather each row's visited
-    pages, mask, float32 softmax.
+                          layer: int, table: torch.Tensor,
+                          pool_ks: Optional[torch.Tensor] = None,
+                          pool_vs: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of :func:`paged_attention` and
+    :func:`paged_attention_quant`: gather each row's visited pages, mask,
+    float32 softmax.
 
     q: [N, Hq, D]; pools [L, P, Hkv, page, D]; limits [N]; table
     [N, max_pages]. Row n visits logical pages 0..hi (see the kernel); its
     columns >= limit are masked to NEG_INF (-1e30), so a row with limit 0
-    averages V over page table[n, 0]. Pages past hi are not visited.
+    averages V over page table[n, 0]. Pages past hi are not visited. With
+    scale pools ``pool_ks``/``pool_vs`` [L, P, Hkv, page] the pools are int8
+    and the scales fold in as the kernel folds them: scores times the K
+    scale before the mask, the denominator over the unscaled
+    probabilities, the probabilities times the V scale in P.V.
     """
     N, Hq, D = q.shape
     _, P, Hkv, ps, _ = pool_k.shape
@@ -64,21 +84,26 @@ def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
     n_vis = int(hi.max()) + 1
     pages = table[:, :n_vis].long().clamp(0, P - 1)            # [N, n_vis]
 
-    def gather(pool):
-        g = pool[layer][pages]                       # [N, n_vis, Hkv, ps, D]
-        return g.permute(0, 2, 1, 3, 4).reshape(N, Hkv, n_vis * ps, D).float()
+    def gather(pool):                     # [N, Hkv, S] (+ [D]) in float32
+        g = pool[layer][pages].movedim(2, 1)      # [N, Hkv, n_vis, ps, (D)]
+        return g.reshape((N, Hkv, n_vis * ps) + g.shape[4:]).float()
 
     k, v = gather(pool_k), gather(pool_v)
     qg = q.reshape(N, Hkv, G, D).float() * (1.0 / math.sqrt(D))
     s = torch.einsum("nkgd,nksd->nkgs", qg, k)
+    if pool_ks is not None:
+        s = s * gather(pool_ks)[:, :, None, :]
     col = torch.arange(n_vis * ps, device=q.device)
     live = col[None, :] < limits.long()[:, None]                # [N, S]
     visited = (col[None, :] // ps) <= hi[:, None]
     s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
     s = torch.where(visited[:, None, None], s,
                     torch.full_like(s, float("-inf")))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("nkgs,nksd->nkgd", p, v)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l_sum = p.sum(dim=-1, keepdim=True)
+    if pool_vs is not None:
+        p = p * gather(pool_vs)[:, :, None, :]
+    out = torch.einsum("nkgs,nksd->nkgd", p, v) / l_sum.clamp_min(1e-9)
     return out.reshape(N, Hq, D).to(q.dtype)
 
 
@@ -99,10 +124,65 @@ def _attention_lib():
     lib = cuda_build.load("paged_attention")
     fn = lib.paged_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, ctypes.c_float, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, ctypes.c_float, _I, _I, _P]
         fn.restype = _I
     return fn
+
+
+def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
+                      limits, table, layer: int) -> torch.Tensor:
+    """Check the operands of the attention kernel and launch it (bf16/f32
+    pool when ``pool_ks`` is None, else int8 with scale pools)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    N, Hq, D = q.shape
+    L, P, Hkv, ps, Dk = pool_k.shape
+    G = Hq // Hkv if Hkv else 0
+    quant = pool_ks is not None
+    if (pool_v.shape != pool_k.shape or Dk != D or Hkv * G != Hq
+            or not 1 <= G <= _MAX_GROUPS or D % (16 if quant else 8)):
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
+                         f"pool {tuple(pool_k.shape)}")
+    pool_type = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPE_CODES or pool_k.dtype != pool_type \
+            or pool_v.dtype != pool_type:
+        raise TypeError(f"{what}: q must be bf16 or f32 and the pools "
+                        f"{pool_type}, got {q.dtype}/{pool_k.dtype}/"
+                        f"{pool_v.dtype}")
+    scales = ()
+    if quant:
+        if pool_vs is None or pool_ks.shape != pool_k.shape[:-1] \
+                or pool_vs.shape != pool_ks.shape:
+            raise ValueError(f"{what}: scale pools must be [L, P, Hkv, "
+                             f"page], got {tuple(pool_ks.shape)}")
+        if pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32:
+            raise TypeError(f"{what}: scale pools must be float32")
+        scales = (pool_ks, pool_vs)
+    if limits.dtype != torch.int32 or table.dtype != torch.int32 \
+            or limits.shape != (N,) or table.dim() != 2 \
+            or table.shape[0] != N or table.shape[1] < 1:
+        raise ValueError(f"{what}: limits [N] and table [N, pages] must be "
+                         f"int32")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    _check_cuda(what, (q, pool_k, pool_v, limits, table) + scales,
+                (pool_k, pool_v))
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    fn = _attention_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(out.data_ptr(), q.data_ptr(), pool_k.data_ptr(),
+                pool_v.data_ptr(), pool_ks.data_ptr() if quant else None,
+                pool_vs.data_ptr() if quant else None, limits.data_ptr(),
+                table.data_ptr(), N, Hkv, G, D, P, ps, table.shape[1], layer,
+                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -117,41 +197,8 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, limits, layer, table)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
-    N, Hq, D = q.shape
-    L, P, Hkv, ps, Dk = pool_k.shape
-    G = Hq // Hkv if Hkv else 0
-    if (pool_v.shape != pool_k.shape or Dk != D or Hkv * G != Hq
-            or not 1 <= G <= _MAX_GROUPS or D % 8):
-        raise ValueError(f"paged_attention: bad shapes q {tuple(q.shape)} "
-                         f"pool {tuple(pool_k.shape)}")
-    if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype \
-            or pool_v.dtype != q.dtype:
-        raise TypeError(f"paged_attention: q/pools must share bf16 or f32, "
-                        f"got {q.dtype}/{pool_k.dtype}/{pool_v.dtype}")
-    if limits.dtype != torch.int32 or table.dtype != torch.int32 \
-            or limits.shape != (N,) or table.dim() != 2 \
-            or table.shape[0] != N or table.shape[1] < 1:
-        raise ValueError("paged_attention: limits [N] and table [N, pages] "
-                         "must be int32")
-    if not 0 <= layer < L:
-        raise ValueError(f"paged_attention: layer {layer} outside [0, {L})")
-    _check_cuda("paged_attention", (q, pool_k, pool_v, limits, table),
-                (pool_k, pool_v))
-    out = torch.empty_like(q)
-    if N == 0:
-        return out
-    fn = _attention_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(out.data_ptr(), q.data_ptr(), pool_k.data_ptr(),
-                pool_v.data_ptr(), limits.data_ptr(), table.data_ptr(), N,
-                Hkv, G, D, P, ps, table.shape[1], layer, 1.0 / math.sqrt(D),
-                _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+    out = _launch_attention("paged_attention", q, pool_k, pool_v, None, None,
+                            limits, table, layer)
     paged_attention.launches += 1
     return out
 
@@ -159,26 +206,76 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
 paged_attention.launches = 0
 
 
+def paged_attention_quant(q: torch.Tensor, pool_k: torch.Tensor,
+                          pool_v: torch.Tensor, pool_ks: torch.Tensor,
+                          pool_vs: torch.Tensor, limits: torch.Tensor,
+                          layer: int, table: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_attention` over an int8 pool: pools [L, P, Hkv, page, D]
+    int8, scale pools [L, P, Hkv, page] float32, q bf16 or f32 (D a
+    multiple of 16). CPU tensors take :func:`paged_attention_plain`; CUDA
+    tensors launch the kernel's int8 instance."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
+                                     pool_ks, pool_vs)
+    out = _launch_attention("paged_attention_quant", q, pool_k, pool_v,
+                            pool_ks, pool_vs, limits, table, layer)
+    paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0
+
+
+def _attend(q, pool_k, pool_v, limits, layer, table, pool_ks, pool_vs):
+    if pool_ks is None:
+        return paged_attention(q, pool_k, pool_v, limits, layer, table)
+    return paged_attention_quant(q, pool_k, pool_v, pool_ks, pool_vs, limits,
+                                 layer, table)
+
+
 def decode_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, lengths: torch.Tensor,
-                        layer: int, table: torch.Tensor) -> torch.Tensor:
+                        layer: int, table: torch.Tensor,
+                        pool_ks: Optional[torch.Tensor] = None,
+                        pool_vs: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Decode entry: q [B, 1, Hq, D], one row per slot; ``lengths`` counts
     the rows each slot attends over (the just-written row included).
-    Returns [B, 1, Hq, D]."""
-    return paged_attention(q[:, 0].contiguous(), pool_k, pool_v,
-                           lengths.to(torch.int32), layer,
-                           table.to(torch.int32))[:, None]
+    Scale pools select the int8 form. Returns [B, 1, Hq, D]."""
+    return _attend(q[:, 0].contiguous(), pool_k, pool_v,
+                   lengths.to(torch.int32), layer, table.to(torch.int32),
+                   pool_ks, pool_vs)[:, None]
 
 
 def ragged_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, row_limits: torch.Tensor,
-                        layer: int, row_tables: torch.Tensor) -> torch.Tensor:
+                        layer: int, row_tables: torch.Tensor,
+                        pool_ks: Optional[torch.Tensor] = None,
+                        pool_vs: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Ragged entry: N packed rows [N, Hq, D], each with its own table row
     and live-column limit (decode rows and prefill-chunk rows in one
-    call). Returns [N, Hq, D]."""
-    return paged_attention(q.contiguous(), pool_k, pool_v,
-                           row_limits.to(torch.int32), layer,
-                           row_tables.to(torch.int32))
+    call). Scale pools select the int8 form. Returns [N, Hq, D]."""
+    return _attend(q.contiguous(), pool_k, pool_v,
+                   row_limits.to(torch.int32), layer,
+                   row_tables.to(torch.int32), pool_ks, pool_vs)
+
+
+def _kept_rows(rows: torch.Tensor, table: torch.Tensor, page_size: int,
+               num_pages: int):
+    """(packed indices, page ids, offsets) of the rows a write keeps: row n
+    lands at page table[n, rows[n] // page], offset rows[n] % page; rows
+    outside [0, max_pages * page) drop before their table is read, then
+    page ids outside the pool drop."""
+    N = rows.shape[0]
+    max_pages = table.shape[1]
+    r = rows.long()
+    ok = (r >= 0) & (r < max_pages * page_size)
+    pg = table.long()[torch.arange(N, device=r.device),
+                      torch.where(ok, r // page_size, torch.zeros_like(r))]
+    ok &= (pg >= 0) & (pg < num_pages)
+    sel = ok.nonzero().squeeze(1)
+    return sel, pg[sel], (r % page_size)[sel]
 
 
 def cache_write_rows_paged_plain(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -186,21 +283,21 @@ def cache_write_rows_paged_plain(pool_k: torch.Tensor, pool_v: torch.Tensor,
                                  rows: torch.Tensor, layer: int,
                                  table: torch.Tensor) -> None:
     """Plain version of :func:`cache_write_rows_paged` (index-put with the
-    drop mask). Row n lands at page table[n, rows[n] // page], offset
-    rows[n] % page; rows outside [0, max_pages * page) and page ids outside
-    the pool drop."""
+    drop mask of :func:`_kept_rows`)."""
+    sel, pg, off = _kept_rows(rows, table, pool_k.shape[3], pool_k.shape[1])
+    pool_k[layer, pg, :, off] = k_new[sel].to(pool_k.dtype)
+    pool_v[layer, pg, :, off] = v_new[sel].to(pool_v.dtype)
+
+
+def _check_write_index(what: str, rows, table, layer: int, L: int) -> None:
+    """rows [N] and table [N, pages] int32; layer inside the pool."""
     N = rows.shape[0]
-    _, P, _, ps, _ = pool_k.shape
-    max_pages = table.shape[1]
-    r = rows.long()
-    ok = (r >= 0) & (r < max_pages * ps)
-    pg = table.long()[torch.arange(N, device=r.device),
-                      torch.where(ok, r // ps, torch.zeros_like(r))]
-    ok &= (pg >= 0) & (pg < P)
-    sel = ok.nonzero().squeeze(1)
-    off = (r % ps)[sel]
-    pool_k[layer, pg[sel], :, off] = k_new[sel].to(pool_k.dtype)
-    pool_v[layer, pg[sel], :, off] = v_new[sel].to(pool_v.dtype)
+    if rows.dtype != torch.int32 or table.dtype != torch.int32 \
+            or table.dim() != 2 or table.shape[0] != N or table.shape[1] < 1:
+        raise ValueError(f"{what}: rows [N] and table [N, pages] must be "
+                         f"int32")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
 
 
 def _write_lib():
@@ -240,13 +337,7 @@ def cache_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     if not (pool_v.dtype == k_new.dtype == v_new.dtype == pool_k.dtype):
         raise TypeError("cache_write_rows_paged: new rows must have the "
                         "pool's dtype")
-    if rows.dtype != torch.int32 or table.dtype != torch.int32 \
-            or table.dim() != 2 or table.shape[0] != N or table.shape[1] < 1:
-        raise ValueError("cache_write_rows_paged: rows [N] and table "
-                         "[N, pages] must be int32")
-    if not 0 <= layer < L:
-        raise ValueError(f"cache_write_rows_paged: layer {layer} outside "
-                         f"[0, {L})")
+    _check_write_index("cache_write_rows_paged", rows, table, layer, L)
     _check_cuda("cache_write_rows_paged",
                 (pool_k, pool_v, k_new, v_new, rows, table),
                 (pool_k, pool_v, k_new, v_new))
@@ -267,11 +358,97 @@ def cache_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
 cache_write_rows_paged.launches = 0
 
 
+def cache_write_rows_quant_paged_plain(pool_k: torch.Tensor,
+                                       pool_v: torch.Tensor,
+                                       pool_ks: torch.Tensor,
+                                       pool_vs: torch.Tensor,
+                                       k_new: torch.Tensor,
+                                       v_new: torch.Tensor,
+                                       rows: torch.Tensor, layer: int,
+                                       table: torch.Tensor) -> None:
+    """Plain version of :func:`cache_write_rows_quant_paged`:
+    ``quantize_rows`` of the new rows, then the row write's index-put into
+    the int8 pools and the scale pools."""
+    sel, pg, off = _kept_rows(rows, table, pool_k.shape[3], pool_k.shape[1])
+    for pool, scales, new in ((pool_k, pool_ks, k_new),
+                              (pool_v, pool_vs, v_new)):
+        q8, scale = quantize_rows(new[sel])
+        pool[layer, pg, :, off] = q8
+        scales[layer, pg, :, off] = scale
+
+
+def _quant_write_lib():
+    lib = cuda_build.load("cache_write")
+    fn = lib.cache_write_rows_quant_paged
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def cache_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                 pool_ks: torch.Tensor, pool_vs: torch.Tensor,
+                                 k_new: torch.Tensor, v_new: torch.Tensor,
+                                 rows: torch.Tensor, layer: int,
+                                 table: torch.Tensor) -> None:
+    """Quantize one new K row and V row per packed row and write them into
+    the int8 pool and their scales into the scale pools, in place.
+
+    pools [L, P, Hkv, page, D] int8; scale pools [L, P, Hkv, page] float32;
+    k_new/v_new [N, Hkv, D] bf16 or f32 (D <= 256); rows [N] int32 (-1
+    drops); table [N, max_pages] int32. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (K and V in one launch).
+    """
+    if pool_k.device.type == "cpu":
+        cache_write_rows_quant_paged_plain(pool_k, pool_v, pool_ks, pool_vs,
+                                           k_new, v_new, rows, layer, table)
+        return
+    what = "cache_write_rows_quant_paged"
+    if pool_k.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {pool_k.device}")
+    L, P, Hkv, ps, D = pool_k.shape
+    N = rows.shape[0]
+    if (pool_v.shape != pool_k.shape or pool_ks.shape != pool_k.shape[:-1]
+            or pool_vs.shape != pool_ks.shape
+            or k_new.shape != (N, Hkv, D) or v_new.shape != (N, Hkv, D)
+            or not 1 <= D <= _MAX_QUANT_D):
+        raise ValueError(f"{what}: bad shapes pool {tuple(pool_k.shape)} "
+                         f"scales {tuple(pool_ks.shape)} new "
+                         f"{tuple(k_new.shape)}")
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8 \
+            or pool_ks.dtype != torch.float32 \
+            or pool_vs.dtype != torch.float32 \
+            or k_new.dtype not in _DTYPE_CODES or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{what}: int8 pools, float32 scale pools and bf16 "
+                        f"or f32 rows expected")
+    _check_write_index(what, rows, table, layer, L)
+    _check_cuda(what, (pool_k, pool_v, pool_ks, pool_vs, k_new, v_new, rows,
+                       table), ())
+    if N == 0:
+        return
+    fn = _quant_write_lib()
+    with torch.cuda.device(pool_k.device):
+        stream = torch.cuda.current_stream(pool_k.device).cuda_stream
+        rc = fn(pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+                pool_vs.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                rows.data_ptr(), table.data_ptr(), N, layer, P, Hkv, ps, D,
+                table.shape[1], _DTYPE_CODES[k_new.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    cache_write_rows_quant_paged.launches += 1
+
+
+cache_write_rows_quant_paged.launches = 0
+
+_COUNTED = (paged_attention, paged_attention_quant, cache_write_rows_paged,
+            cache_write_rows_quant_paged)
+
+
 def reset_launch_counts() -> None:
-    paged_attention.launches = 0
-    cache_write_rows_paged.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"paged_attention": paged_attention.launches,
-            "cache_write_rows_paged": cache_write_rows_paged.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -17,6 +17,13 @@ reaches, with these differences:
 
 Idle slots keep decoding into the scratch page 0, as in the JAX engine: their
 tables point there, and their outputs are discarded.
+
+Sampling is seeded per request as in the JAX engine: a request's OpenAI
+``seed``, or else one drawn at submit from the engine's ``random.Random``
+(seeded by ``ServingConfig.derived_seed``, or os.urandom), keys every draw
+with its token position, so a seeded stream does not depend on the batch
+around it and two engines with one ``derived_seed`` draw alike.
+``ServingConfig.kv_dtype="int8"`` stores the pool int8 with per-row scales.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import itertools
 import logging
 import os
 import queue
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -74,6 +82,10 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     ignore_eos: bool = False
+    # OpenAI ``seed``: same seed + same prompt => same sampled stream
+    seed: Optional[int] = None
+    # resolved at submit: the seed's low 32 bits, or the engine's draw
+    eff_seed: int = 0
     cancelled: bool = False
     id: int = field(default_factory=lambda: next(_REQUEST_IDS))
     generated: List[int] = field(default_factory=list)
@@ -103,6 +115,10 @@ class Engine:
                              f"expected 'int8', 'bf16' or 'auto'")
         if serving.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype={serving.dtype!r}")
+        if serving.kv_dtype not in ("auto", "int8"):
+            # an unknown value must not silently keep the unquantized pool
+            raise ValueError(f"kv_dtype={serving.kv_dtype!r}: expected "
+                             f"'auto' or 'int8'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serving = serving
@@ -135,7 +151,8 @@ class Engine:
                              f"full window ({self.pages_per_slot})")
         # +1: physical page 0 is the scratch page idle slots point at
         self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
-                                   self.device)
+                                   self.device,
+                                   quant=serving.kv_dtype == "int8")
         self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
         self.table = np.zeros((self.num_slots, self.pages_per_slot),
                               np.int32)
@@ -146,6 +163,7 @@ class Engine:
         self.temps = np.zeros(self.num_slots, np.float32)
         self.top_ks = np.zeros(self.num_slots, np.int32)
         self.top_ps = np.ones(self.num_slots, np.float32)
+        self.seeds = np.zeros(self.num_slots, np.int64)       # uint32 values
         self.slot_req: List[Optional[Request]] = [None] * self.num_slots
         # free slots: admit from the front, release to the back
         self._free: collections.deque = collections.deque(
@@ -158,11 +176,11 @@ class Engine:
         self._lock = threading.Lock()
         self._work_event = threading.Event()
         self._chunk: Optional[dict] = None
-        seed = serving.derived_seed
-        if seed is None:
-            seed = int.from_bytes(os.urandom(8), "little")
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        # seeds of requests without one; a pinned derived_seed makes two
+        # engines (this one and the JAX one too) draw the same sequence
+        self._py_rng = random.Random(
+            int.from_bytes(os.urandom(8), "little")
+            if serving.derived_seed is None else int(serving.derived_seed))
         self.counts = collections.Counter()
         self.last_error = ""
 
@@ -203,6 +221,8 @@ class Engine:
                              f"[0, {self.cfg.vocab_size})")
         req.max_tokens = max(1, min(req.max_tokens, self.max_len - n - 1))
         with self._lock:
+            req.eff_seed = (int(req.seed) & 0xffffffff) \
+                if req.seed is not None else self._py_rng.getrandbits(32)
             depth = self.serving.max_queue_depth
             if depth and len(self._queue) >= depth:
                 raise EngineOverloaded(f"engine queue is full "
@@ -228,11 +248,14 @@ class Engine:
         return self.buckets[-1]
 
     def _release_slot(self, slot: int):
-        """Return the slot's pages, point its table at scratch, free it."""
+        """Return the slot's pages, point its table at scratch, make it
+        greedy (an idle slot must not make a greedy batch draw noise) and
+        free it."""
         self.allocator.release_all(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self.table[slot, :] = 0
         self.lengths[slot] = 0
+        self.temps[slot] = 0.0
         self._free.append(slot)
 
     def _ensure_pages(self, new_rows: int) -> bool:
@@ -354,7 +377,7 @@ class Engine:
             self._dev(np.array([r.temperature for r, _ in batch], np.float32)),
             self._dev(np.array([r.top_k for r, _ in batch], np.int32)),
             self._dev(np.array([r.top_p for r, _ in batch], np.float32)),
-            self.generator)
+            self._dev(np.array([r.eff_seed for r, _ in batch], np.int64)))
         toks = toks.cpu().numpy()
         self.counts["prefill_dispatches"] += 1
         for i, (req, slot) in enumerate(batch):
@@ -390,7 +413,8 @@ class Engine:
             self._dev(self.lengths), self._dev(ptokens), slot, off,
             len(chunk), self._dev(self.table), self._dev(self.temps),
             self._dev(self.top_ks), self._dev(self.top_ps),
-            req.temperature, req.top_k, req.top_p, self.generator)
+            self._dev(self.seeds), req.temperature, req.top_k, req.top_p,
+            req.eff_seed)
         out = out.cpu().numpy()
         ptok = int(ptok.cpu()[0])
         self.counts["mixed_dispatches"] += 1
@@ -416,7 +440,7 @@ class Engine:
             self.model, horizon, self.cache, self._dev(self.last_token),
             self._dev(self.lengths), self._dev(self.table),
             self._dev(self.temps), self._dev(self.top_ks),
-            self._dev(self.top_ps), self.generator)
+            self._dev(self.top_ps), self._dev(self.seeds))
         out = out.cpu().numpy()
         self.counts["decode_dispatches"] += 1
         for s in range(horizon):
@@ -438,6 +462,7 @@ class Engine:
         self.temps[slot] = req.temperature
         self.top_ks[slot] = req.top_k
         self.top_ps[slot] = req.top_p
+        self.seeds[slot] = req.eff_seed
         if resumed:
             self.last_token[slot] = ids[-1]
         else:

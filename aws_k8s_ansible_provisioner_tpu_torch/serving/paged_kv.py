@@ -2,16 +2,19 @@
 allocator.
 
 - **Pool**: ``{"k", "v"}`` each ``[L, P, Hkv, page, D]``, the JAX package's
-  layout (``serving/paged_kv.py``). Page 0 is the scratch page every idle
-  slot's table points at, so the garbage rows that decode writes for idle
-  slots never land in a page another request owns.
+  layout (``serving/paged_kv.py``); int8 pools (``quant=True``) add the
+  float32 row scales ``{"ks", "vs"}`` ``[L, P, Hkv, page]``. Page 0 is the
+  scratch page every idle slot's table points at, so the garbage rows that
+  decode writes for idle slots never land in a page another request owns.
 - **Tables**: host numpy ``[num_slots, max_pages]`` int32 of physical page
   ids; entries past a slot's pages hold the scratch page, and padding rows
   of a batched prefill hold ``OOB_PAGE`` (their writes drop).
 - **Writers**: the prefill scatters (``write_prompts_paged_layer``,
   ``write_chunk_paged_layer``) are plain torch index-puts, as they were XLA
   scatters in the JAX package. They update the pool IN PLACE (the JAX
-  versions return a new pool; the port saves the copy) and return it.
+  versions return a new pool; the port saves the copy) and return it. Into
+  an int8 pool they write ``kv_cache.quantize_rows`` of the rows and their
+  scales at the same indices.
 - **Allocator**: :class:`PagePool`, free list + refcounts. The prefix-hash
   index and the host tier of the JAX allocator are not ported yet.
 """
@@ -25,33 +28,56 @@ import numpy as np
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+    quantize_rows
 
 # Page id that drops a write: large and positive, past every pool.
 OOB_PAGE = np.int32(2**31 - 1)
 
 
 def init_pool(cfg: ModelConfig, num_pages: int, page_size: int,
-              dtype=torch.bfloat16, device=None) -> dict:
+              dtype=torch.bfloat16, device=None, quant: bool = False) -> dict:
     """Allocate the zeroed physical page pool (leaves carry a leading [L]).
-    ``device`` defaults to CUDA (``device.resolve_device``)."""
+    ``quant``: int8 K/V plus float32 scale leaves ``ks``/``vs``. ``device``
+    defaults to CUDA (``device.resolve_device``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
              cfg.head_dim)
+    if quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def pool_bytes(cfg: ModelConfig, num_pages: int, page_size: int,
+               dtype=torch.bfloat16, quant: bool = False) -> int:
+    """Bytes of the pool's K and V (and scale) leaves."""
+    rows = 2 * cfg.num_layers * num_pages * page_size * cfg.num_kv_heads
+    if quant:
+        return rows * (cfg.head_dim + 4)
+    return rows * cfg.head_dim * torch.empty((), dtype=dtype).element_size()
 
 
 def _scatter_rows(pool: dict, layer: int, pg: torch.Tensor, off: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor) -> dict:
     """pool[name][layer, pg[i], :, off[i]] = new[i] for every i whose page id
-    lies in the pool; the others drop. pg/off: [M]; k/v: [M, Hkv, D]."""
+    lies in the pool; the others drop. pg/off: [M]; k/v: [M, Hkv, D]. An
+    int8 pool takes the quantized rows, and its scale leaves the scales at
+    the same (page, head, offset)."""
     num_pages = pool["k"].shape[1]
     keep = ((pg >= 0) & (pg < num_pages)).nonzero().squeeze(1)
     pg, off = pg[keep], off[keep]
-    pool["k"][layer, pg, :, off] = k[keep].to(pool["k"].dtype)
-    pool["v"][layer, pg, :, off] = v[keep].to(pool["v"].dtype)
+    new = {"k": k[keep], "v": v[keep]}
+    if "ks" in pool:
+        new["k"], new["ks"] = quantize_rows(new["k"])
+        new["v"], new["vs"] = quantize_rows(new["v"])
+    for name, val in new.items():
+        pool[name][layer, pg, :, off] = val.to(pool[name].dtype)
     return pool
 
 
@@ -89,13 +115,14 @@ def write_chunk_paged_layer(pool: dict, layer: int, pages: torch.Tensor,
 
 
 def gather_layer_dense(pool: dict, layer: int, table: torch.Tensor) -> dict:
-    """One layer's logical dense view: {name: [B, Hkv, S_v, D]} with
-    S_v = max_pages * page_size. A full gather; the kernels never do this."""
+    """One layer's logical dense view: {name: [B, Hkv, S_v, (D)]} with
+    S_v = max_pages * page_size (scale leaves have no D). A full gather;
+    the kernels never do this."""
     out = {}
     for name, arr in pool.items():
-        g = arr[layer][table.long()]                 # [B, n, Hkv, page, D]
-        g = g.permute(0, 2, 1, 3, 4)                 # [B, Hkv, n, page, D]
-        out[name] = g.reshape(g.shape[0], g.shape[1], -1, g.shape[-1])
+        g = arr[layer][table.long()]               # [B, n, Hkv, page, (D)]
+        g = g.movedim(2, 1)                        # [B, Hkv, n, page, (D)]
+        out[name] = g.reshape(g.shape[:2] + (-1,) + g.shape[4:])
     return out
 
 

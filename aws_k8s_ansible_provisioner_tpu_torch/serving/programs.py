@@ -15,13 +15,16 @@ page pool (updated in place) and device tensors, with the JAX package's
   forward pass through the ragged kernel. ``pslot``'s own decode row is a
   dead passenger: write row -1 (dropped), limit 0.
 
+Each takes the rows' ``seeds`` ([B] uint32 values held in int64) and keys
+its draws at the JAX programs' counters (``ops/sampling.per_slot_keys``):
+a prefill row at its prompt length, a decode row at its length + 1 (the
+context the draw extends to), the chunk row at ``pstart + plen``.
+
 Sampling penalties, logit bias, stop-token bans, guided masks, logprobs and
 LoRA of the JAX programs are not ported yet.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -35,12 +38,12 @@ from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
 def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                        true_lens: torch.Tensor, tables: torch.Tensor,
                        temperature: torch.Tensor, top_k: torch.Tensor,
-                       top_p: torch.Tensor,
-                       generator: Optional[torch.Generator] = None):
+                       top_p: torch.Tensor, seeds: torch.Tensor):
     """Prefill N prompts in one forward pass.
 
     tokens: [N, T] right-padded; true_lens [N]; tables [N, max_pages] int32
-    (rows of OOB_PAGE drop). Returns (pool, first tokens [N] int32).
+    (rows of OOB_PAGE drop); seeds [N]. Returns (pool, first tokens [N]
+    int32).
     """
     N, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
@@ -48,18 +51,18 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     attend = make_prefill_attend_batch_paged_carry(tables, true_lens)
     logits, pool = model.forward_carry(tokens, positions, pool, attend)
     last = logits[torch.arange(N, device=tokens.device), true_lens.long() - 1]
-    return pool, sample(last, temperature, top_k, top_p, generator)
+    return pool, sample(last, temperature, top_k, top_p, seeds, true_lens)
 
 
 def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
                  tokens: torch.Tensor, lengths: torch.Tensor,
                  table: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 generator: Optional[torch.Generator] = None):
+                 seeds: torch.Tensor):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
-    table: [B, max_pages] int32. Returns (pool, out [n_steps, B]). Slots
+    table: [B, max_pages] int32; seeds [B]. Returns (pool, out [n_steps, B]). Slots
     that stop mid-horizon produce surplus tokens the host discards; their
     surplus K/V rows land past the slot's length (or drop past the
     window).
@@ -70,7 +73,8 @@ def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
         attend = make_decode_attend_carry_paged(lens, table)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
                                            attend)
-        tok = sample(logits[:, 0], temperature, top_k, top_p, generator)
+        tok = sample(logits[:, 0], temperature, top_k, top_p, seeds,
+                     lens + 1)
         lens = lens + 1
         out.append(tok)
     return pool, torch.stack(out)
@@ -80,11 +84,12 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                lengths: torch.Tensor, ptokens: torch.Tensor, pslot: int,
                pstart: int, plen: int, table: torch.Tensor,
                temperature: torch.Tensor, top_k: torch.Tensor,
-               top_p: torch.Tensor, ptemp: float, ptop_k: int, ptop_p: float,
-               generator: Optional[torch.Generator] = None):
+               top_p: torch.Tensor, seeds: torch.Tensor, ptemp: float,
+               ptop_k: int, ptop_p: float, pseed: int):
     """One ragged dispatch: a decode step for every slot AND one prefill
     chunk (``ptokens`` [1, C], ``plen`` valid) of slot ``pslot`` at rows
-    [pstart, pstart + C).
+    [pstart, pstart + C). The chunk row samples with (ptemp, ptop_k,
+    ptop_p) and seed ``pseed``.
 
     Returns (pool, out [1, B], chunk token [1]); ``out[0, pslot]`` is the
     dead passenger's token and is discarded.
@@ -106,9 +111,11 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     attend = make_mixed_attend_carry_paged(write_rows.to(i32),
                                            row_limits.to(i32), row_tables)
     logits, pool = model.forward_carry(packed, positions, pool, attend)
-    nxt = sample(logits[0, :B], temperature, top_k, top_p, generator)
+    nxt = sample(logits[0, :B], temperature, top_k, top_p, seeds, lengths + 1)
     plast = logits[0, B + plen - 1][None]
     ptok = sample(plast, torch.tensor([ptemp], device=dev),
                   torch.tensor([ptop_k], dtype=i32, device=dev),
-                  torch.tensor([ptop_p], device=dev), generator)
+                  torch.tensor([ptop_p], device=dev),
+                  torch.tensor([pseed], dtype=torch.int64, device=dev),
+                  torch.tensor([pstart + plen], device=dev))
     return pool, nxt[None], ptok

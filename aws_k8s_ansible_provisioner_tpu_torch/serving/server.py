@@ -1,7 +1,8 @@
 """OpenAI-compatible HTTP server of the PyTorch port.
 
 ``GET /v1/models``, ``POST /v1/completions`` (non-streaming; the JSON fields
-of the JAX server's completions response) and ``GET /health``, over a
+of the JAX server's completions response; the OpenAI ``seed`` makes a
+sampled completion repeatable) and ``GET /health``, over a
 ``ThreadingHTTPServer`` with the engine stepping on its own thread.
 
 Without a checkpoint the server runs seeded random weights and the byte
@@ -153,6 +154,12 @@ class Handler(BaseHTTPRequestHandler):
         else:
             return self._error(400, "prompt must be a string or a list of "
                                     "token ids")
+        seed = body.get("seed")
+        if seed is not None:
+            try:
+                seed = int(seed)
+            except (TypeError, ValueError):
+                return self._error(400, "'seed' must be an integer")
         try:
             req = Request(
                 prompt_ids=ids,
@@ -161,7 +168,8 @@ class Handler(BaseHTTPRequestHandler):
                 temperature=float(body.get("temperature", 0.0)),
                 top_k=int(body.get("top_k", 0) or 0),
                 top_p=float(body.get("top_p", 1.0)),
-                ignore_eos=bool(body.get("ignore_eos", False)))
+                ignore_eos=bool(body.get("ignore_eos", False)),
+                seed=seed)
             if req.max_tokens < 1:
                 raise ValueError("max_tokens must be >= 1")
             st.engine.submit(req)
@@ -215,6 +223,9 @@ def main(argv=None):
                    choices=["bfloat16", "float32"])
     p.add_argument("--weights-dtype", default="int8",
                    choices=["int8", "bf16", "auto"])
+    p.add_argument("--kv-dtype", default="auto", choices=["auto", "int8"],
+                   help="KV pool: auto = --dtype; int8 = per-row int8 with "
+                        "float32 scales")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill size; 0 disables")
     p.add_argument("--seed", type=int, default=0,
@@ -229,7 +240,7 @@ def main(argv=None):
         max_decode_slots=args.max_decode_slots,
         max_cache_len=args.max_cache_len, page_size=args.page_size,
         dtype=args.dtype, weights_dtype=args.weights_dtype,
-        prefill_chunk=args.prefill_chunk)
+        kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk)
     state = build_state(serving, device=args.device, seed=args.seed)
     server = make_server(state, args.host, args.port)
     state.start_engine()

@@ -12,17 +12,23 @@ result when either is missing. Phases, in order (any failure raises):
 2. kernels: at the shapes of the main path (Qwen3-0.6B: Hq 16, Hkv 8, D 128,
    page 64, a 28-layer pool) each kernel is held against its plain PyTorch
    version on the same inputs on the card, and timed beside its plain
-   version, a PyTorch library call of the same function and its bound;
-3. engine: the main path, Qwen3-0.6B at full width with seeded random
-   weights through ``serving.engine.Engine`` (the default ServingConfig:
-   paged, page 64, 32 slots, bf16 KV, int8 weights; prefill_chunk 256 so
-   long prompts ride ``mixed_step``). The kernels' launch counts are zeroed
-   just before and read just after; each must be > 0. Then one decode
-   dispatch of 8 slots is timed and profiled (device time by kernel), and
-   one decode step's logits through the kernels are held against the same
-   step through the plain versions;
-4. server: the port's HTTP server in-process on a free port answers
-   ``GET /v1/models`` and ``POST /v1/completions``.
+   version, a PyTorch library call of the same function and its bound: the
+   attention and the row write over a bf16 pool, and their int8 forms (the
+   scale-folding attention, the quantizing row write) over an int8 pool;
+3. engine, once per KV pool: the main path, Qwen3-0.6B at full width with
+   seeded random weights through ``serving.engine.Engine`` (the default
+   ServingConfig: paged, page 64, 32 slots, int8 weights; prefill_chunk 256
+   so long prompts ride ``mixed_step``), first with bf16 KV, then with
+   ``kv_dtype="int8"``. The kernels' launch counts are zeroed just before
+   each run and read just after; each kernel of that pool must be > 0 and
+   the other pool's kernels 0. The int8 run adds seeded sampled requests:
+   one submitted alone and again beside other running requests must give
+   the same stream. Then one decode dispatch of 8 slots is timed and
+   profiled (device time by kernel), and one decode step's logits through
+   the kernels are held against the same step through the plain versions;
+4. server, for each engine: the port's HTTP server in-process on a free
+   port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
+   int8 engine, a seeded sampled completion twice, the same text).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -56,8 +62,14 @@ ATTN_MAX_ULPS, ATTN_MEAN_ULPS = 4.0, 0.5
 # one decode step of the 28-layer bf16 model, kernels vs plain versions:
 # the attention outputs differ by one bf16 rounding, which the residual
 # stream carries through 28 layers into logits of magnitude ~3 (max abs
-# 0.039 measured on an H100 80GB HBM3, 700 W).
+# 0.039 measured with the bf16 pool on an H100 80GB HBM3, 700 W). The int8
+# pool changes nothing in that: both steps start from the same pool, the
+# quantizing write is bit-exact on equal rows, and the attention output
+# again differs by one bf16 rounding (0.039 again with the int8 pool, same
+# card).
 LOGIT_TOL = 0.1
+# sampled requests of the int8 engine run
+SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=20, ignore_eos=True)
 
 
 def log(msg: str) -> None:
@@ -99,12 +111,19 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
-                    label):
+def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
     """Hold the attention kernel against its plain version; time both, an
-    SDPA over the gathered K/V, and the bound. Returns a result dict."""
+    SDPA over the gathered K/V, and the bound. ``pools`` holds bf16 "k"/"v",
+    or int8 "k"/"v" with float32 scales "ks"/"vs" (the int8 instance).
+    Returns a result dict."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        dequantize
 
+    pool_k, pool_v = pools["k"], pools["v"]
+    quant = "ks" in pools
+    scales = (pools["ks"], pools["vs"]) if quant else ()
+    name = "paged_attention_quant" if quant else "paged_attention"
     dev = pool_k.device
     _, P, Hkv, ps, D = pool_k.shape
     Hq = 16
@@ -115,8 +134,16 @@ def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
                     dtype=torch.bfloat16)
     limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
     table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
-    out = pa.paged_attention(q, pool_k, pool_v, limits, layer, table)
-    ref = pa.paged_attention_plain(q, pool_k, pool_v, limits, layer, table)
+
+    def kernel():
+        if quant:
+            return pa.paged_attention_quant(q, pool_k, pool_v, *scales,
+                                            limits, layer, table)
+        return pa.paged_attention(q, pool_k, pool_v, limits, layer, table)
+
+    out = kernel()
+    ref = pa.paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
+                                   *scales)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs().reshape(N, -1)
     max_err, mean_err = float(diff.max()), float(diff.mean())
@@ -129,23 +156,27 @@ def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
         bad = torch.nonzero((row_max > ATTN_MAX_ULPS)
                             | (row_mean > ATTN_MEAN_ULPS)).flatten()
         raise AssertionError(
-            f"paged_attention {label}: rows {bad[:8].tolist()} (limits "
+            f"{name} {label}: rows {bad[:8].tolist()} (limits "
             f"{limits_np[bad[:8].cpu().numpy()].tolist()}) past tolerance: "
             f"worst row max {worst_max:.2f} ulp (tol {ATTN_MAX_ULPS}), worst "
             f"row mean {worst_mean:.3f} ulp (tol {ATTN_MEAN_ULPS})")
-    ms = timed_ms(torch, lambda: pa.paged_attention(q, pool_k, pool_v, limits,
-                                                    layer, table))
+    ms = timed_ms(torch, kernel)
     plain_ms = timed_ms(torch, lambda: pa.paged_attention_plain(
-        q, pool_k, pool_v, limits, layer, table), iters=5, warmup=1)
-    # yardstick: one SDPA call over this case's gathered dense K/V (gather
-    # and mask built outside the timed call)
+        q, pool_k, pool_v, limits, layer, table, *scales), iters=5, warmup=1)
+    # yardstick: one SDPA call over this case's gathered dense K/V (gather,
+    # int8 dequantization and mask built outside the timed call)
     hi = np.clip((limits_np + ps - 1) // ps - 1, 0, table_np.shape[1] - 1)
     n_vis = int(hi.max()) + 1
     pages = table[:, :n_vis].long()
-    kd = pool_k[layer][pages].permute(0, 2, 1, 3, 4).reshape(
-        N, Hkv, n_vis * ps, D).repeat_interleave(Hq // Hkv, dim=1)
-    vd = pool_v[layer][pages].permute(0, 2, 1, 3, 4).reshape(
-        N, Hkv, n_vis * ps, D).repeat_interleave(Hq // Hkv, dim=1)
+
+    def dense(name):
+        g = pools[name][layer][pages]
+        if quant:
+            g = dequantize(g, pools[name + "s"][layer][pages], torch.bfloat16)
+        return g.permute(0, 2, 1, 3, 4).reshape(
+            N, Hkv, n_vis * ps, D).repeat_interleave(Hq // Hkv, dim=1)
+
+    kd, vd = dense("k"), dense("v")
     col = torch.arange(n_vis * ps, device=dev)
     mask = torch.where(col[None, :] < limits[:, None].long(), 0.0, -1e30) \
         .to(torch.bfloat16)[:, None, None, :]
@@ -153,11 +184,11 @@ def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = timed_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask))
     del kd, vd
-    # bound: each input byte read once (K/V pages the rows visit, counted
-    # once per distinct (page, kv head) tile), each output byte written once;
-    # operations: QK^T and PV over the live columns
+    # bound: each input byte read once (K/V pages the rows visit, and their
+    # scales, counted once per distinct (page, kv head) tile), each output
+    # byte written once; operations: QK^T and PV over the live columns
     visited = {int(table_np[n, c]) for n in range(N) for c in range(hi[n] + 1)}
-    tile = Hkv * ps * D * 2
+    tile = Hkv * ps * (D * pool_k.element_size() + (4 if quant else 0))
     nbytes = (2 * len(visited) * tile + 2 * N * Hq * D * 2
               + N * 4 + N * table_np.shape[1] * 4)
     ops = 4 * Hq * D * int(np.maximum(limits_np, 0).sum())
@@ -169,7 +200,7 @@ def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "rows": N}
-    log(f"[kernels] paged_attention {label}: rows {N}, max abs {max_err:.3e}, "
+    log(f"[kernels] {name} {label}: rows {N}, max abs {max_err:.3e}, "
         f"mean abs {mean_err:.3e}; worst row: max {worst_max:.2f} ulp, mean "
         f"{worst_mean:.3f} ulp (tol {ATTN_MAX_ULPS}/{ATTN_MEAN_ULPS}); "
         f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
@@ -178,13 +209,23 @@ def _attention_case(torch, np, pool_k, pool_v, limits_np, table_np, layer,
     return res
 
 
-def _write_case(torch, np, pool_k, pool_v, rows_np, table_np, layer, label):
+def _write_case(torch, np, pools, rows_np, table_np, layer, label):
     """Hold the row-write kernel against its plain version, bit for bit on
-    the whole pool; time both, an index_put_ pair and the bound."""
+    the whole pool (and, int8, the whole scale pools); time both, a PyTorch
+    yardstick and the bound. ``pools`` as in :func:`_attention_case`."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        quantize_rows
 
-    dev = pool_k.device
-    _, P, Hkv, ps, D = pool_k.shape
+    quant = "ks" in pools
+    names = ("k", "v", "ks", "vs") if quant else ("k", "v")
+    leaves = [pools[n] for n in names]
+    name = "cache_write_rows_quant_paged" if quant else \
+        "cache_write_rows_paged"
+    kernel_fn = getattr(pa, name)
+    plain_fn = getattr(pa, name + "_plain")
+    dev = leaves[0].device
+    _, P, Hkv, ps, D = leaves[0].shape
     N = len(rows_np)
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -194,19 +235,20 @@ def _write_case(torch, np, pool_k, pool_v, rows_np, table_np, layer, label):
                         dtype=torch.bfloat16)
     rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
     table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
-    ref_k, ref_v = pool_k.clone(), pool_v.clone()
-    pa.cache_write_rows_paged(pool_k, pool_v, k_new, v_new, rows, layer, table)
-    pa.cache_write_rows_paged_plain(ref_k, ref_v, k_new, v_new, rows, layer,
-                                    table)
+    refs = [t.clone() for t in leaves]
+    kernel_fn(*leaves, k_new, v_new, rows, layer, table)
+    plain_fn(*refs, k_new, v_new, rows, layer, table)
     torch.cuda.synchronize()
-    if not (torch.equal(pool_k, ref_k) and torch.equal(pool_v, ref_v)):
-        raise AssertionError(f"cache_write_rows_paged {label}: pool differs "
-                             f"from the plain version")
-    del ref_k, ref_v
-    ms = timed_ms(torch, lambda: pa.cache_write_rows_paged(
-        pool_k, pool_v, k_new, v_new, rows, layer, table))
-    plain_ms = timed_ms(torch, lambda: pa.cache_write_rows_paged_plain(
-        pool_k, pool_v, k_new, v_new, rows, layer, table), iters=5, warmup=1)
+    for n, got, want in zip(names, leaves, refs):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: pool leaf {n!r} differs "
+                                 f"from the plain version")
+    del refs
+    ms = timed_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
+                                           layer, table))
+    plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, k_new, v_new, rows,
+                                                layer, table),
+                        iters=5, warmup=1)
     ok = (rows_np >= 0) & (rows_np < table_np.shape[1] * ps)
     sel = np.nonzero(ok)[0]
     pg = torch.from_numpy(table_np[sel, rows_np[sel] // ps].astype(
@@ -215,32 +257,74 @@ def _write_case(torch, np, pool_k, pool_v, rows_np, table_np, layer, label):
     heads = torch.arange(Hkv, device=dev)
     lay = torch.full_like(pg, layer)
     idx = (lay[:, None], pg[:, None], heads[None, :], off[:, None])
-    ks, vs = k_new[torch.from_numpy(sel).to(dev)], \
-        v_new[torch.from_numpy(sel).to(dev)]
+    sel_t = torch.from_numpy(sel).to(dev)
+    ks, vs = k_new[sel_t], v_new[sel_t]
 
     def library():
-        pool_k.index_put_(idx, ks)
-        pool_v.index_put_(idx, vs)
+        # bf16: the index_put_ pair; int8: quantize, then the index_put_
+        # pair of the rows and the pair of their scales
+        if quant:
+            (kq, kss), (vq, vss) = quantize_rows(ks), quantize_rows(vs)
+            pools["ks"].index_put_(idx, kss)
+            pools["vs"].index_put_(idx, vss)
+        else:
+            kq, vq = ks, vs
+        pools["k"].index_put_(idx, kq)
+        pools["v"].index_put_(idx, vq)
 
     library_ms = timed_ms(torch, library)
-    # bound: new rows read once, pool rows written once, rows read once,
-    # one table entry read per kept row
-    nbytes = 2 * 2 * len(sel) * Hkv * D * 2 + N * 4 + len(sel) * 4
+    # bound: new rows read once, pool rows (and scales) written once, rows
+    # read once, one table entry read per kept row
+    out_row = D * leaves[0].element_size() + (4 if quant else 0)
+    nbytes = (2 * N * Hkv * D * 2 + 2 * len(sel) * Hkv * out_row + N * 4
+              + len(sel) * 4)
     res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms,
            "library_ms": library_ms,
            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
            "bytes": nbytes, "rows": N}
-    log(f"[kernels] cache_write_rows_paged {label}: rows {N} ({len(sel)} "
-        f"kept), bit-exact; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {library_ms:.4f} (index_put_ K and V) bound_ms "
+    log(f"[kernels] {name} {label}: rows {N} ({len(sel)} kept), bit-exact"
+        f"{' (int8 rows and scales)' if quant else ''}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"({'quantize + ' if quant else ''}index_put_ K and V) bound_ms "
         f"{res['bound_ms']:.5f} ({nbytes / 1e6:.2f} MB)")
     return res
 
 
+def _pool_cases(torch, np, pools, lengths, table, layer, label):
+    """The decode and ragged attention cases and the decode, ragged and
+    dropped-row write cases of one pool (bf16 or int8)."""
+    max_pages = table.shape[1]
+    ps = pools["k"].shape[3]
+    dec = _attention_case(torch, np, pools, lengths, table, layer, "decode")
+    # ragged mixed: slot 3 chunks rows [512, 768); its own decode row is the
+    # dead passenger (limit 0); the 256 chunk rows share 4 pages
+    pslot, pstart, C = 3, 512, 256
+    limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
+    limits[pslot] = 0
+    tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
+    rag = _attention_case(torch, np, pools, limits, tables, layer,
+                          "ragged 32+256")
+    rows = np.concatenate([lengths - 1, pstart + np.arange(C)])
+    rows[pslot] = -1
+    wr_rag = _write_case(torch, np, pools, rows, tables, layer,
+                         "ragged 32+256")
+    wr_dec = _write_case(torch, np, pools, lengths - 1, table, layer,
+                         "decode")
+    # a dropped row must not read its table: OOB_PAGE rows beyond the window
+    oob = np.full((4, max_pages), 2**31 - 1)
+    wr_oob = _write_case(torch, np, pools,
+                         np.array([-1, max_pages * ps, -5, 10**6]), oob,
+                         layer, "dropped rows, OOB_PAGE tables")
+    log(f"[kernels] {label} pool done")
+    return {"attention": dec, "attention_ragged": rag, "write": wr_dec,
+            "write_ragged": wr_rag, "write_dropped": wr_oob}
+
+
 def phase_kernels(torch, np):
     """Main-path shapes: 32 decode rows with ragged lengths up to 2048, and
-    the ragged mixed case of those rows plus a 256-row chunk of one slot."""
+    the ragged mixed case of those rows plus a 256-row chunk of one slot;
+    over a bf16 pool, then over an int8 pool with its scales."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
 
     L, Hkv, D, ps, B, max_pages = cfg.num_layers, cfg.num_kv_heads, \
@@ -250,46 +334,50 @@ def phase_kernels(torch, np):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     shape = (L, P, Hkv, ps, D)
-    pool_k = torch.randn(shape, generator=gen, device=dev,
-                         dtype=torch.bfloat16)
-    pool_v = torch.randn(shape, generator=gen, device=dev,
-                         dtype=torch.bfloat16)
-    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] bf16, "
-        f"{2 * pool_k.numel() * 2 / 2**30:.2f} GiB")
     rng = np.random.default_rng(5)
     table = (rng.permutation(B * max_pages) + 1).reshape(B, max_pages)
     lengths = rng.integers(1, 2049, B)
     lengths[:6] = [1, 64, 65, 2048, 2047, 128]
     layer = L - 1
-    dec = _attention_case(torch, np, pool_k, pool_v, lengths, table, layer,
-                          "decode")
-    # ragged mixed: slot 3 chunks rows [512, 768); its own decode row is the
-    # dead passenger (limit 0)
-    pslot, pstart, C = 3, 512, 256
-    limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
-    limits[pslot] = 0
-    tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
-    rag = _attention_case(torch, np, pool_k, pool_v, limits, tables, layer,
-                          "ragged 32+256")
-    rows = np.concatenate([lengths - 1, pstart + np.arange(C)])
-    rows[pslot] = -1
-    wr_rag = _write_case(torch, np, pool_k, pool_v, rows, tables, layer,
-                         "ragged 32+256")
-    wr_dec = _write_case(torch, np, pool_k, pool_v, lengths - 1, table, layer,
-                         "decode")
-    # a dropped row must not read its table: OOB_PAGE rows beyond the window
-    oob = np.full((4, max_pages), 2**31 - 1)
-    wr_oob = _write_case(torch, np, pool_k, pool_v,
-                         np.array([-1, max_pages * ps, -5, 10**6]), oob,
-                         layer, "dropped rows, OOB_PAGE tables")
-    del pool_k, pool_v
+    pools = {n: torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for n in ("k", "v")}
+    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] bf16, "
+        f"{2 * pools['k'].numel() * 2 / 2**30:.2f} GiB")
+    bf16 = _pool_cases(torch, np, pools, lengths, table, layer, "bf16")
+    del pools
     torch.cuda.empty_cache()
-    return {"paged_attention": dec, "paged_attention_ragged": rag,
-            "cache_write_rows_paged": wr_dec, "cache_write_ragged": wr_rag,
-            "cache_write_dropped": wr_oob}
+    pools = {n: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for n in ("k", "v")}
+    for n in ("ks", "vs"):
+        pools[n] = torch.rand(shape[:-1], generator=gen, device=dev) \
+            * 0.02 + 1e-3
+    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] int8 "
+        f"+ float32 scales, {2 * pools['k'].numel() * (1 + 4 / D) / 2**30:.2f}"
+        f" GiB")
+    int8 = _pool_cases(torch, np, pools, lengths, table, layer, "int8")
+    del pools
+    torch.cuda.empty_cache()
+    return {"bf16": bf16, "int8": int8}
 
 
-def phase_engine(torch, np):
+def _kernel_names(quant: bool):
+    """(attention, row write) launch-count names of one pool's kernels."""
+    return (("paged_attention_quant", "cache_write_rows_quant_paged") if quant
+            else ("paged_attention", "cache_write_rows_paged"))
+
+
+def _finish_ok(cfg, req, n):
+    if len(req.generated) != n or req.finish_reason != "length" or \
+            not all(0 <= t < cfg.vocab_size for t in req.generated):
+        raise AssertionError(f"request {req.id}: {len(req.generated)} tokens "
+                             f"({req.finish_reason}), expected {n}")
+
+
+def phase_engine(torch, np, kv_dtype):
+    """The main path with the ``kv_dtype`` pool; launch counts zeroed just
+    before the measured run and read just after. With int8 KV the run also
+    holds the seeded contract: a sampled request with its own seed, alone
+    and again beside three running requests, gives one stream."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
                                                               ServingConfig)
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
@@ -298,7 +386,9 @@ def phase_engine(torch, np):
                                                                       Request)
 
     cfg = QWEN3_0_6B
-    serving = ServingConfig(prefill_chunk=256, derived_seed=0)
+    quant = kv_dtype == "int8"
+    serving = ServingConfig(prefill_chunk=256, derived_seed=0,
+                            kv_dtype=kv_dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.monotonic()
@@ -306,11 +396,14 @@ def phase_engine(torch, np):
     engine = Engine(cfg, params, serving, device="cuda")
     del params
     torch.cuda.synchronize()
-    log(f"[engine] {cfg.name}: {cfg.num_layers} layers, hidden "
+    tag = f"[engine {kv_dtype}]"
+    pool_gib = sum(t.numel() * t.element_size()
+                   for t in engine.cache.values()) / 2**30
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers, hidden "
         f"{cfg.hidden_size}, vocab {cfg.vocab_size}; weights "
-        f"{serving.weights_dtype}, KV {serving.dtype}, page "
-        f"{serving.page_size}, {serving.max_decode_slots} slots, pool "
-        f"{engine.allocator.num_pages} pages; set-up "
+        f"{serving.weights_dtype}, KV {'int8' if quant else serving.dtype}, "
+        f"page {serving.page_size}, {serving.max_decode_slots} slots, pool "
+        f"{engine.allocator.num_pages} pages ({pool_gib:.2f} GiB); set-up "
         f"{time.monotonic() - t0:.1f}s")
     rng = np.random.default_rng(1)
     lens = [17, 45, 130, 300, 64, 700, 9, 200]
@@ -327,26 +420,66 @@ def phase_engine(torch, np):
     reqs = [engine.submit(Request(prompt_ids=p, max_tokens=m,
                                   ignore_eos=True))
             for p, m in zip(prompts, new)]
+    if quant:
+        reqs.append(engine.submit(Request(prompt_ids=prompts[2], max_tokens=48,
+                                          seed=2, **SAMPLED)))
+        new = new + [48]
     engine.run_until_idle()
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    launches = pa.launch_counts()
     n_gen = sum(len(r.generated) for r in reqs)
-    log(f"[engine] {len(reqs)} requests, prompts {lens}: {n_gen} tokens in "
+    if quant:
+        _seeded_twice(engine, rng, Request)
+    launches = pa.launch_counts()
+    log(f"{tag} {len(reqs)} requests, prompts {lens}: {n_gen} tokens in "
         f"{dt:.2f}s ({n_gen / dt:.1f} tok/s end to end, synchronous "
         f"dispatch); dispatches {dict(engine.counts)}; kernel launches "
         f"{launches}")
     for r, m in zip(reqs, new):
-        if len(r.generated) != m or r.finish_reason != "length" or \
-                not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"request {r.id}: {len(r.generated)} tokens "
-                                 f"({r.finish_reason}), expected {m}")
-    if min(launches.values()) <= 0:
+        _finish_ok(cfg, r, m)
+    mine = _kernel_names(quant)
+    others = _kernel_names(not quant)
+    if min(launches[k] for k in mine) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    if max(launches[k] for k in others) != 0:
+        raise AssertionError(f"the {kv_dtype} path launched the other "
+                             f"pool's kernels: {launches}")
     if engine.counts["mixed_dispatches"] <= 0:
         raise AssertionError("no chunked prefill went through mixed_step")
-    return engine, launches, n_gen / dt
+    return engine, launches
+
+
+def _seeded_twice(engine, rng, Request):
+    """One sampled request with its own seed, alone, then admitted again
+    while three greedy requests decode in other slots (its prefill is a
+    batch of its own both times, and no chunk is in flight beside it):
+    both streams must be identical."""
+    cfg = engine.cfg
+    prompt = rng.integers(0, cfg.vocab_size, 90).tolist()
+    alone = engine.submit(Request(prompt_ids=prompt, max_tokens=40, seed=1,
+                                  **SAMPLED))
+    engine.run_until_idle()
+    others = [engine.submit(Request(prompt_ids=rng.integers(
+        0, cfg.vocab_size, n).tolist(), max_tokens=60, ignore_eos=True))
+        for n in (40, 120, 70)]
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    crowded = engine.submit(Request(prompt_ids=prompt, max_tokens=40, seed=1,
+                                    **SAMPLED))
+    engine.run_until_idle()
+    for r, n in [(alone, 40), (crowded, 40)] + [(r, 60) for r in others]:
+        _finish_ok(cfg, r, n)
+    if crowded.generated != alone.generated:
+        first = next(i for i, (a, b) in enumerate(zip(alone.generated,
+                                                      crowded.generated))
+                     if a != b)
+        raise AssertionError(f"seeded stream depends on the batch: first "
+                             f"difference at token {first}")
+    log(f"[engine int8] seeded request (seed 1, temperature 0.8, top-p 0.9, "
+        f"top-k 20) alone and beside 3 running requests: identical "
+        f"{len(alone.generated)}-token streams, {len(set(alone.generated))} "
+        f"distinct tokens")
 
 
 def phase_profile(torch, np, engine):
@@ -384,25 +517,66 @@ def phase_profile(torch, np, engine):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     horizon = engine.serving.decode_horizon
-    log(f"[profile] decode dispatch, {len(engine._active_slots())} active "
+    tag = f"[profile {'int8' if 'ks' in engine.cache else 'bf16'}]"
+    log(f"{tag} decode dispatch, {len(engine._active_slots())} active "
         f"slots, horizon {horizon}: wall {wall_ms:.2f} ms "
         f"({wall_ms / horizon:.2f} ms per substep)")
     if not events:
-        log("[profile] torch.profiler recorded no device time: device "
+        log(f"{tag} torch.profiler recorded no device time: device "
             "busy share not measured")
     else:
-        log(f"[profile] profiled dispatch: wall {prof_wall_ms:.2f} ms, "
+        log(f"{tag} profiled dispatch: wall {prof_wall_ms:.2f} ms, "
             f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / prof_wall_ms:.3f}), "
             f"{sum(e.count for e in events)} device operations")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+            log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
     for s in engine._active_slots():
         engine.cancel(engine.slot_req[s])
     engine.step()
     return wall_ms
+
+
+def phase_sampling(torch, np):
+    """Cost of the seeded noise: one ``sample`` call over 32 rows of the
+    full vocabulary, all greedy vs all sampled (threefry keys and uniforms
+    for 64 candidates a row): device time by CUDA events and device
+    operations counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
+
+    dev = torch.device("cuda")
+    B, V = 32, QWEN3_0_6B.vocab_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    logits = torch.randn((B, V), generator=gen, device=dev) * 3
+    args = {"greedy": torch.zeros(B, device=dev),
+            "sampled": torch.full((B,), 0.8, device=dev)}
+    top_k = torch.full((B,), 20, dtype=torch.int32, device=dev)
+    top_p = torch.full((B,), 0.9, device=dev)
+    seeds = torch.arange(B, device=dev) * 7919
+    ctrs = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    out = {}
+    for name, temp in args.items():
+        def call():
+            return sample(logits, temp, top_k, top_p, seeds, ctrs)
+        ms = timed_ms(torch, call)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+        out[name] = (ms, ops)
+    log(f"[sampling] sample() over {B} rows x {V} logits: greedy "
+        f"{out['greedy'][0]:.4f} ms ({out['greedy'][1]} device operations), "
+        f"seeded sampled {out['sampled'][0]:.4f} ms ({out['sampled'][1]} "
+        f"device operations)")
+    return out
 
 
 def phase_logits(torch, np, engine):
@@ -429,14 +603,21 @@ def phase_logits(torch, np, engine):
     table = torch.from_numpy(engine.table.copy()).to(dev)
     pool_a = {k: v.clone() for k, v in engine.cache.items()}
     pool_b = engine.cache
+    quant = "ks" in pool_b
 
     def plain_attend(q, k, v, cache_l):
         pool, layer = cache_l
-        pa.cache_write_rows_paged_plain(pool["k"], pool["v"], k[:, 0],
-                                        v[:, 0], lens, layer, table)
+        scales = (pool["ks"], pool["vs"]) if quant else ()
+        if quant:
+            pa.cache_write_rows_quant_paged_plain(
+                pool["k"], pool["v"], *scales, k[:, 0], v[:, 0], lens, layer,
+                table)
+        else:
+            pa.cache_write_rows_paged_plain(pool["k"], pool["v"], k[:, 0],
+                                            v[:, 0], lens, layer, table)
         ctx = pa.paged_attention_plain(q[:, 0].contiguous(), pool["k"],
-                                       pool["v"], lens + 1, layer,
-                                       table)[:, None]
+                                       pool["v"], lens + 1, layer, table,
+                                       *scales)[:, None]
         return ctx, (pool, layer)
 
     model = engine.model
@@ -449,9 +630,10 @@ def phase_logits(torch, np, engine):
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    log(f"[logits] decode step over {len(active)} active slots: max |logit| "
-        f"{scale:.3f}, kernels vs plain max abs {err:.3e} (tol {LOGIT_TOL}), "
-        f"argmax agreement {agree:.2f}")
+    log(f"[logits] {'int8' if quant else 'bf16'} KV, decode step over "
+        f"{len(active)} active slots: max |logit| {scale:.3f}, kernels vs "
+        f"plain max abs {err:.3e} (tol {LOGIT_TOL}), argmax agreement "
+        f"{agree:.2f}")
     if not (math.isfinite(err) and err <= LOGIT_TOL):
         raise AssertionError(f"decode logits differ: {err}")
     for s in active:
@@ -461,30 +643,34 @@ def phase_logits(torch, np, engine):
 
 
 def phase_server(engine):
+    """The HTTP server over ``engine``. Its tokenizer encodes bytes and
+    decodes token ids as their decimal numbers, so that the random-weight
+    model's streams (ids far past the byte range) show in the text."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
         ServerState, make_server)
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
         ByteTokenizer
 
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids, *args, **kwargs):
+            return " ".join(str(int(t)) for t in ids)
+
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    state = ServerState(engine, ByteTokenizer(), engine.cfg.name)
+    state = ServerState(engine, IdTokenizer(), engine.cfg.name)
     server = make_server(state, "127.0.0.1", port)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
     state.start_engine()
-    try:
-        base = f"http://127.0.0.1:{port}"
-        with urllib.request.urlopen(base + "/v1/models", timeout=60) as r:
-            models = json.loads(r.read())
-            if r.status != 200 or models["data"][0]["id"] != engine.cfg.name:
-                raise AssertionError(f"/v1/models: {r.status} {models}")
-        body = json.dumps({"prompt": "Hello from the smoke test",
-                           "max_tokens": 16}).encode()
-        req = urllib.request.Request(base + "/v1/completions", data=body,
-                                     headers={"Content-Type":
-                                              "application/json"})
+    quant = "ks" in engine.cache
+    tag = f"[server {'int8' if quant else 'bf16'}]"
+    base = f"http://127.0.0.1:{port}"
+
+    def complete(body):
+        req = urllib.request.Request(
+            base + "/v1/completions", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=300) as r:
             out = json.loads(r.read())
             status = r.status
@@ -492,10 +678,29 @@ def phase_server(engine):
         if status != 200 or not isinstance(choice["text"], str) \
                 or out["usage"]["completion_tokens"] < 1:
             raise AssertionError(f"/v1/completions: {status} {out}")
-        log(f"[server] /v1/models 200 ({models['data'][0]['id']}); "
+        return out
+
+    try:
+        with urllib.request.urlopen(base + "/v1/models", timeout=60) as r:
+            models = json.loads(r.read())
+            if r.status != 200 or models["data"][0]["id"] != engine.cfg.name:
+                raise AssertionError(f"/v1/models: {r.status} {models}")
+        out = complete({"prompt": "Hello from the smoke test",
+                        "max_tokens": 16})
+        choice = out["choices"][0]
+        log(f"{tag} /v1/models 200 ({models['data'][0]['id']}); "
             f"/v1/completions 200: {out['usage']['completion_tokens']} "
-            f"tokens, finish {choice['finish_reason']}, text "
-            f"{choice['text']!r} (random weights rarely pick a byte id)")
+            f"tokens, finish {choice['finish_reason']}, token ids "
+            f"{choice['text']!r}")
+        if quant:
+            body = {"prompt": "Seeded", "max_tokens": 24, "seed": 7,
+                    "temperature": 0.8, "top_p": 0.9, "top_k": 20,
+                    "ignore_eos": True}
+            texts = [complete(body)["choices"][0]["text"] for _ in range(2)]
+            if texts[0] != texts[1] or len(texts[0].split()) != 24:
+                raise AssertionError(f"seeded completions differ: {texts}")
+            log(f"{tag} seeded sampled /v1/completions (seed 7) twice: the "
+                f"same token ids {texts[0]!r}")
     finally:
         server.shutdown()
         server.server_close()
@@ -526,23 +731,32 @@ def main() -> int:
     t_start = time.monotonic()
     phase_build()
     kern = phase_kernels(torch, np)
-    engine, launches, tok_s = phase_engine(torch, np)
-    phase_profile(torch, np, engine)
-    phase_logits(torch, np, engine)
-    phase_server(engine)
-    dec, wr = kern["paged_attention"], kern["cache_write_rows_paged"]
+    phase_sampling(torch, np)
+    runs = {}
+    for kv_dtype in ("auto", "int8"):
+        engine, launches = phase_engine(torch, np, kv_dtype)
+        phase_profile(torch, np, engine)
+        phase_logits(torch, np, engine)
+        phase_server(engine)
+        runs[kv_dtype] = launches
+        del engine
+        torch.cuda.empty_cache()
     keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    kernels = [
-        {"name": "paged_attention", "route": "cuda", "source": ATTN_SRC,
-         "replaces": f"{TPU_KERNELS}:1080",
-         "launches": launches["paged_attention"],
-         **{k: dec[k] for k in keys}},
-        {"name": "cache_write_rows_paged", "route": "cuda",
-         "source": WRITE_SRC, "replaces": f"{TPU_KERNELS}:1243",
-         "launches": launches["cache_write_rows_paged"],
-         **{k: wr[k] for k in keys}},
-    ]
+    kernels = []
+    for name, src, line, pool, case, kv_dtype in (
+            ("paged_attention", ATTN_SRC, 1080, "bf16", "attention", "auto"),
+            ("paged_attention_quant", ATTN_SRC, 1014, "int8", "attention",
+             "int8"),
+            ("cache_write_rows_paged", WRITE_SRC, 1243, "bf16", "write",
+             "auto"),
+            ("cache_write_rows_quant_paged", WRITE_SRC, 1313, "int8", "write",
+             "int8")):
+        res = kern[pool][case]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{TPU_KERNELS}:{line}",
+                        "launches": runs[kv_dtype][name],
+                        **{k: res[k] for k in keys}})
     log(f"[done] {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

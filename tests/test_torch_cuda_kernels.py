@@ -5,10 +5,12 @@ module imports no JAX, so it also runs on a machine that has none:
 
     pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: the row write copies values and must be bit-identical; the
-attention kernel accumulates in float32 like its plain version, in another
-order, so float32 pools agree within 1e-5 and bf16 pools within 2e-2 (one
-bf16 ulp of outputs below 4 in magnitude is at most 2^-6).
+Tolerances: the row writes copy values, or quantize them with the plain
+version's IEEE arithmetic, and must be bit-identical; the attention kernel
+accumulates in float32 like its plain version, in another order, so float32
+outputs agree within 1e-5 and bf16 outputs within 2e-2 (one bf16 ulp of
+outputs below 4 in magnitude is at most 2^-6), over bf16/f32 pools and
+int8 pools alike.
 """
 
 import numpy as np
@@ -86,6 +88,73 @@ def test_cache_write_bit_identical_to_plain(dev, dtype):
     assert not torch.equal(pk, torch.from_numpy(pool_k).to(dev, dtype))
 
 
+def _int8_pools(rng, L, P, hkv, ps, d, dev):
+    """Random int8 pools; scales around amax / 127 of standard normal rows
+    of 128 values (~0.02), so the dequantized values have the magnitude of
+    the float pools above and one float32 tolerance serves both."""
+    shape = (L, P, hkv, ps, d)
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-127, 128, shape).astype(np.int8),
+        rng.integers(-127, 128, shape).astype(np.int8),
+        rng.uniform(0.01, 0.03, shape[:-1]).astype(np.float32),
+        rng.uniform(0.01, 0.03, shape[:-1]).astype(np.float32))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,ps,d", [(4, 2, 8, 16), (16, 8, 64, 128)])
+def test_paged_attention_quant_matches_plain(dev, dtype, tol, hq, hkv, ps, d):
+    """The int8 instance: rows of limit 0, one row, page edges, the full
+    window; OOB_PAGE table entries past each row's live range."""
+    maxp = 4
+    rng, _, _, table = _layout(6, 1, hkv, ps, 16, maxp, seed=78)
+    pk, pv, ks, vs = _int8_pools(rng, 2, 6 * maxp + 1, hkv, ps, d, dev)
+    lengths = np.array([0, 1, ps, ps + 1, maxp * ps, 2 * ps + 3], np.int32)
+    for n, lim in enumerate(lengths):
+        table[n, max(-(-int(lim) // ps), 1):] = OOB_PAGE
+    q = torch.from_numpy(rng.standard_normal((6, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lim = torch.from_numpy(lengths).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    before = tpa.launch_counts()
+    out = tpa.paged_attention_quant(q, pk, pv, ks, vs, lim, 1, tab)
+    after = tpa.launch_counts()
+    assert after["paged_attention_quant"] == \
+        before["paged_attention_quant"] + 1
+    assert after["paged_attention"] == before["paged_attention"]
+    ref = tpa.paged_attention_plain(q, pk, pv, lim, 1, tab, ks, vs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,d", [(2, 16), (8, 128)])
+def test_cache_write_quant_bit_identical_to_plain(dev, dtype, hkv, d):
+    """Dropped rows (-1, past the window, OOB_PAGE tables), kept rows, a
+    zero row (scale floor) and chunk rows sharing one table's pages."""
+    maxp, ps = 3, 8
+    rng, _, _, table = _layout(8, 1, hkv, ps, 16, maxp, seed=9)
+    pools = _int8_pools(rng, 2, 8 * maxp + 1, hkv, ps, d, dev)
+    ref = [p.clone() for p in pools]
+    table[0, :] = OOB_PAGE
+    table[5:] = table[4]
+    rows = np.array([-1, 0, 8, 23, maxp * ps, 12, 13, 14], np.int32)
+    new = rng.standard_normal((2, 8, hkv, d)).astype(np.float32) \
+        * 10.0 ** rng.uniform(-4, 2, (2, 8, hkv, 1))
+    new[0, 1, 0] = 0.0
+    kn, vn = (torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+              for a in new)
+    r, t = torch.from_numpy(rows).to(dev), torch.from_numpy(table).to(dev)
+    before = tpa.cache_write_rows_quant_paged.launches
+    tpa.cache_write_rows_quant_paged(*pools, kn, vn, r, 1, t)
+    assert tpa.cache_write_rows_quant_paged.launches == before + 1
+    tpa.cache_write_rows_quant_paged_plain(*ref, kn, vn, r, 1, t)
+    torch.cuda.synchronize()
+    for got, want in zip(pools, ref):
+        assert torch.equal(got, want)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros((2, 4, 16), device=dev)
     pool = torch.zeros((1, 3, 2, 8, 16), device=dev)
@@ -99,3 +168,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tpa.paged_attention(q, pool, pool, lim, 1, tab)
     with pytest.raises(ValueError):
         tpa.paged_attention(q, pool, pool, lim.cpu(), 0, tab)
+    pool8 = pool.to(torch.int8)
+    scales = torch.ones(pool.shape[:-1], device=dev)
+    with pytest.raises(TypeError):
+        tpa.paged_attention_quant(q, pool8, pool8, scales.double(), scales,
+                                  lim, 0, tab)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_quant(q, pool8, pool8, scales[..., :4], scales,
+                                  lim, 0, tab)
+    with pytest.raises(TypeError):
+        tpa.cache_write_rows_quant_paged(pool, pool, scales, scales,
+                                         q[:, :2], q[:, :2], lim, 0, tab)

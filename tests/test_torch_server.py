@@ -1,5 +1,6 @@
 """The port's HTTP server on the CPU: ``/v1/models``, ``/v1/completions``
-and ``/health`` over a real socket, with tiny_qwen3 and the byte tokenizer.
+(the OpenAI ``seed`` included) and ``/health`` over a real socket, with
+tiny_qwen3 and the byte tokenizer.
 """
 
 import json
@@ -89,6 +90,24 @@ def test_token_id_prompt_and_greedy_repeatability(server):
     assert first[1]["usage"]["completion_tokens"] == 5
 
 
+def test_seed_makes_a_sampled_completion_repeatable(server):
+    """``seed`` reaches the engine: the same seeded sampled request gives
+    the same text every time (the engine's stream for that seed), while
+    unseeded ones draw fresh seeds."""
+    base, state = server
+    body = {"prompt": [40, 41, 42, 43], "max_tokens": 12, "temperature": 1.5,
+            "ignore_eos": True, "seed": 31337}
+    texts = [_post(base + "/v1/completions", body)[1]["choices"][0]["text"]
+             for _ in range(2)]
+    assert texts[0] == texts[1]
+    unseeded = {_post(base + "/v1/completions",
+                      {**body, "seed": None})[1]["choices"][0]["text"]
+                for _ in range(3)}
+    assert len(unseeded | {texts[0]}) > 1
+    status, out = _post(base + "/v1/completions", {**body, "seed": "x"})
+    assert status == 400 and "seed" in out["error"]["message"]
+
+
 def test_bad_requests_get_4xx(server):
     base, _ = server
     assert _post(base + "/v1/completions", b"{not json")[0] == 400
@@ -108,3 +127,31 @@ def test_cli_defaults_to_cuda():
         pytest.skip("the check is for a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--model", "tiny-qwen3", "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "tiny-qwen3", "--port", "0", "--kv-dtype", "int8"])
+    with pytest.raises(SystemExit):
+        main(["--model", "tiny-qwen3", "--kv-dtype", "fp8"])
+
+
+def test_int8_kv_server_answers_on_the_cpu():
+    serving = ServingConfig(model="tiny-qwen3", max_decode_slots=2,
+                            max_cache_len=64, page_size=8,
+                            prefill_buckets=(16, 32), dtype="float32",
+                            kv_dtype="int8")
+    state = build_state(serving, device="cpu")
+    assert state.engine.cache["k"].dtype == torch.int8
+    srv = make_server(state, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+    try:
+        status, out = _post(f"http://127.0.0.1:{srv.server_address[1]}"
+                            "/v1/completions",
+                            {"prompt": "int8", "max_tokens": 4,
+                             "ignore_eos": True})
+        assert status == 200 and out["usage"]["completion_tokens"] == 4
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.stop_engine()
+        th.join(10)
