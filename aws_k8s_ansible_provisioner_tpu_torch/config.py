@@ -5,8 +5,8 @@ field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
 Only the serving fields the port reads are here; the rest of the JAX
 ``ServingConfig`` (checkpoint loading, prefix cache, host tier, pipeline,
-spec decode, LoRA, deadlines, telemetry) comes over with the slices that
-port those features.
+LoRA, deadlines, telemetry) comes over with the slices that port those
+features.
 """
 
 from __future__ import annotations
@@ -160,3 +160,13 @@ class ServingConfig:
     # "int8" = weights-only per-out-channel int8 (the default); "bf16"/"auto"
     # keep the weights as loaded.
     weights_dtype: str = "int8"
+    # Speculative decoding: propose spec_k tokens per greedy slot and verify
+    # them with the target model in one dispatch of spec_k + 1 rows. Greedy
+    # streams stay those of plain decode; a sampled slot accepts nothing.
+    spec_decode: bool = False
+    # Proposal source: "prompt_lookup" (the context's trailing spec_ngram
+    # tokens matched against its own history) or "draft" (a small draft LM,
+    # ``Engine(..., draft=(cfg, params))``).
+    spec_method: str = "prompt_lookup"
+    spec_k: int = 4
+    spec_ngram: int = 3

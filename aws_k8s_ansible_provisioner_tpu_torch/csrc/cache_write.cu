@@ -1,11 +1,13 @@
-// Paged K/V row writes: one new K row and one new V row per packed query
-// row, written in place into the page pool; copied as they are
+// K/V row writes: one new K row and one new V row per packed query row,
+// written in place into the page pool; copied as they are
 // (cache_write_rows_paged) or quantized to int8 with a float32 scale per
-// row and kv head (cache_write_rows_quant_paged).
+// row and kv head (cache_write_rows_quant_paged). And the dense slot
+// cache's copy (cache_write_rows_dense), R rows per slot.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
 //   cache_write_row_paged and cache_write_row_quant_paged (each called once
-//   for K and once for V per layer).
+//   for K and once for V per layer), and cache_write_row (the dense cache,
+//   once for K and once for V per layer and per verify row).
 //
 // Contract (same as the TPU kernel): pool [L, P, Hkv, ps, D]; new rows
 // [N, Hkv, D]; rows [N] int32; table [N, max_pages] int32. Row n lands at
@@ -34,6 +36,15 @@
 // bytes. The same drop checks as the copy come first. Rows that share a
 // page land at their own offsets, every one of them (the Pallas kernel's
 // scale block spans a whole page; see ROADMAP C6).
+//
+// The dense write's contract (cache_write_row's): cache [L, B, Hkv, S, D];
+// new rows [B, R, Hkv, D]; rows [B, R] int32. Slot b's row r lands at row
+// rows[b, r] of slot b; a row outside [0, S) is dropped. Bytes bound it as
+// they bound the paged copy, and it has the same design: one CTA per (slot,
+// row), 16-byte copies, K and V in one launch, so a verify's R rows of one
+// layer are one launch where the TPU made 2 R. The Pallas kernel rewrites
+// the row's whole 8-row block; the port writes the row alone, which is the
+// same result since the block's other rows are written back unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +77,28 @@ __global__ void cache_write_rows_paged_kernel(
     const int64_t src = (int64_t)n * total + i;
     pool_k[dst] = k_new[src];
     pool_v[dst] = v_new[src];
+  }
+}
+
+__global__ void cache_write_rows_dense_kernel(
+    uint4* __restrict__ cache_k, uint4* __restrict__ cache_v,
+    const uint4* __restrict__ k_new, const uint4* __restrict__ v_new,
+    const int32_t* __restrict__ rows, int r_rows, int layer, int n_slots,
+    int hkv, int seq, int vec_per_row) {
+  const int i_row = blockIdx.x;                  // b * r_rows + r
+  const int b = i_row / r_rows;
+  const int row = rows[i_row];
+  if (row < 0 || row >= seq) return;             // dropped
+  const int total = hkv * vec_per_row;
+  const int64_t slot_base = ((int64_t)layer * n_slots + b) * hkv;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int h = i / vec_per_row;
+    const int c = i - h * vec_per_row;
+    const int64_t dst =
+        ((slot_base + h) * seq + row) * (int64_t)vec_per_row + c;
+    const int64_t src = (int64_t)i_row * total + i;
+    cache_k[dst] = k_new[src];
+    cache_v[dst] = v_new[src];
   }
 }
 
@@ -173,5 +206,25 @@ extern "C" int cache_write_rows_quant_paged(
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// Dense slot cache [L, n_slots, Hkv, seq, D]: new rows [n_slots, r_rows,
+// Hkv, D] at rows [n_slots, r_rows]. row_bytes = D * element size; a
+// multiple of 16 (the wrapper checks). Returns cudaGetLastError() after the
+// launch (0 = launched).
+extern "C" int cache_write_rows_dense(
+    void* cache_k, void* cache_v, const void* k_new, const void* v_new,
+    const void* rows, int n_slots, int r_rows, int layer, int hkv, int seq,
+    int row_bytes, void* stream) {
+  if (n_slots <= 0 || r_rows <= 0) return 0;
+  const int vec_per_row = row_bytes / 16;
+  int threads = hkv * vec_per_row;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  cache_write_rows_dense_kernel<<<n_slots * r_rows, threads, 0,
+                                  (cudaStream_t)stream>>>(
+      (uint4*)cache_k, (uint4*)cache_v, (const uint4*)k_new,
+      (const uint4*)v_new, (const int32_t*)rows, r_rows, layer, n_slots, hkv,
+      seq, vec_per_row);
   return (int)cudaGetLastError();
 }

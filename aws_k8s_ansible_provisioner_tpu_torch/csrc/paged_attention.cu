@@ -2,9 +2,12 @@
 // bf16/f32 pool or an int8 pool with per-row float32 scales.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
-//   _paged_flash_db / _paged_db_body (R=1, window 0), the body behind
-//   decode_attend_pallas_paged and ragged_attend_pallas_paged: the bf16 body
+//   _paged_flash_db / _paged_db_body (window 0), the body behind
+//   decode_attend_pallas_paged and ragged_attend_pallas_paged (R=1) and
+//   decode_attend_pallas_spec_paged (spec=True, R>1): the bf16 body
 //   _paged_db_kernel and the int8 scale-folding body _paged_db_kernel_quant.
+//   The speculative verify's R rows per slot come in as R packed rows, row
+//   (b, r) with limit lengths[b] + 1 + r and slot b's table row.
 //
 // Contract (same as the TPU kernel): q [N, Hq, D]; pools [L, P, Hkv, ps, D];
 // limits [N] int32; table [N, max_pages] int32; output [N, Hq, D] in q's
@@ -36,8 +39,8 @@
 // bytes; the values are converted to float32 as they are read from shared
 // memory. This first version does not overlap the next page's copy with the
 // current page's arithmetic, uses no tensor cores, and does not split long
-// rows across CTAs; rows that share a slot (chunk rows) re-read that slot's
-// pages. Those are the known costs.
+// rows across CTAs; rows that share a slot (chunk rows, a verify's R rows)
+// re-read that slot's pages. Those are the known costs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,25 +1,32 @@
-"""Serving attention callbacks over the paged pool.
+"""Serving attention callbacks over the paged pool and the dense cache.
 
 The attend callbacks that ``models/layers.model_forward_carry`` calls once
-per layer with ``cache_l = (pool, layer)``; each writes the layer's new K/V
-rows into the pool in place and attends:
+per layer with ``cache_l = (cache, layer)``; each writes the layer's new K/V
+rows into the cache in place and attends. Over the paged pool:
 
 - :func:`make_decode_attend_carry_paged`: one new token per slot
   (``decode_steps``);
+- :func:`make_spec_attend_carry_paged`: R tokens per slot, the speculative
+  verify (``spec_decode_step``);
 - :func:`make_mixed_attend_carry_paged`: B decode rows and C prefill-chunk
   rows packed into one sequence (``mixed_step``);
 - :func:`make_prefill_attend_batch_paged_carry`: whole prompts, causal
   attention over the prompt window plus the paged scatter (no kernel, as in
   the JAX package).
 
-The decode and mixed callbacks go through the kernels of
+Over the dense slot cache of the draft model (``kv_cache.init_cache``):
+:func:`make_decode_attend_carry`, :func:`make_spec_attend_carry` and
+:func:`make_prefill_attend_batch`, the same three programs' callbacks.
+
+The decode, verify and mixed callbacks go through the kernels of
 ``ops/paged_attention.py``: the row write and the attention over a bf16/f32
 pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
-the quantizing row write and the scale-folding attention. As in the JAX
-reference, all N row writes land before any row attends, so a chunk row
-sees exactly its prefix and a decode row exactly its own slot. The prefill
-callback attends over the fresh, unquantized K/V and scatters (quantized)
-rows into the pool.
+the quantizing row write and the scale-folding attention. The dense ones go
+through ``ops/dense_attention.py``. As in the JAX reference, all row writes
+land before any row attends, so a chunk row sees exactly its prefix, a
+verify row exactly the rows before it and a decode row exactly its own
+slot. The prefill callbacks attend over the fresh, unquantized K/V and
+scatter (quantized) rows into the cache.
 """
 
 from __future__ import annotations
@@ -30,31 +37,40 @@ from typing import Tuple
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import causal_attend
+from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import (
+    cache_write_rows_dense, decode_attend_dense, spec_attend_dense)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
     cache_write_rows_paged, cache_write_rows_quant_paged, decode_attend_paged,
-    ragged_attend_paged)
+    decode_attend_spec_paged, ragged_attend_paged)
+from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 
 
-def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
-                  cache_v: torch.Tensor, lengths: torch.Tensor
-                  ) -> torch.Tensor:
-    """Plain dense decode attention, one new token per slot.
+def decode_attend_multi(q: torch.Tensor, cache_k: torch.Tensor,
+                        cache_v: torch.Tensor, base_lens: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain dense attention, R query rows per slot: the speculative
+    verify's, and with R = 1 and ``base_lens = lengths - 1`` the decode
+    step's (the JAX package's ``decode_attend``). The dense kernels' plain
+    version (``ops/dense_attention.dense_attention_plain``) is built on it.
 
-    q: [B, 1, Hq, D]; cache_k/v: [B, Hkv, S, D] already holding the new
-    token's row; lengths: [B] valid rows per slot. Returns [B, 1, Hq, D].
+    q: [B, R, Hq, D]; cache_k/v: [B, Hkv, S, D] with rows base..base+R-1
+    already written; query row r sees the columns < base_lens + 1 + r.
+    Returns [B, R, Hq, D].
     """
-    B, _, Hq, D = q.shape
+    B, R, Hq, D = q.shape
     Hkv, S = cache_k.shape[1], cache_k.shape[2]
-    qg = q[:, 0].reshape(B, Hkv, Hq // Hkv, D).float()
-    logits = torch.einsum("bkgd,bksd->bkgs", qg, cache_k.float()) \
+    qg = q.reshape(B, R, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("brkgd,bksd->brkgs", qg, cache_k.float()) \
         / math.sqrt(D)
-    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
-    logits = torch.where(valid[:, None, None, :], logits,
+    limit = base_lens[:, None] + 1 + torch.arange(R, device=q.device)
+    valid = torch.arange(S, device=q.device)[None, None, :] \
+        < limit[:, :, None]                                     # [B, R, S]
+    logits = torch.where(valid[:, :, None, None, :], logits,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bkgs,bksd->bkgd", probs, cache_v.float())
-    return ctx.reshape(B, 1, Hq, D).to(q.dtype)
+    ctx = torch.einsum("brkgs,bksd->brkgd", probs, cache_v.float())
+    return ctx.reshape(B, R, Hq, D).to(q.dtype)
 
 
 def _write_rows(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -85,6 +101,30 @@ def make_decode_attend_carry_paged(lengths: torch.Tensor,
                              lengths, layer, table)
         ctx = decode_attend_paged(q, pool["k"], pool["v"], limits, layer,
                                   table, **scales)
+        return ctx, (pool, layer)
+
+    return attend
+
+
+def make_spec_attend_carry_paged(lengths: torch.Tensor,
+                                 table: torch.Tensor):
+    """Speculative verify over the paged pool: slot b's R new K/V rows land
+    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch for
+    all B * R rows, the slot's table row repeated; the engine has allocated
+    pages covering ``lengths + R``), then one attention launch answers the
+    B * R queries, row r of slot b attending ``lengths[b] + 1 + r`` columns.
+    lengths: [B] int32; table: [B, max_pages] int32."""
+
+    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+        pool, layer = cache_l
+        B, R = k.shape[:2]
+        r = torch.arange(R, dtype=lengths.dtype, device=lengths.device)
+        rows = (lengths[:, None] + r).reshape(B * R)
+        scales = _write_rows(pool, k.reshape(B * R, *k.shape[2:]),
+                             v.reshape(B * R, *v.shape[2:]), rows, layer,
+                             table.repeat_interleave(R, dim=0))
+        ctx = decode_attend_spec_paged(q, pool["k"], pool["v"], lengths,
+                                       layer, table, **scales)
         return ctx, (pool, layer)
 
     return attend
@@ -123,5 +163,55 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
         pool = pkv.write_prompts_paged_layer(pool, layer, tables, k, v,
                                              pool["k"].shape[3])
         return ctx, (pool, layer)
+
+    return attend
+
+
+def make_decode_attend_carry(lengths: torch.Tensor):
+    """Decode over the dense cache: slot b writes its new K/V row at row
+    ``lengths[b]`` (rows outside the window drop) and attends over
+    ``lengths[b] + 1`` rows. lengths: [B] int32."""
+    rows = lengths[:, None].to(torch.int32)
+
+    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+        cache, layer = cache_l
+        cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
+                               v.contiguous(), rows, layer)
+        ctx = decode_attend_dense(q, cache["k"], cache["v"], lengths + 1,
+                                  layer)
+        return ctx, (cache, layer)
+
+    return attend
+
+
+def make_spec_attend_carry(lengths: torch.Tensor):
+    """Speculative rows over the dense cache: slot b's R new K/V rows land
+    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch),
+    then one attention launch answers the B * R queries. lengths: [B]
+    int32."""
+
+    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+        cache, layer = cache_l
+        R = k.shape[1]
+        r = torch.arange(R, dtype=torch.int32, device=lengths.device)
+        rows = (lengths.to(torch.int32)[:, None] + r).contiguous()
+        cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
+                               v.contiguous(), rows, layer)
+        ctx = spec_attend_dense(q, cache["k"], cache["v"], lengths, layer)
+        return ctx, (cache, layer)
+
+    return attend
+
+
+def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor):
+    """Batched prefill into the dense cache: causal attention over each
+    right-padded prompt's fresh K/V, then its rows [0, T) scatter into slot
+    ``slots[n]`` (slots outside the cache drop)."""
+
+    def attend(q, k, v, cache_l):
+        cache, layer = cache_l
+        ctx = causal_attend(q, k, v, seq_lens=seq_lens)
+        cache = kvc.write_prompts(cache, layer, slots, k, v)
+        return ctx, (cache, layer)
 
     return attend

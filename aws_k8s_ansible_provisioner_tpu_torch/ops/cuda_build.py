@@ -31,6 +31,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "paged_attention": "paged_attention.cu",
     "cache_write": "cache_write.cu",
+    "dense_attention": "dense_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

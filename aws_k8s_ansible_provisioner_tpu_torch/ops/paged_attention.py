@@ -10,6 +10,11 @@
   ``_paged_db_kernel_quant``), folding the scales into the loop.
   :func:`decode_attend_paged` and :func:`ragged_attend_paged` are the two
   entry points of both; scale pools select the int8 form.
+- :func:`paged_attention_spec` and :func:`paged_attention_spec_quant` (the
+  same kernel) replace the same TPU body with ``spec=True`` behind
+  ``decode_attend_pallas_spec_paged``: the speculative verify's R query rows
+  per slot, packed as B * R rows with their own limits.
+  :func:`decode_attend_spec_paged` is their entry point.
 - :func:`cache_write_rows_paged` (``csrc/cache_write.cu``) replaces
   ``cache_write_row_paged``: one K and one V row per packed row, written in
   place through the table, rows outside ``[0, max_pages * page)`` dropped.
@@ -261,6 +266,97 @@ def ragged_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                    row_tables.to(torch.int32), pool_ks, pool_vs)
 
 
+def _spec_rows(q: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
+    """The verify's B * R query rows [B, R, Hq, D] as packed rows: row
+    (b, r) with limit ``lengths[b] + 1 + r`` and slot b's table row."""
+    B, R = q.shape[:2]
+    r = torch.arange(R, dtype=torch.int32, device=q.device)
+    limits = (lengths.to(torch.int32)[:, None] + 1 + r).reshape(B * R)
+    return (q.reshape(B * R, *q.shape[2:]), limits,
+            table.to(torch.int32).repeat_interleave(R, dim=0))
+
+
+def paged_attention_spec_plain(q: torch.Tensor, pool_k: torch.Tensor,
+                               pool_v: torch.Tensor, lengths: torch.Tensor,
+                               layer: int, table: torch.Tensor,
+                               pool_ks: Optional[torch.Tensor] = None,
+                               pool_vs: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain version of :func:`paged_attention_spec` and
+    :func:`paged_attention_spec_quant`: :func:`paged_attention_plain` over
+    the B * R packed rows of :func:`_spec_rows`.
+
+    The TPU kernel walks slot b's pages once for all R rows, up to the page
+    of column ``lengths[b] + R - 1``; packed row r stops at its own last
+    page. Every row has a live column (its limit is at least 1), so the
+    pages only the TPU kernel visits add columns masked to -1e30, whose
+    probabilities are exactly 0: both give the same result.
+    """
+    qp, limits, tables = _spec_rows(q, lengths, table)
+    return paged_attention_plain(qp, pool_k, pool_v, limits, layer, tables,
+                                 pool_ks, pool_vs).reshape(q.shape)
+
+
+def paged_attention_spec(q: torch.Tensor, pool_k: torch.Tensor,
+                         pool_v: torch.Tensor, lengths: torch.Tensor,
+                         layer: int, table: torch.Tensor) -> torch.Tensor:
+    """Speculative-verify attention over a bf16/f32 pool: R query rows per
+    slot, row r attending the columns < ``lengths[b] + 1 + r``.
+
+    q: [B, R, Hq, D]; pools [L, P, Hkv, page, D] of q's type; lengths [B]
+    int32; table [B, max_pages] int32. Returns [B, R, Hq, D]. CPU tensors
+    take :func:`paged_attention_spec_plain`; CUDA tensors launch the paged
+    attention kernel over the B * R rows packed (:func:`_spec_rows`)."""
+    if q.device.type == "cpu":
+        return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
+                                          table)
+    qp, limits, tables = _spec_rows(q, lengths, table)
+    out = _launch_attention("paged_attention_spec", qp, pool_k, pool_v, None,
+                            None, limits, tables, layer)
+    paged_attention_spec.launches += 1
+    return out.reshape(q.shape)
+
+
+paged_attention_spec.launches = 0
+
+
+def paged_attention_spec_quant(q: torch.Tensor, pool_k: torch.Tensor,
+                               pool_v: torch.Tensor, pool_ks: torch.Tensor,
+                               pool_vs: torch.Tensor, lengths: torch.Tensor,
+                               layer: int, table: torch.Tensor
+                               ) -> torch.Tensor:
+    """:func:`paged_attention_spec` over an int8 pool with its float32 scale
+    pools (the kernel's int8 instance, scales folded as in
+    :func:`paged_attention_quant`)."""
+    if q.device.type == "cpu":
+        return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
+                                          table, pool_ks, pool_vs)
+    qp, limits, tables = _spec_rows(q, lengths, table)
+    out = _launch_attention("paged_attention_spec_quant", qp, pool_k, pool_v,
+                            pool_ks, pool_vs, limits, tables, layer)
+    paged_attention_spec_quant.launches += 1
+    return out.reshape(q.shape)
+
+
+paged_attention_spec_quant.launches = 0
+
+
+def decode_attend_spec_paged(q: torch.Tensor, pool_k: torch.Tensor,
+                             pool_v: torch.Tensor, lengths: torch.Tensor,
+                             layer: int, table: torch.Tensor,
+                             pool_ks: Optional[torch.Tensor] = None,
+                             pool_vs: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Verify entry: q [B, R, Hq, D], the rows at positions
+    ``lengths[b] + r`` (all R already written); scale pools select the int8
+    form. Returns [B, R, Hq, D]."""
+    q = q.contiguous()
+    if pool_ks is None:
+        return paged_attention_spec(q, pool_k, pool_v, lengths, layer, table)
+    return paged_attention_spec_quant(q, pool_k, pool_v, pool_ks, pool_vs,
+                                      lengths, layer, table)
+
+
 def _kept_rows(rows: torch.Tensor, table: torch.Tensor, page_size: int,
                num_pages: int):
     """(packed indices, page ids, offsets) of the rows a write keeps: row n
@@ -441,7 +537,8 @@ def cache_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
 
 cache_write_rows_quant_paged.launches = 0
 
-_COUNTED = (paged_attention, paged_attention_quant, cache_write_rows_paged,
+_COUNTED = (paged_attention, paged_attention_quant, paged_attention_spec,
+            paged_attention_spec_quant, cache_write_rows_paged,
             cache_write_rows_quant_paged)
 
 

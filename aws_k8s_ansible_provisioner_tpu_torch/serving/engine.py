@@ -2,18 +2,25 @@
 
 The host-side scheduler of the port: FCFS admission gated on free pages,
 batched prefill of fresh prompts, decode of every active slot with a fused
-horizon, and chunked prefill packed beside the decode batch in one ragged
-dispatch (``programs.mixed_step``). It follows the JAX package's
-``serving/engine.py`` and ``programs.EnginePrograms`` wherever this slice
-reaches, with these differences:
+horizon, chunked prefill packed beside the decode batch in one ragged
+dispatch (``programs.mixed_step``), and speculative decoding
+(``ServingConfig.spec_decode``: prompt-lookup drafts, or a draft model's,
+verified in one dispatch of spec_k + 1 rows per slot). It follows the JAX
+package's ``serving/engine.py`` and ``programs.EnginePrograms`` wherever
+this slice reaches, with these differences:
 
 - dispatch is synchronous: every step launches its program and then fetches
   its tokens (the JAX engine's one-deep pipeline produces the same streams);
 - every chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
-- not ported yet: the prefix cache and host tier, spec decode, guided
-  decoding, LoRA, penalties, logit bias, min_tokens, logprobs, deadlines,
-  drain and the admission-pressure preemption.
+- not ported yet: the prefix cache and host tier, guided decoding, LoRA,
+  penalties, logit bias, min_tokens, logprobs, deadlines, drain and the
+  admission-pressure preemption;
+- a verify dispatch serves greedy slots only: a sampled slot takes its
+  tokens from the plain step that follows (the JAX engine draws it from the
+  verify's row 0), so that its seeded stream does not depend on speculation;
+- the draft model keeps its cache at the target's own positions (see
+  ``serving/draft.py``), where the JAX draft runs one row behind.
 
 Idle slots keep decoding into the scratch page 0, as in the JAX engine: their
 tables point there, and their outputs are discarded.
@@ -50,8 +57,9 @@ from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
 from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    decode_steps, mixed_step, prefill_batch_step)
+    decode_steps, mixed_step, prefill_batch_step, spec_decode_step)
 
 log = logging.getLogger(__name__)
 
@@ -108,7 +116,10 @@ class Engine:
     """Continuous-batching engine over a fixed set of decode slots."""
 
     def __init__(self, cfg: ModelConfig, params: dict, serving: ServingConfig,
-                 eos_token_id: Optional[int] = None, device=None):
+                 eos_token_id: Optional[int] = None, device=None,
+                 draft: Optional[tuple] = None):
+        """``draft=(draft_cfg, draft_params)`` is the draft model of
+        ``spec_method="draft"``; its vocabulary must cover the target's."""
         check_supported(cfg)
         if serving.weights_dtype not in ("auto", "bf16", "int8"):
             raise ValueError(f"weights_dtype={serving.weights_dtype!r}: "
@@ -183,6 +194,24 @@ class Engine:
             if serving.derived_seed is None else int(serving.derived_seed))
         self.counts = collections.Counter()
         self.last_error = ""
+        if serving.spec_method not in ("prompt_lookup", "draft"):
+            raise ValueError(f"spec_method={serving.spec_method!r}: expected "
+                             f"'prompt_lookup' or 'draft'")
+        # after a verify that skipped slots, the next dispatch is plain so
+        # that they advance
+        self._spec_plain_due = False
+        self.draft: Optional[DraftModel] = None
+        if serving.spec_method == "draft" and serving.spec_decode:
+            if draft is None:
+                raise ValueError("spec_method='draft' requires draft="
+                                 "(draft_cfg, draft_params)")
+            dcfg, dparams = draft
+            if dcfg.vocab_size < cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({dcfg.vocab_size}) must cover the target "
+                    f"vocab ({cfg.vocab_size}): drafts are target token ids")
+            self.draft = DraftModel(dcfg, _to_device(dparams, self.device),
+                                    self.num_slots, self.max_len, self.device)
 
     # -- submission ---------------------------------------------------------
 
@@ -380,12 +409,17 @@ class Engine:
             self._dev(np.array([r.eff_seed for r, _ in batch], np.int64)))
         toks = toks.cpu().numpy()
         self.counts["prefill_dispatches"] += 1
+        if self.draft is not None:
+            self.draft.prefill(tokens, true_lens, np.array(slots, np.int32))
         for i, (req, slot) in enumerate(batch):
             self._activate(req, slot, int(toks[i]), req.prompt_ids, False)
 
     def _start_chunk(self, req: Request, slot: int, ids: List[int],
                      resumed: bool):
         self.lengths[slot] = 0
+        if self.draft is not None:
+            # the draft has no chunk walk; the slot serves the plain path
+            self.draft.mark_stale(slot)
         self._chunk = {"req": req, "slot": slot, "ids": ids, "off": 0,
                        "resumed": resumed}
 
@@ -433,9 +467,26 @@ class Engine:
             waiting = bool(self._queue)
         horizon = 1 if (waiting and self._free) \
             else max(1, self.serving.decode_horizon)
-        if not self._ensure_pages(horizon):
+        spec, K = self.serving.spec_decode, self.serving.spec_k
+        if self.draft is not None:
+            # one plain dispatch must fit one catch-up dispatch of K + 1 rows
+            horizon = min(horizon, K + 1)
+        # pages for every row this dispatch may write, the verify's K + 1
+        # included
+        if not self._ensure_pages(max(horizon, K + 1 if spec else 1)):
             return
         active = self._active_slots()
+        # a verify only when no prompt could prefill next (horizon > 1);
+        # it writes K + 1 rows for every slot, so the window bound is global
+        if (spec and horizon > 1 and not self._spec_plain_due
+                and self.lengths[active].max() + K + 1 < self.max_len):
+            skip = self._spec_skip(active)
+            proposal = self._propose_drafts([s for s in active
+                                             if s not in skip])
+            if proposal is not None:
+                self._do_spec_decode(active, *proposal, skip=skip)
+                return
+        self._spec_plain_due = False
         self.cache, out = decode_steps(
             self.model, horizon, self.cache, self._dev(self.last_token),
             self._dev(self.lengths), self._dev(self.table),
@@ -449,6 +500,85 @@ class Engine:
                     continue                 # finished earlier this horizon
                 self.lengths[slot] += 1
                 self._emit(slot, int(out[s, slot]))
+
+    # -- speculative decoding -----------------------------------------------
+
+    def _propose_drafts(self, active: List[int]):
+        """Drafts for the verify dispatch: the draft model's rollout
+        (``spec_method="draft"``), else prompt lookup: the context's
+        trailing spec_ngram tokens matched against its last 2048 tokens,
+        the rightmost hit proposing the spec_k tokens after it. ``active``
+        holds greedy slots only (:meth:`_spec_skip` leaves the sampled ones
+        out). Returns (drafts [num_slots, spec_k] int32 zero-padded,
+        {slot: real draft count}), or None when nothing was proposed."""
+        K = self.serving.spec_k
+        if self.draft is not None:
+            return self.draft.propose(self, active, K)
+        n = self.serving.spec_ngram
+        drafts = np.zeros((self.num_slots, K), np.int32)
+        proposed = {}
+        for slot in active:
+            req = self.slot_req[slot]
+            ctx = req.prompt_ids + req.generated
+            if len(ctx) < n + 2:
+                continue
+            arr = np.asarray(ctx[-2048:], np.int32)
+            win = np.lib.stride_tricks.sliding_window_view(arr[:-1], n)
+            hits = np.nonzero((win == arr[-n:]).all(axis=1))[0]
+            if hits.size == 0:
+                continue
+            cont = arr[int(hits[-1]) + n:][:K]
+            if cont.size == 0:
+                continue
+            drafts[slot, :cont.size] = cont
+            proposed[slot] = int(cont.size)
+        return (drafts, proposed) if proposed else None
+
+    def _spec_skip(self, active: List[int]) -> set:
+        """Slots a verify dispatch serves no token: the sampled ones. They
+        take every token from the plain step, so a seeded stream is the same
+        with speculation on or off: in bf16 the verify's R-row forward
+        rounds apart from the one-row decode, enough to flip a near-tie of
+        the draw (the JAX engine draws them from the verify's row 0; ROADMAP
+        C9). The JAX engine's other plain-only features (logprobs,
+        penalties, min_tokens, logit bias, guided) are not ported yet."""
+        return {s for s in active if self.slot_req[s].temperature > 0.0}
+
+    def _do_spec_decode(self, active: List[int], drafts: np.ndarray,
+                        proposed: dict, skip=frozenset()):
+        """One verify dispatch: up to spec_k + 1 tokens per slot. ``skip``
+        slots take part (their surplus rows lie past their length) but emit
+        nothing; the next dispatch is then a plain one. The accepted count
+        is clamped to each slot's real draft count (a zero-padded draft can
+        match the model's argmax)."""
+        R = self.serving.spec_k + 1
+        tokens = np.concatenate([self.last_token[:, None], drafts], axis=1)
+        self.cache, out, accepted = spec_decode_step(
+            self.model, R, self.cache, self._dev(tokens),
+            self._dev(self.lengths), self._dev(self.table),
+            self._dev(self.temps), self._dev(self.top_ks),
+            self._dev(self.top_ps), self._dev(self.seeds))
+        out, accepted = out.cpu().numpy(), accepted.cpu().numpy()
+        self.counts["spec_dispatches"] += 1
+        for slot in active:
+            if slot in skip:
+                continue
+            acc = int(accepted[slot])
+            if slot in proposed:
+                n_drafted = proposed[slot]
+                self.counts["spec_drafted_tokens"] += n_drafted
+                self.counts["spec_accepted_tokens"] += \
+                    min(max(acc - 1, 0), n_drafted)
+            emitted = 0
+            for i in range(acc):
+                if self.slot_req[slot] is None:
+                    break                    # a stop condition mid-prefix
+                self.lengths[slot] += 1
+                self._emit(slot, int(out[slot, i]))
+                emitted += 1
+            if self.draft is not None and slot in proposed:
+                self.draft.note_emitted(slot, emitted)
+        self._spec_plain_due = bool(skip)
 
     # -- slot lifecycle -----------------------------------------------------
 

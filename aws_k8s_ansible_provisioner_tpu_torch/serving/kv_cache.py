@@ -1,5 +1,7 @@
 """Int8 KV quantization: the per-row rule both K3 and the prefill scatters
-apply, its inverse, and the cache's size in bytes.
+apply, its inverse, and the cache's size in bytes; and the dense slot cache
+of the draft model (:func:`init_cache`, its prompt scatter and its plain
+row write).
 
 K/V rows are stored int8 with one float32 scale per (layer, page, kv head,
 row), the per-token-per-head dynamic scheme of the JAX package's
@@ -51,3 +53,48 @@ def cache_bytes(cfg: ModelConfig, num_slots: int, max_len: int,
     if quant:
         return rows * (cfg.head_dim + 4)
     return rows * cfg.head_dim * torch.empty((), dtype=dtype).element_size()
+
+
+def init_cache(cfg: ModelConfig, num_slots: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """The dense slot cache the draft model keeps: ``{"k", "v"}`` each
+    ``[L, num_slots, Hkv, max_len, D]``, zeroed, slot b's rows contiguous
+    (the JAX package's ``kv_cache.init_cache`` layout, unquantized).
+    ``device`` defaults to CUDA (``device.resolve_device``)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
+
+    shape = (cfg.num_layers, num_slots, cfg.num_kv_heads, max_len,
+             cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def write_prompts(cache: dict, layer: int, slots: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Batched prompt write for one layer of the dense cache, in place:
+    prompt n's rows [0, T) land in slot ``slots[n]`` (the padded tail too;
+    decode masks by length). k/v: [N, T, Hkv, D]; slots outside the cache
+    drop, as the JAX scatter's ``mode="drop"`` drops them."""
+    num_slots, T = cache["k"].shape[1], k.shape[1]
+    keep = ((slots >= 0) & (slots < num_slots)).nonzero().squeeze(1)
+    sl = slots.long()[keep]
+    for name, new in (("k", k), ("v", v)):
+        cache[name][layer, sl, :, :T] = \
+            new[keep].transpose(1, 2).to(cache[name].dtype)
+    return cache
+
+
+def write_token_layer(cache: dict, layer: int, rows: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Row write into one layer of the dense cache, in place: slot b's new
+    K/V row r lands at row ``rows[b, r]``; rows outside [0, S) drop.
+    rows: [B, R]; k/v: [B, R, Hkv, D]. The JAX package's
+    ``write_token_layer`` is the R = 1 case."""
+    S = cache["k"].shape[3]
+    r = rows.long()
+    ok = ((r >= 0) & (r < S)).nonzero()                   # [M, 2] (b, r)
+    b, j = ok[:, 0], ok[:, 1]
+    for name, new in (("k", k), ("v", v)):
+        cache[name][layer, b, :, r[b, j]] = new[b, j].to(cache[name].dtype)
+    return cache

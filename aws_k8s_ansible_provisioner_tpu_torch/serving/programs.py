@@ -1,24 +1,33 @@
-"""The engine's step programs: batched prefill, the fused decode horizon and
-the ragged mixed dispatch.
+"""The engine's step programs: batched prefill, the fused decode horizon,
+the ragged mixed dispatch and the speculative verify.
 
 Each is a plain function over the model (``models/layers.DecoderLM``), the
-page pool (updated in place) and device tensors, with the JAX package's
+cache (updated in place) and device tensors, with the JAX package's
 ``serving/programs.py`` semantics and operand layouts:
 
 - :func:`prefill_batch_step`: N right-padded prompts in one forward pass,
-  causal attention plus the paged scatter; samples each prompt's first token;
+  causal attention plus the paged scatter (or, with ``slots``, the dense
+  cache's); samples each prompt's first token;
 - :func:`decode_steps`: ``n_steps`` decode substeps for every slot (the
   fused horizon, here a Python loop), each writing one K/V row per slot at
-  its length and attending through the paged kernel;
+  its length and attending through the paged kernel (or, without a
+  ``table``, the dense cache's);
 - :func:`mixed_step`: B decode rows and one C-row prefill chunk of slot
   ``pslot`` packed into one ``[1, B + C]`` sequence and served by one
   forward pass through the ragged kernel. ``pslot``'s own decode row is a
-  dead passenger: write row -1 (dropped), limit 0.
+  dead passenger: write row -1 (dropped), limit 0;
+- :func:`spec_decode_step`: R tokens per slot (the last emitted token and
+  R - 1 drafts) in one forward pass, greedy acceptance of the longest
+  matching draft prefix.
+
+The paged pool serves the target model; the dense slot cache
+(``kv_cache.init_cache``) the draft model of speculative decoding.
 
 Each takes the rows' ``seeds`` ([B] uint32 values held in int64) and keys
 its draws at the JAX programs' counters (``ops/sampling.per_slot_keys``):
 a prefill row at its prompt length, a decode row at its length + 1 (the
-context the draw extends to), the chunk row at ``pstart + plen``.
+context the draw extends to), the chunk row at ``pstart + plen``, a verify
+row 0 at its length + 1.
 
 Sampling penalties, logit bias, stop-token bans, guided masks, logprobs and
 LoRA of the JAX programs are not ported yet.
@@ -26,29 +35,36 @@ LoRA of the JAX programs are not ported yet.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
 from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
-    make_decode_attend_carry_paged, make_mixed_attend_carry_paged,
-    make_prefill_attend_batch_paged_carry)
+    make_decode_attend_carry, make_decode_attend_carry_paged,
+    make_mixed_attend_carry_paged, make_prefill_attend_batch,
+    make_prefill_attend_batch_paged_carry, make_spec_attend_carry,
+    make_spec_attend_carry_paged)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
 
 
 def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
-                       true_lens: torch.Tensor, tables: torch.Tensor,
+                       true_lens: torch.Tensor, tables: Optional[torch.Tensor],
                        temperature: torch.Tensor, top_k: torch.Tensor,
-                       top_p: torch.Tensor, seeds: torch.Tensor):
+                       top_p: torch.Tensor, seeds: torch.Tensor,
+                       slots: Optional[torch.Tensor] = None):
     """Prefill N prompts in one forward pass.
 
     tokens: [N, T] right-padded; true_lens [N]; tables [N, max_pages] int32
-    (rows of OOB_PAGE drop); seeds [N]. Returns (pool, first tokens [N]
-    int32).
+    (rows of OOB_PAGE drop) for the paged pool, or ``tables=None`` and
+    ``slots`` [N] (slots outside the cache drop) for the dense cache; seeds
+    [N]. Returns (pool, first tokens [N] int32).
     """
     N, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device)[None].expand(N, T)
-    attend = make_prefill_attend_batch_paged_carry(tables, true_lens)
+    attend = make_prefill_attend_batch(slots, true_lens) if tables is None \
+        else make_prefill_attend_batch_paged_carry(tables, true_lens)
     logits, pool = model.forward_carry(tokens, positions, pool, attend)
     last = logits[torch.arange(N, device=tokens.device), true_lens.long() - 1]
     return pool, sample(last, temperature, top_k, top_p, seeds, true_lens)
@@ -56,21 +72,22 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
 
 def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
                  tokens: torch.Tensor, lengths: torch.Tensor,
-                 table: torch.Tensor, temperature: torch.Tensor,
+                 table: Optional[torch.Tensor], temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
                  seeds: torch.Tensor):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
-    table: [B, max_pages] int32; seeds [B]. Returns (pool, out [n_steps, B]). Slots
-    that stop mid-horizon produce surplus tokens the host discards; their
-    surplus K/V rows land past the slot's length (or drop past the
-    window).
+    table: [B, max_pages] int32 for the paged pool, None for the dense
+    cache; seeds [B]. Returns (pool, out [n_steps, B]). Slots that stop
+    mid-horizon produce surplus tokens the host discards; their surplus K/V
+    rows land past the slot's length (or drop past the window).
     """
     out = []
     tok, lens = tokens, lengths
     for _ in range(n_steps):
-        attend = make_decode_attend_carry_paged(lens, table)
+        attend = make_decode_attend_carry(lens) if table is None \
+            else make_decode_attend_carry_paged(lens, table)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
                                            attend)
         tok = sample(logits[:, 0], temperature, top_k, top_p, seeds,
@@ -119,3 +136,46 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                   torch.tensor([pseed], dtype=torch.int64, device=dev),
                   torch.tensor([pstart + plen], device=dev))
     return pool, nxt[None], ptok
+
+
+def spec_decode_step(model: DecoderLM, R: int, pool: dict,
+                     tokens: torch.Tensor, lengths: torch.Tensor,
+                     table: Optional[torch.Tensor], temperature: torch.Tensor,
+                     top_k: torch.Tensor, top_p: torch.Tensor,
+                     seeds: torch.Tensor):
+    """Speculative verify: R tokens per slot in one forward pass.
+
+    tokens: [B, R] = [last emitted token, R - 1 drafts] at positions
+    ``lengths[b] + r``; table [B, max_pages] int32 for the paged pool (its
+    pages must cover ``lengths + R``), None for the dense cache. Returns
+    (pool, out [B, R], accepted [B]): ``out[b, :accepted[b]]`` are the
+    emitted tokens, the longest draft prefix that matches the model's
+    argmax at every row, then the argmax after it. A sampled slot
+    (temperature > 0) accepts nothing and draws one token from row 0, keyed
+    at ``lengths + 1`` as a decode step is. The K/V rows of all R positions
+    are written; those past the accepted prefix lie beyond the slot's new
+    length and are rewritten before anything attends them.
+    """
+    B = tokens.shape[0]
+    dev = tokens.device
+    positions = lengths[:, None] + torch.arange(R, dtype=lengths.dtype,
+                                                device=dev)[None, :]
+    attend = make_spec_attend_carry(lengths) if table is None \
+        else make_spec_attend_carry_paged(lengths, table)
+    logits, pool = model.forward_carry(tokens, positions, pool, attend)
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)          # [B, R]
+    drafts = tokens[:, 1:].to(torch.int32)                        # [B, R-1]
+    match = (drafts == preds[:, :-1]).to(torch.int32)
+    m = torch.cumprod(match, dim=-1).sum(dim=-1)                  # [B]
+    greedy = temperature <= 0.0
+    m = torch.where(greedy, m, torch.zeros_like(m))
+    sampled0 = sample(logits[:, 0], temperature, top_k, top_p, seeds,
+                      lengths + 1)
+    rows = torch.arange(B, device=dev)
+    correction = torch.where(greedy, preds[rows, m], sampled0)
+    pos = torch.arange(R - 1, device=dev)[None, :]
+    out = torch.where(pos < m[:, None], drafts, torch.zeros_like(drafts))
+    out = torch.cat([out, torch.zeros((B, 1), dtype=torch.int32,
+                                      device=dev)], dim=1)
+    out[rows, m] = correction.to(torch.int32)
+    return pool, out, (m + 1).to(torch.int32)

@@ -228,6 +228,11 @@ def main(argv=None):
                         "float32 scales")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill size; 0 disables")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="prompt-lookup speculative decoding (greedy streams "
+                        "unchanged)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens verified per speculative step")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -240,7 +245,8 @@ def main(argv=None):
         max_decode_slots=args.max_decode_slots,
         max_cache_len=args.max_cache_len, page_size=args.page_size,
         dtype=args.dtype, weights_dtype=args.weights_dtype,
-        kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk)
+        kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
+        spec_decode=args.spec_decode, spec_k=args.spec_k)
     state = build_state(serving, device=args.device, seed=args.seed)
     server = make_server(state, args.host, args.port)
     state.start_engine()

@@ -15,6 +15,9 @@ result when either is missing. Phases, in order (any failure raises):
    version, a PyTorch library call of the same function and its bound: the
    attention and the row write over a bf16 pool, and their int8 forms (the
    scale-folding attention, the quantizing row write) over an int8 pool;
+   the speculative verify's attention (5 rows per slot) over both pools;
+   and over the draft model's dense cache ([28, 32, 8, 2048, 128] bf16) the decode
+   attention, the verify attention and the row write;
 3. engine, once per KV pool: the main path, Qwen3-0.6B at full width with
    seeded random weights through ``serving.engine.Engine`` (the default
    ServingConfig: paged, page 64, 32 slots, int8 weights; prefill_chunk 256
@@ -28,7 +31,20 @@ result when either is missing. Phases, in order (any failure raises):
    the kernels are held against the same step through the plain versions;
 4. server, for each engine: the port's HTTP server in-process on a free
    port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
-   int8 engine, a seeded sampled completion twice, the same text).
+   int8 engine, a seeded sampled completion twice, the same text);
+5. spec, once per KV pool: prompt-lookup speculative decoding
+   (``spec_decode=True``) at full width on repeated-pattern prompts, with
+   its launch counts zeroed just before and read just after (verify
+   dispatches, drafts and the verify kernel of that pool required); a
+   seeded sampled request gives the same stream with spec on and off (the
+   engine serves sampled slots from the plain step only). One
+   verify dispatch of 8 slots is held against plain decode steps of the
+   same prefixes (logits within LOGIT_TOL, the emitted tokens the accept
+   rule on the verify's argmax), then timed and profiled;
+6. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
+   the same width over the dense cache; a second wave of chunked prompts
+   puts the drafts behind so that they catch up. The dense kernels must
+   have launched, and the self-draft must have accepted drafts.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +67,7 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 ATTN_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/paged_attention.cu"
 WRITE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/cache_write.cu"
+DENSE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/dense_attention.cu"
 TPU_KERNELS = "aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py"
 # bf16 kernel vs plain, per query row (its Hq x D outputs): both compute in
 # float32 and round once to bf16, so an element differs by at most one ulp
@@ -70,6 +87,8 @@ ATTN_MAX_ULPS, ATTN_MEAN_ULPS = 4.0, 0.5
 LOGIT_TOL = 0.1
 # sampled requests of the int8 engine run
 SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=20, ignore_eos=True)
+# query rows per slot of a verify: the default spec_k 4, plus the last token
+SPEC_R = 5
 
 
 def log(msg: str) -> None:
@@ -145,21 +164,8 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
     ref = pa.paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
                                    *scales)
     torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs().reshape(N, -1)
-    max_err, mean_err = float(diff.max()), float(diff.mean())
-    ulp = _bf16_ulp(torch, ref.float().abs().reshape(N, -1).amax(1))
-    row_max = diff.amax(1) / ulp
-    row_mean = diff.mean(1) / ulp
-    worst_max, worst_mean = float(row_max.max()), float(row_mean.max())
-    if not (math.isfinite(max_err) and worst_max <= ATTN_MAX_ULPS
-            and worst_mean <= ATTN_MEAN_ULPS):
-        bad = torch.nonzero((row_max > ATTN_MAX_ULPS)
-                            | (row_mean > ATTN_MEAN_ULPS)).flatten()
-        raise AssertionError(
-            f"{name} {label}: rows {bad[:8].tolist()} (limits "
-            f"{limits_np[bad[:8].cpu().numpy()].tolist()}) past tolerance: "
-            f"worst row max {worst_max:.2f} ulp (tol {ATTN_MAX_ULPS}), worst "
-            f"row mean {worst_mean:.3f} ulp (tol {ATTN_MEAN_ULPS})")
+    check = _ulp_rows(torch, f"{name} {label}", out, ref, N,
+                      lambda bad: f"limits {limits_np[bad].tolist()}")
     ms = timed_ms(torch, kernel)
     plain_ms = timed_ms(torch, lambda: pa.paged_attention_plain(
         q, pool_k, pool_v, limits, layer, table, *scales), iters=5, warmup=1)
@@ -185,27 +191,60 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
     library_ms = timed_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask))
     del kd, vd
     # bound: each input byte read once (K/V pages the rows visit, and their
-    # scales, counted once per distinct (page, kv head) tile), each output
-    # byte written once; operations: QK^T and PV over the live columns
+    # scales, counted once per distinct (page, kv head) tile; the table
+    # entries of the visited pages), each output byte written once;
+    # operations: QK^T and PV over the live columns
     visited = {int(table_np[n, c]) for n in range(N) for c in range(hi[n] + 1)}
     tile = Hkv * ps * (D * pool_k.element_size() + (4 if quant else 0))
     nbytes = (2 * len(visited) * tile + 2 * N * Hq * D * 2
-              + N * 4 + N * table_np.shape[1] * 4)
+              + N * 4 + int((hi + 1).sum()) * 4)
     ops = 4 * Hq * D * int(np.maximum(limits_np, 0).sum())
+    return _report(f"{name} {label}", check, ms, plain_ms, library_ms,
+                   nbytes, ops, N)
+
+
+def _ulp_rows(torch, what, out, ref, n_rows, describe):
+    """The attention kernels' tolerance, query row by query row (each row's
+    Hq x D outputs): max |diff| <= ATTN_MAX_ULPS and mean |diff| <=
+    ATTN_MEAN_ULPS bf16 ulps of the row's largest |plain output|.
+    ``describe(bad row indices)`` names the failing rows' inputs."""
+    diff = (out.float() - ref.float()).abs().reshape(n_rows, -1)
+    max_err, mean_err = float(diff.max()), float(diff.mean())
+    ulp = _bf16_ulp(torch, ref.float().abs().reshape(n_rows, -1).amax(1))
+    row_max = diff.amax(1) / ulp
+    row_mean = diff.mean(1) / ulp
+    worst_max, worst_mean = float(row_max.max()), float(row_mean.max())
+    if not (math.isfinite(max_err) and worst_max <= ATTN_MAX_ULPS
+            and worst_mean <= ATTN_MEAN_ULPS):
+        bad = torch.nonzero((row_max > ATTN_MAX_ULPS)
+                            | (row_mean > ATTN_MEAN_ULPS)).flatten()[:8]
+        raise AssertionError(
+            f"{what}: rows {bad.tolist()} ({describe(bad.cpu().numpy())}) "
+            f"past tolerance: worst row max {worst_max:.2f} ulp (tol "
+            f"{ATTN_MAX_ULPS}), worst row mean {worst_mean:.3f} ulp (tol "
+            f"{ATTN_MEAN_ULPS})")
+    return {"max_abs_err": max_err, "mean_abs_err": mean_err,
+            "worst_row_max_ulps": worst_max, "worst_row_mean_ulps": worst_mean}
+
+
+def _report(what, check, ms, plain_ms, library_ms, nbytes, ops, rows,
+            extra=""):
+    """One attention case's result: the check, the times and the bound
+    (the larger of bytes over the memory rate and operations over the bf16
+    tensor-core rate)."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_OPS_PER_S
-    res = {"max_abs_err": max_err, "mean_abs_err": mean_err,
-           "worst_row_max_ulps": worst_max, "worst_row_mean_ulps": worst_mean,
-           "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+    res = {**check, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "rows": N}
-    log(f"[kernels] {name} {label}: rows {N}, max abs {max_err:.3e}, "
-        f"mean abs {mean_err:.3e}; worst row: max {worst_max:.2f} ulp, mean "
-        f"{worst_mean:.3f} ulp (tol {ATTN_MAX_ULPS}/{ATTN_MEAN_ULPS}); "
-        f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} bound_ms {res['bound_ms']:.4f} "
-        f"({nbytes / 1e6:.1f} MB, {100 * res['bound_ms'] / ms:.1f}% of bound)")
+           "bytes": nbytes, "rows": rows}
+    log(f"[kernels] {what}: rows {rows}, max abs {check['max_abs_err']:.3e}, "
+        f"mean abs {check['mean_abs_err']:.3e}; worst row: max "
+        f"{check['worst_row_max_ulps']:.2f} ulp, mean "
+        f"{check['worst_row_mean_ulps']:.3f} ulp (tol {ATTN_MAX_ULPS}/"
+        f"{ATTN_MEAN_ULPS}); kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} bound_ms {res['bound_ms']:.4f} "
+        f"({nbytes / 1e6:.1f} MB, {100 * res['bound_ms'] / ms:.1f}% of "
+        f"bound){extra}")
     return res
 
 
@@ -273,11 +312,12 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
         pools["v"].index_put_(idx, vq)
 
     library_ms = timed_ms(torch, library)
-    # bound: new rows read once, pool rows (and scales) written once, rows
-    # read once, one table entry read per kept row
+    # bound: the kept rows' new K/V read once and their pool rows (and
+    # scales) written once, the rows array read once, one table entry read
+    # per kept row (a dropped row needs no more than its index)
     out_row = D * leaves[0].element_size() + (4 if quant else 0)
-    nbytes = (2 * N * Hkv * D * 2 + 2 * len(sel) * Hkv * out_row + N * 4
-              + len(sel) * 4)
+    nbytes = (2 * len(sel) * Hkv * D * 2 + 2 * len(sel) * Hkv * out_row
+              + N * 4 + len(sel) * 4)
     res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms,
            "library_ms": library_ms,
@@ -289,6 +329,225 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
         f"({'quantize + ' if quant else ''}index_put_ K and V) bound_ms "
         f"{res['bound_ms']:.5f} ({nbytes / 1e6:.2f} MB)")
     return res
+
+
+def _sdpa_ms(torch, q, kd, vd, limits, rows):
+    """Yardstick: one SDPA call over K/V gathered dense beforehand.
+    q [B, R, Hq, D]; kd/vd [B, Hkv, n, D]; row (b, r) sees the columns
+    < limits[b] + r (the mask is built outside the timed call)."""
+    B, R, Hq, D = q.shape
+    G = Hq // kd.shape[1]
+    kd, vd = (t.repeat_interleave(G, dim=1) for t in (kd, vd))
+    col = torch.arange(kd.shape[2], device=q.device)
+    lim = limits.long()[:, None] + torch.arange(R, device=q.device)[None, :]
+    mask = torch.where(col[None, None, :] < lim[:, :, None], 0.0, -1e30) \
+        .to(q.dtype)[:, None]                                 # [B, 1, R, n]
+    qt = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return timed_ms(torch, lambda: sdpa(qt, kd, vd, attn_mask=mask))
+
+
+def _spec_case(torch, np, pools, lengths_np, table_np, layer, label):
+    """K1-spec: SPEC_R rows per slot against its plain version (the ulp
+    rule row by row), timed beside the plain version, an SDPA over the
+    gathered K/V and the bound."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        dequantize
+
+    quant = "ks" in pools
+    name = "paged_attention_spec_quant" if quant else "paged_attention_spec"
+    kw = {"pool_ks": pools["ks"], "pool_vs": pools["vs"]} if quant else {}
+    pool_k, pool_v = pools["k"], pools["v"]
+    dev = pool_k.device
+    _, P, Hkv, ps, D = pool_k.shape
+    Hq, R, B = 16, SPEC_R, len(lengths_np)
+    max_pages = table_np.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    q = torch.randn((B, R, Hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
+
+    def kernel():
+        return pa.decode_attend_spec_paged(q, pool_k, pool_v, lengths, layer,
+                                           table, **kw)
+
+    def plain():
+        return pa.paged_attention_spec_plain(q, pool_k, pool_v, lengths,
+                                             layer, table, *kw.values())
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check = _ulp_rows(torch, f"{name} {label}", out, ref, B * R,
+                      lambda bad: f"lengths {lengths_np[bad // R].tolist()}")
+    ms = timed_ms(torch, kernel)
+    plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
+    hi = np.clip((lengths_np + R + ps - 1) // ps - 1, 0, max_pages - 1)
+    n_vis = int(hi.max()) + 1
+    pages = table[:, :n_vis].long()
+
+    def dense(n):
+        g = pools[n][layer][pages]
+        if quant:
+            g = dequantize(g, pools[n + "s"][layer][pages], torch.bfloat16)
+        return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, n_vis * ps, D)
+
+    kd, vd = dense("k"), dense("v")
+    library_ms = _sdpa_ms(torch, q, kd, vd, lengths + 1, R)
+    del kd, vd
+    # bound: each visited (page, kv head) tile read once for all R rows,
+    # and each slot's table entries up to its last visited page
+    visited = {int(table_np[b, c]) for b in range(B) for c in range(hi[b] + 1)}
+    tile = Hkv * ps * (D * pool_k.element_size() + (4 if quant else 0))
+    nbytes = (2 * len(visited) * tile + 2 * B * R * Hq * D * 2 + B * 4
+              + int((hi + 1).sum()) * 4)
+    ops = 4 * Hq * D * int((lengths_np[:, None] + 1
+                            + np.arange(R)[None, :]).sum())
+    return _report(f"{name} {label}", check, ms, plain_ms, library_ms,
+                   nbytes, ops, B * R)
+
+
+def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label):
+    """K4 (R = 1) or K7 (R = SPEC_R) over the dense cache against the plain
+    version (the ulp rule row by row; a slot of length 0 must give exact
+    zeros), timed beside the plain version, an SDPA over the slots' rows
+    and the bound."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+
+    ck, cv = cache["k"], cache["v"]
+    dev = ck.device
+    _, B, Hkv, S, D = ck.shape
+    Hq = 16
+    entry = da.decode_attend_dense if R == 1 else da.spec_attend_dense
+    limits_np = lengths_np if R == 1 else lengths_np + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19 + R)
+    q = torch.randn((B, R, Hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
+
+    def kernel():
+        return entry(q, ck, cv, lengths, layer)
+
+    def plain():
+        return da.dense_attention_plain(q, ck, cv, limits, layer)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    what = f"{entry.__name__} {label}"
+    check = _ulp_rows(torch, what, out, ref, B * R,
+                      lambda bad: f"lengths {lengths_np[bad // R].tolist()}")
+    zero = limits_np + R - 1 <= 0
+    if zero.any() and out[torch.from_numpy(zero).to(dev)].any():
+        raise AssertionError(f"{what}: a slot of length 0 is not zeros")
+    ms = timed_ms(torch, kernel)
+    plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
+    ext = np.clip(limits_np + R - 1, 0, S)
+    n = int(ext.max())
+    library_ms = _sdpa_ms(torch, q, ck[layer, :, :, :n], cv[layer, :, :, :n],
+                          limits, R)
+    nbytes = (2 * int(ext.sum()) * Hkv * D * ck.element_size()
+              + 2 * B * R * Hq * D * 2 + B * 4)
+    ops = 4 * Hq * D * int(np.minimum(np.maximum(
+        limits_np[:, None] + np.arange(R)[None, :], 0), S).sum())
+    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
+
+
+def _dense_write_case(torch, np, cache, rows_np, layer, label):
+    """K8 against its plain version, bit for bit on the whole cache; timed
+    beside the plain version, an ``index_put_`` pair and the bound."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+
+    ck, cv = cache["k"], cache["v"]
+    dev = ck.device
+    _, B, Hkv, S, D = ck.shape
+    R = rows_np.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    k_new, v_new = (torch.randn((B, R, Hkv, D), generator=gen, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+    rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+    refs = [ck.clone(), cv.clone()]
+    da.cache_write_rows_dense(ck, cv, k_new, v_new, rows, layer)
+    da.cache_write_rows_dense_plain(*refs, k_new, v_new, rows, layer)
+    torch.cuda.synchronize()
+    for n, got, want in zip("kv", (ck, cv), refs):
+        if not torch.equal(got, want):
+            raise AssertionError(f"cache_write_rows_dense {label}: cache "
+                                 f"leaf {n!r} differs from the plain version")
+    del refs
+    ms = timed_ms(torch, lambda: da.cache_write_rows_dense(
+        ck, cv, k_new, v_new, rows, layer))
+    plain_ms = timed_ms(torch, lambda: da.cache_write_rows_dense_plain(
+        ck, cv, k_new, v_new, rows, layer), iters=5, warmup=1)
+    kept = np.nonzero((rows_np >= 0) & (rows_np < S))
+    b = torch.from_numpy(kept[0]).to(dev)
+    r = torch.from_numpy(rows_np[kept].astype(np.int64)).to(dev)
+    j = torch.from_numpy(kept[1]).to(dev)
+    kk, vk = k_new[b, j], v_new[b, j]
+
+    def library():
+        ck[layer].index_put_((b[:, None], torch.arange(Hkv, device=dev)[None],
+                              r[:, None]), kk)
+        cv[layer].index_put_((b[:, None], torch.arange(Hkv, device=dev)[None],
+                              r[:, None]), vk)
+
+    library_ms = timed_ms(torch, library)
+    # bound: the kept rows' new K/V read once and written once, the rows
+    # array read once (a dropped row needs no more than its index)
+    nbytes = (2 * 2 * len(kept[0]) * Hkv * D * ck.element_size()
+              + B * R * 4)
+    res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+           "bytes": nbytes, "rows": B * R}
+    log(f"[kernels] cache_write_rows_dense {label}: rows {B * R} "
+        f"({len(kept[0])} kept), bit-exact on the whole cache; kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"(index_put_ K and V) bound_ms {res['bound_ms']:.5f} "
+        f"({nbytes / 1e6:.3f} MB)")
+    return res
+
+
+def _dense_cases(torch, np):
+    """The draft model's dense cache at the main path's shapes
+    ([28, 32, 8, 2048, 128] bf16 for K and for V): K4 over 32 decode rows
+    (lengths 0 to 2048), K7 over 32 x SPEC_R verify rows, K8 with one row
+    and with SPEC_R rows per slot (some dropped)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
+
+    L, Hkv, D, B, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 32, \
+        2048
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    cache = {n: torch.randn((L, B, Hkv, S, D), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for n in ("k", "v")}
+    log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
+        f"bf16, {2 * cache['k'].numel() * 2 / 2**30:.2f} GiB")
+    rng = np.random.default_rng(8)
+    lengths = rng.integers(1, S + 1, B)
+    lengths[:6] = [0, 1, 64, 65, S, S - 1]
+    layer = L - 1
+    dec = _dense_attention_case(torch, np, cache, lengths, layer, 1,
+                                "decode, 32 slots")
+    spec_len = np.minimum(lengths, S - SPEC_R)
+    spec_len[:4] = [0, 59, 60, S - SPEC_R]
+    spec = _dense_attention_case(torch, np, cache, spec_len, layer, SPEC_R,
+                                 f"verify, 32 slots x {SPEC_R} rows")
+    wr1 = _dense_write_case(torch, np, cache, lengths[:, None] - 1, layer,
+                            "decode, 32 rows")
+    rows = spec_len[:, None] + np.arange(SPEC_R)[None, :]
+    rows[1, 2] = -1
+    rows[2, :] = S + np.arange(SPEC_R)
+    wrR = _dense_write_case(torch, np, cache, rows, layer,
+                            f"verify, 32 x {SPEC_R} rows")
+    del cache
+    torch.cuda.empty_cache()
+    return {"attention": dec, "spec": spec, "write": wr1, "write_spec": wrR}
 
 
 def _pool_cases(torch, np, pools, lengths, table, layer, label):
@@ -316,9 +575,14 @@ def _pool_cases(torch, np, pools, lengths, table, layer, label):
     wr_oob = _write_case(torch, np, pools,
                          np.array([-1, max_pages * ps, -5, 10**6]), oob,
                          layer, "dropped rows, OOB_PAGE tables")
+    # the verify: SPEC_R rows per slot, rows crossing and filling pages
+    spec_len = np.minimum(lengths, max_pages * ps - SPEC_R)
+    spec_len[:4] = [0, 59, 60, max_pages * ps - SPEC_R]
+    spec = _spec_case(torch, np, pools, spec_len, table, layer,
+                      f"verify, 32 slots x {SPEC_R} rows")
     log(f"[kernels] {label} pool done")
     return {"attention": dec, "attention_ragged": rag, "write": wr_dec,
-            "write_ragged": wr_rag, "write_dropped": wr_oob}
+            "write_ragged": wr_rag, "write_dropped": wr_oob, "spec": spec}
 
 
 def phase_kernels(torch, np):
@@ -357,7 +621,7 @@ def phase_kernels(torch, np):
     int8 = _pool_cases(torch, np, pools, lengths, table, layer, "int8")
     del pools
     torch.cuda.empty_cache()
-    return {"bf16": bf16, "int8": int8}
+    return {"bf16": bf16, "int8": int8, "dense": _dense_cases(torch, np)}
 
 
 def _kernel_names(quant: bool):
@@ -642,6 +906,341 @@ def phase_logits(torch, np, engine):
     return err
 
 
+def _launches():
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    return {**pa.launch_counts(), **da.launch_counts()}
+
+
+def _reset_launches():
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launch_counts()
+    da.reset_launch_counts()
+
+
+def _pattern_prompts(rng, vocab, n, reps=8, width=16):
+    """Prompts of a random ``width``-token pattern repeated ``reps`` times:
+    the prompt-lookup proposer finds the trailing n-gram in them."""
+    return [rng.integers(0, vocab, width).tolist() * reps for _ in range(n)]
+
+
+def phase_spec(torch, np, kv_dtype):
+    """Prompt-lookup speculative decoding on the main path: Qwen3-0.6B at
+    full width, the default ServingConfig with spec_decode=True and the
+    ``kv_dtype`` pool; 8 greedy requests with repeated-pattern prompts and
+    one seeded sampled request. Launch counts zeroed just before the run
+    and read just after: verify dispatches, drafts and the verify kernel of
+    this pool required, the other pool's kernels 0. The same requests then
+    run on the same engine with spec off: the sampled stream must be the
+    same (the engine serves a sampled slot from the plain step only, never
+    from a verify); equal greedy streams, tok/s and the acceptance rate are
+    reported (in bf16 the 5-row verify rounds apart from the 1-row decode,
+    which can flip a greedy near-tie)."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = QWEN3_0_6B
+    quant = kv_dtype == "int8"
+    serving = ServingConfig(spec_decode=True, derived_seed=0,
+                            kv_dtype=kv_dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    engine = Engine(cfg, init_params(cfg, gen, torch.bfloat16), serving,
+                    device="cuda")
+    tag = f"[spec {kv_dtype}]"
+    rng = np.random.default_rng(21)
+    prompts = _pattern_prompts(rng, cfg.vocab_size, 8)
+    engine.submit(Request(prompt_ids=prompts[0][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+
+    def run():
+        reqs = [engine.submit(Request(prompt_ids=p, max_tokens=64,
+                                      ignore_eos=True)) for p in prompts]
+        reqs.append(engine.submit(Request(prompt_ids=prompts[1],
+                                          max_tokens=48, seed=3, **SAMPLED)))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        for r, m in zip(reqs, [64] * 8 + [48]):
+            _finish_ok(cfg, r, m)
+        return reqs, sum(len(r.generated) for r in reqs) / dt
+
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    reqs, tps = run()
+    launches = _launches()
+    counts = dict(engine.counts)
+    spec = ("paged_attention_spec", "paged_attention_spec_quant")
+    mine = (spec[quant], _kernel_names(quant)[1])
+    others = (spec[not quant], _kernel_names(not quant)[1])
+    drafted = counts.get("spec_drafted_tokens", 0)
+    accepted = counts.get("spec_accepted_tokens", 0)
+    log(f"{tag} 8 greedy requests (16-token pattern x 8) + 1 seeded sampled: "
+        f"{tps:.1f} tok/s end to end; dispatches {counts}; acceptance "
+        f"{accepted}/{drafted} = {accepted / max(drafted, 1):.3f}; kernel "
+        f"launches {launches}")
+    if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
+        raise AssertionError(f"{tag} no verify dispatch or no draft: {counts}")
+    if min(launches[k] for k in mine) <= 0:
+        raise AssertionError(f"{tag} a kernel of the path never launched: "
+                             f"{launches}")
+    if max(launches[k] for k in others) != 0:
+        raise AssertionError(f"{tag} the other pool's kernels launched: "
+                             f"{launches}")
+    engine.serving = dataclasses.replace(serving, spec_decode=False)
+    plain, plain_tps = run()
+    engine.serving = serving
+    same = sum(a.generated == b.generated for a, b in zip(reqs[:8], plain[:8]))
+    on, off = reqs[8].generated, plain[8].generated
+    first = next((i for i, (a, b) in enumerate(zip(on, off)) if a != b),
+                 None)
+    log(f"{tag} same engine with spec off: {plain_tps:.1f} tok/s; greedy "
+        f"streams equal to the spec run: {same}/8; the seeded sampled "
+        f"stream " + ("is identical" if first is None else
+                      f"differs from token {first} of {len(on)} on"))
+    if first is not None:
+        raise AssertionError(f"{tag} the seeded sampled stream differs with "
+                             f"spec on and off from token {first}")
+    return engine, launches, {"tok_s": tps, "plain_tok_s": plain_tps,
+                              "acceptance": accepted / max(drafted, 1),
+                              "same_greedy": same, "sampled_first_diff":
+                              first, "counts": counts}
+
+
+def phase_verify(torch, np, engine):
+    """One verify dispatch of 8 slots (7 greedy, 1 seeded sampled) held
+    against plain decode steps of the same prefixes (the same tokens
+    teacher-forced one row at a time, both through the kernels, on clones
+    of the pool): the logits of row 0 and of every accepted row within
+    LOGIT_TOL, and ``spec_decode_step``'s emitted tokens equal to the
+    accept rule applied to the verify's argmax; the program's sampled row
+    accepts nothing and draws ``sample`` of its row 0 keyed at lengths + 1
+    (the engine skips it). Then the engine's verify dispatch timed and
+    profiled (device time, idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
+        make_decode_attend_carry_paged, make_spec_attend_carry_paged)
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import \
+        spec_decode_step
+
+    quant = "ks" in engine.cache
+    tag = f"[verify {'int8' if quant else 'bf16'}]"
+    rng = np.random.default_rng(31)
+    for i, p in enumerate(_pattern_prompts(rng, engine.cfg.vocab_size, 8,
+                                           reps=6)):
+        engine.submit(Request(prompt_ids=p, max_tokens=400, **(
+            dict(SAMPLED, seed=5) if i == 7 else dict(ignore_eos=True))))
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    for _ in range(2):
+        engine.step()
+    active = engine._active_slots()
+    K = engine.serving.spec_k
+    R = K + 1
+    engine._ensure_pages(R)
+    skip = engine._spec_skip(active)
+    proposal = engine._propose_drafts([s for s in active if s not in skip])
+    drafts, proposed = proposal if proposal is not None else (
+        np.zeros((engine.num_slots, K), np.int32), {})
+    dev = engine.device
+    tokens = torch.from_numpy(np.concatenate(
+        [engine.last_token[:, None], drafts], axis=1)).to(dev)
+    lens = torch.from_numpy(engine.lengths.copy()).to(dev)
+    table = torch.from_numpy(engine.table.copy()).to(dev)
+    positions = lens[:, None] + torch.arange(R, dtype=lens.dtype,
+                                             device=dev)[None]
+    pool_a = {k: v.clone() for k, v in engine.cache.items()}
+    pool_b = {k: v.clone() for k, v in engine.cache.items()}
+    model = engine.model
+    lv, _ = model.forward_carry(tokens, positions, pool_a,
+                                make_spec_attend_carry_paged(lens, table))
+    lp = torch.stack([model.forward_carry(
+        tokens[:, r:r + 1], (lens + r)[:, None], pool_b,
+        make_decode_attend_carry_paged(lens + r, table))[0][:, 0]
+        for r in range(R)], dim=1)
+    del pool_b
+    sampling = [torch.from_numpy(a.copy()).to(dev) for a in (
+        engine.temps, engine.top_ks, engine.top_ps, engine.seeds)]
+    _, out, acc = spec_decode_step(model, R, pool_a, tokens, lens, table,
+                                   *sampling)
+    drawn = sample(lv[:, 0], *sampling, lens + 1).cpu().numpy()
+    torch.cuda.synchronize()
+    del pool_a
+    preds = lv.argmax(-1).cpu().numpy()
+    out, acc = out.cpu().numpy(), acc.cpu().numpy()
+    lv, lp = lv.float(), lp.float()
+    err = 0.0
+    for b in active:
+        m = 0
+        while engine.temps[b] <= 0 and m < K and drafts[b, m] == preds[b, m]:
+            m += 1
+        want = list(drafts[b, :m]) + [preds[b, m] if engine.temps[b] <= 0
+                                      else drawn[b]]
+        if acc[b] != m + 1 or list(out[b, :m + 1]) != want:
+            raise AssertionError(f"{tag} slot {b}: emitted {out[b, :acc[b]]}"
+                                 f", the accept rule gives {want}")
+        err = max(err, float((lv[b, :m + 1] - lp[b, :m + 1]).abs().max()))
+    agree = float((lv.argmax(-1) == lp.argmax(-1))[active].float().mean())
+    log(f"{tag} verify of {len(active)} slots x {R} rows ({len(proposed)} "
+        f"drafted, accepted {[int(acc[b]) - 1 for b in active]}): logits of "
+        f"row 0 and the accepted rows vs plain decode steps max abs "
+        f"{err:.3e} (tol {LOGIT_TOL}); argmax agreement over all rows "
+        f"{agree:.3f}; emitted tokens = the accept rule on the verify's "
+        f"argmax, the sampled slot's draw keyed at lengths + 1")
+    if not (math.isfinite(err) and err <= LOGIT_TOL):
+        raise AssertionError(f"{tag} verify logits differ: {err}")
+    # the dispatch itself, timed, then profiled
+    for label in ("timed", "profiled"):
+        active = engine._active_slots()
+        engine._ensure_pages(R)
+        skip = engine._spec_skip(active)
+        proposal = engine._propose_drafts([s for s in active
+                                           if s not in skip])
+        drafts, proposed = proposal if proposal is not None else (
+            np.zeros((engine.num_slots, K), np.int32), {})
+        torch.cuda.synchronize()
+        if label == "timed":
+            t0 = time.monotonic()
+            engine._do_spec_decode(active, drafts, proposed, skip)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.monotonic() - t0)
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            engine._do_spec_decode(active, drafts, proposed, skip)
+            torch.cuda.synchronize()
+            prof_wall_ms = 1e3 * (time.monotonic() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{tag} verify dispatch, {len(active)} slots x {R} rows: wall "
+        f"{wall_ms:.2f} ms")
+    if not events:
+        log(f"{tag} torch.profiler recorded no device time: device busy "
+            f"share not measured")
+    else:
+        log(f"{tag} profiled verify: wall {prof_wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms (idle share {1 - busy_ms / prof_wall_ms:.3f}),"
+            f" {sum(e.count for e in events)} device operations")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
+                f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+                f"x{e.count:<5d} {e.key[:90]}")
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.step()
+    return err
+
+
+def phase_draft(torch, np):
+    """Draft-model speculation on the main path: Qwen3-0.6B at full width
+    (int8 weights, bf16 paged KV, prefill_chunk 256) with two drafts of the
+    same width over their dense cache: the target's own weights (a
+    self-draft: acceptance near 1) and Qwen3-0.6B weights from another seed
+    with an untied head rolled one vocab row (a divergent draft:
+    rejections). A first wave of 6 requests decodes; a
+    second wave of 2 prompts of 600 tokens walks in chunks beside it, so
+    mixed dispatches advance the running slots past their draft rows and
+    the draft catches up through the verify program (K7). Launch counts
+    zeroed just before each run and read just after: K4, K7 and K8 > 0,
+    and accepted drafts > 0 with the self-draft."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = QWEN3_0_6B
+    serving = ServingConfig(spec_decode=True, spec_method="draft",
+                            prefill_chunk=256, derived_seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = quantize_params(init_params(cfg, gen, torch.bfloat16), cfg)
+    # random Qwen3 weights with tied embeddings mostly repeat the current
+    # token, so a draft from another seed would agree; an untied head
+    # rolled one vocab row proposes another token (as
+    # tests/test_draft_spec.py builds its divergent draft)
+    dcfg = cfg.scaled(tie_embeddings=False)
+    gen.manual_seed(1)
+    other = init_params(dcfg, gen, torch.bfloat16)
+    other["lm_head"] = {"kernel": torch.roll(other["embed"]["weight"], 1,
+                                             0).T.contiguous()}
+    rng = np.random.default_rng(41)
+    wave1 = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in (40, 90, 130, 64, 200, 17)]
+    wave2 = [rng.integers(0, cfg.vocab_size, 600).tolist() for _ in range(2)]
+    out = {}
+    for name, draft in (("self", (cfg, params)),
+                        ("divergent", (dcfg, other))):
+        engine = Engine(cfg, params, serving, device="cuda", draft=draft)
+        engine.submit(Request(prompt_ids=wave1[0][:8], max_tokens=2,
+                              ignore_eos=True))
+        engine.run_until_idle()
+        engine.counts.clear()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.monotonic()
+        first = [engine.submit(Request(prompt_ids=p, max_tokens=48,
+                                       ignore_eos=True)) for p in wave1]
+        while engine.pending:
+            engine.step()
+        engine.step()
+        second = [engine.submit(Request(prompt_ids=p, max_tokens=24,
+                                        ignore_eos=True)) for p in wave2]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches = _launches()
+        counts = dict(engine.counts)
+        for r in first:
+            _finish_ok(cfg, r, 48)
+        for r in second:
+            _finish_ok(cfg, r, 24)
+        n_gen = 48 * len(first) + 24 * len(second)
+        drafted = counts.get("spec_drafted_tokens", 0)
+        accepted = counts.get("spec_accepted_tokens", 0)
+        rate = accepted / max(drafted, 1)
+        log(f"[draft {name}] {len(first)} + {len(second)} requests: {n_gen} "
+            f"tokens in {dt:.2f}s ({n_gen / dt:.1f} tok/s); dispatches "
+            f"{counts}; acceptance {accepted}/{drafted} = {rate:.3f}; "
+            f"kernel launches {launches}")
+        dense = ("decode_attend_dense", "spec_attend_dense",
+                 "cache_write_rows_dense")
+        if min(launches[k] for k in dense) <= 0:
+            raise AssertionError(f"[draft {name}] a dense kernel never "
+                                 f"launched (K4/K7/K8): {launches}")
+        if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
+            raise AssertionError(f"[draft {name}] no verify or no draft: "
+                                 f"{counts}")
+        if name == "self" and accepted <= 0:
+            raise AssertionError("[draft self] no draft token accepted")
+        out[name] = {"launches": launches, "acceptance": rate,
+                     "tok_s": n_gen / dt, "counts": counts}
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_server(engine):
     """The HTTP server over ``engine``. Its tokenizer encodes bytes and
     decodes token ids as their decimal numbers, so that the random-weight
@@ -741,21 +1340,37 @@ def main() -> int:
         runs[kv_dtype] = launches
         del engine
         torch.cuda.empty_cache()
+    for kv_dtype in ("auto", "int8"):
+        engine, launches, _ = phase_spec(torch, np, kv_dtype)
+        phase_verify(torch, np, engine)
+        runs["spec " + kv_dtype] = launches
+        del engine
+        torch.cuda.empty_cache()
+    runs["draft"] = phase_draft(torch, np)["self"]["launches"]
     keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = []
-    for name, src, line, pool, case, kv_dtype in (
+    for name, src, line, pool, case, run in (
             ("paged_attention", ATTN_SRC, 1080, "bf16", "attention", "auto"),
             ("paged_attention_quant", ATTN_SRC, 1014, "int8", "attention",
              "int8"),
             ("cache_write_rows_paged", WRITE_SRC, 1243, "bf16", "write",
              "auto"),
             ("cache_write_rows_quant_paged", WRITE_SRC, 1313, "int8", "write",
-             "int8")):
+             "int8"),
+            ("paged_attention_spec", ATTN_SRC, 1169, "bf16", "spec",
+             "spec auto"),
+            ("paged_attention_spec_quant", ATTN_SRC, 1169, "int8", "spec",
+             "spec int8"),
+            ("decode_attend_dense", DENSE_SRC, 516, "dense", "attention",
+             "draft"),
+            ("spec_attend_dense", DENSE_SRC, 675, "dense", "spec", "draft"),
+            ("cache_write_rows_dense", WRITE_SRC, 744, "dense", "write",
+             "draft")):
         res = kern[pool][case]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{TPU_KERNELS}:{line}",
-                        "launches": runs[kv_dtype][name],
+                        "launches": runs[run][name],
                         **{k: res[k] for k in keys}})
     log(f"[done] {time.monotonic() - t_start:.1f}s")
     print(card)

@@ -5,12 +5,13 @@ module imports no JAX, so it also runs on a machine that has none:
 
     pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: the row writes copy values, or quantize them with the plain
-version's IEEE arithmetic, and must be bit-identical; the attention kernel
-accumulates in float32 like its plain version, in another order, so float32
-outputs agree within 1e-5 and bf16 outputs within 2e-2 (one bf16 ulp of
-outputs below 4 in magnitude is at most 2^-6), over bf16/f32 pools and
-int8 pools alike.
+Tolerances: the row writes (paged and dense) copy values, or quantize them
+with the plain version's IEEE arithmetic, and must be bit-identical; the
+attention kernels (paged decode and verify, dense decode and verify)
+accumulate in float32 like their plain versions, in another order, so
+float32 outputs agree within 1e-5 and bf16 outputs within 2e-2 (one bf16
+ulp of outputs below 4 in magnitude is at most 2^-6), over bf16/f32 pools
+and int8 pools alike.
 """
 
 import numpy as np
@@ -179,3 +180,123 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         tpa.cache_write_rows_quant_paged(pool, pool, scales, scales,
                                          q[:, :2], q[:, :2], lim, 0, tab)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,R", [(4, 2, 5), (16, 8, 5), (16, 2, 4)])
+def test_paged_attention_spec_matches_plain(dev, dtype, tol, quant, hq, hkv,
+                                            R):
+    """K1-spec: R rows per slot as packed rows, G up to 8 with R * G up
+    to 32; rows crossing page edges, the window's last rows, OOB_PAGE table
+    entries past each slot's lengths + R."""
+    ps, d, maxp = 8, 16, 4
+    rng, pk, pv, table = _layout(6, 2, hkv, ps, d, maxp, seed=90)
+    lengths = np.array([0, 3, 6, 11, 20, maxp * ps - R], np.int32)
+    for n, ln in enumerate(lengths):
+        table[n, -(-(int(ln) + R) // ps):] = OOB_PAGE
+    q = torch.from_numpy(rng.standard_normal((6, R, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lens = torch.from_numpy(lengths).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    if quant:
+        pk, pv, ks, vs = _int8_pools(rng, 2, 6 * maxp + 1, hkv, ps, d, dev)
+        scales = (ks, vs)
+        fn, name = tpa.paged_attention_spec_quant, "paged_attention_spec_quant"
+    else:
+        pk, pv = (torch.from_numpy(a).to(dev, dtype) for a in (pk, pv))
+        scales = ()
+        fn, name = tpa.paged_attention_spec, "paged_attention_spec"
+    before = tpa.launch_counts()
+    out = fn(q, pk, pv, *scales, lens, 1, tab)
+    after = tpa.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == \
+        {k: int(k == name) for k in after}
+    ref = tpa.paged_attention_spec_plain(q, pk, pv, lens, 1, tab, *scales)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 16), (16, 8, 128),
+                                      (16, 2, 128)])
+def test_dense_attention_matches_plain(dev, dtype, tol, hq, hkv, d):
+    """K4 (lengths 0, 1, a 64-row tile edge, the full window of 200 rows,
+    a partial last tile) and K7 (R = 5 up to the window's last rows)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R = 6, 200, 5
+    rng = np.random.default_rng(91)
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (2, B, hkv, S, d)).astype(np.float32)).to(dev, dtype)
+        for _ in range(2))
+    for entry, lengths, rows in (
+            (tda.decode_attend_dense, [0, 1, 64, 65, S, 130], 1),
+            (tda.spec_attend_dense, [0, 2, 60, 64, S - R, 131], R)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.standard_normal((B, rows, hq, d)).astype(
+            np.float32)).to(dev, dtype)
+        before = entry.launches
+        out = entry(q, ck, cv, lens, 1)
+        assert entry.launches == before + 1
+        limits = lens if rows == 1 else lens + 1
+        ref = tda.dense_attention_plain(q, ck, cv, limits, 1)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        if rows == 1:
+            assert not out[0].any()                  # length 0: zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_row_write_bit_identical_to_plain(dev, dtype):
+    """K8: R = 3 rows per slot, kept rows at the window's edges and dropped
+    ones (-1, S, far past S)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R, hkv, d = 4, 40, 3, 2, 16
+    rng = np.random.default_rng(92)
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (2, B, hkv, S, d)).astype(np.float32)).to(dev, dtype)
+        for _ in range(2))
+    rows = torch.tensor([[0, 1, 2], [-1, 5, 39], [S, 10**6, 7],
+                         [37, 38, 39]], dtype=torch.int32, device=dev)
+    kn, vn = (torch.from_numpy(rng.standard_normal(
+        (B, R, hkv, d)).astype(np.float32)).to(dev, dtype) for _ in range(2))
+    rk, rv, orig = ck.clone(), cv.clone(), ck.clone()
+    before = tda.cache_write_rows_dense.launches
+    tda.cache_write_rows_dense(ck, cv, kn, vn, rows, 1)
+    assert tda.cache_write_rows_dense.launches == before + 1
+    tda.cache_write_rows_dense_plain(rk, rv, kn, vn, rows, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, rk) and torch.equal(cv, rv)
+    assert not torch.equal(ck, orig)
+
+
+def test_spec_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    pool = torch.zeros((1, 3, 2, 8, 16), device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    tab = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bad shapes"):     # G = 9
+        tpa.paged_attention_spec(torch.zeros((2, 5, 18, 16), device=dev),
+                                 pool, pool, lens, 0, tab)
+    cache = torch.zeros((1, 2, 2, 8, 16), device=dev)
+    with pytest.raises(TypeError):
+        tda.spec_attend_dense(torch.zeros((2, 3, 4, 16), device=dev),
+                              cache.bfloat16(), cache.bfloat16(), lens, 0)
+    with pytest.raises(ValueError):
+        tda.decode_attend_dense(torch.zeros((3, 1, 4, 16), device=dev),
+                                cache, cache, lens, 0)
+    with pytest.raises(ValueError):
+        tda.cache_write_rows_dense(cache, cache,
+                                   torch.zeros((2, 1, 2, 16), device=dev),
+                                   torch.zeros((2, 1, 2, 16), device=dev),
+                                   lens, 0)

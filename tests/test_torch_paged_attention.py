@@ -154,8 +154,10 @@ def test_bf16_plain_matches_float32_within_bf16_rounding():
 
 
 def test_dense_decode_attend_matches_jax_and_the_paged_path():
-    """The plain dense ``decode_attend`` against the JAX one, and against
-    the paged entry over the same rows gathered dense through the table."""
+    """The plain dense attention with one row per slot
+    (``decode_attend_multi`` at ``lengths - 1``) against the JAX
+    ``decode_attend``, and against the paged entry over the same rows
+    gathered dense through the table."""
     from aws_k8s_ansible_provisioner_tpu.ops import attention as jatt
     from aws_k8s_ansible_provisioner_tpu_torch.ops import attention as tatt
     from aws_k8s_ansible_provisioner_tpu_torch.serving.paged_kv import \
@@ -171,8 +173,9 @@ def test_dense_decode_attend_matches_jax_and_the_paged_path():
     ref = np.asarray(jatt.decode_attend(
         jnp.asarray(q), jnp.asarray(dense["k"].numpy()),
         jnp.asarray(dense["v"].numpy()), jnp.asarray(lengths)))
-    got = tatt.decode_attend(torch.from_numpy(q), dense["k"], dense["v"],
-                             torch.from_numpy(lengths)).numpy()
+    got = tatt.decode_attend_multi(torch.from_numpy(q), dense["k"],
+                                   dense["v"],
+                                   torch.from_numpy(lengths) - 1).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
     paged = _port(tpa.decode_attend_paged, q, pk, pv, lengths, table,
                   layer=1)
