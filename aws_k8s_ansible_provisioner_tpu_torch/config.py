@@ -20,8 +20,10 @@ from typing import Optional
 class ModelConfig:
     """Architecture hyperparameters for a decoder-only LM (same schema as the
     JAX package's ``ModelConfig``). The port's forward pass serves the Qwen3
-    family: ``norm="rmsnorm"``, ``pos_embed="rope"``, gated SiLU MLP, optional
-    qk-norm, no MoE, no sliding window."""
+    and Mistral families: ``norm="rmsnorm"``, ``pos_embed="rope"``, gated
+    SiLU MLP, optional qk-norm, optional sliding-window attention
+    (``sliding_window`` > 0: a query sees its last ``sliding_window`` keys),
+    no MoE."""
 
     name: str
     vocab_size: int
@@ -94,8 +96,31 @@ QWEN3_0_6B = ModelConfig(
     hf_repo="Qwen/Qwen3-0.6B",
 )
 
+# Public HF config.json of mistralai/Mistral-7B-v0.1. Its rms_norm_eps is
+# 1e-5; the JAX package's registry entry leaves the 1e-6 default (its HF
+# loader reads 1e-5 for this family; ROADMAP C10), the port takes 1e-5.
+MISTRAL_7B_V01 = ModelConfig(
+    name="mistralai/Mistral-7B-v0.1",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_seq_len=32768,
+    sliding_window=4096,
+    rope_theta=10000.0,
+    norm_eps=1e-5,
+    tie_embeddings=False,
+    bos_token_id=1,
+    eos_token_id=2,
+    hf_repo="mistralai/Mistral-7B-v0.1",
+)
+
 MODEL_REGISTRY = {
     "Qwen/Qwen3-0.6B": QWEN3_0_6B,
+    "mistralai/Mistral-7B-v0.1": MISTRAL_7B_V01,
 }
 
 
@@ -114,6 +139,27 @@ def tiny_qwen3(**overrides) -> ModelConfig:
         rope_theta=1e6,
         qk_norm=True,
         tie_embeddings=True,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_mistral(**overrides) -> ModelConfig:
+    """A miniature Mistral-shaped config (sliding-window attention, GQA)."""
+    base = dict(
+        name="tiny-mistral",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        max_seq_len=128,
+        sliding_window=8,
+        rope_theta=10000.0,
+        tie_embeddings=False,
         eos_token_id=1,
     )
     base.update(overrides)

@@ -1,22 +1,30 @@
 // Flash attention over one layer of the dense slot cache [L, B, Hkv, S, D]
-// (the draft model's cache), bf16 or float32.
+// (the draft model's cache), bf16 or float32, with or without a sliding
+// window.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
-//   decode_attend_pallas_layer with bblock 1 (its body _decode_kernel_layer,
-//   window 0) and decode_attend_pallas_spec (_spec_accumulate through
-//   _spec_kernel_plain, window 0). Their int8 bodies are not ported here.
+//   decode_attend_pallas_layer with bblock 1 (its body _decode_kernel_layer)
+//   and decode_attend_pallas_spec (_spec_accumulate through
+//   _spec_kernel_plain), each at window 0 and window > 0. Their int8 bodies
+//   are not ported here.
 //
 // Contract (same as the TPU kernels): q [B, R, Hq, D], R query rows per slot
 // (R = 1 for a decode step, R > 1 for a speculative catch-up); cache_k/v
 // [L, B, Hkv, S, D]; limits [B] int32; output [B, R, Hq, D] in q's type.
-// Query row (b, r) attends the rows [0, min(limits[b] + r, S)) of slot b;
-// the decode entry passes limits = lengths (the just-written row counted),
-// the verify entry limits = lengths + 1. No row past that is read, so every
-// visited column is live and nothing is masked. Online softmax in float32
-// with the scale 1/sqrt(D) folded into q; output acc / max(l, 1e-9). A row
-// with no row to visit (a decode row of length 0) accumulates nothing and
-// returns 0 / 1e-9 = zeros, where the paged kernel returns the mean of V
-// over its first page (the TPU kernels differ the same way).
+// Query row (b, r) has the limit lim = limits[b] + r and attends the rows
+// [0, min(lim, S)) of slot b, or with a window the rows
+// [max(lim - window, 0), min(lim, S)); the decode entry passes limits =
+// lengths (the just-written row counted), the verify entry limits =
+// lengths + 1. No row past that is read; with a window the 64-row tiles
+// start at the tile of the window start, no earlier row is read, and the
+// columns of that tile below the start are masked with -1e30 (the tile
+// holds a live column, so they add exp(-1e30 - m) = 0). Online softmax in
+// float32 with the scale 1/sqrt(D) folded into q; output acc / max(l,
+// 1e-9). A row with no row to visit (a decode row of length 0)
+// accumulates nothing and returns 0 / 1e-9 = zeros, where the paged kernel
+// returns the mean of V over its first page (the TPU kernels differ the
+// same way). Window 0 is its own instance (kWindow false) with no window
+// arithmetic in it.
 //
 // What bounds it on the H100: bytes. A query row reads its slot's live K
 // and V rows (2 * D * elem bytes per row and kv head) and does 4 * G * D
@@ -27,9 +35,10 @@
 // (b = n / R), so a catch-up re-reads the slot's rows R times. The slot's
 // contiguous rows stream through shared memory in 64-row tiles with 16-byte
 // loads; scores, running max, denominator and the accumulator stay in
-// float32 in shared memory, and the output is written once. This first
-// version does not overlap copy and arithmetic, uses no tensor cores and
-// does not split long rows across CTAs.
+// float32 in shared memory, and the output is written once. With a window a
+// row reads only the tiles from its window start's on. This first version
+// does not overlap copy and arithmetic, uses no tensor cores and does not
+// split long rows across CTAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,14 +84,14 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Shared memory: K tile, V tile [kTile, D] (T), then float32 q [G, D],
 // scores [G, kTile], acc [G, D], m [G], l [G], corr [G].
-template <typename T>
+template <typename T, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
                        const T* __restrict__ cache_k,
                        const T* __restrict__ cache_v,
                        const int32_t* __restrict__ limits, int layer,
                        int n_slots, int hkv, int seq, int d, int groups,
-                       int r_rows, float scale) {
+                       int r_rows, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kTile * d;
@@ -101,8 +110,11 @@ dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
   const int warp = tid >> 5;
   const int hq = hkv * groups;
 
-  int extent = limits[b] + (n - b * r_rows);
-  extent = extent < 0 ? 0 : (extent > seq ? seq : extent);
+  const int lim = limits[b] + (n - b * r_rows);
+  const int extent = lim < 0 ? 0 : (lim > seq ? seq : lim);
+  // window: live rows from wstart on; tiles below its tile never read
+  int wstart = 0;
+  if (kWindow) wstart = lim - window > 0 ? lim - window : 0;
 
   const T* q_row = q + ((int64_t)n * hq + (int64_t)h * groups) * d;
   for (int i = tid; i < groups * d; i += kThreads) {
@@ -116,7 +128,8 @@ dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
 
   const int64_t head_row0 =
       (((int64_t)layer * n_slots + b) * hkv + h) * (int64_t)seq;
-  for (int c0 = 0; c0 < extent; c0 += kTile) {
+  for (int c0 = kWindow ? wstart / kTile * kTile : 0; c0 < extent;
+       c0 += kTile) {
     const int nr = extent - c0 < kTile ? extent - c0 : kTile;
     const int64_t base = (head_row0 + c0) * d;
     const uint4* k_src = reinterpret_cast<const uint4*>(cache_k + base);
@@ -145,7 +158,8 @@ dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
       for (int g = 0; g < kMaxGroups; ++g) {
         if (g < groups) {
           const float s = warp_sum(part[g]);
-          if (lane == 0) sc[g * kTile + j] = s;
+          if (lane == 0)
+            sc[g * kTile + j] = !kWindow || c0 + j >= wstart ? s : -1e30f;
         }
       }
     }
@@ -201,46 +215,51 @@ dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 int launch(void* out, const void* q, const void* cache_k, const void* cache_v,
            const void* limits, int n_slots, int hkv, int groups, int r_rows,
-           int d, int seq, int layer, float scale, cudaStream_t stream) {
+           int d, int seq, int layer, int window, float scale,
+           cudaStream_t stream) {
   const size_t smem =
       2 * (size_t)kTile * d * sizeof(T) +
       sizeof(float) * ((size_t)groups * (2 * d + kTile) + 3 * (size_t)groups);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        dense_attention_kernel<T>,
+        dense_attention_kernel<T, kWindow>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_slots * r_rows, hkv);
-  dense_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dense_attention_kernel<T, kWindow><<<grid, kThreads, smem, stream>>>(
       (T*)out, (const T*)q, (const T*)cache_k, (const T*)cache_v,
       (const int32_t*)limits, layer, n_slots, hkv, seq, d, groups, r_rows,
-      scale);
+      window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype (q, cache and output): 0 = float32, 1 = bfloat16. r_rows = R query
-// rows per slot. Returns cudaGetLastError() after the launch (0 =
-// launched). groups <= 8 and D % 8 == 0 (the wrapper checks).
+// rows per slot. window > 0: sliding window of that many rows; 0: none.
+// Returns cudaGetLastError() after the launch (0 = launched). groups <= 8
+// and D % 8 == 0 (the wrapper checks).
 extern "C" int dense_attention(void* out, const void* q, const void* cache_k,
                                const void* cache_v, const void* limits,
                                int n_slots, int hkv, int groups, int r_rows,
-                               int d, int seq, int layer, float scale,
-                               int dtype, void* stream) {
+                               int d, int seq, int layer, int window,
+                               float scale, int dtype, void* stream) {
   if (n_slots <= 0 || r_rows <= 0) return 0;
-  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
+  if (groups < 1 || groups > kMaxGroups || window < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(out, q, cache_k, cache_v, limits, n_slots,
-                                 hkv, groups, r_rows, d, seq, layer, scale,
-                                 s);
-  if (dtype == 0)
-    return launch<float>(out, q, cache_k, cache_v, limits, n_slots, hkv,
-                         groups, r_rows, d, seq, layer, scale, s);
+#define DA_LAUNCH(T)                                                        \
+  return window > 0                                                         \
+      ? launch<T, true>(out, q, cache_k, cache_v, limits, n_slots, hkv,     \
+                        groups, r_rows, d, seq, layer, window, scale, s)    \
+      : launch<T, false>(out, q, cache_k, cache_v, limits, n_slots, hkv,    \
+                         groups, r_rows, d, seq, layer, 0, scale, s)
+  if (dtype == 1) DA_LAUNCH(__nv_bfloat16);
+  if (dtype == 0) DA_LAUNCH(float);
+#undef DA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

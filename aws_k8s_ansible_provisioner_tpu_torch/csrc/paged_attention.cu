@@ -1,25 +1,35 @@
 // Paged flash attention with per-row (table row, live-column limit), over a
-// bf16/f32 pool or an int8 pool with per-row float32 scales.
+// bf16/f32 pool or an int8 pool with per-row float32 scales, with or without
+// a sliding window.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
-//   _paged_flash_db / _paged_db_body (window 0), the body behind
+//   _paged_flash_db / _paged_db_body, the body behind
 //   decode_attend_pallas_paged and ragged_attend_pallas_paged (R=1) and
 //   decode_attend_pallas_spec_paged (spec=True, R>1): the bf16 body
-//   _paged_db_kernel and the int8 scale-folding body _paged_db_kernel_quant.
-//   The speculative verify's R rows per slot come in as R packed rows, row
-//   (b, r) with limit lengths[b] + 1 + r and slot b's table row.
+//   _paged_db_kernel and the int8 scale-folding body _paged_db_kernel_quant,
+//   each at window 0 and window > 0. The speculative verify's R rows per
+//   slot come in as R packed rows, row (b, r) with limit lengths[b] + 1 + r
+//   and slot b's table row.
 //
 // Contract (same as the TPU kernel): q [N, Hq, D]; pools [L, P, Hkv, ps, D];
 // limits [N] int32; table [N, max_pages] int32; output [N, Hq, D] in q's
-// type. Query row n visits its logical pages 0 .. hi with
-// hi = min(max(cdiv(limit, ps) - 1, 0), max_pages - 1) and never reads a page
-// past that; columns >= limit are masked with NEG_INF = -1e30. Online softmax
-// in float32 with the scale 1/sqrt(D) folded into q; output
-// acc / max(l, 1e-9). A row with limit <= 0 still visits page table[n, 0]
-// with every column masked, so p = exp(0) = 1 there and the row returns the
-// mean of V over that page, exactly as the TPU kernel does (mixed_step's
-// dead passenger row; its output is discarded). Page ids are clamped into
-// [0, P), as Pallas clamps a block index.
+// type. Query row n visits its logical pages lo .. hi with
+// hi = min(max(cdiv(limit, ps) - 1, 0), max_pages - 1) and lo = 0, or with a
+// window lo = min(max(limit - window, 0) / ps, hi), and reads no table entry
+// and no page outside that range; its live columns are
+// [limit - window, limit) (window 0: [0, limit)), the others are masked with
+// NEG_INF = -1e30. Online softmax in float32 with the scale 1/sqrt(D) folded
+// into q; output acc / max(l, 1e-9). A row with limit <= 0 still visits page
+// table[n, 0] with every column masked, so p = exp(0) = 1 there and the row
+// returns the mean of V over that page, exactly as the TPU kernel does
+// (mixed_step's dead passenger row; its output is discarded). Page ids are
+// clamped into [0, P), as Pallas clamps a block index.
+//
+// The window: the TPU verify starts all R rows of a slot at row 0's window
+// start; here each packed row starts at its own. The result is the same: a
+// page that is wholly masked for a row leaves m = -1e30, and the row's first
+// live page then scales what it summed by exp(-1e30 - m) = 0. Window 0 is
+// its own instance (kWindow false) with no window arithmetic in it.
 //
 // Int8 pools (scale pools ks, vs [L, P, Hkv, ps] float32) fold the scales
 // into the flash loop in the TPU body's order and never build a dequantized
@@ -37,10 +47,12 @@
 // running max, denominator and the accumulator stay in float32 in shared
 // memory, and the output is written once. An int8 pool halves the tile's
 // bytes; the values are converted to float32 as they are read from shared
-// memory. This first version does not overlap the next page's copy with the
-// current page's arithmetic, uses no tensor cores, and does not split long
-// rows across CTAs; rows that share a slot (chunk rows, a verify's R rows)
-// re-read that slot's pages. Those are the known costs.
+// memory. With a window a row reads only the pages from its window start
+// on (Mistral's 4096 columns: 65 of up to 128 pages of 64). This first
+// version does not overlap the next page's copy with the current page's
+// arithmetic, uses no tensor cores, and does not split long rows across
+// CTAs; rows that share a slot (chunk rows, a verify's R rows) re-read that
+// slot's pages. Those are the known costs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +105,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // Shared memory: K tile, V tile [ps, D] (TP), then float32 q [G, D],
 // scores [G, ps], acc [G, D], m [G], l [G], corr [G], and for an int8 pool
 // the page's K and V scales [ps] each.
-template <typename T, typename TP>
+template <typename T, typename TP, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
                        const TP* __restrict__ pool_k,
@@ -103,7 +115,7 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
                        const int32_t* __restrict__ limits,
                        const int32_t* __restrict__ table, int layer,
                        int num_pages, int hkv, int ps, int d, int groups,
-                       int max_pages, float scale) {
+                       int max_pages, int window, float scale) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   TP* ks = reinterpret_cast<TP*>(smem);
@@ -127,6 +139,13 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
   const int limit = limits[n];
   int hi = limit > 0 ? (limit + ps - 1) / ps - 1 : 0;
   hi = hi < max_pages - 1 ? hi : max_pages - 1;
+  // window: live columns from wstart on; pages below its page never read
+  const int wstart = kWindow ? limit - window : 0;
+  int lo = 0;
+  if (kWindow) {
+    lo = (wstart > 0 ? wstart : 0) / ps;
+    lo = lo < hi ? lo : hi;
+  }
 
   const T* q_row = q + ((int64_t)n * hq + (int64_t)h * groups) * d;
   for (int i = tid; i < groups * d; i += kThreads) {
@@ -140,7 +159,7 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
 
   const int tile_vecs = ps * d * (int)sizeof(TP) / 16;
   const int32_t* table_row = table + (int64_t)n * max_pages;
-  for (int c = 0; c <= hi; ++c) {
+  for (int c = lo; c <= hi; ++c) {
     int page = table_row[c];
     page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
     const int64_t head = ((int64_t)layer * num_pages + page) * hkv + h;
@@ -173,7 +192,8 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
         for (int g = 0; g < kMaxGroups; ++g)
           if (g < groups) part[g] += qs[g * d + x] * kv;
       }
-      const bool live = c * ps + j < limit;
+      const int col = c * ps + j;
+      const bool live = col < limit && (!kWindow || col >= wstart);
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
         if (g < groups) {
@@ -235,12 +255,12 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 }
 
-template <typename T, typename TP>
+template <typename T, typename TP, bool kWindow>
 int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
            const void* pool_ks, const void* pool_vs, const void* limits,
            const void* table, int n_rows, int hkv, int groups, int d,
-           int num_pages, int ps, int max_pages, int layer, float scale,
-           cudaStream_t stream) {
+           int num_pages, int ps, int max_pages, int layer, int window,
+           float scale, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   const size_t smem = 2 * (size_t)ps * d * sizeof(TP) +
                       sizeof(float) * ((size_t)groups * (2 * d + ps) +
@@ -248,16 +268,16 @@ int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
                                        (kQuant ? 2 * (size_t)ps : 0));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, TP>,
+        paged_attention_kernel<T, TP, kWindow>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(n_rows, hkv);
-  paged_attention_kernel<T, TP><<<grid, kThreads, smem, stream>>>(
+  paged_attention_kernel<T, TP, kWindow><<<grid, kThreads, smem, stream>>>(
       (T*)out, (const T*)q, (const TP*)pool_k, (const TP*)pool_v,
       (const float*)pool_ks, (const float*)pool_vs, (const int32_t*)limits,
       (const int32_t*)table, layer, num_pages, hkv, ps, d, groups, max_pages,
-      scale);
+      window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -265,23 +285,31 @@ int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
 
 // dtype (q and output): 0 = float32, 1 = bfloat16. pool_dtype: 0 = float32,
 // 1 = bfloat16 (both the q type), 2 = int8 with the float32 scale pools
-// pool_ks / pool_vs (ignored otherwise). Returns cudaGetLastError() after
-// the launch (0 = launched). groups <= 8, D % 8 == 0 and, for int8,
-// D % 16 == 0 (the wrapper checks).
+// pool_ks / pool_vs (ignored otherwise). window > 0: sliding window of that
+// many columns; 0: none. Returns cudaGetLastError() after the launch (0 =
+// launched). groups <= 8, D % 8 == 0 and, for int8, D % 16 == 0 (the
+// wrapper checks).
 extern "C" int paged_attention(void* out, const void* q, const void* pool_k,
                                const void* pool_v, const void* pool_ks,
                                const void* pool_vs, const void* limits,
                                const void* table, int n_rows, int hkv,
                                int groups, int d, int num_pages, int ps,
-                               int max_pages, int layer, float scale,
-                               int dtype, int pool_dtype, void* stream) {
+                               int max_pages, int layer, int window,
+                               float scale, int dtype, int pool_dtype,
+                               void* stream) {
   if (n_rows <= 0) return 0;
-  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
+  if (groups < 1 || groups > kMaxGroups || window < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define PA_LAUNCH(T, TP)                                                    \
-  return launch<T, TP>(out, q, pool_k, pool_v, pool_ks, pool_vs, limits,    \
-                       table, n_rows, hkv, groups, d, num_pages, ps,        \
-                       max_pages, layer, scale, s)
+  return window > 0                                                         \
+      ? launch<T, TP, true>(out, q, pool_k, pool_v, pool_ks, pool_vs,       \
+                            limits, table, n_rows, hkv, groups, d,          \
+                            num_pages, ps, max_pages, layer, window, scale, \
+                            s)                                              \
+      : launch<T, TP, false>(out, q, pool_k, pool_v, pool_ks, pool_vs,      \
+                             limits, table, n_rows, hkv, groups, d,         \
+                             num_pages, ps, max_pages, layer, 0, scale, s)
   if (dtype == 1 && pool_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (dtype == 0 && pool_dtype == 0) PA_LAUNCH(float, float);
   if (dtype == 1 && pool_dtype == 2) PA_LAUNCH(__nv_bfloat16, int8_t);

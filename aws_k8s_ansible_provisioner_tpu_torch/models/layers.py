@@ -1,4 +1,4 @@
-"""Decoder-only transformer (Qwen3 family) in PyTorch.
+"""Decoder-only transformer (Qwen3 and Mistral families) in PyTorch.
 
 The same functions as the JAX package's ``models/layers.py``, written over
 torch tensors, with its parameter layout kept unchanged so that a converted
@@ -42,7 +42,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "pos_embed": cfg.pos_embed != "rope",
         "act": cfg.act != "silu",
         "num_experts": cfg.num_experts > 0,
-        "sliding_window": cfg.sliding_window > 0,
         "parallel_block": cfg.parallel_block,
         "rope_scaling": cfg.rope_scaling != "none",
         "rotary_pct": cfg.rotary_pct != 1.0,
@@ -99,11 +98,14 @@ def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  seq_lens: Optional[torch.Tensor] = None,
+                  window: int = 0) -> torch.Tensor:
     """Full causal self-attention over the current window, float32 softmax.
 
     q: [B, T, Hq, D]; k/v: [B, T, Hkv, D]; ``seq_lens`` [B] masks right
-    padding. Masked logits are -1e30, as in the JAX reference.
+    padding; ``window`` > 0 restricts each query to its last ``window`` keys
+    (sliding-window attention). Masked logits are -1e30, as in the JAX
+    reference.
     """
     B, T, Hq, D = q.shape
     k = repeat_kv(k, Hq).float()
@@ -111,6 +113,8 @@ def causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(D)
     pos = torch.arange(T, device=q.device)
     mask = pos[None, :] <= pos[:, None]                      # [Tq, Tk]
+    if window > 0:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
     if seq_lens is not None:
         valid = pos[None, :] < seq_lens[:, None]             # [B, Tk]
         mask = (mask[None] & valid[:, None, :])[:, None]     # [B,1,Tq,Tk]
@@ -195,16 +199,22 @@ def layer_slices(params: dict, num_layers: int) -> List[dict]:
              for name, p in layers.items()} for l in range(num_layers)]
 
 
-def _default_attend(q, k, v, cache_l):
-    return causal_attend(q, k, v), cache_l
+def make_default_attend(cfg: ModelConfig) -> AttendFn:
+    """Causal attention over the whole sequence, honouring
+    ``cfg.sliding_window``."""
+    def attend(q, k, v, cache_l):
+        return causal_attend(q, k, v, window=cfg.sliding_window), cache_l
+
+    return attend
 
 
 def model_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, attend: Optional[AttendFn] = None,
                   layers: Optional[List[dict]] = None) -> torch.Tensor:
-    """Run the decoder with full causal attention (or ``attend`` with a
-    per-layer cache of None); returns logits [B, T, V]."""
-    attend = attend or _default_attend
+    """Run the decoder with causal attention (sliding-window where the
+    config has one), or ``attend`` with a per-layer cache of None; returns
+    logits [B, T, V]."""
+    attend = attend or make_default_attend(cfg)
     layers = layers or layer_slices(params, cfg.num_layers)
     x, cos, sin = _embed_inputs(params, cfg, tokens, positions)
     for p_l in layers:
@@ -231,39 +241,48 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random parameters (normal, std 0.02; norms at one) on the generator's
     device, in the JAX package's layout. Same distribution as the JAX
-    ``init_params``; not the same numbers (the generators differ)."""
+    ``init_params``; not the same numbers (the generators differ). A stacked
+    kernel is drawn one layer at a time into its ``dtype`` tensor, so the
+    float32 draws never exceed one layer's matrix (Mistral-7B's bf16 tree is
+    14.5 GB; its float32 tree would be twice that)."""
     check_supported(cfg)
     dev = generator.device
     L, H = cfg.num_layers, cfg.hidden_size
 
-    def normal(*shape):
+    def draw(shape):
         return (0.02 * torch.randn(shape, generator=generator, device=dev,
                                    dtype=torch.float32)).to(dtype)
+
+    def stacked(*shape):
+        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
+        for layer in range(L):
+            out[layer] = draw(shape)
+        return out
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
     layers = {
         "input_norm": {"weight": ones(L, H)},
-        "wq": {"kernel": normal(L, H, cfg.q_size)},
-        "wk": {"kernel": normal(L, H, cfg.kv_size)},
-        "wv": {"kernel": normal(L, H, cfg.kv_size)},
-        "wo": {"kernel": normal(L, cfg.q_size, H)},
-        "w_gate": {"kernel": normal(L, H, cfg.intermediate_size)},
-        "w_up": {"kernel": normal(L, H, cfg.intermediate_size)},
-        "w_down": {"kernel": normal(L, cfg.intermediate_size, H)},
+        "wq": {"kernel": stacked(H, cfg.q_size)},
+        "wk": {"kernel": stacked(H, cfg.kv_size)},
+        "wv": {"kernel": stacked(H, cfg.kv_size)},
+        "wo": {"kernel": stacked(cfg.q_size, H)},
+        "w_gate": {"kernel": stacked(H, cfg.intermediate_size)},
+        "w_up": {"kernel": stacked(H, cfg.intermediate_size)},
+        "w_down": {"kernel": stacked(cfg.intermediate_size, H)},
         "post_norm": {"weight": ones(L, H)},
     }
     if cfg.qk_norm:
         layers["q_norm"] = {"weight": ones(L, cfg.head_dim)}
         layers["k_norm"] = {"weight": ones(L, cfg.head_dim)}
     params = {
-        "embed": {"weight": normal(cfg.vocab_size, H)},
+        "embed": {"weight": draw((cfg.vocab_size, H))},
         "layers": layers,
         "final_norm": {"weight": ones(H)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": normal(H, cfg.vocab_size)}
+        params["lm_head"] = {"kernel": draw((H, cfg.vocab_size))}
     return params
 
 

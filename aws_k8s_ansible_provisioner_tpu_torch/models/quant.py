@@ -38,6 +38,19 @@ def quant_kernel(w: torch.Tensor, in_axis: int
     return q.to(torch.int8), s
 
 
+def _quant_stacked(w: torch.Tensor, in_axis: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quant_kernel` of a stacked ``[L, ...]`` kernel, one layer at a
+    time (the same values: every step is per element or reduces within a
+    layer), so the float32 temporaries never exceed one layer's matrix."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:in_axis] + w.shape[in_axis + 1:],
+                    dtype=torch.float32, device=w.device)
+    for layer in range(w.shape[0]):
+        q[layer], s[layer] = quant_kernel(w[layer], in_axis - 1)
+    return q, s
+
+
 def weights_quantized(params: dict) -> bool:
     """Whether ``params`` carries int8 weight leaves (scale siblings)."""
     try:
@@ -57,7 +70,7 @@ def quantize_params(params: dict, cfg: ModelConfig) -> dict:
         if key not in layers:
             continue
         p = dict(layers[key])
-        p["kernel"], p["scale"] = quant_kernel(p["kernel"], in_axis)
+        p["kernel"], p["scale"] = _quant_stacked(p["kernel"], in_axis)
         layers[key] = p
     out["layers"] = layers
     emb = dict(params["embed"])

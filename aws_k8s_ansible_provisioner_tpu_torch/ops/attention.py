@@ -26,7 +26,9 @@ through ``ops/dense_attention.py``. As in the JAX reference, all row writes
 land before any row attends, so a chunk row sees exactly its prefix, a
 verify row exactly the rows before it and a decode row exactly its own
 slot. The prefill callbacks attend over the fresh, unquantized K/V and
-scatter (quantized) rows into the cache.
+scatter (quantized) rows into the cache. Every callback takes ``window``
+(the model's ``sliding_window``; 0 for none) and hands it to the kernels
+and to ``causal_attend``.
 """
 
 from __future__ import annotations
@@ -47,16 +49,16 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 
 
 def decode_attend_multi(q: torch.Tensor, cache_k: torch.Tensor,
-                        cache_v: torch.Tensor, base_lens: torch.Tensor
-                        ) -> torch.Tensor:
+                        cache_v: torch.Tensor, base_lens: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
     """Plain dense attention, R query rows per slot: the speculative
     verify's, and with R = 1 and ``base_lens = lengths - 1`` the decode
     step's (the JAX package's ``decode_attend``). The dense kernels' plain
     version (``ops/dense_attention.dense_attention_plain``) is built on it.
 
     q: [B, R, Hq, D]; cache_k/v: [B, Hkv, S, D] with rows base..base+R-1
-    already written; query row r sees the columns < base_lens + 1 + r.
-    Returns [B, R, Hq, D].
+    already written; query row r sees the columns < base_lens + 1 + r, of
+    which the last ``window`` when it is > 0. Returns [B, R, Hq, D].
     """
     B, R, Hq, D = q.shape
     Hkv, S = cache_k.shape[1], cache_k.shape[2]
@@ -64,8 +66,10 @@ def decode_attend_multi(q: torch.Tensor, cache_k: torch.Tensor,
     logits = torch.einsum("brkgd,bksd->brkgs", qg, cache_k.float()) \
         / math.sqrt(D)
     limit = base_lens[:, None] + 1 + torch.arange(R, device=q.device)
-    valid = torch.arange(S, device=q.device)[None, None, :] \
-        < limit[:, :, None]                                     # [B, R, S]
+    col = torch.arange(S, device=q.device)[None, None, :]
+    valid = col < limit[:, :, None]                             # [B, R, S]
+    if window > 0:
+        valid &= col >= limit[:, :, None] - window
     logits = torch.where(valid[:, :, None, None, :], logits,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
@@ -89,10 +93,11 @@ def _write_rows(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def make_decode_attend_carry_paged(lengths: torch.Tensor,
-                                   table: torch.Tensor):
+                                   table: torch.Tensor, window: int = 0):
     """Decode over the paged pool: slot b writes its new K/V row at row
-    ``lengths[b]`` and attends over ``lengths[b] + 1`` rows. lengths: [B]
-    int32; table: [B, max_pages] int32."""
+    ``lengths[b]`` and attends over ``lengths[b] + 1`` rows (their last
+    ``window`` when it is > 0). lengths: [B] int32; table: [B, max_pages]
+    int32."""
     limits = lengths + 1
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
@@ -100,14 +105,14 @@ def make_decode_attend_carry_paged(lengths: torch.Tensor,
         scales = _write_rows(pool, k[:, 0].contiguous(), v[:, 0].contiguous(),
                              lengths, layer, table)
         ctx = decode_attend_paged(q, pool["k"], pool["v"], limits, layer,
-                                  table, **scales)
+                                  table, **scales, window=window)
         return ctx, (pool, layer)
 
     return attend
 
 
 def make_spec_attend_carry_paged(lengths: torch.Tensor,
-                                 table: torch.Tensor):
+                                 table: torch.Tensor, window: int = 0):
     """Speculative verify over the paged pool: slot b's R new K/V rows land
     at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch for
     all B * R rows, the slot's table row repeated; the engine has allocated
@@ -124,7 +129,7 @@ def make_spec_attend_carry_paged(lengths: torch.Tensor,
                              v.reshape(B * R, *v.shape[2:]), rows, layer,
                              table.repeat_interleave(R, dim=0))
         ctx = decode_attend_spec_paged(q, pool["k"], pool["v"], lengths,
-                                       layer, table, **scales)
+                                       layer, table, **scales, window=window)
         return ctx, (pool, layer)
 
     return attend
@@ -132,7 +137,7 @@ def make_spec_attend_carry_paged(lengths: torch.Tensor,
 
 def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
                                   row_limits: torch.Tensor,
-                                  row_tables: torch.Tensor):
+                                  row_tables: torch.Tensor, window: int = 0):
     """Ragged mixed batch over the paged pool: the packed sequence [1, N]
     holds B decode rows then C prefill-chunk rows. Per packed row i:
     ``write_rows[i]`` is where its K/V lands (-1 drops),
@@ -144,14 +149,15 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
         scales = _write_rows(pool, k[0].contiguous(), v[0].contiguous(),
                              write_rows, layer, row_tables)
         ctx = ragged_attend_paged(q[0], pool["k"], pool["v"], row_limits,
-                                  layer, row_tables, **scales)
+                                  layer, row_tables, **scales, window=window)
         return ctx[None], (pool, layer)
 
     return attend
 
 
 def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
-                                          seq_lens: torch.Tensor):
+                                          seq_lens: torch.Tensor,
+                                          window: int = 0):
     """Batched prefill over the paged pool: causal attention over each
     right-padded prompt's fresh K/V, then its rows scatter through
     ``tables`` (quantized into an int8 pool; padding rows carry OOB_PAGE
@@ -159,7 +165,7 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
 
     def attend(q, k, v, cache_l):
         pool, layer = cache_l
-        ctx = causal_attend(q, k, v, seq_lens=seq_lens)
+        ctx = causal_attend(q, k, v, seq_lens=seq_lens, window=window)
         pool = pkv.write_prompts_paged_layer(pool, layer, tables, k, v,
                                              pool["k"].shape[3])
         return ctx, (pool, layer)
@@ -167,7 +173,7 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
     return attend
 
 
-def make_decode_attend_carry(lengths: torch.Tensor):
+def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0):
     """Decode over the dense cache: slot b writes its new K/V row at row
     ``lengths[b]`` (rows outside the window drop) and attends over
     ``lengths[b] + 1`` rows. lengths: [B] int32."""
@@ -178,13 +184,13 @@ def make_decode_attend_carry(lengths: torch.Tensor):
         cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
                                v.contiguous(), rows, layer)
         ctx = decode_attend_dense(q, cache["k"], cache["v"], lengths + 1,
-                                  layer)
+                                  layer, window)
         return ctx, (cache, layer)
 
     return attend
 
 
-def make_spec_attend_carry(lengths: torch.Tensor):
+def make_spec_attend_carry(lengths: torch.Tensor, window: int = 0):
     """Speculative rows over the dense cache: slot b's R new K/V rows land
     at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch),
     then one attention launch answers the B * R queries. lengths: [B]
@@ -197,20 +203,22 @@ def make_spec_attend_carry(lengths: torch.Tensor):
         rows = (lengths.to(torch.int32)[:, None] + r).contiguous()
         cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
                                v.contiguous(), rows, layer)
-        ctx = spec_attend_dense(q, cache["k"], cache["v"], lengths, layer)
+        ctx = spec_attend_dense(q, cache["k"], cache["v"], lengths, layer,
+                                window)
         return ctx, (cache, layer)
 
     return attend
 
 
-def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor):
+def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor,
+                              window: int = 0):
     """Batched prefill into the dense cache: causal attention over each
     right-padded prompt's fresh K/V, then its rows [0, T) scatter into slot
     ``slots[n]`` (slots outside the cache drop)."""
 
     def attend(q, k, v, cache_l):
         cache, layer = cache_l
-        ctx = causal_attend(q, k, v, seq_lens=seq_lens)
+        ctx = causal_attend(q, k, v, seq_lens=seq_lens, window=window)
         cache = kvc.write_prompts(cache, layer, slots, k, v)
         return ctx, (cache, layer)
 

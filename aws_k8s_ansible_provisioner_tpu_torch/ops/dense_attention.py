@@ -12,6 +12,9 @@ speculative decoding. Its kernels:
   ``decode_attend_pallas_spec`` (``_spec_kernel_plain``): R query rows per
   slot, row r attending the rows [0, lengths[b] + 1 + r); the kernel takes
   them as B * R packed rows, row n of slot n // R;
+- with ``window`` > 0 (both entries, the kernel's window instance) a row
+  attends only the last ``window`` of those rows and reads no 64-row tile
+  below its window start's;
 - :func:`cache_write_rows_dense` (K8, third entry of ``csrc/cache_write.cu``)
   replaces ``cache_write_row``: R new K and V rows per slot written in
   place, rows outside [0, S) dropped.
@@ -33,7 +36,7 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
-    _DTYPE_CODES, _MAX_GROUPS, _check_cuda)
+    _DTYPE_CODES, _MAX_GROUPS, _check_cuda, _count)
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     write_token_layer
 
@@ -43,19 +46,20 @@ _I = ctypes.c_int
 
 def dense_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
                           cache_v: torch.Tensor, limits: torch.Tensor,
-                          layer: int) -> torch.Tensor:
+                          layer: int, window: int = 0) -> torch.Tensor:
     """Plain version of the dense kernel (both entries): q [B, R, Hq, D];
     cache [L, B, Hkv, S, D]; limits [B]. Row r of slot b attends the
-    columns < limits[b] + r (``ops/attention.decode_attend_multi``, float32
-    softmax). A row with no column to visit (limits[b] + r <= 0: a decode
-    row of length 0) returns zeros, as the kernel's 0 / max(0, 1e-9) and
-    the TPU kernel's."""
+    columns < limits[b] + r, of which the last ``window`` when it is > 0
+    (``ops/attention.decode_attend_multi``, float32 softmax). A row with no
+    column to visit (limits[b] + r <= 0: a decode row of length 0) returns
+    zeros, as the kernel's 0 / max(0, 1e-9) and the TPU kernel's."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
         decode_attend_multi
 
     R = q.shape[1]
     lim = limits.long()
-    out = decode_attend_multi(q, cache_k[layer], cache_v[layer], lim - 1)
+    out = decode_attend_multi(q, cache_k[layer], cache_v[layer], lim - 1,
+                              window)
     empty = lim[:, None] + torch.arange(R, device=q.device) <= 0
     return torch.where(empty[:, :, None, None], torch.zeros_like(out), out)
 
@@ -64,18 +68,21 @@ def _attention_lib():
     lib = cuda_build.load("dense_attention")
     fn = lib.dense_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P]
         fn.restype = _I
     return fn
 
 
-def _launch_attention(what: str, q, cache_k, cache_v, limits,
-                      layer: int) -> torch.Tensor:
-    """Check the operands of the dense attention kernel and launch it.
-    q: [B, R, Hq, D]; returns [B, R, Hq, D]."""
+def _launch_attention(what: str, q, cache_k, cache_v, limits, layer: int,
+                      window: int) -> torch.Tensor:
+    """Check the operands of the dense attention kernel and launch it (the
+    window instance when ``window`` > 0). q: [B, R, Hq, D]; returns
+    [B, R, Hq, D]."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
     B, R, Hq, D = q.shape
     L, Bc, Hkv, S, Dk = cache_k.shape
     G = Hq // Hkv if Hkv else 0
@@ -102,7 +109,8 @@ def _launch_attention(what: str, q, cache_k, cache_v, limits,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(out.data_ptr(), q.data_ptr(), cache_k.data_ptr(),
                 cache_v.data_ptr(), limits.data_ptr(), B, Hkv, G, R, D, S,
-                layer, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], stream)
+                layer, window, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+                stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
@@ -110,45 +118,42 @@ def _launch_attention(what: str, q, cache_k, cache_v, limits,
 
 def decode_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
                         cache_v: torch.Tensor, lengths: torch.Tensor,
-                        layer: int) -> torch.Tensor:
+                        layer: int, window: int = 0) -> torch.Tensor:
     """Flash decode over one layer of the dense cache (K4).
 
     q: [B, 1, Hq, D] bf16 or f32; cache [L, B, Hkv, S, D] of q's type;
-    lengths [B]: the rows slot b attends (the just-written row counted);
-    layer: int. Returns [B, 1, Hq, D]; a slot of length 0 gets zeros. CPU
-    tensors take :func:`dense_attention_plain`; CUDA tensors launch the
-    kernel."""
+    lengths [B]: the rows slot b attends (the just-written row counted), of
+    which the last ``window`` when it is > 0; layer: int. Returns
+    [B, 1, Hq, D]; a slot of length 0 gets zeros. CPU tensors take
+    :func:`dense_attention_plain`; CUDA tensors launch the kernel."""
     q, lengths = q.contiguous(), lengths.to(torch.int32)
     if q.device.type == "cpu":
-        return dense_attention_plain(q, cache_k, cache_v, lengths, layer)
+        return dense_attention_plain(q, cache_k, cache_v, lengths, layer,
+                                     window)
     out = _launch_attention("decode_attend_dense", q, cache_k, cache_v,
-                            lengths, layer)
-    decode_attend_dense.launches += 1
+                            lengths, layer, window)
+    _count(decode_attend_dense, window)
     return out
-
-
-decode_attend_dense.launches = 0
 
 
 def spec_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, lengths: torch.Tensor,
-                      layer: int) -> torch.Tensor:
+                      layer: int, window: int = 0) -> torch.Tensor:
     """Speculative attention over one layer of the dense cache (K7).
 
     q: [B, R, Hq, D], the rows at positions ``lengths[b] + r`` (all R
-    already written); row r attends the rows [0, lengths[b] + 1 + r).
-    Returns [B, R, Hq, D]. CPU tensors take :func:`dense_attention_plain`; CUDA
-    tensors launch the kernel."""
+    already written); row r attends the rows [0, lengths[b] + 1 + r), of
+    which the last ``window`` when it is > 0. Returns [B, R, Hq, D]. CPU
+    tensors take :func:`dense_attention_plain`; CUDA tensors launch the
+    kernel."""
     q, limits = q.contiguous(), lengths.to(torch.int32) + 1
     if q.device.type == "cpu":
-        return dense_attention_plain(q, cache_k, cache_v, limits, layer)
+        return dense_attention_plain(q, cache_k, cache_v, limits, layer,
+                                     window)
     out = _launch_attention("spec_attend_dense", q, cache_k, cache_v, limits,
-                            layer)
-    spec_attend_dense.launches += 1
+                            layer, window)
+    _count(spec_attend_dense, window)
     return out
-
-
-spec_attend_dense.launches = 0
 
 
 def cache_write_rows_dense_plain(cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -216,15 +221,25 @@ def cache_write_rows_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
     cache_write_rows_dense.launches += 1
 
 
-cache_write_rows_dense.launches = 0
-
-_COUNTED = (decode_attend_dense, spec_attend_dense, cache_write_rows_dense)
+# the attention wrappers also count their window instance's launches
+_WINDOWED = (decode_attend_dense, spec_attend_dense)
+_COUNTED = _WINDOWED + (cache_write_rows_dense,)
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+    for fn in _WINDOWED:
+        fn.window_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """{wrapper name: launches} and, for the attention wrappers,
+    {name + " window": launches of the window instance}."""
+    out = {fn.__name__: fn.launches for fn in _COUNTED}
+    out.update({f"{fn.__name__} window": fn.window_launches
+                for fn in _WINDOWED})
+    return out

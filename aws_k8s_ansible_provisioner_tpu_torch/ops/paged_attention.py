@@ -3,9 +3,11 @@
 - :func:`paged_attention` (``csrc/paged_attention.cu``) replaces the TPU
   kernel ``_paged_flash_db``/``_paged_db_body`` behind
   ``decode_attend_pallas_paged`` and ``ragged_attend_pallas_paged``
-  (bf16, one query row per table row, no window): flash attention over the
-  paged pool where every packed query row carries its own page-table row
-  and live-column limit. :func:`paged_attention_quant` is the same kernel
+  (bf16, one query row per table row, with or without a sliding window):
+  flash attention over the paged pool where every packed query row carries
+  its own page-table row and live-column limit; ``window`` > 0 keeps the
+  columns ``[limit - window, limit)`` live and never reads a page below
+  the window start's. :func:`paged_attention_quant` is the same kernel
   over an int8 pool with per-row float32 scales (the TPU body
   ``_paged_db_kernel_quant``), folding the scales into the loop.
   :func:`decode_attend_paged` and :func:`ragged_attend_paged` are the two
@@ -52,42 +54,51 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _live_pages(limits: torch.Tensor, page_size: int,
-                max_pages: int) -> torch.Tensor:
-    """Index of the last logical page each row visits:
-    min(max(cdiv(limit, page) - 1, 0), max_pages - 1)."""
-    hi = torch.div(limits.long() + page_size - 1, page_size,
-                   rounding_mode="floor") - 1
-    return hi.clamp(min=0, max=max_pages - 1)
+def _live_pages(limits: torch.Tensor, page_size: int, max_pages: int,
+                window: int = 0):
+    """(lo, hi): the first and last logical page each row visits.
+    hi = min(max(cdiv(limit, page) - 1, 0), max_pages - 1); lo = 0, or with
+    a window min(max(limit - window, 0) // page, hi)."""
+    lim = limits.long()
+    hi = (torch.div(lim + page_size - 1, page_size, rounding_mode="floor")
+          - 1).clamp(min=0, max=max_pages - 1)
+    if window <= 0:
+        return torch.zeros_like(hi), hi
+    lo = torch.div((lim - window).clamp_min(0), page_size,
+                   rounding_mode="floor")
+    return torch.minimum(lo, hi), hi
 
 
 def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
                           pool_v: torch.Tensor, limits: torch.Tensor,
                           layer: int, table: torch.Tensor,
                           pool_ks: Optional[torch.Tensor] = None,
-                          pool_vs: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          pool_vs: Optional[torch.Tensor] = None,
+                          window: int = 0) -> torch.Tensor:
     """Plain version of :func:`paged_attention` and
     :func:`paged_attention_quant`: gather each row's visited pages, mask,
     float32 softmax.
 
     q: [N, Hq, D]; pools [L, P, Hkv, page, D]; limits [N]; table
-    [N, max_pages]. Row n visits logical pages 0..hi (see the kernel); its
-    columns >= limit are masked to NEG_INF (-1e30), so a row with limit 0
-    averages V over page table[n, 0]. Pages past hi are not visited. With
-    scale pools ``pool_ks``/``pool_vs`` [L, P, Hkv, page] the pools are int8
-    and the scales fold in as the kernel folds them: scores times the K
-    scale before the mask, the denominator over the unscaled
-    probabilities, the probabilities times the V scale in P.V.
+    [N, max_pages]. Row n visits logical pages lo..hi (:func:`_live_pages`)
+    and gathers no other; its columns outside ``[limit - window, limit)``
+    (window 0: ``[0, limit)``) are masked to NEG_INF (-1e30), so a row with
+    limit 0 averages V over page table[n, 0]. With scale pools
+    ``pool_ks``/``pool_vs`` [L, P, Hkv, page] the pools are int8 and the
+    scales fold in as the kernel folds them: scores times the K scale
+    before the mask, the denominator over the unscaled probabilities, the
+    probabilities times the V scale in P.V.
     """
     N, Hq, D = q.shape
     _, P, Hkv, ps, _ = pool_k.shape
     if N == 0:
         return torch.empty_like(q)
     G = Hq // Hkv
-    hi = _live_pages(limits, ps, table.shape[1])
-    n_vis = int(hi.max()) + 1
-    pages = table[:, :n_vis].long().clamp(0, P - 1)            # [N, n_vis]
+    lo, hi = _live_pages(limits, ps, table.shape[1], window)
+    n_vis = int((hi - lo).max()) + 1
+    c = lo[:, None] + torch.arange(n_vis, device=q.device)     # [N, n_vis]
+    pages = table.long().gather(1, torch.minimum(c, hi[:, None])) \
+        .clamp(0, P - 1)
 
     def gather(pool):                     # [N, Hkv, S] (+ [D]) in float32
         g = pool[layer][pages].movedim(2, 1)      # [N, Hkv, n_vis, ps, (D)]
@@ -98,9 +109,13 @@ def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
     s = torch.einsum("nkgd,nksd->nkgs", qg, k)
     if pool_ks is not None:
         s = s * gather(pool_ks)[:, :, None, :]
-    col = torch.arange(n_vis * ps, device=q.device)
-    live = col[None, :] < limits.long()[:, None]                # [N, S]
-    visited = (col[None, :] // ps) <= hi[:, None]
+    col = (c[:, :, None] * ps
+           + torch.arange(ps, device=q.device)).reshape(N, n_vis * ps)
+    lim = limits.long()[:, None]
+    live = col < lim                                            # [N, S]
+    if window > 0:
+        live &= col >= lim - window
+    visited = (c <= hi[:, None]).repeat_interleave(ps, dim=1)
     s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
     s = torch.where(visited[:, None, None], s,
                     torch.full_like(s, float("-inf")))
@@ -130,17 +145,21 @@ def _attention_lib():
     fn = lib.paged_attention
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, ctypes.c_float, _I, _I, _P]
+                       _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
         fn.restype = _I
     return fn
 
 
 def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
-                      limits, table, layer: int) -> torch.Tensor:
+                      limits, table, layer: int, window: int
+                      ) -> torch.Tensor:
     """Check the operands of the attention kernel and launch it (bf16/f32
-    pool when ``pool_ks`` is None, else int8 with scale pools)."""
+    pool when ``pool_ks`` is None, else int8 with scale pools; the window
+    instance when ``window`` > 0)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
     N, Hq, D = q.shape
     L, P, Hkv, ps, Dk = pool_k.shape
     G = Hq // Hkv if Hkv else 0
@@ -183,87 +202,94 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
                 pool_v.data_ptr(), pool_ks.data_ptr() if quant else None,
                 pool_vs.data_ptr() if quant else None, limits.data_ptr(),
                 table.data_ptr(), N, Hkv, G, D, P, ps, table.shape[1], layer,
-                1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+                window, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
                 _INT8_POOL if quant else _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
 
 
+def _count(fn, window: int) -> None:
+    """One launch of ``fn``'s kernel; ``window_launches`` counts those of
+    the window instance."""
+    fn.launches += 1
+    fn.window_launches += window > 0
+
+
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, limits: torch.Tensor, layer: int,
-                    table: torch.Tensor) -> torch.Tensor:
+                    table: torch.Tensor, window: int = 0) -> torch.Tensor:
     """Paged flash attention, one (table row, limit) per query row.
 
     q: [N, Hq, D] bf16 or f32; pools [L, P, Hkv, page, D] of q's type;
-    limits [N] int32; layer: int; table [N, max_pages] int32. Returns
-    [N, Hq, D]. CPU tensors take :func:`paged_attention_plain`; CUDA tensors
-    launch the kernel.
+    limits [N] int32; layer: int; table [N, max_pages] int32; ``window`` >
+    0: sliding window of that many columns. Returns [N, Hq, D]. CPU tensors
+    take :func:`paged_attention_plain`; CUDA tensors launch the kernel.
     """
     if q.device.type == "cpu":
-        return paged_attention_plain(q, pool_k, pool_v, limits, layer, table)
+        return paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
+                                     window=window)
     out = _launch_attention("paged_attention", q, pool_k, pool_v, None, None,
-                            limits, table, layer)
-    paged_attention.launches += 1
+                            limits, table, layer, window)
+    _count(paged_attention, window)
     return out
-
-
-paged_attention.launches = 0
 
 
 def paged_attention_quant(q: torch.Tensor, pool_k: torch.Tensor,
                           pool_v: torch.Tensor, pool_ks: torch.Tensor,
                           pool_vs: torch.Tensor, limits: torch.Tensor,
-                          layer: int, table: torch.Tensor) -> torch.Tensor:
+                          layer: int, table: torch.Tensor,
+                          window: int = 0) -> torch.Tensor:
     """:func:`paged_attention` over an int8 pool: pools [L, P, Hkv, page, D]
     int8, scale pools [L, P, Hkv, page] float32, q bf16 or f32 (D a
     multiple of 16). CPU tensors take :func:`paged_attention_plain`; CUDA
     tensors launch the kernel's int8 instance."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
-                                     pool_ks, pool_vs)
+                                     pool_ks, pool_vs, window)
     out = _launch_attention("paged_attention_quant", q, pool_k, pool_v,
-                            pool_ks, pool_vs, limits, table, layer)
-    paged_attention_quant.launches += 1
+                            pool_ks, pool_vs, limits, table, layer, window)
+    _count(paged_attention_quant, window)
     return out
 
 
-paged_attention_quant.launches = 0
-
-
-def _attend(q, pool_k, pool_v, limits, layer, table, pool_ks, pool_vs):
+def _attend(q, pool_k, pool_v, limits, layer, table, pool_ks, pool_vs,
+            window):
     if pool_ks is None:
-        return paged_attention(q, pool_k, pool_v, limits, layer, table)
+        return paged_attention(q, pool_k, pool_v, limits, layer, table,
+                               window)
     return paged_attention_quant(q, pool_k, pool_v, pool_ks, pool_vs, limits,
-                                 layer, table)
+                                 layer, table, window)
 
 
 def decode_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, lengths: torch.Tensor,
                         layer: int, table: torch.Tensor,
                         pool_ks: Optional[torch.Tensor] = None,
-                        pool_vs: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        pool_vs: Optional[torch.Tensor] = None,
+                        window: int = 0) -> torch.Tensor:
     """Decode entry: q [B, 1, Hq, D], one row per slot; ``lengths`` counts
-    the rows each slot attends over (the just-written row included).
-    Scale pools select the int8 form. Returns [B, 1, Hq, D]."""
+    the rows each slot attends over (the just-written row included), of
+    which the last ``window`` when it is > 0. Scale pools select the int8
+    form. Returns [B, 1, Hq, D]."""
     return _attend(q[:, 0].contiguous(), pool_k, pool_v,
                    lengths.to(torch.int32), layer, table.to(torch.int32),
-                   pool_ks, pool_vs)[:, None]
+                   pool_ks, pool_vs, window)[:, None]
 
 
 def ragged_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, row_limits: torch.Tensor,
                         layer: int, row_tables: torch.Tensor,
                         pool_ks: Optional[torch.Tensor] = None,
-                        pool_vs: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        pool_vs: Optional[torch.Tensor] = None,
+                        window: int = 0) -> torch.Tensor:
     """Ragged entry: N packed rows [N, Hq, D], each with its own table row
     and live-column limit (decode rows and prefill-chunk rows in one
-    call). Scale pools select the int8 form. Returns [N, Hq, D]."""
+    call), the window off each row's own limit. Scale pools select the int8
+    form. Returns [N, Hq, D]."""
     return _attend(q.contiguous(), pool_k, pool_v,
                    row_limits.to(torch.int32), layer,
-                   row_tables.to(torch.int32), pool_ks, pool_vs)
+                   row_tables.to(torch.int32), pool_ks, pool_vs, window)
 
 
 def _spec_rows(q: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
@@ -280,28 +306,34 @@ def paged_attention_spec_plain(q: torch.Tensor, pool_k: torch.Tensor,
                                pool_v: torch.Tensor, lengths: torch.Tensor,
                                layer: int, table: torch.Tensor,
                                pool_ks: Optional[torch.Tensor] = None,
-                               pool_vs: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               pool_vs: Optional[torch.Tensor] = None,
+                               window: int = 0) -> torch.Tensor:
     """Plain version of :func:`paged_attention_spec` and
     :func:`paged_attention_spec_quant`: :func:`paged_attention_plain` over
     the B * R packed rows of :func:`_spec_rows`.
 
-    The TPU kernel walks slot b's pages once for all R rows, up to the page
-    of column ``lengths[b] + R - 1``; packed row r stops at its own last
-    page. Every row has a live column (its limit is at least 1), so the
-    pages only the TPU kernel visits add columns masked to -1e30, whose
-    probabilities are exactly 0: both give the same result.
+    The TPU kernel walks slot b's pages once for all R rows, from the page
+    of row 0's window start (``lengths[b] + 1 - window``) to the page of
+    column ``lengths[b] + R - 1``; packed row r walks from its own window
+    start's page to its own last page. Every row has a live column (its
+    limit is at least 1), so the pages only the TPU kernel visits add
+    columns masked to -1e30: before the row's first live column they leave
+    its running max at -1e30, and the first live page scales what they
+    summed by exp(-1e30 - m) = 0; after it their probabilities are exactly
+    0. Both give the same result.
     """
     qp, limits, tables = _spec_rows(q, lengths, table)
     return paged_attention_plain(qp, pool_k, pool_v, limits, layer, tables,
-                                 pool_ks, pool_vs).reshape(q.shape)
+                                 pool_ks, pool_vs, window).reshape(q.shape)
 
 
 def paged_attention_spec(q: torch.Tensor, pool_k: torch.Tensor,
                          pool_v: torch.Tensor, lengths: torch.Tensor,
-                         layer: int, table: torch.Tensor) -> torch.Tensor:
+                         layer: int, table: torch.Tensor,
+                         window: int = 0) -> torch.Tensor:
     """Speculative-verify attention over a bf16/f32 pool: R query rows per
-    slot, row r attending the columns < ``lengths[b] + 1 + r``.
+    slot, row r attending the columns < ``lengths[b] + 1 + r`` (the last
+    ``window`` of them when it is > 0).
 
     q: [B, R, Hq, D]; pools [L, P, Hkv, page, D] of q's type; lengths [B]
     int32; table [B, max_pages] int32. Returns [B, R, Hq, D]. CPU tensors
@@ -309,52 +341,47 @@ def paged_attention_spec(q: torch.Tensor, pool_k: torch.Tensor,
     attention kernel over the B * R rows packed (:func:`_spec_rows`)."""
     if q.device.type == "cpu":
         return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
-                                          table)
+                                          table, window=window)
     qp, limits, tables = _spec_rows(q, lengths, table)
     out = _launch_attention("paged_attention_spec", qp, pool_k, pool_v, None,
-                            None, limits, tables, layer)
-    paged_attention_spec.launches += 1
+                            None, limits, tables, layer, window)
+    _count(paged_attention_spec, window)
     return out.reshape(q.shape)
-
-
-paged_attention_spec.launches = 0
 
 
 def paged_attention_spec_quant(q: torch.Tensor, pool_k: torch.Tensor,
                                pool_v: torch.Tensor, pool_ks: torch.Tensor,
                                pool_vs: torch.Tensor, lengths: torch.Tensor,
-                               layer: int, table: torch.Tensor
-                               ) -> torch.Tensor:
+                               layer: int, table: torch.Tensor,
+                               window: int = 0) -> torch.Tensor:
     """:func:`paged_attention_spec` over an int8 pool with its float32 scale
     pools (the kernel's int8 instance, scales folded as in
     :func:`paged_attention_quant`)."""
     if q.device.type == "cpu":
         return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
-                                          table, pool_ks, pool_vs)
+                                          table, pool_ks, pool_vs, window)
     qp, limits, tables = _spec_rows(q, lengths, table)
     out = _launch_attention("paged_attention_spec_quant", qp, pool_k, pool_v,
-                            pool_ks, pool_vs, limits, tables, layer)
-    paged_attention_spec_quant.launches += 1
+                            pool_ks, pool_vs, limits, tables, layer, window)
+    _count(paged_attention_spec_quant, window)
     return out.reshape(q.shape)
-
-
-paged_attention_spec_quant.launches = 0
 
 
 def decode_attend_spec_paged(q: torch.Tensor, pool_k: torch.Tensor,
                              pool_v: torch.Tensor, lengths: torch.Tensor,
                              layer: int, table: torch.Tensor,
                              pool_ks: Optional[torch.Tensor] = None,
-                             pool_vs: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             pool_vs: Optional[torch.Tensor] = None,
+                             window: int = 0) -> torch.Tensor:
     """Verify entry: q [B, R, Hq, D], the rows at positions
     ``lengths[b] + r`` (all R already written); scale pools select the int8
     form. Returns [B, R, Hq, D]."""
     q = q.contiguous()
     if pool_ks is None:
-        return paged_attention_spec(q, pool_k, pool_v, lengths, layer, table)
+        return paged_attention_spec(q, pool_k, pool_v, lengths, layer, table,
+                                    window)
     return paged_attention_spec_quant(q, pool_k, pool_v, pool_ks, pool_vs,
-                                      lengths, layer, table)
+                                      lengths, layer, table, window)
 
 
 def _kept_rows(rows: torch.Tensor, table: torch.Tensor, page_size: int,
@@ -451,9 +478,6 @@ def cache_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     cache_write_rows_paged.launches += 1
 
 
-cache_write_rows_paged.launches = 0
-
-
 def cache_write_rows_quant_paged_plain(pool_k: torch.Tensor,
                                        pool_v: torch.Tensor,
                                        pool_ks: torch.Tensor,
@@ -535,17 +559,26 @@ def cache_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     cache_write_rows_quant_paged.launches += 1
 
 
-cache_write_rows_quant_paged.launches = 0
-
-_COUNTED = (paged_attention, paged_attention_quant, paged_attention_spec,
-            paged_attention_spec_quant, cache_write_rows_paged,
-            cache_write_rows_quant_paged)
+# the attention wrappers also count their window instance's launches
+_WINDOWED = (paged_attention, paged_attention_quant, paged_attention_spec,
+             paged_attention_spec_quant)
+_COUNTED = _WINDOWED + (cache_write_rows_paged, cache_write_rows_quant_paged)
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+    for fn in _WINDOWED:
+        fn.window_launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """{wrapper name: launches} and, for the attention wrappers,
+    {name + " window": launches of the window instance}."""
+    out = {fn.__name__: fn.launches for fn in _COUNTED}
+    out.update({f"{fn.__name__} window": fn.window_launches
+                for fn in _WINDOWED})
+    return out

@@ -5,7 +5,9 @@ draft runs the engine's own step programs over a dense slot cache of its
 own (``kv_cache.init_cache``, never quantized): ``decode_steps`` (greedy,
 horizon spec_k, kernels K8 and K4) for the rollout and ``spec_decode_step``
 (R = spec_k + 1 rows, argmax side only, kernels K8 and K7) to teacher-force
-the tokens a plain dispatch emitted while the draft stood still.
+the tokens a plain dispatch emitted while the draft stood still. The
+programs take the draft's own ``cfg.sliding_window``, so a windowed draft
+attends its dense cache through the kernels' window instances.
 
 Cache coherence (the engine's ``lengths[slot]`` counts the target cache's
 rows; the newest emitted token, ``last_token``, is not among them and is

@@ -23,7 +23,10 @@ this slice reaches, with these differences:
   ``serving/draft.py``), where the JAX draft runs one row behind.
 
 Idle slots keep decoding into the scratch page 0, as in the JAX engine: their
-tables point there, and their outputs are discarded.
+tables point there, and their outputs are discarded. A config with a sliding
+window (Mistral) is served by the same steps, the window applied inside the
+attention kernels; as in the JAX engine, a slot keeps its pages below the
+window until it finishes.
 
 Sampling is seeded per request as in the JAX engine: a request's OpenAI
 ``seed``, or else one drawn at submit from the engine's ``random.Random``

@@ -23,6 +23,9 @@ cache (updated in place) and device tensors, with the JAX package's
 The paged pool serves the target model; the dense slot cache
 (``kv_cache.init_cache``) the draft model of speculative decoding.
 
+Each honours the model's ``cfg.sliding_window`` in every attention of the
+step (prefill, decode, chunk rows and verify rows alike).
+
 Each takes the rows' ``seeds`` ([B] uint32 values held in int64) and keys
 its draws at the JAX programs' counters (``ops/sampling.per_slot_keys``):
 a prefill row at its prompt length, a decode row at its length + 1 (the
@@ -63,8 +66,10 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     N, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device)[None].expand(N, T)
-    attend = make_prefill_attend_batch(slots, true_lens) if tables is None \
-        else make_prefill_attend_batch_paged_carry(tables, true_lens)
+    window = model.cfg.sliding_window
+    attend = make_prefill_attend_batch(slots, true_lens, window) \
+        if tables is None else \
+        make_prefill_attend_batch_paged_carry(tables, true_lens, window)
     logits, pool = model.forward_carry(tokens, positions, pool, attend)
     last = logits[torch.arange(N, device=tokens.device), true_lens.long() - 1]
     return pool, sample(last, temperature, top_k, top_p, seeds, true_lens)
@@ -85,9 +90,10 @@ def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
     """
     out = []
     tok, lens = tokens, lengths
+    window = model.cfg.sliding_window
     for _ in range(n_steps):
-        attend = make_decode_attend_carry(lens) if table is None \
-            else make_decode_attend_carry_paged(lens, table)
+        attend = make_decode_attend_carry(lens, window) if table is None \
+            else make_decode_attend_carry_paged(lens, table, window)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
                                            attend)
         tok = sample(logits[:, 0], temperature, top_k, top_p, seeds,
@@ -126,7 +132,8 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     positions = torch.cat([torch.where(is_p, torch.zeros_like(lengths),
                                        lengths)[None], crows[None]], dim=1)
     attend = make_mixed_attend_carry_paged(write_rows.to(i32),
-                                           row_limits.to(i32), row_tables)
+                                           row_limits.to(i32), row_tables,
+                                           model.cfg.sliding_window)
     logits, pool = model.forward_carry(packed, positions, pool, attend)
     nxt = sample(logits[0, :B], temperature, top_k, top_p, seeds, lengths + 1)
     plast = logits[0, B + plen - 1][None]
@@ -160,8 +167,9 @@ def spec_decode_step(model: DecoderLM, R: int, pool: dict,
     dev = tokens.device
     positions = lengths[:, None] + torch.arange(R, dtype=lengths.dtype,
                                                 device=dev)[None, :]
-    attend = make_spec_attend_carry(lengths) if table is None \
-        else make_spec_attend_carry_paged(lengths, table)
+    window = model.cfg.sliding_window
+    attend = make_spec_attend_carry(lengths, window) if table is None \
+        else make_spec_attend_carry_paged(lengths, table, window)
     logits, pool = model.forward_carry(tokens, positions, pool, attend)
     preds = torch.argmax(logits, dim=-1).to(torch.int32)          # [B, R]
     drafts = tokens[:, 1:].to(torch.int32)                        # [B, R-1]

@@ -10,6 +10,10 @@ tokenizer, as the JAX server does without ``--checkpoint-dir``::
 
     python -m aws_k8s_ansible_provisioner_tpu_torch.serving.server \\
         --model Qwen/Qwen3-0.6B --device cuda
+
+Any model of ``config.MODEL_REGISTRY`` serves this way, e.g. ``--model
+mistralai/Mistral-7B-v0.1`` (sliding-window attention; with int8 weights
+about 7.3 GB on the card).
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         MODEL_REGISTRY, ServingConfig, tiny_qwen3)
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import (
         load_tokenizer)
@@ -84,6 +90,9 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_params(model_cfg, gen, dtype)
+        if serving.weights_dtype == "int8":
+            # drop the unquantized tree before the engine sizes its pool
+            params = quantize_params(params, model_cfg)
     engine = Engine(model_cfg, params, serving, device=dev)
     return ServerState(engine, tokenizer, serving.model)
 
@@ -211,7 +220,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="OpenAI-compatible LLM server "
                                             "(PyTorch/CUDA port)")
     p.add_argument("--model", default="Qwen/Qwen3-0.6B",
-                   help="Qwen/Qwen3-0.6B, or tiny-qwen3 (byte-vocab dry run)")
+                   help="a registered model (Qwen/Qwen3-0.6B, "
+                        "mistralai/Mistral-7B-v0.1), or tiny-qwen3 "
+                        "(byte-vocab dry run)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for a dry run)")
     p.add_argument("--host", default="0.0.0.0")

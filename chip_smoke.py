@@ -44,14 +44,25 @@ result when either is missing. Phases, in order (any failure raises):
 6. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
    the same width over the dense cache; a second wave of chunked prompts
    puts the drafts behind so that they catch up. The dense kernels must
-   have launched, and the self-draft must have accepted drafts.
+   have launched, and the self-draft must have accepted drafts;
+7. the window instances (after the kernels phase): K1 (decode, ragged,
+   verify; bf16 and int8 pools), K4 and K7 at Mistral-7B-v0.1's shapes with
+   its window of 4096, each held against its plain version and timed, and
+   K1 at window 0 against window 4096 on rows of ~8000 columns;
+8. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
+   slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
+   with launch counts (window instances only), one decode step's logits
+   at lengths past the window held against the plain versions and against
+   window 0, one decode dispatch profiled, the server; then prompt lookup
+   (the verify's window instance) and a self-draft (K4 and K7's).
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+Every phase logs its wall time. The line before the last is
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -85,6 +96,19 @@ ATTN_MAX_ULPS, ATTN_MEAN_ULPS = 4.0, 0.5
 # again differs by one bf16 rounding (0.039 again with the int8 pool, same
 # card).
 LOGIT_TOL = 0.1
+# one decode step of Mistral-7B-v0.1 (32 layers), kernels vs plain versions:
+# the same one-bf16-rounding differences in the attention outputs as above
+# (each layer's held to the ulp rule in the step itself), but random
+# Mistral-7B weights amplify them much more through 32 layers: max abs
+# 0.625 against a max |logit| of 5.875, where the window's own effect
+# (window 0 against 4096) moved the logits by 7.19 (H100 80GB HBM3, 700 W)
+MISTRAL_LOGIT_TOL = 2.0
+# random Mistral-7B weights, also with the head holding the embedding's rows,
+# give a greedy stream in which prompt lookup finds no n-gram (measured on an
+# H100); with the embedding 1000 times larger the current token's embedding
+# (|E[t]|^2 = 1.6 at std 0.02) outweighs what 32 layers add to the head's
+# reading, and the stream repeats its token
+REPEAT_EMBED_SCALE = 1000.0
 # sampled requests of the int8 engine run
 SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=20, ignore_eos=True)
 # query rows per slot of a verify: the default spec_k 4, plus the last token
@@ -130,14 +154,62 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
-    """Hold the attention kernel against its plain version; time both, an
-    SDPA over the gathered K/V, and the bound. ``pools`` holds bf16 "k"/"v",
-    or int8 "k"/"v" with float32 scales "ks"/"vs" (the int8 instance).
-    Returns a result dict."""
-    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+def _paged_kv(torch, np, pools, table, lo, hi, layer):
+    """For an SDPA yardstick: each row's visited pages lo..hi gathered dense
+    (int8 dequantized to bf16) as K/V [N, Hkv, S, D], beside the columns'
+    positions [N, S] and whether each was visited [N, S]."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
         dequantize
+
+    dev = table.device
+    _, P, Hkv, ps, D = pools["k"].shape
+    N = len(lo)
+    n_vis = int((hi - lo).max()) + 1
+    c = torch.from_numpy(lo[:, None] + np.arange(n_vis)).to(dev)
+    hi_t = torch.from_numpy(hi).to(dev)[:, None]
+    pages = table.long().gather(1, torch.minimum(c, hi_t)).clamp(0, P - 1)
+
+    def dense(name):
+        g = pools[name][layer][pages]              # [N, n_vis, Hkv, ps, D]
+        if "ks" in pools:
+            g = dequantize(g, pools[name + "s"][layer][pages], torch.bfloat16)
+        return g.permute(0, 2, 1, 3, 4).reshape(N, Hkv, n_vis * ps, D)
+
+    col = (c[:, :, None] * ps + torch.arange(ps, device=dev)).reshape(N, -1)
+    visited = (c <= hi_t).repeat_interleave(ps, dim=1)
+    return dense("k"), dense("v"), col, visited
+
+
+def _sdpa_ms(torch, q4, kd, vd, col, lim, window, visited=None):
+    """Yardstick: one SDPA call over K/V gathered dense beforehand, the
+    G (or R * G) query rows of a kv head as SDPA's query axis (GQA without
+    copies). q4 [N, Hkv, M, D]; kd/vd [N, Hkv, S, D]; col [N, S] the
+    columns' positions; lim [N, M] each query row's limit; the mask (built
+    outside the timed call) keeps [lim - window, lim), or [0, lim) at
+    window 0, of the visited columns."""
+    live = col[:, None, :] < lim[:, :, None]
+    if window > 0:
+        live &= col[:, None, :] >= lim[:, :, None] - window
+    if visited is not None:
+        live &= visited[:, None, :]
+    mask = torch.where(live, 0.0, -1e30).to(q4.dtype)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return timed_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask))
+
+
+def _live_cols(np, limits, window):
+    """Live columns of rows with these limits: [limit - window, limit)."""
+    live = np.maximum(limits, 0)
+    return np.minimum(live, window) if window > 0 else live
+
+
+def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
+                    hq=16, window=0):
+    """Hold the attention kernel against its plain version; time both, an
+    SDPA over the gathered K/V, and the bound. ``pools`` holds bf16 "k"/"v",
+    or int8 "k"/"v" with float32 scales "ks"/"vs" (the int8 instance);
+    ``window`` > 0 takes the window instance. Returns a result dict."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
 
     pool_k, pool_v = pools["k"], pools["v"]
     quant = "ks" in pools
@@ -145,11 +217,10 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
     name = "paged_attention_quant" if quant else "paged_attention"
     dev = pool_k.device
     _, P, Hkv, ps, D = pool_k.shape
-    Hq = 16
     N = len(limits_np)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    q = torch.randn((N, Hq, D), generator=gen, device=dev,
+    q = torch.randn((N, hq, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
     table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
@@ -157,50 +228,38 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label):
     def kernel():
         if quant:
             return pa.paged_attention_quant(q, pool_k, pool_v, *scales,
-                                            limits, layer, table)
-        return pa.paged_attention(q, pool_k, pool_v, limits, layer, table)
+                                            limits, layer, table, window)
+        return pa.paged_attention(q, pool_k, pool_v, limits, layer, table,
+                                  window)
 
     out = kernel()
     ref = pa.paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
-                                   *scales)
+                                   *scales, window=window)
     torch.cuda.synchronize()
-    check = _ulp_rows(torch, f"{name} {label}", out, ref, N,
+    what = f"{name} {label}"
+    check = _ulp_rows(torch, what, out, ref, N,
                       lambda bad: f"limits {limits_np[bad].tolist()}")
     ms = timed_ms(torch, kernel)
     plain_ms = timed_ms(torch, lambda: pa.paged_attention_plain(
-        q, pool_k, pool_v, limits, layer, table, *scales), iters=5, warmup=1)
-    # yardstick: one SDPA call over this case's gathered dense K/V (gather,
-    # int8 dequantization and mask built outside the timed call)
-    hi = np.clip((limits_np + ps - 1) // ps - 1, 0, table_np.shape[1] - 1)
-    n_vis = int(hi.max()) + 1
-    pages = table[:, :n_vis].long()
-
-    def dense(name):
-        g = pools[name][layer][pages]
-        if quant:
-            g = dequantize(g, pools[name + "s"][layer][pages], torch.bfloat16)
-        return g.permute(0, 2, 1, 3, 4).reshape(
-            N, Hkv, n_vis * ps, D).repeat_interleave(Hq // Hkv, dim=1)
-
-    kd, vd = dense("k"), dense("v")
-    col = torch.arange(n_vis * ps, device=dev)
-    mask = torch.where(col[None, :] < limits[:, None].long(), 0.0, -1e30) \
-        .to(torch.bfloat16)[:, None, None, :]
-    q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = timed_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask))
+        q, pool_k, pool_v, limits, layer, table, *scales, window=window),
+        iters=5, warmup=1)
+    lo, hi = (t.cpu().numpy() for t in pa._live_pages(
+        limits, ps, table_np.shape[1], window))
+    kd, vd, col, visited = _paged_kv(torch, np, pools, table, lo, hi, layer)
+    library_ms = _sdpa_ms(torch, q.reshape(N, Hkv, hq // Hkv, D), kd, vd,
+                          col, limits.long()[:, None], window, visited)
     del kd, vd
     # bound: each input byte read once (K/V pages the rows visit, and their
     # scales, counted once per distinct (page, kv head) tile; the table
     # entries of the visited pages), each output byte written once;
     # operations: QK^T and PV over the live columns
-    visited = {int(table_np[n, c]) for n in range(N) for c in range(hi[n] + 1)}
+    tiles = {int(table_np[n, c]) for n in range(N)
+             for c in range(lo[n], hi[n] + 1)}
     tile = Hkv * ps * (D * pool_k.element_size() + (4 if quant else 0))
-    nbytes = (2 * len(visited) * tile + 2 * N * Hq * D * 2
-              + N * 4 + int((hi + 1).sum()) * 4)
-    ops = 4 * Hq * D * int(np.maximum(limits_np, 0).sum())
-    return _report(f"{name} {label}", check, ms, plain_ms, library_ms,
-                   nbytes, ops, N)
+    nbytes = (2 * len(tiles) * tile + 2 * N * hq * D * 2
+              + N * 4 + int((hi - lo + 1).sum()) * 4)
+    ops = 4 * hq * D * int(_live_cols(np, limits_np, window).sum())
+    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, N)
 
 
 def _ulp_rows(torch, what, out, ref, n_rows, describe):
@@ -331,29 +390,12 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
     return res
 
 
-def _sdpa_ms(torch, q, kd, vd, limits, rows):
-    """Yardstick: one SDPA call over K/V gathered dense beforehand.
-    q [B, R, Hq, D]; kd/vd [B, Hkv, n, D]; row (b, r) sees the columns
-    < limits[b] + r (the mask is built outside the timed call)."""
-    B, R, Hq, D = q.shape
-    G = Hq // kd.shape[1]
-    kd, vd = (t.repeat_interleave(G, dim=1) for t in (kd, vd))
-    col = torch.arange(kd.shape[2], device=q.device)
-    lim = limits.long()[:, None] + torch.arange(R, device=q.device)[None, :]
-    mask = torch.where(col[None, None, :] < lim[:, :, None], 0.0, -1e30) \
-        .to(q.dtype)[:, None]                                 # [B, 1, R, n]
-    qt = q.transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    return timed_ms(torch, lambda: sdpa(qt, kd, vd, attn_mask=mask))
-
-
-def _spec_case(torch, np, pools, lengths_np, table_np, layer, label):
+def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
+               window=0):
     """K1-spec: SPEC_R rows per slot against its plain version (the ulp
     rule row by row), timed beside the plain version, an SDPA over the
-    gathered K/V and the bound."""
+    gathered K/V and the bound; ``window`` > 0 takes the window instance."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
-    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
-        dequantize
 
     quant = "ks" in pools
     name = "paged_attention_spec_quant" if quant else "paged_attention_spec"
@@ -361,79 +403,79 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label):
     pool_k, pool_v = pools["k"], pools["v"]
     dev = pool_k.device
     _, P, Hkv, ps, D = pool_k.shape
-    Hq, R, B = 16, SPEC_R, len(lengths_np)
+    R, B = SPEC_R, len(lengths_np)
+    G = hq // Hkv
     max_pages = table_np.shape[1]
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
-    q = torch.randn((B, R, Hq, D), generator=gen, device=dev,
+    q = torch.randn((B, R, hq, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
     table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
 
     def kernel():
         return pa.decode_attend_spec_paged(q, pool_k, pool_v, lengths, layer,
-                                           table, **kw)
+                                           table, **kw, window=window)
 
     def plain():
         return pa.paged_attention_spec_plain(q, pool_k, pool_v, lengths,
-                                             layer, table, *kw.values())
+                                             layer, table, *kw.values(),
+                                             window=window)
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    check = _ulp_rows(torch, f"{name} {label}", out, ref, B * R,
+    what = f"{name} {label}"
+    check = _ulp_rows(torch, what, out, ref, B * R,
                       lambda bad: f"lengths {lengths_np[bad // R].tolist()}")
     ms = timed_ms(torch, kernel)
     plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
-    hi = np.clip((lengths_np + R + ps - 1) // ps - 1, 0, max_pages - 1)
-    n_vis = int(hi.max()) + 1
-    pages = table[:, :n_vis].long()
-
-    def dense(n):
-        g = pools[n][layer][pages]
-        if quant:
-            g = dequantize(g, pools[n + "s"][layer][pages], torch.bfloat16)
-        return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, n_vis * ps, D)
-
-    kd, vd = dense("k"), dense("v")
-    library_ms = _sdpa_ms(torch, q, kd, vd, lengths + 1, R)
+    # slot b's pages: from row 0's window start to row R - 1's last column
+    lo = pa._live_pages(lengths + 1, ps, max_pages, window)[0].cpu().numpy()
+    hi = pa._live_pages(lengths + R, ps, max_pages)[1].cpu().numpy()
+    kd, vd, col, visited = _paged_kv(torch, np, pools, table, lo, hi, layer)
+    q4 = q.reshape(B, R, Hkv, G, D).transpose(1, 2).reshape(B, Hkv, R * G, D)
+    lim = (lengths.long()[:, None] + 1
+           + torch.arange(R, device=dev)).repeat_interleave(G, dim=1)
+    library_ms = _sdpa_ms(torch, q4, kd, vd, col, lim, window, visited)
     del kd, vd
     # bound: each visited (page, kv head) tile read once for all R rows,
-    # and each slot's table entries up to its last visited page
-    visited = {int(table_np[b, c]) for b in range(B) for c in range(hi[b] + 1)}
+    # and each slot's table entries of its visited pages
+    tiles = {int(table_np[b, c]) for b in range(B)
+             for c in range(lo[b], hi[b] + 1)}
     tile = Hkv * ps * (D * pool_k.element_size() + (4 if quant else 0))
-    nbytes = (2 * len(visited) * tile + 2 * B * R * Hq * D * 2 + B * 4
-              + int((hi + 1).sum()) * 4)
-    ops = 4 * Hq * D * int((lengths_np[:, None] + 1
-                            + np.arange(R)[None, :]).sum())
-    return _report(f"{name} {label}", check, ms, plain_ms, library_ms,
-                   nbytes, ops, B * R)
+    nbytes = (2 * len(tiles) * tile + 2 * B * R * hq * D * 2 + B * 4
+              + int((hi - lo + 1).sum()) * 4)
+    limits = lengths_np[:, None] + 1 + np.arange(R)[None, :]
+    ops = 4 * hq * D * int(_live_cols(np, limits, window).sum())
+    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
 
 
-def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label):
+def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
+                          hq=16, window=0):
     """K4 (R = 1) or K7 (R = SPEC_R) over the dense cache against the plain
     version (the ulp rule row by row; a slot of length 0 must give exact
     zeros), timed beside the plain version, an SDPA over the slots' rows
-    and the bound."""
+    and the bound; ``window`` > 0 takes the window instance."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
     ck, cv = cache["k"], cache["v"]
     dev = ck.device
     _, B, Hkv, S, D = ck.shape
-    Hq = 16
+    G = hq // Hkv
     entry = da.decode_attend_dense if R == 1 else da.spec_attend_dense
     limits_np = lengths_np if R == 1 else lengths_np + 1
     gen = torch.Generator(device=dev)
     gen.manual_seed(19 + R)
-    q = torch.randn((B, R, Hq, D), generator=gen, device=dev,
+    q = torch.randn((B, R, hq, D), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
     limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
 
     def kernel():
-        return entry(q, ck, cv, lengths, layer)
+        return entry(q, ck, cv, lengths, layer, window)
 
     def plain():
-        return da.dense_attention_plain(q, ck, cv, limits, layer)
+        return da.dense_attention_plain(q, ck, cv, limits, layer, window)
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -445,14 +487,27 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label):
         raise AssertionError(f"{what}: a slot of length 0 is not zeros")
     ms = timed_ms(torch, kernel)
     plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
+    # slot b's rows: from row 0's window start to row R - 1's extent
     ext = np.clip(limits_np + R - 1, 0, S)
-    n = int(ext.max())
-    library_ms = _sdpa_ms(torch, q, ck[layer, :, :, :n], cv[layer, :, :, :n],
-                          limits, R)
-    nbytes = (2 * int(ext.sum()) * Hkv * D * ck.element_size()
-              + 2 * B * R * Hq * D * 2 + B * 4)
-    ops = 4 * Hq * D * int(np.minimum(np.maximum(
-        limits_np[:, None] + np.arange(R)[None, :], 0), S).sum())
+    start = np.maximum(limits_np - window, 0) if window > 0 \
+        else np.zeros_like(ext)
+    start = np.minimum(start, ext)
+    n = max(int((ext - start).max()), 1)
+    idx = torch.from_numpy(np.minimum(start[:, None] + np.arange(n),
+                                      S - 1)).to(dev)
+    slots = torch.arange(B, device=dev)[:, None]
+    kd, vd = (c[layer][slots, :, idx].permute(0, 2, 1, 3) for c in (ck, cv))
+    q4 = q.reshape(B, R, Hkv, G, D).transpose(1, 2).reshape(B, Hkv, R * G, D)
+    lim = (limits.long()[:, None]
+           + torch.arange(R, device=dev)).repeat_interleave(G, dim=1)
+    col = torch.from_numpy(start[:, None] + np.arange(n)).to(dev)
+    library_ms = _sdpa_ms(torch, q4, kd, vd, col, lim, window,
+                          col < torch.from_numpy(ext).to(dev)[:, None])
+    del kd, vd
+    nbytes = (2 * int((ext - start).sum()) * Hkv * D * ck.element_size()
+              + 2 * B * R * hq * D * 2 + B * 4)
+    live = np.minimum(limits_np[:, None] + np.arange(R)[None, :], S)
+    ops = 4 * hq * D * int(_live_cols(np, live, window).sum())
     return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
 
 
@@ -521,9 +576,9 @@ def _dense_cases(torch, np):
 
     L, Hkv, D, B, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 32, \
         2048
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
+    dev = gen.device
     cache = {n: torch.randn((L, B, Hkv, S, D), generator=gen, device=dev,
                             dtype=torch.bfloat16) for n in ("k", "v")}
     log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
@@ -585,6 +640,26 @@ def _pool_cases(torch, np, pools, lengths, table, layer, label):
             "write_ragged": wr_rag, "write_dropped": wr_oob, "spec": spec}
 
 
+def _make_pools(torch, gen, shape, quant):
+    """A random pool of ``shape`` [L, P, Hkv, page, D]: bf16, or int8 with
+    float32 scales around amax / 127 of unit rows, on ``gen``'s device."""
+    dev = gen.device
+    if not quant:
+        pools = {n: torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.bfloat16) for n in ("k", "v")}
+    else:
+        pools = {n: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                  dtype=torch.int8) for n in ("k", "v")}
+        for n in ("ks", "vs"):
+            pools[n] = torch.rand(shape[:-1], generator=gen, device=dev) \
+                * 0.02 + 1e-3
+    L, P, Hkv, ps, D = shape
+    gib = 2 * pools["k"].numel() * (1 + 4 / D if quant else 2) / 2**30
+    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] "
+        f"{'int8 + float32 scales' if quant else 'bf16'}, {gib:.2f} GiB")
+    return pools
+
+
 def phase_kernels(torch, np):
     """Main-path shapes: 32 decode rows with ragged lengths up to 2048, and
     the ragged mixed case of those rows plus a 256-row chunk of one slot;
@@ -594,34 +669,101 @@ def phase_kernels(torch, np):
     L, Hkv, D, ps, B, max_pages = cfg.num_layers, cfg.num_kv_heads, \
         cfg.head_dim, 64, 32, 2048 // 64
     P = B * max_pages + 1
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    shape = (L, P, Hkv, ps, D)
     rng = np.random.default_rng(5)
     table = (rng.permutation(B * max_pages) + 1).reshape(B, max_pages)
     lengths = rng.integers(1, 2049, B)
     lengths[:6] = [1, 64, 65, 2048, 2047, 128]
+    out = {}
+    for name in ("bf16", "int8"):
+        pools = _make_pools(torch, gen, (L, P, Hkv, ps, D), name == "int8")
+        out[name] = _pool_cases(torch, np, pools, lengths, table, L - 1, name)
+        del pools
+        torch.cuda.empty_cache()
+    out["dense"] = _dense_cases(torch, np)
+    return out
+
+
+def phase_kernels_window(torch, np):
+    """The window instances at Mistral-7B-v0.1's shapes (Hq 32, Hkv 8,
+    D 128, page 64, window 4096) over pools and a dense cache of 2 layers
+    (the cut: a kernel reads one layer): K1 over 16 decode rows with lengths
+    up to 8192, over those rows beside a 512-row chunk of one slot at rows
+    [7680, 8192) (the ragged entry), and the verify's 16 x SPEC_R rows, for
+    a bf16 and an int8 pool; K1 over 16 rows of length ~8000 at window 0
+    against window 4096 (time ratio); K4 and K7 over a dense cache
+    [2, 16, 8, 8192, 128] bf16."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import \
+        MISTRAL_7B_V01 as cfg
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    L, Hq, Hkv, D, W = 2, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.sliding_window
+    ps, B, S = 64, 16, 8192
+    max_pages = S // ps
+    P = B * max_pages + 1
     layer = L - 1
-    pools = {n: torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.bfloat16) for n in ("k", "v")}
-    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] bf16, "
-        f"{2 * pools['k'].numel() * 2 / 2**30:.2f} GiB")
-    bf16 = _pool_cases(torch, np, pools, lengths, table, layer, "bf16")
-    del pools
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    rng = np.random.default_rng(34)
+    table = (rng.permutation(B * max_pages) + 1).reshape(B, max_pages)
+    lengths = rng.integers(W + 1, S + 1, B)
+    lengths[:8] = [1, 64, W, W + 1, W + 64, W + 65, S, S - 1]
+    long_rows = rng.integers(7900, 8101, B)
+    pslot, pstart, C = 3, S - 512, 512
+    limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
+    limits[pslot] = 0
+    tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
+    spec_len = np.minimum(lengths, S - SPEC_R)
+    spec_len[:4] = [0, W - 2, W + 61, S - SPEC_R]
+    out = {}
+    for name in ("bf16", "int8"):
+        pools = _make_pools(torch, gen, (L, P, Hkv, ps, D), name == "int8")
+        res = {"attention": _attention_case(
+            torch, np, pools, lengths, table, layer,
+            f"window {W}, decode {B} rows", Hq, W)}
+        res["attention_ragged"] = _attention_case(
+            torch, np, pools, limits, tables, layer,
+            f"window {W}, ragged {B}+{C}", Hq, W)
+        res["spec"] = _spec_case(torch, np, pools, spec_len, table, layer,
+                                 f"window {W}, verify {B} x {SPEC_R} rows",
+                                 Hq, W)
+        # the same 16 rows of ~8000 columns at window 0 and at window W
+        scales = (pools["ks"], pools["vs"]) if "ks" in pools else ()
+        fn = pa.paged_attention_quant if scales else pa.paged_attention
+        q = torch.randn((B, Hq, D), generator=gen, device=gen.device,
+                        dtype=torch.bfloat16)
+        lim = torch.from_numpy(long_rows.astype(np.int32)).to(gen.device)
+        tab = torch.from_numpy(table.astype(np.int32)).to(gen.device)
+        ms = {w: timed_ms(torch, lambda w=w: fn(
+            q, pools["k"], pools["v"], *scales, lim, layer, tab, w))
+            for w in (0, W)}
+        lo, hi = pa._live_pages(lim, ps, max_pages, W)
+        log(f"[kernels] {fn.__name__} {B} rows of {int(long_rows.min())}-"
+            f"{int(long_rows.max())} columns: window 0 {ms[0]:.4f} ms "
+            f"({int((hi + 1).sum())} pages), window {W} {ms[W]:.4f} ms "
+            f"({int((hi - lo + 1).sum())} pages); ratio {ms[W] / ms[0]:.3f}")
+        out[name] = res
+        del pools
+        torch.cuda.empty_cache()
+    cache = {n: torch.randn((L, B, Hkv, S, D), generator=gen,
+                            device=gen.device, dtype=torch.bfloat16)
+             for n in ("k", "v")}
+    log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
+        f"bf16, {2 * cache['k'].numel() * 2 / 2**30:.2f} GiB")
+    dense_len = lengths.copy()
+    dense_len[0] = 0
+    out["dense"] = {
+        "attention": _dense_attention_case(
+            torch, np, cache, dense_len, layer, 1,
+            f"window {W}, decode {B} slots", Hq, W),
+        "spec": _dense_attention_case(
+            torch, np, cache, spec_len, layer, SPEC_R,
+            f"window {W}, verify {B} x {SPEC_R} rows", Hq, W)}
+    del cache
     torch.cuda.empty_cache()
-    pools = {n: torch.randint(-127, 128, shape, generator=gen, device=dev,
-                              dtype=torch.int8) for n in ("k", "v")}
-    for n in ("ks", "vs"):
-        pools[n] = torch.rand(shape[:-1], generator=gen, device=dev) \
-            * 0.02 + 1e-3
-    log(f"[kernels] pool [L {L}, P {P}, Hkv {Hkv}, page {ps}, D {D}] int8 "
-        f"+ float32 scales, {2 * pools['k'].numel() * (1 + 4 / D) / 2**30:.2f}"
-        f" GiB")
-    int8 = _pool_cases(torch, np, pools, lengths, table, layer, "int8")
-    del pools
-    torch.cuda.empty_cache()
-    return {"bf16": bf16, "int8": int8, "dense": _dense_cases(torch, np)}
+    return out
 
 
 def _kernel_names(quant: bool):
@@ -709,6 +851,9 @@ def phase_engine(torch, np, kv_dtype):
     if max(launches[k] for k in others) != 0:
         raise AssertionError(f"the {kv_dtype} path launched the other "
                              f"pool's kernels: {launches}")
+    if launches[mine[0] + " window"] != 0:
+        raise AssertionError(f"Qwen3 (no window) launched a window "
+                             f"instance: {launches}")
     if engine.counts["mixed_dispatches"] <= 0:
         raise AssertionError("no chunked prefill went through mixed_step")
     return engine, launches
@@ -740,8 +885,8 @@ def _seeded_twice(engine, rng, Request):
                      if a != b)
         raise AssertionError(f"seeded stream depends on the batch: first "
                              f"difference at token {first}")
-    log(f"[engine int8] seeded request (seed 1, temperature 0.8, top-p 0.9, "
-        f"top-k 20) alone and beside 3 running requests: identical "
+    log(f"[{cfg.name} int8] seeded request (seed 1, temperature 0.8, top-p "
+        f"0.9, top-k 20) alone and beside 3 running requests: identical "
         f"{len(alone.generated)}-token streams, {len(set(alone.generated))} "
         f"distinct tokens")
 
@@ -750,9 +895,6 @@ def phase_profile(torch, np, engine):
     """Where a decode dispatch's time goes: 8 active slots, one horizon-8
     decode dispatch timed by the host clock, and the same dispatch under
     torch.profiler for device time by kernel and the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
     rng = np.random.default_rng(4)
@@ -763,6 +905,21 @@ def phase_profile(torch, np, engine):
     while engine.pending or engine._chunk is not None:
         engine.step()
     engine.step()                                  # warm the horizon path
+    tag = f"[profile {'int8' if 'ks' in engine.cache else 'bf16'}]"
+    wall_ms = _profile_dispatch(torch, engine, tag)
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.step()
+    return wall_ms
+
+
+def _profile_dispatch(torch, engine, tag):
+    """One engine step (a decode dispatch) timed by the host clock, then
+    the next under torch.profiler: device time by kernel and the device's
+    idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.monotonic()
     engine.step()
@@ -781,7 +938,6 @@ def phase_profile(torch, np, engine):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     horizon = engine.serving.decode_horizon
-    tag = f"[profile {'int8' if 'ks' in engine.cache else 'bf16'}]"
     log(f"{tag} decode dispatch, {len(engine._active_slots())} active "
         f"slots, horizon {horizon}: wall {wall_ms:.2f} ms "
         f"({wall_ms / horizon:.2f} ms per substep)")
@@ -797,9 +953,6 @@ def phase_profile(torch, np, engine):
             log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
-    for s in engine._active_slots():
-        engine.cancel(engine.slot_req[s])
-    engine.step()
     return wall_ms
 
 
@@ -845,10 +998,8 @@ def phase_sampling(torch, np):
 
 def phase_logits(torch, np, engine):
     """One decode step's logits through the kernels vs through the plain
-    versions, on the same engine state (pool cloned)."""
-    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
-    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
-        make_decode_attend_carry_paged
+    versions (:func:`_logits_check`) after a few decode dispatches of 4
+    requests."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
     rng = np.random.default_rng(2)
@@ -860,18 +1011,46 @@ def phase_logits(torch, np, engine):
         engine.step()
     for _ in range(3):
         engine.step()                    # a few decode dispatches
+    err = _logits_check(torch, engine, LOGIT_TOL)
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.step()
+    return err
+
+
+def _logits_check(torch, engine, tol):
+    """The next decode step of the engine's active slots through the
+    kernels and through the plain versions: logits within ``tol``; and in
+    the kernels' step, every layer's attention output held against the
+    plain version on the same inputs by the kernels' ulp rule (before the
+    layers amplify the rounding). With a sliding window, the same step
+    through the kernels at window 0 must differ by more than ``tol`` (the
+    window is applied). Every forward runs on the engine's own pool: each
+    writes the step's K/V row at every layer before any row attends it, so
+    none reads another's rows, and the engine's next step rewrites them."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        make_decode_attend_carry_paged
+
     active = engine._active_slots()
     dev = engine.device
+    window = engine.cfg.sliding_window
     tok = torch.from_numpy(engine.last_token.copy()).to(dev)
     lens = torch.from_numpy(engine.lengths.copy()).to(dev)
     table = torch.from_numpy(engine.table.copy()).to(dev)
-    pool_a = {k: v.clone() for k, v in engine.cache.items()}
-    pool_b = engine.cache
-    quant = "ks" in pool_b
+    pool = engine.cache
+    quant = "ks" in pool
+    scales = (pool["ks"], pool["vs"]) if quant else ()
+    rows = torch.tensor(active, device=dev)
+    lengths = [int(engine.lengths[s]) for s in active]
+
+    def plain_ctx(q, layer):
+        return pa.paged_attention_plain(q[:, 0].contiguous(), pool["k"],
+                                        pool["v"], lens + 1, layer, table,
+                                        *scales, window=window)[:, None]
 
     def plain_attend(q, k, v, cache_l):
-        pool, layer = cache_l
-        scales = (pool["ks"], pool["vs"]) if quant else ()
+        _, layer = cache_l
         if quant:
             pa.cache_write_rows_quant_paged_plain(
                 pool["k"], pool["v"], *scales, k[:, 0], v[:, 0], lens, layer,
@@ -879,30 +1058,52 @@ def phase_logits(torch, np, engine):
         else:
             pa.cache_write_rows_paged_plain(pool["k"], pool["v"], k[:, 0],
                                             v[:, 0], lens, layer, table)
-        ctx = pa.paged_attention_plain(q[:, 0].contiguous(), pool["k"],
-                                       pool["v"], lens + 1, layer, table,
-                                       *scales)[:, None]
-        return ctx, (pool, layer)
+        return plain_ctx(q, layer), cache_l
 
-    model = engine.model
-    lk, _ = model.forward_carry(tok[:, None], lens[:, None], pool_a,
-                                make_decode_attend_carry_paged(lens, table))
-    lp, _ = model.forward_carry(tok[:, None], lens[:, None], pool_b,
-                                plain_attend)
+    kernel_attend = make_decode_attend_carry_paged(lens, table, window)
+    worst = {"worst_row_max_ulps": 0.0, "worst_row_mean_ulps": 0.0}
+
+    def checked_attend(q, k, v, cache_l):
+        ctx, cache_l = kernel_attend(q, k, v, cache_l)
+        layer = cache_l[1]
+        check = _ulp_rows(torch, f"{engine.cfg.name} layer {layer} attention",
+                          ctx[rows, 0], plain_ctx(q, layer)[rows, 0],
+                          len(active), lambda bad: f"lengths {lengths}")
+        for key in worst:
+            worst[key] = max(worst[key], check[key])
+        return ctx, cache_l
+
+    def step(attend):
+        logits, _ = engine.model.forward_carry(tok[:, None], lens[:, None],
+                                               pool, attend)
+        return logits[rows, 0].float()
+
+    lk = step(checked_attend)
+    lp = step(plain_attend)
     torch.cuda.synchronize()
-    lk, lp = lk[active, 0].float(), lp[active, 0].float()
-    err = float((lk - lp).abs().max())
+    per_slot = (lk - lp).abs().amax(-1)
+    err = float(per_slot.max())
     scale = float(lp.abs().max())
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    log(f"[logits] {'int8' if quant else 'bf16'} KV, decode step over "
-        f"{len(active)} active slots: max |logit| {scale:.3f}, kernels vs "
-        f"plain max abs {err:.3e} (tol {LOGIT_TOL}), argmax agreement "
-        f"{agree:.2f}")
-    if not (math.isfinite(err) and err <= LOGIT_TOL):
+    msg = ""
+    if window > 0:
+        d0 = float((step(make_decode_attend_carry_paged(lens, table, 0))
+                    - lp).abs().max())
+        msg = (f"; the same step at window 0 differs by {d0:.3e} (must "
+               f"exceed the tol)")
+    log(f"[logits {engine.cfg.name}] {'int8' if quant else 'bf16'} KV, "
+        f"decode step over {len(active)} active slots (lengths {lengths}): "
+        f"every layer's attention vs plain: worst row max "
+        f"{worst['worst_row_max_ulps']:.2f} ulp, mean "
+        f"{worst['worst_row_mean_ulps']:.3f} ulp (tol {ATTN_MAX_ULPS}/"
+        f"{ATTN_MEAN_ULPS}); logits: max |logit| {scale:.3f}, kernels vs "
+        f"plain max abs {err:.3e} (per slot "
+        f"{[round(float(x), 4) for x in per_slot]}; tol {tol}), argmax "
+        f"agreement {agree:.2f}{msg}")
+    if not (math.isfinite(err) and err <= tol):
         raise AssertionError(f"decode logits differ: {err}")
-    for s in active:
-        engine.cancel(engine.slot_req[s])
-    engine.step()
+    if window > 0 and not d0 > tol:
+        raise AssertionError(f"the window changes the logits by only {d0}")
     return err
 
 
@@ -1241,6 +1442,251 @@ def phase_draft(torch, np):
     return out
 
 
+def _tree_bytes(tree) -> int:
+    """Bytes of the tensors of a nested dict."""
+    return sum(_tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def _mistral_engine(torch, serving, draft=False, repeating=False):
+    """Mistral-7B-v0.1 at full width through ``Engine``: seeded random
+    weights drawn layer by layer in bf16 and quantized to int8 before the
+    engine is built, so that the bf16 tree (14.5 GB) is gone before the
+    engine sizes its pool. ``draft``: the same weights serve as the draft
+    model (a self-draft). ``repeating``: the untied head holds the
+    embedding's rows and the embedding is scaled by REPEAT_EMBED_SCALE, so
+    that the current token's embedding dominates what the head reads and
+    the greedy stream repeats its token."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import MISTRAL_7B_V01
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    cfg = MISTRAL_7B_V01
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16)
+    if repeating:
+        emb = params["embed"]["weight"]
+        params["lm_head"] = {"kernel": emb.T.contiguous()}
+        params["embed"] = {"weight": emb * REPEAT_EMBED_SCALE}
+    params = quantize_params(params, cfg)
+    torch.cuda.synchronize()
+    weights_gb = _tree_bytes(params) / 1e9
+    engine = Engine(cfg, params, serving, device="cuda",
+                    draft=(cfg, params) if draft else None)
+    del params
+    torch.cuda.synchronize()
+    pool_gib = _tree_bytes(engine.cache) / 2**30
+    extra = (f", draft cache {_tree_bytes(engine.draft.cache) / 2**30:.2f} "
+             f"GiB" if draft else "")
+    log(f"[{cfg.name}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"MLP {cfg.intermediate_size}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window}; int8 weights {weights_gb:.2f} GB; KV "
+        f"{serving.kv_dtype}, page {serving.page_size}, "
+        f"{serving.max_decode_slots} slots x {serving.max_cache_len}, pool "
+        f"{engine.allocator.num_pages} pages ({pool_gib:.2f} GiB){extra}; "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def _mistral_serving(**kw):
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MISTRAL_7B_V01,
+                                                              ServingConfig)
+
+    return ServingConfig(model=MISTRAL_7B_V01.name, max_decode_slots=16,
+                         max_cache_len=8192, prefill_chunk=512,
+                         derived_seed=0, **kw)
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_mistral(torch, np, kv_dtype):
+    """Mistral-7B-v0.1 at full width (window 4096) on the paged engine with
+    the ``kv_dtype`` pool: 16 slots of 8192 rows, prefill_chunk 512, int8
+    weights; 8 greedy requests with prompts of 30-7,900 tokens (four past
+    the window) and 96 new tokens each, so that every long row's window
+    start crosses a page edge. Once every prompt is in, the next decode
+    step's logits are held against the plain versions and against window 0
+    (:func:`_logits_check`), and one decode dispatch is timed and
+    profiled; those launches are taken out of the run's counts, which are
+    zeroed just before the run and read just after: the pool's attention
+    kernel (its window instance only) and row write > 0, the other pool's
+    0. With int8 KV a seeded sampled request, alone and beside running
+    requests, gives one stream."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    quant = kv_dtype == "int8"
+    engine = _mistral_engine(torch, _mistral_serving(kv_dtype=kv_dtype))
+    cfg = engine.cfg
+    tag = f"[{cfg.name} {kv_dtype}]"
+    rng = np.random.default_rng(51)
+    lens = [30, 300, 1500, 3000, 4500, 6000, 7900, 120]
+    new = 96
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    engine.submit(Request(prompt_ids=prompts[0][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=new,
+                                  ignore_eos=True)) for p in prompts]
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    before = _launches()
+    _logits_check(torch, engine, MISTRAL_LOGIT_TOL)
+    _profile_dispatch(torch, engine, f"[profile {cfg.name} {kv_dtype}]")
+    checks = _delta(_launches(), before)
+    t2 = time.monotonic()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t2 + t1 - t0
+    counts = dict(engine.counts)
+    n_gen = sum(len(r.generated) for r in reqs)
+    if quant:
+        _seeded_twice(engine, rng, Request)
+    launches = _delta(_launches(), checks)
+    log(f"{tag} {len(reqs)} requests, prompts {lens}, {new} new tokens "
+        f"each: {n_gen} tokens in {dt:.2f}s ({n_gen / dt:.1f} tok/s end to "
+        f"end, synchronous dispatch, the checks' time taken out); "
+        f"dispatches {counts}; kernel launches {launches}")
+    for r in reqs:
+        _finish_ok(cfg, r, new)
+    attn, write = _kernel_names(quant)
+    if launches[attn + " window"] <= 0 or launches[write] <= 0:
+        raise AssertionError(f"{tag} a kernel of the path never launched: "
+                             f"{launches}")
+    if launches[attn] != launches[attn + " window"]:
+        raise AssertionError(f"{tag} the window-0 instance launched: "
+                             f"{launches}")
+    if max(launches[k] for k in _kernel_names(not quant)) != 0:
+        raise AssertionError(f"{tag} the other pool's kernels launched: "
+                             f"{launches}")
+    if counts.get("mixed_dispatches", 0) <= 0:
+        raise AssertionError(f"{tag} no chunked prefill through mixed_step")
+    return engine, launches
+
+
+def phase_mistral_spec(torch, np):
+    """Prompt-lookup speculation with Mistral-7B-v0.1 at full width, bf16
+    pool: 3 prompts that repeat a random 16-token pattern 270 times (4,320
+    tokens, past the window) and one of 8 repeats, 48 new tokens each. The
+    weights repeat their current token (``_mistral_engine(repeating=True)``)
+    so that the proposer finds n-grams. Launch counts
+    zeroed just before the run and read just after: verify dispatches,
+    drafts and the verify kernel's window instance > 0."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    engine = _mistral_engine(torch, _mistral_serving(spec_decode=True),
+                             repeating=True)
+    cfg = engine.cfg
+    tag = f"[{cfg.name} spec]"
+    rng = np.random.default_rng(61)
+    prompts = (_pattern_prompts(rng, cfg.vocab_size, 3, reps=270)
+               + _pattern_prompts(rng, cfg.vocab_size, 1))
+    engine.submit(Request(prompt_ids=prompts[3][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=48,
+                                  ignore_eos=True)) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _launches()
+    counts = dict(engine.counts)
+    for r in reqs:
+        _finish_ok(cfg, r, 48)
+    drafted = counts.get("spec_drafted_tokens", 0)
+    accepted = counts.get("spec_accepted_tokens", 0)
+    log(f"{tag} 4 greedy requests (prompts {[len(p) for p in prompts]}): "
+        f"{48 * len(reqs) / dt:.1f} tok/s end to end with the prefill; "
+        f"dispatches {counts}; acceptance {accepted}/{drafted} = "
+        f"{accepted / max(drafted, 1):.3f}; kernel launches {launches}")
+    if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
+        raise AssertionError(f"{tag} no verify dispatch or no draft: {counts}")
+    spec = "paged_attention_spec"
+    if launches[spec + " window"] <= 0 or \
+            launches[spec] != launches[spec + " window"]:
+        raise AssertionError(f"{tag} the verify's window instance: "
+                             f"{launches}")
+    del engine
+    return launches
+
+
+def phase_mistral_draft(torch, np):
+    """A self-draft of Mistral-7B-v0.1 at full width (the target's int8
+    weights, its own dense bf16 cache of 16 slots x 8192 rows, 17.2 GB)
+    beside the bf16 pool: 6 requests, then 2 prompts of 600 tokens walked
+    in chunks so that mixed dispatches put the drafts behind and they catch
+    up. Launch counts zeroed just before the run and read just after: the
+    window instances of K4 (rollout) and K7 (catch-up), and K8, > 0;
+    accepted drafts > 0."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    engine = _mistral_engine(torch, _mistral_serving(
+        spec_decode=True, spec_method="draft"), draft=True)
+    cfg = engine.cfg
+    tag = f"[{cfg.name} draft]"
+    rng = np.random.default_rng(71)
+    wave1 = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in (40, 90, 130, 64, 200, 17)]
+    wave2 = [rng.integers(0, cfg.vocab_size, 600).tolist() for _ in range(2)]
+    engine.submit(Request(prompt_ids=wave1[0][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    first = [engine.submit(Request(prompt_ids=p, max_tokens=48,
+                                   ignore_eos=True)) for p in wave1]
+    while engine.pending:
+        engine.step()
+    engine.step()
+    second = [engine.submit(Request(prompt_ids=p, max_tokens=24,
+                                    ignore_eos=True)) for p in wave2]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _launches()
+    counts = dict(engine.counts)
+    for r in first:
+        _finish_ok(cfg, r, 48)
+    for r in second:
+        _finish_ok(cfg, r, 24)
+    drafted = counts.get("spec_drafted_tokens", 0)
+    accepted = counts.get("spec_accepted_tokens", 0)
+    n_gen = 48 * len(first) + 24 * len(second)
+    log(f"{tag} {len(first)} + {len(second)} requests: {n_gen} tokens in "
+        f"{dt:.2f}s ({n_gen / dt:.1f} tok/s); dispatches {counts}; "
+        f"acceptance {accepted}/{drafted} = {accepted / max(drafted, 1):.3f};"
+        f" kernel launches {launches}")
+    if min(launches[k] for k in ("decode_attend_dense window",
+                                 "spec_attend_dense window",
+                                 "cache_write_rows_dense")) <= 0:
+        raise AssertionError(f"{tag} a dense kernel's window instance never "
+                             f"launched: {launches}")
+    if accepted <= 0:
+        raise AssertionError(f"{tag} no draft token accepted: {counts}")
+    del engine
+    return launches
+
+
 def phase_server(engine):
     """The HTTP server over ``engine``. Its tokenizer encodes bytes and
     decodes token ids as their decimal numbers, so that the random-weight
@@ -1307,6 +1753,20 @@ def phase_server(engine):
         th.join(10)
 
 
+def _phase(name, fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    log(f"[wall] {name}: {time.monotonic() - t0:.1f}s")
+    return out
+
+
+def _free(torch):
+    """Return the device memory of the phase just ended."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1328,46 +1788,77 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.monotonic()
-    phase_build()
-    kern = phase_kernels(torch, np)
-    phase_sampling(torch, np)
+    _phase("build", phase_build)
+    kern = _phase("kernels", phase_kernels, torch, np)
+    wkern = _phase("kernels, window", phase_kernels_window, torch, np)
+    _phase("sampling", phase_sampling, torch, np)
     runs = {}
     for kv_dtype in ("auto", "int8"):
+        t0 = time.monotonic()
         engine, launches = phase_engine(torch, np, kv_dtype)
         phase_profile(torch, np, engine)
         phase_logits(torch, np, engine)
         phase_server(engine)
         runs[kv_dtype] = launches
         del engine
-        torch.cuda.empty_cache()
+        _free(torch)
+        log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
     for kv_dtype in ("auto", "int8"):
+        t0 = time.monotonic()
         engine, launches, _ = phase_spec(torch, np, kv_dtype)
         phase_verify(torch, np, engine)
         runs["spec " + kv_dtype] = launches
         del engine
-        torch.cuda.empty_cache()
-    runs["draft"] = phase_draft(torch, np)["self"]["launches"]
+        _free(torch)
+        log(f"[wall] spec {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    runs["draft"] = _phase("draft", phase_draft, torch, np)["self"][
+        "launches"]
+    for kv_dtype in ("auto", "int8"):
+        t0 = time.monotonic()
+        engine, runs["mistral " + kv_dtype] = phase_mistral(torch, np,
+                                                            kv_dtype)
+        phase_server(engine)
+        del engine
+        _free(torch)
+        log(f"[wall] mistral {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    runs["mistral spec"] = _phase("mistral spec", phase_mistral_spec, torch,
+                                  np)
+    _free(torch)
+    runs["mistral draft"] = _phase("mistral draft", phase_mistral_draft,
+                                   torch, np)
+    _free(torch)
     keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = []
-    for name, src, line, pool, case, run in (
-            ("paged_attention", ATTN_SRC, 1080, "bf16", "attention", "auto"),
-            ("paged_attention_quant", ATTN_SRC, 1014, "int8", "attention",
-             "int8"),
-            ("cache_write_rows_paged", WRITE_SRC, 1243, "bf16", "write",
+    for name, src, line, res, run in (
+            ("paged_attention", ATTN_SRC, 1080, kern["bf16"]["attention"],
              "auto"),
-            ("cache_write_rows_quant_paged", WRITE_SRC, 1313, "int8", "write",
-             "int8"),
-            ("paged_attention_spec", ATTN_SRC, 1169, "bf16", "spec",
+            ("paged_attention_quant", ATTN_SRC, 1014,
+             kern["int8"]["attention"], "int8"),
+            ("cache_write_rows_paged", WRITE_SRC, 1243, kern["bf16"]["write"],
+             "auto"),
+            ("cache_write_rows_quant_paged", WRITE_SRC, 1313,
+             kern["int8"]["write"], "int8"),
+            ("paged_attention_spec", ATTN_SRC, 1169, kern["bf16"]["spec"],
              "spec auto"),
-            ("paged_attention_spec_quant", ATTN_SRC, 1169, "int8", "spec",
-             "spec int8"),
-            ("decode_attend_dense", DENSE_SRC, 516, "dense", "attention",
+            ("paged_attention_spec_quant", ATTN_SRC, 1169,
+             kern["int8"]["spec"], "spec int8"),
+            ("decode_attend_dense", DENSE_SRC, 516,
+             kern["dense"]["attention"], "draft"),
+            ("spec_attend_dense", DENSE_SRC, 675, kern["dense"]["spec"],
              "draft"),
-            ("spec_attend_dense", DENSE_SRC, 675, "dense", "spec", "draft"),
-            ("cache_write_rows_dense", WRITE_SRC, 744, "dense", "write",
-             "draft")):
-        res = kern[pool][case]
+            ("cache_write_rows_dense", WRITE_SRC, 744, kern["dense"]["write"],
+             "draft"),
+            ("paged_attention window", ATTN_SRC, 1080,
+             wkern["bf16"]["attention"], "mistral auto"),
+            ("paged_attention_quant window", ATTN_SRC, 1014,
+             wkern["int8"]["attention"], "mistral int8"),
+            ("paged_attention_spec window", ATTN_SRC, 1169,
+             wkern["bf16"]["spec"], "mistral spec"),
+            ("decode_attend_dense window", DENSE_SRC, 516,
+             wkern["dense"]["attention"], "mistral draft"),
+            ("spec_attend_dense window", DENSE_SRC, 675,
+             wkern["dense"]["spec"], "mistral draft")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{TPU_KERNELS}:{line}",
                         "launches": runs[run][name],

@@ -300,3 +300,181 @@ def test_spec_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    torch.zeros((2, 1, 2, 16), device=dev),
                                    torch.zeros((2, 1, 2, 16), device=dev),
                                    lens, 0)
+
+
+# -- the window instances (window > 0) ----------------------------------------
+
+
+def _window_case(rng, hkv, ps, d, dev, dtype, quant, n_slots, maxp):
+    """A pool (float, or int8 with scales) of n_slots * maxp pages plus a
+    spare page for the poison cases, and a shuffled table."""
+    P = n_slots * maxp + 2
+    table = (rng.permutation(n_slots * maxp) + 1).reshape(
+        n_slots, maxp).astype(np.int32)
+    if quant:
+        return _int8_pools(rng, 2, P, hkv, ps, d, dev), table
+    return [torch.from_numpy(rng.standard_normal((2, P, hkv, ps, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2)], table
+
+
+def _lo_hi(limits, ps, maxp, window):
+    lo, hi = tpa._live_pages(torch.from_numpy(limits), ps, maxp, window)
+    return lo.numpy(), hi.numpy()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,ps,d,window", [(4, 2, 8, 16, 12),
+                                                (32, 8, 64, 128, 200)])
+def test_paged_attention_window_matches_plain(dev, dtype, tol, quant, hq,
+                                              hkv, ps, d, window):
+    """K1's window instance, decode and ragged rows: limit 0, rows below,
+    at and past the window, window starts mid-page; OOB_PAGE entries past
+    each row's last page and below its first."""
+    maxp = 6
+    rng = np.random.default_rng(95)
+    pools, table = _window_case(rng, hkv, ps, d, dev, dtype, quant, 8, maxp)
+    limits = np.array([0, 1, window, window + 1, window + 2 * ps + 3,
+                       maxp * ps - 5, maxp * ps, 2 * ps], np.int32)
+    lo, hi = _lo_hi(limits, ps, maxp, window)
+    for n in range(len(limits)):
+        table[n, :lo[n]] = OOB_PAGE
+        table[n, hi[n] + 1:] = OOB_PAGE
+    q = torch.from_numpy(rng.standard_normal((8, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lim = torch.from_numpy(limits).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    fn = tpa.paged_attention_quant if quant else tpa.paged_attention
+    before = tpa.launch_counts()
+    out = fn(q, *pools, lim, 1, tab, window=window)
+    after = tpa.launch_counts()
+    assert after[fn.__name__ + " window"] == \
+        before[fn.__name__ + " window"] + 1
+    pk, pv, *scales = pools
+    ref = tpa.paged_attention_plain(q, pk, pv, lim, 1, tab, *scales,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    full = tpa.paged_attention_plain(q, pk, pv, lim, 1, tab, *scales)
+    assert (full.float() - ref.float()).abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,ps,d,window", [(4, 2, 8, 16, 12),
+                                                (32, 8, 64, 128, 200)])
+def test_paged_attention_spec_window_matches_plain(dev, dtype, tol, quant,
+                                                   hq, hkv, ps, d, window):
+    """K1-spec's window instance: R = 5 rows per slot, each from its own
+    window start; lengths whose rows move the start across a page edge."""
+    maxp, R = 6, 5
+    rng = np.random.default_rng(96)
+    pools, table = _window_case(rng, hkv, ps, d, dev, dtype, quant, 6, maxp)
+    lengths = np.array([0, window - 3, window + ps - 2, 3 * ps + 1,
+                        maxp * ps - R - 7, maxp * ps - R], np.int32)
+    q = torch.from_numpy(rng.standard_normal((6, R, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lens = torch.from_numpy(lengths).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    fn = tpa.paged_attention_spec_quant if quant else tpa.paged_attention_spec
+    before = tpa.launch_counts()
+    out = fn(q, *pools, lens, 1, tab, window=window)
+    after = tpa.launch_counts()
+    assert after[fn.__name__ + " window"] == \
+        before[fn.__name__ + " window"] + 1
+    pk, pv, *scales = pools
+    ref = tpa.paged_attention_spec_plain(q, pk, pv, lens, 1, tab, *scales,
+                                         window=window)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("entry", ["decode", "spec"])
+def test_paged_attention_window_reads_no_page_below_its_start(dev, quant,
+                                                              entry):
+    """Table entries below each row's window start point at a page of NaN
+    (int8: NaN scales). Had the kernel read it, 0 * NaN would reach P.V:
+    the output must be finite and bit-identical to the clean table's."""
+    hq, hkv, ps, d, window, maxp, R = 32, 8, 64, 128, 200, 6, 5
+    rng = np.random.default_rng(97)
+    pools, table = _window_case(rng, hkv, ps, d, dev, torch.bfloat16, quant,
+                                6, maxp)
+    nan = pools[0].shape[1] - 1                    # the spare page
+    for t in (pools[2:] if quant else pools):
+        t[:, nan] = float("nan")
+    rows = 1 if entry == "decode" else R
+    lengths = np.array([window + ps, 2 * ps + window - 1, 4 * ps + 9,
+                        maxp * ps - R, window + 3 * ps, 5 * ps], np.int32)
+    # slot b's first page: its (row 0's) window start's
+    lo, _ = _lo_hi(lengths + (rows > 1), ps, maxp, window)
+    assert lo.min() >= 1
+    bad = table.copy()
+    for n in range(len(lengths)):
+        bad[n, :lo[n]] = nan
+    q = torch.from_numpy(rng.standard_normal((6, rows, hq, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    lens = torch.from_numpy(lengths).to(dev)
+
+    def run(tab):
+        tab = torch.from_numpy(tab).to(dev)
+        if entry == "decode":
+            return tpa.decode_attend_paged(q, pools[0], pools[1], lens, 1,
+                                           tab, *pools[2:], window=window)
+        return tpa.decode_attend_spec_paged(q, pools[0], pools[1], lens, 1,
+                                            tab, *pools[2:], window=window)
+
+    clean, dirty = run(table), run(bad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty.float()).all()
+    assert torch.equal(clean, dirty)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,d,window", [(4, 2, 16, 24),
+                                             (32, 8, 128, 100)])
+def test_dense_attention_window_matches_plain(dev, dtype, tol, hq, hkv, d,
+                                              window):
+    """K4 and K7's window instance over 64-row tiles: lengths 0 (zeros),
+    below, at and past the window, window starts inside a tile; then rows
+    below each row's window start's tile set to NaN must change nothing."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R = 6, 320, 5
+    rng = np.random.default_rng(98)
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (2, B, hkv, S, d)).astype(np.float32)).to(dev, dtype)
+        for _ in range(2))
+    for entry, lengths, rows in (
+            (tda.decode_attend_dense, [0, 1, window, window + 70, S, 250],
+             1),
+            (tda.spec_attend_dense, [0, window - 2, 130, 200, S - R, 191],
+             R)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.standard_normal((B, rows, hq, d)).astype(
+            np.float32)).to(dev, dtype)
+        before = tda.launch_counts()
+        out = entry(q, ck, cv, lens, 1, window)
+        after = tda.launch_counts()
+        assert after[entry.__name__ + " window"] == \
+            before[entry.__name__ + " window"] + 1
+        limits = lens if rows == 1 else lens + 1
+        ref = tda.dense_attention_plain(q, ck, cv, limits, 1, window)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        if rows == 1:
+            assert not out[0].any()                  # length 0: zeros
+        # the rows below each slot's first tile (row 0's window start's)
+        pk, pv = ck.clone(), cv.clone()
+        for b, ln in enumerate(lengths):
+            start = max(ln + (rows > 1) - window, 0) // 64 * 64
+            pk[1, b, :, :start] = float("nan")
+            pv[1, b, :, :start] = float("nan")
+        dirty = entry(q, pk, pv, lens, 1, window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(dirty.float()).all()
+        assert torch.equal(out, dirty)
