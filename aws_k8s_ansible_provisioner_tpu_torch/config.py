@@ -185,6 +185,11 @@ class ServingConfig:
     # Paged KV pool geometry: rows per page, and physical pages (0 =
     # max_decode_slots * ceil(max_cache_len / page_size)).
     page_size: int = 64
+    # True: a shared page pool with per-slot block tables, admission gated
+    # on free pages. False: the dense slot-contiguous cache
+    # [L, slots, Hkv, window, D], every slot reserving its whole window,
+    # admission gated on free slots (the JAX engine's layout under sp).
+    paged: bool = True
     kv_pool_pages: int = 0
     # Up to this many fresh prompts share one prefill dispatch.
     max_prefill_batch: int = 4
@@ -206,6 +211,12 @@ class ServingConfig:
     # "int8" = weights-only per-out-channel int8 (the default); "bf16"/"auto"
     # keep the weights as loaded.
     weights_dtype: str = "int8"
+    # Slots per CTA of the dense cache's decode kernel (K5 when > 1): a
+    # positive value is fitted down to the largest divisor of
+    # max_decode_slots; 0 means 1. The paged engine's kernel (K1) takes no
+    # block: its result does not depend on one, and the JAX package
+    # autotunes it only on a TPU.
+    decode_bblock: int = 0
     # Speculative decoding: propose spec_k tokens per greedy slot and verify
     # them with the target model in one dispatch of spec_k + 1 rows. Greedy
     # streams stay those of plain decode; a sampled slot accepts nothing.

@@ -14,18 +14,24 @@ rows into the cache in place and attends. Over the paged pool:
   attention over the prompt window plus the paged scatter (no kernel, as in
   the JAX package).
 
-Over the dense slot cache of the draft model (``kv_cache.init_cache``):
-:func:`make_decode_attend_carry`, :func:`make_spec_attend_carry` and
-:func:`make_prefill_attend_batch`, the same three programs' callbacks.
+Over the dense slot cache (``kv_cache.init_cache``; the dense engine's,
+``paged=False``, and the draft model's): :func:`make_decode_attend_carry`
+(sp 1; ``bblock`` slots per CTA), :func:`make_spec_attend_carry` and
+:func:`make_prefill_attend_batch`, the same three programs' callbacks, and
+:func:`make_chunk_prefill_attend` (``prefill_chunk_step``: one chunk of a
+long prompt, written, then attended by the plain :func:`chunk_attend` over
+the slot's rows, dequantized from an int8 cache; no kernel, as in the JAX
+package).
 
 The decode, verify and mixed callbacks go through the kernels of
 ``ops/paged_attention.py``: the row write and the attention over a bf16/f32
 pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
 the quantizing row write and the scale-folding attention. The dense ones go
-through ``ops/dense_attention.py``. As in the JAX reference, all row writes
-land before any row attends, so a chunk row sees exactly its prefix, a
-verify row exactly the rows before it and a decode row exactly its own
-slot. The prefill callbacks attend over the fresh, unquantized K/V and
+through ``ops/dense_attention.py`` the same way (K8 or K9, then K4/K5 or
+K7, bf16/f32 or int8). As in the JAX reference, all row writes land before
+any row attends, so a chunk row sees exactly its prefix, a verify row
+exactly the rows before it and a decode row exactly its own slot. The
+batched prefill callbacks attend over the fresh, unquantized K/V and
 scatter (quantized) rows into the cache. Every callback takes ``window``
 (the model's ``sliding_window``; 0 for none) and hands it to the kernels
 and to ``causal_attend``.
@@ -40,7 +46,8 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import causal_attend
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import (
-    cache_write_rows_dense, decode_attend_dense, spec_attend_dense)
+    cache_write_rows_dense, cache_write_rows_quant_dense, decode_attend_dense,
+    spec_attend_dense)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
     cache_write_rows_paged, cache_write_rows_quant_paged, decode_attend_paged,
     decode_attend_spec_paged, ragged_attend_paged)
@@ -173,18 +180,35 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
     return attend
 
 
-def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0):
-    """Decode over the dense cache: slot b writes its new K/V row at row
-    ``lengths[b]`` (rows outside the window drop) and attends over
-    ``lengths[b] + 1`` rows. lengths: [B] int32."""
+def _write_dense(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 rows: torch.Tensor, layer: int) -> dict:
+    """The layer's new K/V rows [B, R, Hkv, D] at ``rows`` [B, R] into the
+    dense cache through its row-write kernel (K9, quantizing, when the cache
+    is int8; else K8); returns the scale caches as the attention kernels
+    take them (none for a bf16/f32 cache)."""
+    if kvc.is_quantized(cache):
+        cache_write_rows_quant_dense(cache["k"], cache["v"], cache["ks"],
+                                     cache["vs"], k_new, v_new, rows, layer)
+        return {"cache_ks": cache["ks"], "cache_vs": cache["vs"]}
+    cache_write_rows_dense(cache["k"], cache["v"], k_new, v_new, rows, layer)
+    return {}
+
+
+def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
+                             bblock: int = 1):
+    """Decode over the dense cache (sp 1): slot b writes its new K/V row at
+    row ``lengths[b]`` (rows outside the window drop; quantized into an int8
+    cache) and attends over ``lengths[b] + 1`` rows, ``bblock`` slots per
+    CTA of the attention kernel (K5 when > 1; the result does not depend on
+    it). lengths: [B] int32."""
     rows = lengths[:, None].to(torch.int32)
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
         cache, layer = cache_l
-        cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
-                               v.contiguous(), rows, layer)
+        scales = _write_dense(cache, k.contiguous(), v.contiguous(), rows,
+                              layer)
         ctx = decode_attend_dense(q, cache["k"], cache["v"], lengths + 1,
-                                  layer, window)
+                                  layer, window, **scales, bblock=bblock)
         return ctx, (cache, layer)
 
     return attend
@@ -192,19 +216,19 @@ def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0):
 
 def make_spec_attend_carry(lengths: torch.Tensor, window: int = 0):
     """Speculative rows over the dense cache: slot b's R new K/V rows land
-    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch),
-    then one attention launch answers the B * R queries. lengths: [B]
-    int32."""
+    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch,
+    quantizing into an int8 cache), then one attention launch answers the
+    B * R queries. lengths: [B] int32."""
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
         cache, layer = cache_l
         R = k.shape[1]
         r = torch.arange(R, dtype=torch.int32, device=lengths.device)
         rows = (lengths.to(torch.int32)[:, None] + r).contiguous()
-        cache_write_rows_dense(cache["k"], cache["v"], k.contiguous(),
-                               v.contiguous(), rows, layer)
+        scales = _write_dense(cache, k.contiguous(), v.contiguous(), rows,
+                              layer)
         ctx = spec_attend_dense(q, cache["k"], cache["v"], lengths, layer,
-                                window)
+                                window, **scales)
         return ctx, (cache, layer)
 
     return attend
@@ -213,13 +237,61 @@ def make_spec_attend_carry(lengths: torch.Tensor, window: int = 0):
 def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor,
                               window: int = 0):
     """Batched prefill into the dense cache: causal attention over each
-    right-padded prompt's fresh K/V, then its rows [0, T) scatter into slot
-    ``slots[n]`` (slots outside the cache drop)."""
+    right-padded prompt's fresh, unquantized K/V, then its rows [0, T)
+    scatter into slot ``slots[n]`` (quantized into an int8 cache; slots
+    outside the cache drop)."""
 
     def attend(q, k, v, cache_l):
         cache, layer = cache_l
         ctx = causal_attend(q, k, v, seq_lens=seq_lens, window=window)
         cache = kvc.write_prompts(cache, layer, slots, k, v)
         return ctx, (cache, layer)
+
+    return attend
+
+
+def chunk_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 start: int, window: int = 0) -> torch.Tensor:
+    """Attention of one prefill chunk over its slot's rows (the JAX
+    package's ``chunk_attend``, float32 softmax): q [1, C, Hq, D] at
+    positions start .. start + C - 1; ck/cv [Hkv, S, D] hold the earlier
+    chunks' rows and this chunk's (written before it attends). Query row i
+    sees the columns <= start + i, of which the last ``window`` when it is
+    > 0. Only the columns below start + C are read: the others are masked
+    for every row and add exactly 0."""
+    _, C, Hq, D = q.shape
+    Hkv = ck.shape[0]
+    n = min(start + C, ck.shape[1])
+    qg = q[0].reshape(C, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("ckgd,ksd->ckgs", qg, ck[:, :n].float()) \
+        / math.sqrt(D)
+    cols = torch.arange(n, device=q.device)[None, :]
+    rows = start + torch.arange(C, device=q.device)[:, None]
+    mask = cols <= rows                                           # [C, n]
+    if window > 0:
+        mask &= cols > rows - window
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("ckgs,ksd->ckgd", probs, cv[:, :n].float())
+    return ctx.reshape(C, Hq, D)[None].to(q.dtype)
+
+
+def make_chunk_prefill_attend(slot: int, start: int, window: int = 0):
+    """One prefill chunk of a long prompt into slot ``slot`` of the dense
+    cache at rows [start, start + C): the chunk's K/V rows are written
+    first (quantized into an int8 cache; rows past the window drop), then
+    the chunk attends the slot's rows, those of an int8 cache dequantized
+    to q's type, so that the chunk sees its own rows as the decode steps
+    will (the JAX package's ``make_chunk_prefill_attend``)."""
+
+    def attend(q, k, v, cache_l):
+        cache, layer = cache_l
+        kvc.write_chunk(cache, layer, slot, start, k, v)
+        ck, cv = cache["k"][layer, slot], cache["v"][layer, slot]
+        if kvc.is_quantized(cache):
+            ck = kvc.dequantize(ck, cache["ks"][layer, slot], q.dtype)
+            cv = kvc.dequantize(cv, cache["vs"][layer, slot], q.dtype)
+        return chunk_attend(q, ck, cv, start, window), (cache, layer)
 
     return attend

@@ -1,42 +1,61 @@
 """The kernels of the dense slot cache, their wrappers and plain versions.
 
 The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
-``[L, B, Hkv, S, D]``, slot b's rows contiguous) is the draft model's in
-speculative decoding. Its kernels:
+``[L, B, Hkv, S, D]``, slot b's rows contiguous; int8 with ``{"ks", "vs"}``
+``[L, B, Hkv, S]`` float32 scales) is the dense engine's
+(``ServingConfig.paged=False``) and the draft model's. Its kernels:
 
-- :func:`decode_attend_dense` (K4, ``csrc/dense_attention.cu`` with R = 1)
-  replaces ``decode_attend_pallas_layer`` (bblock 1, body
-  ``_decode_kernel_layer``): flash decode over one layer, slot b attending
-  its rows [0, lengths[b]);
-- :func:`spec_attend_dense` (K7, the same kernel with R > 1) replaces
-  ``decode_attend_pallas_spec`` (``_spec_kernel_plain``): R query rows per
-  slot, row r attending the rows [0, lengths[b] + 1 + r); the kernel takes
-  them as B * R packed rows, row n of slot n // R;
-- with ``window`` > 0 (both entries, the kernel's window instance) a row
+- :func:`decode_attend_dense` (``csrc/dense_attention.cu`` with R = 1)
+  replaces ``decode_attend_pallas_layer``: K4 at bblock 1 (bodies
+  ``_decode_kernel_layer`` and, with ``cache_ks``/``cache_vs``,
+  ``_decode_kernel_layer_q``), flash decode over one layer, slot b
+  attending its rows [0, lengths[b]); and K5 with ``bblock`` > 1 (bodies
+  ``_decode_kernel_layer_bb`` and ``_decode_kernel_layer_q_bb``), the same
+  function with ``bblock`` slots per CTA walking their block's union tile
+  range. A row with no live column returns zeros at every block size, where
+  the TPU's batch-blocked body returns a mean of V (ROADMAP C11);
+- :func:`spec_attend_dense` (the same kernel with R > 1) replaces
+  ``decode_attend_pallas_spec`` (``_spec_kernel_plain``, int8
+  ``_spec_kernel_quant``): R query rows per slot, row r attending the rows
+  [0, lengths[b] + 1 + r); the kernel takes them as B * R packed rows, row
+  n of slot n // R;
+- with ``window`` > 0 (both entries, the kernel's window instances) a row
   attends only the last ``window`` of those rows and reads no 64-row tile
-  below its window start's;
+  below its window start's (the batch-blocked form: below its block's
+  lowest window start's);
+- over an int8 cache the kernels fold the scales into the loop as the TPU
+  bodies do: the scores times the K scale, the denominator over the
+  unscaled probabilities, the probabilities times the V scale in P.V;
 - :func:`cache_write_rows_dense` (K8, third entry of ``csrc/cache_write.cu``)
   replaces ``cache_write_row``: R new K and V rows per slot written in
-  place, rows outside [0, S) dropped.
+  place, rows outside [0, S) dropped; :func:`cache_write_rows_quant_dense`
+  (K9, fourth entry) replaces ``cache_write_row_quant``: the rows quantized
+  (``kv_cache.quantize_rows``, bit for bit) into the int8 cache and their
+  scales into the scale caches.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
 raises; nothing falls back. Each keeps a plain integer count of its kernel
-launches in ``<wrapper>.launches``. The int8 bodies of the TPU kernels
-(``_decode_kernel_layer_q``, ``_spec_kernel_quant``, ``cache_write_row_quant``)
-are not ported: the draft's cache is never quantized.
+launches: ``<wrapper>.launches`` for the bf16/f32 one-slot instance (and
+``window_launches`` for its window instance), and ``form_launches[form]``
+for the int8 (``"quant"``), batch-blocked (``"bblock"``) and int8
+batch-blocked (``"quant bblock"``) instances, each with its own
+``form + " window"``; :func:`launch_counts` lists them all by the names
+:func:`instance_name` gives.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
-    _DTYPE_CODES, _MAX_GROUPS, _check_cuda, _count)
+    _DTYPE_CODES, _INT8_POOL, _MAX_GROUPS, _MAX_QUANT_D, NEG_INF, _check_cuda)
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     write_token_layer
 
@@ -44,41 +63,89 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def fit_bblock(requested: int, num_slots: int) -> int:
+    """The block size a request of ``requested`` slots per CTA resolves to
+    over ``num_slots`` slots: the largest divisor of ``num_slots`` not
+    above it (0 or less: 1), as the TPU kernel and the JAX engine fit it."""
+    bb = max(1, min(int(requested), num_slots))
+    while num_slots % bb:
+        bb -= 1
+    return bb
+
+
 def dense_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
                           cache_v: torch.Tensor, limits: torch.Tensor,
-                          layer: int, window: int = 0) -> torch.Tensor:
-    """Plain version of the dense kernel (both entries): q [B, R, Hq, D];
-    cache [L, B, Hkv, S, D]; limits [B]. Row r of slot b attends the
-    columns < limits[b] + r, of which the last ``window`` when it is > 0
-    (``ops/attention.decode_attend_multi``, float32 softmax). A row with no
-    column to visit (limits[b] + r <= 0: a decode row of length 0) returns
-    zeros, as the kernel's 0 / max(0, 1e-9) and the TPU kernel's."""
+                          layer: int, window: int = 0,
+                          cache_ks: Optional[torch.Tensor] = None,
+                          cache_vs: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of the dense kernel (every entry and instance): q
+    [B, R, Hq, D]; cache [L, B, Hkv, S, D]; limits [B]. Row r of slot b
+    attends the columns < limits[b] + r, of which the last ``window`` when
+    it is > 0, float32 softmax (``ops/attention.decode_attend_multi``).
+    With scale caches ``cache_ks``/``cache_vs`` [L, B, Hkv, S] the cache is
+    int8 and the scales fold in as the kernel folds them (the Pallas
+    contract, not the JAX XLA fallback's dequantized copy in q's type).
+    A row with no column to visit (limits[b] + r <= 0: a decode row of
+    length 0) returns zeros, as the kernel's 0 / max(0, 1e-9) and the TPU
+    kernel's one-slot body."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
         decode_attend_multi
 
     R = q.shape[1]
     lim = limits.long()
-    out = decode_attend_multi(q, cache_k[layer], cache_v[layer], lim - 1,
-                              window)
+    if cache_ks is None:
+        out = decode_attend_multi(q, cache_k[layer], cache_v[layer], lim - 1,
+                                  window)
+    else:
+        out = _quant_attention_plain(q, cache_k[layer], cache_v[layer],
+                                     cache_ks[layer], cache_vs[layer], lim,
+                                     window)
     empty = lim[:, None] + torch.arange(R, device=q.device) <= 0
     return torch.where(empty[:, :, None, None], torch.zeros_like(out), out)
+
+
+def _quant_attention_plain(q, k, v, ks, vs, limits, window):
+    """Scale-folding attention over one layer of an int8 dense cache: k/v
+    [B, Hkv, S, D] int8, ks/vs [B, Hkv, S]; row r of slot b has the limit
+    limits[b] + r. s = (q / sqrt(D)) . k * ks, masked to -1e30; l sums the
+    unscaled probabilities; P.V takes them times vs."""
+    B, R, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q.reshape(B, R, Hkv, Hq // Hkv, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("brkgd,bksd->brkgs", qg, k.float()) \
+        * ks[:, None, :, None, :]
+    lim = limits[:, None] + torch.arange(R, device=q.device)     # [B, R]
+    col = torch.arange(S, device=q.device)[None, None, :]
+    live = col < lim[:, :, None]                                 # [B, R, S]
+    if window > 0:
+        live &= col >= lim[:, :, None] - window
+    s = torch.where(live[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l_sum = p.sum(dim=-1, keepdim=True)
+    p = p * vs[:, None, :, None, :]
+    out = torch.einsum("brkgs,bksd->brkgd", p, v.float()) \
+        / l_sum.clamp_min(1e-9)
+    return out.reshape(B, R, Hq, D).to(q.dtype)
 
 
 def _attention_lib():
     lib = cuda_build.load("dense_attention")
     fn = lib.dense_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, ctypes.c_float, _I, _I, _I, _P]
         fn.restype = _I
     return fn
 
 
-def _launch_attention(what: str, q, cache_k, cache_v, limits, layer: int,
-                      window: int) -> torch.Tensor:
-    """Check the operands of the dense attention kernel and launch it (the
-    window instance when ``window`` > 0). q: [B, R, Hq, D]; returns
-    [B, R, Hq, D]."""
+def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
+                      limits, layer: int, window: int, bblock: int
+                      ) -> torch.Tensor:
+    """Check the operands of the dense attention kernel and launch it
+    (int8 when ``cache_ks`` is given; the window instance when ``window``
+    > 0; the batch-blocked form when ``bblock`` > 1). q: [B, R, Hq, D];
+    returns [B, R, Hq, D]."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if window < 0:
@@ -86,21 +153,36 @@ def _launch_attention(what: str, q, cache_k, cache_v, limits, layer: int,
     B, R, Hq, D = q.shape
     L, Bc, Hkv, S, Dk = cache_k.shape
     G = Hq // Hkv if Hkv else 0
+    quant = cache_ks is not None
     if (cache_v.shape != cache_k.shape or Bc != B or Dk != D
             or Hkv * G != Hq or not 1 <= G <= _MAX_GROUPS or R < 1
-            or D % 8):
+            or D % (16 if quant else 8)):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} cache "
                          f"{tuple(cache_k.shape)}")
-    if q.dtype not in _DTYPE_CODES or cache_k.dtype != q.dtype \
-            or cache_v.dtype != q.dtype:
-        raise TypeError(f"{what}: q and the cache must be bf16 or f32 of one "
-                        f"type, got {q.dtype}/{cache_k.dtype}/"
+    if bblock < 1 or (bblock > 1 and (R != 1 or B % bblock)):
+        raise ValueError(f"{what}: bblock {bblock} must divide the {B} "
+                         f"slots (one row each)")
+    cache_type = torch.int8 if quant else q.dtype
+    if q.dtype not in _DTYPE_CODES or cache_k.dtype != cache_type \
+            or cache_v.dtype != cache_type:
+        raise TypeError(f"{what}: q must be bf16 or f32 and the cache "
+                        f"{cache_type}, got {q.dtype}/{cache_k.dtype}/"
                         f"{cache_v.dtype}")
+    scales = ()
+    if quant:
+        if cache_vs is None or cache_ks.shape != cache_k.shape[:-1] \
+                or cache_vs.shape != cache_ks.shape:
+            raise ValueError(f"{what}: scale caches must be [L, B, Hkv, S], "
+                             f"got {tuple(cache_ks.shape)}")
+        if cache_ks.dtype != torch.float32 or cache_vs.dtype != torch.float32:
+            raise TypeError(f"{what}: scale caches must be float32")
+        scales = (cache_ks, cache_vs)
     if limits.dtype != torch.int32 or limits.shape != (B,):
         raise ValueError(f"{what}: lengths must be [B] int32")
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
-    _check_cuda(what, (q, cache_k, cache_v, limits), (cache_k, cache_v))
+    _check_cuda(what, (q, cache_k, cache_v, limits) + scales,
+                (cache_k, cache_v))
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -108,51 +190,94 @@ def _launch_attention(what: str, q, cache_k, cache_v, limits, layer: int,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(out.data_ptr(), q.data_ptr(), cache_k.data_ptr(),
-                cache_v.data_ptr(), limits.data_ptr(), B, Hkv, G, R, D, S,
-                layer, window, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
+                cache_v.data_ptr(), cache_ks.data_ptr() if quant else None,
+                cache_vs.data_ptr() if quant else None, limits.data_ptr(), B,
+                Hkv, G, R, D, S, layer, window, 1.0 / math.sqrt(D),
+                _DTYPE_CODES[q.dtype],
+                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], bblock,
                 stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
 
 
+def _form(quant: bool, bblock: int) -> str:
+    return " ".join(name for name, on in (("quant", quant),
+                                          ("bblock", bblock > 1)) if on)
+
+
+def instance_name(entry: str, quant: bool, bblock: int = 1,
+                  window: int = 0) -> str:
+    """The :func:`launch_counts` name of an attention kernel instance:
+    the wrapper's name, then "quant" (int8 cache), "bblock" (``bblock`` >
+    1) and "window" (``window`` > 0) as they apply."""
+    form = _form(quant, bblock)
+    return entry + (" " + form if form else "") + \
+        (" window" if window > 0 else "")
+
+
+def _count(fn, quant: bool, bblock: int, window: int) -> None:
+    """One launch of ``fn``'s kernel instance: the bf16/f32 one-slot
+    instance in ``launches`` (its window instance also in
+    ``window_launches``), the others in ``form_launches``."""
+    form = _form(quant, bblock)
+    if not form:
+        fn.launches += 1
+        fn.window_launches += window > 0
+        return
+    fn.form_launches[form] += 1
+    if window > 0:
+        fn.form_launches[form + " window"] += 1
+
+
 def decode_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
                         cache_v: torch.Tensor, lengths: torch.Tensor,
-                        layer: int, window: int = 0) -> torch.Tensor:
-    """Flash decode over one layer of the dense cache (K4).
+                        layer: int, window: int = 0,
+                        cache_ks: Optional[torch.Tensor] = None,
+                        cache_vs: Optional[torch.Tensor] = None,
+                        bblock: int = 1) -> torch.Tensor:
+    """Flash decode over one layer of the dense cache (K4; K5 with
+    ``bblock`` > 1).
 
-    q: [B, 1, Hq, D] bf16 or f32; cache [L, B, Hkv, S, D] of q's type;
-    lengths [B]: the rows slot b attends (the just-written row counted), of
-    which the last ``window`` when it is > 0; layer: int. Returns
+    q: [B, 1, Hq, D] bf16 or f32; cache [L, B, Hkv, S, D] of q's type, or
+    int8 with ``cache_ks``/``cache_vs`` [L, B, Hkv, S] float32; lengths
+    [B]: the rows slot b attends (the just-written row counted), of which
+    the last ``window`` when it is > 0; layer: int; ``bblock``: slots per
+    CTA, fitted down to a divisor of B (:func:`fit_bblock`). Returns
     [B, 1, Hq, D]; a slot of length 0 gets zeros. CPU tensors take
-    :func:`dense_attention_plain`; CUDA tensors launch the kernel."""
+    :func:`dense_attention_plain` (the result does not depend on
+    ``bblock``); CUDA tensors launch the kernel."""
     q, lengths = q.contiguous(), lengths.to(torch.int32)
     if q.device.type == "cpu":
         return dense_attention_plain(q, cache_k, cache_v, lengths, layer,
-                                     window)
+                                     window, cache_ks, cache_vs)
+    bb = fit_bblock(bblock, q.shape[0]) if q.shape[0] else 1
     out = _launch_attention("decode_attend_dense", q, cache_k, cache_v,
-                            lengths, layer, window)
-    _count(decode_attend_dense, window)
+                            cache_ks, cache_vs, lengths, layer, window, bb)
+    _count(decode_attend_dense, cache_ks is not None, bb, window)
     return out
 
 
 def spec_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, lengths: torch.Tensor,
-                      layer: int, window: int = 0) -> torch.Tensor:
+                      layer: int, window: int = 0,
+                      cache_ks: Optional[torch.Tensor] = None,
+                      cache_vs: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Speculative attention over one layer of the dense cache (K7).
 
     q: [B, R, Hq, D], the rows at positions ``lengths[b] + r`` (all R
     already written); row r attends the rows [0, lengths[b] + 1 + r), of
-    which the last ``window`` when it is > 0. Returns [B, R, Hq, D]. CPU
-    tensors take :func:`dense_attention_plain`; CUDA tensors launch the
-    kernel."""
+    which the last ``window`` when it is > 0; scale caches select the int8
+    form. Returns [B, R, Hq, D]. CPU tensors take
+    :func:`dense_attention_plain`; CUDA tensors launch the kernel."""
     q, limits = q.contiguous(), lengths.to(torch.int32) + 1
     if q.device.type == "cpu":
         return dense_attention_plain(q, cache_k, cache_v, limits, layer,
-                                     window)
-    out = _launch_attention("spec_attend_dense", q, cache_k, cache_v, limits,
-                            layer, window)
-    _count(spec_attend_dense, window)
+                                     window, cache_ks, cache_vs)
+    out = _launch_attention("spec_attend_dense", q, cache_k, cache_v,
+                            cache_ks, cache_vs, limits, layer, window, 1)
+    _count(spec_attend_dense, cache_ks is not None, 1, window)
     return out
 
 
@@ -164,6 +289,24 @@ def cache_write_rows_dense_plain(cache_k: torch.Tensor, cache_v: torch.Tensor,
     dropped."""
     write_token_layer({"k": cache_k, "v": cache_v}, layer, rows, k_new,
                       v_new)
+
+
+def _check_dense_write(what, cache_k, cache_v, k_new, v_new, rows, layer):
+    """Shapes [L, B, Hkv, S, D] / [B, R, Hkv, D] / [B, R] int32 and the
+    layer of a dense row write; returns (L, B, Hkv, S, D, R)."""
+    if cache_k.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {cache_k.device}")
+    L, B, Hkv, S, D = cache_k.shape
+    R = rows.shape[1] if rows.dim() == 2 else 0
+    if (cache_v.shape != cache_k.shape or rows.shape != (B, R)
+            or k_new.shape != (B, R, Hkv, D) or v_new.shape != k_new.shape):
+        raise ValueError(f"{what}: bad shapes cache {tuple(cache_k.shape)} "
+                         f"new {tuple(k_new.shape)} rows {tuple(rows.shape)}")
+    if rows.dtype != torch.int32:
+        raise ValueError(f"{what}: rows must be int32")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    return L, B, Hkv, S, D, R
 
 
 def _write_lib():
@@ -190,22 +333,13 @@ def cache_write_rows_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
                                      layer)
         return
     what = "cache_write_rows_dense"
-    if cache_k.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {cache_k.device}")
-    L, B, Hkv, S, D = cache_k.shape
-    R = rows.shape[1] if rows.dim() == 2 else 0
+    _, B, Hkv, S, D, R = _check_dense_write(what, cache_k, cache_v, k_new,
+                                            v_new, rows, layer)
     row_bytes = D * cache_k.element_size()
-    if (cache_v.shape != cache_k.shape or rows.shape != (B, R)
-            or k_new.shape != (B, R, Hkv, D) or v_new.shape != k_new.shape
-            or row_bytes % 16):
-        raise ValueError(f"{what}: bad shapes cache {tuple(cache_k.shape)} "
-                         f"new {tuple(k_new.shape)} rows {tuple(rows.shape)}")
+    if row_bytes % 16:
+        raise ValueError(f"{what}: bad shapes: a row of {row_bytes} bytes")
     if not (cache_v.dtype == k_new.dtype == v_new.dtype == cache_k.dtype):
         raise TypeError(f"{what}: new rows must have the cache's dtype")
-    if rows.dtype != torch.int32:
-        raise ValueError(f"{what}: rows must be int32")
-    if not 0 <= layer < L:
-        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
     _check_cuda(what, (cache_k, cache_v, k_new, v_new, rows),
                 (cache_k, cache_v, k_new, v_new))
     if B * R == 0:
@@ -221,9 +355,84 @@ def cache_write_rows_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
     cache_write_rows_dense.launches += 1
 
 
-# the attention wrappers also count their window instance's launches
+def cache_write_rows_quant_dense_plain(cache_k: torch.Tensor,
+                                       cache_v: torch.Tensor,
+                                       cache_ks: torch.Tensor,
+                                       cache_vs: torch.Tensor,
+                                       k_new: torch.Tensor,
+                                       v_new: torch.Tensor,
+                                       rows: torch.Tensor, layer: int) -> None:
+    """Plain version of :func:`cache_write_rows_quant_dense`:
+    ``kv_cache.write_token_layer`` into the int8 cache (``quantize_rows``,
+    then the index-put of the rows and of their scales; rows outside
+    [0, S) drop)."""
+    write_token_layer({"k": cache_k, "v": cache_v, "ks": cache_ks,
+                       "vs": cache_vs}, layer, rows, k_new, v_new)
+
+
+def _quant_write_lib():
+    lib = cuda_build.load("cache_write")
+    fn = lib.cache_write_rows_quant_dense
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def cache_write_rows_quant_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                                 cache_ks: torch.Tensor,
+                                 cache_vs: torch.Tensor, k_new: torch.Tensor,
+                                 v_new: torch.Tensor, rows: torch.Tensor,
+                                 layer: int) -> None:
+    """Quantize R new K and V rows per slot and write them into one layer
+    of the int8 dense cache, their scales into the scale caches, in place
+    (K9).
+
+    cache [L, B, Hkv, S, D] int8; scale caches [L, B, Hkv, S] float32;
+    k_new/v_new [B, R, Hkv, D] bf16 or f32 (D <= 256); rows [B, R] int32
+    (rows outside [0, S) drop). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (K and V in one launch)."""
+    if cache_k.device.type == "cpu":
+        cache_write_rows_quant_dense_plain(cache_k, cache_v, cache_ks,
+                                           cache_vs, k_new, v_new, rows,
+                                           layer)
+        return
+    what = "cache_write_rows_quant_dense"
+    _, B, Hkv, S, D, R = _check_dense_write(what, cache_k, cache_v, k_new,
+                                            v_new, rows, layer)
+    if cache_ks.shape != cache_k.shape[:-1] or cache_vs.shape != \
+            cache_ks.shape or not 1 <= D <= _MAX_QUANT_D:
+        raise ValueError(f"{what}: bad shapes cache {tuple(cache_k.shape)} "
+                         f"scales {tuple(cache_ks.shape)}")
+    if cache_k.dtype != torch.int8 or cache_v.dtype != torch.int8 \
+            or cache_ks.dtype != torch.float32 \
+            or cache_vs.dtype != torch.float32 \
+            or k_new.dtype not in _DTYPE_CODES or v_new.dtype != k_new.dtype:
+        raise TypeError(f"{what}: int8 caches, float32 scale caches and "
+                        f"bf16 or f32 rows expected")
+    _check_cuda(what, (cache_k, cache_v, cache_ks, cache_vs, k_new, v_new,
+                       rows), ())
+    if B * R == 0:
+        return
+    fn = _quant_write_lib()
+    with torch.cuda.device(cache_k.device):
+        stream = torch.cuda.current_stream(cache_k.device).cuda_stream
+        rc = fn(cache_k.data_ptr(), cache_v.data_ptr(), cache_ks.data_ptr(),
+                cache_vs.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                rows.data_ptr(), B, R, layer, Hkv, S, D,
+                _DTYPE_CODES[k_new.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    cache_write_rows_quant_dense.launches += 1
+
+
+# the attention wrappers also count their window instance's launches and
+# their other instances' (form_launches)
+_FORMS = {"decode_attend_dense": ("quant", "bblock", "quant bblock"),
+          "spec_attend_dense": ("quant",)}
 _WINDOWED = (decode_attend_dense, spec_attend_dense)
-_COUNTED = _WINDOWED + (cache_write_rows_dense,)
+_COUNTED = _WINDOWED + (cache_write_rows_dense, cache_write_rows_quant_dense)
 
 
 def reset_launch_counts() -> None:
@@ -231,6 +440,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in _WINDOWED:
         fn.window_launches = 0
+        fn.form_launches = collections.Counter()
 
 
 reset_launch_counts()
@@ -238,8 +448,12 @@ reset_launch_counts()
 
 def launch_counts() -> dict:
     """{wrapper name: launches} and, for the attention wrappers,
-    {name + " window": launches of the window instance}."""
+    {name + " window": launches of the window instance} and
+    {name + " " + form (+ " window"): launches of that instance}."""
     out = {fn.__name__: fn.launches for fn in _COUNTED}
-    out.update({f"{fn.__name__} window": fn.window_launches
-                for fn in _WINDOWED})
+    for fn in _WINDOWED:
+        out[f"{fn.__name__} window"] = fn.window_launches
+        for form in _FORMS[fn.__name__]:
+            for name in (form, form + " window"):
+                out[f"{fn.__name__} {name}"] = fn.form_launches[name]
     return out

@@ -1,17 +1,33 @@
-"""Continuous-batching serving engine over the paged KV pool.
+"""Continuous-batching serving engine over the paged KV pool or the dense
+slot cache.
 
-The host-side scheduler of the port: FCFS admission gated on free pages,
-batched prefill of fresh prompts, decode of every active slot with a fused
-horizon, chunked prefill packed beside the decode batch in one ragged
-dispatch (``programs.mixed_step``), and speculative decoding
+The host-side scheduler of the port: FCFS admission, batched prefill of
+fresh prompts, decode of every active slot with a fused horizon, chunked
+prefill of long prompts, and speculative decoding
 (``ServingConfig.spec_decode``: prompt-lookup drafts, or a draft model's,
 verified in one dispatch of spec_k + 1 rows per slot). It follows the JAX
 package's ``serving/engine.py`` and ``programs.EnginePrograms`` wherever
-this slice reaches, with these differences:
+this slice reaches. Two layouts of the KV cache, as in the JAX engine:
+
+- paged (``ServingConfig.paged=True``, the default): a shared page pool
+  with per-slot block tables, admission gated on free pages, preemption
+  (recompute) when the pool runs dry; a chunked prefill packs each chunk
+  beside the decode batch in one ragged dispatch (``programs.mixed_step``);
+- dense (``paged=False``): ``kv_cache.init_cache``'s slot-contiguous cache,
+  every slot reserving its whole window; admission gated on free slots, no
+  pages, no preemption. A chunked prefill walks its chunks through
+  ``programs.prefill_chunk_step``, one decode dispatch of horizon 1
+  between two chunks while slots run (the JAX engine's dense walk; the
+  chunking slot's garbage decode row lands at the walk's frontier, which
+  the next chunk overwrites). Decode attends through the dense kernels
+  with ``decode_bblock`` slots per CTA (K5 when > 1; the paged kernel
+  takes no block).
+
+Differences from the JAX engine:
 
 - dispatch is synchronous: every step launches its program and then fetches
   its tokens (the JAX engine's one-deep pipeline produces the same streams);
-- every chunked prefill, and every preemption resume, goes through
+- every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
 - not ported yet: the prefix cache and host tier, guided decoding, LoRA,
   penalties, logit bias, min_tokens, logprobs, deadlines, drain and the
@@ -22,18 +38,20 @@ this slice reaches, with these differences:
 - the draft model keeps its cache at the target's own positions (see
   ``serving/draft.py``), where the JAX draft runs one row behind.
 
-Idle slots keep decoding into the scratch page 0, as in the JAX engine: their
-tables point there, and their outputs are discarded. A config with a sliding
+Idle slots keep decoding, as in the JAX engine: into the scratch page 0
+(paged: their tables point there), or past their rows (dense: a freed slot
+keeps its length); their outputs are discarded. A config with a sliding
 window (Mistral) is served by the same steps, the window applied inside the
-attention kernels; as in the JAX engine, a slot keeps its pages below the
-window until it finishes.
+attention kernels; as in the JAX engine, a paged slot keeps its pages below
+the window until it finishes.
 
 Sampling is seeded per request as in the JAX engine: a request's OpenAI
 ``seed``, or else one drawn at submit from the engine's ``random.Random``
 (seeded by ``ServingConfig.derived_seed``, or os.urandom), keys every draw
 with its token position, so a seeded stream does not depend on the batch
 around it and two engines with one ``derived_seed`` draw alike.
-``ServingConfig.kv_dtype="int8"`` stores the pool int8 with per-row scales.
+``ServingConfig.kv_dtype="int8"`` stores the pool or the dense cache int8
+with per-row scales.
 """
 
 from __future__ import annotations
@@ -59,10 +77,14 @@ from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
     DecoderLM, check_supported)
 from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
+from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import \
+    fit_bblock
+from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    decode_steps, mixed_step, prefill_batch_step, spec_decode_step)
+    decode_steps, mixed_step, prefill_batch_step, prefill_chunk_step,
+    spec_decode_step)
 
 log = logging.getLogger(__name__)
 
@@ -153,23 +175,34 @@ class Engine:
         self.max_len = min(self.max_len, cfg.max_seq_len)
         self.buckets = tuple(b for b in serving.prefill_buckets
                              if b <= self.max_len)
-        ps = self.page_size = serving.page_size
-        if ps <= 0 or ps % 8:
-            raise ValueError(f"page_size={ps} must be a positive multiple "
-                             f"of 8")
-        self.pages_per_slot = -(-self.max_len // ps)
-        pool_pages = serving.kv_pool_pages \
-            or self.num_slots * self.pages_per_slot
-        if pool_pages < self.pages_per_slot:
-            raise ValueError(f"kv_pool_pages={pool_pages} < pages for one "
-                             f"full window ({self.pages_per_slot})")
-        # +1: physical page 0 is the scratch page idle slots point at
-        self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
-                                   self.device,
-                                   quant=serving.kv_dtype == "int8")
-        self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
-        self.table = np.zeros((self.num_slots, self.pages_per_slot),
-                              np.int32)
+        quant = serving.kv_dtype == "int8"
+        self.paged = bool(serving.paged)
+        # slots per CTA of the dense cache's decode kernel (K5 when > 1)
+        self.decode_bblock = fit_bblock(serving.decode_bblock,
+                                        self.num_slots)
+        self.allocator: Optional[pkv.PagePool] = None
+        self.table: Optional[np.ndarray] = None
+        if self.paged:
+            ps = self.page_size = serving.page_size
+            if ps <= 0 or ps % 8:
+                raise ValueError(f"page_size={ps} must be a positive "
+                                 f"multiple of 8")
+            self.pages_per_slot = -(-self.max_len // ps)
+            pool_pages = serving.kv_pool_pages \
+                or self.num_slots * self.pages_per_slot
+            if pool_pages < self.pages_per_slot:
+                raise ValueError(f"kv_pool_pages={pool_pages} < pages for "
+                                 f"one full window ({self.pages_per_slot})")
+            # +1: physical page 0 is the scratch page idle slots point at
+            self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
+                                       self.device, quant=quant)
+            self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
+            self.table = np.zeros((self.num_slots, self.pages_per_slot),
+                                  np.int32)
+        else:
+            # every slot reserves its whole window of rows
+            self.cache = kvc.init_cache(cfg, self.num_slots, self.max_len,
+                                        self.dtype, self.device, quant=quant)
         self._slot_pages: List[List[int]] = [[] for _ in
                                              range(self.num_slots)]
         self.lengths = np.zeros(self.num_slots, np.int32)
@@ -190,6 +223,9 @@ class Engine:
         self._lock = threading.Lock()
         self._work_event = threading.Event()
         self._chunk: Optional[dict] = None
+        # the dense chunk walk alternates a chunk with a horizon-1 decode
+        # dispatch of the running slots: True when the decode is due
+        self._chunk_yield = False
         # seeds of requests without one; a pinned derived_seed makes two
         # engines (this one and the JAX one too) draw the same sequence
         self._py_rng = random.Random(
@@ -282,11 +318,13 @@ class Engine:
     def _release_slot(self, slot: int):
         """Return the slot's pages, point its table at scratch, make it
         greedy (an idle slot must not make a greedy batch draw noise) and
-        free it."""
-        self.allocator.release_all(self._slot_pages[slot])
-        self._slot_pages[slot] = []
-        self.table[slot, :] = 0
-        self.lengths[slot] = 0
+        free it. A dense slot keeps its length, as in the JAX engine: its
+        idle decode rows land past its rows, never over them."""
+        if self.paged:
+            self.allocator.release_all(self._slot_pages[slot])
+            self._slot_pages[slot] = []
+            self.table[slot, :] = 0
+            self.lengths[slot] = 0
         self.temps[slot] = 0.0
         self._free.append(slot)
 
@@ -294,7 +332,10 @@ class Engine:
         """Grow every active slot's pages to cover rows
         [0, min(length + new_rows, window)) before a dispatch writes them;
         when the pool runs dry, preempt the newest admission (recompute
-        later). Returns whether any slot is still active."""
+        later). Returns whether any slot is still active (the dense cache
+        needs no pages)."""
+        if not self.paged:
+            return bool(self._active_slots())
         ps = self.page_size
         for slot in sorted(self._active_slots(),
                            key=lambda s: self._admit_seq[s]):
@@ -331,23 +372,34 @@ class Engine:
     # -- the step -----------------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduling step: advance a chunked prefill (one mixed
-        dispatch), else admit waiting prompts, else decode. Returns whether
-        any work was done."""
+        """One scheduling step: advance a chunked prefill (paged: one mixed
+        dispatch; dense: a chunk, or the horizon-1 decode dispatch that
+        alternates with the chunks while slots run), else admit waiting
+        prompts, else decode. Returns whether any work was done."""
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.cancelled:
                 r.finish_reason = "cancelled"
                 self._finish(slot)
         if self._chunk is not None:
+            if self._chunk_yield and self._active_slots():
+                # the decode writes a row for every slot at its length: the
+                # chunking slot's lands at the walk's frontier, which the
+                # next chunk overwrites
+                self._chunk_yield = False
+                self._decode(max_horizon=1)
+                return True
             self._advance_chunk()
+            self._chunk_yield = not self.paged
             return True
         batch, chunk_next = self._admit()
         if batch:
             self._prefill_batch(batch)
         if chunk_next is not None:
             self._start_chunk(*chunk_next)
+            self._chunk_yield = False
             if not batch:
                 self._advance_chunk()
+                self._chunk_yield = not self.paged
         if batch or chunk_next is not None:
             return True
         if self._active_slots():
@@ -357,10 +409,10 @@ class Engine:
 
     def _admit(self):
         """FCFS admission: pop queue heads while a slot is free and the pool
-        holds the head's pages; fresh fitting prompts form the prefill batch,
-        a prompt that chunks (or a resume) ends it."""
+        holds the head's pages (the dense cache: while a slot is free);
+        fresh fitting prompts form the prefill batch, a prompt that chunks
+        (or a resume) ends it."""
         batch, chunk_next = [], None
-        ps = self.page_size
         while len(batch) < max(1, self.serving.max_prefill_batch) \
                 and self._free:
             with self._lock:
@@ -374,14 +426,16 @@ class Engine:
                     req.out_queue.put(None)
                     continue
                 ids = self._resume_ctx.get(req.id, req.prompt_ids)
-                if -(-(len(ids) + 1) // ps) > self.allocator.free_pages:
+                if self.paged and -(-(len(ids) + 1) // self.page_size) > \
+                        self.allocator.free_pages:
                     break                  # head-of-line blocking: FCFS
                 self._queue.popleft()
             slot = self._free.popleft()
-            pages = self.allocator.alloc(-(-len(ids) // ps))
-            self._slot_pages[slot] = pages
-            self.table[slot, :] = 0
-            self.table[slot, :len(pages)] = pages
+            if self.paged:
+                pages = self.allocator.alloc(-(-len(ids) // self.page_size))
+                self._slot_pages[slot] = pages
+                self.table[slot, :] = 0
+                self.table[slot, :len(pages)] = pages
             self._seq_counter += 1
             self._admit_seq[slot] = self._seq_counter
             resumed = self._resume_ctx.pop(req.id, None) is not None
@@ -394,6 +448,11 @@ class Engine:
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _table_dev(self) -> Optional[torch.Tensor]:
+        """The block table on the device; None for the dense cache, which
+        the programs take as the dense path."""
+        return self._dev(self.table) if self.paged else None
+
     def _prefill_batch(self, batch):
         N = len(batch)
         T = self._bucket_for(max(len(r.prompt_ids) for r, _ in batch))
@@ -403,17 +462,19 @@ class Engine:
             tokens[i, :len(req.prompt_ids)] = req.prompt_ids
             true_lens[i] = len(req.prompt_ids)
         slots = [s for _, s in batch]
+        slots_np = np.array(slots, np.int32)
         self.cache, toks = prefill_batch_step(
             self.model, self.cache, self._dev(tokens), self._dev(true_lens),
-            self._dev(self.table[slots]),
+            self._dev(self.table[slots]) if self.paged else None,
             self._dev(np.array([r.temperature for r, _ in batch], np.float32)),
             self._dev(np.array([r.top_k for r, _ in batch], np.int32)),
             self._dev(np.array([r.top_p for r, _ in batch], np.float32)),
-            self._dev(np.array([r.eff_seed for r, _ in batch], np.int64)))
+            self._dev(np.array([r.eff_seed for r, _ in batch], np.int64)),
+            slots=None if self.paged else self._dev(slots_np))
         toks = toks.cpu().numpy()
         self.counts["prefill_dispatches"] += 1
         if self.draft is not None:
-            self.draft.prefill(tokens, true_lens, np.array(slots, np.int32))
+            self.draft.prefill(tokens, true_lens, slots_np)
         for i, (req, slot) in enumerate(batch):
             self._activate(req, slot, int(toks[i]), req.prompt_ids, False)
 
@@ -427,8 +488,10 @@ class Engine:
                        "resumed": resumed}
 
     def _advance_chunk(self):
-        """One mixed dispatch: the walk's next chunk packed beside a decode
-        step of every active slot."""
+        """The walk's next chunk: one mixed dispatch packing it beside a
+        decode step of every active slot (paged), or one
+        ``prefill_chunk_step`` (dense; the decode steps alternate with the
+        chunks, see :meth:`step`)."""
         st = self._chunk
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         if req.cancelled:
@@ -439,6 +502,9 @@ class Engine:
             return
         C = self._chunk_size
         chunk = ids[off:off + C]
+        if not self.paged:
+            self._advance_chunk_dense(st, chunk, C)
+            return
         # page headroom for the decode rows' writes; the chunking slot is not
         # active, so it is never the one preempted here
         self._ensure_pages(1)
@@ -465,11 +531,39 @@ class Engine:
             self._chunk = None
             self._activate(req, slot, ptok, ids, st["resumed"])
 
-    def _decode(self):
+    def _advance_chunk_dense(self, st: dict, chunk: List[int], C: int):
+        """One chunk of the dense walk into rows [off, off + len(chunk)) of
+        its slot; the slot's length follows the walk's frontier, where the
+        interleaved decode dispatches write their garbage row for it (the
+        next chunk overwrites it). The final chunk's token is the request's
+        first."""
+        req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
+        ptokens = np.zeros((1, C), np.int32)
+        ptokens[0, :len(chunk)] = chunk
+        self.cache, tok = prefill_chunk_step(
+            self.model, self.cache, self._dev(ptokens), off, slot,
+            len(chunk), self._dev(np.array([req.temperature], np.float32)),
+            self._dev(np.array([req.top_k], np.int32)),
+            self._dev(np.array([req.top_p], np.float32)),
+            self._dev(np.array([req.eff_seed], np.int64)))
+        tok = int(tok.cpu()[0])
+        self.counts["chunk_dispatches"] += 1
+        st["off"] = off + len(chunk)
+        self.lengths[slot] = st["off"]
+        if st["off"] >= len(ids):
+            self._chunk = None
+            self._activate(req, slot, tok, ids, st["resumed"])
+
+    def _decode(self, max_horizon: Optional[int] = None):
+        """One decode dispatch of every slot (``max_horizon`` caps its
+        horizon: 1 between the dense walk's chunks), or a verify dispatch
+        when speculation proposes drafts."""
         with self._lock:
             waiting = bool(self._queue)
         horizon = 1 if (waiting and self._free) \
             else max(1, self.serving.decode_horizon)
+        if max_horizon is not None:
+            horizon = min(horizon, max_horizon)
         spec, K = self.serving.spec_decode, self.serving.spec_k
         if self.draft is not None:
             # one plain dispatch must fit one catch-up dispatch of K + 1 rows
@@ -492,9 +586,10 @@ class Engine:
         self._spec_plain_due = False
         self.cache, out = decode_steps(
             self.model, horizon, self.cache, self._dev(self.last_token),
-            self._dev(self.lengths), self._dev(self.table),
+            self._dev(self.lengths), self._table_dev(),
             self._dev(self.temps), self._dev(self.top_ks),
-            self._dev(self.top_ps), self._dev(self.seeds))
+            self._dev(self.top_ps), self._dev(self.seeds),
+            bblock=self.decode_bblock)
         out = out.cpu().numpy()
         self.counts["decode_dispatches"] += 1
         for s in range(horizon):
@@ -558,7 +653,7 @@ class Engine:
         tokens = np.concatenate([self.last_token[:, None], drafts], axis=1)
         self.cache, out, accepted = spec_decode_step(
             self.model, R, self.cache, self._dev(tokens),
-            self._dev(self.lengths), self._dev(self.table),
+            self._dev(self.lengths), self._table_dev(),
             self._dev(self.temps), self._dev(self.top_ks),
             self._dev(self.top_ps), self._dev(self.seeds))
         out, accepted = out.cpu().numpy(), accepted.cpu().numpy()

@@ -1,10 +1,11 @@
-"""Int8 KV quantization: the per-row rule both K3 and the prefill scatters
-apply, its inverse, and the cache's size in bytes; and the dense slot cache
-of the draft model (:func:`init_cache`, its prompt scatter and its plain
-row write).
+"""Int8 KV quantization: the per-row rule that K3, K9 and the prefill
+scatters apply, its inverse, and the cache's size in bytes; and the dense
+slot cache (:func:`init_cache`) that the dense engine (``paged=False``) and
+the draft model keep, with its prompt and chunk scatters and its plain row
+write (the plain version of K8 and, int8, of K9).
 
-K/V rows are stored int8 with one float32 scale per (layer, page, kv head,
-row), the per-token-per-head dynamic scheme of the JAX package's
+K/V rows are stored int8 with one float32 scale per (layer, page or slot,
+kv head, row), the per-token-per-head dynamic scheme of the JAX package's
 ``serving/kv_cache.py`` (``ServingConfig.kv_dtype="int8"``; vLLM's
 ``kv_cache_dtype``). The rule must give the same bits as the JAX engine's
 jitted programs, where XLA turns the division of the row's absolute maximum
@@ -56,45 +57,82 @@ def cache_bytes(cfg: ModelConfig, num_slots: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, num_slots: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
-    """The dense slot cache the draft model keeps: ``{"k", "v"}`` each
+               dtype=torch.bfloat16, device=None, quant: bool = False) -> dict:
+    """The dense slot cache: ``{"k", "v"}`` each
     ``[L, num_slots, Hkv, max_len, D]``, zeroed, slot b's rows contiguous
-    (the JAX package's ``kv_cache.init_cache`` layout, unquantized).
-    ``device`` defaults to CUDA (``device.resolve_device``)."""
+    (the JAX package's ``kv_cache.init_cache`` layout). With ``quant`` the
+    K/V leaves are int8 and ``{"ks", "vs"}`` ``[L, num_slots, Hkv,
+    max_len]`` float32 hold a scale per (row, kv head). ``device``
+    defaults to CUDA (``device.resolve_device``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
 
     shape = (cfg.num_layers, num_slots, cfg.num_kv_heads, max_len,
              cfg.head_dim)
     dev = resolve_device(device)
+    if quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=dev),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=dev)}
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def is_quantized(cache: dict) -> bool:
+    return "ks" in cache
+
+
+def _put(cache: dict, index: tuple, k: torch.Tensor, v: torch.Tensor):
+    """Index-put K and V rows (float, [..., D]) at ``index`` of every
+    leaf: as they are, or quantized with their scales into an int8 cache
+    (a scale's index is its row's without the trailing D axis)."""
+    for name, new in (("k", k), ("v", v)):
+        if is_quantized(cache):
+            q8, scale = quantize_rows(new)
+            cache[name][index] = q8
+            cache[name + "s"][index] = scale
+        else:
+            cache[name][index] = new.to(cache[name].dtype)
 
 
 def write_prompts(cache: dict, layer: int, slots: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor) -> dict:
     """Batched prompt write for one layer of the dense cache, in place:
     prompt n's rows [0, T) land in slot ``slots[n]`` (the padded tail too;
-    decode masks by length). k/v: [N, T, Hkv, D]; slots outside the cache
-    drop, as the JAX scatter's ``mode="drop"`` drops them."""
+    decode masks by length), quantized into an int8 cache. k/v:
+    [N, T, Hkv, D]; slots outside the cache drop, as the JAX scatter's
+    ``mode="drop"`` drops them."""
     num_slots, T = cache["k"].shape[1], k.shape[1]
     keep = ((slots >= 0) & (slots < num_slots)).nonzero().squeeze(1)
-    sl = slots.long()[keep]
-    for name, new in (("k", k), ("v", v)):
-        cache[name][layer, sl, :, :T] = \
-            new[keep].transpose(1, 2).to(cache[name].dtype)
+    _put(cache, (layer, slots.long()[keep], slice(None), slice(0, T)),
+         k[keep].transpose(1, 2), v[keep].transpose(1, 2))
+    return cache
+
+
+def write_chunk(cache: dict, layer: int, slot: int, start: int,
+                k: torch.Tensor, v: torch.Tensor) -> dict:
+    """One prefill chunk's K/V rows into rows [start, start + C) of one
+    slot of one layer, in place (quantized into an int8 cache); rows at or
+    past the window drop, as the JAX scatter's ``mode="drop"`` drops them
+    (a final chunk is never shifted back). k/v: [1, C, Hkv, D]."""
+    S, C = cache["k"].shape[3], k.shape[1]
+    n = max(0, min(C, S - start))
+    _put(cache, (layer, slot, slice(None), slice(start, start + n)),
+         k[0, :n].transpose(0, 1), v[0, :n].transpose(0, 1))
     return cache
 
 
 def write_token_layer(cache: dict, layer: int, rows: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor) -> dict:
     """Row write into one layer of the dense cache, in place: slot b's new
-    K/V row r lands at row ``rows[b, r]``; rows outside [0, S) drop.
-    rows: [B, R]; k/v: [B, R, Hkv, D]. The JAX package's
-    ``write_token_layer`` is the R = 1 case."""
+    K/V row r lands at row ``rows[b, r]``, quantized into an int8 cache;
+    rows outside [0, S) drop. rows: [B, R]; k/v: [B, R, Hkv, D]. The JAX
+    package's ``write_token_layer`` is the R = 1 case."""
     S = cache["k"].shape[3]
     r = rows.long()
     ok = ((r >= 0) & (r < S)).nonzero()                   # [M, 2] (b, r)
     b, j = ok[:, 0], ok[:, 1]
-    for name, new in (("k", k), ("v", v)):
-        cache[name][layer, b, :, r[b, j]] = new[b, j].to(cache[name].dtype)
+    _put(cache, (layer, b, slice(None), r[b, j]), k[b, j], v[b, j])
     return cache

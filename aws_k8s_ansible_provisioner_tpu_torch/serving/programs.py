@@ -1,5 +1,6 @@
-"""The engine's step programs: batched prefill, the fused decode horizon,
-the ragged mixed dispatch and the speculative verify.
+"""The engine's step programs: batched prefill, chunked prefill into the
+dense cache, the fused decode horizon, the ragged mixed dispatch and the
+speculative verify.
 
 Each is a plain function over the model (``models/layers.DecoderLM``), the
 cache (updated in place) and device tensors, with the JAX package's
@@ -20,8 +21,9 @@ cache (updated in place) and device tensors, with the JAX package's
   R - 1 drafts) in one forward pass, greedy acceptance of the longest
   matching draft prefix.
 
-The paged pool serves the target model; the dense slot cache
-(``kv_cache.init_cache``) the draft model of speculative decoding.
+The paged pool serves the target model of the paged engine; the dense slot
+cache (``kv_cache.init_cache``) the dense engine (``paged=False``) and the
+draft model of speculative decoding, bf16/f32 or (the dense engine's) int8.
 
 Each honours the model's ``cfg.sliding_window`` in every attention of the
 step (prefill, decode, chunk rows and verify rows alike).
@@ -29,8 +31,8 @@ step (prefill, decode, chunk rows and verify rows alike).
 Each takes the rows' ``seeds`` ([B] uint32 values held in int64) and keys
 its draws at the JAX programs' counters (``ops/sampling.per_slot_keys``):
 a prefill row at its prompt length, a decode row at its length + 1 (the
-context the draw extends to), the chunk row at ``pstart + plen``, a verify
-row 0 at its length + 1.
+context the draw extends to), the chunk row at ``pstart + plen`` (a dense
+chunk at ``start + chunk_len``), a verify row 0 at its length + 1.
 
 Sampling penalties, logit bias, stop-token bans, guided masks, logprobs and
 LoRA of the JAX programs are not ported yet.
@@ -44,10 +46,10 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
 from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
-    make_decode_attend_carry, make_decode_attend_carry_paged,
-    make_mixed_attend_carry_paged, make_prefill_attend_batch,
-    make_prefill_attend_batch_paged_carry, make_spec_attend_carry,
-    make_spec_attend_carry_paged)
+    make_chunk_prefill_attend, make_decode_attend_carry,
+    make_decode_attend_carry_paged, make_mixed_attend_carry_paged,
+    make_prefill_attend_batch, make_prefill_attend_batch_paged_carry,
+    make_spec_attend_carry, make_spec_attend_carry_paged)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
 
 
@@ -75,24 +77,54 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     return pool, sample(last, temperature, top_k, top_p, seeds, true_lens)
 
 
+def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
+                       start: int, slot: int, chunk_len: int,
+                       temperature: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor, seed: torch.Tensor):
+    """Prefill one chunk of a long prompt into slot ``slot`` of the dense
+    cache, at rows [start, start + C) (the JAX program's ``pages=None``
+    branch).
+
+    tokens: [1, C] (the final chunk right-padded), ``chunk_len`` of them
+    valid; temperature/top_k/top_p/seed: [1]. The chunk's rows are written
+    (quantized into an int8 cache), then its queries attend the slot's rows
+    up to their own. Returns (cache, token [1]) sampled from the chunk's
+    last valid row with the seeded counter ``start + chunk_len``, the
+    context length at the final chunk (the only one whose token the engine
+    keeps), so a seeded stream does not depend on the chunking.
+    """
+    C = tokens.shape[1]
+    positions = start + torch.arange(C, dtype=torch.int32,
+                                     device=tokens.device)[None]
+    attend = make_chunk_prefill_attend(slot, start, model.cfg.sliding_window)
+    logits, cache = model.forward_carry(tokens, positions, cache, attend)
+    last = logits[0, chunk_len - 1][None]
+    ctr = torch.tensor([start + chunk_len], dtype=torch.int32,
+                       device=tokens.device)
+    return cache, sample(last, temperature, top_k, top_p, seed, ctr)
+
+
 def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
                  tokens: torch.Tensor, lengths: torch.Tensor,
                  table: Optional[torch.Tensor], temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 seeds: torch.Tensor):
+                 seeds: torch.Tensor, bblock: int = 1):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
     table: [B, max_pages] int32 for the paged pool, None for the dense
-    cache; seeds [B]. Returns (pool, out [n_steps, B]). Slots that stop
-    mid-horizon produce surplus tokens the host discards; their surplus K/V
-    rows land past the slot's length (or drop past the window).
+    cache; seeds [B]; ``bblock``: slots per CTA of the dense cache's decode
+    kernel (K5 when > 1; the paged kernel takes none). Returns
+    (pool, out [n_steps, B]). Slots that stop mid-horizon produce surplus
+    tokens the host discards; their surplus K/V rows land past the slot's
+    length (or drop past the window).
     """
     out = []
     tok, lens = tokens, lengths
     window = model.cfg.sliding_window
     for _ in range(n_steps):
-        attend = make_decode_attend_carry(lens, window) if table is None \
+        attend = make_decode_attend_carry(lens, window, bblock) \
+            if table is None \
             else make_decode_attend_carry_paged(lens, table, window)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
                                            attend)

@@ -239,6 +239,10 @@ def main(argv=None):
                         "float32 scales")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill size; 0 disables")
+    p.add_argument("--decode-bblock", type=int, default=0,
+                   help="slots per CTA of the dense cache's decode kernel "
+                        "(fitted to a divisor of the slots; 0 = 1); the "
+                        "paged engine's kernel takes none")
     p.add_argument("--spec-decode", action="store_true",
                    help="prompt-lookup speculative decoding (greedy streams "
                         "unchanged)")
@@ -257,7 +261,8 @@ def main(argv=None):
         max_cache_len=args.max_cache_len, page_size=args.page_size,
         dtype=args.dtype, weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
-        spec_decode=args.spec_decode, spec_k=args.spec_k)
+        decode_bblock=args.decode_bblock, spec_decode=args.spec_decode,
+        spec_k=args.spec_k)
     state = build_state(serving, device=args.device, seed=args.seed)
     server = make_server(state, args.host, args.port)
     state.start_engine()

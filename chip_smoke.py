@@ -16,8 +16,9 @@ result when either is missing. Phases, in order (any failure raises):
    attention and the row write over a bf16 pool, and their int8 forms (the
    scale-folding attention, the quantizing row write) over an int8 pool;
    the speculative verify's attention (5 rows per slot) over both pools;
-   and over the draft model's dense cache ([28, 32, 8, 2048, 128] bf16) the decode
-   attention, the verify attention and the row write;
+   and over the dense cache ([28, 32, 8, 2048, 128], bf16, then int8 with
+   its scales) the decode attention (K4; K5 at 4 and 8 slots per CTA), the
+   verify attention (K7) and the row write (K8; int8: K9, bit-exact);
 3. engine, once per KV pool: the main path, Qwen3-0.6B at full width with
    seeded random weights through ``serving.engine.Engine`` (the default
    ServingConfig: paged, page 64, 32 slots, int8 weights; prefill_chunk 256
@@ -46,15 +47,28 @@ result when either is missing. Phases, in order (any failure raises):
    puts the drafts behind so that they catch up. The dense kernels must
    have launched, and the self-draft must have accepted drafts;
 7. the window instances (after the kernels phase): K1 (decode, ragged,
-   verify; bf16 and int8 pools), K4 and K7 at Mistral-7B-v0.1's shapes with
-   its window of 4096, each held against its plain version and timed, and
-   K1 at window 0 against window 4096 on rows of ~8000 columns;
+   verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
+   int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
+   each held against its plain version and timed, the dense ones also
+   with NaN rows (int8: scales) below their first tile, which must change
+   nothing; and K1 at window 0 against window 4096 on rows of ~8000
+   columns;
 8. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
    slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
    with launch counts (window instances only), one decode step's logits
    at lengths past the window held against the plain versions and against
    window 0, one decode dispatch profiled, the server; then prompt lookup
-   (the verify's window instance) and a self-draft (K4 and K7's).
+   (the verify's window instance) and a self-draft (K4 and K7's);
+9. the dense engine (``ServingConfig(paged=False)``, every slot's window
+   of rows reserved, prefill_chunk 256 so that long prompts take the dense
+   chunk walk): Qwen3-0.6B at full width with bf16 KV and decode_bblock 4
+   (K8, K5), then with int8 KV (K9, K4-int8; seeded sampled streams alone
+   and beside others; one decode dispatch profiled; the server), each with
+   a decode step's logits held against the plain versions; prompt lookup
+   over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
+   Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
+   with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
+   8). In every dense run the paged kernels' counts must be 0.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -450,15 +464,29 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
     return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
 
 
-def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
-                          hq=16, window=0):
-    """K4 (R = 1) or K7 (R = SPEC_R) over the dense cache against the plain
-    version (the ulp rule row by row; a slot of length 0 must give exact
-    zeros), timed beside the plain version, an SDPA over the slots' rows
-    and the bound; ``window`` > 0 takes the window instance."""
+def _dense_name(entry, quant, bb=1, window=0):
+    """Launch-count name of a dense attention kernel instance."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
+    return da.instance_name(entry, quant, bb, window)
+
+
+def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
+                          hq=16, window=0, bb=1):
+    """K4 (R = 1), K5 (R = 1, ``bb`` > 1 slots per CTA) or K7 (R = SPEC_R)
+    over the dense cache, bf16 or int8 (``"ks" in cache``), against the
+    plain version (the ulp rule row by row; a slot of length 0 must give
+    exact zeros), timed beside the plain version, an SDPA over the slots'
+    rows (int8 dequantized to bf16 beforehand) and the bound; ``window`` >
+    0 takes the window instance. The bound counts the rows each slot needs
+    (K5 reads its block's union of them)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        dequantize
+
     ck, cv = cache["k"], cache["v"]
+    quant = "ks" in cache
+    scales = (cache["ks"], cache["vs"]) if quant else ()
     dev = ck.device
     _, B, Hkv, S, D = ck.shape
     G = hq // Hkv
@@ -470,16 +498,20 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
                     dtype=torch.bfloat16)
     lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
     limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
+    kw = {"cache_ks": cache["ks"], "cache_vs": cache["vs"]} if quant else {}
+    if bb > 1:
+        kw["bblock"] = bb
 
     def kernel():
-        return entry(q, ck, cv, lengths, layer, window)
+        return entry(q, ck, cv, lengths, layer, window, **kw)
 
     def plain():
-        return da.dense_attention_plain(q, ck, cv, limits, layer, window)
+        return da.dense_attention_plain(q, ck, cv, limits, layer, window,
+                                        *scales)
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    what = f"{entry.__name__} {label}"
+    what = f"{_dense_name(entry.__name__, quant, bb)} {label}"
     check = _ulp_rows(torch, what, out, ref, B * R,
                       lambda bad: f"lengths {lengths_np[bad // R].tolist()}")
     zero = limits_np + R - 1 <= 0
@@ -496,7 +528,15 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
     idx = torch.from_numpy(np.minimum(start[:, None] + np.arange(n),
                                       S - 1)).to(dev)
     slots = torch.arange(B, device=dev)[:, None]
-    kd, vd = (c[layer][slots, :, idx].permute(0, 2, 1, 3) for c in (ck, cv))
+
+    def gathered(name):
+        g = cache[name][layer][slots, :, idx]            # [B, n, Hkv, (D)]
+        if quant:
+            g = dequantize(g, cache[name + "s"][layer][slots, :, idx],
+                           torch.bfloat16)
+        return g.permute(0, 2, 1, 3)
+
+    kd, vd = gathered("k"), gathered("v")
     q4 = q.reshape(B, R, Hkv, G, D).transpose(1, 2).reshape(B, Hkv, R * G, D)
     lim = (limits.long()[:, None]
            + torch.arange(R, device=dev)).repeat_interleave(G, dim=1)
@@ -504,7 +544,8 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
     library_ms = _sdpa_ms(torch, q4, kd, vd, col, lim, window,
                           col < torch.from_numpy(ext).to(dev)[:, None])
     del kd, vd
-    nbytes = (2 * int((ext - start).sum()) * Hkv * D * ck.element_size()
+    row = D * ck.element_size() + (4 if quant else 0)
+    nbytes = (2 * int((ext - start).sum()) * Hkv * row
               + 2 * B * R * hq * D * 2 + B * 4)
     live = np.minimum(limits_np[:, None] + np.arange(R)[None, :], S)
     ops = 4 * hq * D * int(_live_cols(np, live, window).sum())
@@ -512,11 +553,22 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
 
 
 def _dense_write_case(torch, np, cache, rows_np, layer, label):
-    """K8 against its plain version, bit for bit on the whole cache; timed
-    beside the plain version, an ``index_put_`` pair and the bound."""
+    """K8 (bf16 cache) or K9 (int8 cache and its scales) against its plain
+    version, bit for bit on every leaf of the cache; timed beside the plain
+    version, a PyTorch yardstick (int8: quantize_rows, then the
+    ``index_put_`` pairs of the rows and of their scales) and the bound."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        quantize_rows
 
-    ck, cv = cache["k"], cache["v"]
+    quant = "ks" in cache
+    names = ("k", "v", "ks", "vs") if quant else ("k", "v")
+    leaves = [cache[n] for n in names]
+    name = "cache_write_rows_quant_dense" if quant else \
+        "cache_write_rows_dense"
+    kernel_fn = getattr(da, name)
+    plain_fn = getattr(da, name + "_plain")
+    ck = cache["k"]
     dev = ck.device
     _, B, Hkv, S, D = ck.shape
     R = rows_np.shape[1]
@@ -525,84 +577,119 @@ def _dense_write_case(torch, np, cache, rows_np, layer, label):
     k_new, v_new = (torch.randn((B, R, Hkv, D), generator=gen, device=dev,
                                 dtype=torch.bfloat16) for _ in range(2))
     rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
-    refs = [ck.clone(), cv.clone()]
-    da.cache_write_rows_dense(ck, cv, k_new, v_new, rows, layer)
-    da.cache_write_rows_dense_plain(*refs, k_new, v_new, rows, layer)
+    refs = [t.clone() for t in leaves]
+    kernel_fn(*leaves, k_new, v_new, rows, layer)
+    plain_fn(*refs, k_new, v_new, rows, layer)
     torch.cuda.synchronize()
-    for n, got, want in zip("kv", (ck, cv), refs):
+    for n, got, want in zip(names, leaves, refs):
         if not torch.equal(got, want):
-            raise AssertionError(f"cache_write_rows_dense {label}: cache "
-                                 f"leaf {n!r} differs from the plain version")
+            raise AssertionError(f"{name} {label}: cache leaf {n!r} differs "
+                                 f"from the plain version")
     del refs
-    ms = timed_ms(torch, lambda: da.cache_write_rows_dense(
-        ck, cv, k_new, v_new, rows, layer))
-    plain_ms = timed_ms(torch, lambda: da.cache_write_rows_dense_plain(
-        ck, cv, k_new, v_new, rows, layer), iters=5, warmup=1)
+    ms = timed_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
+                                           layer))
+    plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, k_new, v_new, rows,
+                                                layer), iters=5, warmup=1)
     kept = np.nonzero((rows_np >= 0) & (rows_np < S))
     b = torch.from_numpy(kept[0]).to(dev)
     r = torch.from_numpy(rows_np[kept].astype(np.int64)).to(dev)
     j = torch.from_numpy(kept[1]).to(dev)
     kk, vk = k_new[b, j], v_new[b, j]
+    idx = (b[:, None], torch.arange(Hkv, device=dev)[None], r[:, None])
 
     def library():
-        ck[layer].index_put_((b[:, None], torch.arange(Hkv, device=dev)[None],
-                              r[:, None]), kk)
-        cv[layer].index_put_((b[:, None], torch.arange(Hkv, device=dev)[None],
-                              r[:, None]), vk)
+        if quant:
+            (kq, kss), (vq, vss) = quantize_rows(kk), quantize_rows(vk)
+            cache["ks"][layer].index_put_(idx, kss)
+            cache["vs"][layer].index_put_(idx, vss)
+        else:
+            kq, vq = kk, vk
+        cache["k"][layer].index_put_(idx, kq)
+        cache["v"][layer].index_put_(idx, vq)
 
     library_ms = timed_ms(torch, library)
-    # bound: the kept rows' new K/V read once and written once, the rows
-    # array read once (a dropped row needs no more than its index)
-    nbytes = (2 * 2 * len(kept[0]) * Hkv * D * ck.element_size()
-              + B * R * 4)
+    # bound: the kept rows' new K/V read once and their cache rows (and
+    # scales) written once, the rows array read once (a dropped row needs
+    # no more than its index)
+    out_row = D * ck.element_size() + (4 if quant else 0)
+    nbytes = (2 * len(kept[0]) * Hkv * (D * 2 + out_row) + B * R * 4)
     res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
            "bytes": nbytes, "rows": B * R}
-    log(f"[kernels] cache_write_rows_dense {label}: rows {B * R} "
-        f"({len(kept[0])} kept), bit-exact on the whole cache; kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-        f"(index_put_ K and V) bound_ms {res['bound_ms']:.5f} "
-        f"({nbytes / 1e6:.3f} MB)")
+    log(f"[kernels] {name} {label}: rows {B * R} ({len(kept[0])} kept), "
+        f"bit-exact on the whole cache"
+        f"{' (int8 rows and scales)' if quant else ''}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+        f"({'quantize + ' if quant else ''}index_put_ K and V) bound_ms "
+        f"{res['bound_ms']:.5f} ({nbytes / 1e6:.3f} MB)")
     return res
 
 
+def _dense_cache(torch, gen, shape, quant):
+    """A random dense cache of ``shape`` [L, B, Hkv, S, D] on ``gen``'s
+    device: bf16, or int8 with float32 scales around amax / 127 of unit
+    rows (as :func:`_make_pools` draws a pool)."""
+    dev = gen.device
+    if quant:
+        cache = {n: torch.randint(-127, 128, shape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+                 for n in ("k", "v")}
+        for n in ("ks", "vs"):
+            cache[n] = torch.rand(shape[:-1], generator=gen, device=dev) \
+                * 0.02 + 1e-3
+    else:
+        cache = {n: torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.bfloat16) for n in ("k", "v")}
+    L, B, Hkv, S, D = shape
+    log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
+        f"{'int8 + float32 scales' if quant else 'bf16'}, "
+        f"{_tree_bytes(cache) / 2**30:.2f} GiB")
+    return cache
+
+
 def _dense_cases(torch, np):
-    """The draft model's dense cache at the main path's shapes
-    ([28, 32, 8, 2048, 128] bf16 for K and for V): K4 over 32 decode rows
-    (lengths 0 to 2048), K7 over 32 x SPEC_R verify rows, K8 with one row
-    and with SPEC_R rows per slot (some dropped)."""
+    """The dense cache at the main path's shapes ([28, 32, 8, 2048, 128]
+    for K and for V), bf16 then int8 with its scales: K4 over 32 decode
+    rows (lengths 0 to 2048), K5 over the same rows at 4 and 8 slots per
+    CTA, K7 over 32 x SPEC_R verify rows, the row write (K8; int8: K9)
+    with one row and with SPEC_R rows per slot (some dropped)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
 
     L, Hkv, D, B, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 32, \
         2048
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
-    dev = gen.device
-    cache = {n: torch.randn((L, B, Hkv, S, D), generator=gen, device=dev,
-                            dtype=torch.bfloat16) for n in ("k", "v")}
-    log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
-        f"bf16, {2 * cache['k'].numel() * 2 / 2**30:.2f} GiB")
     rng = np.random.default_rng(8)
     lengths = rng.integers(1, S + 1, B)
     lengths[:6] = [0, 1, 64, 65, S, S - 1]
     layer = L - 1
-    dec = _dense_attention_case(torch, np, cache, lengths, layer, 1,
-                                "decode, 32 slots")
     spec_len = np.minimum(lengths, S - SPEC_R)
     spec_len[:4] = [0, 59, 60, S - SPEC_R]
-    spec = _dense_attention_case(torch, np, cache, spec_len, layer, SPEC_R,
-                                 f"verify, 32 slots x {SPEC_R} rows")
-    wr1 = _dense_write_case(torch, np, cache, lengths[:, None] - 1, layer,
-                            "decode, 32 rows")
     rows = spec_len[:, None] + np.arange(SPEC_R)[None, :]
     rows[1, 2] = -1
     rows[2, :] = S + np.arange(SPEC_R)
-    wrR = _dense_write_case(torch, np, cache, rows, layer,
-                            f"verify, 32 x {SPEC_R} rows")
-    del cache
-    torch.cuda.empty_cache()
-    return {"attention": dec, "spec": spec, "write": wr1, "write_spec": wrR}
+    out = {}
+    for name in ("bf16", "int8"):
+        cache = _dense_cache(torch, gen, (L, B, Hkv, S, D), name == "int8")
+        res = out[name] = {}
+        res["attention"] = _dense_attention_case(
+            torch, np, cache, lengths, layer, 1, "decode, 32 slots")
+        for bb in (4, 8):
+            res[f"bblock {bb}"] = _dense_attention_case(
+                torch, np, cache, lengths, layer, 1,
+                f"decode, 32 slots, {bb} per CTA", bb=bb)
+        res["spec"] = _dense_attention_case(
+            torch, np, cache, spec_len, layer, SPEC_R,
+            f"verify, 32 slots x {SPEC_R} rows")
+        res["write"] = _dense_write_case(torch, np, cache,
+                                         lengths[:, None] - 1, layer,
+                                         "decode, 32 rows")
+        res["write_spec"] = _dense_write_case(
+            torch, np, cache, rows, layer, f"verify, 32 x {SPEC_R} rows")
+        del cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def _pool_cases(torch, np, pools, lengths, table, layer, label):
@@ -681,7 +768,8 @@ def phase_kernels(torch, np):
         out[name] = _pool_cases(torch, np, pools, lengths, table, L - 1, name)
         del pools
         torch.cuda.empty_cache()
-    out["dense"] = _dense_cases(torch, np)
+    dense = _dense_cases(torch, np)
+    out["dense"], out["dense int8"] = dense["bf16"], dense["int8"]
     return out
 
 
@@ -692,8 +780,10 @@ def phase_kernels_window(torch, np):
     up to 8192, over those rows beside a 512-row chunk of one slot at rows
     [7680, 8192) (the ragged entry), and the verify's 16 x SPEC_R rows, for
     a bf16 and an int8 pool; K1 over 16 rows of length ~8000 at window 0
-    against window 4096 (time ratio); K4 and K7 over a dense cache
-    [2, 16, 8, 8192, 128] bf16."""
+    against window 4096 (time ratio); K4, K7 and K5 (4 slots per CTA) over
+    a dense cache [2, 16, 8, 8192, 128], bf16 then int8, each window
+    instance then held to read no row below its first tile (NaN rows or
+    scales there change nothing)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import \
         MISTRAL_7B_V01 as cfg
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
@@ -747,29 +837,117 @@ def phase_kernels_window(torch, np):
         out[name] = res
         del pools
         torch.cuda.empty_cache()
-    cache = {n: torch.randn((L, B, Hkv, S, D), generator=gen,
-                            device=gen.device, dtype=torch.bfloat16)
-             for n in ("k", "v")}
-    log(f"[kernels] dense cache [L {L}, B {B}, Hkv {Hkv}, S {S}, D {D}] "
-        f"bf16, {2 * cache['k'].numel() * 2 / 2**30:.2f} GiB")
     dense_len = lengths.copy()
     dense_len[0] = 0
-    out["dense"] = {
-        "attention": _dense_attention_case(
-            torch, np, cache, dense_len, layer, 1,
-            f"window {W}, decode {B} slots", Hq, W),
-        "spec": _dense_attention_case(
-            torch, np, cache, spec_len, layer, SPEC_R,
-            f"window {W}, verify {B} x {SPEC_R} rows", Hq, W)}
-    del cache
-    torch.cuda.empty_cache()
+    for name in ("bf16", "int8"):
+        cache = _dense_cache(torch, gen, (L, B, Hkv, S, D), name == "int8")
+        res = out["dense" if name == "bf16" else "dense int8"] = {
+            "attention": _dense_attention_case(
+                torch, np, cache, dense_len, layer, 1,
+                f"window {W}, decode {B} slots", Hq, W),
+            "spec": _dense_attention_case(
+                torch, np, cache, spec_len, layer, SPEC_R,
+                f"window {W}, verify {B} x {SPEC_R} rows", Hq, W),
+            "bblock": _dense_attention_case(
+                torch, np, cache, dense_len, layer, 1,
+                f"window {W}, decode {B} slots, 4 per CTA", Hq, W, bb=4)}
+        for bb in (1, 4):
+            _dense_poison_check(torch, np, cache, dense_len, layer, Hq, W,
+                                bb)
+        _dense_poison_check(torch, np, cache, spec_len, layer, Hq, W, 1,
+                            SPEC_R)
+        del cache, res
+        torch.cuda.empty_cache()
     return out
+
+
+def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
+                        R=1):
+    """The window instance of K4 (``bb`` 1), K5 (``bb`` > 1) or K7 (``R`` >
+    1) reads no row below its first tile: the rows below each slot's
+    window start's tile (K5: its block's lowest; K7: row 0's) set to NaN
+    (int8: their scales), the output must be finite and bit-identical to
+    the clean cache's."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+
+    quant = "ks" in cache
+    B, D = cache["k"].shape[1], cache["k"].shape[4]
+    gen = torch.Generator(device=cache["k"].device)
+    gen.manual_seed(29)
+    q = torch.randn((B, R, hq, D), generator=gen, device=gen.device,
+                    dtype=torch.bfloat16)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(gen.device)
+    start = np.maximum(lengths_np + (R > 1) - window, 0) // 64 * 64
+    if bb > 1:
+        start = np.repeat(start.reshape(-1, bb).min(axis=1), bb)
+    if not start.any():
+        raise AssertionError("poison check: no row below any first tile")
+
+    def run(c):
+        kw = {"cache_ks": c["ks"], "cache_vs": c["vs"]} if quant else {}
+        if R > 1:
+            return da.spec_attend_dense(q, c["k"], c["v"], lengths, layer,
+                                        window, **kw)
+        return da.decode_attend_dense(q, c["k"], c["v"], lengths, layer,
+                                      window, **kw, bblock=bb)
+
+    clean = run(cache)
+    names = ("ks", "vs") if quant else ("k", "v")
+    dirty = dict(cache)
+    for n in names:
+        dirty[n] = cache[n].clone()
+        for b, st in enumerate(start):
+            dirty[n][layer, b, :, :st] = float("nan")
+    bad = run(dirty)
+    torch.cuda.synchronize()
+    what = _dense_name("spec_attend_dense" if R > 1 else
+                       "decode_attend_dense", quant, bb, window)
+    if not (bool(torch.isfinite(bad.float()).all())
+            and torch.equal(clean, bad)):
+        raise AssertionError(f"{what}: rows below the first tile were read")
+    log(f"[kernels] {what}: {int((start > 0).sum())} of {B} slots with "
+        f"NaN {'scales' if quant else 'rows'} below their first tile "
+        f"(up to row {int(start.max())}): output finite and bit-identical")
 
 
 def _kernel_names(quant: bool):
     """(attention, row write) launch-count names of one pool's kernels."""
     return (("paged_attention_quant", "cache_write_rows_quant_paged") if quant
             else ("paged_attention", "cache_write_rows_paged"))
+
+
+# the paged engine's kernels (every instance), each 0 in a dense engine run
+PAGED_KERNELS = ("paged_attention", "paged_attention_quant",
+                 "paged_attention_spec", "paged_attention_spec_quant",
+                 "cache_write_rows_paged", "cache_write_rows_quant_paged")
+
+
+def _dense_kernel_names(engine):
+    """(decode attention instance, row write) launch-count names of a
+    dense engine's kernels (its KV dtype, decode_bblock and window)."""
+    quant = "ks" in engine.cache
+    return (_dense_name("decode_attend_dense", quant, engine.decode_bblock,
+                        engine.cfg.sliding_window),
+            "cache_write_rows_quant_dense" if quant
+            else "cache_write_rows_dense")
+
+
+def _check_dense_launches(tag, engine, launches, extra=()):
+    """A dense engine run: its decode attention instance, its row write and
+    ``extra`` launched, no paged kernel, and (without a window) no window
+    instance."""
+    mine = _dense_kernel_names(engine) + tuple(extra)
+    if min(launches[k] for k in mine) <= 0:
+        raise AssertionError(f"{tag} a kernel of the path never launched "
+                             f"({mine}): {launches}")
+    if max(launches[k] for k in PAGED_KERNELS) != 0:
+        raise AssertionError(f"{tag} the dense engine launched a paged "
+                             f"kernel: {launches}")
+    window = [k for k in launches if k.endswith(" window") and launches[k]]
+    if engine.cfg.sliding_window == 0 and window:
+        raise AssertionError(f"{tag} a window instance launched: {launches}")
+    if engine.counts["chunk_dispatches"] <= 0:
+        raise AssertionError(f"{tag} no prompt took the dense chunk walk")
 
 
 def _finish_ok(cfg, req, n):
@@ -779,22 +957,35 @@ def _finish_ok(cfg, req, n):
                              f"({req.finish_reason}), expected {n}")
 
 
-def phase_engine(torch, np, kv_dtype):
-    """The main path with the ``kv_dtype`` pool; launch counts zeroed just
+def _cache_layout(engine):
+    """How an engine keeps its KV, for the logs."""
+    serving = engine.serving
+    gib = _tree_bytes(engine.cache) / 2**30
+    if engine.paged:
+        return (f"page {serving.page_size}, {serving.max_decode_slots} "
+                f"slots, pool {engine.allocator.num_pages} pages "
+                f"({gib:.2f} GiB)")
+    return (f"dense cache {engine.num_slots} slots x {engine.max_len} rows "
+            f"({gib:.2f} GiB), {engine.decode_bblock} slots per decode CTA")
+
+
+def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
+    """The main path with the ``kv_dtype`` pool (``paged``; else the dense
+    engine with ``bblock`` slots per decode CTA); launch counts zeroed just
     before the measured run and read just after. With int8 KV the run also
     holds the seeded contract: a sampled request with its own seed, alone
     and again beside three running requests, gives one stream."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
                                                               ServingConfig)
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
-    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
                                                                       Request)
 
     cfg = QWEN3_0_6B
     quant = kv_dtype == "int8"
     serving = ServingConfig(prefill_chunk=256, derived_seed=0,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, paged=paged,
+                            decode_bblock=bblock)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.monotonic()
@@ -802,15 +993,11 @@ def phase_engine(torch, np, kv_dtype):
     engine = Engine(cfg, params, serving, device="cuda")
     del params
     torch.cuda.synchronize()
-    tag = f"[engine {kv_dtype}]"
-    pool_gib = sum(t.numel() * t.element_size()
-                   for t in engine.cache.values()) / 2**30
+    tag = f"[engine {kv_dtype}]" if paged else f"[dense {kv_dtype}]"
     log(f"{tag} {cfg.name}: {cfg.num_layers} layers, hidden "
         f"{cfg.hidden_size}, vocab {cfg.vocab_size}; weights "
         f"{serving.weights_dtype}, KV {'int8' if quant else serving.dtype}, "
-        f"page {serving.page_size}, {serving.max_decode_slots} slots, pool "
-        f"{engine.allocator.num_pages} pages ({pool_gib:.2f} GiB); set-up "
-        f"{time.monotonic() - t0:.1f}s")
+        f"{_cache_layout(engine)}; set-up {time.monotonic() - t0:.1f}s")
     rng = np.random.default_rng(1)
     lens = [17, 45, 130, 300, 64, 700, 9, 200]
     new = [32, 48, 64, 40, 56, 32, 64, 48]
@@ -821,7 +1008,7 @@ def phase_engine(torch, np, kv_dtype):
     engine.run_until_idle()
     engine.counts.clear()
     torch.cuda.synchronize()
-    pa.reset_launch_counts()
+    _reset_launches()
     t0 = time.monotonic()
     reqs = [engine.submit(Request(prompt_ids=p, max_tokens=m,
                                   ignore_eos=True))
@@ -836,13 +1023,16 @@ def phase_engine(torch, np, kv_dtype):
     n_gen = sum(len(r.generated) for r in reqs)
     if quant:
         _seeded_twice(engine, rng, Request)
-    launches = pa.launch_counts()
+    launches = _launches()
     log(f"{tag} {len(reqs)} requests, prompts {lens}: {n_gen} tokens in "
         f"{dt:.2f}s ({n_gen / dt:.1f} tok/s end to end, synchronous "
         f"dispatch); dispatches {dict(engine.counts)}; kernel launches "
         f"{launches}")
     for r, m in zip(reqs, new):
         _finish_ok(cfg, r, m)
+    if not paged:
+        _check_dense_launches(tag, engine, launches)
+        return engine, launches
     mine = _kernel_names(quant)
     others = _kernel_names(not quant)
     if min(launches[k] for k in mine) <= 0:
@@ -905,7 +1095,8 @@ def phase_profile(torch, np, engine):
     while engine.pending or engine._chunk is not None:
         engine.step()
     engine.step()                                  # warm the horizon path
-    tag = f"[profile {'int8' if 'ks' in engine.cache else 'bf16'}]"
+    tag = (f"[profile {'' if engine.paged else 'dense '}"
+           f"{'int8' if 'ks' in engine.cache else 'bf16'}]")
     wall_ms = _profile_dispatch(torch, engine, tag)
     for s in engine._active_slots():
         engine.cancel(engine.slot_req[s])
@@ -1025,46 +1216,64 @@ def _logits_check(torch, engine, tol):
     plain version on the same inputs by the kernels' ulp rule (before the
     layers amplify the rounding). With a sliding window, the same step
     through the kernels at window 0 must differ by more than ``tol`` (the
-    window is applied). Every forward runs on the engine's own pool: each
-    writes the step's K/V row at every layer before any row attends it, so
-    none reads another's rows, and the engine's next step rewrites them."""
+    window is applied). Every forward runs on the engine's own pool or
+    dense cache: each writes the step's K/V row at every layer before any
+    row attends it, so none reads another's rows, and the engine's next
+    step rewrites them. The dense engine's step takes its decode_bblock."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
-    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
-        make_decode_attend_carry_paged
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
+        make_decode_attend_carry, make_decode_attend_carry_paged)
 
     active = engine._active_slots()
     dev = engine.device
     window = engine.cfg.sliding_window
     tok = torch.from_numpy(engine.last_token.copy()).to(dev)
     lens = torch.from_numpy(engine.lengths.copy()).to(dev)
-    table = torch.from_numpy(engine.table.copy()).to(dev)
     pool = engine.cache
     quant = "ks" in pool
     scales = (pool["ks"], pool["vs"]) if quant else ()
     rows = torch.tensor(active, device=dev)
     lengths = [int(engine.lengths[s]) for s in active]
+    if engine.paged:
+        table = torch.from_numpy(engine.table.copy()).to(dev)
 
-    def plain_ctx(q, layer):
-        return pa.paged_attention_plain(q[:, 0].contiguous(), pool["k"],
-                                        pool["v"], lens + 1, layer, table,
-                                        *scales, window=window)[:, None]
+        def plain_ctx(q, layer):
+            return pa.paged_attention_plain(q[:, 0].contiguous(), pool["k"],
+                                            pool["v"], lens + 1, layer, table,
+                                            *scales, window=window)[:, None]
+
+        def plain_write(k, v, layer):
+            fn = pa.cache_write_rows_quant_paged_plain if quant \
+                else pa.cache_write_rows_paged_plain
+            fn(pool["k"], pool["v"], *scales, k[:, 0], v[:, 0], lens, layer,
+               table)
+
+        def kernel_attend(w):
+            return make_decode_attend_carry_paged(lens, table, w)
+    else:
+        def plain_ctx(q, layer):
+            return da.dense_attention_plain(q.contiguous(), pool["k"],
+                                            pool["v"], lens + 1, layer,
+                                            window, *scales)
+
+        def plain_write(k, v, layer):
+            fn = da.cache_write_rows_quant_dense_plain if quant \
+                else da.cache_write_rows_dense_plain
+            fn(pool["k"], pool["v"], *scales, k, v, lens[:, None], layer)
+
+        def kernel_attend(w):
+            return make_decode_attend_carry(lens, w, engine.decode_bblock)
 
     def plain_attend(q, k, v, cache_l):
-        _, layer = cache_l
-        if quant:
-            pa.cache_write_rows_quant_paged_plain(
-                pool["k"], pool["v"], *scales, k[:, 0], v[:, 0], lens, layer,
-                table)
-        else:
-            pa.cache_write_rows_paged_plain(pool["k"], pool["v"], k[:, 0],
-                                            v[:, 0], lens, layer, table)
-        return plain_ctx(q, layer), cache_l
+        plain_write(k, v, cache_l[1])
+        return plain_ctx(q, cache_l[1]), cache_l
 
-    kernel_attend = make_decode_attend_carry_paged(lens, table, window)
+    kernels = kernel_attend(window)
     worst = {"worst_row_max_ulps": 0.0, "worst_row_mean_ulps": 0.0}
 
     def checked_attend(q, k, v, cache_l):
-        ctx, cache_l = kernel_attend(q, k, v, cache_l)
+        ctx, cache_l = kernels(q, k, v, cache_l)
         layer = cache_l[1]
         check = _ulp_rows(torch, f"{engine.cfg.name} layer {layer} attention",
                           ctx[rows, 0], plain_ctx(q, layer)[rows, 0],
@@ -1087,13 +1296,14 @@ def _logits_check(torch, engine, tol):
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     msg = ""
     if window > 0:
-        d0 = float((step(make_decode_attend_carry_paged(lens, table, 0))
-                    - lp).abs().max())
+        d0 = float((step(kernel_attend(0)) - lp).abs().max())
         msg = (f"; the same step at window 0 differs by {d0:.3e} (must "
                f"exceed the tol)")
-    log(f"[logits {engine.cfg.name}] {'int8' if quant else 'bf16'} KV, "
-        f"decode step over {len(active)} active slots (lengths {lengths}): "
-        f"every layer's attention vs plain: worst row max "
+    layout = "paged" if engine.paged else \
+        f"dense, {engine.decode_bblock} slots per CTA"
+    log(f"[logits {engine.cfg.name}] {'int8' if quant else 'bf16'} KV "
+        f"({layout}), decode step over {len(active)} active slots (lengths "
+        f"{lengths}): every layer's attention vs plain: worst row max "
         f"{worst['worst_row_max_ulps']:.2f} ulp, mean "
         f"{worst['worst_row_mean_ulps']:.3f} ulp (tol {ATTN_MAX_ULPS}/"
         f"{ATTN_MEAN_ULPS}); logits: max |logit| {scale:.3f}, kernels vs "
@@ -1128,13 +1338,16 @@ def _pattern_prompts(rng, vocab, n, reps=8, width=16):
     return [rng.integers(0, vocab, width).tolist() * reps for _ in range(n)]
 
 
-def phase_spec(torch, np, kv_dtype):
+def phase_spec(torch, np, kv_dtype, paged=True, bblock=0):
     """Prompt-lookup speculative decoding on the main path: Qwen3-0.6B at
     full width, the default ServingConfig with spec_decode=True and the
-    ``kv_dtype`` pool; 8 greedy requests with repeated-pattern prompts and
-    one seeded sampled request. Launch counts zeroed just before the run
-    and read just after: verify dispatches, drafts and the verify kernel of
-    this pool required, the other pool's kernels 0. The same requests then
+    ``kv_dtype`` pool (``paged``; else the dense engine with ``bblock``
+    slots per decode CTA and prefill_chunk 256); 8 greedy requests with
+    repeated-pattern prompts and one seeded sampled request. Launch counts
+    zeroed just before the run and read just after: verify dispatches,
+    drafts and the verify kernel of this pool required, the other pool's
+    kernels 0 (dense: the dense verify, row write and decode instance, no
+    paged kernel). The same requests then
     run on the same engine with spec off: the sampled stream must be the
     same (the engine serves a sampled slot from the plain step only, never
     from a verify); equal greedy streams, tok/s and the acceptance rate are
@@ -1151,12 +1364,14 @@ def phase_spec(torch, np, kv_dtype):
     cfg = QWEN3_0_6B
     quant = kv_dtype == "int8"
     serving = ServingConfig(spec_decode=True, derived_seed=0,
-                            kv_dtype=kv_dtype)
+                            kv_dtype=kv_dtype, paged=paged,
+                            decode_bblock=bblock,
+                            prefill_chunk=0 if paged else 256)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     engine = Engine(cfg, init_params(cfg, gen, torch.bfloat16), serving,
                     device="cuda")
-    tag = f"[spec {kv_dtype}]"
+    tag = f"[spec {kv_dtype}]" if paged else f"[dense spec {kv_dtype}]"
     rng = np.random.default_rng(21)
     prompts = _pattern_prompts(rng, cfg.vocab_size, 8)
     engine.submit(Request(prompt_ids=prompts[0][:8], max_tokens=2,
@@ -1194,6 +1409,10 @@ def phase_spec(torch, np, kv_dtype):
         f"launches {launches}")
     if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
         raise AssertionError(f"{tag} no verify dispatch or no draft: {counts}")
+    if not paged:
+        mine = (_dense_name("spec_attend_dense", quant),) \
+            + _dense_kernel_names(engine)
+        others = PAGED_KERNELS
     if min(launches[k] for k in mine) <= 0:
         raise AssertionError(f"{tag} a kernel of the path never launched: "
                              f"{launches}")
@@ -1479,16 +1698,14 @@ def _mistral_engine(torch, serving, draft=False, repeating=False):
                     draft=(cfg, params) if draft else None)
     del params
     torch.cuda.synchronize()
-    pool_gib = _tree_bytes(engine.cache) / 2**30
     extra = (f", draft cache {_tree_bytes(engine.draft.cache) / 2**30:.2f} "
              f"GiB" if draft else "")
     log(f"[{cfg.name}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"MLP {cfg.intermediate_size}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, window "
         f"{cfg.sliding_window}; int8 weights {weights_gb:.2f} GB; KV "
-        f"{serving.kv_dtype}, page {serving.page_size}, "
-        f"{serving.max_decode_slots} slots x {serving.max_cache_len}, pool "
-        f"{engine.allocator.num_pages} pages ({pool_gib:.2f} GiB){extra}; "
+        f"{serving.kv_dtype}, {serving.max_decode_slots} slots x "
+        f"{serving.max_cache_len}, {_cache_layout(engine)}{extra}; "
         f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; set-up "
         f"{time.monotonic() - t0:.1f}s")
@@ -1508,25 +1725,28 @@ def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_mistral(torch, np, kv_dtype):
+def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
     """Mistral-7B-v0.1 at full width (window 4096) on the paged engine with
-    the ``kv_dtype`` pool: 16 slots of 8192 rows, prefill_chunk 512, int8
-    weights; 8 greedy requests with prompts of 30-7,900 tokens (four past
-    the window) and 96 new tokens each, so that every long row's window
-    start crosses a page edge. Once every prompt is in, the next decode
-    step's logits are held against the plain versions and against window 0
-    (:func:`_logits_check`), and one decode dispatch is timed and
-    profiled; those launches are taken out of the run's counts, which are
-    zeroed just before the run and read just after: the pool's attention
-    kernel (its window instance only) and row write > 0, the other pool's
-    0. With int8 KV a seeded sampled request, alone and beside running
-    requests, gives one stream."""
+    the ``kv_dtype`` pool (or, ``paged`` False, the dense engine with its
+    16 x 8192-row cache and ``bblock`` slots per decode CTA): 16 slots of
+    8192 rows, prefill_chunk 512, int8 weights; 8 greedy requests with
+    prompts of 30-7,900 tokens (four past the window) and 96 new tokens
+    each, so that every long row's window start crosses a page (tile) edge.
+    Once every prompt is in, the next decode step's logits are held against
+    the plain versions and against window 0 (:func:`_logits_check`), and
+    one decode dispatch is timed and profiled; those launches are taken out
+    of the run's counts, which are zeroed just before the run and read just
+    after: the pool's attention kernel (its window instance only) and row
+    write > 0, the other pool's 0 (dense: the decode instance's window
+    form and the row write, no paged kernel). With int8 KV a seeded sampled
+    request, alone and beside running requests, gives one stream."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
     quant = kv_dtype == "int8"
-    engine = _mistral_engine(torch, _mistral_serving(kv_dtype=kv_dtype))
+    engine = _mistral_engine(torch, _mistral_serving(
+        kv_dtype=kv_dtype, paged=paged, decode_bblock=bblock))
     cfg = engine.cfg
-    tag = f"[{cfg.name} {kv_dtype}]"
+    tag = f"[{cfg.name} {kv_dtype}{'' if paged else ' dense'}]"
     rng = np.random.default_rng(51)
     lens = [30, 300, 1500, 3000, 4500, 6000, 7900, 120]
     new = 96
@@ -1546,7 +1766,8 @@ def phase_mistral(torch, np, kv_dtype):
     t1 = time.monotonic()
     before = _launches()
     _logits_check(torch, engine, MISTRAL_LOGIT_TOL)
-    _profile_dispatch(torch, engine, f"[profile {cfg.name} {kv_dtype}]")
+    _profile_dispatch(torch, engine, f"[profile {cfg.name} {kv_dtype}"
+                                     f"{'' if paged else ' dense'}]")
     checks = _delta(_launches(), before)
     t2 = time.monotonic()
     engine.run_until_idle()
@@ -1563,6 +1784,13 @@ def phase_mistral(torch, np, kv_dtype):
         f"dispatches {counts}; kernel launches {launches}")
     for r in reqs:
         _finish_ok(cfg, r, new)
+    if not paged:
+        _check_dense_launches(tag, engine, launches)
+        attn = _dense_kernel_names(engine)[0]
+        if launches[attn[:-len(" window")]] != launches[attn]:
+            raise AssertionError(f"{tag} the window-0 instance launched: "
+                                 f"{launches}")
+        return engine, launches
     attn, write = _kernel_names(quant)
     if launches[attn + " window"] <= 0 or launches[write] <= 0:
         raise AssertionError(f"{tag} a kernel of the path never launched: "
@@ -1709,7 +1937,8 @@ def phase_server(engine):
     th.start()
     state.start_engine()
     quant = "ks" in engine.cache
-    tag = f"[server {'int8' if quant else 'bf16'}]"
+    tag = (f"[server {'' if engine.paged else 'dense '}"
+           f"{'int8' if quant else 'bf16'}]")
     base = f"http://127.0.0.1:{port}"
 
     def complete(body):
@@ -1813,6 +2042,27 @@ def main() -> int:
         log(f"[wall] spec {kv_dtype}: {time.monotonic() - t0:.1f}s")
     runs["draft"] = _phase("draft", phase_draft, torch, np)["self"][
         "launches"]
+    # the dense engine (paged=False): bf16 KV through K5 (4 slots per
+    # CTA), int8 KV through K4-int8, int8 prompt lookup through K7-int8
+    # and K5-int8
+    for kv_dtype, bb in (("auto", 4), ("int8", 0)):
+        t0 = time.monotonic()
+        engine, runs["dense " + kv_dtype] = phase_engine(
+            torch, np, kv_dtype, paged=False, bblock=bb)
+        if kv_dtype == "int8":
+            phase_profile(torch, np, engine)
+        phase_logits(torch, np, engine)
+        if kv_dtype == "int8":
+            phase_server(engine)
+        del engine
+        _free(torch)
+        log(f"[wall] dense {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
+    engine, runs["dense spec int8"], _ = phase_spec(torch, np, "int8",
+                                                    paged=False, bblock=4)
+    del engine
+    _free(torch)
+    log(f"[wall] dense spec int8: {time.monotonic() - t0:.1f}s")
     for kv_dtype in ("auto", "int8"):
         t0 = time.monotonic()
         engine, runs["mistral " + kv_dtype] = phase_mistral(torch, np,
@@ -1827,6 +2077,12 @@ def main() -> int:
     runs["mistral draft"] = _phase("mistral draft", phase_mistral_draft,
                                    torch, np)
     _free(torch)
+    t0 = time.monotonic()
+    engine, runs["mistral dense int8"] = phase_mistral(
+        torch, np, "int8", paged=False, bblock=4)
+    del engine
+    _free(torch)
+    log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
     keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = []
@@ -1858,7 +2114,19 @@ def main() -> int:
             ("decode_attend_dense window", DENSE_SRC, 516,
              wkern["dense"]["attention"], "mistral draft"),
             ("spec_attend_dense window", DENSE_SRC, 675,
-             wkern["dense"]["spec"], "mistral draft")):
+             wkern["dense"]["spec"], "mistral draft"),
+            ("cache_write_rows_quant_dense", WRITE_SRC, 823,
+             kern["dense int8"]["write"], "dense int8"),
+            ("decode_attend_dense quant", DENSE_SRC, 516,
+             kern["dense int8"]["attention"], "dense int8"),
+            ("spec_attend_dense quant", DENSE_SRC, 675,
+             kern["dense int8"]["spec"], "dense spec int8"),
+            ("decode_attend_dense bblock", DENSE_SRC, 499,
+             kern["dense"]["bblock 4"], "dense auto"),
+            ("decode_attend_dense quant bblock", DENSE_SRC, 499,
+             kern["dense int8"]["bblock 4"], "dense spec int8"),
+            ("decode_attend_dense quant bblock window", DENSE_SRC, 499,
+             wkern["dense int8"]["bblock"], "mistral dense int8")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{TPU_KERNELS}:{line}",
                         "launches": runs[run][name],

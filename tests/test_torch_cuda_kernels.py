@@ -478,3 +478,163 @@ def test_dense_attention_window_matches_plain(dev, dtype, tol, hq, hkv, d,
         torch.cuda.synchronize()
         assert torch.isfinite(dirty.float()).all()
         assert torch.equal(out, dirty)
+
+
+# -- the dense engine's kernels: K9, K4-int8, K7-int8, K5 ----------------------
+
+
+def _dense_cache(rng, B, S, hkv, d, dev, dtype, quant):
+    """A dense cache [2, B, hkv, S, d]: float of ``dtype``, or int8 with
+    scales as :func:`_int8_pools` draws them; returns [k, v] or
+    [k, v, ks, vs]."""
+    if quant:
+        return _int8_pools(rng, 2, B, hkv, S, d, dev)
+    return [torch.from_numpy(rng.standard_normal((2, B, hkv, S, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2)]
+
+
+def _dense_call(tda, q, cache, lens, layer, window, bb, rows):
+    kw = {"cache_ks": cache[2], "cache_vs": cache[3]} if len(cache) > 2 \
+        else {}
+    if rows == 1:
+        return tda.decode_attend_dense(q, cache[0], cache[1], lens, layer,
+                                       window, **kw, bblock=bb)
+    return tda.spec_attend_dense(q, cache[0], cache[1], lens, layer, window,
+                                 **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,d", [(2, 16), (8, 128)])
+def test_dense_quant_row_write_bit_identical_to_plain(dev, dtype, hkv, d):
+    """K9: R = 3 rows per slot, kept rows at the window's edges, a zero row
+    (scale floor) and dropped ones (-1, S, far past S): int8 rows and
+    scales bit for bit."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R = 4, 40, 3
+    rng = np.random.default_rng(99)
+    cache = _dense_cache(rng, B, S, hkv, d, dev, dtype, True)
+    ref = [t.clone() for t in cache]
+    rows = torch.tensor([[0, 1, 2], [-1, 5, 39], [S, 10**6, 7],
+                         [37, 38, 39]], dtype=torch.int32, device=dev)
+    new = rng.standard_normal((2, B, R, hkv, d)) \
+        * 10.0 ** rng.uniform(-4, 2, (2, B, R, hkv, 1))
+    new[0, 0, 1, 0] = 0.0
+    kn, vn = (torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+              for a in new)
+    before = tda.cache_write_rows_quant_dense.launches
+    tda.cache_write_rows_quant_dense(*cache, kn, vn, rows, 1)
+    assert tda.cache_write_rows_quant_dense.launches == before + 1
+    tda.cache_write_rows_quant_dense_plain(*ref, kn, vn, rows, 1)
+    torch.cuda.synchronize()
+    for got, want in zip(cache, ref):
+        assert torch.equal(got, want)
+    assert not torch.equal(cache[2], _dense_cache(
+        np.random.default_rng(99), B, S, hkv, d, dev, dtype, True)[2])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 16), (16, 8, 128)])
+def test_dense_attention_quant_matches_plain(dev, dtype, tol, hq, hkv, d):
+    """K4-int8 (lengths 0, 1, a tile edge, the full window, a partial last
+    tile) and K7-int8 (R = 5 up to the window's last rows)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R = 6, 200, 5
+    rng = np.random.default_rng(100)
+    cache = _dense_cache(rng, B, S, hkv, d, dev, dtype, True)
+    for entry, lengths, rows in (
+            ("decode_attend_dense", [0, 1, 64, 65, S, 130], 1),
+            ("spec_attend_dense", [0, 2, 60, 64, S - R, 131], R)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.standard_normal((B, rows, hq, d)).astype(
+            np.float32)).to(dev, dtype)
+        before = tda.launch_counts()
+        out = _dense_call(tda, q, cache, lens, 1, 0, 1, rows)
+        after = tda.launch_counts()
+        assert after[entry + " quant"] == before[entry + " quant"] + 1
+        assert after[entry] == before[entry]
+        limits = lens if rows == 1 else lens + 1
+        ref = tda.dense_attention_plain(q, cache[0], cache[1], limits, 1, 0,
+                                        cache[2], cache[3])
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+        if rows == 1:
+            assert not out[0].any()                  # length 0: zeros
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("bb,window", [(2, 0), (4, 0), (4, 100), (8, 100)])
+def test_dense_attention_bblock_matches_plain(dev, dtype, tol, quant, bb,
+                                              window):
+    """K5 (bb slots per CTA, bf16/f32 and int8, window 0 and 100) over 8
+    slots of 16 query heads: blocks mixing long and short slots, a length-0
+    slot beside longer ones (ROADMAP C11: zeros, as K4), window starts in
+    different tiles of one block."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    hq, hkv, d, S = 16, 8, 128, 320
+    lengths = [0, 300, 7, 64, 65, S, 130, 201]
+    rng = np.random.default_rng(101 + bb)
+    cache = _dense_cache(rng, 8, S, hkv, d, dev, dtype, quant)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((8, 1, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    name = tda.instance_name("decode_attend_dense", quant, bb, window)
+    before = tda.launch_counts()
+    out = _dense_call(tda, q, cache, lens, 1, window, bb, 1)
+    after = tda.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["decode_attend_dense"] == before["decode_attend_dense"]
+    one = _dense_call(tda, q, cache, lens, 1, window, 1, 1)
+    ref = tda.dense_attention_plain(q, cache[0], cache[1], lens, 1, window,
+                                    *cache[2:])
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out.float() - one.float()).abs().max().item() <= tol
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("entry,bb", [("decode", 1), ("spec", 1),
+                                      ("decode", 4)])
+def test_dense_window_reads_no_row_below_its_first_tile(dev, quant, entry,
+                                                        bb):
+    """The window instances of K4, K7 (int8 too) and K5: the rows below
+    each slot's first tile (K5: its block's lowest window start's tile)
+    hold NaN (int8: NaN scales). Had a kernel read them, 0 * NaN would
+    reach P.V: the output must be finite and bit-identical to the clean
+    cache's."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    hq, hkv, d, S, window, R = 32, 8, 128, 512, 200, 5
+    rows = 1 if entry == "decode" else R
+    lengths = np.array([window + 64, 2 * 64 + window - 1, 4 * 64 + 9,
+                        S - R, window + 3 * 64, 5 * 64, S - 70, 300],
+                       np.int32)
+    rng = np.random.default_rng(102)
+    cache = _dense_cache(rng, 8, S, hkv, d, dev, torch.bfloat16, quant)
+    q = torch.from_numpy(rng.standard_normal((8, rows, hq, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    lens = torch.from_numpy(lengths).to(dev)
+    start = (np.maximum(lengths + (rows > 1) - window, 0) // 64 * 64)
+    if bb > 1:
+        start = np.repeat(start.reshape(-1, bb).min(axis=1), bb)
+    assert start.min() >= 64
+    dirty = [t.clone() for t in cache]
+    for b, st in enumerate(start):
+        for t in (dirty[2:] if quant else dirty):
+            t[1, b, :, :st] = float("nan")
+    clean = _dense_call(tda, q, cache, lens, 1, window, bb, rows)
+    bad = _dense_call(tda, q, dirty, lens, 1, window, bb, rows)
+    torch.cuda.synchronize()
+    assert torch.isfinite(bad.float()).all()
+    assert torch.equal(clean, bad)
