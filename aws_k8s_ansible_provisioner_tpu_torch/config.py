@@ -167,6 +167,29 @@ def tiny_mistral(**overrides) -> ModelConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh (the JAX package's ``config.MeshConfig``, field
+    for field): ``dp`` data-parallel replicas, ``tp`` tensor parallel,
+    ``sp`` sequence parallel (the serving cache's sequence axis), ``ep``
+    expert parallel, ``pp`` pipeline stages. The product is the device
+    count. The port serves ``sp`` only so far (``serving/engine.py``)."""
+
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    ep: int = 1
+    pp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp * self.sp * self.ep * self.pp
+
+    @property
+    def axis_names(self):
+        return ("dp", "pp", "sp", "ep", "tp")
+
+
+@dataclass(frozen=True)
 class ServingConfig:
     """Engine knobs this slice reads; defaults equal the JAX package's."""
 
@@ -227,3 +250,6 @@ class ServingConfig:
     spec_method: str = "prompt_lookup"
     spec_k: int = 4
     spec_ngram: int = 3
+    # The serving mesh: more than one device shards the dense cache's
+    # sequence axis over ``sp`` (``Engine._build_mesh``).
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

@@ -10,7 +10,9 @@
 //   bblock > 1 (K5: _decode_kernel_layer_bb and _decode_kernel_layer_q_bb),
 //   and decode_attend_pallas_spec (K7: _spec_accumulate through
 //   _spec_kernel_plain and _spec_kernel_quant), each at window 0 and
-//   window > 0.
+//   window > 0; and decode_attend_pallas_layer with return_stats=True (K6:
+//   _decode_kernel_layer_stats and, int8, _decode_kernel_layer_q_stats),
+//   the second entry dense_attention_stats.
 //
 // Contract (same as the TPU kernels): q [B, R, Hq, D], R query rows per slot
 // (R = 1 for a decode step, R > 1 for a speculative verify); cache_k/v
@@ -122,9 +124,12 @@ __device__ __forceinline__ int clamp_rows(int x, int hi) {
 // Shared memory: K tile, V tile [kTile, D] (TC), then float32 q [G, D],
 // scores [G, kTile], acc [G, D], m [G], l [G], corr [G], and for an int8
 // cache the tile's K and V scales [kTile] each.
-template <typename T, typename TC, bool kWindow, bool kBlock>
+// out: [B * R, Hq, D] of T, or with kStats float32 acc beside m_out and
+// l_out [B, Hq] float32.
+template <typename T, typename TC, bool kWindow, bool kBlock, bool kStats>
 __global__ void __launch_bounds__(kThreads)
-dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
+dense_attention_kernel(void* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, const T* __restrict__ q,
                        const TC* __restrict__ cache_k,
                        const TC* __restrict__ cache_v,
                        const float* __restrict__ cache_ks,
@@ -283,19 +288,32 @@ dense_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
     }
     __syncthreads();                   // l of a row that visited no tile
 
-    T* o_row = out + ((int64_t)n * hq + (int64_t)h * groups) * d;
-    for (int x = tid; x < groups * d; x += kThreads) {
-      const float l = fmaxf(l_run[x / d], 1e-9f);
-      o_row[x] = from_float<T>(acc[x] / l);
+    const int64_t head0 = (int64_t)n * hq + (int64_t)h * groups;
+    if (kStats) {
+      // the flash triple, unnormalized (K6)
+      float* o_row = reinterpret_cast<float*>(out) + head0 * d;
+      for (int x = tid; x < groups * d; x += kThreads) o_row[x] = acc[x];
+      if (tid < groups) {
+        m_out[head0 + tid] = m_run[tid];
+        l_out[head0 + tid] = l_run[tid];
+      }
+    } else {
+      T* o_row = reinterpret_cast<T*>(out) + head0 * d;
+      for (int x = tid; x < groups * d; x += kThreads) {
+        const float l = fmaxf(l_run[x / d], 1e-9f);
+        o_row[x] = from_float<T>(acc[x] / l);
+      }
     }
   }
 }
 
-template <typename T, typename TC, bool kWindow, bool kBlock>
-int launch(void* out, const void* q, const void* cache_k, const void* cache_v,
-           const void* cache_ks, const void* cache_vs, const void* limits,
-           int n_slots, int hkv, int groups, int r_rows, int d, int seq,
-           int layer, int window, float scale, int bb, cudaStream_t stream) {
+template <typename T, typename TC, bool kWindow, bool kBlock,
+          bool kStats = false>
+int launch(void* out, float* m_out, float* l_out, const void* q,
+           const void* cache_k, const void* cache_v, const void* cache_ks,
+           const void* cache_vs, const void* limits, int n_slots, int hkv,
+           int groups, int r_rows, int d, int seq, int layer, int window,
+           float scale, int bb, cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   const size_t smem =
       2 * (size_t)kTile * d * sizeof(TC) +
@@ -303,14 +321,15 @@ int launch(void* out, const void* q, const void* cache_k, const void* cache_v,
                        (kQuant ? 2 * (size_t)kTile : 0));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        dense_attention_kernel<T, TC, kWindow, kBlock>,
+        dense_attention_kernel<T, TC, kWindow, kBlock, kStats>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(kBlock ? n_slots / bb : n_slots * r_rows, hkv);
-  dense_attention_kernel<T, TC, kWindow, kBlock>
+  dense_attention_kernel<T, TC, kWindow, kBlock, kStats>
       <<<grid, kThreads, smem, stream>>>(
-          (T*)out, (const T*)q, (const TC*)cache_k, (const TC*)cache_v,
+          out, m_out, l_out, (const T*)q, (const TC*)cache_k,
+          (const TC*)cache_v,
           (const float*)cache_ks, (const float*)cache_vs,
           (const int32_t*)limits, layer, n_slots, hkv, seq, d, groups,
           r_rows, window, scale, bb);
@@ -339,8 +358,8 @@ extern "C" int dense_attention(void* out, const void* q, const void* cache_k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define DA_ARGS                                                             \
-  out, q, cache_k, cache_v, cache_ks, cache_vs, limits, n_slots, hkv,      \
-      groups, r_rows, d, seq, layer
+  out, nullptr, nullptr, q, cache_k, cache_v, cache_ks, cache_vs, limits,  \
+      n_slots, hkv, groups, r_rows, d, seq, layer
 #define DA_LAUNCH(T, TC)                                                    \
   if (bblock > 1)                                                           \
     return window > 0                                                       \
@@ -355,5 +374,33 @@ extern "C" int dense_attention(void* out, const void* q, const void* cache_k,
   if (dtype == 0 && cache_dtype == 2) { DA_LAUNCH(float, int8_t); }
 #undef DA_LAUNCH
 #undef DA_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6, the stats form: acc [n_slots, Hq, D], m and l [n_slots, Hq], all
+// float32; one query row per slot (q [n_slots, 1, Hq, D]), no window, no
+// block; limits = each slot's rows in this cache (shard). dtype and
+// cache_dtype as above. Returns cudaGetLastError() after the launch.
+extern "C" int dense_attention_stats(void* acc, void* m, void* l,
+                                     const void* q, const void* cache_k,
+                                     const void* cache_v,
+                                     const void* cache_ks,
+                                     const void* cache_vs,
+                                     const void* limits, int n_slots, int hkv,
+                                     int groups, int d, int seq, int layer,
+                                     float scale, int dtype, int cache_dtype,
+                                     void* stream) {
+  if (n_slots <= 0) return 0;
+  if (groups < 1 || groups > kMaxGroups) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define DS_LAUNCH(T, TC)                                                     \
+  return launch<T, TC, false, false, true>(                                  \
+      acc, (float*)m, (float*)l, q, cache_k, cache_v, cache_ks, cache_vs,    \
+      limits, n_slots, hkv, groups, 1, d, seq, layer, 0, scale, 1, s)
+  if (dtype == 1 && cache_dtype == 1) { DS_LAUNCH(__nv_bfloat16, __nv_bfloat16); }
+  if (dtype == 0 && cache_dtype == 0) { DS_LAUNCH(float, float); }
+  if (dtype == 1 && cache_dtype == 2) { DS_LAUNCH(__nv_bfloat16, int8_t); }
+  if (dtype == 0 && cache_dtype == 2) { DS_LAUNCH(float, int8_t); }
+#undef DS_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

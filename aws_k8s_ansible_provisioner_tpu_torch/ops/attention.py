@@ -16,12 +16,23 @@ rows into the cache in place and attends. Over the paged pool:
 
 Over the dense slot cache (``kv_cache.init_cache``; the dense engine's,
 ``paged=False``, and the draft model's): :func:`make_decode_attend_carry`
-(sp 1; ``bblock`` slots per CTA), :func:`make_spec_attend_carry` and
+(``bblock`` slots per CTA), :func:`make_spec_attend_carry` and
 :func:`make_prefill_attend_batch`, the same three programs' callbacks, and
 :func:`make_chunk_prefill_attend` (``prefill_chunk_step``: one chunk of a
 long prompt, written, then attended by the plain :func:`chunk_attend` over
 the slot's rows, dequantized from an int8 cache; no kernel, as in the JAX
 package).
+
+Sequence-parallel serving (a mesh with ``sp`` > 1) splits the dense
+cache's sequence axis into shards (``parallel/sharding``: a list of cache
+dicts, shard i holding the global rows [i * S_local, (i + 1) * S_local) on
+its device). The decode callback writes each slot's new row in every shard
+at its local row (the non-owners' rows fall outside [0, S_local) and
+drop), attends each shard's rows through K6 and merges the shards' flash
+triples with a log-sum-exp (:func:`merge_stats`) on the mesh's lead
+device. The batched and chunk prefills write each row in the shard that
+holds it; a chunk attends its slot's rows gathered from the shards in
+order.
 
 The decode, verify and mixed callbacks go through the kernels of
 ``ops/paged_attention.py``: the row write and the attention over a bf16/f32
@@ -46,11 +57,13 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import causal_attend
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import (
-    cache_write_rows_dense, cache_write_rows_quant_dense, decode_attend_dense,
-    spec_attend_dense)
+    cache_write_rows_dense, cache_write_rows_quant_dense,
+    decode_attend_dense, decode_attend_dense_stats, spec_attend_dense)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
     cache_write_rows_paged, cache_write_rows_quant_paged, decode_attend_paged,
     decode_attend_spec_paged, ragged_attend_paged)
+from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
+    gather_rows, sp_size)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 
@@ -195,12 +208,20 @@ def _write_dense(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
-                             bblock: int = 1):
-    """Decode over the dense cache (sp 1): slot b writes its new K/V row at
-    row ``lengths[b]`` (rows outside the window drop; quantized into an int8
+                             bblock: int = 1, mesh=None):
+    """Decode over the dense cache: slot b writes its new K/V row at row
+    ``lengths[b]`` (rows outside the window drop; quantized into an int8
     cache) and attends over ``lengths[b] + 1`` rows, ``bblock`` slots per
     CTA of the attention kernel (K5 when > 1; the result does not depend on
-    it). lengths: [B] int32."""
+    it). lengths: [B] int32. With a ``mesh`` whose ``sp`` axis is larger
+    than 1 the cache is split into sequence shards and each shard attends
+    its own rows through K6 (:func:`_make_sp_decode_attend`); a sliding
+    window is refused there, as the JAX package refuses it."""
+    if sp_size(mesh) > 1:
+        if window > 0:
+            raise ValueError("sequence-parallel decode (sp > 1) does not "
+                             "compose with sliding-window attention")
+        return _make_sp_decode_attend(lengths, mesh)
     rows = lengths[:, None].to(torch.int32)
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
@@ -210,6 +231,63 @@ def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
         ctx = decode_attend_dense(q, cache["k"], cache["v"], lengths + 1,
                                   layer, window, **scales, bblock=bblock)
         return ctx, (cache, layer)
+
+    return attend
+
+
+def merge_stats(accs, ms, ls, device) -> torch.Tensor:
+    """The log-sum-exp merge of the sequence shards' flash triples (the JAX
+    package's ``ops/attention.py:157-162``, there a pmax and two psums over
+    ``sp``): each shard's acc [B, Hq, D], m and l [B, Hq] moved to
+    ``device``; a shard with m <= -1e29 (no row of the slot) weighs 0.
+    Returns the normalized context [B, Hq, D] float32."""
+    acc = torch.stack([a.to(device) for a in accs])            # [sp,B,Hq,D]
+    m = torch.stack([x.to(device) for x in ms])                # [sp, B, Hq]
+    l_sum = torch.stack([x.to(device) for x in ls])
+    m_glob = m.amax(dim=0)
+    m_safe = torch.where(m_glob <= -1e29, torch.zeros_like(m_glob), m_glob)
+    w = torch.where(m <= -1e29, torch.zeros_like(m), torch.exp(m - m_safe))
+    l_glob = (l_sum * w).sum(dim=0)
+    acc_glob = (acc * w[..., None]).sum(dim=0)
+    return acc_glob / l_glob.clamp_min(1e-9)[..., None]
+
+
+def _make_sp_decode_attend(lengths: torch.Tensor, mesh):
+    """The sequence-parallel decode (the JAX package's ``sp > 1`` branch of
+    ``make_decode_attend_carry``, ``ops/attention.py:119-163``): shard i
+    owns the global rows [off, off + S_local), off = i * S_local; it writes
+    the new row at ``lengths - off`` (K8, or K9 into an int8 shard; a
+    non-owner's row falls outside [0, S_local) and drops) and attends
+    ``clip(lengths + 1 - off, 0, S_local)`` rows through K6; the triples
+    merge on the lead device (:func:`merge_stats`), cast to q's type."""
+    devices = mesh.axis_devices("sp")
+    lead = mesh.lead
+    per_shard = {}
+
+    def shard_rows(s_local):
+        # (write rows [B, 1], attended rows [B]) of each shard, on its device
+        if s_local not in per_shard:
+            lens = lengths.to(torch.int32)
+            per_shard[s_local] = [
+                (((lens - i * s_local)[:, None]).to(dev),
+                 (lens + 1 - i * s_local).clamp(0, s_local).to(dev))
+                for i, dev in enumerate(devices)]
+        return per_shard[s_local]
+
+    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+        shards, layer = cache_l
+        if len(shards) != len(devices):
+            raise ValueError(f"{len(shards)} cache shards for a mesh of "
+                             f"sp={len(devices)}")
+        parts = []
+        for shard, dev, (w_rows, r_lens) in zip(
+                shards, devices, shard_rows(shards[0]["k"].shape[3])):
+            scales = _write_dense(shard, k.to(dev).contiguous(),
+                                  v.to(dev).contiguous(), w_rows, layer)
+            parts.append(decode_attend_dense_stats(
+                q.to(dev), shard["k"], shard["v"], r_lens, layer, **scales))
+        ctx = merge_stats(*zip(*parts), lead)
+        return ctx[:, None].to(q.dtype), (shards, layer)
 
     return attend
 
@@ -239,7 +317,8 @@ def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor,
     """Batched prefill into the dense cache: causal attention over each
     right-padded prompt's fresh, unquantized K/V, then its rows [0, T)
     scatter into slot ``slots[n]`` (quantized into an int8 cache; slots
-    outside the cache drop)."""
+    outside the cache drop; into a sequence-sharded cache, each row into
+    the shard that holds it)."""
 
     def attend(q, k, v, cache_l):
         cache, layer = cache_l
@@ -283,15 +362,24 @@ def make_chunk_prefill_attend(slot: int, start: int, window: int = 0):
     first (quantized into an int8 cache; rows past the window drop), then
     the chunk attends the slot's rows, those of an int8 cache dequantized
     to q's type, so that the chunk sees its own rows as the decode steps
-    will (the JAX package's ``make_chunk_prefill_attend``)."""
+    will (the JAX package's ``make_chunk_prefill_attend``). A
+    sequence-sharded cache takes each row in the shard that holds it, and
+    the chunk attends the slot's rows [0, start + C) gathered from the
+    shards in order onto q's device (plain torch, as the JAX package
+    leaves the gather to XLA)."""
 
     def attend(q, k, v, cache_l):
         cache, layer = cache_l
         kvc.write_chunk(cache, layer, slot, start, k, v)
-        ck, cv = cache["k"][layer, slot], cache["v"][layer, slot]
-        if kvc.is_quantized(cache):
-            ck = kvc.dequantize(ck, cache["ks"][layer, slot], q.dtype)
-            cv = kvc.dequantize(cv, cache["vs"][layer, slot], q.dtype)
+        if isinstance(cache, list):
+            rows = gather_rows(cache, layer, slot, start + k.shape[1],
+                               q.device)
+        else:
+            rows = {name: leaf[layer, slot] for name, leaf in cache.items()}
+        ck, cv = rows["k"], rows["v"]
+        if "ks" in rows:
+            ck = kvc.dequantize(ck, rows["ks"], q.dtype)
+            cv = kvc.dequantize(cv, rows["vs"], q.dtype)
         return chunk_attend(q, ck, cv, start, window), (cache, layer)
 
     return attend

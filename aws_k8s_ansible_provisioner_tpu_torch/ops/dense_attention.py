@@ -14,6 +14,13 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   function with ``bblock`` slots per CTA walking their block's union tile
   range. A row with no live column returns zeros at every block size, where
   the TPU's batch-blocked body returns a mean of V (ROADMAP C11);
+- :func:`decode_attend_dense_stats` (the second entry of the same
+  source, K6) replaces ``decode_attend_pallas_layer(return_stats=True)``
+  (bodies ``_decode_kernel_layer_stats`` and, int8,
+  ``_decode_kernel_layer_q_stats``): K4's loop over one sequence shard of
+  the cache, writing the unnormalized float32 ``acc`` and the running ``m``
+  and ``l`` for the sequence-parallel decode's log-sum-exp merge; a slot
+  with no row in the shard gives (0, -1e30, 0);
 - :func:`spec_attend_dense` (the same kernel with R > 1) replaces
   ``decode_attend_pallas_spec`` (``_spec_kernel_plain``, int8
   ``_spec_kernel_quant``): R query rows per slot, row r attending the rows
@@ -38,10 +45,11 @@ tests), and for a CUDA tensor launches its kernel on the current stream or
 raises; nothing falls back. Each keeps a plain integer count of its kernel
 launches: ``<wrapper>.launches`` for the bf16/f32 one-slot instance (and
 ``window_launches`` for its window instance), and ``form_launches[form]``
-for the int8 (``"quant"``), batch-blocked (``"bblock"``) and int8
-batch-blocked (``"quant bblock"``) instances, each with its own
-``form + " window"``; :func:`launch_counts` lists them all by the names
-:func:`instance_name` gives.
+for the int8 (``"quant"``), batch-blocked (``"bblock"``), int8
+batch-blocked (``"quant bblock"``) and stats (``"stats"``, ``"quant
+stats"``: K6, counted on ``decode_attend_dense``) instances, each with its
+own ``form + " window"``; :func:`launch_counts` lists them all by the
+names :func:`instance_name` gives.
 """
 
 from __future__ import annotations
@@ -139,13 +147,11 @@ def _attention_lib():
     return fn
 
 
-def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
-                      limits, layer: int, window: int, bblock: int
-                      ) -> torch.Tensor:
-    """Check the operands of the dense attention kernel and launch it
-    (int8 when ``cache_ks`` is given; the window instance when ``window``
-    > 0; the batch-blocked form when ``bblock`` > 1). q: [B, R, Hq, D];
-    returns [B, R, Hq, D]."""
+def _check_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
+                     limits, layer: int, window: int, bblock: int) -> tuple:
+    """Check the operands of the dense attention kernel (int8 when
+    ``cache_ks`` is given): q [B, R, Hq, D], cache [L, B, Hkv, S, D],
+    limits [B] int32. Returns (B, R, Hkv, G, D, S, scale caches)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if window < 0:
@@ -183,6 +189,19 @@ def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
     _check_cuda(what, (q, cache_k, cache_v, limits) + scales,
                 (cache_k, cache_v))
+    return B, R, Hkv, G, D, S, scales
+
+
+def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
+                      limits, layer: int, window: int, bblock: int
+                      ) -> torch.Tensor:
+    """Check the operands of the dense attention kernel and launch it
+    (int8 when ``cache_ks`` is given; the window instance when ``window``
+    > 0; the batch-blocked form when ``bblock`` > 1). q: [B, R, Hq, D];
+    returns [B, R, Hq, D]."""
+    B, R, Hkv, G, D, S, scales = _check_attention(
+        what, q, cache_k, cache_v, cache_ks, cache_vs, limits, layer, window,
+        bblock)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -190,37 +209,39 @@ def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(out.data_ptr(), q.data_ptr(), cache_k.data_ptr(),
-                cache_v.data_ptr(), cache_ks.data_ptr() if quant else None,
-                cache_vs.data_ptr() if quant else None, limits.data_ptr(), B,
+                cache_v.data_ptr(), cache_ks.data_ptr() if scales else None,
+                cache_vs.data_ptr() if scales else None, limits.data_ptr(), B,
                 Hkv, G, R, D, S, layer, window, 1.0 / math.sqrt(D),
                 _DTYPE_CODES[q.dtype],
-                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], bblock,
+                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], bblock,
                 stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     return out
 
 
-def _form(quant: bool, bblock: int) -> str:
+def _form(quant: bool, bblock: int, stats: bool = False) -> str:
     return " ".join(name for name, on in (("quant", quant),
-                                          ("bblock", bblock > 1)) if on)
+                                          ("bblock", bblock > 1),
+                                          ("stats", stats)) if on)
 
 
 def instance_name(entry: str, quant: bool, bblock: int = 1,
-                  window: int = 0) -> str:
+                  window: int = 0, stats: bool = False) -> str:
     """The :func:`launch_counts` name of an attention kernel instance:
     the wrapper's name, then "quant" (int8 cache), "bblock" (``bblock`` >
-    1) and "window" (``window`` > 0) as they apply."""
-    form = _form(quant, bblock)
+    1), "stats" (K6) and "window" (``window`` > 0) as they apply."""
+    form = _form(quant, bblock, stats)
     return entry + (" " + form if form else "") + \
         (" window" if window > 0 else "")
 
 
-def _count(fn, quant: bool, bblock: int, window: int) -> None:
+def _count(fn, quant: bool, bblock: int, window: int,
+           stats: bool = False) -> None:
     """One launch of ``fn``'s kernel instance: the bf16/f32 one-slot
     instance in ``launches`` (its window instance also in
     ``window_launches``), the others in ``form_launches``."""
-    form = _form(quant, bblock)
+    form = _form(quant, bblock, stats)
     if not form:
         fn.launches += 1
         fn.window_launches += window > 0
@@ -256,6 +277,99 @@ def decode_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
                             cache_ks, cache_vs, lengths, layer, window, bb)
     _count(decode_attend_dense, cache_ks is not None, bb, window)
     return out
+
+
+def dense_attention_stats_plain(q: torch.Tensor, cache_k: torch.Tensor,
+                                cache_v: torch.Tensor, lengths: torch.Tensor,
+                                layer: int,
+                                cache_ks: Optional[torch.Tensor] = None,
+                                cache_vs: Optional[torch.Tensor] = None
+                                ) -> tuple:
+    """Plain version of :func:`decode_attend_dense_stats`: q [B, 1, Hq, D];
+    one layer of the cache [L, B, Hkv, S, D] (int8 with the scale caches
+    ``cache_ks``/``cache_vs`` [L, B, Hkv, S]); slot b attends its rows
+    [0, lengths[b]). Returns the float32 flash triple as the kernel leaves
+    it: acc [B, Hq, D] = sum_j p_j v_j (int8: p_j * vs_j times the int8
+    v_j), m [B, Hq] = max_j s_j and l [B, Hq] = sum_j p_j, with s_j =
+    (q / sqrt(D)) . k_j (int8: times ks_j) and p_j = exp(s_j - m). A slot
+    with no row gives (0, -1e30, 0)."""
+    B, _, Hq, D = q.shape
+    k, v = cache_k[layer], cache_v[layer]
+    Hkv, S = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(B, Hkv, Hq // Hkv, D).float() * (1.0 / math.sqrt(D))
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float())
+    if cache_ks is not None:
+        s = s * cache_ks[layer][:, :, None, :]
+    live = (torch.arange(S, device=q.device)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]         # [B,1,1,S]
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    # masked columns add exactly 0, as exp(-1e30 - m) does in the kernel;
+    # a slot with no live column keeps m = -1e30, l = 0 and acc = 0
+    p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
+    l_sum = p.sum(dim=-1)
+    if cache_vs is not None:
+        p = p * cache_vs[layer][:, :, None, :]
+    acc = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    return (acc.reshape(B, Hq, D), m.reshape(B, Hq), l_sum.reshape(B, Hq))
+
+
+def _stats_lib():
+    lib = cuda_build.load("dense_attention")
+    fn = lib.dense_attention_stats
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, ctypes.c_float, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def decode_attend_dense_stats(q: torch.Tensor, cache_k: torch.Tensor,
+                              cache_v: torch.Tensor, lengths: torch.Tensor,
+                              layer: int,
+                              cache_ks: Optional[torch.Tensor] = None,
+                              cache_vs: Optional[torch.Tensor] = None
+                              ) -> tuple:
+    """K6: flash decode over one layer of one sequence shard of the dense
+    cache, returning the unnormalized float32 flash triple for a
+    log-sum-exp merge across shards (``ops/attention.merge_stats``).
+
+    q: [B, 1, Hq, D] bf16 or f32; cache [L, B, Hkv, S_local, D] of q's
+    type, or int8 with ``cache_ks``/``cache_vs`` [L, B, Hkv, S_local]
+    float32; lengths [B]: the rows slot b holds in this shard. Returns
+    (acc [B, Hq, D], m [B, Hq], l [B, Hq]), float32; a slot with no row
+    here gives (0, -1e30, 0). No window and no block: the sequence-parallel
+    decode takes neither. CPU tensors take
+    :func:`dense_attention_stats_plain`; CUDA tensors launch the kernel."""
+    q, lengths = q.contiguous(), lengths.to(torch.int32)
+    if q.device.type == "cpu":
+        return dense_attention_stats_plain(q, cache_k, cache_v, lengths,
+                                           layer, cache_ks, cache_vs)
+    what = "decode_attend_dense_stats"
+    B, R, Hkv, G, D, S, scales = _check_attention(
+        what, q, cache_k, cache_v, cache_ks, cache_vs, lengths, layer, 0, 1)
+    if R != 1:
+        raise ValueError(f"{what}: one query row per slot, got {R}")
+    dev = q.device
+    acc = torch.empty((B, Hkv * G, D), dtype=torch.float32, device=dev)
+    m = torch.empty((B, Hkv * G), dtype=torch.float32, device=dev)
+    l_sum = torch.empty_like(m)
+    if B == 0:
+        return acc, m, l_sum
+    fn = _stats_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(acc.data_ptr(), m.data_ptr(), l_sum.data_ptr(), q.data_ptr(),
+                cache_k.data_ptr(), cache_v.data_ptr(),
+                cache_ks.data_ptr() if scales else None,
+                cache_vs.data_ptr() if scales else None, lengths.data_ptr(),
+                B, Hkv, G, D, S, layer, 1.0 / math.sqrt(D),
+                _DTYPE_CODES[q.dtype],
+                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    _count(decode_attend_dense, bool(scales), 1, 0, stats=True)
+    return acc, m, l_sum
 
 
 def spec_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
@@ -429,7 +543,8 @@ def cache_write_rows_quant_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 # the attention wrappers also count their window instance's launches and
 # their other instances' (form_launches)
-_FORMS = {"decode_attend_dense": ("quant", "bblock", "quant bblock"),
+_FORMS = {"decode_attend_dense": ("quant", "bblock", "quant bblock",
+                                   "stats", "quant stats"),
           "spec_attend_dense": ("quant",)}
 _WINDOWED = (decode_attend_dense, spec_attend_dense)
 _COUNTED = _WINDOWED + (cache_write_rows_dense, cache_write_rows_quant_dense)
@@ -449,11 +564,14 @@ reset_launch_counts()
 def launch_counts() -> dict:
     """{wrapper name: launches} and, for the attention wrappers,
     {name + " window": launches of the window instance} and
-    {name + " " + form (+ " window"): launches of that instance}."""
+    {name + " " + form (+ " window"): launches of that instance}; the
+    stats instances (K6) have no window instance."""
     out = {fn.__name__: fn.launches for fn in _COUNTED}
     for fn in _WINDOWED:
         out[f"{fn.__name__} window"] = fn.window_launches
         for form in _FORMS[fn.__name__]:
-            for name in (form, form + " window"):
+            # the stats instances take no window
+            windowed = () if "stats" in form else (form + " window",)
+            for name in (form,) + windowed:
                 out[f"{fn.__name__} {name}"] = fn.form_launches[name]
     return out

@@ -21,7 +21,18 @@ this slice reaches. Two layouts of the KV cache, as in the JAX engine:
   chunking slot's garbage decode row lands at the walk's frontier, which
   the next chunk overwrites). Decode attends through the dense kernels
   with ``decode_bblock`` slots per CTA (K5 when > 1; the paged kernel
-  takes no block).
+  takes no block);
+- dense and sequence-parallel (a mesh with ``sp`` > 1: ``mesh=`` or
+  ``ServingConfig.mesh``, the JAX engine's long-context layout): the dense
+  cache's sequence axis split into ``sp`` shards
+  (``parallel/sharding.init_cache_sharded``), each on its mesh device; the
+  parameters whole on the mesh's lead device. Decode attends every shard
+  through K6 and merges the shards' partial softmaxes with a log-sum-exp;
+  the prefills write each row in the shard that holds it. As in the JAX
+  engine the layout is dense whatever ``paged`` says, speculation is off,
+  and a sliding window or a window that does not split into 8-row-aligned
+  shards is refused; a mesh with ``dp``, ``tp``, ``pp`` or ``ep`` > 1 is
+  refused (not ported yet).
 
 Differences from the JAX engine:
 
@@ -79,6 +90,9 @@ from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import \
     fit_bblock
+from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
+    init_cache_sharded, sp_size)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
@@ -142,9 +156,13 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: dict, serving: ServingConfig,
                  eos_token_id: Optional[int] = None, device=None,
-                 draft: Optional[tuple] = None):
+                 draft: Optional[tuple] = None, mesh=None):
         """``draft=(draft_cfg, draft_params)`` is the draft model of
-        ``spec_method="draft"``; its vocabulary must cover the target's."""
+        ``spec_method="draft"``; its vocabulary must cover the target's.
+        ``mesh`` (``parallel/mesh.make_mesh``; default: built from
+        ``serving.mesh`` when that names more than one device) shards the
+        dense cache over its ``sp`` axis; the engine then runs on the
+        mesh's lead device, and ``device`` may only name its type."""
         check_supported(cfg)
         if serving.weights_dtype not in ("auto", "bf16", "int8"):
             raise ValueError(f"weights_dtype={serving.weights_dtype!r}: "
@@ -155,6 +173,22 @@ class Engine:
             # an unknown value must not silently keep the unquantized pool
             raise ValueError(f"kv_dtype={serving.kv_dtype!r}: expected "
                              f"'auto' or 'int8'")
+        self.mesh = mesh if mesh is not None else self._build_mesh(serving)
+        self.sp = sp_size(self.mesh)
+        if self.mesh is not None:
+            unserved = {a: n for a, n in self.mesh.shape.items()
+                        if a != "sp" and n > 1}
+            if unserved:
+                raise ValueError(
+                    f"mesh {self.mesh.shape}: only the sp axis is served so "
+                    f"far; " + ", ".join(f"{a}={n}" for a, n in
+                                         unserved.items())
+                    + " > 1 is not ported yet")
+            lead = self.mesh.lead
+            if device is not None and torch.device(device).type != lead.type:
+                raise ValueError(f"device {device} is not the mesh's lead "
+                                 f"device {lead}")
+            device = lead
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serving = serving
@@ -173,10 +207,21 @@ class Engine:
         self.max_len = -(-serving.max_cache_len // 256) * 256 \
             if serving.max_cache_len > 256 else serving.max_cache_len
         self.max_len = min(self.max_len, cfg.max_seq_len)
+        if self.sp > 1 and cfg.sliding_window > 0:
+            raise ValueError(
+                "sequence-parallel serving (sp > 1) does not compose with "
+                "sliding-window attention: the window straddles shard "
+                "boundaries (serve the model with full attention)")
+        if self.sp > 1 and self.max_len % (self.sp * 8):
+            raise ValueError(
+                f"cache window {self.max_len} must split into 8-row-aligned "
+                f"sequence shards; not divisible by sp={self.sp} * 8")
         self.buckets = tuple(b for b in serving.prefill_buckets
                              if b <= self.max_len)
         quant = serving.kv_dtype == "int8"
-        self.paged = bool(serving.paged)
+        # sp shards the sequence axis, which the paged pool does not have:
+        # the dense layout, as in the JAX engine
+        self.paged = bool(serving.paged) and self.sp == 1
         # slots per CTA of the dense cache's decode kernel (K5 when > 1)
         self.decode_bblock = fit_bblock(serving.decode_bblock,
                                         self.num_slots)
@@ -199,6 +244,11 @@ class Engine:
             self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
             self.table = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
+        elif self.sp > 1:
+            # every slot reserves its whole window, split over the shards
+            self.cache = init_cache_sharded(cfg, self.num_slots,
+                                            self.max_len, self.dtype,
+                                            self.mesh, quant=quant)
         else:
             # every slot reserves its whole window of rows
             self.cache = kvc.init_cache(cfg, self.num_slots, self.max_len,
@@ -240,7 +290,7 @@ class Engine:
         # that they advance
         self._spec_plain_due = False
         self.draft: Optional[DraftModel] = None
-        if serving.spec_method == "draft" and serving.spec_decode:
+        if serving.spec_method == "draft" and self.spec_decode:
             if draft is None:
                 raise ValueError("spec_method='draft' requires draft="
                                  "(draft_cfg, draft_params)")
@@ -251,6 +301,21 @@ class Engine:
                     f"vocab ({cfg.vocab_size}): drafts are target token ids")
             self.draft = DraftModel(dcfg, _to_device(dparams, self.device),
                                     self.num_slots, self.max_len, self.device)
+
+    @property
+    def spec_decode(self) -> bool:
+        """Whether decode speculates: ``serving.spec_decode``, except under
+        sp, whose merge has no multi-row (verify) form (plain decode, as in
+        the JAX engine)."""
+        return bool(self.serving.spec_decode) and self.sp == 1
+
+    @staticmethod
+    def _build_mesh(serving: ServingConfig):
+        """The serving mesh of ``serving.mesh`` over the visible cards (None
+        for a single device; the JAX engine's ``_build_mesh``)."""
+        if serving.mesh.num_devices <= 1:
+            return None
+        return make_mesh(serving.mesh)
 
     # -- submission ---------------------------------------------------------
 
@@ -564,7 +629,7 @@ class Engine:
             else max(1, self.serving.decode_horizon)
         if max_horizon is not None:
             horizon = min(horizon, max_horizon)
-        spec, K = self.serving.spec_decode, self.serving.spec_k
+        spec, K = self.spec_decode, self.serving.spec_k
         if self.draft is not None:
             # one plain dispatch must fit one catch-up dispatch of K + 1 rows
             horizon = min(horizon, K + 1)
@@ -589,9 +654,10 @@ class Engine:
             self._dev(self.lengths), self._table_dev(),
             self._dev(self.temps), self._dev(self.top_ks),
             self._dev(self.top_ps), self._dev(self.seeds),
-            bblock=self.decode_bblock)
+            bblock=self.decode_bblock, mesh=self.mesh)
         out = out.cpu().numpy()
         self.counts["decode_dispatches"] += 1
+        self.counts["decode_substeps"] += horizon
         for s in range(horizon):
             for slot in active:
                 if self.slot_req[slot] is None:

@@ -1,8 +1,9 @@
 """Int8 KV quantization: the per-row rule that K3, K9 and the prefill
 scatters apply, its inverse, and the cache's size in bytes; and the dense
 slot cache (:func:`init_cache`) that the dense engine (``paged=False``) and
-the draft model keep, with its prompt and chunk scatters and its plain row
-write (the plain version of K8 and, int8, of K9).
+the draft model keep, with its prompt and chunk scatters (also into a
+cache split into sequence shards, ``parallel/sharding.init_cache_sharded``)
+and its plain row write (the plain version of K8 and, int8, of K9).
 
 K/V rows are stored int8 with one float32 scale per (layer, page or slot,
 kv head, row), the per-token-per-head dynamic scheme of the JAX package's
@@ -97,13 +98,34 @@ def _put(cache: dict, index: tuple, k: torch.Tensor, v: torch.Tensor):
             cache[name][index] = new.to(cache[name].dtype)
 
 
-def write_prompts(cache: dict, layer: int, slots: torch.Tensor,
-                  k: torch.Tensor, v: torch.Tensor) -> dict:
+def shard_spans(shards: list, lo: int, hi: int):
+    """For a cache split into sequence shards (``parallel/sharding``:
+    shard i holds the global rows [i * S_local, (i + 1) * S_local)): each
+    shard holding some of the global rows [lo, hi), with that part as
+    (shard, global first row, global end row, the shard's offset)."""
+    s_local = shards[0]["k"].shape[3]
+    for i, shard in enumerate(shards):
+        off = i * s_local
+        a, b = max(lo, off), min(hi, off + s_local)
+        if a < b:
+            yield shard, a, b, off
+
+
+def write_prompts(cache, layer: int, slots: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor):
     """Batched prompt write for one layer of the dense cache, in place:
     prompt n's rows [0, T) land in slot ``slots[n]`` (the padded tail too;
     decode masks by length), quantized into an int8 cache. k/v:
     [N, T, Hkv, D]; slots outside the cache drop, as the JAX scatter's
-    ``mode="drop"`` drops them."""
+    ``mode="drop"`` drops them. A cache split into sequence shards (a list
+    of such dicts) takes each row in the shard that holds it, on that
+    shard's device."""
+    if isinstance(cache, list):
+        for shard, a, b, off in shard_spans(cache, 0, k.shape[1]):
+            dev = shard["k"].device
+            write_prompts(shard, layer, slots.to(dev), k[:, a:b].to(dev),
+                          v[:, a:b].to(dev))
+        return cache
     num_slots, T = cache["k"].shape[1], k.shape[1]
     keep = ((slots >= 0) & (slots < num_slots)).nonzero().squeeze(1)
     _put(cache, (layer, slots.long()[keep], slice(None), slice(0, T)),
@@ -111,12 +133,22 @@ def write_prompts(cache: dict, layer: int, slots: torch.Tensor,
     return cache
 
 
-def write_chunk(cache: dict, layer: int, slot: int, start: int,
-                k: torch.Tensor, v: torch.Tensor) -> dict:
+def write_chunk(cache, layer: int, slot: int, start: int,
+                k: torch.Tensor, v: torch.Tensor):
     """One prefill chunk's K/V rows into rows [start, start + C) of one
     slot of one layer, in place (quantized into an int8 cache); rows at or
     past the window drop, as the JAX scatter's ``mode="drop"`` drops them
-    (a final chunk is never shifted back). k/v: [1, C, Hkv, D]."""
+    (a final chunk is never shifted back). k/v: [1, C, Hkv, D]. A cache
+    split into sequence shards takes each row in the shard that holds it,
+    at its local row."""
+    if isinstance(cache, list):
+        for shard, a, b, off in shard_spans(cache, start,
+                                             start + k.shape[1]):
+            dev = shard["k"].device
+            write_chunk(shard, layer, slot, a - off,
+                        k[:, a - start:b - start].to(dev),
+                        v[:, a - start:b - start].to(dev))
+        return cache
     S, C = cache["k"].shape[3], k.shape[1]
     n = max(0, min(C, S - start))
     _put(cache, (layer, slot, slice(None), slice(start, start + n)),

@@ -24,6 +24,10 @@ cache (updated in place) and device tensors, with the JAX package's
 The paged pool serves the target model of the paged engine; the dense slot
 cache (``kv_cache.init_cache``) the dense engine (``paged=False``) and the
 draft model of speculative decoding, bf16/f32 or (the dense engine's) int8.
+Under a mesh with ``sp`` > 1 the dense cache is a list of sequence shards
+(``parallel/sharding.init_cache_sharded``): ``prefill_batch_step`` and
+``prefill_chunk_step`` take it as it is (their callbacks write each row in
+the shard that holds it), ``decode_steps`` takes the mesh.
 
 Each honours the model's ``cfg.sliding_window`` in every attention of the
 step (prefill, decode, chunk rows and verify rows alike).
@@ -104,26 +108,28 @@ def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
     return cache, sample(last, temperature, top_k, top_p, seed, ctr)
 
 
-def decode_steps(model: DecoderLM, n_steps: int, pool: dict,
+def decode_steps(model: DecoderLM, n_steps: int, pool,
                  tokens: torch.Tensor, lengths: torch.Tensor,
                  table: Optional[torch.Tensor], temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 seeds: torch.Tensor, bblock: int = 1):
+                 seeds: torch.Tensor, bblock: int = 1, mesh=None):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
     table: [B, max_pages] int32 for the paged pool, None for the dense
     cache; seeds [B]; ``bblock``: slots per CTA of the dense cache's decode
-    kernel (K5 when > 1; the paged kernel takes none). Returns
-    (pool, out [n_steps, B]). Slots that stop mid-horizon produce surplus
-    tokens the host discards; their surplus K/V rows land past the slot's
-    length (or drop past the window).
+    kernel (K5 when > 1; the paged kernel takes none); ``mesh``: with an
+    ``sp`` axis larger than 1, the dense cache is a list of sequence shards
+    and each substep attends them through K6 and the log-sum-exp merge.
+    Returns (pool, out [n_steps, B]). Slots that stop mid-horizon produce
+    surplus tokens the host discards; their surplus K/V rows land past the
+    slot's length (or drop past the window).
     """
     out = []
     tok, lens = tokens, lengths
     window = model.cfg.sliding_window
     for _ in range(n_steps):
-        attend = make_decode_attend_carry(lens, window, bblock) \
+        attend = make_decode_attend_carry(lens, window, bblock, mesh) \
             if table is None \
             else make_decode_attend_carry_paged(lens, table, window)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,

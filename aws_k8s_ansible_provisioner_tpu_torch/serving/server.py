@@ -5,6 +5,12 @@ of the JAX server's completions response; the OpenAI ``seed`` makes a
 sampled completion repeatable) and ``GET /health``, over a
 ``ThreadingHTTPServer`` with the engine stepping on its own thread.
 
+A completions request reads ``prompt``, ``max_tokens``, ``temperature``,
+``top_k``, ``top_p``, ``ignore_eos`` and ``seed``. Every other request
+field that the JAX server honours is refused with 400, naming the field,
+unless it holds its neutral value (:data:`UNSERVED_FIELDS`): a completion
+that silently ignored it would be a wrong answer.
+
 Without a checkpoint the server runs seeded random weights and the byte
 tokenizer, as the JAX server does without ``--checkpoint-dir``::
 
@@ -28,6 +34,55 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 log = logging.getLogger(__name__)
+
+
+def _number(x):
+    """x as a float when it is a JSON number (not a boolean), else None."""
+    if isinstance(x, bool) or not isinstance(x, (int, float)):
+        return None
+    return float(x)
+
+
+def _is_number(value):
+    return lambda x: _number(x) == value
+
+
+# The JAX server's completions fields the port does not serve yet (its
+# serving/server.py:738-954), each with the test of its neutral value: a
+# request that sets one of them to anything else is refused. null (or the
+# field left out) is neutral for every one.
+UNSERVED_FIELDS = {
+    "stop": lambda x: x == "" or x == [],
+    "stop_token_ids": lambda x: x == [],
+    "min_tokens": _is_number(0.0),
+    "n": _is_number(1.0),
+    # best_of must equal n, and n is refused unless it is 1
+    "best_of": _is_number(1.0),
+    "echo": lambda x: x is False,
+    "prompt_logprobs": lambda x: False,
+    "logprobs": lambda x: x is False,
+    "top_logprobs": _is_number(0.0),
+    "logit_bias": lambda x: x == {},
+    "presence_penalty": _is_number(0.0),
+    "frequency_penalty": _is_number(0.0),
+    "repetition_penalty": _is_number(1.0),
+    "resume_token_ids": lambda x: False,
+    "response_format": lambda x: isinstance(x, dict) and set(x) <= {"type"}
+    and x.get("type") in (None, "text"),
+    "guided_json": lambda x: False,
+    "guided_regex": lambda x: False,
+    "guided_choice": lambda x: False,
+}
+
+
+def unserved_field(body: dict) -> Optional[str]:
+    """The first field of :data:`UNSERVED_FIELDS` that ``body`` sets to a
+    value other than null or its neutral one, or None."""
+    for name, neutral in UNSERVED_FIELDS.items():
+        value = body.get(name)
+        if value is not None and not neutral(value):
+            return name
+    return None
 
 
 class ServerState:
@@ -56,12 +111,15 @@ class ServerState:
 def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                 device=None, seed: int = 0) -> ServerState:
     """Wire tokenizer, params and engine into a ServerState. Without a
-    checkpoint: random weights from ``seed`` and the byte tokenizer."""
+    checkpoint: random weights from ``seed`` and the byte tokenizer. A
+    ``serving.mesh`` of more than one device takes that many CUDA cards
+    (the engine's ``_build_mesh``), or on the CPU repeats the CPU."""
     import torch
 
     from aws_k8s_ansible_provisioner_tpu_torch.config import (
         MODEL_REGISTRY, ServingConfig, tiny_qwen3)
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
         quantize_params
@@ -93,7 +151,11 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         if serving.weights_dtype == "int8":
             # drop the unquantized tree before the engine sizes its pool
             params = quantize_params(params, model_cfg)
-    engine = Engine(model_cfg, params, serving, device=dev)
+    mesh = None
+    if dev.type == "cpu" and serving.mesh.num_devices > 1:
+        # a dry run on the CPU: every shard of the mesh on the CPU
+        mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices)
+    engine = Engine(model_cfg, params, serving, device=dev, mesh=mesh)
     return ServerState(engine, tokenizer, serving.model)
 
 
@@ -154,6 +216,10 @@ class Handler(BaseHTTPRequestHandler):
         st = self.state
         if body.get("stream"):
             return self._error(400, "streaming is not supported yet")
+        field = unserved_field(body)
+        if field is not None:
+            return self._error(400, f"'{field}' is not supported yet (only "
+                                    f"its neutral value is accepted)")
         prompt = body.get("prompt", "")
         if isinstance(prompt, list) and all(isinstance(t, int)
                                             for t in prompt):
@@ -215,7 +281,8 @@ def make_server(state: ServerState, host: str, port: int
 
 
 def main(argv=None):
-    from aws_k8s_ansible_provisioner_tpu_torch.config import ServingConfig
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              ServingConfig)
 
     p = argparse.ArgumentParser(description="OpenAI-compatible LLM server "
                                             "(PyTorch/CUDA port)")
@@ -248,6 +315,11 @@ def main(argv=None):
                         "unchanged)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens verified per speculative step")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: the dense KV cache's "
+                        "sequence axis split over sp cards, decode merging "
+                        "the shards' flash partials (needs sp cards; with "
+                        "--device cpu every shard on the CPU)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -262,7 +334,7 @@ def main(argv=None):
         dtype=args.dtype, weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
         decode_bblock=args.decode_bblock, spec_decode=args.spec_decode,
-        spec_k=args.spec_k)
+        spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp))
     state = build_state(serving, device=args.device, seed=args.seed)
     server = make_server(state, args.host, args.port)
     state.start_engine()

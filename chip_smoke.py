@@ -68,7 +68,24 @@ result when either is missing. Phases, in order (any failure raises):
    over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
    Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
    with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
-   8). In every dense run the paged kernels' counts must be 0.
+   8). In every dense run the paged kernels' counts must be 0;
+10. sequence-parallel serving (after the window kernels, the kernels phase
+   "kernels, sp"): K6, the stats form of the dense decode, bf16 and int8,
+   over every shard of a dense cache [28, 4, 8, 32768, 128] split into 4
+   and into 2 sequence shards, against its plain version (the empty
+   shards exactly (0, -1e30, 0)), the shards merged as the engine merges
+   them against K4 (int8: K4-int8) over the whole cache by the ulp rule,
+   timed beside its plain version and a memory-efficient attention call
+   that returns the log-sum-exp; then, last, Qwen3-0.6B at full width
+   with 4 slots of 32768 rows, prefill_chunk 512 and prompts of about 40,
+   6,000, 14,000 and 27,000 tokens (32 new tokens each): the dense engine
+   without a mesh (the yardstick), then ``Engine(..., mesh=)`` over
+   ``[cuda:0] * sp`` with bf16 KV at sp 4 and sp 2 and int8 KV at sp 4
+   (with a seeded sampled request, drawn twice), each with launch counts
+   zeroed just before and read just after (K6 and the row write ``L x
+   sp`` times per decode substep, no other kernel), one decode step of
+   all 4 slots held against the plain versions, the bf16 greedy streams
+   compared with the yardstick's, and the HTTP server over the int8 one.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -464,11 +481,11 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
     return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
 
 
-def _dense_name(entry, quant, bb=1, window=0):
+def _dense_name(entry, quant, bb=1, window=0, stats=False):
     """Launch-count name of a dense attention kernel instance."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
-    return da.instance_name(entry, quant, bb, window)
+    return da.instance_name(entry, quant, bb, window, stats)
 
 
 def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
@@ -960,6 +977,12 @@ def _finish_ok(cfg, req, n):
 def _cache_layout(engine):
     """How an engine keeps its KV, for the logs."""
     serving = engine.serving
+    if isinstance(engine.cache, list):
+        gib = sum(_tree_bytes(sh) for sh in engine.cache) / 2**30
+        return (f"dense cache {engine.num_slots} slots x {engine.max_len} "
+                f"rows in {len(engine.cache)} sequence shards of "
+                f"{engine.max_len // len(engine.cache)} rows ({gib:.2f} "
+                f"GiB)")
     gib = _tree_bytes(engine.cache) / 2**30
     if engine.paged:
         return (f"page {serving.page_size}, {serving.max_decode_slots} "
@@ -1104,22 +1127,25 @@ def phase_profile(torch, np, engine):
     return wall_ms
 
 
-def _profile_dispatch(torch, engine, tag):
-    """One engine step (a decode dispatch) timed by the host clock, then
-    the next under torch.profiler: device time by kernel and the device's
-    idle share."""
+def _profile_dispatch(torch, engine, tag, step=None, n_slots=None):
+    """One engine step (a decode dispatch; or ``step()``, a dispatch of
+    ``n_slots`` slots) timed by the host clock, then the next under
+    torch.profiler: device time by kernel and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    step = step or engine.step
+    if n_slots is None:
+        n_slots = len(engine._active_slots())
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    engine.step()
+    step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.monotonic() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.step()
+        step()
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.monotonic() - t0)
     # device-side events only (kernels, memcpy/memset): their self time on
@@ -1129,7 +1155,7 @@ def _profile_dispatch(torch, engine, tag):
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     horizon = engine.serving.decode_horizon
-    log(f"{tag} decode dispatch, {len(engine._active_slots())} active "
+    log(f"{tag} decode dispatch, {n_slots} active "
         f"slots, horizon {horizon}: wall {wall_ms:.2f} ms "
         f"({wall_ms / horizon:.2f} ms per substep)")
     if not events:
@@ -1209,30 +1235,36 @@ def phase_logits(torch, np, engine):
     return err
 
 
-def _logits_check(torch, engine, tol):
-    """The next decode step of the engine's active slots through the
-    kernels and through the plain versions: logits within ``tol``; and in
-    the kernels' step, every layer's attention output held against the
+def _logits_check(torch, engine, tol, slots=None):
+    """The next decode step of the engine's active slots (or of ``slots``:
+    a dense slot keeps its rows and its length after it finishes) through
+    the kernels and through the plain versions: logits within ``tol``; and
+    in the kernels' step, every layer's attention output held against the
     plain version on the same inputs by the kernels' ulp rule (before the
     layers amplify the rounding). With a sliding window, the same step
     through the kernels at window 0 must differ by more than ``tol`` (the
     window is applied). Every forward runs on the engine's own pool or
     dense cache: each writes the step's K/V row at every layer before any
     row attends it, so none reads another's rows, and the engine's next
-    step rewrites them. The dense engine's step takes its decode_bblock."""
+    step rewrites them. The dense engine's step takes its decode_bblock.
+    A sequence-parallel engine's kernels step writes each shard and merges
+    K6's triples (its decode callback); its plain step writes each shard
+    through the plain writers at the local rows and attends the rows
+    gathered from the shards in order."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
         make_decode_attend_carry, make_decode_attend_carry_paged)
 
-    active = engine._active_slots()
+    active = engine._active_slots() if slots is None else list(slots)
     dev = engine.device
     window = engine.cfg.sliding_window
     tok = torch.from_numpy(engine.last_token.copy()).to(dev)
     lens = torch.from_numpy(engine.lengths.copy()).to(dev)
     pool = engine.cache
-    quant = "ks" in pool
-    scales = (pool["ks"], pool["vs"]) if quant else ()
+    shards = pool if isinstance(pool, list) else [pool]
+    quant = "ks" in shards[0]
+    scales = (shards[0]["ks"], shards[0]["vs"]) if quant else ()
     rows = torch.tensor(active, device=dev)
     lengths = [int(engine.lengths[s]) for s in active]
     if engine.paged:
@@ -1251,6 +1283,24 @@ def _logits_check(torch, engine, tol):
 
         def kernel_attend(w):
             return make_decode_attend_carry_paged(lens, table, w)
+    elif len(shards) > 1:
+        s_local = shards[0]["k"].shape[3]
+
+        def plain_ctx(q, layer):
+            rows = {n: torch.cat([sh[n][layer] for sh in shards],
+                                 dim=2)[None] for n in shards[0]}
+            return da.dense_attention_plain(q.contiguous(), rows["k"],
+                                            rows["v"], lens + 1, 0, window,
+                                            rows.get("ks"), rows.get("vs"))
+
+        def plain_write(k, v, layer):
+            fn = da.cache_write_rows_quant_dense_plain if quant \
+                else da.cache_write_rows_dense_plain
+            for i, sh in enumerate(shards):
+                fn(*sh.values(), k, v, (lens - i * s_local)[:, None], layer)
+
+        def kernel_attend(w):
+            return make_decode_attend_carry(lens, w, 1, engine.mesh)
     else:
         def plain_ctx(q, layer):
             return da.dense_attention_plain(q.contiguous(), pool["k"],
@@ -1300,7 +1350,8 @@ def _logits_check(torch, engine, tol):
         msg = (f"; the same step at window 0 differs by {d0:.3e} (must "
                f"exceed the tol)")
     layout = "paged" if engine.paged else \
-        f"dense, {engine.decode_bblock} slots per CTA"
+        f"dense, {engine.decode_bblock} slots per CTA" if len(shards) == 1 \
+        else f"dense, sp {len(shards)}"
     log(f"[logits {engine.cfg.name}] {'int8' if quant else 'bf16'} KV "
         f"({layout}), decode step over {len(active)} active slots (lengths "
         f"{lengths}): every layer's attention vs plain: worst row max "
@@ -1915,6 +1966,377 @@ def phase_mistral_draft(torch, np):
     return launches
 
 
+# -- sequence-parallel serving (K6 and the log-sum-exp merge) ------------------
+
+# the sp engine runs: Qwen3-0.6B, 4 slots of 32768 rows (8192 rows a shard
+# at sp 4), prompts crossing 0 to 3 shard edges at sp 4
+SP_SLOTS, SP_WINDOW, SP_CHUNK = 4, 32768, 512
+SP_PROMPTS = (40, 6000, 14000, 27000)
+SP_NEW = 32
+# the seeded sampled request of the int8 sp 4 run: its prompt crosses the
+# first shard edge
+SP_SEEDED_PROMPT = 9000
+
+
+def _stats_check(torch, what, got, ref, B):
+    """K6 against its plain version on one shard: m and l within 1e-3
+    relative (m against max(|m|, 1)) on the slots with rows, and acc / l
+    by the ulp rule; a slot
+    with no row in the shard must give exactly (0, -1e30, 0)."""
+    acc, m, l_sum = got
+    racc, rm, rl = ref
+    live = rl[:, 0] > 0
+    empty = ~live
+    if empty.any() and not (bool((m[empty] == -1e30).all())
+                            and not l_sum[empty].any()
+                            and not acc[empty].any()):
+        raise AssertionError(f"{what}: an empty shard is not (0, -1e30, 0)")
+    # m relative to max(|m|, 1): a running max near 0 has no relative scale
+    rel = max(float(((m[live] - rm[live]).abs()
+                     / rm[live].abs().clamp_min(1.0)).max()),
+              float(((l_sum[live] - rl[live]).abs() / rl[live]).max())) \
+        if live.any() else 0.0
+    if not rel <= 1e-3:
+        raise AssertionError(f"{what}: m or l off by {rel:.3e} relative")
+    n = int(live.sum())
+    check = _ulp_rows(torch, what, (acc / l_sum[..., None])[live],
+                      (racc / rl[..., None])[live], n,
+                      lambda bad: f"live slots {bad.tolist()}")
+    return {**check, "m_l_rel_err": rel, "empty_slots": int(empty.sum())}
+
+
+def _lse_library_ms(torch, q4, kd, vd, bias):
+    """Yardstick of K6: one memory-efficient attention call that also
+    returns the log-sum-exp (``_scaled_dot_product_efficient_attention``
+    with ``compute_log_sumexp``), or SDPA when that op refuses the shapes;
+    returns (ms, the call's name)."""
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        op(q4, kd, vd, bias, True)
+    except RuntimeError as e:
+        log(f"[kernels sp] efficient attention refused the shapes "
+            f"({str(e).splitlines()[0][:200]}); SDPA instead")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return timed_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=bias)), \
+            "scaled_dot_product_attention"
+    return timed_ms(torch, lambda: op(q4, kd, vd, bias, True)), \
+        "_scaled_dot_product_efficient_attention(compute_log_sumexp=True)"
+
+
+def _k6_case(torch, np, shard, local_np, q, layer, label):
+    """K6 over one shard at its local lengths, against its plain version
+    (:func:`_stats_check`), timed beside the plain version, the library
+    yardstick over the shard's live rows (int8 dequantized to bf16
+    beforehand) and the bound: the live rows' K/V (and scale) bytes, q and
+    the outputs, over the memory rate."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
+        dequantize
+
+    quant = "ks" in shard
+    scales = (shard["ks"], shard["vs"]) if quant else ()
+    dev = q.device
+    B, _, hq, D = q.shape
+    Hkv = shard["k"].shape[2]
+    local = torch.from_numpy(local_np.astype(np.int32)).to(dev)
+    what = f"{_dense_name('decode_attend_dense', quant)} stats {label}"
+
+    def kernel():
+        return da.decode_attend_dense_stats(q, shard["k"], shard["v"], local,
+                                            layer, *scales)
+
+    def plain():
+        return da.dense_attention_stats_plain(q, shard["k"], shard["v"],
+                                              local, layer, *scales)
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check = _stats_check(torch, what, got, ref, B)
+    ms = timed_ms(torch, kernel)
+    plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
+    n = max(int(local_np.max()), 1)
+    kd, vd = (shard[name][layer][:, :, :n] for name in ("k", "v"))
+    if quant:
+        kd = dequantize(kd, shard["ks"][layer][:, :, :n], torch.bfloat16)
+        vd = dequantize(vd, shard["vs"][layer][:, :, :n], torch.bfloat16)
+    q4 = q[:, 0].reshape(B, Hkv, hq // Hkv, D)
+    live = torch.arange(n, device=dev)[None, :] < local[:, None]
+    bias = torch.where(live, 0.0, -1e30).to(q.dtype)[:, None, None, :] \
+        .expand(B, Hkv, hq // Hkv, n).contiguous()
+    library_ms, library = _lse_library_ms(torch, q4, kd.contiguous(),
+                                          vd.contiguous(), bias)
+    del kd, vd
+    row = D * shard["k"].element_size() + (4 if quant else 0)
+    rows = int(local_np.sum())
+    nbytes = (2 * rows * Hkv * row + B * hq * D * 2 + B * hq * (D + 2) * 4
+              + B * 4)
+    ops = 4 * hq * D * rows
+    res = _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B,
+                  extra=f"; library: {library}; m, l within "
+                        f"{check['m_l_rel_err']:.2e} relative; "
+                        f"{check['empty_slots']} empty slots")
+    res["library"] = library
+    return res
+
+
+def phase_kernels_sp(torch, np):
+    """K6 at the sp engine's shapes: a dense cache [28, 4, 8, 32768, 128]
+    (bf16, then int8 with its scales) whose 4 slots hold 41, 6034, 14002
+    and 27033 rows (SP_PROMPTS and a few decode steps), split into 4
+    shards of 8192 rows and into 2 of 16384
+    (each copied out contiguous, as the engine allocates its shards). K6
+    over every shard at its local lengths against its plain version (the
+    empty shards exact), the shards' triples merged as the engine merges
+    them held against K4 (int8: K4-int8) over the whole cache by the ulp
+    rule row by row; K6 over the first shard of the 4 (the busiest) timed
+    beside its plain version, the library yardstick and its bound."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        merge_stats
+
+    L, Hkv, D, hq = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_heads
+    B, S, layer = SP_SLOTS, SP_WINDOW, cfg.num_layers - 1
+    # the rows of the prompts plus a few decode steps
+    lengths = np.array(SP_PROMPTS) + np.array([1, 34, 2, 33])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    out = {}
+    for name in ("bf16", "int8"):
+        quant = name == "int8"
+        full = _dense_cache(torch, gen, (L, B, Hkv, S, D), quant)
+        scales = (full["ks"], full["vs"]) if quant else ()
+        q = torch.randn((B, 1, hq, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        lens = torch.from_numpy(lengths.astype(np.int32)).cuda()
+        k4 = da.decode_attend_dense(q, full["k"], full["v"], lens, layer, 0,
+                                    *scales)[:, 0]
+        res = out[name] = {}
+        for sp in (4, 2):
+            s_local = S // sp
+            parts = []
+            for i in range(sp):
+                shard = {n: t[:, :, :, i * s_local:(i + 1) * s_local]
+                         .contiguous() for n, t in full.items()}
+                local = np.clip(lengths - i * s_local, 0, s_local)
+                label = f"sp {sp} shard {i}, local lengths {local.tolist()}"
+                if sp == 4 and i == 0:
+                    res["stats"] = _k6_case(torch, np, shard, local, q, layer,
+                                            label)
+                else:
+                    local_t = torch.from_numpy(local.astype(np.int32)).cuda()
+                    args = (q, shard["k"], shard["v"], local_t, layer,
+                            *((shard["ks"], shard["vs"]) if quant else ()))
+                    _stats_check(torch, f"K6 {name} {label}",
+                                 da.decode_attend_dense_stats(*args),
+                                 da.dense_attention_stats_plain(*args), B)
+                parts.append(da.decode_attend_dense_stats(
+                    q, shard["k"], shard["v"],
+                    torch.from_numpy(local.astype(np.int32)).cuda(), layer,
+                    *((shard["ks"], shard["vs"]) if quant else ())))
+                del shard
+            merged = merge_stats(*zip(*parts), q.device).to(q.dtype)
+            torch.cuda.synchronize()
+            res[f"merge sp {sp}"] = _ulp_rows(
+                torch, f"K6 {name} merged over {sp} shards vs K4", merged,
+                k4, B, lambda bad: f"lengths {lengths[bad].tolist()}")
+            log(f"[kernels sp] {name}: K6 over {sp} shards of {s_local} rows "
+                f"(lengths {lengths.tolist()}), merged, against "
+                f"{_dense_name('decode_attend_dense', quant)} over the whole "
+                f"cache: worst row max "
+                f"{res[f'merge sp {sp}']['worst_row_max_ulps']:.2f} ulp, "
+                f"mean {res[f'merge sp {sp}']['worst_row_mean_ulps']:.3f} "
+                f"ulp (tol {ATTN_MAX_ULPS}/{ATTN_MEAN_ULPS})")
+            del parts
+            torch.cuda.empty_cache()
+        del full
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_params(torch):
+    """Qwen3-0.6B's seeded random weights, quantized to int8 once for every
+    sp engine run (as the engine would quantize them)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return quantize_params(init_params(QWEN3_0_6B, gen, torch.bfloat16),
+                           QWEN3_0_6B)
+
+
+def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
+    """The sequence-parallel path: Qwen3-0.6B at full width through
+    ``Engine(..., mesh=make_mesh(MeshConfig(sp=sp), [cuda:0] * sp))`` (sp 1:
+    the dense engine without a mesh, the yardstick of the greedy streams),
+    4 slots of 32768 rows, prefill_chunk 512; 4 greedy requests with
+    prompts of SP_PROMPTS tokens and SP_NEW new tokens each, launch counts
+    zeroed just before and read just after: K6 and the row write (K8; int8:
+    K9) each ``L x sp`` times per decode substep and no other attention
+    kernel (sp 1: K4 and the row write). With int8 KV a seeded sampled
+    request rides along and is drawn again alone afterwards: the same
+    stream. The sp 1 run records the top-2 logit gap of every row it
+    samples, by (seed, context length). ``profile``: one decode dispatch
+    of the 4 slots profiled afterwards. Returns (engine, launches, the
+    greedy requests, {(seed, context length): gap} or None)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = QWEN3_0_6B
+    quant = kv_dtype == "int8"
+    serving = ServingConfig(max_decode_slots=SP_SLOTS,
+                            max_cache_len=SP_WINDOW, prefill_chunk=SP_CHUNK,
+                            paged=False, derived_seed=0, kv_dtype=kv_dtype)
+    mesh = make_mesh(MeshConfig(sp=sp), [torch.device("cuda", 0)] * sp) \
+        if sp > 1 else None
+    t0 = time.monotonic()
+    engine = Engine(cfg, params, serving, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    tag = f"[sp {sp} {'int8' if quant else 'bf16'}]"
+    shards = engine.cache if sp > 1 else [engine.cache]
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, vocab {cfg.vocab_size}; int8 weights, KV "
+        f"{'int8' if quant else 'bf16'}; {_cache_layout(engine)}; bytes per "
+        f"shard {[_tree_bytes(sh) for sh in shards]}; set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SP_PROMPTS]
+    seeded = rng.integers(0, cfg.vocab_size, SP_SEEDED_PROMPT).tolist()
+    engine.submit(Request(prompt_ids=prompts[0][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=SP_NEW,
+                                  ignore_eos=True)) for p in prompts]
+    if quant:
+        reqs.append(engine.submit(Request(prompt_ids=seeded,
+                                          max_tokens=SP_NEW, seed=5,
+                                          **SAMPLED)))
+    gaps = _recording_gaps(torch, engine.run_until_idle) if sp == 1 \
+        else engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _launches()
+    counts = dict(engine.counts)
+    n_gen = sum(len(r.generated) for r in reqs)
+    log(f"{tag} {len(reqs)} requests, prompts "
+        f"{[len(r.prompt_ids) for r in reqs]}: {n_gen} tokens in {dt:.2f}s "
+        f"({n_gen / dt:.1f} tok/s end to end, synchronous dispatch); "
+        f"dispatches {counts}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for r in reqs:
+        _finish_ok(cfg, r, SP_NEW)
+    substeps = counts.get("decode_substeps", 0)
+    if substeps <= 0 or counts.get("chunk_dispatches", 0) <= 0:
+        raise AssertionError(f"{tag} no decode substep or no chunk: {counts}")
+    write = "cache_write_rows_quant_dense" if quant \
+        else "cache_write_rows_dense"
+    attn = _dense_name("decode_attend_dense", quant, stats=sp > 1)
+    expected = {attn: cfg.num_layers * sp * substeps,
+                write: cfg.num_layers * sp * substeps}
+    other = {k: v for k, v in launches.items() if v and k not in expected}
+    if any(launches[k] != n for k, n in expected.items()) or other:
+        raise AssertionError(f"{tag} launches {launches}, expected "
+                             f"{expected} ({substeps} decode substeps) and "
+                             f"no other kernel")
+    log(f"{tag} {attn}: {launches[attn]} launches = {cfg.num_layers} layers "
+        f"x sp {sp} x {substeps} decode substeps; {write} the same")
+    if quant:
+        again = engine.submit(Request(prompt_ids=seeded, max_tokens=SP_NEW,
+                                      seed=5, **SAMPLED))
+        engine.run_until_idle()
+        if again.generated != reqs[-1].generated:
+            raise AssertionError(f"{tag} the seeded sampled stream differs "
+                                 f"when drawn again alone")
+        log(f"{tag} seeded sampled request (seed 5, prompt "
+            f"{SP_SEEDED_PROMPT} tokens) beside the 4 greedy ones and again "
+            f"alone: identical {SP_NEW}-token streams, "
+            f"{len(set(again.generated))} distinct tokens")
+    if profile:
+        _profile_sp_decode(torch, engine, tag)
+    return engine, launches, reqs[:len(prompts)], gaps
+
+
+def _recording_gaps(torch, run):
+    """``run()`` with every row the engine samples recorded: {(the row's
+    seed, its context length): top-1 minus top-2 logit}."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+
+    gaps = {}
+    sample = programs.sample
+
+    def recording(logits, temperature, top_k, top_p, seeds, ctrs):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        for key, gap in zip(zip(seeds.tolist(), ctrs.tolist()),
+                            (top2[:, 0] - top2[:, 1]).tolist()):
+            gaps[key] = gap
+        return sample(logits, temperature, top_k, top_p, seeds, ctrs)
+
+    programs.sample = recording
+    try:
+        run()
+    finally:
+        programs.sample = sample
+    return gaps
+
+
+def _profile_sp_decode(torch, engine, tag):
+    """One decode dispatch (horizon decode_horizon) of all 4 slots at the
+    lengths the run left them (a finished dense slot keeps its rows), as
+    ``programs.decode_steps`` with the engine's mesh: host-clock wall, then
+    profiled (device time by kernel, idle share). Its rows land past each
+    slot's length, where nothing attends them before they are rewritten."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import \
+        decode_steps
+
+    args = [engine._dev(a) for a in (engine.last_token, engine.lengths,
+                                     engine.temps * 0,
+                                     engine.top_ks, engine.top_ps,
+                                     engine.seeds)]
+    tok, lens, temps, top_ks, top_ps, seeds = args
+
+    def step():
+        decode_steps(engine.model, engine.serving.decode_horizon,
+                     engine.cache, tok, lens, None, temps, top_ks, top_ps,
+                     seeds, mesh=engine.mesh)
+
+    log(f"{tag} profiled decode at lengths {engine.lengths.tolist()}")
+    return _profile_dispatch(torch, engine, tag, step, engine.num_slots)
+
+
+
+def _greedy_vs_sp1(tag, streams, ref_reqs, ref_gaps):
+    """The sp engine's greedy streams against the sp 1 dense engine's on the
+    same weights and prompts: how many are identical, and for each that
+    parts, the token where it parts and the sp 1 engine's top-2 logit gap
+    at that draw (recorded in its run)."""
+    ref_streams = [r.generated for r in ref_reqs]
+    same = sum(a == b for a, b in zip(streams, ref_streams))
+    parts = []
+    for r, a, b in zip(ref_reqs, streams, ref_streams):
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            parts.append((len(r.prompt_ids), step,
+                          ref_gaps[(r.eff_seed, len(r.prompt_ids) + step)]))
+    log(f"{tag} greedy streams identical to the sp 1 dense engine's: "
+        f"{same}/{len(streams)}"
+        + "".join(f"; prompt {n} parts at token {step} (sp 1 top-2 logit "
+                  f"gap there {gap:.4f})" for n, step, gap in parts))
+    return same, parts
+
+
 def phase_server(engine):
     """The HTTP server over ``engine``. Its tokenizer encodes bytes and
     decodes token ids as their decimal numbers, so that the random-weight
@@ -1936,9 +2358,12 @@ def phase_server(engine):
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
     state.start_engine()
-    quant = "ks" in engine.cache
-    tag = (f"[server {'' if engine.paged else 'dense '}"
-           f"{'int8' if quant else 'bf16'}]")
+    shards = engine.cache if isinstance(engine.cache, list) \
+        else [engine.cache]
+    quant = "ks" in shards[0]
+    layout = "" if engine.paged else "dense " if len(shards) == 1 \
+        else f"sp {len(shards)} "
+    tag = f"[server {layout}{'int8' if quant else 'bf16'}]"
     base = f"http://127.0.0.1:{port}"
 
     def complete(body):
@@ -2020,6 +2445,7 @@ def main() -> int:
     _phase("build", phase_build)
     kern = _phase("kernels", phase_kernels, torch, np)
     wkern = _phase("kernels, window", phase_kernels_window, torch, np)
+    skern = _phase("kernels, sp", phase_kernels_sp, torch, np)
     _phase("sampling", phase_sampling, torch, np)
     runs = {}
     for kv_dtype in ("auto", "int8"):
@@ -2083,6 +2509,31 @@ def main() -> int:
     del engine
     _free(torch)
     log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
+    # sequence-parallel serving: the sp 1 dense engine's greedy streams are
+    # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
+    t_sp = time.monotonic()
+    params = _sp_params(torch)
+    ref_engine, _, ref_reqs, ref_gaps = phase_sp_engine(torch, np, params,
+                                                        "auto", 1)
+    del ref_engine
+    _free(torch)
+    log(f"[wall] sp 1 auto: {time.monotonic() - t_sp:.1f}s")
+    for kv_dtype, sp in (("auto", 4), ("auto", 2), ("int8", 4)):
+        t0 = time.monotonic()
+        engine, runs[f"sp {sp} {kv_dtype}"], reqs, _ = phase_sp_engine(
+            torch, np, params, kv_dtype, sp, profile=sp == 4)
+        _logits_check(torch, engine, LOGIT_TOL, slots=range(SP_SLOTS))
+        if kv_dtype == "auto":
+            _greedy_vs_sp1(f"[sp {sp} bf16]", [r.generated for r in reqs],
+                           ref_reqs, ref_gaps)
+        else:
+            phase_server(engine)
+        del engine
+        _free(torch)
+        log(f"[wall] sp {sp} {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    del params
+    _free(torch)
+    log(f"[wall] sp phases: {time.monotonic() - t_sp:.1f}s")
     keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     kernels = []
@@ -2126,7 +2577,11 @@ def main() -> int:
             ("decode_attend_dense quant bblock", DENSE_SRC, 499,
              kern["dense int8"]["bblock 4"], "dense spec int8"),
             ("decode_attend_dense quant bblock window", DENSE_SRC, 499,
-             wkern["dense int8"]["bblock"], "mistral dense int8")):
+             wkern["dense int8"]["bblock"], "mistral dense int8"),
+            ("decode_attend_dense stats", DENSE_SRC, 429,
+             skern["bf16"]["stats"], "sp 4 auto"),
+            ("decode_attend_dense quant stats", DENSE_SRC, 429,
+             skern["int8"]["stats"], "sp 4 int8")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{TPU_KERNELS}:{line}",
                         "launches": runs[run][name],

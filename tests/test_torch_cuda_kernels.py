@@ -11,7 +11,10 @@ attention kernels (paged decode and verify, dense decode and verify)
 accumulate in float32 like their plain versions, in another order, so
 float32 outputs agree within 1e-5 and bf16 outputs within 2e-2 (one bf16
 ulp of outputs below 4 in magnitude is at most 2^-6), over bf16/f32 pools
-and int8 pools alike.
+and int8 pools alike. K6, the stats form of the dense decode, returns the
+float32 flash triple: m and l within 1e-4 relative and acc / l within
+1e-4 of the plain version's; merged over 2 and 4 shards it is held to K4
+by the tolerances above.
 """
 
 import numpy as np
@@ -638,3 +641,83 @@ def test_dense_window_reads_no_row_below_its_first_tile(dev, quant, entry,
     torch.cuda.synchronize()
     assert torch.isfinite(bad.float()).all()
     assert torch.equal(clean, bad)
+
+
+# -- K6: the stats form of the dense decode (sequence-parallel serving) -------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 16), (16, 8, 128)])
+def test_dense_attention_stats_matches_plain(dev, dtype, quant, hq, hkv, d):
+    """K6 over one shard: local lengths 0 (a shard with none of the slot's
+    rows: exactly (0, -1e30, 0)), 1, a tile edge, the full shard and a
+    partial last tile. m and l within 1e-4 relative and acc / l within
+    1e-4 of the plain version's (all float32, summed in another order)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S = 6, 200
+    rng = np.random.default_rng(103)
+    cache = _dense_cache(rng, B, S, hkv, d, dev,
+                         torch.float32 if quant else dtype, quant)
+    scales = cache[2:]
+    lens = torch.tensor([0, 1, 64, 65, S, 130], dtype=torch.int32,
+                        device=dev)
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    name = tda.instance_name("decode_attend_dense", quant, stats=True)
+    before = tda.launch_counts()
+    acc, m, l_sum = tda.decode_attend_dense_stats(q, cache[0], cache[1],
+                                                  lens, 1, *scales)
+    after = tda.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    racc, rm, rl = tda.dense_attention_stats_plain(q, cache[0], cache[1],
+                                                   lens, 1, *scales)
+    torch.cuda.synchronize()
+    assert acc.shape == (B, hq, d) and m.shape == l_sum.shape == (B, hq)
+    assert acc.dtype == m.dtype == l_sum.dtype == torch.float32
+    assert (m[0] == -1e30).all() and not l_sum[0].any() and not acc[0].any()
+    torch.testing.assert_close(m[1:], rm[1:], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l_sum[1:], rl[1:], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(acc[1:] / l_sum[1:, :, None],
+                               racc[1:] / rl[1:, :, None], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_dense_attention_stats_merged_matches_k4(dev, dtype, tol, quant, sp):
+    """K6 over ``sp`` shards of the cache at their local lengths, merged
+    (ops/attention.merge_stats): K4 over the unsharded cache within the
+    dense kernels' tolerance, a slot of length 0 zeros."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        merge_stats
+
+    B, S, hq, hkv, d = 6, 256, 16, 8, 128
+    s_local = S // sp
+    rng = np.random.default_rng(104)
+    cache = _dense_cache(rng, B, S, hkv, d, dev,
+                         torch.float32 if quant else dtype, quant)
+    lengths = np.array([0, 1, s_local, s_local + 1, S - 5, S], np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    parts = []
+    for i in range(sp):
+        shard = [t[:, :, :, i * s_local:(i + 1) * s_local].contiguous()
+                 for t in cache]
+        local = torch.from_numpy(np.clip(lengths - i * s_local, 0, s_local)
+                                 .astype(np.int32)).to(dev)
+        parts.append(tda.decode_attend_dense_stats(q, shard[0], shard[1],
+                                                   local, 1, *shard[2:]))
+    ctx = merge_stats(*zip(*parts), dev).to(dtype)
+    ref = _dense_call(tda, q, cache, torch.from_numpy(lengths).to(dev), 1,
+                      0, 1, 1)[:, 0]
+    torch.cuda.synchronize()
+    assert (ctx.float() - ref.float()).abs().max().item() <= tol
+    assert not ctx[0].any()

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("config", "ops.paged_attention", "ops.dense_attention",
                 "ops.sampling", "serving.engine", "serving.draft",
                 "serving.kv_cache", "serving.paged_kv", "serving.server",
-                "models.layers", "models.convert", "utils.tokenizer"):
+                "models.layers", "models.convert", "utils.tokenizer",
+                "parallel.mesh", "parallel.sharding"):
         assert f"{port.__name__}.{mod}" in expected
     loaded = res["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")

@@ -1,5 +1,6 @@
 """The port's HTTP server on the CPU: ``/v1/models``, ``/v1/completions``
-(the OpenAI ``seed`` included) and ``/health`` over a real socket, with
+(the OpenAI ``seed`` included; the request fields the port does not serve
+yet refused unless neutral) and ``/health`` over a real socket, with
 tiny_qwen3 and the byte tokenizer.
 """
 
@@ -106,6 +107,57 @@ def test_seed_makes_a_sampled_completion_repeatable(server):
     assert len(unseeded | {texts[0]}) > 1
     status, out = _post(base + "/v1/completions", {**body, "seed": "x"})
     assert status == 400 and "seed" in out["error"]["message"]
+
+
+_BARE = {"prompt": [72, 105, 33], "max_tokens": 5, "ignore_eos": True}
+# the JAX server's completions fields the port does not serve yet: a value
+# other than the neutral one is refused, naming the field
+_REFUSED = [({"stop": ["d"]}, "stop"), ({"stop": "x"}, "stop"),
+            ({"stop_token_ids": [5]}, "stop_token_ids"),
+            ({"min_tokens": 3}, "min_tokens"), ({"n": 3}, "n"),
+            ({"best_of": 2}, "best_of"), ({"echo": True}, "echo"),
+            ({"prompt_logprobs": 1}, "prompt_logprobs"),
+            ({"logprobs": 2}, "logprobs"), ({"logprobs": 0}, "logprobs"),
+            ({"top_logprobs": 2}, "top_logprobs"),
+            ({"logit_bias": {"100": -100}}, "logit_bias"),
+            ({"presence_penalty": 2.0}, "presence_penalty"),
+            ({"frequency_penalty": 0.5}, "frequency_penalty"),
+            ({"repetition_penalty": 1.2}, "repetition_penalty"),
+            ({"resume_token_ids": [1, 2]}, "resume_token_ids"),
+            ({"response_format": {"type": "json_object"}},
+             "response_format"),
+            ({"guided_json": {"type": "object"}}, "guided_json"),
+            ({"guided_regex": "a+"}, "guided_regex"),
+            ({"guided_choice": ["a", "b"]}, "guided_choice")]
+# neutral values: served as the bare request is
+_NEUTRAL = [{"n": 1}, {"echo": False}, {"logprobs": None}, {"stop": None},
+            {"stop": []}, {"stop_token_ids": []}, {"presence_penalty": 0.0},
+            {"frequency_penalty": 0}, {"repetition_penalty": 1.0},
+            {"min_tokens": 0}, {"best_of": 1}, {"n": 1, "best_of": 1},
+            {"logit_bias": {}}, {"top_logprobs": 0},
+            {"response_format": {"type": "text"}}]
+
+
+@pytest.mark.parametrize("extra,refused", [
+    pytest.param(extra, field, id=f"refused-{field}-{i}")
+    for i, (extra, field) in enumerate(_REFUSED)] + [
+    pytest.param(extra, None, id="neutral-" + "-".join(extra) + f"-{i}")
+    for i, extra in enumerate(_NEUTRAL)])
+def test_unserved_fields_are_refused_unless_neutral(server, extra, refused):
+    """A field the JAX server honours and the port does not serve yet gets
+    400 naming it, never a completion that ignores it; at its neutral value
+    the request is served, with the bare request's text."""
+    base, _ = server
+    status, out = _post(base + "/v1/completions", {**_BARE, **extra})
+    if refused is not None:
+        assert status == 400, out
+        assert f"'{refused}'" in out["error"]["message"]
+        return
+    assert status == 200, out
+    bare_status, bare = _post(base + "/v1/completions", _BARE)
+    assert bare_status == 200
+    assert out["choices"][0]["text"] == bare["choices"][0]["text"]
+    assert out["usage"] == bare["usage"]
 
 
 def test_bad_requests_get_4xx(server):
