@@ -1,6 +1,6 @@
 // Paged flash attention with per-row (table row, live-column limit), over a
 // bf16/f32 pool or an int8 pool with per-row float32 scales, with or without
-// a sliding window.
+// a sliding window: split-KV over a pipelined page stream.
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
 //   _paged_flash_db / _paged_db_body, the body behind
@@ -28,8 +28,7 @@
 // The window: the TPU verify starts all R rows of a slot at row 0's window
 // start; here each packed row starts at its own. The result is the same: a
 // page that is wholly masked for a row leaves m = -1e30, and the row's first
-// live page then scales what it summed by exp(-1e30 - m) = 0. Window 0 is
-// its own instance (kWindow false) with no window arithmetic in it.
+// live page then scales what it summed by exp(-1e30 - m) = 0.
 //
 // Int8 pools (scale pools ks, vs [L, P, Hkv, ps] float32) fold the scales
 // into the flash loop in the TPU body's order and never build a dequantized
@@ -39,76 +38,64 @@
 // What bounds it on the H100: bytes. A decode row reads its live K and V
 // pages once (2 * ps * D * elem bytes per page and kv head, plus 2 * ps * 4
 // bytes of scales for int8) and does 4 * G * D flops per column, about one
-// flop per byte against the card's ~295 flop/byte ridge. The design keeps
-// every byte read exactly once per (row, kv head): one CTA per (query row,
-// kv head) and the G = Hq / Hkv query heads of that kv head share its page
-// stream (GQA in the kernel); a page tile of K and V is copied into shared
-// memory with 16-byte loads (the page's scales with 4-byte loads), scores,
-// running max, denominator and the accumulator stay in float32 in shared
-// memory, and the output is written once. An int8 pool halves the tile's
-// bytes; the values are converted to float32 as they are read from shared
-// memory. With a window a row reads only the pages from its window start
-// on (Mistral's 4096 columns: 65 of up to 128 pages of 64). This first
-// version does not overlap the next page's copy with the current page's
-// arithmetic, uses no tensor cores, and does not split long rows across
-// CTAs; rows that share a slot (chunk rows, a verify's R rows) re-read that
-// slot's pages. Those are the known costs.
+// flop per byte against the card's ~295 flop/byte ridge. So the design is
+// about bytes in flight: the G = Hq / Hkv query heads of a kv head share its
+// page stream (GQA in the kernel, every byte read once per row), and
+// - split-KV: the grid is (row, kv head, split). Split s of a row takes the
+//   s-th of `splits` equal runs of its pages lo .. hi (runs start at lo, so
+//   the window's mask arithmetic is unchanged; a run past hi is empty). The
+//   launcher picks `splits` from shapes only (rows, Hkv, max_pages and the
+//   card's SM count; ops/split_kv.split_count), so a decode step's 256 or
+//   128 (row, kv head) pairs fill the 132 SMs several CTAs deep, the launch
+//   geometry is fixed for an engine shape and results repeat bit for bit.
+//   With one split the CTA writes the output; with more it writes its
+//   float32 triple (acc, m, l) to a workspace and the combine
+//   (split_merge.cuh, queued by this file's C entry right after the
+//   kernel) merges the row's triples in split order. An empty run writes
+//   (0, -1e30, 0), which the combine weighs by exp(m - M) like any other:
+//   it adds exactly 0, and a row whose only visited page is wholly masked
+//   (limit <= 0) keeps the mean of V above;
+// - a pipelined page stream (split_decode.cuh): a page of one kv head (ps x
+//   D, 16 KB in bf16 at ps 64, D 128) is contiguous in the pool, and the
+//   next stage's cp.async copies (K, V and the int8 scales together; a
+//   stage is the page, or 32 of its rows at G >= 4; a page of more than 64
+//   rows streams as several stages, so any page size fits) are in flight
+//   while the
+//   current one is computed, as the TPU body double-buffers its page copies
+//   (pallas_attention.py:918-945);
+// - the arithmetic in registers: one reduction per stage for the scores,
+//   the max and the sum, the P.V accumulators held per thread.
+// Still missing: wgmma and TMA (q rows are too few for a tensor-core tile,
+// and the kernel is bound by bytes), a page stream shared by a verify's R
+// rows (each packed row re-reads its slot's pages), and tiling of the
+// ragged entry's chunk rows (each chunk row re-reads its slot's pages).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "split_decode.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroups = 8;
+using namespace split_decode;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return (float)x;
-}
+struct PagedSource {
+  const int32_t* table_row;
+  int num_pages, hkv, h, ps;
+  int64_t layer_page0;   // layer * num_pages
+  __device__ __forceinline__ int64_t row0(int t) const {
+    int page = table_row[t];
+    page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+    return ((layer_page0 + page) * hkv + h) * (int64_t)ps;
+  }
+  __device__ __forceinline__ int rows(int) const { return ps; }
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shared memory: K tile, V tile [ps, D] (TP), then float32 q [G, D],
-// scores [G, ps], acc [G, D], m [G], l [G], corr [G], and for an int8 pool
-// the page's K and V scales [ps] each.
-template <typename T, typename TP, bool kWindow>
+// grid (n_rows, hkv, splits); ws_*: the split triples [splits, N, Hq, (D)]
+// when splits > 1, else null
+template <typename T, typename TP, int kG>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
-                       const TP* __restrict__ pool_k,
+paged_attention_kernel(T* __restrict__ out, float* __restrict__ ws_acc,
+                       float* __restrict__ ws_m, float* __restrict__ ws_l,
+                       const T* __restrict__ q, const TP* __restrict__ pool_k,
                        const TP* __restrict__ pool_v,
                        const float* __restrict__ pool_ks,
                        const float* __restrict__ pool_vs,
@@ -116,169 +103,91 @@ paged_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
                        const int32_t* __restrict__ table, int layer,
                        int num_pages, int hkv, int ps, int d, int groups,
                        int max_pages, int window, float scale) {
-  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  TP* ks = reinterpret_cast<TP*>(smem);
-  TP* vs = ks + ps * d;
-  float* qs = reinterpret_cast<float*>(vs + ps * d);
-  float* sc = qs + groups * d;
-  float* acc = sc + groups * ps;
-  float* m_run = acc + groups * d;
-  float* l_run = m_run + groups;
-  float* corr = l_run + groups;
-  float* k_scale = corr + groups;          // kQuant only
-  float* v_scale = k_scale + ps;
-
   const int n = blockIdx.x;
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
   const int hq = hkv * groups;
 
   const int limit = limits[n];
   int hi = limit > 0 ? (limit + ps - 1) / ps - 1 : 0;
   hi = hi < max_pages - 1 ? hi : max_pages - 1;
   // window: live columns from wstart on; pages below its page never read
-  const int wstart = kWindow ? limit - window : 0;
+  const int wstart = window > 0 ? limit - window : 0;
   int lo = 0;
-  if (kWindow) {
+  if (window > 0) {
     lo = (wstart > 0 ? wstart : 0) / ps;
     lo = lo < hi ? lo : hi;
   }
+  const int per = (hi - lo + splits) / splits;   // cdiv(hi - lo + 1, splits)
+  const int t_begin = lo + split * per;
+  const int t_end = t_begin + per < hi + 1 ? t_begin + per : hi + 1;
 
-  const T* q_row = q + ((int64_t)n * hq + (int64_t)h * groups) * d;
-  for (int i = tid; i < groups * d; i += kThreads) {
-    qs[i] = to_float(q_row[i]) * scale;
-    acc[i] = 0.f;
+  const int64_t head0 = (int64_t)n * hq + (int64_t)h * groups;
+  const PagedSource src{table + (int64_t)n * max_pages, num_pages, hkv, h, ps,
+                        (int64_t)layer * num_pages};
+  float* raw_acc = nullptr;
+  float* raw_m = nullptr;
+  float* raw_l = nullptr;
+  if (ws_acc) {
+    const int64_t w0 = (int64_t)split * gridDim.x * hq + head0;
+    raw_acc = ws_acc + w0 * d;
+    raw_m = ws_m + w0;
+    raw_l = ws_l + w0;
   }
-  if (tid < groups) {
-    m_run[tid] = kNegInf;
-    l_run[tid] = 0.f;
-  }
-
-  const int tile_vecs = ps * d * (int)sizeof(TP) / 16;
-  const int32_t* table_row = table + (int64_t)n * max_pages;
-  for (int c = lo; c <= hi; ++c) {
-    int page = table_row[c];
-    page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-    const int64_t head = ((int64_t)layer * num_pages + page) * hkv + h;
-    const int64_t base = head * (int64_t)ps * d;
-    const uint4* k_src = reinterpret_cast<const uint4*>(pool_k + base);
-    const uint4* v_src = reinterpret_cast<const uint4*>(pool_v + base);
-    uint4* k_dst = reinterpret_cast<uint4*>(ks);
-    uint4* v_dst = reinterpret_cast<uint4*>(vs);
-    for (int i = tid; i < tile_vecs; i += kThreads) {
-      k_dst[i] = k_src[i];
-      v_dst[i] = v_src[i];
-    }
-    if (kQuant) {
-      for (int i = tid; i < ps; i += kThreads) {
-        k_scale[i] = pool_ks[head * ps + i];
-        v_scale[i] = pool_vs[head * ps + i];
-      }
-    }
-    __syncthreads();
-
-    // scores: one warp per column, lanes split D, all G heads at once;
-    // int8: the dot of the raw values, times the column's K scale
-    for (int j = warp; j < ps; j += kWarps) {
-      float part[kMaxGroups];
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) part[g] = 0.f;
-      for (int x = lane; x < d; x += 32) {
-        const float kv = to_float(ks[j * d + x]);
-#pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g)
-          if (g < groups) part[g] += qs[g * d + x] * kv;
-      }
-      const int col = c * ps + j;
-      const bool live = col < limit && (!kWindow || col >= wstart);
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < groups) {
-          float s = warp_sum(part[g]);
-          if (kQuant) s *= k_scale[j];
-          if (lane == 0) sc[g * ps + j] = live ? s : kNegInf;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per head of the group; l sums the unscaled
-    // p, and P.V takes p times the column's V scale (int8)
-    for (int g = warp; g < groups; g += kWarps) {
-      float mx = kNegInf;
-      for (int j = lane; j < ps; j += 32) mx = fmaxf(mx, sc[g * ps + j]);
-      mx = warp_max(mx);
-      const float m_prev = m_run[g];
-      const float m_cur = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const float p = expf(sc[g * ps + j] - m_cur);
-        sc[g * ps + j] = kQuant ? p * v_scale[j] : p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float cr = expf(m_prev - m_cur);
-        corr[g] = cr;
-        m_run[g] = m_cur;
-        l_run[g] = l_run[g] * cr + sum;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p @ V, each thread owning columns of D
-    for (int x = tid; x < d; x += kThreads) {
-      float a[kMaxGroups];
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g)
-        a[g] = g < groups ? acc[g * d + x] * corr[g] : 0.f;
-      for (int j = 0; j < ps; ++j) {
-        const float vv = to_float(vs[j * d + x]);
-#pragma unroll
-        for (int g = 0; g < kMaxGroups; ++g)
-          if (g < groups) a[g] += sc[g * ps + j] * vv;
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g)
-        if (g < groups) acc[g * d + x] = a[g];
-    }
-    __syncthreads();
-  }
-
-  T* o_row = out + ((int64_t)n * hq + (int64_t)h * groups) * d;
-  for (int i = tid; i < groups * d; i += kThreads) {
-    const float l = fmaxf(l_run[i / d], 1e-9f);
-    o_row[i] = from_float<T>(acc[i] / l);
-  }
+  attend_split<T, TP, kG>(src, q + head0 * d, scale, pool_k, pool_v, pool_ks,
+                          pool_vs, ps, d, groups, t_begin,
+                          t_end > t_begin ? t_end : t_begin, limit, wstart,
+                          out + head0 * d, raw_acc, raw_m, raw_l);
 }
 
-template <typename T, typename TP, bool kWindow>
-int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
-           const void* pool_ks, const void* pool_vs, const void* limits,
-           const void* table, int n_rows, int hkv, int groups, int d,
-           int num_pages, int ps, int max_pages, int layer, int window,
-           float scale, cudaStream_t stream) {
+template <typename T, typename TP, int kG>
+int launch(void* out, void* ws_acc, void* ws_m, void* ws_l, const void* q,
+           const void* pool_k, const void* pool_v, const void* pool_ks,
+           const void* pool_vs, const void* limits, const void* table,
+           int n_rows, int hkv, int groups, int d, int num_pages, int ps,
+           int max_pages, int layer, int window, float scale, int splits,
+           cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  const size_t smem = 2 * (size_t)ps * d * sizeof(TP) +
-                      sizeof(float) * ((size_t)groups * (2 * d + ps) +
-                                       3 * (size_t)groups +
-                                       (kQuant ? 2 * (size_t)ps : 0));
-  if (smem > 48 * 1024) {
+  const Layout lay(stage_rows<kG>(ps), d, groups, (int)sizeof(TP), kQuant,
+                   stages<TP>());
+  if (lay.npairs > kThreads) return (int)cudaErrorInvalidValue;
+  auto kernel = paged_attention_kernel<T, TP, kG>;
+  static int configured = 48 * 1024;   // dynamic shared memory allowed
+  if (lay.total > configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, TP, kWindow>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured = lay.total;
   }
-  dim3 grid(n_rows, hkv);
-  paged_attention_kernel<T, TP, kWindow><<<grid, kThreads, smem, stream>>>(
-      (T*)out, (const T*)q, (const TP*)pool_k, (const TP*)pool_v,
-      (const float*)pool_ks, (const float*)pool_vs, (const int32_t*)limits,
-      (const int32_t*)table, layer, num_pages, hkv, ps, d, groups, max_pages,
-      window, scale);
+  dim3 grid(n_rows, hkv, splits);
+  kernel<<<grid, kThreads, lay.total, stream>>>(
+      (T*)out, (float*)ws_acc, (float*)ws_m, (float*)ws_l, (const T*)q,
+      (const TP*)pool_k, (const TP*)pool_v, (const float*)pool_ks,
+      (const float*)pool_vs, (const int32_t*)limits, (const int32_t*)table,
+      layer, num_pages, hkv, ps, d, groups, max_pages, window, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename TP>
+int launch_groups(int groups, void* out, void* ws_acc, void* ws_m, void* ws_l,
+                  const void* q, const void* pool_k, const void* pool_v,
+                  const void* pool_ks, const void* pool_vs,
+                  const void* limits, const void* table, int n_rows, int hkv,
+                  int d, int num_pages, int ps, int max_pages, int layer,
+                  int window, float scale, int splits, cudaStream_t stream) {
+#define PA_ARGS                                                              \
+  out, ws_acc, ws_m, ws_l, q, pool_k, pool_v, pool_ks, pool_vs, limits,      \
+      table, n_rows, hkv, groups, d, num_pages, ps, max_pages, layer, window, \
+      scale, splits, stream
+  if (groups <= 2) return launch<T, TP, 2>(PA_ARGS);
+  if (groups <= 4) return launch<T, TP, 4>(PA_ARGS);
+  return launch<T, TP, 8>(PA_ARGS);
+#undef PA_ARGS
 }
 
 }  // namespace
@@ -286,34 +195,40 @@ int launch(void* out, const void* q, const void* pool_k, const void* pool_v,
 // dtype (q and output): 0 = float32, 1 = bfloat16. pool_dtype: 0 = float32,
 // 1 = bfloat16 (both the q type), 2 = int8 with the float32 scale pools
 // pool_ks / pool_vs (ignored otherwise). window > 0: sliding window of that
-// many columns; 0: none. Returns cudaGetLastError() after the launch (0 =
-// launched). groups <= 8, D % 8 == 0 and, for int8, D % 16 == 0 (the
-// wrapper checks).
-extern "C" int paged_attention(void* out, const void* q, const void* pool_k,
+// many columns; 0: none. splits >= 1 CTAs per (row, kv head); with splits >
+// 1, ws_acc [splits, N, Hq, D], ws_m and ws_l [splits, N, Hq] float32
+// receive each split's triple and the combine (split_merge.cuh), queued
+// next on the same stream, writes out; else they are null. Returns
+// cudaGetLastError() after the launches (0 = launched). groups <= 8, D % 8
+// == 0 and D <= 256 and, for int8, D % 16 == 0 (the wrapper checks).
+extern "C" int paged_attention(void* out, void* ws_acc, void* ws_m,
+                               void* ws_l, const void* q, const void* pool_k,
                                const void* pool_v, const void* pool_ks,
                                const void* pool_vs, const void* limits,
                                const void* table, int n_rows, int hkv,
                                int groups, int d, int num_pages, int ps,
                                int max_pages, int layer, int window,
                                float scale, int dtype, int pool_dtype,
-                               void* stream) {
+                               int splits, void* stream) {
   if (n_rows <= 0) return 0;
-  if (groups < 1 || groups > kMaxGroups || window < 0)
+  if (groups < 1 || groups > kMaxGroups || window < 0 || splits < 1 ||
+      (splits > 1) != (ws_acc != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  int rc = (int)cudaErrorInvalidValue;
 #define PA_LAUNCH(T, TP)                                                    \
-  return window > 0                                                         \
-      ? launch<T, TP, true>(out, q, pool_k, pool_v, pool_ks, pool_vs,       \
-                            limits, table, n_rows, hkv, groups, d,          \
-                            num_pages, ps, max_pages, layer, window, scale, \
-                            s)                                              \
-      : launch<T, TP, false>(out, q, pool_k, pool_v, pool_ks, pool_vs,      \
-                             limits, table, n_rows, hkv, groups, d,         \
-                             num_pages, ps, max_pages, layer, 0, scale, s)
+  rc = launch_groups<T, TP>(groups, out, ws_acc, ws_m, ws_l, q, pool_k,     \
+                            pool_v, pool_ks, pool_vs, limits, table, n_rows, \
+                            hkv, d, num_pages, ps, max_pages, layer, window, \
+                            scale, splits, s)
   if (dtype == 1 && pool_dtype == 1) PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  if (dtype == 0 && pool_dtype == 0) PA_LAUNCH(float, float);
-  if (dtype == 1 && pool_dtype == 2) PA_LAUNCH(__nv_bfloat16, int8_t);
-  if (dtype == 0 && pool_dtype == 2) PA_LAUNCH(float, int8_t);
+  else if (dtype == 0 && pool_dtype == 0) PA_LAUNCH(float, float);
+  else if (dtype == 1 && pool_dtype == 2) PA_LAUNCH(__nv_bfloat16, int8_t);
+  else if (dtype == 0 && pool_dtype == 2) PA_LAUNCH(float, int8_t);
 #undef PA_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (rc != 0 || splits == 1) return rc;
+  // the combine, queued behind the attention kernel on the same stream
+  return split_combine::launch(out, nullptr, nullptr, nullptr, ws_acc, ws_m,
+                               ws_l, splits, (long long)n_rows * hkv * groups,
+                               d, dtype, s);
 }

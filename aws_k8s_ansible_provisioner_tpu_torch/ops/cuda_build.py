@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source compiles on first use into its own shared library
 with a plain C interface, under ``_build/`` in the package (listed in
-``.gitignore``). The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds. :func:`build_kernels` starts one nvcc per
+``.gitignore``). The library's file name carries a hash of the source, of
+the shared headers ``csrc/*.cuh`` and of the flags, so an edited source or
+header rebuilds. :func:`build_kernels` starts one nvcc per
 source, all at once, and waits for them together; :func:`load` builds what is
 missing and opens the library with ``ctypes``.
 
@@ -32,6 +33,7 @@ SOURCES = {
     "paged_attention": "paged_attention.cu",
     "cache_write": "cache_write.cu",
     "dense_attention": "dense_attention.cu",
+    "split_merge": "split_merge.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,6 +59,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

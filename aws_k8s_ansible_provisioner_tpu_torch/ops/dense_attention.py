@@ -11,9 +11,11 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   ``_decode_kernel_layer_q``), flash decode over one layer, slot b
   attending its rows [0, lengths[b]); and K5 with ``bblock`` > 1 (bodies
   ``_decode_kernel_layer_bb`` and ``_decode_kernel_layer_q_bb``), the same
-  function with ``bblock`` slots per CTA walking their block's union tile
-  range. A row with no live column returns zeros at every block size, where
-  the TPU's batch-blocked body returns a mean of V (ROADMAP C11);
+  function: on the H100 a block's slots share no bytes, so the kernel runs
+  each slot of a block over its own tiles exactly as K4 does, and the block
+  size only names the instance in the launch counters. A row with no live
+  column returns zeros at every block size, where the TPU's batch-blocked
+  body returns a mean of V (ROADMAP C11);
 - :func:`decode_attend_dense_stats` (the second entry of the same
   source, K6) replaces ``decode_attend_pallas_layer(return_stats=True)``
   (bodies ``_decode_kernel_layer_stats`` and, int8,
@@ -28,8 +30,7 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   n of slot n // R;
 - with ``window`` > 0 (both entries, the kernel's window instances) a row
   attends only the last ``window`` of those rows and reads no 64-row tile
-  below its window start's (the batch-blocked form: below its block's
-  lowest window start's);
+  below its window start's;
 - over an int8 cache the kernels fold the scales into the loop as the TPU
   bodies do: the scores times the K scale, the denominator over the
   unscaled probabilities, the probabilities times the V scale in P.V;
@@ -40,10 +41,19 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   (``kv_cache.quantize_rows``, bit for bit) into the int8 cache and their
   scales into the scale caches.
 
+The attention kernel is split-KV (``ops/split_kv.py``): each (query row,
+kv head) gets ``split_kv.split_count`` CTAs from the shapes (B * R, Hkv,
+``cdiv(S, 64)``, the card's SM count); with more than one, the wrapper
+passes the split triples' workspace (``[splits, B * R, Hq, D]`` and twice
+``[splits, B * R, Hq]`` float32, ``split_kv.launch_plan``) and the
+kernel's C entry queues the combine after the attention kernel on the same
+stream (K6: into the shard's triple that the wrapper returns).
+
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
 raises; nothing falls back. Each keeps a plain integer count of its kernel
-launches: ``<wrapper>.launches`` for the bf16/f32 one-slot instance (and
+launches (the combine counts its own, ``split_kv.split_merge.launches``):
+``<wrapper>.launches`` for the bf16/f32 one-slot instance (and
 ``window_launches`` for its window instance), and ``form_launches[form]``
 for the int8 (``"quant"``), batch-blocked (``"bblock"``), int8
 batch-blocked (``"quant bblock"``) and stats (``"stats"``, ``"quant
@@ -61,14 +71,16 @@ from typing import Optional
 
 import torch
 
-from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
+from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build, split_kv
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
-    _DTYPE_CODES, _INT8_POOL, _MAX_GROUPS, _MAX_QUANT_D, NEG_INF, _check_cuda)
+    _DTYPE_CODES, _INT8_POOL, _MAX_D, _MAX_GROUPS, _MAX_QUANT_D, NEG_INF,
+    _check_cuda)
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     write_token_layer
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_TILE = 64          # rows of a dense tile (csrc/dense_attention.cu kTile)
 
 
 def fit_bblock(requested: int, num_slots: int) -> int:
@@ -141,8 +153,8 @@ def _attention_lib():
     lib = cuda_build.load("dense_attention")
     fn = lib.dense_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, ctypes.c_float, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
         fn.restype = _I
     return fn
 
@@ -162,7 +174,7 @@ def _check_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
     quant = cache_ks is not None
     if (cache_v.shape != cache_k.shape or Bc != B or Dk != D
             or Hkv * G != Hq or not 1 <= G <= _MAX_GROUPS or R < 1
-            or D % (16 if quant else 8)):
+            or D % (16 if quant else 8) or D > _MAX_D):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} cache "
                          f"{tuple(cache_k.shape)}")
     if bblock < 1 or (bblock > 1 and (R != 1 or B % bblock)):
@@ -192,13 +204,21 @@ def _check_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
     return B, R, Hkv, G, D, S, scales
 
 
+def attention_splits(rows: int, hkv: int, seq: int,
+                     device: torch.device) -> int:
+    """CTAs per (query row, kv head) of the dense kernel over ``rows``
+    query rows of a cache of ``seq`` rows (``split_kv.split_count``)."""
+    return split_kv.split_count(rows, hkv, -(-seq // _TILE),
+                                split_kv.sm_count(device))
+
+
 def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
                       limits, layer: int, window: int, bblock: int
                       ) -> torch.Tensor:
     """Check the operands of the dense attention kernel and launch it
     (int8 when ``cache_ks`` is given; the window instance when ``window``
-    > 0; the batch-blocked form when ``bblock`` > 1). q: [B, R, Hq, D];
-    returns [B, R, Hq, D]."""
+    > 0; ``bblock`` is checked, and does not change the launch). q:
+    [B, R, Hq, D]; returns [B, R, Hq, D]."""
     B, R, Hkv, G, D, S, scales = _check_attention(
         what, q, cache_k, cache_v, cache_ks, cache_vs, limits, layer, window,
         bblock)
@@ -208,15 +228,19 @@ def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
     fn = _attention_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(out.data_ptr(), q.data_ptr(), cache_k.data_ptr(),
+        splits, ws = split_kv.launch_plan(B * R, Hkv, -(-S // _TILE),
+                                          Hkv * G, D, q.device, stream)
+        rc = fn(out.data_ptr(), *ws, q.data_ptr(), cache_k.data_ptr(),
                 cache_v.data_ptr(), cache_ks.data_ptr() if scales else None,
                 cache_vs.data_ptr() if scales else None, limits.data_ptr(), B,
                 Hkv, G, R, D, S, layer, window, 1.0 / math.sqrt(D),
                 _DTYPE_CODES[q.dtype],
-                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], bblock,
+                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], splits,
                 stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    if splits > 1:
+        split_kv.split_merge.launches += 1
     return out
 
 
@@ -263,8 +287,10 @@ def decode_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
     q: [B, 1, Hq, D] bf16 or f32; cache [L, B, Hkv, S, D] of q's type, or
     int8 with ``cache_ks``/``cache_vs`` [L, B, Hkv, S] float32; lengths
     [B]: the rows slot b attends (the just-written row counted), of which
-    the last ``window`` when it is > 0; layer: int; ``bblock``: slots per
-    CTA, fitted down to a divisor of B (:func:`fit_bblock`). Returns
+    the last ``window`` when it is > 0; layer: int; ``bblock``: the TPU
+    kernel's slots per grid step, fitted down to a divisor of B
+    (:func:`fit_bblock`); here it names the instance in the launch counters
+    (K5 when > 1) and leaves the launch as K4's. Returns
     [B, 1, Hq, D]; a slot of length 0 gets zeros. CPU tensors take
     :func:`dense_attention_plain` (the result does not depend on
     ``bblock``); CUDA tensors launch the kernel."""
@@ -318,8 +344,8 @@ def _stats_lib():
     lib = cuda_build.load("dense_attention")
     fn = lib.dense_attention_stats
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, ctypes.c_float, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
         fn.restype = _I
     return fn
 
@@ -359,15 +385,20 @@ def decode_attend_dense_stats(q: torch.Tensor, cache_k: torch.Tensor,
     fn = _stats_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(acc.data_ptr(), m.data_ptr(), l_sum.data_ptr(), q.data_ptr(),
-                cache_k.data_ptr(), cache_v.data_ptr(),
+        splits, ws = split_kv.launch_plan(B, Hkv, -(-S // _TILE), Hkv * G,
+                                          D, dev, stream)
+        rc = fn(acc.data_ptr(), m.data_ptr(), l_sum.data_ptr(), *ws,
+                q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
                 cache_ks.data_ptr() if scales else None,
                 cache_vs.data_ptr() if scales else None, lengths.data_ptr(),
                 B, Hkv, G, D, S, layer, 1.0 / math.sqrt(D),
                 _DTYPE_CODES[q.dtype],
-                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], stream)
+                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], splits,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    if splits > 1:
+        split_kv.split_merge.launches += 1
     _count(decode_attend_dense, bool(scales), 1, 0, stats=True)
     return acc, m, l_sum
 

@@ -25,10 +25,17 @@
   (``serving/kv_cache.quantize_rows``) into an int8 pool, their scales into
   the scale pools.
 
+The attention kernel is split-KV (``ops/split_kv.py``): each (query row,
+kv head) gets ``split_kv.split_count`` CTAs from the shapes (rows, Hkv,
+``max_pages``, the card's SM count); with more than one, the wrapper
+passes the split triples' workspace (``[splits, N, Hq, D]`` and twice
+``[splits, N, Hq]`` float32, ``split_kv.launch_plan``) and the kernel's C
+entry queues the combine after the attention kernel on the same stream.
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
 raises; nothing falls back. Each keeps a plain integer count of its kernel
-launches in ``<wrapper>.launches``. The plain versions state the contract
+launches in ``<wrapper>.launches`` (the combine's in
+``split_kv.split_merge.launches``). The plain versions state the contract
 the kernels are held to and are what the kernels are compared with.
 """
 
@@ -40,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
+from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build, split_kv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     quantize_rows
 
@@ -50,6 +57,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_POOL = 2
 _MAX_QUANT_D = 256
 _MAX_GROUPS = 8
+# the split kernels' P.V gives each thread two output columns: D / 2 <= 128
+_MAX_D = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -144,8 +153,9 @@ def _attention_lib():
     lib = cuda_build.load("paged_attention")
     fn = lib.paged_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I,
+                       _P]
         fn.restype = _I
     return fn
 
@@ -165,7 +175,8 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
     G = Hq // Hkv if Hkv else 0
     quant = pool_ks is not None
     if (pool_v.shape != pool_k.shape or Dk != D or Hkv * G != Hq
-            or not 1 <= G <= _MAX_GROUPS or D % (16 if quant else 8)):
+            or not 1 <= G <= _MAX_GROUPS or D % (16 if quant else 8)
+            or D > _MAX_D):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"pool {tuple(pool_k.shape)}")
     pool_type = torch.int8 if quant else q.dtype
@@ -198,14 +209,19 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
     fn = _attention_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(out.data_ptr(), q.data_ptr(), pool_k.data_ptr(),
+        splits, ws = split_kv.launch_plan(N, Hkv, table.shape[1], Hq, D,
+                                          q.device, stream)
+        rc = fn(out.data_ptr(), *ws, q.data_ptr(), pool_k.data_ptr(),
                 pool_v.data_ptr(), pool_ks.data_ptr() if quant else None,
                 pool_vs.data_ptr() if quant else None, limits.data_ptr(),
                 table.data_ptr(), N, Hkv, G, D, P, ps, table.shape[1], layer,
                 window, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
-                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], stream)
+                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], splits,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    if splits > 1:
+        split_kv.split_merge.launches += 1
     return out
 
 

@@ -110,6 +110,7 @@ PEAK_BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 ATTN_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/paged_attention.cu"
 WRITE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/cache_write.cu"
 DENSE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/dense_attention.cu"
+MERGE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/split_merge.cu"
 TPU_KERNELS = "aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py"
 # bf16 kernel vs plain, per query row (its Hq x D outputs): both compute in
 # float32 and round once to bf16, so an element differs by at most one ulp
@@ -150,13 +151,42 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def hold_stream(torch, seconds: float) -> None:
+    """Keep the current stream busy for about ``seconds`` (a spinning
+    kernel, at most 50 ms), so that the host can queue a timed run's calls
+    before the device starts them."""
+    torch.cuda._sleep(int(min(seconds, 0.05) * 2e9))   # ~2e9 cycles a s
+
+
 def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+    """Mean time of one call, by CUDA events around ``iters`` back-to-back
+    calls: the device's time, or the host's where a call's wrapper takes
+    longer on the host than its work on the device."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call: CUDA events over ``iters`` calls
+    queued behind :func:`hold_stream`, so that they time the device's
+    back-to-back work and not the host's wrappers."""
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    hold_stream(torch, 2 * iters * host + 1e-3)
     start.record()
     for _ in range(iters):
         fn()
@@ -241,6 +271,7 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
     or int8 "k"/"v" with float32 scales "ks"/"vs" (the int8 instance);
     ``window`` > 0 takes the window instance. Returns a result dict."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     pool_k, pool_v = pools["k"], pools["v"]
     quant = "ks" in pools
@@ -271,6 +302,7 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
     check = _ulp_rows(torch, what, out, ref, N,
                       lambda bad: f"limits {limits_np[bad].tolist()}")
     ms = timed_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel)
     plain_ms = timed_ms(torch, lambda: pa.paged_attention_plain(
         q, pool_k, pool_v, limits, layer, table, *scales, window=window),
         iters=5, warmup=1)
@@ -290,7 +322,10 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
     nbytes = (2 * len(tiles) * tile + 2 * N * hq * D * 2
               + N * 4 + int((hi - lo + 1).sum()) * 4)
     ops = 4 * hq * D * int(_live_cols(np, limits_np, window).sum())
-    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, N)
+    splits = split_kv.split_count(N, Hkv, table_np.shape[1],
+                                  split_kv.sm_count(dev))
+    return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
+                   ops, N, splits)
 
 
 def _ulp_rows(torch, what, out, ref, n_rows, describe):
@@ -317,21 +352,23 @@ def _ulp_rows(torch, what, out, ref, n_rows, describe):
             "worst_row_max_ulps": worst_max, "worst_row_mean_ulps": worst_mean}
 
 
-def _report(what, check, ms, plain_ms, library_ms, nbytes, ops, rows,
-            extra=""):
-    """One attention case's result: the check, the times and the bound
-    (the larger of bytes over the memory rate and operations over the bf16
-    tensor-core rate)."""
+def _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes, ops,
+            rows, splits, extra=""):
+    """One attention case's result: the check, the times, the bound (the
+    larger of bytes over the memory rate and operations over the bf16
+    tensor-core rate) and the kernel's split count."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_OPS_PER_S
-    res = {**check, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
+    res = {**check, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes, "rows": rows}
-    log(f"[kernels] {what}: rows {rows}, max abs {check['max_abs_err']:.3e}, "
+           "bytes": nbytes, "rows": rows, "splits": splits}
+    log(f"[kernels] {what}: rows {rows}, splits {splits}, max abs "
+        f"{check['max_abs_err']:.3e}, "
         f"mean abs {check['mean_abs_err']:.3e}; worst row: max "
         f"{check['worst_row_max_ulps']:.2f} ulp, mean "
         f"{check['worst_row_mean_ulps']:.3f} ulp (tol {ATTN_MAX_ULPS}/"
-        f"{ATTN_MEAN_ULPS}); kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"{ATTN_MEAN_ULPS}); kernel_ms {ms:.4f} device_ms {dev_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} "
         f"library_ms {library_ms:.4f} bound_ms {res['bound_ms']:.4f} "
         f"({nbytes / 1e6:.1f} MB, {100 * res['bound_ms'] / ms:.1f}% of "
         f"bound){extra}")
@@ -375,6 +412,8 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
     del refs
     ms = timed_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
                                            layer, table))
+    dev_ms = device_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
+                                                layer, table))
     plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, k_new, v_new, rows,
                                                 layer, table),
                         iters=5, warmup=1)
@@ -409,12 +448,13 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
     nbytes = (2 * len(sel) * Hkv * D * 2 + 2 * len(sel) * Hkv * out_row
               + N * 4 + len(sel) * 4)
     res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
-           "plain_ms": plain_ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
            "library_ms": library_ms,
            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
            "bytes": nbytes, "rows": N}
     log(f"[kernels] {name} {label}: rows {N} ({len(sel)} kept), bit-exact"
         f"{' (int8 rows and scales)' if quant else ''}; kernel_ms {ms:.4f} "
+        f"device_ms {dev_ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
         f"({'quantize + ' if quant else ''}index_put_ K and V) bound_ms "
         f"{res['bound_ms']:.5f} ({nbytes / 1e6:.2f} MB)")
@@ -427,6 +467,7 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
     rule row by row), timed beside the plain version, an SDPA over the
     gathered K/V and the bound; ``window`` > 0 takes the window instance."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     quant = "ks" in pools
     name = "paged_attention_spec_quant" if quant else "paged_attention_spec"
@@ -459,6 +500,7 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
     check = _ulp_rows(torch, what, out, ref, B * R,
                       lambda bad: f"lengths {lengths_np[bad // R].tolist()}")
     ms = timed_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel)
     plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
     # slot b's pages: from row 0's window start to row R - 1's last column
     lo = pa._live_pages(lengths + 1, ps, max_pages, window)[0].cpu().numpy()
@@ -478,7 +520,10 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
               + int((hi - lo + 1).sum()) * 4)
     limits = lengths_np[:, None] + 1 + np.arange(R)[None, :]
     ops = 4 * hq * D * int(_live_cols(np, limits, window).sum())
-    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
+    splits = split_kv.split_count(B * R, Hkv, max_pages,
+                                  split_kv.sm_count(dev))
+    return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
+                   ops, B * R, splits)
 
 
 def _dense_name(entry, quant, bb=1, window=0, stats=False):
@@ -535,6 +580,7 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
     if zero.any() and out[torch.from_numpy(zero).to(dev)].any():
         raise AssertionError(f"{what}: a slot of length 0 is not zeros")
     ms = timed_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel)
     plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
     # slot b's rows: from row 0's window start to row R - 1's extent
     ext = np.clip(limits_np + R - 1, 0, S)
@@ -566,7 +612,8 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
               + 2 * B * R * hq * D * 2 + B * 4)
     live = np.minimum(limits_np[:, None] + np.arange(R)[None, :], S)
     ops = 4 * hq * D * int(_live_cols(np, live, window).sum())
-    return _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B * R)
+    return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
+                   ops, B * R, da.attention_splits(B * R, Hkv, S, dev))
 
 
 def _dense_write_case(torch, np, cache, rows_np, layer, label):
@@ -605,6 +652,8 @@ def _dense_write_case(torch, np, cache, rows_np, layer, label):
     del refs
     ms = timed_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
                                            layer))
+    dev_ms = device_ms(torch, lambda: kernel_fn(*leaves, k_new, v_new, rows,
+                                                layer))
     plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, k_new, v_new, rows,
                                                 layer), iters=5, warmup=1)
     kept = np.nonzero((rows_np >= 0) & (rows_np < S))
@@ -631,12 +680,14 @@ def _dense_write_case(torch, np, cache, rows_np, layer, label):
     out_row = D * ck.element_size() + (4 if quant else 0)
     nbytes = (2 * len(kept[0]) * Hkv * (D * 2 + out_row) + B * R * 4)
     res = {"max_abs_err": 0.0, "mean_abs_err": 0.0, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
            "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
            "bytes": nbytes, "rows": B * R}
     log(f"[kernels] {name} {label}: rows {B * R} ({len(kept[0])} kept), "
         f"bit-exact on the whole cache"
         f"{' (int8 rows and scales)' if quant else ''}; kernel_ms {ms:.4f} "
+        f"device_ms {dev_ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
         f"({'quantize + ' if quant else ''}index_put_ K and V) bound_ms "
         f"{res['bound_ms']:.5f} ({nbytes / 1e6:.3f} MB)")
@@ -672,6 +723,7 @@ def _dense_cases(torch, np):
     CTA, K7 over 32 x SPEC_R verify rows, the row write (K8; int8: K9)
     with one row and with SPEC_R rows per slot (some dropped)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
     L, Hkv, D, B, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 32, \
         2048
@@ -692,6 +744,11 @@ def _dense_cases(torch, np):
         res = out[name] = {}
         res["attention"] = _dense_attention_case(
             torch, np, cache, lengths, layer, 1, "decode, 32 slots")
+        _dense_attention_case(
+            torch, np, cache,
+            _split_edges(np, B, 64, S // 64,
+                         da.attention_splits(B, Hkv, S, cache["k"].device)),
+            layer, 1, "decode, 32 slots, split edges")
         for bb in (4, 8):
             res[f"bblock {bb}"] = _dense_attention_case(
                 torch, np, cache, lengths, layer, 1,
@@ -709,12 +766,86 @@ def _dense_cases(torch, np):
     return out
 
 
+def _split_edges(np, n_rows, tile, tiles, splits):
+    """Decode lengths at the split kernels' edges: 0 (every split empty; a
+    paged row's C2 mean), one column, one tile and one past it, rows whose
+    tiles end exactly on a split boundary (``splits`` x k tiles) and one
+    column past it, the full window; ``n_rows`` of them."""
+    base = [0, 1, tile - 1, tile, tile + 1, tiles * tile]
+    runs = [splits * k * tile for k in range(1, tiles // splits + 1)]
+    edges = base + runs + [r + 1 for r in runs]
+    return np.resize(np.array(edges, np.int64), n_rows)
+
+
+def _merge_case(torch, np, splits, rows, hq, d, label):
+    """The split-KV combine at one launch's workspace shape: random split
+    triples, a third of them empty (0, -1e30, 0) and one head whose only
+    visited split is wholly masked (m -1e30, l > 0: a paged row at limit
+    0), combined into a bf16 output against its plain version (the ulp
+    rule row by row) and into the raw triple (within 1e-5 of max(|x|, 1):
+    float32 sums of up to ``splits`` terms in another order); timed
+    beside the plain version and its bound. No single PyTorch call
+    computes it: library_ms is null."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    dev = gen.device
+    acc = torch.randn((splits, rows, hq, d), generator=gen, device=dev)
+    m = torch.randn((splits, rows, hq), generator=gen, device=dev) * 3
+    l_sum = torch.rand((splits, rows, hq), generator=gen, device=dev) * 60 + 1
+    empty = torch.rand((splits, rows, hq), generator=gen, device=dev) < 0.33
+    empty[:, 0, 0] = True
+    acc[empty], m[empty], l_sum[empty] = 0.0, -1e30, 0.0
+    m[0, 0, 0], l_sum[0, 0, 0] = -1e30, 64.0
+    out = torch.empty((rows, hq, d), dtype=torch.bfloat16, device=dev)
+    split_kv.split_merge(acc, m, l_sum, out=out)
+    ref = split_kv.split_merge_plain(acc, m, l_sum, torch.bfloat16)
+    raw = split_kv.split_merge(acc, m, l_sum)
+    raw_ref = split_kv.split_merge_plain(acc, m, l_sum)
+    torch.cuda.synchronize()
+    what = f"split_merge {label}"
+    check = _ulp_rows(torch, what, out, ref, rows,
+                      lambda bad: f"rows {bad.tolist()}")
+    for got, want in zip(raw, raw_ref):
+        rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"{what}: raw triple off by {rel:.2e}")
+    ms = timed_ms(torch, lambda: split_kv.split_merge(acc, m, l_sum,
+                                                      out=out))
+    dev_ms = device_ms(torch, lambda: split_kv.split_merge(acc, m, l_sum,
+                                                           out=out))
+    plain_ms = timed_ms(torch, lambda: split_kv.split_merge_plain(
+        acc, m, l_sum, torch.bfloat16), iters=5, warmup=1)
+    nbytes = splits * rows * hq * (d + 2) * 4 + rows * hq * d * 2
+    res = {**check, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": None,
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "bound_by": "bytes",
+           "bytes": nbytes, "rows": rows}
+    log(f"[kernels] {what}: {splits} splits x {rows} rows x {hq} heads x "
+        f"{d}, max abs {check['max_abs_err']:.3e}, worst row max "
+        f"{check['worst_row_max_ulps']:.2f} ulp; raw triple within 1e-5; "
+        f"kernel_ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms null "
+        f"bound_ms {res['bound_ms']:.5f} ({nbytes / 1e6:.3f} MB)")
+    return res
+
+
 def _pool_cases(torch, np, pools, lengths, table, layer, label):
     """The decode and ragged attention cases and the decode, ragged and
-    dropped-row write cases of one pool (bf16 or int8)."""
+    dropped-row write cases of one pool (bf16 or int8); the decode also at
+    the split kernels' edges."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
     max_pages = table.shape[1]
     ps = pools["k"].shape[3]
     dec = _attention_case(torch, np, pools, lengths, table, layer, "decode")
+    splits = split_kv.split_count(len(lengths), pools["k"].shape[2],
+                                  max_pages,
+                                  split_kv.sm_count(pools["k"].device))
+    _attention_case(torch, np, pools,
+                    _split_edges(np, len(lengths), ps, max_pages, splits),
+                    table, layer, "decode, split edges")
     # ragged mixed: slot 3 chunks rows [512, 768); its own decode row is the
     # dead passenger (limit 0); the 256 chunk rows share 4 pages
     pslot, pstart, C = 3, 512, 256
@@ -787,6 +918,9 @@ def phase_kernels(torch, np):
         torch.cuda.empty_cache()
     dense = _dense_cases(torch, np)
     out["dense"], out["dense int8"] = dense["bf16"], dense["int8"]
+    # the combine at the decode's workspace: 32 rows x 16 heads, 3 splits
+    out["merge"] = _merge_case(torch, np, out["bf16"]["attention"]["splits"],
+                               B, cfg.num_heads, D, "decode, 32 rows")
     return out
 
 
@@ -882,9 +1016,9 @@ def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
                         R=1):
     """The window instance of K4 (``bb`` 1), K5 (``bb`` > 1) or K7 (``R`` >
     1) reads no row below its first tile: the rows below each slot's
-    window start's tile (K5: its block's lowest; K7: row 0's) set to NaN
-    (int8: their scales), the output must be finite and bit-identical to
-    the clean cache's."""
+    window start's tile (K5 too: each slot walks its own tiles; K7: row
+    0's) set to NaN (int8: their scales), the output must be finite and
+    bit-identical to the clean cache's."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
     quant = "ks" in cache
@@ -895,8 +1029,6 @@ def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
                     dtype=torch.bfloat16)
     lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(gen.device)
     start = np.maximum(lengths_np + (R > 1) - window, 0) // 64 * 64
-    if bb > 1:
-        start = np.repeat(start.reshape(-1, bb).min(axis=1), bb)
     if not start.any():
         raise AssertionError("poison check: no row below any first tile")
 
@@ -1067,6 +1199,9 @@ def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
     if launches[mine[0] + " window"] != 0:
         raise AssertionError(f"Qwen3 (no window) launched a window "
                              f"instance: {launches}")
+    if launches["split_merge"] <= 0:
+        raise AssertionError(f"no decode dispatch went through the split-KV "
+                             f"combine: {launches}")
     if engine.counts["mixed_dispatches"] <= 0:
         raise AssertionError("no chunked prefill went through mixed_step")
     return engine, launches
@@ -1369,18 +1504,23 @@ def _logits_check(torch, engine, tol, slots=None):
 
 
 def _launches():
+    """Every kernel's launch count, the split-KV combine's included."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
-    return {**pa.launch_counts(), **da.launch_counts()}
+    return {**pa.launch_counts(), **da.launch_counts(),
+            **split_kv.launch_counts()}
 
 
 def _reset_launches():
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     pa.reset_launch_counts()
     da.reset_launch_counts()
+    split_kv.reset_launch_counts()
 
 
 def _pattern_prompts(rng, vocab, n, reps=8, width=16):
@@ -2053,6 +2193,7 @@ def _k6_case(torch, np, shard, local_np, q, layer, label):
     torch.cuda.synchronize()
     check = _stats_check(torch, what, got, ref, B)
     ms = timed_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel)
     plain_ms = timed_ms(torch, plain, iters=5, warmup=1)
     n = max(int(local_np.max()), 1)
     kd, vd = (shard[name][layer][:, :, :n] for name in ("k", "v"))
@@ -2071,7 +2212,9 @@ def _k6_case(torch, np, shard, local_np, q, layer, label):
     nbytes = (2 * rows * Hkv * row + B * hq * D * 2 + B * hq * (D + 2) * 4
               + B * 4)
     ops = 4 * hq * D * rows
-    res = _report(what, check, ms, plain_ms, library_ms, nbytes, ops, B,
+    res = _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
+                  ops, B,
+                  da.attention_splits(B, Hkv, shard["k"].shape[3], dev),
                   extra=f"; library: {library}; m, l within "
                         f"{check['m_l_rel_err']:.2e} relative; "
                         f"{check['empty_slots']} empty slots")
@@ -2113,6 +2256,10 @@ def phase_kernels_sp(torch, np):
         k4 = da.decode_attend_dense(q, full["k"], full["v"], lens, layer, 0,
                                     *scales)[:, 0]
         res = out[name] = {}
+        # K4 over the whole cache: a 27,033-row slot split over many CTAs
+        res["k4"] = _dense_attention_case(
+            torch, np, full, lengths, layer, 1,
+            f"decode, {B} slots of {lengths.tolist()} rows")
         for sp in (4, 2):
             s_local = S // sp
             parts = []
@@ -2186,6 +2333,7 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
                                                               QWEN3_0_6B,
                                                               ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
                                                                       Request)
@@ -2246,13 +2394,19 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     attn = _dense_name("decode_attend_dense", quant, stats=sp > 1)
     expected = {attn: cfg.num_layers * sp * substeps,
                 write: cfg.num_layers * sp * substeps}
+    # each attention launch of more than one split is followed by a combine
+    splits = da.attention_splits(SP_SLOTS, cfg.num_kv_heads,
+                                 SP_WINDOW // sp, torch.device("cuda"))
+    if splits > 1:
+        expected["split_merge"] = expected[attn]
     other = {k: v for k, v in launches.items() if v and k not in expected}
     if any(launches[k] != n for k, n in expected.items()) or other:
         raise AssertionError(f"{tag} launches {launches}, expected "
                              f"{expected} ({substeps} decode substeps) and "
                              f"no other kernel")
     log(f"{tag} {attn}: {launches[attn]} launches = {cfg.num_layers} layers "
-        f"x sp {sp} x {substeps} decode substeps; {write} the same")
+        f"x sp {sp} x {substeps} decode substeps; {write} the same; "
+        f"split_merge {launches['split_merge']} ({splits} splits a launch)")
     if quant:
         again = engine.submit(Request(prompt_ids=seeded, max_tokens=SP_NEW,
                                       seed=5, **SAMPLED))
@@ -2534,8 +2688,8 @@ def main() -> int:
     del params
     _free(torch)
     log(f"[wall] sp phases: {time.monotonic() - t_sp:.1f}s")
-    keys = ("max_abs_err", "mean_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+    keys = ("max_abs_err", "mean_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, src, line, res, run in (
             ("paged_attention", ATTN_SRC, 1080, kern["bf16"]["attention"],
@@ -2581,11 +2735,22 @@ def main() -> int:
             ("decode_attend_dense stats", DENSE_SRC, 429,
              skern["bf16"]["stats"], "sp 4 auto"),
             ("decode_attend_dense quant stats", DENSE_SRC, 429,
-             skern["int8"]["stats"], "sp 4 int8")):
+             skern["int8"]["stats"], "sp 4 int8"),
+            # the split-KV combine, part of K1's and the dense kernels'
+            # port: it replaces no pallas_call of its own
+            ("split_merge", MERGE_SRC, None, kern["merge"], "auto")):
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": f"{TPU_KERNELS}:{line}",
+                        "replaces": (f"{TPU_KERNELS}:{line}" if line
+                                     else "none (part of K1, K4-K7)"),
                         "launches": runs[run][name],
                         **{k: res[k] for k in keys}})
+    # the combine's launches beside those of the attention launches that
+    # used it (a launch with more than one split is followed by one combine)
+    for run, counts in runs.items():
+        users = {k: v for k, v in counts.items()
+                 if v and ("attention" in k or "attend" in k)}
+        log(f"[split] {run}: split_merge {counts['split_merge']} beside "
+            f"{users}")
     log(f"[done] {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,117 +1,352 @@
 #!/usr/bin/env python3
-"""K1's device times in several checkouts of the port, in turns, on one card.
+"""The attention kernels' times, and the engine's decode substep, in several
+checkouts of the port, in turns, on one card.
 
-    python3 kernel_ab.py PATH [PATH ...]
+    python3 kernel_ab.py [--engine-only] PATH [PATH ...]
 
 Each PATH is the root of a checkout that holds
 ``aws_k8s_ansible_provisioner_tpu_torch/``. For each PATH in the order
 given, a subprocess builds that checkout's kernels from its ``csrc/`` and
-times the paged attention (K1 over a bf16 pool, its int8 instance over an
-int8 pool) through the checkout's own wrappers, at ``chip_smoke.py``'s
-shapes: 32 decode rows with lengths up to 2048, and those rows plus a
-256-row prefill chunk (the ragged entry), over a 28-layer pool of page 64;
-and, where the checkout has it, the speculative verify's form over the
-same pools (32 slots of 5 rows).
-Give two versions as A B B A to compare them within one call. Prints one
-JSON line per run (mean device ms by CUDA events over 50 launches, after 5)
-and the card's name and power limit; needs a CUDA card.
+times them through the checkout's own wrappers, at ``chip_smoke.py``'s
+shapes (q bf16; each over a bf16 and an int8 pool or cache):
+
+- K1, the paged attention (page 64): Qwen3-0.6B's 32 decode rows with
+  lengths up to 2048 over a 28-layer pool, those rows plus a 256-row
+  prefill chunk (the ragged entry), and the verify's 32 slots of 5 rows;
+  Mistral-7B's window of 4096 over 16 rows with lengths up to 8192 (2
+  layers): decode, ragged (16 + 512 chunk rows) and verify (16 x 5);
+- the dense attention over [28, 32, 8, 2048, 128]: K4 (decode, 32 slots),
+  K5 (the same at 4 and 8 slots per CTA) and K7 (verify, 32 x 5); at the
+  window of 4096 over [2, 16, 8, 8192, 128]: K4, K5 (4 and 8 per CTA) and
+  K7; and K6 over the busiest shard of the sp 4 cache, [28, 4, 8, 8192,
+  128] at local lengths 41, 6034, 8192, 8192.
+
+and the Qwen3-0.6B engine (seeded random weights, int8 KV, 8 slots of
+100-token prompts): the host-clock wall of 12 horizon-8 decode dispatches
+of the paged engine and of the dense one, per substep (median and mean),
+and the median CPU time of the engine's thread a substep.
+``--engine-only`` times the engine alone: the host's clock varies from run
+to run by more than a kernel edit moves it, so give many alternating runs
+(A B A B A B A B).
+
+Give two versions as A B B A to compare them within one call. Prints the
+card's name and power limit, one JSON line per run, and then a table of
+each case's mean per version. Each kernel case has three times (50
+launches after 5; needs a CUDA card):
+
+- ``ms``: CUDA events around the back-to-back calls, the yardstick of
+  ``chip_smoke.py`` and of every A/B before it; where a wrapper's host time
+  exceeds its kernel's device time it times the host;
+- ``device_ms``: the same calls queued behind a spinning kernel, so that
+  the events time the device's work alone;
+- ``host_us``: the host's time per call in that run (the wrapper's Python,
+  allocations and launches).
+
+In a checkout with split-KV kernels (``ops/split_kv.py``), a case that
+launches the combine is timed again with one split forced
+(``ms_1split``, ``device_ms_1split``, ``host_us_1split``): the same kernel
+without the workspace and the combine.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
+import time
 
 
-def _time_ms(torch, fn, iters=50, warmup=5):
+def _times(torch, fn, iters=50, warmup=5):
+    """(ms, device_ms, host_us) of one call of ``fn`` (see the module
+    docstring)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end) / iters
+    # the spinning kernel (~2e9 cycles a s) outlasts the host's queueing
+    torch.cuda._sleep(int(min(2 * wall + 1e-3, 0.05) * 2e9))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    end.synchronize()
+    return ms, start.elapsed_time(end) / iters, 1e6 * host / iters
 
 
-def one(path: str) -> dict:
-    """Times of the checkout at ``path`` (run in its own process)."""
+def _case(torch, ctx, key, fn):
+    """Time ``fn`` into ``ctx["out"][key]``; where it launches the split-KV
+    combine, also with one split forced."""
+    ms, dev, host = _times(torch, fn)
+    row = {"ms": ms, "device_ms": dev, "host_us": host}
+    sk = ctx["split_kv"]
+    if sk is not None:
+        before = sk.split_merge.launches
+        fn()
+        if sk.split_merge.launches > before:
+            count = sk.split_count
+            sk.split_count = lambda *args: 1
+            try:
+                ms, dev, host = _times(torch, fn)
+            finally:
+                sk.split_count = count
+            row.update(ms_1split=ms, device_ms_1split=dev,
+                       host_us_1split=host)
+    ctx["out"][key] = row
+
+
+def _kv(torch, gen, shape, quant):
+    """Random K and V (bf16, or int8) and, int8, their float32 scales."""
+    dev = gen.device
+    if not quant:
+        return [torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2)]
+    return ([torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+            + [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02
+               + 1e-3 for _ in range(2)])
+
+
+def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
+           chunk, spec_len):
+    """K1 decode, ragged and verify over a bf16 and an int8 pool."""
+    Hkv, ps, D = 8, 64, 128
+    max_pages = S // ps
+    P = B * max_pages + 1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    pslot, pstart, C = chunk
+    limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
+    limits[pslot] = 0
+    tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
+    q = torch.randn((B + C, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    q5 = torch.randn((B, 5, hq, D), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)) \
+            .to(dev)
+
+    cases = {"decode": (t32(lengths), t32(table)),
+             "ragged": (t32(limits), t32(tables))}
+    for pool in ("bf16", "int8"):
+        kv = _kv(torch, gen, (L, P, Hkv, ps, D), pool == "int8")
+        for case, (lim, tab) in cases.items():
+            qn = q[:len(lim)].contiguous()
+            if pool == "bf16":
+                def fn():
+                    return pa.paged_attention(qn, *kv, lim, L - 1, tab,
+                                              window)
+            else:
+                def fn():
+                    return pa.paged_attention_quant(qn, *kv, lim, L - 1, tab,
+                                                    window)
+            _case(torch, ctx, f"{tag}{pool} {case}", fn)
+        lens, tab = t32(spec_len), t32(table)
+        if pool == "bf16":
+            def fn():
+                return pa.paged_attention_spec(q5, *kv, lens, L - 1, tab,
+                                               window)
+        else:
+            def fn():
+                return pa.paged_attention_spec_quant(q5, *kv, lens, L - 1,
+                                                     tab, window)
+        _case(torch, ctx, f"{tag}{pool} spec", fn)
+        del kv
+        torch.cuda.empty_cache()
+
+
+def _dense(torch, np, da, ctx, tag, L, hq, B, S, window, lengths, spec_len,
+           bbs):
+    """K4, K5 at each of ``bbs`` slots per CTA and K7 over a bf16 and an
+    int8 dense cache."""
+    Hkv, D = 8, 128
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    q = torch.randn((B, 1, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    q5 = torch.randn((B, 5, hq, D), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    slen = torch.from_numpy(spec_len.astype(np.int32)).to(dev)
+    for cache in ("bf16", "int8"):
+        kv = _kv(torch, gen, (L, B, Hkv, S, D), cache == "int8")
+        scales = kv[2:]
+        for bb in (1,) + bbs:
+            name = "K4" if bb == 1 else f"K5 bb{bb}"
+            _case(torch, ctx, f"{tag}{cache} {name}",
+                  lambda bb=bb: da.decode_attend_dense(
+                      q, kv[0], kv[1], lens, L - 1, window, *scales,
+                      bblock=bb))
+        _case(torch, ctx, f"{tag}{cache} K7",
+              lambda: da.spec_attend_dense(q5, kv[0], kv[1], slen, L - 1,
+                                           window, *scales))
+        del kv
+        torch.cuda.empty_cache()
+
+
+def _k6(torch, np, da, ctx):
+    """K6 over the busiest shard of the sp 4 engine's cache."""
+    L, B, Hkv, S, D, hq = 28, 4, 8, 8192, 128, 16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    q = torch.randn((B, 1, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    local = torch.tensor([41, 6034, 8192, 8192], dtype=torch.int32,
+                         device=dev)
+    for cache in ("bf16", "int8"):
+        kv = _kv(torch, gen, (L, B, Hkv, S, D), cache == "int8")
+        _case(torch, ctx, f"{cache} K6",
+              lambda: da.decode_attend_dense_stats(
+                  q, kv[0], kv[1], local, L - 1, *kv[2:]))
+        del kv
+        torch.cuda.empty_cache()
+
+
+def _engine(torch, np, out, paged):
+    """The Qwen3-0.6B engine with int8 KV (paged, or the dense layout):
+    8 slots decoding after 100-token prompts; the host-clock wall of 12
+    decode dispatches (after 2), per substep."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = QWEN3_0_6B
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    engine = Engine(cfg, init_params(cfg, gen, torch.bfloat16),
+                    ServingConfig(prefill_chunk=256, derived_seed=0,
+                                  kv_dtype="int8", paged=paged),
+                    device="cuda")
+    rng = np.random.default_rng(4)
+    for _ in range(8):
+        engine.submit(Request(prompt_ids=rng.integers(
+            0, cfg.vocab_size, 100).tolist(), max_tokens=200,
+            ignore_eos=True))
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    walls, cpus = [], []
+    for i in range(14):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        engine.step()
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append(1e3 * (time.perf_counter() - t0))
+            cpus.append(1e3 * (time.thread_time() - c0))
+    horizon = engine.serving.decode_horizon
+    out[f"engine {'paged' if paged else 'dense'} int8"] = {
+        "substep_ms_median": statistics.median(walls) / horizon,
+        "substep_ms_mean": statistics.mean(walls) / horizon,
+        "substep_cpu_ms_median": statistics.median(cpus) / horizon}
+    del engine
+    torch.cuda.empty_cache()
+
+
+def one(path: str, engine_only: bool = False) -> dict:
+    """Times of the checkout at ``path`` (run in its own process); with
+    ``engine_only`` the engine's substeps alone."""
     sys.path.insert(0, path)
+    import importlib.util
+
     import numpy as np
     import torch
 
     from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
 
-    cuda_build.build_kernels(["paged_attention"])
-    L, P, Hkv, ps, D, Hq, B, max_pages = 28, 1025, 8, 64, 128, 16, 32, 32
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    rng = np.random.default_rng(5)
-    table = (rng.permutation(B * max_pages) + 1).reshape(B, max_pages)
-    lengths = rng.integers(1, 2049, B)
-    lengths[:6] = [1, 64, 65, 2048, 2047, 128]
-    pslot, pstart, C = 3, 512, 256
-    limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
-    limits[pslot] = 0
-    tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
-    cases = {"decode": (lengths, table), "ragged": (limits, tables)}
-    q = torch.randn((B + C, Hq, D), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    shape = (L, P, Hkv, ps, D)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_build.build_kernels()
     out = {"path": path}
-    for pool in ("bf16", "int8"):
-        if pool == "bf16":
-            k, v = (torch.randn(shape, generator=gen, device=dev,
-                                dtype=torch.bfloat16) for _ in range(2))
-        else:
-            k, v = (torch.randint(-127, 128, shape, generator=gen,
-                                  device=dev, dtype=torch.int8)
-                    for _ in range(2))
-            ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev)
-                      * 0.02 + 1e-3 for _ in range(2))
-        for case, (lim_np, tab_np) in cases.items():
-            n = len(lim_np)
-            lim = torch.from_numpy(lim_np.astype(np.int32)).to(dev)
-            tab = torch.from_numpy(tab_np.astype(np.int32)).to(dev)
-            qn = q[:n].contiguous()
-            if pool == "bf16":
-                def fn():
-                    return pa.paged_attention(qn, k, v, lim, L - 1, tab)
-            else:
-                def fn():
-                    return pa.paged_attention_quant(qn, k, v, ks, vs, lim,
-                                                    L - 1, tab)
-            out[f"{pool} {case}"] = _time_ms(torch, fn)
-        if hasattr(pa, "paged_attention_spec"):
-            # the verify: 5 rows per slot, pages covering lengths + 5
-            lens = torch.from_numpy(np.minimum(lengths, 2043).astype(
-                np.int32)).to(dev)
-            tab = torch.from_numpy(table.astype(np.int32)).to(dev)
-            q5 = q[:B * 5].reshape(B, 5, Hq, D).contiguous()
-            if pool == "bf16":
-                def fn():
-                    return pa.paged_attention_spec(q5, k, v, lens, L - 1, tab)
-            else:
-                def fn():
-                    return pa.paged_attention_spec_quant(q5, k, v, ks, vs,
-                                                         lens, L - 1, tab)
-            out[f"{pool} spec"] = _time_ms(torch, fn)
-        del k, v
-        torch.cuda.empty_cache()
+    ctx = {"out": out, "split_kv": None}
+    if importlib.util.find_spec(
+            "aws_k8s_ansible_provisioner_tpu_torch.ops.split_kv"):
+        from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+        ctx["split_kv"] = split_kv
+    if not engine_only:
+        _kernels(torch, np, da, pa, ctx)
+    for paged in (True, False):
+        _engine(torch, np, out, paged)
     return out
+
+
+def _kernels(torch, np, da, pa, ctx):
+    """Every kernel case, into ``ctx["out"]``."""
+    # Qwen3-0.6B (chip_smoke.phase_kernels, _dense_cases)
+    rng = np.random.default_rng(5)
+    B, S = 32, 2048
+    table = (rng.permutation(B * (S // 64)) + 1).reshape(B, S // 64)
+    lengths = rng.integers(1, S + 1, B)
+    lengths[:6] = [1, 64, 65, S, S - 1, 128]
+    spec_len = np.minimum(lengths, S - 5)
+    spec_len[:4] = [0, 59, 60, S - 5]
+    _paged(torch, np, pa, ctx, "", 28, 16, B, S, 0, lengths, table,
+           (3, 512, 256), spec_len)
+    rng = np.random.default_rng(8)
+    dense_len = rng.integers(1, S + 1, B)
+    dense_len[:6] = [0, 1, 64, 65, S, S - 1]
+    spec_len = np.minimum(dense_len, S - 5)
+    spec_len[:4] = [0, 59, 60, S - 5]
+    _dense(torch, np, da, ctx, "dense ", 28, 16, B, S, 0, dense_len,
+           spec_len, (4, 8))
+    # Mistral-7B-v0.1, window 4096 (chip_smoke.phase_kernels_window)
+    B, S, W = 16, 8192, 4096
+    rng = np.random.default_rng(34)
+    table = (rng.permutation(B * (S // 64)) + 1).reshape(B, S // 64)
+    lengths = rng.integers(W + 1, S + 1, B)
+    lengths[:8] = [1, 64, W, W + 1, W + 64, W + 65, S, S - 1]
+    spec_len = np.minimum(lengths, S - 5)
+    spec_len[:4] = [0, W - 2, W + 61, S - 5]
+    _paged(torch, np, pa, ctx, "window ", 2, 32, B, S, W, lengths, table,
+           (3, S - 512, 512), spec_len)
+    dense_len = lengths.copy()
+    dense_len[0] = 0
+    _dense(torch, np, da, ctx, "window dense ", 2, 32, B, S, W, dense_len,
+           spec_len, (4, 8))
+    _k6(torch, np, da, ctx)
+
+
+def _table(runs: list) -> None:
+    """Each case's mean over the runs of each checkout, in the order the
+    checkouts were first given."""
+    paths = list(dict.fromkeys(r["path"] for r in runs))
+    print("case | metric | " + " | ".join(paths))
+    keys = dict.fromkeys(k for r in runs for k in r if k != "path")
+    for key in keys:
+        for metric in dict.fromkeys(m for r in runs for m in r.get(key, {})):
+            means = []
+            for p in paths:
+                vals = [r[key][metric] for r in runs
+                        if r["path"] == p and metric in r.get(key, {})]
+                means.append(f"{statistics.mean(vals):.4f}" if vals else "-")
+            print(f"{key} | {metric} | " + " | ".join(means))
 
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2])))
+        print(json.dumps(one(sys.argv[2], sys.argv[3:] == ["--engine-only"])))
         return 0
-    paths = sys.argv[1:]
+    engine_only = sys.argv[1:2] == ["--engine-only"]
+    paths = sys.argv[1 + engine_only:]
     if not paths:
         print(__doc__, file=sys.stderr)
         return 2
@@ -120,13 +355,18 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip() if smi.returncode == 0
           else f"nvidia-smi failed ({smi.returncode})")
+    runs = []
     for path in paths:
-        run = subprocess.run([sys.executable, __file__, "--one", path],
-                             capture_output=True, text=True, timeout=600)
+        run = subprocess.run([sys.executable, __file__, "--one", path]
+                             + ["--engine-only"] * engine_only,
+                             capture_output=True, text=True, timeout=900)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr)
             return run.returncode
-        print(run.stdout.strip().splitlines()[-1], flush=True)
+        line = run.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    _table(runs)
     return 0
 
 

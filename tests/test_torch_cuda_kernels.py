@@ -611,9 +611,9 @@ def test_dense_attention_bblock_matches_plain(dev, dtype, tol, quant, bb,
 def test_dense_window_reads_no_row_below_its_first_tile(dev, quant, entry,
                                                         bb):
     """The window instances of K4, K7 (int8 too) and K5: the rows below
-    each slot's first tile (K5: its block's lowest window start's tile)
-    hold NaN (int8: NaN scales). Had a kernel read them, 0 * NaN would
-    reach P.V: the output must be finite and bit-identical to the clean
+    each slot's first tile (K5 too: each slot walks its own tiles) hold
+    NaN (int8: NaN scales). Had a kernel read them, 0 * NaN would reach
+    P.V: the output must be finite and bit-identical to the clean
     cache's."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import \
         dense_attention as tda
@@ -629,8 +629,6 @@ def test_dense_window_reads_no_row_below_its_first_tile(dev, quant, entry,
         np.float32)).to(dev, torch.bfloat16)
     lens = torch.from_numpy(lengths).to(dev)
     start = (np.maximum(lengths + (rows > 1) - window, 0) // 64 * 64)
-    if bb > 1:
-        start = np.repeat(start.reshape(-1, bb).min(axis=1), bb)
     assert start.min() >= 64
     dirty = [t.clone() for t in cache]
     for b, st in enumerate(start):
@@ -721,3 +719,214 @@ def test_dense_attention_stats_merged_matches_k4(dev, dtype, tol, quant, sp):
     torch.cuda.synchronize()
     assert (ctx.float() - ref.float()).abs().max().item() <= tol
     assert not ctx[0].any()
+
+
+# -- the split-KV decode: split edges and the combine -------------------------
+
+
+def _split_edges(n_rows, tile, tiles, splits):
+    """Lengths at the split kernels' edges: 0, one column, one tile and one
+    past it, the full window, rows whose tiles end exactly on a split
+    boundary and one column past them (``n_rows`` of them)."""
+    runs = [splits * k * tile for k in range(1, tiles // splits + 1)]
+    edges = [0, 1, tile - 1, tile, tile + 1, tiles * tile] + runs \
+        + [r + 1 for r in runs]
+    return np.resize(np.array(edges, np.int32), n_rows)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 200])
+def test_paged_attention_at_split_edges(dev, dtype, tol, quant, window):
+    """K1 decode over 32 rows of 8 kv heads (several splits on a card of
+    132 SMs): rows of limit 0 (C2: the mean of V over page table[n, 0]
+    survives the combine), one column, page edges, rows whose pages end
+    exactly on a split boundary; one combine launch after the kernel."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    B, hq, hkv, ps, d, maxp = 32, 16, 8, 64, 128, 12
+    splits = split_kv.split_count(B, hkv, maxp, split_kv.sm_count(dev))
+    assert splits > 1
+    rng, pk, pv, table = _layout(B, 2, hkv, ps, d, maxp, seed=105)
+    lengths = _split_edges(B, ps, maxp, splits)
+    q = torch.from_numpy(rng.standard_normal((B, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lim = torch.from_numpy(lengths).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    if quant:
+        pools = _int8_pools(rng, 2, B * maxp + 1, hkv, ps, d, dev)
+    else:
+        pools = [torch.from_numpy(a).to(dev, dtype) for a in (pk, pv)]
+    before = split_kv.split_merge.launches
+    if quant:
+        out = tpa.paged_attention_quant(q, *pools, lim, 1, tab, window)
+    else:
+        out = tpa.paged_attention(q, *pools, lim, 1, tab, window)
+    assert split_kv.split_merge.launches == before + 1
+    ref = tpa.paged_attention_plain(q, pools[0], pools[1], lim, 1, tab,
+                                    *pools[2:], window=window)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq", [16, 32])
+@pytest.mark.parametrize("ps", [6, 10, 12, 100, 256])
+def test_paged_attention_at_any_page_size(dev, quant, hq, ps):
+    """K1 decode (several splits) and verify (5 rows a slot) at page sizes
+    that are not a multiple of 4 (a stage's row of p is then not 16-byte
+    aligned) or longer than one 64-row stage, with 2 and 4 query heads per
+    kv head, bf16 q over a bf16 and an int8 pool, with a window of 3 pages
+    less 1 row: within the bf16 tolerance of plain."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    B, hkv, d, maxp, R = 32, 8, 128, 6, 5
+    rng, _, _, table = _layout(B, 2, 1, 1, 1, maxp, seed=110)
+    P = B * maxp + 1
+    if quant:
+        pools = _int8_pools(rng, 2, P, hkv, ps, d, dev)
+    else:
+        gen = torch.Generator(dev).manual_seed(111)
+        pools = [torch.randn((2, P, hkv, ps, d), generator=gen, device=dev,
+                             dtype=torch.bfloat16) for _ in range(2)]
+    lengths = np.resize(np.array([0, 1, ps - 1, ps, ps + 1, 3 * ps + 2,
+                                  maxp * ps - R, maxp * ps - R - 1],
+                                 np.int32), B)
+    lim = torch.from_numpy(lengths).to(dev)
+    tab = torch.from_numpy(table).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, R, hq, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    assert split_kv.split_count(B, hkv, maxp, split_kv.sm_count(dev)) > 1
+    for window in (0, 3 * ps - 1):
+        if quant:
+            out = tpa.paged_attention_quant(q[:, 0].contiguous(), *pools,
+                                            lim, 1, tab, window)
+            spec = tpa.paged_attention_spec_quant(q, *pools, lim, 1, tab,
+                                                  window)
+        else:
+            out = tpa.paged_attention(q[:, 0].contiguous(), *pools, lim, 1,
+                                      tab, window)
+            spec = tpa.paged_attention_spec(q, *pools, lim, 1, tab, window)
+        ref = tpa.paged_attention_plain(q[:, 0].contiguous(), pools[0],
+                                        pools[1], lim, 1, tab, *pools[2:],
+                                        window=window)
+        ref_spec = tpa.paged_attention_spec_plain(
+            q, pools[0], pools[1], lim, 1, tab, *pools[2:], window=window)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        assert (spec.float() - ref_spec.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 200])
+def test_dense_attention_at_split_edges(dev, dtype, tol, quant, window):
+    """K4 and K7 over 32 slots of 8 kv heads at the split edges (length
+    0: zeros, C8), and K5 at 4 slots per CTA: the same launch as K4, so
+    bit-identical to it (C11's zeros kept)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    B, S, hq, hkv, d = 32, 768, 16, 8, 128
+    rng = np.random.default_rng(106)
+    cache = _dense_cache(rng, B, S, hkv, d, dev,
+                         torch.float32 if quant else dtype, quant)
+    splits = tda.attention_splits(B, hkv, S, dev)
+    assert splits > 1
+    lengths = _split_edges(B, 64, S // 64, splits)
+    lens = torch.from_numpy(lengths).to(dev)
+    spec_lens = torch.from_numpy(np.minimum(lengths, S - 5)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, 5, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    before = split_kv.split_merge.launches
+    k4 = _dense_call(tda, q[:, :1], cache, lens, 1, window, 1, 1)
+    k5 = _dense_call(tda, q[:, :1], cache, lens, 1, window, 4, 1)
+    k7 = _dense_call(tda, q, cache, spec_lens, 1, window, 1, 5)
+    verify_splits = tda.attention_splits(B * 5, hkv, S, dev)
+    assert split_kv.split_merge.launches == before + 2 + (verify_splits > 1)
+    ref4 = tda.dense_attention_plain(q[:, :1], cache[0], cache[1], lens, 1,
+                                     window, *cache[2:])
+    ref7 = tda.dense_attention_plain(q, cache[0], cache[1], spec_lens + 1, 1,
+                                     window, *cache[2:])
+    torch.cuda.synchronize()
+    assert (k4.float() - ref4.float()).abs().max().item() <= tol
+    assert (k7.float() - ref7.float()).abs().max().item() <= tol
+    assert torch.equal(k4, k5)
+    assert not k4[0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_dense_attention_27000_rows(dev, quant):
+    """K4 and K6 over 4 slots holding 41, 6,034, 14,002 and 27,033 rows of
+    a 32768-row cache (the sp engine's prompts; one split per a few hundred
+    tiles): K4 within the bf16 tolerance of plain, K6's triple within
+    1e-4 relative of its plain version."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, hq, hkv, d = 4, 32768, 16, 8, 128
+    rng = np.random.default_rng(107)
+    if quant:
+        cache = _int8_pools(rng, 2, B, hkv, S, d, dev)
+    else:
+        cache = [torch.randn((2, B, hkv, S, d), device=dev,
+                             generator=torch.Generator(dev).manual_seed(
+                                 108 + i), dtype=torch.bfloat16)
+                 for i in range(2)]
+    assert tda.attention_splits(B, hkv, S, dev) > 8
+    lens = torch.tensor([41, 6034, 14002, 27033], dtype=torch.int32,
+                        device=dev)
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    out = _dense_call(tda, q, cache, lens, 1, 0, 1, 1)
+    ref = tda.dense_attention_plain(q, cache[0], cache[1], lens, 1, 0,
+                                    *cache[2:])
+    acc, m, l_sum = tda.decode_attend_dense_stats(q, cache[0], cache[1],
+                                                  lens, 1, *cache[2:])
+    racc, rm, rl = tda.dense_attention_stats_plain(q, cache[0], cache[1],
+                                                   lens, 1, *cache[2:])
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(l_sum, rl, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(acc / l_sum[..., None],
+                               racc / rl[..., None], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_merge_matches_plain(dev, dtype):
+    """The combine kernel against its plain version: empty splits (0,
+    -1e30, 0) add nothing, a head whose only visited split is wholly masked
+    (m -1e30, l > 0; a paged row at limit 0) keeps acc / l, and the raw
+    triple (K6) within float32 rounding."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    rng = np.random.default_rng(109)
+    splits, rows, hq, d = 5, 7, 4, 128
+    acc = torch.from_numpy(rng.standard_normal((splits, rows, hq, d))
+                           .astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.standard_normal((splits, rows, hq))
+                         .astype(np.float32) * 3).to(dev)
+    l_sum = torch.from_numpy(rng.uniform(1, 60, (splits, rows, hq))
+                             .astype(np.float32)).to(dev)
+    empty = torch.from_numpy(rng.uniform(size=(splits, rows, hq)) < 0.4) \
+        .to(dev)
+    empty[:, 0, 0] = True
+    acc[empty], m[empty], l_sum[empty] = 0.0, -1e30, 0.0
+    m[2, 0, 0], l_sum[2, 0, 0] = -1e30, 64.0
+    acc[2, 0, 0] = torch.arange(d, dtype=torch.float32, device=dev)
+    out = torch.empty((rows, hq, d), dtype=dtype, device=dev)
+    split_kv.split_merge(acc, m, l_sum, out=out)
+    raw = split_kv.split_merge(acc, m, l_sum)
+    torch.cuda.synchronize()
+    ref = split_kv.split_merge_plain(acc, m, l_sum, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(out[0, 0].float(), (acc[2, 0, 0] / 64).to(dtype)
+                       .float())
+    for got, want in zip(raw, split_kv.split_merge_plain(acc, m, l_sum)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
