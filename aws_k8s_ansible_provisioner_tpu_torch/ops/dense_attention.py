@@ -23,11 +23,13 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   the cache, writing the unnormalized float32 ``acc`` and the running ``m``
   and ``l`` for the sequence-parallel decode's log-sum-exp merge; a slot
   with no row in the shard gives (0, -1e30, 0);
-- :func:`spec_attend_dense` (the same kernel with R > 1) replaces
-  ``decode_attend_pallas_spec`` (``_spec_kernel_plain``, int8
-  ``_spec_kernel_quant``): R query rows per slot, row r attending the rows
-  [0, lengths[b] + 1 + r); the kernel takes them as B * R packed rows, row
-  n of slot n // R;
+- :func:`spec_attend_dense` (the same source's verify entry,
+  ``csrc/split_verify.cuh``) replaces ``decode_attend_pallas_spec``
+  (``_spec_kernel_plain``, int8 ``_spec_kernel_quant``): R query rows per
+  slot, row r attending the rows [0, lengths[b] + 1 + r); one CTA takes a
+  slot's R x G rows of one kv head (up to 64: more take row groups) and
+  streams the slot's rows once for all of them, with tensor-core scores
+  and P.V;
 - with ``window`` > 0 (both entries, the kernel's window instances) a row
   attends only the last ``window`` of those rows and reads no 64-row tile
   below its window start's;
@@ -41,13 +43,14 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
   (``kv_cache.quantize_rows``, bit for bit) into the int8 cache and their
   scales into the scale caches.
 
-The attention kernel is split-KV (``ops/split_kv.py``): each (query row,
-kv head) gets ``split_kv.split_count`` CTAs from the shapes (B * R, Hkv,
-``cdiv(S, 64)``, the card's SM count); with more than one, the wrapper
-passes the split triples' workspace (``[splits, B * R, Hq, D]`` and twice
-``[splits, B * R, Hq]`` float32, ``split_kv.launch_plan``) and the
-kernel's C entry queues the combine after the attention kernel on the same
-stream (K6: into the shard's triple that the wrapper returns).
+The attention kernels are split-KV (``ops/split_kv.py``): each (slot, kv
+head), and in the verify each (slot, row group, kv head), gets
+``split_kv.split_count`` CTAs from the shapes (slots, Hkv, ``cdiv(S,
+64)``, the card's SM count); with more than one, the wrapper passes the
+split triples' workspace (``[splits, B * R, Hq, D]`` and twice ``[splits,
+B * R, Hq]`` float32, ``split_kv.launch_plan``) and the kernel's C entry
+queues the combine after the attention kernel on the same stream (K6:
+into the shard's triple that the wrapper returns).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
@@ -154,6 +157,16 @@ def _attention_lib():
     fn = lib.dense_attention
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _verify_lib():
+    lib = cuda_build.load("dense_attention")
+    fn = lib.dense_attention_verify
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]
         fn.restype = _I
     return fn
@@ -213,30 +226,36 @@ def attention_splits(rows: int, hkv: int, seq: int,
 
 
 def _launch_attention(what: str, q, cache_k, cache_v, cache_ks, cache_vs,
-                      limits, layer: int, window: int, bblock: int
-                      ) -> torch.Tensor:
+                      limits, layer: int, window: int, bblock: int,
+                      verify: bool = False) -> torch.Tensor:
     """Check the operands of the dense attention kernel and launch it
     (int8 when ``cache_ks`` is given; the window instance when ``window``
     > 0; ``bblock`` is checked, and does not change the launch). q:
-    [B, R, Hq, D]; returns [B, R, Hq, D]."""
+    [B, R, Hq, D]; returns [B, R, Hq, D]. The decode (R = 1): slot b
+    attends its rows < ``limits[b]``. ``verify``: the verify entry, row r
+    of slot b with the limit ``limits[b] + 1 + r`` (``limits`` = lengths),
+    one CTA per (slot, row group, kv head, split)."""
     B, R, Hkv, G, D, S, scales = _check_attention(
         what, q, cache_k, cache_v, cache_ks, cache_vs, limits, layer, window,
         bblock)
+    if R != 1 and not verify:
+        raise ValueError(f"{what}: one query row per slot, got {R}")
     out = torch.empty_like(q)
     if B == 0:
         return out
-    fn = _attention_lib()
+    fn = _verify_lib() if verify else _attention_lib()
+    code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        splits, ws = split_kv.launch_plan(B * R, Hkv, -(-S // _TILE),
-                                          Hkv * G, D, q.device, stream)
+        splits, ws = split_kv.launch_plan(
+            B * R, Hkv, -(-S // _TILE), Hkv * G, D, q.device, stream,
+            cta_rows=B * split_kv.verify_groups(R, G) if verify else None)
         rc = fn(out.data_ptr(), *ws, q.data_ptr(), cache_k.data_ptr(),
                 cache_v.data_ptr(), cache_ks.data_ptr() if scales else None,
                 cache_vs.data_ptr() if scales else None, limits.data_ptr(), B,
-                Hkv, G, R, D, S, layer, window, 1.0 / math.sqrt(D),
-                _DTYPE_CODES[q.dtype],
-                _INT8_POOL if scales else _DTYPE_CODES[q.dtype], splits,
-                stream)
+                *((R,) if verify else ()), Hkv, G, D, S, layer, window,
+                1.0 / math.sqrt(D), code, _INT8_POOL if scales else code,
+                splits, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     if splits > 1:
@@ -415,13 +434,16 @@ def spec_attend_dense(q: torch.Tensor, cache_k: torch.Tensor,
     already written); row r attends the rows [0, lengths[b] + 1 + r), of
     which the last ``window`` when it is > 0; scale caches select the int8
     form. Returns [B, R, Hq, D]. CPU tensors take
-    :func:`dense_attention_plain`; CUDA tensors launch the kernel."""
-    q, limits = q.contiguous(), lengths.to(torch.int32) + 1
+    :func:`dense_attention_plain`; CUDA tensors launch the verify kernel,
+    which streams each slot's rows once for its R rows (lengths as they
+    are)."""
+    q, lengths = q.contiguous(), lengths.to(torch.int32)
     if q.device.type == "cpu":
-        return dense_attention_plain(q, cache_k, cache_v, limits, layer,
+        return dense_attention_plain(q, cache_k, cache_v, lengths + 1, layer,
                                      window, cache_ks, cache_vs)
     out = _launch_attention("spec_attend_dense", q, cache_k, cache_v,
-                            cache_ks, cache_vs, limits, layer, window, 1)
+                            cache_ks, cache_vs, lengths, layer, window, 1,
+                            verify=True)
     _count(spec_attend_dense, cache_ks is not None, 1, window)
     return out
 

@@ -13,9 +13,12 @@
   :func:`decode_attend_paged` and :func:`ragged_attend_paged` are the two
   entry points of both; scale pools select the int8 form.
 - :func:`paged_attention_spec` and :func:`paged_attention_spec_quant` (the
-  same kernel) replace the same TPU body with ``spec=True`` behind
-  ``decode_attend_pallas_spec_paged``: the speculative verify's R query rows
-  per slot, packed as B * R rows with their own limits.
+  same source's verify entry, ``csrc/split_verify.cuh``) replace the same
+  TPU body with ``spec=True`` behind ``decode_attend_pallas_spec_paged``:
+  the speculative verify's R query rows per slot, row r with limit
+  ``lengths[b] + 1 + r``. One CTA takes a slot's R x G rows of one kv head
+  (up to 64: more take row groups) and streams the slot's pages once for
+  all of them, with tensor-core scores and P.V.
   :func:`decode_attend_spec_paged` is their entry point.
 - :func:`cache_write_rows_paged` (``csrc/cache_write.cu``) replaces
   ``cache_write_row_paged``: one K and one V row per packed row, written in
@@ -25,12 +28,14 @@
   (``serving/kv_cache.quantize_rows``) into an int8 pool, their scales into
   the scale pools.
 
-The attention kernel is split-KV (``ops/split_kv.py``): each (query row,
-kv head) gets ``split_kv.split_count`` CTAs from the shapes (rows, Hkv,
+The attention kernels are split-KV (``ops/split_kv.py``): each (query row,
+kv head), and in the verify each (slot, row group, kv head), gets
+``split_kv.split_count`` CTAs from the shapes (rows or slots, Hkv,
 ``max_pages``, the card's SM count); with more than one, the wrapper
 passes the split triples' workspace (``[splits, N, Hq, D]`` and twice
-``[splits, N, Hq]`` float32, ``split_kv.launch_plan``) and the kernel's C
-entry queues the combine after the attention kernel on the same stream.
+``[splits, N, Hq]`` float32 over the N query rows,
+``split_kv.launch_plan``) and the kernel's C entry queues the combine
+after the attention kernel on the same stream.
 Each wrapper takes its plain PyTorch version for a tensor on the CPU (the
 tests), and for a CUDA tensor launches its kernel on the current stream or
 raises; nothing falls back. Each keeps a plain integer count of its kernel
@@ -160,17 +165,16 @@ def _attention_lib():
     return fn
 
 
-def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
-                      limits, table, layer: int, window: int
-                      ) -> torch.Tensor:
-    """Check the operands of the attention kernel and launch it (bf16/f32
-    pool when ``pool_ks`` is None, else int8 with scale pools; the window
-    instance when ``window`` > 0)."""
+def _check_operands(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
+                    window: int, layer: int) -> tuple:
+    """Check q [..., Hq, D] against the pools (bf16/f32 of q's type when
+    ``pool_ks`` is None, else int8 with float32 scale pools), the window
+    and the layer. Returns (Hkv, G, D, P, page size, scale pools)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if window < 0:
         raise ValueError(f"{what}: window {window} < 0")
-    N, Hq, D = q.shape
+    Hq, D = q.shape[-2:]
     L, P, Hkv, ps, Dk = pool_k.shape
     G = Hq // Hkv if Hkv else 0
     quant = pool_ks is not None
@@ -194,30 +198,95 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
         if pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32:
             raise TypeError(f"{what}: scale pools must be float32")
         scales = (pool_ks, pool_vs)
-    if limits.dtype != torch.int32 or table.dtype != torch.int32 \
-            or limits.shape != (N,) or table.dim() != 2 \
-            or table.shape[0] != N or table.shape[1] < 1:
-        raise ValueError(f"{what}: limits [N] and table [N, pages] must be "
-                         f"int32")
     if not 0 <= layer < L:
         raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    return Hkv, G, D, P, ps, scales
+
+
+def _pool_args(q, pool_k, pool_v, scales) -> tuple:
+    """The kernels' pool pointers, q's type code and the pool's."""
+    code = _DTYPE_CODES[q.dtype]
+    return ((pool_k.data_ptr(), pool_v.data_ptr())
+            + (tuple(t.data_ptr() for t in scales) if scales
+               else (None, None)),
+            code, _INT8_POOL if scales else code)
+
+
+def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
+                      limits, table, layer: int, window: int
+                      ) -> torch.Tensor:
+    """Check the operands of the attention kernel and launch it (bf16/f32
+    pool when ``pool_ks`` is None, else int8 with scale pools; the window
+    instance when ``window`` > 0)."""
+    Hkv, G, D, P, ps, scales = _check_operands(
+        what, q, pool_k, pool_v, pool_ks, pool_vs, window, layer)
+    N, Hq = q.shape[:2]
+    if q.dim() != 3 or limits.dtype != torch.int32 \
+            or table.dtype != torch.int32 or limits.shape != (N,) \
+            or table.dim() != 2 or table.shape[0] != N or table.shape[1] < 1:
+        raise ValueError(f"{what}: limits [N] and table [N, pages] must be "
+                         f"int32")
     _check_cuda(what, (q, pool_k, pool_v, limits, table) + scales,
                 (pool_k, pool_v))
     out = torch.empty_like(q)
     if N == 0:
         return out
     fn = _attention_lib()
+    pools, code, pool_code = _pool_args(q, pool_k, pool_v, scales)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         splits, ws = split_kv.launch_plan(N, Hkv, table.shape[1], Hq, D,
                                           q.device, stream)
-        rc = fn(out.data_ptr(), *ws, q.data_ptr(), pool_k.data_ptr(),
-                pool_v.data_ptr(), pool_ks.data_ptr() if quant else None,
-                pool_vs.data_ptr() if quant else None, limits.data_ptr(),
+        rc = fn(out.data_ptr(), *ws, q.data_ptr(), *pools, limits.data_ptr(),
                 table.data_ptr(), N, Hkv, G, D, P, ps, table.shape[1], layer,
-                window, 1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype],
-                _INT8_POOL if quant else _DTYPE_CODES[q.dtype], splits,
-                stream)
+                window, 1.0 / math.sqrt(D), code, pool_code, splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    if splits > 1:
+        split_kv.split_merge.launches += 1
+    return out
+
+
+def _verify_lib():
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_attention_verify
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                       _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _launch_verify(what: str, q, pool_k, pool_v, pool_ks, pool_vs, lengths,
+                   table, layer: int, window: int) -> torch.Tensor:
+    """Check the operands of the verify kernel and launch it: q [B, R, Hq,
+    D], lengths [B] and table [B, max_pages] int32 as they are, one CTA per
+    (slot, row group, kv head, split) (``csrc/split_verify.cuh``)."""
+    Hkv, G, D, P, ps, scales = _check_operands(
+        what, q, pool_k, pool_v, pool_ks, pool_vs, window, layer)
+    B, R, Hq = q.shape[:3]
+    if q.dim() != 4 or lengths.dtype != torch.int32 \
+            or table.dtype != torch.int32 or lengths.shape != (B,) \
+            or table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1:
+        raise ValueError(f"{what}: lengths [B] and table [B, pages] must be "
+                         f"int32")
+    _check_cuda(what, (q, pool_k, pool_v, lengths, table) + scales,
+                (pool_k, pool_v))
+    out = torch.empty_like(q)
+    if B * R == 0:
+        return out
+    fn = _verify_lib()
+    pools, code, pool_code = _pool_args(q, pool_k, pool_v, scales)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        splits, ws = split_kv.launch_plan(
+            B * R, Hkv, table.shape[1], Hq, D, q.device, stream,
+            cta_rows=B * split_kv.verify_groups(R, G))
+        rc = fn(out.data_ptr(), *ws, q.data_ptr(), *pools,
+                lengths.data_ptr(), table.data_ptr(), B, R, Hkv, G, D, P, ps,
+                table.shape[1], layer, window, 1.0 / math.sqrt(D), code,
+                pool_code, splits, stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     if splits > 1:
@@ -353,16 +422,15 @@ def paged_attention_spec(q: torch.Tensor, pool_k: torch.Tensor,
 
     q: [B, R, Hq, D]; pools [L, P, Hkv, page, D] of q's type; lengths [B]
     int32; table [B, max_pages] int32. Returns [B, R, Hq, D]. CPU tensors
-    take :func:`paged_attention_spec_plain`; CUDA tensors launch the paged
-    attention kernel over the B * R rows packed (:func:`_spec_rows`)."""
+    take :func:`paged_attention_spec_plain`; CUDA tensors launch the
+    verify kernel, which streams each slot's pages once for its R rows."""
     if q.device.type == "cpu":
         return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
                                           table, window=window)
-    qp, limits, tables = _spec_rows(q, lengths, table)
-    out = _launch_attention("paged_attention_spec", qp, pool_k, pool_v, None,
-                            None, limits, tables, layer, window)
+    out = _launch_verify("paged_attention_spec", q, pool_k, pool_v, None,
+                         None, lengths, table, layer, window)
     _count(paged_attention_spec, window)
-    return out.reshape(q.shape)
+    return out
 
 
 def paged_attention_spec_quant(q: torch.Tensor, pool_k: torch.Tensor,
@@ -376,11 +444,10 @@ def paged_attention_spec_quant(q: torch.Tensor, pool_k: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_spec_plain(q, pool_k, pool_v, lengths, layer,
                                           table, pool_ks, pool_vs, window)
-    qp, limits, tables = _spec_rows(q, lengths, table)
-    out = _launch_attention("paged_attention_spec_quant", qp, pool_k, pool_v,
-                            pool_ks, pool_vs, limits, tables, layer, window)
+    out = _launch_verify("paged_attention_spec_quant", q, pool_k, pool_v,
+                         pool_ks, pool_vs, lengths, table, layer, window)
     _count(paged_attention_spec_quant, window)
-    return out.reshape(q.shape)
+    return out
 
 
 def decode_attend_spec_paged(q: torch.Tensor, pool_k: torch.Tensor,
@@ -393,6 +460,7 @@ def decode_attend_spec_paged(q: torch.Tensor, pool_k: torch.Tensor,
     ``lengths[b] + r`` (all R already written); scale pools select the int8
     form. Returns [B, R, Hq, D]."""
     q = q.contiguous()
+    lengths, table = lengths.to(torch.int32), table.to(torch.int32)
     if pool_ks is None:
         return paged_attention_spec(q, pool_k, pool_v, lengths, layer, table,
                                     window)

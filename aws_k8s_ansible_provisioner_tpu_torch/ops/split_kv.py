@@ -5,13 +5,17 @@ The decode attention kernels (``csrc/paged_attention.cu``: K1;
 ``splits`` CTAs. Split s walks the s-th of ``splits`` equal runs of the
 row's tiles (pages, or 64-row tiles of the dense cache), counted from the
 row's first tile (:func:`split_bounds`); a run past the row's last tile is
-empty. With one split the CTA writes the output itself. With more, each CTA
-leaves its float32 flash triple in a workspace (``acc`` [splits, rows, Hq,
-D], ``m`` and ``l`` [splits, rows, Hq]; one ``torch.empty`` per device,
-stream and host thread, kept and grown by :func:`launch_plan`) and the combine
-(``csrc/split_merge.cuh``) merges a row's triples in split order. The
-attention kernels' C entries queue the combine themselves, right after the
-kernel; their wrappers count it in ``split_merge.launches``.
+empty. The speculative verifies (K1's verify entry, K7) give the
+``splits`` CTAs to each (slot, row group, kv head) instead: one CTA takes
+up to MAX_VERIFY_ROWS of a slot's R x G query rows over a run of the
+slot's tiles (:func:`verify_groups`). With one split the CTA writes the
+output itself. With more, each CTA leaves its float32 flash triples in a
+workspace (``acc`` [splits, rows, Hq, D], ``m`` and ``l`` [splits, rows,
+Hq]; one ``torch.empty`` per device, stream and host thread, kept and
+grown by :func:`launch_plan`) and the combine (``csrc/split_merge.cuh``)
+merges a row's triples in split order. The attention kernels' C entries
+queue the combine themselves, right after the kernel; their wrappers count
+it in ``split_merge.launches``.
 
 - :func:`split_count` picks ``splits`` from shapes only (rows, Hkv, the
   tiles a row may have, and the card's SM count), never from lengths: the
@@ -48,6 +52,9 @@ NEG_INF = -1e30
 # keeps an SM busy while the short rows' CTAs drain
 CTAS_PER_SM = 4
 MAX_SPLITS = 32
+# query rows (R x G of one kv head) that one verify CTA takes; a slot with
+# more takes several row groups (csrc/split_verify.cuh kMaxRows)
+MAX_VERIFY_ROWS = 64
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _RAW = -1
@@ -65,6 +72,12 @@ def split_count(rows: int, hkv: int, tiles: int, sms: int) -> int:
         return 1
     want = -(-CTAS_PER_SM * sms // pairs)
     return max(1, min(want, tiles, MAX_SPLITS))
+
+
+def verify_groups(r_rows: int, groups: int) -> int:
+    """Row groups of one (slot, kv head) of a verify: its R x G query rows
+    in CTAs of up to MAX_VERIFY_ROWS."""
+    return max(1, -(-r_rows * groups // MAX_VERIFY_ROWS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,14 +157,18 @@ _workspaces: dict = {}
 
 
 def launch_plan(rows: int, hkv: int, tiles: int, hq: int, d: int,
-                device: torch.device, stream: int) -> tuple:
+                device: torch.device, stream: int,
+                cta_rows: Optional[int] = None) -> tuple:
     """(splits, the workspace's pointers) of one attention launch queued
     on ``stream`` (a ``cudaStream_t`` of ``device``) over ``rows`` query rows
     whose rows may visit up to ``tiles`` tiles: with one split three nulls,
     with more the split triples acc [splits, rows, hq, d], m and l [splits,
     rows, hq] in this stream's workspace (uninitialized: the attention
-    kernel writes every entry that the combine reads)."""
-    splits = split_count(rows, hkv, tiles, sm_count(device))
+    kernel writes every entry that the combine reads). ``cta_rows``: the
+    row sets that take ``splits`` CTAs each where one CTA serves several
+    query rows (a verify: slots x :func:`verify_groups`); default ``rows``."""
+    splits = split_count(rows if cta_rows is None else cta_rows, hkv, tiles,
+                         sm_count(device))
     if splits == 1:
         return 1, (None, None, None)
     n = splits * rows * hq

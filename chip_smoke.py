@@ -520,8 +520,9 @@ def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
               + int((hi - lo + 1).sum()) * 4)
     limits = lengths_np[:, None] + 1 + np.arange(R)[None, :]
     ops = 4 * hq * D * int(_live_cols(np, limits, window).sum())
-    splits = split_kv.split_count(B * R, Hkv, max_pages,
-                                  split_kv.sm_count(dev))
+    # one CTA takes a slot's R x G rows of a kv head: the split counts slots
+    splits = split_kv.split_count(B * split_kv.verify_groups(R, G), Hkv,
+                                  max_pages, split_kv.sm_count(dev))
     return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
                    ops, B * R, splits)
 
@@ -543,6 +544,7 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
     0 takes the window instance. The bound counts the rows each slot needs
     (K5 reads its block's union of them)."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
     from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
         dequantize
 
@@ -612,8 +614,10 @@ def _dense_attention_case(torch, np, cache, lengths_np, layer, R, label,
               + 2 * B * R * hq * D * 2 + B * 4)
     live = np.minimum(limits_np[:, None] + np.arange(R)[None, :], S)
     ops = 4 * hq * D * int(_live_cols(np, live, window).sum())
+    # a verify splits each (slot, row group, kv head)
+    cta_rows = B * split_kv.verify_groups(R, G) if R > 1 else B
     return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
-                   ops, B * R, da.attention_splits(B * R, Hkv, S, dev))
+                   ops, B * R, da.attention_splits(cta_rows, Hkv, S, dev))
 
 
 def _dense_write_case(torch, np, cache, rows_np, layer, label):
@@ -970,6 +974,7 @@ def phase_kernels_window(torch, np):
         res["spec"] = _spec_case(torch, np, pools, spec_len, table, layer,
                                  f"window {W}, verify {B} x {SPEC_R} rows",
                                  Hq, W)
+        _paged_poison_check(torch, np, pools, spec_len, table, layer, Hq, W)
         # the same 16 rows of ~8000 columns at window 0 and at window W
         scales = (pools["ks"], pools["vs"]) if "ks" in pools else ()
         fn = pa.paged_attention_quant if scales else pa.paged_attention
@@ -1012,12 +1017,60 @@ def phase_kernels_window(torch, np):
     return out
 
 
+def _paged_poison_check(torch, np, pools, lengths_np, table_np, layer, hq,
+                        window):
+    """The verify's window instance (K1-spec) reads no page outside its
+    slots' ranges: table entries below the page of each slot's row 0 window
+    start and past the page of its last column (lengths + SPEC_R - 1) point
+    at page 0, which no slot owns, filled with NaN (int8: its scales); the
+    output must be finite and bit-identical to the clean table's."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    quant = "ks" in pools
+    dev = pools["k"].device
+    _, _, Hkv, ps, D = pools["k"].shape
+    B, max_pages = table_np.shape
+    assert table_np.min() > 0
+    for n in ("ks", "vs") if quant else ("k", "v"):
+        pools[n][layer, 0] = float("nan")
+    lo = np.maximum(lengths_np + 1 - window, 0) // ps
+    end = -(-(lengths_np + SPEC_R) // ps)
+    dirty = table_np.copy()
+    for b in range(B):
+        dirty[b, :lo[b]] = 0
+        dirty[b, end[b]:] = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    q = torch.randn((B, SPEC_R, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    scales = (pools["ks"], pools["vs"]) if quant else ()
+
+    def run(tab):
+        return pa.decode_attend_spec_paged(
+            q, pools["k"], pools["v"], lengths, layer,
+            torch.from_numpy(tab.astype(np.int32)).to(dev), *scales,
+            window=window)
+
+    clean, bad = run(table_np), run(dirty)
+    torch.cuda.synchronize()
+    what = ("paged_attention_spec_quant" if quant
+            else "paged_attention_spec") + " window"
+    if not (bool(torch.isfinite(bad.float()).all())
+            and torch.equal(clean, bad)):
+        raise AssertionError(f"{what}: a page outside a slot's range was "
+                             f"read")
+    log(f"[kernels] {what}: {int((dirty == 0).sum())} table entries outside "
+        f"the slots' ranges at a NaN page: output finite and bit-identical")
+
+
 def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
                         R=1):
     """The window instance of K4 (``bb`` 1), K5 (``bb`` > 1) or K7 (``R`` >
-    1) reads no row below its first tile: the rows below each slot's
-    window start's tile (K5 too: each slot walks its own tiles; K7: row
-    0's) set to NaN (int8: their scales), the output must be finite and
+    1) reads no row below its first tile, nor (K7) past its last row: the
+    rows below each slot's window start's tile (K5 too: each slot walks its
+    own tiles; K7: row 0's), and for K7 the rows from lengths + R on, set
+    to NaN (int8: their scales), the output must be finite and
     bit-identical to the clean cache's."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
@@ -1047,6 +1100,8 @@ def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
         dirty[n] = cache[n].clone()
         for b, st in enumerate(start):
             dirty[n][layer, b, :, :st] = float("nan")
+            if R > 1:
+                dirty[n][layer, b, :, int(lengths_np[b]) + R:] = float("nan")
     bad = run(dirty)
     torch.cuda.synchronize()
     what = _dense_name("spec_attend_dense" if R > 1 else
@@ -1640,9 +1695,6 @@ def phase_verify(torch, np, engine):
     accepts nothing and draws ``sample`` of its row 0 keyed at lengths + 1
     (the engine skips it). Then the engine's verify dispatch timed and
     profiled (device time, idle share)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
         make_decode_attend_carry_paged, make_spec_attend_carry_paged)
     from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
@@ -1716,7 +1768,21 @@ def phase_verify(torch, np, engine):
         f"argmax, the sampled slot's draw keyed at lengths + 1")
     if not (math.isfinite(err) and err <= LOGIT_TOL):
         raise AssertionError(f"{tag} verify logits differ: {err}")
-    # the dispatch itself, timed, then profiled
+    _profile_verify(torch, np, engine, tag)
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.step()
+    return err
+
+
+def _profile_verify(torch, np, engine, tag):
+    """One verify dispatch of the engine's active slots timed by the host
+    clock, then the next under torch.profiler: device busy time, idle share
+    and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    R = engine.serving.spec_k + 1
     for label in ("timed", "profiled"):
         active = engine._active_slots()
         engine._ensure_pages(R)
@@ -1724,7 +1790,7 @@ def phase_verify(torch, np, engine):
         proposal = engine._propose_drafts([s for s in active
                                            if s not in skip])
         drafts, proposed = proposal if proposal is not None else (
-            np.zeros((engine.num_slots, K), np.int32), {})
+            np.zeros((engine.num_slots, R - 1), np.int32), {})
         torch.cuda.synchronize()
         if label == "timed":
             t0 = time.monotonic()
@@ -1747,18 +1813,14 @@ def phase_verify(torch, np, engine):
     if not events:
         log(f"{tag} torch.profiler recorded no device time: device busy "
             f"share not measured")
-    else:
-        log(f"{tag} profiled verify: wall {prof_wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms (idle share {1 - busy_ms / prof_wall_ms:.3f}),"
-            f" {sum(e.count for e in events)} device operations")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
-                f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
-                f"x{e.count:<5d} {e.key[:90]}")
-    for s in engine._active_slots():
-        engine.cancel(engine.slot_req[s])
-    engine.step()
-    return err
+        return
+    log(f"{tag} profiled verify: wall {prof_wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms (idle share {1 - busy_ms / prof_wall_ms:.3f}), "
+        f"{sum(e.count for e in events)} device operations")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+            f"x{e.count:<5d} {e.key[:90]}")
 
 
 def phase_draft(torch, np):
@@ -2004,7 +2066,8 @@ def phase_mistral_spec(torch, np):
     weights repeat their current token (``_mistral_engine(repeating=True)``)
     so that the proposer finds n-grams. Launch counts
     zeroed just before the run and read just after: verify dispatches,
-    drafts and the verify kernel's window instance > 0."""
+    drafts and the verify kernel's window instance > 0. Then the 4 prompts
+    again, and one verify dispatch past their prefill profiled."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
     engine = _mistral_engine(torch, _mistral_serving(spec_decode=True),
@@ -2043,6 +2106,16 @@ def phase_mistral_spec(torch, np):
             launches[spec] != launches[spec + " window"]:
         raise AssertionError(f"{tag} the verify's window instance: "
                              f"{launches}")
+    # one verify dispatch of the 4 slots past their prefill, profiled
+    for p in prompts:
+        engine.submit(Request(prompt_ids=p, max_tokens=400, ignore_eos=True))
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    engine.step()
+    _profile_verify(torch, np, engine, tag)
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.step()
     del engine
     return launches
 

@@ -2,7 +2,7 @@
 """The attention kernels' times, and the engine's decode substep, in several
 checkouts of the port, in turns, on one card.
 
-    python3 kernel_ab.py [--engine-only] PATH [PATH ...]
+    python3 kernel_ab.py [--engine-only | --only WORD[,WORD...]] PATH ...
 
 Each PATH is the root of a checkout that holds
 ``aws_k8s_ansible_provisioner_tpu_torch/``. For each PATH in the order
@@ -27,7 +27,9 @@ of the paged engine and of the dense one, per substep (median and mean),
 and the median CPU time of the engine's thread a substep.
 ``--engine-only`` times the engine alone: the host's clock varies from run
 to run by more than a kernel edit moves it, so give many alternating runs
-(A B A B A B A B).
+(A B A B A B A B). ``--only spec,K7`` times only the kernel cases whose
+name holds one of the words (here the eight verify instances), and no
+engine.
 
 Give two versions as A B B A to compare them within one call. Prints the
 card's name and power limit, one JSON line per run, and then a table of
@@ -45,7 +47,10 @@ launches after 5; needs a CUDA card):
 In a checkout with split-KV kernels (``ops/split_kv.py``), a case that
 launches the combine is timed again with one split forced
 (``ms_1split``, ``device_ms_1split``, ``host_us_1split``): the same kernel
-without the workspace and the combine.
+without the workspace and the combine. A decode's split count counts its
+rows; a verify's counts its slots (one CTA takes a slot's R x G query rows
+of a kv head, ``csrc/split_verify.cuh``), so the verify splits where the
+decode of the same slots does.
 """
 
 from __future__ import annotations
@@ -87,7 +92,10 @@ def _times(torch, fn, iters=50, warmup=5):
 
 def _case(torch, ctx, key, fn):
     """Time ``fn`` into ``ctx["out"][key]``; where it launches the split-KV
-    combine, also with one split forced."""
+    combine, also with one split forced. A case that ``ctx["only"]`` does
+    not name is skipped."""
+    if ctx["only"] and not any(w in key for w in ctx["only"]):
+        return
     ms, dev, host = _times(torch, fn)
     row = {"ms": ms, "device_ms": dev, "host_us": host}
     sk = ctx["split_kv"]
@@ -260,9 +268,10 @@ def _engine(torch, np, out, paged):
     torch.cuda.empty_cache()
 
 
-def one(path: str, engine_only: bool = False) -> dict:
+def one(path: str, engine_only: bool = False, only=()) -> dict:
     """Times of the checkout at ``path`` (run in its own process); with
-    ``engine_only`` the engine's substeps alone."""
+    ``engine_only`` the engine's substeps alone; with ``only`` (words) the
+    kernel cases named by one of them alone."""
     sys.path.insert(0, path)
     import importlib.util
 
@@ -277,14 +286,14 @@ def one(path: str, engine_only: bool = False) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cuda_build.build_kernels()
     out = {"path": path}
-    ctx = {"out": out, "split_kv": None}
+    ctx = {"out": out, "split_kv": None, "only": only}
     if importlib.util.find_spec(
             "aws_k8s_ansible_provisioner_tpu_torch.ops.split_kv"):
         from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
         ctx["split_kv"] = split_kv
     if not engine_only:
         _kernels(torch, np, da, pa, ctx)
-    for paged in (True, False):
+    for paged in (True, False) if not only else ():
         _engine(torch, np, out, paged)
     return out
 
@@ -342,11 +351,19 @@ def _table(runs: list) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2], sys.argv[3:] == ["--engine-only"])))
+    args = sys.argv[1:]
+    one_path = None
+    if args[:1] == ["--one"]:
+        one_path, args = args[1], args[2:]
+    engine_only = args[:1] == ["--engine-only"]
+    only = ()
+    if args[:1] == ["--only"] and len(args) > 1:
+        only = tuple(args[1].split(","))
+    flags = args[:1] if engine_only else args[:2] if only else []
+    if one_path is not None:
+        print(json.dumps(one(one_path, engine_only, only)))
         return 0
-    engine_only = sys.argv[1:2] == ["--engine-only"]
-    paths = sys.argv[1 + engine_only:]
+    paths = args[len(flags):]
     if not paths:
         print(__doc__, file=sys.stderr)
         return 2
@@ -358,8 +375,8 @@ def main() -> int:
     runs = []
     for path in paths:
         run = subprocess.run([sys.executable, __file__, "--one", path]
-                             + ["--engine-only"] * engine_only,
-                             capture_output=True, text=True, timeout=900)
+                             + flags, capture_output=True, text=True,
+                             timeout=900)
         if run.returncode != 0:
             print(run.stderr[-4000:], file=sys.stderr)
             return run.returncode

@@ -846,7 +846,9 @@ def test_dense_attention_at_split_edges(dev, dtype, tol, quant, window):
     k4 = _dense_call(tda, q[:, :1], cache, lens, 1, window, 1, 1)
     k5 = _dense_call(tda, q[:, :1], cache, lens, 1, window, 4, 1)
     k7 = _dense_call(tda, q, cache, spec_lens, 1, window, 1, 5)
-    verify_splits = tda.attention_splits(B * 5, hkv, S, dev)
+    # the verify splits each (slot, row group, kv head)
+    verify_splits = tda.attention_splits(
+        B * split_kv.verify_groups(5, hq // hkv), hkv, S, dev)
     assert split_kv.split_merge.launches == before + 2 + (verify_splits > 1)
     ref4 = tda.dense_attention_plain(q[:, :1], cache[0], cache[1], lens, 1,
                                      window, *cache[2:])
@@ -930,3 +932,166 @@ def test_split_merge_matches_plain(dev, dtype):
                        .float())
     for got, want in zip(raw, split_kv.split_merge_plain(acc, m, l_sum)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- the verify body (K1's verify entry, K7): one stream per slot -------------
+
+
+def _verify_rows_ok(out, ref, n_rows):
+    """bf16: each query row (its Hq x D outputs) within 4 bf16 ulps max and
+    0.5 mean of the row's largest |plain output| (chip_smoke.py's rule);
+    float32: 1e-5 (float32 sums in another order)."""
+    diff = (out.float() - ref.float()).abs().reshape(n_rows, -1)
+    if out.dtype == torch.float32:
+        return diff.max().item() <= 1e-5
+    top = ref.float().abs().reshape(n_rows, -1).amax(1).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return bool(((diff.amax(1) / ulp) <= 4).all()
+                and ((diff.mean(1) / ulp) <= 0.5).all())
+
+
+def _verify_case(dev, kind, dtype, quant, lengths, R, hq, hkv, d, tile,
+                 tiles, window, seed):
+    """The verify kernel (``kind`` "paged": K1's verify entry over pages of
+    ``tile`` rows, ``tiles`` a slot; "dense": K7 over [2, B, hkv, 64 *
+    tiles, d]) against its plain version at q [B, R, hq, d] of ``dtype``
+    (the pool bf16/f32 of that type or int8); then again with NaN (int8:
+    NaN scales) in every page or row outside each slot's range (below row
+    0's window start, past column lengths + R - 1): the output must be
+    bit-identical to the clean run's. Returns the number of combine
+    launches of the clean run."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    B = len(lengths)
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, R, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    lens = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
+    lo_col = np.maximum(np.asarray(lengths) + 1 - window, 0) if window \
+        else np.zeros(B, np.int64)
+    end_col = np.asarray(lengths) + R
+    if kind == "paged":
+        P = B * tiles + 2
+        nan_page = P - 1
+        store = _int8_pools(rng, 2, P, hkv, tile, d, dev) if quant else [
+            torch.from_numpy(rng.standard_normal((2, P, hkv, tile, d))
+                             .astype(np.float32)).to(dev, dtype)
+            for _ in range(2)]
+        table = (rng.permutation(B * tiles) + 1).reshape(B, tiles) \
+            .astype(np.int32)
+        dirty_table = table.copy()
+        for b in range(B):
+            dirty_table[b, :lo_col[b] // tile] = nan_page
+            dirty_table[b, -(-end_col[b] // tile):] = nan_page
+        dirty = [t.clone() for t in store]
+        for t in (dirty[2:] if quant else dirty):
+            t[:, nan_page] = float("nan")
+        fn = tpa.paged_attention_spec_quant if quant \
+            else tpa.paged_attention_spec
+
+        def run(kv, tab):
+            return fn(q, *kv, lens, 1, torch.from_numpy(tab).to(dev),
+                      window)
+
+        def plain():
+            return tpa.paged_attention_spec_plain(
+                q, store[0], store[1], lens, 1,
+                torch.from_numpy(table).to(dev), *store[2:], window=window)
+
+        args = ((store, table), (dirty, dirty_table))
+        n_tiles = tiles
+    else:
+        S = 64 * tiles
+        store = _dense_cache(rng, B, S, hkv, d, dev, dtype, quant)
+        dirty = [t.clone() for t in store]
+        for b in range(B):
+            for t in (dirty[2:] if quant else dirty):
+                t[1, b, :, :lo_col[b] // 64 * 64] = float("nan")
+                t[1, b, :, end_col[b]:] = float("nan")
+
+        def run(kv, _):
+            kw = {"cache_ks": kv[2], "cache_vs": kv[3]} if quant else {}
+            return tda.spec_attend_dense(q, kv[0], kv[1], lens, 1, window,
+                                         **kw)
+
+        def plain():
+            return tda.dense_attention_plain(q, store[0], store[1], lens + 1,
+                                             1, window, *store[2:])
+
+        args = ((store, None), (dirty, None))
+        n_tiles = tiles
+    before = split_kv.split_merge.launches
+    out = run(*args[0])
+    merges = split_kv.split_merge.launches - before
+    bad = run(*args[1])
+    ref = plain()
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _verify_rows_ok(out, ref, B * R)
+    assert torch.isfinite(bad.float()).all() and torch.equal(out, bad)
+    splits = split_kv.split_count(B * split_kv.verify_groups(R, hq // hkv),
+                                  hkv, n_tiles, split_kv.sm_count(dev))
+    assert merges == (splits > 1)
+    return splits
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window_tiles", [0, 3])
+def test_verify_at_split_edges(dev, kind, dtype, quant, window_tiles):
+    """8 slots of 5 rows over 8 kv heads, 24 tiles a slot (several splits
+    on a card of 132 SMs, one combine launch): slot ranges that end one
+    column before, on and one past a split boundary, a first row of length
+    0, and windows of 3 tiles whose start moves across a tile edge between
+    a slot's rows; NaN outside each slot's range read by none."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    R, hq, hkv, d, tiles = 5, 16, 8, 128, 24
+    tile = 16 if kind == "paged" else 64
+    splits = split_kv.split_count(8, hkv, tiles, split_kv.sm_count(dev))
+    per = -(-tiles // splits)
+    edges = [per * k * tile - R for k in range(1, 3)]
+    window = window_tiles * tile
+    # with a window, rows 2-4 of the last slot start in the tile after row
+    # 0's: a split of that one tile holds only masked columns for them
+    lengths = [0, tile - R, edges[0] - 1, edges[0], edges[0] + 1, edges[1],
+               tiles * tile - R, window + tile - 3]
+    got = _verify_case(dev, kind, dtype, quant, lengths, R, hq, hkv, d, tile,
+                       tiles, window, seed=120)
+    assert got == splits and splits > 1
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("R", [1, 2, 5, 9])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_verify_row_and_head_counts(dev, kind, quant, R, G):
+    """R x G query rows a slot from 1 to 72 (one 16-row tile, two, four,
+    and two row groups of 64), bf16 q over a bf16 and an int8 store, window
+    0 and 3 tiles: within 4 bf16 ulps of plain per row."""
+    hkv, d, tiles = 2, 64, 6
+    tile = 16 if kind == "paged" else 64
+    lengths = [0, 1, tile - 1, 2 * tile + 3, tiles * tile - R - 1,
+               tiles * tile - R]
+    for window in (0, 3 * tile):
+        _verify_case(dev, kind, torch.bfloat16, quant, lengths, R, G * hkv,
+                     hkv, d, tile, tiles, window, seed=121 + R * G)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hq", [16, 32])
+@pytest.mark.parametrize("ps", [6, 10, 12, 100, 256])
+def test_verify_at_any_page_size(dev, quant, hq, ps):
+    """K1's verify entry at page sizes below, across and above the body's
+    64-column stage (a stage padded past the page's rows; a page of several
+    stages), G 2 and 4, window 0 and 3 pages, NaN outside each slot's
+    pages."""
+    R, hkv, d, maxp = 5, 8, 128, 6
+    lengths = [0, 1, ps - R, ps, 3 * ps + 2, maxp * ps - R,
+               maxp * ps - R - 1, 2 * ps - 3]
+    for window in (0, 3 * ps):
+        _verify_case(dev, "paged", torch.bfloat16, quant, lengths, R, hq,
+                     hkv, d, ps, maxp, window, seed=130 + ps)

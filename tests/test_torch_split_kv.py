@@ -147,12 +147,18 @@ def test_split_count_depends_on_shapes_only(rows, hkv, tiles, sms):
 def test_split_counts_at_the_serving_shapes():
     """The H100's 132 SMs: Qwen3 decode (32 rows x 8 kv heads, 32 pages)
     3 splits; Mistral decode (16 x 8, 128 pages) 5; the ragged entries (288
-    and 528 rows) and the verifies (160 and 80 rows) 1; the dense decode of
-    4 slots at 27,000 rows (8 kv heads, 512 tiles) 17."""
+    and 528 rows) 1, as 160 and 80 rows are; the dense decode of 4 slots
+    at 27,000 rows (8 kv heads, 512 tiles) 17. The verifies split over
+    slots: Qwen3's 32 slots of 5 x 2 rows 3, Mistral's 16 slots of 5 x 4
+    rows 5, as their decodes."""
     got = [split_kv.split_count(r, 8, t, 132) for r, t in
            ((32, 32), (16, 128), (288, 32), (528, 128), (160, 32),
             (80, 128), (4, 512))]
     assert got == [3, 5, 1, 1, 1, 1, 17]
+    verify = [split_kv.split_count(b * split_kv.verify_groups(5, g), 8, t,
+                                   132)
+              for b, g, t in ((32, 2, 32), (16, 4, 128))]
+    assert verify == [3, 5]
 
 
 @pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
