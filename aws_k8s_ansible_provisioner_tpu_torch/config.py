@@ -205,6 +205,12 @@ class ServingConfig:
     max_cache_len: int = 2048
     # Decode substeps per dispatch when no admission is possible.
     decode_horizon: int = 8
+    # One-deep decode pipeline: decode dispatch N+1 is queued, with the
+    # sampled token and length carry still on the device, before N's tokens
+    # are fetched, so the host's emits overlap the device's work. Seeded
+    # streams are the same either way (draws are keyed by position). 0 is
+    # the synchronous dispatch-then-fetch path.
+    decode_pipeline: int = 1
     # Paged KV pool geometry: rows per page, and physical pages (0 =
     # max_decode_slots * ceil(max_cache_len / page_size)).
     page_size: int = 64

@@ -659,6 +659,12 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
+def counted_wrappers() -> tuple:
+    """The wrappers whose launches this module counts (their ``launches``,
+    ``window_launches`` and ``form_launches`` attributes)."""
+    return _COUNTED
+
+
 def launch_counts() -> dict:
     """{wrapper name: launches} and, for the attention wrappers,
     {name + " window": launches of the window instance}."""

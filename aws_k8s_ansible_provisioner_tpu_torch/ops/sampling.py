@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 MAX_TOPK = 64
@@ -63,13 +64,17 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, minval: float = 1e-20) -> torch.Tensor:
     """``jax.random.uniform(key, (), float32, minval)`` for every key of
     [..., 2]: the top 23 bits of threefry(key, (0, 0)) as a float in
-    [1, 2), minus 1, then shifted to [minval, 1)."""
+    [1, 2), minus 1, then shifted to [minval, 1). The bounds are float32
+    values computed on the host (a float32 tensor takes a Python scalar as
+    float32), so nothing is uploaded and the call can be captured in a
+    CUDA graph."""
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, 0)
     bits = ((y0 ^ y1) >> 9) | 0x3F800000           # below 2**31: fits int32
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    width = torch.tensor(1.0, dtype=torch.float32, device=key.device) - lo
-    return torch.maximum(lo, floats * width + lo)
+    lo = np.float32(minval)
+    width = float(np.float32(1.0) - lo)
+    lo = float(lo)
+    return (floats * width + lo).clamp_min(lo)
 
 
 def per_slot_keys(seeds: torch.Tensor, ctrs: torch.Tensor) -> torch.Tensor:
@@ -83,17 +88,24 @@ def per_slot_keys(seeds: torch.Tensor, ctrs: torch.Tensor) -> torch.Tensor:
 def sample(logits: torch.Tensor, temperature: torch.Tensor,
            top_k: torch.Tensor, top_p: torch.Tensor,
            seeds: Optional[torch.Tensor] = None,
-           ctrs: Optional[torch.Tensor] = None) -> torch.Tensor:
+           ctrs: Optional[torch.Tensor] = None,
+           any_sampled: Optional[bool] = None) -> torch.Tensor:
     """Sampled token ids [B] (int32) from logits [B, V].
 
     temperature [B] (<= 0: greedy); top_k [B] (<= 0: all ``MAX_TOPK``
     candidates); top_p [B] (1.0: off). Row b's key is
     ``per_slot_keys(seeds, ctrs)[b]``, derived only when some row samples
     (a greedy batch does no random work and may pass no seeds).
+    ``any_sampled``: whether some row has temperature > 0, as the caller
+    knows it from its host mirrors; None reads it from ``temperature``, a
+    device-to-host read that a decode substep must not make. With True the
+    sampled path runs and greedy rows still take the argmax.
     """
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not bool((temperature > 0).any()):
+    if any_sampled is None:
+        any_sampled = bool((temperature > 0).any())
+    if not any_sampled:
         return greedy
     if seeds is None or ctrs is None:
         raise ValueError("sample: sampled rows need seeds and ctrs")

@@ -181,6 +181,15 @@ def launch_plan(rows: int, hkv: int, tiles: int, hq: int, d: int,
     return splits, (p, p + 4 * n * d, p + 4 * n * (d + 1))
 
 
+def take_workspace(device: torch.device, stream: int):
+    """Remove and return the workspace that :func:`launch_plan` keeps for
+    ``stream`` on this host thread (None if it has none). A CUDA graph
+    captured on that stream holds the buffer's address: its owner keeps the
+    buffer for the graph's lifetime, and no later launch can grow (free) it
+    or share it."""
+    return _workspaces.pop((device, stream, threading.get_ident()), None)
+
+
 def _merge_lib():
     lib = cuda_build.load("split_merge")
     fn = lib.split_merge

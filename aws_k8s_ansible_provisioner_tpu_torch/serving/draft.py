@@ -134,7 +134,8 @@ class DraftModel:
         self.rolled = K
         self.cache, out = decode_steps(
             self.model, K, self.cache, self._dev(engine.last_token),
-            self._dev(self.lens), None, *self._greedy(self.num_slots))
+            self._dev(self.lens), None, *self._greedy(self.num_slots),
+            any_sampled=False)
         out = out.cpu().numpy()                                   # [K, B]
         drafts = np.zeros((self.num_slots, K), np.int32)
         proposed = {}

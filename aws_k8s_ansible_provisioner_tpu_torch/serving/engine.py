@@ -34,10 +34,28 @@ this slice reaches. Two layouts of the KV cache, as in the JAX engine:
   shards is refused; a mesh with ``dp``, ``tp``, ``pp`` or ``ep`` > 1 is
   refused (not ported yet).
 
+Decode runs the JAX engine's one-deep pipeline
+(``ServingConfig.decode_pipeline``, default 1): a decode dispatch, or a
+non-final chunk's mixed dispatch, is left in flight and the next one is
+queued before its tokens are fetched, with the sampled token and length
+carry still on the device (``programs.DecodeGraphs``' operand buffers);
+the operands are copied in from the host mirrors only when those changed
+(dirty flags, and ``_carry_gen`` for the carry). On a CUDA device a
+dispatch queues a copy of its tokens into pinned host memory and records
+an event, and its fetch waits for that event, not for the stream. Every
+transition that rewrites slot state drains or settles the pipeline first,
+as in the JAX engine: an admission of the dense engine (the paged engine
+admits under a dispatch in flight through the chunk walk), the dense
+chunk walk, a verify (settled), a preemption, idleness and a failure.
+``decode_pipeline=0`` is the synchronous path, and a mesh with ``sp`` > 1
+turns the pipeline off. On a CUDA device without a mesh, a plain decode
+dispatch is one replay of a CUDA graph of the horizon captured when the
+engine is built (``programs.DecodeGraphs``); ``mixed_step``, the verify,
+the draft model's dispatches and the prefills launch their kernels one by
+one from Python.
+
 Differences from the JAX engine:
 
-- dispatch is synchronous: every step launches its program and then fetches
-  its tokens (the JAX engine's one-deep pipeline produces the same streams);
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
 - not ported yet: the prefix cache and host tier, guided decoding, LoRA,
@@ -97,7 +115,7 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    decode_steps, mixed_step, prefill_batch_step, prefill_chunk_step,
+    DecodeGraphs, mixed_step, prefill_batch_step, prefill_chunk_step,
     spec_decode_step)
 
 log = logging.getLogger(__name__)
@@ -301,6 +319,26 @@ class Engine:
                     f"vocab ({cfg.vocab_size}): drafts are target token ids")
             self.draft = DraftModel(dcfg, _to_device(dparams, self.device),
                                     self.num_slots, self.max_len, self.device)
+        # the one-deep pipeline (the JAX EnginePrograms' state): the
+        # dispatched but unfetched record; the carry generation of the
+        # device-resident token/length carry (None: the operand buffers do
+        # not hold it), valid while it equals _carry_gen, which every
+        # transition that rewrites a slot's state bumps; dirty flags of the
+        # sampling and table operands
+        self._inflight: Optional[dict] = None
+        self._pipe_carry: Optional[int] = None
+        self._carry_gen = 0
+        self._op_dirty_sampling = True
+        self._op_dirty_table = True
+        horizons = {1, max(1, serving.decode_horizon)}
+        if self.draft is not None:
+            horizons.add(min(max(1, serving.decode_horizon),
+                             serving.spec_k + 1))
+        self.decoder = DecodeGraphs(
+            self.model, self.cache, self.num_slots,
+            self.pages_per_slot if self.paged else None, horizons,
+            bblock=self.decode_bblock, mesh=self.mesh,
+            capture=self.device.type == "cuda" and self.sp == 1)
 
     @property
     def spec_decode(self) -> bool:
@@ -384,13 +422,18 @@ class Engine:
         """Return the slot's pages, point its table at scratch, make it
         greedy (an idle slot must not make a greedy batch draw noise) and
         free it. A dense slot keeps its length, as in the JAX engine: its
-        idle decode rows land past its rows, never over them."""
+        idle decode rows land past its rows, never over them. A release does
+        not bump ``_carry_gen``: a dispatch in flight keeps decoding the
+        slot as garbage (its emits are discarded), and only a reuse
+        (:meth:`_activate`) invalidates the device carry."""
         if self.paged:
             self.allocator.release_all(self._slot_pages[slot])
             self._slot_pages[slot] = []
             self.table[slot, :] = 0
             self.lengths[slot] = 0
+            self._op_dirty_table = True
         self.temps[slot] = 0.0
+        self._op_dirty_sampling = True
         self._free.append(slot)
 
     def _ensure_pages(self, new_rows: int) -> bool:
@@ -414,6 +457,7 @@ class Engine:
                 got = self.allocator.alloc(need)
                 if got is not None:
                     self.table[slot, len(pages):len(pages) + need] = got
+                    self._op_dirty_table = True
                     pages.extend(got)
                     break
                 victim = max(self._active_slots(),
@@ -429,6 +473,9 @@ class Engine:
         req = self.slot_req[slot]
         self._resume_ctx[req.id] = req.prompt_ids + req.generated
         self.slot_req[slot] = None
+        # the slot's host state leaves the device carry of a dispatch in
+        # flight behind
+        self._carry_gen += 1
         self._release_slot(slot)
         with self._lock:
             self._queue.appendleft(req)
@@ -440,7 +487,8 @@ class Engine:
         """One scheduling step: advance a chunked prefill (paged: one mixed
         dispatch; dense: a chunk, or the horizon-1 decode dispatch that
         alternates with the chunks while slots run), else admit waiting
-        prompts, else decode. Returns whether any work was done."""
+        prompts, else decode; with nothing to do, settle a dispatch still in
+        flight. Returns whether any work was done."""
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.cancelled:
                 r.finish_reason = "cancelled"
@@ -456,6 +504,12 @@ class Engine:
             self._advance_chunk()
             self._chunk_yield = not self.paged
             return True
+        if self._inflight is not None and self.pending \
+                and not self._ragged_on():
+            # settle the dispatch in flight before admission can reuse a
+            # slot it still decodes (its deferred emits would go to the new
+            # request)
+            self._drain_decode_pipeline("prefill")
         batch, chunk_next = self._admit()
         if batch:
             self._prefill_batch(batch)
@@ -470,13 +524,19 @@ class Engine:
         if self._active_slots():
             self._decode()
             return True
+        if self._inflight is not None:
+            # cancels emptied the batch with a dispatch in flight: settle it
+            # (its emits are discarded) so nothing stays queued while idle
+            self._drain_decode_pipeline()
+            return True
         return False
 
     def _admit(self):
         """FCFS admission: pop queue heads while a slot is free and the pool
         holds the head's pages (the dense cache: while a slot is free);
         fresh fitting prompts form the prefill batch, a prompt that chunks
-        (or a resume) ends it."""
+        (or a resume, or any prompt of the paged engine while a dispatch is
+        in flight) ends it."""
         batch, chunk_next = [], None
         while len(batch) < max(1, self.serving.max_prefill_batch) \
                 and self._free:
@@ -501,10 +561,15 @@ class Engine:
                 self._slot_pages[slot] = pages
                 self.table[slot, :] = 0
                 self.table[slot, :len(pages)] = pages
+                self._op_dirty_table = True
             self._seq_counter += 1
             self._admit_seq[slot] = self._seq_counter
             resumed = self._resume_ctx.pop(req.id, None) is not None
-            if resumed or self._should_chunk(len(ids)):
+            # with a dispatch in flight the paged engine admits through the
+            # chunk walk, whose mixed dispatches ride the pipeline, where a
+            # batch prefill would activate a slot under the in-flight carry
+            if (resumed or self._should_chunk(len(ids))
+                    or (self._ragged_on() and self._inflight is not None)):
                 chunk_next = (req, slot, list(ids), resumed)
                 break
             batch.append((req, slot))
@@ -517,6 +582,34 @@ class Engine:
         """The block table on the device; None for the dense cache, which
         the programs take as the dense path."""
         return self._dev(self.table) if self.paged else None
+
+    def _upload(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host mirror into a device buffer without waiting for the
+        stream: on a CUDA device through a fresh pinned buffer and a
+        non_blocking copy (the pinned allocator does not reuse the buffer
+        until the copy has run, so the mirror may change at once; a pageable
+        copy would wait for the dispatch in flight)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def _stage(self, *tensors) -> tuple:
+        """Host copies of a dispatch's outputs and the event to fetch them
+        by: on a CUDA device pinned buffers filled by non_blocking copies
+        queued right behind the dispatch, then an event, so that the fetch
+        waits for this dispatch alone and not for the one queued after it
+        (which also overwrites a graph's outputs); on the CPU the tensors
+        themselves and no event."""
+        if not tensors[0].is_cuda:
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
     def _prefill_batch(self, batch):
         N = len(batch)
@@ -546,6 +639,11 @@ class Engine:
     def _start_chunk(self, req: Request, slot: int, ids: List[int],
                      resumed: bool):
         self.lengths[slot] = 0
+        if not self.paged:
+            # the dense walk rewrites the slot's length out of band of any
+            # device carry; the paged walk's mixed dispatches set the
+            # slot's carry lanes themselves
+            self._carry_gen += 1
         if self.draft is not None:
             # the draft has no chunk walk; the slot serves the plain path
             self.draft.mark_stale(slot)
@@ -560,6 +658,8 @@ class Engine:
         st = self._chunk
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         if req.cancelled:
+            # settle a mixed dispatch in flight before the slot's pages go
+            self._drain_decode_pipeline("chunk")
             self._chunk = None
             self._release_slot(slot)
             req.finish_reason = "cancelled"
@@ -570,38 +670,93 @@ class Engine:
         if not self.paged:
             self._advance_chunk_dense(st, chunk, C)
             return
-        # page headroom for the decode rows' writes; the chunking slot is not
-        # active, so it is never the one preempted here
-        self._ensure_pages(1)
+        self._advance_chunk_mixed(st, chunk, C)
+
+    def _advance_chunk_mixed(self, st: dict, chunk: List[int], C: int):
+        """One mixed dispatch (the JAX engine's ``_advance_chunk_mixed``).
+        A non-final chunk's dispatch rides the pipeline like a decode
+        dispatch (with ``decode_pipeline=0`` it settles at once); the final
+        chunk settles its predecessor and itself, since its token activates
+        the slot. On a failure the walk's slot is
+        released here, exactly once, before the error propagates."""
+        req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
+        final = off + len(chunk) >= len(ids)
+        prev = self._inflight
+        if prev is not None and not self._carry_valid():
+            self._drain_decode_pipeline("prefill")
+            prev = None
+        # page headroom for the decode rows' writes (those of the dispatch
+        # in flight first); the chunking slot is not active, so it is never
+        # the one preempted here
+        self._ensure_pages(1 + (prev["horizon"] if prev is not None else 0))
+        if prev is not None and not self._carry_valid():
+            self._drain_decode_pipeline("prefill")      # a preemption
+            prev = None
+        try:
+            rec = self._mixed_dispatch(st, chunk, C)
+            st["off"] = off + len(chunk)
+            self.lengths[slot] = st["off"]
+            if not final and self._ragged_on():
+                self._inflight = rec
+                if prev is not None:
+                    self._decode_fetch(prev)
+                return
+            self._pipe_carry = None
+            if prev is not None:
+                self._inflight = None
+                self._decode_fetch(prev)
+            self._decode_fetch(rec)
+        except Exception:
+            self._chunk = None
+            self._release_slot(slot)
+            req.finish_reason = "error"
+            req.out_queue.put(None)
+            raise
+        if final:
+            self._chunk = None
+            self._activate(req, slot, rec["chunk_token"], ids,
+                           st["resumed"])
+
+    def _mixed_dispatch(self, st: dict, chunk: List[int], C: int) -> dict:
+        """Queue one ``mixed_step`` on the device operands (the carry of the
+        dispatch in flight included) and return its record; the chunking
+        slot's carry lanes take the chunk's token and its new frontier."""
+        req, slot, off = st["req"], st["slot"], st["off"]
+        d = self.decoder
+        self._decode_operands()
         active = self._active_slots()
         ptokens = np.zeros((1, C), np.int32)
         ptokens[0, :len(chunk)] = chunk
+        pdev = torch.empty((1, C), dtype=torch.int32, device=self.device)
+        self._upload(pdev, ptokens)
         self.cache, out, ptok = mixed_step(
-            self.model, self.cache, self._dev(self.last_token),
-            self._dev(self.lengths), self._dev(ptokens), slot, off,
-            len(chunk), self._dev(self.table), self._dev(self.temps),
-            self._dev(self.top_ks), self._dev(self.top_ps),
-            self._dev(self.seeds), req.temperature, req.top_k, req.top_p,
-            req.eff_seed)
-        out = out.cpu().numpy()
-        ptok = int(ptok.cpu()[0])
+            self.model, self.cache, d.tokens, d.lengths, pdev, slot, off,
+            len(chunk), d.table, d.temps, d.top_ks, d.top_ps, d.seeds,
+            req.temperature, req.top_k, req.top_p, req.eff_seed,
+            any_sampled=bool((self.temps > 0).any()))
+        is_p = torch.arange(self.num_slots, device=self.device) == slot
+        tok = torch.where(is_p, ptok, out[0])
+        lens = torch.where(is_p, torch.full_like(d.lengths, off + len(chunk)),
+                           d.lengths + 1)
+        d.tokens.copy_(tok)
+        d.lengths.copy_(lens)
+        (out, ptok), event = self._stage(out, ptok)
+        self._pipe_carry = self._carry_gen
         self.counts["mixed_dispatches"] += 1
-        st["off"] = off + len(chunk)
-        self.lengths[slot] = st["off"]
-        for s in active:
-            if self.slot_req[s] is not None:
-                self.lengths[s] += 1
-                self._emit(s, int(out[0, s]))
-        if st["off"] >= len(ids):
-            self._chunk = None
-            self._activate(req, slot, ptok, ids, st["resumed"])
+        self.counts["pipeline_dispatches"] += 1
+        return {"mixed": True, "out": out, "pout": ptok, "event": event,
+                "horizon": 1, "active": active,
+                "reqs": [self.slot_req[s] for s in active]}
 
     def _advance_chunk_dense(self, st: dict, chunk: List[int], C: int):
         """One chunk of the dense walk into rows [off, off + len(chunk)) of
         its slot; the slot's length follows the walk's frontier, where the
         interleaved decode dispatches write their garbage row for it (the
         next chunk overwrites it). The final chunk's token is the request's
-        first."""
+        first. A dispatch in flight is drained first: the chunk rewrites
+        the slot's state under its carry."""
+        if self._inflight is not None:
+            self._drain_decode_pipeline("chunk")
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         ptokens = np.zeros((1, C), np.int32)
         ptokens[0, :len(chunk)] = chunk
@@ -619,10 +774,80 @@ class Engine:
             self._chunk = None
             self._activate(req, slot, tok, ids, st["resumed"])
 
+    # -- the decode pipeline ------------------------------------------------
+
+    def _pipeline_on(self) -> bool:
+        """May a decode dispatch be left in flight after this step? Not
+        during the dense chunk walk (its horizon-1 decodes alternate with
+        synchronous chunks), not under an sp mesh, not with
+        ``decode_pipeline=0``."""
+        return (self.serving.decode_pipeline > 0 and self.sp == 1
+                and self._chunk is None)
+
+    def _ragged_on(self) -> bool:
+        """May the paged chunk walk leave its mixed dispatches in flight
+        (and admissions take the walk under a dispatch in flight)?"""
+        return self.paged and self.serving.decode_pipeline > 0
+
+    def _carry_valid(self) -> bool:
+        """Whether the operand buffers' token/length carry (the dispatch in
+        flight's, or the last one's) still describes the batch: no slot was
+        activated, preempted or rewritten since it was queued."""
+        return self._pipe_carry is not None \
+            and self._pipe_carry == self._carry_gen
+
+    def _drain_decode_pipeline(self, reason: str = "drain") -> None:
+        """Fetch and emit the dispatch in flight, if any, and drop the
+        device carry (the next dispatch copies the mirrors in). Counted in
+        ``counts["pipeline_drains_<reason>"]`` (prefill, chunk, spec, drain,
+        fail)."""
+        rec = self._inflight
+        if rec is None:
+            return
+        self.counts[f"pipeline_drains_{reason}"] += 1
+        self._inflight = None
+        self._pipe_carry = None
+        self._decode_fetch(rec)
+
+    def _settle_inflight(self) -> None:
+        """Fetch and emit the dispatch in flight, counting no drain and
+        keeping the device carry: a finish does not bump ``_carry_gen``, so
+        the next dispatch still feeds on the carry (before a verify, whose
+        proposer reads the host mirrors)."""
+        rec = self._inflight
+        if rec is None:
+            return
+        self._inflight = None
+        self._decode_fetch(rec)
+
+    def _decode_operands(self) -> None:
+        """Bring the device operands up to date: the sampling rows and the
+        block table when their mirrors changed (dirty flags), the token and
+        length carry when it no longer describes the batch."""
+        d = self.decoder
+        if self._op_dirty_sampling:
+            for dst, arr in ((d.temps, self.temps), (d.top_ks, self.top_ks),
+                             (d.top_ps, self.top_ps), (d.seeds, self.seeds)):
+                self._upload(dst, arr)
+            self._op_dirty_sampling = False
+        if self.paged and self._op_dirty_table:
+            self._upload(d.table, self.table)
+            self._op_dirty_table = False
+        if not self._carry_valid():
+            self._upload(d.tokens, self.last_token)
+            self._upload(d.lengths, self.lengths)
+
     def _decode(self, max_horizon: Optional[int] = None):
         """One decode dispatch of every slot (``max_horizon`` caps its
         horizon: 1 between the dense walk's chunks), or a verify dispatch
-        when speculation proposes drafts."""
+        when speculation proposes drafts; with the pipeline on, the new
+        dispatch is left in flight and its predecessor fetched."""
+        prev = self._inflight
+        if prev is not None and not self._carry_valid():
+            # a slot changed under the dispatch in flight: fetch it first,
+            # then dispatch from the refreshed mirrors
+            self._drain_decode_pipeline("prefill")
+            prev = None
         with self._lock:
             waiting = bool(self._queue)
         horizon = 1 if (waiting and self._free) \
@@ -634,34 +859,84 @@ class Engine:
             # one plain dispatch must fit one catch-up dispatch of K + 1 rows
             horizon = min(horizon, K + 1)
         # pages for every row this dispatch may write, the verify's K + 1
-        # included
-        if not self._ensure_pages(max(horizon, K + 1 if spec else 1)):
+        # included, beyond the rows of the dispatch in flight
+        grow = max(horizon, K + 1 if spec else 1)
+        if prev is not None:
+            grow += prev["horizon"]
+        if not self._ensure_pages(grow):
             return
+        if prev is not None and not self._carry_valid():
+            self._drain_decode_pipeline("prefill")      # a preemption
+            prev = None
         active = self._active_slots()
-        # a verify only when no prompt could prefill next (horizon > 1);
-        # it writes K + 1 rows for every slot, so the window bound is global
-        if (spec and horizon > 1 and not self._spec_plain_due
-                and self.lengths[active].max() + K + 1 < self.max_len):
-            skip = self._spec_skip(active)
-            proposal = self._propose_drafts([s for s in active
-                                             if s not in skip])
-            if proposal is not None:
-                self._do_spec_decode(active, *proposal, skip=skip)
-                return
+        if not active:
+            self._drain_decode_pipeline()
+            return
+        # a verify only when no prompt could prefill next (horizon > 1)
+        if spec and horizon > 1 and not self._spec_plain_due:
+            if prev is not None:
+                # the proposer and the bound below read the host mirrors:
+                # settle the dispatch in flight (its carry stays valid)
+                self._settle_inflight()
+                prev = None
+                active = self._active_slots()
+                if not active:
+                    return
+            # it writes K + 1 rows for every slot, so the window bound is
+            # global
+            if self.lengths[active].max() + K + 1 < self.max_len:
+                skip = self._spec_skip(active)
+                proposal = self._propose_drafts([s for s in active
+                                                 if s not in skip])
+                if proposal is not None:
+                    self._do_spec_decode(active, *proposal, skip=skip)
+                    return
         self._spec_plain_due = False
-        self.cache, out = decode_steps(
-            self.model, horizon, self.cache, self._dev(self.last_token),
-            self._dev(self.lengths), self._table_dev(),
-            self._dev(self.temps), self._dev(self.top_ks),
-            self._dev(self.top_ps), self._dev(self.seeds),
-            bblock=self.decode_bblock, mesh=self.mesh)
-        out = out.cpu().numpy()
+        rec = self._decode_dispatch(horizon, active)
+        if self._pipeline_on():
+            self._inflight = rec
+            if prev is not None:
+                self._decode_fetch(prev)
+            return
+        self._pipe_carry = None
+        if prev is not None:
+            self.counts["pipeline_drains_" + (
+                "chunk" if self._chunk is not None
+                else "spec" if spec else "drain")] += 1
+            self._inflight = None
+            self._decode_fetch(prev)
+        self._decode_fetch(rec)
+
+    def _decode_dispatch(self, horizon: int, active: List[int]) -> dict:
+        """Queue one decode dispatch of ``horizon`` substeps (a graph
+        replay on a CUDA device) and return its record; nothing here waits
+        for the device."""
+        self._decode_operands()
+        out = self.decoder.run(horizon, bool((self.temps > 0).any()))
+        (out,), event = self._stage(out)
+        self._pipe_carry = self._carry_gen
         self.counts["decode_dispatches"] += 1
         self.counts["decode_substeps"] += horizon
-        for s in range(horizon):
-            for slot in active:
-                if self.slot_req[slot] is None:
-                    continue                 # finished earlier this horizon
+        self.counts["pipeline_dispatches"] += 1
+        return {"out": out, "event": event, "horizon": horizon,
+                "active": list(active),
+                "reqs": [self.slot_req[s] for s in active]}
+
+    def _decode_fetch(self, rec: dict) -> None:
+        """Wait for a dispatch's tokens and emit them: substep by substep,
+        to each slot that still serves the request it served when the
+        dispatch was queued (a slot that finished since then was decoded as
+        garbage; its surplus is discarded). A mixed dispatch's record also
+        yields the chunk's token."""
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        out = rec["out"].numpy()
+        if rec.get("mixed"):
+            rec["chunk_token"] = int(rec["pout"].numpy()[0])
+        for s in range(rec["horizon"]):
+            for slot, req in zip(rec["active"], rec["reqs"]):
+                if self.slot_req[slot] is not req:
+                    continue             # finished earlier or since queued
                 self.lengths[slot] += 1
                 self._emit(slot, int(out[s, slot]))
 
@@ -743,6 +1018,9 @@ class Engine:
             if self.draft is not None and slot in proposed:
                 self.draft.note_emitted(slot, emitted)
         self._spec_plain_due = bool(skip)
+        # the verify advanced the mirrors on the host: the next dispatch
+        # copies them in
+        self._pipe_carry = None
 
     # -- slot lifecycle -----------------------------------------------------
 
@@ -751,6 +1029,9 @@ class Engine:
         """Post-prefill bookkeeping. A resume rebuilt the cache of
         prompt + generated: its sampled token is discarded and decode
         continues from the last real token, whose row it rewrites."""
+        # a device carry no longer describes the batch once the slot joins
+        self._carry_gen += 1
+        self._op_dirty_sampling = True
         self.slot_req[slot] = req
         self.lengths[slot] = len(ids) - 1 if resumed else len(ids)
         self.temps[slot] = req.temperature
@@ -786,10 +1067,10 @@ class Engine:
 
     def idle(self) -> bool:
         return (self._chunk is None and not self._active_slots()
-                and not self.pending)
+                and not self.pending and self._inflight is None)
 
     def run_until_idle(self, max_steps: int = 1_000_000):
-        """Step until nothing is queued, chunking or active."""
+        """Step until nothing is queued, chunking, active or in flight."""
         for _ in range(max_steps):
             if self.idle():
                 return
@@ -816,6 +1097,13 @@ class Engine:
                 self._work_event.clear()
 
     def _fail_all(self):
+        # discard the dispatch in flight un-emitted: its requests fail below
+        # (one release each, through _finish), and fetching a dispatch that
+        # may be the failure would raise again
+        if self._inflight is not None:
+            self.counts["pipeline_drains_fail"] += 1
+        self._inflight = None
+        self._pipe_carry = None
         if self._chunk is not None:
             st, self._chunk = self._chunk, None
             self._release_slot(st["slot"])

@@ -310,6 +310,10 @@ def main(argv=None):
                    help="slots per CTA of the dense cache's decode kernel "
                         "(fitted to a divisor of the slots; 0 = 1); the "
                         "paged engine's kernel takes none")
+    p.add_argument("--decode-pipeline", type=int, default=1,
+                   help="one-deep decode pipeline: dispatch N+1 is queued "
+                        "before N's tokens are fetched (seeded streams "
+                        "unchanged); 0 = synchronous dispatch then fetch")
     p.add_argument("--spec-decode", action="store_true",
                    help="prompt-lookup speculative decoding (greedy streams "
                         "unchanged)")
@@ -333,7 +337,8 @@ def main(argv=None):
         max_cache_len=args.max_cache_len, page_size=args.page_size,
         dtype=args.dtype, weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
-        decode_bblock=args.decode_bblock, spec_decode=args.spec_decode,
+        decode_bblock=args.decode_bblock,
+        decode_pipeline=args.decode_pipeline, spec_decode=args.spec_decode,
         spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp))
     state = build_state(serving, device=args.device, seed=args.seed)
     server = make_server(state, args.host, args.port)

@@ -23,13 +23,22 @@ result when either is missing. Phases, in order (any failure raises):
    seeded random weights through ``serving.engine.Engine`` (the default
    ServingConfig: paged, page 64, 32 slots, int8 weights; prefill_chunk 256
    so long prompts ride ``mixed_step``), first with bf16 KV, then with
-   ``kv_dtype="int8"``. The kernels' launch counts are zeroed just before
+   ``kv_dtype="int8"``, with the default one-deep decode pipeline and the
+   decode horizon replayed as CUDA graphs captured when the engine is
+   built: every decode dispatch must be one replay. The kernels' launch
+   counts (a replay adds what its graph captured) are zeroed just before
    each run and read just after; each kernel of that pool must be > 0 and
    the other pool's kernels 0. The int8 run adds seeded sampled requests:
    one submitted alone and again beside other running requests must give
    the same stream. Then one decode dispatch of 8 slots is timed and
-   profiled (device time by kernel), and one decode step's logits through
-   the kernels are held against the same step through the plain versions;
+   profiled (device time by kernel, the row write's time a launch), and
+   one decode step's logits through the kernels are held against the same
+   step through the plain versions. After the int8 run, the pipeline
+   phase: the graphs' capture time and device memory, one replay against
+   eager ``decode_steps`` on a clone of the cache (tokens equal, every
+   K/V row and scale bit-identical or the largest difference printed,
+   launch counts equal), seeded streams equal with ``decode_pipeline`` 1
+   and 0, and a dispatch profiled with the pipeline off;
 4. server, for each engine: the port's HTTP server in-process on a free
    port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
    int8 engine, a seeded sampled completion twice, the same text);
@@ -63,8 +72,9 @@ result when either is missing. Phases, in order (any failure raises):
    of rows reserved, prefill_chunk 256 so that long prompts take the dense
    chunk walk): Qwen3-0.6B at full width with bf16 KV and decode_bblock 4
    (K8, K5), then with int8 KV (K9, K4-int8; seeded sampled streams alone
-   and beside others; one decode dispatch profiled; the server), each with
-   a decode step's logits held against the plain versions; prompt lookup
+   and beside others; the server; the pipeline phase as in 3), each with
+   one decode dispatch profiled and a decode step's logits held against
+   the plain versions; prompt lookup
    over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
    Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
    with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
@@ -97,6 +107,7 @@ import gc
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -1154,6 +1165,33 @@ def _check_dense_launches(tag, engine, launches, extra=()):
         raise AssertionError(f"{tag} no prompt took the dense chunk walk")
 
 
+def _dispatch_mode(engine):
+    """How the engine dispatches decode, for the logs: the pipeline's depth
+    and the CUDA graphs of the horizon (their capture time and the device
+    memory they reserved)."""
+    dec = engine.decoder
+    mode = ("pipelined" if engine.serving.decode_pipeline > 0
+            and engine.sp == 1 else "synchronous") + " dispatch"
+    if not dec.graphs:
+        return mode + ", eager decode"
+    return (f"{mode}, decode graphs {sorted(dec.graphs)} captured in "
+            f"{dec.capture_s:.2f}s, {dec.pool_bytes / 2**20:.1f} MiB")
+
+
+def _check_replays(tag, engine, replays0):
+    """Every plain decode dispatch since ``replays0`` replays was one replay
+    of a captured decode graph (none falls back to eager launches)."""
+    n = engine.counts["decode_dispatches"]
+    replays = engine.decoder.replays - replays0
+    if not engine.decoder.graphs or n <= 0 or replays != n:
+        raise AssertionError(f"{tag} {n} decode dispatches but {replays} "
+                             f"graph replays")
+    log(f"{tag} {n} decode dispatches, each one replay of a CUDA graph; "
+        f"{engine.counts['pipeline_dispatches']} dispatches through the "
+        f"pipeline, drains "
+        f"{ {k: v for k, v in engine.counts.items() if 'drains' in k} }")
+
+
 def _finish_ok(cfg, req, n):
     if len(req.generated) != n or req.finish_reason != "length" or \
             not all(0 <= t < cfg.vocab_size for t in req.generated):
@@ -1217,6 +1255,7 @@ def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
                           ignore_eos=True))
     engine.run_until_idle()
     engine.counts.clear()
+    replays0 = engine.decoder.replays
     torch.cuda.synchronize()
     _reset_launches()
     t0 = time.monotonic()
@@ -1235,11 +1274,13 @@ def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
         _seeded_twice(engine, rng, Request)
     launches = _launches()
     log(f"{tag} {len(reqs)} requests, prompts {lens}: {n_gen} tokens in "
-        f"{dt:.2f}s ({n_gen / dt:.1f} tok/s end to end, synchronous "
-        f"dispatch); dispatches {dict(engine.counts)}; kernel launches "
+        f"{dt:.2f}s ({n_gen / dt:.1f} tok/s end to end, "
+        f"{_dispatch_mode(engine)}); dispatches {dict(engine.counts)}; "
+        f"kernel launches "
         f"{launches}")
     for r, m in zip(reqs, new):
         _finish_ok(cfg, r, m)
+    _check_replays(tag, engine, replays0)
     if not paged:
         _check_dense_launches(tag, engine, launches)
         return engine, launches
@@ -1277,6 +1318,10 @@ def _seeded_twice(engine, rng, Request):
         for n in (40, 120, 70)]
     while engine.pending or engine._chunk is not None:
         engine.step()
+    # with a dispatch in flight the paged engine would admit the prompt
+    # through the chunk walk (a mixed dispatch, another bf16 rounding of its
+    # rows): settle it so that the prompt is a batch of its own again
+    engine._settle_inflight()
     crowded = engine.submit(Request(prompt_ids=prompt, max_tokens=40, seed=1,
                                     **SAMPLED))
     engine.run_until_idle()
@@ -1309,7 +1354,8 @@ def phase_profile(torch, np, engine):
         engine.step()
     engine.step()                                  # warm the horizon path
     tag = (f"[profile {'' if engine.paged else 'dense '}"
-           f"{'int8' if 'ks' in engine.cache else 'bf16'}]")
+           f"{'int8' if 'ks' in engine.cache else 'bf16'}"
+           f"{'' if engine.serving.decode_pipeline else ', pipeline off'}]")
     wall_ms = _profile_dispatch(torch, engine, tag)
     for s in engine._active_slots():
         engine.cancel(engine.slot_req[s])
@@ -1360,7 +1406,121 @@ def _profile_dispatch(torch, engine, tag, step=None, n_slots=None):
             log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
+        # the row writes (K2, K3, K8, K9): device time a launch (a graph
+        # node when the engine replays its decode graphs)
+        for e in events:
+            kernel = re.search(r"cache_write\w*", e.key)
+            if kernel:
+                log(f"{tag}   row write {kernel.group(0)}: "
+                    f"{e.self_device_time_total / e.count:.2f} us a launch "
+                    f"x{e.count}")
     return wall_ms
+
+
+def phase_pipeline(torch, np, engine):
+    """The decode graphs and the one-deep pipeline of an int8 Qwen3 engine
+    (paged, or dense): its graphs' capture time and device memory; one
+    replay of the full horizon held against eager ``decode_steps`` on a
+    clone of the cache from the same operands (the same tokens; every K/V
+    row and scale bit-identical, else the largest difference printed and
+    the tokens still equal; the launch counts of the replay equal to the
+    eager run's); seeded streams, greedy and sampled, equal with
+    ``decode_pipeline`` 1 and 0 on the same engine; one decode dispatch
+    timed and profiled with the pipeline off, beside the profile phase's
+    pipelined one."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import \
+        decode_steps
+
+    dec = engine.decoder
+    serving = engine.serving
+    cfg = engine.cfg
+    tag = f"[pipeline {'paged' if engine.paged else 'dense'} int8]"
+    log(f"{tag} {_dispatch_mode(engine)} ({dec.pool_bytes} bytes)")
+    rng = np.random.default_rng(61)
+    lens = (40, 90, 150, 220, 60, 300, 33, 120)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+    def submit():
+        return [engine.submit(Request(prompt_ids=p, max_tokens=40, **(
+            dict(SAMPLED, seed=10 + i) if i % 2 else
+            dict(ignore_eos=True)))) for i, p in enumerate(prompts)]
+
+    # one replay against eager decode_steps, from the same operands
+    reqs = submit()
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    engine.step()
+    engine._settle_inflight()
+    engine._decode_operands()
+    ops = [t.clone() for t in (dec.tokens, dec.lengths, dec.temps,
+                               dec.top_ks, dec.top_ps, dec.seeds)]
+    table = dec.table.clone() if engine.paged else None
+    sampled = bool((engine.temps > 0).any())
+    H = serving.decode_horizon
+    clone = {k: v.clone() for k, v in engine.cache.items()}
+    torch.cuda.synchronize()
+    _reset_launches()
+    out_g = dec.run(H, sampled).clone()
+    torch.cuda.synchronize()
+    graph_launches = _launches()
+    _reset_launches()
+    _, out_e = decode_steps(engine.model, H, clone, ops[0], ops[1], table,
+                            *ops[2:], bblock=engine.decode_bblock,
+                            any_sampled=sampled)
+    torch.cuda.synchronize()
+    eager_launches = _launches()
+    # the replay moved the carry in the operand buffers: the next dispatch
+    # copies the host mirrors in again
+    engine._pipe_carry = None
+    diffs = {k: float((engine.cache[k].float() - clone[k].float()).abs()
+                      .max()) for k in clone}
+    del clone
+    same = bool(torch.equal(out_g, out_e))
+    bits = "bit-identical" if not any(diffs.values()) else "not bit-identical"
+    counted = "equal" if graph_launches == eager_launches else "DIFFER"
+    log(f"{tag} one replay of horizon {H} (any row samples: {sampled}) vs "
+        f"eager decode_steps on a clone of the cache: tokens "
+        f"{'equal' if same else 'DIFFER'}; cache leaves max abs difference "
+        f"{diffs} ({bits}); launches of the replay {counted} to eager")
+    if not same:
+        raise AssertionError(f"{tag} the graph's tokens differ from eager "
+                             f"decode_steps'")
+    if graph_launches != eager_launches:
+        raise AssertionError(f"{tag} replay launches {graph_launches} vs "
+                             f"eager {eager_launches}")
+    for r in reqs:
+        engine.cancel(r)
+    engine.run_until_idle()
+    # seeded streams with the pipeline on and off (every prompt is in
+    # before the first decode dispatch, so both admit alike)
+    streams = {}
+    for depth in (1, 0):
+        engine.serving = dataclasses.replace(serving, decode_pipeline=depth)
+        engine.counts.clear()
+        t0 = time.monotonic()
+        reqs = submit()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        for r in reqs:
+            _finish_ok(cfg, r, 40)
+        streams[depth] = [r.generated for r in reqs]
+        log(f"{tag} decode_pipeline={depth}: {len(reqs)} requests (4 "
+            f"seeded sampled) in {dt:.2f}s; counts {dict(engine.counts)}")
+    same = sum(a == b for a, b in zip(streams[1], streams[0]))
+    log(f"{tag} streams equal with the pipeline on and off: {same}/"
+        f"{len(prompts)}")
+    if same != len(prompts):
+        raise AssertionError(f"{tag} a seeded stream depends on the "
+                             f"pipeline")
+    # one decode dispatch with the pipeline off (graphs still on)
+    engine.serving = dataclasses.replace(serving, decode_pipeline=0)
+    phase_profile(torch, np, engine)
+    engine.serving = serving
+    return {"capture_s": dec.capture_s, "pool_bytes": dec.pool_bytes}
 
 
 def phase_sampling(torch, np):
@@ -1446,6 +1606,7 @@ def _logits_check(torch, engine, tol, slots=None):
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
         make_decode_attend_carry, make_decode_attend_carry_paged)
 
+    engine._settle_inflight()            # the host mirrors up to date
     active = engine._active_slots() if slots is None else list(slots)
     dev = engine.device
     window = engine.cfg.sliding_window
@@ -1713,6 +1874,7 @@ def phase_verify(torch, np, engine):
         engine.step()
     for _ in range(2):
         engine.step()
+    engine._settle_inflight()            # the host mirrors up to date
     active = engine._active_slots()
     K = engine.serving.spec_k
     R = K + 1
@@ -2008,6 +2170,7 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
                           ignore_eos=True))
     engine.run_until_idle()
     engine.counts.clear()
+    replays0 = engine.decoder.replays
     torch.cuda.synchronize()
     _reset_launches()
     t0 = time.monotonic()
@@ -2033,10 +2196,11 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
     launches = _delta(_launches(), checks)
     log(f"{tag} {len(reqs)} requests, prompts {lens}, {new} new tokens "
         f"each: {n_gen} tokens in {dt:.2f}s ({n_gen / dt:.1f} tok/s end to "
-        f"end, synchronous dispatch, the checks' time taken out); "
+        f"end, {_dispatch_mode(engine)}, the checks' time taken out); "
         f"dispatches {counts}; kernel launches {launches}")
     for r in reqs:
         _finish_ok(cfg, r, new)
+    _check_replays(tag, engine, replays0)
     if not paged:
         _check_dense_launches(tag, engine, launches)
         attn = _dense_kernel_names(engine)[0]
@@ -2454,7 +2618,7 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     n_gen = sum(len(r.generated) for r in reqs)
     log(f"{tag} {len(reqs)} requests, prompts "
         f"{[len(r.prompt_ids) for r in reqs]}: {n_gen} tokens in {dt:.2f}s "
-        f"({n_gen / dt:.1f} tok/s end to end, synchronous dispatch); "
+        f"({n_gen / dt:.1f} tok/s end to end, {_dispatch_mode(engine)}); "
         f"dispatches {counts}; kernel launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     for r in reqs:
@@ -2681,6 +2845,8 @@ def main() -> int:
         phase_profile(torch, np, engine)
         phase_logits(torch, np, engine)
         phase_server(engine)
+        if kv_dtype == "int8":
+            _phase("pipeline, paged", phase_pipeline, torch, np, engine)
         runs[kv_dtype] = launches
         del engine
         _free(torch)
@@ -2702,11 +2868,11 @@ def main() -> int:
         t0 = time.monotonic()
         engine, runs["dense " + kv_dtype] = phase_engine(
             torch, np, kv_dtype, paged=False, bblock=bb)
-        if kv_dtype == "int8":
-            phase_profile(torch, np, engine)
+        phase_profile(torch, np, engine)
         phase_logits(torch, np, engine)
         if kv_dtype == "int8":
             phase_server(engine)
+            _phase("pipeline, dense", phase_pipeline, torch, np, engine)
         del engine
         _free(torch)
         log(f"[wall] dense {kv_dtype}: {time.monotonic() - t0:.1f}s")

@@ -21,15 +21,23 @@ shapes (q bf16; each over a bf16 and an int8 pool or cache):
   K7; and K6 over the busiest shard of the sp 4 cache, [28, 4, 8, 8192,
   128] at local lengths 41, 6034, 8192, 8192.
 
-and the Qwen3-0.6B engine (seeded random weights, int8 KV, 8 slots of
-100-token prompts): the host-clock wall of 12 horizon-8 decode dispatches
-of the paged engine and of the dense one, per substep (median and mean),
-and the median CPU time of the engine's thread a substep.
-``--engine-only`` times the engine alone: the host's clock varies from run
-to run by more than a kernel edit moves it, so give many alternating runs
-(A B A B A B A B). ``--only spec,K7`` times only the kernel cases whose
-name holds one of the words (here the eight verify instances), and no
-engine.
+and the engine's decode dispatch (horizon 8, 8 slots decoding after
+100-token prompts, seeded random weights quantized to int8) of six
+engines: Qwen3-0.6B paged with bf16 and int8 KV and dense with int8 KV,
+Mistral-7B-v0.1 paged with bf16 and int8 KV and dense with int8 KV (4
+slots per CTA). For each, the host-clock wall of 12 dispatches each
+between two synchronizations (median and mean a substep, and the engine
+thread's CPU time), of 12 dispatches back to back (``substep_ms_steady``,
+where a pipelined engine overlaps its emits with the next dispatch), and
+under torch.profiler of 4 more: the device's busy time a substep and its
+idle share (1 - busy / wall); with the checkout's decode graphs, their
+capture time and device memory. A checkout without graphs or a pipeline
+runs the same cases.
+``--engine-only`` times the engines alone: the host's clock varies from
+run to run by more than a kernel edit moves it, so give many alternating
+runs (A B A B A B A B). ``--only spec,K7`` times only the kernel cases
+whose name holds one of the words (here the eight verify instances), and
+no engine.
 
 Give two versions as A B B A to compare them within one call. Prints the
 card's name and power limit, one JSON line per run, and then a table of
@@ -55,6 +63,7 @@ decode of the same slots does.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -226,30 +235,71 @@ def _k6(torch, np, da, ctx):
         torch.cuda.empty_cache()
 
 
-def _engine(torch, np, out, paged):
-    """The Qwen3-0.6B engine with int8 KV (paged, or the dense layout):
-    8 slots decoding after 100-token prompts; the host-clock wall of 12
-    decode dispatches (after 2), per substep."""
-    from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
-                                                              ServingConfig)
-    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
-    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
-                                                                      Request)
+# the engine dispatches of ``--engine-only``: (label, model, kv_dtype,
+# paged, decode_bblock)
+ENGINES = (("qwen3 paged bf16", "qwen3", "auto", True, 0),
+           ("qwen3 paged int8", "qwen3", "int8", True, 0),
+           ("qwen3 dense int8", "qwen3", "int8", False, 0),
+           ("mistral paged bf16", "mistral", "auto", True, 0),
+           ("mistral paged int8", "mistral", "int8", True, 0),
+           ("mistral dense int8", "mistral", "int8", False, 4))
 
-    cfg = QWEN3_0_6B
+
+def _build_engine(torch, model, kv_dtype, paged, bblock):
+    """Qwen3-0.6B (32 slots x 2048, prefill_chunk 256) or Mistral-7B-v0.1
+    (16 slots x 8192, prefill_chunk 512), seeded random weights quantized
+    to int8, through the checkout's ``Engine`` with its default
+    ServingConfig otherwise (a parent without the pipeline takes the same
+    arguments)."""
+    from aws_k8s_ansible_provisioner_tpu_torch import config
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    if model == "qwen3":
+        cfg = config.QWEN3_0_6B
+        serving = config.ServingConfig(prefill_chunk=256, derived_seed=0,
+                                       kv_dtype=kv_dtype, paged=paged,
+                                       decode_bblock=bblock)
+    else:
+        cfg = config.MISTRAL_7B_V01
+        serving = config.ServingConfig(
+            model=cfg.name, max_decode_slots=16, max_cache_len=8192,
+            prefill_chunk=512, derived_seed=0, kv_dtype=kv_dtype,
+            paged=paged, decode_bblock=bblock)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    engine = Engine(cfg, init_params(cfg, gen, torch.bfloat16),
-                    ServingConfig(prefill_chunk=256, derived_seed=0,
-                                  kv_dtype="int8", paged=paged),
-                    device="cuda")
+    params = quantize_params(init_params(cfg, gen, torch.bfloat16), cfg)
+    return Engine(cfg, params, serving, device="cuda")
+
+
+def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
+    """One engine dispatch: 8 slots decoding after 100-token prompts, then
+    the host-clock wall of 12 decode dispatches (after 2), each between two
+    synchronizations, per substep (median, mean, and the engine thread's
+    CPU time); 12 dispatches back to back with one synchronization at the
+    end (``substep_ms_steady``: a pipelined engine overlaps one dispatch's
+    emits with the next one's device work there); and 4 dispatches back to
+    back under torch.profiler (CUDA activity only): the device's busy time
+    a substep and its idle share over that window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    t0 = time.perf_counter()
+    engine = _build_engine(torch, model, kv_dtype, paged, bblock)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(4)
     for _ in range(8):
         engine.submit(Request(prompt_ids=rng.integers(
-            0, cfg.vocab_size, 100).tolist(), max_tokens=200,
+            0, engine.cfg.vocab_size, 100).tolist(), max_tokens=400,
             ignore_eos=True))
     while engine.pending or engine._chunk is not None:
         engine.step()
+    horizon = engine.serving.decode_horizon
     walls, cpus = [], []
     for i in range(14):
         torch.cuda.synchronize()
@@ -259,12 +309,40 @@ def _engine(torch, np, out, paged):
         if i >= 2:
             walls.append(1e3 * (time.perf_counter() - t0))
             cpus.append(1e3 * (time.thread_time() - c0))
-    horizon = engine.serving.decode_horizon
-    out[f"engine {'paged' if paged else 'dense'} int8"] = {
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(12):
+        engine.step()
+    torch.cuda.synchronize()
+    steady = 1e3 * (time.perf_counter() - t0) / (12 * horizon)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            engine.step()
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    # the row write's device time a launch (a graph node under a replay)
+    writes = [e for e in events if "cache_write" in e.key and e.count]
+    write_us = (sum(e.self_device_time_total for e in writes)
+                / sum(e.count for e in writes)) if writes else float("nan")
+    dec = getattr(engine, "decoder", None)
+    out[f"engine {label}"] = {
         "substep_ms_median": statistics.median(walls) / horizon,
         "substep_ms_mean": statistics.mean(walls) / horizon,
-        "substep_cpu_ms_median": statistics.median(cpus) / horizon}
+        "substep_cpu_ms_median": statistics.median(cpus) / horizon,
+        "substep_ms_steady": steady,
+        "busy_ms_per_substep": busy / (4 * horizon),
+        "idle_share": 1 - busy / prof_ms if busy else float("nan"),
+        "row_write_us": write_us,
+        "setup_s": setup_s,
+        "capture_s": dec.capture_s if dec is not None else 0.0,
+        "graph_pool_mib": dec.pool_bytes / 2**20 if dec is not None
+        else 0.0}
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -293,8 +371,8 @@ def one(path: str, engine_only: bool = False, only=()) -> dict:
         ctx["split_kv"] = split_kv
     if not engine_only:
         _kernels(torch, np, da, pa, ctx)
-    for paged in (True, False) if not only else ():
-        _engine(torch, np, out, paged)
+    for case in ENGINES if not only else ():
+        _engine(torch, np, out, *case)
     return out
 
 

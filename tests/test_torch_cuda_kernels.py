@@ -1095,3 +1095,92 @@ def test_verify_at_any_page_size(dev, quant, hq, ps):
     for window in (0, 3 * ps):
         _verify_case(dev, "paged", torch.bfloat16, quant, lengths, R, hq,
                      hkv, d, ps, maxp, window, seed=130 + ps)
+
+
+def _launch_totals():
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    return {**tpa.launch_counts(), **dense_attention.launch_counts(),
+            **split_kv.launch_counts()}
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_graph_replays_eager_decode_steps(dev, paged, quant):
+    """``DecodeGraphs`` captured on the card: a replay of a 3-substep
+    horizon (rows that sample among greedy ones) against eager
+    ``decode_steps`` on a clone of the same paged pool or dense cache: the
+    same tokens, bit-identical caches (every written K/V row and scale),
+    the carry left in the operand buffers, and the kernels' launch counts
+    of the replay equal to the eager run's."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import (dense_attention,
+                                                           split_kv)
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+
+    cfg = tiny_qwen3()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    model = DecoderLM(cfg, init_params(cfg, gen, torch.bfloat16))
+    B, ps, maxp, S = 4, 8, 6, 48
+    rng = np.random.default_rng(5)
+    if paged:
+        cache = pkv.init_pool(cfg, B * maxp + 1, ps, torch.bfloat16, dev,
+                              quant=quant)
+        table = torch.from_numpy((rng.permutation(B * maxp) + 1).reshape(
+            B, maxp).astype(np.int32)).to(dev)
+    else:
+        cache = kvc.init_cache(cfg, B, S, torch.bfloat16, dev, quant=quant)
+        table = None
+    for leaf in cache.values():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device=dev, dtype=torch.int8))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev)
+                       * (0.02 if quant else 1.0))
+    graphs = programs.DecodeGraphs(model, cache, B, maxp if paged else None,
+                                   (1, 3), capture=True)
+    assert sorted(graphs.graphs) == [(1, False), (1, True), (3, False),
+                                     (3, True)]
+    assert graphs.capture_s > 0
+    operands = (torch.tensor([3, 9, 27, 81], dtype=torch.int32),
+                torch.tensor([0, 7, 20, 40], dtype=torch.int32),
+                torch.tensor([0.0, 0.8, 0.0, 1.1]),
+                torch.tensor([0, 20, 0, 5], dtype=torch.int32),
+                torch.tensor([1.0, 0.9, 1.0, 0.8]),
+                torch.tensor([1, 2**32 - 1, 3, 4], dtype=torch.int64))
+    operands = tuple(t.to(dev) for t in operands)
+    for dst, src in zip((graphs.tokens, graphs.lengths, graphs.temps,
+                         graphs.top_ks, graphs.top_ps, graphs.seeds),
+                        operands):
+        dst.copy_(src)
+    if paged:
+        graphs.table.copy_(table)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    counters = (tpa, dense_attention, split_kv)
+    torch.cuda.synchronize()
+    for module in counters:
+        module.reset_launch_counts()
+    _, ref = programs.decode_steps(model, 3, eager_cache, operands[0],
+                                   operands[1], table, *operands[2:],
+                                   any_sampled=True)
+    eager_counts = _launch_totals()
+    for module in counters:
+        module.reset_launch_counts()
+    out = graphs.run(3, True).clone()
+    torch.cuda.synchronize()
+    assert _launch_totals() == eager_counts
+    assert max(eager_counts.values()) > 0
+    assert torch.equal(out, ref)
+    assert torch.equal(graphs.tokens, ref[-1])
+    assert torch.equal(graphs.lengths, operands[1] + 3)
+    for k in cache:
+        assert torch.equal(cache[k], eager_cache[k]), k
+    with pytest.raises(RuntimeError):
+        graphs.run(2, False)

@@ -112,7 +112,11 @@ def test_concurrent_greedy_streams_match_jax(model, kv_dtype):
                    kv_dtype=kv_dtype)
     assert te.counts["prefill_dispatches"] >= 2
     assert te.counts["decode_dispatches"] > 0
-    assert te.counts["mixed_dispatches"] == 0
+    # an admission into a freed slot while a decode dispatch is in flight
+    # takes the chunk walk (one mixed dispatch), as in the JAX engine,
+    # and leaves the pipeline open
+    assert te.counts["mixed_dispatches"] > 0
+    assert te.counts["pipeline_drains_prefill"] == 0
 
 
 @KV_DTYPES

@@ -346,7 +346,8 @@ def test_verify_accepts_correct_drafts_and_rejects_wrong(weights):
     token; garbage drafts: exactly one token, the plain one
     (tests/test_spec_decode.py:65)."""
     _, tparams = weights["scaled"]
-    kw = _serving(max_decode_slots=2, decode_horizon=1)
+    # the synchronous path: each step's tokens are emitted by that step
+    kw = _serving(max_decode_slots=2, decode_horizon=1, decode_pipeline=0)
     prompt = np.random.default_rng(3).integers(2, 128, 7).tolist()
     true_cont = _run(_port_engine(tparams, **kw), [prompt], max_tokens=12)[0]
     eng = _port_engine(tparams, **kw)
@@ -414,7 +415,9 @@ def test_verify_serves_no_sampled_slot(weights):
     stream comes from the plain step alone (ROADMAP C9; the JAX engine
     draws it from the verify's row 0)."""
     _, tparams = weights["plain"]
-    te = _port_engine(tparams, **_serving(max_decode_slots=2, **SPEC))
+    # the synchronous path: each step's tokens are emitted by that step
+    te = _port_engine(tparams, **_serving(max_decode_slots=2,
+                                          decode_pipeline=0, **SPEC))
     prompts = _lookup_prompts(4)
     greedy = te.submit(TRequest(prompt_ids=prompts[0], max_tokens=60,
                                 ignore_eos=True))
