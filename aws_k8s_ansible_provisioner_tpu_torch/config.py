@@ -220,12 +220,39 @@ class ServingConfig:
     # admission gated on free slots (the JAX engine's layout under sp).
     paged: bool = True
     kv_pool_pages: int = 0
+    # Host-RAM tier of the prefix cache: byte budget of the pinned host
+    # store of spilled pages. When the pool's LRU reclaims an indexed
+    # (evictable) page, its K/V is copied to the host under its chain key; a
+    # later prompt whose prefix chain runs past the pages still in the pool
+    # restores the rest across PCIe and prefills only the suffix. 0 turns
+    # the tier off (no spill log, no host walk in the lookup), as do a
+    # budget below one page and the prefix cache off.
+    kv_host_tier_bytes: int = 256 * 2**20
     # Up to this many fresh prompts share one prefill dispatch.
     max_prefill_batch: int = 4
     # Prompts longer than this are prefilled in chunks of this many tokens,
     # each chunk packed beside the decode batch in one ragged dispatch.
     # 0 disables chunking.
     prefill_chunk: int = 0
+    # Automatic prefix caching (vLLM's feature of the same name). Paged: the
+    # full pages of every prompt (and, at a finish or a preemption, of its
+    # generated tokens) are indexed by a chain hash and shared by refcount
+    # with a later prompt that starts with the same tokens; a released page
+    # stays matchable in an evictable LRU until the pool reclaims it. Dense:
+    # a prompt sharing >= prefix_cache_min_len leading tokens with the
+    # prompt rows still held by a slot copies them from that slot. Either
+    # way only the suffix is prefilled (through the chunk walk).
+    prefix_cache: bool = True
+    prefix_cache_min_len: int = 32
+    # Dense: a hit that adds dispatches against the whole-prompt path (the
+    # copy plus the suffix's chunks against one bucket) must reuse at least
+    # this many rows; hits that add none are always taken.
+    prefix_cache_payback_rows: int = 256
+    # Paged: a prefix hit forces the chunk walk, so under a burst (another
+    # prompt in the same admission round or still queued) a match is used
+    # only when the prompt would chunk anyway or the match spans at least
+    # this many whole pages (resident plus host-restorable).
+    prefix_reuse_min_pages: int = 2
     max_tokens_default: int = 256
     # Admissions past this queue depth are refused (0 = unbounded).
     max_queue_depth: int = 256

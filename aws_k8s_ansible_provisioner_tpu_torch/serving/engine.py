@@ -54,13 +54,42 @@ engine is built (``programs.DecodeGraphs``); ``mixed_step``, the verify,
 the draft model's dispatches and the prefills launch their kernels one by
 one from Python.
 
+The prefix cache (``ServingConfig.prefix_cache``, default on) has two
+tiers on the paged engine, as in the JAX engine:
+
+- HBM: the full pages of every prompt, at its activation, and of prompt +
+  generated tokens at a finish or a preemption (up to the last row already
+  written), are indexed by a chain hash (``paged_kv.PagePool``). An
+  admission looks its sequence up page by page, retains the pages it
+  matches (shared by refcount, not copied) and walks the chunk program from
+  the reuse offset. A released indexed page goes to an evictable LRU and
+  stays matchable until an allocation reclaims it;
+- host RAM (``kv_host_tier_bytes``, default 256 MiB; a budget below one
+  page, or the prefix cache off, means no tier): the
+  pages an allocation reclaims are gathered on the stream before anything
+  can write them and copied into the page slots of a host tier taken when
+  the engine is built (``paged_kv.HostTier``, pinned memory on a card); a
+  lookup whose chain runs past the resident
+  pages restores the next ones from there into the request's fresh pages,
+  in place, queued ahead of its first chunk (no wait on the host). An entry
+  that fails verification is dropped and its span re-prefilled.
+
+Under a burst a match is used only when it spans
+``prefix_reuse_min_pages`` pages or the prompt chunks anyway. The dense
+engine copies the prompt rows that another slot (active or freed) still
+holds (``kv_cache.copy_prefix``, per shard under sp) for an isolated
+arrival, when the hit pays for its dispatches (``_hit_pays``). The counts
+stand in for the JAX metrics: ``prefix_cache_hits``,
+``prefix_tokens_reused``, ``prefix_tier_hits_{hbm,host,miss}``,
+``kv_spill_bytes``, ``kv_restore_bytes``, ``kv_restore_dropped``.
+
 Differences from the JAX engine:
 
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
-- not ported yet: the prefix cache and host tier, guided decoding, LoRA,
-  penalties, logit bias, min_tokens, logprobs, deadlines, drain and the
-  admission-pressure preemption;
+- not ported yet: guided decoding, LoRA (and with it the prefix chain's
+  salt), penalties, logit bias, min_tokens, logprobs, deadlines, drain and
+  the admission-pressure preemption;
 - a verify dispatch serves greedy slots only: a sampled slot takes its
   tokens from the plain step that follows (the JAX engine draws it from the
   verify's row 0), so that its seeded stream does not depend on speculation;
@@ -88,6 +117,7 @@ from __future__ import annotations
 import collections
 import itertools
 import logging
+import math
 import os
 import queue
 import random
@@ -244,6 +274,7 @@ class Engine:
         self.decode_bblock = fit_bblock(serving.decode_bblock,
                                         self.num_slots)
         self.allocator: Optional[pkv.PagePool] = None
+        self.host_tier: Optional[pkv.HostTier] = None
         self.table: Optional[np.ndarray] = None
         if self.paged:
             ps = self.page_size = serving.page_size
@@ -260,6 +291,21 @@ class Engine:
             self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
                                        self.device, quant=quant)
             self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
+            # a page's payload over every leaf, and each leaf's per-page
+            # shape [L, Hkv, page, (D)] (the tier's fetch check)
+            self._page_bytes = sum(
+                cfg.num_layers * math.prod(a.shape[2:]) * a.element_size()
+                for a in self.cache.values())
+            self._page_shapes = {name: (cfg.num_layers,) + tuple(a.shape[2:])
+                                 for name, a in self.cache.items()}
+            # the host tier serves the prefix cache: without the cache, or
+            # with a budget that holds no page, there is none (and no host
+            # memory is taken)
+            if serving.prefix_cache and \
+                    serving.kv_host_tier_bytes >= self._page_bytes:
+                self.host_tier = pkv.HostTier(serving.kv_host_tier_bytes)
+                self.host_tier.reserve(self.cache)
+                self.allocator.host_tier = self.host_tier
             self.table = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
         elif self.sp > 1:
@@ -273,6 +319,12 @@ class Engine:
                                         self.dtype, self.device, quant=quant)
         self._slot_pages: List[List[int]] = [[] for _ in
                                              range(self.num_slots)]
+        # slot -> bytes of a restore queued for its pages, counted when its
+        # walk starts
+        self._restore_pending: dict = {}
+        # dense: the prompt tokens whose rows each slot still holds (active
+        # or freed), the prefix cache's sources
+        self._slot_tokens: List[tuple] = [()] * self.num_slots
         self.lengths = np.zeros(self.num_slots, np.int32)
         self.last_token = np.zeros(self.num_slots, np.int32)
         self.temps = np.zeros(self.num_slots, np.float32)
@@ -427,8 +479,12 @@ class Engine:
         slot as garbage (its emits are discarded), and only a reuse
         (:meth:`_activate`) invalidates the device carry."""
         if self.paged:
+            # indexed pages go to the evictable LRU, still matchable
             self.allocator.release_all(self._slot_pages[slot])
             self._slot_pages[slot] = []
+            # a restore queued for a slot torn down before its walk must
+            # not be settled against a later tenant's
+            self._restore_pending.pop(slot, None)
             self.table[slot, :] = 0
             self.lengths[slot] = 0
             self._op_dirty_table = True
@@ -456,6 +512,9 @@ class Engine:
                 need = -(-rows // ps) - len(pages)
                 got = self.allocator.alloc(need)
                 if got is not None:
+                    # spill what this allocation reclaimed before the
+                    # dispatch that writes the pages is queued
+                    self._spill_reclaimed()
                     self.table[slot, len(pages):len(pages) + need] = got
                     self._op_dirty_table = True
                     pages.extend(got)
@@ -469,9 +528,14 @@ class Engine:
 
     def _preempt(self, slot: int):
         """Release a running request's pages and requeue it at the front;
-        it resumes by re-prefilling prompt + generated so far."""
+        it resumes by re-prefilling prompt + generated so far, past the
+        full pages it still finds in the prefix cache."""
         req = self.slot_req[slot]
-        self._resume_ctx[req.id] = req.prompt_ids + req.generated
+        ids = req.prompt_ids + req.generated
+        # the resume hits its own pages, up to the last row written (the
+        # last token's row is written by the next dispatch)
+        self._index_prompt_pages(slot, ids, n_valid=len(ids) - 1)
+        self._resume_ctx[req.id] = ids
         self.slot_req[slot] = None
         # the slot's host state leaves the device carry of a dispatch in
         # flight behind
@@ -535,8 +599,10 @@ class Engine:
         """FCFS admission: pop queue heads while a slot is free and the pool
         holds the head's pages (the dense cache: while a slot is free);
         fresh fitting prompts form the prefill batch, a prompt that chunks
-        (or a resume, or any prompt of the paged engine while a dispatch is
-        in flight) ends it."""
+        (or a resume, a prefix hit, or any prompt of the paged engine while
+        a dispatch is in flight) ends it. An arrival is isolated when the
+        batch and the queue are empty: the dense engine consults its prefix
+        cache only then."""
         batch, chunk_next = [], None
         while len(batch) < max(1, self.serving.max_prefill_batch) \
                 and self._free:
@@ -555,25 +621,222 @@ class Engine:
                         self.allocator.free_pages:
                     break                  # head-of-line blocking: FCFS
                 self._queue.popleft()
+                isolated = not batch and not self._queue
             slot = self._free.popleft()
             if self.paged:
-                pages = self.allocator.alloc(-(-len(ids) // self.page_size))
-                self._slot_pages[slot] = pages
-                self.table[slot, :] = 0
-                self.table[slot, :len(pages)] = pages
-                self._op_dirty_table = True
+                ids, off, resumed = self._paged_admit(req, slot, isolated)
+                # a hit or a resume walks the chunk program from the reuse
+                # offset; with a dispatch in flight every admission takes
+                # the walk, whose mixed dispatches ride the pipeline, where
+                # a batch prefill would activate a slot under the carry
+                if (off > 0 or resumed or self._should_chunk(len(ids))
+                        or (self._ragged_on() and self._inflight is not None)):
+                    chunk_next = (req, slot, ids, resumed, off)
+                    break
+                batch.append((req, slot))
+                continue
+            # consulted before the slot's own tokens are cleared: a request
+            # may match the slot it just got back (its rows in place)
+            pref = self._find_prefix(req, slot) if isolated else None
+            # this round overwrites the slot's rows: they stop being a
+            # source at once
+            self._slot_tokens[slot] = ()
             self._seq_counter += 1
             self._admit_seq[slot] = self._seq_counter
-            resumed = self._resume_ctx.pop(req.id, None) is not None
-            # with a dispatch in flight the paged engine admits through the
-            # chunk walk, whose mixed dispatches ride the pipeline, where a
-            # batch prefill would activate a slot under the in-flight carry
-            if (resumed or self._should_chunk(len(ids))
-                    or (self._ragged_on() and self._inflight is not None)):
-                chunk_next = (req, slot, list(ids), resumed)
+            if pref is not None:
+                chunk_next = (req, slot, list(ids), False, pref[1], pref[0])
+                break
+            if self._should_chunk(len(ids)):
+                chunk_next = (req, slot, list(ids), False)
                 break
             batch.append((req, slot))
         return batch, chunk_next
+
+    # -- the prefix cache ---------------------------------------------------
+
+    def _find_prefix(self, req: Request, slot: int):
+        """Dense: the longest prefix of ``req``'s prompt whose rows a slot
+        still holds, as (source slot, n), or None. The reuse stops one token
+        short of the prompt (its last token must run to give the first
+        sampled one); ``slot`` is the slot just assigned (a match there
+        needs no copy)."""
+        if not self.serving.prefix_cache:
+            return None
+        ids = req.prompt_ids
+        cap = len(ids) - 1
+        best_n, best_s = 0, -1
+        for s, toks in enumerate(self._slot_tokens):
+            m = min(len(toks), cap)
+            if m <= best_n:
+                continue
+            n = 0
+            while n < m and toks[n] == ids[n]:
+                n += 1
+            if n > best_n:
+                best_n, best_s = n, s
+        if best_n < max(1, self.serving.prefix_cache_min_len):
+            return None
+        if not self._hit_pays(req, best_s, slot, best_n):
+            return None
+        return best_s, best_n
+
+    def _hit_pays(self, req: Request, src: int, slot: int, n: int) -> bool:
+        """Dense: a hit costs a copy dispatch (none from the request's own
+        slot) and the suffix's chunks, a miss one bucket dispatch (or the
+        chunks of a prompt that chunks anyway); a hit that adds dispatches
+        must reuse ``prefix_cache_payback_rows`` rows."""
+        C = self._chunk_size
+        ln = len(req.prompt_ids)
+        hit_disp = (0 if src == slot else 1) + max(1, -(-(ln - n) // C))
+        miss_disp = -(-ln // C) if self._should_chunk(ln) else 1
+        if hit_disp <= miss_disp:
+            return True
+        return n >= max(1, self.serving.prefix_cache_payback_rows)
+
+    def _paged_admit(self, req: Request, slot: int, isolated: bool):
+        """Give an admitted request its pages: the resident pages of its
+        longest indexed prefix (retained, shared), fresh pages for the rest,
+        and a restore from the host tier into the first fresh pages where
+        the chain continues there. Returns (ids, reuse offset, resumed);
+        the admission gate has made sure the pool holds the rest.
+
+        Under a burst (not ``isolated``) the match is dropped unless the
+        prompt is a resume or would chunk anyway, or the match (resident
+        plus host) spans ``prefix_reuse_min_pages`` pages: a hit forces the
+        chunk walk, where the batch prefill would serve the burst at
+        once."""
+        tier = self.host_tier
+        if tier is not None:
+            tier.flush_to_host()
+        ctx = self._resume_ctx.get(req.id)
+        resumed = ctx is not None
+        ids = list(ctx) if resumed else list(req.prompt_ids)
+        ps = self.page_size
+        alloc = self.allocator
+        matched: List[int] = []
+        n = 0
+        host_keys: List[tuple] = []
+        if self.serving.prefix_cache:
+            matched, n, host_keys = alloc.lookup_prefix(ids)
+            # the last token runs through the walk to give the first sample
+            while host_keys and n + len(host_keys) * ps > len(ids) - 1:
+                host_keys.pop()
+            while n > len(ids) - 1:
+                matched.pop()
+                n -= ps
+            if not (isolated or resumed
+                    or self._should_chunk(len(req.prompt_ids))
+                    or n + len(host_keys) * ps
+                    >= ps * max(1, self.serving.prefix_reuse_min_pages)):
+                matched, n, host_keys = [], 0, []
+        restore = self._host_entries(ids, n, host_keys)
+        # queue the payloads' copies to the device before the allocation
+        # below, whose spills may refill their host slots
+        staged = pkv.upload_pages(restore, self.device) if restore else None
+        for pid in matched:
+            alloc.retain(pid)
+        need = -(-len(ids) // ps) - len(matched)
+        # the admission gate counted free and evictable pages for the whole
+        # sequence; retaining the match takes at most len(matched) of them
+        fresh = alloc.alloc(need) if need > 0 else []
+        assert fresh is not None, "admission gate let through a prompt " \
+            "the pool cannot hold"
+        # gather what this allocation reclaimed before the restore or the
+        # walk can overwrite it: stream order does the rest
+        self._spill_reclaimed()
+        self._resume_ctx.pop(req.id, None)
+        pages = matched + list(fresh)
+        self._slot_pages[slot] = pages
+        self.table[slot, :] = 0
+        self.table[slot, :len(pages)] = pages
+        self._op_dirty_table = True
+        self._seq_counter += 1
+        self._admit_seq[slot] = self._seq_counter
+        off = n
+        if restore:
+            # the restored span starts at the first fresh page
+            self._schedule_restore(slot, fresh[:len(restore)], staged)
+            off = n + len(restore) * ps
+        if off > 0:
+            self.counts["prefix_cache_hits"] += 1
+            self.counts["prefix_tokens_reused"] += off
+        self.counts["prefix_tier_hits_" + (
+            "host" if restore else "hbm" if n > 0 else "miss")] += 1
+        return ids, off, resumed
+
+    def _host_entries(self, ids: List[int], n: int,
+                      host_keys: List[tuple]) -> List[dict]:
+        """Fetch and verify the host-tier payloads that extend a resident
+        match, in chain order; the first that fails verification (it is
+        dropped, counted in ``kv_restore_dropped``) ends the extension, and
+        the walk prefills from there."""
+        tier = self.host_tier
+        if tier is None or not host_keys:
+            return []
+        ps = self.page_size
+        p0 = n // ps
+        entries: List[dict] = []
+        for i, key in enumerate(host_keys):
+            toks = tuple(ids[(p0 + i) * ps:(p0 + i + 1) * ps])
+            data = tier.fetch(key, toks, self._page_shapes)
+            if data is None:
+                self.counts["kv_restore_dropped"] += 1
+                break
+            entries.append(data)
+        return entries
+
+    def _schedule_restore(self, slot: int, pids: List[int], staged: dict):
+        """Queue the restore of host payloads, already copied to the device
+        (``staged``, :func:`paged_kv.upload_pages`), into the slot's fresh
+        pages: one ``index_copy_`` a pool leaf, in place (the decode graphs
+        captured the pool's storage). Stream order puts it ahead of every
+        later dispatch; nothing waits here."""
+        pkv.restore_pages(self.cache, pids, staged)
+        nbytes = len(pids) * self._page_bytes
+        self.host_tier.note_restored(len(pids), nbytes)
+        self._restore_pending[slot] = nbytes
+
+    def _settle_restore(self, slot: int):
+        """Before the slot's first suffix chunk: count a restore queued for
+        it and let go of the finished spills' device buffers (no wait: the
+        stream orders the restore ahead of the chunk)."""
+        nbytes = self._restore_pending.pop(slot, None)
+        if nbytes is None:
+            return
+        self.counts["kv_restore_bytes"] += nbytes
+        self.host_tier.flush_to_host()
+
+    def _spill_reclaimed(self):
+        """Move the pool's reclaim log into the host tier: one gather a
+        leaf, queued right after the allocation that reclaimed the pages,
+        and the copies into the tier's host slots behind it; nothing waits
+        here."""
+        tier, log = self.host_tier, self.allocator.evicted_log
+        if tier is None or not log:
+            return
+        self.allocator.evicted_log = []
+        tier.spill(log, pkv.gather_pages(self.cache,
+                                         [pid for pid, _, _ in log]),
+                   self._page_bytes)
+        self.counts["kv_spill_bytes"] += len(log) * self._page_bytes
+
+    def _index_prompt_pages(self, slot: int, ids: List[int],
+                            n_valid: Optional[int] = None):
+        """Index the slot's full pages over ``ids`` in the pool's chain, so
+        that later prompts (and resumes) share them. ``n_valid`` caps it to
+        pages whose rows are all written: at a finish or a preemption the
+        last token's row is not (the next dispatch writes it), and a
+        dispatch still in flight writes a finished slot's garbage rows from
+        there on through its stale table."""
+        if not self.serving.prefix_cache:
+            return
+        ps = self.page_size
+        pages = self._slot_pages[slot]
+        n_valid = len(ids) if n_valid is None else n_valid
+        key = None
+        for p in range(min(n_valid // ps, len(pages))):
+            key = self.allocator.index_page(pages[p], key,
+                                            tuple(ids[p * ps:(p + 1) * ps]))
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -637,8 +900,19 @@ class Engine:
             self._activate(req, slot, int(toks[i]), req.prompt_ids, False)
 
     def _start_chunk(self, req: Request, slot: int, ids: List[int],
-                     resumed: bool):
-        self.lengths[slot] = 0
+                     resumed: bool, off: int = 0, src: Optional[int] = None):
+        """Begin the chunk walk of ``ids`` into ``slot`` at row ``off``: the
+        paged engine's reused pages are in the slot's table (a restore into
+        them already queued); the dense engine first copies rows [0, off)
+        from slot ``src``'s prompt (none when ``src`` is the slot itself)."""
+        if self.paged:
+            self._settle_restore(slot)
+        elif off:
+            if src != slot:
+                kvc.copy_prefix(self.cache, src, slot, off)
+            self.counts["prefix_cache_hits"] += 1
+            self.counts["prefix_tokens_reused"] += off
+        self.lengths[slot] = off
         if not self.paged:
             # the dense walk rewrites the slot's length out of band of any
             # device carry; the paged walk's mixed dispatches set the
@@ -647,7 +921,7 @@ class Engine:
         if self.draft is not None:
             # the draft has no chunk walk; the slot serves the plain path
             self.draft.mark_stale(slot)
-        self._chunk = {"req": req, "slot": slot, "ids": ids, "off": 0,
+        self._chunk = {"req": req, "slot": slot, "ids": ids, "off": off,
                        "resumed": resumed}
 
     def _advance_chunk(self):
@@ -1032,6 +1306,10 @@ class Engine:
         # a device carry no longer describes the batch once the slot joins
         self._carry_gen += 1
         self._op_dirty_sampling = True
+        if self.paged:
+            self._index_prompt_pages(slot, ids)
+        else:
+            self._slot_tokens[slot] = tuple(req.prompt_ids)
         self.slot_req[slot] = req
         self.lengths[slot] = len(ids) - 1 if resumed else len(ids)
         self.temps[slot] = req.temperature
@@ -1057,7 +1335,15 @@ class Engine:
             self._finish(slot)
 
     def _finish(self, slot: int):
+        """Release a finished slot. The paged engine first indexes the full
+        pages of prompt + generated, so that a follow-up turn hits the
+        generated ones too (capped at the last written row, see
+        :meth:`_index_prompt_pages`); a dense slot keeps its prompt rows as
+        a prefix source until it is reused."""
         req = self.slot_req[slot]
+        if self.paged:
+            ids = req.prompt_ids + req.generated
+            self._index_prompt_pages(slot, ids, n_valid=len(ids) - 1)
         self.slot_req[slot] = None
         self._release_slot(slot)
         self.counts["finished"] += 1

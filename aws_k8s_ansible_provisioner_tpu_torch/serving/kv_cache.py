@@ -3,7 +3,8 @@ scatters apply, its inverse, and the cache's size in bytes; and the dense
 slot cache (:func:`init_cache`) that the dense engine (``paged=False``) and
 the draft model keep, with its prompt and chunk scatters (also into a
 cache split into sequence shards, ``parallel/sharding.init_cache_sharded``)
-and its plain row write (the plain version of K8 and, int8, of K9).
+and its plain row write (the plain version of K8 and, int8, of K9), and
+the slot-to-slot row copy of the dense prefix cache (:func:`copy_prefix`).
 
 K/V rows are stored int8 with one float32 scale per (layer, page or slot,
 kv head, row), the per-token-per-head dynamic scheme of the JAX package's
@@ -167,4 +168,21 @@ def write_token_layer(cache: dict, layer: int, rows: torch.Tensor,
     ok = ((r >= 0) & (r < S)).nonzero()                   # [M, 2] (b, r)
     b, j = ok[:, 0], ok[:, 1]
     _put(cache, (layer, b, slice(None), r[b, j]), k[b, j], v[b, j])
+    return cache
+
+
+def copy_prefix(cache, src_slot: int, dst_slot: int, n_rows: int):
+    """Copy rows [0, n_rows) of ``src_slot`` into ``dst_slot`` in every
+    layer and leaf (scales too), in place: the dense engine's prefix cache
+    (the JAX package's ``copy_prefix``), one slice copy a leaf. A cache
+    split into sequence shards copies each shard's part of the rows on its
+    own device (both slots' rows of a span lie in the same shard)."""
+    if isinstance(cache, list):
+        for shard, a, b, off in shard_spans(cache, 0, n_rows):
+            for arr in shard.values():
+                arr[:, dst_slot, :, a - off:b - off] = \
+                    arr[:, src_slot, :, a - off:b - off]
+        return cache
+    for arr in cache.values():
+        arr[:, dst_slot, :, :n_rows] = arr[:, src_slot, :, :n_rows]
     return cache

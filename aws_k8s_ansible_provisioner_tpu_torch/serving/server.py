@@ -306,6 +306,13 @@ def main(argv=None):
                         "float32 scales")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="chunked prefill size; 0 disables")
+    p.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable automatic prompt-prefix K/V reuse")
+    p.add_argument("--kv-host-tier-bytes", type=int, default=256 * 2**20,
+                   help="host-RAM tier of the prefix cache (bytes): pages "
+                        "the pool reclaims spill to pinned host memory and "
+                        "restore across PCIe on a later hit; 0 (or a "
+                        "budget below one page) disables")
     p.add_argument("--decode-bblock", type=int, default=0,
                    help="slots per CTA of the dense cache's decode kernel "
                         "(fitted to a divisor of the slots; 0 = 1); the "
@@ -337,6 +344,8 @@ def main(argv=None):
         max_cache_len=args.max_cache_len, page_size=args.page_size,
         dtype=args.dtype, weights_dtype=args.weights_dtype,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
+        prefix_cache=not args.no_prefix_cache,
+        kv_host_tier_bytes=args.kv_host_tier_bytes,
         decode_bblock=args.decode_bblock,
         decode_pipeline=args.decode_pipeline, spec_decode=args.spec_decode,
         spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp))

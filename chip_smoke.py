@@ -42,7 +42,23 @@ result when either is missing. Phases, in order (any failure raises):
 4. server, for each engine: the port's HTTP server in-process on a free
    port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
    int8 engine, a seeded sampled completion twice, the same text);
-5. spec, once per KV pool: prompt-lookup speculative decoding
+5. prefix, once per KV pool: the prefix cache and the host KV tier at the
+   defaults (prefix cache on, a 256 MiB host tier, the pipeline and the
+   decode graphs on), Qwen3-0.6B at full width with the pool cut to 68
+   pages: A (a 1,536-token history and a 64-token tail) cold, A again (a
+   resident hit), 8 requests sharing the history, fillers until A's pages
+   have left the pool for the host tier, A once more (restored): the warm
+   and restored streams equal the cold one, the restored pages equal a
+   snapshot of A's pages bit for bit, the 8 hits' first-token logits are
+   held against a ``prefix_cache=False`` engine, the counts follow the
+   schedule, one replay per decode dispatch, K1's ragged entry held
+   against its plain version over tables whose leading pages are shared;
+   time to first token of A cold, resident and restored, and the
+   restore's bytes and device time. The phases that run one prompt twice
+   on an engine and compare the runs (the seeded check of 3, the pipeline
+   phase, spec, sp) turn the prefix cache off, so that both runs prefill
+   alike;
+6. spec, once per KV pool: prompt-lookup speculative decoding
    (``spec_decode=True``) at full width on repeated-pattern prompts, with
    its launch counts zeroed just before and read just after (verify
    dispatches, drafts and the verify kernel of that pool required); a
@@ -51,24 +67,24 @@ result when either is missing. Phases, in order (any failure raises):
    verify dispatch of 8 slots is held against plain decode steps of the
    same prefixes (logits within LOGIT_TOL, the emitted tokens the accept
    rule on the verify's argmax), then timed and profiled;
-6. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
+7. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
    the same width over the dense cache; a second wave of chunked prompts
    puts the drafts behind so that they catch up. The dense kernels must
    have launched, and the self-draft must have accepted drafts;
-7. the window instances (after the kernels phase): K1 (decode, ragged,
+8. the window instances (after the kernels phase): K1 (decode, ragged,
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
    each held against its plain version and timed, the dense ones also
    with NaN rows (int8: scales) below their first tile, which must change
    nothing; and K1 at window 0 against window 4096 on rows of ~8000
    columns;
-8. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
+9. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
    slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
    with launch counts (window instances only), one decode step's logits
    at lengths past the window held against the plain versions and against
    window 0, one decode dispatch profiled, the server; then prompt lookup
    (the verify's window instance) and a self-draft (K4 and K7's);
-9. the dense engine (``ServingConfig(paged=False)``, every slot's window
+10. the dense engine (``ServingConfig(paged=False)``, every slot's window
    of rows reserved, prefill_chunk 256 so that long prompts take the dense
    chunk walk): Qwen3-0.6B at full width with bf16 KV and decode_bblock 4
    (K8, K5), then with int8 KV (K9, K4-int8; seeded sampled streams alone
@@ -78,8 +94,8 @@ result when either is missing. Phases, in order (any failure raises):
    over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
    Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
    with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
-   8). In every dense run the paged kernels' counts must be 0;
-10. sequence-parallel serving (after the window kernels, the kernels phase
+   9). In every dense run the paged kernels' counts must be 0;
+11. sequence-parallel serving (after the window kernels, the kernels phase
    "kernels, sp"): K6, the stats form of the dense decode, bf16 and int8,
    over every shard of a dense cache [28, 4, 8, 32768, 128] split into 4
    and into 2 sequence shards, against its plain version (the empty
@@ -109,6 +125,7 @@ import math
 import os
 import re
 import socket
+import statistics
 import subprocess
 import sys
 import threading
@@ -1308,7 +1325,14 @@ def _seeded_twice(engine, rng, Request):
     while three greedy requests decode in other slots (its prefill is a
     batch of its own both times, and no chunk is in flight beside it):
     both streams must be identical."""
+    import dataclasses
+
     cfg = engine.cfg
+    # the prefix cache off for this check: the second copy would hit the
+    # first's rows and walk its last token through the chunk program
+    # (another bf16 rounding of its rows); phase_prefix holds the cache
+    serving = engine.serving
+    engine.serving = dataclasses.replace(serving, prefix_cache=False)
     prompt = rng.integers(0, cfg.vocab_size, 90).tolist()
     alone = engine.submit(Request(prompt_ids=prompt, max_tokens=40, seed=1,
                                   **SAMPLED))
@@ -1325,6 +1349,7 @@ def _seeded_twice(engine, rng, Request):
     crowded = engine.submit(Request(prompt_ids=prompt, max_tokens=40, seed=1,
                                     **SAMPLED))
     engine.run_until_idle()
+    engine.serving = serving
     for r, n in [(alone, 40), (crowded, 40)] + [(r, 60) for r in others]:
         _finish_ok(cfg, r, n)
     if crowded.generated != alone.generated:
@@ -1435,7 +1460,11 @@ def phase_pipeline(torch, np, engine):
         decode_steps
 
     dec = engine.decoder
-    serving = engine.serving
+    # the same prompts run three times on the engine: the prefix cache off,
+    # so that each run prefills them alike (phase_prefix holds the cache)
+    orig = engine.serving
+    serving = dataclasses.replace(orig, prefix_cache=False)
+    engine.serving = serving
     cfg = engine.cfg
     tag = f"[pipeline {'paged' if engine.paged else 'dense'} int8]"
     log(f"{tag} {_dispatch_mode(engine)} ({dec.pool_bytes} bytes)")
@@ -1519,8 +1548,396 @@ def phase_pipeline(torch, np, engine):
     # one decode dispatch with the pipeline off (graphs still on)
     engine.serving = dataclasses.replace(serving, decode_pipeline=0)
     phase_profile(torch, np, engine)
-    engine.serving = serving
+    engine.serving = orig
     return {"capture_s": dec.capture_s, "pool_bytes": dec.pool_bytes}
+
+
+# the prefix phase: the chat-turn pattern on Qwen3-0.6B at the defaults
+# (prefix cache on, a 256 MiB host tier), the pool cut to PREFIX_POOL_PAGES
+# pages of 64 rows so that fillers push A's pages out to the host tier.
+# A 1,536-token history (a chunk boundary of prefill_chunk 256) and 64-token
+# tails: a hit's single suffix chunk has the cold walk's last chunk's shape
+# and rows.
+PREFIX_HISTORY = 1536
+PREFIX_TAIL = 64
+PREFIX_NEW = 32
+PREFIX_BURST = 8
+# the burst (24 shared pages + 2 of its own a request) fits at once; the
+# fillers then reclaim what the LRU holds before A's history pages
+PREFIX_POOL_PAGES = 68
+# each time to first token is taken PREFIX_REPS times (median and range):
+# the cold and resident turns over prompts of A's shape, A last; the
+# restore of A after each round of at most PREFIX_MAX_FILLERS fillers
+PREFIX_REPS = 5
+PREFIX_MAX_FILLERS = 5
+
+
+def _prefix_wrappers(torch, engine, attn, ragged, restores, spills):
+    """Wrap one engine's mixed dispatch (the K1 launches of its ragged
+    entry, counted into ``ragged``), its restore and its spill: CUDA events
+    around what they queue, the restore's two parts apart (its payloads'
+    copies to the device, ``paged_kv.upload_pages``, patched in the module
+    until the returned undo is called; and the ``index_copy_`` into the
+    pool): (upload start, upload end, copy start, copy end, pages, page
+    ids) into ``restores``, (start, end, pages) into ``spills``."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    mixed, restore, spill, upload = (engine._mixed_dispatch,
+                                     engine._schedule_restore,
+                                     engine._spill_reclaimed,
+                                     pkv.upload_pages)
+    uploads = []
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def counted_mixed(*args):
+        before = attn.launches
+        out = mixed(*args)
+        ragged[0] += attn.launches - before
+        return out
+
+    def timed_upload(entries, device):
+        e0, e1 = events()
+        e0.record()
+        out = upload(entries, device)
+        e1.record()
+        uploads.append((e0, e1))
+        return out
+
+    def timed_restore(slot, pids, staged):
+        e0, e1 = events()
+        e0.record()
+        restore(slot, pids, staged)
+        e1.record()
+        restores.append(uploads[-1] + (e0, e1, len(pids), list(pids)))
+
+    def timed_spill():
+        n = len(engine.allocator.evicted_log)
+        if not n:
+            return spill()
+        e0, e1 = events()
+        e0.record()
+        spill()
+        e1.record()
+        spills.append((e0, e1, n))
+
+    engine._mixed_dispatch = counted_mixed
+    engine._schedule_restore = timed_restore
+    engine._spill_reclaimed = timed_spill
+    pkv.upload_pages = timed_upload
+
+    def undo():
+        pkv.upload_pages = upload
+
+    return undo
+
+
+def _first_token_logits(programs, engine, out):
+    """Patch ``programs.sample`` to record, for ``engine``'s walk, the
+    logits its final chunk samples the request's first token from
+    (request id -> float32 [V]); returns the original."""
+    sample = programs.sample
+
+    def recording(logits, *args, **kw):
+        st = engine._chunk
+        if st is not None and logits.shape[0] == 1 and \
+                st["off"] + engine._chunk_size >= len(st["ids"]):
+            out[st["req"].id] = logits[0].float().clone()
+        return sample(logits, *args, **kw)
+
+    programs.sample = recording
+    return sample
+
+
+def phase_prefix(torch, np, kv_dtype):
+    """The prefix cache and the host tier at the port's defaults (prefix
+    cache on, host tier 256 MiB, the pipeline and the decode graphs on),
+    Qwen3-0.6B at full width, the pool cut to PREFIX_POOL_PAGES pages; the
+    chat-turn pattern: A (a 1,536-token history and a 64-token tail) cold
+    with the engine idle, A again (a resident hit), 8 requests sharing the
+    history with their own tails submitted together, fillers of A's length
+    until A's history pages have all left the pool for the host tier, A
+    once more (restored from the host); each time to first token taken
+    PREFIX_REPS times. Launch counts zeroed just before and read just
+    after (:func:`_prefix_run`). Then the 8 requests'
+    first-token logits are held within LOGIT_TOL of the same requests on a
+    ``prefix_cache=False`` engine of the same weights."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = QWEN3_0_6B
+    quant = kv_dtype == "int8"
+    tag = f"[prefix {'int8' if quant else 'bf16'}]"
+    serving = ServingConfig(prefill_chunk=256, derived_seed=0,
+                            kv_dtype=kv_dtype,
+                            kv_pool_pages=PREFIX_POOL_PAGES)
+    if not (serving.prefix_cache and serving.kv_host_tier_bytes > 0):
+        raise AssertionError(f"{tag} the defaults serve no prefix cache or "
+                             f"host tier: {serving}")
+
+    def build(**over):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, torch.bfloat16)
+        return Engine(cfg, params, dataclasses.replace(serving, **over),
+                      device="cuda")
+
+    t0 = time.monotonic()
+    engine = build()
+    torch.cuda.synchronize()
+    log(f"{tag} {cfg.name}, KV {'int8' if quant else serving.dtype}, "
+        f"{_cache_layout(engine)}, {engine._page_bytes / 2**20:.2f} MiB a "
+        f"page; host tier {serving.kv_host_tier_bytes / 2**20:.0f} MiB "
+        f"({len(engine.host_tier._free_slots)} page slots); "
+        f"{_dispatch_mode(engine)}; set-up {time.monotonic() - t0:.1f}s")
+    rng = np.random.default_rng(71)
+    V = cfg.vocab_size
+    history = rng.integers(0, V, PREFIX_HISTORY).tolist()
+    a = history + rng.integers(0, V, PREFIX_TAIL).tolist()
+    # the other cold and resident turns: A's shape, histories of their own
+    others = [rng.integers(0, V, len(a)).tolist()
+              for _ in range(PREFIX_REPS - 1)]
+    burst = [history + rng.integers(0, V, PREFIX_TAIL).tolist()
+             for _ in range(PREFIX_BURST)]
+    fillers = [rng.integers(0, V, len(a)).tolist()
+               for _ in range(PREFIX_REPS * PREFIX_MAX_FILLERS)]
+    engine.submit(Request(prompt_ids=fillers[0][:8], max_tokens=2,
+                          ignore_eos=True))
+    engine.run_until_idle()
+    attn = pa.paged_attention_quant if quant else pa.paged_attention
+    ragged, restores, spills = [0], [], []
+    undo = _prefix_wrappers(torch, engine, attn, ragged, restores, spills)
+    try:
+        res = _prefix_run(torch, np, engine, tag, a, others, burst, fillers,
+                          (attn, ragged, restores, spills))
+    finally:
+        undo()
+    del engine
+    _free(torch)
+    # the same burst on an engine without the prefix cache (the same
+    # weights): first-token logits
+    ref = build(prefix_cache=False)
+    logits_ref = {}
+    sample = _first_token_logits(programs, ref, logits_ref)
+    try:
+        ref_reqs = [ref.submit(Request(prompt_ids=p, max_tokens=1,
+                                       ignore_eos=True)) for p in burst]
+        ref.run_until_idle()
+    finally:
+        programs.sample = sample
+    errs = [float((res["logits_hit"][r.id] - logits_ref[q.id]).abs().max())
+            for r, q in zip(res["burst_reqs"], ref_reqs)]
+    if ref.counts["prefix_cache_hits"] or not max(errs) <= LOGIT_TOL:
+        raise AssertionError(f"{tag} first-token logits of the hits vs "
+                             f"prefix_cache=False: max abs {errs} (tol "
+                             f"{LOGIT_TOL}); reference counts "
+                             f"{dict(ref.counts)}")
+    log(f"{tag} {PREFIX_BURST} hits' first-token logits vs the same "
+        f"requests on a prefix_cache=False engine: max abs per request "
+        f"{[round(e, 5) for e in errs]} (tol {LOGIT_TOL})")
+    del ref
+    _free(torch)
+    res.update(logit_errs=errs)
+    del res["logits_hit"], res["burst_reqs"]
+    return res
+
+
+def _spread(xs):
+    """Median and range of a list of ms: 'median x ms (min y, max z)'."""
+    return (f"median {statistics.median(xs):.2f} ms (min {min(xs):.2f}, "
+            f"max {max(xs):.2f})")
+
+
+def _prefix_run(torch, np, engine, tag, a, others, burst, fillers, probes):
+    """The chat-turn run of :func:`phase_prefix` on ``engine`` (its wrappers
+    in ``probes``: the attention wrapper, the ragged count, the restores'
+    and the spills' events). Checks: the warm and restored streams equal
+    the cold ones; the pages of every restore equal a snapshot of A's pages
+    taken before the fillers, bit for bit; the counts the schedule implies;
+    one replay per decode dispatch; K1's ragged entry, its decode entry,
+    the combine and the row write launched in the run (K1's ragged entry
+    over tables whose leading pages are shared is also held against its
+    plain version on the pool, outside the counted run). Reported: time to
+    first token, PREFIX_REPS samples each, of turns of A's shape cold and
+    resident and of A restored; the restores' and the spills' bytes and
+    device time."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    attn, ragged, restores, spills = probes
+    cfg = engine.cfg
+    ps = engine.page_size
+    page_bytes = engine._page_bytes
+    n_hist = PREFIX_HISTORY // ps
+
+    def ttft(prompt):
+        """Submit ``prompt`` to the idle engine: ms to its first token (the
+        fetch that emits it waits for its dispatch), then run it out."""
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        req = engine.submit(Request(prompt_ids=prompt, max_tokens=PREFIX_NEW,
+                                    ignore_eos=True))
+        while not req.generated:
+            engine.step()
+        ms = 1e3 * (time.monotonic() - t)
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        _finish_ok(cfg, req, PREFIX_NEW)
+        return req, ms
+
+    engine.counts.clear()
+    replays0 = engine.decoder.replays
+    torch.cuda.synchronize()
+    _reset_launches()
+    t_run = time.monotonic()
+    # cold, then a resident hit, for each turn of A's shape; A last, so that
+    # its history is resident for the burst
+    ttft_cold, ttft_hit = [], []
+    for prompt in others + [a]:
+        cold, ms = ttft(prompt)
+        ttft_cold.append(ms)
+        warm, ms = ttft(prompt)
+        ttft_hit.append(ms)
+        if warm.generated != cold.generated:
+            raise AssertionError(f"{tag} a resident hit gave another stream "
+                                 f"than its cold run")
+    # the burst: first-token logits recorded for the reference comparison
+    logits_hit = {}
+    sample = _first_token_logits(programs, engine, logits_hit)
+    try:
+        reqs = [engine.submit(Request(prompt_ids=p, max_tokens=PREFIX_NEW,
+                                      ignore_eos=True)) for p in burst]
+        engine.run_until_idle()
+    finally:
+        programs.sample = sample
+    for r in reqs:
+        _finish_ok(cfg, r, PREFIX_NEW)
+    # A's history pages, snapshot before the fillers push them out
+    pages, n, _ = engine.allocator.lookup_prefix(a)
+    if n < PREFIX_HISTORY:
+        raise AssertionError(f"{tag} A's history is not resident after the "
+                             f"burst ({n} tokens)")
+    snap = {k: v[:, pages[:n_hist]].clone() for k, v in engine.cache.items()}
+    # K1's ragged entry over the burst's tables (the history's pages shared
+    # by every row): the 8 decode rows past the prompts and one tail's 64
+    # chunk rows, held against the plain version on the engine's pool. Its
+    # launches are kept out of the run's counts: read before, zeroed after
+    torch.cuda.synchronize()
+    counted = _launches()
+    width = engine.pages_per_slot
+    tables, limits = [], []
+    for p in burst:
+        own = engine.allocator.lookup_prefix(p)[0]
+        tables.append(own + [0] * (width - len(own)))
+        limits.append(len(p))
+    tables += [tables[0]] * PREFIX_TAIL
+    limits += list(PREFIX_HISTORY + 1 + np.arange(PREFIX_TAIL))
+    shared_case = _attention_case(
+        torch, np, engine.cache, np.array(limits), np.array(tables),
+        cfg.num_layers - 1, f"ragged {PREFIX_BURST} + {PREFIX_TAIL} rows, "
+        f"{n_hist} leading pages shared")
+    torch.cuda.synchronize()
+    _reset_launches()
+    # rounds of fillers until A's history has left the pool for the host
+    # tier, then A restored from there
+    ttft_restore, n_fill = [], 0
+    for rep in range(PREFIX_REPS):
+        for k in range(PREFIX_MAX_FILLERS + 1):
+            found = engine.allocator.lookup_prefix(a)
+            if found[1] == 0 and len(found[2]) >= n_hist:
+                break
+            if k == PREFIX_MAX_FILLERS:
+                raise AssertionError(
+                    f"{tag} round {rep}: A's history not all on the host "
+                    f"after {k} fillers: {found[1]} tokens resident, "
+                    f"{len(found[2])} host pages")
+            ttft(fillers[n_fill])
+            n_fill += 1
+        queued = len(restores)
+        restored, ms = ttft(a)
+        ttft_restore.append(ms)
+        if restored.generated != cold.generated:
+            raise AssertionError(f"{tag} round {rep}: A restored from the "
+                                 f"host gave another stream than its cold "
+                                 f"run")
+        if len(restores) != queued + 1:
+            raise AssertionError(f"{tag} round {rep}: "
+                                 f"{len(restores) - queued} restores queued")
+        n_restored, pids = restores[-1][4:]
+        same_bits = {k: bool(torch.equal(engine.cache[k][:, pids], snap[k]))
+                     for k in snap}
+        if n_restored != n_hist or not all(same_bits.values()):
+            raise AssertionError(f"{tag} round {rep}: restored pages "
+                                 f"{n_restored} (want {n_hist}), "
+                                 f"bit-identical by leaf {same_bits}")
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t_run
+    launches = {k: counted[k] + v for k, v in _launches().items()}
+    upload_ms = [u0.elapsed_time(u1) for u0, u1, *_ in restores]
+    copy_ms = [c0.elapsed_time(c1) for _, _, c0, c1, *_ in restores]
+    restore_bytes = n_hist * page_bytes
+    gbs = [restore_bytes / ms / 1e6 for ms in upload_ms]
+    spill_ms = sum(s0.elapsed_time(s1) for s0, s1, _ in spills)
+    spill_pages = sum(k for _, _, k in spills)
+    counts = dict(engine.counts)
+    n_hits = 2 * PREFIX_REPS + PREFIX_BURST
+    want = {"prefix_cache_hits": n_hits,
+            "prefix_tokens_reused": n_hits * PREFIX_HISTORY,
+            "prefix_tier_hits_hbm": PREFIX_REPS + PREFIX_BURST,
+            "prefix_tier_hits_host": PREFIX_REPS,
+            "prefix_tier_hits_miss": PREFIX_REPS + n_fill,
+            "kv_restore_bytes": PREFIX_REPS * restore_bytes,
+            "kv_restore_dropped": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want or counts.get("kv_spill_bytes", 0) < restore_bytes:
+        raise AssertionError(f"{tag} counts {counts}, expected {want} and "
+                             f"kv_spill_bytes >= {restore_bytes}")
+    _check_replays(tag, engine, replays0)
+    k1, write = attn.__name__, _kernel_names("ks" in engine.cache)[1]
+    decode = launches[k1] - ragged[0]
+    if min(ragged[0], decode, launches["split_merge"], launches[write]) <= 0:
+        raise AssertionError(f"{tag} K1 ragged {ragged[0]}, decode {decode}; "
+                             f"launches {launches}")
+    log(f"{tag} {PREFIX_REPS} turns of {len(a)} tokens cold then resident, "
+        f"A restored {PREFIX_REPS} times: streams identical to the cold ones "
+        f"({PREFIX_NEW} tokens); {PREFIX_BURST} requests sharing A's "
+        f"{PREFIX_HISTORY}-token history, {n_fill} fillers; run {run_s:.2f}s;"
+        f" counts {counts}; host tier {engine.host_tier.stats()}")
+    log(f"{tag} time to first token ({PREFIX_REPS} samples each, engine "
+        f"idle, prefill_chunk 256): cold {_spread(ttft_cold)}; resident hit "
+        f"{_spread(ttft_hit)}; host restore {_spread(ttft_restore)}; samples"
+        f" cold {[round(x, 2) for x in ttft_cold]}, hit "
+        f"{[round(x, 2) for x in ttft_hit]}, restore "
+        f"{[round(x, 2) for x in ttft_restore]}")
+    log(f"{tag} restores: {n_hist} pages, {restore_bytes} bytes "
+        f"({restore_bytes / 2**20:.1f} MiB) each: host -> device "
+        f"{_spread(upload_ms)} of device time, GB/s median "
+        f"{statistics.median(gbs):.2f} (min {min(gbs):.2f}, max "
+        f"{max(gbs):.2f}); into the pool {_spread(copy_ms)}; restored pages "
+        f"bit-identical to the snapshot every time; spills: {spill_pages} "
+        f"pages, {counts.get('kv_spill_bytes', 0)} bytes, {spill_ms:.3f} ms "
+        f"of device time between the events around them (gather and copies "
+        f"to the host slots)")
+    log(f"{tag} launches in the run (the shared-table check's kept out): K1 "
+        f"({k1}) {launches[k1]}: ragged (mixed dispatches) {ragged[0]}, "
+        f"decode {decode}; {write} {launches[write]}; split_merge "
+        f"{launches['split_merge']}")
+    return {"ttft_cold_ms": ttft_cold, "ttft_hit_ms": ttft_hit,
+            "ttft_restore_ms": ttft_restore, "upload_ms": upload_ms,
+            "copy_ms": copy_ms, "restore_bytes": restore_bytes,
+            "spill_ms": spill_ms, "spill_pages": spill_pages,
+            "ragged_launches": ragged[0], "launches": launches,
+            "shared_case": shared_case, "logits_hit": logits_hit,
+            "burst_reqs": reqs}
 
 
 def phase_sampling(torch, np):
@@ -1770,10 +2187,13 @@ def phase_spec(torch, np, kv_dtype, paged=True, bblock=0):
 
     cfg = QWEN3_0_6B
     quant = kv_dtype == "int8"
+    # the prefix cache off: the same prompts run twice on the engine, spec
+    # on and off, and must prefill alike (phase_prefix holds the cache)
     serving = ServingConfig(spec_decode=True, derived_seed=0,
                             kv_dtype=kv_dtype, paged=paged,
                             decode_bblock=bblock,
-                            prefill_chunk=0 if paged else 256)
+                            prefill_chunk=0 if paged else 256,
+                            prefix_cache=False)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     engine = Engine(cfg, init_params(cfg, gen, torch.bfloat16), serving,
@@ -2577,9 +2997,12 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
 
     cfg = QWEN3_0_6B
     quant = kv_dtype == "int8"
+    # the prefix cache off: the seeded request runs twice and must prefill
+    # alike both times (phase_prefix holds the cache)
     serving = ServingConfig(max_decode_slots=SP_SLOTS,
                             max_cache_len=SP_WINDOW, prefill_chunk=SP_CHUNK,
-                            paged=False, derived_seed=0, kv_dtype=kv_dtype)
+                            paged=False, derived_seed=0, kv_dtype=kv_dtype,
+                            prefix_cache=False)
     mesh = make_mesh(MeshConfig(sp=sp), [torch.device("cuda", 0)] * sp) \
         if sp > 1 else None
     t0 = time.monotonic()
@@ -2851,6 +3274,9 @@ def main() -> int:
         del engine
         _free(torch)
         log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    for kv_dtype in ("auto", "int8"):
+        _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)
+        _free(torch)
     for kv_dtype in ("auto", "int8"):
         t0 = time.monotonic()
         engine, launches, _ = phase_spec(torch, np, kv_dtype)

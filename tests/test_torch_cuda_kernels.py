@@ -1184,3 +1184,118 @@ def test_decode_graph_replays_eager_decode_steps(dev, paged, quant):
         assert torch.equal(cache[k], eager_cache[k]), k
     with pytest.raises(RuntimeError):
         graphs.run(2, False)
+
+
+def _random_pool(dev, gen, cfg, pages, ps, quant):
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    pool = pkv.init_pool(cfg, pages, ps, torch.bfloat16, dev, quant=quant)
+    for leaf in pool.values():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device=dev, dtype=torch.int8))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev)
+                       * (0.02 if quant else 1.0))
+    return pool
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_host_tier_spill_then_restore_bit_identical(dev, quant):
+    """Pages spilled to the tier's pinned page slots (a gather and
+    non_blocking copies, nothing waited for) and overwritten on the stream
+    right after: the restore into other pages gives the spilled bytes back,
+    scales included, in place; the host slots are pinned."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    cfg = tiny_qwen3()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    pool = _random_pool(dev, gen, cfg, 16, 8, quant)
+    src, dst = [3, 7, 10], [1, 14, 5]
+    want = {n: a[:, src].clone() for n, a in pool.items()}
+    page_bytes = sum(a[:, 0].numel() * a.element_size()
+                     for a in pool.values())
+    shapes = {n: (a.shape[0],) + tuple(a.shape[2:]) for n, a in pool.items()}
+    tier = pkv.HostTier(64 * page_bytes)
+    tier.reserve(pool)
+    log = [(p, pkv.PagePool.chain_key(None, (p,) * 8), (p,) * 8)
+           for p in src]
+    tier.spill(log, pkv.gather_pages(pool, src), page_bytes)
+    for a in pool.values():                # queued after the spill
+        a[:, src] = 0
+    ptrs = {n: a.data_ptr() for n, a in pool.items()}
+    entries = [tier.fetch(k, t, shapes) for _, k, t in log]
+    assert all(e is not None for e in entries)
+    assert all(x.is_pinned() for e in entries for x in e.values())
+    pkv.restore_pages(pool, dst, pkv.upload_pages(entries, dev))
+    torch.cuda.synchronize()
+    for n, a in pool.items():
+        assert a.data_ptr() == ptrs[n]
+        assert torch.equal(a[:, dst], want[n]), n
+    tier.flush_to_host()                   # the copies have finished
+    assert not tier._copies
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_graph_replay_after_restore_matches_eager(dev, quant):
+    """Decode graphs captured over a pool, then host pages restored into
+    pages the table reads: a replay sees the restored rows (the restore
+    wrote the captured storage), with the tokens and every cache leaf of
+    eager ``decode_steps`` on a clone of the restored pool."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+
+    cfg = tiny_qwen3()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    model = DecoderLM(cfg, init_params(cfg, gen, torch.bfloat16))
+    B, ps, maxp = 4, 8, 6
+    pool = _random_pool(dev, gen, cfg, B * maxp + 1 + 4, ps, quant)
+    rng = np.random.default_rng(6)
+    table = torch.from_numpy((rng.permutation(B * maxp) + 1).reshape(
+        B, maxp).astype(np.int32)).to(dev)
+    graphs = programs.DecodeGraphs(model, pool, B, maxp, (1, 3),
+                                   capture=True)
+    # spill the spare pages past the table's, restore them over pages the
+    # table's live rows read
+    spare = list(range(B * maxp + 1, B * maxp + 5))
+    page_bytes = sum(a[:, 0].numel() * a.element_size()
+                     for a in pool.values())
+    shapes = {n: (a.shape[0],) + tuple(a.shape[2:]) for n, a in pool.items()}
+    tier = pkv.HostTier(64 * page_bytes)
+    tier.reserve(pool)
+    log = [(p, pkv.PagePool.chain_key(None, (p,) * ps), (p,) * ps)
+           for p in spare]
+    tier.spill(log, pkv.gather_pages(pool, spare), page_bytes)
+    targets = [int(table[b, 0]) for b in range(B)]
+    entries = [tier.fetch(k, t, shapes) for _, k, t in log]
+    pkv.restore_pages(pool, targets, pkv.upload_pages(entries, dev))
+    operands = (torch.tensor([3, 9, 27, 81], dtype=torch.int32),
+                torch.tensor([5, 7, 20, 40], dtype=torch.int32),
+                torch.tensor([0.0, 0.8, 0.0, 1.1]),
+                torch.tensor([0, 20, 0, 5], dtype=torch.int32),
+                torch.tensor([1.0, 0.9, 1.0, 0.8]),
+                torch.tensor([1, 2**32 - 1, 3, 4], dtype=torch.int64))
+    operands = tuple(t.to(dev) for t in operands)
+    for dst, src in zip((graphs.tokens, graphs.lengths, graphs.temps,
+                         graphs.top_ks, graphs.top_ps, graphs.seeds),
+                        operands):
+        dst.copy_(src)
+    graphs.table.copy_(table)
+    eager_pool = {k: v.clone() for k, v in pool.items()}
+    for n in pool:
+        assert torch.equal(eager_pool[n][:, targets],
+                           eager_pool[n][:, spare])
+    _, ref = programs.decode_steps(model, 3, eager_pool, operands[0],
+                                   operands[1], table, *operands[2:],
+                                   any_sampled=True)
+    out = graphs.run(3, True).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    for k in pool:
+        assert torch.equal(pool[k], eager_pool[k]), k

@@ -101,7 +101,8 @@ def _serving(kv_dtype="auto", **over):
 
 def _port(model, draft=None, **kw):
     _, _, tcfg, tparams = model
-    return TEngine(tcfg, tparams, TServing(weights_dtype="bf16", **kw),
+    return TEngine(tcfg, tparams, TServing(weights_dtype="bf16",
+                                           prefix_cache=False, **kw),
                    device="cpu", draft=draft)
 
 

@@ -482,7 +482,8 @@ def _engines(jcfg, jparams, tcfg, tparams, draft=False, **serving):
     je = JEngine(jcfg, jparams, JServing(weights_dtype="bf16",
                                          prefix_cache=False, **serving),
                  draft=(jcfg, jparams) if draft else None)
-    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16", **serving),
+    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16",
+                                         prefix_cache=False, **serving),
                  device="cpu", draft=(tcfg, tparams) if draft else None)
     return je, te
 

@@ -76,7 +76,8 @@ def _engines(model, **serving):
         serving["page_size"] = INT8_PAGE
     je = JEngine(jcfg, jparams, JServing(weights_dtype="bf16",
                                          prefix_cache=False, **serving))
-    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16", **serving),
+    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16",
+                                         prefix_cache=False, **serving),
                  device="cpu")
     return je, te
 

@@ -379,7 +379,8 @@ def _jax_engine(jparams, draft=None, **kw):
 
 
 def _port_engine(tparams, draft=None, **kw):
-    return TEngine(TCFG, tparams, TServing(weights_dtype="bf16", **kw),
+    return TEngine(TCFG, tparams, TServing(weights_dtype="bf16",
+                                           prefix_cache=False, **kw),
                    device="cpu", draft=draft)
 
 
@@ -477,12 +478,14 @@ def test_windowed_verify_streams_match_jax(looping, kv_dtype):
     prompts = [pat * 4, rng.integers(2, 128, 11).tolist() + pat * 2]
     kw = _serving(kv_dtype, max_cache_len=128, prefill_buckets=(32,),
                   decode_horizon=4)
-    ref = _run(TEngine(tcfg, tparams, TServing(weights_dtype="bf16", **kw),
+    ref = _run(TEngine(tcfg, tparams, TServing(weights_dtype="bf16",
+                                               prefix_cache=False, **kw),
                        device="cpu"), prompts, 40)
     jgot = _run(JEngine(jcfg, jparams, JServing(
         weights_dtype="bf16", prefix_cache=False, **kw, **SPEC)),
         prompts, 40)
-    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16", **kw,
+    te = TEngine(tcfg, tparams, TServing(weights_dtype="bf16",
+                                         prefix_cache=False, **kw,
                                          **SPEC), device="cpu")
     assert _run(te, prompts, 40) == jgot == ref
     drafted = te.counts["spec_drafted_tokens"]

@@ -360,7 +360,8 @@ def test_sp_engine_streams_match_jax(weights, sp, kv_dtype, case):
         **serving), mesh=_jax_mesh(sp))
     jone = JEngine(JCFG, jparams, JServing(
         weights_dtype="bf16", prefix_cache=False, paged=False, **serving))
-    te = TEngine(TCFG, tparams, TServing(weights_dtype="bf16", **serving),
+    te = TEngine(TCFG, tparams, TServing(weights_dtype="bf16",
+                                         prefix_cache=False, **serving),
                  device="cpu", mesh=_cpu_mesh(sp))
     got = [r.generated for r in _run(te, prompts, max_tokens, seeds)]
     assert got == [r.generated for r in _run(jsp, prompts, max_tokens,

@@ -305,7 +305,8 @@ def _jax_engine(jparams, draft=None, **kw):
 
 
 def _port_engine(tparams, draft=None, **kw):
-    return TEngine(TCFG, tparams, TServing(weights_dtype="bf16", **kw),
+    return TEngine(TCFG, tparams, TServing(weights_dtype="bf16",
+                                           prefix_cache=False, **kw),
                    device="cpu", draft=draft)
 
 
