@@ -254,6 +254,13 @@ class ServingConfig:
     # this many whole pages (resident plus host-restorable).
     prefix_reuse_min_pages: int = 2
     max_tokens_default: int = 256
+    # Prefill/decode fairness: after this many consecutive batch-prefill
+    # dispatches while slots decode and prompts wait, the engine forces one
+    # decode dispatch at the full decode_horizon before it admits more.
+    # Without it a steady stream of arrivals holds the running streams back
+    # (decode runs only when nothing can be admitted, at horizon 1 near an
+    # admission). 0 turns the floor off.
+    prefill_fairness: int = 4
     # Admissions past this queue depth are refused (0 = unbounded).
     max_queue_depth: int = 256
     # Seed of the engine's draws of per-request sampling seeds for requests

@@ -1,13 +1,17 @@
 // Paged flash attention with per-row (table row, live-column limit), over a
 // bf16/f32 pool or an int8 pool with per-row float32 scales, with or without
-// a sliding window: split-KV over a pipelined page stream. Two entries:
-// paged_attention (decode and ragged rows: one query row per table row) and
+// a sliding window: split-KV over a pipelined page stream. Three entries:
+// paged_attention (decode and ragged rows: one query row per table row),
+// paged_attention_chunk (the ragged entry's prefill-chunk rows, which share
+// one table row and have limits that rise by one) and
 // paged_attention_verify (the speculative verify: R query rows per slot).
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
 //   _paged_flash_db / _paged_db_body, the body behind
 //   decode_attend_pallas_paged and ragged_attend_pallas_paged (R=1;
-//   paged_attention) and decode_attend_pallas_spec_paged (spec=True, R>1;
+//   paged_attention for decode rows, and paged_attention_chunk for the
+//   chunk rows of a ragged call that passes its layout) and
+//   decode_attend_pallas_spec_paged (spec=True, R>1;
 //   paged_attention_verify): the bf16 body _paged_db_kernel and the int8
 //   scale-folding body _paged_db_kernel_quant, each at window 0 and
 //   window > 0.
@@ -78,10 +82,21 @@
 // of the slot's pages (grid slot x row group, kv head, split; the split
 // count from the slots' shapes, so the verify is split like the decode),
 // with mma.sync scores and P.V.
+// A prefill chunk's C rows in a ragged call read the same pages of one
+// slot, C x G rows a kv head (512-2048 at the main path's chunks): the
+// per-row body would stream each page once per chunk row. The chunk body
+// (split_chunk.cuh) gives one CTA a row tile of 128 of those rows and
+// streams the pages once per tile, from its first row's first page to its
+// last row's last, with mma.sync scores and P.V in 8 warps of 16 rows each
+// (grid row tile, kv head, split; the split count from the tiles' shapes).
+// The ragged wrapper launches it for the rows from chunk_start on and the
+// per-row body for the decode rows before them, each with its own split
+// count (ops/paged_attention.ragged_attend_paged).
 // Still missing: wgmma and TMA (a decode row's G heads are too few for a
-// tensor-core tile, and the kernel is bound by bytes), and tiling of the
-// ragged entry's chunk rows (each chunk row re-reads its slot's pages).
+// tensor-core tile, and the decode is bound by bytes; the chunk body's 128
+// rows a tile would fill a warpgroup's 64-row wgmma twice).
 
+#include "split_chunk.cuh"
 #include "split_decode.cuh"
 #include "split_merge.cuh"
 #include "split_verify.cuh"
@@ -391,4 +406,39 @@ extern "C" int paged_attention_verify(
                                ws_l, splits,
                                (long long)n_slots * r_rows * hkv * groups, d,
                                dtype, s);
+}
+
+// The ragged entry's chunk rows (split_chunk.cuh): q [C, Hq, D] bf16 (the
+// chunk's rows of the packed batch), out the same; lim0 the chunk's first
+// limit (int32 on the device; row r has lim0 + r); table_row the slot's
+// table row [max_pages] int32, shared by every chunk row. pool_dtype: 1 =
+// bfloat16, 2 = int8 with the float32 scale pools pool_ks / pool_vs.
+// window as for paged_attention. splits >= 1 CTAs per (row tile of 128
+// query rows, kv head); with splits > 1, ws_acc [splits, C, Hq, D], ws_m
+// and ws_l [splits, C, Hq] float32 receive each split's triples and the
+// combine, queued next on the same stream, writes out; else they are null.
+// Returns cudaGetLastError() after the launches (0 = launched). groups <=
+// 8, D % 16 == 0 and D <= 128 (the wrapper checks).
+extern "C" int paged_attention_chunk(
+    void* out, void* ws_acc, void* ws_m, void* ws_l, const void* q,
+    const void* pool_k, const void* pool_v, const void* pool_ks,
+    const void* pool_vs, const void* lim0, const void* table_row,
+    int n_rows, int hkv, int groups, int d, int num_pages, int ps,
+    int max_pages, int layer, int window, float scale, int pool_dtype,
+    int splits, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (groups < 1 || groups > kMaxGroups || d < 16 || d > split_chunk::kD ||
+      d % 16 || window < 0 || splits < 1 ||
+      (splits > 1) != (ws_acc != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const split_chunk::Args a{
+      (const __nv_bfloat16*)q, (__nv_bfloat16*)out, (float*)ws_acc,
+      (float*)ws_m, (float*)ws_l, pool_k, pool_v, (const float*)pool_ks,
+      (const float*)pool_vs, (const int32_t*)lim0,
+      (const int32_t*)table_row, n_rows, groups, hkv * groups, d, ps,
+      num_pages, hkv, max_pages, window, layer, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pool_dtype == 1) return split_chunk::launch<__nv_bfloat16>(a, splits, s);
+  if (pool_dtype == 2) return split_chunk::launch<int8_t>(a, splits, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,7 @@ and to ``causal_attend``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -157,19 +157,24 @@ def make_spec_attend_carry_paged(lengths: torch.Tensor,
 
 def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
                                   row_limits: torch.Tensor,
-                                  row_tables: torch.Tensor, window: int = 0):
+                                  row_tables: torch.Tensor, window: int = 0,
+                                  chunk_start: Optional[int] = None):
     """Ragged mixed batch over the paged pool: the packed sequence [1, N]
     holds B decode rows then C prefill-chunk rows. Per packed row i:
     ``write_rows[i]`` is where its K/V lands (-1 drops),
     ``row_limits[i]`` how many columns it attends, ``row_tables[i]`` its
-    slot's page run (all int32)."""
+    slot's page run (all int32). ``chunk_start`` (B): the chunk's rows
+    share row B's table row and their limits rise by one from row B's
+    (``ragged_attend_paged``'s layout, which lets them share page loads on
+    a card)."""
 
     def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
         scales = _write_rows(pool, k[0].contiguous(), v[0].contiguous(),
                              write_rows, layer, row_tables)
         ctx = ragged_attend_paged(q[0], pool["k"], pool["v"], row_limits,
-                                  layer, row_tables, **scales, window=window)
+                                  layer, row_tables, **scales, window=window,
+                                  chunk_start=chunk_start)
         return ctx[None], (pool, layer)
 
     return attend

@@ -46,6 +46,7 @@ the kernels are held to and are what the kernels are compared with.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
@@ -64,6 +65,8 @@ _MAX_QUANT_D = 256
 _MAX_GROUPS = 8
 # the split kernels' P.V gives each thread two output columns: D / 2 <= 128
 _MAX_D = 256
+# the chunk body's accumulators hold D <= 128 output columns a row
+_MAX_CHUNK_D = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -212,12 +215,27 @@ def _pool_args(q, pool_k, pool_v, scales) -> tuple:
             code, _INT8_POOL if scales else code)
 
 
+def _chunk_lib():
+    lib = cuda_build.load("paged_attention")
+    fn = lib.paged_attention_chunk
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                       _P]
+        fn.restype = _I
+    return fn
+
+
 def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
-                      limits, table, layer: int, window: int
-                      ) -> torch.Tensor:
+                      limits, table, layer: int, window: int,
+                      chunk_start: Optional[int] = None) -> tuple:
     """Check the operands of the attention kernel and launch it (bf16/f32
     pool when ``pool_ks`` is None, else int8 with scale pools; the window
-    instance when ``window`` > 0)."""
+    instance when ``window`` > 0). With ``chunk_start``, rows from there on
+    are one prefill chunk (:func:`ragged_attend_paged`): the rows before it
+    launch the per-row body with their own split count, the chunk's rows
+    the chunk body where it takes them. Returns (out, whether the chunk
+    body launched)."""
     Hkv, G, D, P, ps, scales = _check_operands(
         what, q, pool_k, pool_v, pool_ks, pool_vs, window, layer)
     N, Hq = q.shape[:2]
@@ -226,25 +244,55 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
             or table.dim() != 2 or table.shape[0] != N or table.shape[1] < 1:
         raise ValueError(f"{what}: limits [N] and table [N, pages] must be "
                          f"int32")
+    if chunk_start is not None and not 0 <= chunk_start <= N:
+        raise ValueError(f"{what}: chunk_start {chunk_start} outside "
+                         f"[0, {N}]")
     _check_cuda(what, (q, pool_k, pool_v, limits, table) + scales,
                 (pool_k, pool_v))
     out = torch.empty_like(q)
     if N == 0:
-        return out
-    fn = _attention_lib()
+        return out, False
     pools, code, pool_code = _pool_args(q, pool_k, pool_v, scales)
+    max_pages = table.shape[1]
+    b = N if chunk_start is None else chunk_start
+    # the chunk body's tensor-core products take bf16 q and D a multiple of
+    # 16 up to 128; float32 q (the tests' type) keeps the per-row body
+    chunked = b < N and q.dtype == torch.bfloat16 and D % 16 == 0 \
+        and D <= _MAX_CHUNK_D
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        splits, ws = split_kv.launch_plan(N, Hkv, table.shape[1], Hq, D,
-                                          q.device, stream)
-        rc = fn(out.data_ptr(), *ws, q.data_ptr(), *pools, limits.data_ptr(),
-                table.data_ptr(), N, Hkv, G, D, P, ps, table.shape[1], layer,
-                window, 1.0 / math.sqrt(D), code, pool_code, splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-    if splits > 1:
-        split_kv.split_merge.launches += 1
-    return out
+
+        def per_row(lo: int, hi: int) -> tuple:
+            splits, ws = split_kv.launch_plan(hi - lo, Hkv, max_pages, Hq, D,
+                                              q.device, stream)
+            return _attention_lib()(
+                out[lo:].data_ptr(), *ws, q[lo:].data_ptr(), *pools,
+                limits[lo:].data_ptr(), table[lo:].data_ptr(), hi - lo, Hkv,
+                G, D, P, ps, max_pages, layer, window, 1.0 / math.sqrt(D),
+                code, pool_code, splits, stream), splits
+
+        def chunk() -> tuple:
+            C = N - b
+            splits, ws = split_kv.launch_plan(
+                C, Hkv, max_pages, Hq, D, q.device, stream,
+                splits=split_kv.chunk_splits(C, G, Hkv, max_pages,
+                                             split_kv.sm_count(q.device)))
+            return _chunk_lib()(
+                out[b:].data_ptr(), *ws, q[b:].data_ptr(), *pools,
+                limits[b:].data_ptr(), table[b].data_ptr(), C, Hkv, G, D, P,
+                ps, max_pages, layer, window, 1.0 / math.sqrt(D), pool_code,
+                splits, stream), splits
+
+        results = [per_row(0, b)] if b else []
+        if b < N:
+            results.append(chunk() if chunked else per_row(b, N))
+    for rc, splits in results:
+        if rc != 0:
+            raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                               f"{rc}")
+        if splits > 1:
+            split_kv.split_merge.launches += 1
+    return out, chunked
 
 
 def _verify_lib():
@@ -294,37 +342,45 @@ def _launch_verify(what: str, q, pool_k, pool_v, pool_ks, pool_vs, lengths,
     return out
 
 
-def _count(fn, window: int) -> None:
+def _count(fn, window: int, chunked: bool = False) -> None:
     """One launch of ``fn``'s kernel; ``window_launches`` counts those of
-    the window instance."""
+    the window instance, ``form_launches["chunk"]`` (and ``["chunk
+    window"]``) the calls whose chunk rows took the chunk body."""
     fn.launches += 1
     fn.window_launches += window > 0
+    if chunked:
+        fn.form_launches["chunk"] += 1
+        fn.form_launches["chunk window"] += window > 0
 
 
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, limits: torch.Tensor, layer: int,
-                    table: torch.Tensor, window: int = 0) -> torch.Tensor:
+                    table: torch.Tensor, window: int = 0,
+                    chunk_start: Optional[int] = None) -> torch.Tensor:
     """Paged flash attention, one (table row, limit) per query row.
 
     q: [N, Hq, D] bf16 or f32; pools [L, P, Hkv, page, D] of q's type;
     limits [N] int32; layer: int; table [N, max_pages] int32; ``window`` >
-    0: sliding window of that many columns. Returns [N, Hq, D]. CPU tensors
-    take :func:`paged_attention_plain`; CUDA tensors launch the kernel.
+    0: sliding window of that many columns; ``chunk_start``: the rows from
+    there on are one prefill chunk (:func:`ragged_attend_paged`). Returns
+    [N, Hq, D]. CPU tensors take :func:`paged_attention_plain` (which needs
+    no layout); CUDA tensors launch the kernel.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
                                      window=window)
-    out = _launch_attention("paged_attention", q, pool_k, pool_v, None, None,
-                            limits, table, layer, window)
-    _count(paged_attention, window)
+    out, chunked = _launch_attention("paged_attention", q, pool_k, pool_v,
+                                     None, None, limits, table, layer,
+                                     window, chunk_start)
+    _count(paged_attention, window, chunked)
     return out
 
 
 def paged_attention_quant(q: torch.Tensor, pool_k: torch.Tensor,
                           pool_v: torch.Tensor, pool_ks: torch.Tensor,
                           pool_vs: torch.Tensor, limits: torch.Tensor,
-                          layer: int, table: torch.Tensor,
-                          window: int = 0) -> torch.Tensor:
+                          layer: int, table: torch.Tensor, window: int = 0,
+                          chunk_start: Optional[int] = None) -> torch.Tensor:
     """:func:`paged_attention` over an int8 pool: pools [L, P, Hkv, page, D]
     int8, scale pools [L, P, Hkv, page] float32, q bf16 or f32 (D a
     multiple of 16). CPU tensors take :func:`paged_attention_plain`; CUDA
@@ -332,19 +388,20 @@ def paged_attention_quant(q: torch.Tensor, pool_k: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
                                      pool_ks, pool_vs, window)
-    out = _launch_attention("paged_attention_quant", q, pool_k, pool_v,
-                            pool_ks, pool_vs, limits, table, layer, window)
-    _count(paged_attention_quant, window)
+    out, chunked = _launch_attention("paged_attention_quant", q, pool_k,
+                                     pool_v, pool_ks, pool_vs, limits, table,
+                                     layer, window, chunk_start)
+    _count(paged_attention_quant, window, chunked)
     return out
 
 
 def _attend(q, pool_k, pool_v, limits, layer, table, pool_ks, pool_vs,
-            window):
+            window, chunk_start=None):
     if pool_ks is None:
         return paged_attention(q, pool_k, pool_v, limits, layer, table,
-                               window)
+                               window, chunk_start)
     return paged_attention_quant(q, pool_k, pool_v, pool_ks, pool_vs, limits,
-                                 layer, table, window)
+                                 layer, table, window, chunk_start)
 
 
 def decode_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
@@ -367,14 +424,26 @@ def ragged_attend_paged(q: torch.Tensor, pool_k: torch.Tensor,
                         layer: int, row_tables: torch.Tensor,
                         pool_ks: Optional[torch.Tensor] = None,
                         pool_vs: Optional[torch.Tensor] = None,
-                        window: int = 0) -> torch.Tensor:
+                        window: int = 0,
+                        chunk_start: Optional[int] = None) -> torch.Tensor:
     """Ragged entry: N packed rows [N, Hq, D], each with its own table row
     and live-column limit (decode rows and prefill-chunk rows in one
     call), the window off each row's own limit. Scale pools select the int8
-    form. Returns [N, Hq, D]."""
+    form. Returns [N, Hq, D].
+
+    ``chunk_start`` (``mixed_step``'s layout): the rows from there on are
+    one prefill chunk, every one with row ``chunk_start``'s table row and
+    the limit ``row_limits[chunk_start]`` plus its offset from it. On a
+    card those rows then take the chunk body (``csrc/split_chunk.cuh``),
+    which streams the slot's pages once per row tile, and the rows before
+    it the per-row body at their own split count; each row's result is its
+    own (table row, limit) walk either way. Without it every row takes the
+    per-row body. The plain version needs no layout and ignores it.
+    """
     return _attend(q.contiguous(), pool_k, pool_v,
                    row_limits.to(torch.int32), layer,
-                   row_tables.to(torch.int32), pool_ks, pool_vs, window)
+                   row_tables.to(torch.int32).contiguous(), pool_ks, pool_vs,
+                   window, chunk_start)
 
 
 def _spec_rows(q: torch.Tensor, lengths: torch.Tensor, table: torch.Tensor):
@@ -647,6 +716,8 @@ def cache_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
 _WINDOWED = (paged_attention, paged_attention_quant, paged_attention_spec,
              paged_attention_spec_quant)
 _COUNTED = _WINDOWED + (cache_write_rows_paged, cache_write_rows_quant_paged)
+# the ragged entry's wrappers also count their chunk body's launches
+_CHUNKED = (paged_attention, paged_attention_quant)
 
 
 def reset_launch_counts() -> None:
@@ -654,6 +725,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in _WINDOWED:
         fn.window_launches = 0
+    for fn in _CHUNKED:
+        fn.form_launches = collections.Counter()
 
 
 reset_launch_counts()
@@ -667,8 +740,13 @@ def counted_wrappers() -> tuple:
 
 def launch_counts() -> dict:
     """{wrapper name: launches} and, for the attention wrappers,
-    {name + " window": launches of the window instance}."""
+    {name + " window": launches of the window instance}; for
+    :func:`paged_attention` and :func:`paged_attention_quant` also
+    {name + " chunk": calls whose chunk rows took the chunk body} and
+    {name + " chunk window": those of its window instance}."""
     out = {fn.__name__: fn.launches for fn in _COUNTED}
     out.update({f"{fn.__name__} window": fn.window_launches
                 for fn in _WINDOWED})
+    out.update({f"{fn.__name__} {form}": fn.form_launches[form]
+                for fn in _CHUNKED for form in ("chunk", "chunk window")})
     return out

@@ -8,14 +8,16 @@ row's first tile (:func:`split_bounds`); a run past the row's last tile is
 empty. The speculative verifies (K1's verify entry, K7) give the
 ``splits`` CTAs to each (slot, row group, kv head) instead: one CTA takes
 up to MAX_VERIFY_ROWS of a slot's R x G query rows over a run of the
-slot's tiles (:func:`verify_groups`). With one split the CTA writes the
-output itself. With more, each CTA leaves its float32 flash triples in a
-workspace (``acc`` [splits, rows, Hq, D], ``m`` and ``l`` [splits, rows,
-Hq]; one ``torch.empty`` per device, stream and host thread, kept and
-grown by :func:`launch_plan`) and the combine (``csrc/split_merge.cuh``)
-merges a row's triples in split order. The attention kernels' C entries
-queue the combine themselves, right after the kernel; their wrappers count
-it in ``split_merge.launches``.
+slot's tiles (:func:`verify_groups`); the chunk rows of K1's ragged
+entry give them to each (row tile of CHUNK_ROWS query rows, kv head)
+(:func:`chunk_tiles`, ``csrc/split_chunk.cuh``). With one split the CTA
+writes the output itself. With more, each CTA leaves its float32 flash
+triples in a workspace (``acc`` [splits, rows, Hq, D], ``m`` and ``l``
+[splits, rows, Hq]; one ``torch.empty`` per device, stream and host
+thread, kept and grown by :func:`launch_plan`) and the combine
+(``csrc/split_merge.cuh``) merges a row's triples in split order. The
+attention kernels' C entries queue the combine themselves, right after the
+kernel; their wrappers count it in ``split_merge.launches``.
 
 - :func:`split_count` picks ``splits`` from shapes only (rows, Hkv, the
   tiles a row may have, and the card's SM count), never from lengths: the
@@ -55,6 +57,12 @@ MAX_SPLITS = 32
 # query rows (R x G of one kv head) that one verify CTA takes; a slot with
 # more takes several row groups (csrc/split_verify.cuh kMaxRows)
 MAX_VERIFY_ROWS = 64
+# query rows (C x G of one kv head) of a ragged chunk's row tile
+# (csrc/split_chunk.cuh kRows), and the CTAs per SM its grid should offer:
+# a bf16 row tile's CTA (8 warps, ~102 KB of shared memory) fits twice on
+# an SM
+CHUNK_ROWS = 128
+CHUNK_CTAS_PER_SM = 2
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _RAW = -1
@@ -78,6 +86,25 @@ def verify_groups(r_rows: int, groups: int) -> int:
     """Row groups of one (slot, kv head) of a verify: its R x G query rows
     in CTAs of up to MAX_VERIFY_ROWS."""
     return max(1, -(-r_rows * groups // MAX_VERIFY_ROWS))
+
+
+def chunk_tiles(c_rows: int, groups: int) -> int:
+    """Row tiles of one kv head of a ragged chunk: its C x G query rows in
+    CTAs of CHUNK_ROWS."""
+    return max(1, -(-c_rows * groups // CHUNK_ROWS))
+
+
+def chunk_splits(c_rows: int, groups: int, hkv: int, tiles: int,
+                 sms: int) -> int:
+    """CTAs per (row tile, kv head) of a ragged chunk of ``c_rows`` rows:
+    as many as one wave of CHUNK_CTAS_PER_SM CTAs on each of ``sms`` SMs
+    holds (rounded down: a chunk CTA streams many pages, and a partial
+    second wave would leave most SMs idle behind it), at most ``tiles``
+    (``max_pages``) and MAX_SPLITS, at least 1. Depends on shapes only."""
+    pairs = chunk_tiles(c_rows, groups) * hkv
+    if tiles <= 1:
+        return 1
+    return max(1, min(CHUNK_CTAS_PER_SM * sms // pairs, tiles, MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,7 +185,8 @@ _workspaces: dict = {}
 
 def launch_plan(rows: int, hkv: int, tiles: int, hq: int, d: int,
                 device: torch.device, stream: int,
-                cta_rows: Optional[int] = None) -> tuple:
+                cta_rows: Optional[int] = None,
+                splits: Optional[int] = None) -> tuple:
     """(splits, the workspace's pointers) of one attention launch queued
     on ``stream`` (a ``cudaStream_t`` of ``device``) over ``rows`` query rows
     whose rows may visit up to ``tiles`` tiles: with one split three nulls,
@@ -166,9 +194,12 @@ def launch_plan(rows: int, hkv: int, tiles: int, hq: int, d: int,
     rows, hq] in this stream's workspace (uninitialized: the attention
     kernel writes every entry that the combine reads). ``cta_rows``: the
     row sets that take ``splits`` CTAs each where one CTA serves several
-    query rows (a verify: slots x :func:`verify_groups`); default ``rows``."""
-    splits = split_count(rows if cta_rows is None else cta_rows, hkv, tiles,
-                         sm_count(device))
+    query rows (a verify: slots x :func:`verify_groups`), default
+    ``rows``; ``splits``, where given, instead of :func:`split_count`'s (a
+    ragged chunk's, :func:`chunk_splits`)."""
+    if splits is None:
+        splits = split_count(rows if cta_rows is None else cta_rows, hkv,
+                             tiles, sm_count(device))
     if splits == 1:
         return 1, (None, None, None)
     n = splits * rows * hq

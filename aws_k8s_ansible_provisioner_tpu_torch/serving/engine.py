@@ -346,6 +346,9 @@ class Engine:
         # the dense chunk walk alternates a chunk with a horizon-1 decode
         # dispatch of the running slots: True when the decode is due
         self._chunk_yield = False
+        # consecutive batch-prefill dispatches since the last decode
+        # dispatch (the fairness floor, ServingConfig.prefill_fairness)
+        self._prefill_streak = 0
         # seeds of requests without one; a pinned derived_seed makes two
         # engines (this one and the JAX one too) draw the same sequence
         self._py_rng = random.Random(
@@ -550,9 +553,10 @@ class Engine:
     def step(self) -> bool:
         """One scheduling step: advance a chunked prefill (paged: one mixed
         dispatch; dense: a chunk, or the horizon-1 decode dispatch that
-        alternates with the chunks while slots run), else admit waiting
-        prompts, else decode; with nothing to do, settle a dispatch still in
-        flight. Returns whether any work was done."""
+        alternates with the chunks while slots run), else the fairness
+        floor's decode dispatch when it is due, else admit waiting prompts,
+        else decode; with nothing to do, settle a dispatch still in flight.
+        Returns whether any work was done."""
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.cancelled:
                 r.finish_reason = "cancelled"
@@ -568,6 +572,15 @@ class Engine:
             self._advance_chunk()
             self._chunk_yield = not self.paged
             return True
+        # the fairness floor: after prefill_fairness batch prefills in a row
+        # while slots decode and prompts wait, one decode dispatch at the
+        # full horizon before the next admission
+        fair = max(0, self.serving.prefill_fairness)
+        if fair and self._prefill_streak >= fair and self._active_slots() \
+                and self.pending:
+            self._prefill_streak = 0
+            self._decode(fair_horizon=True)
+            return True
         if self._inflight is not None and self.pending \
                 and not self._ragged_on():
             # settle the dispatch in flight before admission can reuse a
@@ -576,6 +589,7 @@ class Engine:
             self._drain_decode_pipeline("prefill")
         batch, chunk_next = self._admit()
         if batch:
+            self._prefill_streak += 1
             self._prefill_batch(batch)
         if chunk_next is not None:
             self._start_chunk(*chunk_next)
@@ -1111,11 +1125,15 @@ class Engine:
             self._upload(d.tokens, self.last_token)
             self._upload(d.lengths, self.lengths)
 
-    def _decode(self, max_horizon: Optional[int] = None):
+    def _decode(self, max_horizon: Optional[int] = None,
+                fair_horizon: bool = False):
         """One decode dispatch of every slot (``max_horizon`` caps its
-        horizon: 1 between the dense walk's chunks), or a verify dispatch
-        when speculation proposes drafts; with the pipeline on, the new
-        dispatch is left in flight and its predecessor fetched."""
+        horizon: 1 between the dense walk's chunks; ``fair_horizon``, the
+        fairness floor's dispatch, takes the full horizon although a prompt
+        could prefill next), or a verify dispatch when speculation proposes
+        drafts; with the pipeline on, the new dispatch is left in flight and
+        its predecessor fetched. Ends the prefill streak."""
+        self._prefill_streak = 0
         prev = self._inflight
         if prev is not None and not self._carry_valid():
             # a slot changed under the dispatch in flight: fetch it first,
@@ -1124,7 +1142,7 @@ class Engine:
             prev = None
         with self._lock:
             waiting = bool(self._queue)
-        horizon = 1 if (waiting and self._free) \
+        horizon = 1 if (waiting and self._free and not fair_horizon) \
             else max(1, self.serving.decode_horizon)
         if max_horizon is not None:
             horizon = min(horizon, max_horizon)

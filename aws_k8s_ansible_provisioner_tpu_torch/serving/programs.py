@@ -16,7 +16,10 @@ cache (updated in place) and device tensors, with the JAX package's
 - :func:`mixed_step`: B decode rows and one C-row prefill chunk of slot
   ``pslot`` packed into one ``[1, B + C]`` sequence and served by one
   forward pass through the ragged kernel. ``pslot``'s own decode row is a
-  dead passenger: write row -1 (dropped), limit 0;
+  dead passenger: write row -1 (dropped), limit 0. The chunk's rows (from
+  row B on) share ``pslot``'s table row with limits ``pstart + 1 ..
+  pstart + C``, the layout that the ragged entry takes as ``chunk_start``
+  to stream the slot's pages once per row tile;
 - :func:`spec_decode_step`: R tokens per slot (the last emitted token and
   R - 1 drafts) in one forward pass, greedy acceptance of the longest
   matching draft prefix.
@@ -189,7 +192,8 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                                        lengths)[None], crows[None]], dim=1)
     attend = make_mixed_attend_carry_paged(write_rows.to(i32),
                                            row_limits.to(i32), row_tables,
-                                           model.cfg.sliding_window)
+                                           model.cfg.sliding_window,
+                                           chunk_start=B)
     logits, pool = model.forward_carry(packed, positions, pool, attend)
     nxt = sample(logits[0, :B], temperature, top_k, top_p, seeds, lengths + 1,
                  any_sampled)

@@ -5,11 +5,17 @@ of the JAX server's completions response; the OpenAI ``seed`` makes a
 sampled completion repeatable) and ``GET /health``, over a
 ``ThreadingHTTPServer`` with the engine stepping on its own thread.
 
-A completions request reads ``prompt``, ``max_tokens``, ``temperature``,
-``top_k``, ``top_p``, ``ignore_eos`` and ``seed``. Every other request
-field that the JAX server honours is refused with 400, naming the field,
-unless it holds its neutral value (:data:`UNSERVED_FIELDS`): a completion
-that silently ignored it would be a wrong answer.
+A completions request reads ``model``, ``prompt``, ``max_tokens``,
+``temperature``, ``top_k``, ``top_p``, ``ignore_eos`` and ``seed``, and
+answers as the JAX server does: another model than the served one gets 404
+``model_not_found``; a prompt is a string, a list of strings (the first is
+served; an empty list is the empty string) or, beyond the JAX server, a
+list of token ids; an empty prompt is served as the EOS token;
+``max_tokens`` must lie in [1, the engine's ``max_len``] (the engine then
+clamps it to the room the prompt leaves). Every other request field that
+the JAX server honours is refused with 400, naming the field, unless it
+holds its neutral value (:data:`UNSERVED_FIELDS`): a completion that
+silently ignored it would be a wrong answer.
 
 Without a checkpoint the server runs seeded random weights and the byte
 tokenizer, as the JAX server does without ``--checkpoint-dir``::
@@ -214,6 +220,10 @@ class Handler(BaseHTTPRequestHandler):
             ContextLengthExceeded, EngineOverloaded, Request)
 
         st = self.state
+        model = body.get("model") or st.model_name
+        if model != st.model_name:
+            return self._error(404, f"model {model!r} not found; serving "
+                                    f"{st.model_name!r}", "model_not_found")
         if body.get("stream"):
             return self._error(400, "streaming is not supported yet")
         field = unserved_field(body)
@@ -221,14 +231,19 @@ class Handler(BaseHTTPRequestHandler):
             return self._error(400, f"'{field}' is not supported yet (only "
                                     f"its neutral value is accepted)")
         prompt = body.get("prompt", "")
-        if isinstance(prompt, list) and all(isinstance(t, int)
-                                            for t in prompt):
+        if isinstance(prompt, list) and prompt and all(
+                isinstance(t, int) and not isinstance(t, bool)
+                for t in prompt):
             ids = list(prompt)
-        elif isinstance(prompt, str):
-            ids = st.tokenizer.encode(prompt)
         else:
-            return self._error(400, "prompt must be a string or a list of "
-                                    "token ids")
+            if isinstance(prompt, list):
+                # a list of strings: its first, as the JAX server serves it
+                prompt = prompt[0] if prompt else ""
+            if not isinstance(prompt, str):
+                return self._error(400, "prompt must be a string, a list of "
+                                        "strings or a list of token ids")
+            # an empty prompt is served as the EOS token alone
+            ids = st.tokenizer.encode(prompt) or [st.engine.eos_token_id]
         seed = body.get("seed")
         if seed is not None:
             try:
@@ -245,8 +260,9 @@ class Handler(BaseHTTPRequestHandler):
                 top_p=float(body.get("top_p", 1.0)),
                 ignore_eos=bool(body.get("ignore_eos", False)),
                 seed=seed)
-            if req.max_tokens < 1:
-                raise ValueError("max_tokens must be >= 1")
+            if not 1 <= req.max_tokens <= st.engine.max_len:
+                raise ValueError(f"max_tokens must be in [1, "
+                                 f"{st.engine.max_len}]")
             st.engine.submit(req)
         except ContextLengthExceeded as e:
             return self._error(400, str(e))
@@ -263,7 +279,7 @@ class Handler(BaseHTTPRequestHandler):
         self._json(200, {
             "id": f"cmpl-{uuid.uuid4().hex}", "object": "text_completion",
             "created": int(time.time()),
-            "model": body.get("model") or st.model_name,
+            "model": st.model_name,
             "choices": [{"index": 0,
                          "text": st.tokenizer.decode(req.generated),
                          "logprobs": None,

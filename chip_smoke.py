@@ -14,8 +14,10 @@ result when either is missing. Phases, in order (any failure raises):
    version on the same inputs on the card, and timed beside its plain
    version, a PyTorch library call of the same function and its bound: the
    attention and the row write over a bf16 pool, and their int8 forms (the
-   scale-folding attention, the quantizing row write) over an int8 pool;
-   the speculative verify's attention (5 rows per slot) over both pools;
+   scale-folding attention, the quantizing row write) over an int8 pool
+   (the ragged call with its chunk layout, its 256 chunk rows through the
+   chunk body, within one bf16 ulp a row); the speculative verify's
+   attention (5 rows per slot) over both pools;
    and over the dense cache ([28, 32, 8, 2048, 128], bf16, then int8 with
    its scales) the decode attention (K4; K5 at 4 and 8 slots per CTA), the
    verify attention (K7) and the row write (K8; int8: K9, bit-exact);
@@ -27,11 +29,12 @@ result when either is missing. Phases, in order (any failure raises):
    decode horizon replayed as CUDA graphs captured when the engine is
    built: every decode dispatch must be one replay. The kernels' launch
    counts (a replay adds what its graph captured) are zeroed just before
-   each run and read just after; each kernel of that pool must be > 0 and
-   the other pool's kernels 0. The int8 run adds seeded sampled requests:
-   one submitted alone and again beside other running requests must give
-   the same stream. Then one decode dispatch of 8 slots is timed and
-   profiled (device time by kernel, the row write's time a launch), and
+   each run and read just after; each kernel of that pool must be > 0 (the
+   chunk body's launches included) and the other pool's kernels 0. The
+   int8 run adds seeded sampled requests: one submitted alone and again
+   beside other running requests must give the same stream. Then one
+   decode dispatch of 8 slots is timed and profiled (device time by
+   kernel, the row write's time a launch), and
    one decode step's logits through the kernels are held against the same
    step through the plain versions. After the int8 run, the pipeline
    phase: the graphs' capture time and device memory, one replay against
@@ -51,8 +54,10 @@ result when either is missing. Phases, in order (any failure raises):
    and restored streams equal the cold one, the restored pages equal a
    snapshot of A's pages bit for bit, the 8 hits' first-token logits are
    held against a ``prefix_cache=False`` engine, the counts follow the
-   schedule, one replay per decode dispatch, K1's ragged entry held
-   against its plain version over tables whose leading pages are shared;
+   schedule, one replay per decode dispatch, every ragged launch's chunk
+   rows through the chunk body, K1's ragged entry (8 decode rows and a
+   64-row chunk) held against its plain version within one bf16 ulp a row
+   over tables whose leading pages are shared;
    time to first token of A cold, resident and restored, and the
    restore's bytes and device time. The phases that run one prompt twice
    on an engine and compare the runs (the seeded check of 3, the pipeline
@@ -74,13 +79,15 @@ result when either is missing. Phases, in order (any failure raises):
 8. the window instances (after the kernels phase): K1 (decode, ragged,
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
-   each held against its plain version and timed, the dense ones also
-   with NaN rows (int8: scales) below their first tile, which must change
-   nothing; and K1 at window 0 against window 4096 on rows of ~8000
-   columns;
+   each held against its plain version and timed (the ragged call's 512
+   chunk rows through the chunk body, within one bf16 ulp a row), the
+   ragged call and the dense ones also with NaN pages or rows (int8:
+   scales) outside their rows' ranges, which must change nothing; and K1
+   at window 0 against window 4096 on rows of ~8000 columns;
 9. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
    slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
-   with launch counts (window instances only), one decode step's logits
+   with launch counts (window instances only, the chunk body's among
+   them), one decode step's logits
    at lengths past the window held against the plain versions and against
    window 0, one decode dispatch profiled, the server; then prompt lookup
    (the verify's window instance) and a self-draft (K4 and K7's);
@@ -139,6 +146,7 @@ ATTN_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/paged_attention.cu"
 WRITE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/cache_write.cu"
 DENSE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/dense_attention.cu"
 MERGE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/split_merge.cu"
+CHUNK_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/split_chunk.cuh"
 TPU_KERNELS = "aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py"
 # bf16 kernel vs plain, per query row (its Hq x D outputs): both compute in
 # float32 and round once to bf16, so an element differs by at most one ulp
@@ -147,6 +155,10 @@ TPU_KERNELS = "aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py"
 # ATTN_MEAN_ULPS * u. A row that loses or gains one live column moves its
 # mean by about |v| / limit, tens of ulps for the rows of these cases.
 ATTN_MAX_ULPS, ATTN_MEAN_ULPS = 4.0, 0.5
+# the ragged entry's calls with the chunk layout: every row (the decode
+# rows through the per-row body, the chunk's through the chunk body, whose
+# P.V keeps 16 bits of p) within one bf16 ulp of plain, mean 0.5
+CHUNK_MAX_ULPS = 1.0
 # one decode step of the 28-layer bf16 model, kernels vs plain versions:
 # the attention outputs differ by one bf16 rounding, which the residual
 # stream carries through 28 layers into logits of magnitude ~3 (max abs
@@ -293,11 +305,14 @@ def _live_cols(np, limits, window):
 
 
 def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
-                    hq=16, window=0):
+                    hq=16, window=0, chunk_start=None):
     """Hold the attention kernel against its plain version; time both, an
     SDPA over the gathered K/V, and the bound. ``pools`` holds bf16 "k"/"v",
     or int8 "k"/"v" with float32 scales "ks"/"vs" (the int8 instance);
-    ``window`` > 0 takes the window instance. Returns a result dict."""
+    ``window`` > 0 takes the window instance; ``chunk_start`` (the ragged
+    entry's chunk layout: the rows from there on are one chunk of one slot)
+    sends those rows through the chunk body, held to CHUNK_MAX_ULPS, and the
+    rows before it through the per-row body. Returns a result dict."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
@@ -318,17 +333,25 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
     def kernel():
         if quant:
             return pa.paged_attention_quant(q, pool_k, pool_v, *scales,
-                                            limits, layer, table, window)
+                                            limits, layer, table, window,
+                                            chunk_start)
         return pa.paged_attention(q, pool_k, pool_v, limits, layer, table,
-                                  window)
+                                  window, chunk_start)
 
+    fn = pa.paged_attention_quant if quant else pa.paged_attention
+    chunks0 = fn.form_launches["chunk"]
     out = kernel()
+    if chunk_start is not None and fn.form_launches["chunk"] != chunks0 + 1:
+        raise AssertionError(f"{name} {label}: the chunk body did not launch")
     ref = pa.paged_attention_plain(q, pool_k, pool_v, limits, layer, table,
                                    *scales, window=window)
     torch.cuda.synchronize()
-    what = f"{name} {label}"
+    what = f"{name} {label}" + ("" if chunk_start is None else
+                                f", chunk body from row {chunk_start}")
     check = _ulp_rows(torch, what, out, ref, N,
-                      lambda bad: f"limits {limits_np[bad].tolist()}")
+                      lambda bad: f"limits {limits_np[bad].tolist()}",
+                      ATTN_MAX_ULPS if chunk_start is None
+                      else CHUNK_MAX_ULPS)
     ms = timed_ms(torch, kernel)
     dev_ms = device_ms(torch, kernel)
     plain_ms = timed_ms(torch, lambda: pa.paged_attention_plain(
@@ -350,15 +373,31 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
     nbytes = (2 * len(tiles) * tile + 2 * N * hq * D * 2
               + N * 4 + int((hi - lo + 1).sum()) * 4)
     ops = 4 * hq * D * int(_live_cols(np, limits_np, window).sum())
-    splits = split_kv.split_count(N, Hkv, table_np.shape[1],
-                                  split_kv.sm_count(dev))
-    return _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
-                   ops, N, splits)
+    sms = split_kv.sm_count(dev)
+    if chunk_start is None:
+        splits, extra = split_kv.split_count(N, Hkv, table_np.shape[1],
+                                             sms), ""
+    else:
+        # the decode rows' split count, and the chunk body's per row tile
+        C = N - chunk_start
+        splits = split_kv.split_count(chunk_start, Hkv, table_np.shape[1],
+                                      sms)
+        chunk_splits = split_kv.chunk_splits(C, hq // Hkv, Hkv,
+                                             table_np.shape[1], sms)
+        extra = (f"; chunk body: {C} rows in "
+                 f"{split_kv.chunk_tiles(C, hq // Hkv)} row tiles x {Hkv} kv "
+                 f"heads, {chunk_splits} splits")
+    res = _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes,
+                  ops, N, splits, extra)
+    if chunk_start is not None:
+        res["chunk_splits"] = chunk_splits
+    return res
 
 
-def _ulp_rows(torch, what, out, ref, n_rows, describe):
+def _ulp_rows(torch, what, out, ref, n_rows, describe,
+              max_ulps=ATTN_MAX_ULPS):
     """The attention kernels' tolerance, query row by query row (each row's
-    Hq x D outputs): max |diff| <= ATTN_MAX_ULPS and mean |diff| <=
+    Hq x D outputs): max |diff| <= ``max_ulps`` and mean |diff| <=
     ATTN_MEAN_ULPS bf16 ulps of the row's largest |plain output|.
     ``describe(bad row indices)`` names the failing rows' inputs."""
     diff = (out.float() - ref.float()).abs().reshape(n_rows, -1)
@@ -367,17 +406,18 @@ def _ulp_rows(torch, what, out, ref, n_rows, describe):
     row_max = diff.amax(1) / ulp
     row_mean = diff.mean(1) / ulp
     worst_max, worst_mean = float(row_max.max()), float(row_mean.max())
-    if not (math.isfinite(max_err) and worst_max <= ATTN_MAX_ULPS
+    if not (math.isfinite(max_err) and worst_max <= max_ulps
             and worst_mean <= ATTN_MEAN_ULPS):
-        bad = torch.nonzero((row_max > ATTN_MAX_ULPS)
+        bad = torch.nonzero((row_max > max_ulps)
                             | (row_mean > ATTN_MEAN_ULPS)).flatten()[:8]
         raise AssertionError(
             f"{what}: rows {bad.tolist()} ({describe(bad.cpu().numpy())}) "
             f"past tolerance: worst row max {worst_max:.2f} ulp (tol "
-            f"{ATTN_MAX_ULPS}), worst row mean {worst_mean:.3f} ulp (tol "
+            f"{max_ulps}), worst row mean {worst_mean:.3f} ulp (tol "
             f"{ATTN_MEAN_ULPS})")
     return {"max_abs_err": max_err, "mean_abs_err": mean_err,
-            "worst_row_max_ulps": worst_max, "worst_row_mean_ulps": worst_mean}
+            "worst_row_max_ulps": worst_max, "worst_row_mean_ulps": worst_mean,
+            "tol_max_ulps": max_ulps}
 
 
 def _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes, ops,
@@ -394,7 +434,8 @@ def _report(what, check, ms, dev_ms, plain_ms, library_ms, nbytes, ops,
         f"{check['max_abs_err']:.3e}, "
         f"mean abs {check['mean_abs_err']:.3e}; worst row: max "
         f"{check['worst_row_max_ulps']:.2f} ulp, mean "
-        f"{check['worst_row_mean_ulps']:.3f} ulp (tol {ATTN_MAX_ULPS}/"
+        f"{check['worst_row_mean_ulps']:.3f} ulp (tol "
+        f"{check.get('tol_max_ulps', ATTN_MAX_ULPS)}/"
         f"{ATTN_MEAN_ULPS}); kernel_ms {ms:.4f} device_ms {dev_ms:.4f} "
         f"plain_ms {plain_ms:.4f} "
         f"library_ms {library_ms:.4f} bound_ms {res['bound_ms']:.4f} "
@@ -885,7 +926,7 @@ def _pool_cases(torch, np, pools, lengths, table, layer, label):
     limits[pslot] = 0
     tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
     rag = _attention_case(torch, np, pools, limits, tables, layer,
-                          "ragged 32+256")
+                          "ragged 32+256", chunk_start=len(lengths))
     rows = np.concatenate([lengths - 1, pstart + np.arange(C)])
     rows[pslot] = -1
     wr_rag = _write_case(torch, np, pools, rows, tables, layer,
@@ -998,7 +1039,9 @@ def phase_kernels_window(torch, np):
             f"window {W}, decode {B} rows", Hq, W)}
         res["attention_ragged"] = _attention_case(
             torch, np, pools, limits, tables, layer,
-            f"window {W}, ragged {B}+{C}", Hq, W)
+            f"window {W}, ragged {B}+{C}", Hq, W, chunk_start=B)
+        _chunk_poison_check(torch, np, pools, limits, tables, layer, Hq, W,
+                            B)
         res["spec"] = _spec_case(torch, np, pools, spec_len, table, layer,
                                  f"window {W}, verify {B} x {SPEC_R} rows",
                                  Hq, W)
@@ -1090,6 +1133,56 @@ def _paged_poison_check(torch, np, pools, lengths_np, table_np, layer, hq,
                              f"read")
     log(f"[kernels] {what}: {int((dirty == 0).sum())} table entries outside "
         f"the slots' ranges at a NaN page: output finite and bit-identical")
+
+
+def _chunk_poison_check(torch, np, pools, limits_np, tables_np, layer, hq,
+                        window, chunk_start):
+    """The ragged entry's window instance with the chunk layout reads no
+    page outside its rows' ranges: the chunk rows' table entries below the
+    page of the chunk's first row's window start and past its last row's
+    last page, and each decode row's outside its own pages, point at page
+    0, which no row owns, filled with NaN (int8: its scales); the output
+    must be finite and bit-identical to the clean tables'."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    quant = "ks" in pools
+    dev = pools["k"].device
+    _, _, Hkv, ps, D = pools["k"].shape
+    N, max_pages = tables_np.shape
+    assert tables_np.min() > 0
+    for n in ("ks", "vs") if quant else ("k", "v"):
+        pools[n][layer, 0] = float("nan")
+    limits = torch.from_numpy(limits_np.astype(np.int32)).to(dev)
+    lo, hi = (t.cpu().numpy() for t in pa._live_pages(limits, ps, max_pages,
+                                                      window))
+    dirty = tables_np.copy()
+    for n in range(N):
+        first, last = (lo[chunk_start], hi[-1]) if n >= chunk_start \
+            else (lo[n], hi[n])
+        dirty[n, :first] = 0
+        dirty[n, last + 1:] = 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    q = torch.randn((N, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    scales = (pools["ks"], pools["vs"]) if quant else ()
+
+    def run(tab):
+        return pa.ragged_attend_paged(
+            q, pools["k"], pools["v"], limits, layer,
+            torch.from_numpy(tab.astype(np.int32)).to(dev), *scales,
+            window=window, chunk_start=chunk_start)
+
+    clean, bad = run(tables_np), run(dirty)
+    torch.cuda.synchronize()
+    what = ("paged_attention_quant" if quant else "paged_attention") \
+        + " chunk window"
+    if not (bool(torch.isfinite(bad.float()).all())
+            and torch.equal(clean, bad)):
+        raise AssertionError(f"{what}: a page outside its rows' ranges was "
+                             f"read")
+    log(f"[kernels] {what}: {int((dirty == 0).sum())} table entries outside "
+        f"the rows' ranges at a NaN page: output finite and bit-identical")
 
 
 def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
@@ -1317,6 +1410,9 @@ def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
                              f"combine: {launches}")
     if engine.counts["mixed_dispatches"] <= 0:
         raise AssertionError("no chunked prefill went through mixed_step")
+    if launches[mine[0] + " chunk"] <= 0:
+        raise AssertionError(f"no mixed dispatch's chunk rows went through "
+                             f"the chunk body: {launches}")
     return engine, launches
 
 
@@ -1844,7 +1940,7 @@ def _prefix_run(torch, np, engine, tag, a, others, burst, fillers, probes):
     shared_case = _attention_case(
         torch, np, engine.cache, np.array(limits), np.array(tables),
         cfg.num_layers - 1, f"ragged {PREFIX_BURST} + {PREFIX_TAIL} rows, "
-        f"{n_hist} leading pages shared")
+        f"{n_hist} leading pages shared", chunk_start=len(burst))
     torch.cuda.synchronize()
     _reset_launches()
     # rounds of fillers until A's history has left the pool for the host
@@ -1907,6 +2003,10 @@ def _prefix_run(torch, np, engine, tag, a, others, burst, fillers, probes):
     if min(ragged[0], decode, launches["split_merge"], launches[write]) <= 0:
         raise AssertionError(f"{tag} K1 ragged {ragged[0]}, decode {decode}; "
                              f"launches {launches}")
+    if launches[k1 + " chunk"] != ragged[0]:
+        raise AssertionError(f"{tag} {ragged[0]} ragged launches, of which "
+                             f"{launches[k1 + ' chunk']} took the chunk "
+                             f"body")
     log(f"{tag} {PREFIX_REPS} turns of {len(a)} tokens cold then resident, "
         f"A restored {PREFIX_REPS} times: streams identical to the cold ones "
         f"({PREFIX_NEW} tokens); {PREFIX_BURST} requests sharing A's "
@@ -1929,6 +2029,7 @@ def _prefix_run(torch, np, engine, tag, a, others, burst, fillers, probes):
         f"to the host slots)")
     log(f"{tag} launches in the run (the shared-table check's kept out): K1 "
         f"({k1}) {launches[k1]}: ragged (mixed dispatches) {ragged[0]}, "
+        f"their chunk rows through the chunk body {launches[k1 + ' chunk']}, "
         f"decode {decode}; {write} {launches[write]}; split_merge "
         f"{launches['split_merge']}")
     return {"ttft_cold_ms": ttft_cold, "ttft_hit_ms": ttft_hit,
@@ -2640,6 +2741,10 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
                              f"{launches}")
     if counts.get("mixed_dispatches", 0) <= 0:
         raise AssertionError(f"{tag} no chunked prefill through mixed_step")
+    if launches[attn + " chunk window"] <= 0 or \
+            launches[attn + " chunk"] != launches[attn + " chunk window"]:
+        raise AssertionError(f"{tag} the chunk rows did not take the chunk "
+                             f"body's window instance: {launches}")
     return engine, launches
 
 
@@ -3375,6 +3480,17 @@ def main() -> int:
              "draft"),
             ("cache_write_rows_dense", WRITE_SRC, 744, kern["dense"]["write"],
              "draft"),
+            # K1's ragged entry with the chunk layout: the decode rows
+            # through the per-row body, the chunk's through the chunk body
+            # (ms: the whole ragged call)
+            ("paged_attention chunk", CHUNK_SRC, 1120,
+             kern["bf16"]["attention_ragged"], "auto"),
+            ("paged_attention_quant chunk", CHUNK_SRC, 1120,
+             kern["int8"]["attention_ragged"], "int8"),
+            ("paged_attention chunk window", CHUNK_SRC, 1120,
+             wkern["bf16"]["attention_ragged"], "mistral auto"),
+            ("paged_attention_quant chunk window", CHUNK_SRC, 1120,
+             wkern["int8"]["attention_ragged"], "mistral int8"),
             ("paged_attention window", ATTN_SRC, 1080,
              wkern["bf16"]["attention"], "mistral auto"),
             ("paged_attention_quant window", ATTN_SRC, 1014,

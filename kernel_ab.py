@@ -13,8 +13,14 @@ shapes (q bf16; each over a bf16 and an int8 pool or cache):
 - K1, the paged attention (page 64): Qwen3-0.6B's 32 decode rows with
   lengths up to 2048 over a 28-layer pool, those rows plus a 256-row
   prefill chunk (the ragged entry), and the verify's 32 slots of 5 rows;
-  Mistral-7B's window of 4096 over 16 rows with lengths up to 8192 (2
-  layers): decode, ragged (16 + 512 chunk rows) and verify (16 x 5);
+  a prefix hit's ragged call (8 decode rows and a 64-row chunk over
+  tables that share 24 pages, the pool cut to 68 pages); Mistral-7B's
+  window of 4096 over 16 rows with lengths up to 8192 (2 layers): decode,
+  ragged (16 + 512 chunk rows) and verify (16 x 5); the decode's row
+  writes (K2, K3: 32 rows into the Qwen3 pool). A ragged case passes
+  the chunk layout (``chunk_start``) where the checkout's wrapper takes
+  it (its chunk rows then take the chunk body), else it runs the per-row
+  body over every row;
 - the dense attention over [28, 32, 8, 2048, 128]: K4 (decode, 32 slots),
   K5 (the same at 4 and 8 slots per CTA) and K7 (verify, 32 x 5); at the
   window of 4096 over [2, 16, 8, 8192, 128]: K4, K5 (4 and 8 per CTA) and
@@ -64,6 +70,7 @@ decode of the same slots does.
 from __future__ import annotations
 
 import gc
+import inspect
 import json
 import statistics
 import subprocess
@@ -135,6 +142,47 @@ def _kv(torch, gen, shape, quant):
                + 1e-3 for _ in range(2)])
 
 
+def _attention_call(pa, q, kv, lim, layer, tab, window, chunk_start):
+    """K1 over ``kv`` (bf16 K/V, or int8 with scales); ``chunk_start``: the
+    rows from there on are one prefill chunk (the ragged entry's chunk
+    layout), passed where the checkout's wrapper takes it."""
+    fn = pa.paged_attention_quant if len(kv) == 4 else pa.paged_attention
+    kw = {}
+    if chunk_start is not None and \
+            "chunk_start" in inspect.signature(fn).parameters:
+        kw["chunk_start"] = chunk_start
+    return lambda: fn(q, *kv, lim, layer, tab, window, **kw)
+
+
+def _prefix_hit(torch, np, pa, ctx):
+    """K1's ragged entry at a prefix hit (chip_smoke.phase_prefix's
+    shared-table check): Qwen3-0.6B's pool cut to 68 pages, 8 decode rows
+    at 1,600 columns whose tables share their first 24 pages (a 1,536-token
+    history) and hold one page of their own, then one tail's 64 chunk rows
+    at limits 1,537 .. 1,600 on the first row's table."""
+    L, hq, Hkv, ps, D, P, width = 28, 16, 8, 64, 128, 68, 32
+    B, shared, C = 8, 24, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    table = np.zeros((B, width), np.int32)
+    table[:, :shared] = np.arange(1, shared + 1)
+    table[:, shared] = shared + 1 + np.arange(B)
+    limits = np.concatenate([np.full(B, shared * ps + C),
+                             shared * ps + 1 + np.arange(C)]).astype(np.int32)
+    tables = np.concatenate([table, np.repeat(table[:1], C, 0)])
+    lim = torch.from_numpy(limits).to(dev)
+    tab = torch.from_numpy(tables).to(dev)
+    q = torch.randn((B + C, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    for pool in ("bf16", "int8"):
+        kv = _kv(torch, gen, (L, P, Hkv, ps, D), pool == "int8")
+        _case(torch, ctx, f"{pool} ragged prefix {B}+{C}",
+              _attention_call(pa, q, kv, lim, L - 1, tab, 0, B))
+        del kv
+        torch.cuda.empty_cache()
+
+
 def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
            chunk, spec_len):
     """K1 decode, ragged and verify over a bf16 and an int8 pool."""
@@ -157,21 +205,26 @@ def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
         return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)) \
             .to(dev)
 
-    cases = {"decode": (t32(lengths), t32(table)),
-             "ragged": (t32(limits), t32(tables))}
+    cases = {"decode": (t32(lengths), t32(table), None),
+             "ragged": (t32(limits), t32(tables), B)}
     for pool in ("bf16", "int8"):
         kv = _kv(torch, gen, (L, P, Hkv, ps, D), pool == "int8")
-        for case, (lim, tab) in cases.items():
-            qn = q[:len(lim)].contiguous()
+        for case, (lim, tab, chunk_start) in cases.items():
+            _case(torch, ctx, f"{tag}{pool} {case}",
+                  _attention_call(pa, q[:len(lim)].contiguous(), kv, lim,
+                                  L - 1, tab, window, chunk_start))
+        if not window:
+            # the decode's row writes (K2, K3) at the decode rows' lengths
+            rows, new = t32(lengths - 1), _kv(torch, gen, (B, Hkv, D), False)
             if pool == "bf16":
                 def fn():
-                    return pa.paged_attention(qn, *kv, lim, L - 1, tab,
-                                              window)
+                    return pa.cache_write_rows_paged(*kv, *new, rows, L - 1,
+                                                     cases["decode"][1])
             else:
                 def fn():
-                    return pa.paged_attention_quant(qn, *kv, lim, L - 1, tab,
-                                                    window)
-            _case(torch, ctx, f"{tag}{pool} {case}", fn)
+                    return pa.cache_write_rows_quant_paged(
+                        *kv, *new, rows, L - 1, cases["decode"][1])
+            _case(torch, ctx, f"{tag}{pool} write", fn)
         lens, tab = t32(spec_len), t32(table)
         if pool == "bf16":
             def fn():
@@ -388,6 +441,7 @@ def _kernels(torch, np, da, pa, ctx):
     spec_len[:4] = [0, 59, 60, S - 5]
     _paged(torch, np, pa, ctx, "", 28, 16, B, S, 0, lengths, table,
            (3, 512, 256), spec_len)
+    _prefix_hit(torch, np, pa, ctx)
     rng = np.random.default_rng(8)
     dense_len = rng.integers(1, S + 1, B)
     dense_len[:6] = [0, 1, 64, 65, S, S - 1]

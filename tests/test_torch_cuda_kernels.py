@@ -1299,3 +1299,137 @@ def test_decode_graph_replay_after_restore_matches_eager(dev, quant):
     assert torch.equal(out, ref)
     for k in pool:
         assert torch.equal(pool[k], eager_pool[k]), k
+
+
+# -- K1's ragged entry: the chunk body (csrc/split_chunk.cuh) -----------------
+
+
+def _rows_within_ulps(out, ref, n_rows, max_ulps=1.0, mean_ulps=0.5):
+    """Each query row (its Hq x D outputs) within ``max_ulps`` bf16 ulps max
+    and ``mean_ulps`` mean of the row's largest |plain output|."""
+    diff = (out.float() - ref.float()).abs().reshape(n_rows, -1)
+    top = ref.float().abs().reshape(n_rows, -1).amax(1).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return bool(((diff.amax(1) / ulp) <= max_ulps).all()
+                and ((diff.mean(1) / ulp) <= mean_ulps).all())
+
+
+def _chunk_case(dev, quant, G, ps, window, C, pstart, seed, hkv=2, d=128,
+                maxp=None, B=5):
+    """``ragged_attend_paged`` with ``chunk_start`` = B over B decode rows
+    (slot 1 the dead passenger, limit 0) and C chunk rows of slot 1 at
+    limits pstart + 1 .. pstart + C, bf16 q over a bf16 or an int8 pool,
+    against ``paged_attention_plain`` row by row (1 bf16 ulp max, 0.5
+    mean), as is the entry without the layout (the per-row body over every
+    row, whose split count counts all B + C rows); then again with every table entry
+    outside the rows' pages (below the chunk's first row's window start's
+    page, past its last row's last page; for a decode row, outside its own
+    pages) at a page of NaN (int8: NaN scales): the output must be
+    bit-identical. Returns the chunk body's split count."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    rng = np.random.default_rng(seed)
+    hq = G * hkv
+    maxp = maxp or -(-(pstart + C) // ps) + 2
+    P = B * maxp + 2
+    nan_page = P - 1
+    if quant:
+        store = _int8_pools(rng, 2, P, hkv, ps, d, dev)
+    else:
+        store = [torch.from_numpy(rng.standard_normal(
+            (2, P, hkv, ps, d)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2)]
+    table = (rng.permutation(B * maxp) + 1).reshape(B, maxp).astype(np.int32)
+    lengths = rng.integers(1, maxp * ps + 1, B).astype(np.int32)
+    lengths[1] = 0
+    limits = np.concatenate([lengths, pstart + 1 + np.arange(C)]) \
+        .astype(np.int32)
+    tables = np.concatenate([table, np.repeat(table[1][None], C, 0)])
+    lo, hi = _lo_hi(limits, ps, maxp, window)
+    dirty = tables.copy()
+    for n in range(B + C):
+        first, last = (lo[B], hi[-1]) if n >= B else (lo[n], hi[n])
+        dirty[n, :first] = nan_page
+        dirty[n, last + 1:] = nan_page
+    bad = [t.clone() for t in store]
+    for t in (bad[2:] if quant else bad):
+        t[:, nan_page] = float("nan")
+    q = torch.from_numpy(rng.standard_normal((B + C, hq, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    lim = torch.from_numpy(limits).to(dev)
+    fn = tpa.paged_attention_quant if quant else tpa.paged_attention
+
+    def run(kv, tab, chunk_start=B):
+        return tpa.ragged_attend_paged(
+            q, kv[0], kv[1], lim, 1, torch.from_numpy(tab).to(dev),
+            *kv[2:], window=window, chunk_start=chunk_start)
+
+    before = tpa.launch_counts()
+    out = run(store, tables)
+    after = tpa.launch_counts()
+    assert after[fn.__name__ + " chunk"] == before[fn.__name__ + " chunk"] + 1
+    assert after[fn.__name__ + " chunk window"] == \
+        before[fn.__name__ + " chunk window"] + (window > 0)
+    per_row = run(store, tables, None)
+    poisoned = run(bad, dirty)
+    ref = tpa.paged_attention_plain(q, store[0], store[1], lim, 1,
+                                    torch.from_numpy(tables).to(dev),
+                                    *store[2:], window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rows_within_ulps(out, ref, B + C)
+    assert _rows_within_ulps(per_row, ref, B + C)
+    assert torch.isfinite(poisoned.float()).all()
+    assert torch.equal(out, poisoned)
+    return split_kv.chunk_splits(C, G, hkv, maxp, split_kv.sm_count(dev))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 200])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_ragged_chunk_body_matches_plain(dev, quant, window, G):
+    """Chunks of 1 row, of fewer rows than a row tile, of a row tile and one
+    more, and of several tiles that do not fill the last, starting inside a
+    page, over 2 kv heads at page 64 (D 128), with and without a window."""
+    for C, pstart in ((1, 0), (1, 300), (37, 5), (128 // G + 1, 70),
+                      (300, 130)):
+        _chunk_case(dev, quant, G, 64, window, C, pstart, seed=140 + C + G)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ps", [16, 32, 64, 128])
+def test_ragged_chunk_body_at_page_sizes(dev, quant, ps):
+    """Page sizes below, at and above the body's 64-column stage (a page of
+    16 rows fills a quarter of a stage, one of 128 two stages), G 2 and 4,
+    window 0 and 3 pages less 5 rows, a chunk that starts and ends inside
+    a page and a padded tail past the allocated pages (limits beyond the
+    table's pages clamp to its last page)."""
+    for G in (2, 4):
+        for window in (0, 3 * ps - 5):
+            _chunk_case(dev, quant, G, ps, window, 150, 2 * ps + 3,
+                        seed=150 + ps + G)
+            # the table's pages end inside the chunk: its last rows' limits
+            # run past them
+            _chunk_case(dev, quant, G, ps, window, 100, ps + 20,
+                        seed=160 + ps + G, maxp=(ps + 70) // ps)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 640])
+def test_ragged_chunk_body_at_split_edges(dev, quant, window):
+    """A chunk of one row tile (64 rows at G 2) over 8 kv heads, whose
+    split count (33 on 132 SMs) then takes up to 33 pages a split: page
+    ranges of one page (empty splits after it), of one page fewer than the
+    splits, as many, one more (a split of two pages) and twice as many
+    plus one, and one that fills the table."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
+
+    hkv, ps, maxp, C = 8, 64, 80, 64
+    splits = split_kv.chunk_splits(C, 2, hkv, maxp, split_kv.sm_count(dev))
+    assert 1 < splits and 2 * splits + 1 < maxp
+    for pages in (1, splits - 1, splits, splits + 1, 2 * splits + 1,
+                  maxp - 2):
+        pstart = max(pages * ps - C - 3, 0)
+        got = _chunk_case(dev, quant, 2, ps, window, C, pstart,
+                          seed=170 + pages, hkv=hkv, maxp=maxp)
+        assert got == splits

@@ -207,3 +207,94 @@ def test_int8_kv_server_answers_on_the_cpu():
         srv.server_close()
         state.stop_engine()
         th.join(10)
+
+
+# -- the answers of the JAX server (the same bodies to both, on the CPU) ------
+
+
+@pytest.fixture(scope="module")
+def jax_server():
+    """The JAX package's server over tiny_qwen3 and the byte tokenizer, in
+    process on a free port, shaped as the port's ``server`` fixture."""
+    import socket
+
+    import jax
+    import jax.numpy as jnp
+
+    from aws_k8s_ansible_provisioner_tpu.config import \
+        ServingConfig as JServing
+    from aws_k8s_ansible_provisioner_tpu.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu.serving import server as jserver
+    from aws_k8s_ansible_provisioner_tpu.utils.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg = tiny_qwen3(vocab_size=tok.vocab_size, eos_token_id=tok.eos_token_id)
+    params = init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    serving = JServing(weights_dtype="bf16", model="tiny-qwen3",
+                       max_decode_slots=4, max_cache_len=128, page_size=8,
+                       prefill_buckets=(16, 32, 64), dtype="float32",
+                       prefill_chunk=16)
+    state = jserver.build_state(serving, model_cfg=cfg, params=params,
+                                tokenizer=tok)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ready, stop = threading.Event(), threading.Event()
+    th = threading.Thread(target=jserver.serve,
+                          args=(state, "127.0.0.1", port, ready, stop),
+                          daemon=True)
+    th.start()
+    assert ready.wait(30)
+    yield f"http://127.0.0.1:{port}", state
+    stop.set()
+    th.join(30)
+
+
+# C15: bodies the two servers must answer alike (status and error type);
+# ``max_tokens`` None stands for the engine's max_len + 1
+_LIKE_JAX = {
+    "unknown-model": {"model": "no-such-model", "prompt": "x",
+                      "max_tokens": 2},
+    "served-model": {"model": "tiny-qwen3", "prompt": "x", "max_tokens": 2},
+    "empty-prompt": {"prompt": "", "max_tokens": 2},
+    "list-of-strings": {"prompt": ["abc", "de"], "max_tokens": 2},
+    "empty-list": {"prompt": [], "max_tokens": 2},
+    "max-tokens-past-max-len": {"prompt": "x", "max_tokens": None},
+    "max-tokens-at-max-len": {"prompt": "x", "max_tokens": 0},
+    "max-tokens-zero": {"prompt": "x", "max_tokens": -1},
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LIKE_JAX))
+def test_answers_like_the_jax_server(server, jax_server, case):
+    """An unknown ``model`` gets 404 ``model_not_found``; an empty prompt
+    and an empty list are served as the EOS token; a list of strings
+    serves its first; ``max_tokens`` above the engine's max_len gets 400
+    (at max_len it is served, clamped by the engine): the port's status and
+    error type are the JAX server's, and a served prompt counts the same
+    prompt tokens."""
+    (base, state), (jbase, jstate) = server, jax_server
+    assert state.engine.max_len == jstate.engine.max_len
+    body = dict(_LIKE_JAX[case])
+    max_len = state.engine.max_len
+    body["max_tokens"] = {None: max_len + 1, 0: max_len,
+                          -1: 0}.get(body["max_tokens"], body["max_tokens"])
+    got, want = _post(base + "/v1/completions", body), \
+        _post(jbase + "/v1/completions", body)
+    assert got[0] == want[0], (got, want)
+    if want[0] != 200:
+        assert got[1]["error"]["type"] == want[1]["error"]["type"]
+        return
+    assert got[1]["model"] == want[1]["model"] == "tiny-qwen3"
+    assert got[1]["usage"]["prompt_tokens"] == \
+        want[1]["usage"]["prompt_tokens"]
+
+
+def test_token_id_prompt_stays_served_beyond_the_jax_server(server,
+                                                            jax_server):
+    """By design the port serves a list of token ids as the prompt, where
+    the JAX server answers 400."""
+    body = {"prompt": [72, 105, 33], "max_tokens": 2}
+    assert _post(server[0] + "/v1/completions", body)[0] == 200
+    assert _post(jax_server[0] + "/v1/completions", body)[0] == 400
