@@ -1,15 +1,19 @@
 // K/V row writes: one new K row and one new V row per packed query row,
 // written in place into the page pool; copied as they are
 // (cache_write_rows_paged) or quantized to int8 with a float32 scale per
-// row and kv head (cache_write_rows_quant_paged). And the dense slot
-// cache's two writes, R rows per slot: the copy (cache_write_rows_dense)
-// and the quantizing write (cache_write_rows_quant_dense).
+// row and kv head (cache_write_rows_quant_paged); and the same two writes
+// with the layer's q/k prologue fused in (prep_write_rows_paged: the q/k
+// RMSNorm of Qwen3 and RoPE on q and k in the launch that writes K and V).
+// And the dense slot cache's two writes, R rows per slot: the copy
+// (cache_write_rows_dense) and the quantizing write
+// (cache_write_rows_quant_dense).
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
 //   cache_write_row_paged and cache_write_row_quant_paged (each called once
-//   for K and once for V per layer), cache_write_row (the dense cache, once
-//   for K and once for V per layer and per verify row), and
-//   cache_write_row_quant (the dense int8 cache, the same calls).
+//   for K and once for V per layer, after models/layers.py's rms_norm and
+//   apply_rope of q and k), cache_write_row (the dense cache, once for K and
+//   once for V per layer and per verify row), and cache_write_row_quant (the
+//   dense int8 cache, the same calls).
 //
 // Contract (same as the TPU kernel): pool [L, P, Hkv, ps, D]; new rows
 // [N, Hkv, D]; rows [N] int32; table [N, max_pages] int32. Row n lands at
@@ -18,28 +22,49 @@
 // read: padding tables hold OOB_PAGE (INT32_MAX) and mixed_step's dead
 // passenger carries row -1. A page id outside [0, P) is dropped as well.
 //
-// What bounds it on the H100: bytes. It moves N * Hkv * D * elem bytes in
-// and the same out, for K and for V, and does no arithmetic. The design
-// keeps those bytes in as few transactions as the layout allows: one CTA per
-// packed row; each thread copies 16 bytes, so a warp covers 512 contiguous
-// bytes of a head row (one D=128 bf16 row is 256 bytes); K and V go in one
-// launch (the attention paths always write both). The copy is byte-exact,
-// so one kernel serves bf16 and float32 pools.
+// The paged writes are one kernel, cache_write_rows_paged_kernel, with the
+// prologue on (PREP) or off, copying or quantizing (QUANT). One CTA of 8
+// warps per (packed row, group of 8 heads), one warp per head row: with the
+// prologue the row's Hq q heads, then its Hkv k heads, then its Hkv v heads
+// (the layer's raw projections); without it the k and v heads. A warp holds
+// its head row in registers, E contiguous elements a lane (D = 32 E: at
+// D = 128 four, loaded in 8 bytes; below 32, one a lane on D lanes), and
+// - q and k (prologue on): the norm (when the caller passes weights) as
+//   sum of squares by a shuffle reduction, rsqrtf(sum / D + eps), times
+//   the weight, rounded to the rows' type; then RoPE in float32 on that
+//   rounded value with the caller's float32 cos/sin tables [N, D]:
+//   x * cos + rotate_half(x) * sin, where rotate_half's partner of column
+//   c, c +- D / 2, is 16 lanes away at D >= 32 (one __shfl_xor_sync);
+//   rounded again.
+//   Each product and sum rounds on its own (__fmul_rn, __fadd_rn) as the
+//   plain version's separate operations do; only the order of the sum of
+//   squares differs from it. q goes out to q_out for every row, kept or
+//   dropped;
+// - k and v of a kept row are stored into the pool, or quantized as the
+//   quantizing writes below quantize (quant_scale_warp) and stored with
+//   their scale.
+// Without the prologue (the standalone writes) a lane moves 8 elements a
+// pass, masked at the row's end; the copy is of the elements' bits (any
+// element size), so one kernel serves bf16 and float32 pools.
+//
+// What bounds it on the H100: bytes, and at the main path's sizes the
+// launch. The fused write reads q, k and v once (N (Hq + 2 Hkv) D
+// elements), the tables (2 N D float32) and weights, and writes q and the
+// K/V rows once; at Qwen3's 32 decode rows that is ~0.56 MB, ~0.17 us at
+// 3.35 TB/s, against a launch of ~2 us. So the design's point is the
+// launches it removes: the plain prologue is ~30 elementwise launches a
+// layer, each re-reading and re-writing q or k; here it is none, and the
+// intermediate rows never leave registers.
 //
 // The quantizing writes follow serving/kv_cache.py's quantize_rows as the
 // JAX engine's compiled programs compute it: per (row, kv head),
 // scale = max(amax, 1e-6) * float32(1/127) (XLA turns the division by the
 // constant into that product), q = round_half_even(x / scale) with an IEEE
 // division, so their int8 rows and scales are bit-identical to the plain
-// version, and rows quantized by the prefill scatters and by these kernels
-// are alike. Bytes bound them too: D elements in, D int8 bytes and one
-// float32 out per (row, kv head). One CTA per (packed row, K or V); a warp
-// per kv head reads the row once into registers, takes amax with a shuffle
-// reduction and stores D bytes, 32 neighbouring lanes on 32 neighbouring
-// bytes (quantize_row_warp, shared by both). The same drop checks as the
-// copies come first. Rows that share a page land at their own offsets,
-// every one of them (the Pallas kernel's scale block spans a whole page;
-// see ROADMAP C6).
+// version on equal rows, and rows quantized by the prefill scatters and by
+// these kernels are alike. Rows that share a page land at their own
+// offsets, every one of them (the Pallas kernel's scale block spans a whole
+// page; see ROADMAP C6).
 //
 // The dense writes' contract (cache_write_row's and cache_write_row_quant's):
 // cache [L, B, Hkv, S, D] (int8: scales [L, B, Hkv, S] float32); new rows
@@ -50,7 +75,9 @@
 // launch where the TPU made 2 R. The Pallas kernels rewrite the row's whole
 // 8-row (int8: 32-row) block and, int8, the slot's whole scale row; the
 // port writes the row and its scale alone, which is the same result since
-// the rest is written back unchanged.
+// the rest is written back unchanged. The dense copy moves 16 bytes a
+// thread (uint4); the dense quantizing write is one CTA per (slot, row) and
+// K or V, a warp per kv head (quantize_row_warp).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,31 +87,11 @@ namespace {
 
 constexpr int kMaxD = 256;
 constexpr float kInv127 = 1.0f / 127.0f;
-
-__global__ void cache_write_rows_paged_kernel(
-    uint4* __restrict__ pool_k, uint4* __restrict__ pool_v,
-    const uint4* __restrict__ k_new, const uint4* __restrict__ v_new,
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ table,
-    int layer, int num_pages, int hkv, int ps, int vec_per_row,
-    int max_pages) {
-  const int n = blockIdx.x;
-  const int row = rows[n];
-  if (row < 0 || row >= max_pages * ps) return;   // dropped: table unread
-  const int page = table[(int64_t)n * max_pages + row / ps];
-  if (page < 0 || page >= num_pages) return;
-  const int off = row % ps;
-  const int total = hkv * vec_per_row;
-  const int64_t page_base =
-      ((int64_t)layer * num_pages + page) * hkv * ps * vec_per_row;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int h = i / vec_per_row;
-    const int c = i - h * vec_per_row;
-    const int64_t dst = page_base + ((int64_t)h * ps + off) * vec_per_row + c;
-    const int64_t src = (int64_t)n * total + i;
-    pool_k[dst] = k_new[src];
-    pool_v[dst] = v_new[src];
-  }
-}
+constexpr unsigned kFull = 0xffffffffu;
+// warps (head rows) per CTA of the paged writes
+constexpr int kWriteWarps = 8;
+// elements a lane moves per pass in the paged writes without the prologue
+constexpr int kPlainE = 8;
 
 __global__ void cache_write_rows_dense_kernel(
     uint4* __restrict__ cache_k, uint4* __restrict__ cache_v,
@@ -117,60 +124,272 @@ __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// One warp quantizes one (row, kv head) of D values (K3's and K9's shared
-// quantizer): the row is read once into registers, amax by a shuffle
-// reduction, scale = max(amax, 1e-6) * float32(1/127), then
-// round_half_even(x / scale) with an IEEE division, 32 neighbouring lanes
-// storing 32 neighbouring bytes; lane 0 stores the scale.
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The int8 row's scale over one warp's values of it (E a lane; values a
+// lane does not hold are 0): max(amax, 1e-6) * float32(1/127), amax by a
+// shuffle reduction (K3's, K9's and the fused write's quantizer).
+template <int E>
+__device__ __forceinline__ float quant_scale_warp(const float (&x)[E]) {
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < E; ++j) amax = fmaxf(amax, fabsf(x[j]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  return fmaxf(amax, 1e-6f) * kInv127;
+}
+
+// round_half_even(x / scale) with an IEEE division
+__device__ __forceinline__ int8_t quant_code(float x, float scale) {
+  return (int8_t)rintf(__fdiv_rn(x, scale));
+}
+
+// One warp quantizes one (row, kv head) of D values (K9's): the row is read
+// once into registers (column lane + 32 i), its scale by quant_scale_warp,
+// 32 neighbouring lanes storing 32 neighbouring bytes; lane 0 stores the
+// scale.
 template <typename T>
 __device__ __forceinline__ void quantize_row_warp(const T* __restrict__ x,
                                                   int8_t* __restrict__ out,
                                                   float* __restrict__ scale_out,
                                                   int d, int lane) {
   float vals[kMaxD / 32];
-  float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxD / 32; ++i) {
     const int c = lane + 32 * i;
     vals[i] = c < d ? to_float(x[c]) : 0.f;
-    amax = fmaxf(amax, fabsf(vals[i]));
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float scale = fmaxf(amax, 1e-6f) * kInv127;
+  const float scale = quant_scale_warp(vals);
 #pragma unroll
   for (int i = 0; i < kMaxD / 32; ++i) {
     const int c = lane + 32 * i;
-    if (c < d) out[c] = (int8_t)rintf(__fdiv_rn(vals[i], scale));
+    if (c < d) out[c] = quant_code(vals[i], scale);
   }
   if (lane == 0) *scale_out = scale;
 }
 
-template <typename T>
-__global__ void cache_write_rows_quant_kernel(
-    int8_t* __restrict__ pool_k, int8_t* __restrict__ pool_v,
-    float* __restrict__ scale_k, float* __restrict__ scale_v,
-    const T* __restrict__ k_new, const T* __restrict__ v_new,
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ table,
-    int layer, int num_pages, int hkv, int ps, int d, int max_pages) {
+// The paged pool side of a row write.
+struct RowWrite {
+  void* pool_k;
+  void* pool_v;
+  float* scale_k;          // int8 pools: scale pools [L, P, Hkv, ps]
+  float* scale_v;
+  const void* k_new;       // [N, Hkv, D]
+  const void* v_new;
+  const int32_t* rows;     // [N]
+  const int32_t* table;    // [N, max_pages]
+  int layer, num_pages, hkv, ps, d, max_pages;
+};
+
+// The q/k prologue of a fused write.
+struct QKPrologue {
+  void* q_out;             // [N, Hq, D]
+  const void* q;           // [N, Hq, D], raw
+  const void* q_w;         // [D] RMSNorm weights, or null (no norm)
+  const void* k_w;
+  const float* cos;        // [N, D] float32
+  const float* sin;
+  float eps;
+  int hq;
+};
+
+// E elements of one lane, moved in one access (two above 16 bytes).
+template <typename T, int E>
+struct alignas(sizeof(T) * E < 16 ? sizeof(T) * E : 16) Pack {
+  T v[E];
+};
+
+// Row index (in rows of D) of packed row n's (layer, page, head 0, offset)
+// in the pool, or -1 when the row drops: outside [0, max_pages * ps) before
+// its table entry is read, or on a page outside [0, P).
+__device__ __forceinline__ int64_t kept_row(const RowWrite& w, int n) {
+  const int row = w.rows[n];
+  if (row < 0 || row >= w.max_pages * w.ps) return -1;
+  const int page = w.table[(int64_t)n * w.max_pages + row / w.ps];
+  if (page < 0 || page >= w.num_pages) return -1;
+  return ((int64_t)w.layer * w.num_pages + page) * w.hkv * w.ps
+         + row % w.ps;
+}
+
+// A lane's E elements from column c: one access when the row is exactly
+// 32 E wide (the prologue's rows), else element by element below d.
+template <typename T, int E, bool FULL>
+__device__ __forceinline__ void load_row(const T* src, int c, int d,
+                                         T (&x)[E]) {
+  if constexpr (FULL) {
+    const Pack<T, E> p = *reinterpret_cast<const Pack<T, E>*>(src + c);
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = p.v[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      if (c + j < d) x[j] = src[c + j];
+  }
+}
+
+template <typename T, int E, bool FULL>
+__device__ __forceinline__ void store_row(T* dst, int c, int d,
+                                          const T (&x)[E]) {
+  if constexpr (FULL) {
+    Pack<T, E> p;
+#pragma unroll
+    for (int j = 0; j < E; ++j) p.v[j] = x[j];
+    *reinterpret_cast<Pack<T, E>*>(dst + c) = p;
+  } else {
+#pragma unroll
+    for (int j = 0; j < E; ++j)
+      if (c + j < d) dst[c + j] = x[j];
+  }
+}
+
+// models/layers.py's rms_norm (when ``weight`` is given) then apply_rope on
+// one head row held by the warp (the lane's E columns from c; lanes past
+// the row, ``live`` false, hold zeros), rounding to T after each as the
+// plain version does. The row spans D / E lanes, so rotate_half's partner
+// of column c, c +- D / 2, is the same j of lane ^ (D / 2E).
+template <typename T, int E>
+__device__ __forceinline__ void qk_prologue(T (&x)[E], const T* weight,
+                                            const QKPrologue& p, int n,
+                                            int c, int d, int lane,
+                                            bool live) {
+  float f[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) f[j] = to_float(x[j]);
+  if (weight != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < E; ++j) ss = __fadd_rn(ss, __fmul_rn(f[j], f[j]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(kFull, ss, o));
+    const float inv = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), p.eps));
+    if (live) {
+      const Pack<T, E> w = *reinterpret_cast<const Pack<T, E>*>(weight + c);
+#pragma unroll
+      for (int j = 0; j < E; ++j)
+        f[j] = to_float(from_float<T>(
+            __fmul_rn(__fmul_rn(f[j], inv), to_float(w.v[j]))));
+    }
+  }
+  Pack<float, E> cs{}, sn{};
+  if (live) {
+    const int64_t t = (int64_t)n * d + c;
+    cs = *reinterpret_cast<const Pack<float, E>*>(p.cos + t);
+    sn = *reinterpret_cast<const Pack<float, E>*>(p.sin + t);
+  }
+  // columns [0, D/2) take -x[c + D/2] from rotate_half, [D/2, D) x[c - D/2]
+  const int half = d / (2 * E);
+  const bool low = (lane & half) == 0;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const float other = __shfl_xor_sync(kFull, f[j], half);
+    const float rot = low ? -other : other;
+    f[j] = __fadd_rn(__fmul_rn(f[j], cs.v[j]), __fmul_rn(rot, sn.v[j]));
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) x[j] = from_float<T>(f[j]);
+}
+
+// The paged row write, with the q/k prologue (PREP) or without, copying
+// or quantizing (QUANT) K and V. Grid (N, head groups of kWriteWarps);
+// warp w of group g takes head row g * kWriteWarps + w of the packed row:
+// q heads (PREP only), then k heads, then v heads. T: the rows' type
+// (without PREP and QUANT an unsigned integer of the element's size).
+// PREP needs D = 32 E, or E = 1 and D a power of two below 32 (the row on
+// lanes [0, D)); QUANT D <= 32 E.
+template <typename T, int E, bool PREP, bool QUANT>
+__global__ void __launch_bounds__(32 * kWriteWarps)
+cache_write_rows_paged_kernel(const RowWrite w, const QKPrologue p) {
   const int n = blockIdx.x;
-  const bool is_v = blockIdx.y == 1;
-  const int row = rows[n];
-  if (row < 0 || row >= max_pages * ps) return;   // dropped: table unread
-  const int page = table[(int64_t)n * max_pages + row / ps];
-  if (page < 0 || page >= num_pages) return;
-  const int off = row % ps;
   const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const T* src = (is_v ? v_new : k_new) + (int64_t)n * hkv * d;
-  int8_t* pool = is_v ? pool_v : pool_k;
-  float* scales = is_v ? scale_v : scale_k;
-  for (int h = threadIdx.x >> 5; h < hkv; h += warps) {
-    const int64_t dst = ((((int64_t)layer * num_pages + page) * hkv + h) * ps
-                         + off);
-    quantize_row_warp(src + (int64_t)h * d, pool + dst * d, scales + dst, d,
-                      lane);
+  const int hq = PREP ? p.hq : 0;
+  const int h = blockIdx.y * kWriteWarps + (threadIdx.x >> 5);
+  if (h >= hq + 2 * w.hkv) return;                   // whole warps
+  const bool is_q = h < hq;
+  const bool is_v = h >= hq + w.hkv;
+  const int hh = is_q ? h : h - hq - (is_v ? w.hkv : 0);
+  int64_t dst = 0;
+  if (!is_q) {
+    dst = kept_row(w, n);
+    if (dst < 0) return;                     // dropped; q goes out anyway
+    dst += (int64_t)hh * w.ps;
+  }
+  const T* src = is_q
+      ? static_cast<const T*>(p.q) + ((int64_t)n * hq + hh) * w.d
+      : static_cast<const T*>(is_v ? w.v_new : w.k_new)
+            + ((int64_t)n * w.hkv + hh) * w.d;
+  for (int base = 0; base < w.d; base += 32 * E) {  // PREP, QUANT: one pass
+    const int c = base + lane * E;
+    T x[E];
+    if constexpr (PREP) {
+      const bool live = c < w.d;
+      if (live) {
+        load_row<T, E, true>(src, c, w.d, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < E; ++j) x[j] = from_float<T>(0.f);
+      }
+      if (!is_v)
+        qk_prologue<T, E>(x, static_cast<const T*>(is_q ? p.q_w : p.k_w), p,
+                          n, c, w.d, lane, live);
+      if (is_q) {
+        if (live)
+          store_row<T, E, true>(
+              static_cast<T*>(p.q_out) + ((int64_t)n * hq + hh) * w.d, c,
+              w.d, x);
+        continue;
+      }
+    } else {
+      load_row<T, E, false>(src, c, w.d, x);
+    }
+    if constexpr (QUANT) {
+      float f[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) f[j] = c + j < w.d ? to_float(x[j]) : 0.f;
+      const float scale = quant_scale_warp(f);
+      int8_t codes[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) codes[j] = quant_code(f[j], scale);
+      if (!PREP || c < w.d)
+        store_row<int8_t, E, PREP>(
+            static_cast<int8_t*>(is_v ? w.pool_v : w.pool_k) + dst * w.d, c,
+            w.d, codes);
+      if (lane == 0) (is_v ? w.scale_v : w.scale_k)[dst] = scale;
+    } else if (!PREP || c < w.d) {
+      store_row<T, E, PREP>(static_cast<T*>(is_v ? w.pool_v : w.pool_k)
+                                + dst * w.d, c, w.d, x);
+    }
+  }
+}
+
+template <typename T, int E, bool PREP, bool QUANT>
+int launch_paged(const RowWrite& w, const QKPrologue& p, int n_rows,
+                 void* stream) {
+  const int heads = (PREP ? p.hq : 0) + 2 * w.hkv;
+  const dim3 grid(n_rows, (heads + kWriteWarps - 1) / kWriteWarps);
+  cache_write_rows_paged_kernel<T, E, PREP, QUANT>
+      <<<grid, 32 * kWriteWarps, 0, (cudaStream_t)stream>>>(w, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool QUANT>
+int launch_prep(const RowWrite& w, const QKPrologue& p, int n_rows,
+                void* stream) {
+  switch (w.d) {
+    case 2: case 4: case 8: case 16: case 32:
+      return launch_paged<T, 1, true, QUANT>(w, p, n_rows, stream);
+    case 64: return launch_paged<T, 2, true, QUANT>(w, p, n_rows, stream);
+    case 128: return launch_paged<T, 4, true, QUANT>(w, p, n_rows, stream);
+    case 256: return launch_paged<T, 8, true, QUANT>(w, p, n_rows, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -203,55 +422,83 @@ __global__ void cache_write_rows_quant_dense_kernel(
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-// row_bytes = D * element size; a multiple of 16 (the wrapper checks).
+// Copies the new rows' elements (elem_size bytes each: 1, 2, 4 or 8) into
+// the pool: the paged write without the prologue. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int cache_write_rows_paged(
     void* pool_k, void* pool_v, const void* k_new, const void* v_new,
     const void* rows, const void* table, int n_rows, int layer,
-    int num_pages, int hkv, int ps, int row_bytes, int max_pages,
+    int num_pages, int hkv, int ps, int d, int elem_size, int max_pages,
     void* stream) {
   if (n_rows <= 0) return 0;
-  const int vec_per_row = row_bytes / 16;
-  int threads = hkv * vec_per_row;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  cache_write_rows_paged_kernel<<<n_rows, threads, 0,
-                                  (cudaStream_t)stream>>>(
-      (uint4*)pool_k, (uint4*)pool_v, (const uint4*)k_new,
-      (const uint4*)v_new, (const int32_t*)rows, (const int32_t*)table,
-      layer, num_pages, hkv, ps, vec_per_row, max_pages);
-  return (int)cudaGetLastError();
+  const RowWrite w{pool_k, pool_v, nullptr, nullptr, k_new, v_new,
+                   (const int32_t*)rows, (const int32_t*)table, layer,
+                   num_pages, hkv, ps, d, max_pages};
+  const QKPrologue none{};
+  constexpr int E = kPlainE;
+  switch (elem_size) {
+    case 1: return launch_paged<uint8_t, E, false, false>(w, none, n_rows,
+                                                          stream);
+    case 2: return launch_paged<uint16_t, E, false, false>(w, none, n_rows,
+                                                           stream);
+    case 4: return launch_paged<uint32_t, E, false, false>(w, none, n_rows,
+                                                           stream);
+    case 8: return launch_paged<uint64_t, E, false, false>(w, none, n_rows,
+                                                           stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Quantizing row write into an int8 pool and its float32 scale pools
-// [L, P, Hkv, ps]. dtype of the new rows: 0 = float32, 1 = bfloat16.
-// D <= 256 (the wrapper checks). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// [L, P, Hkv, ps]: the paged write without the prologue. dtype of the new
+// rows: 0 = float32, 1 = bfloat16. D <= 256 (the wrapper checks). Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int cache_write_rows_quant_paged(
     void* pool_k, void* pool_v, void* scale_k, void* scale_v,
     const void* k_new, const void* v_new, const void* rows,
     const void* table, int n_rows, int layer, int num_pages, int hkv,
     int ps, int d, int max_pages, int dtype, void* stream) {
   if (n_rows <= 0) return 0;
-  if (d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  int threads = 32 * hkv;
-  threads = threads > 1024 ? 1024 : threads;
-  dim3 grid(n_rows, 2);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) {
-    cache_write_rows_quant_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        (int8_t*)pool_k, (int8_t*)pool_v, (float*)scale_k, (float*)scale_v,
-        (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-        (const int32_t*)rows, (const int32_t*)table, layer, num_pages, hkv,
-        ps, d, max_pages);
-  } else if (dtype == 0) {
-    cache_write_rows_quant_kernel<float><<<grid, threads, 0, s>>>(
-        (int8_t*)pool_k, (int8_t*)pool_v, (float*)scale_k, (float*)scale_v,
-        (const float*)k_new, (const float*)v_new, (const int32_t*)rows,
-        (const int32_t*)table, layer, num_pages, hkv, ps, d, max_pages);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (d < 1 || d > 32 * kPlainE) return (int)cudaErrorInvalidValue;
+  const RowWrite w{pool_k, pool_v, (float*)scale_k, (float*)scale_v, k_new,
+                   v_new, (const int32_t*)rows, (const int32_t*)table, layer,
+                   num_pages, hkv, ps, d, max_pages};
+  const QKPrologue none{};
+  if (dtype == 1)
+    return launch_paged<__nv_bfloat16, kPlainE, false, true>(w, none, n_rows,
+                                                             stream);
+  if (dtype == 0)
+    return launch_paged<float, kPlainE, false, true>(w, none, n_rows, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The paged write with the q/k prologue: q [N, Hq, D] -> q_out (normed when
+// q_w is given, RoPE'd), k [N, Hkv, D] normed (k_w) and RoPE'd, and v as it
+// is, into a pool of the rows' type (quant 0) or quantized into an int8
+// pool and its scale pools (quant 1). cos/sin [N, D] float32; weights [D]
+// of the rows' type or null; dtype 0 = float32, 1 = bfloat16; D a power of
+// two from 2 to 256 (the wrapper checks). Returns cudaGetLastError() after the launch
+// (0 = launched).
+extern "C" int prep_write_rows_paged(
+    void* q_out, const void* q, const void* q_w, const void* k_w,
+    const void* cos, const void* sin, float eps, int hq, void* pool_k,
+    void* pool_v, void* scale_k, void* scale_v, const void* k_new,
+    const void* v_new, const void* rows, const void* table, int n_rows,
+    int layer, int num_pages, int hkv, int ps, int d, int max_pages,
+    int dtype, int quant, void* stream) {
+  if (n_rows <= 0) return 0;
+  const RowWrite w{pool_k, pool_v, (float*)scale_k, (float*)scale_v, k_new,
+                   v_new, (const int32_t*)rows, (const int32_t*)table, layer,
+                   num_pages, hkv, ps, d, max_pages};
+  const QKPrologue p{q_out, q, q_w, k_w, (const float*)cos,
+                     (const float*)sin, eps, hq};
+  if (dtype == 1)
+    return quant ? launch_prep<__nv_bfloat16, true>(w, p, n_rows, stream)
+                 : launch_prep<__nv_bfloat16, false>(w, p, n_rows, stream);
+  if (dtype == 0)
+    return quant ? launch_prep<float, true>(w, p, n_rows, stream)
+                 : launch_prep<float, false>(w, p, n_rows, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dense slot cache [L, n_slots, Hkv, seq, D]: new rows [n_slots, r_rows,

@@ -15,11 +15,16 @@ Norms and softmax accumulate in float32. ``model_forward`` takes an
 ``attend`` callback so that the same block stack serves causal prefill,
 decode against the paged pool and the ragged mixed dispatch; with the carry
 form (``model_forward_carry``) the callback receives ``(pool, layer)`` and
-updates the pool in place.
+updates the pool in place. A callback whose ``fuses_qk_prep`` attribute is
+true takes the raw q and k rows and a :class:`QKPrep` as a fifth argument
+and applies the q/k RMSNorm and RoPE itself (the paged serving callbacks,
+whose row-write kernel does it in the same launch); every other callback
+receives q and k after :func:`prep_qk_plain`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -30,7 +35,9 @@ from torch import nn
 from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
 
 # attend(q [B,T,Hq,D], k [B,T,Hkv,D], v [B,T,Hkv,D], cache_l)
-#   -> (context [B,T,Hq,D], cache_l); q/k are already qk-normed and RoPE'd.
+#   -> (context [B,T,Hq,D], cache_l); q/k are already qk-normed and RoPE'd,
+# unless the callback's ``fuses_qk_prep`` is true: it then takes the raw
+# q/k and a QKPrep as a fifth argument.
 AttendFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Any],
                     Tuple[torch.Tensor, Any]]
 
@@ -82,11 +89,38 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """Full-dimension RoPE. x: [B, T, H, D]; cos/sin: [B, T, D]."""
+    """Full-dimension RoPE. x: [B, T, H, D]; cos/sin: [B, T, D] (or any
+    leading shape, one table row per row of heads)."""
     dtype = x.dtype
     rot = x.float()
     cos, sin = cos[..., None, :], sin[..., None, :]
     return (rot * cos + _rotate_half(rot) * sin).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class QKPrep:
+    """What turns a layer's raw q/k rows into the rows that attend: the
+    per-head RMSNorm weights [D] (None without ``cfg.qk_norm``), its eps,
+    and the float32 RoPE tables ``cos``/``sin`` of the rows' positions
+    ([B, T, D] as ``_embed_inputs`` builds them; a fused callback hands its
+    kernel the same tables flattened to one row per packed row)."""
+    q_norm: Optional[torch.Tensor]
+    k_norm: Optional[torch.Tensor]
+    eps: float
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def prep_qk_plain(q: torch.Tensor, k: torch.Tensor, prep: QKPrep
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The q/k prologue of every block: RMSNorm of each head (when the
+    prep carries weights), then RoPE; each rounds to the rows' dtype. q
+    [..., Hq, D] and k [..., Hkv, D] over tables [..., D]."""
+    if prep.q_norm is not None:
+        q = rms_norm(q, prep.q_norm, prep.eps)
+        k = rms_norm(k, prep.k_norm, prep.eps)
+    return (apply_rope(q, prep.cos, prep.sin),
+            apply_rope(k, prep.cos, prep.sin))
 
 
 def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -153,12 +187,14 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = _linear(h, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
     k = _linear(h, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     v = _linear(h, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"]["weight"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"]["weight"], cfg.norm_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    ctx, cache_l = attend(q, k, v, cache_l)
+    prep = QKPrep(p["q_norm"]["weight"] if cfg.qk_norm else None,
+                  p["k_norm"]["weight"] if cfg.qk_norm else None,
+                  cfg.norm_eps, cos, sin)
+    if getattr(attend, "fuses_qk_prep", False):
+        ctx, cache_l = attend(q, k, v, cache_l, prep)
+    else:
+        q, k = prep_qk_plain(q, k, prep)
+        ctx, cache_l = attend(q, k, v, cache_l)
     x = x + _linear(ctx.reshape(B, T, cfg.q_size), p["wo"])
     h2 = rms_norm(x, p["post_norm"]["weight"], cfg.norm_eps)
     return x + _mlp(h2, p), cache_l

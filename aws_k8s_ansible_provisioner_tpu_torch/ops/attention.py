@@ -37,7 +37,10 @@ order.
 The decode, verify and mixed callbacks go through the kernels of
 ``ops/paged_attention.py``: the row write and the attention over a bf16/f32
 pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
-the quantizing row write and the scale-folding attention. The dense ones go
+the quantizing row write and the scale-folding attention. They take the
+layer's raw q and k rows and its ``QKPrep`` (``fuses_qk_prep``): the row
+write is the fused one, which applies the q/k RMSNorm and RoPE in the
+launch that writes K and V and hands the attention its q. The dense ones go
 through ``ops/dense_attention.py`` the same way (K8 or K9, then K4/K5 or
 K7, bf16/f32 or int8). As in the JAX reference, all row writes land before
 any row attends, so a chunk row sees exactly its prefix, a verify row
@@ -50,18 +53,20 @@ and to ``causal_attend``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from aws_k8s_ansible_provisioner_tpu_torch.models.layers import causal_attend
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+    QKPrep, causal_attend)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import (
     cache_write_rows_dense, cache_write_rows_quant_dense,
     decode_attend_dense, decode_attend_dense_stats, spec_attend_dense)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
-    cache_write_rows_paged, cache_write_rows_quant_paged, decode_attend_paged,
-    decode_attend_spec_paged, ragged_attend_paged)
+    decode_attend_paged, decode_attend_spec_paged, prep_write_rows_paged,
+    prep_write_rows_quant_paged, ragged_attend_paged)
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
     gather_rows, sp_size)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
@@ -97,19 +102,35 @@ def decode_attend_multi(q: torch.Tensor, cache_k: torch.Tensor,
     return ctx.reshape(B, R, Hq, D).to(q.dtype)
 
 
-def _write_rows(pool: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                rows: torch.Tensor, layer: int, tables: torch.Tensor) -> dict:
-    """The layer's new K/V rows into the pool through the row-write kernel
-    (quantizing when the pool is int8); returns the scale pools as the
-    attention kernels take them (none for a bf16/f32 pool)."""
+def _prep_write_rows(pool: dict, q: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, rows: torch.Tensor, layer: int,
+                     tables: torch.Tensor, prep: QKPrep):
+    """The layer's q/k prologue and its new K/V rows into the pool in one
+    launch of the fused row write (quantizing when the pool is int8): q
+    [N, Hq, D], k/v [N, Hkv, D] raw, ``prep``'s tables [N, D]. Returns (q
+    after the prologue, the scale pools as the attention kernels take them;
+    none for a bf16/f32 pool)."""
     if "ks" in pool:
-        cache_write_rows_quant_paged(pool["k"], pool["v"], pool["ks"],
-                                     pool["vs"], k_new, v_new, rows, layer,
-                                     tables)
-        return {"pool_ks": pool["ks"], "pool_vs": pool["vs"]}
-    cache_write_rows_paged(pool["k"], pool["v"], k_new, v_new, rows, layer,
-                           tables)
-    return {}
+        q = prep_write_rows_quant_paged(pool["k"], pool["v"], pool["ks"],
+                                        pool["vs"], q, k_new, v_new, rows,
+                                        layer, tables, prep)
+        return q, {"pool_ks": pool["ks"], "pool_vs": pool["vs"]}
+    return prep_write_rows_paged(pool["k"], pool["v"], q, k_new, v_new, rows,
+                                 layer, tables, prep), {}
+
+
+def _packed(prep: QKPrep, n: int) -> QKPrep:
+    """``prep`` with its cos/sin tables [..., D] as one row per packed row
+    [n, D]."""
+    return dataclasses.replace(prep, cos=prep.cos.reshape(n, -1),
+                               sin=prep.sin.reshape(n, -1))
+
+
+def _fused(attend):
+    """Mark a paged callback as taking the raw q/k rows and the layer's
+    ``QKPrep`` (``models/layers.decoder_block``)."""
+    attend.fuses_qk_prep = True
+    return attend
 
 
 def make_decode_attend_carry_paged(lengths: torch.Tensor,
@@ -117,42 +138,49 @@ def make_decode_attend_carry_paged(lengths: torch.Tensor,
     """Decode over the paged pool: slot b writes its new K/V row at row
     ``lengths[b]`` and attends over ``lengths[b] + 1`` rows (their last
     ``window`` when it is > 0). lengths: [B] int32; table: [B, max_pages]
-    int32."""
+    int32. The callback takes the raw q/k and the layer's ``QKPrep``: the
+    fused row write applies the prologue."""
     limits = lengths + 1
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
-        scales = _write_rows(pool, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                             lengths, layer, table)
-        ctx = decode_attend_paged(q, pool["k"], pool["v"], limits, layer,
-                                  table, **scales, window=window)
+        B = q.shape[0]
+        qp, scales = _prep_write_rows(pool, q[:, 0], k[:, 0], v[:, 0],
+                                      lengths, layer, table,
+                                      _packed(prep, B))
+        ctx = decode_attend_paged(qp[:, None], pool["k"], pool["v"], limits,
+                                  layer, table, **scales, window=window)
         return ctx, (pool, layer)
 
-    return attend
+    return _fused(attend)
 
 
 def make_spec_attend_carry_paged(lengths: torch.Tensor,
                                  table: torch.Tensor, window: int = 0):
     """Speculative verify over the paged pool: slot b's R new K/V rows land
-    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch for
-    all B * R rows, the slot's table row repeated; the engine has allocated
-    pages covering ``lengths + R``), then one attention launch answers the
-    B * R queries, row r of slot b attending ``lengths[b] + 1 + r`` columns.
-    lengths: [B] int32; table: [B, max_pages] int32."""
+    at rows ``lengths[b] .. lengths[b] + R - 1`` (one fused row-write launch
+    for all B * R rows, the slot's table row repeated; the engine has
+    allocated pages covering ``lengths + R``), then one attention launch
+    answers the B * R queries, row r of slot b attending ``lengths[b] + 1 +
+    r`` columns. lengths: [B] int32; table: [B, max_pages] int32. Takes the
+    raw q/k and the layer's ``QKPrep``, as the decode callback does."""
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
         B, R = k.shape[:2]
         r = torch.arange(R, dtype=lengths.dtype, device=lengths.device)
         rows = (lengths[:, None] + r).reshape(B * R)
-        scales = _write_rows(pool, k.reshape(B * R, *k.shape[2:]),
-                             v.reshape(B * R, *v.shape[2:]), rows, layer,
-                             table.repeat_interleave(R, dim=0))
-        ctx = decode_attend_spec_paged(q, pool["k"], pool["v"], lengths,
-                                       layer, table, **scales, window=window)
+        qp, scales = _prep_write_rows(
+            pool, q.reshape(B * R, *q.shape[2:]),
+            k.reshape(B * R, *k.shape[2:]), v.reshape(B * R, *v.shape[2:]),
+            rows, layer, table.repeat_interleave(R, dim=0),
+            _packed(prep, B * R))
+        ctx = decode_attend_spec_paged(qp.reshape(q.shape), pool["k"],
+                                       pool["v"], lengths, layer, table,
+                                       **scales, window=window)
         return ctx, (pool, layer)
 
-    return attend
+    return _fused(attend)
 
 
 def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
@@ -166,18 +194,20 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
     slot's page run (all int32). ``chunk_start`` (B): the chunk's rows
     share row B's table row and their limits rise by one from row B's
     (``ragged_attend_paged``'s layout, which lets them share page loads on
-    a card)."""
+    a card). Takes the raw q/k and the layer's ``QKPrep``: one fused
+    row-write launch preps the N rows' q and k and writes their K/V."""
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
-        scales = _write_rows(pool, k[0].contiguous(), v[0].contiguous(),
-                             write_rows, layer, row_tables)
-        ctx = ragged_attend_paged(q[0], pool["k"], pool["v"], row_limits,
+        N = q.shape[1]
+        qp, scales = _prep_write_rows(pool, q[0], k[0], v[0], write_rows,
+                                      layer, row_tables, _packed(prep, N))
+        ctx = ragged_attend_paged(qp, pool["k"], pool["v"], row_limits,
                                   layer, row_tables, **scales, window=window,
                                   chunk_start=chunk_start)
         return ctx[None], (pool, layer)
 
-    return attend
+    return _fused(attend)
 
 
 def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,

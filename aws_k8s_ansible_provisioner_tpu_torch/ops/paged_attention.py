@@ -27,6 +27,14 @@
   ``cache_write_row_quant_paged``: the rows quantized
   (``serving/kv_cache.quantize_rows``) into an int8 pool, their scales into
   the scale pools.
+- :func:`prep_write_rows_paged` and :func:`prep_write_rows_quant_paged`
+  (same source, the same kernel with its q/k prologue on) replace the same
+  two TPU kernels together with the ``rms_norm`` and ``apply_rope`` of q
+  and k before them (``models/layers.py``): one launch takes the layer's
+  raw q, k and v rows, returns q normed and rotated, and writes k (normed
+  and rotated) and v, copied or quantized. The serving decode, verify and
+  mixed callbacks (``ops/attention.py``) write through them; the two
+  standalone writes stay callable with their contracts.
 
 The attention kernels are split-KV (``ops/split_kv.py``): each (query row,
 kv head), and in the verify each (slot, row group, kv head), gets
@@ -53,6 +61,8 @@ from typing import Optional
 
 import torch
 
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+    QKPrep, prep_qk_plain)
 from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build, split_kv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     quantize_rows
@@ -62,6 +72,9 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_POOL = 2
 _MAX_QUANT_D = 256
+# head dims of the fused write: a lane holds D / 32 contiguous elements, or
+# one on D lanes below 32
+_PREP_D = (2, 4, 8, 16, 32, 64, 128, 256)
 _MAX_GROUPS = 8
 # the split kernels' P.V gives each thread two output columns: D / 2 <= 128
 _MAX_D = 256
@@ -580,7 +593,8 @@ def _write_lib():
     lib = cuda_build.load("cache_write")
     fn = lib.cache_write_rows_paged
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P]
         fn.restype = _I
     return fn
 
@@ -624,7 +638,7 @@ def cache_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
         stream = torch.cuda.current_stream(pool_k.device).cuda_stream
         rc = fn(pool_k.data_ptr(), pool_v.data_ptr(), k_new.data_ptr(),
                 v_new.data_ptr(), rows.data_ptr(), table.data_ptr(), N, layer,
-                P, Hkv, ps, row_bytes, table.shape[1], stream)
+                P, Hkv, ps, D, pool_k.element_size(), table.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"cache_write_rows_paged kernel launch failed: "
                            f"CUDA error {rc}")
@@ -712,10 +726,165 @@ def cache_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     cache_write_rows_quant_paged.launches += 1
 
 
+def prep_write_rows_paged_plain(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, rows: torch.Tensor,
+                                layer: int, table: torch.Tensor,
+                                prep: QKPrep) -> torch.Tensor:
+    """Plain version of :func:`prep_write_rows_paged`:
+    ``models/layers.prep_qk_plain`` of q and k, then
+    :func:`cache_write_rows_paged_plain` of k and v; returns q."""
+    q, k_new = prep_qk_plain(q, k_new, prep)
+    cache_write_rows_paged_plain(pool_k, pool_v, k_new, v_new, rows, layer,
+                                 table)
+    return q
+
+
+def prep_write_rows_quant_paged_plain(pool_k: torch.Tensor,
+                                      pool_v: torch.Tensor,
+                                      pool_ks: torch.Tensor,
+                                      pool_vs: torch.Tensor, q: torch.Tensor,
+                                      k_new: torch.Tensor,
+                                      v_new: torch.Tensor,
+                                      rows: torch.Tensor, layer: int,
+                                      table: torch.Tensor,
+                                      prep: QKPrep) -> torch.Tensor:
+    """Plain version of :func:`prep_write_rows_quant_paged`:
+    ``models/layers.prep_qk_plain`` of q and k, then
+    :func:`cache_write_rows_quant_paged_plain` of k and v; returns q."""
+    q, k_new = prep_qk_plain(q, k_new, prep)
+    cache_write_rows_quant_paged_plain(pool_k, pool_v, pool_ks, pool_vs,
+                                       k_new, v_new, rows, layer, table)
+    return q
+
+
+def _prep_lib():
+    lib = cuda_build.load("cache_write")
+    fn = lib.prep_write_rows_paged
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P]
+        fn.restype = _I
+    return fn
+
+
+def _launch_prep(what: str, pools: tuple, q, k_new, v_new, rows, layer: int,
+                 table, prep: QKPrep) -> torch.Tensor:
+    """Check the fused write's operands and launch it. ``pools``: (k, v) of
+    q's type, or int8 (k, v) with their float32 scale pools (ks, vs).
+    Returns q after the prologue."""
+    pool_k, pool_v = pools[:2]
+    quant = len(pools) == 4
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    L, P, Hkv, ps, D = pool_k.shape
+    N, Hq = q.shape[:2]
+    norms = (prep.q_norm, prep.k_norm)
+    if (q.dim() != 3 or q.shape[2] != D or D not in _PREP_D
+            or k_new.shape != (N, Hkv, D) or v_new.shape != (N, Hkv, D)
+            or pool_v.shape != pool_k.shape
+            or prep.cos.shape != (N, D) or prep.sin.shape != (N, D)
+            or (norms[0] is None) != (norms[1] is None)
+            or (norms[0] is not None
+                and (norms[0].shape != (D,) or norms[1].shape != (D,)))):
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k_new.shape)} pool {tuple(pool_k.shape)} "
+                         f"cos {tuple(prep.cos.shape)} (D one of {_PREP_D})")
+    pool_type = torch.int8 if quant else q.dtype
+    weights = tuple(w for w in norms if w is not None)
+    if (q.dtype not in _DTYPE_CODES or k_new.dtype != q.dtype
+            or v_new.dtype != q.dtype or pool_k.dtype != pool_type
+            or pool_v.dtype != pool_type
+            or prep.cos.dtype != torch.float32
+            or prep.sin.dtype != torch.float32
+            or any(w.dtype != q.dtype for w in weights)):
+        raise TypeError(f"{what}: q, k, v and the norm weights bf16 or f32 "
+                        f"alike, cos/sin float32 and the pools "
+                        f"{pool_type} expected")
+    if quant and (pools[2].shape != pool_k.shape[:-1]
+                  or pools[3].shape != pools[2].shape
+                  or pools[2].dtype != torch.float32
+                  or pools[3].dtype != torch.float32):
+        raise TypeError(f"{what}: scale pools must be float32 [L, P, Hkv, "
+                        f"page]")
+    _check_write_index(what, rows, table, layer, L)
+    vectors = (q, k_new, v_new, prep.cos, prep.sin) + weights + pools[:2]
+    _check_cuda(what, vectors + pools[2:] + (rows, table), vectors)
+    out = torch.empty_like(q)
+    if N == 0:
+        return out
+    scales = (pools[2].data_ptr(), pools[3].data_ptr()) if quant \
+        else (None, None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _prep_lib()(
+            out.data_ptr(), q.data_ptr(),
+            *(w.data_ptr() if w is not None else None for w in norms),
+            prep.cos.data_ptr(), prep.sin.data_ptr(), float(prep.eps), Hq,
+            pool_k.data_ptr(), pool_v.data_ptr(), *scales, k_new.data_ptr(),
+            v_new.data_ptr(), rows.data_ptr(), table.data_ptr(), N, layer, P,
+            Hkv, ps, D, table.shape[1], _DTYPE_CODES[q.dtype], int(quant),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def prep_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, rows: torch.Tensor,
+                          layer: int, table: torch.Tensor,
+                          prep: QKPrep) -> torch.Tensor:
+    """K2 with the layer's q/k prologue fused in: q and k through the
+    RMSNorm of ``prep`` (when it carries weights) and RoPE, k and v written
+    into the pool as :func:`cache_write_rows_paged` writes them; returns q
+    after the prologue (for every row, dropped or kept).
+
+    q [N, Hq, D], k_new/v_new [N, Hkv, D], the layer's raw projections, of
+    the pool's type (bf16 or f32; D a power of two up to 256); pools [L, P,
+    Hkv, page, D]; rows [N] int32 (-1 drops); table [N, max_pages] int32; prep:
+    the norm weights [D] of q's type (or None) and cos/sin [N, D] float32,
+    one table row per packed row. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one launch for q, K and V).
+    """
+    if q.device.type == "cpu":
+        return prep_write_rows_paged_plain(pool_k, pool_v, q, k_new, v_new,
+                                           rows, layer, table, prep)
+    out = _launch_prep("prep_write_rows_paged", (pool_k, pool_v), q, k_new,
+                       v_new, rows, layer, table, prep)
+    prep_write_rows_paged.launches += 1
+    return out
+
+
+def prep_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                                pool_ks: torch.Tensor, pool_vs: torch.Tensor,
+                                q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, rows: torch.Tensor,
+                                layer: int, table: torch.Tensor,
+                                prep: QKPrep) -> torch.Tensor:
+    """K3 with the layer's q/k prologue fused in: as
+    :func:`prep_write_rows_paged`, with k (after its prologue) and v
+    quantized into the int8 pools and their scales into the scale pools as
+    :func:`cache_write_rows_quant_paged` quantizes them. Returns q after
+    the prologue. CPU tensors take the plain version; CUDA tensors launch
+    the kernel's int8 instance."""
+    if q.device.type == "cpu":
+        return prep_write_rows_quant_paged_plain(pool_k, pool_v, pool_ks,
+                                                 pool_vs, q, k_new, v_new,
+                                                 rows, layer, table, prep)
+    out = _launch_prep("prep_write_rows_quant_paged",
+                       (pool_k, pool_v, pool_ks, pool_vs), q, k_new, v_new,
+                       rows, layer, table, prep)
+    prep_write_rows_quant_paged.launches += 1
+    return out
+
+
 # the attention wrappers also count their window instance's launches
 _WINDOWED = (paged_attention, paged_attention_quant, paged_attention_spec,
              paged_attention_spec_quant)
-_COUNTED = _WINDOWED + (cache_write_rows_paged, cache_write_rows_quant_paged)
+_COUNTED = _WINDOWED + (cache_write_rows_paged, cache_write_rows_quant_paged,
+                        prep_write_rows_paged, prep_write_rows_quant_paged)
 # the ragged entry's wrappers also count their chunk body's launches
 _CHUNKED = (paged_attention, paged_attention_quant)
 

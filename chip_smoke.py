@@ -20,7 +20,14 @@ result when either is missing. Phases, in order (any failure raises):
    attention (5 rows per slot) over both pools;
    and over the dense cache ([28, 32, 8, 2048, 128], bf16, then int8 with
    its scales) the decode attention (K4; K5 at 4 and 8 slots per CTA), the
-   verify attention (K7) and the row write (K8; int8: K9, bit-exact);
+   verify attention (K7) and the row write (K8; int8: K9, bit-exact); and
+   the paged row write with Qwen3's q/k RMSNorm and RoPE fused in, bf16
+   and int8, at the decode's 32 rows, the verify's 32 x 5 and the ragged
+   call's 32 + 256 (q and k within one bf16 ulp of their head row's largest
+   value, v bit-exact, int8 codes within 1 and scales within 2^-8,
+   bit-identical where the bf16 k row is), timed eagerly, as one CUDA graph
+   replay, and beside the chain it replaces (the plain prologue and the
+   standalone write) replayed as one CUDA graph;
 3. engine, once per KV pool: the main path, Qwen3-0.6B at full width with
    seeded random weights through ``serving.engine.Engine`` (the default
    ServingConfig: paged, page 64, 32 slots, int8 weights; prefill_chunk 256
@@ -30,7 +37,11 @@ result when either is missing. Phases, in order (any failure raises):
    built: every decode dispatch must be one replay. The kernels' launch
    counts (a replay adds what its graph captured) are zeroed just before
    each run and read just after; each kernel of that pool must be > 0 (the
-   chunk body's launches included) and the other pool's kernels 0. The
+   chunk body's launches included) and the other pool's kernels 0; the
+   fused q/k prologue and row write must have launched once per layer of
+   every paged forward (decode substep, mixed dispatch, verify) and the
+   standalone row writes never (also in the profiled dispatch, the
+   prefix and the spec runs). The
    int8 run adds seeded sampled requests: one submitted alone and again
    beside other running requests must give the same stream. Then one
    decode dispatch of 8 slots is timed and profiled (device time by
@@ -80,7 +91,8 @@ result when either is missing. Phases, in order (any failure raises):
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
    each held against its plain version and timed (the ragged call's 512
-   chunk rows through the chunk body, within one bf16 ulp a row), the
+   chunk rows through the chunk body, within one bf16 ulp a row), the fused
+   row write without the norm (RoPE only) at the decode's 16 rows, the
    ragged call and the dense ones also with NaN pages or rows (int8:
    scales) outside their rows' ranges, which must change nothing; and K1
    at window 0 against window 4096 on rows of ~8000 columns;
@@ -142,6 +154,7 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+PEAK_F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 ATTN_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/paged_attention.cu"
 WRITE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/cache_write.cu"
 DENSE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/dense_attention.cu"
@@ -530,6 +543,199 @@ def _write_case(torch, np, pools, rows_np, table_np, layer, label):
     return res
 
 
+def _graph(torch, fn):
+    """``fn`` captured as a CUDA graph (after warm-up calls on a side
+    stream); returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph.replay
+
+
+def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
+               label, hq, theta, norm):
+    """The fused q/k prologue and row write (K2, or K3 over an int8 pool)
+    against its plain version (``models/layers.prep_qk_plain`` then the
+    standalone write) on raw q/k/v rows at ``positions_np``: q and the
+    written k rows within one bf16 ulp of their head row's largest |plain
+    value| per element (the share bit-identical reported), v bit-exact;
+    int8: v's codes and scales bit-exact, k's codes within 1 and scales
+    within 2^-8 relative, and bit-identical wherever the kernel's bf16 k
+    row (its bf16 instance, into a one-row-per-page scratch pool) is. Timed
+    eagerly (ms, device_ms), as one CUDA graph replay (graph_ms), beside the
+    plain chain eagerly (plain_ms) and as one CUDA graph replay
+    (chain_graph_ms, the yardstick), and its bound: the larger of the bytes
+    over the memory rate and the prologue's float32 operations over the
+    card's float32 rate."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        QKPrep, prep_qk_plain, rope_cos_sin)
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
+
+    quant = "ks" in pools
+    names = ("k", "v", "ks", "vs") if quant else ("k", "v")
+    leaves = [pools[n] for n in names]
+    name = "prep_write_rows_quant_paged" if quant else "prep_write_rows_paged"
+    kernel_fn, plain_fn = getattr(pa, name), getattr(pa, name + "_plain")
+    chain_write = pa.cache_write_rows_quant_paged if quant \
+        else pa.cache_write_rows_paged
+    dev = leaves[0].device
+    _, P, Hkv, ps, D = leaves[0].shape
+    N = len(rows_np)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(torch.bfloat16)
+
+    q, k, v = randn(N, hq, D, scale=3.0), randn(N, Hkv, D, scale=3.0), \
+        randn(N, Hkv, D)
+    weights = (None, None)
+    if norm:
+        weights = tuple((1.0 + 0.1 * randn(D).float()).to(torch.bfloat16)
+                        for _ in range(2))
+    cos, sin = rope_cos_sin(torch.from_numpy(positions_np).to(dev), D,
+                            theta)
+    prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
+    rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+    table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
+    refs = [t.clone() for t in leaves]
+    before = kernel_fn.launches
+    got_q = kernel_fn(*leaves, q, k, v, rows, layer, table, prep)
+    if kernel_fn.launches != before + 1:
+        raise AssertionError(f"{name} {label}: no launch counted")
+    ref_q = plain_fn(*refs, q, k, v, rows, layer, table, prep)
+    _, ref_k = prep_qk_plain(q, k, prep)
+    # the kernel's k rows after the prologue: its bf16 instance into a
+    # scratch pool of one page per row (row 0 of page n)
+    scratch = [torch.zeros((1, N, Hkv, 1, D), dtype=torch.bfloat16,
+                           device=dev) for _ in range(2)]
+    pa.prep_write_rows_paged(
+        *scratch, q, k, v, torch.zeros_like(rows), 0,
+        torch.arange(N, dtype=torch.int32, device=dev)[:, None], prep)
+    torch.cuda.synchronize()
+    got_k = scratch[0][0, :, :, 0]
+
+    def within_ulp(got, want):
+        """(every element within one bf16 ulp of its head row's largest
+        |want|, share of elements bit-identical, max abs diff)"""
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        return (bool((diff <= ulp).all()),
+                float((got == want).float().mean()), float(diff.max()))
+
+    q_ok, q_same, q_err = within_ulp(got_q, ref_q)
+    k_ok, k_same, k_err = within_ulp(got_k, ref_k)
+    sel, pg, off = (t.to(dev) for t in pa._kept_rows(rows, table, ps, P))
+    kept = (layer, pg[:, None], torch.arange(Hkv, device=dev)[None],
+            off[:, None])
+    if not (q_ok and k_ok):
+        raise AssertionError(f"{name} {label}: q (ok {q_ok}, max abs "
+                             f"{q_err:.3e}) or k (ok {k_ok}, max abs "
+                             f"{k_err:.3e}) past one bf16 ulp of its row")
+    same_k = (got_k == ref_k).all(-1)[sel]             # [kept, Hkv]
+
+    def same_bits(a, b):
+        """bit for bit (the window phase's pools hold NaN pages)"""
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+        dt = ints[a.element_size()]
+        return torch.equal(a.view(dt), b.view(dt))
+
+    def untouched_same(leaf, ref):
+        """every row but the kept rows' k bit-identical to the plain
+        version's"""
+        other = leaf.clone()
+        other[kept] = ref[kept]
+        return same_bits(other, ref)
+
+    if not all(same_bits(leaves[i], refs[i]) for i in ((1, 3) if quant
+                                                       else (1,))):
+        raise AssertionError(f"{name} {label}: v (or its scales) differs "
+                             f"from the plain version")
+    if quant:
+        codes = int((leaves[0][kept].int() - refs[0][kept].int()).abs().max())
+        rel = float(((leaves[2][kept] - refs[2][kept]).abs()
+                     / refs[2][kept]).max())
+        if codes > 1 or not rel <= 2.0 ** -8:
+            raise AssertionError(f"{name} {label}: k codes off by {codes}, "
+                                 f"scales by {rel:.3e} relative")
+        k_rows = leaves[0][kept] == refs[0][kept]      # [kept, Hkv, D]
+        k_scales = leaves[2][kept] == refs[2][kept]    # [kept, Hkv]
+        if not (k_rows.all(-1) & k_scales)[same_k].all():
+            raise AssertionError(f"{name} {label}: a bit-identical bf16 k "
+                                 f"row quantized to other codes or scale")
+        extra = {"code_max_diff": codes, "scale_max_rel": rel}
+        untouched = untouched_same(leaves[0], refs[0]) and \
+            untouched_same(leaves[2], refs[2])
+    else:
+        pool_ok, _, pool_err = within_ulp(leaves[0][kept], refs[0][kept])
+        if not pool_ok:
+            raise AssertionError(f"{name} {label}: the pool's k rows past "
+                                 f"one bf16 ulp of the plain version's")
+        extra = {"pool_k_max_abs_err": pool_err}
+        untouched = untouched_same(leaves[0], refs[0])
+    if not untouched:
+        raise AssertionError(f"{name} {label}: a k row or scale that no "
+                             f"kept row owns was written")
+    err = max(q_err, k_err)
+    mean_err = float((got_q.float() - ref_q.float()).abs().mean())
+    del refs, scratch
+
+    def kernel():
+        return kernel_fn(*leaves, q, k, v, rows, layer, table, prep)
+
+    def chain():
+        qc, kc = prep_qk_plain(q, k, prep)
+        chain_write(*leaves, kc, v, rows, layer, table)
+        return qc
+
+    ms = timed_ms(torch, kernel)
+    dev_ms = device_ms(torch, kernel)
+    plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, q, k, v, rows,
+                                                layer, table, prep),
+                        iters=5, warmup=1)
+    graph_ms = timed_ms(torch, _graph(torch, kernel))
+    chain_graph_ms = timed_ms(torch, _graph(torch, chain))
+    n_kept = len(sel)
+    out_row = D * leaves[0].element_size() + (4 if quant else 0)
+    nbytes = (2 * N * hq * D * 2 + 2 * N * Hkv * D * 2 + 2 * N * D * 4
+              + (2 * D * 2 if norm else 0) + 2 * n_kept * Hkv * out_row
+              + N * 4 + n_kept * 4)
+    # float32 operations of the prologue: RMSNorm (square, sum, scale,
+    # weight) and RoPE (two products, one sum) per q and k element
+    ops = N * (hq + Hkv) * D * ((4 if norm else 0) + 3)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    res = {"max_abs_err": err, "mean_abs_err": mean_err, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
+           "graph_ms": graph_ms, "chain_graph_ms": chain_graph_ms,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "rows": N, "q_identical_share": q_same,
+           "k_identical_share": k_same,
+           "k_rows_identical_share": float(same_k.float().mean()),
+           **extra}
+    log(f"[kernels] {name} {label}: rows {N} ({n_kept} kept), Hq {hq}, "
+        f"{'q/k norm + ' if norm else ''}RoPE; q, k within 1 bf16 ulp of "
+        f"their row (bit-identical: q {q_same:.4f}, k {k_same:.4f} of "
+        f"elements), v bit-exact"
+        f"{', int8 codes within 1, scales within 2^-8, bit-identical on the '
+           f'identical k rows' if quant else ''}; max abs err {err:.3e} "
+        f"{extra}; "
+        f"kernel_ms {ms:.4f} device_ms {dev_ms:.4f} graph_ms {graph_ms:.4f} "
+        f"plain_ms {plain_ms:.4f} chain_graph_ms {chain_graph_ms:.4f} "
+        f"bound_ms {res['bound_ms']:.5f} ({nbytes / 1e6:.3f} MB, "
+        f"{ops / 1e6:.2f} MFLOP; {res['bound_by']})")
+    return res
+
+
 def _spec_case(torch, np, pools, lengths_np, table_np, layer, label, hq=16,
                window=0):
     """K1-spec: SPEC_R rows per slot against its plain version (the ulp
@@ -907,7 +1113,9 @@ def _merge_case(torch, np, splits, rows, hq, d, label):
 def _pool_cases(torch, np, pools, lengths, table, layer, label):
     """The decode and ragged attention cases and the decode, ragged and
     dropped-row write cases of one pool (bf16 or int8); the decode also at
-    the split kernels' edges."""
+    the split kernels' edges; the fused q/k prologue and row write at the
+    decode's, the verify's and the ragged call's rows."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
     from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     max_pages = table.shape[1]
@@ -943,9 +1151,25 @@ def _pool_cases(torch, np, pools, lengths, table, layer, label):
     spec_len[:4] = [0, 59, 60, max_pages * ps - SPEC_R]
     spec = _spec_case(torch, np, pools, spec_len, table, layer,
                       f"verify, 32 slots x {SPEC_R} rows")
+    # the fused q/k prologue and row write at the decode's, the verify's
+    # and the ragged call's rows (Qwen3: q/k norm and RoPE, Hq 16)
+    prep_rows = {
+        "decode": (lengths - 1, table, lengths - 1),
+        "verify": ((spec_len[:, None] + np.arange(SPEC_R)).reshape(-1),
+                   np.repeat(table, SPEC_R, axis=0),
+                   (spec_len[:, None] + np.arange(SPEC_R)).reshape(-1)),
+        "ragged": (rows, tables, np.maximum(rows, 0))}
+    labels = {"decode": "decode 32 rows",
+              "verify": f"verify 32 x {SPEC_R} rows",
+              "ragged": "ragged 32+256"}
+    prep = {f"prep {kind}": _prep_case(
+        torch, np, pools, *prep_rows[kind], layer, labels[kind],
+        QWEN3_0_6B.num_heads, QWEN3_0_6B.rope_theta, QWEN3_0_6B.qk_norm)
+        for kind in prep_rows}
     log(f"[kernels] {label} pool done")
     return {"attention": dec, "attention_ragged": rag, "write": wr_dec,
-            "write_ragged": wr_rag, "write_dropped": wr_oob, "spec": spec}
+            "write_ragged": wr_rag, "write_dropped": wr_oob, "spec": spec,
+            **prep}
 
 
 def _make_pools(torch, gen, shape, quant):
@@ -1046,6 +1270,10 @@ def phase_kernels_window(torch, np):
                                  f"window {W}, verify {B} x {SPEC_R} rows",
                                  Hq, W)
         _paged_poison_check(torch, np, pools, spec_len, table, layer, Hq, W)
+        # the fused write without the norm (Mistral has no q/k norm)
+        res["prep"] = _prep_case(torch, np, pools, lengths - 1, table,
+                                 lengths - 1, layer, f"decode {B} rows", Hq,
+                                 cfg.rope_theta, cfg.qk_norm)
         # the same 16 rows of ~8000 columns at window 0 and at window W
         scales = (pools["ks"], pools["vs"]) if "ks" in pools else ()
         fn = pa.paged_attention_quant if scales else pa.paged_attention
@@ -1236,15 +1464,41 @@ def _dense_poison_check(torch, np, cache, lengths_np, layer, hq, window, bb,
 
 
 def _kernel_names(quant: bool):
-    """(attention, row write) launch-count names of one pool's kernels."""
-    return (("paged_attention_quant", "cache_write_rows_quant_paged") if quant
-            else ("paged_attention", "cache_write_rows_paged"))
+    """(attention, row write) launch-count names of one pool's kernels (the
+    row write with the q/k prologue fused in)."""
+    return (("paged_attention_quant", "prep_write_rows_quant_paged") if quant
+            else ("paged_attention", "prep_write_rows_paged"))
 
 
+# the standalone paged row writes (K2, K3 without the prologue): no engine
+# path launches them
+STANDALONE_WRITES = ("cache_write_rows_paged", "cache_write_rows_quant_paged")
 # the paged engine's kernels (every instance), each 0 in a dense engine run
 PAGED_KERNELS = ("paged_attention", "paged_attention_quant",
                  "paged_attention_spec", "paged_attention_spec_quant",
-                 "cache_write_rows_paged", "cache_write_rows_quant_paged")
+                 "prep_write_rows_paged", "prep_write_rows_quant_paged"
+                 ) + STANDALONE_WRITES
+
+
+def _check_fused_writes(tag, engine, launches, counts):
+    """Every layer of every paged forward of a run (decode substeps, mixed
+    dispatches, verifies; ``counts`` the engine's counts of that run) went
+    through the fused q/k prologue and row write: its launches equal layers
+    x forwards, and the standalone K2/K3 launched no time."""
+    forwards = sum(counts.get(k, 0) for k in (
+        "decode_substeps", "mixed_dispatches", "spec_dispatches"))
+    fused = sum(launches[k] for k in _kernel_names(False)[1:]
+                + _kernel_names(True)[1:])
+    want = engine.cfg.num_layers * forwards
+    if forwards <= 0 or fused != want or \
+            any(launches[k] for k in STANDALONE_WRITES):
+        alone = {k: launches[k] for k in STANDALONE_WRITES}
+        raise AssertionError(f"{tag} fused row writes {fused}, expected "
+                             f"{engine.cfg.num_layers} layers x {forwards} "
+                             f"forwards = {want}; standalone {alone}")
+    log(f"{tag} fused q/k prologue + row write: {fused} launches = "
+        f"{engine.cfg.num_layers} layers x {forwards} paged forwards "
+        f"(decode substeps, mixed dispatches, verifies); standalone K2/K3 0")
 
 
 def _dense_kernel_names(engine):
@@ -1413,6 +1667,7 @@ def phase_engine(torch, np, kv_dtype, paged=True, bblock=0):
     if launches[mine[0] + " chunk"] <= 0:
         raise AssertionError(f"no mixed dispatch's chunk rows went through "
                              f"the chunk body: {launches}")
+    _check_fused_writes(tag, engine, launches, engine.counts)
     return engine, launches
 
 
@@ -1477,7 +1732,12 @@ def phase_profile(torch, np, engine):
     tag = (f"[profile {'' if engine.paged else 'dense '}"
            f"{'int8' if 'ks' in engine.cache else 'bf16'}"
            f"{'' if engine.serving.decode_pipeline else ', pipeline off'}]")
+    before, counts0 = _launches(), dict(engine.counts)
     wall_ms = _profile_dispatch(torch, engine, tag)
+    if engine.paged:
+        _check_fused_writes(tag, engine, _delta(_launches(), before),
+                            {k: v - counts0.get(k, 0)
+                             for k, v in engine.counts.items()})
     for s in engine._active_slots():
         engine.cancel(engine.slot_req[s])
     engine.step()
@@ -1999,6 +2259,7 @@ def _prefix_run(torch, np, engine, tag, a, others, burst, fillers, probes):
                              f"kv_spill_bytes >= {restore_bytes}")
     _check_replays(tag, engine, replays0)
     k1, write = attn.__name__, _kernel_names("ks" in engine.cache)[1]
+    _check_fused_writes(tag, engine, launches, counts)
     decode = launches[k1] - ragged[0]
     if min(ragged[0], decode, launches["split_merge"], launches[write]) <= 0:
         raise AssertionError(f"{tag} K1 ragged {ragged[0]}, decode {decode}; "
@@ -2119,6 +2380,8 @@ def _logits_check(torch, engine, tol, slots=None):
     K6's triples (its decode callback); its plain step writes each shard
     through the plain writers at the local rows and attends the rows
     gathered from the shards in order."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import \
+        prep_qk_plain
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
@@ -2191,8 +2454,13 @@ def _logits_check(torch, engine, tol, slots=None):
     kernels = kernel_attend(window)
     worst = {"worst_row_max_ulps": 0.0, "worst_row_mean_ulps": 0.0}
 
-    def checked_attend(q, k, v, cache_l):
-        ctx, cache_l = kernels(q, k, v, cache_l)
+    def checked_attend(q, k, v, cache_l, *prep):
+        # a paged callback takes the raw q/k and the layer's QKPrep (its
+        # row write applies the prologue): the plain attention gets q after
+        # the plain prologue
+        ctx, cache_l = kernels(q, k, v, cache_l, *prep)
+        if prep:
+            q, _ = prep_qk_plain(q, k, prep[0])
         layer = cache_l[1]
         check = _ulp_rows(torch, f"{engine.cfg.name} layer {layer} attention",
                           ctx[rows, 0], plain_ctx(q, layer)[rows, 0],
@@ -2200,6 +2468,8 @@ def _logits_check(torch, engine, tol, slots=None):
         for key in worst:
             worst[key] = max(worst[key], check[key])
         return ctx, cache_l
+
+    checked_attend.fuses_qk_prep = getattr(kernels, "fuses_qk_prep", False)
 
     def step(attend):
         logits, _ = engine.model.forward_carry(tok[:, None], lens[:, None],
@@ -2347,6 +2617,8 @@ def phase_spec(torch, np, kv_dtype, paged=True, bblock=0):
     if max(launches[k] for k in others) != 0:
         raise AssertionError(f"{tag} the other pool's kernels launched: "
                              f"{launches}")
+    if paged:
+        _check_fused_writes(tag, engine, launches, counts)
     engine.serving = dataclasses.replace(serving, spec_decode=False)
     plain, plain_tps = run()
     engine.serving = serving
@@ -2736,9 +3008,10 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
     if launches[attn] != launches[attn + " window"]:
         raise AssertionError(f"{tag} the window-0 instance launched: "
                              f"{launches}")
-    if max(launches[k] for k in _kernel_names(not quant)) != 0:
-        raise AssertionError(f"{tag} the other pool's kernels launched: "
-                             f"{launches}")
+    if max(launches[k] for k in _kernel_names(not quant)
+           + STANDALONE_WRITES) != 0:
+        raise AssertionError(f"{tag} the other pool's kernels or a "
+                             f"standalone row write launched: {launches}")
     if counts.get("mixed_dispatches", 0) <= 0:
         raise AssertionError(f"{tag} no chunked prefill through mixed_step")
     if launches[attn + " chunk window"] <= 0 or \
@@ -3466,10 +3739,25 @@ def main() -> int:
              "auto"),
             ("paged_attention_quant", ATTN_SRC, 1014,
              kern["int8"]["attention"], "int8"),
-            ("cache_write_rows_paged", WRITE_SRC, 1243, kern["bf16"]["write"],
-             "auto"),
-            ("cache_write_rows_quant_paged", WRITE_SRC, 1313,
-             kern["int8"]["write"], "int8"),
+            # K2 and K3 with the q/k prologue fused in (the standalone
+            # writes launch on no engine path): Qwen3's decode, verify and
+            # ragged rows (q/k norm and RoPE), Mistral's decode (RoPE)
+            ("prep_write_rows_paged", WRITE_SRC, 1243,
+             kern["bf16"]["prep decode"], "auto"),
+            ("prep_write_rows_quant_paged", WRITE_SRC, 1313,
+             kern["int8"]["prep decode"], "int8"),
+            ("prep_write_rows_paged verify", WRITE_SRC, 1243,
+             kern["bf16"]["prep verify"], "spec auto"),
+            ("prep_write_rows_quant_paged verify", WRITE_SRC, 1313,
+             kern["int8"]["prep verify"], "spec int8"),
+            ("prep_write_rows_paged ragged", WRITE_SRC, 1243,
+             kern["bf16"]["prep ragged"], "auto"),
+            ("prep_write_rows_quant_paged ragged", WRITE_SRC, 1313,
+             kern["int8"]["prep ragged"], "int8"),
+            ("prep_write_rows_paged rope", WRITE_SRC, 1243,
+             wkern["bf16"]["prep"], "mistral auto"),
+            ("prep_write_rows_quant_paged rope", WRITE_SRC, 1313,
+             wkern["int8"]["prep"], "mistral int8"),
             ("paged_attention_spec", ATTN_SRC, 1169, kern["bf16"]["spec"],
              "spec auto"),
             ("paged_attention_spec_quant", ATTN_SRC, 1169,
@@ -3523,8 +3811,11 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": (f"{TPU_KERNELS}:{line}" if line
                                      else "none (part of K1, K4-K7)"),
-                        "launches": runs[run][name],
-                        **{k: res[k] for k in keys}})
+                        "launches": runs[run][name if name in runs[run]
+                                              else name.split()[0]],
+                        **{k: res[k] for k in keys},
+                        **{k: res[k] for k in ("graph_ms", "chain_graph_ms")
+                           if k in res}})
     # the combine's launches beside those of the attention launches that
     # used it (a launch with more than one split is followed by one combine)
     for run, counts in runs.items():

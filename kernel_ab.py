@@ -17,7 +17,11 @@ shapes (q bf16; each over a bf16 and an int8 pool or cache):
   tables that share 24 pages, the pool cut to 68 pages); Mistral-7B's
   window of 4096 over 16 rows with lengths up to 8192 (2 layers): decode,
   ragged (16 + 512 chunk rows) and verify (16 x 5); the decode's row
-  writes (K2, K3: 32 rows into the Qwen3 pool). A ragged case passes
+  writes (K2, K3: 32 rows into the Qwen3 pool) with Qwen3's q/k RMSNorm
+  and RoPE before them: the fused kernel (``prep_write_rows_paged``) where
+  the checkout has it, else the chain it replaces (the prologue's
+  elementwise operations, then the standalone write), eagerly (``write``)
+  and as one CUDA graph replay (``write graph``). A ragged case passes
   the chunk layout (``chunk_start``) where the checkout's wrapper takes
   it (its chunk rows then take the chunk body), else it runs the per-row
   body over every row;
@@ -35,8 +39,9 @@ slots per CTA). For each, the host-clock wall of 12 dispatches each
 between two synchronizations (median and mean a substep, and the engine
 thread's CPU time), of 12 dispatches back to back (``substep_ms_steady``,
 where a pipelined engine overlaps its emits with the next dispatch), and
-under torch.profiler of 4 more: the device's busy time a substep and its
-idle share (1 - busy / wall); with the checkout's decode graphs, their
+under torch.profiler of 4 more: the device's busy time a substep, its
+idle share (1 - busy / wall) and the device operations (kernels, copies)
+a substep; with the checkout's decode graphs, their
 capture time and device memory. A checkout without graphs or a pipeline
 runs the same cases.
 ``--engine-only`` times the engines alone: the host's clock varies from
@@ -183,6 +188,57 @@ def _prefix_hit(torch, np, pa, ctx):
         torch.cuda.empty_cache()
 
 
+def _graph(torch, fn):
+    """``fn`` captured as a CUDA graph after warm-up calls on a side
+    stream; returns the graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph.replay
+
+
+def _prep_write_call(torch, pa, gen, kv, hq, rows, layer, table):
+    """Qwen3's q/k RMSNorm and RoPE of a layer's raw q and k rows, then the
+    row write of k and v (K2, or K3 when ``kv`` has scales): the fused
+    kernel where the checkout has it (``prep_write_rows_paged``), else the
+    chain it replaces (``models/layers``'s rms_norm and apply_rope, then the
+    standalone write)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models import layers
+
+    N, Hkv, D = rows.shape[0], kv[0].shape[2], kv[0].shape[4]
+    dev = gen.device
+    q = torch.randn((N, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = _kv(torch, gen, (N, Hkv, D), False)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    cos, sin = (t.contiguous() for t in layers.rope_cos_sin(
+        torch.randint(0, 2048, (N,), generator=gen, device=dev), D, 1e6))
+    quant = len(kv) == 4
+    if hasattr(pa, "prep_write_rows_paged"):
+        fn = pa.prep_write_rows_quant_paged if quant \
+            else pa.prep_write_rows_paged
+        prep = layers.QKPrep(w, w, 1e-6, cos, sin)
+        return lambda: fn(*kv, q, k, v, rows, layer, table, prep)
+    write = pa.cache_write_rows_quant_paged if quant \
+        else pa.cache_write_rows_paged
+
+    def chain():
+        qp = layers.apply_rope(layers.rms_norm(q, w, 1e-6), cos, sin)
+        kp = layers.apply_rope(layers.rms_norm(k, w, 1e-6), cos, sin)
+        write(*kv, kp, v, rows, layer, table)
+        return qp
+
+    return chain
+
+
 def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
            chunk, spec_len):
     """K1 decode, ragged and verify over a bf16 and an int8 pool."""
@@ -214,17 +270,12 @@ def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
                   _attention_call(pa, q[:len(lim)].contiguous(), kv, lim,
                                   L - 1, tab, window, chunk_start))
         if not window:
-            # the decode's row writes (K2, K3) at the decode rows' lengths
-            rows, new = t32(lengths - 1), _kv(torch, gen, (B, Hkv, D), False)
-            if pool == "bf16":
-                def fn():
-                    return pa.cache_write_rows_paged(*kv, *new, rows, L - 1,
-                                                     cases["decode"][1])
-            else:
-                def fn():
-                    return pa.cache_write_rows_quant_paged(
-                        *kv, *new, rows, L - 1, cases["decode"][1])
+            # the decode's q/k prologue and row write (K2, K3) at the
+            # decode rows' lengths, eagerly and as one graph replay
+            fn = _prep_write_call(torch, pa, gen, kv, hq, t32(lengths - 1),
+                                  L - 1, cases["decode"][1])
             _case(torch, ctx, f"{tag}{pool} write", fn)
+            _case(torch, ctx, f"{tag}{pool} write graph", _graph(torch, fn))
         lens, tab = t32(spec_len), t32(table)
         if pool == "bf16":
             def fn():
@@ -335,7 +386,8 @@ def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
     end (``substep_ms_steady``: a pipelined engine overlaps one dispatch's
     emits with the next one's device work there); and 4 dispatches back to
     back under torch.profiler (CUDA activity only): the device's busy time
-    a substep and its idle share over that window."""
+    a substep, its idle share over that window and the device operations
+    (kernels, copies; a graph's nodes) a substep."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,6 +429,7 @@ def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in events if e.self_device_time_total > 0)
     # the row write's device time a launch (a graph node under a replay)
     writes = [e for e in events if "cache_write" in e.key and e.count]
     write_us = (sum(e.self_device_time_total for e in writes)
@@ -388,6 +441,7 @@ def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
         "substep_cpu_ms_median": statistics.median(cpus) / horizon,
         "substep_ms_steady": steady,
         "busy_ms_per_substep": busy / (4 * horizon),
+        "device_ops_per_substep": ops / (4 * horizon),
         "idle_share": 1 - busy / prof_ms if busy else float("nan"),
         "row_write_us": write_us,
         "setup_s": setup_s,

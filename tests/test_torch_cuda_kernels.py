@@ -14,8 +14,14 @@ ulp of outputs below 4 in magnitude is at most 2^-6), over bf16/f32 pools
 and int8 pools alike. K6, the stats form of the dense decode, returns the
 float32 flash triple: m and l within 1e-4 relative and acc / l within
 1e-4 of the plain version's; merged over 2 and 4 shards it is held to K4
-by the tolerances above.
+by the tolerances above. The fused q/k prologue and row write: v and,
+without the norm, q and k bit-identical to the plain version; with the
+norm (its sum of squares taken in another order) q and k within one bf16
+ulp of each head row's largest value (float32: 1e-5 of it), int8 codes
+within 1 and scales within 2^-8, bit-identical where the k row is.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1433,3 +1439,153 @@ def test_ragged_chunk_body_at_split_edges(dev, quant, window):
         got = _chunk_case(dev, quant, 2, ps, window, C, pstart,
                           seed=170 + pages, hkv=hkv, maxp=maxp)
         assert got == splits
+
+
+# -- the fused q/k prologue and row write (K2, K3 with the prologue) --------
+
+
+def _bf16_ulp_of_rows(ref):
+    """bf16 ulp of each head row's largest |value| (8 significant bits),
+    broadcast over the row."""
+    top = ref.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def _prep_inputs(dev, dtype, quant, norm, hq, hkv, d, seed):
+    """Dropped rows (-1, past the window, OOB_PAGE tables), kept rows and
+    chunk rows sharing one table's pages; raw q/k/v rows of ``dtype``, the
+    RoPE tables of the rows' positions, norm weights (or none), a random
+    pool (int8 with scales when ``quant``)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        QKPrep, rope_cos_sin)
+
+    maxp, ps, N = 3, 8, 8
+    rng, _, _, table = _layout(N, 1, hkv, ps, 16, maxp, seed=seed)
+    table[0, :] = OOB_PAGE
+    table[1, :] = OOB_PAGE
+    table[5:] = table[4]
+    rows = np.array([-1, maxp * ps, 0, 23, 12, 13, 14, 15], np.int32)
+    positions = np.maximum(rows, 0) + rng.integers(0, 30000)
+    t = [torch.from_numpy((3 * rng.standard_normal(shape)).astype(
+        np.float32)).to(dev, dtype)
+        for shape in ((N, hq, d), (N, hkv, d), (N, hkv, d))]
+    weights = (None, None)
+    if norm:
+        weights = tuple(torch.from_numpy(
+            (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
+                dev, dtype) for _ in range(2))
+    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev), d, 1e6)
+    prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
+    P = N * maxp + 1
+    if quant:
+        pools = _int8_pools(rng, 2, P, hkv, ps, d, dev)
+    else:
+        pools = [torch.from_numpy(rng.standard_normal((2, P, hkv, ps, d))
+                                  .astype(np.float32)).to(dev, dtype)
+                 for _ in range(2)]
+    return (t, torch.from_numpy(rows).to(dev),
+            torch.from_numpy(table).to(dev), prep, pools)
+
+
+def _close_rows(got, ref, dtype):
+    """bf16: every element within one bf16 ulp of its head row's largest
+    |plain value| (the norm's sum of squares is taken in another order);
+    float32: within 1e-5 of that value."""
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        return bool((diff <= _bf16_ulp_of_rows(ref)).all())
+    top = ref.float().abs().amax(-1, keepdim=True)
+    return bool((diff <= 1e-5 * top.clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm", [True, False], ids=["qk_norm", "rope"])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (32, 8, 128),
+                                      (4, 2, 64), (8, 2, 256), (4, 2, 16)])
+def test_prep_write_matches_plain(dev, dtype, norm, hq, hkv, d):
+    """The fused write over a bf16/f32 pool: q and the written k rows
+    within the row tolerance of the plain version (bit-identical without
+    the norm), v and every untouched row bit-identical, one launch."""
+    (q, k, v), rows, table, prep, pools = _prep_inputs(
+        dev, dtype, False, norm, hq, hkv, d, seed=40)
+    ref = [p.clone() for p in pools]
+    before = tpa.prep_write_rows_paged.launches
+    got_q = tpa.prep_write_rows_paged(*pools, q, k, v, rows, 1, table, prep)
+    assert tpa.prep_write_rows_paged.launches == before + 1
+    ref_q = tpa.prep_write_rows_paged_plain(*ref, q, k, v, rows, 1, table,
+                                            prep)
+    torch.cuda.synchronize()
+    assert got_q.dtype == dtype and got_q.shape == q.shape
+    assert torch.equal(pools[1], ref[1])
+    if norm:
+        assert _close_rows(got_q, ref_q, dtype)
+        assert _close_rows(pools[0], ref[0], dtype)
+    else:
+        assert torch.equal(got_q, ref_q) and torch.equal(pools[0], ref[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm", [True, False], ids=["qk_norm", "rope"])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (32, 8, 128),
+                                      (4, 2, 64), (8, 2, 256), (4, 2, 16)])
+def test_prep_write_quant_matches_plain(dev, dtype, norm, hq, hkv, d):
+    """The fused write's int8 instance: v's codes and scales bit-identical;
+    k's codes within 1 and scales within 2^-8 relative of the plain
+    version's, and bit-identical on every (row, head) whose k row after
+    the prologue (the bf16/f32 instance's) is bit-identical to plain."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import \
+        prep_qk_plain
+
+    (q, k, v), rows, table, prep, pools = _prep_inputs(
+        dev, dtype, True, norm, hq, hkv, d, seed=41)
+    ref = [p.clone() for p in pools]
+    before = tpa.prep_write_rows_quant_paged.launches
+    got_q = tpa.prep_write_rows_quant_paged(*pools, q, k, v, rows, 1, table,
+                                            prep)
+    assert tpa.prep_write_rows_quant_paged.launches == before + 1
+    ref_q = tpa.prep_write_rows_quant_paged_plain(*ref, q, k, v, rows, 1,
+                                                  table, prep)
+    # the kernel's k rows after the prologue, from its bf16/f32 instance
+    rows_pool = [torch.zeros(pools[0].shape, dtype=dtype, device=dev)
+                 for _ in range(2)]
+    tpa.prep_write_rows_paged(*rows_pool, q, k, v, rows, 1, table, prep)
+    _, k_plain = prep_qk_plain(q, k, prep)
+    torch.cuda.synchronize()
+    assert torch.equal(pools[1], ref[1]) and torch.equal(pools[3], ref[3])
+    assert (pools[0].int() - ref[0].int()).abs().max() <= 1
+    rel = ((pools[2] - ref[2]).abs() / ref[2]).max()
+    assert rel <= 2.0 ** -8
+    if not norm:
+        assert torch.equal(got_q, ref_q)
+    assert _close_rows(got_q, ref_q, dtype)
+    # rows whose k after the prologue is bit-identical: identical codes
+    ps = pools[0].shape[3]
+    for n, row in enumerate(rows.tolist()):
+        if not 0 <= row < table.shape[1] * ps:
+            continue
+        page, off = int(table[n, row // ps]), row % ps
+        for h in range(hkv):
+            if torch.equal(rows_pool[0][1, page, h, off], k_plain[n, h]):
+                assert torch.equal(pools[0][1, page, h, off],
+                                   ref[0][1, page, h, off])
+                assert torch.equal(pools[2][1, page, h, off],
+                                   ref[2][1, page, h, off])
+
+
+def test_prep_write_refuses_what_the_kernel_does_not_take(dev):
+    (q, k, v), rows, table, prep, pools = _prep_inputs(
+        dev, torch.bfloat16, False, True, 4, 2, 64, seed=42)
+    with pytest.raises(ValueError):           # D 48: not a power of two
+        tpa.prep_write_rows_paged(
+            *(p[..., :48].contiguous() for p in pools), q[..., :48]
+            .contiguous(), k[..., :48].contiguous(),
+            v[..., :48].contiguous(), rows, 1, table, prep)
+    with pytest.raises(TypeError):            # float32 weights, bf16 rows
+        tpa.prep_write_rows_paged(
+            *pools, q, k, v, rows, 1, table,
+            dataclasses.replace(prep, q_norm=prep.q_norm.float(),
+                                k_norm=prep.k_norm.float()))
+    with pytest.raises(ValueError):           # tables of the wrong length
+        tpa.prep_write_rows_paged(
+            *pools, q, k, v, rows, 1, table,
+            dataclasses.replace(prep, cos=prep.cos[:4], sin=prep.sin[:4]))

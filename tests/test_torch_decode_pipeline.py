@@ -23,6 +23,7 @@ tiny sizes (tiny_qwen3 at float32, tiny_mistral for the window):
 """
 
 import dataclasses
+import functools
 import threading
 import time
 
@@ -442,6 +443,7 @@ def test_decode_substep_reads_nothing_on_the_host(qwen, monkeypatch, paged,
     def exempt(*a, **kw):
         attend = factory(*a, **kw)
 
+        @functools.wraps(attend)         # keeps its fuses_qk_prep mark
         def plain(*args):
             with lifted():
                 return attend(*args)
