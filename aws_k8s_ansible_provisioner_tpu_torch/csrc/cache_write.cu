@@ -1,34 +1,45 @@
 // K/V row writes: one new K row and one new V row per packed query row,
-// written in place into the page pool; copied as they are
-// (cache_write_rows_paged) or quantized to int8 with a float32 scale per
-// row and kv head (cache_write_rows_quant_paged); and the same two writes
-// with the layer's q/k prologue fused in (prep_write_rows_paged: the q/k
+// written in place into the page pool or the dense slot cache; copied as
+// they are or quantized to int8 with a float32 scale per row and kv head;
+// and the same writes with the layer's q/k prologue fused in (the q/k
 // RMSNorm of Qwen3 and RoPE on q and k in the launch that writes K and V).
-// And the dense slot cache's two writes, R rows per slot: the copy
-// (cache_write_rows_dense) and the quantizing write
-// (cache_write_rows_quant_dense).
+// One kernel serves all six entries: cache_write_rows_paged (K2),
+// cache_write_rows_quant_paged (K3), prep_write_rows_paged (both with the
+// prologue), cache_write_rows_dense (K8), cache_write_rows_quant_dense (K9)
+// and prep_write_rows_dense (both with the prologue).
 //
 // Replaces: aws_k8s_ansible_provisioner_tpu/ops/pallas_attention.py:
 //   cache_write_row_paged and cache_write_row_quant_paged (each called once
 //   for K and once for V per layer, after models/layers.py's rms_norm and
 //   apply_rope of q and k), cache_write_row (the dense cache, once for K and
-//   once for V per layer and per verify row), and cache_write_row_quant (the
-//   dense int8 cache, the same calls).
+//   once for V per layer and per verify row, after the same prologue), and
+//   cache_write_row_quant (the dense int8 cache, the same calls).
 //
-// Contract (same as the TPU kernel): pool [L, P, Hkv, ps, D]; new rows
-// [N, Hkv, D]; rows [N] int32; table [N, max_pages] int32. Row n lands at
-// page table[n, rows[n] / ps], offset rows[n] % ps. A row outside
+// The paged contract (same as the TPU kernel): pool [L, P, Hkv, ps, D]; new
+// rows [N, Hkv, D]; rows [N] int32; table [N, max_pages] int32. Row n lands
+// at page table[n, rows[n] / ps], offset rows[n] % ps. A row outside
 // [0, max_pages * ps) is dropped, and that check comes BEFORE the table is
 // read: padding tables hold OOB_PAGE (INT32_MAX) and mixed_step's dead
 // passenger carries row -1. A page id outside [0, P) is dropped as well.
 //
-// The paged writes are one kernel, cache_write_rows_paged_kernel, with the
-// prologue on (PREP) or off, copying or quantizing (QUANT). One CTA of 8
-// warps per (packed row, group of 8 heads), one warp per head row: with the
-// prologue the row's Hq q heads, then its Hkv k heads, then its Hkv v heads
-// (the layer's raw projections); without it the k and v heads. A warp holds
-// its head row in registers, E contiguous elements a lane (D = 32 E: at
-// D = 128 four, loaded in 8 bytes; below 32, one a lane on D lanes), and
+// The dense contract (cache_write_row's and cache_write_row_quant's): cache
+// [L, B, Hkv, S, D] (int8: scales [L, B, Hkv, S] float32); new rows
+// [B, R, Hkv, D] packed as N = B R rows; rows [B, R] int32. Packed row
+// n = b R + r lands at row rows[n] of slot b: the paged address with page
+// b, a page size of S and no table read (RowWrite::r_rows > 0). A row
+// outside [0, S) is dropped. The Pallas kernels rewrite the row's whole
+// 8-row (int8: 32-row) block and, int8, the slot's whole scale row; the
+// port writes the row and its scale alone, which is the same result since
+// the rest is written back unchanged. A verify's R rows of one layer are
+// one launch where the TPU made 2 R.
+//
+// The kernel, cache_write_rows_kernel, runs with the prologue on (PREP) or
+// off, copying or quantizing (QUANT). One CTA of 8 warps per (packed row,
+// group of 8 heads), one warp per head row: with the prologue the row's Hq
+// q heads, then its Hkv k heads, then its Hkv v heads (the layer's raw
+// projections); without it the k and v heads. A warp holds its head row in
+// registers, E contiguous elements a lane (D = 32 E: at D = 128 four,
+// loaded in 8 bytes; below 32, one a lane on D lanes), and
 // - q and k (prologue on): the norm (when the caller passes weights) as
 //   sum of squares by a shuffle reduction, rsqrtf(sum / D + eps), times
 //   the weight, rounded to the rows' type; then RoPE in float32 on that
@@ -40,12 +51,13 @@
 //   plain version's separate operations do; only the order of the sum of
 //   squares differs from it. q goes out to q_out for every row, kept or
 //   dropped;
-// - k and v of a kept row are stored into the pool, or quantized as the
-//   quantizing writes below quantize (quant_scale_warp) and stored with
-//   their scale.
+// - k and v of a kept row are stored into the cache, or quantized
+//   (quant_scale_warp, quant_code) and stored with their scale.
 // Without the prologue (the standalone writes) a lane moves 8 elements a
 // pass, masked at the row's end; the copy is of the elements' bits (any
-// element size), so one kernel serves bf16 and float32 pools.
+// element size), so one kernel serves bf16 and float32 caches. Every
+// offset into a cache is int64_t: Mistral's dense cache holds 32 x 16 x 8 x
+// 8192 x 128 elements a leaf.
 //
 // What bounds it on the H100: bytes, and at the main path's sizes the
 // launch. The fused write reads q, k and v once (N (Hq + 2 Hkv) D
@@ -61,23 +73,11 @@
 // scale = max(amax, 1e-6) * float32(1/127) (XLA turns the division by the
 // constant into that product), q = round_half_even(x / scale) with an IEEE
 // division, so their int8 rows and scales are bit-identical to the plain
-// version on equal rows, and rows quantized by the prefill scatters and by
-// these kernels are alike. Rows that share a page land at their own
-// offsets, every one of them (the Pallas kernel's scale block spans a whole
-// page; see ROADMAP C6).
-//
-// The dense writes' contract (cache_write_row's and cache_write_row_quant's):
-// cache [L, B, Hkv, S, D] (int8: scales [L, B, Hkv, S] float32); new rows
-// [B, R, Hkv, D]; rows [B, R] int32. Slot b's row r lands at row rows[b, r]
-// of slot b; a row outside [0, S) is dropped. Their designs are the paged
-// ones with the slot's contiguous rows for the table: one CTA per (slot,
-// row), K and V in one launch, so a verify's R rows of one layer are one
-// launch where the TPU made 2 R. The Pallas kernels rewrite the row's whole
-// 8-row (int8: 32-row) block and, int8, the slot's whole scale row; the
-// port writes the row and its scale alone, which is the same result since
-// the rest is written back unchanged. The dense copy moves 16 bytes a
-// thread (uint4); the dense quantizing write is one CTA per (slot, row) and
-// K or V, a warp per kv head (quantize_row_warp).
+// version on equal rows (the amax is exact in any order, the codes
+// elementwise), and rows quantized by the prefill scatters and by these
+// kernels are alike. Rows that share a page land at their own offsets,
+// every one of them (the Pallas kernel's scale block spans a whole page;
+// see ROADMAP C6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,35 +85,12 @@
 
 namespace {
 
-constexpr int kMaxD = 256;
 constexpr float kInv127 = 1.0f / 127.0f;
 constexpr unsigned kFull = 0xffffffffu;
-// warps (head rows) per CTA of the paged writes
+// warps (head rows) per CTA of the row writes
 constexpr int kWriteWarps = 8;
-// elements a lane moves per pass in the paged writes without the prologue
+// elements a lane moves per pass in the row writes without the prologue
 constexpr int kPlainE = 8;
-
-__global__ void cache_write_rows_dense_kernel(
-    uint4* __restrict__ cache_k, uint4* __restrict__ cache_v,
-    const uint4* __restrict__ k_new, const uint4* __restrict__ v_new,
-    const int32_t* __restrict__ rows, int r_rows, int layer, int n_slots,
-    int hkv, int seq, int vec_per_row) {
-  const int i_row = blockIdx.x;                  // b * r_rows + r
-  const int b = i_row / r_rows;
-  const int row = rows[i_row];
-  if (row < 0 || row >= seq) return;             // dropped
-  const int total = hkv * vec_per_row;
-  const int64_t slot_base = ((int64_t)layer * n_slots + b) * hkv;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int h = i / vec_per_row;
-    const int c = i - h * vec_per_row;
-    const int64_t dst =
-        ((slot_base + h) * seq + row) * (int64_t)vec_per_row + c;
-    const int64_t src = (int64_t)i_row * total + i;
-    cache_k[dst] = k_new[src];
-    cache_v[dst] = v_new[src];
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
@@ -135,7 +112,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 
 // The int8 row's scale over one warp's values of it (E a lane; values a
 // lane does not hold are 0): max(amax, 1e-6) * float32(1/127), amax by a
-// shuffle reduction (K3's, K9's and the fused write's quantizer).
+// shuffle reduction (the quantizer of every int8 row write).
 template <int E>
 __device__ __forceinline__ float quant_scale_warp(const float (&x)[E]) {
   float amax = 0.f;
@@ -152,41 +129,20 @@ __device__ __forceinline__ int8_t quant_code(float x, float scale) {
   return (int8_t)rintf(__fdiv_rn(x, scale));
 }
 
-// One warp quantizes one (row, kv head) of D values (K9's): the row is read
-// once into registers (column lane + 32 i), its scale by quant_scale_warp,
-// 32 neighbouring lanes storing 32 neighbouring bytes; lane 0 stores the
-// scale.
-template <typename T>
-__device__ __forceinline__ void quantize_row_warp(const T* __restrict__ x,
-                                                  int8_t* __restrict__ out,
-                                                  float* __restrict__ scale_out,
-                                                  int d, int lane) {
-  float vals[kMaxD / 32];
-#pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) {
-    const int c = lane + 32 * i;
-    vals[i] = c < d ? to_float(x[c]) : 0.f;
-  }
-  const float scale = quant_scale_warp(vals);
-#pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < d) out[c] = quant_code(vals[i], scale);
-  }
-  if (lane == 0) *scale_out = scale;
-}
-
-// The paged pool side of a row write.
+// The cache side of a row write: a page pool [L, P, Hkv, ps, D] read
+// through a table (r_rows 0), or the dense slot cache [L, B, Hkv, S, D]
+// as a pool of B pages of S rows, packed row n on page n / r_rows.
 struct RowWrite {
   void* pool_k;
   void* pool_v;
-  float* scale_k;          // int8 pools: scale pools [L, P, Hkv, ps]
+  float* scale_k;          // int8: scales [L, P, Hkv, ps]
   float* scale_v;
   const void* k_new;       // [N, Hkv, D]
   const void* v_new;
   const int32_t* rows;     // [N]
-  const int32_t* table;    // [N, max_pages]
+  const int32_t* table;    // [N, max_pages]; dense: unused
   int layer, num_pages, hkv, ps, d, max_pages;
+  int r_rows;              // dense: rows a slot; paged: 0
 };
 
 // The q/k prologue of a fused write.
@@ -208,13 +164,21 @@ struct alignas(sizeof(T) * E < 16 ? sizeof(T) * E : 16) Pack {
 };
 
 // Row index (in rows of D) of packed row n's (layer, page, head 0, offset)
-// in the pool, or -1 when the row drops: outside [0, max_pages * ps) before
-// its table entry is read, or on a page outside [0, P).
+// in the pool, or -1 when the row drops. Paged: outside [0, max_pages * ps)
+// before its table entry is read, or on a page outside [0, P). DENSE: page
+// n / r_rows (the slot), offset the row itself, outside [0, S) dropped.
+template <bool DENSE>
 __device__ __forceinline__ int64_t kept_row(const RowWrite& w, int n) {
   const int row = w.rows[n];
-  if (row < 0 || row >= w.max_pages * w.ps) return -1;
-  const int page = w.table[(int64_t)n * w.max_pages + row / w.ps];
-  if (page < 0 || page >= w.num_pages) return -1;
+  int page;
+  if constexpr (DENSE) {
+    if (row < 0 || row >= w.ps) return -1;
+    page = n / w.r_rows;
+  } else {
+    if (row < 0 || row >= w.max_pages * w.ps) return -1;
+    page = w.table[(int64_t)n * w.max_pages + row / w.ps];
+    if (page < 0 || page >= w.num_pages) return -1;
+  }
   return ((int64_t)w.layer * w.num_pages + page) * w.hkv * w.ps
          + row % w.ps;
 }
@@ -298,16 +262,17 @@ __device__ __forceinline__ void qk_prologue(T (&x)[E], const T* weight,
   for (int j = 0; j < E; ++j) x[j] = from_float<T>(f[j]);
 }
 
-// The paged row write, with the q/k prologue (PREP) or without, copying
-// or quantizing (QUANT) K and V. Grid (N, head groups of kWriteWarps);
-// warp w of group g takes head row g * kWriteWarps + w of the packed row:
-// q heads (PREP only), then k heads, then v heads. T: the rows' type
+// The row write (paged or dense), with the q/k prologue (PREP) or
+// without, copying or quantizing (QUANT) K and V. Grid (N, head groups of
+// kWriteWarps); warp w of group g takes head row g * kWriteWarps + w of
+// the packed row: q heads (PREP only), then k heads, then v heads; DENSE
+// addresses the dense slot cache (RowWrite::r_rows > 0). T: the rows' type
 // (without PREP and QUANT an unsigned integer of the element's size).
 // PREP needs D = 32 E, or E = 1 and D a power of two below 32 (the row on
 // lanes [0, D)); QUANT D <= 32 E.
-template <typename T, int E, bool PREP, bool QUANT>
+template <typename T, int E, bool PREP, bool QUANT, bool DENSE>
 __global__ void __launch_bounds__(32 * kWriteWarps)
-cache_write_rows_paged_kernel(const RowWrite w, const QKPrologue p) {
+cache_write_rows_kernel(const RowWrite w, const QKPrologue p) {
   const int n = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int hq = PREP ? p.hq : 0;
@@ -318,7 +283,7 @@ cache_write_rows_paged_kernel(const RowWrite w, const QKPrologue p) {
   const int hh = is_q ? h : h - hq - (is_v ? w.hkv : 0);
   int64_t dst = 0;
   if (!is_q) {
-    dst = kept_row(w, n);
+    dst = kept_row<DENSE>(w, n);
     if (dst < 0) return;                     // dropped; q goes out anyway
     dst += (int64_t)hh * w.ps;
   }
@@ -371,12 +336,16 @@ cache_write_rows_paged_kernel(const RowWrite w, const QKPrologue p) {
 }
 
 template <typename T, int E, bool PREP, bool QUANT>
-int launch_paged(const RowWrite& w, const QKPrologue& p, int n_rows,
-                 void* stream) {
+int launch_rows(const RowWrite& w, const QKPrologue& p, int n_rows,
+                void* stream) {
   const int heads = (PREP ? p.hq : 0) + 2 * w.hkv;
   const dim3 grid(n_rows, (heads + kWriteWarps - 1) / kWriteWarps);
-  cache_write_rows_paged_kernel<T, E, PREP, QUANT>
-      <<<grid, 32 * kWriteWarps, 0, (cudaStream_t)stream>>>(w, p);
+  if (w.r_rows > 0)
+    cache_write_rows_kernel<T, E, PREP, QUANT, true>
+        <<<grid, 32 * kWriteWarps, 0, (cudaStream_t)stream>>>(w, p);
+  else
+    cache_write_rows_kernel<T, E, PREP, QUANT, false>
+        <<<grid, 32 * kWriteWarps, 0, (cudaStream_t)stream>>>(w, p);
   return (int)cudaGetLastError();
 }
 
@@ -385,46 +354,65 @@ int launch_prep(const RowWrite& w, const QKPrologue& p, int n_rows,
                 void* stream) {
   switch (w.d) {
     case 2: case 4: case 8: case 16: case 32:
-      return launch_paged<T, 1, true, QUANT>(w, p, n_rows, stream);
-    case 64: return launch_paged<T, 2, true, QUANT>(w, p, n_rows, stream);
-    case 128: return launch_paged<T, 4, true, QUANT>(w, p, n_rows, stream);
-    case 256: return launch_paged<T, 8, true, QUANT>(w, p, n_rows, stream);
+      return launch_rows<T, 1, true, QUANT>(w, p, n_rows, stream);
+    case 64: return launch_rows<T, 2, true, QUANT>(w, p, n_rows, stream);
+    case 128: return launch_rows<T, 4, true, QUANT>(w, p, n_rows, stream);
+    case 256: return launch_rows<T, 8, true, QUANT>(w, p, n_rows, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K9: the dense cache's quantizing write. One CTA per (slot, row) and K or
-// V, a warp per kv head.
-template <typename T>
-__global__ void cache_write_rows_quant_dense_kernel(
-    int8_t* __restrict__ cache_k, int8_t* __restrict__ cache_v,
-    float* __restrict__ scale_k, float* __restrict__ scale_v,
-    const T* __restrict__ k_new, const T* __restrict__ v_new,
-    const int32_t* __restrict__ rows, int r_rows, int layer, int n_slots,
-    int hkv, int seq, int d) {
-  const int i_row = blockIdx.x;                  // b * r_rows + r
-  const bool is_v = blockIdx.y == 1;
-  const int b = i_row / r_rows;
-  const int row = rows[i_row];
-  if (row < 0 || row >= seq) return;             // dropped
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const T* src = (is_v ? v_new : k_new) + (int64_t)i_row * hkv * d;
-  int8_t* cache = is_v ? cache_v : cache_k;
-  float* scales = is_v ? scale_v : scale_k;
-  const int64_t slot_base = ((int64_t)layer * n_slots + b) * hkv;
-  for (int h = threadIdx.x >> 5; h < hkv; h += warps) {
-    const int64_t dst = (slot_base + h) * seq + row;
-    quantize_row_warp(src + (int64_t)h * d, cache + dst * d, scales + dst, d,
-                      lane);
+// The copy without the prologue, over elements of elem_size bytes (1, 2, 4
+// or 8; only their bits move).
+int launch_copy(const RowWrite& w, int elem_size, int n_rows,
+                void* stream) {
+  const QKPrologue none{};
+  constexpr int E = kPlainE;
+  switch (elem_size) {
+    case 1: return launch_rows<uint8_t, E, false, false>(w, none, n_rows,
+                                                         stream);
+    case 2: return launch_rows<uint16_t, E, false, false>(w, none, n_rows,
+                                                          stream);
+    case 4: return launch_rows<uint32_t, E, false, false>(w, none, n_rows,
+                                                          stream);
+    case 8: return launch_rows<uint64_t, E, false, false>(w, none, n_rows,
+                                                          stream);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The quantizing write without the prologue; dtype of the new rows:
+// 0 = float32, 1 = bfloat16; D <= 256.
+int launch_quant(const RowWrite& w, int dtype, int n_rows, void* stream) {
+  if (w.d < 1 || w.d > 32 * kPlainE) return (int)cudaErrorInvalidValue;
+  const QKPrologue none{};
+  if (dtype == 1)
+    return launch_rows<__nv_bfloat16, kPlainE, false, true>(w, none, n_rows,
+                                                            stream);
+  if (dtype == 0)
+    return launch_rows<float, kPlainE, false, true>(w, none, n_rows, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The write with the prologue, copying (quant 0) or quantizing (1); dtype
+// of q, k, v and the weights: 0 = float32, 1 = bfloat16.
+int launch_prep_any(const RowWrite& w, const QKPrologue& p, int dtype,
+                    int quant, int n_rows, void* stream) {
+  if (dtype == 1)
+    return quant ? launch_prep<__nv_bfloat16, true>(w, p, n_rows, stream)
+                 : launch_prep<__nv_bfloat16, false>(w, p, n_rows, stream);
+  if (dtype == 0)
+    return quant ? launch_prep<float, true>(w, p, n_rows, stream)
+                 : launch_prep<float, false>(w, p, n_rows, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Copies the new rows' elements (elem_size bytes each: 1, 2, 4 or 8) into
-// the pool: the paged write without the prologue. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Every entry returns cudaGetLastError() after its launch (0 = launched).
+
+// K2: copies the new rows' elements (elem_size bytes each: 1, 2, 4 or 8)
+// into the pool through the table: the paged write without the prologue.
 extern "C" int cache_write_rows_paged(
     void* pool_k, void* pool_v, const void* k_new, const void* v_new,
     const void* rows, const void* table, int n_rows, int layer,
@@ -433,43 +421,23 @@ extern "C" int cache_write_rows_paged(
   if (n_rows <= 0) return 0;
   const RowWrite w{pool_k, pool_v, nullptr, nullptr, k_new, v_new,
                    (const int32_t*)rows, (const int32_t*)table, layer,
-                   num_pages, hkv, ps, d, max_pages};
-  const QKPrologue none{};
-  constexpr int E = kPlainE;
-  switch (elem_size) {
-    case 1: return launch_paged<uint8_t, E, false, false>(w, none, n_rows,
-                                                          stream);
-    case 2: return launch_paged<uint16_t, E, false, false>(w, none, n_rows,
-                                                           stream);
-    case 4: return launch_paged<uint32_t, E, false, false>(w, none, n_rows,
-                                                           stream);
-    case 8: return launch_paged<uint64_t, E, false, false>(w, none, n_rows,
-                                                           stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                   num_pages, hkv, ps, d, max_pages, 0};
+  return launch_copy(w, elem_size, n_rows, stream);
 }
 
-// Quantizing row write into an int8 pool and its float32 scale pools
+// K3: quantizing row write into an int8 pool and its float32 scale pools
 // [L, P, Hkv, ps]: the paged write without the prologue. dtype of the new
-// rows: 0 = float32, 1 = bfloat16. D <= 256 (the wrapper checks). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// rows: 0 = float32, 1 = bfloat16. D <= 256 (the wrapper checks).
 extern "C" int cache_write_rows_quant_paged(
     void* pool_k, void* pool_v, void* scale_k, void* scale_v,
     const void* k_new, const void* v_new, const void* rows,
     const void* table, int n_rows, int layer, int num_pages, int hkv,
     int ps, int d, int max_pages, int dtype, void* stream) {
   if (n_rows <= 0) return 0;
-  if (d < 1 || d > 32 * kPlainE) return (int)cudaErrorInvalidValue;
   const RowWrite w{pool_k, pool_v, (float*)scale_k, (float*)scale_v, k_new,
                    v_new, (const int32_t*)rows, (const int32_t*)table, layer,
-                   num_pages, hkv, ps, d, max_pages};
-  const QKPrologue none{};
-  if (dtype == 1)
-    return launch_paged<__nv_bfloat16, kPlainE, false, true>(w, none, n_rows,
-                                                             stream);
-  if (dtype == 0)
-    return launch_paged<float, kPlainE, false, true>(w, none, n_rows, stream);
-  return (int)cudaErrorInvalidValue;
+                   num_pages, hkv, ps, d, max_pages, 0};
+  return launch_quant(w, dtype, n_rows, stream);
 }
 
 // The paged write with the q/k prologue: q [N, Hq, D] -> q_out (normed when
@@ -477,8 +445,7 @@ extern "C" int cache_write_rows_quant_paged(
 // is, into a pool of the rows' type (quant 0) or quantized into an int8
 // pool and its scale pools (quant 1). cos/sin [N, D] float32; weights [D]
 // of the rows' type or null; dtype 0 = float32, 1 = bfloat16; D a power of
-// two from 2 to 256 (the wrapper checks). Returns cudaGetLastError() after the launch
-// (0 = launched).
+// two from 2 to 256 (the wrapper checks).
 extern "C" int prep_write_rows_paged(
     void* q_out, const void* q, const void* q_w, const void* k_w,
     const void* cos, const void* sin, float eps, int hq, void* pool_k,
@@ -489,67 +456,72 @@ extern "C" int prep_write_rows_paged(
   if (n_rows <= 0) return 0;
   const RowWrite w{pool_k, pool_v, (float*)scale_k, (float*)scale_v, k_new,
                    v_new, (const int32_t*)rows, (const int32_t*)table, layer,
-                   num_pages, hkv, ps, d, max_pages};
+                   num_pages, hkv, ps, d, max_pages, 0};
   const QKPrologue p{q_out, q, q_w, k_w, (const float*)cos,
                      (const float*)sin, eps, hq};
-  if (dtype == 1)
-    return quant ? launch_prep<__nv_bfloat16, true>(w, p, n_rows, stream)
-                 : launch_prep<__nv_bfloat16, false>(w, p, n_rows, stream);
-  if (dtype == 0)
-    return quant ? launch_prep<float, true>(w, p, n_rows, stream)
-                 : launch_prep<float, false>(w, p, n_rows, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_prep_any(w, p, dtype, quant, n_rows, stream);
 }
 
-// Dense slot cache [L, n_slots, Hkv, seq, D]: new rows [n_slots, r_rows,
-// Hkv, D] at rows [n_slots, r_rows]. row_bytes = D * element size; a
-// multiple of 16 (the wrapper checks). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// The dense slot cache [L, n_slots, Hkv, seq, D] as the kernel's pool of
+// n_slots pages of seq rows, r_rows packed rows a slot.
+static RowWrite dense_rows(void* cache_k, void* cache_v, void* scale_k,
+                           void* scale_v, const void* k_new,
+                           const void* v_new, const void* rows, int n_slots,
+                           int r_rows, int layer, int hkv, int seq, int d) {
+  return RowWrite{cache_k, cache_v, (float*)scale_k, (float*)scale_v, k_new,
+                  v_new, (const int32_t*)rows, nullptr, layer, n_slots, hkv,
+                  seq, d, 0, r_rows};
+}
+
+// K8: the dense cache's copy, new rows [n_slots, r_rows, Hkv, D] at rows
+// [n_slots, r_rows]: the dense write without the prologue, moving the
+// rows' bits as 4-byte words. row_bytes = D * element size; a multiple of
+// 16 (the wrapper checks; the kernel needs 4).
 extern "C" int cache_write_rows_dense(
     void* cache_k, void* cache_v, const void* k_new, const void* v_new,
     const void* rows, int n_slots, int r_rows, int layer, int hkv, int seq,
     int row_bytes, void* stream) {
   if (n_slots <= 0 || r_rows <= 0) return 0;
-  const int vec_per_row = row_bytes / 16;
-  int threads = hkv * vec_per_row;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  cache_write_rows_dense_kernel<<<n_slots * r_rows, threads, 0,
-                                  (cudaStream_t)stream>>>(
-      (uint4*)cache_k, (uint4*)cache_v, (const uint4*)k_new,
-      (const uint4*)v_new, (const int32_t*)rows, r_rows, layer, n_slots, hkv,
-      seq, vec_per_row);
-  return (int)cudaGetLastError();
+  if (row_bytes <= 0 || row_bytes % 4) return (int)cudaErrorInvalidValue;
+  const RowWrite w = dense_rows(cache_k, cache_v, nullptr, nullptr, k_new,
+                                v_new, rows, n_slots, r_rows, layer, hkv,
+                                seq, row_bytes / 4);
+  return launch_copy(w, 4, n_slots * r_rows, stream);
 }
 
 // K9: quantizing write into the dense int8 cache [L, n_slots, Hkv, seq, D]
 // and its float32 scales [L, n_slots, Hkv, seq]: new rows [n_slots, r_rows,
-// Hkv, D] (dtype 0 = float32, 1 = bfloat16) at rows [n_slots, r_rows]; K
-// and V in one launch. D <= 256 (the wrapper checks). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Hkv, D] (dtype 0 = float32, 1 = bfloat16) at rows [n_slots, r_rows]; the
+// dense write without the prologue. D <= 256 (the wrapper checks).
 extern "C" int cache_write_rows_quant_dense(
     void* cache_k, void* cache_v, void* scale_k, void* scale_v,
     const void* k_new, const void* v_new, const void* rows, int n_slots,
     int r_rows, int layer, int hkv, int seq, int d, int dtype, void* stream) {
   if (n_slots <= 0 || r_rows <= 0) return 0;
-  if (d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  int threads = 32 * hkv;
-  threads = threads > 1024 ? 1024 : threads;
-  dim3 grid(n_slots * r_rows, 2);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1) {
-    cache_write_rows_quant_dense_kernel<__nv_bfloat16>
-        <<<grid, threads, 0, s>>>(
-            (int8_t*)cache_k, (int8_t*)cache_v, (float*)scale_k,
-            (float*)scale_v, (const __nv_bfloat16*)k_new,
-            (const __nv_bfloat16*)v_new, (const int32_t*)rows, r_rows, layer,
-            n_slots, hkv, seq, d);
-  } else if (dtype == 0) {
-    cache_write_rows_quant_dense_kernel<float><<<grid, threads, 0, s>>>(
-        (int8_t*)cache_k, (int8_t*)cache_v, (float*)scale_k, (float*)scale_v,
-        (const float*)k_new, (const float*)v_new, (const int32_t*)rows,
-        r_rows, layer, n_slots, hkv, seq, d);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const RowWrite w = dense_rows(cache_k, cache_v, scale_k, scale_v, k_new,
+                                v_new, rows, n_slots, r_rows, layer, hkv,
+                                seq, d);
+  return launch_quant(w, dtype, n_slots * r_rows, stream);
+}
+
+// The dense write with the q/k prologue: q [n_slots, r_rows, Hq, D] ->
+// q_out (normed when q_w is given, RoPE'd; every row, kept or dropped),
+// k [n_slots, r_rows, Hkv, D] normed and RoPE'd, and v as it is, at rows
+// [n_slots, r_rows] into a cache of the rows' type (quant 0) or quantized
+// into the int8 cache and its scales (quant 1). cos/sin [n_slots * r_rows,
+// D] float32; weights [D] of the rows' type or null; dtype 0 = float32,
+// 1 = bfloat16; D a power of two from 2 to 256 (the wrapper checks).
+extern "C" int prep_write_rows_dense(
+    void* q_out, const void* q, const void* q_w, const void* k_w,
+    const void* cos, const void* sin, float eps, int hq, void* cache_k,
+    void* cache_v, void* scale_k, void* scale_v, const void* k_new,
+    const void* v_new, const void* rows, int n_slots, int r_rows, int layer,
+    int hkv, int seq, int d, int dtype, int quant, void* stream) {
+  if (n_slots <= 0 || r_rows <= 0) return 0;
+  const RowWrite w = dense_rows(cache_k, cache_v, scale_k, scale_v, k_new,
+                                v_new, rows, n_slots, r_rows, layer, hkv,
+                                seq, d);
+  const QKPrologue p{q_out, q, q_w, k_w, (const float*)cos,
+                     (const float*)sin, eps, hq};
+  return launch_prep_any(w, p, dtype, quant, n_slots * r_rows, stream);
 }

@@ -17,7 +17,7 @@ decode against the paged pool and the ragged mixed dispatch; with the carry
 form (``model_forward_carry``) the callback receives ``(pool, layer)`` and
 updates the pool in place. A callback whose ``fuses_qk_prep`` attribute is
 true takes the raw q and k rows and a :class:`QKPrep` as a fifth argument
-and applies the q/k RMSNorm and RoPE itself (the paged serving callbacks,
+and applies the q/k RMSNorm and RoPE itself (the row-write callbacks,
 whose row-write kernel does it in the same launch); every other callback
 receives q and k after :func:`prep_qk_plain`.
 """

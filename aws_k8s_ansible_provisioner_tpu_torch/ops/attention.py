@@ -40,9 +40,11 @@ pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
 the quantizing row write and the scale-folding attention. They take the
 layer's raw q and k rows and its ``QKPrep`` (``fuses_qk_prep``): the row
 write is the fused one, which applies the q/k RMSNorm and RoPE in the
-launch that writes K and V and hands the attention its q. The dense ones go
-through ``ops/dense_attention.py`` the same way (K8 or K9, then K4/K5 or
-K7, bf16/f32 or int8). As in the JAX reference, all row writes land before
+launch that writes K and V and hands the attention its q. The dense decode,
+verify and sequence-parallel decode go through ``ops/dense_attention.py``
+the same way (the fused K8 or K9, then K4/K5, K7 or K6, bf16/f32 or int8).
+The prefill and chunk-prefill callbacks take q and k after the block's
+plain prologue. As in the JAX reference, all row writes land before
 any row attends, so a chunk row sees exactly its prefix, a verify row
 exactly the rows before it and a decode row exactly its own slot. The
 batched prefill callbacks attend over the fresh, unquantized K/V and
@@ -62,8 +64,8 @@ import torch
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
     QKPrep, causal_attend)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import (
-    cache_write_rows_dense, cache_write_rows_quant_dense,
-    decode_attend_dense, decode_attend_dense_stats, spec_attend_dense)
+    decode_attend_dense, decode_attend_dense_stats, prep_write_rows_dense,
+    prep_write_rows_quant_dense, spec_attend_dense)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
     decode_attend_paged, decode_attend_spec_paged, prep_write_rows_paged,
     prep_write_rows_quant_paged, ragged_attend_paged)
@@ -127,7 +129,7 @@ def _packed(prep: QKPrep, n: int) -> QKPrep:
 
 
 def _fused(attend):
-    """Mark a paged callback as taking the raw q/k rows and the layer's
+    """Mark a row-write callback as taking the raw q/k rows and the layer's
     ``QKPrep`` (``models/layers.decoder_block``)."""
     attend.fuses_qk_prep = True
     return attend
@@ -228,18 +230,21 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
     return attend
 
 
-def _write_dense(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 rows: torch.Tensor, layer: int) -> dict:
-    """The layer's new K/V rows [B, R, Hkv, D] at ``rows`` [B, R] into the
-    dense cache through its row-write kernel (K9, quantizing, when the cache
-    is int8; else K8); returns the scale caches as the attention kernels
-    take them (none for a bf16/f32 cache)."""
+def _prep_write_dense(cache: dict, q: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, rows: torch.Tensor, layer: int,
+                      prep: QKPrep):
+    """The layer's q/k prologue and its new K/V rows into the dense cache in
+    one launch of the fused row write (quantizing when the cache is int8):
+    q [B, R, Hq, D], k/v [B, R, Hkv, D] raw, at ``rows`` [B, R], ``prep``'s
+    tables [B, R, D]. Returns (q after the prologue, the scale caches as
+    the attention kernels take them; none for a bf16/f32 cache)."""
     if kvc.is_quantized(cache):
-        cache_write_rows_quant_dense(cache["k"], cache["v"], cache["ks"],
-                                     cache["vs"], k_new, v_new, rows, layer)
-        return {"cache_ks": cache["ks"], "cache_vs": cache["vs"]}
-    cache_write_rows_dense(cache["k"], cache["v"], k_new, v_new, rows, layer)
-    return {}
+        q = prep_write_rows_quant_dense(cache["k"], cache["v"], cache["ks"],
+                                        cache["vs"], q, k_new, v_new, rows,
+                                        layer, prep)
+        return q, {"cache_ks": cache["ks"], "cache_vs": cache["vs"]}
+    return prep_write_rows_dense(cache["k"], cache["v"], q, k_new, v_new,
+                                 rows, layer, prep), {}
 
 
 def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
@@ -248,10 +253,12 @@ def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
     ``lengths[b]`` (rows outside the window drop; quantized into an int8
     cache) and attends over ``lengths[b] + 1`` rows, ``bblock`` slots per
     CTA of the attention kernel (K5 when > 1; the result does not depend on
-    it). lengths: [B] int32. With a ``mesh`` whose ``sp`` axis is larger
-    than 1 the cache is split into sequence shards and each shard attends
-    its own rows through K6 (:func:`_make_sp_decode_attend`); a sliding
-    window is refused there, as the JAX package refuses it."""
+    it). lengths: [B] int32. The callback takes the raw q/k and the layer's
+    ``QKPrep``: the fused row write applies the prologue. With a ``mesh``
+    whose ``sp`` axis is larger than 1 the cache is split into sequence
+    shards and each shard attends its own rows through K6
+    (:func:`_make_sp_decode_attend`); a sliding window is refused there, as
+    the JAX package refuses it."""
     if sp_size(mesh) > 1:
         if window > 0:
             raise ValueError("sequence-parallel decode (sp > 1) does not "
@@ -259,15 +266,14 @@ def make_decode_attend_carry(lengths: torch.Tensor, window: int = 0,
         return _make_sp_decode_attend(lengths, mesh)
     rows = lengths[:, None].to(torch.int32)
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         cache, layer = cache_l
-        scales = _write_dense(cache, k.contiguous(), v.contiguous(), rows,
-                              layer)
-        ctx = decode_attend_dense(q, cache["k"], cache["v"], lengths + 1,
+        qp, scales = _prep_write_dense(cache, q, k, v, rows, layer, prep)
+        ctx = decode_attend_dense(qp, cache["k"], cache["v"], lengths + 1,
                                   layer, window, **scales, bblock=bblock)
         return ctx, (cache, layer)
 
-    return attend
+    return _fused(attend)
 
 
 def merge_stats(accs, ms, ls, device) -> torch.Tensor:
@@ -290,11 +296,14 @@ def merge_stats(accs, ms, ls, device) -> torch.Tensor:
 def _make_sp_decode_attend(lengths: torch.Tensor, mesh):
     """The sequence-parallel decode (the JAX package's ``sp > 1`` branch of
     ``make_decode_attend_carry``, ``ops/attention.py:119-163``): shard i
-    owns the global rows [off, off + S_local), off = i * S_local; it writes
-    the new row at ``lengths - off`` (K8, or K9 into an int8 shard; a
-    non-owner's row falls outside [0, S_local) and drops) and attends
-    ``clip(lengths + 1 - off, 0, S_local)`` rows through K6; the triples
-    merge on the lead device (:func:`merge_stats`), cast to q's type."""
+    owns the global rows [off, off + S_local), off = i * S_local; one
+    launch of the fused row write on its device takes the raw q, k and v
+    and the layer's ``QKPrep``, writes the new row at ``lengths - off``
+    (quantized into an int8 shard; a non-owner's row falls outside
+    [0, S_local) and drops) and returns q after the prologue, which the
+    shard's K6 reads over ``clip(lengths + 1 - off, 0, S_local)`` rows; the
+    triples merge on the lead device (:func:`merge_stats`), cast to q's
+    type."""
     devices = mesh.axis_devices("sp")
     lead = mesh.lead
     per_shard = {}
@@ -309,7 +318,7 @@ def _make_sp_decode_attend(lengths: torch.Tensor, mesh):
                 for i, dev in enumerate(devices)]
         return per_shard[s_local]
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         shards, layer = cache_l
         if len(shards) != len(devices):
             raise ValueError(f"{len(shards)} cache shards for a mesh of "
@@ -317,34 +326,45 @@ def _make_sp_decode_attend(lengths: torch.Tensor, mesh):
         parts = []
         for shard, dev, (w_rows, r_lens) in zip(
                 shards, devices, shard_rows(shards[0]["k"].shape[3])):
-            scales = _write_dense(shard, k.to(dev).contiguous(),
-                                  v.to(dev).contiguous(), w_rows, layer)
+            qp, scales = _prep_write_dense(shard, q.to(dev), k.to(dev),
+                                           v.to(dev), w_rows, layer,
+                                           _on(prep, dev))
             parts.append(decode_attend_dense_stats(
-                q.to(dev), shard["k"], shard["v"], r_lens, layer, **scales))
+                qp, shard["k"], shard["v"], r_lens, layer, **scales))
         ctx = merge_stats(*zip(*parts), lead)
         return ctx[:, None].to(q.dtype), (shards, layer)
 
-    return attend
+    return _fused(attend)
+
+
+def _on(prep: QKPrep, device) -> QKPrep:
+    """``prep`` with its tensors on ``device`` (itself when they are)."""
+    if prep.cos.device == device:
+        return prep
+    return QKPrep(*(t if t is None else t.to(device)
+                    for t in (prep.q_norm, prep.k_norm)), prep.eps,
+                  prep.cos.to(device), prep.sin.to(device))
 
 
 def make_spec_attend_carry(lengths: torch.Tensor, window: int = 0):
     """Speculative rows over the dense cache: slot b's R new K/V rows land
-    at rows ``lengths[b] .. lengths[b] + R - 1`` (one row-write launch,
-    quantizing into an int8 cache), then one attention launch answers the
-    B * R queries. lengths: [B] int32."""
+    at rows ``lengths[b] .. lengths[b] + R - 1`` (one fused row-write
+    launch for q's and k's prologue and the B * R rows, quantizing into an
+    int8 cache), then one attention launch answers the B * R queries.
+    lengths: [B] int32. Takes the raw q/k and the layer's ``QKPrep``, as
+    the decode callback does."""
 
-    def attend(q, k, v, cache_l) -> Tuple[torch.Tensor, tuple]:
+    def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         cache, layer = cache_l
         R = k.shape[1]
         r = torch.arange(R, dtype=torch.int32, device=lengths.device)
         rows = (lengths.to(torch.int32)[:, None] + r).contiguous()
-        scales = _write_dense(cache, k.contiguous(), v.contiguous(), rows,
-                              layer)
-        ctx = spec_attend_dense(q, cache["k"], cache["v"], lengths, layer,
+        qp, scales = _prep_write_dense(cache, q, k, v, rows, layer, prep)
+        ctx = spec_attend_dense(qp, cache["k"], cache["v"], lengths, layer,
                                 window, **scales)
         return ctx, (cache, layer)
 
-    return attend
+    return _fused(attend)
 
 
 def make_prefill_attend_batch(slots: torch.Tensor, seq_lens: torch.Tensor,

@@ -36,12 +36,21 @@ The dense cache (``serving/kv_cache.init_cache``: ``{"k", "v"}`` each
 - over an int8 cache the kernels fold the scales into the loop as the TPU
   bodies do: the scores times the K scale, the denominator over the
   unscaled probabilities, the probabilities times the V scale in P.V;
-- :func:`cache_write_rows_dense` (K8, third entry of ``csrc/cache_write.cu``)
-  replaces ``cache_write_row``: R new K and V rows per slot written in
-  place, rows outside [0, S) dropped; :func:`cache_write_rows_quant_dense`
-  (K9, fourth entry) replaces ``cache_write_row_quant``: the rows quantized
+- :func:`cache_write_rows_dense` (K8, ``csrc/cache_write.cu``) replaces
+  ``cache_write_row``: R new K and V rows per slot written in place, rows
+  outside [0, S) dropped; :func:`cache_write_rows_quant_dense` (K9)
+  replaces ``cache_write_row_quant``: the rows quantized
   (``kv_cache.quantize_rows``, bit for bit) into the int8 cache and their
-  scales into the scale caches.
+  scales into the scale caches. Both are instances, with the prologue off,
+  of the one row-write kernel that also serves the paged pool;
+- :func:`prep_write_rows_dense` and :func:`prep_write_rows_quant_dense`
+  (the same kernel with its q/k prologue on) replace K8 and K9 together
+  with the ``rms_norm`` and ``apply_rope`` of q and k before them
+  (``models/layers.py``): one launch takes the layer's raw q, k and v rows,
+  returns q normed and rotated, and writes k (normed and rotated) and v,
+  copied or quantized. The dense decode, verify and sequence-parallel
+  decode callbacks (``ops/attention.py``) write through them; the two
+  standalone writes stay callable with their contracts.
 
 The attention kernels are split-KV (``ops/split_kv.py``): each (slot, kv
 head), and in the verify each (slot, row group, kv head), gets
@@ -74,10 +83,12 @@ from typing import Optional
 
 import torch
 
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+    QKPrep, prep_qk_plain)
 from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build, split_kv
 from aws_k8s_ansible_provisioner_tpu_torch.ops.paged_attention import (
     _DTYPE_CODES, _INT8_POOL, _MAX_D, _MAX_GROUPS, _MAX_QUANT_D, NEG_INF,
-    _check_cuda)
+    _check_cuda, _check_prep, _prep_args, _prep_vectors)
 from aws_k8s_ansible_provisioner_tpu_torch.serving.kv_cache import \
     write_token_layer
 
@@ -594,13 +605,126 @@ def cache_write_rows_quant_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
     cache_write_rows_quant_dense.launches += 1
 
 
+def prep_write_rows_dense_plain(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                                q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, rows: torch.Tensor,
+                                layer: int, prep: QKPrep) -> torch.Tensor:
+    """Plain version of :func:`prep_write_rows_dense`:
+    ``models/layers.prep_qk_plain`` of q and k, then
+    :func:`cache_write_rows_dense_plain` of k and v; returns q."""
+    q, k_new = prep_qk_plain(q, k_new, prep)
+    cache_write_rows_dense_plain(cache_k, cache_v, k_new, v_new, rows, layer)
+    return q
+
+
+def prep_write_rows_quant_dense_plain(cache_k: torch.Tensor,
+                                      cache_v: torch.Tensor,
+                                      cache_ks: torch.Tensor,
+                                      cache_vs: torch.Tensor,
+                                      q: torch.Tensor, k_new: torch.Tensor,
+                                      v_new: torch.Tensor,
+                                      rows: torch.Tensor, layer: int,
+                                      prep: QKPrep) -> torch.Tensor:
+    """Plain version of :func:`prep_write_rows_quant_dense`:
+    ``models/layers.prep_qk_plain`` of q and k, then
+    :func:`cache_write_rows_quant_dense_plain` of k and v; returns q."""
+    q, k_new = prep_qk_plain(q, k_new, prep)
+    cache_write_rows_quant_dense_plain(cache_k, cache_v, cache_ks, cache_vs,
+                                       k_new, v_new, rows, layer)
+    return q
+
+
+def _prep_lib():
+    lib = cuda_build.load("cache_write")
+    fn = lib.prep_write_rows_dense
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _launch_prep(fn, caches: tuple, q, k_new, v_new, rows, layer: int,
+                 prep: QKPrep) -> torch.Tensor:
+    """Check the fused dense write's operands, launch it and count the
+    launch on ``fn``, the wrapper. ``caches``: (k, v) of q's type, or int8
+    (k, v) with their float32 scale caches (ks, vs); q [B, R, Hq, D], k/v
+    [B, R, Hkv, D], rows [B, R], prep's tables [B, R, D], which the kernel
+    reads as B * R packed rows. Returns q after the prologue."""
+    what = fn.__name__
+    _, B, Hkv, S, D, R = _check_dense_write(what, caches[0], caches[1], k_new,
+                                            v_new, rows, layer)
+    _check_prep(what, caches, q, k_new, v_new, prep)
+    vectors = _prep_vectors(caches, q, k_new, v_new, prep)
+    _check_cuda(what, vectors + caches[2:] + (rows,), vectors)
+    out = torch.empty_like(q)
+    if B * R == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _prep_lib()(
+            *_prep_args(caches, q, k_new, v_new, prep, out), rows.data_ptr(),
+            B, R, layer, Hkv, S, D, _DTYPE_CODES[q.dtype],
+            int(len(caches) == 4), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    fn.launches += 1
+    return out
+
+
+def prep_write_rows_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, rows: torch.Tensor,
+                          layer: int, prep: QKPrep) -> torch.Tensor:
+    """K8 with the layer's q/k prologue fused in: q and k through the
+    RMSNorm of ``prep`` (when it carries weights) and RoPE, k and v written
+    into the dense cache as :func:`cache_write_rows_dense` writes them;
+    returns q after the prologue (for every row, dropped or kept).
+
+    q [B, R, Hq, D], k_new/v_new [B, R, Hkv, D], the layer's raw
+    projections, of the cache's type (bf16 or f32; D a power of two up to
+    256); cache [L, B, Hkv, S, D]; rows [B, R] int32 (rows outside [0, S)
+    drop); prep: the norm weights [D] of q's type (or None) and cos/sin
+    [B, R, D] float32. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (one launch for q, K and V)."""
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    if q.device.type == "cpu":
+        return prep_write_rows_dense_plain(cache_k, cache_v, q, k_new, v_new,
+                                           rows, layer, prep)
+    return _launch_prep(prep_write_rows_dense, (cache_k, cache_v), q, k_new,
+                        v_new, rows, layer, prep)
+
+
+def prep_write_rows_quant_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                                cache_ks: torch.Tensor,
+                                cache_vs: torch.Tensor, q: torch.Tensor,
+                                k_new: torch.Tensor, v_new: torch.Tensor,
+                                rows: torch.Tensor, layer: int,
+                                prep: QKPrep) -> torch.Tensor:
+    """K9 with the layer's q/k prologue fused in: as
+    :func:`prep_write_rows_dense`, with k (after its prologue) and v
+    quantized into the int8 cache and their scales into the scale caches
+    [L, B, Hkv, S] as :func:`cache_write_rows_quant_dense` quantizes them.
+    Returns q after the prologue. CPU tensors take the plain version; CUDA
+    tensors launch the kernel's int8 instance."""
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    if q.device.type == "cpu":
+        return prep_write_rows_quant_dense_plain(cache_k, cache_v, cache_ks,
+                                                 cache_vs, q, k_new, v_new,
+                                                 rows, layer, prep)
+    return _launch_prep(prep_write_rows_quant_dense,
+                        (cache_k, cache_v, cache_ks, cache_vs), q, k_new,
+                        v_new, rows, layer, prep)
+
+
 # the attention wrappers also count their window instance's launches and
 # their other instances' (form_launches)
 _FORMS = {"decode_attend_dense": ("quant", "bblock", "quant bblock",
                                    "stats", "quant stats"),
           "spec_attend_dense": ("quant",)}
 _WINDOWED = (decode_attend_dense, spec_attend_dense)
-_COUNTED = _WINDOWED + (cache_write_rows_dense, cache_write_rows_quant_dense)
+_COUNTED = _WINDOWED + (cache_write_rows_dense, cache_write_rows_quant_dense,
+                        prep_write_rows_dense, prep_write_rows_quant_dense)
 
 
 def reset_launch_counts() -> None:

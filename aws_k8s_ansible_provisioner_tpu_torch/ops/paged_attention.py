@@ -769,65 +769,98 @@ def _prep_lib():
     return fn
 
 
-def _launch_prep(what: str, pools: tuple, q, k_new, v_new, rows, layer: int,
-                 table, prep: QKPrep) -> torch.Tensor:
-    """Check the fused write's operands and launch it. ``pools``: (k, v) of
-    q's type, or int8 (k, v) with their float32 scale pools (ks, vs).
-    Returns q after the prologue."""
-    pool_k, pool_v = pools[:2]
-    quant = len(pools) == 4
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
-    L, P, Hkv, ps, D = pool_k.shape
-    N, Hq = q.shape[:2]
+def _check_prep(what: str, caches: tuple, q, k_new, v_new,
+                prep: QKPrep) -> None:
+    """Check the fused write's operands over packed rows: q [..., Hq, D],
+    k_new/v_new [..., Hkv, D] and prep's tables [..., D], with the same
+    leading dims, against ``caches`` (a pool [L, P, Hkv, page, D] or a dense
+    cache [L, B, Hkv, S, D]): (k, v) of q's type, or int8 (k, v) with their
+    float32 scales (ks, vs). The caller checks the device."""
+    cache_k, cache_v = caches[:2]
+    quant = len(caches) == 4
+    Hkv, D = cache_k.shape[2], cache_k.shape[4]
+    lead = q.shape[:-2]
     norms = (prep.q_norm, prep.k_norm)
-    if (q.dim() != 3 or q.shape[2] != D or D not in _PREP_D
-            or k_new.shape != (N, Hkv, D) or v_new.shape != (N, Hkv, D)
-            or pool_v.shape != pool_k.shape
-            or prep.cos.shape != (N, D) or prep.sin.shape != (N, D)
+    if (q.dim() < 3 or q.shape[-1] != D or D not in _PREP_D
+            or k_new.shape != lead + (Hkv, D)
+            or v_new.shape != lead + (Hkv, D)
+            or cache_v.shape != cache_k.shape
+            or prep.cos.shape != lead + (D,) or prep.sin.shape != lead + (D,)
             or (norms[0] is None) != (norms[1] is None)
             or (norms[0] is not None
                 and (norms[0].shape != (D,) or norms[1].shape != (D,)))):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k "
-                         f"{tuple(k_new.shape)} pool {tuple(pool_k.shape)} "
-                         f"cos {tuple(prep.cos.shape)} (D one of {_PREP_D})")
-    pool_type = torch.int8 if quant else q.dtype
-    weights = tuple(w for w in norms if w is not None)
+                         f"{tuple(k_new.shape)} cache "
+                         f"{tuple(cache_k.shape)} cos "
+                         f"{tuple(prep.cos.shape)} (D one of {_PREP_D})")
+    cache_type = torch.int8 if quant else q.dtype
     if (q.dtype not in _DTYPE_CODES or k_new.dtype != q.dtype
-            or v_new.dtype != q.dtype or pool_k.dtype != pool_type
-            or pool_v.dtype != pool_type
+            or v_new.dtype != q.dtype or cache_k.dtype != cache_type
+            or cache_v.dtype != cache_type
             or prep.cos.dtype != torch.float32
             or prep.sin.dtype != torch.float32
-            or any(w.dtype != q.dtype for w in weights)):
+            or any(w is not None and w.dtype != q.dtype for w in norms)):
         raise TypeError(f"{what}: q, k, v and the norm weights bf16 or f32 "
-                        f"alike, cos/sin float32 and the pools "
-                        f"{pool_type} expected")
-    if quant and (pools[2].shape != pool_k.shape[:-1]
-                  or pools[3].shape != pools[2].shape
-                  or pools[2].dtype != torch.float32
-                  or pools[3].dtype != torch.float32):
-        raise TypeError(f"{what}: scale pools must be float32 [L, P, Hkv, "
-                        f"page]")
+                        f"alike, cos/sin float32 and the cache "
+                        f"{cache_type} expected")
+    if quant and (caches[2].shape != cache_k.shape[:-1]
+                  or caches[3].shape != caches[2].shape
+                  or caches[2].dtype != torch.float32
+                  or caches[3].dtype != torch.float32):
+        raise TypeError(f"{what}: scales must be float32 "
+                        f"{tuple(cache_k.shape[:-1])}")
+
+
+def _prep_args(caches: tuple, q, k_new, v_new, prep: QKPrep,
+               out: torch.Tensor) -> tuple:
+    """The fused write's C arguments up to the cache's geometry: q_out, q,
+    the weights, cos, sin, eps, Hq, the caches and scales, k and v."""
+    scales = (caches[2].data_ptr(), caches[3].data_ptr()) \
+        if len(caches) == 4 else (None, None)
+    return (out.data_ptr(), q.data_ptr(),
+            *(w.data_ptr() if w is not None else None
+              for w in (prep.q_norm, prep.k_norm)),
+            prep.cos.data_ptr(), prep.sin.data_ptr(), float(prep.eps),
+            q.shape[-2], caches[0].data_ptr(), caches[1].data_ptr(), *scales,
+            k_new.data_ptr(), v_new.data_ptr())
+
+
+def _prep_vectors(caches: tuple, q, k_new, v_new, prep: QKPrep) -> tuple:
+    """The fused write's operands read or written as vectors (16-byte
+    aligned)."""
+    weights = tuple(w for w in (prep.q_norm, prep.k_norm) if w is not None)
+    return (q, k_new, v_new, prep.cos, prep.sin) + weights + caches[:2]
+
+
+def _launch_prep(fn, pools: tuple, q, k_new, v_new, rows, layer: int,
+                 table, prep: QKPrep) -> torch.Tensor:
+    """Check the fused write's operands, launch it and count the launch on
+    ``fn``, the wrapper. ``pools``: (k, v) of q's type, or int8 (k, v) with
+    their float32 scale pools (ks, vs). Returns q after the prologue."""
+    what = fn.__name__
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    _check_prep(what, pools, q, k_new, v_new, prep)
+    L, P, Hkv, ps, D = pools[0].shape
+    if q.dim() != 3 or rows.shape != q.shape[:1]:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} rows "
+                         f"{tuple(rows.shape)}")
     _check_write_index(what, rows, table, layer, L)
-    vectors = (q, k_new, v_new, prep.cos, prep.sin) + weights + pools[:2]
+    vectors = _prep_vectors(pools, q, k_new, v_new, prep)
     _check_cuda(what, vectors + pools[2:] + (rows, table), vectors)
     out = torch.empty_like(q)
+    N = q.shape[0]
     if N == 0:
         return out
-    scales = (pools[2].data_ptr(), pools[3].data_ptr()) if quant \
-        else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _prep_lib()(
-            out.data_ptr(), q.data_ptr(),
-            *(w.data_ptr() if w is not None else None for w in norms),
-            prep.cos.data_ptr(), prep.sin.data_ptr(), float(prep.eps), Hq,
-            pool_k.data_ptr(), pool_v.data_ptr(), *scales, k_new.data_ptr(),
-            v_new.data_ptr(), rows.data_ptr(), table.data_ptr(), N, layer, P,
-            Hkv, ps, D, table.shape[1], _DTYPE_CODES[q.dtype], int(quant),
-            stream)
+            *_prep_args(pools, q, k_new, v_new, prep, out), rows.data_ptr(),
+            table.data_ptr(), N, layer, P, Hkv, ps, D, table.shape[1],
+            _DTYPE_CODES[q.dtype], int(len(pools) == 4), stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    fn.launches += 1
     return out
 
 
@@ -851,10 +884,8 @@ def prep_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     if q.device.type == "cpu":
         return prep_write_rows_paged_plain(pool_k, pool_v, q, k_new, v_new,
                                            rows, layer, table, prep)
-    out = _launch_prep("prep_write_rows_paged", (pool_k, pool_v), q, k_new,
-                       v_new, rows, layer, table, prep)
-    prep_write_rows_paged.launches += 1
-    return out
+    return _launch_prep(prep_write_rows_paged, (pool_k, pool_v), q, k_new,
+                        v_new, rows, layer, table, prep)
 
 
 def prep_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -873,11 +904,9 @@ def prep_write_rows_quant_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
         return prep_write_rows_quant_paged_plain(pool_k, pool_v, pool_ks,
                                                  pool_vs, q, k_new, v_new,
                                                  rows, layer, table, prep)
-    out = _launch_prep("prep_write_rows_quant_paged",
-                       (pool_k, pool_v, pool_ks, pool_vs), q, k_new, v_new,
-                       rows, layer, table, prep)
-    prep_write_rows_quant_paged.launches += 1
-    return out
+    return _launch_prep(prep_write_rows_quant_paged,
+                        (pool_k, pool_v, pool_ks, pool_vs), q, k_new, v_new,
+                        rows, layer, table, prep)
 
 
 # the attention wrappers also count their window instance's launches

@@ -3,11 +3,14 @@
 A copy of the JAX package's ``serving/draft.py`` for the port's engine. The
 draft runs the engine's own step programs over a dense slot cache of its
 own (``kv_cache.init_cache``, never quantized): ``decode_steps`` (greedy,
-horizon spec_k, kernels K8 and K4) for the rollout and ``spec_decode_step``
-(R = spec_k + 1 rows, argmax side only, kernels K8 and K7) to teacher-force
-the tokens a plain dispatch emitted while the draft stood still. The
-programs take the draft's own ``cfg.sliding_window``, so a windowed draft
-attends its dense cache through the kernels' window instances.
+horizon spec_k, kernels K8 with the q/k prologue fused in, and K4) for the
+rollout and ``spec_decode_step`` (R = spec_k + 1 rows, argmax side only,
+the same fused K8 and K7) to teacher-force the tokens a plain dispatch
+emitted while the draft stood still. The engine counts both
+(``counts["draft_rollout_substeps"]``, ``counts["draft_catch_ups"]``: the
+draft's forwards). The programs take the draft's own
+``cfg.sliding_window``, so a windowed draft attends its dense cache
+through the kernels' window instances.
 
 Cache coherence (the engine's ``lengths[slot]`` counts the target cache's
 rows; the newest emitted token, ``last_token``, is not among them and is
@@ -132,6 +135,7 @@ class DraftModel:
         if not ready:
             return None
         self.rolled = K
+        engine.counts["draft_rollout_substeps"] += K
         self.cache, out = decode_steps(
             self.model, K, self.cache, self._dev(engine.last_token),
             self._dev(self.lens), None, *self._greedy(self.num_slots),
@@ -168,6 +172,7 @@ class DraftModel:
             adv[s] = len(cu)
         if not adv.any():
             return False
+        engine.counts["draft_catch_ups"] += 1
         self.cache, _, _ = spec_decode_step(
             self.model, R, self.cache, self._dev(tokens),
             self._dev(self.lens), None, *self._greedy(self.num_slots))

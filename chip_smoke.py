@@ -23,7 +23,8 @@ result when either is missing. Phases, in order (any failure raises):
    verify attention (K7) and the row write (K8; int8: K9, bit-exact); and
    the paged row write with Qwen3's q/k RMSNorm and RoPE fused in, bf16
    and int8, at the decode's 32 rows, the verify's 32 x 5 and the ragged
-   call's 32 + 256 (q and k within one bf16 ulp of their head row's largest
+   call's 32 + 256, and the dense one at the dense decode's 32 rows and
+   verify's 32 x 5 (q and k within one bf16 ulp of their head row's largest
    value, v bit-exact, int8 codes within 1 and scales within 2^-8,
    bit-identical where the bf16 k row is), timed eagerly, as one CUDA graph
    replay, and beside the chain it replaces (the plain prologue and the
@@ -41,7 +42,8 @@ result when either is missing. Phases, in order (any failure raises):
    fused q/k prologue and row write must have launched once per layer of
    every paged forward (decode substep, mixed dispatch, verify) and the
    standalone row writes never (also in the profiled dispatch, the
-   prefix and the spec runs). The
+   prefix and the spec runs; the dense runs of 7, 10 and 11 hold the fused
+   dense write to every layer of every dense forward the same way). The
    int8 run adds seeded sampled requests: one submitted alone and again
    beside other running requests must give the same stream. Then one
    decode dispatch of 8 slots is timed and profiled (device time by
@@ -86,13 +88,16 @@ result when either is missing. Phases, in order (any failure raises):
 7. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
    the same width over the dense cache; a second wave of chunked prompts
    puts the drafts behind so that they catch up. The dense kernels must
-   have launched, and the self-draft must have accepted drafts;
+   have launched, the fused writes once a layer of every target and draft
+   forward (the draft's rollout substeps and catch-ups), and the
+   self-draft must have accepted drafts;
 8. the window instances (after the kernels phase): K1 (decode, ragged,
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
    each held against its plain version and timed (the ragged call's 512
    chunk rows through the chunk body, within one bf16 ulp a row), the fused
-   row write without the norm (RoPE only) at the decode's 16 rows, the
+   row write without the norm (RoPE only) at the decode's 16 rows (paged
+   and dense), the
    ragged call and the dense ones also with NaN pages or rows (int8:
    scales) outside their rows' ranges, which must change nothing; and K1
    at window 0 against window 4096 on rows of ~8000 columns;
@@ -113,7 +118,9 @@ result when either is missing. Phases, in order (any failure raises):
    over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
    Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
    with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
-   9). In every dense run the paged kernels' counts must be 0;
+   9). Every dense forward (decode substep, verify) writes its rows
+   through K8 or K9 with the q/k prologue fused in, once a layer, and the
+   standalone K8/K9 never launch; the paged kernels' counts must be 0;
 11. sequence-parallel serving (after the window kernels, the kernels phase
    "kernels, sp"): K6, the stats form of the dense decode, bf16 and int8,
    over every shard of a dense cache [28, 4, 8, 32768, 128] split into 4
@@ -121,14 +128,15 @@ result when either is missing. Phases, in order (any failure raises):
    shards exactly (0, -1e30, 0)), the shards merged as the engine merges
    them against K4 (int8: K4-int8) over the whole cache by the ulp rule,
    timed beside its plain version and a memory-efficient attention call
-   that returns the log-sum-exp; then, last, Qwen3-0.6B at full width
+   that returns the log-sum-exp, and the fused dense write into one shard
+   (one slot's row kept, three dropped); then, last, Qwen3-0.6B at full width
    with 4 slots of 32768 rows, prefill_chunk 512 and prompts of about 40,
    6,000, 14,000 and 27,000 tokens (32 new tokens each): the dense engine
    without a mesh (the yardstick), then ``Engine(..., mesh=)`` over
    ``[cuda:0] * sp`` with bf16 KV at sp 4 and sp 2 and int8 KV at sp 4
    (with a seeded sampled request, drawn twice), each with launch counts
-   zeroed just before and read just after (K6 and the row write ``L x
-   sp`` times per decode substep, no other kernel), one decode step of
+   zeroed just before and read just after (K6 and the fused row write
+   ``L x sp`` times per decode substep, no other kernel), one decode step of
    all 4 slots held against the plain versions, the bf16 greedy streams
    compared with the yardstick's, and the HTTP server over the int8 one.
 
@@ -560,34 +568,42 @@ def _graph(torch, fn):
 
 
 def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
-               label, hq, theta, norm):
-    """The fused q/k prologue and row write (K2, or K3 over an int8 pool)
-    against its plain version (``models/layers.prep_qk_plain`` then the
-    standalone write) on raw q/k/v rows at ``positions_np``: q and the
-    written k rows within one bf16 ulp of their head row's largest |plain
-    value| per element (the share bit-identical reported), v bit-exact;
-    int8: v's codes and scales bit-exact, k's codes within 1 and scales
-    within 2^-8 relative, and bit-identical wherever the kernel's bf16 k
-    row (its bf16 instance, into a one-row-per-page scratch pool) is. Timed
-    eagerly (ms, device_ms), as one CUDA graph replay (graph_ms), beside the
-    plain chain eagerly (plain_ms) and as one CUDA graph replay
-    (chain_graph_ms, the yardstick), and its bound: the larger of the bytes
-    over the memory rate and the prologue's float32 operations over the
-    card's float32 rate."""
+               label, hq, theta, norm, standalone=None):
+    """The fused q/k prologue and row write against its plain version
+    (``models/layers.prep_qk_plain`` then the standalone write) on raw
+    q/k/v rows at ``positions_np``: over a page pool (``table_np`` given:
+    K2, or K3 over an int8 pool; packed rows [N]) or a dense cache
+    (``table_np`` None: K8, or K9 over an int8 cache; rows [B, R]). q and
+    the written k rows within one bf16 ulp of their head row's largest
+    |plain value| per element (the share bit-identical reported), v
+    bit-exact; int8: v's codes and scales bit-exact, k's codes within 1 and
+    scales within 2^-8 relative, and bit-identical wherever the kernel's
+    bf16 k row (its bf16 instance, into a scratch cache of one row per
+    packed row) is. Timed eagerly (ms, device_ms), as one CUDA graph replay
+    (graph_ms), beside the plain chain eagerly (plain_ms) and as one CUDA
+    graph replay (chain_graph_ms, the yardstick), and its bound: the larger
+    of the bytes over the memory rate and the prologue's float32 operations
+    over the card's float32 rate. ``standalone``: the standalone write's
+    case (:func:`_dense_write_case`) whose times the row keeps beside its
+    own (``standalone_ms``, ``standalone_device_ms``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
         QKPrep, prep_qk_plain, rope_cos_sin)
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
 
     quant = "ks" in pools
+    dense = table_np is None
+    mod = da if dense else pa
     names = ("k", "v", "ks", "vs") if quant else ("k", "v")
     leaves = [pools[n] for n in names]
-    name = "prep_write_rows_quant_paged" if quant else "prep_write_rows_paged"
-    kernel_fn, plain_fn = getattr(pa, name), getattr(pa, name + "_plain")
-    chain_write = pa.cache_write_rows_quant_paged if quant \
-        else pa.cache_write_rows_paged
+    name = "prep_write_rows" + ("_quant" if quant else "") + \
+        ("_dense" if dense else "_paged")
+    kernel_fn, plain_fn = getattr(mod, name), getattr(mod, name + "_plain")
+    chain_write = getattr(mod, name.replace("prep_write", "cache_write"))
     dev = leaves[0].device
     _, P, Hkv, ps, D = leaves[0].shape
-    N = len(rows_np)
+    lead = rows_np.shape                       # [N] paged, [B, R] dense
+    N = rows_np.size
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
 
@@ -595,8 +611,9 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
         return (scale * torch.randn(shape, generator=gen, device=dev)
                 ).to(torch.bfloat16)
 
-    q, k, v = randn(N, hq, D, scale=3.0), randn(N, Hkv, D, scale=3.0), \
-        randn(N, Hkv, D)
+    q, k, v = randn(*lead, hq, D, scale=3.0), randn(*lead, Hkv, D,
+                                                    scale=3.0), \
+        randn(*lead, Hkv, D)
     weights = (None, None)
     if norm:
         weights = tuple((1.0 + 0.1 * randn(D).float()).to(torch.bfloat16)
@@ -605,23 +622,46 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
                             theta)
     prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
     rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
-    table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
+    index = () if dense else (torch.from_numpy(table_np.astype(np.int32))
+                              .to(dev),)
+    args = (rows, layer) + index
     refs = [t.clone() for t in leaves]
     before = kernel_fn.launches
-    got_q = kernel_fn(*leaves, q, k, v, rows, layer, table, prep)
+    got_q = kernel_fn(*leaves, q, k, v, *args, prep)
     if kernel_fn.launches != before + 1:
         raise AssertionError(f"{name} {label}: no launch counted")
-    ref_q = plain_fn(*refs, q, k, v, rows, layer, table, prep)
+    ref_q = plain_fn(*refs, q, k, v, *args, prep)
     _, ref_k = prep_qk_plain(q, k, prep)
     # the kernel's k rows after the prologue: its bf16 instance into a
-    # scratch pool of one page per row (row 0 of page n)
-    scratch = [torch.zeros((1, N, Hkv, 1, D), dtype=torch.bfloat16,
-                           device=dev) for _ in range(2)]
-    pa.prep_write_rows_paged(
-        *scratch, q, k, v, torch.zeros_like(rows), 0,
-        torch.arange(N, dtype=torch.int32, device=dev)[:, None], prep)
-    torch.cuda.synchronize()
-    got_k = scratch[0][0, :, :, 0]
+    # scratch cache of one row per packed row
+    if dense:
+        B, R = lead
+        scratch = [torch.zeros((1, B, Hkv, R, D), dtype=torch.bfloat16,
+                               device=dev) for _ in range(2)]
+        da.prep_write_rows_dense(
+            *scratch, q, k, v,
+            torch.arange(R, dtype=torch.int32, device=dev).expand(B, R)
+            .contiguous(), 0, prep)
+        torch.cuda.synchronize()
+        got_k = scratch[0][0].transpose(1, 2)          # [B, R, Hkv, D]
+        b_np, r_np = np.nonzero((rows_np >= 0) & (rows_np < ps))
+        sel = torch.from_numpy(b_np * R + r_np).to(dev)
+        kept = (layer, torch.from_numpy(b_np).to(dev)[:, None],
+                torch.arange(Hkv, device=dev)[None],
+                torch.from_numpy(rows_np[b_np, r_np].astype(np.int64))
+                .to(dev)[:, None])
+    else:
+        scratch = [torch.zeros((1, N, Hkv, 1, D), dtype=torch.bfloat16,
+                               device=dev) for _ in range(2)]
+        pa.prep_write_rows_paged(
+            *scratch, q, k, v, torch.zeros_like(rows), 0,
+            torch.arange(N, dtype=torch.int32, device=dev)[:, None], prep)
+        torch.cuda.synchronize()
+        got_k = scratch[0][0, :, :, 0]
+        sel, pg, off = (t.to(dev) for t in pa._kept_rows(rows, index[0], ps,
+                                                          P))
+        kept = (layer, pg[:, None], torch.arange(Hkv, device=dev)[None],
+                off[:, None])
 
     def within_ulp(got, want):
         """(every element within one bf16 ulp of its head row's largest
@@ -634,14 +674,11 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
 
     q_ok, q_same, q_err = within_ulp(got_q, ref_q)
     k_ok, k_same, k_err = within_ulp(got_k, ref_k)
-    sel, pg, off = (t.to(dev) for t in pa._kept_rows(rows, table, ps, P))
-    kept = (layer, pg[:, None], torch.arange(Hkv, device=dev)[None],
-            off[:, None])
     if not (q_ok and k_ok):
         raise AssertionError(f"{name} {label}: q (ok {q_ok}, max abs "
                              f"{q_err:.3e}) or k (ok {k_ok}, max abs "
                              f"{k_err:.3e}) past one bf16 ulp of its row")
-    same_k = (got_k == ref_k).all(-1)[sel]             # [kept, Hkv]
+    same_k = (got_k == ref_k).all(-1).reshape(N, Hkv)[sel]   # [kept, Hkv]
 
     def same_bits(a, b):
         """bit for bit (the window phase's pools hold NaN pages)"""
@@ -678,7 +715,7 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     else:
         pool_ok, _, pool_err = within_ulp(leaves[0][kept], refs[0][kept])
         if not pool_ok:
-            raise AssertionError(f"{name} {label}: the pool's k rows past "
+            raise AssertionError(f"{name} {label}: the cache's k rows past "
                                  f"one bf16 ulp of the plain version's")
         extra = {"pool_k_max_abs_err": pool_err}
         untouched = untouched_same(leaves[0], refs[0])
@@ -690,17 +727,17 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     del refs, scratch
 
     def kernel():
-        return kernel_fn(*leaves, q, k, v, rows, layer, table, prep)
+        return kernel_fn(*leaves, q, k, v, *args, prep)
 
     def chain():
         qc, kc = prep_qk_plain(q, k, prep)
-        chain_write(*leaves, kc, v, rows, layer, table)
+        chain_write(*leaves, kc, v, *args)
         return qc
 
     ms = timed_ms(torch, kernel)
     dev_ms = device_ms(torch, kernel)
-    plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, q, k, v, rows,
-                                                layer, table, prep),
+    plain_ms = timed_ms(torch, lambda: plain_fn(*leaves, q, k, v, *args,
+                                                prep),
                         iters=5, warmup=1)
     graph_ms = timed_ms(torch, _graph(torch, kernel))
     chain_graph_ms = timed_ms(torch, _graph(torch, chain))
@@ -708,7 +745,7 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     out_row = D * leaves[0].element_size() + (4 if quant else 0)
     nbytes = (2 * N * hq * D * 2 + 2 * N * Hkv * D * 2 + 2 * N * D * 4
               + (2 * D * 2 if norm else 0) + 2 * n_kept * Hkv * out_row
-              + N * 4 + n_kept * 4)
+              + N * 4 + (0 if dense else n_kept * 4))
     # float32 operations of the prologue: RMSNorm (square, sum, scale,
     # weight) and RoPE (two products, one sum) per q and k element
     ops = N * (hq + Hkv) * D * ((4 if norm else 0) + 3)
@@ -722,6 +759,9 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
            "k_identical_share": k_same,
            "k_rows_identical_share": float(same_k.float().mean()),
            **extra}
+    if standalone is not None:
+        res["standalone_ms"] = standalone["ms"]
+        res["standalone_device_ms"] = standalone["device_ms"]
     log(f"[kernels] {name} {label}: rows {N} ({n_kept} kept), Hq {hq}, "
         f"{'q/k norm + ' if norm else ''}RoPE; q, k within 1 bf16 ulp of "
         f"their row (bit-identical: q {q_same:.4f}, k {k_same:.4f} of "
@@ -732,7 +772,10 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
         f"kernel_ms {ms:.4f} device_ms {dev_ms:.4f} graph_ms {graph_ms:.4f} "
         f"plain_ms {plain_ms:.4f} chain_graph_ms {chain_graph_ms:.4f} "
         f"bound_ms {res['bound_ms']:.5f} ({nbytes / 1e6:.3f} MB, "
-        f"{ops / 1e6:.2f} MFLOP; {res['bound_by']})")
+        f"{ops / 1e6:.2f} MFLOP; {res['bound_by']})"
+        + (f"; the standalone write alone: kernel_ms "
+           f"{standalone['ms']:.4f} device_ms {standalone['device_ms']:.4f}"
+           if standalone is not None else ""))
     return res
 
 
@@ -1000,7 +1043,8 @@ def _dense_cases(torch, np):
     for K and for V), bf16 then int8 with its scales: K4 over 32 decode
     rows (lengths 0 to 2048), K5 over the same rows at 4 and 8 slots per
     CTA, K7 over 32 x SPEC_R verify rows, the row write (K8; int8: K9)
-    with one row and with SPEC_R rows per slot (some dropped)."""
+    with one row and with SPEC_R rows per slot (some dropped), and the same
+    rows through the write with Qwen3's q/k prologue fused in."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
 
@@ -1040,6 +1084,15 @@ def _dense_cases(torch, np):
                                          "decode, 32 rows")
         res["write_spec"] = _dense_write_case(
             torch, np, cache, rows, layer, f"verify, 32 x {SPEC_R} rows")
+        # the same rows with Qwen3's q/k RMSNorm and RoPE fused in
+        res["prep decode"] = _prep_case(
+            torch, np, cache, lengths[:, None] - 1, None,
+            np.maximum(lengths[:, None] - 1, 0), layer, "decode, 32 rows",
+            cfg.num_heads, cfg.rope_theta, cfg.qk_norm, res["write"])
+        res["prep verify"] = _prep_case(
+            torch, np, cache, rows, None, np.maximum(rows, 0), layer,
+            f"verify, 32 x {SPEC_R} rows", cfg.num_heads, cfg.rope_theta,
+            cfg.qk_norm, res["write_spec"])
         del cache
         torch.cuda.empty_cache()
     return out
@@ -1297,6 +1350,11 @@ def phase_kernels_window(torch, np):
     for name in ("bf16", "int8"):
         cache = _dense_cache(torch, gen, (L, B, Hkv, S, D), name == "int8")
         res = out["dense" if name == "bf16" else "dense int8"] = {
+            # the fused dense write without the norm (Mistral's decode)
+            "prep": _prep_case(torch, np, cache, dense_len[:, None] - 1,
+                               None, np.maximum(dense_len[:, None] - 1, 0),
+                               layer, f"decode {B} slots", Hq,
+                               cfg.rope_theta, cfg.qk_norm),
             "attention": _dense_attention_case(
                 torch, np, cache, dense_len, layer, 1,
                 f"window {W}, decode {B} slots", Hq, W),
@@ -1311,7 +1369,7 @@ def phase_kernels_window(torch, np):
                                 bb)
         _dense_poison_check(torch, np, cache, spec_len, layer, Hq, W, 1,
                             SPEC_R)
-        del cache, res
+        del cache
         torch.cuda.empty_cache()
     return out
 
@@ -1503,18 +1561,56 @@ def _check_fused_writes(tag, engine, launches, counts):
 
 def _dense_kernel_names(engine):
     """(decode attention instance, row write) launch-count names of a
-    dense engine's kernels (its KV dtype, decode_bblock and window)."""
+    dense engine's kernels (its KV dtype, decode_bblock and window; the row
+    write with the q/k prologue fused in)."""
     quant = "ks" in engine.cache
     return (_dense_name("decode_attend_dense", quant, engine.decode_bblock,
                         engine.cfg.sliding_window),
-            "cache_write_rows_quant_dense" if quant
-            else "cache_write_rows_dense")
+            FUSED_DENSE_WRITES[quant])
 
 
-def _check_dense_launches(tag, engine, launches, extra=()):
-    """A dense engine run: its decode attention instance, its row write and
-    ``extra`` launched, no paged kernel, and (without a window) no window
-    instance."""
+# the dense row writes with the q/k prologue fused in (bf16/f32, int8),
+# and standalone (K8, K9 without the prologue): no engine path launches
+# the standalone ones
+FUSED_DENSE_WRITES = ("prep_write_rows_dense", "prep_write_rows_quant_dense")
+STANDALONE_DENSE_WRITES = ("cache_write_rows_dense",
+                           "cache_write_rows_quant_dense")
+
+
+def _dense_forwards(counts):
+    """A dense engine's forwards that write a row at every layer through
+    the dense callbacks: its decode substeps and verifies."""
+    return sum(counts.get(k, 0) for k in ("decode_substeps",
+                                          "spec_dispatches"))
+
+
+def _check_fused_dense(tag, layers, launches, forwards, what, per=1):
+    """Every layer of every dense forward (``forwards`` of them, ``what``
+    for the log; ``per`` launches a layer: one per sequence shard) went
+    through the fused q/k prologue and dense row write: its launches equal
+    layers x forwards x per, and the standalone K8/K9 launched no time."""
+    fused = sum(launches[k] for k in FUSED_DENSE_WRITES)
+    want = layers * forwards * per
+    alone = {k: launches[k] for k in STANDALONE_DENSE_WRITES}
+    if forwards <= 0 or fused != want or any(alone.values()):
+        raise AssertionError(f"{tag} fused dense row writes {fused}, "
+                             f"expected {layers} layers x {forwards} "
+                             f"{what} x {per} = {want}; standalone {alone}")
+    log(f"{tag} fused q/k prologue + dense row write: {fused} launches = "
+        f"{layers} layers x {forwards} {what}"
+        f"{f' x {per} shards' if per > 1 else ''}; standalone K8/K9 0")
+
+
+def _check_dense_launches(tag, engine, launches, extra=(), counts=None):
+    """A dense engine run: its decode attention instance, its fused row
+    write and ``extra`` launched, the fused write once a layer of every
+    decode substep and verify (``counts``: the run's engine counts, the
+    engine's own by default) and the standalone K8/K9 never, no paged
+    kernel, and (without a window) no window instance."""
+    _check_fused_dense(tag, engine.cfg.num_layers, launches,
+                       _dense_forwards(engine.counts if counts is None
+                                       else counts),
+                       "dense forwards (decode substeps, verifies)")
     mine = _dense_kernel_names(engine) + tuple(extra)
     if min(launches[k] for k in mine) <= 0:
         raise AssertionError(f"{tag} a kernel of the path never launched "
@@ -1734,10 +1830,13 @@ def phase_profile(torch, np, engine):
            f"{'' if engine.serving.decode_pipeline else ', pipeline off'}]")
     before, counts0 = _launches(), dict(engine.counts)
     wall_ms = _profile_dispatch(torch, engine, tag)
+    launches = _delta(_launches(), before)
+    counts = {k: v - counts0.get(k, 0) for k, v in engine.counts.items()}
     if engine.paged:
-        _check_fused_writes(tag, engine, _delta(_launches(), before),
-                            {k: v - counts0.get(k, 0)
-                             for k, v in engine.counts.items()})
+        _check_fused_writes(tag, engine, launches, counts)
+    else:
+        _check_fused_dense(tag, engine.cfg.num_layers, launches,
+                           _dense_forwards(counts), "decode substeps")
     for s in engine._active_slots():
         engine.cancel(engine.slot_req[s])
     engine.step()
@@ -1779,16 +1878,18 @@ def _profile_dispatch(torch, engine, tag, step=None, n_slots=None):
         log(f"{tag} torch.profiler recorded no device time: device "
             "busy share not measured")
     else:
+        n_ops = sum(e.count for e in events)
         log(f"{tag} profiled dispatch: wall {prof_wall_ms:.2f} ms, "
             f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / prof_wall_ms:.3f}), "
-            f"{sum(e.count for e in events)} device operations")
+            f"{n_ops} device operations ({n_ops / horizon:.1f} a substep)")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms "
                 f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
-        # the row writes (K2, K3, K8, K9): device time a launch (a graph
-        # node when the engine replays its decode graphs)
+        # the row writes (K2, K3, K8, K9, each with the q/k prologue fused
+        # in): device time a launch (a graph node when the engine replays
+        # its decode graphs)
         for e in events:
             kernel = re.search(r"cache_write\w*", e.key)
             if kernel:
@@ -2619,6 +2720,10 @@ def phase_spec(torch, np, kv_dtype, paged=True, bblock=0):
                              f"{launches}")
     if paged:
         _check_fused_writes(tag, engine, launches, counts)
+    else:
+        _check_fused_dense(tag, cfg.num_layers, launches,
+                           _dense_forwards(counts),
+                           "dense forwards (decode substeps, verifies)")
     engine.serving = dataclasses.replace(serving, spec_decode=False)
     plain, plain_tps = run()
     engine.serving = serving
@@ -2789,7 +2894,10 @@ def phase_draft(torch, np):
     mixed dispatches advance the running slots past their draft rows and
     the draft catches up through the verify program (K7). Launch counts
     zeroed just before each run and read just after: K4, K7 and K8 > 0,
-    and accepted drafts > 0 with the self-draft."""
+    the fused q/k prologue and row writes once a layer of every forward
+    (the target's paged ones, the draft's dense rollout substeps and
+    catch-ups), the standalone writes never; and accepted drafts > 0 with
+    the self-draft."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (QWEN3_0_6B,
                                                               ServingConfig)
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
@@ -2853,10 +2961,11 @@ def phase_draft(torch, np):
             f"{counts}; acceptance {accepted}/{drafted} = {rate:.3f}; "
             f"kernel launches {launches}")
         dense = ("decode_attend_dense", "spec_attend_dense",
-                 "cache_write_rows_dense")
+                 "prep_write_rows_dense")
         if min(launches[k] for k in dense) <= 0:
             raise AssertionError(f"[draft {name}] a dense kernel never "
                                  f"launched (K4/K7/K8): {launches}")
+        _check_draft_writes(f"[draft {name}]", engine, launches, counts)
         if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
             raise AssertionError(f"[draft {name}] no verify or no draft: "
                                  f"{counts}")
@@ -2867,6 +2976,17 @@ def phase_draft(torch, np):
         del engine
         torch.cuda.empty_cache()
     return out
+
+
+def _check_draft_writes(tag, engine, launches, counts):
+    """A run with a draft model: every layer of the target's paged forwards
+    and of the draft's dense ones (its rollout substeps and catch-ups) went
+    through the fused q/k prologue and row write of its cache."""
+    _check_fused_writes(tag, engine, launches, counts)
+    _check_fused_dense(tag, engine.draft.cfg.num_layers, launches,
+                       counts.get("draft_rollout_substeps", 0)
+                       + counts.get("draft_catch_ups", 0),
+                       "draft forwards (rollout substeps, catch-ups)")
 
 
 def _tree_bytes(tree) -> int:
@@ -2973,11 +3093,13 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
         engine.step()
     torch.cuda.synchronize()
     t1 = time.monotonic()
-    before = _launches()
+    before, counts0 = _launches(), dict(engine.counts)
     _logits_check(torch, engine, MISTRAL_LOGIT_TOL)
     _profile_dispatch(torch, engine, f"[profile {cfg.name} {kv_dtype}"
                                      f"{'' if paged else ' dense'}]")
     checks = _delta(_launches(), before)
+    check_counts = {k: v - counts0.get(k, 0)
+                    for k, v in engine.counts.items()}
     t2 = time.monotonic()
     engine.run_until_idle()
     torch.cuda.synchronize()
@@ -2987,6 +3109,9 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
     if quant:
         _seeded_twice(engine, rng, Request)
     launches = _delta(_launches(), checks)
+    # the run's dispatches (the seeded ones included), the checks' out
+    run_counts = {k: v - check_counts.get(k, 0)
+                  for k, v in engine.counts.items()}
     log(f"{tag} {len(reqs)} requests, prompts {lens}, {new} new tokens "
         f"each: {n_gen} tokens in {dt:.2f}s ({n_gen / dt:.1f} tok/s end to "
         f"end, {_dispatch_mode(engine)}, the checks' time taken out); "
@@ -2995,7 +3120,7 @@ def phase_mistral(torch, np, kv_dtype, paged=True, bblock=0):
         _finish_ok(cfg, r, new)
     _check_replays(tag, engine, replays0)
     if not paged:
-        _check_dense_launches(tag, engine, launches)
+        _check_dense_launches(tag, engine, launches, counts=run_counts)
         attn = _dense_kernel_names(engine)[0]
         if launches[attn[:-len(" window")]] != launches[attn]:
             raise AssertionError(f"{tag} the window-0 instance launched: "
@@ -3088,7 +3213,8 @@ def phase_mistral_draft(torch, np):
     beside the bf16 pool: 6 requests, then 2 prompts of 600 tokens walked
     in chunks so that mixed dispatches put the drafts behind and they catch
     up. Launch counts zeroed just before the run and read just after: the
-    window instances of K4 (rollout) and K7 (catch-up), and K8, > 0;
+    window instances of K4 (rollout) and K7 (catch-up), and the fused K8, >
+    0, the fused writes once a layer of every target and draft forward;
     accepted drafts > 0."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
@@ -3132,9 +3258,10 @@ def phase_mistral_draft(torch, np):
         f" kernel launches {launches}")
     if min(launches[k] for k in ("decode_attend_dense window",
                                  "spec_attend_dense window",
-                                 "cache_write_rows_dense")) <= 0:
+                                 "prep_write_rows_dense")) <= 0:
         raise AssertionError(f"{tag} a dense kernel's window instance never "
                              f"launched: {launches}")
+    _check_draft_writes(tag, engine, launches, counts)
     if accepted <= 0:
         raise AssertionError(f"{tag} no draft token accepted: {counts}")
     del engine
@@ -3267,7 +3394,9 @@ def phase_kernels_sp(torch, np):
     empty shards exact), the shards' triples merged as the engine merges
     them held against K4 (int8: K4-int8) over the whole cache by the ulp
     rule row by row; K6 over the first shard of the 4 (the busiest) timed
-    beside its plain version, the library yardstick and its bound."""
+    beside its plain version, the library yardstick and its bound; the
+    decode's fused q/k prologue and row write into the second shard of the
+    4 (one slot's row kept, three dropped)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B as cfg
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
@@ -3317,6 +3446,15 @@ def phase_kernels_sp(torch, np):
                     q, shard["k"], shard["v"],
                     torch.from_numpy(local.astype(np.int32)).cuda(), layer,
                     *((shard["ks"], shard["vs"]) if quant else ())))
+                if sp == 4 and i == 1:
+                    # the decode's fused write into a shard that owns one
+                    # slot's new row (the others drop), after K6 read it
+                    rows = (lengths - i * s_local)[:, None]
+                    res["prep"] = _prep_case(
+                        torch, np, shard, rows, None, lengths[:, None],
+                        layer,
+                        f"sp {sp} shard {i}, rows {rows[:, 0].tolist()}",
+                        hq, cfg.rope_theta, cfg.qk_norm)
                 del shard
             merged = merge_stats(*zip(*parts), q.device).to(q.dtype)
             torch.cuda.synchronize()
@@ -3357,13 +3495,13 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     the dense engine without a mesh, the yardstick of the greedy streams),
     4 slots of 32768 rows, prefill_chunk 512; 4 greedy requests with
     prompts of SP_PROMPTS tokens and SP_NEW new tokens each, launch counts
-    zeroed just before and read just after: K6 and the row write (K8; int8:
-    K9) each ``L x sp`` times per decode substep and no other attention
-    kernel (sp 1: K4 and the row write). With int8 KV a seeded sampled
-    request rides along and is drawn again alone afterwards: the same
-    stream. The sp 1 run records the top-2 logit gap of every row it
-    samples, by (seed, context length). ``profile``: one decode dispatch
-    of the 4 slots profiled afterwards. Returns (engine, launches, the
+    zeroed just before and read just after: K6 and the fused q/k prologue
+    and row write (K8; int8: K9) each ``L x sp`` times per decode substep
+    and no other kernel (sp 1: K4 and the fused row write). With int8 KV a
+    seeded sampled request rides along and is drawn again alone
+    afterwards: the same stream. The sp 1 run records the top-2 logit gap
+    of every row it samples, by (seed, context length). ``profile``: one
+    decode dispatch of the 4 slots profiled afterwards. Returns (engine, launches, the
     greedy requests, {(seed, context length): gap} or None)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
                                                               QWEN3_0_6B,
@@ -3427,8 +3565,7 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     substeps = counts.get("decode_substeps", 0)
     if substeps <= 0 or counts.get("chunk_dispatches", 0) <= 0:
         raise AssertionError(f"{tag} no decode substep or no chunk: {counts}")
-    write = "cache_write_rows_quant_dense" if quant \
-        else "cache_write_rows_dense"
+    write = FUSED_DENSE_WRITES[quant]
     attn = _dense_name("decode_attend_dense", quant, stats=sp > 1)
     expected = {attn: cfg.num_layers * sp * substeps,
                 write: cfg.num_layers * sp * substeps}
@@ -3469,12 +3606,12 @@ def _recording_gaps(torch, run):
     gaps = {}
     sample = programs.sample
 
-    def recording(logits, temperature, top_k, top_p, seeds, ctrs):
+    def recording(logits, temperature, top_k, top_p, seeds, ctrs, *rest):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
         for key, gap in zip(zip(seeds.tolist(), ctrs.tolist()),
                             (top2[:, 0] - top2[:, 1]).tolist()):
             gaps[key] = gap
-        return sample(logits, temperature, top_k, top_p, seeds, ctrs)
+        return sample(logits, temperature, top_k, top_p, seeds, ctrs, *rest)
 
     programs.sample = recording
     try:
@@ -3766,8 +3903,26 @@ def main() -> int:
              kern["dense"]["attention"], "draft"),
             ("spec_attend_dense", DENSE_SRC, 675, kern["dense"]["spec"],
              "draft"),
-            ("cache_write_rows_dense", WRITE_SRC, 744, kern["dense"]["write"],
-             "draft"),
+            # K8 and K9 with the q/k prologue fused in (the standalone
+            # writes launch on no engine path; their times ride the decode
+            # rows as standalone_ms): Qwen3's dense decode and verify rows
+            # (q/k norm and RoPE), Mistral's decode (RoPE), an sp shard
+            ("prep_write_rows_dense", WRITE_SRC, 744,
+             kern["dense"]["prep decode"], "dense auto"),
+            ("prep_write_rows_dense verify", WRITE_SRC, 744,
+             kern["dense"]["prep verify"], "draft"),
+            ("prep_write_rows_dense rope", WRITE_SRC, 744,
+             wkern["dense"]["prep"], "mistral draft"),
+            ("prep_write_rows_dense sp", WRITE_SRC, 744,
+             skern["bf16"]["prep"], "sp 4 auto"),
+            ("prep_write_rows_quant_dense", WRITE_SRC, 823,
+             kern["dense int8"]["prep decode"], "dense int8"),
+            ("prep_write_rows_quant_dense verify", WRITE_SRC, 823,
+             kern["dense int8"]["prep verify"], "dense spec int8"),
+            ("prep_write_rows_quant_dense rope", WRITE_SRC, 823,
+             wkern["dense int8"]["prep"], "mistral dense int8"),
+            ("prep_write_rows_quant_dense sp", WRITE_SRC, 823,
+             skern["int8"]["prep"], "sp 4 int8"),
             # K1's ragged entry with the chunk layout: the decode rows
             # through the per-row body, the chunk's through the chunk body
             # (ms: the whole ragged call)
@@ -3789,8 +3944,6 @@ def main() -> int:
              wkern["dense"]["attention"], "mistral draft"),
             ("spec_attend_dense window", DENSE_SRC, 675,
              wkern["dense"]["spec"], "mistral draft"),
-            ("cache_write_rows_quant_dense", WRITE_SRC, 823,
-             kern["dense int8"]["write"], "dense int8"),
             ("decode_attend_dense quant", DENSE_SRC, 516,
              kern["dense int8"]["attention"], "dense int8"),
             ("spec_attend_dense quant", DENSE_SRC, 675,
@@ -3814,8 +3967,9 @@ def main() -> int:
                         "launches": runs[run][name if name in runs[run]
                                               else name.split()[0]],
                         **{k: res[k] for k in keys},
-                        **{k: res[k] for k in ("graph_ms", "chain_graph_ms")
-                           if k in res}})
+                        **{k: res[k] for k in (
+                            "graph_ms", "chain_graph_ms", "standalone_ms",
+                            "standalone_device_ms") if k in res}})
     # the combine's launches beside those of the attention launches that
     # used it (a launch with more than one split is followed by one combine)
     for run, counts in runs.items():

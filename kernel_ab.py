@@ -2,7 +2,8 @@
 """The attention kernels' times, and the engine's decode substep, in several
 checkouts of the port, in turns, on one card.
 
-    python3 kernel_ab.py [--engine-only | --only WORD[,WORD...]] PATH ...
+    python3 kernel_ab.py [--engine-only | --sp-only | --only WORD[,WORD...]]
+                         PATH ...
 
 Each PATH is the root of a checkout that holds
 ``aws_k8s_ansible_provisioner_tpu_torch/``. For each PATH in the order
@@ -26,16 +27,20 @@ shapes (q bf16; each over a bf16 and an int8 pool or cache):
   it (its chunk rows then take the chunk body), else it runs the per-row
   body over every row;
 - the dense attention over [28, 32, 8, 2048, 128]: K4 (decode, 32 slots),
-  K5 (the same at 4 and 8 slots per CTA) and K7 (verify, 32 x 5); at the
-  window of 4096 over [2, 16, 8, 8192, 128]: K4, K5 (4 and 8 per CTA) and
-  K7; and K6 over the busiest shard of the sp 4 cache, [28, 4, 8, 8192,
-  128] at local lengths 41, 6034, 8192, 8192.
+  K5 (the same at 4 and 8 slots per CTA) and K7 (verify, 32 x 5), and the
+  dense decode's row writes (K8, K9: 32 rows) with Qwen3's q/k RMSNorm and
+  RoPE before them: the fused kernel (``prep_write_rows_dense``) where the
+  checkout has it, else the chain it replaces, eagerly (``write``) and as
+  one CUDA graph replay (``write graph``); at the window of 4096 over
+  [2, 16, 8, 8192, 128]: K4, K5 (4 and 8 per CTA) and K7; and K6 over the
+  busiest shard of the sp 4 cache, [28, 4, 8, 8192, 128] at local lengths
+  41, 6034, 8192, 8192.
 
 and the engine's decode dispatch (horizon 8, 8 slots decoding after
-100-token prompts, seeded random weights quantized to int8) of six
-engines: Qwen3-0.6B paged with bf16 and int8 KV and dense with int8 KV,
-Mistral-7B-v0.1 paged with bf16 and int8 KV and dense with int8 KV (4
-slots per CTA). For each, the host-clock wall of 12 dispatches each
+100-token prompts, seeded random weights quantized to int8) of seven
+engines: Qwen3-0.6B paged with bf16 and int8 KV and dense with int8 KV and
+with bf16 KV (4 slots per CTA), Mistral-7B-v0.1 paged with bf16 and int8
+KV and dense with int8 KV (4 slots per CTA). For each, the host-clock wall of 12 dispatches each
 between two synchronizations (median and mean a substep, and the engine
 thread's CPU time), of 12 dispatches back to back (``substep_ms_steady``,
 where a pipelined engine overlaps its emits with the next dispatch), and
@@ -46,7 +51,10 @@ capture time and device memory. A checkout without graphs or a pipeline
 runs the same cases.
 ``--engine-only`` times the engines alone: the host's clock varies from
 run to run by more than a kernel edit moves it, so give many alternating
-runs (A B A B A B A B). ``--only spec,K7`` times only the kernel cases
+runs (A B A B A B A B). ``--sp-only`` times, the same way, only the
+sequence-parallel decode of ``chip_smoke.py``'s sp phase: Qwen3-0.6B dense
+over 4 sequence shards on one card (4 slots of 32768 rows after prompts of
+40-27,000 tokens, bf16 KV), an eager, synchronous dispatch. ``--only spec,K7`` times only the kernel cases
 whose name holds one of the words (here the eight verify instances), and
 no engine.
 
@@ -239,6 +247,41 @@ def _prep_write_call(torch, pa, gen, kv, hq, rows, layer, table):
     return chain
 
 
+def _dense_prep_write_call(torch, da, gen, kv, hq, rows, layer):
+    """The dense cache's counterpart of :func:`_prep_write_call`: Qwen3's
+    q/k prologue of one row per slot, then the dense row write (K8, or K9
+    when ``kv`` has scales): the fused kernel where the checkout has it
+    (``prep_write_rows_dense``), else the prologue's chain and the
+    standalone write."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models import layers
+
+    B, Hkv, D = kv[0].shape[1], kv[0].shape[2], kv[0].shape[4]
+    dev = gen.device
+    q = torch.randn((B, 1, hq, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = _kv(torch, gen, (B, 1, Hkv, D), False)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    cos, sin = (t.contiguous() for t in layers.rope_cos_sin(
+        rows.long(), D, 1e6))
+    quant = len(kv) == 4
+    if hasattr(da, "prep_write_rows_dense"):
+        fn = da.prep_write_rows_quant_dense if quant \
+            else da.prep_write_rows_dense
+        prep = layers.QKPrep(w, w, 1e-6, cos, sin)
+        return lambda: fn(*kv, q, k, v, rows, layer, prep)
+    write = da.cache_write_rows_quant_dense if quant \
+        else da.cache_write_rows_dense
+
+    def chain():
+        qp = layers.apply_rope(layers.rms_norm(q, w, 1e-6), cos, sin)
+        kp = layers.apply_rope(layers.rms_norm(k, w, 1e-6), cos, sin)
+        write(*kv, kp, v, rows, layer)
+        return qp
+
+    return chain
+
+
 def _paged(torch, np, pa, ctx, tag, L, hq, B, S, window, lengths, table,
            chunk, spec_len):
     """K1 decode, ragged and verify over a bf16 and an int8 pool."""
@@ -316,6 +359,13 @@ def _dense(torch, np, da, ctx, tag, L, hq, B, S, window, lengths, spec_len,
         _case(torch, ctx, f"{tag}{cache} K7",
               lambda: da.spec_attend_dense(q5, kv[0], kv[1], slen, L - 1,
                                            window, *scales))
+        if not window:
+            # the decode's q/k prologue and row write (K8, K9) at the
+            # slots' lengths, eagerly and as one graph replay
+            rows = (lens - 1).clamp_min(0)[:, None].contiguous()
+            fn = _dense_prep_write_call(torch, da, gen, kv, hq, rows, L - 1)
+            _case(torch, ctx, f"{tag}{cache} write", fn)
+            _case(torch, ctx, f"{tag}{cache} write graph", _graph(torch, fn))
         del kv
         torch.cuda.empty_cache()
 
@@ -344,6 +394,7 @@ def _k6(torch, np, da, ctx):
 ENGINES = (("qwen3 paged bf16", "qwen3", "auto", True, 0),
            ("qwen3 paged int8", "qwen3", "int8", True, 0),
            ("qwen3 dense int8", "qwen3", "int8", False, 0),
+           ("qwen3 dense bf16", "qwen3", "auto", False, 4),
            ("mistral paged bf16", "mistral", "auto", True, 0),
            ("mistral paged int8", "mistral", "int8", True, 0),
            ("mistral dense int8", "mistral", "int8", False, 4))
@@ -379,29 +430,80 @@ def _build_engine(torch, model, kv_dtype, paged, bblock):
 
 
 def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
-    """One engine dispatch: 8 slots decoding after 100-token prompts, then
-    the host-clock wall of 12 decode dispatches (after 2), each between two
-    synchronizations, per substep (median, mean, and the engine thread's
-    CPU time); 12 dispatches back to back with one synchronization at the
-    end (``substep_ms_steady``: a pipelined engine overlaps one dispatch's
-    emits with the next one's device work there); and 4 dispatches back to
-    back under torch.profiler (CUDA activity only): the device's busy time
-    a substep, its idle share over that window and the device operations
-    (kernels, copies; a graph's nodes) a substep."""
+    """One engine's decode dispatch with 8 slots decoding after 100-token
+    prompts (:func:`_time_decode`)."""
+    t0 = time.perf_counter()
+    engine = _build_engine(torch, model, kv_dtype, paged, bblock)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, engine.cfg.vocab_size, 100).tolist()
+               for _ in range(8)]
+    _time_decode(torch, out, label, engine, time.perf_counter() - t0,
+                 prompts, 400)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the sequence-parallel engine of ``--sp-only`` (chip_smoke.phase_sp_engine):
+# slots, rows a slot, prefill chunk, prompt lengths
+SP_SLOTS, SP_WINDOW, SP_CHUNK = 4, 32768, 512
+SP_PROMPTS = (40, 6000, 14000, 27000)
+
+
+def _sp_engine(torch, np, out, kv_dtype, sp):
+    """The sequence-parallel decode dispatch: Qwen3-0.6B (seeded random
+    weights quantized to int8) through ``Engine(..., mesh=make_mesh(
+    MeshConfig(sp=sp), [cuda:0] * sp))``, 4 dense slots of 32768 rows, all
+    shards on one card, decoding after prompts of SP_PROMPTS tokens, as
+    ``chip_smoke.py``'s sp phase runs it (:func:`_time_decode`)."""
+    from aws_k8s_ansible_provisioner_tpu_torch import config
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg = config.QWEN3_0_6B
+    serving = config.ServingConfig(
+        max_decode_slots=SP_SLOTS, max_cache_len=SP_WINDOW,
+        prefill_chunk=SP_CHUNK, paged=False, derived_seed=0,
+        kv_dtype=kv_dtype, prefix_cache=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = quantize_params(init_params(cfg, gen, torch.bfloat16), cfg)
+    mesh = make_mesh(config.MeshConfig(sp=sp), [torch.device("cuda", 0)] * sp)
+    engine = Engine(cfg, params, serving, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SP_PROMPTS]
+    # every slot stays active through the prefills and the timed dispatches
+    _time_decode(torch, out, f"qwen3 sp {sp} {kv_dtype}", engine,
+                 time.perf_counter() - t0, prompts,
+                 SP_WINDOW - max(SP_PROMPTS) - 1)
+
+
+def _time_decode(torch, out, label, engine, setup_s, prompts, max_tokens):
+    """Submit ``prompts`` (greedy, ``max_tokens`` each) and step the engine
+    until every one is admitted; then the host-clock wall of 12 decode
+    dispatches (after 2), each between two synchronizations, per substep
+    (median, mean, and the engine thread's CPU time); 12 dispatches back to
+    back with one synchronization at the end (``substep_ms_steady``: a
+    pipelined engine overlaps one dispatch's emits with the next one's
+    device work there); and 4 dispatches back to back under torch.profiler
+    (CUDA activity only): the device's busy time a substep, its idle share
+    over that window and the device operations (kernels, copies; a graph's
+    nodes) a substep. Into ``out["engine " + label]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
 
-    t0 = time.perf_counter()
-    engine = _build_engine(torch, model, kv_dtype, paged, bblock)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(4)
-    for _ in range(8):
-        engine.submit(Request(prompt_ids=rng.integers(
-            0, engine.cfg.vocab_size, 100).tolist(), max_tokens=400,
-            ignore_eos=True))
+    for p in prompts:
+        engine.submit(Request(prompt_ids=p, max_tokens=max_tokens,
+                              ignore_eos=True))
     while engine.pending or engine._chunk is not None:
         engine.step()
     horizon = engine.serving.decode_horizon
@@ -448,15 +550,14 @@ def _engine(torch, np, out, label, model, kv_dtype, paged, bblock):
         "capture_s": dec.capture_s if dec is not None else 0.0,
         "graph_pool_mib": dec.pool_bytes / 2**20 if dec is not None
         else 0.0}
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
-def one(path: str, engine_only: bool = False, only=()) -> dict:
+def one(path: str, engine_only: bool = False, only=(),
+        sp_only: bool = False) -> dict:
     """Times of the checkout at ``path`` (run in its own process); with
     ``engine_only`` the engine's substeps alone; with ``only`` (words) the
-    kernel cases named by one of them alone."""
+    kernel cases named by one of them alone; with ``sp_only`` the sp 4
+    engine's substeps (bf16 KV) alone."""
     sys.path.insert(0, path)
     import importlib.util
 
@@ -476,6 +577,9 @@ def one(path: str, engine_only: bool = False, only=()) -> dict:
             "aws_k8s_ansible_provisioner_tpu_torch.ops.split_kv"):
         from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
         ctx["split_kv"] = split_kv
+    if sp_only:
+        _sp_engine(torch, np, out, "auto", 4)
+        return out
     if not engine_only:
         _kernels(torch, np, da, pa, ctx)
     for case in ENGINES if not only else ():
@@ -542,12 +646,13 @@ def main() -> int:
     if args[:1] == ["--one"]:
         one_path, args = args[1], args[2:]
     engine_only = args[:1] == ["--engine-only"]
+    sp_only = args[:1] == ["--sp-only"]
     only = ()
     if args[:1] == ["--only"] and len(args) > 1:
         only = tuple(args[1].split(","))
-    flags = args[:1] if engine_only else args[:2] if only else []
+    flags = args[:1] if engine_only or sp_only else args[:2] if only else []
     if one_path is not None:
-        print(json.dumps(one(one_path, engine_only, only)))
+        print(json.dumps(one(one_path, engine_only, only, sp_only)))
         return 0
     paths = args[len(flags):]
     if not paths:

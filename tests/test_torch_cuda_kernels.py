@@ -1589,3 +1589,215 @@ def test_prep_write_refuses_what_the_kernel_does_not_take(dev):
         tpa.prep_write_rows_paged(
             *pools, q, k, v, rows, 1, table,
             dataclasses.replace(prep, cos=prep.cos[:4], sin=prep.sin[:4]))
+
+
+# -- the fused q/k prologue and dense row write (K8, K9 with the prologue) --
+
+
+def _prep_dense_inputs(dev, dtype, quant, norm, hq, hkv, d, R, seed):
+    """4 slots of R rows over a dense cache of 40 rows: kept rows at the
+    cache's edges and dropped ones (-1, S, far past S); raw q/k/v rows
+    [4, R, H, d] of ``dtype``, the RoPE tables [4, R, d] of the rows'
+    positions, norm weights (or none), a random cache [2, 4, hkv, 40, d]
+    (int8 with scales when ``quant``)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        QKPrep, rope_cos_sin)
+
+    B, S = 4, 40
+    rng = np.random.default_rng(seed)
+    rows = np.array([0, 17, S - 2, S - 1])[:, None] + np.arange(R)
+    rows[1, 0] = -1
+    rows[2, -1] = 10 ** 6
+    positions = np.maximum(rows, 0) + rng.integers(0, 30000)
+    t = [torch.from_numpy((3 * rng.standard_normal(shape)).astype(
+        np.float32)).to(dev, dtype)
+        for shape in ((B, R, hq, d), (B, R, hkv, d), (B, R, hkv, d))]
+    weights = (None, None)
+    if norm:
+        weights = tuple(torch.from_numpy(
+            (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
+                dev, dtype) for _ in range(2))
+    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev), d, 1e6)
+    prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
+    if quant:
+        cache = _int8_pools(rng, 2, B, hkv, S, d, dev)
+    else:
+        cache = [torch.from_numpy(rng.standard_normal((2, B, hkv, S, d))
+                                  .astype(np.float32)).to(dev, dtype)
+                 for _ in range(2)]
+    return t, torch.from_numpy(rows.astype(np.int32)).to(dev), prep, cache
+
+
+PREP_DENSE = pytest.mark.parametrize("hq,hkv,d,R", [
+    (16, 8, 128, 1), (16, 8, 128, 5), (32, 8, 128, 1), (4, 2, 64, 5),
+    (4, 2, 16, 1), (4, 2, 16, 5)])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm", [True, False], ids=["qk_norm", "rope"])
+@PREP_DENSE
+def test_prep_write_dense_matches_plain(dev, dtype, norm, hq, hkv, d, R):
+    """The fused dense write over a bf16/f32 cache: q and the written k
+    rows within the row tolerance of the plain version (bit-identical
+    without the norm), v and every untouched row bit-identical, one
+    launch."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), rows, prep, cache = _prep_dense_inputs(
+        dev, dtype, False, norm, hq, hkv, d, R, seed=60 + R)
+    ref = [c.clone() for c in cache]
+    before = tda.prep_write_rows_dense.launches
+    got_q = tda.prep_write_rows_dense(*cache, q, k, v, rows, 1, prep)
+    assert tda.prep_write_rows_dense.launches == before + 1
+    ref_q = tda.prep_write_rows_dense_plain(*ref, q, k, v, rows, 1, prep)
+    torch.cuda.synchronize()
+    assert got_q.dtype == dtype and got_q.shape == q.shape
+    assert torch.equal(cache[1], ref[1])
+    if norm:
+        assert _close_rows(got_q, ref_q, dtype)
+        assert _close_rows(cache[0], ref[0], dtype)
+    else:
+        assert torch.equal(got_q, ref_q) and torch.equal(cache[0], ref[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("norm", [True, False], ids=["qk_norm", "rope"])
+@PREP_DENSE
+def test_prep_write_quant_dense_matches_plain(dev, dtype, norm, hq, hkv, d,
+                                              R):
+    """The fused dense write's int8 instance: v's codes and scales
+    bit-identical; k's codes within 1 and scales within 2^-8 relative of
+    the plain version's, and bit-identical on every (row, head) whose k row
+    after the prologue (the bf16/f32 instance's) is bit-identical to
+    plain."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import \
+        prep_qk_plain
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), rows, prep, cache = _prep_dense_inputs(
+        dev, dtype, True, norm, hq, hkv, d, R, seed=70 + R)
+    ref = [c.clone() for c in cache]
+    before = tda.prep_write_rows_quant_dense.launches
+    got_q = tda.prep_write_rows_quant_dense(*cache, q, k, v, rows, 1, prep)
+    assert tda.prep_write_rows_quant_dense.launches == before + 1
+    ref_q = tda.prep_write_rows_quant_dense_plain(*ref, q, k, v, rows, 1,
+                                                  prep)
+    # the kernel's k rows after the prologue, from its bf16/f32 instance
+    rows_cache = [torch.zeros(cache[0].shape, dtype=dtype, device=dev)
+                  for _ in range(2)]
+    tda.prep_write_rows_dense(*rows_cache, q, k, v, rows, 1, prep)
+    _, k_plain = prep_qk_plain(q, k, prep)
+    torch.cuda.synchronize()
+    assert torch.equal(cache[1], ref[1]) and torch.equal(cache[3], ref[3])
+    assert (cache[0].int() - ref[0].int()).abs().max() <= 1
+    rel = ((cache[2] - ref[2]).abs() / ref[2]).max()
+    assert rel <= 2.0 ** -8
+    if not norm:
+        assert torch.equal(got_q, ref_q)
+    assert _close_rows(got_q, ref_q, dtype)
+    S = cache[0].shape[3]
+    for b, slot_rows in enumerate(rows.tolist()):
+        for r, row in enumerate(slot_rows):
+            if not 0 <= row < S:
+                continue
+            for h in range(hkv):
+                if torch.equal(rows_cache[0][1, b, h, row], k_plain[b, r, h]):
+                    assert torch.equal(cache[0][1, b, h, row],
+                                       ref[0][1, b, h, row])
+                    assert torch.equal(cache[2][1, b, h, row],
+                                       ref[2][1, b, h, row])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_prep_write_dense_sp_shard_rows(dev, quant):
+    """An sp shard's rows (lengths - off; a non-owner's drop) through the
+    fused dense write: the cache and scales of the bf16 instance (the rope
+    only, bit for bit) or int8 instance equal the plain version's, and q
+    goes out for the dropped rows too."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), _, prep, cache = _prep_dense_inputs(
+        dev, torch.bfloat16, quant, False, 16, 8, 128, 1, seed=80)
+    S = cache[0].shape[3]
+    lengths = torch.tensor([3, S - 1, S, 2 * S - 1], dtype=torch.int32,
+                           device=dev)
+    for off in (0, S):
+        shard = [c.clone() for c in cache]
+        ref = [c.clone() for c in cache]
+        rows = (lengths - off)[:, None].contiguous()
+        fn = tda.prep_write_rows_quant_dense if quant \
+            else tda.prep_write_rows_dense
+        got_q = fn(*shard, q, k, v, rows, 1, prep)
+        plain = tda.prep_write_rows_quant_dense_plain if quant \
+            else tda.prep_write_rows_dense_plain
+        ref_q = plain(*ref, q, k, v, rows, 1, prep)
+        torch.cuda.synchronize()
+        assert torch.equal(got_q, ref_q)
+        for got, want in zip(shard, ref):
+            assert torch.equal(got, want)
+        changed = (shard[1] != cache[1]).any(-1).any(2)[1]       # [B, S]
+        assert int(changed.sum()) == 2
+
+
+def test_prep_write_dense_refuses_what_the_kernel_does_not_take(dev):
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), rows, prep, cache = _prep_dense_inputs(
+        dev, torch.bfloat16, False, True, 4, 2, 64, 5, seed=42)
+    with pytest.raises(ValueError):           # D 48: not a power of two
+        tda.prep_write_rows_dense(
+            *(c[..., :48].contiguous() for c in cache),
+            q[..., :48].contiguous(), k[..., :48].contiguous(),
+            v[..., :48].contiguous(), rows, 1,
+            dataclasses.replace(prep, q_norm=None, k_norm=None,
+                                cos=prep.cos[..., :48].contiguous(),
+                                sin=prep.sin[..., :48].contiguous()))
+    with pytest.raises(TypeError):            # float32 weights, bf16 rows
+        tda.prep_write_rows_dense(
+            *cache, q, k, v, rows, 1,
+            dataclasses.replace(prep, q_norm=prep.q_norm.float(),
+                                k_norm=prep.k_norm.float()))
+    with pytest.raises(ValueError):           # tables of the wrong rows
+        tda.prep_write_rows_dense(
+            *cache, q, k, v, rows, 1,
+            dataclasses.replace(prep, cos=prep.cos[:, :2],
+                                sin=prep.sin[:, :2]))
+    with pytest.raises(ValueError):           # rows of other slots
+        tda.prep_write_rows_dense(*cache, q, k, v, rows[:2], 1, prep)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_prep_write_empty_call_counts_no_launch(dev, quant):
+    """A fused write of no rows (paged N = 0; dense R = 0) launches nothing,
+    so its counter stays where it was, q comes back empty and the caches
+    are untouched."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), rows, table, prep, pools = _prep_inputs(
+        dev, torch.bfloat16, quant, True, 4, 2, 16, seed=90)
+    fn = tpa.prep_write_rows_quant_paged if quant \
+        else tpa.prep_write_rows_paged
+    ref = [p.clone() for p in pools]
+    before = fn.launches
+    out = fn(*pools, q[:0], k[:0], v[:0], rows[:0], 1, table[:0],
+             dataclasses.replace(prep, cos=prep.cos[:0], sin=prep.sin[:0]))
+    assert fn.launches == before and out.shape == (0,) + q.shape[1:]
+    (q, k, v), rows, prep, cache = _prep_dense_inputs(
+        dev, torch.bfloat16, quant, True, 4, 2, 16, 5, seed=91)
+    fn = tda.prep_write_rows_quant_dense if quant \
+        else tda.prep_write_rows_dense
+    ref += [c.clone() for c in cache]
+    before = fn.launches
+    none = (slice(None), slice(0, 0))
+    out = fn(*cache, q[none], k[none], v[none], rows[none], 1,
+             dataclasses.replace(prep, cos=prep.cos[none],
+                                 sin=prep.sin[none]))
+    assert fn.launches == before and out.shape == q[none].shape
+    torch.cuda.synchronize()
+    for got, want in zip(pools + cache, ref):
+        assert torch.equal(got, want)

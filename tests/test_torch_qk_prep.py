@@ -370,18 +370,26 @@ def test_fused_callbacks_decoder_block_byte_identical(kind, quant):
 
 
 def test_only_the_paged_serving_callbacks_fuse():
-    """The dense, sequence-parallel, prefill and default callbacks keep the
+    """The row-write callbacks fuse: the paged decode, verify and mixed
+    ones and the dense decode, verify and sequence-parallel decode. The
+    batched prefills, the dense chunk prefill and the default keep the
     unfused form (the block preps q and k for them)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import MeshConfig
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+
     lengths = torch.tensor([3, 4], dtype=torch.int32)
     table = torch.ones((2, 3), dtype=torch.int32)
-    unfused = (tattn.make_decode_attend_carry(lengths),
-               tattn.make_spec_attend_carry(lengths),
-               tattn.make_prefill_attend_batch(lengths, lengths),
+    mesh = make_mesh(MeshConfig(sp=2), ["cpu"] * 2)
+    unfused = (tattn.make_prefill_attend_batch(lengths, lengths),
                tattn.make_prefill_attend_batch_paged_carry(table, lengths),
                tattn.make_chunk_prefill_attend(0, 0),
                tl.make_default_attend(CFGS["qwen3"]))
     assert not any(getattr(a, "fuses_qk_prep", False) for a in unfused)
     fused = (tattn.make_decode_attend_carry_paged(lengths, table),
              tattn.make_spec_attend_carry_paged(lengths, table),
-             tattn.make_mixed_attend_carry_paged(lengths, lengths, table))
+             tattn.make_mixed_attend_carry_paged(lengths, lengths, table),
+             tattn.make_decode_attend_carry(lengths),
+             tattn.make_decode_attend_carry(lengths, bblock=2),
+             tattn.make_decode_attend_carry(lengths, mesh=mesh),
+             tattn.make_spec_attend_carry(lengths))
     assert all(a.fuses_qk_prep for a in fused)

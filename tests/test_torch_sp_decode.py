@@ -39,6 +39,7 @@ from aws_k8s_ansible_provisioner_tpu.config import MeshConfig as JMesh
 from aws_k8s_ansible_provisioner_tpu.config import ServingConfig as JServing
 from aws_k8s_ansible_provisioner_tpu.config import tiny_mistral as jax_mistral
 from aws_k8s_ansible_provisioner_tpu.config import tiny_qwen3 as jax_tiny
+from aws_k8s_ansible_provisioner_tpu.models import layers as jl
 from aws_k8s_ansible_provisioner_tpu.models.layers import init_params
 from aws_k8s_ansible_provisioner_tpu.ops import attention as jattn
 from aws_k8s_ansible_provisioner_tpu.ops import pallas_attention as pa
@@ -51,6 +52,7 @@ from aws_k8s_ansible_provisioner_tpu_torch.config import \
     ServingConfig as TServing
 from aws_k8s_ansible_provisioner_tpu_torch.models.convert import \
     from_jax_params
+from aws_k8s_ansible_provisioner_tpu_torch.models import layers as tl
 from aws_k8s_ansible_provisioner_tpu_torch.ops import attention as tattn
 from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as tda
 from aws_k8s_ansible_provisioner_tpu_torch.parallel import mesh as tmesh
@@ -207,7 +209,13 @@ def test_sp_decode_callback_matches_jax_shard_map(sp, quant):
     interpret mode under shard_map): the new rows land in the owning shard
     only (the other shards' writes drop), every shard's cache bits equal
     JAX's after the write, and the merged context within 1e-5. Slots end
-    before, on and after shard edges, one writes the window's last row."""
+    before, on and after shard edges, one writes the window's last row.
+    The port's callback takes the raw q/k and the layer's ``QKPrep`` (its
+    row write applies the prologue); JAX's takes them after its
+    ``apply_rope`` over the same float32 tables. RoPE only: at float32 the
+    two packages' ``rms_norm`` differ in the last bit (their mean of
+    squares sums in another order); tests/test_torch_dense_qk_prep.py holds
+    the norm in bf16, where both round to the same values."""
     B = 6
     s_local = S // sp
     rng = np.random.default_rng(6)
@@ -223,19 +231,24 @@ def test_sp_decode_callback_matches_jax_shard_map(sp, quant):
     q = rng.standard_normal((B, 1, HQ, D)).astype(np.float32)
     k = rng.standard_normal((B, 1, HKV, D)).astype(np.float32)
     v = rng.standard_normal((B, 1, HKV, D)).astype(np.float32)
+    cos, sin = tl.rope_cos_sin(torch.from_numpy(lengths)[:, None], D,
+                               TCFG.rope_theta)
+    prep = tl.QKPrep(None, None, TCFG.norm_eps, cos, sin)
     layer = 1
-
+    jq, jk = (jl.apply_rope(jnp.asarray(x), jnp.asarray(cos.numpy()),
+                            jnp.asarray(sin.numpy()), D) for x in (q, k))
     jmesh_ = _jax_mesh(sp)
     jfn = jattn.make_decode_attend_carry(jnp.asarray(lengths), impl="pallas",
                                          mesh=jmesh_)
     jctx, (jcache, _) = jax.jit(lambda c: jfn(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jq, jk, jnp.asarray(v),
         (c, jnp.int32(layer))))({n: jnp.asarray(a) for n, a in cache.items()})
 
     shards = [{n: _t(a) for n, a in sh.items()} for sh in _split(cache, sp)]
     before = [{n: t.clone() for n, t in sh.items()} for sh in shards]
     tfn = tattn.make_decode_attend_carry(_t(lengths), mesh=_cpu_mesh(sp))
-    tctx, (out, _) = tfn(_t(q), _t(k), _t(v), (shards, layer))
+    assert tfn.fuses_qk_prep
+    tctx, (out, _) = tfn(_t(q), _t(k), _t(v), (shards, layer), prep)
     assert out is shards
     np.testing.assert_allclose(tctx.numpy(), np.asarray(jctx), rtol=TOL,
                                atol=TOL)
