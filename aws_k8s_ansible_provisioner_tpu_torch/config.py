@@ -4,9 +4,8 @@ The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
 Only the serving fields the port reads are here; the rest of the JAX
-``ServingConfig`` (checkpoint loading, prefix cache, host tier, pipeline,
-LoRA, deadlines, telemetry) comes over with the slices that port those
-features.
+``ServingConfig`` (checkpoint loading, LoRA, guided decoding, tracing,
+telemetry) comes over with the slices that port those features.
 """
 
 from __future__ import annotations
@@ -261,8 +260,33 @@ class ServingConfig:
     # (decode runs only when nothing can be admitted, at horizon 1 near an
     # admission). 0 turns the floor off.
     prefill_fairness: int = 4
-    # Admissions past this queue depth are refused (0 = unbounded).
+    # Default end-to-end deadline of a request, and the cap of a client's
+    # own (X-Request-Deadline-Ms / deadline_ms), in seconds from submission:
+    # queue wait counts against it, and an expired request is cancelled
+    # between dispatches (finish "timeout", HTTP 408). 0 disables (no
+    # default deadline, uncapped client deadlines).
+    request_timeout_s: float = 600.0
+    # Admissions past this queue depth are shed with reason "queue_full"
+    # (HTTP 429 + Retry-After; 0 = unbounded).
     max_queue_depth: int = 256
+    # When > 0, an admission whose estimated queue wait (queue depth x
+    # recent tokens per finished request / recent tokens per second) exceeds
+    # this many seconds is shed with reason "est_wait" (429). 0 disables.
+    admission_max_wait_s: float = 0.0
+    # Graceful drain budget: on SIGTERM or /admin/drain the engine stops
+    # admitting (new requests shed with reason "draining", HTTP 503,
+    # /readyz 503) and in-flight requests get this many seconds to finish;
+    # stragglers are then cancelled through the deadline path.
+    drain_timeout_s: float = 30.0
+    # Stall watchdog: a step executing past this many seconds is declared
+    # stalled (/healthz and /readyz answer 503 "stalled"; counted in
+    # tpu_serve_watchdog_stalls_total).
+    watchdog_stall_s: float = 120.0
+    # Paged admission pressure relief: when the queue head cannot be placed
+    # for want of pages although a slot is free, for this many seconds, the
+    # lowest-progress running request is preempted (recompute, requeued at
+    # the back). 0 disables (the head waits for pages to come free).
+    admission_preempt_after_s: float = 1.0
     # Seed of the engine's draws of per-request sampling seeds for requests
     # that set none; None draws it from os.urandom.
     derived_seed: object = None

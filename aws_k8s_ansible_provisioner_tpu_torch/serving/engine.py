@@ -88,8 +88,8 @@ Differences from the JAX engine:
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
 - not ported yet: guided decoding, LoRA (and with it the prefix chain's
-  salt), penalties, logit bias, min_tokens, logprobs, deadlines, drain and
-  the admission-pressure preemption;
+  salt), penalties, logit bias, min_tokens, logprobs, streaming, the
+  failover continuation (``resume_ids``), tracing and the flight recorder;
 - a verify dispatch serves greedy slots only: a sampled slot takes its
   tokens from the plain step that follows (the JAX engine draws it from the
   verify's row 0), so that its seeded stream does not depend on speculation;
@@ -102,6 +102,29 @@ keeps its length); their outputs are discarded. A config with a sliding
 window (Mistral) is served by the same steps, the window applied inside the
 attention kernels; as in the JAX engine, a paged slot keeps its pages below
 the window until it finishes.
+
+The replica lifecycle is the JAX engine's:
+
+- admission control: :meth:`Engine.submit` sheds a request before it
+  queues, with :class:`EngineOverloaded` and a reason: ``draining`` while
+  the engine drains, ``est_wait`` when ``admission_max_wait_s`` > 0 and
+  the estimated queue wait exceeds it, ``queue_full`` past
+  ``max_queue_depth``;
+- deadlines: a request's deadline (its own ``deadline_s``, capped by
+  ``request_timeout_s``, or that default alone) is absolute from submit,
+  so queue wait counts against it; each step reaps the expired running
+  slots, chunk walk and queued requests (finish ``"timeout"``), through
+  the teardowns a cancel takes;
+- drain (:meth:`Engine.begin_drain`, :meth:`Engine.end_drain`): no
+  admission while draining, and past the drain deadline every request
+  expires through the same reap;
+- the paged engine's admission-pressure preemption: when the queue head
+  has waited ``admission_preempt_after_s`` for pages although a slot is
+  free, the lowest-progress running request is preempted and requeued at
+  the back;
+- the stall watchdog of :meth:`Engine.run_forever` (``stalled_for_s``,
+  ``watchdog_stall_s``) and the metrics of ``serving/metrics.py``
+  (``Engine.metrics``; ``Engine.counts`` keeps the port's own counts).
 
 Sampling is seeded per request as in the JAX engine: a request's OpenAI
 ``seed``, or else one drawn at submit from the engine's ``random.Random``
@@ -142,6 +165,7 @@ from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
     init_cache_sharded, sp_size)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
+from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
@@ -164,7 +188,15 @@ class ContextLengthExceeded(ValueError):
 
 
 class EngineOverloaded(RuntimeError):
-    """The bounded queue is full; nothing was generated (HTTP 429)."""
+    """Admission control shed this request before it queued: nothing was
+    generated, so the caller may retry elsewhere or later. ``reason`` is
+    ``draining`` (HTTP 503), ``est_wait`` or ``queue_full`` (HTTP 429);
+    ``retry_after_s`` (at least 1) is the ``Retry-After`` hint."""
+
+    def __init__(self, reason: str, message: str, retry_after_s: float = 1.0):
+        self.reason = reason
+        self.retry_after_s = max(1.0, float(retry_after_s))
+        super().__init__(message)
 
 
 @dataclass
@@ -181,11 +213,22 @@ class Request:
     seed: Optional[int] = None
     # resolved at submit: the seed's low 32 bits, or the engine's draw
     eff_seed: int = 0
+    # end-to-end deadline in seconds from submission (None: the engine's
+    # request_timeout_s); submit resolves it into the absolute t_deadline
+    # (time.monotonic(); 0.0 = none)
+    deadline_s: Optional[float] = None
+    t_deadline: float = 0.0
     cancelled: bool = False
     id: int = field(default_factory=lambda: next(_REQUEST_IDS))
     generated: List[int] = field(default_factory=list)
     # None is put here when the request finishes
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
+    # time.monotonic() at submit, at the first admission into a slot (kept
+    # across a preemption), at the first token and at the finish
+    t_submit: float = 0.0
+    t_prefill_start: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
     finish_reason: str = ""
 
     def wait(self, timeout: Optional[float] = None) -> List[int]:
@@ -201,6 +244,12 @@ class Request:
 
 class Engine:
     """Continuous-batching engine over a fixed set of decode slots."""
+
+    # time.monotonic() at the start of the step executing (0.0: none); a
+    # step running past STALL_AFTER_S (serving.watchdog_stall_s) makes
+    # stalled_for_s positive
+    last_step_start: float = 0.0
+    STALL_AFTER_S: float = 120.0
 
     def __init__(self, cfg: ModelConfig, params: dict, serving: ServingConfig,
                  eos_token_id: Optional[int] = None, device=None,
@@ -356,6 +405,20 @@ class Engine:
             if serving.derived_seed is None else int(serving.derived_seed))
         self.counts = collections.Counter()
         self.last_error = ""
+        self.metrics = _metrics.EngineMetrics()
+        # (dispatch time, tokens emitted) of the last 50 fetched dispatches:
+        # the tokens_per_second gauge
+        self._tok_times: collections.deque = collections.deque(maxlen=50)
+        # the lifecycle: the stall threshold; the watchdog's abort flag;
+        # since when the paged queue head has waited for pages with a slot
+        # free; the drain state, written under _lock by the server's
+        # threads and read by the engine thread
+        if serving.watchdog_stall_s > 0:
+            self.STALL_AFTER_S = float(serving.watchdog_stall_s)
+        self._stall_abort = False
+        self._admission_blocked_since = 0.0
+        self.draining = False
+        self._drain_deadline = 0.0
         if serving.spec_method not in ("prompt_lookup", "draft"):
             raise ValueError(f"spec_method={serving.spec_method!r}: expected "
                              f"'prompt_lookup' or 'draft'")
@@ -394,6 +457,8 @@ class Engine:
             self.pages_per_slot if self.paged else None, horizons,
             bblock=self.decode_bblock, mesh=self.mesh,
             capture=self.device.type == "cuda" and self.sp == 1)
+        self.metrics.decode_bblock.set(self.decode_bblock)
+        self._pages_gauges()
 
     @property
     def spec_decode(self) -> bool:
@@ -436,6 +501,18 @@ class Engine:
             return len(self._queue)
 
     def submit(self, req: Request) -> Request:
+        """Queue ``req``, or shed it with :class:`EngineOverloaded` before
+        it queues: while draining (before any other check), past
+        ``admission_max_wait_s`` of estimated wait, past
+        ``max_queue_depth``. Resolves the request's seed and its absolute
+        deadline; a deadline of <= 0 seconds raises ValueError."""
+        req.t_submit = time.monotonic()
+        if self.draining:
+            self.metrics.requests_shed.inc(reason="draining")
+            raise EngineOverloaded(
+                "draining", "engine is draining; not admitting new requests",
+                retry_after_s=max(1.0, self._drain_deadline
+                                  - time.monotonic()))
         n = len(req.prompt_ids)
         if n == 0:
             raise ValueError("empty prompt")
@@ -449,18 +526,156 @@ class Engine:
         with self._lock:
             req.eff_seed = (int(req.seed) & 0xffffffff) \
                 if req.seed is not None else self._py_rng.getrandbits(32)
+        # the client's deadline capped by request_timeout_s, or that default
+        # alone (<= 0: no cap and no default); absolute, so that queue wait
+        # counts against it
+        cap = float(self.serving.request_timeout_s or 0)
+        d = req.deadline_s
+        if d is not None and d <= 0:
+            raise ValueError(f"deadline must be > 0 seconds (got {d})")
+        if d is None:
+            d = cap if cap > 0 else None
+        elif cap > 0:
+            d = min(float(d), cap)
+        req.t_deadline = (req.t_submit + d) if d else 0.0
+        max_wait = float(self.serving.admission_max_wait_s or 0)
+        if max_wait > 0:
+            est = self._estimated_wait_s()
+            if est > max_wait:
+                self.metrics.requests_shed.inc(reason="est_wait")
+                raise EngineOverloaded(
+                    "est_wait",
+                    f"estimated queue wait {est:.1f}s exceeds the "
+                    f"admission limit {max_wait:.1f}s",
+                    retry_after_s=est - max_wait + 1)
+        with self._lock:
             depth = self.serving.max_queue_depth
-            if depth and len(self._queue) >= depth:
-                raise EngineOverloaded(f"engine queue is full "
-                                       f"({len(self._queue)} waiting)")
-            self._queue.append(req)
+            full = bool(depth) and len(self._queue) >= depth
+            if not full:
+                self._queue.append(req)
+            waiting = len(self._queue)
+            self.metrics.queue_depth.set(waiting)
+        if full:
+            self.metrics.requests_shed.inc(reason="queue_full")
+            raise EngineOverloaded(
+                "queue_full",
+                f"engine queue is full ({waiting} waiting, limit {depth})",
+                retry_after_s=self._estimated_wait_s() or 1.0)
         self._work_event.set()
         return req
+
+    def _estimated_wait_s(self) -> float:
+        """Coarse queue-wait estimate: queued requests x recent tokens per
+        finished request / recent tokens per second; 0.0 without throughput
+        history (a cold engine never sheds on an estimate)."""
+        tps = self.metrics.tokens_per_second.value()
+        depth = self.pending
+        if tps <= 0 or depth <= 0:
+            return 0.0
+        avg_tokens = self.metrics.generated_tokens.total() \
+            / max(1, self.counts["finished"])
+        return depth * max(1.0, avg_tokens) / tps
 
     def cancel(self, req: Request):
         """Mark a request cancelled; its slot frees on the next step."""
         req.cancelled = True
         self._work_event.set()
+
+    # -- drain, deadlines and admission pressure ----------------------------
+
+    def begin_drain(self, timeout_s: Optional[float] = None) -> float:
+        """Stop admitting (submit sheds with reason ``draining``) and give
+        the requests in flight ``timeout_s`` (default
+        ``serving.drain_timeout_s``) to finish; past that the deadline reap
+        cancels them (finish ``"timeout"``). A second call while draining
+        keeps the first deadline (the preStop hook and SIGTERM both call
+        it). Returns the seconds left until the drain deadline."""
+        with self._lock:
+            now = time.monotonic()
+            if self.draining:
+                return max(0.0, self._drain_deadline - now)
+            t = max(0.0, float(self.serving.drain_timeout_s
+                               if timeout_s is None else timeout_s))
+            self.draining = True
+            self._drain_deadline = now + t
+        self.metrics.draining.set(1)
+        self._work_event.set()
+        return t
+
+    def end_drain(self):
+        """Cancel a drain: admissions resume."""
+        with self._lock:
+            self.draining = False
+            self._drain_deadline = 0.0
+        self.metrics.draining.set(0)
+        self._work_event.set()
+
+    def _effective_deadline(self, req: Request) -> float:
+        """The request's deadline tightened by the drain deadline (0.0 =
+        none): a drain never extends a request's budget."""
+        d = req.t_deadline or 0.0
+        if self.draining and self._drain_deadline:
+            d = min(d or self._drain_deadline, self._drain_deadline)
+        return d
+
+    def _reap_expired(self):
+        """Cancel every request whose deadline has passed, with finish
+        ``"timeout"``, each counted once in ``deadline_expired``: a running
+        slot through :meth:`_finish` (a dispatch in flight discards its
+        tokens), the chunk walk through :meth:`_end_walk` (which settles
+        its mixed dispatch in flight first), a queued request out of the
+        queue with its resume context."""
+        now = time.monotonic()
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and 0 < self._effective_deadline(r) <= now:
+                r.finish_reason = "timeout"
+                self.metrics.deadline_expired.inc()
+                self._finish(slot)
+        st = self._chunk
+        if st is not None and 0 < self._effective_deadline(st["req"]) <= now:
+            self.metrics.deadline_expired.inc()
+            self._end_walk("timeout")
+        with self._lock:
+            if not self._queue:
+                return
+            expired = [r for r in self._queue
+                       if 0 < self._effective_deadline(r) <= now]
+            if not expired:
+                return
+            gone = {r.id for r in expired}
+            self._queue = collections.deque(
+                r for r in self._queue if r.id not in gone)
+            self.metrics.queue_depth.set(len(self._queue))
+        for r in expired:
+            self._resume_ctx.pop(r.id, None)
+            r.finish_reason = "timeout"
+            self.metrics.deadline_expired.inc()
+            self.metrics.mark_request("timeout", now - r.t_submit)
+            r.out_queue.put(None)
+
+    def _relieve_admission_pressure(self) -> bool:
+        """The paged queue head cannot be placed for want of pages although
+        a slot is free: after ``admission_preempt_after_s`` of that, preempt
+        the lowest-progress running request (the least recompute lost),
+        requeued at the back so that the starved head takes its pages.
+        Returns whether a request was preempted."""
+        wait = float(self.serving.admission_preempt_after_s or 0)
+        active = self._active_slots()
+        if wait <= 0 or not self.pending or not self._free or not active:
+            self._admission_blocked_since = 0.0
+            return False
+        now = time.monotonic()
+        if not self._admission_blocked_since:
+            self._admission_blocked_since = now
+            return False
+        if now - self._admission_blocked_since < wait:
+            return False
+        victim = min(active, key=lambda s: (len(self.slot_req[s].generated),
+                                            -self._admit_seq[s]))
+        self.metrics.admission_preemptions.inc()
+        self._preempt(victim, front=False)
+        self._admission_blocked_since = now
+        return True
 
     # -- slots and pages ----------------------------------------------------
 
@@ -491,9 +706,24 @@ class Engine:
             self.table[slot, :] = 0
             self.lengths[slot] = 0
             self._op_dirty_table = True
+            self._pages_gauges()
         self.temps[slot] = 0.0
         self._op_dirty_sampling = True
         self._free.append(slot)
+
+    def _pages_gauges(self):
+        """The pool's page gauges (total, live, free, evictable) and the
+        host tier's, from the allocator (paged engine only)."""
+        if not self.paged:
+            return
+        st, m = self.allocator.stats(), self.metrics
+        m.kv_pages_total.set(st["pages_total"])
+        m.kv_pages_in_use.set(st["pages_live"])
+        m.kv_pages_free.set(st["pages_free"])
+        m.kv_pages_evictable.set(st["pages_evictable"])
+        if self.host_tier is not None:
+            m.kv_host_tier_used_bytes.set(self.host_tier.used_bytes)
+            m.kv_host_tier_entries.set(len(self.host_tier))
 
     def _ensure_pages(self, new_rows: int) -> bool:
         """Grow every active slot's pages to cover rows
@@ -527,12 +757,16 @@ class Engine:
                 self._preempt(victim)
                 if victim == slot:
                     break
+        self._pages_gauges()
         return bool(self._active_slots())
 
-    def _preempt(self, slot: int):
-        """Release a running request's pages and requeue it at the front;
-        it resumes by re-prefilling prompt + generated so far, past the
-        full pages it still finds in the prefix cache."""
+    def _preempt(self, slot: int, front: bool = True):
+        """Release a running request's pages and requeue it at the front
+        (``front=False``, the admission-pressure relief: at the back, so
+        that the starved head admits first; a requeue is never shed by
+        ``max_queue_depth``); it resumes by re-prefilling prompt +
+        generated so far, past the full pages it still finds in the prefix
+        cache."""
         req = self.slot_req[slot]
         ids = req.prompt_ids + req.generated
         # the resume hits its own pages, up to the last row written (the
@@ -545,8 +779,14 @@ class Engine:
         self._carry_gen += 1
         self._release_slot(slot)
         with self._lock:
-            self._queue.appendleft(req)
+            if front:
+                self._queue.appendleft(req)
+            else:
+                self._queue.append(req)
+            self.metrics.queue_depth.set(len(self._queue))
         self.counts["preemptions"] += 1
+        self.metrics.preemptions.inc()
+        self.metrics.active_requests.set(len(self._active_slots()))
 
     # -- the step -----------------------------------------------------------
 
@@ -554,13 +794,17 @@ class Engine:
         """One scheduling step: advance a chunked prefill (paged: one mixed
         dispatch; dense: a chunk, or the horizon-1 decode dispatch that
         alternates with the chunks while slots run), else the fairness
-        floor's decode dispatch when it is due, else admit waiting prompts,
-        else decode; with nothing to do, settle a dispatch still in flight.
-        Returns whether any work was done."""
+        floor's decode dispatch when it is due, else admit waiting prompts
+        (the paged engine: or, when the queue head starves for pages with a
+        slot free, relieve the pressure), else decode; with nothing to do,
+        settle a dispatch still in flight. Cancelled and then expired
+        requests are reaped first. Returns whether any work was done."""
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.cancelled:
                 r.finish_reason = "cancelled"
                 self._finish(slot)
+        # deadlines are enforced here, between dispatches
+        self._reap_expired()
         if self._chunk is not None:
             if self._chunk_yield and self._active_slots():
                 # the decode writes a row for every slot at its length: the
@@ -588,9 +832,28 @@ class Engine:
             # request)
             self._drain_decode_pipeline("prefill")
         batch, chunk_next = self._admit()
+        if batch or chunk_next is not None:
+            self._admission_blocked_since = 0.0
+        elif self.paged and self._relieve_admission_pressure():
+            # the preemption is this step's work: a sole victim requeued
+            # behind a False step would be stranded by an idle caller
+            return True
         if batch:
             self._prefill_streak += 1
-            self._prefill_batch(batch)
+            try:
+                self._prefill_batch(batch)
+            except Exception:
+                # the slots (and pages) were taken but no request activated:
+                # release them and answer the requests here
+                for req, slot in batch + ([chunk_next[:2]] if chunk_next
+                                          else []):
+                    if self.slot_req[slot] is req:
+                        continue           # activated: run_forever fails it
+                    self._release_slot(slot)
+                    req.finish_reason = "error"
+                    self.metrics.mark_request("error", 0.0)
+                    req.out_queue.put(None)
+                raise
         if chunk_next is not None:
             self._start_chunk(*chunk_next)
             self._chunk_yield = False
@@ -626,6 +889,7 @@ class Engine:
                 req = self._queue[0]
                 if req.cancelled:
                     self._queue.popleft()
+                    self.metrics.queue_depth.set(len(self._queue))
                     self._resume_ctx.pop(req.id, None)
                     req.finish_reason = "cancelled"
                     req.out_queue.put(None)
@@ -635,7 +899,10 @@ class Engine:
                         self.allocator.free_pages:
                     break                  # head-of-line blocking: FCFS
                 self._queue.popleft()
+                self.metrics.queue_depth.set(len(self._queue))
                 isolated = not batch and not self._queue
+            if not req.t_prefill_start:
+                req.t_prefill_start = time.monotonic()
             slot = self._free.popleft()
             if self.paged:
                 ids, off, resumed = self._paged_admit(req, slot, isolated)
@@ -774,8 +1041,12 @@ class Engine:
         if off > 0:
             self.counts["prefix_cache_hits"] += 1
             self.counts["prefix_tokens_reused"] += off
-        self.counts["prefix_tier_hits_" + (
-            "host" if restore else "hbm" if n > 0 else "miss")] += 1
+            self.metrics.prefix_cache_hits.inc()
+            self.metrics.prefix_tokens_reused.inc(off)
+        tier_hit = "host" if restore else "hbm" if n > 0 else "miss"
+        self.counts["prefix_tier_hits_" + tier_hit] += 1
+        self.metrics.prefix_tier_hits.inc(tier=tier_hit)
+        self._pages_gauges()
         return ids, off, resumed
 
     def _host_entries(self, ids: List[int], n: int,
@@ -795,6 +1066,7 @@ class Engine:
             data = tier.fetch(key, toks, self._page_shapes)
             if data is None:
                 self.counts["kv_restore_dropped"] += 1
+                self.metrics.kv_restore_dropped.inc()
                 break
             entries.append(data)
         return entries
@@ -818,6 +1090,7 @@ class Engine:
         if nbytes is None:
             return
         self.counts["kv_restore_bytes"] += nbytes
+        self.metrics.kv_restore_bytes.inc(nbytes)
         self.host_tier.flush_to_host()
 
     def _spill_reclaimed(self):
@@ -833,6 +1106,7 @@ class Engine:
                                          [pid for pid, _, _ in log]),
                    self._page_bytes)
         self.counts["kv_spill_bytes"] += len(log) * self._page_bytes
+        self.metrics.kv_spill_bytes.inc(len(log) * self._page_bytes)
 
     def _index_prompt_pages(self, slot: int, ids: List[int],
                             n_valid: Optional[int] = None):
@@ -926,6 +1200,8 @@ class Engine:
                 kvc.copy_prefix(self.cache, src, slot, off)
             self.counts["prefix_cache_hits"] += 1
             self.counts["prefix_tokens_reused"] += off
+            self.metrics.prefix_cache_hits.inc()
+            self.metrics.prefix_tokens_reused.inc(off)
         self.lengths[slot] = off
         if not self.paged:
             # the dense walk rewrites the slot's length out of band of any
@@ -946,12 +1222,7 @@ class Engine:
         st = self._chunk
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         if req.cancelled:
-            # settle a mixed dispatch in flight before the slot's pages go
-            self._drain_decode_pipeline("chunk")
-            self._chunk = None
-            self._release_slot(slot)
-            req.finish_reason = "cancelled"
-            req.out_queue.put(None)
+            self._end_walk("cancelled")
             return
         C = self._chunk_size
         chunk = ids[off:off + C]
@@ -959,6 +1230,19 @@ class Engine:
             self._advance_chunk_dense(st, chunk, C)
             return
         self._advance_chunk_mixed(st, chunk, C)
+
+    def _end_walk(self, reason: str):
+        """Tear down the chunk walk before its request activates (a cancel
+        or an expired deadline): settle a mixed dispatch in flight before
+        the slot's pages go, release the slot, finish the request with
+        ``reason``."""
+        self._drain_decode_pipeline("chunk")
+        st, self._chunk = self._chunk, None
+        self._release_slot(st["slot"])
+        req = st["req"]
+        req.finish_reason = reason
+        self.metrics.mark_request(reason, time.monotonic() - req.t_submit)
+        req.out_queue.put(None)
 
     def _advance_chunk_mixed(self, st: dict, chunk: List[int], C: int):
         """One mixed dispatch (the JAX engine's ``_advance_chunk_mixed``).
@@ -998,6 +1282,7 @@ class Engine:
             self._chunk = None
             self._release_slot(slot)
             req.finish_reason = "error"
+            self.metrics.mark_request("error", 0.0)
             req.out_queue.put(None)
             raise
         if final:
@@ -1032,8 +1317,9 @@ class Engine:
         self._pipe_carry = self._carry_gen
         self.counts["mixed_dispatches"] += 1
         self.counts["pipeline_dispatches"] += 1
+        _metrics.pipeline.dispatches.inc()
         return {"mixed": True, "out": out, "pout": ptok, "event": event,
-                "horizon": 1, "active": active,
+                "horizon": 1, "active": active, "t0": time.monotonic(),
                 "reqs": [self.slot_req[s] for s in active]}
 
     def _advance_chunk_dense(self, st: dict, chunk: List[int], C: int):
@@ -1092,10 +1378,14 @@ class Engine:
         rec = self._inflight
         if rec is None:
             return
-        self.counts[f"pipeline_drains_{reason}"] += 1
+        self._count_drain(reason)
         self._inflight = None
         self._pipe_carry = None
         self._decode_fetch(rec)
+
+    def _count_drain(self, reason: str) -> None:
+        self.counts[f"pipeline_drains_{reason}"] += 1
+        _metrics.pipeline.drains.inc(reason=reason)
 
     def _settle_inflight(self) -> None:
         """Fetch and emit the dispatch in flight, counting no drain and
@@ -1192,9 +1482,8 @@ class Engine:
             return
         self._pipe_carry = None
         if prev is not None:
-            self.counts["pipeline_drains_" + (
-                "chunk" if self._chunk is not None
-                else "spec" if spec else "drain")] += 1
+            self._count_drain("chunk" if self._chunk is not None
+                              else "spec" if spec else "drain")
             self._inflight = None
             self._decode_fetch(prev)
         self._decode_fetch(rec)
@@ -1210,8 +1499,9 @@ class Engine:
         self.counts["decode_dispatches"] += 1
         self.counts["decode_substeps"] += horizon
         self.counts["pipeline_dispatches"] += 1
+        _metrics.pipeline.dispatches.inc()
         return {"out": out, "event": event, "horizon": horizon,
-                "active": list(active),
+                "active": list(active), "t0": time.monotonic(),
                 "reqs": [self.slot_req[s] for s in active]}
 
     def _decode_fetch(self, rec: dict) -> None:
@@ -1225,12 +1515,25 @@ class Engine:
         out = rec["out"].numpy()
         if rec.get("mixed"):
             rec["chunk_token"] = int(rec["pout"].numpy()[0])
+        emitted = 0
         for s in range(rec["horizon"]):
             for slot, req in zip(rec["active"], rec["reqs"]):
                 if self.slot_req[slot] is not req:
                     continue             # finished earlier or since queued
                 self.lengths[slot] += 1
                 self._emit(slot, int(out[s, slot]))
+                emitted += 1
+        self._note_tokens(rec["t0"], emitted)
+
+    def _note_tokens(self, t0: float, emitted: int) -> None:
+        """The tokens_per_second gauge: tokens emitted by the last 50
+        dispatches over the time since the oldest was queued."""
+        self._tok_times.append((t0, emitted))
+        if len(self._tok_times) >= 2:
+            span = time.monotonic() - self._tok_times[0][0]
+            if span > 0:
+                self.metrics.tokens_per_second.set(
+                    sum(n for _, n in self._tok_times) / span)
 
     # -- speculative decoding -----------------------------------------------
 
@@ -1283,6 +1586,7 @@ class Engine:
         is clamped to each slot's real draft count (a zero-padded draft can
         match the model's argmax)."""
         R = self.serving.spec_k + 1
+        t0 = time.monotonic()
         tokens = np.concatenate([self.last_token[:, None], drafts], axis=1)
         self.cache, out, accepted = spec_decode_step(
             self.model, R, self.cache, self._dev(tokens),
@@ -1291,15 +1595,22 @@ class Engine:
             self._dev(self.top_ps), self._dev(self.seeds))
         out, accepted = out.cpu().numpy(), accepted.cpu().numpy()
         self.counts["spec_dispatches"] += 1
+        m = self.metrics
+        total = 0
         for slot in active:
             if slot in skip:
                 continue
             acc = int(accepted[slot])
             if slot in proposed:
                 n_drafted = proposed[slot]
+                n_accepted = min(max(acc - 1, 0), n_drafted)
                 self.counts["spec_drafted_tokens"] += n_drafted
-                self.counts["spec_accepted_tokens"] += \
-                    min(max(acc - 1, 0), n_drafted)
+                self.counts["spec_accepted_tokens"] += n_accepted
+                m.spec_drafted_tokens.inc(n_drafted)
+                m.spec_accepted_tokens.inc(n_accepted)
+                m.spec_acceptance_rate.set(m.spec_accepted_tokens.total()
+                                           / max(1.0,
+                                                 m.spec_drafted_tokens.total()))
             emitted = 0
             for i in range(acc):
                 if self.slot_req[slot] is None:
@@ -1309,6 +1620,8 @@ class Engine:
                 emitted += 1
             if self.draft is not None and slot in proposed:
                 self.draft.note_emitted(slot, emitted)
+            total += emitted
+        self._note_tokens(t0, total)
         self._spec_plain_due = bool(skip)
         # the verify advanced the mirrors on the host: the next dispatch
         # copies them in
@@ -1324,6 +1637,12 @@ class Engine:
         # a device carry no longer describes the batch once the slot joins
         self._carry_gen += 1
         self._op_dirty_sampling = True
+        if not req.t_first_token:            # not again at a resume
+            req.t_first_token = time.monotonic()
+            self.metrics.ttft.observe(req.t_first_token - req.t_submit)
+        if not resumed:
+            # a resume's context was counted at its first admission
+            self.metrics.prompt_tokens.inc(len(ids))
         if self.paged:
             self._index_prompt_pages(slot, ids)
         else:
@@ -1334,6 +1653,7 @@ class Engine:
         self.top_ks[slot] = req.top_k
         self.top_ps[slot] = req.top_p
         self.seeds[slot] = req.eff_seed
+        self.metrics.active_requests.set(len(self._active_slots()))
         if resumed:
             self.last_token[slot] = ids[-1]
         else:
@@ -1345,6 +1665,7 @@ class Engine:
         req.generated.append(token)
         self.last_token[slot] = token
         self.counts["generated_tokens"] += 1
+        self.metrics.generated_tokens.inc()
         hit_eos = token in self._eos_set and not req.ignore_eos
         out_of_budget = (len(req.generated) >= req.max_tokens
                          or self.lengths[slot] + 1 >= self.max_len)
@@ -1359,12 +1680,17 @@ class Engine:
         :meth:`_index_prompt_pages`); a dense slot keeps its prompt rows as
         a prefix source until it is reused."""
         req = self.slot_req[slot]
+        req.t_done = time.monotonic()
+        self.metrics.mark_request(
+            "success" if req.finish_reason in ("stop", "length")
+            else req.finish_reason or "success", req.t_done - req.t_submit)
         if self.paged:
             ids = req.prompt_ids + req.generated
             self._index_prompt_pages(slot, ids, n_valid=len(ids) - 1)
         self.slot_req[slot] = None
         self._release_slot(slot)
         self.counts["finished"] += 1
+        self.metrics.active_requests.set(len(self._active_slots()))
         req.out_queue.put(None)
 
     # -- loop ---------------------------------------------------------------
@@ -1382,10 +1708,14 @@ class Engine:
         raise RuntimeError("engine did not go idle")
 
     def run_forever(self, stop: threading.Event):
-        """Engine thread body: step until stopped, sleeping when idle. A
-        failing step fails every in-flight and queued request (their waiters
-        get the sentinel) and the loop keeps serving."""
+        """Engine thread body: step until stopped, sleeping when idle, with
+        the stall watchdog on a thread of its own. A failing step fails
+        every in-flight and queued request (their waiters get the sentinel)
+        and the loop keeps serving."""
+        threading.Thread(target=self._watchdog_loop, args=(stop,),
+                         daemon=True, name="engine-watchdog").start()
         while not stop.is_set():
+            self.last_step_start = time.monotonic()
             try:
                 did_work = self.step()
             # boundary that must keep serving: record, fail the affected
@@ -1396,22 +1726,54 @@ class Engine:
                 self.last_error = f"{type(e).__name__}: {e}"
                 self._fail_all()
                 did_work = False
+            self.last_step_start = 0.0
+            with self._lock:
+                self._stall_abort = False
             if not did_work:
                 self._work_event.wait(timeout=0.05)
                 self._work_event.clear()
+
+    def _watchdog_loop(self, stop: threading.Event):
+        """The stall watchdog: a step executing past STALL_AFTER_S is
+        counted once in ``watchdog_stalls`` and arms ``_stall_abort``, the
+        flag a cooperative wait inside the step would check to abort it.
+        Nothing in the port reads the flag yet (the fault injection that
+        does comes with the chaos suite); a wedged step shows as
+        ``stalled_for_s`` > 0, which the server answers with 503 "stalled"
+        until the liveness probe restarts the pod. This thread reads clocks
+        only and never touches the device."""
+        while not stop.is_set():
+            if self.stalled_for_s > 0:
+                with self._lock:
+                    armed = not self._stall_abort
+                    self._stall_abort = True
+                if armed:
+                    self.metrics.watchdog_stalls.inc()
+            stop.wait(min(1.0, max(0.05, self.STALL_AFTER_S / 4)))
+
+    @property
+    def stalled_for_s(self) -> float:
+        """Seconds the step executing has run, once past STALL_AFTER_S
+        (0.0 = healthy or idle)."""
+        t0 = self.last_step_start
+        if not t0:
+            return 0.0
+        dt = time.monotonic() - t0
+        return dt if dt >= self.STALL_AFTER_S else 0.0
 
     def _fail_all(self):
         # discard the dispatch in flight un-emitted: its requests fail below
         # (one release each, through _finish), and fetching a dispatch that
         # may be the failure would raise again
         if self._inflight is not None:
-            self.counts["pipeline_drains_fail"] += 1
+            self._count_drain("fail")
         self._inflight = None
         self._pipe_carry = None
         if self._chunk is not None:
             st, self._chunk = self._chunk, None
             self._release_slot(st["slot"])
             st["req"].finish_reason = "error"
+            self.metrics.mark_request("error", 0.0)
             st["req"].out_queue.put(None)
         for slot, r in enumerate(self.slot_req):
             if r is not None:
@@ -1419,9 +1781,11 @@ class Engine:
                 self._finish(slot)
         with self._lock:
             queued, self._queue = list(self._queue), collections.deque()
+            self.metrics.queue_depth.set(0)
         self._resume_ctx.clear()
         for r in queued:
             r.finish_reason = "error"
+            self.metrics.mark_request("error", 0.0)
             r.out_queue.put(None)
 
 

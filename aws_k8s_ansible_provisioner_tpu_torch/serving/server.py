@@ -1,20 +1,41 @@
 """OpenAI-compatible HTTP server of the PyTorch port.
 
-``GET /v1/models``, ``POST /v1/completions`` (non-streaming; the JSON fields
-of the JAX server's completions response; the OpenAI ``seed`` makes a
-sampled completion repeatable) and ``GET /health``, over a
-``ThreadingHTTPServer`` with the engine stepping on its own thread.
+Routes, over a ``ThreadingHTTPServer`` with the engine stepping on its own
+thread:
+
+- ``GET /v1/models``; ``POST /v1/completions`` (non-streaming; the JSON
+  fields of the JAX server's completions response; the OpenAI ``seed``
+  makes a sampled completion repeatable);
+- ``GET /health``, ``/healthz``, ``/ping``: one answer, status ``ok``,
+  ``degraded`` (a step failed; ``last_error``), ``draining`` or
+  ``stalled`` (a step has run past ``watchdog_stall_s``: 503, the liveness
+  probe's cue), with the JAX server's keys for what the port has;
+- ``GET /readyz``: 200, or 503 while draining (``X-TPU-Draining: 1``) or
+  stalled; ``GET /load``: active, queued, slots, draining (the router's
+  poller); ``GET /metrics``: the engine's ``tpu_serve_*`` and ``vllm_*``
+  families and the decode pipeline's, Prometheus text or OpenMetrics by
+  ``Accept``;
+- ``POST`` (or ``GET``) ``/admin/drain`` (``timeout_s``, default
+  ``--drain-timeout``; ``exit``, default true: stop the server once the
+  drain is done) and ``POST /admin/undrain``. SIGTERM drains as
+  ``/admin/drain`` does and the process exits 0 when the requests in
+  flight have finished.
 
 A completions request reads ``model``, ``prompt``, ``max_tokens``,
-``temperature``, ``top_k``, ``top_p``, ``ignore_eos`` and ``seed``, and
-answers as the JAX server does: another model than the served one gets 404
-``model_not_found``; a prompt is a string, a list of strings (the first is
-served; an empty list is the empty string) or, beyond the JAX server, a
-list of token ids; an empty prompt is served as the EOS token;
+``temperature``, ``top_k``, ``top_p``, ``ignore_eos``, ``seed`` and
+``deadline_ms`` (or the ``X-Request-Deadline-Ms`` header; the body wins),
+and answers as the JAX server does: another model than the served one gets
+404 ``model_not_found``; a prompt is a string, a list of strings (the
+first is served; an empty list is the empty string) or, beyond the JAX
+server, a list of token ids; an empty prompt is served as the EOS token;
 ``max_tokens`` must lie in [1, the engine's ``max_len``] (the engine then
-clamps it to the room the prompt leaves). Every other request field that
-the JAX server honours is refused with 400, naming the field, unless it
-holds its neutral value (:data:`UNSERVED_FIELDS`): a completion that
+clamps it to the room the prompt leaves); a deadline that is not a
+positive number of milliseconds gets 400, an expired one 408
+(``deadline_exceeded``); a request the engine sheds gets 429
+``engine_overloaded:<reason>`` with ``Retry-After``, or 503 ``draining``
+with ``Retry-After`` and ``X-TPU-Draining: 1``. Every other request field
+that the JAX server honours is refused with 400, naming the field, unless
+it holds its neutral value (:data:`UNSERVED_FIELDS`): a completion that
 silently ignored it would be a wrong answer.
 
 Without a checkpoint the server runs seeded random weights and the byte
@@ -33,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import signal
 import threading
 import time
 import uuid
@@ -91,8 +113,16 @@ def unserved_field(body: dict) -> Optional[str]:
     return None
 
 
+# Wire names of the end-to-end deadline (relative milliseconds), the JAX
+# server's: a router forwards the header, a client may set either
+DEADLINE_HEADER = "X-Request-Deadline-Ms"
+DEADLINE_FIELD = "deadline_ms"
+
+
 class ServerState:
-    """What the request handlers share: engine, tokenizer, served name."""
+    """What the request handlers share: engine, tokenizer, served name, the
+    stop event of the engine thread (and of :func:`serve`), the count of
+    ``/v1`` requests inside a handler, and the drain watcher."""
 
     def __init__(self, engine, tokenizer, model_name: str):
         self.engine = engine
@@ -101,6 +131,10 @@ class ServerState:
         self.started = int(time.time())
         self.stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._drain_lock = threading.Lock()
+        self._drain_watcher: Optional[threading.Thread] = None
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
 
     def start_engine(self):
         self._thread = threading.Thread(target=self.engine.run_forever,
@@ -112,6 +146,74 @@ class ServerState:
         self.stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
+
+    def inflight_inc(self):
+        with self._inflight_lock:
+            self._inflight += 1
+
+    def inflight_dec(self):
+        with self._inflight_lock:
+            self._inflight -= 1
+
+    @property
+    def inflight(self) -> int:
+        """``/v1`` requests inside a handler thread (parsing, waiting on
+        the engine or writing the answer)."""
+        with self._inflight_lock:
+            return self._inflight
+
+    def begin_drain(self, timeout_s: Optional[float] = None,
+                    exit_when_idle: bool = True) -> float:
+        """Drain the engine (:meth:`Engine.begin_drain`) and, unless
+        ``exit_when_idle`` is false (a replica taken out of rotation but
+        kept; ``end_drain`` reverses it), start the watcher that sets the
+        stop event once the drain is done. Returns the seconds left until
+        the drain deadline."""
+        t = self.engine.begin_drain(timeout_s)
+        if not exit_when_idle:
+            return t
+        with self._drain_lock:
+            if self._drain_watcher is None:
+                self._drain_watcher = threading.Thread(
+                    target=self._drain_watch, daemon=True,
+                    name="drain-watcher")
+                self._drain_watcher.start()
+        return t
+
+    def end_drain(self):
+        self.engine.end_drain()
+
+    def _drain_watch(self):
+        """Set the stop event once the engine is idle (no active slot, no
+        queue, no chunk walk) and no ``/v1`` handler is still answering,
+        or 5 s past the drain deadline (the reap has then answered the
+        stragglers); return without stopping when the drain is cancelled."""
+        eng = self.engine
+        while True:
+            if not eng.draining:
+                with self._drain_lock:
+                    self._drain_watcher = None
+                return
+            idle = (not eng._active_slots() and not eng.pending
+                    and eng._chunk is None and self.inflight == 0)
+            if idle or time.monotonic() > eng._drain_deadline + 5.0:
+                break
+            time.sleep(0.05)
+        log.info("drain complete (inflight=%d active=%d queued=%d); "
+                 "stopping server", self.inflight,
+                 len(eng._active_slots()), eng.pending)
+        self.stop.set()
+
+
+def _wait_budget_s(engine, req) -> Optional[float]:
+    """The handler's cap on its wait for the engine: the request's deadline
+    plus 30 s of grace (the engine reaps the deadline itself; this only
+    keeps a handler from hanging on a wedged engine loop), else
+    ``request_timeout_s`` plus the grace, else none."""
+    if req.t_deadline:
+        return max(1.0, req.t_deadline - time.monotonic()) + 30.0
+    cap = float(engine.serving.request_timeout_s or 0)
+    return cap + 30.0 if cap > 0 else None
 
 
 def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
@@ -172,40 +274,145 @@ class Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         log.debug("%s " + fmt, self.address_string(), *args)
 
-    def _json(self, code: int, obj: dict):
+    def _json(self, code: int, obj: dict, headers: Optional[dict] = None):
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(body)
 
-    def _error(self, code: int, message: str, etype: str = "invalid_request_error"):
+    def _error(self, code: int, message: str,
+               etype: str = "invalid_request_error",
+               err_code: Optional[str] = None,
+               headers: Optional[dict] = None):
         self._json(code, {"error": {"message": message, "type": etype,
-                                    "code": code}})
+                                    "code": err_code or code}},
+                   headers=headers)
+
+    def _overloaded(self, e):
+        """A shed request (:class:`EngineOverloaded`): 503 ``draining``
+        with ``Retry-After`` and ``X-TPU-Draining`` (the replica is
+        leaving; a router re-routes without marking it dead), else 429
+        ``engine_overloaded:<reason>`` with ``Retry-After``."""
+        retry = str(int(e.retry_after_s + 0.5))
+        if e.reason == "draining":
+            return self._error(503, str(e), "unavailable_error",
+                               err_code="draining",
+                               headers={"Retry-After": retry,
+                                        "X-TPU-Draining": "1"})
+        self._error(429, str(e), "overloaded_error",
+                    err_code=f"engine_overloaded:{e.reason}",
+                    headers={"Retry-After": retry})
 
     def do_GET(self):
         path = self.path.split("?")[0]
         st = self.state
+        eng = st.engine
         if path == "/v1/models":
             self._json(200, {"object": "list", "data": [{
                 "id": st.model_name, "object": "model",
                 "created": st.started, "owned_by": "torch-serve",
-                "max_model_len": st.engine.max_len}]})
-        elif path == "/health":
-            eng = st.engine
-            self._json(200, {"status": "error" if eng.last_error else "ok",
-                             "last_error": eng.last_error,
-                             "device": str(eng.device),
-                             "active": len(eng._active_slots()),
-                             "queued": eng.pending})
+                "max_model_len": eng.max_len}]})
+        elif path in ("/health", "/healthz", "/ping"):
+            self._health()
+        elif path == "/readyz":
+            # ready, not live: a draining replica finishes its requests
+            # (liveness must not kill it) but takes no new ones
+            if eng.draining:
+                self._json(503, {"status": "draining"},
+                           headers={"X-TPU-Draining": "1"})
+            elif eng.stalled_for_s:
+                self._json(503, {"status": "stalled"})
+            else:
+                self._json(200, {"status": "ready"})
+        elif path == "/load":
+            self._json(200, {"active": len(eng._active_slots()),
+                             "queued": eng.pending,
+                             "slots": eng.num_slots,
+                             "draining": bool(eng.draining)})
+        elif path == "/metrics":
+            self._metrics()
+        elif path == "/admin/drain":
+            # a lifecycle httpGet hook can only GET: the POST's defaults
+            self._admin_drain({})
         else:
             self._error(404, f"no route {path}")
 
+    def _health(self):
+        """The JAX server's health answer over what the port has (the
+        blocks of unported modules are left out): 503 only when stalled."""
+        st = self.state
+        eng = st.engine
+        m = eng.metrics
+        stalled = eng.stalled_for_s
+        status = "ok"
+        if eng.last_error:
+            status = "degraded"
+        if eng.draining:
+            status = "draining"
+        if stalled:
+            status = "stalled"
+        self._json(503 if stalled else 200, {
+            "status": status,
+            "draining": bool(eng.draining),
+            "model": st.model_name,
+            "uptime_s": int(time.time()) - st.started,
+            "active_requests": len(eng._active_slots()),
+            "queue_depth": eng.pending,
+            "inflight": st.inflight,
+            "stalled_for_s": round(stalled, 1) or None,
+            "last_error": eng.last_error or None,
+            "decode_bblock": eng.decode_bblock,
+            "decode_pipeline": eng.serving.decode_pipeline,
+            "weights_dtype": eng.serving.weights_dtype,
+            "kv_dtype": eng.serving.kv_dtype,
+            "paged": bool(eng.paged),
+            "shed_total": int(m.requests_shed.total()),
+            "deadline_expired_total": int(m.deadline_expired.total()),
+            "watchdog_stalls_total": int(m.watchdog_stalls.total()),
+            "preemptions_total": int(m.preemptions.total()),
+            "max_queue_depth": eng.serving.max_queue_depth or None,
+            "request_timeout_s": eng.serving.request_timeout_s or None,
+            "tokens_per_second": round(m.tokens_per_second.value(), 2),
+            "kv_pages_total": int(m.kv_pages_total.value()),
+            "kv_pages_in_use": int(m.kv_pages_in_use.value()),
+            "kv_pages_free": int(m.kv_pages_free.value()),
+            "kv_pages_evictable": int(m.kv_pages_evictable.value()),
+            "prefix_tier_hits": {
+                t: int(m.prefix_tier_hits.value(tier=t))
+                for t in ("hbm", "host", "miss")},
+            "kv_host_tier": (eng.host_tier.stats()
+                             if eng.host_tier is not None else None),
+        })
+
+    def _metrics(self):
+        """The engine's registry and the decode pipeline's, as Prometheus
+        text, or as OpenMetrics (with its ``# EOF``) when ``Accept`` asks
+        for it."""
+        from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics
+
+        om = "application/openmetrics-text" in (self.headers.get("Accept")
+                                                or "")
+        text = (self.state.engine.metrics.registry.render(om)
+                + metrics.pipeline.registry.render(om))
+        if om:
+            text += "# EOF\n"
+            ctype = ("application/openmetrics-text; version=1.0.0; "
+                     "charset=utf-8")
+        else:
+            ctype = "text/plain; version=0.0.4"
+        body = text.encode()
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
     def do_POST(self):
         path = self.path.split("?")[0]
-        if path != "/v1/completions":
-            return self._error(404, f"no route {path}")
         try:
             n = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(n) or b"{}")
@@ -213,7 +420,42 @@ class Handler(BaseHTTPRequestHandler):
             return self._error(400, "request body is not valid JSON")
         if not isinstance(body, dict):
             return self._error(400, "request body must be a JSON object")
-        self._completions(body)
+        if path == "/admin/drain":
+            return self._admin_drain(body)
+        if path == "/admin/undrain":
+            self.state.end_drain()
+            return self._json(200, {"status": "ok", "draining": False})
+        if path != "/v1/completions":
+            return self._error(404, f"no route {path}")
+        # the drain watcher waits for every answer still being written
+        self.state.inflight_inc()
+        try:
+            self._completions(body)
+        finally:
+            self.state.inflight_dec()
+
+    def _admin_drain(self, body: dict):
+        """Begin a drain (the preStop hook's target; SIGTERM takes the same
+        path): stop admitting, let the requests in flight finish within
+        ``timeout_s`` (default ``drain_timeout_s``), then stop the server,
+        unless ``exit`` is false (out of rotation only; ``/admin/undrain``
+        reverses it)."""
+        eng = self.state.engine
+        timeout_s = body.get("timeout_s")
+        if timeout_s is not None:
+            try:
+                timeout_s = float(timeout_s)
+            except (TypeError, ValueError):
+                return self._error(400, "'timeout_s' must be a number")
+        exit_when_idle = bool(body.get("exit", True))
+        t = self.state.begin_drain(timeout_s, exit_when_idle=exit_when_idle)
+        log.info("drain requested (timeout %.1fs, exit=%s): %d active, "
+                 "%d queued", t, exit_when_idle, len(eng._active_slots()),
+                 eng.pending)
+        self._json(200, {"status": "draining", "drain_timeout_s": t,
+                         "exit_when_idle": exit_when_idle,
+                         "active_requests": len(eng._active_slots()),
+                         "queue_depth": eng.pending})
 
     def _completions(self, body: dict):
         from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
@@ -250,6 +492,19 @@ class Handler(BaseHTTPRequestHandler):
                 seed = int(seed)
             except (TypeError, ValueError):
                 return self._error(400, "'seed' must be an integer")
+        # the end-to-end deadline, relative milliseconds (the body wins); the
+        # engine caps it at request_timeout_s and reaps it (408)
+        raw_deadline = body.get(DEADLINE_FIELD,
+                                self.headers.get(DEADLINE_HEADER))
+        deadline_s = None
+        if raw_deadline is not None:
+            try:
+                deadline_s = float(raw_deadline) / 1000.0
+            except (TypeError, ValueError):
+                return self._error(400, f"'{DEADLINE_FIELD}' must be a "
+                                        f"number of milliseconds")
+            if deadline_s <= 0:
+                return self._error(400, f"'{DEADLINE_FIELD}' must be > 0")
         try:
             req = Request(
                 prompt_ids=ids,
@@ -259,7 +514,7 @@ class Handler(BaseHTTPRequestHandler):
                 top_k=int(body.get("top_k", 0) or 0),
                 top_p=float(body.get("top_p", 1.0)),
                 ignore_eos=bool(body.get("ignore_eos", False)),
-                seed=seed)
+                seed=seed, deadline_s=deadline_s)
             if not 1 <= req.max_tokens <= st.engine.max_len:
                 raise ValueError(f"max_tokens must be in [1, "
                                  f"{st.engine.max_len}]")
@@ -267,10 +522,20 @@ class Handler(BaseHTTPRequestHandler):
         except ContextLengthExceeded as e:
             return self._error(400, str(e))
         except EngineOverloaded as e:
-            return self._error(429, str(e), "overloaded_error")
+            return self._overloaded(e)
         except (TypeError, ValueError) as e:
             return self._error(400, str(e))
-        req.wait()
+        try:
+            req.wait(timeout=_wait_budget_s(st.engine, req))
+        except TimeoutError:
+            # the backstop: the engine normally reaps the deadline itself
+            st.engine.cancel(req)
+            return self._error(408, "request timed out awaiting the engine",
+                               "timeout", err_code="deadline_exceeded")
+        if req.finish_reason == "timeout":
+            return self._error(408, "request deadline exceeded before "
+                                    "completion (slot and pages released)",
+                               "timeout", err_code="deadline_exceeded")
         if req.finish_reason in ("error", "cancelled"):
             return self._error(500, "engine failure: "
                                + (st.engine.last_error or req.finish_reason),
@@ -294,6 +559,41 @@ def make_server(state: ServerState, host: str, port: int
     server = ThreadingHTTPServer((host, port), handler)
     server.daemon_threads = True
     return server
+
+
+def serve(state: ServerState, host: str, port: int,
+          ready_event: Optional[threading.Event] = None,
+          stop_event: Optional[threading.Event] = None):
+    """Run the engine thread and the HTTP server (on a thread of its own)
+    until the stop event is set (``stop_event``, else the state's own): by
+    the caller, or by the drain watcher once a drain is done (SIGTERM,
+    ``/admin/drain``). Then stop the HTTP server, close its socket (a
+    stopped replica refuses connections) and join the engine thread before
+    returning, so that the process exits with no step running."""
+    if stop_event is not None:
+        state.stop = stop_event
+    server = make_server(state, host, port)
+    state.start_engine()
+    http = threading.Thread(target=server.serve_forever, daemon=True,
+                            name="http")
+    http.start()
+    log.info("serving %s on %s:%d (%s, %d slots, cache %d)",
+             state.model_name, host, server.server_address[1],
+             state.engine.device, state.engine.num_slots,
+             state.engine.max_len)
+    if ready_event is not None:
+        ready_event.set()
+    try:
+        # wake every 0.2 s: the kernel may deliver SIGTERM to another
+        # thread, and Python runs the handler only on the main thread, which
+        # an untimed wait would keep blocked until the stop event is set
+        while not state.stop.wait(0.2):
+            pass
+    except KeyboardInterrupt:
+        state.stop.set()
+    server.shutdown()
+    server.server_close()
+    state.stop_engine(timeout=60.0)
 
 
 def main(argv=None):
@@ -347,6 +647,22 @@ def main(argv=None):
                         "sequence axis split over sp cards, decode merging "
                         "the shards' flash partials (needs sp cards; with "
                         "--device cpu every shard on the CPU)")
+    p.add_argument("--request-timeout", type=float, default=600.0,
+                   help="default/maximum end-to-end deadline in seconds "
+                        "(per-request X-Request-Deadline-Ms / deadline_ms "
+                        "is capped by it; 0 disables)")
+    p.add_argument("--max-queue-depth", type=int, default=256,
+                   help="bounded engine queue: admissions past this depth "
+                        "are shed with 429 + Retry-After (0 = unbounded)")
+    p.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="graceful-drain budget in seconds: on SIGTERM or "
+                        "POST /admin/drain, stop admitting (503 draining, "
+                        "/readyz 503) and let in-flight requests finish up "
+                        "to this long before exiting 0; stragglers are "
+                        "cancelled through the deadline path")
+    p.add_argument("--admission-max-wait", type=float, default=0.0,
+                   help="shed admissions whose estimated queue wait "
+                        "(seconds) exceeds this (0 disables)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -364,19 +680,25 @@ def main(argv=None):
         kv_host_tier_bytes=args.kv_host_tier_bytes,
         decode_bblock=args.decode_bblock,
         decode_pipeline=args.decode_pipeline, spec_decode=args.spec_decode,
-        spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp))
+        spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp),
+        request_timeout_s=args.request_timeout,
+        max_queue_depth=args.max_queue_depth,
+        drain_timeout_s=args.drain_timeout,
+        admission_max_wait_s=args.admission_max_wait)
     state = build_state(serving, device=args.device, seed=args.seed)
-    server = make_server(state, args.host, args.port)
-    state.start_engine()
-    log.info("serving %s on %s:%d (%s)", args.model, args.host, args.port,
-             state.engine.device)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.server_close()
-        state.stop_engine()
+
+    # SIGTERM (a pod's deletion, after the preStop hook's /admin/drain)
+    # takes the drain path: new requests shed 503, /readyz 503, the requests
+    # in flight finish within --drain-timeout, then serve() returns and the
+    # process exits 0
+    def _on_sigterm(signum, frame):
+        log.info("SIGTERM: graceful drain (timeout %.1fs)",
+                 args.drain_timeout)
+        state.begin_drain()
+
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    serve(state, args.host, args.port)
+    log.info("drained and stopped; exiting 0")
 
 
 if __name__ == "__main__":

@@ -57,7 +57,23 @@ result when either is missing. Phases, in order (any failure raises):
    and 0, and a dispatch profiled with the pipeline off;
 4. server, for each engine: the port's HTTP server in-process on a free
    port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
-   int8 engine, a seeded sampled completion twice, the same text);
+   int8 engine, a seeded sampled completion twice, the same text). Over
+   the paged int8 engine (32 slots) it also runs the replica lifecycle,
+   launch counts zeroed before it and read after it (K1-int8 and the
+   fused K3 write must have launched): ``/readyz``, ``/healthz`` (paged,
+   pages counted), ``/load`` (32 slots), ``/metrics`` (the generated-token
+   counter's increase equal to the engine count's); a completion of 1500
+   tokens with ``X-Request-Deadline-Ms: 300`` answers 408 and gives its
+   slot and pages back (the overshoot past the deadline printed); a drain
+   (``exit: false``) during a 512-token completion turns ``/readyz`` 503
+   with ``X-TPU-Draining``, sheds a new completion 503 ``draining`` and
+   lets the running one finish with 512 tokens, and the undrain makes
+   ``/readyz`` 200 again; a drain of ``timeout_s`` 0.5 answers its
+   straggler 408 and frees its slot. Then the server as a process
+   (``python -m ...serving.server --device cuda``): the seconds until
+   ``/readyz`` answers 200, SIGTERM during a long completion, which must
+   answer 200 with every token, and the seconds from SIGTERM to the
+   process's exit (0, within ``--drain-timeout``);
 5. prefix, once per KV pool: the prefix cache and the host KV tier at the
    defaults (prefix cache on, a 256 MiB host tier, the pipeline and the
    decode graphs on), Qwen3-0.6B at full width with the pool cut to 68
@@ -157,6 +173,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2476,7 +2493,9 @@ def _logits_check(torch, engine, tol, slots=None):
     window is applied). Every forward runs on the engine's own pool or
     dense cache: each writes the step's K/V row at every layer before any
     row attends it, so none reads another's rows, and the engine's next
-    step rewrites them. The dense engine's step takes its decode_bblock.
+    step rewrites them (a paged slot first takes the page of its next row,
+    as the engine's next dispatch would). The dense engine's step takes its
+    decode_bblock.
     A sequence-parallel engine's kernels step writes each shard and merges
     K6's triples (its decode callback); its plain step writes each shard
     through the plain writers at the local rows and attends the rows
@@ -2489,6 +2508,12 @@ def _logits_check(torch, engine, tol, slots=None):
         make_decode_attend_carry, make_decode_attend_carry_paged)
 
     engine._settle_inflight()            # the host mirrors up to date
+    if engine.paged:
+        # the page of each slot's next row, as the engine's next dispatch
+        # would take it: a slot whose length sits on a page edge has none
+        # yet, and its table entry still names the scratch page 0 that the
+        # idle slots write into in the same launch
+        engine._ensure_pages(1)
     active = engine._active_slots() if slots is None else list(slots)
     dev = engine.device
     window = engine.cfg.sliding_window
@@ -3666,10 +3691,11 @@ def _greedy_vs_sp1(tag, streams, ref_reqs, ref_gaps):
     return same, parts
 
 
-def phase_server(engine):
+def phase_server(engine, lifecycle=False):
     """The HTTP server over ``engine``. Its tokenizer encodes bytes and
     decodes token ids as their decimal numbers, so that the random-weight
-    model's streams (ids far past the byte range) show in the text."""
+    model's streams (ids far past the byte range) show in the text. With
+    ``lifecycle`` the replica lifecycle runs too (:func:`_lifecycle`)."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
         ServerState, make_server)
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
@@ -3729,11 +3755,262 @@ def phase_server(engine):
                 raise AssertionError(f"seeded completions differ: {texts}")
             log(f"{tag} seeded sampled /v1/completions (seed 7) twice: the "
                 f"same token ids {texts[0]!r}")
+        if lifecycle:
+            _lifecycle(engine, base, tag)
     finally:
         server.shutdown()
         server.server_close()
         state.stop_engine()
         th.join(10)
+
+
+def _http(url, body=None, headers=None, timeout=300):
+    """(status, JSON body, headers) of a GET (``body`` None) or a POST;
+    an HTTP error's status is returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _expect(what, out, code, **fields):
+    """Fail unless ``out`` (:func:`_http`) has the HTTP status ``code`` and,
+    in its JSON body, the ``fields`` given."""
+    if out[0] != code or any(out[1].get(k) != v for k, v in fields.items()):
+        raise AssertionError(f"{what}: expected {code} {fields}, got "
+                             f"{out[0]} {out[1]}")
+    return out
+
+
+def _settled(engine, timeout=60.0):
+    """Wait until the engine thread has nothing active, queued, chunking
+    or in flight; fail unless every slot is free and no page is live."""
+    t0 = time.monotonic()
+    while engine._active_slots() or engine.pending or \
+            engine._chunk is not None or engine._inflight is not None:
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError("the engine did not settle")
+        time.sleep(0.01)
+    live = engine.allocator.stats()["pages_live"] if engine.paged else 0
+    if sorted(engine._free) != list(range(engine.num_slots)) or live:
+        raise AssertionError(f"slots or pages not released: free "
+                             f"{sorted(engine._free)}, live pages {live}")
+
+
+def _running(engine, timeout=60.0):
+    t0 = time.monotonic()
+    while not engine._active_slots():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError("the completion never reached a slot")
+        time.sleep(0.002)
+
+
+def _metric(base, name):
+    """One unlabelled sample of ``/metrics`` (Prometheus text)."""
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no {name}")
+
+
+def _lifecycle(engine, base, tag):
+    """The replica lifecycle over the in-process server of ``engine``
+    (the paged int8 engine): probes, the deadline's 408, a drain during a
+    running completion and its undrain, a drain's straggler reaped; launch
+    counts zeroed just before and read just after."""
+    counts0 = dict(engine.counts)
+    gen0 = _metric(base, "tpu_serve_generated_tokens_total")
+    expired0 = engine.metrics.deadline_expired.total()
+    _reset_launches()
+    t0 = time.monotonic()
+    _expect("/readyz", _http(base + "/readyz"), 200, status="ready")
+    health = _expect("/healthz", _http(base + "/healthz"), 200, status="ok",
+                     paged=True)[1]
+    if health["kv_pages_total"] <= 0:
+        raise AssertionError(f"/healthz counts no pages: {health}")
+    load = _expect("/load", _http(base + "/load"), 200, slots=32,
+                   draining=False)[1]
+    log(f"{tag} /readyz 200; /healthz 200 (paged, {health['kv_pages_total']} "
+        f"pages, kv {health['kv_dtype']}); /load {load}")
+
+    # the deadline: 1500 tokens cannot finish in 300 ms
+    t_send = time.monotonic()
+    out = _http(base + "/v1/completions",
+                {"prompt": "Deadline", "max_tokens": 1500,
+                 "ignore_eos": True},
+                headers={"X-Request-Deadline-Ms": "300"})
+    waited = time.monotonic() - t_send
+    if out[0] != 408 or out[1]["error"]["code"] != "deadline_exceeded":
+        raise AssertionError(f"deadline: expected 408, got {out[0]} {out[1]}")
+    _settled(engine)
+    log(f"{tag} X-Request-Deadline-Ms 300, 1500 tokens: 408 "
+        f"deadline_exceeded after {waited * 1e3:.1f} ms (overshoot "
+        f"{(waited - 0.3) * 1e3:.1f} ms past the deadline, client clock); "
+        f"slot and pages released")
+
+    # a drain out of rotation (exit false) while a 512-token request runs
+    done = {}
+    th = threading.Thread(target=lambda: done.setdefault("out", _http(
+        base + "/v1/completions", {"prompt": "Drain", "max_tokens": 512,
+                                   "ignore_eos": True})))
+    th.start()
+    _running(engine)
+    drain = _expect("/admin/drain", _http(base + "/admin/drain",
+                                          {"exit": False}),
+                    200, status="draining")[1]
+    ready = _http(base + "/readyz")
+    shed = _http(base + "/v1/completions", {"prompt": "Late",
+                                            "max_tokens": 4})
+    th.join(300)
+    if ready[0] != 503 or ready[2].get("X-TPU-Draining") != "1":
+        raise AssertionError(f"/readyz while draining: {ready}")
+    if shed[0] != 503 or shed[1]["error"]["code"] != "draining" or \
+            "Retry-After" not in shed[2]:
+        raise AssertionError(f"a completion while draining: {shed}")
+    out = done.get("out")
+    if out is None or out[0] != 200 or \
+            out[1]["usage"]["completion_tokens"] != 512:
+        raise AssertionError(f"the request running through the drain: "
+                             f"{out}")
+    if drain["active_requests"] < 1:
+        raise AssertionError(f"the 512-token request was not running when "
+                             f"the drain began: {drain}")
+    _expect("/admin/undrain", _http(base + "/admin/undrain", {}), 200,
+            draining=False)
+    _expect("/readyz after the undrain", _http(base + "/readyz"), 200,
+            status="ready")
+    _settled(engine)
+    log(f"{tag} drain (exit false) during a 512-token completion: /readyz "
+        f"503 X-TPU-Draining 1, a new completion 503 draining (Retry-After "
+        f"{shed[2]['Retry-After']}), the running one 200 with 512 tokens; "
+        f"undrain: /readyz 200")
+
+    # a drain of 0.5 s: its straggler is reaped with a 408
+    th = threading.Thread(target=lambda: done.__setitem__("out", _http(
+        base + "/v1/completions", {"prompt": "Straggler", "max_tokens": 1500,
+                                   "ignore_eos": True})))
+    th.start()
+    _running(engine)
+    t_drain = time.monotonic()
+    _expect("/admin/drain 0.5 s", _http(base + "/admin/drain",
+                                        {"timeout_s": 0.5, "exit": False}),
+            200, status="draining")
+    th.join(300)
+    waited = time.monotonic() - t_drain
+    out = done["out"]
+    if out[0] != 408:
+        raise AssertionError(f"the drain's straggler: expected 408, got "
+                             f"{out[0]} {out[1]}")
+    _settled(engine)
+    _expect("/admin/undrain", _http(base + "/admin/undrain", {}), 200)
+    _expect("/readyz after the undrain", _http(base + "/readyz"), 200)
+    log(f"{tag} drain timeout_s 0.5 during a 1500-token completion: the "
+        f"straggler 408 after {waited * 1e3:.1f} ms (overshoot "
+        f"{(waited - 0.5) * 1e3:.1f} ms), its slot and pages released")
+
+    expired = engine.metrics.deadline_expired.total() - expired0
+    gen = _metric(base, "tpu_serve_generated_tokens_total") - gen0
+    counted = engine.counts["generated_tokens"] - counts0.get(
+        "generated_tokens", 0)
+    if expired != 2 or gen != counted or counted < 512:
+        raise AssertionError(f"deadline_expired +{expired} (expected 2); "
+                             f"/metrics generated tokens +{gen}, engine "
+                             f"count +{counted}")
+    launches = _launches()
+    attn, write = _kernel_names(True)
+    if launches[attn] <= 0 or launches[write] <= 0:
+        raise AssertionError(f"the server's lifecycle runs launched no "
+                             f"K1-int8 or fused K3 write: {launches}")
+    log(f"{tag} lifecycle: deadline_expired +{expired:.0f}, /metrics "
+        f"tpu_serve_generated_tokens_total +{gen:.0f} = engine count "
+        f"+{counted}; launches {attn} {launches[attn]}, {write} "
+        f"{launches[write]}; {time.monotonic() - t0:.1f}s")
+
+
+SERVER_PROCESS_TOKENS = 1024
+
+
+def phase_server_process():
+    """The server as a process, as a pod runs it
+    (``python -m aws_k8s_ansible_provisioner_tpu_torch.serving.server
+    --device cuda``: Qwen3-0.6B, random int8 weights, 32 slots): the
+    seconds until ``/readyz`` answers 200; SIGTERM while a completion of
+    ``SERVER_PROCESS_TOKENS`` runs, which must answer 200 with every
+    token; the process must exit 0 within ``--drain-timeout``."""
+    import signal
+
+    drain_timeout = 30
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    t_start = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "aws_k8s_ansible_provisioner_tpu_torch.serving.server",
+         "--device", "cuda", "--host", "127.0.0.1", "--port", str(port),
+         "--drain-timeout", str(drain_timeout)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    threading.Thread(target=lambda: lines.extend(proc.stdout),
+                     daemon=True).start()
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited {proc.returncode} "
+                                     f"before it was ready: "
+                                     f"{''.join(lines[-20:])}")
+            if time.monotonic() - t_start > 300:
+                raise AssertionError("the server was not ready in 300 s")
+            try:
+                if _http(base + "/readyz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        t_ready = time.monotonic() - t_start
+        log(f"[server process] /readyz 200 {t_ready:.1f}s after the start "
+            f"(interpreter, torch, random weights, engine, graph capture)")
+        done = {}
+        th = threading.Thread(target=lambda: done.setdefault("out", _http(
+            base + "/v1/completions",
+            {"prompt": "SIGTERM", "max_tokens": SERVER_PROCESS_TOKENS,
+             "ignore_eos": True})))
+        th.start()
+        while _http(base + "/load")[1]["active"] < 1:
+            if not th.is_alive():
+                raise AssertionError(f"the completion ended before it "
+                                     f"was seen running: {done}")
+            time.sleep(0.002)
+        proc.send_signal(signal.SIGTERM)
+        t_term = time.monotonic()
+        code = proc.wait(timeout=drain_timeout + 30)
+        t_exit = time.monotonic() - t_term
+        th.join(60)
+        out = done.get("out")
+        if out is None or out[0] != 200 or out[1]["usage"][
+                "completion_tokens"] != SERVER_PROCESS_TOKENS:
+            raise AssertionError(f"the completion in flight at SIGTERM: "
+                                 f"{out}")
+        if code != 0 or t_exit > drain_timeout:
+            raise AssertionError(f"the server exited {code} after "
+                                 f"{t_exit:.1f}s: {''.join(lines[-20:])}")
+        log(f"[server process] SIGTERM during a {SERVER_PROCESS_TOKENS}-"
+            f"token completion: it answered 200 with every token; exit 0 "
+            f"{t_exit:.2f}s after SIGTERM (--drain-timeout "
+            f"{drain_timeout})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
 
 
 def _phase(name, fn, *args):
@@ -3782,13 +4059,16 @@ def main() -> int:
         engine, launches = phase_engine(torch, np, kv_dtype)
         phase_profile(torch, np, engine)
         phase_logits(torch, np, engine)
-        phase_server(engine)
         if kv_dtype == "int8":
+            _phase("server lifecycle", phase_server, engine, True)
             _phase("pipeline, paged", phase_pipeline, torch, np, engine)
+        else:
+            phase_server(engine)
         runs[kv_dtype] = launches
         del engine
         _free(torch)
         log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    _phase("server process", phase_server_process)
     for kv_dtype in ("auto", "int8"):
         _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)
         _free(torch)

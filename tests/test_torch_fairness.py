@@ -5,8 +5,9 @@ tiny_qwen3 at float32 on the same weights (as ``test_torch_engine.py``):
 the order in which each engine dispatches prefills (P), decodes (D) and
 chunks (C) under a stream of arrivals must be the same, paged and dense,
 with the floor at its default 4 and off (0), and the streams byte-identical.
-The JAX side runs with ``admission_preempt_after_s=0``, a wall-clock
-preemption that the port does not have.
+Both sides run with ``admission_preempt_after_s=0``: the admission-
+pressure preemption is a wall-clock rule (``tests/test_torch_lifecycle.py``
+holds it).
 """
 
 import dataclasses
@@ -59,7 +60,8 @@ def _engines(model, **serving):
     serving = {**BASE, **serving}
     je = JEngine(jcfg, jparams, JServing(admission_preempt_after_s=0,
                                          **serving))
-    te = TEngine(tcfg, tparams, TServing(**serving), device="cpu")
+    te = TEngine(tcfg, tparams, TServing(admission_preempt_after_s=0,
+                                         **serving), device="cpu")
     return je, te
 
 

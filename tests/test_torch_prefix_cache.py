@@ -401,16 +401,18 @@ def mistral():
 
 
 def _engines(model, **serving):
-    """Both engines at one configuration. The JAX engine's admission-
-    pressure preemption (a running request preempted after the queue head
-    waited ``admission_preempt_after_s`` of wall time for pages) is not
-    ported, and a wall-clock rule would make the CPU runs differ from run
-    to run: it is off on the JAX side."""
+    """Both engines at one configuration. The admission-pressure
+    preemption (a running request preempted after the queue head waited
+    ``admission_preempt_after_s`` of wall time for pages) is a wall-clock
+    rule that would make the CPU runs differ from run to run: it is off on
+    both sides (``tests/test_torch_lifecycle.py`` holds it)."""
     jcfg, jp, tcfg, tp = model
     je = JEngine(jcfg, jp, JServing(weights_dtype="bf16",
                                     admission_preempt_after_s=0.0,
                                     **serving))
-    te = TEngine(tcfg, tp, TServing(weights_dtype="bf16", **serving),
+    te = TEngine(tcfg, tp, TServing(weights_dtype="bf16",
+                                    admission_preempt_after_s=0.0,
+                                    **serving),
                  device="cpu")
     return je, te
 

@@ -171,7 +171,11 @@ def test_bad_requests_get_4xx(server):
 def test_health_reports_ok(server):
     base, _ = server
     status, out = _get(base + "/health")
-    assert status == 200 and out["status"] == "ok" and out["device"] == "cpu"
+    assert status == 200 and out["status"] == "ok"
+    # C16: no string-valued ``device`` key (the JAX answer's ``device`` is
+    # the device monitor's dict, a module not ported yet)
+    assert "device" not in out and out["last_error"] is None
+    assert out["paged"] is True and out["kv_pages_total"] > 0
 
 
 def test_cli_defaults_to_cuda():
