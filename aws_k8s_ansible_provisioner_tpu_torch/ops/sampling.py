@@ -1,5 +1,7 @@
 """Token sampling: greedy, temperature, top-k and top-p, with seeded noise
-that reproduces the JAX package's bits.
+that reproduces the JAX package's bits; the presence, frequency and
+repetition penalties (:func:`apply_penalties`, bit-identical to the JAX
+package's).
 
 Per-request parameters are [B] vectors, so one call serves any mix of greedy
 and sampled rows. As in the JAX package, top-k and top-p work on a static
@@ -83,6 +85,34 @@ def per_slot_keys(seeds: torch.Tensor, ctrs: torch.Tensor) -> torch.Tensor:
     request's seed and its token position only. seeds [B] (uint32 values in
     int64); ctrs [B]."""
     return fold_in(random_key(seeds), ctrs)
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    presence: torch.Tensor, frequency: torch.Tensor,
+                    repetition: Optional[torch.Tensor] = None,
+                    prompt_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The OpenAI presence and frequency penalties and the vLLM/HF
+    ``repetition_penalty``, in float32 (the JAX package's
+    ``ops/sampling.apply_penalties``).
+
+    logits [B, V]; counts [B, V] int (each token's count in the slot's
+    generated text); presence, frequency [B], subtracted from the raw
+    logits (``frequency * count + presence * (count > 0)``; zero is an
+    exact no-op). ``repetition`` [B] (1.0: off) first scales every token
+    seen in the prompt (``prompt_mask`` [B, V] bool) or generated so far:
+    a positive logit is divided by it, any other multiplied.
+    """
+    c = counts.float()
+    out = logits.float()
+    if repetition is not None:
+        seen = c > 0
+        if prompt_mask is not None:
+            seen = seen | prompt_mask
+        r = repetition.float()[:, None]
+        out = torch.where(seen, torch.where(out > 0, out / r, out * r), out)
+    return out - frequency.float()[:, None] * c \
+        - presence.float()[:, None] * (c > 0).float()
 
 
 def sample(logits: torch.Tensor, temperature: torch.Tensor,

@@ -88,8 +88,11 @@ Differences from the JAX engine:
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
 - not ported yet: guided decoding, LoRA (and with it the prefix chain's
-  salt), penalties, logit bias, min_tokens, logprobs, streaming, the
-  failover continuation (``resume_ids``), tracing and the flight recorder;
+  salt), streaming, the failover continuation (``resume_ids``), tracing
+  and the flight recorder;
+- a request with ``prompt_logprobs`` admitted under a dispatch in flight
+  takes the chunk walk, as in the JAX engine, and its one chunk computes
+  the prompt's logprobs (the JAX walk computes none; ROADMAP C21);
 - a verify dispatch serves greedy slots only: a sampled slot takes its
   tokens from the plain step that follows (the JAX engine draws it from the
   verify's row 0), so that its seeded stream does not depend on speculation;
@@ -125,6 +128,15 @@ The replica lifecycle is the JAX engine's:
 - the stall watchdog of :meth:`Engine.run_forever` (``stalled_for_s``,
   ``watchdog_stall_s``) and the metrics of ``serving/metrics.py``
   (``Engine.metrics``; ``Engine.counts`` keeps the port's own counts).
+
+The request's logit fields are the JAX engine's: the presence,
+frequency and repetition penalties (a [B, V] count carry on the device,
+reset or restored when a penalized request takes a slot), ``logit_bias``,
+``min_tokens`` with ``stop_token_ids`` (the stop tokens banned from the
+draws until then), ``logprobs`` and ``prompt_logprobs`` (the prefix cache
+bypassed). Decode dispatches take the penalties and logprobs variants of
+the decode graphs while a running request needs them; a verify serves no
+token to a slot that needs one of these (:meth:`Engine._spec_skip`).
 
 Sampling is seeded per request as in the JAX engine: a request's OpenAI
 ``seed``, or else one drawn at submit from the engine's ``random.Random``
@@ -169,8 +181,8 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    DecodeGraphs, mixed_step, prefill_batch_step, prefill_chunk_step,
-    spec_decode_step)
+    BAN_K, BIAS_K, LOGPROB_K, NO_TOKEN, DecodeGraphs, _host_lp, mixed_step,
+    prefill_batch_step, prefill_chunk_step, spec_decode_step)
 
 log = logging.getLogger(__name__)
 
@@ -208,7 +220,30 @@ class Request:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    # OpenAI presence and frequency penalties over the generated tokens
+    # (0.0: off; subtracted from the logits, ops/sampling.apply_penalties)
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # vLLM/HF repetition_penalty (1.0: off): divides a positive logit of
+    # every token of the prompt or generated so far, multiplies any other
+    repetition_penalty: float = 1.0
     ignore_eos: bool = False
+    # OpenAI ``logprobs``: None = off; N = the chosen token's logprob and
+    # the N best (0 <= N <= LOGPROB_K) of every generated token
+    logprobs: Optional[int] = None
+    # vLLM ``stop_token_ids``: stop tokens beside the eos set (unless
+    # ignore_eos)
+    stop_token_ids: tuple = ()
+    # vLLM ``min_tokens``: every stop token (eos set and stop_token_ids) is
+    # masked from the draws until this many tokens are generated
+    min_tokens: int = 0
+    # OpenAI ``logit_bias``: ((token id, bias), ...), at most BIAS_K,
+    # added to the logits before every draw
+    logit_bias: tuple = ()
+    # vLLM ``prompt_logprobs``: None = off; K = each prompt position's
+    # logprob and the K best (position 0 has none); bypasses the prefix
+    # cache, and a prompt that would chunk is refused
+    prompt_logprobs: Optional[int] = None
     # OpenAI ``seed``: same seed + same prompt => same sampled stream
     seed: Optional[int] = None
     # resolved at submit: the seed's low 32 bits, or the engine's draw
@@ -221,6 +256,12 @@ class Request:
     cancelled: bool = False
     id: int = field(default_factory=lambda: next(_REQUEST_IDS))
     generated: List[int] = field(default_factory=list)
+    # with logprobs: one (own logprob, [(token id, logprob) x k]) per
+    # generated token
+    logprob_data: List[tuple] = field(default_factory=list)
+    # with prompt_logprobs: None (position 0), then one such record per
+    # prompt position
+    prompt_logprob_data: List = field(default_factory=list)
     # None is put here when the request finishes
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
     # time.monotonic() at submit, at the first admission into a slot (kept
@@ -380,6 +421,17 @@ class Engine:
         self.top_ks = np.zeros(self.num_slots, np.int32)
         self.top_ps = np.ones(self.num_slots, np.float32)
         self.seeds = np.zeros(self.num_slots, np.int64)       # uint32 values
+        # the logit rows of the decode operands (programs.DecodeGraphs):
+        # min_tokens ban, logit_bias (NO_TOKEN pads), penalties; a slot's
+        # rows are neutral while no request that sets them holds it
+        self.ban_ids = np.full((self.num_slots, BAN_K), NO_TOKEN, np.int32)
+        self.ban_until = np.zeros(self.num_slots, np.int32)
+        self.bias_ids = np.full((self.num_slots, BIAS_K), NO_TOKEN, np.int32)
+        self.bias_vals = np.zeros((self.num_slots, BIAS_K), np.float32)
+        self._bias_n = np.zeros(self.num_slots, np.int32)
+        self.pres_pens = np.zeros(self.num_slots, np.float32)
+        self.freq_pens = np.zeros(self.num_slots, np.float32)
+        self.rep_pens = np.ones(self.num_slots, np.float32)
         self.slot_req: List[Optional[Request]] = [None] * self.num_slots
         # free slots: admit from the front, release to the back
         self._free: collections.deque = collections.deque(
@@ -522,6 +574,7 @@ class Engine:
                 self.cfg.vocab_size:
             raise ValueError(f"prompt token ids must lie in "
                              f"[0, {self.cfg.vocab_size})")
+        self._check_fields(req)
         req.max_tokens = max(1, min(req.max_tokens, self.max_len - n - 1))
         with self._lock:
             req.eff_seed = (int(req.seed) & 0xffffffff) \
@@ -563,6 +616,32 @@ class Engine:
                 retry_after_s=self._estimated_wait_s() or 1.0)
         self._work_event.set()
         return req
+
+    def _check_fields(self, req: Request) -> None:
+        """The JAX engine's checks of the logit fields (ValueError): the
+        min_tokens ban within BAN_K tokens, the bias within BIAS_K entries,
+        a repetition penalty > 0 (a factor <= 0 would flip the logits'
+        signs), prompt_logprobs within [0, LOGPROB_K] and only on a prompt
+        that does not chunk (the chunk walk computes none)."""
+        if req.min_tokens > 0 and len(self._ban_set(req)) > BAN_K:
+            raise ValueError(
+                f"min_tokens suppression supports at most {BAN_K} stop "
+                f"tokens (eos set + stop_token_ids = "
+                f"{len(self._ban_set(req))})")
+        if len(req.logit_bias) > BIAS_K:
+            raise ValueError(f"logit_bias supports at most {BIAS_K} entries "
+                             f"(got {len(req.logit_bias)})")
+        if req.repetition_penalty is not None and req.repetition_penalty <= 0:
+            raise ValueError(f"repetition_penalty must be > 0 "
+                             f"(got {req.repetition_penalty})")
+        if req.prompt_logprobs is not None:
+            if not 0 <= int(req.prompt_logprobs) <= LOGPROB_K:
+                raise ValueError(f"prompt_logprobs must be in "
+                                 f"[0, {LOGPROB_K}]")
+            if self._should_chunk(len(req.prompt_ids)):
+                raise ValueError(
+                    "prompt_logprobs is not supported for prompts that "
+                    "need chunked prefill (fits-in-bucket prompts only)")
 
     def _estimated_wait_s(self) -> float:
         """Coarse queue-wait estimate: queued requests x recent tokens per
@@ -708,8 +787,59 @@ class Engine:
             self._op_dirty_table = True
             self._pages_gauges()
         self.temps[slot] = 0.0
+        self._neutral_rows(slot)
         self._op_dirty_sampling = True
         self._free.append(slot)
+
+    def _neutral_rows(self, slot: int):
+        """The slot's ban, bias and penalty rows back to their neutral
+        values (its count and prompt-mask rows stay: a neutral row ignores
+        them, and a request that penalizes resets them)."""
+        self.ban_ids[slot] = NO_TOKEN
+        self.ban_until[slot] = 0
+        self.bias_ids[slot] = NO_TOKEN
+        self.bias_vals[slot] = 0.0
+        self._bias_n[slot] = 0
+        self.pres_pens[slot] = 0.0
+        self.freq_pens[slot] = 0.0
+        self.rep_pens[slot] = 1.0
+
+    def _ban_set(self, req: Request) -> set:
+        """The tokens a request's min_tokens suppresses: exactly those
+        :meth:`_emit` stops on."""
+        base = set() if req.ignore_eos else set(self._eos_set)
+        return base | set(req.stop_token_ids)
+
+    def _fill_sampling_rows(self, req: Request, slot: int):
+        """The slot's min_tokens ban and logit_bias rows from the request
+        (the JAX engine's): before the prefill dispatch, so that the first
+        token honours both, and again at the activation (a resume)."""
+        self._op_dirty_sampling = True
+        self.ban_ids[slot] = NO_TOKEN
+        if req.min_tokens > 0:
+            bs = sorted(self._ban_set(req))[:BAN_K]
+            self.ban_ids[slot, :len(bs)] = bs
+            self.ban_until[slot] = len(req.prompt_ids) + req.min_tokens
+        else:
+            self.ban_until[slot] = 0
+        self.bias_ids[slot] = NO_TOKEN
+        self.bias_vals[slot] = 0.0
+        n = len(req.logit_bias)
+        self._bias_n[slot] = n
+        if n:
+            self.bias_ids[slot, :n] = [t for t, _ in req.logit_bias]
+            self.bias_vals[slot, :n] = [v for _, v in req.logit_bias]
+
+    def _want_pen(self) -> bool:
+        """Whether a decode dispatch takes the penalties variant: some slot
+        penalizes."""
+        return bool(self.pres_pens.any() or self.freq_pens.any()
+                    or (self.rep_pens != 1.0).any())
+
+    def _want_lp(self) -> bool:
+        """Whether a decode dispatch takes the logprobs variant."""
+        return any(r is not None and r.logprobs is not None
+                   for r in self.slot_req)
 
     def _pages_gauges(self):
         """The pool's page gauges (total, live, free, evictable) and the
@@ -940,8 +1070,10 @@ class Engine:
         still holds, as (source slot, n), or None. The reuse stops one token
         short of the prompt (its last token must run to give the first
         sampled one); ``slot`` is the slot just assigned (a match there
-        needs no copy)."""
-        if not self.serving.prefix_cache:
+        needs no copy). A request that asks for its prompt's logprobs
+        matches nothing: a reused row skips the prefill that computes
+        them."""
+        if not self.serving.prefix_cache or req.prompt_logprobs is not None:
             return None
         ids = req.prompt_ids
         cap = len(ids) - 1
@@ -997,7 +1129,8 @@ class Engine:
         matched: List[int] = []
         n = 0
         host_keys: List[tuple] = []
-        if self.serving.prefix_cache:
+        if self.serving.prefix_cache and req.prompt_logprobs is None:
+            # a prompt_logprobs request prefills every row (_find_prefix)
             matched, n, host_keys = alloc.lookup_prefix(ids)
             # the last token runs through the walk to give the first sample
             while host_keys and n + len(host_keys) * ps > len(ids) - 1:
@@ -1162,7 +1295,22 @@ class Engine:
         event.record()
         return host, event
 
+    def _stage_groups(self, *groups) -> tuple:
+        """:meth:`_stage` over groups of tensors (a dispatch's tokens, its
+        logprob records): (the host groups, each a tuple or None when
+        empty, the event)."""
+        host, event = self._stage(*(t for g in groups for t in g))
+        out, i = [], 0
+        for g in groups:
+            out.append(tuple(host[i:i + len(g)]) or None)
+            i += len(g)
+        return out, event
+
     def _prefill_batch(self, batch):
+        """One batch prefill of fresh prompts: each row's ban and bias rows
+        filled first, its repetition penalty over its prompt, its first
+        token's logprobs and its prompt's when asked; then each request
+        activates."""
         N = len(batch)
         T = self._bucket_for(max(len(r.prompt_ids) for r, _ in batch))
         tokens = np.zeros((N, T), np.int32)
@@ -1172,20 +1320,40 @@ class Engine:
             true_lens[i] = len(req.prompt_ids)
         slots = [s for _, s in batch]
         slots_np = np.array(slots, np.int32)
-        self.cache, toks = prefill_batch_step(
+        for req, slot in batch:
+            self._fill_sampling_rows(req, slot)
+        reps = np.array([r.repetition_penalty or 1.0 for r, _ in batch],
+                        np.float32)
+        want_lp = any(r.logprobs is not None for r, _ in batch)
+        n_plp = max((len(r.prompt_ids) for r, _ in batch
+                     if r.prompt_logprobs is not None), default=0)
+        out = prefill_batch_step(
             self.model, self.cache, self._dev(tokens), self._dev(true_lens),
             self._dev(self.table[slots]) if self.paged else None,
             self._dev(np.array([r.temperature for r, _ in batch], np.float32)),
             self._dev(np.array([r.top_k for r, _ in batch], np.int32)),
             self._dev(np.array([r.top_p for r, _ in batch], np.float32)),
             self._dev(np.array([r.eff_seed for r, _ in batch], np.int64)),
-            slots=None if self.paged else self._dev(slots_np))
-        toks = toks.cpu().numpy()
+            slots=None if self.paged else self._dev(slots_np),
+            ban_ids=self._dev(self.ban_ids[slots]),
+            ban_until=self._dev(self.ban_until[slots]),
+            bias_ids=self._dev(self.bias_ids[slots]),
+            bias_vals=self._dev(self.bias_vals[slots]),
+            reps=self._dev(reps) if (reps != 1.0).any() else None,
+            logprobs=want_lp, prompt_logprobs=n_plp)
+        self.cache, toks = out[0], out[1].cpu().numpy()
+        lp_t = tuple(a.cpu().numpy() for a in out[2]) if want_lp else None
+        plp_t = tuple(a.cpu().numpy() for a in out[-1]) if n_plp else None
         self.counts["prefill_dispatches"] += 1
         if self.draft is not None:
             self.draft.prefill(tokens, true_lens, slots_np)
         for i, (req, slot) in enumerate(batch):
-            self._activate(req, slot, int(toks[i]), req.prompt_ids, False)
+            lp = _host_lp(lp_t, i, req.logprobs) \
+                if req.logprobs is not None else None
+            if req.prompt_logprobs is not None:
+                _host_prompt_lp(req, plp_t, i)
+            self._activate(req, slot, int(toks[i]), req.prompt_ids, False,
+                           lp)
 
     def _start_chunk(self, req: Request, slot: int, ids: List[int],
                      resumed: bool, off: int = 0, src: Optional[int] = None):
@@ -1211,8 +1379,19 @@ class Engine:
         if self.draft is not None:
             # the draft has no chunk walk; the slot serves the plain path
             self.draft.mark_stale(slot)
+        # the walk's draws honour the request's ban and bias rows, and its
+        # final chunk's the repetition penalty over the whole context it
+        # has written ([V] bool on the device, uploaded once)
+        self._fill_sampling_rows(req, slot)
+        rep = float(req.repetition_penalty or 1.0)
+        seen = None
+        if rep != 1.0:
+            idx = torch.empty(len(ids), dtype=torch.int64, device=self.device)
+            self._upload(idx, np.asarray(ids, np.int64))
+            seen = torch.zeros(self.cfg.vocab_size, dtype=torch.bool,
+                               device=self.device).index_fill_(0, idx, True)
         self._chunk = {"req": req, "slot": slot, "ids": ids, "off": off,
-                       "resumed": resumed}
+                       "resumed": resumed, "rep": rep, "rep_seen": seen}
 
     def _advance_chunk(self):
         """The walk's next chunk: one mixed dispatch packing it beside a
@@ -1288,12 +1467,16 @@ class Engine:
         if final:
             self._chunk = None
             self._activate(req, slot, rec["chunk_token"], ids,
-                           st["resumed"])
+                           st["resumed"], rec.get("chunk_lp"))
 
     def _mixed_dispatch(self, st: dict, chunk: List[int], C: int) -> dict:
         """Queue one ``mixed_step`` on the device operands (the carry of the
         dispatch in flight included) and return its record; the chunking
-        slot's carry lanes take the chunk's token and its new frontier."""
+        slot's carry lanes take the chunk's token and its new frontier. The
+        decode rows take the penalties and logprobs variants as a decode
+        dispatch would; the final chunk of a fresh request computes its
+        token's logprobs and, when the chunk holds the whole prompt, its
+        prompt's."""
         req, slot, off = st["req"], st["slot"], st["off"]
         d = self.decoder
         self._decode_operands()
@@ -1302,24 +1485,47 @@ class Engine:
         ptokens[0, :len(chunk)] = chunk
         pdev = torch.empty((1, C), dtype=torch.int32, device=self.device)
         self._upload(pdev, ptokens)
-        self.cache, out, ptok = mixed_step(
+        fresh_final = not st["resumed"] and off + len(chunk) >= len(st["ids"])
+        want_lp, want_pen = self._want_lp(), self._want_pen()
+        chunk_lp = req.logprobs is not None and fresh_final
+        chunk_plp = len(chunk) if (req.prompt_logprobs is not None
+                                   and fresh_final and off == 0) else 0
+        pen = dict(counts=d.counts, presence=d.presence,
+                   frequency=d.frequency, repetition=d.repetition,
+                   prompt_mask=d.prompt_mask) if want_pen else {}
+        res = mixed_step(
             self.model, self.cache, d.tokens, d.lengths, pdev, slot, off,
             len(chunk), d.table, d.temps, d.top_ks, d.top_ps, d.seeds,
             req.temperature, req.top_k, req.top_p, req.eff_seed,
-            any_sampled=bool((self.temps > 0).any()))
+            any_sampled=bool((self.temps > 0).any()), ban_ids=d.ban_ids,
+            ban_until=d.ban_until, bias_ids=d.bias_ids,
+            bias_vals=d.bias_vals, prep=st["rep"], prep_seen=st["rep_seen"],
+            logprobs=want_lp, chunk_logprobs=chunk_lp,
+            chunk_prompt_logprobs=chunk_plp, **pen)
+        self.cache, out, ptok = res[:3]
+        lp = plp = clp = ()
+        if want_lp:
+            out, lp = out
+        if chunk_lp:
+            ptok, clp = ptok
+        if chunk_plp:
+            plp = res[3]
         is_p = torch.arange(self.num_slots, device=self.device) == slot
         tok = torch.where(is_p, ptok, out[0])
         lens = torch.where(is_p, torch.full_like(d.lengths, off + len(chunk)),
                            d.lengths + 1)
         d.tokens.copy_(tok)
         d.lengths.copy_(lens)
-        (out, ptok), event = self._stage(out, ptok)
+        (out, ptok, lp, clp, plp), event = self._stage_groups(
+            (out,), (ptok,), lp, clp, plp)
         self._pipe_carry = self._carry_gen
         self.counts["mixed_dispatches"] += 1
         self.counts["pipeline_dispatches"] += 1
         _metrics.pipeline.dispatches.inc()
-        return {"mixed": True, "out": out, "pout": ptok, "event": event,
-                "horizon": 1, "active": active, "t0": time.monotonic(),
+        return {"mixed": True, "out": out[0], "pout": ptok[0], "lp": lp,
+                "chunk_lp_t": clp, "chunk_plp_t": plp, "chunk_req": req,
+                "event": event, "horizon": 1,
+                "active": active, "t0": time.monotonic(),
                 "reqs": [self.slot_req[s] for s in active]}
 
     def _advance_chunk_dense(self, st: dict, chunk: List[int], C: int):
@@ -1334,19 +1540,29 @@ class Engine:
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         ptokens = np.zeros((1, C), np.int32)
         ptokens[0, :len(chunk)] = chunk
-        self.cache, tok = prefill_chunk_step(
+        final = off + len(chunk) >= len(ids)
+        want_lp = req.logprobs is not None and not st["resumed"] and final
+        rows = slice(slot, slot + 1)
+        out = prefill_chunk_step(
             self.model, self.cache, self._dev(ptokens), off, slot,
             len(chunk), self._dev(np.array([req.temperature], np.float32)),
             self._dev(np.array([req.top_k], np.int32)),
             self._dev(np.array([req.top_p], np.float32)),
-            self._dev(np.array([req.eff_seed], np.int64)))
-        tok = int(tok.cpu()[0])
+            self._dev(np.array([req.eff_seed], np.int64)),
+            ban_ids=self._dev(self.ban_ids[rows]),
+            ban_until=self._dev(self.ban_until[rows]),
+            bias_ids=self._dev(self.bias_ids[rows]),
+            bias_vals=self._dev(self.bias_vals[rows]), rep=st["rep"],
+            rep_seen=st["rep_seen"], logprobs=want_lp)
+        self.cache, tok = out[0], int(out[1].cpu()[0])
+        lp = _host_lp(tuple(a.cpu().numpy() for a in out[2]), 0,
+                      req.logprobs) if want_lp else None
         self.counts["chunk_dispatches"] += 1
         st["off"] = off + len(chunk)
         self.lengths[slot] = st["off"]
-        if st["off"] >= len(ids):
+        if final:
             self._chunk = None
-            self._activate(req, slot, tok, ids, st["resumed"])
+            self._activate(req, slot, tok, ids, st["resumed"], lp)
 
     # -- the decode pipeline ------------------------------------------------
 
@@ -1405,7 +1621,14 @@ class Engine:
         d = self.decoder
         if self._op_dirty_sampling:
             for dst, arr in ((d.temps, self.temps), (d.top_ks, self.top_ks),
-                             (d.top_ps, self.top_ps), (d.seeds, self.seeds)):
+                             (d.top_ps, self.top_ps), (d.seeds, self.seeds),
+                             (d.ban_ids, self.ban_ids),
+                             (d.ban_until, self.ban_until),
+                             (d.bias_ids, self.bias_ids),
+                             (d.bias_vals, self.bias_vals),
+                             (d.presence, self.pres_pens),
+                             (d.frequency, self.freq_pens),
+                             (d.repetition, self.rep_pens)):
                 self._upload(dst, arr)
             self._op_dirty_sampling = False
         if self.paged and self._op_dirty_table:
@@ -1493,15 +1716,21 @@ class Engine:
         replay on a CUDA device) and return its record; nothing here waits
         for the device."""
         self._decode_operands()
-        out = self.decoder.run(horizon, bool((self.temps > 0).any()))
-        (out,), event = self._stage(out)
+        want_lp = self._want_lp()
+        out = self.decoder.run(horizon, bool((self.temps > 0).any()),
+                               self._want_pen(), want_lp)
+        lp = ()
+        if want_lp:
+            out, lp = out
+        (out, lp), event = self._stage_groups((out,), lp)
         self._pipe_carry = self._carry_gen
         self.counts["decode_dispatches"] += 1
         self.counts["decode_substeps"] += horizon
         self.counts["pipeline_dispatches"] += 1
         _metrics.pipeline.dispatches.inc()
-        return {"out": out, "event": event, "horizon": horizon,
-                "active": list(active), "t0": time.monotonic(),
+        return {"out": out[0], "lp": lp, "event": event,
+                "horizon": horizon, "active": list(active),
+                "t0": time.monotonic(),
                 "reqs": [self.slot_req[s] for s in active]}
 
     def _decode_fetch(self, rec: dict) -> None:
@@ -1513,15 +1742,29 @@ class Engine:
         if rec["event"] is not None:
             rec["event"].synchronize()
         out = rec["out"].numpy()
+        lp_t = None if rec["lp"] is None else \
+            tuple(a.numpy() for a in rec["lp"])
         if rec.get("mixed"):
             rec["chunk_token"] = int(rec["pout"].numpy()[0])
+            req = rec["chunk_req"]
+            if rec["chunk_lp_t"] is not None:
+                rec["chunk_lp"] = _host_lp(
+                    tuple(a.numpy() for a in rec["chunk_lp_t"]), 0,
+                    req.logprobs)
+            if rec["chunk_plp_t"] is not None:
+                _host_prompt_lp(req, tuple(a.numpy()
+                                           for a in rec["chunk_plp_t"]), 0)
         emitted = 0
         for s in range(rec["horizon"]):
             for slot, req in zip(rec["active"], rec["reqs"]):
                 if self.slot_req[slot] is not req:
                     continue             # finished earlier or since queued
+                lp = None
+                if req.logprobs is not None and lp_t is not None:
+                    lp = _host_lp(tuple(a[s] for a in lp_t), slot,
+                                  req.logprobs)
                 self.lengths[slot] += 1
-                self._emit(slot, int(out[s, slot]))
+                self._emit(slot, int(out[s, slot]), lp)
                 emitted += 1
         self._note_tokens(rec["t0"], emitted)
 
@@ -1569,14 +1812,21 @@ class Engine:
         return (drafts, proposed) if proposed else None
 
     def _spec_skip(self, active: List[int]) -> set:
-        """Slots a verify dispatch serves no token: the sampled ones. They
-        take every token from the plain step, so a seeded stream is the same
+        """Slots a verify dispatch serves no token. The sampled ones take
+        every token from the plain step, so a seeded stream is the same
         with speculation on or off: in bf16 the verify's R-row forward
         rounds apart from the one-row decode, enough to flip a near-tie of
         the draw (the JAX engine draws them from the verify's row 0; ROADMAP
-        C9). The JAX engine's other plain-only features (logprobs,
-        penalties, min_tokens, logit bias, guided) are not ported yet."""
-        return {s for s in active if self.slot_req[s].temperature > 0.0}
+        C9). The JAX engine's ineligible slots (``_slot_spec_ineligible``)
+        need what only the plain step does: logprobs, a live penalty, a
+        live min_tokens ban, a logit bias."""
+        return {s for s in active
+                if self.slot_req[s].temperature > 0.0
+                or self.slot_req[s].logprobs is not None
+                or self.pres_pens[s] or self.freq_pens[s]
+                or self.rep_pens[s] != 1.0
+                or self.ban_until[s] > self.lengths[s]
+                or self._bias_n[s] > 0}
 
     def _do_spec_decode(self, active: List[int], drafts: np.ndarray,
                         proposed: dict, skip=frozenset()):
@@ -1630,10 +1880,14 @@ class Engine:
     # -- slot lifecycle -----------------------------------------------------
 
     def _activate(self, req: Request, slot: int, token: int,
-                  ids: List[int], resumed: bool):
+                  ids: List[int], resumed: bool, lp=None):
         """Post-prefill bookkeeping. A resume rebuilt the cache of
         prompt + generated: its sampled token is discarded and decode
-        continues from the last real token, whose row it rewrites."""
+        continues from the last real token, whose row it rewrites. The
+        slot's logit rows take the request's values; a penalized request's
+        count row is reset and counts its first token, or (a resume) is
+        restored from the tokens generated before the preemption, so that
+        the resumed stream is the one without the preemption."""
         # a device carry no longer describes the batch once the slot joins
         self._carry_gen += 1
         self._op_dirty_sampling = True
@@ -1653,20 +1907,56 @@ class Engine:
         self.top_ks[slot] = req.top_k
         self.top_ps[slot] = req.top_p
         self.seeds[slot] = req.eff_seed
+        self._fill_sampling_rows(req, slot)
+        self.pres_pens[slot] = req.presence_penalty
+        self.freq_pens[slot] = req.frequency_penalty
+        self.rep_pens[slot] = req.repetition_penalty or 1.0
+        self._penalty_rows(req, slot, token, resumed)
         self.metrics.active_requests.set(len(self._active_slots()))
         if resumed:
             self.last_token[slot] = ids[-1]
         else:
-            self._emit(slot, token)
+            self._emit(slot, token, lp)
 
-    def _emit(self, slot: int, token: int):
-        """Record one generated token; handle stop conditions."""
+    def _penalty_rows(self, req: Request, slot: int, token: int,
+                      resumed: bool):
+        """The slot's prompt-mask row (repetition) and count row (any
+        penalty) on the device for a penalized request, queued on the
+        stream behind every dispatch already queued (no wait): an unpenalized
+        occupant leaves them stale, which its neutral rows ignore."""
+        d = self.decoder
+        rep = (req.repetition_penalty or 1.0) != 1.0
+        if rep:
+            idx = torch.empty(len(req.prompt_ids), dtype=torch.int64,
+                              device=d.counts.device)
+            self._upload(idx, np.asarray(req.prompt_ids, np.int64))
+            d.prompt_mask[slot].zero_()
+            d.prompt_mask[slot].index_fill_(0, idx, True)
+        if not (rep or req.presence_penalty or req.frequency_penalty):
+            return
+        if resumed:
+            # the resume's prefill token is discarded: it counts nothing
+            self._upload(d.counts[slot], np.bincount(
+                np.asarray(req.generated, np.int64),
+                minlength=self.cfg.vocab_size).astype(np.int32))
+        else:
+            d.counts[slot].zero_()
+            d.counts[slot, token:token + 1].add_(1)
+
+    def _emit(self, slot: int, token: int, lp=None):
+        """Record one generated token (and its logprob record); handle
+        stop conditions: a stop token (the eos set unless ignore_eos, and
+        stop_token_ids) ends the request only past min_tokens."""
         req = self.slot_req[slot]
         req.generated.append(token)
+        if req.logprobs is not None:
+            req.logprob_data.append(lp)
         self.last_token[slot] = token
         self.counts["generated_tokens"] += 1
         self.metrics.generated_tokens.inc()
-        hit_eos = token in self._eos_set and not req.ignore_eos
+        hit_eos = ((token in self._eos_set and not req.ignore_eos)
+                   or token in req.stop_token_ids) \
+            and len(req.generated) > req.min_tokens
         out_of_budget = (len(req.generated) >= req.max_tokens
                          or self.lengths[slot] + 1 >= self.max_len)
         if hit_eos or out_of_budget:
@@ -1787,6 +2077,20 @@ class Engine:
             r.finish_reason = "error"
             self.metrics.mark_request("error", 0.0)
             r.out_queue.put(None)
+
+
+def _host_prompt_lp(req: Request, plp_t, row: int) -> None:
+    """Fill ``req.prompt_logprob_data`` from row ``row`` of host prompt
+    records (sel [N, n], vals and ids [N, n, K]): None for position 0,
+    then (own logprob, [(token id, logprob) x prompt_logprobs])."""
+    sel, vals, ids = plp_t
+    k = min(int(req.prompt_logprobs), ids.shape[-1])
+    data: List = [None]
+    for t in range(1, len(req.prompt_ids)):
+        data.append((float(sel[row, t - 1]),
+                     [(int(ids[row, t - 1, j]), float(vals[row, t - 1, j]))
+                      for j in range(k)]))
+    req.prompt_logprob_data = data
 
 
 def _to_device(tree, device):

@@ -47,7 +47,15 @@ a prefill row at its prompt length, a decode row at its length + 1 (the
 context the draw extends to), the chunk row at ``pstart + plen`` (a dense
 chunk at ``start + chunk_len``), a verify row 0 at its length + 1.
 
-Sampling penalties, logit bias, stop-token bans, guided masks, logprobs and
+Each processes its logits in the JAX programs' order before it samples:
+the presence, frequency and repetition penalties (decode rows, over a
+[B, V] count carry that each substep updates; a prefill or chunk row's
+repetition over its prompt), the OpenAI ``logit_bias``, then the
+``min_tokens`` ban of the stop tokens, evaluated against the row's length
+at that substep; the logprobs (:func:`_logprob_topk`) are taken from the
+processed logits, the prompt logprobs (:func:`_prompt_logprobs`) from the
+raw ones. A bias or ban entry that names no token of the vocabulary (the
+JAX programs' pad ``NO_TOKEN``) is masked, never indexed. Guided masks and
 LoRA of the JAX programs are not ported yet.
 """
 
@@ -57,6 +65,7 @@ import collections
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
@@ -68,20 +77,207 @@ from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
     make_decode_attend_carry_paged, make_mixed_attend_carry_paged,
     make_prefill_attend_batch, make_prefill_attend_batch_paged_carry,
     make_spec_attend_carry, make_spec_attend_carry_paged)
-from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import sample
+from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import (
+    apply_penalties, sample)
+
+# The JAX programs' static widths (their serving/programs.py): the top-k of
+# a logprob record, a slot's min_tokens ban list (its eos set and stop
+# token ids) and its logit_bias list
+LOGPROB_K = 8
+BAN_K = 8
+BIAS_K = 64
+# the JAX programs' id of an unused ban or bias entry: out of every
+# vocabulary (their scatters drop it; the helpers here mask it)
+NO_TOKEN = 2**31 - 1
+
+
+def _vocab_ids(ids: torch.Tensor, V: int):
+    """(ids as int64 indices into a vocabulary of V, valid [same shape]):
+    a negative id counts from the end, as JAX's indexing does, and an id
+    that still lies outside [0, V) (``NO_TOKEN``) becomes 0 with valid
+    False, so that no scatter ever indexes outside the vocabulary."""
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + V, ids)
+    valid = (ids >= 0) & (ids < V)
+    return torch.where(valid, ids, torch.zeros_like(ids)), valid
+
+
+def _bias_rows(bias_ids: torch.Tensor, bias_vals: torch.Tensor, V: int,
+               dtype: torch.dtype):
+    """Bias rows ready for :func:`_add_bias`: ids in [0, V), values in
+    ``dtype`` and 0.0 where the id names no token (token 0 takes it, exact).
+    A dispatch prepares them once for all its substeps."""
+    ids, valid = _vocab_ids(bias_ids, V)
+    vals = bias_vals.to(dtype)
+    return ids, torch.where(valid, vals, torch.zeros_like(vals))
+
+
+def _add_bias(logits: torch.Tensor, rows) -> torch.Tensor:
+    ids, vals = rows
+    return logits.scatter_add(1, ids, vals)
+
+
+def _apply_logit_bias(logits: torch.Tensor, bias_ids: Optional[torch.Tensor],
+                      bias_vals: Optional[torch.Tensor]) -> torch.Tensor:
+    """The OpenAI ``logit_bias``: bias_vals [B, BIAS_K] added to the logits
+    [B, V] at bias_ids [B, BIAS_K], in the logits' dtype, before every draw
+    (greedy ones too: -100 and +100 ban and force)."""
+    if bias_ids is None:
+        return logits
+    return _add_bias(logits, _bias_rows(bias_ids, bias_vals,
+                                        logits.shape[-1], logits.dtype))
+
+
+def _ban_rows(ban_ids: torch.Tensor, V: int, dtype: torch.dtype):
+    """Ban rows ready for :func:`_ban`: (ids in [0, V), valid, -inf and
+    +inf of their shape in ``dtype``), prepared once a dispatch."""
+    ids, valid = _vocab_ids(ban_ids, V)
+    inf = torch.full(ids.shape, float("inf"), dtype=dtype,
+                     device=ids.device)
+    return ids, valid, -inf, inf
+
+
+def _ban(logits: torch.Tensor, rows, ban_until: torch.Tensor,
+         lens: torch.Tensor) -> torch.Tensor:
+    ids, valid, neg, pos = rows
+    live = valid & (lens < ban_until)[:, None]
+    return logits.scatter_reduce(1, ids, torch.where(live, neg, pos),
+                                 reduce="amin")
+
+
+def _mask_banned(logits: torch.Tensor, ban_ids: Optional[torch.Tensor],
+                 ban_until: Optional[torch.Tensor],
+                 lens: torch.Tensor) -> torch.Tensor:
+    """vLLM's ``min_tokens``: while a row's context length ``lens`` is below
+    ``ban_until`` (prompt length + min_tokens), its stop tokens ban_ids
+    [B, BAN_K] get -inf before the draw, so a suppressed stop token is
+    never produced. A minimum scatter: a live entry takes -inf, any other
+    +inf (no change), so the order of duplicate ids does not matter."""
+    if ban_ids is None:
+        return logits
+    return _ban(logits, _ban_rows(ban_ids, logits.shape[-1], logits.dtype),
+                ban_until, lens)
+
+
+def _apply_prefill_repetition(logits: torch.Tensor, tokens: torch.Tensor,
+                              true_lens: torch.Tensor,
+                              reps: Optional[torch.Tensor]) -> torch.Tensor:
+    """``repetition_penalty`` of a prefill row's draw (its first token):
+    every token of its prompt (tokens [N, T], true_lens [N] valid) is seen.
+    A padded position names its row's first token, already seen."""
+    if reps is None:
+        return logits
+    N, V = logits.shape
+    cols = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    ids = torch.where(cols < true_lens[:, None], tokens, tokens[:, :1])
+    seen = torch.zeros((N, V), dtype=torch.bool, device=logits.device) \
+        .scatter_(1, ids.long(), True)
+    return _repetition(logits, seen, reps.float()[:, None])
+
+
+def _repetition(logits: torch.Tensor, seen: torch.Tensor, r) -> torch.Tensor:
+    """The multiplicative repetition penalty ``r`` over the ``seen`` tokens:
+    a positive logit divided by it, any other multiplied (float32)."""
+    out = logits.float()
+    return torch.where(seen, torch.where(out > 0, out / r, out * r), out)
+
+
+def _logprob_topk(logits: torch.Tensor, chosen: torch.Tensor):
+    """(chosen logprob [B], top-k logprobs [B, K], their ids [B, K] int32)
+    from logits [B, V]: the OpenAI ``logprobs`` record, K = LOGPROB_K."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    sel = logp.gather(1, chosen.long()[:, None])[:, 0]
+    vals, ids = torch.topk(logp, min(LOGPROB_K, logp.shape[-1]), dim=-1)
+    return sel, vals, ids.to(torch.int32)
+
+
+def _prompt_logprobs(logits: torch.Tensor, tokens: torch.Tensor,
+                     n_pos: int, block_bytes: int = 1 << 26):
+    """Per-position prompt logprobs (vLLM ``prompt_logprobs``): entry t
+    scores prompt token t + 1 given the tokens up to t, for t < n_pos - 1.
+    logits [N, T, V], tokens [N, T]. A block of positions at a time, each
+    block's float32 log-softmax at most ``block_bytes``: never the whole
+    [N, T, V]. Returns (sel [N, n], vals [N, n, K], ids [N, n, K])."""
+    N, _, V = logits.shape
+    n = max(0, n_pos - 1)
+    K = min(LOGPROB_K, V)
+    step = max(1, block_bytes // (4 * N * V))
+    sel, vals, ids = [], [], []
+    for t0 in range(0, n, step):
+        t1 = min(n, t0 + step)
+        logp = torch.log_softmax(logits[:, t0:t1].float(), dim=-1)
+        sel.append(logp.gather(2, tokens[:, t0 + 1:t1 + 1, None].long())
+                   [..., 0])
+        v, i = torch.topk(logp, K, dim=-1)
+        vals.append(v)
+        ids.append(i.to(torch.int32))
+    if not sel:
+        dev = logits.device
+        return (torch.zeros((N, 0), device=dev),
+                torch.zeros((N, 0, K), device=dev),
+                torch.zeros((N, 0, K), dtype=torch.int32, device=dev))
+    return torch.cat(sel, 1), torch.cat(vals, 1), torch.cat(ids, 1)
+
+
+def _host_lp(lp_t, row: int, k: int):
+    """One row of a host (sel, vals, ids) triple as the engine's logprob
+    record: (own logprob, [(token id, logprob) x k])."""
+    sel, vals, ids = lp_t
+    k = min(k, len(ids[row]))
+    return (float(sel[row]), [(int(ids[row][j]), float(vals[row][j]))
+                              for j in range(k)])
+
+
+def _process(logits: torch.Tensor, lens: torch.Tensor, counts=None,
+             presence=None, frequency=None, repetition=None,
+             prompt_mask=None, bias=None, ban=None,
+             ban_until=None) -> torch.Tensor:
+    """A decode row's logits [B, V] in the JAX order: the penalties over
+    ``counts`` when given (in float32), the bias (``bias``:
+    :func:`_bias_rows`), then the ban (``ban``: :func:`_ban_rows`) at the
+    rows' lengths ``lens``."""
+    if counts is not None:
+        logits = apply_penalties(logits, counts, presence, frequency,
+                                 repetition, prompt_mask)
+    if bias is not None:
+        logits = _add_bias(logits, bias)
+    if ban is not None:
+        logits = _ban(logits, ban, ban_until, lens)
+    return logits
+
+
+def _logit_rows(logits: torch.Tensor, penalties: bool, ban_ids, bias_ids,
+                bias_vals):
+    """(bias rows, ban rows) of a dispatch, for the dtype its processed
+    logits take (float32 under the penalties, else the model's)."""
+    V = logits.shape[-1]
+    dtype = torch.float32 if penalties else logits.dtype
+    return (None if bias_ids is None
+            else _bias_rows(bias_ids, bias_vals, V, dtype),
+            None if ban_ids is None else _ban_rows(ban_ids, V, dtype))
 
 
 def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                        true_lens: torch.Tensor, tables: Optional[torch.Tensor],
                        temperature: torch.Tensor, top_k: torch.Tensor,
                        top_p: torch.Tensor, seeds: torch.Tensor,
-                       slots: Optional[torch.Tensor] = None):
+                       slots: Optional[torch.Tensor] = None,
+                       ban_ids=None, ban_until=None, bias_ids=None,
+                       bias_vals=None, reps=None, logprobs: bool = False,
+                       prompt_logprobs: int = 0):
     """Prefill N prompts in one forward pass.
 
     tokens: [N, T] right-padded; true_lens [N]; tables [N, max_pages] int32
     (rows of OOB_PAGE drop) for the paged pool, or ``tables=None`` and
     ``slots`` [N] (slots outside the cache drop) for the dense cache; seeds
-    [N]. Returns (pool, first tokens [N] int32).
+    [N]. Each row's last logits go on in float32 (the JAX engine always
+    hands its prefills a repetition factor, which casts them) through the
+    repetition penalty over its prompt (``reps`` [N]; None when no row
+    penalizes), the bias ([N, BIAS_K]) and the ban ([N, BAN_K], at the
+    prompt's length). Returns (pool, first tokens [N] int32), then with
+    ``logprobs`` their (sel, vals, ids) records, then with
+    ``prompt_logprobs`` (the longest prompt that asks) the prompts' records
+    (:func:`_prompt_logprobs`).
     """
     N, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
@@ -91,14 +287,27 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
         if tables is None else \
         make_prefill_attend_batch_paged_carry(tables, true_lens, window)
     logits, pool = model.forward_carry(tokens, positions, pool, attend)
-    last = logits[torch.arange(N, device=tokens.device), true_lens.long() - 1]
-    return pool, sample(last, temperature, top_k, top_p, seeds, true_lens)
+    last = logits[torch.arange(N, device=tokens.device),
+                  true_lens.long() - 1].float()
+    last = _apply_prefill_repetition(last, tokens, true_lens, reps)
+    last = _apply_logit_bias(last, bias_ids, bias_vals)
+    last = _mask_banned(last, ban_ids, ban_until, true_lens)
+    toks = sample(last, temperature, top_k, top_p, seeds, true_lens)
+    out = [pool, toks]
+    if logprobs:
+        out.append(_logprob_topk(last, toks))
+    if prompt_logprobs:
+        out.append(_prompt_logprobs(logits, tokens, prompt_logprobs))
+    return tuple(out)
 
 
 def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
                        start: int, slot: int, chunk_len: int,
                        temperature: torch.Tensor, top_k: torch.Tensor,
-                       top_p: torch.Tensor, seed: torch.Tensor):
+                       top_p: torch.Tensor, seed: torch.Tensor,
+                       ban_ids=None, ban_until=None, bias_ids=None,
+                       bias_vals=None, rep: float = 1.0, rep_seen=None,
+                       logprobs: bool = False):
     """Prefill one chunk of a long prompt into slot ``slot`` of the dense
     cache, at rows [start, start + C) (the JAX program's ``pages=None``
     branch).
@@ -109,17 +318,28 @@ def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
     up to their own. Returns (cache, token [1]) sampled from the chunk's
     last valid row with the seeded counter ``start + chunk_len``, the
     context length at the final chunk (the only one whose token the engine
-    keeps), so a seeded stream does not depend on the chunking.
+    keeps), so a seeded stream does not depend on the chunking. The row's
+    logits go on in float32 through the repetition penalty ``rep`` over
+    ``rep_seen`` ([V] bool, the whole context's tokens; skipped at 1.0),
+    the bias ([1, BIAS_K]) and the ban ([1, BAN_K], at ``start +
+    chunk_len``); with ``logprobs`` the token's record follows.
     """
     C = tokens.shape[1]
     positions = start + torch.arange(C, dtype=torch.int32,
                                      device=tokens.device)[None]
     attend = make_chunk_prefill_attend(slot, start, model.cfg.sliding_window)
     logits, cache = model.forward_carry(tokens, positions, cache, attend)
-    last = logits[0, chunk_len - 1][None]
+    last = logits[0, chunk_len - 1][None].float()
+    if rep != 1.0:
+        last = _repetition(last, rep_seen[None], np.float32(rep))
     ctr = torch.tensor([start + chunk_len], dtype=torch.int32,
                        device=tokens.device)
-    return cache, sample(last, temperature, top_k, top_p, seed, ctr)
+    last = _apply_logit_bias(last, bias_ids, bias_vals)
+    last = _mask_banned(last, ban_ids, ban_until, ctr)
+    token = sample(last, temperature, top_k, top_p, seed, ctr)
+    if logprobs:
+        return cache, token, _logprob_topk(last, token)
+    return cache, token
 
 
 def decode_steps(model: DecoderLM, n_steps: int, pool,
@@ -127,7 +347,10 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
                  table: Optional[torch.Tensor], temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
                  seeds: torch.Tensor, bblock: int = 1, mesh=None,
-                 any_sampled: Optional[bool] = None):
+                 any_sampled: Optional[bool] = None, counts=None,
+                 presence=None, frequency=None, repetition=None,
+                 prompt_mask=None, ban_ids=None, ban_until=None,
+                 bias_ids=None, bias_vals=None, logprobs: bool = False):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
@@ -139,24 +362,52 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
     ``any_sampled``: whether some row has temperature > 0 (``sample``'s;
     given, no substep reads the device from the host, and the horizon can
     be captured in a CUDA graph, :class:`DecodeGraphs`).
-    Returns (pool, out [n_steps, B]). Slots that stop mid-horizon produce
-    surplus tokens the host discards; their surplus K/V rows land past the
-    slot's length (or drop past the window).
+
+    Each substep's logits go through :func:`_process`: with ``counts``
+    ([B, V] int32, the generated tokens' counts, updated in place by every
+    substep's draws, so a repeat inside the horizon is penalized) the
+    penalties (presence, frequency, repetition [B]; prompt_mask [B, V]),
+    then the bias (bias_ids, bias_vals [B, BIAS_K]) and the ban (ban_ids
+    [B, BAN_K], ban_until [B]) at the substep's lengths.
+    Returns (pool, out [n_steps, B]); with ``logprobs`` out is (tokens
+    [n_steps, B], (sel [n_steps, B], vals and ids [n_steps, B, K])). Slots
+    that stop mid-horizon produce surplus tokens the host discards (and
+    count them: a slot's count row is reset when a request takes it);
+    their surplus K/V rows land past the slot's length (or drop past the
+    window).
     """
-    out = []
+    out, lps = [], []
     tok, lens = tokens, lengths
     window = model.cfg.sliding_window
-    for _ in range(n_steps):
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    bias = ban = None
+    for i in range(n_steps):
         attend = make_decode_attend_carry(lens, window, bblock, mesh) \
             if table is None \
             else make_decode_attend_carry_paged(lens, table, window)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
                                            attend)
-        tok = sample(logits[:, 0], temperature, top_k, top_p, seeds,
+        if i == 0:
+            # the bias and ban rows once for the whole horizon
+            bias, ban = _logit_rows(logits, counts is not None, ban_ids,
+                                    bias_ids, bias_vals)
+        step_logits = _process(logits[:, 0], lens, counts, presence,
+                               frequency, repetition, prompt_mask, bias, ban,
+                               ban_until)
+        tok = sample(step_logits, temperature, top_k, top_p, seeds,
                      lens + 1, any_sampled)
+        if counts is not None:
+            counts.index_put_((rows, tok.long()),
+                              torch.ones_like(tok, dtype=counts.dtype),
+                              accumulate=True)
+        if logprobs:
+            lps.append(_logprob_topk(step_logits, tok))
         lens = lens + 1
         out.append(tok)
-    return pool, torch.stack(out)
+    out = torch.stack(out)
+    if logprobs:
+        out = (out, tuple(torch.stack(a) for a in zip(*lps)))
+    return pool, out
 
 
 def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
@@ -165,16 +416,34 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                temperature: torch.Tensor, top_k: torch.Tensor,
                top_p: torch.Tensor, seeds: torch.Tensor, ptemp: float,
                ptop_k: int, ptop_p: float, pseed: int,
-               any_sampled: Optional[bool] = None):
+               any_sampled: Optional[bool] = None, counts=None,
+               presence=None, frequency=None, repetition=None,
+               prompt_mask=None, ban_ids=None, ban_until=None,
+               bias_ids=None, bias_vals=None, prep: float = 1.0,
+               prep_seen=None, logprobs: bool = False,
+               chunk_logprobs: bool = False, chunk_prompt_logprobs: int = 0):
     """One ragged dispatch: a decode step for every slot AND one prefill
     chunk (``ptokens`` [1, C], ``plen`` valid) of slot ``pslot`` at rows
     [pstart, pstart + C). The chunk row samples with (ptemp, ptop_k,
     ptop_p) and seed ``pseed``; ``any_sampled`` is ``sample``'s for the
     decode rows. The chunk row's operands are filled on the device, not
-    uploaded, so the dispatch can be queued behind one in flight.
+    uploaded, so the dispatch can be queued behind one in flight: its bias
+    and ban rows are ``pslot``'s rows of the decode operands, its
+    repetition ``prep`` over ``prep_seen`` ([V] bool on the device, the
+    whole context's tokens; skipped at 1.0).
+
+    The decode rows' logits take :func:`decode_steps`' processing (the
+    penalties with ``counts``, whose rows each count their draw); the
+    chunk's last valid row takes :func:`prefill_chunk_step`'s (float32,
+    repetition, bias, the ban at ``pstart + plen``).
 
     Returns (pool, out [1, B], chunk token [1]); ``out[0, pslot]`` is the
-    dead passenger's token and is discarded.
+    dead passenger's token and is discarded. With ``logprobs`` out is
+    (tokens, records of the decode rows with a leading axis of 1), with
+    ``chunk_logprobs`` the chunk token is (token, its record); with
+    ``chunk_prompt_logprobs`` (the chunk holds the whole prompt, whose
+    length it is) the chunk's prompt records (:func:`_prompt_logprobs`)
+    follow as a fourth element.
     """
     dev = tokens.device
     B, C = tokens.shape[0], ptokens.shape[1]
@@ -195,17 +464,43 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                                            model.cfg.sliding_window,
                                            chunk_start=B)
     logits, pool = model.forward_carry(packed, positions, pool, attend)
-    nxt = sample(logits[0, :B], temperature, top_k, top_p, seeds, lengths + 1,
+    bias, ban = _logit_rows(logits, counts is not None, ban_ids, bias_ids,
+                            bias_vals)
+    dec = _process(logits[0, :B], lengths, counts, presence, frequency,
+                   repetition, prompt_mask, bias, ban, ban_until)
+    nxt = sample(dec, temperature, top_k, top_p, seeds, lengths + 1,
                  any_sampled)
-    plast = logits[0, B + plen - 1][None]
+    if counts is not None:
+        # pslot's lane counts the dead passenger's draw: the activation's
+        # reset (or restore) of its row wipes it
+        counts.index_put_((torch.arange(B, device=dev), nxt.long()),
+                          torch.ones_like(nxt, dtype=counts.dtype),
+                          accumulate=True)
+    plast = logits[0, B + plen - 1][None].float()
+    if prep != 1.0:
+        plast = _repetition(plast, prep_seen[None], np.float32(prep))
 
     def one(value, dtype):
         return torch.full((1,), value, dtype=dtype, device=dev)
 
+    pctr = one(pstart + plen, torch.int64)
+    if bias_ids is not None:
+        plast = _apply_logit_bias(plast, bias_ids[pslot][None],
+                                  bias_vals[pslot][None])
+    if ban_ids is not None:
+        plast = _mask_banned(plast, ban_ids[pslot][None],
+                             ban_until[pslot][None], pctr)
     ptok = sample(plast, one(ptemp, torch.float32), one(ptop_k, i32),
                   one(ptop_p, torch.float32), one(pseed, torch.int64),
-                  one(pstart + plen, torch.int64), ptemp > 0)
-    return pool, nxt[None], ptok
+                  pctr, ptemp > 0)
+    out = nxt[None]
+    if logprobs:
+        out = (out, tuple(a[None] for a in _logprob_topk(dec, nxt)))
+    pout = (ptok, _logprob_topk(plast, ptok)) if chunk_logprobs else ptok
+    if chunk_prompt_logprobs:
+        return pool, out, pout, _prompt_logprobs(
+            logits[:, B:], ptokens, chunk_prompt_logprobs)
+    return pool, out, pout
 
 
 def spec_decode_step(model: DecoderLM, R: int, pool: dict,
@@ -287,58 +582,94 @@ class DecodeGraphs:
 
     ``tokens``, ``lengths`` [B] int32, ``table`` [B, max_pages] int32 (None
     for the dense cache), ``temps``, ``top_ks``, ``top_ps`` and ``seeds``
-    [B] are the operands; the caller copies its host values into them.
-    :meth:`run` takes ``h`` substeps of :func:`decode_steps` for all B
-    slots, returns out [h, B] and leaves the carry in place: ``tokens``
-    becomes out[h - 1] and ``lengths`` advances by h, so the next run
-    continues on the device without a host round trip.
+    [B], the logit operands ``ban_ids`` [B, BAN_K], ``ban_until`` [B],
+    ``bias_ids``, ``bias_vals`` [B, BIAS_K], ``presence``, ``frequency``,
+    ``repetition`` [B] and ``prompt_mask`` [B, V] bool are the operands; the
+    caller copies its host values into them. ``counts`` [B, V] int32 is the
+    penalties' carry, updated in place by every substep of a penalties
+    variant (the caller resets or restores a slot's row when a request
+    takes it). :meth:`run` takes ``h`` substeps of :func:`decode_steps` for
+    all B slots, returns out [h, B] (with logprobs, (out, records)) and
+    leaves the carry in place: ``tokens`` becomes out[h - 1] and
+    ``lengths`` advances by h, so the next run continues on the device
+    without a host round trip. The bias and the ban are always on (an
+    unused entry is masked, as the JAX programs take them as operands); the
+    penalties and the logprobs are variants.
 
     With ``capture`` (a CUDA device, no sp mesh), each (horizon in
-    ``horizons``, any row samples) is captured once as a CUDA graph, after
-    one eager horizon-1 warm-up per sampling flag on the capture stream (it
-    builds the kernels, sets their shared-memory limits and allocates the
-    split-KV workspace outside the graphs; its K/V rows land at row 0 of
-    every slot, the paged ones in the scratch page). The graphs share one
-    memory pool, and their out [h, B] is overwritten by the next replay.
-    :meth:`run` is then one replay (a missing graph raises; nothing falls
-    back to eager launches). The kernels' wrappers count nothing during a
-    replay, so each graph records the launches its capture made and every
-    replay adds them; ``replays`` counts the replays. Without ``capture``
-    :meth:`run` calls :func:`decode_steps` on the same buffers.
-    ``capture_s`` and ``pool_bytes`` (device memory the graphs reserved)
-    describe the capture.
+    ``horizons``, any row samples, penalties, logprobs) is captured once as
+    a CUDA graph when the engine is built (the first penalized or logprob
+    request pays no capture), after one eager horizon-1 warm-up per variant
+    on the capture stream (it builds the kernels, sets their shared-memory
+    limits and allocates the split-KV workspace outside the graphs; its K/V
+    rows land at row 0 of every slot, the paged ones in the scratch page;
+    the counts it added are zeroed). The graphs share one memory pool, and
+    their outputs are overwritten by the next replay. :meth:`run` is then
+    one replay (a missing graph raises; nothing falls back to eager
+    launches). The kernels' wrappers count nothing during a replay, so each
+    graph records the launches its capture made and every replay adds
+    them; ``replays`` counts the replays (``variant_replays`` by
+    (penalties, logprobs)). Without ``capture`` :meth:`run`
+    calls :func:`decode_steps` on the same buffers. ``capture_s`` and
+    ``pool_bytes`` (device memory the graphs reserved) describe the
+    capture.
     """
+
+    VARIANTS = tuple((s, p, lp) for s in (False, True) for p in (False, True)
+                     for lp in (False, True))
 
     def __init__(self, model: DecoderLM, cache, num_slots: int,
                  max_pages: Optional[int], horizons, bblock: int = 1,
                  mesh=None, capture: bool = False):
         dev = mesh.lead if mesh is not None else model.device
         i32 = torch.int32
+        B, V = num_slots, model.cfg.vocab_size
         self.model, self.cache = model, cache
         self.bblock, self.mesh = bblock, mesh
-        self.tokens = torch.zeros(num_slots, dtype=i32, device=dev)
-        self.lengths = torch.zeros(num_slots, dtype=i32, device=dev)
+        self.tokens = torch.zeros(B, dtype=i32, device=dev)
+        self.lengths = torch.zeros(B, dtype=i32, device=dev)
         self.table = None if max_pages is None else torch.zeros(
-            (num_slots, max_pages), dtype=i32, device=dev)
-        self.temps = torch.zeros(num_slots, device=dev)
-        self.top_ks = torch.zeros(num_slots, dtype=i32, device=dev)
-        self.top_ps = torch.ones(num_slots, device=dev)
-        self.seeds = torch.zeros(num_slots, dtype=torch.int64, device=dev)
+            (B, max_pages), dtype=i32, device=dev)
+        self.temps = torch.zeros(B, device=dev)
+        self.top_ks = torch.zeros(B, dtype=i32, device=dev)
+        self.top_ps = torch.ones(B, device=dev)
+        self.seeds = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.ban_ids = torch.full((B, BAN_K), NO_TOKEN, dtype=i32, device=dev)
+        self.ban_until = torch.zeros(B, dtype=i32, device=dev)
+        self.bias_ids = torch.full((B, BIAS_K), NO_TOKEN, dtype=i32,
+                                   device=dev)
+        self.bias_vals = torch.zeros((B, BIAS_K), device=dev)
+        self.presence = torch.zeros(B, device=dev)
+        self.frequency = torch.zeros(B, device=dev)
+        self.repetition = torch.ones(B, device=dev)
+        self.counts = torch.zeros((B, V), dtype=i32, device=dev)
+        self.prompt_mask = torch.zeros((B, V), dtype=torch.bool, device=dev)
         self.graphs: dict = {}
         self.replays = 0
+        # replays by (penalties, logprobs)
+        self.variant_replays: collections.Counter = collections.Counter()
         self.capture_s = 0.0
         self.pool_bytes = 0
         self._workspace = None
         if capture:
             self._capture(sorted(set(horizons)))
 
-    def _step(self, h: int, sampled: bool) -> torch.Tensor:
+    def _step(self, h: int, sampled: bool, penalties: bool = False,
+              logprobs: bool = False):
+        pen = dict(counts=self.counts, presence=self.presence,
+                   frequency=self.frequency, repetition=self.repetition,
+                   prompt_mask=self.prompt_mask) if penalties else {}
         _, out = decode_steps(self.model, h, self.cache, self.tokens,
                               self.lengths, self.table, self.temps,
                               self.top_ks, self.top_ps, self.seeds,
                               bblock=self.bblock, mesh=self.mesh,
-                              any_sampled=sampled)
-        self.tokens.copy_(out[-1])
+                              any_sampled=sampled, ban_ids=self.ban_ids,
+                              ban_until=self.ban_until,
+                              bias_ids=self.bias_ids,
+                              bias_vals=self.bias_vals, logprobs=logprobs,
+                              **pen)
+        toks = out[0] if logprobs else out
+        self.tokens.copy_(toks[-1])
         self.lengths.add_(h)
         return out
 
@@ -348,35 +679,40 @@ class DecodeGraphs:
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            for sampled in (False, True):
-                self._step(1, sampled)
+            for variant in self.VARIANTS:
+                self._step(1, *variant)
+            self.counts.zero_()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
         for h in horizons:
-            for sampled in (False, True):
+            for variant in self.VARIANTS:
                 graph = torch.cuda.CUDAGraph()
                 before = _launch_state()
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
-                    out = self._step(h, sampled)
+                    out = self._step(h, *variant)
                 captured = _launch_state() - before
                 _add_launches(captured, -1)      # a capture launches nothing
-                self.graphs[h, sampled] = (graph, out, captured)
+                self.graphs[(h,) + variant] = (graph, out, captured)
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self._workspace = split_kv.take_workspace(dev, stream.cuda_stream)
         self.capture_s = time.monotonic() - t0
 
-    def run(self, h: int, sampled: bool) -> torch.Tensor:
-        """``h`` substeps on the operand buffers; out [h, B] int32."""
+    def run(self, h: int, sampled: bool, penalties: bool = False,
+            logprobs: bool = False):
+        """``h`` substeps on the operand buffers: out [h, B] int32, with
+        ``logprobs`` (out, (sel [h, B], vals [h, B, K], ids [h, B, K]))."""
         if not self.graphs:
-            return self._step(h, sampled)
-        if (h, sampled) not in self.graphs:
+            return self._step(h, sampled, penalties, logprobs)
+        key = (h, sampled, penalties, logprobs)
+        if key not in self.graphs:
             raise RuntimeError(f"no decode graph of horizon {h} "
                                f"(captured: {sorted(self.graphs)})")
-        graph, out, captured = self.graphs[h, sampled]
+        graph, out, captured = self.graphs[key]
         graph.replay()
         self.replays += 1
+        self.variant_replays[penalties, logprobs] += 1
         _add_launches(captured)
         return out

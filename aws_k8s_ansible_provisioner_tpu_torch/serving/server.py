@@ -22,21 +22,30 @@ thread:
   flight have finished.
 
 A completions request reads ``model``, ``prompt``, ``max_tokens``,
-``temperature``, ``top_k``, ``top_p``, ``ignore_eos``, ``seed`` and
-``deadline_ms`` (or the ``X-Request-Deadline-Ms`` header; the body wins),
-and answers as the JAX server does: another model than the served one gets
-404 ``model_not_found``; a prompt is a string, a list of strings (the
-first is served; an empty list is the empty string) or, beyond the JAX
-server, a list of token ids; an empty prompt is served as the EOS token;
-``max_tokens`` must lie in [1, the engine's ``max_len``] (the engine then
-clamps it to the room the prompt leaves); a deadline that is not a
-positive number of milliseconds gets 400, an expired one 408
+``temperature``, ``top_k``, ``top_p``, ``ignore_eos``, ``seed``,
+``deadline_ms`` (or the ``X-Request-Deadline-Ms`` header; the body wins)
+and the JAX server's request fields: ``stop`` (a string or a list; the
+text is cut at the earliest, finish ``stop``), ``stop_token_ids`` and
+``min_tokens``, ``n`` in [1, 8] (choice i draws with seed + i, so choice
+0 is the n=1 answer), ``best_of`` in [n, 8] (the n best by cumulative
+chosen-token logprob), ``echo`` (with ``logprobs``, the payload covers the
+prompt), ``logprobs`` (an integer in [0, 8]; ``top_logprobs`` is ignored
+on completions, as there), ``prompt_logprobs``, ``logit_bias`` and the
+presence, frequency and repetition penalties. It answers as the JAX server
+does: another model than the served one gets 404 ``model_not_found``; a
+prompt is a string, a list of strings (the first is served; an empty list
+is the empty string) or, beyond the JAX server, a list of token ids; an
+empty prompt is served as the EOS token; ``max_tokens`` must lie in [1,
+the engine's ``max_len``] (the engine then clamps it to the room the
+prompt leaves); a field out of its range gets 400; a deadline that is not
+a positive number of milliseconds gets 400, an expired one 408
 (``deadline_exceeded``); a request the engine sheds gets 429
 ``engine_overloaded:<reason>`` with ``Retry-After``, or 503 ``draining``
-with ``Retry-After`` and ``X-TPU-Draining: 1``. Every other request field
-that the JAX server honours is refused with 400, naming the field, unless
-it holds its neutral value (:data:`UNSERVED_FIELDS`): a completion that
-silently ignored it would be a wrong answer.
+with ``Retry-After`` and ``X-TPU-Draining: 1``. ``stream`` and the fields
+of :data:`UNSERVED_FIELDS` (``resume_token_ids``, ``response_format`` and
+guided decoding) are refused with 400, naming the field, unless it holds
+its neutral value: a completion that silently ignored it would be a wrong
+answer.
 
 Without a checkpoint the server runs seeded random weights and the byte
 tokenizer, as the JAX server does without ``--checkpoint-dir``::
@@ -64,36 +73,11 @@ from typing import Optional
 log = logging.getLogger(__name__)
 
 
-def _number(x):
-    """x as a float when it is a JSON number (not a boolean), else None."""
-    if isinstance(x, bool) or not isinstance(x, (int, float)):
-        return None
-    return float(x)
-
-
-def _is_number(value):
-    return lambda x: _number(x) == value
-
-
 # The JAX server's completions fields the port does not serve yet (its
 # serving/server.py:738-954), each with the test of its neutral value: a
 # request that sets one of them to anything else is refused. null (or the
 # field left out) is neutral for every one.
 UNSERVED_FIELDS = {
-    "stop": lambda x: x == "" or x == [],
-    "stop_token_ids": lambda x: x == [],
-    "min_tokens": _is_number(0.0),
-    "n": _is_number(1.0),
-    # best_of must equal n, and n is refused unless it is 1
-    "best_of": _is_number(1.0),
-    "echo": lambda x: x is False,
-    "prompt_logprobs": lambda x: False,
-    "logprobs": lambda x: x is False,
-    "top_logprobs": _is_number(0.0),
-    "logit_bias": lambda x: x == {},
-    "presence_penalty": _is_number(0.0),
-    "frequency_penalty": _is_number(0.0),
-    "repetition_penalty": _is_number(1.0),
     "resume_token_ids": lambda x: False,
     "response_format": lambda x: isinstance(x, dict) and set(x) <= {"type"}
     and x.get("type") in (None, "text"),
@@ -111,6 +95,192 @@ def unserved_field(body: dict) -> Optional[str]:
         if value is not None and not neutral(value):
             return name
     return None
+
+
+def _parse_fields(body: dict, engine, ids, header_deadline=None):
+    """The completions request's fields, checked as the JAX server checks
+    them (its ``_completions_impl``): a dict of the engine request's
+    arguments plus ``n``, ``best_of``, ``stop`` (a list), ``echo``,
+    ``logprobs`` (the client's, or None) and ``seed``; or the message of
+    a 400. ``top_logprobs`` is ignored, as the JAX server ignores it on
+    completions; ``echo`` with ``logprobs`` asks for the prompt's
+    logprobs too when the prompt fits a prefill bucket."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
+        BIAS_K, LOGPROB_K)
+
+    try:
+        f = dict(
+            max_tokens=int(body.get("max_tokens",
+                                    engine.serving.max_tokens_default)),
+            temperature=float(body.get("temperature", 0.0)),
+            top_p=float(body.get("top_p", 1.0)),
+            top_k=int(body.get("top_k", 0) or 0),
+            presence_penalty=float(body.get("presence_penalty", 0.0)),
+            frequency_penalty=float(body.get("frequency_penalty", 0.0)),
+            repetition_penalty=float(body.get("repetition_penalty", 1.0)))
+    except (TypeError, ValueError):
+        return "sampling parameters must be numeric"
+    if not (-2.0 <= f["presence_penalty"] <= 2.0
+            and -2.0 <= f["frequency_penalty"] <= 2.0):
+        return "penalties must be in [-2, 2]"
+    if not 0.0 < f["repetition_penalty"] <= 10.0:
+        return "'repetition_penalty' must be in (0, 10]"
+    if not 1 <= f["max_tokens"] <= engine.max_len:
+        return f"max_tokens must be in [1, {engine.max_len}]"
+    stops = body.get("stop") or []
+    f["stop"] = [stops] if isinstance(stops, str) else stops
+    raw_stop_ids = body.get("stop_token_ids") or []
+    if not isinstance(raw_stop_ids, list):
+        return "'stop_token_ids' must be a list of integers"
+    try:
+        f["stop_token_ids"] = tuple(int(t) for t in raw_stop_ids)
+        f["min_tokens"] = int(body.get("min_tokens", 0))
+    except (TypeError, ValueError):
+        return ("'stop_token_ids' must be integers and 'min_tokens' an "
+                "integer")
+    if f["min_tokens"] < 0:
+        return "'min_tokens' must be >= 0"
+    # the end-to-end deadline, relative milliseconds (the body wins); the
+    # engine caps it at request_timeout_s and reaps it (408)
+    raw_deadline = body.get(DEADLINE_FIELD, header_deadline)
+    f["deadline_s"] = None
+    if raw_deadline is not None:
+        try:
+            f["deadline_s"] = float(raw_deadline) / 1000.0
+        except (TypeError, ValueError):
+            return f"'{DEADLINE_FIELD}' must be a number of milliseconds"
+        if f["deadline_s"] <= 0:
+            return f"'{DEADLINE_FIELD}' must be > 0"
+    f["ignore_eos"] = bool(body.get("ignore_eos", False))
+    try:
+        f["n"] = int(body.get("n", 1))
+    except (TypeError, ValueError):
+        return "'n' must be an integer"
+    if not 1 <= f["n"] <= 8:
+        return "'n' must be in [1, 8]"
+    f["seed"] = body.get("seed")
+    if f["seed"] is not None:
+        try:
+            f["seed"] = int(f["seed"])
+        except (TypeError, ValueError):
+            return "'seed' must be an integer"
+    f["echo"] = bool(body.get("echo", False))
+    try:
+        f["best_of"] = int(body.get("best_of", f["n"]))
+    except (TypeError, ValueError):
+        return "'best_of' must be an integer"
+    if not f["n"] <= f["best_of"] <= 8:
+        return f"'best_of' must be in [n, 8], got {f['best_of']}"
+    raw_plp = body.get("prompt_logprobs")
+    try:
+        plp = None if raw_plp is None else int(raw_plp)
+    except (TypeError, ValueError):
+        return "'prompt_logprobs' must be an integer"
+    raw_lp = body.get("logprobs")
+    if raw_lp is False:
+        raw_lp = None              # an explicit false means off
+    elif isinstance(raw_lp, bool):
+        return "completions 'logprobs' is an integer, not a boolean"
+    try:
+        lp_n = None if raw_lp is None else int(raw_lp)
+    except (TypeError, ValueError):
+        return "'logprobs' must be numeric"
+    if lp_n is not None and not 0 <= lp_n <= LOGPROB_K:
+        return f"logprobs must be in [0, {LOGPROB_K}]"
+    if plp is not None and not 0 <= plp <= LOGPROB_K:
+        return f"prompt_logprobs must be in [0, {LOGPROB_K}]"
+    f["logprobs"] = lp_n
+    raw_bias = body.get("logit_bias") or {}
+    if not isinstance(raw_bias, dict):
+        return ("'logit_bias' must be an object mapping token ids to bias "
+                "values")
+    try:
+        bias = tuple(sorted((int(k), float(v)) for k, v in raw_bias.items()))
+    except (TypeError, ValueError):
+        return "'logit_bias' keys must be token ids and values numbers"
+    if len(bias) > BIAS_K:
+        return f"'logit_bias' supports at most {BIAS_K} entries"
+    if any(t < 0 for t, _ in bias):
+        return "'logit_bias' token ids must be >= 0"
+    if any(not -100.0 <= v <= 100.0 for _, v in bias):
+        return "'logit_bias' values must be in [-100, 100]"
+    f["logit_bias"] = bias
+    if f["echo"] and lp_n is not None and plp is None \
+            and len(ids) <= max(engine.buckets or (0,)):
+        # the OpenAI echo with logprobs covers the prompt: its logprobs,
+        # where the request can have them (a prompt that fits a bucket)
+        plp = lp_n
+    f["prompt_logprobs"] = plp
+    return f
+
+
+def _apply_stop_strings(text: str, stops) -> Optional[str]:
+    """``text`` cut at the earliest of the stop strings, or None when none
+    occurs (the JAX server's)."""
+    cut = None
+    for s in stops:
+        if s:
+            i = text.find(s)
+            if i >= 0 and (cut is None or i < cut):
+                cut = i
+    return text[:cut] if cut is not None else None
+
+
+def _format_logprobs(tokenizer, ids, lp_data, k: int, text_len: int = -1,
+                     base_offset: int = 0) -> dict:
+    """The completions ``logprobs`` payload (the JAX server's): tokens,
+    token_logprobs, top_logprobs (decoded token -> logprob, k of them) and
+    text_offset, each token decoded alone. ``text_len`` (>= 0 after a
+    stop-string cut) keeps the tokens whose text survived it;
+    ``base_offset`` shifts the offsets past an echoed prompt."""
+    toks = [tokenizer.decode([t]) for t in ids]
+    offsets, pos = [], base_offset
+    for t in toks:
+        offsets.append(pos)
+        pos += len(t)
+    n = len(toks)
+    if text_len >= 0:
+        n = sum(1 for o in offsets if o - base_offset < text_len) \
+            if text_len else 0
+    toks, offsets, lp_data = toks[:n], offsets[:n], lp_data[:n]
+    return {"tokens": toks,
+            "token_logprobs": [None if d is None else d[0] for d in lp_data],
+            "top_logprobs": [dict((tokenizer.decode([tid]), v)
+                                  for tid, v in d[1][:k]) if d is not None
+                             else {} for d in lp_data],
+            "text_offset": offsets}
+
+
+def _echo_logprobs(tokenizer, req, lp_obj: dict) -> dict:
+    """The echo's logprobs payload: the prompt's tokens first (position 0
+    with null), then the generated ones of ``lp_obj``."""
+    ptoks = [tokenizer.decode([i]) for i in req.prompt_ids]
+    poffs, p0 = [], 0
+    for t in ptoks:
+        poffs.append(p0)
+        p0 += len(t)
+    tail = req.prompt_logprob_data[1:]
+    k = req.logprobs or 0
+    return {"tokens": ptoks + lp_obj["tokens"],
+            "token_logprobs": [None] + [d[0] for d in tail]
+            + lp_obj["token_logprobs"],
+            "top_logprobs": [None] + [
+                {tokenizer.decode([tid]): v for tid, v in d[1][:k]}
+                for d in tail] + lp_obj["top_logprobs"],
+            "text_offset": poffs + lp_obj["text_offset"]}
+
+
+def _prompt_logprobs_field(tokenizer, req) -> list:
+    """vLLM's ``prompt_logprobs`` field: null for position 0, then per
+    position the decoded token -> logprob of the prompt's own token and
+    its best ``prompt_logprobs``."""
+    out = [None]
+    for t, d in enumerate(req.prompt_logprob_data[1:], start=1):
+        entry = {tokenizer.decode([req.prompt_ids[t]]): d[0]}
+        for tid, v in d[1][:req.prompt_logprobs or 0]:
+            entry.setdefault(tokenizer.decode([tid]), v)
+        out.append(entry)
+    return out
 
 
 # Wire names of the end-to-end deadline (relative milliseconds), the JAX
@@ -477,6 +647,7 @@ class Handler(BaseHTTPRequestHandler):
                 isinstance(t, int) and not isinstance(t, bool)
                 for t in prompt):
             ids = list(prompt)
+            prompt_text = st.tokenizer.decode(ids)
         else:
             if isinstance(prompt, list):
                 # a list of strings: its first, as the JAX server serves it
@@ -484,73 +655,115 @@ class Handler(BaseHTTPRequestHandler):
             if not isinstance(prompt, str):
                 return self._error(400, "prompt must be a string, a list of "
                                         "strings or a list of token ids")
+            prompt_text = prompt
             # an empty prompt is served as the EOS token alone
             ids = st.tokenizer.encode(prompt) or [st.engine.eos_token_id]
-        seed = body.get("seed")
-        if seed is not None:
-            try:
-                seed = int(seed)
-            except (TypeError, ValueError):
-                return self._error(400, "'seed' must be an integer")
-        # the end-to-end deadline, relative milliseconds (the body wins); the
-        # engine caps it at request_timeout_s and reaps it (408)
-        raw_deadline = body.get(DEADLINE_FIELD,
-                                self.headers.get(DEADLINE_HEADER))
-        deadline_s = None
-        if raw_deadline is not None:
-            try:
-                deadline_s = float(raw_deadline) / 1000.0
-            except (TypeError, ValueError):
-                return self._error(400, f"'{DEADLINE_FIELD}' must be a "
-                                        f"number of milliseconds")
-            if deadline_s <= 0:
-                return self._error(400, f"'{DEADLINE_FIELD}' must be > 0")
+        fields = _parse_fields(body, st.engine, ids,
+                               self.headers.get(DEADLINE_HEADER))
+        if isinstance(fields, str):
+            return self._error(400, fields)
+        n_choices, best_of, stops, echo, lp_n = (
+            fields.pop(k) for k in ("n", "best_of", "stop", "echo",
+                                    "logprobs"))
+        seed = fields.pop("seed")
+        reqs = []
         try:
-            req = Request(
-                prompt_ids=ids,
-                max_tokens=int(body.get(
-                    "max_tokens", st.engine.serving.max_tokens_default)),
-                temperature=float(body.get("temperature", 0.0)),
-                top_k=int(body.get("top_k", 0) or 0),
-                top_p=float(body.get("top_p", 1.0)),
-                ignore_eos=bool(body.get("ignore_eos", False)),
-                seed=seed, deadline_s=deadline_s)
-            if not 1 <= req.max_tokens <= st.engine.max_len:
-                raise ValueError(f"max_tokens must be in [1, "
-                                 f"{st.engine.max_len}]")
-            st.engine.submit(req)
+            # best_of ranks its candidates by their chosen tokens'
+            # logprobs: asked of the engine when the client did not
+            eng_lp = lp_n if lp_n is not None else \
+                (0 if best_of > n_choices else None)
+            for i in range(best_of):
+                # choice i draws with seed + i: choice 0 is the n=1 answer
+                reqs.append(st.engine.submit(Request(
+                    prompt_ids=list(ids), logprobs=eng_lp,
+                    seed=None if seed is None else seed + i, **fields)))
         except ContextLengthExceeded as e:
+            self._cancel(reqs)
             return self._error(400, str(e))
         except EngineOverloaded as e:
+            # a later sibling can shed as the queue fills: the queued ones
+            # are cancelled, not stranded
+            self._cancel(reqs)
             return self._overloaded(e)
         except (TypeError, ValueError) as e:
+            self._cancel(reqs)
             return self._error(400, str(e))
-        try:
-            req.wait(timeout=_wait_budget_s(st.engine, req))
-        except TimeoutError:
-            # the backstop: the engine normally reaps the deadline itself
-            st.engine.cancel(req)
-            return self._error(408, "request timed out awaiting the engine",
-                               "timeout", err_code="deadline_exceeded")
-        if req.finish_reason == "timeout":
-            return self._error(408, "request deadline exceeded before "
-                                    "completion (slot and pages released)",
-                               "timeout", err_code="deadline_exceeded")
-        if req.finish_reason in ("error", "cancelled"):
-            return self._error(500, "engine failure: "
-                               + (st.engine.last_error or req.finish_reason),
-                               "internal_error")
-        n_prompt, n_gen = len(ids), len(req.generated)
+        self._full_response(reqs, ids, stops, n_choices, lp_n is not None,
+                            prompt_text if echo else None)
+
+    def _cancel(self, reqs):
+        for r in reqs:
+            self.state.engine.cancel(r)
+
+    def _full_response(self, reqs, ids, stops, n_choices: int,
+                       lp_requested: bool, echo_text: Optional[str]):
+        """The JAX server's completions answer over finished candidates:
+        with ``best_of`` (more candidates than ``n_choices``) the n best by
+        cumulative chosen-token logprob; each choice cut at its earliest
+        stop string (finish ``stop``), its logprobs payload (only when the
+        client asked) cut with it, the prompt echoed before it (with
+        logprobs, the payload covers the prompt too), and a
+        ``prompt_logprobs`` field when asked."""
+        st = self.state
+        tok = st.tokenizer
+        done = []
+        for req in reqs:
+            try:
+                req.wait(timeout=_wait_budget_s(st.engine, req))
+            except TimeoutError:
+                # the backstop: the engine normally reaps the deadline
+                self._cancel(reqs)
+                return self._error(408, "request timed out awaiting the "
+                                        "engine", "timeout",
+                                   err_code="deadline_exceeded")
+            if req.finish_reason in ("error", "timeout", "cancelled"):
+                self._cancel(r for r in reqs if r is not req)
+                if req.finish_reason == "timeout":
+                    return self._error(
+                        408, "request deadline exceeded before completion "
+                             "(slot and pages released)", "timeout",
+                        err_code="deadline_exceeded")
+                return self._error(500, "engine failure: "
+                                   + (st.engine.last_error
+                                      or req.finish_reason),
+                                   "internal_error")
+            done.append(req)
+        completion_tokens = sum(len(r.generated) for r in done)
+        if len(done) > n_choices:
+            done.sort(key=lambda r: sum(d[0] for d in r.logprob_data
+                                        if d is not None), reverse=True)
+            done = done[:n_choices]
+        choices = []
+        for idx, req in enumerate(done):
+            text = tok.decode(req.generated)
+            finish = req.finish_reason
+            cut = _apply_stop_strings(text, stops)
+            if cut is not None:
+                text, finish = cut, "stop"
+            lp_obj = None
+            if req.logprobs is not None and lp_requested:
+                lp_obj = _format_logprobs(
+                    tok, req.generated, req.logprob_data, req.logprobs,
+                    text_len=len(text) if cut is not None else -1,
+                    base_offset=len(echo_text) if echo_text else 0)
+            if echo_text is not None and req.prompt_logprob_data \
+                    and lp_obj is not None:
+                lp_obj = _echo_logprobs(tok, req, lp_obj)
+            if echo_text is not None:
+                text = echo_text + text
+            choice = {"index": idx, "text": text, "logprobs": lp_obj,
+                      "finish_reason": finish}
+            if req.prompt_logprob_data:
+                choice["prompt_logprobs"] = _prompt_logprobs_field(tok, req)
+            choices.append(choice)
+        n_prompt = len(ids)
         self._json(200, {
-            "id": f"cmpl-{uuid.uuid4().hex}", "object": "text_completion",
-            "created": int(time.time()),
-            "model": st.model_name,
-            "choices": [{"index": 0,
-                         "text": st.tokenizer.decode(req.generated),
-                         "logprobs": None,
-                         "finish_reason": req.finish_reason}],
-            "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_gen,
-                      "total_tokens": n_prompt + n_gen}})
+            "id": f"cmpl-{uuid.uuid4().hex[:24]}", "object": "text_completion",
+            "created": int(time.time()), "model": st.model_name,
+            "choices": choices,
+            "usage": {"prompt_tokens": n_prompt,
+                      "completion_tokens": completion_tokens,
+                      "total_tokens": n_prompt + completion_tokens}})
 
 
 def make_server(state: ServerState, host: str, port: int

@@ -73,7 +73,22 @@ result when either is missing. Phases, in order (any failure raises):
    (``python -m ...serving.server --device cuda``): the seconds until
    ``/readyz`` answers 200, SIGTERM during a long completion, which must
    answer 200 with every token, and the seconds from SIGTERM to the
-   process's exit (0, within ``--drain-timeout``);
+   process's exit (0, within ``--drain-timeout``). Over the paged bf16
+   engine the server also answers the request fields (``n`` 3 with a
+   seed, choice 0 the n=1 answer; ``best_of`` 4 with ``n`` 2; ``echo`` with
+   ``logprobs`` 2; a ``stop`` string's cut), each 200 in the JAX server's
+   shape, and then the request fields phase runs on that engine: a batch
+   of 8 requests of 64 tokens (plain, presence + frequency, repetition,
+   a +100 and a -100 bias, min_tokens 16 with a stop id, logprobs 8, a
+   seeded sampled one with a penalty) with launch counts zeroed before and
+   read after (K1 and the fused K2 layers x forwards, every decode
+   dispatch a replay), forced and banned tokens, no stop id before
+   min_tokens, sorted logprob records, prompt logprobs, a neutral request
+   bit-identical to the bare one, each new decode graph variant's replay
+   bit-identical to eager ``decode_steps`` from the same state (the pool
+   rewritten unchanged outside the scratch page), a verify beside a
+   logprobs slot that it skips, and one horizon-8 dispatch of 8 slots
+   profiled per variant (default, penalties, logprobs, both);
 5. prefix, once per KV pool: the prefix cache and the host KV tier at the
    defaults (prefix cache on, a 256 MiB host tier, the pipeline and the
    decode graphs on), Qwen3-0.6B at full width with the pool cut to 68
@@ -1860,10 +1875,12 @@ def phase_profile(torch, np, engine):
     return wall_ms
 
 
-def _profile_dispatch(torch, engine, tag, step=None, n_slots=None):
+def _profile_dispatch(torch, engine, tag, step=None, n_slots=None,
+                      stats=None):
     """One engine step (a decode dispatch; or ``step()``, a dispatch of
     ``n_slots`` slots) timed by the host clock, then the next under
-    torch.profiler: device time by kernel and the device's idle share."""
+    torch.profiler: device time by kernel and the device's idle share
+    (also into the dict ``stats``, when given)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1896,6 +1913,9 @@ def _profile_dispatch(torch, engine, tag, step=None, n_slots=None):
             "busy share not measured")
     else:
         n_ops = sum(e.count for e in events)
+        if stats is not None:
+            stats.update(wall_ms=wall_ms, prof_wall_ms=prof_wall_ms,
+                         busy_ms=busy_ms, ops_per_substep=n_ops / horizon)
         log(f"{tag} profiled dispatch: wall {prof_wall_ms:.2f} ms, "
             f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / prof_wall_ms:.3f}), "
@@ -2024,6 +2044,250 @@ def phase_pipeline(torch, np, engine):
     phase_profile(torch, np, engine)
     engine.serving = orig
     return {"capture_s": dec.capture_s, "pool_bytes": dec.pool_bytes}
+
+
+FIELDS_NEW = 64
+# the +100 logit_bias of the forced stream: any token id
+FORCED_TOKEN = 4242
+
+
+def _lp_rows_ok(tag, req, greedy):
+    """Each logprob record of ``req``: its top list sorted, its own value
+    equal to its token's entry when the token is listed, and (greedy) its
+    token on top, or tied with the top."""
+    for i, (tok, rec) in enumerate(zip(req.generated, req.logprob_data)):
+        own, top = rec
+        vals = [v for _, v in top]
+        listed = [v for t, v in top if t == tok]
+        if vals != sorted(vals, reverse=True) or \
+                (listed and listed[0] != own) or \
+                (greedy and own != vals[0]):
+            raise AssertionError(f"{tag} logprob record {i} of request "
+                                 f"{req.id}: token {tok}, {rec}")
+
+
+def _variant_vs_eager(torch, engine, tag, H, penalties, logprobs):
+    """One replay of the (horizon H, penalties, logprobs) graph against
+    eager ``decode_steps`` of the same variant from the same state: the
+    operands' tokens, lengths and counts are put back after the replay and
+    the eager call rewrites the same K/V rows of the same pool. The active
+    slots' tokens, logprob records and count rows must be bit-identical,
+    and the pool after the rewrite equal to the pool after the replay
+    outside the scratch page (page 0, where the idle slots write: their
+    garbage rows read what the replay's idle rows left there)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import \
+        decode_steps
+
+    dec = engine.decoder
+    sampled = bool((engine.temps > 0).any())
+    act = torch.tensor(engine._active_slots(), device=dec.tokens.device)
+    state = [t.clone() for t in (dec.tokens, dec.lengths, dec.counts)]
+    out_g = dec.run(H, sampled, penalties, logprobs)
+    out_g = (out_g[0].clone(), tuple(a.clone() for a in out_g[1])) \
+        if logprobs else out_g.clone()
+    counts_g = dec.counts.clone()
+    torch.cuda.synchronize()
+    after = {k: v[:, 1:].clone() for k, v in engine.cache.items()}
+    for dst, src in zip((dec.tokens, dec.lengths, dec.counts), state):
+        dst.copy_(src)
+    pen = dict(counts=dec.counts, presence=dec.presence,
+               frequency=dec.frequency, repetition=dec.repetition,
+               prompt_mask=dec.prompt_mask) if penalties else {}
+    _, out_e = decode_steps(
+        engine.model, H, engine.cache, dec.tokens, dec.lengths, dec.table,
+        dec.temps, dec.top_ks, dec.top_ps, dec.seeds, any_sampled=sampled,
+        ban_ids=dec.ban_ids, ban_until=dec.ban_until, bias_ids=dec.bias_ids,
+        bias_vals=dec.bias_vals, logprobs=logprobs, **pen)
+    torch.cuda.synchronize()
+    same = {"tokens": torch.equal((out_g[0] if logprobs else out_g)[:, act],
+                                  (out_e[0] if logprobs else out_e)[:, act]),
+            "counts": torch.equal(counts_g[act], dec.counts[act]),
+            "pool": all(torch.equal(after[k], engine.cache[k][:, 1:])
+                        for k in after)}
+    if logprobs:
+        same["logprobs"] = all(torch.equal(a[:, act], b[:, act])
+                               for a, b in zip(out_g[1], out_e[1]))
+    del after
+    # the eager call left the carry of its own outputs: the next dispatch
+    # copies the host mirrors in
+    engine._pipe_carry = None
+    log(f"{tag} variant (penalties {penalties}, logprobs {logprobs}), "
+        f"horizon {H}: replay vs eager decode_steps from the same state, "
+        f"bit-identical: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{tag} the graph variant differs from eager "
+                             f"decode_steps: {same}")
+
+
+def phase_fields(torch, np, engine):
+    """The request fields on the paged bf16 Qwen3-0.6B engine at full width
+    (pipeline and graphs on): one batch of 8 requests of FIELDS_NEW tokens
+    (plain; presence + frequency; repetition; a +100 bias; a -100 bias on
+    the plain stream's most frequent token; min_tokens 16 with a stop id the
+    plain stream emits early; logprobs 8; a seeded sampled request with a
+    presence penalty), launch counts zeroed just before and read just after
+    (K1 and the fused K2 once a layer of every paged forward, every decode
+    dispatch a replay); a prompt_logprobs request; a request with every
+    field neutral against the bare one; each new graph variant replayed
+    against eager ``decode_steps``; a verify beside a logprobs slot that it
+    skips; then one horizon-8 dispatch of 8 slots profiled per variant
+    (default, penalties, logprobs, both)."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    cfg, dec = engine.cfg, engine.decoder
+    tag = "[fields]"
+    orig = engine.serving
+    # the phase compares runs of one prompt: each must prefill alike
+    engine.serving = dataclasses.replace(orig, prefix_cache=False)
+    log(f"{tag} {_dispatch_mode(engine)}: {len(dec.graphs)} graphs "
+        f"(horizons x any row samples x penalties x logprobs), capture_s "
+        f"{dec.capture_s:.3f}, pool_bytes {dec.pool_bytes}")
+    variants0 = dict(dec.variant_replays)
+    rng = np.random.default_rng(71)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 90, 150, 220, 60, 300, 33, 120)]
+
+    def run(reqs):
+        reqs = [engine.submit(r) for r in reqs]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        return reqs
+
+    def req(i, **kw):
+        return Request(prompt_ids=prompts[i], max_tokens=FIELDS_NEW,
+                       **{"ignore_eos": True, **kw})
+
+    bare = run([req(0)])[0].generated
+    frequent = max(set(bare), key=bare.count)
+    stop = bare[3]
+    engine.counts.clear()
+    replays0 = dec.replays
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = run([req(0), req(1, presence_penalty=0.5, frequency_penalty=0.5),
+                req(2, repetition_penalty=1.3),
+                req(3, logit_bias=((FORCED_TOKEN, 100.0),)),
+                req(0, logit_bias=((frequent, -100.0),)),
+                req(0, min_tokens=16, stop_token_ids=(stop,)),
+                req(6, logprobs=8),
+                req(7, **dict(SAMPLED, seed=5, presence_penalty=0.5))])
+    dt = time.monotonic() - t0
+    launches = _launches()
+    counts = dict(engine.counts)
+    forwards = counts.get("decode_substeps", 0) + \
+        counts.get("mixed_dispatches", 0)
+    log(f"{tag} 8 requests: {sum(len(r.generated) for r in reqs)} tokens in "
+        f"{dt:.2f}s; dispatches {counts}; variant replays "
+        f"{dict(dec.variant_replays)}; K1 {launches['paged_attention']}, "
+        f"fused K2 {launches['prep_write_rows_paged']}")
+    _check_replays(tag, engine, replays0)
+    _check_fused_writes(tag, engine, launches, counts)
+    if launches["paged_attention"] != cfg.num_layers * forwards:
+        raise AssertionError(f"{tag} K1 launched "
+                             f"{launches['paged_attention']} times, "
+                             f"expected {cfg.num_layers} x {forwards}")
+    plain, forced, banned, held, lp = (reqs[0], reqs[3], reqs[4], reqs[5],
+                                       reqs[6])
+    checks = {
+        "forced token at every position":
+            forced.generated == [FORCED_TOKEN] * FIELDS_NEW,
+        f"banned token {frequent} absent": frequent not in banned.generated,
+        f"stop id {stop} absent before min_tokens":
+            stop not in held.generated[:16] and len(held.generated) >= 16,
+        "logprob records": len(lp.logprob_data) == FIELDS_NEW,
+    }
+    _lp_rows_ok(tag, lp, greedy=True)
+    # a request with every field at its neutral value: the bare stream
+    neutral = run([req(0, presence_penalty=0.0, frequency_penalty=0.0,
+                       repetition_penalty=1.0, logit_bias=(), min_tokens=0,
+                       stop_token_ids=())])[0]
+    checks["neutral = bare, bit for bit"] = neutral.generated == bare
+    plp = run([Request(prompt_ids=prompts[3], max_tokens=4,
+                       ignore_eos=True, prompt_logprobs=3)])[0]
+    data = plp.prompt_logprob_data
+    checks["prompt logprobs, one a position"] = \
+        len(data) == len(prompts[3]) and data[0] is None
+    for t, (own, top) in enumerate(data[1:], start=1):
+        vals = [v for _, v in top]
+        listed = [v for i, v in top if i == prompts[3][t]]
+        if len(top) != 3 or vals != sorted(vals, reverse=True) or \
+                (listed and listed[0] != own) or own > vals[0]:
+            checks["prompt logprobs, one a position"] = False
+    log(f"{tag} checks {checks}; the stop id's request finished "
+        f"{held.finish_reason} after {len(held.generated)} tokens")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} {checks}")
+    # each new variant's replay against eager decode_steps, 8 slots
+    # running with their fields
+    state_reqs = [engine.submit(r) for r in (
+        req(0, logprobs=2), req(1, presence_penalty=0.5),
+        req(2, repetition_penalty=1.3), req(3, logit_bias=((5, 3.0),)),
+        req(4, min_tokens=40, stop_token_ids=(stop,)),
+        req(5, **dict(SAMPLED, seed=9, frequency_penalty=0.4)), req(6),
+        req(7, **dict(SAMPLED, seed=10, logprobs=1)))]
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    engine.step()
+    engine._settle_inflight()
+    engine._decode_operands()
+    H = engine.serving.decode_horizon
+    for penalties, logprobs in ((True, False), (False, True), (True, True)):
+        _variant_vs_eager(torch, engine, tag, H, penalties, logprobs)
+    for r in state_reqs:
+        engine.cancel(r)
+    engine.run_until_idle()
+    # a verify beside a slot it must skip (logprobs): the slot's every
+    # token comes from the plain step, with its record
+    engine.serving = dataclasses.replace(engine.serving, spec_decode=True)
+    engine.counts.clear()
+    pat = _pattern_prompts(rng, cfg.vocab_size, 4)
+    spec = run([Request(prompt_ids=p, max_tokens=48, ignore_eos=True,
+                        **({"logprobs": 1} if i == 0 else {}))
+                for i, p in enumerate(pat)])
+    engine.serving = dataclasses.replace(engine.serving, spec_decode=False)
+    skipped = spec[0]
+    if engine.counts["spec_dispatches"] <= 0 or \
+            len(skipped.logprob_data) != 48 or \
+            any(d is None for d in skipped.logprob_data):
+        raise AssertionError(f"{tag} verify with an ineligible slot: "
+                             f"{dict(engine.counts)}, records "
+                             f"{len(skipped.logprob_data)}")
+    log(f"{tag} {engine.counts['spec_dispatches']} verify dispatches beside "
+        f"a logprobs slot: it took all 48 tokens (each with its record) "
+        f"from the plain step; accepted "
+        f"{engine.counts['spec_accepted_tokens']} of "
+        f"{engine.counts['spec_drafted_tokens']} drafts of the others")
+    # one horizon-8 dispatch of 8 slots per variant
+    profiles = {}
+    for name, extra in (("default", {}),
+                        ("penalties", {"presence_penalty": 0.5}),
+                        ("logprobs", {"logprobs": 8}),
+                        ("both", {"presence_penalty": 0.5,
+                                  "logprobs": 8})):
+        rs = [engine.submit(Request(prompt_ids=rng.integers(
+            0, cfg.vocab_size, 100).tolist(), max_tokens=400,
+            ignore_eos=True, **(extra if i == 0 else {})))
+            for i in range(8)]
+        while engine.pending or engine._chunk is not None:
+            engine.step()
+        engine.step()
+        stats = {}
+        _profile_dispatch(torch, engine, f"{tag} profile {name}",
+                          stats=stats)
+        profiles[name] = stats
+        for r in rs:
+            engine.cancel(r)
+        engine.run_until_idle()
+    used = {k: v - variants0.get(k, 0)
+            for k, v in dec.variant_replays.items()}
+    log(f"{tag} replays by (penalties, logprobs) over the phase: {used}")
+    if len(used) != 4 or min(used.values()) <= 0:
+        raise AssertionError(f"{tag} a decode variant never replayed: "
+                             f"{used}")
+    engine.serving = orig
+    return profiles
 
 
 # the prefix phase: the chat-turn pattern on Qwen3-0.6B at the defaults
@@ -3691,11 +3955,12 @@ def _greedy_vs_sp1(tag, streams, ref_reqs, ref_gaps):
     return same, parts
 
 
-def phase_server(engine, lifecycle=False):
+def phase_server(engine, lifecycle=False, fields=False):
     """The HTTP server over ``engine``. Its tokenizer encodes bytes and
     decodes token ids as their decimal numbers, so that the random-weight
     model's streams (ids far past the byte range) show in the text. With
-    ``lifecycle`` the replica lifecycle runs too (:func:`_lifecycle`)."""
+    ``lifecycle`` the replica lifecycle runs too (:func:`_lifecycle`), with
+    ``fields`` the request fields (:func:`_http_fields`)."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
         ServerState, make_server)
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
@@ -3757,11 +4022,92 @@ def phase_server(engine, lifecycle=False):
                 f"same token ids {texts[0]!r}")
         if lifecycle:
             _lifecycle(engine, base, tag)
+        if fields:
+            _http_fields(engine, base, tag)
     finally:
         server.shutdown()
         server.server_close()
         state.stop_engine()
         th.join(10)
+
+
+COMPLETION_KEYS = {"id", "object", "created", "model", "choices", "usage"}
+CHOICE_KEYS = {"index", "text", "logprobs", "finish_reason"}
+
+
+def _completion(base, body, n=1):
+    """A 200 completions answer in the JAX server's shape (its keys, ``n``
+    choices indexed in order, usage counted), else AssertionError."""
+    status, out, _ = _http(base + "/v1/completions", body)
+    choices = out.get("choices", [])
+    if status != 200 or not COMPLETION_KEYS <= set(out) or \
+            out["object"] != "text_completion" or len(choices) != n or \
+            any(not CHOICE_KEYS <= set(c) or c["index"] != i
+                for i, c in enumerate(choices)) or \
+            out["usage"]["total_tokens"] != out["usage"]["prompt_tokens"] \
+            + out["usage"]["completion_tokens"]:
+        raise AssertionError(f"/v1/completions {body}: {status} {out}")
+    return out
+
+
+def _http_fields(engine, base, tag):
+    """The request fields over HTTP: ``n`` 3 with a seed (choice 0 is the
+    n=1 answer), ``best_of`` 4 with ``n`` 2 (ranked; no logprobs in the
+    answer, none asked), ``echo`` with ``logprobs`` 2 (the payload covers
+    the prompt, position 0 null, the generated tokens' offsets after the
+    echoed text), and a ``stop`` string that cuts the text with finish
+    ``stop``. For the n check the engine is idle before each request and
+    prefills one prompt a dispatch, so that choice 0 prefills as the n=1
+    request did: in bf16 a batch of
+    three rounds its K/V rows apart from a batch of one, enough to flip a
+    near-tie of a later draw (as the seeded checks of the engine phases
+    admit their prompts alike)."""
+    import dataclasses
+
+    body = {"prompt": "Fields over HTTP", "max_tokens": 24, "seed": 17,
+            "temperature": 0.8, "top_p": 0.9, "ignore_eos": True}
+    serving = engine.serving
+    engine.serving = dataclasses.replace(serving, max_prefill_batch=1)
+    # both admitted into an idle engine (no dispatch in flight): each
+    # takes a batch prefill of one
+    _settled(engine)
+    one = _completion(base, body)["choices"][0]
+    _settled(engine)
+    three = _completion(base, {**body, "n": 3}, n=3)["choices"]
+    engine.serving = serving
+    if three[0]["text"] != one["text"] or \
+            len({c["text"] for c in three}) < 2:
+        raise AssertionError(f"{tag} n=3 choice 0 {three[0]['text']!r} "
+                             f"vs n=1 {one['text']!r}")
+    best = _completion(base, {**body, "n": 2, "best_of": 4}, n=2)["choices"]
+    if any(c["logprobs"] is not None for c in best):
+        raise AssertionError(f"{tag} best_of answered logprobs: {best}")
+    prompt = "Echo me"
+    echo = _completion(base, {"prompt": prompt, "max_tokens": 6,
+                              "echo": True, "logprobs": 2,
+                              "ignore_eos": True})["choices"][0]
+    lp = echo["logprobs"]
+    if not echo["text"].startswith(prompt) or \
+            len(lp["tokens"]) != len(prompt) + 6 or \
+            lp["token_logprobs"][0] is not None or \
+            any(v is None or v > 0 for v in lp["token_logprobs"][1:]) or \
+            lp["text_offset"][0] != 0 or \
+            lp["text_offset"][len(prompt)] != len(prompt):
+        raise AssertionError(f"{tag} echo with logprobs: {echo}")
+    plain = _completion(base, {"prompt": "Cut me", "max_tokens": 12,
+                               "ignore_eos": True})["choices"][0]["text"]
+    stop = " " + plain.split()[4] + " "
+    cut = _completion(base, {"prompt": "Cut me", "max_tokens": 12,
+                             "ignore_eos": True, "stop": [stop]})
+    c = cut["choices"][0]
+    if c["finish_reason"] != "stop" or c["text"] != plain[:plain.find(stop)]:
+        raise AssertionError(f"{tag} stop {stop!r}: {c} (plain {plain!r})")
+    log(f"{tag} request fields over HTTP, each 200 in the JAX server's "
+        f"shape: n=3 (seed 17) choice 0 = the n=1 answer, "
+        f"{len({c['text'] for c in three})} distinct choices; best_of 4 n 2 "
+        f"ranked, no logprobs; echo + logprobs 2 over {len(lp['tokens'])} "
+        f"tokens (prompt {len(prompt)}); stop {stop!r} cut "
+        f"{len(plain)} -> {len(c['text'])} characters, finish stop")
 
 
 def _http(url, body=None, headers=None, timeout=300):
@@ -4063,7 +4409,8 @@ def main() -> int:
             _phase("server lifecycle", phase_server, engine, True)
             _phase("pipeline, paged", phase_pipeline, torch, np, engine)
         else:
-            phase_server(engine)
+            phase_server(engine, fields=True)
+            _phase("request fields", phase_fields, torch, np, engine)
         runs[kv_dtype] = launches
         del engine
         _free(torch)

@@ -1152,8 +1152,8 @@ def test_decode_graph_replays_eager_decode_steps(dev, paged, quant):
                        * (0.02 if quant else 1.0))
     graphs = programs.DecodeGraphs(model, cache, B, maxp if paged else None,
                                    (1, 3), capture=True)
-    assert sorted(graphs.graphs) == [(1, False), (1, True), (3, False),
-                                     (3, True)]
+    assert sorted(graphs.graphs) == sorted(
+        (h,) + v for h in (1, 3) for v in programs.DecodeGraphs.VARIANTS)
     assert graphs.capture_s > 0
     operands = (torch.tensor([3, 9, 27, 81], dtype=torch.int32),
                 torch.tensor([0, 7, 20, 40], dtype=torch.int32),
@@ -1190,6 +1190,87 @@ def test_decode_graph_replays_eager_decode_steps(dev, paged, quant):
         assert torch.equal(cache[k], eager_cache[k]), k
     with pytest.raises(RuntimeError):
         graphs.run(2, False)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_decode_graph_variants_replay_eager_decode_steps(dev, paged):
+    """Each logit variant of ``DecodeGraphs`` (penalties, logprobs, both;
+    bias and ban rows always on, padded rows among them) replayed on the
+    card against eager ``decode_steps`` of the same variant on clones of
+    the cache and the count carry: tokens, logprob records, counts and
+    every K/V row bit-identical."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+
+    cfg = tiny_qwen3()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    model = DecoderLM(cfg, init_params(cfg, gen, torch.bfloat16))
+    B, ps, maxp, S, V = 4, 8, 6, 48, cfg.vocab_size
+    rng = np.random.default_rng(6)
+    if paged:
+        cache = pkv.init_pool(cfg, B * maxp + 1, ps, torch.bfloat16, dev)
+        table = torch.from_numpy((rng.permutation(B * maxp) + 1).reshape(
+            B, maxp).astype(np.int32)).to(dev)
+    else:
+        cache = kvc.init_cache(cfg, B, S, torch.bfloat16, dev)
+        table = None
+    for leaf in cache.values():
+        leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev))
+    graphs = programs.DecodeGraphs(model, cache, B, maxp if paged else None,
+                                   (2,), capture=True)
+    ban = np.full((B, programs.BAN_K), programs.NO_TOKEN, np.int32)
+    ban[0, :2], ban[2, :1] = [3, V + 4], [-1]
+    bias = np.full((B, programs.BIAS_K), programs.NO_TOKEN, np.int32)
+    bias[1, :3], bias[3, :1] = [5, 9, 2**31 - 2], [11]
+    vals = np.zeros((B, programs.BIAS_K), np.float32)
+    vals[1, :3], vals[3, :1] = [2.0, -100.0, 7.0], [100.0]
+    ops = dict(
+        tokens=[3, 9, 27, 81], lengths=[0, 7, 20, 40],
+        temps=[0.0, 0.8, 0.0, 1.1], top_ks=[0, 20, 0, 5],
+        top_ps=[1.0, 0.9, 1.0, 0.8], seeds=[1, 2**32 - 1, 3, 4],
+        ban_ids=ban, ban_until=[30, 0, 25, 0], bias_ids=bias,
+        bias_vals=vals, presence=[0.5, 0.0, 1.5, 0.0],
+        frequency=[0.25, 0.0, 0.0, 0.7], repetition=[1.3, 1.0, 1.0, 0.8],
+        counts=rng.integers(0, 3, (B, V)), prompt_mask=rng.random((B, V))
+        < 0.1)
+    for name, value in ops.items():
+        buf = getattr(graphs, name)
+        buf.copy_(torch.as_tensor(np.asarray(value)).to(buf.dtype))
+    if paged:
+        graphs.table.copy_(table)
+    state = {k: getattr(graphs, k).clone() for k in ("tokens", "lengths",
+                                                     "counts")}
+    for penalties, logprobs in ((True, False), (False, True), (True, True)):
+        for k, v in state.items():
+            getattr(graphs, k).copy_(v)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        counts = state["counts"].clone()
+        pen = dict(counts=counts, presence=graphs.presence,
+                   frequency=graphs.frequency,
+                   repetition=graphs.repetition,
+                   prompt_mask=graphs.prompt_mask) if penalties else {}
+        _, ref = programs.decode_steps(
+            model, 2, eager_cache, state["tokens"], state["lengths"], table,
+            graphs.temps, graphs.top_ks, graphs.top_ps, graphs.seeds,
+            any_sampled=True, ban_ids=graphs.ban_ids,
+            ban_until=graphs.ban_until, bias_ids=graphs.bias_ids,
+            bias_vals=graphs.bias_vals, logprobs=logprobs, **pen)
+        out = graphs.run(2, True, penalties, logprobs)
+        torch.cuda.synchronize()
+        if logprobs:
+            (out, lp), (ref, ref_lp) = out, ref
+            for a, b in zip(lp, ref_lp):
+                assert torch.equal(a, b)
+        assert torch.equal(out, ref)
+        assert torch.equal(graphs.counts, counts if penalties
+                           else state["counts"])
+        for k in cache:
+            assert torch.equal(cache[k], eager_cache[k]), k
 
 
 def _random_pool(dev, gen, cfg, pages, ps, quant):

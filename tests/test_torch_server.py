@@ -112,18 +112,7 @@ def test_seed_makes_a_sampled_completion_repeatable(server):
 _BARE = {"prompt": [72, 105, 33], "max_tokens": 5, "ignore_eos": True}
 # the JAX server's completions fields the port does not serve yet: a value
 # other than the neutral one is refused, naming the field
-_REFUSED = [({"stop": ["d"]}, "stop"), ({"stop": "x"}, "stop"),
-            ({"stop_token_ids": [5]}, "stop_token_ids"),
-            ({"min_tokens": 3}, "min_tokens"), ({"n": 3}, "n"),
-            ({"best_of": 2}, "best_of"), ({"echo": True}, "echo"),
-            ({"prompt_logprobs": 1}, "prompt_logprobs"),
-            ({"logprobs": 2}, "logprobs"), ({"logprobs": 0}, "logprobs"),
-            ({"top_logprobs": 2}, "top_logprobs"),
-            ({"logit_bias": {"100": -100}}, "logit_bias"),
-            ({"presence_penalty": 2.0}, "presence_penalty"),
-            ({"frequency_penalty": 0.5}, "frequency_penalty"),
-            ({"repetition_penalty": 1.2}, "repetition_penalty"),
-            ({"resume_token_ids": [1, 2]}, "resume_token_ids"),
+_REFUSED = [({"resume_token_ids": [1, 2]}, "resume_token_ids"),
             ({"response_format": {"type": "json_object"}},
              "response_format"),
             ({"guided_json": {"type": "object"}}, "guided_json"),
@@ -216,6 +205,24 @@ def test_int8_kv_server_answers_on_the_cpu():
 # -- the answers of the JAX server (the same bodies to both, on the CPU) ------
 
 
+def _jax_params(cfg):
+    """tiny_qwen3's seeded JAX weights, scaled (as tests/test_torch_engine.py
+    scales them) so that greedy streams do not collapse onto one token."""
+    import jax
+    import jax.numpy as jnp
+
+    from aws_k8s_ansible_provisioner_tpu.models.layers import init_params
+
+    def scale(node):
+        return {k: scale(v) if isinstance(v, dict) else
+                v * 8 if k == "kernel" else v for k, v in node.items()}
+
+    params = scale(init_params(cfg, jax.random.PRNGKey(0),
+                               dtype=jnp.float32))
+    params["embed"] = {"weight": params["embed"]["weight"] * 8}
+    return params
+
+
 @pytest.fixture(scope="module")
 def jax_server():
     """The JAX package's server over tiny_qwen3 and the byte tokenizer, in
@@ -228,13 +235,12 @@ def jax_server():
     from aws_k8s_ansible_provisioner_tpu.config import \
         ServingConfig as JServing
     from aws_k8s_ansible_provisioner_tpu.config import tiny_qwen3
-    from aws_k8s_ansible_provisioner_tpu.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu.serving import server as jserver
     from aws_k8s_ansible_provisioner_tpu.utils.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
     cfg = tiny_qwen3(vocab_size=tok.vocab_size, eos_token_id=tok.eos_token_id)
-    params = init_params(cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    params = _jax_params(cfg)
     serving = JServing(weights_dtype="bf16", model="tiny-qwen3",
                        max_decode_slots=4, max_cache_len=128, page_size=8,
                        prefill_buckets=(16, 32, 64), dtype="float32",
@@ -302,3 +308,145 @@ def test_token_id_prompt_stays_served_beyond_the_jax_server(server,
     body = {"prompt": [72, 105, 33], "max_tokens": 2}
     assert _post(server[0] + "/v1/completions", body)[0] == 200
     assert _post(jax_server[0] + "/v1/completions", body)[0] == 400
+
+
+# -- the request fields, served as the JAX server serves them ----------------
+
+
+@pytest.fixture(scope="module")
+def twin_server(jax_server):
+    """The port's server over the JAX server's weights (converted), config
+    and byte tokenizer, shaped as the ``server`` fixture."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+    from aws_k8s_ansible_provisioner_tpu_torch.models.convert import \
+        from_jax_params
+    from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
+        ByteTokenizer
+
+    jstate = jax_server[1]
+    cfg = ModelConfig(**dataclasses.asdict(jstate.engine.cfg))
+    params = from_jax_params(jax.tree.map(np.asarray, _jax_params(
+        jstate.engine.cfg)), cfg)
+    serving = ServingConfig(weights_dtype="bf16", model="tiny-qwen3",
+                            max_decode_slots=4, max_cache_len=128,
+                            page_size=8, prefill_buckets=(16, 32, 64),
+                            dtype="float32", prefill_chunk=16)
+    state = build_state(serving, model_cfg=cfg, params=params,
+                        tokenizer=ByteTokenizer(), device="cpu")
+    srv = make_server(state, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+    yield f"http://127.0.0.1:{srv.server_address[1]}", state
+    srv.shutdown()
+    srv.server_close()
+    state.stop_engine()
+    th.join(10)
+
+
+_FIELDS_BASE = {"prompt": "Hi! How are you?", "max_tokens": 12,
+                "ignore_eos": True}
+
+
+def _bare_ids(state):
+    """The port engine's greedy stream of ``_FIELDS_BASE``."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    req = state.engine.submit(Request(
+        prompt_ids=state.tokenizer.encode(_FIELDS_BASE["prompt"]),
+        max_tokens=_FIELDS_BASE["max_tokens"], ignore_eos=True))
+    return req.wait(timeout=120)
+
+
+# each served field (the cases that were refused before they were served),
+# as a function of the bare greedy stream's token ids and text: a stop
+# string or a stop id the stream reaches
+_SERVED = {
+    "stop-list": lambda ids, text: {"stop": [text[4:6], "never"]},
+    "stop-string": lambda ids, text: {"stop": text[7:8]},
+    "stop_token_ids": lambda ids, text: {"stop_token_ids": [ids[5]]},
+    "min_tokens": lambda ids, text: {"min_tokens": 4,
+                                     "stop_token_ids": [ids[1]]},
+    "n": lambda ids, text: {"n": 3, "seed": 5, "temperature": 0.9},
+    "best_of": lambda ids, text: {"best_of": 3, "seed": 11,
+                                  "temperature": 1.2},
+    "best_of-n": lambda ids, text: {"n": 2, "best_of": 4, "seed": 3,
+                                    "temperature": 1.0, "logprobs": 1},
+    "echo": lambda ids, text: {"echo": True},
+    "echo-logprobs": lambda ids, text: {"echo": True, "logprobs": 2},
+    "prompt_logprobs": lambda ids, text: {"prompt_logprobs": 1},
+    "logprobs-2": lambda ids, text: {"logprobs": 2},
+    "logprobs-0": lambda ids, text: {"logprobs": 0},
+    "top_logprobs": lambda ids, text: {"top_logprobs": 2},
+    "logit_bias-ban": lambda ids, text: {"logit_bias": {str(ids[0]): -100}},
+    "logit_bias-force": lambda ids, text: {"logit_bias": {"100": 100,
+                                                          "7": 2.5}},
+    "presence_penalty": lambda ids, text: {"presence_penalty": 2.0},
+    "frequency_penalty": lambda ids, text: {"frequency_penalty": 0.5},
+    "repetition_penalty": lambda ids, text: {"repetition_penalty": 1.2},
+}
+
+
+def _same_logprobs(got, want):
+    """Two completions logprobs payloads (or prompt_logprobs lists) alike:
+    tokens and offsets equal, logprobs within 1e-4 (the JAX and torch
+    log-softmax round apart), a top entry's token equal where its value
+    is not tied with another's."""
+    if want is None or got is None:
+        return got == want
+    if isinstance(want, list):
+        return len(got) == len(want) and all(
+            _same_top(g, w) for g, w in zip(got, want))
+    if got["tokens"] != want["tokens"] or \
+            got["text_offset"] != want["text_offset"]:
+        return False
+    own = zip(got["token_logprobs"], want["token_logprobs"])
+    return all((g is None) == (w is None) and
+               (g is None or abs(g - w) < 1e-4) for g, w in own) and all(
+        _same_top(g, w) for g, w in zip(got["top_logprobs"],
+                                        want["top_logprobs"]))
+
+
+def _same_top(got, want):
+    if got is None or want is None:
+        return got == want
+    vals = sorted(want.values())
+    tied = any(b - a < 1e-4 for a, b in zip(vals, vals[1:]))
+    if not tied and set(got) != set(want):
+        return False
+    return sorted(got.values()) == pytest.approx(vals, abs=1e-4)
+
+
+@pytest.mark.parametrize("case", sorted(_SERVED))
+def test_served_field_answers_like_the_jax_server(twin_server, jax_server,
+                                                  case):
+    """Every request field that the port used to refuse is served, and on
+    the same weights the port's answer is the JAX server's: status, each
+    choice's text and finish reason (stop strings cut, best_of ranked, the
+    prompt echoed), usage, and the logprobs payloads within 1e-4."""
+    (base, state), (jbase, _) = twin_server, jax_server
+    ids = _bare_ids(state)
+    text = state.tokenizer.decode(ids)
+    body = {**_FIELDS_BASE, **_SERVED[case](ids, text)}
+    got, want = _post(base + "/v1/completions", body), \
+        _post(jbase + "/v1/completions", body)
+    assert got[0] == want[0] == 200, (got, want)
+    g, w = got[1], want[1]
+    counts = ("prompt_tokens", "completion_tokens", "total_tokens")
+    assert [g["usage"][k] for k in counts] == [w["usage"][k] for k in counts]
+    assert len(g["choices"]) == len(w["choices"]) == body.get("n", 1)
+    for gc, wc in zip(g["choices"], w["choices"]):
+        assert (gc["index"], gc["text"], gc["finish_reason"]) == \
+            (wc["index"], wc["text"], wc["finish_reason"]), (gc, wc)
+        assert _same_logprobs(gc["logprobs"], wc["logprobs"]), (gc, wc)
+        assert _same_logprobs(gc.get("prompt_logprobs"),
+                              wc.get("prompt_logprobs")), (gc, wc)
+    if case.startswith("stop"):
+        assert g["choices"][0]["finish_reason"] == "stop"
+    if case == "min_tokens":
+        assert len(g["choices"][0]["text"].encode()) >= 4
