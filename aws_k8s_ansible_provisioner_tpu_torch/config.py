@@ -287,6 +287,10 @@ class ServingConfig:
     # lowest-progress running request is preempted (recompute, requeued at
     # the back). 0 disables (the head waits for pages to come free).
     admission_preempt_after_s: float = 1.0
+    # /v1/chat/completions: a Jinja template file that renders the
+    # messages; empty = the tokenizer's own template, else the model
+    # family's default style (serving/chat_template.py)
+    chat_template: str = ""
     # Seed of the engine's draws of per-request sampling seeds for requests
     # that set none; None draws it from os.urandom.
     derived_seed: object = None

@@ -88,11 +88,13 @@ Differences from the JAX engine:
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
 - not ported yet: guided decoding, LoRA (and with it the prefix chain's
-  salt), streaming, the failover continuation (``resume_ids``), tracing
-  and the flight recorder;
+  salt), tracing and the flight recorder;
 - a request with ``prompt_logprobs`` admitted under a dispatch in flight
   takes the chunk walk, as in the JAX engine, and its one chunk computes
   the prompt's logprobs (the JAX walk computes none; ROADMAP C21);
+- the scheduler's admission budget is the pool's pages for the whole
+  context (a continuation's included), without the JAX scheduler's token
+  budget;
 - a verify dispatch serves greedy slots only: a sampled slot takes its
   tokens from the plain step that follows (the JAX engine draws it from the
   verify's row 0), so that its seeded stream does not depend on speculation;
@@ -137,6 +139,17 @@ draws until then), ``logprobs`` and ``prompt_logprobs`` (the prefix cache
 bypassed). Decode dispatches take the penalties and logprobs variants of
 the decode graphs while a running request needs them; a verify serves no
 token to a slot that needs one of these (:meth:`Engine._spec_skip`).
+
+A request with ``stream`` set gets each generated token on its
+``out_queue`` as it is emitted (after its logprob record), then the None
+that every request gets when it finishes. A request with ``resume_ids``
+(the failover continuation: the tokens another replica already generated
+for the same prompt, sampling fields and seed) starts with them as its
+generated tokens and is admitted as a preemption resume is: the chunk
+program rebuilds the rows of prompt + resume, its draw is discarded, and
+decode goes on at the position the undisturbed stream would have drawn
+next, so that only new tokens reach the queue (paged engine only, as in
+the JAX engine).
 
 Sampling is seeded per request as in the JAX engine: a request's OpenAI
 ``seed``, or else one drawn at submit from the engine's ``random.Random``
@@ -228,6 +241,9 @@ class Request:
     # every token of the prompt or generated so far, multiplies any other
     repetition_penalty: float = 1.0
     ignore_eos: bool = False
+    # put every generated token on out_queue as it is emitted (the SSE
+    # stream), before the finish's None
+    stream: bool = False
     # OpenAI ``logprobs``: None = off; N = the chosen token's logprob and
     # the N best (0 <= N <= LOGPROB_K) of every generated token
     logprobs: Optional[int] = None
@@ -253,6 +269,11 @@ class Request:
     # (time.monotonic(); 0.0 = none)
     deadline_s: Optional[float] = None
     t_deadline: float = 0.0
+    # the failover continuation: token ids another replica already generated
+    # (and relayed) for this prompt, sampling fields and seed; submit makes
+    # them the first generated tokens and rebuilds prompt + resume as a
+    # preemption resume (paged engine only)
+    resume_ids: tuple = ()
     cancelled: bool = False
     id: int = field(default_factory=lambda: next(_REQUEST_IDS))
     generated: List[int] = field(default_factory=list)
@@ -262,7 +283,7 @@ class Request:
     # with prompt_logprobs: None (position 0), then one such record per
     # prompt position
     prompt_logprob_data: List = field(default_factory=list)
-    # None is put here when the request finishes
+    # with ``stream``, each generated token; None when the request finishes
     out_queue: "queue.Queue" = field(default_factory=queue.Queue)
     # time.monotonic() at submit, at the first admission into a slot (kept
     # across a preemption), at the first token and at the finish
@@ -557,7 +578,12 @@ class Engine:
         it queues: while draining (before any other check), past
         ``admission_max_wait_s`` of estimated wait, past
         ``max_queue_depth``. Resolves the request's seed and its absolute
-        deadline; a deadline of <= 0 seconds raises ValueError."""
+        deadline; a deadline of <= 0 seconds raises ValueError. A
+        continuation (``resume_ids``) is refused on the dense engine
+        (ValueError) and when prompt + resume exceed ``max_len - 2``
+        (:class:`ContextLengthExceeded`); its resume context is installed
+        before the request is queued, where the engine thread may admit it
+        at once."""
         req.t_submit = time.monotonic()
         if self.draining:
             self.metrics.requests_shed.inc(reason="draining")
@@ -574,6 +600,21 @@ class Engine:
                 self.cfg.vocab_size:
             raise ValueError(f"prompt token ids must lie in "
                              f"[0, {self.cfg.vocab_size})")
+        if req.resume_ids:
+            # the continuation rides the preemption resume, which is paged
+            if not self.paged:
+                raise ValueError("continuation (resume_ids) requires the "
+                                 "paged engine")
+            if n + len(req.resume_ids) > self.max_len - 2:
+                raise ContextLengthExceeded(n + len(req.resume_ids),
+                                            self.max_len - 2, self.max_len)
+            if min(req.resume_ids) < 0 or max(req.resume_ids) >= \
+                    self.cfg.vocab_size:
+                raise ValueError(f"resume token ids must lie in "
+                                 f"[0, {self.cfg.vocab_size})")
+            if req.prompt_logprobs is not None:
+                raise ValueError("continuation cannot carry prompt_logprobs "
+                                 "(computed at first prefill only)")
         self._check_fields(req)
         req.max_tokens = max(1, min(req.max_tokens, self.max_len - n - 1))
         with self._lock:
@@ -601,6 +642,12 @@ class Engine:
                     f"estimated queue wait {est:.1f}s exceeds the "
                     f"admission limit {max_wait:.1f}s",
                     retry_after_s=est - max_wait + 1)
+        if req.resume_ids:
+            # the relayed tokens are the first generated ones; the walk
+            # rebuilds prompt + resume and the admission gate counts its
+            # pages (both read _resume_ctx once the request is queued)
+            req.generated = [int(t) for t in req.resume_ids]
+            self._resume_ctx[req.id] = list(req.prompt_ids) + req.generated
         with self._lock:
             depth = self.serving.max_queue_depth
             full = bool(depth) and len(self._queue) >= depth
@@ -609,6 +656,7 @@ class Engine:
             waiting = len(self._queue)
             self.metrics.queue_depth.set(waiting)
         if full:
+            self._resume_ctx.pop(req.id, None)
             self.metrics.requests_shed.inc(reason="queue_full")
             raise EngineOverloaded(
                 "queue_full",
@@ -1944,13 +1992,18 @@ class Engine:
             d.counts[slot, token:token + 1].add_(1)
 
     def _emit(self, slot: int, token: int, lp=None):
-        """Record one generated token (and its logprob record); handle
-        stop conditions: a stop token (the eos set unless ignore_eos, and
-        stop_token_ids) ends the request only past min_tokens."""
+        """Record one generated token (and its logprob record; a streamed
+        request also gets the token on its queue); handle stop conditions:
+        a stop token (the eos set unless ignore_eos, and stop_token_ids)
+        ends the request only past min_tokens."""
         req = self.slot_req[slot]
         req.generated.append(token)
         if req.logprobs is not None:
             req.logprob_data.append(lp)
+        if req.stream:
+            # after the logprob record: the stream handler reads record k
+            # when token k arrives
+            req.out_queue.put(token)
         self.last_token[slot] = token
         self.counts["generated_tokens"] += 1
         self.metrics.generated_tokens.inc()

@@ -3,9 +3,12 @@
 Routes, over a ``ThreadingHTTPServer`` with the engine stepping on its own
 thread:
 
-- ``GET /v1/models``; ``POST /v1/completions`` (non-streaming; the JSON
-  fields of the JAX server's completions response; the OpenAI ``seed``
-  makes a sampled completion repeatable);
+- ``GET /v1/models``; ``POST /v1/completions`` and ``POST
+  /v1/chat/completions`` (``messages``, a non-empty list, rendered by the
+  chat templater: the ``--chat-template`` file, else the tokenizer's
+  template, else the model family's ``phi`` or ``opt`` style), answered
+  whole or, with ``stream``, as server-sent events; the JSON fields of the
+  JAX server's answers;
 - ``GET /health``, ``/healthz``, ``/ping``: one answer, status ``ok``,
   ``degraded`` (a step failed; ``last_error``), ``draining`` or
   ``stalled`` (a step has run past ``watchdog_stall_s``: 503, the liveness
@@ -19,33 +22,54 @@ thread:
   ``--drain-timeout``; ``exit``, default true: stop the server once the
   drain is done) and ``POST /admin/undrain``. SIGTERM drains as
   ``/admin/drain`` does and the process exits 0 when the requests in
-  flight have finished.
+  flight have finished (a stream once it has sent its ``[DONE]``).
 
 A completions request reads ``model``, ``prompt``, ``max_tokens``,
 ``temperature``, ``top_k``, ``top_p``, ``ignore_eos``, ``seed``,
 ``deadline_ms`` (or the ``X-Request-Deadline-Ms`` header; the body wins)
 and the JAX server's request fields: ``stop`` (a string or a list; the
 text is cut at the earliest, finish ``stop``), ``stop_token_ids`` and
-``min_tokens``, ``n`` in [1, 8] (choice i draws with seed + i, so choice
-0 is the n=1 answer), ``best_of`` in [n, 8] (the n best by cumulative
-chosen-token logprob), ``echo`` (with ``logprobs``, the payload covers the
-prompt), ``logprobs`` (an integer in [0, 8]; ``top_logprobs`` is ignored
-on completions, as there), ``prompt_logprobs``, ``logit_bias`` and the
-presence, frequency and repetition penalties. It answers as the JAX server
-does: another model than the served one gets 404 ``model_not_found``; a
-prompt is a string, a list of strings (the first is served; an empty list
-is the empty string) or, beyond the JAX server, a list of token ids; an
-empty prompt is served as the EOS token; ``max_tokens`` must lie in [1,
-the engine's ``max_len``] (the engine then clamps it to the room the
-prompt leaves); a field out of its range gets 400; a deadline that is not
-a positive number of milliseconds gets 400, an expired one 408
-(``deadline_exceeded``); a request the engine sheds gets 429
-``engine_overloaded:<reason>`` with ``Retry-After``, or 503 ``draining``
-with ``Retry-After`` and ``X-TPU-Draining: 1``. ``stream`` and the fields
-of :data:`UNSERVED_FIELDS` (``resume_token_ids``, ``response_format`` and
-guided decoding) are refused with 400, naming the field, unless it holds
-its neutral value: a completion that silently ignored it would be a wrong
-answer.
+``min_tokens``, ``n`` in [1, 8] (choice i draws with seed + i; choice 0
+equals the n=1 answer when they are prefilled alike: on a card a batch
+prefill of n prompts rounds apart from a batch of one, ROADMAP C22),
+``best_of`` in [n, 8] (the n best by cumulative chosen-token logprob),
+``echo`` (with ``logprobs``, the payload covers the prompt), ``logprobs``
+(an integer in [0, 8]; ``top_logprobs`` is ignored on completions, as
+there), ``prompt_logprobs``, ``logit_bias`` and the presence, frequency
+and repetition penalties. A chat request reads the same fields but
+``prompt`` and ``echo`` (refused), with ``temperature`` 1.0 by default,
+``best_of`` = ``n`` and ``logprobs: true`` with ``top_logprobs``.
+
+``stream`` answers with ``text/event-stream`` over chunked transfer
+encoding: ``data: {...}`` events, one per ready piece of text and choice
+(``index``), each with the generated ``token_ids`` it covers; text is held
+back while it may be an incomplete UTF-8 sequence or a stop string's
+prefix; with ``logprobs`` one event per token and its record; a chat
+stream starts each choice with its role, an echoed one with the prompt;
+``stream_options.include_usage`` puts ``usage: null`` on every event and a
+usage-only event last; then ``data: [DONE]``. ``best_of`` > ``n`` and
+``prompt_logprobs`` are refused with ``stream``. A continuation
+(``resume_token_ids``, the ids a client already has, and
+``resume_text_chars``, the characters; ``stream``, one choice, no
+``echo``, no ``prompt_logprobs``; ``max_tokens`` the budget left) is
+the router's failover of a dying stream: the engine rebuilds prompt +
+resume and the stream sends only what the client lacks, so that the
+spliced stream is the undisturbed one; relayed ids that already end it get
+the finish alone.
+
+It answers as the JAX server does: another model than the served one gets
+404 ``model_not_found``; a prompt is a string, a list of strings (the first
+is served; an empty list is the empty string) or, beyond the JAX server, a
+list of token ids; an empty prompt is served as the EOS token;
+``max_tokens`` must lie in [1, the engine's ``max_len``] (the engine then
+clamps it to the room the prompt leaves); a field out of its range gets
+400; a deadline that is not a positive number of milliseconds gets 400, an
+expired one 408 (``deadline_exceeded``); a request the engine sheds gets
+429 ``engine_overloaded:<reason>`` with ``Retry-After``, or 503
+``draining`` with ``Retry-After`` and ``X-TPU-Draining: 1``. The fields of
+:data:`UNSERVED_FIELDS` (``response_format`` and guided decoding) are
+refused with 400, naming the field, unless it holds its neutral value: a
+completion that silently ignored it would be a wrong answer.
 
 Without a checkpoint the server runs seeded random weights and the byte
 tokenizer, as the JAX server does without ``--checkpoint-dir``::
@@ -63,6 +87,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import queue
 import signal
 import threading
 import time
@@ -74,11 +99,10 @@ log = logging.getLogger(__name__)
 
 
 # The JAX server's completions fields the port does not serve yet (its
-# serving/server.py:738-954), each with the test of its neutral value: a
-# request that sets one of them to anything else is refused. null (or the
-# field left out) is neutral for every one.
+# serving/server.py:946-960, guided decoding), each with the test of its
+# neutral value: a request that sets one of them to anything else is
+# refused. null (or the field left out) is neutral for every one.
 UNSERVED_FIELDS = {
-    "resume_token_ids": lambda x: False,
     "response_format": lambda x: isinstance(x, dict) and set(x) <= {"type"}
     and x.get("type") in (None, "text"),
     "guided_json": lambda x: False,
@@ -97,14 +121,23 @@ def unserved_field(body: dict) -> Optional[str]:
     return None
 
 
-def _parse_fields(body: dict, engine, ids, header_deadline=None):
-    """The completions request's fields, checked as the JAX server checks
-    them (its ``_completions_impl``): a dict of the engine request's
-    arguments plus ``n``, ``best_of``, ``stop`` (a list), ``echo``,
-    ``logprobs`` (the client's, or None) and ``seed``; or the message of
-    a 400. ``top_logprobs`` is ignored, as the JAX server ignores it on
-    completions; ``echo`` with ``logprobs`` asks for the prompt's
-    logprobs too when the prompt fits a prefill bucket."""
+def _parse_fields(body: dict, engine, ids, header_deadline=None,
+                  chat: bool = False):
+    """The completions (or, with ``chat``, chat completions) request's
+    fields, checked as the JAX server checks them (its
+    ``_completions_impl``): a dict of the engine request's arguments plus
+    ``n``, ``best_of``, ``stop`` (a list), ``echo``, ``logprobs`` (the
+    client's, or None), ``seed``, ``include_usage``, ``resume_chars`` and
+    ``is_resume``; or the message of a 400. On completions ``logprobs`` is
+    an integer and ``top_logprobs`` is ignored, as the JAX server ignores
+    it there; chat takes ``logprobs: true`` with ``top_logprobs``, defaults
+    ``temperature`` to 1.0, refuses ``echo`` and takes ``best_of = n``.
+    ``echo`` with ``logprobs`` asks for the prompt's logprobs too when the
+    prompt fits a prefill bucket and the answer is not streamed. A
+    continuation (``resume_token_ids`` with ``resume_text_chars``) needs
+    ``stream``, one choice, no ``echo`` and no ``prompt_logprobs``; its
+    ``max_tokens`` (0 allowed) is the budget left, to which the relayed
+    length is added back when the body sets it."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
         BIAS_K, LOGPROB_K)
 
@@ -112,7 +145,7 @@ def _parse_fields(body: dict, engine, ids, header_deadline=None):
         f = dict(
             max_tokens=int(body.get("max_tokens",
                                     engine.serving.max_tokens_default)),
-            temperature=float(body.get("temperature", 0.0)),
+            temperature=float(body.get("temperature", 1.0 if chat else 0.0)),
             top_p=float(body.get("top_p", 1.0)),
             top_k=int(body.get("top_k", 0) or 0),
             presence_penalty=float(body.get("presence_penalty", 0.0)),
@@ -125,8 +158,10 @@ def _parse_fields(body: dict, engine, ids, header_deadline=None):
         return "penalties must be in [-2, 2]"
     if not 0.0 < f["repetition_penalty"] <= 10.0:
         return "'repetition_penalty' must be in (0, 10]"
-    if not 1 <= f["max_tokens"] <= engine.max_len:
-        return f"max_tokens must be in [1, {engine.max_len}]"
+    # a continuation's max_tokens is the budget left, so 0 is legal there
+    min_mt = 0 if body.get("resume_token_ids") is not None else 1
+    if not min_mt <= f["max_tokens"] <= engine.max_len:
+        return f"max_tokens must be in [{min_mt}, {engine.max_len}]"
     stops = body.get("stop") or []
     f["stop"] = [stops] if isinstance(stops, str) else stops
     raw_stop_ids = body.get("stop_token_ids") or []
@@ -152,6 +187,7 @@ def _parse_fields(body: dict, engine, ids, header_deadline=None):
         if f["deadline_s"] <= 0:
             return f"'{DEADLINE_FIELD}' must be > 0"
     f["ignore_eos"] = bool(body.get("ignore_eos", False))
+    f["stream"] = stream = bool(body.get("stream", False))
     try:
         f["n"] = int(body.get("n", 1))
     except (TypeError, ValueError):
@@ -164,31 +200,45 @@ def _parse_fields(body: dict, engine, ids, header_deadline=None):
             f["seed"] = int(f["seed"])
         except (TypeError, ValueError):
             return "'seed' must be an integer"
-    f["echo"] = bool(body.get("echo", False))
+    f["echo"] = echo = bool(body.get("echo", False))
+    if echo and chat:
+        return "'echo' is not supported on chat completions"
     try:
         f["best_of"] = int(body.get("best_of", f["n"]))
     except (TypeError, ValueError):
         return "'best_of' must be an integer"
+    if chat:
+        f["best_of"] = f["n"]
     if not f["n"] <= f["best_of"] <= 8:
         return f"'best_of' must be in [n, 8], got {f['best_of']}"
+    if stream and f["best_of"] > f["n"]:
+        return ("best_of > n with stream=true is not supported (ranking "
+                "needs complete candidates)")
     raw_plp = body.get("prompt_logprobs")
     try:
         plp = None if raw_plp is None else int(raw_plp)
     except (TypeError, ValueError):
         return "'prompt_logprobs' must be an integer"
-    raw_lp = body.get("logprobs")
-    if raw_lp is False:
-        raw_lp = None              # an explicit false means off
-    elif isinstance(raw_lp, bool):
-        return "completions 'logprobs' is an integer, not a boolean"
     try:
-        lp_n = None if raw_lp is None else int(raw_lp)
+        if chat:
+            lp_n = int(body.get("top_logprobs", 0)) \
+                if bool(body.get("logprobs", False)) else None
+        else:
+            raw_lp = body.get("logprobs")
+            if raw_lp is False:
+                raw_lp = None          # an explicit false means off
+            elif isinstance(raw_lp, bool):
+                return "completions 'logprobs' is an integer, not a boolean"
+            lp_n = None if raw_lp is None else int(raw_lp)
     except (TypeError, ValueError):
         return "'logprobs' must be numeric"
     if lp_n is not None and not 0 <= lp_n <= LOGPROB_K:
         return f"logprobs must be in [0, {LOGPROB_K}]"
-    if plp is not None and not 0 <= plp <= LOGPROB_K:
-        return f"prompt_logprobs must be in [0, {LOGPROB_K}]"
+    if plp is not None:
+        if not 0 <= plp <= LOGPROB_K:
+            return f"prompt_logprobs must be in [0, {LOGPROB_K}]"
+        if stream:
+            return "prompt_logprobs with stream=true is not supported"
     f["logprobs"] = lp_n
     raw_bias = body.get("logit_bias") or {}
     if not isinstance(raw_bias, dict):
@@ -205,10 +255,44 @@ def _parse_fields(body: dict, engine, ids, header_deadline=None):
     if any(not -100.0 <= v <= 100.0 for _, v in bias):
         return "'logit_bias' values must be in [-100, 100]"
     f["logit_bias"] = bias
-    if f["echo"] and lp_n is not None and plp is None \
+    # OpenAI stream_options: include_usage adds a usage: null to every
+    # chunk and a usage-only chunk before [DONE]
+    so = body.get("stream_options") or {}
+    if not isinstance(so, dict):
+        return "'stream_options' must be an object"
+    if so and not stream:
+        return "'stream_options' requires stream=true"
+    f["include_usage"] = bool(so.get("include_usage", False))
+    raw_resume = body.get("resume_token_ids")
+    f["resume_ids"], f["resume_chars"] = (), 0
+    f["is_resume"] = raw_resume is not None
+    if raw_resume is not None:
+        if not isinstance(raw_resume, list):
+            return "'resume_token_ids' must be a list of token ids"
+        try:
+            f["resume_ids"] = tuple(int(t) for t in raw_resume)
+            f["resume_chars"] = int(body.get("resume_text_chars", 0))
+        except (TypeError, ValueError):
+            return ("'resume_token_ids' must be integers and "
+                    "'resume_text_chars' an integer")
+        if f["resume_chars"] < 0:
+            return "'resume_text_chars' must be >= 0"
+        if not stream:
+            return "'resume_token_ids' requires stream=true"
+        if f["n"] != 1 or f["best_of"] != 1:
+            return "continuation supports a single choice (n=1, best_of=1)"
+        if echo:
+            return ("continuation cannot combine with 'echo' (the prompt "
+                    "was already streamed)")
+        if plp is not None:
+            return "continuation cannot carry prompt_logprobs"
+        if "max_tokens" in body:
+            f["max_tokens"] += len(f["resume_ids"])
+    if echo and lp_n is not None and plp is None and not stream \
             and len(ids) <= max(engine.buckets or (0,)):
         # the OpenAI echo with logprobs covers the prompt: its logprobs,
-        # where the request can have them (a prompt that fits a bucket)
+        # where the request can have them (a prompt that fits a bucket, not
+        # streamed)
         plp = lp_n
     f["prompt_logprobs"] = plp
     return f
@@ -227,11 +311,12 @@ def _apply_stop_strings(text: str, stops) -> Optional[str]:
 
 
 def _format_logprobs(tokenizer, ids, lp_data, k: int, text_len: int = -1,
-                     base_offset: int = 0) -> dict:
-    """The completions ``logprobs`` payload (the JAX server's): tokens,
-    token_logprobs, top_logprobs (decoded token -> logprob, k of them) and
-    text_offset, each token decoded alone. ``text_len`` (>= 0 after a
-    stop-string cut) keeps the tokens whose text survived it;
+                     base_offset: int = 0, chat: bool = False) -> dict:
+    """The ``logprobs`` payload (the JAX server's), each token decoded
+    alone. Completions: tokens, token_logprobs, top_logprobs (decoded token
+    -> logprob, k of them) and text_offset; chat: ``content``, one {token,
+    logprob, top_logprobs: [{token, logprob}]} per token. ``text_len``
+    (>= 0 after a stop-string cut) keeps the tokens whose text survived it;
     ``base_offset`` shifts the offsets past an echoed prompt."""
     toks = [tokenizer.decode([t]) for t in ids]
     offsets, pos = [], base_offset
@@ -243,6 +328,13 @@ def _format_logprobs(tokenizer, ids, lp_data, k: int, text_len: int = -1,
         n = sum(1 for o in offsets if o - base_offset < text_len) \
             if text_len else 0
     toks, offsets, lp_data = toks[:n], offsets[:n], lp_data[:n]
+    if chat:
+        return {"content": [
+            {"token": t, "logprob": None if d is None else d[0],
+             "top_logprobs": [] if d is None else [
+                 {"token": tokenizer.decode([tid]), "logprob": v}
+                 for tid, v in d[1][:k]]}
+            for t, d in zip(toks, lp_data)]}
     return {"tokens": toks,
             "token_logprobs": [None if d is None else d[0] for d in lp_data],
             "top_logprobs": [dict((tokenizer.decode([tid]), v)
@@ -289,14 +381,35 @@ DEADLINE_HEADER = "X-Request-Deadline-Ms"
 DEADLINE_FIELD = "deadline_ms"
 
 
-class ServerState:
-    """What the request handlers share: engine, tokenizer, served name, the
-    stop event of the engine thread (and of :func:`serve`), the count of
-    ``/v1`` requests inside a handler, and the drain watcher."""
+class _NotifyQueue(queue.Queue):
+    """A request's ``out_queue`` that sets a shared event on every put: the
+    handler of a streamed ``n`` > 1 request waits on that one event instead
+    of polling the n choices' queues."""
 
-    def __init__(self, engine, tokenizer, model_name: str):
+    def __init__(self, event: threading.Event):
+        super().__init__()
+        self.event = event
+
+    def put(self, item, *a, **kw):
+        super().put(item, *a, **kw)
+        self.event.set()
+
+
+class ServerState:
+    """What the request handlers share: engine, tokenizer, chat templater
+    (by default the model family's style, or the tokenizer's template),
+    served name, the stop event of the engine thread (and of
+    :func:`serve`), the count of ``/v1`` requests inside a handler (a
+    stream counts until its ``[DONE]``), and the drain watcher."""
+
+    def __init__(self, engine, tokenizer, model_name: str, templater=None):
+        from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template \
+            import ChatTemplater
+
         self.engine = engine
         self.tokenizer = tokenizer
+        self.templater = templater or ChatTemplater(engine.cfg.name,
+                                                    tokenizer)
         self.model_name = model_name
         self.started = int(time.time())
         self.stop = threading.Event()
@@ -388,8 +501,10 @@ def _wait_budget_s(engine, req) -> Optional[float]:
 
 def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                 device=None, seed: int = 0) -> ServerState:
-    """Wire tokenizer, params and engine into a ServerState. Without a
-    checkpoint: random weights from ``seed`` and the byte tokenizer. A
+    """Wire tokenizer, params, engine and chat templater (``--chat-template``'s
+    file, else the tokenizer's template, else the model family's style)
+    into a ServerState. Without a checkpoint: random weights from ``seed``
+    and the byte tokenizer. A
     ``serving.mesh`` of more than one device takes that many CUDA cards
     (the engine's ``_build_mesh``), or on the CPU repeats the CPU."""
     import torch
@@ -398,6 +513,8 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         MODEL_REGISTRY, ServingConfig, tiny_qwen3)
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
     from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
+        ChatTemplater
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
         quantize_params
@@ -434,7 +551,9 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         # a dry run on the CPU: every shard of the mesh on the CPU
         mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices)
     engine = Engine(model_cfg, params, serving, device=dev, mesh=mesh)
-    return ServerState(engine, tokenizer, serving.model)
+    templater = ChatTemplater(model_cfg.name, tokenizer,
+                              template_path=serving.chat_template or None)
+    return ServerState(engine, tokenizer, serving.model, templater)
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -595,12 +714,16 @@ class Handler(BaseHTTPRequestHandler):
         if path == "/admin/undrain":
             self.state.end_drain()
             return self._json(200, {"status": "ok", "draining": False})
-        if path != "/v1/completions":
+        if path not in ("/v1/completions", "/v1/chat/completions"):
             return self._error(404, f"no route {path}")
-        # the drain watcher waits for every answer still being written
+        # the drain watcher waits for every answer still being written, a
+        # stream until its [DONE]
         self.state.inflight_inc()
         try:
-            self._completions(body)
+            self._completions(body, chat=path == "/v1/chat/completions")
+        except (BrokenPipeError, ConnectionResetError):
+            # the client went away; a stream has cancelled its requests
+            self.close_connection = True
         finally:
             self.state.inflight_dec()
 
@@ -627,7 +750,7 @@ class Handler(BaseHTTPRequestHandler):
                          "active_requests": len(eng._active_slots()),
                          "queue_depth": eng.pending})
 
-    def _completions(self, body: dict):
+    def _completions(self, body: dict, chat: bool = False):
         from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
             ContextLengthExceeded, EngineOverloaded, Request)
 
@@ -636,47 +759,78 @@ class Handler(BaseHTTPRequestHandler):
         if model != st.model_name:
             return self._error(404, f"model {model!r} not found; serving "
                                     f"{st.model_name!r}", "model_not_found")
-        if body.get("stream"):
-            return self._error(400, "streaming is not supported yet")
         field = unserved_field(body)
         if field is not None:
             return self._error(400, f"'{field}' is not supported yet (only "
                                     f"its neutral value is accepted)")
-        prompt = body.get("prompt", "")
-        if isinstance(prompt, list) and prompt and all(
-                isinstance(t, int) and not isinstance(t, bool)
-                for t in prompt):
-            ids = list(prompt)
-            prompt_text = st.tokenizer.decode(ids)
+        if chat:
+            messages = body.get("messages")
+            if not isinstance(messages, list) or not messages:
+                return self._error(400, "'messages' must be a non-empty list")
+            prompt_text = st.templater.render(messages,
+                                              add_generation_prompt=True)
+            ids = st.tokenizer.encode(prompt_text) or [st.engine.eos_token_id]
         else:
-            if isinstance(prompt, list):
-                # a list of strings: its first, as the JAX server serves it
-                prompt = prompt[0] if prompt else ""
-            if not isinstance(prompt, str):
-                return self._error(400, "prompt must be a string, a list of "
-                                        "strings or a list of token ids")
-            prompt_text = prompt
-            # an empty prompt is served as the EOS token alone
-            ids = st.tokenizer.encode(prompt) or [st.engine.eos_token_id]
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list) and prompt and all(
+                    isinstance(t, int) and not isinstance(t, bool)
+                    for t in prompt):
+                ids = list(prompt)
+                prompt_text = st.tokenizer.decode(ids)
+            else:
+                if isinstance(prompt, list):
+                    # a list of strings: its first, as the JAX server
+                    # serves it
+                    prompt = prompt[0] if prompt else ""
+                if not isinstance(prompt, str):
+                    return self._error(400, "prompt must be a string, a list "
+                                            "of strings or a list of token "
+                                            "ids")
+                prompt_text = prompt
+                # an empty prompt is served as the EOS token alone
+                ids = st.tokenizer.encode(prompt) or [st.engine.eos_token_id]
         fields = _parse_fields(body, st.engine, ids,
-                               self.headers.get(DEADLINE_HEADER))
+                               self.headers.get(DEADLINE_HEADER), chat)
         if isinstance(fields, str):
             return self._error(400, fields)
-        n_choices, best_of, stops, echo, lp_n = (
-            fields.pop(k) for k in ("n", "best_of", "stop", "echo",
-                                    "logprobs"))
-        seed = fields.pop("seed")
+        n_choices, best_of, stops, echo, lp_n, seed, include_usage, \
+            resume_chars, is_resume = (
+                fields.pop(k) for k in (
+                    "n", "best_of", "stop", "echo", "logprobs", "seed",
+                    "include_usage", "resume_chars", "is_resume"))
+        stream = fields["stream"]
+        resume = fields["resume_ids"]
+        rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
+        if is_resume:
+            # relayed tokens that already meet a stop condition: only the
+            # finish chunk was lost with the replica that sent them, and
+            # nothing more may be generated (the engine's stop rule)
+            fin = None
+            eos = set() if fields["ignore_eos"] else st.engine._eos_set
+            if resume and (resume[-1] in eos
+                           or resume[-1] in fields["stop_token_ids"]) \
+                    and len(resume) > fields["min_tokens"]:
+                fin = "stop"
+            if fin is None and len(resume) >= fields["max_tokens"]:
+                fin = "length"
+            if fin is not None:
+                return self._finished_stream(rid, chat, fin, len(ids),
+                                             len(resume), include_usage)
         reqs = []
         try:
             # best_of ranks its candidates by their chosen tokens'
             # logprobs: asked of the engine when the client did not
             eng_lp = lp_n if lp_n is not None else \
                 (0 if best_of > n_choices else None)
+            # a streamed n > 1 request's choices share one wake-up event
+            notify = threading.Event() if stream and best_of > 1 else None
             for i in range(best_of):
-                # choice i draws with seed + i: choice 0 is the n=1 answer
+                # choice i draws with seed + i
+                extra = {"out_queue": _NotifyQueue(notify)} if notify else {}
                 reqs.append(st.engine.submit(Request(
                     prompt_ids=list(ids), logprobs=eng_lp,
-                    seed=None if seed is None else seed + i, **fields)))
+                    seed=None if seed is None else seed + i, **fields,
+                    **extra)))
         except ContextLengthExceeded as e:
             self._cancel(reqs)
             return self._error(400, str(e))
@@ -688,22 +842,29 @@ class Handler(BaseHTTPRequestHandler):
         except (TypeError, ValueError) as e:
             self._cancel(reqs)
             return self._error(400, str(e))
-        self._full_response(reqs, ids, stops, n_choices, lp_n is not None,
-                            prompt_text if echo else None)
+        if stream:
+            return self._stream_response(
+                reqs, rid, chat, stops, len(ids), include_usage,
+                prompt_text if echo else None, lp_n, resume, resume_chars,
+                is_resume)
+        self._full_response(reqs, rid, chat, ids, stops, n_choices,
+                            lp_n is not None, prompt_text if echo else None)
 
     def _cancel(self, reqs):
         for r in reqs:
             self.state.engine.cancel(r)
 
-    def _full_response(self, reqs, ids, stops, n_choices: int,
-                       lp_requested: bool, echo_text: Optional[str]):
-        """The JAX server's completions answer over finished candidates:
-        with ``best_of`` (more candidates than ``n_choices``) the n best by
-        cumulative chosen-token logprob; each choice cut at its earliest
-        stop string (finish ``stop``), its logprobs payload (only when the
-        client asked) cut with it, the prompt echoed before it (with
-        logprobs, the payload covers the prompt too), and a
-        ``prompt_logprobs`` field when asked."""
+    def _full_response(self, reqs, rid: str, chat: bool, ids, stops,
+                       n_choices: int, lp_requested: bool,
+                       echo_text: Optional[str]):
+        """The JAX server's (chat) completions answer over finished
+        candidates: with ``best_of`` (more candidates than ``n_choices``)
+        the n best by cumulative chosen-token logprob; each choice cut at
+        its earliest stop string (finish ``stop``), its logprobs payload
+        (only when the client asked) cut with it, the prompt echoed before
+        it (with logprobs, the payload covers the prompt too), and a
+        ``prompt_logprobs`` field when asked. Chat choices carry
+        ``message: {role, content}`` and the chat logprobs shape."""
         st = self.state
         tok = st.tokenizer
         done = []
@@ -745,25 +906,317 @@ class Handler(BaseHTTPRequestHandler):
                 lp_obj = _format_logprobs(
                     tok, req.generated, req.logprob_data, req.logprobs,
                     text_len=len(text) if cut is not None else -1,
-                    base_offset=len(echo_text) if echo_text else 0)
+                    base_offset=len(echo_text) if echo_text else 0,
+                    chat=chat)
             if echo_text is not None and req.prompt_logprob_data \
                     and lp_obj is not None:
                 lp_obj = _echo_logprobs(tok, req, lp_obj)
             if echo_text is not None:
                 text = echo_text + text
-            choice = {"index": idx, "text": text, "logprobs": lp_obj,
-                      "finish_reason": finish}
+            if chat:
+                choice = {"index": idx, "message": {"role": "assistant",
+                                                    "content": text},
+                          "finish_reason": finish}
+                if lp_obj is not None:
+                    choice["logprobs"] = lp_obj
+            else:
+                choice = {"index": idx, "text": text, "logprobs": lp_obj,
+                          "finish_reason": finish}
             if req.prompt_logprob_data:
                 choice["prompt_logprobs"] = _prompt_logprobs_field(tok, req)
             choices.append(choice)
         n_prompt = len(ids)
         self._json(200, {
-            "id": f"cmpl-{uuid.uuid4().hex[:24]}", "object": "text_completion",
+            "id": rid, "object": "chat.completion" if chat
+            else "text_completion",
             "created": int(time.time()), "model": st.model_name,
             "choices": choices,
             "usage": {"prompt_tokens": n_prompt,
                       "completion_tokens": completion_tokens,
                       "total_tokens": n_prompt + completion_tokens}})
+
+    # -- the SSE stream ------------------------------------------------------
+
+    def _sse_start(self):
+        """The stream's headers: SSE over chunked transfer encoding."""
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+    def _sse_write(self, data: bytes):
+        """One chunk of the chunked body, flushed."""
+        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
+
+    def _sse_end(self):
+        """``data: [DONE]`` and the terminating chunk."""
+        self._sse_write(b"data: [DONE]\n\n")
+        self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
+
+    def _sse_usage(self, rid: str, obj: str, n_prompt: int, n_gen: int,
+                   failover: bool):
+        """The usage-only chunk of ``stream_options.include_usage`` (after a
+        continuation marked ``failover: true``)."""
+        final = {"id": rid, "object": obj, "created": int(time.time()),
+                 "model": self.state.model_name, "choices": [],
+                 "usage": {"prompt_tokens": n_prompt,
+                           "completion_tokens": n_gen,
+                           "total_tokens": n_prompt + n_gen}}
+        if failover:
+            final["failover"] = True
+        self._sse_write(("data: " + json.dumps(final) + "\n\n").encode())
+
+    def _finished_stream(self, rid: str, chat: bool, finish: str,
+                         n_prompt: int, n_gen: int, include_usage: bool):
+        """A continuation whose relayed tokens already meet a stop
+        condition: the finish chunk, the usage chunk and ``[DONE]``, with
+        nothing admitted to the engine."""
+        obj = "chat.completion.chunk" if chat else "text_completion"
+        self._sse_start()
+        payload = {"index": 0, "finish_reason": finish}
+        if chat:
+            payload["delta"] = {}
+        else:
+            payload["text"] = ""
+        body = {"id": rid, "object": obj, "created": int(time.time()),
+                "model": self.state.model_name, "choices": [payload]}
+        if include_usage:
+            body["usage"] = None
+        self._sse_write(f"data: {json.dumps(body)}\n\n".encode())
+        if include_usage:
+            self._sse_usage(rid, obj, n_prompt, n_gen, True)
+        self._sse_end()
+
+    def _stream_response(self, reqs, rid: str, chat: bool, stops,
+                         n_prompt: int, include_usage: bool,
+                         echo_text: Optional[str], lp_k: Optional[int],
+                         resume_ids: tuple, resume_chars: int,
+                         is_resume: bool):
+        """The JAX server's SSE stream of ``reqs`` (the n choices), with
+        incremental detokenization.
+
+        Text is held back while it may still be the head of an incomplete
+        UTF-8 sequence (the detokenizer withholds it) or a prefix of a stop
+        string (``hold`` characters), so that no byte a later token would
+        change reaches the client. A stop string cuts the text, finishes
+        the choice with ``stop`` and cancels its request (its slot frees).
+        Every content chunk carries the generated ``token_ids`` it covers,
+        which a router accumulates to fail a dying stream over. With
+        ``logprobs`` each token is a chunk of its own with its record (the
+        vLLM shape). A continuation (``is_resume``) feeds the detokenizer
+        the relayed ``resume_ids`` first, skips the ``resume_chars``
+        characters the client already has and sends no role or echo chunk.
+        A broken pipe or reset cancels every choice's request; any other
+        error once the headers are out cancels them too and drops the
+        connection."""
+        from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
+            IncrementalDetokenizer
+
+        st = self.state
+        tok = st.tokenizer
+        self._sse_start()
+        obj = "chat.completion.chunk" if chat else "text_completion"
+
+        def chunk(idx: int, delta_text: Optional[str],
+                  finish_reason: Optional[str], role: bool = False,
+                  lp: Optional[dict] = None, tok_ids=None):
+            payload = {"index": idx, "finish_reason": finish_reason}
+            if chat:
+                d = {}
+                if role:
+                    d["role"] = "assistant"
+                if delta_text:
+                    d["content"] = delta_text
+                payload["delta"] = d
+            else:
+                payload["text"] = delta_text or ""
+            if lp is not None:
+                payload["logprobs"] = lp
+            if tok_ids:
+                payload["token_ids"] = [int(t) for t in tok_ids]
+            body = {"id": rid, "object": obj, "created": int(time.time()),
+                    "model": st.model_name, "choices": [payload]}
+            if include_usage:
+                body["usage"] = None
+            self._sse_write(f"data: {json.dumps(body)}\n\n".encode())
+
+        def consume_skip(s, text: str) -> str:
+            """Drop the leading characters a failed-over client already
+            has (a continuation only)."""
+            if s["skip"] and text:
+                k = min(s["skip"], len(text))
+                s["skip"] -= k
+                text = text[k:]
+            return text
+
+        # per choice: the n > 1 siblings' tokens arrive interleaved, and
+        # each choice detokenizes, holds back and finishes on its own,
+        # tagged by its chunk's index
+        hold = max((len(s) for s in stops if s), default=1) - 1
+        base_off = len(echo_text) if echo_text else 0
+        states = [{"req": r, "detok": IncrementalDetokenizer(tok),
+                   "pending": "", "finish": None, "n_lp": 0, "skip": 0,
+                   "carry": "", "tok_pending": [], "acc": "",
+                   "offset": base_off} for r in reqs]
+        multi = len(states) > 1
+        if is_resume and states:
+            # the detokenizer rebuilt over the relayed tokens, so that the
+            # first new token's text merges right; what it has flushed goes
+            # through the hold (or, with logprobs, rides the first chunk)
+            # minus the characters the client already has
+            s = states[0]
+            prior = "".join(s["detok"].push(int(t)) for t in resume_ids)
+            s["acc"] = prior
+            s["offset"] = base_off + len(prior)
+            if lp_k is not None:
+                s["carry"] = prior
+            else:
+                s["pending"] = prior
+            s["skip"] = min(int(resume_chars), len(prior))
+
+        def token_lp(s, token: int, delta: str):
+            """The streamed record of one token: completions' one-element
+            arrays, chat's one-element content list (the engine puts token
+            k on the queue after its record k)."""
+            data = s["req"].logprob_data
+            d = data[s["n_lp"]] if s["n_lp"] < len(data) else None
+            s["n_lp"] += 1
+            tok_str = tok.decode([token])
+            own = None if d is None else d[0]
+            tops = [] if d is None else \
+                [(tok.decode([tid]), v) for tid, v in d[1][:lp_k]]
+            if chat:
+                return {"content": [{
+                    "token": tok_str, "logprob": own,
+                    "top_logprobs": [{"token": t, "logprob": v}
+                                     for t, v in tops]}]}
+            off = s["offset"]
+            s["offset"] += len(delta)
+            return {"tokens": [tok_str], "token_logprobs": [own],
+                    "top_logprobs": [dict(tops)], "text_offset": [off]}
+
+        def drain(i: int, block_s: float) -> bool:
+            """Take at most one item of choice i's queue and send what is
+            ready; whether an item came."""
+            s = states[i]
+            try:
+                item = s["req"].out_queue.get(timeout=block_s)
+            except queue.Empty:
+                return False
+            if lp_k is not None:
+                # a chunk per token, its logprob record beside its text (""
+                # while a UTF-8 sequence is incomplete); a stop string cuts
+                # the text with no hold (the chunks sent stand)
+                if item is None:
+                    tail = consume_skip(s, s["carry"] + s["detok"].finish())
+                    s["finish"] = s["req"].finish_reason or "stop"
+                    s["carry"] = ""
+                    if tail:
+                        chunk(i, tail, None)
+                    chunk(i, None, s["finish"])
+                    return True
+                delta = s["detok"].push(item)
+                # a new match can only end in the delta: scan it and the
+                # longest stop's tail before it, never the whole text
+                window = (s["acc"][-hold:] if hold else "") + delta
+                s["acc"] += delta
+                cut = _apply_stop_strings(window, stops)
+                if cut is not None:
+                    overshoot = len(window) - len(cut)
+                    delta = delta[:len(delta) - overshoot] \
+                        if overshoot <= len(delta) else ""
+                    s["finish"] = "stop"
+                    st.engine.cancel(s["req"])
+                if s["carry"]:
+                    delta, s["carry"] = s["carry"] + delta, ""
+                delta = consume_skip(s, delta)
+                chunk(i, delta, None, lp=token_lp(s, item, delta),
+                      tok_ids=[int(item)])
+                if s["finish"]:
+                    chunk(i, None, s["finish"])
+                return True
+            if item is None:
+                s["pending"] += s["detok"].finish()
+                s["finish"] = s["req"].finish_reason or "stop"
+            else:
+                s["pending"] += s["detok"].push(item)
+                s["tok_pending"].append(int(item))
+            cut_text = _apply_stop_strings(s["pending"], stops)
+            if cut_text is not None:
+                s["pending"], s["finish"] = cut_text, "stop"
+                st.engine.cancel(s["req"])      # its slot frees
+            ready = s["pending"] if s["finish"] else (
+                s["pending"][:len(s["pending"]) - hold] if hold
+                else s["pending"])
+            if ready:
+                send = consume_skip(s, ready)
+                if send or s["tok_pending"]:
+                    chunk(i, send, None, tok_ids=s["tok_pending"])
+                    s["tok_pending"] = []
+                s["pending"] = s["pending"][len(ready):]
+            if s["finish"]:
+                chunk(i, None, s["finish"], tok_ids=s["tok_pending"])
+                s["tok_pending"] = []
+            return True
+
+        # the no-progress backstop (the engine reaps deadlines and sends
+        # the sentinels; this guards against a wedged engine loop); 0 means
+        # unbounded, capped at threading's longest wait
+        stall_s = float(st.engine.serving.request_timeout_s or 0)
+        if stall_s <= 0:
+            stall_s = threading.TIMEOUT_MAX
+        try:
+            if not is_resume:
+                # a continuation's client got these from the first replica
+                for i in range(len(states)):
+                    if chat:
+                        chunk(i, "", None, role=True)
+                    elif echo_text:
+                        chunk(i, echo_text, None)
+            last_progress = time.monotonic()
+            while any(s["finish"] is None for s in states):
+                progressed = False
+                for i, s in enumerate(states):
+                    if s["finish"] is not None:
+                        continue
+                    if multi:
+                        # take every item there is without blocking; the
+                        # shared event below is the only wait
+                        while s["finish"] is None and drain(i, 0.0):
+                            progressed = True
+                    else:
+                        progressed |= drain(i, stall_s)
+                if progressed:
+                    last_progress = time.monotonic()
+                elif time.monotonic() - last_progress > stall_s:
+                    raise TimeoutError(f"no stream progress in "
+                                       f"{stall_s:.0f}s")
+                elif multi:
+                    # wait, clear, drain again: a put racing the clear
+                    # leaves its item for the sweep, and a put after it sets
+                    # the event again
+                    ev = states[0]["req"].out_queue.event
+                    ev.wait(timeout=1.0)
+                    ev.clear()
+            if include_usage:
+                # a continuation's generated tokens include the relayed
+                # ones, so usage is the undisturbed run's
+                self._sse_usage(rid, obj, n_prompt,
+                                sum(len(s["req"].generated) for s in states),
+                                is_resume)
+            self._sse_end()
+        except (BrokenPipeError, ConnectionResetError):
+            self._cancel(s["req"] for s in states)
+            raise
+        except Exception:
+            # the headers are out: no JSON error can follow; free the
+            # slots and drop the connection
+            log.exception("stream failed mid-flight")
+            self._cancel(s["req"] for s in states)
+            raise BrokenPipeError
 
 
 def make_server(state: ServerState, host: str, port: int
@@ -876,6 +1329,10 @@ def main(argv=None):
     p.add_argument("--admission-max-wait", type=float, default=0.0,
                    help="shed admissions whose estimated queue wait "
                         "(seconds) exceeds this (0 disables)")
+    p.add_argument("--chat-template", default="",
+                   help="Jinja template file for /v1/chat/completions; empty "
+                        "= the tokenizer's template, else the model "
+                        "family's default style")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -897,7 +1354,8 @@ def main(argv=None):
         request_timeout_s=args.request_timeout,
         max_queue_depth=args.max_queue_depth,
         drain_timeout_s=args.drain_timeout,
-        admission_max_wait_s=args.admission_max_wait)
+        admission_max_wait_s=args.admission_max_wait,
+        chat_template=args.chat_template)
     state = build_state(serving, device=args.device, seed=args.seed)
 
     # SIGTERM (a pod's deletion, after the preStop hook's /admin/drain)

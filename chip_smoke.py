@@ -71,13 +71,25 @@ result when either is missing. Phases, in order (any failure raises):
    ``/readyz`` 200 again; a drain of ``timeout_s`` 0.5 answers its
    straggler 408 and frees its slot. Then the server as a process
    (``python -m ...serving.server --device cuda``): the seconds until
-   ``/readyz`` answers 200, SIGTERM during a long completion, which must
-   answer 200 with every token, and the seconds from SIGTERM to the
-   process's exit (0, within ``--drain-timeout``). Over the paged bf16
-   engine the server also answers the request fields (``n`` 3 with a
-   seed, choice 0 the n=1 answer; ``best_of`` 4 with ``n`` 2; ``echo`` with
-   ``logprobs`` 2; a ``stop`` string's cut), each 200 in the JAX server's
-   shape, and then the request fields phase runs on that engine: a batch
+   ``/readyz`` answers 200, the client's time to the first chunk of a
+   stream and the gaps between its chunks, SIGTERM during a long
+   completion and a long stream, which must answer 200 with every token
+   and end with the finish chunk and ``[DONE]`` after every token, and the
+   seconds from SIGTERM to the process's exit (0, within
+   ``--drain-timeout``). Over the paged bf16 engine the server also
+   answers the request fields (``n`` 3 with a seed, choice 0 the n=1
+   answer; ``best_of`` 4 with ``n`` 2; ``echo`` with ``logprobs`` 2; a
+   ``stop`` string's cut), each 200 in the JAX server's shape, and the
+   streaming API (a greedy stream and a streamed chat equal to their
+   whole answers; a seeded ``n`` 2 stream with ``include_usage``; a stream
+   cut by a stop string; a ``logprobs`` 2 stream whose records are the
+   whole answer's); the failover continuation runs over that engine and a
+   second one with the same weights and ``derived_seed`` (a stream cut
+   after 5 chunks on one server and continued on the other, greedy and
+   seeded, must splice into the undisturbed stream, or part from it only
+   where its top-2 logit margin is below LOGIT_TOL); the C22 probe
+   compares one prompt's prefill in a batch of one and of three, stage by
+   stage; and then the request fields phase runs on that engine: a batch
    of 8 requests of 64 tokens (plain, presence + frequency, repetition,
    a +100 and a -100 bias, min_tokens 16 with a stop id, logprobs 8, a
    seeded sampled one with a penalty) with launch counts zeroed before and
@@ -178,6 +190,7 @@ Every phase logs its wall time. The line before the last is
 from __future__ import annotations
 
 import gc
+import http.client
 import json
 import math
 import os
@@ -3956,35 +3969,17 @@ def _greedy_vs_sp1(tag, streams, ref_reqs, ref_gaps):
 
 
 def phase_server(engine, lifecycle=False, fields=False):
-    """The HTTP server over ``engine``. Its tokenizer encodes bytes and
-    decodes token ids as their decimal numbers, so that the random-weight
-    model's streams (ids far past the byte range) show in the text. With
+    """The HTTP server over ``engine`` (:func:`_serve_in_process`). With
     ``lifecycle`` the replica lifecycle runs too (:func:`_lifecycle`), with
-    ``fields`` the request fields (:func:`_http_fields`)."""
-    from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
-        ServerState, make_server)
-    from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
-        ByteTokenizer
-
-    class IdTokenizer(ByteTokenizer):
-        def decode(self, ids, *args, **kwargs):
-            return " ".join(str(int(t)) for t in ids)
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    state = ServerState(engine, IdTokenizer(), engine.cfg.name)
-    server = make_server(state, "127.0.0.1", port)
-    th = threading.Thread(target=server.serve_forever, daemon=True)
-    th.start()
-    state.start_engine()
+    ``fields`` the request fields (:func:`_http_fields`) and the streaming
+    API (:func:`_http_stream`)."""
+    base, stop_server = _serve_in_process(engine)
     shards = engine.cache if isinstance(engine.cache, list) \
         else [engine.cache]
     quant = "ks" in shards[0]
     layout = "" if engine.paged else "dense " if len(shards) == 1 \
         else f"sp {len(shards)} "
     tag = f"[server {layout}{'int8' if quant else 'bf16'}]"
-    base = f"http://127.0.0.1:{port}"
 
     def complete(body):
         req = urllib.request.Request(
@@ -4024,11 +4019,9 @@ def phase_server(engine, lifecycle=False, fields=False):
             _lifecycle(engine, base, tag)
         if fields:
             _http_fields(engine, base, tag)
+            _http_stream(engine, base, tag)
     finally:
-        server.shutdown()
-        server.server_close()
-        state.stop_engine()
-        th.join(10)
+        stop_server()
 
 
 COMPLETION_KEYS = {"id", "object", "created", "model", "choices", "usage"}
@@ -4058,10 +4051,10 @@ def _http_fields(engine, base, tag):
     echoed text), and a ``stop`` string that cuts the text with finish
     ``stop``. For the n check the engine is idle before each request and
     prefills one prompt a dispatch, so that choice 0 prefills as the n=1
-    request did: in bf16 a batch of
-    three rounds its K/V rows apart from a batch of one, enough to flip a
-    near-tie of a later draw (as the seeded checks of the engine phases
-    admit their prompts alike)."""
+    request did: a batch of three rounds apart from a batch of one (cuBLAS
+    picks the MLP's down projection by the row count, ROADMAP C22), enough
+    to flip a near-tie of a later draw (as the seeded checks of the engine
+    phases admit their prompts alike)."""
     import dataclasses
 
     body = {"prompt": "Fields over HTTP", "max_tokens": 24, "seed": 17,
@@ -4108,6 +4101,477 @@ def _http_fields(engine, base, tag):
         f"ranked, no logprobs; echo + logprobs 2 over {len(lp['tokens'])} "
         f"tokens (prompt {len(prompt)}); stop {stop!r} cut "
         f"{len(plain)} -> {len(c['text'])} characters, finish stop")
+
+
+def _sse(base, path, body, timeout=300, close_after=None):
+    """POST a streamed ``body``; the parsed ``data:`` events (``"[DONE]"``
+    kept as the string) and each one's arrival on the host's monotonic
+    clock, the send time first. With ``close_after`` the connection is
+    closed once that many events with ``token_ids`` have come (a client, or
+    a replica's relay, that goes away)."""
+    host, port = base.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    t0 = time.monotonic()
+    conn.request("POST", path, body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200 or not resp.headers["Content-Type"].startswith(
+            "text/event-stream"):
+        raise AssertionError(f"{path} {body}: {resp.status} "
+                             f"{resp.read()[:500]!r}")
+    events, times, tagged = [], [t0], 0
+    try:
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[len(b"data: "):].strip()
+            ev = "[DONE]" if payload == b"[DONE]" else json.loads(payload)
+            events.append(ev)
+            times.append(time.monotonic())
+            if ev == "[DONE]":
+                # read the terminating chunk too: a close with unread bytes
+                # resets the connection
+                while line and line != b"0\r\n":
+                    line = resp.fp.readline()
+                resp.fp.readline()
+                break
+            tagged += any(c.get("token_ids") for c in ev["choices"])
+            if close_after is not None and tagged >= close_after:
+                break
+    finally:
+        conn.close()
+    return events, times
+
+
+def _stream_parts(events, index=0):
+    """(text, token ids, finish reason) of one choice of a stream."""
+    text, ids, finish = "", [], None
+    for ev in events:
+        if ev == "[DONE]":
+            continue
+        for c in ev["choices"]:
+            if c["index"] == index:
+                text += c.get("text") or (c.get("delta") or {}).get(
+                    "content") or ""
+                ids += c.get("token_ids") or []
+                finish = c["finish_reason"] or finish
+    return text, ids, finish
+
+
+def _whole_stream(events, what):
+    """Fail unless ``events`` end with ``[DONE]`` and every choice with a
+    finish chunk."""
+    if not events or events[-1] != "[DONE]" or events.count("[DONE]") != 1:
+        raise AssertionError(f"{what}: the stream did not end with one "
+                             f"[DONE]: {events[-3:]}")
+
+
+def _http_stream(engine, base, tag):
+    """The streaming API over HTTP (the paged bf16 engine, each request
+    admitted into an idle engine): a greedy streamed completion and a
+    streamed chat, each equal to its non-streamed answer (text, the
+    ``token_ids`` of its chunks, finish reason, usage); a seeded sampled
+    stream with ``n`` 2 and ``include_usage`` (``usage: null`` on every
+    chunk, then the usage chunk; choice 0 the n=1 answer, each prompt
+    prefilled alone as in :func:`_http_fields`); a stream cut by a stop
+    string (its slot freed); and a stream with ``logprobs`` 2 whose
+    records equal the non-streamed ones (tokens, logprobs, top entries; the
+    ids tokenizer's pieces are not concatenative, so text offsets are not
+    compared)."""
+    import dataclasses
+
+    url = "/v1/completions"
+    body = {"prompt": "Stream me", "max_tokens": 32, "ignore_eos": True}
+    _settled(engine)
+    whole = _completion(base, body)
+    _settled(engine)
+    events, _ = _sse(base, url, {**body, "stream": True, "stream_options":
+                                 {"include_usage": True}})
+    _whole_stream(events, "greedy stream")
+    text, ids, finish = _stream_parts(events)
+    w = whole["choices"][0]
+    usage = events[-2]
+    if (text, finish) != (w["text"], w["finish_reason"]) or \
+            ids != [int(t) for t in w["text"].split()] or \
+            usage.get("choices") != [] or usage["usage"] != whole["usage"] \
+            or any(ev.get("usage", 0) is not None for ev in events[:-2]):
+        raise AssertionError(f"{tag} greedy stream {text!r} {ids} {finish} "
+                             f"{usage} vs {w} {whole['usage']}")
+    log(f"{tag} greedy /v1/completions stream: {len(events) - 2} chunks + "
+        f"usage + [DONE], text, token_ids ({len(ids)}), finish and usage "
+        f"equal to the non-streamed answer")
+
+    chat = {"messages": [{"role": "system", "content": "Be brief."},
+                         {"role": "user", "content": "Stream a chat"}],
+            "max_tokens": 24, "temperature": 0.0, "ignore_eos": True}
+    _settled(engine)
+    status, cw, _ = _http(base + "/v1/chat/completions", chat)
+    _settled(engine)
+    events, _ = _sse(base, "/v1/chat/completions", {**chat, "stream": True})
+    _whole_stream(events, "chat stream")
+    text, ids, finish = _stream_parts(events)
+    m = cw["choices"][0]
+    if status != 200 or cw["object"] != "chat.completion" or \
+            events[0]["choices"][0]["delta"] != {"role": "assistant"} or \
+            (text, finish) != (m["message"]["content"], m["finish_reason"]) \
+            or ids != [int(t) for t in text.split()]:
+        raise AssertionError(f"{tag} chat stream {text!r} {finish} vs "
+                             f"{status} {cw}")
+    log(f"{tag} chat (opt style) streamed: role chunk, {len(ids)} tokens, "
+        f"equal to the chat.completion answer")
+
+    seeded = {"prompt": "Seeded stream", "max_tokens": 24, "seed": 29,
+              "temperature": 0.8, "top_p": 0.9, "ignore_eos": True}
+    serving = engine.serving
+    engine.serving = dataclasses.replace(serving, max_prefill_batch=1)
+    try:
+        _settled(engine)
+        one = _completion(base, seeded)["choices"][0]
+        _settled(engine)
+        events, _ = _sse(base, url, {**seeded, "n": 2, "stream": True,
+                                     "stream_options":
+                                     {"include_usage": True}})
+    finally:
+        engine.serving = serving
+    _whole_stream(events, "n=2 stream")
+    c0, c1 = _stream_parts(events, 0), _stream_parts(events, 1)
+    if c0[0] != one["text"] or c0[0] == c1[0] or \
+            [len(c0[1]), len(c1[1])] != [24, 24] or \
+            events[-2]["usage"]["completion_tokens"] != 48:
+        raise AssertionError(f"{tag} n=2 seeded stream {c0} {c1} "
+                             f"{events[-2]} vs n=1 {one}")
+    log(f"{tag} seeded (seed 29) n=2 stream with include_usage: 2 x 24 "
+        f"tokens, usage 48, choice 0 = the n=1 answer, the choices differ")
+
+    cut_body = {"prompt": "Cut the stream", "max_tokens": 16,
+                "ignore_eos": True}
+    _settled(engine)
+    plain = _completion(base, cut_body)["choices"][0]["text"]
+    stop = " " + plain.split()[5] + " "
+    _settled(engine)
+    events, _ = _sse(base, url, {**cut_body, "stream": True,
+                                 "stop": [stop]})
+    _whole_stream(events, "stop stream")
+    text, ids, finish = _stream_parts(events)
+    _settled(engine)
+    if finish != "stop" or text != plain[:plain.find(stop)]:
+        raise AssertionError(f"{tag} stop {stop!r}: {text!r} {finish} "
+                             f"(plain {plain!r})")
+    log(f"{tag} stream cut by stop {stop!r}: {len(plain)} -> {len(text)} "
+        f"characters, finish stop, slot and pages released")
+
+    lp_body = {"prompt": "Logprobs", "max_tokens": 8, "logprobs": 2,
+               "ignore_eos": True}
+    _settled(engine)
+    lw = _completion(base, lp_body)["choices"][0]["logprobs"]
+    _settled(engine)
+    events, _ = _sse(base, url, {**lp_body, "stream": True})
+    _whole_stream(events, "logprobs stream")
+    recs = [c["logprobs"] for ev in events[:-1] for c in ev["choices"]
+            if c.get("logprobs")]
+    got = {k: [r[k][0] for r in recs] for k in ("tokens", "token_logprobs",
+                                                 "top_logprobs")}
+    if len(recs) != 8 or any(got[k] != lw[k] for k in got):
+        raise AssertionError(f"{tag} logprobs stream {got} vs {lw}")
+    log(f"{tag} logprobs 2 stream: 8 per-token chunks, records equal to the "
+        f"non-streamed ones (tokens, logprobs, top 2)")
+
+
+FAILOVER_TOKENS = 48
+FAILOVER_CUT = 5
+
+
+def phase_failover(torch, np, engine):
+    """The failover continuation on the card: a second engine with the same
+    seeded weights and ``derived_seed`` as ``engine`` (the paged bf16 one),
+    both behind in-process servers (prefix caches off, so that a repeated
+    prompt prefills alike). For a greedy and a seeded sampled request:
+    the undisturbed stream on server A; the same stream read for
+    ``FAILOVER_CUT`` chunks and closed (A's slot and pages must come back);
+    the rest from server B as the JAX router asks for it (``resume_token_ids``
+    = the ids received, ``resume_text_chars`` = the characters received,
+    ``max_tokens`` decremented). The spliced stream must equal the
+    undisturbed one, text and ids. Where it does not, the first differing
+    token is allowed only where the undisturbed stream's top-2 logit margin
+    is below ``LOGIT_TOL`` (B rebuilt prompt + relayed tokens through the
+    chunk program, where A wrote the relayed tokens' rows one decode row at
+    a time): the position and margin are printed, every token before it
+    must be equal, and the phase fails otherwise."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    serving = engine.serving
+    engine.serving = dataclasses.replace(serving, prefix_cache=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(QWEN3_0_6B, gen, torch.bfloat16)
+    engine_b = Engine(QWEN3_0_6B, params, engine.serving, device="cuda")
+    del params
+    servers = [_serve_in_process(e) for e in (engine, engine_b)]
+    (a, _), (b, _) = servers
+    url = "/v1/completions"
+    results = []
+    try:
+        for label, extra in (("greedy", {}),
+                             ("seeded", {"seed": 1000, "temperature": 0.7,
+                                         "top_p": 0.95})):
+            body = {"prompt": f"Failover {label}", "stream": True,
+                    "max_tokens": FAILOVER_TOKENS, "ignore_eos": True,
+                    **extra}
+            _settled(engine)
+            whole, _ = _sse(a, url, body)
+            _whole_stream(whole, f"undisturbed {label} stream")
+            _settled(engine)
+            head, _ = _sse(a, url, body, close_after=FAILOVER_CUT)
+            # A notices the closed connection at its next write
+            _settled(engine)
+            h_text, h_ids, _ = _stream_parts(head)
+            cont = {**body, "resume_token_ids": h_ids,
+                    "resume_text_chars": len(h_text),
+                    "max_tokens": FAILOVER_TOKENS - len(h_ids)}
+            _settled(engine_b)
+            tail, _ = _sse(b, url, cont)
+            _whole_stream(tail, f"continuation {label} stream")
+            _settled(engine_b)
+            if any("role" in (c.get("delta") or {}) for ev in tail[:-1]
+                   for c in ev["choices"]):
+                raise AssertionError("a continuation sent a role chunk")
+            w_text, w_ids, w_fin = _stream_parts(whole)
+            s_text, s_ids, s_fin = _stream_parts(head + tail)
+            if (s_text, s_ids, s_fin) == (w_text, w_ids, w_fin):
+                results.append(f"{label}: spliced = undisturbed "
+                               f"({len(w_ids)} tokens, cut after "
+                               f"{len(h_ids)})")
+                continue
+            p = next((i for i, (x, y) in enumerate(zip(s_ids, w_ids))
+                      if x != y), min(len(s_ids), len(w_ids)))
+            _settled(engine)
+            rec = _completion(a, {**{k: v for k, v in body.items()
+                                     if k != "stream"},
+                                  "max_tokens": p + 1, "logprobs": 2})
+            r_ids = [int(t) for t in rec["choices"][0]["text"].split()]
+            if r_ids != w_ids[:p + 1]:
+                raise AssertionError(f"{label}: the logprobs run {r_ids} is "
+                                     f"not the undisturbed stream "
+                                     f"{w_ids[:p + 1]}")
+            top = sorted(rec["choices"][0]["logprobs"]["top_logprobs"][p]
+                         .values(), reverse=True)
+            margin = top[0] - top[1]
+            msg = (f"{label}: the spliced stream parts from the undisturbed "
+                   f"one at token {p} of {len(w_ids)} (cut after "
+                   f"{len(h_ids)}), where the undisturbed top-2 logit margin "
+                   f"is {margin:.4f}")
+            if p < len(h_ids) or margin >= LOGIT_TOL or \
+                    s_ids[:p] != w_ids[:p]:
+                raise AssertionError(msg + f" (tolerance {LOGIT_TOL})")
+            results.append(msg)
+    finally:
+        for _, stop in servers:
+            stop()
+        engine.serving = serving
+    del engine_b
+    log("[failover] two servers on one card, the same weights and "
+        "derived_seed; a stream cut on A and continued on B: "
+        + "; ".join(results))
+
+
+def _serve_in_process(engine):
+    """The port's HTTP server over ``engine`` on a free port, the engine
+    stepping on its own thread; (base URL, stop function). Its tokenizer
+    encodes bytes and decodes token ids as their decimal numbers, so that
+    the random-weight model's streams (ids far past the byte range) show
+    in the text."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
+        ServerState, make_server)
+    from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
+        ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids, *args, **kwargs):
+            return " ".join(str(int(t)) for t in ids)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    state = ServerState(engine, IdTokenizer(), engine.cfg.name)
+    server = make_server(state, "127.0.0.1", port)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        state.stop_engine()
+        th.join(10)
+
+    return f"http://127.0.0.1:{port}", stop
+
+
+def phase_prefill_batch(torch, np):
+    """C22: one prompt prefilled in a batch of one and in a batch of three
+    (three copies of it, as an ``n`` 3 request admits them, and it beside
+    two other prompts), Qwen3-0.6B at full width with the engine's int8
+    weights over a bf16 paged pool; the prompt has the same bucket (32) and
+    the same page in every run. Prints, layer by layer, the largest
+    difference of the prompt's rows in q, k, v (projections and q/k
+    prologue), the attention output and the K/V rows written, the first
+    layer and stage where one appears, and the last position's logits
+    (largest difference, greedy tokens, top-2 margin); then the suspects
+    alone on identical inputs: each projection's GEMM and the logits head
+    over 32 rows and over 96 (each against a float64 product), and the
+    attention of the prompt alone and in the batch. Returns the logits'
+    largest difference."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, _linear, causal_attend, init_params, rms_norm)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        make_prefill_attend_batch_paged_carry
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    cfg = QWEN3_0_6B
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = DecoderLM(cfg, quantize_params(init_params(cfg, gen,
+                                                       torch.bfloat16), cfg))
+    rng = np.random.default_rng(22)
+    T, ps, n = 32, 64, 16
+    prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+    others = [rng.integers(0, cfg.vocab_size, m).tolist() for m in (29, 23)]
+
+    def run(prompts):
+        N = len(prompts)
+        tokens = torch.zeros((N, T), dtype=torch.int32, device="cuda")
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                            device="cuda")
+        tables = torch.arange(1, N + 1, dtype=torch.int32,
+                              device="cuda")[:, None]
+        pool = pkv.init_pool(cfg, N + 1, ps, torch.bfloat16, "cuda")
+        attend = make_prefill_attend_batch_paged_carry(tables, lens)
+        rec = []
+
+        def recording(q, k, v, cache_l):
+            ctx, out = attend(q, k, v, cache_l)
+            rec.append({"q": q[0, :n].clone(), "k": k[0, :n].clone(),
+                        "v": v[0, :n].clone(), "ctx": ctx[0, :n].clone()})
+            return ctx, out
+
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device="cuda")[None].expand(N, T)
+        logits, pool = model.forward_carry(tokens, positions, pool,
+                                           recording)
+        torch.cuda.synchronize()
+        last = logits[torch.arange(N, device="cuda"), lens.long() - 1]
+        return rec, pool, last.float()
+
+    base, pool1, last1 = run([prompt])
+    logits1 = last1[0]
+    worst = 0.0
+    for label, batch in (("3 copies", [prompt] * 3),
+                         ("beside 2 others", [prompt] + others)):
+        rec, pool3, last3 = run(batch)
+        logits3 = last3[0]
+        first = None
+        rows = []
+        for layer, (a, b) in enumerate(zip(base, rec)):
+            d = {s: (a[s].float() - b[s].float()).abs().max().item()
+                 for s in ("q", "k", "v", "ctx")}
+            for s in ("k", "v"):
+                d[s + " rows"] = (pool1[s][layer, 1, :, :n].float()
+                                  - pool3[s][layer, 1, :, :n].float()
+                                  ).abs().max().item()
+            if first is None and any(d.values()):
+                first = (layer, [s for s in ("q", "k", "v", "k rows",
+                                             "v rows", "ctx") if d[s]][0])
+            rows.append(d)
+        diff = (logits1 - logits3).abs().max().item()
+        worst = max(worst, diff)
+        top = torch.topk(logits1, 2).values
+        log(f"[C22] {label}: first difference at "
+            + (f"layer {first[0]}, {first[1]}" if first else "none")
+            + f"; per layer max |diff| of q k v ctx (layers 0, 1, "
+            f"{cfg.num_layers - 1}): "
+            + "; ".join(f"{i}: " + " ".join(f"{rows[i][s]:.3g}"
+                                            for s in ("q", "k", "v", "ctx"))
+                        for i in (0, 1, cfg.num_layers - 1))
+            + f"; K/V rows written, layer 0 {rows[0]['k rows']:.3g} / "
+            f"{rows[0]['v rows']:.3g}, largest over layers "
+            f"{max(r['k rows'] for r in rows):.3g} / "
+            f"{max(r['v rows'] for r in rows):.3g}; last position's logits "
+            f"max |diff| {diff:.4f} (tolerance {LOGIT_TOL}), greedy "
+            f"{int(logits1.argmax())} / {int(logits3.argmax())}, top-2 "
+            f"margin {float(top[0] - top[1]):.4f}"
+            + ("; the 3 copies' logits among themselves "
+               + ("identical" if all(torch.equal(last3[0], last3[i])
+                                     for i in (1, 2)) else "DIFFERENT")
+               if label == "3 copies" else ""))
+    # the suspects alone on identical inputs: every projection of layer 1
+    # (the int8 weights' bf16 copy, the GEMM, the scale) and the tied
+    # logits head, over 32 rows and over 96 whose first 32 are the same,
+    # each against a float64 product; then layer 0's attention of the same
+    # q, k, v alone and in a batch of 3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import \
+        _final_logits
+
+    params, layers = model._cached()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    parts = []
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                 "head"):
+        if name == "head":
+            K = cfg.hidden_size
+            x = torch.randn((3, T, K), generator=g, device="cuda")
+            x = x.to(torch.bfloat16)
+            y1 = _final_logits(params, cfg, x[:1])[0].float()
+            y3 = _final_logits(params, cfg, x)[0].float()
+            emb = params["embed"]
+            w = emb["weight"].double().T * emb["scale"].double()
+            h = rms_norm(x[0], params["final_norm"]["weight"], cfg.norm_eps)
+        else:
+            p = layers[1][name]
+            K = p["kernel"].shape[0]
+            x = torch.randn((3, T, K), generator=g, device="cuda")
+            x = x.to(torch.bfloat16)
+            y1 = _linear(x[:1], p)[0].float()
+            y3 = _linear(x, p)[0].float()
+            w = p["kernel"].double() * p["scale"].double()
+            h = x[0]
+        ref = (h.double() @ w).float()
+        # one bf16 ulp of each output row's largest value: a near-zero
+        # output's own ulp is far below the float32 sum's rounding
+        ulp = _bf16_ulp(torch, ref.abs().amax(-1, keepdim=True))
+        parts.append(
+            f"{name} [{T}|{3 * T} x {K} x {y1.shape[-1]}] "
+            f"{int((y1 != y3).sum())}/{y1.numel()} differ (max "
+            f"{(y1 - y3).abs().max().item():.3g}), err/ulp "
+            f"{((y1 - ref).abs() / ulp).max().item():.2f} | "
+            f"{((y3 - ref).abs() / ulp).max().item():.2f}")
+    q = base[0]["q"][None]
+    k, v = base[0]["k"][None], base[0]["v"][None]
+    pad = [torch.randn_like(q) for _ in range(2)]
+    lens1 = torch.tensor([n], dtype=torch.int32, device="cuda")
+    lens3 = torch.tensor([n, n, n], dtype=torch.int32, device="cuda")
+    a1 = causal_attend(q, k, v, seq_lens=lens1)[0].float()
+    a3 = causal_attend(torch.cat([q] + pad), torch.cat([k] * 3),
+                       torch.cat([v] * 3), seq_lens=lens3)[0].float()
+    log("[C22] alone, the projections over 32 rows vs 96 (outputs that "
+        "differ; each against float64, in bf16 ulps of the row's largest "
+        "value, 32 | 96 rows): "
+        + "; ".join(parts) + f"; layer 0 attention of the same q, k, v "
+        f"alone and in a batch of 3: max |diff| "
+        f"{(a1 - a3).abs().max().item():.4g}")
+    return worst
 
 
 def _http(url, body=None, headers=None, timeout=300):
@@ -4281,15 +4745,45 @@ def _lifecycle(engine, base, tag):
 
 
 SERVER_PROCESS_TOKENS = 1024
+# the streams timed on the server process: how many, and their tokens
+TTFT_STREAMS = 5
+TTFT_TOKENS = 64
+# a bias that makes every token a byte, so that the byte tokenizer of the
+# server process gives each token its own text and chunk
+BYTE_BIAS = {"65": 100}
+
+
+def _stream_timing(base):
+    """``TTFT_STREAMS`` greedy streams of ``TTFT_TOKENS`` tokens, one at a
+    time, on the host's clock: the time from the request's send to its
+    first content chunk, and the gaps between its content chunks."""
+    ttft, gaps = [], []
+    for i in range(TTFT_STREAMS):
+        events, times = _sse(base, "/v1/completions", {
+            "prompt": f"Time to first token {i}", "stream": True,
+            "max_tokens": TTFT_TOKENS, "ignore_eos": True,
+            "logit_bias": BYTE_BIAS})
+        _whole_stream(events, "a timed stream")
+        t = [times[j + 1] for j, ev in enumerate(events) if ev != "[DONE]"
+             and any(c.get("token_ids") for c in ev["choices"])]
+        if len(_stream_parts(events)[1]) != TTFT_TOKENS:
+            raise AssertionError(f"a timed stream: {events[-3:]}")
+        ttft.append((t[0] - times[0]) * 1e3)
+        gaps += [(y - x) * 1e3 for x, y in zip(t, t[1:])]
+    return ttft, gaps
 
 
 def phase_server_process():
     """The server as a process, as a pod runs it
     (``python -m aws_k8s_ansible_provisioner_tpu_torch.serving.server
     --device cuda``: Qwen3-0.6B, random int8 weights, 32 slots): the
-    seconds until ``/readyz`` answers 200; SIGTERM while a completion of
-    ``SERVER_PROCESS_TOKENS`` runs, which must answer 200 with every
-    token; the process must exit 0 within ``--drain-timeout``."""
+    seconds until ``/readyz`` answers 200; the client's time to the first
+    content chunk of a stream and the gaps between its chunks
+    (:func:`_stream_timing`); SIGTERM while a completion and a stream of
+    ``SERVER_PROCESS_TOKENS`` tokens run: the completion must answer 200
+    with every token, the stream end with its finish chunk and ``[DONE]``
+    after every token, and the process exit 0 within
+    ``--drain-timeout``."""
     import signal
 
     drain_timeout = 30
@@ -4325,33 +4819,60 @@ def phase_server_process():
         t_ready = time.monotonic() - t_start
         log(f"[server process] /readyz 200 {t_ready:.1f}s after the start "
             f"(interpreter, torch, random weights, engine, graph capture)")
+        ttft, gaps = _stream_timing(base)
+        qs = statistics.quantiles(gaps, n=100)
+        log(f"[server process] streamed, client side ({TTFT_STREAMS} greedy "
+            f"streams of {TTFT_TOKENS} tokens, one at a time, the host's "
+            f"clock): time to the first content chunk "
+            + ", ".join(f"{x:.2f}" for x in ttft)
+            + f" ms (p50 {statistics.median(ttft):.2f}); gaps between "
+            f"chunks p50 {statistics.median(gaps):.3f} ms, p90 "
+            f"{qs[89]:.3f}, max {max(gaps):.3f} ({len(gaps)} gaps, "
+            f"{sum(g > 5.0 for g in gaps)} above 5 ms)")
         done = {}
         th = threading.Thread(target=lambda: done.setdefault("out", _http(
             base + "/v1/completions",
             {"prompt": "SIGTERM", "max_tokens": SERVER_PROCESS_TOKENS,
              "ignore_eos": True})))
+        ths = threading.Thread(target=lambda: done.setdefault(
+            "stream", _sse(base, "/v1/completions", {
+                "prompt": "SIGTERM stream", "stream": True,
+                "max_tokens": SERVER_PROCESS_TOKENS, "ignore_eos": True,
+                "logit_bias": BYTE_BIAS})))
         th.start()
-        while _http(base + "/load")[1]["active"] < 1:
-            if not th.is_alive():
-                raise AssertionError(f"the completion ended before it "
-                                     f"was seen running: {done}")
+        ths.start()
+        while _http(base + "/load")[1]["active"] < 2:
+            if not th.is_alive() or not ths.is_alive():
+                raise AssertionError(f"a request ended before both were "
+                                     f"seen running: {done}")
             time.sleep(0.002)
         proc.send_signal(signal.SIGTERM)
         t_term = time.monotonic()
         code = proc.wait(timeout=drain_timeout + 30)
         t_exit = time.monotonic() - t_term
         th.join(60)
+        ths.join(60)
         out = done.get("out")
         if out is None or out[0] != 200 or out[1]["usage"][
                 "completion_tokens"] != SERVER_PROCESS_TOKENS:
             raise AssertionError(f"the completion in flight at SIGTERM: "
                                  f"{out}")
+        events = done.get("stream", ([], []))[0]
+        _whole_stream(events, "the stream in flight at SIGTERM")
+        text, ids, finish = _stream_parts(events)
+        if len(ids) != SERVER_PROCESS_TOKENS or finish != "length" or \
+                len(text) != SERVER_PROCESS_TOKENS:
+            raise AssertionError(f"the stream in flight at SIGTERM: "
+                                 f"{len(ids)} ids, {len(text)} characters, "
+                                 f"finish {finish}")
         if code != 0 or t_exit > drain_timeout:
             raise AssertionError(f"the server exited {code} after "
                                  f"{t_exit:.1f}s: {''.join(lines[-20:])}")
         log(f"[server process] SIGTERM during a {SERVER_PROCESS_TOKENS}-"
-            f"token completion: it answered 200 with every token; exit 0 "
-            f"{t_exit:.2f}s after SIGTERM (--drain-timeout "
+            f"token completion and a {SERVER_PROCESS_TOKENS}-token stream: "
+            f"the completion answered 200 with every token, the stream "
+            f"ended with its finish chunk and [DONE] after every token; "
+            f"exit 0 {t_exit:.2f}s after SIGTERM (--drain-timeout "
             f"{drain_timeout})")
     finally:
         if proc.poll() is None:
@@ -4409,8 +4930,11 @@ def main() -> int:
             _phase("server lifecycle", phase_server, engine, True)
             _phase("pipeline, paged", phase_pipeline, torch, np, engine)
         else:
-            phase_server(engine, fields=True)
+            _phase("server, fields and streams", phase_server, engine,
+                   False, True)
             _phase("request fields", phase_fields, torch, np, engine)
+            _phase("failover", phase_failover, torch, np, engine)
+            _phase("prefill batch (C22)", phase_prefill_batch, torch, np)
         runs[kv_dtype] = launches
         del engine
         _free(torch)

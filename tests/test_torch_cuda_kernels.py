@@ -1882,3 +1882,55 @@ def test_prep_write_empty_call_counts_no_launch(dev, quant):
     torch.cuda.synchronize()
     for got, want in zip(pools + cache, ref):
         assert torch.equal(got, want)
+
+
+def test_prefill_batch_of_three_within_logits_tolerance(dev):
+    """C22, a difference by design: one prompt prefilled alone and in a
+    batch of three (three copies of it, as an ``n`` = 3 request admits
+    them) at the full width of Qwen3-0.6B (the engine's int8 weights, a
+    bf16 paged pool, the same bucket and page in both runs). cuBLAS picks
+    a GEMM's algorithm by its row count (on the H100 the MLP's down
+    projection, 3072 -> 1024, sums 96 rows apart from 32, where the
+    attention, the other projections and the logits head give the prompt's
+    rows bit for bit; ``chip_smoke.phase_prefill_batch``), so the
+    two prefills round apart: the first token's logits differ by at most
+    the Qwen3 logits tolerance (0.1), and the greedy first token is the
+    same."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        make_prefill_attend_batch_paged_carry
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    cfg = QWEN3_0_6B
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = DecoderLM(cfg, quantize_params(init_params(cfg, gen,
+                                                       torch.bfloat16), cfg))
+    n, T = 16, 32
+    prompt = torch.from_numpy(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, n).astype(np.int32)).to(dev)
+
+    def first_logits(N):
+        tokens = torch.zeros((N, T), dtype=torch.int32, device=dev)
+        tokens[:, :n] = prompt
+        lens = torch.full((N,), n, dtype=torch.int32, device=dev)
+        tables = torch.arange(1, N + 1, dtype=torch.int32, device=dev)[:, None]
+        pool = pkv.init_pool(cfg, N + 1, 64, torch.bfloat16, dev)
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=dev)[None].expand(N, T)
+        logits, _ = model.forward_carry(
+            tokens, positions, pool,
+            make_prefill_attend_batch_paged_carry(tables, lens))
+        return logits[:, n - 1].float()
+
+    one, three = first_logits(1), first_logits(3)
+    torch.cuda.synchronize()
+    assert (one[0] - three[0]).abs().max().item() <= 0.1
+    assert int(one[0].argmax()) == int(three[0].argmax())
+    # the three copies in one batch agree with each other exactly
+    assert torch.equal(three[0], three[1]) and torch.equal(three[0],
+                                                           three[2])

@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("config", "ops.paged_attention", "ops.dense_attention",
                 "ops.sampling", "serving.engine", "serving.draft",
                 "serving.kv_cache", "serving.paged_kv", "serving.server",
-                "serving.metrics",
+                "serving.metrics", "serving.chat_template",
                 "models.layers", "models.convert", "utils.tokenizer",
                 "parallel.mesh", "parallel.sharding"):
         assert f"{port.__name__}.{mod}" in expected

@@ -1,7 +1,9 @@
 """The port's HTTP server on the CPU: ``/v1/models``, ``/v1/completions``
 (the OpenAI ``seed`` included; the request fields the port does not serve
 yet refused unless neutral) and ``/health`` over a real socket, with
-tiny_qwen3 and the byte tokenizer.
+tiny_qwen3 and the byte tokenizer. Streaming, chat and the continuation
+are held in ``test_torch_stream.py``, ``test_torch_chat.py`` and
+``test_torch_failover.py``, which share this file's JAX server fixtures.
 """
 
 import json
@@ -111,9 +113,10 @@ def test_seed_makes_a_sampled_completion_repeatable(server):
 
 _BARE = {"prompt": [72, 105, 33], "max_tokens": 5, "ignore_eos": True}
 # the JAX server's completions fields the port does not serve yet: a value
-# other than the neutral one is refused, naming the field
-_REFUSED = [({"resume_token_ids": [1, 2]}, "resume_token_ids"),
-            ({"response_format": {"type": "json_object"}},
+# other than the neutral one is refused, naming the field (numbered from 1:
+# ``resume_token_ids``, case 0 until the continuation was served, has left
+# the list)
+_REFUSED = [({"response_format": {"type": "json_object"}},
              "response_format"),
             ({"guided_json": {"type": "object"}}, "guided_json"),
             ({"guided_regex": "a+"}, "guided_regex"),
@@ -124,12 +127,13 @@ _NEUTRAL = [{"n": 1}, {"echo": False}, {"logprobs": None}, {"stop": None},
             {"frequency_penalty": 0}, {"repetition_penalty": 1.0},
             {"min_tokens": 0}, {"best_of": 1}, {"n": 1, "best_of": 1},
             {"logit_bias": {}}, {"top_logprobs": 0},
-            {"response_format": {"type": "text"}}]
+            {"response_format": {"type": "text"}}, {"stream": False},
+            {"resume_token_ids": None}, {"stream_options": None}]
 
 
 @pytest.mark.parametrize("extra,refused", [
     pytest.param(extra, field, id=f"refused-{field}-{i}")
-    for i, (extra, field) in enumerate(_REFUSED)] + [
+    for i, (extra, field) in enumerate(_REFUSED, start=1)] + [
     pytest.param(extra, None, id="neutral-" + "-".join(extra) + f"-{i}")
     for i, extra in enumerate(_NEUTRAL)])
 def test_unserved_fields_are_refused_unless_neutral(server, extra, refused):
