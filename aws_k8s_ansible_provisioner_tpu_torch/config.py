@@ -4,8 +4,8 @@ The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
 Only the serving fields the port reads are here; the rest of the JAX
-``ServingConfig`` (checkpoint loading, LoRA, guided decoding, tracing,
-telemetry) comes over with the slices that port those features.
+``ServingConfig`` (LoRA, guided decoding, tracing, telemetry) comes over
+with the slices that port those features.
 """
 
 from __future__ import annotations
@@ -321,3 +321,9 @@ class ServingConfig:
     # The serving mesh: more than one device shards the dense cache's
     # sequence axis over ``sp`` (``Engine._build_mesh``).
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # A local HF checkpoint directory (config.json, *.safetensors, the
+    # tokenizer's files): the served model, its weights and its tokenizer;
+    # empty serves ``model``'s random weights and the byte tokenizer
+    checkpoint_dir: str = ""
+    # The draft model's checkpoint directory (spec_method="draft")
+    draft_checkpoint_dir: str = ""

@@ -194,8 +194,8 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    BAN_K, BIAS_K, LOGPROB_K, NO_TOKEN, DecodeGraphs, _host_lp, mixed_step,
-    prefill_batch_step, prefill_chunk_step, spec_decode_step)
+    BAN_K, BIAS_K, LOGPROB_K, NO_TOKEN, DecodeGraphs, _host_lp, decode_steps,
+    mixed_step, prefill_batch_step, prefill_chunk_step, spec_decode_step)
 
 log = logging.getLogger(__name__)
 
@@ -2035,6 +2035,306 @@ class Engine:
         self.counts["finished"] += 1
         self.metrics.active_requests.set(len(self._active_slots()))
         req.out_queue.put(None)
+
+    # -- warmup and the AOT manifest ----------------------------------------
+
+    def warmup(self, record: Optional[list] = None) -> float:
+        """Run once every eager program the configuration can dispatch
+        (the counterpart of the JAX ``EnginePrograms.warmup``), so that
+        the first request does not pay their first launches: the kernels'
+        libraries loading, cuBLAS picking its algorithms, the caching
+        allocator growing. The decode graphs were captured when the engine
+        was built and are not touched. Returns the wall seconds, which also
+        go to ``tpu_serve_compile_seconds_total``; with ``record`` (a list),
+        one ``{"name", "seconds", "peak_bytes"}`` per program is appended
+        (peak device bytes above the allocation before the program; None on
+        the CPU).
+
+        The programs run on scratch operands and write nothing that a
+        request reads: the paged prefills' tables drop every row, the
+        kernels' writes land in the scratch page 0, the dense prefills
+        target a slot outside the cache, the dense chunk writes a free
+        slot's rows past those it holds as a prefix source, the dense copy
+        copies a slot's rows onto themselves, the dense verify and decode
+        write each slot's rows from its length on (where idle decoding
+        writes), and the draft model writes its dead rows. The pool's pages
+        and tables, the prefix index, the host tier, the slots, ``counts``,
+        the other metrics and the seed draws are left as they were, which
+        requires an idle engine (RuntimeError otherwise)."""
+        if not self.idle():
+            raise RuntimeError("warmup needs an idle engine (nothing queued, "
+                               "running or in flight)")
+        t0 = time.monotonic()
+        try:
+            for name, run in self._warmup_programs():
+                cuda = self.device.type == "cuda"
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                    base = torch.cuda.memory_allocated(self.device)
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                t = time.monotonic()
+                run()
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                if record is not None:
+                    record.append({
+                        "name": name, "seconds": time.monotonic() - t,
+                        "peak_bytes": (torch.cuda.max_memory_allocated(
+                            self.device) - base) if cuda else None})
+        finally:
+            dt = time.monotonic() - t0
+            self.metrics.compile_seconds.inc(dt)
+        return dt
+
+    def _warmup_ops(self, n: int, fields: bool = False) -> dict:
+        """Scratch sampling and logit operands of ``n`` rows: greedy and
+        neutral, or (``fields``) sampled with a logit bias, a live
+        min_tokens ban and a repetition penalty, so that every branch of
+        the logit processing runs."""
+        dev = self.device
+        ban_ids = torch.full((n, BAN_K), NO_TOKEN, dtype=torch.int32,
+                             device=dev)
+        bias_ids = torch.full((n, BIAS_K), NO_TOKEN, dtype=torch.int32,
+                              device=dev)
+        bias_vals = torch.zeros((n, BIAS_K), device=dev)
+        if fields:
+            ban_ids[:, 0] = self.eos_token_id
+            bias_ids[:, 0] = 1
+            bias_vals[:, 0] = 1.0
+        return dict(
+            temps=torch.full((n,), 0.7 if fields else 0.0, device=dev),
+            top_ks=torch.full((n,), 20 if fields else 0, dtype=torch.int32,
+                              device=dev),
+            top_ps=torch.full((n,), 0.9 if fields else 1.0, device=dev),
+            seeds=torch.arange(n, dtype=torch.int64, device=dev),
+            ban_ids=ban_ids,
+            ban_until=torch.full((n,), self.max_len if fields else 0,
+                                 dtype=torch.int32, device=dev),
+            bias_ids=bias_ids, bias_vals=bias_vals,
+            reps=torch.full((n,), 1.1, device=dev) if fields else None)
+
+    def _warmup_tokens(self, n: int, T: int, seed: int) -> torch.Tensor:
+        """[n, T] distinct token ids below the vocabulary."""
+        ids = (np.arange(n * T, dtype=np.int64).reshape(n, T) * 7 + seed) \
+            % max(1, self.cfg.vocab_size - 1)
+        return self._dev(ids.astype(np.int32))
+
+    def _warmup_scratch_rows(self, rows: int) -> Optional[tuple]:
+        """Dense: (slot, first row) of ``rows`` dead rows of a free slot,
+        past the prompt rows it still holds as a prefix source (the fewest
+        such rows first); None when no free slot has room."""
+        best = None
+        for slot in self._free:
+            start = len(self._slot_tokens[slot])
+            if start + rows <= self.max_len and \
+                    (best is None or start < best[1]):
+                best = (slot, start)
+        return best
+
+    def _warmup_programs(self):
+        """(name, thunk) for every eager program this configuration can
+        dispatch, in the JAX warmup's order."""
+        dev, B, V = self.device, self.num_slots, self.cfg.vocab_size
+        model, limit = self.model, self.max_len - 2
+        i32 = torch.int32
+        progs = []
+
+        def prefill(b: int, n: int, fields: bool):
+            rows = min(b, limit)
+            ops = self._warmup_ops(n, fields)
+            tables = torch.full((n, self.pages_per_slot), int(pkv.OOB_PAGE),
+                                dtype=i32, device=dev) if self.paged else None
+            slots = None if self.paged else \
+                torch.full((n,), B, dtype=i32, device=dev)   # drops
+            prefill_batch_step(
+                model, self.cache, self._warmup_tokens(n, b, b),
+                torch.full((n,), rows, dtype=i32, device=dev), tables,
+                ops["temps"], ops["top_ks"], ops["top_ps"], ops["seeds"],
+                slots=slots, ban_ids=ops["ban_ids"],
+                ban_until=ops["ban_until"], bias_ids=ops["bias_ids"],
+                bias_vals=ops["bias_vals"], reps=ops["reps"],
+                logprobs=fields, prompt_logprobs=LOGPROB_K if fields else 0)
+
+        for b in self.buckets:
+            progs.append((f"prefill_b{b}",
+                          lambda b=b: prefill(b, 1, False)))
+        b0 = self.buckets[0]
+        progs.append((f"prefill_b{b0}_fields",
+                      lambda: prefill(b0, 1, True)))
+        nb = min(max(1, self.serving.max_prefill_batch), B)
+        if nb > 1:
+            progs.append((f"prefill_batch_n{nb}_b{b0}",
+                          lambda: prefill(b0, nb, False)))
+            progs.append((f"prefill_batch_n{nb}_b{b0}_fields",
+                          lambda: prefill(b0, nb, True)))
+        C = self._chunk_size
+        if self.paged:
+            def mixed(fields: bool):
+                ops = self._warmup_ops(B, fields)
+                pen = dict(counts=torch.zeros((B, V), dtype=i32, device=dev),
+                           presence=torch.full((B,), 0.5, device=dev),
+                           frequency=torch.full((B,), 0.5, device=dev),
+                           repetition=ops["reps"],
+                           prompt_mask=torch.zeros((B, V), dtype=torch.bool,
+                                                   device=dev)) \
+                    if fields else {}
+                seen = torch.ones(V, dtype=torch.bool, device=dev) \
+                    if fields else None
+                mixed_step(
+                    model, self.cache, torch.zeros(B, dtype=i32, device=dev),
+                    torch.zeros(B, dtype=i32, device=dev),
+                    self._warmup_tokens(1, C, 97), 0, 0, C,
+                    torch.zeros((B, self.pages_per_slot), dtype=i32,
+                                device=dev),
+                    ops["temps"], ops["top_ks"], ops["top_ps"], ops["seeds"],
+                    0.7 if fields else 0.0, 20 if fields else 0,
+                    0.9 if fields else 1.0, 5, any_sampled=fields,
+                    ban_ids=ops["ban_ids"], ban_until=ops["ban_until"],
+                    bias_ids=ops["bias_ids"], bias_vals=ops["bias_vals"],
+                    prep=1.1 if fields else 1.0, prep_seen=seen,
+                    logprobs=fields, chunk_logprobs=fields,
+                    chunk_prompt_logprobs=LOGPROB_K if fields else 0, **pen)
+
+            progs.append((f"mixed_c{C}", lambda: mixed(False)))
+            progs.append((f"mixed_c{C}_fields", lambda: mixed(True)))
+            if self.host_tier is not None:
+                def restore():
+                    data = pkv.gather_pages(self.cache, [0])
+                    entry = {name: (a[:, 0].cpu().pin_memory()
+                                    if dev.type == "cuda" else a[:, 0].cpu())
+                             for name, a in data.items()}
+                    pkv.restore_pages(self.cache, [0],
+                                      pkv.upload_pages([entry], dev))
+
+                progs.append(("prefix_spill_restore", restore))
+        else:
+            scratch = self._warmup_scratch_rows(C)
+            if scratch is None:
+                log.info("warmup: no free slot has %d dead rows; the dense "
+                         "chunk program is not warmed", C)
+            else:
+                slot, start = scratch
+
+                def chunk(fields: bool):
+                    ops = self._warmup_ops(1, fields)
+                    seen = torch.ones(V, dtype=torch.bool, device=dev) \
+                        if fields else None
+                    prefill_chunk_step(
+                        model, self.cache, self._warmup_tokens(1, C, 97),
+                        start, slot, C, ops["temps"], ops["top_ks"],
+                        ops["top_ps"], ops["seeds"], ban_ids=ops["ban_ids"],
+                        ban_until=ops["ban_until"], bias_ids=ops["bias_ids"],
+                        bias_vals=ops["bias_vals"],
+                        rep=1.1 if fields else 1.0, rep_seen=seen,
+                        logprobs=fields)
+
+                progs.append((f"chunk_c{C}", lambda: chunk(False)))
+                progs.append((f"chunk_c{C}_fields", lambda: chunk(True)))
+            if self.serving.prefix_cache and self._free:
+                # a slot's rows copied onto themselves: no value changes
+                src = self._free[-1]
+                progs.append(("prefix_copy", lambda: kvc.copy_prefix(
+                    self.cache, src, src, min(C, self.max_len))))
+
+        def lengths(rows: int) -> torch.Tensor:
+            """Each slot's write row: 0 (the paged scratch page), else its
+            length, capped so that ``rows`` rows fit the window."""
+            if self.paged:
+                return torch.zeros(B, dtype=i32, device=dev)
+            return self._dev(np.minimum(self.lengths, self.max_len - rows)
+                             .astype(np.int32))
+
+        table = torch.zeros((B, self.pages_per_slot), dtype=i32,
+                            device=dev) if self.paged else None
+        if not self.decoder.graphs:
+            # the CPU and the sp mesh decode eagerly
+            def decode():
+                ops = self._warmup_ops(B)
+                decode_steps(model, 1, self.cache,
+                             torch.zeros(B, dtype=i32, device=dev),
+                             lengths(1), table, ops["temps"], ops["top_ks"],
+                             ops["top_ps"], ops["seeds"],
+                             bblock=self.decode_bblock, mesh=self.mesh,
+                             any_sampled=False, ban_ids=ops["ban_ids"],
+                             ban_until=ops["ban_until"],
+                             bias_ids=ops["bias_ids"],
+                             bias_vals=ops["bias_vals"])
+
+            progs.append(("decode_h1", decode))
+        if self.spec_decode:
+            R = self.serving.spec_k + 1
+
+            def verify():
+                ops = self._warmup_ops(B)
+                spec_decode_step(model, R, self.cache,
+                                 torch.zeros((B, R), dtype=i32, device=dev),
+                                 lengths(R), table, ops["temps"],
+                                 ops["top_ks"], ops["top_ps"], ops["seeds"])
+
+            progs.append((f"spec_verify_r{R}", verify))
+        if self.draft is not None:
+            dr, K = self.draft, self.serving.spec_k
+            dlens = self._dev(np.minimum(dr.lens, self.max_len - K - 1)
+                              .astype(np.int32))
+            progs.append(("draft_prefill", lambda: prefill_batch_step(
+                dr.model, dr.cache, self._warmup_tokens(1, b0, 3),
+                torch.full((1,), min(b0, limit), dtype=i32, device=dev),
+                None, *dr._greedy(1),
+                slots=torch.full((1,), B, dtype=i32, device=dev))))
+            progs.append((f"draft_catch_up_r{K + 1}", lambda: spec_decode_step(
+                dr.model, K + 1, dr.cache,
+                torch.zeros((B, K + 1), dtype=i32, device=dev), dlens, None,
+                *dr._greedy(B))))
+            progs.append((f"draft_rollout_k{K}", lambda: decode_steps(
+                dr.model, K, dr.cache, torch.zeros(B, dtype=i32, device=dev),
+                dlens, None, *dr._greedy(B), any_sampled=False)))
+        return progs
+
+    def load_aot_manifest(self, path: str) -> dict:
+        """Adopt a memory-fit manifest (``serving/aot.py``) for this engine:
+        check its schema, that it was built for this configuration (model,
+        slots, window, page size, buckets, weights and KV dtype, paged: the
+        JAX engine's fingerprint; sp and the speculation setup:
+        ``aot.engine_fingerprint``) and that its ledger fits, then put the
+        ledger's total on ``tpu_serve_hbm_compiled_bytes``. A bad schema or
+        a mismatch raises ValueError, a no-fit ledger RuntimeError: the
+        server calls this before warmup and exits."""
+        import json
+
+        from aws_k8s_ansible_provisioner_tpu_torch.serving.aot import (
+            engine_fingerprint, verify_manifest)
+
+        with open(path, encoding="utf-8") as f:
+            manifest = json.load(f)
+        verify_manifest(manifest)
+        want = engine_fingerprint(self)
+        got = manifest["config"]
+        bad = {k: (got.get(k), v) for k, v in want.items()
+               if got.get(k) != v}
+        if bad:
+            raise ValueError(
+                f"AOT manifest {path} was built for a different program "
+                "set: " + "; ".join(
+                    f"{k}: manifest={a!r} engine={b!r}"
+                    for k, (a, b) in sorted(bad.items())))
+        ledger = manifest["hbm_ledger"]
+        if not ledger["fit"]:
+            raise RuntimeError(
+                f"AOT manifest {path} verdict is NO-FIT: "
+                f"{ledger['total_bytes']} accounted bytes/chip vs "
+                f"{ledger['capacity_bytes_per_chip']} capacity "
+                f"(headroom {ledger['headroom_bytes']})")
+        aot = {
+            "path": path,
+            "platform": manifest["platform"],
+            "programs": len(manifest["programs"]),
+            "total_compile_seconds": manifest["total_compile_seconds"],
+            "hbm_total_bytes": ledger["total_bytes"],
+            "hbm_headroom_bytes": ledger["headroom_bytes"],
+            "fit": True,
+        }
+        self.metrics.hbm_compiled_bytes.set(float(ledger["total_bytes"]))
+        return aot
 
     # -- loop ---------------------------------------------------------------
 

@@ -309,8 +309,9 @@ class EngineMetrics:
         self.decode_bblock = r.register(Gauge(
             "tpu_serve_decode_bblock",
             "Decode kernel batch-block size (slots per grid step)"))
-        # Cold-start observability: warmup compile wall time and the AOT
-        # manifest's per-device memory ledger (not ported yet: zero).
+        # Cold-start observability: Engine.warmup's wall time, and the
+        # total of the memory-fit manifest the engine adopted
+        # (serving/aot.py; 0 without one).
         self.compile_seconds = r.register(Counter(
             "tpu_serve_compile_seconds_total",
             "Wall seconds spent compiling programs at warmup"))

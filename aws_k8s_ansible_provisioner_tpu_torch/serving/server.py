@@ -71,7 +71,17 @@ expired one 408 (``deadline_exceeded``); a request the engine sheds gets
 refused with 400, naming the field, unless it holds its neutral value: a
 completion that silently ignored it would be a wrong answer.
 
-Without a checkpoint the server runs seeded random weights and the byte
+With ``--checkpoint-dir`` it serves a local HF checkpoint directory
+(``build_state``: the directory's config, its weights through the
+converted-params cache, its tokenizer when it has tokenizer files), after
+running every program once (``Engine.warmup``; ``--no-warmup`` skips it)
+and, with ``--aot-manifest``, after checking the memory-fit manifest of
+``serving/aot.py`` against the engine::
+
+    python -m aws_k8s_ansible_provisioner_tpu_torch.serving.server \\
+        --checkpoint-dir /models/Qwen/Qwen3-0.6B --device cuda
+
+Without a checkpoint it runs seeded random weights and the byte
 tokenizer, as the JAX server does without ``--checkpoint-dir``::
 
     python -m aws_k8s_ansible_provisioner_tpu_torch.serving.server \\
@@ -503,30 +513,43 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                 device=None, seed: int = 0) -> ServerState:
     """Wire tokenizer, params, engine and chat templater (``--chat-template``'s
     file, else the tokenizer's template, else the model family's style)
-    into a ServerState. Without a checkpoint: random weights from ``seed``
-    and the byte tokenizer. A
-    ``serving.mesh`` of more than one device takes that many CUDA cards
-    (the engine's ``_build_mesh``), or on the CPU repeats the CPU."""
+    into a ServerState, as the JAX ``build_state`` does. With
+    ``serving.checkpoint_dir``: the directory's config, its tokenizer (the
+    byte tokenizer when it has none that loads, logged) and its weights
+    through the converted-params cache, onto the engine's device. Without:
+    random weights from ``seed`` and the byte tokenizer. With
+    ``spec_method="draft"`` the draft model comes from
+    ``serving.draft_checkpoint_dir`` (required). The engine stops on the
+    tokenizer's eos beside the model's. A ``serving.mesh`` of more than one
+    device takes that many CUDA cards (the engine's ``_build_mesh``), or on
+    the CPU repeats the CPU."""
     import torch
 
     from aws_k8s_ansible_provisioner_tpu_torch.config import (
         MODEL_REGISTRY, ServingConfig, tiny_qwen3)
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
-    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
-    from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
-        ChatTemplater
+    from aws_k8s_ansible_provisioner_tpu_torch.models.checkpoint import \
+        load_checkpoint_cached
+    from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
+        config_from_hf_dir
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
         quantize_params
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
+        ChatTemplater
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import (
         load_tokenizer)
 
     serving = serving or ServingConfig()
     dev = resolve_device(device)
-    tokenizer = tokenizer or load_tokenizer()
+    ckpt = serving.checkpoint_dir or None
+    tokenizer = tokenizer or load_tokenizer(ckpt)
     if model_cfg is None:
-        if serving.model in MODEL_REGISTRY:
+        if ckpt:
+            model_cfg = config_from_hf_dir(ckpt)
+        elif serving.model in MODEL_REGISTRY:
             model_cfg = MODEL_REGISTRY[serving.model]
         elif serving.model == "tiny-qwen3":
             # offline dry-run model sized to the byte tokenizer
@@ -535,22 +558,41 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                                    num_layers=4, hidden_size=128,
                                    intermediate_size=256)
         else:
-            raise ValueError(f"unknown model {serving.model!r}")
+            raise ValueError(f"unknown model {serving.model!r} and no "
+                             f"checkpoint")
     dtype = torch.bfloat16 if serving.dtype == "bfloat16" else torch.float32
     if params is None:
-        log.warning("no checkpoint: serving RANDOM weights (%s, seed %d)",
-                    model_cfg.name, seed)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = init_params(model_cfg, gen, dtype)
+        if ckpt:
+            # the first start converts the shards and caches the tree
+            # beside them; a restart restores it
+            params = load_checkpoint_cached(ckpt, model_cfg, dtype,
+                                            device=dev)
+        else:
+            log.warning("no checkpoint: serving RANDOM weights (%s, seed %d)",
+                        model_cfg.name, seed)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = init_params(model_cfg, gen, dtype)
         if serving.weights_dtype == "int8":
             # drop the unquantized tree before the engine sizes its pool
             params = quantize_params(params, model_cfg)
+    draft = None
+    if serving.spec_decode and serving.spec_method == "draft":
+        if not serving.draft_checkpoint_dir:
+            raise ValueError("spec_method='draft' requires "
+                             "--draft-checkpoint-dir")
+        draft_cfg = config_from_hf_dir(serving.draft_checkpoint_dir)
+        draft = (draft_cfg, load_checkpoint_cached(
+            serving.draft_checkpoint_dir, draft_cfg, dtype, device=dev))
+        log.info("draft model: %s (%s)", draft_cfg.name,
+                 serving.draft_checkpoint_dir)
     mesh = None
     if dev.type == "cpu" and serving.mesh.num_devices > 1:
         # a dry run on the CPU: every shard of the mesh on the CPU
         mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices)
-    engine = Engine(model_cfg, params, serving, device=dev, mesh=mesh)
+    engine = Engine(model_cfg, params, serving,
+                    eos_token_id=tokenizer.eos_token_id, device=dev,
+                    draft=draft, mesh=mesh)
     templater = ChatTemplater(model_cfg.name, tokenizer,
                               template_path=serving.chat_template or None)
     return ServerState(engine, tokenizer, serving.model, templater)
@@ -1262,16 +1304,19 @@ def serve(state: ServerState, host: str, port: int,
     state.stop_engine(timeout=60.0)
 
 
-def main(argv=None):
-    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
-                                                              ServingConfig)
-
-    p = argparse.ArgumentParser(description="OpenAI-compatible LLM server "
-                                            "(PyTorch/CUDA port)")
+def build_parser(**kw) -> argparse.ArgumentParser:
+    """The server's flags (``serving/aot.py`` adds its own to them)."""
+    kw.setdefault("description",
+                  "OpenAI-compatible LLM server (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(**kw)
     p.add_argument("--model", default="Qwen/Qwen3-0.6B",
-                   help="a registered model (Qwen/Qwen3-0.6B, "
-                        "mistralai/Mistral-7B-v0.1), or tiny-qwen3 "
-                        "(byte-vocab dry run)")
+                   help="the served model id; without --checkpoint-dir a "
+                        "registered model (Qwen/Qwen3-0.6B, "
+                        "mistralai/Mistral-7B-v0.1) with random weights, "
+                        "or tiny-qwen3 (byte-vocab dry run)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="local HF checkpoint directory (config.json, "
+                        "*.safetensors, tokenizer files) to serve")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda by default; cpu for a dry run)")
     p.add_argument("--host", default="0.0.0.0")
@@ -1308,6 +1353,13 @@ def main(argv=None):
                         "unchanged)")
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens verified per speculative step")
+    p.add_argument("--spec-method", default="prompt_lookup",
+                   choices=["prompt_lookup", "draft"],
+                   help="draft source: n-gram prompt lookup, or a small "
+                        "draft LM (--draft-checkpoint-dir)")
+    p.add_argument("--draft-checkpoint-dir", default="",
+                   help="HF checkpoint dir of the draft model "
+                        "(spec_method=draft)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel degree: the dense KV cache's "
                         "sequence axis split over sp cards, decode merging "
@@ -1336,11 +1388,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("-v", "--verbose", action="store_true")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
-                        format="%(asctime)s %(name)s %(levelname)s "
-                               "%(message)s")
-    serving = ServingConfig(
+    return p
+
+
+def serving_config(args):
+    """The ServingConfig of parsed :func:`build_parser` flags."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              ServingConfig)
+
+    return ServingConfig(
         model=args.model, port=args.port, host=args.host,
         max_decode_slots=args.max_decode_slots,
         max_cache_len=args.max_cache_len, page_size=args.page_size,
@@ -1350,13 +1406,43 @@ def main(argv=None):
         kv_host_tier_bytes=args.kv_host_tier_bytes,
         decode_bblock=args.decode_bblock,
         decode_pipeline=args.decode_pipeline, spec_decode=args.spec_decode,
-        spec_k=args.spec_k, mesh=MeshConfig(sp=args.sp),
+        spec_k=args.spec_k, spec_method=args.spec_method,
+        mesh=MeshConfig(sp=args.sp),
         request_timeout_s=args.request_timeout,
         max_queue_depth=args.max_queue_depth,
         drain_timeout_s=args.drain_timeout,
         admission_max_wait_s=args.admission_max_wait,
-        chat_template=args.chat_template)
-    state = build_state(serving, device=args.device, seed=args.seed)
+        chat_template=args.chat_template, checkpoint_dir=args.checkpoint_dir,
+        draft_checkpoint_dir=args.draft_checkpoint_dir)
+
+
+def main(argv=None):
+    p = build_parser()
+    p.add_argument("--no-warmup", action="store_true",
+                   help="serve without running every program once first "
+                        "(/readyz turns 200 sooner; the first requests pay "
+                        "the first launches)")
+    p.add_argument("--aot-manifest", default="",
+                   help="memory-fit manifest (serving/aot.py) to adopt: a "
+                        "manifest of another configuration or a no-fit "
+                        "ledger stops the server before warmup")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s "
+                               "%(message)s")
+    state = build_state(serving_config(args), device=args.device,
+                        seed=args.seed)
+    if args.aot_manifest:
+        aot = state.engine.load_aot_manifest(args.aot_manifest)
+        log.info("AOT manifest adopted: %d programs, %.1fs first runs on "
+                 "%s, %.2f GiB accounted (headroom %.2f GiB)",
+                 aot["programs"], aot["total_compile_seconds"],
+                 aot["platform"], aot["hbm_total_bytes"] / 2**30,
+                 aot["hbm_headroom_bytes"] / 2**30)
+    if not args.no_warmup:
+        log.info("warmup: %d prefill buckets and every other program ...",
+                 len(state.engine.buckets))
+        log.info("warmup done in %.1fs", state.engine.warmup())
 
     # SIGTERM (a pod's deletion, after the preStop hook's /admin/drain)
     # takes the drain path: new requests shed 503, /readyz 503, the requests

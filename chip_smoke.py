@@ -42,7 +42,7 @@ result when either is missing. Phases, in order (any failure raises):
    fused q/k prologue and row write must have launched once per layer of
    every paged forward (decode substep, mixed dispatch, verify) and the
    standalone row writes never (also in the profiled dispatch, the
-   prefix and the spec runs; the dense runs of 7, 10 and 11 hold the fused
+   prefix and the spec runs; the dense runs of 8, 11 and 12 hold the fused
    dense write to every layer of every dense forward the same way). The
    int8 run adds seeded sampled requests: one submitted alone and again
    beside other running requests must give the same stream. Then one
@@ -101,7 +101,27 @@ result when either is missing. Phases, in order (any failure raises):
    rewritten unchanged outside the scratch page), a verify beside a
    logprobs slot that it skips, and one horizon-8 dispatch of 8 slots
    profiled per variant (default, penalties, logprobs, both);
-5. prefix, once per KV pool: the prefix cache and the host KV tier at the
+5. checkpoint: loading and warmup at the published width of Qwen3-0.6B
+   (28 layers, hidden 1024, vocab 151,936, tied, bf16). An HF directory of
+   seeded random weights is written here (config.json without
+   ``_name_or_path``, two safetensors shards whose bytes this script
+   writes itself, no tokenizer files); ``config_from_hf_dir`` must give
+   the registry's QWEN3_0_6B (but the name, hf_repo and the bos id, which
+   the qwen3 branch does not read); ``load_checkpoint_cached`` loads it
+   onto the card twice, a miss (conversion and cache write, timed apart)
+   and a hit, each leaf bit for bit the written weights, with the load's
+   peak device memory; an engine of the loaded tree and one of a tree
+   built here from the same weights give the same greedy streams (3
+   prompts x 32 tokens, one chunked; K1 decode and ragged and the fused K2
+   must launch); ``python -m ...serving.aot`` writes the memory-fit
+   manifest of the server's configuration; the server process over the
+   directory adopts it and warms up, and runs again with ``--no-warmup``:
+   each time the seconds to ``/readyz`` 200, the first streamed chunk of
+   the first and later requests, ``tpu_serve_compile_seconds_total``, and
+   greedy answers equal to the engine's; a manifest whose ``max_len`` was
+   edited stops the server with a non-zero exit before warmup. The
+   directory is removed at the end;
+6. prefix, once per KV pool: the prefix cache and the host KV tier at the
    defaults (prefix cache on, a 256 MiB host tier, the pipeline and the
    decode graphs on), Qwen3-0.6B at full width with the pool cut to 68
    pages: A (a 1,536-token history and a 64-token tail) cold, A again (a
@@ -119,7 +139,7 @@ result when either is missing. Phases, in order (any failure raises):
    on an engine and compare the runs (the seeded check of 3, the pipeline
    phase, spec, sp) turn the prefix cache off, so that both runs prefill
    alike;
-6. spec, once per KV pool: prompt-lookup speculative decoding
+7. spec, once per KV pool: prompt-lookup speculative decoding
    (``spec_decode=True``) at full width on repeated-pattern prompts, with
    its launch counts zeroed just before and read just after (verify
    dispatches, drafts and the verify kernel of that pool required); a
@@ -128,13 +148,13 @@ result when either is missing. Phases, in order (any failure raises):
    verify dispatch of 8 slots is held against plain decode steps of the
    same prefixes (logits within LOGIT_TOL, the emitted tokens the accept
    rule on the verify's argmax), then timed and profiled;
-7. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
+8. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
    the same width over the dense cache; a second wave of chunked prompts
    puts the drafts behind so that they catch up. The dense kernels must
    have launched, the fused writes once a layer of every target and draft
    forward (the draft's rollout substeps and catch-ups), and the
    self-draft must have accepted drafts;
-8. the window instances (after the kernels phase): K1 (decode, ragged,
+9. the window instances (after the kernels phase): K1 (decode, ragged,
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
    each held against its plain version and timed (the ragged call's 512
@@ -144,14 +164,14 @@ result when either is missing. Phases, in order (any failure raises):
    ragged call and the dense ones also with NaN pages or rows (int8:
    scales) outside their rows' ranges, which must change nothing; and K1
    at window 0 against window 4096 on rows of ~8000 columns;
-9. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
+10. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
    slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
    with launch counts (window instances only, the chunk body's among
    them), one decode step's logits
    at lengths past the window held against the plain versions and against
    window 0, one decode dispatch profiled, the server; then prompt lookup
    (the verify's window instance) and a self-draft (K4 and K7's);
-10. the dense engine (``ServingConfig(paged=False)``, every slot's window
+11. the dense engine (``ServingConfig(paged=False)``, every slot's window
    of rows reserved, prefill_chunk 256 so that long prompts take the dense
    chunk walk): Qwen3-0.6B at full width with bf16 KV and decode_bblock 4
    (K8, K5), then with int8 KV (K9, K4-int8; seeded sampled streams alone
@@ -161,10 +181,10 @@ result when either is missing. Phases, in order (any failure raises):
    over int8 KV with decode_bblock 4 (K7-int8, K9, K5-int8); and
    Mistral-7B-v0.1 at full width on a dense int8 cache of 16 x 8192 rows
    with decode_bblock 4 (K5-int8's window instance, K9; logits held as in
-   9). Every dense forward (decode substep, verify) writes its rows
+   10). Every dense forward (decode substep, verify) writes its rows
    through K8 or K9 with the q/k prologue fused in, once a layer, and the
    standalone K8/K9 never launch; the paged kernels' counts must be 0;
-11. sequence-parallel serving (after the window kernels, the kernels phase
+12. sequence-parallel serving (after the window kernels, the kernels phase
    "kernels, sp"): K6, the stats form of the dense decode, bf16 and int8,
    over every shard of a dense cache [28, 4, 8, 32768, 128] split into 4
    and into 2 sequence shards, against its plain version (the empty
@@ -4818,7 +4838,8 @@ def phase_server_process():
             time.sleep(0.1)
         t_ready = time.monotonic() - t_start
         log(f"[server process] /readyz 200 {t_ready:.1f}s after the start "
-            f"(interpreter, torch, random weights, engine, graph capture)")
+            f"(interpreter, torch, random weights, engine, graph capture, "
+            f"warmup)")
         ttft, gaps = _stream_timing(base)
         qs = statistics.quantiles(gaps, n=100)
         log(f"[server process] streamed, client side ({TTFT_STREAMS} greedy "
@@ -4878,6 +4899,476 @@ def phase_server_process():
         if proc.poll() is None:
             proc.kill()
             proc.wait(30)
+
+
+# the checkpoint phase: prompts (token ids) and new tokens of the greedy
+# streams held between the loaded engine, the in-memory one and the servers
+# (the second prompt chunks: prefill_chunk 256)
+CKPT_PROMPT_LENS = (20, 300, 64)
+CKPT_TOKENS = 32
+# the servers of the checkpoint phase take the engine phase's chunk size
+CKPT_SERVER_ARGS = ("--prefill-chunk", "256")
+
+
+def _qwen3_hf_config(cfg) -> dict:
+    """The published config.json fields of Qwen/Qwen3-0.6B (no
+    ``_name_or_path``: the loader's qwen3 branch builds the config)."""
+    return {
+        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+        "tie_word_embeddings": True, "bos_token_id": cfg.bos_token_id,
+        "eos_token_id": cfg.eos_token_id, "hidden_act": "silu",
+        "attention_bias": False, "attention_dropout": 0.0,
+        "torch_dtype": "bfloat16", "use_sliding_window": False,
+        "sliding_window": None, "rope_scaling": None,
+    }
+
+
+def _qwen3_hf_shapes(cfg) -> dict:
+    """HF name -> [out, in] shape of every weight of a tied Qwen3."""
+    H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, H)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (H,),
+            p + "self_attn.q_proj.weight": (cfg.num_heads * D, H),
+            p + "self_attn.k_proj.weight": (cfg.num_kv_heads * D, H),
+            p + "self_attn.v_proj.weight": (cfg.num_kv_heads * D, H),
+            p + "self_attn.o_proj.weight": (H, cfg.num_heads * D),
+            p + "self_attn.q_norm.weight": (D,),
+            p + "self_attn.k_norm.weight": (D,),
+            p + "post_attention_layernorm.weight": (H,),
+            p + "mlp.gate_proj.weight": (I, H),
+            p + "mlp.up_proj.weight": (I, H),
+            p + "mlp.down_proj.weight": (H, I),
+        })
+    shapes["model.norm.weight"] = (H,)
+    return shapes
+
+
+def _write_safetensors(torch, path, tensors) -> int:
+    """One safetensors file of bf16 tensors ({name: tensor on any
+    device}), written here byte by byte (no ``safetensors`` package
+    needed): the 8-byte little-endian header length, the
+    JSON header padded to 8 bytes, the raw little-endian bytes in header
+    order. Returns the file's size."""
+    import struct
+
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header, separators=(",", ":")).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().view(torch.int16).cpu().numpy()
+                    .tobytes())
+    return 8 + len(h) + off
+
+
+def _write_hf_checkpoint(torch, cfg, path, shards: int = 2):
+    """A Qwen3 HF directory at ``cfg``'s width: config.json, the index and
+    ``shards`` safetensors files of seeded random bf16 weights under the
+    HF names, [out, in] (norms 1 + noise, so that no leaf is constant).
+    Returns {name: tensor on the card}, the weights as written."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    src = {}
+    for name, shape in _qwen3_hf_shapes(cfg).items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        src[name] = (1.0 + 0.1 * x if "norm" in name else 0.02 * x) \
+            .to(torch.bfloat16)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(_qwen3_hf_config(cfg), f, indent=2)
+    names = list(src)
+    per = -(-len(names) // shards)
+    index, size = {}, 0
+    for s in range(shards):
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        part = names[s * per:(s + 1) * per]
+        size += _write_safetensors(torch, os.path.join(path, fname),
+                                   {n: src[n] for n in part})
+        index.update({n: fname for n in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": size}, "weight_map": index}, f)
+    return src
+
+
+def _tree_from_hf(torch, cfg, src) -> dict:
+    """The port's parameter tree of HF weights, built here independently of
+    the loader: [in, out] kernels stacked on a leading layer axis."""
+    L = cfg.num_layers
+
+    def stack(fmt, t):
+        return torch.stack([src[fmt.format(i=i)].t() if t
+                            else src[fmt.format(i=i)] for i in range(L)]) \
+            .contiguous()
+
+    p = "model.layers.{i}."
+    return {
+        "embed": {"weight": src["model.embed_tokens.weight"]},
+        "final_norm": {"weight": src["model.norm.weight"]},
+        "layers": {
+            "input_norm": {"weight": stack(p + "input_layernorm.weight", 0)},
+            "post_norm": {"weight": stack(
+                p + "post_attention_layernorm.weight", 0)},
+            "wq": {"kernel": stack(p + "self_attn.q_proj.weight", 1)},
+            "wk": {"kernel": stack(p + "self_attn.k_proj.weight", 1)},
+            "wv": {"kernel": stack(p + "self_attn.v_proj.weight", 1)},
+            "wo": {"kernel": stack(p + "self_attn.o_proj.weight", 1)},
+            "q_norm": {"weight": stack(p + "self_attn.q_norm.weight", 0)},
+            "k_norm": {"weight": stack(p + "self_attn.k_norm.weight", 0)},
+            "w_gate": {"kernel": stack(p + "mlp.gate_proj.weight", 1)},
+            "w_up": {"kernel": stack(p + "mlp.up_proj.weight", 1)},
+            "w_down": {"kernel": stack(p + "mlp.down_proj.weight", 1)},
+        },
+    }
+
+
+def _same_bits(torch, got, want, path=()):
+    """Fail unless two trees hold the same keys and every leaf the same
+    dtype, shape, device type and bits."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"tree {'/'.join(path)}: keys "
+                                 f"{sorted(got)} != {sorted(want)}")
+        return sum(_same_bits(torch, got[k], want[k], path + (k,))
+                   for k in want)
+    if (got.dtype, tuple(got.shape), got.device.type) != \
+            (want.dtype, tuple(want.shape), want.device.type) or \
+            not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"leaf {'/'.join(path)} differs from the "
+                             f"written weights")
+    return 1
+
+
+def _greedy_streams(engine, Request, prompts):
+    """Each prompt's greedy stream, served alone (a batch prefill of one or
+    the chunk walk, as a server serving one request at a time does)."""
+    out = []
+    for p in prompts:
+        req = engine.submit(Request(prompt_ids=p, max_tokens=CKPT_TOKENS,
+                                    ignore_eos=True))
+        engine.run_until_idle()
+        out.append(req.generated)
+    return out
+
+
+def _first_chunk_ms(base, prompt, tag):
+    """A streamed request's time from its send to its first content chunk
+    (host clock, client side); every token biased to a byte
+    (``BYTE_BIAS``), so that each has text and goes out in its chunk."""
+    events, times = _sse(base, "/v1/completions", {
+        "prompt": prompt, "stream": True, "max_tokens": 8,
+        "ignore_eos": True, "logit_bias": BYTE_BIAS})
+    _whole_stream(events, tag)
+    first = next(j for j, ev in enumerate(events) if ev != "[DONE]"
+                 and any(c.get("token_ids") for c in ev["choices"]))
+    return (times[first + 1] - times[0]) * 1e3
+
+
+def _server_run(ckpt, extra, prompts, streams, tag):
+    """``python -m ...serving.server --checkpoint-dir ckpt`` with ``extra``
+    flags: the seconds to ``/readyz`` 200, the first request's and the
+    second's time to their first streamed chunk (the first and the
+    chunked prompt), each prompt's greedy stream (which must equal
+    ``streams``), the compile seconds counter and the server's own log of
+    its start; then SIGTERM, exit 0."""
+    import signal
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    t_start = time.monotonic()
+    wall = time.strftime("%H:%M:%S")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "aws_k8s_ansible_provisioner_tpu_torch.serving.server",
+         "--device", "cuda", "--host", "127.0.0.1", "--port", str(port),
+         "--checkpoint-dir", ckpt, *CKPT_SERVER_ARGS, *extra],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    threading.Thread(target=lambda: lines.extend(proc.stdout),
+                     daemon=True).start()
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"{tag} the server exited "
+                                     f"{proc.returncode} before it was "
+                                     f"ready: {''.join(lines[-20:])}")
+            if time.monotonic() - t_start > 300:
+                raise AssertionError(f"{tag} not ready in 300 s")
+            try:
+                if _http(base + "/readyz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        t_ready = time.monotonic() - t_start
+        ttft = [_first_chunk_ms(base, p, f"{tag} timed stream {i}")
+                for i, p in enumerate(prompts[:2])]
+        for i, (p, want) in enumerate(zip(prompts, streams)):
+            events, _ = _sse(base, "/v1/completions", {
+                "prompt": p, "stream": True, "max_tokens": CKPT_TOKENS,
+                "ignore_eos": True})
+            _whole_stream(events, f"{tag} stream {i}")
+            ids = _stream_parts(events)[1]
+            if ids != want:
+                raise AssertionError(f"{tag} prompt {i} (length {len(p)}): "
+                                     f"the server's greedy stream {ids} "
+                                     f"!= the engine's {want}")
+        compile_s = _metric(base, "tpu_serve_compile_seconds_total")
+        compiled = _metric(base, "tpu_serve_hbm_compiled_bytes")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+        if code != 0:
+            raise AssertionError(f"{tag} exit {code}: "
+                                 f"{''.join(lines[-20:])}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    log(f"{tag} /readyz 200 {t_ready:.2f}s after the start ({wall}); first "
+        f"streamed chunk (client side, host clock) of the first request "
+        f"{ttft[0]:.2f} ms ({len(prompts[0])} tokens), of the second "
+        f"{ttft[1]:.2f} ms ({len(prompts[1])} tokens, the chunk walk); "
+        f"tpu_serve_compile_seconds_total {compile_s:.3f}, "
+        f"tpu_serve_hbm_compiled_bytes {compiled:.0f}; the greedy streams "
+        f"of {len(prompts)} prompts = the engine's")
+    for ln in lines:
+        if " INFO " in ln and "HTTP" not in ln or " WARNING " in ln:
+            log(f"{tag}   {ln.rstrip()[:200]}")
+    return {"ready_s": t_ready, "ttft_ms": ttft, "compile_s": compile_s}
+
+
+def phase_checkpoint(torch, np):
+    """Loading and warmup at the published width of Qwen3-0.6B (28 layers,
+    hidden 1024, vocab 151,936, tied, bf16): an HF directory of seeded
+    random weights written here (config.json without ``_name_or_path``, two
+    safetensors shards, no tokenizer files); ``config_from_hf_dir`` held
+    against the registry's entry; ``load_checkpoint_cached`` onto the card,
+    every leaf bit for bit against the written weights, timed on a miss
+    (conversion, cache write) and a hit, with the load's peak device
+    memory; an engine of the loaded tree and one of the in-memory tree
+    giving the same greedy streams, K1 (decode and ragged) and the fused K2
+    launching; the AOT manifest of the server's configuration; the server
+    process over the directory with the manifest and warmup, and with
+    ``--no-warmup`` (its greedy answers the engine's; seconds to /readyz,
+    the first and second request's first chunk, the compile seconds); a
+    manifest whose ``max_len`` was edited stopping the server before
+    warmup with a non-zero exit. The directory is removed at the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from aws_k8s_ansible_provisioner_tpu_torch import config
+    from aws_k8s_ansible_provisioner_tpu_torch.models import checkpoint as ck
+    from aws_k8s_ansible_provisioner_tpu_torch.models import hf_loader
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = config.QWEN3_0_6B
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt = os.path.join(tmp, "Qwen3-0.6B")
+    try:
+        t0 = time.monotonic()
+        src = _write_hf_checkpoint(torch, cfg, ckpt)
+        files = sorted(f for f in os.listdir(ckpt)
+                       if f.endswith(".safetensors"))
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        log(f"[checkpoint] wrote {ckpt}: {len(files)} shards, "
+            f"{size / 2**30:.3f} GiB of bf16, {len(src)} tensors; "
+            f"{time.monotonic() - t0:.1f}s")
+        got = hf_loader.config_from_hf_dir(ckpt)
+        skip = {"name", "hf_repo", "bos_token_id"}
+        diff = {k: (v, getattr(cfg, k)) for k, v in
+                dataclasses.asdict(got).items()
+                if k not in skip and v != getattr(cfg, k)}
+        if diff or got.name != "Qwen3-0.6B":
+            raise AssertionError(f"[checkpoint] config_from_hf_dir differs "
+                                 f"from QWEN3_0_6B: {diff}, {got.name}")
+        log(f"[checkpoint] config_from_hf_dir = QWEN3_0_6B apart from name "
+            f"({got.name!r}), hf_repo and bos_token_id ({got.bos_token_id}:"
+            f" the qwen3 branch reads none, as the JAX loader's)")
+        import importlib.util
+
+        from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import (
+            ByteTokenizer, load_tokenizer)
+
+        t = time.monotonic()
+        tok = load_tokenizer(ckpt)
+        if type(tok) is not ByteTokenizer:
+            raise AssertionError(f"[checkpoint] a directory without "
+                                 f"tokenizer files gave {tok!r}")
+        hf = "installed" if importlib.util.find_spec("transformers") \
+            else "absent"
+        log(f"[checkpoint] load_tokenizer: the byte tokenizer (no tokenizer "
+            f"files; transformers {hf} here), {time.monotonic() - t:.3f}s")
+        # the conversion and the cache write timed apart, inside the miss
+        times = {}
+        real_load, real_save = hf_loader.load_checkpoint, ck.save_params
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                times[key] = time.monotonic() - t
+                return out
+            return run
+
+        hf_loader.load_checkpoint = timed("convert", real_load)
+        ck.save_params = timed("write", real_save)
+        try:
+            loads = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t = time.monotonic()
+                tree = ck.load_checkpoint_cached(ckpt, got, torch.bfloat16,
+                                                 device="cuda")
+                torch.cuda.synchronize()
+                loads.append((tree, time.monotonic() - t,
+                              torch.cuda.max_memory_allocated() - base,
+                              torch.cuda.memory_allocated() - base))
+        finally:
+            hf_loader.load_checkpoint, ck.save_params = real_load, real_save
+        if set(times) != {"convert", "write"}:
+            raise AssertionError(f"[checkpoint] the first load did not "
+                                 f"convert and write the cache: {times}")
+        want = _tree_from_hf(torch, got, src)
+        n = [_same_bits(torch, tree, want) for tree, *_ in loads]
+        (miss, t_miss, peak_miss, held), (hit, t_hit, peak_hit, _) = loads
+        cache = ck.cache_dir(ckpt, torch.bfloat16)
+        cache_gib = os.path.getsize(os.path.join(cache, ck.PARAMS_FILE)) \
+            / 2**30
+        log(f"[checkpoint] load_checkpoint_cached onto the card: miss "
+            f"{t_miss:.2f}s (conversion {times['convert']:.2f}s, cache "
+            f"write {times['write']:.2f}s, {cache_gib:.3f} GiB), hit "
+            f"{t_hit:.2f}s (reads warm in the page cache); peak device "
+            f"memory above the start {peak_miss / 2**30:.3f} GiB (miss), "
+            f"{peak_hit / 2**30:.3f} GiB (hit), the tree "
+            f"{held / 2**30:.3f} GiB; {n[0]} + {n[1]} leaves bit for bit "
+            f"the written weights")
+        del loads, hit, want
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in CKPT_PROMPT_LENS]
+        serving = config.ServingConfig(prefill_chunk=256, derived_seed=0)
+        streams = []
+        for name, tree in (("loaded", miss), ("in-memory",
+                                              _tree_from_hf(torch, got,
+                                                            src))):
+            engine = Engine(got, tree, serving, device="cuda")
+            del tree
+            torch.cuda.synchronize()
+            _reset_launches()
+            engine.counts.clear()
+            streams.append(_greedy_streams(engine, Request, prompts))
+            torch.cuda.synchronize()
+            launches = _launches()
+            counts = dict(engine.counts)
+            del engine
+            _free(torch)
+            if name == "loaded":
+                need = ("paged_attention", "paged_attention chunk",
+                        "prep_write_rows_paged")
+                if min(launches[k] for k in need) <= 0:
+                    raise AssertionError(f"[checkpoint] a kernel of the "
+                                         f"path never launched: {launches}")
+                log(f"[checkpoint] engine of the loaded tree: "
+                    f"{ {k: launches[k] for k in need} }; dispatches "
+                    f"{counts}")
+        del miss, src
+        _free(torch)
+        if streams[0] != streams[1] or \
+                any(len(s) != CKPT_TOKENS for s in streams[0]):
+            raise AssertionError(f"[checkpoint] greedy streams of the loaded "
+                                 f"and the in-memory tree differ: {streams}")
+        log(f"[checkpoint] greedy streams of {len(prompts)} prompts x "
+            f"{CKPT_TOKENS} tokens: the loaded tree's = the in-memory "
+            f"tree's")
+        manifest = os.path.join(tmp, "aot.json")
+        t = time.monotonic()
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "aws_k8s_ansible_provisioner_tpu_torch.serving.aot",
+             "--device", "cuda", "--checkpoint-dir", ckpt,
+             *CKPT_SERVER_ARGS, "--out", manifest],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"[checkpoint] aot exit {out.returncode}: "
+                                 f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+        with open(manifest) as f:
+            m = json.load(f)
+        led = m["hbm_ledger"]
+        log(f"[checkpoint] aot manifest ({time.monotonic() - t:.1f}s): "
+            f"{len(m['programs'])} programs, first runs "
+            f"{m['total_compile_seconds']:.3f}s, graph capture "
+            f"{m['graph_capture_seconds']:.3f}s; ledger (GiB) capacity "
+            f"{led['capacity_bytes_per_chip'] / 2**30:.3f}, params "
+            f"{led['params_bytes_per_chip'] / 2**30:.3f}, KV "
+            f"{led['kv_bytes_per_chip'] / 2**30:.3f}, graphs "
+            f"{led['graph_pool_bytes'] / 2**30:.3f}, largest peak "
+            f"{led['max_temp_bytes'] / 2**30:.3f} "
+            f"({max(m['programs'], key=lambda p: p['temp_bytes'])['name']}),"
+            f" total {led['total_bytes'] / 2**30:.3f}, headroom "
+            f"{led['headroom_bytes'] / 2**30:.3f}, fit {led['fit']}")
+        log("[checkpoint] programs: " + ", ".join(
+            f"{p['name']} {p['compile_seconds']:.3f}s "
+            f"{p['temp_bytes'] / 2**20:.1f} MiB" for p in m["programs"]))
+        runs = {
+            "warmup": _server_run(ckpt, ("--aot-manifest", manifest),
+                                  prompts, streams[0],
+                                  "[checkpoint server, manifest + warmup]"),
+            "no-warmup": _server_run(ckpt, ("--no-warmup",), prompts,
+                                     streams[0],
+                                     "[checkpoint server, --no-warmup]"),
+        }
+        if not runs["warmup"]["compile_s"] > 0 or \
+                runs["no-warmup"]["compile_s"] != 0:
+            raise AssertionError(f"[checkpoint] compile seconds: {runs}")
+        m["config"]["max_len"] = 2 * m["config"]["max_len"]
+        bad = os.path.join(tmp, "aot_edited.json")
+        with open(bad, "w") as f:
+            json.dump(m, f)
+        t = time.monotonic()
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "aws_k8s_ansible_provisioner_tpu_torch.serving.server",
+             "--device", "cuda", "--port", "0", "--checkpoint-dir", ckpt,
+             *CKPT_SERVER_ARGS, "--aot-manifest", bad],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        text = out.stdout + out.stderr
+        if out.returncode == 0 or "max_len" not in text or \
+                "warmup:" in text or "serving " in text:
+            raise AssertionError(f"[checkpoint] the edited manifest: exit "
+                                 f"{out.returncode}: {text[-3000:]}")
+        log(f"[checkpoint] a manifest with max_len edited: the server "
+            f"exited {out.returncode} before warmup "
+            f"({time.monotonic() - t:.1f}s): "
+            f"{[ln for ln in text.splitlines() if 'max_len' in ln][-1][:200]}")
+        return runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if os.path.exists(tmp):
+            raise AssertionError(f"[checkpoint] {tmp} was not removed")
 
 
 def _phase(name, fn, *args):
@@ -4940,6 +5431,8 @@ def main() -> int:
         _free(torch)
         log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
     _phase("server process", phase_server_process)
+    _phase("checkpoint", phase_checkpoint, torch, np)
+    _free(torch)
     for kv_dtype in ("auto", "int8"):
         _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)
         _free(torch)

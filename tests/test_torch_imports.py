@@ -43,8 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "ops.sampling", "serving.engine", "serving.draft",
                 "serving.kv_cache", "serving.paged_kv", "serving.server",
                 "serving.metrics", "serving.chat_template",
-                "models.layers", "models.convert", "utils.tokenizer",
-                "parallel.mesh", "parallel.sharding"):
+                "models.layers", "models.convert", "models.hf_loader",
+                "models.checkpoint", "serving.aot", "utils.tokenizer",
+                "utils.hf_parity", "parallel.mesh", "parallel.sharding"):
         assert f"{port.__name__}.{mod}" in expected
     loaded = res["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")
