@@ -3,9 +3,10 @@
 The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
-Only the serving fields the port reads are here; the rest of the JAX
-``ServingConfig`` (LoRA, guided decoding, tracing, telemetry) comes over
-with the slices that port those features.
+Only the serving fields the port reads are here (``lora_adapters``
+among them; guided decoding needs none); the rest of the JAX
+``ServingConfig`` (tracing, telemetry, the TPU attention and ragged
+switches) comes over with the slices that port those features.
 """
 
 from __future__ import annotations
@@ -327,3 +328,6 @@ class ServingConfig:
     checkpoint_dir: str = ""
     # The draft model's checkpoint directory (spec_method="draft")
     draft_checkpoint_dir: str = ""
+    # Multi-LoRA (models/lora.py): ("name=path", ...) peft adapter dirs,
+    # served as model ids beside the base (the vLLM --enable-lora contract)
+    lora_adapters: tuple = ()

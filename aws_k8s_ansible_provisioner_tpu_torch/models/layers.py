@@ -20,6 +20,12 @@ true takes the raw q and k rows and a :class:`QKPrep` as a fifth argument
 and applies the q/k RMSNorm and RoPE itself (the row-write callbacks,
 whose row-write kernel does it in the same launch); every other callback
 receives q and k after :func:`prep_qk_plain`.
+
+With LoRA adapters attached (``models/lora.attach``: a ``lora`` leaf and
+per-layer groups of concatenated factors), the forward takes the rows'
+adapters (:class:`LoraRows`, built by ``DecoderLM.lora_rows`` from their
+indices) and adds each projection's delta before its bias; without them
+no LoRA operation runs.
 """
 
 from __future__ import annotations
@@ -159,7 +165,10 @@ def causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
-def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor],
+            delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ kernel, plus a LoRA ``delta`` of the output's shape (in the JAX
+    order: before the bias), plus the bias."""
     if "scale" in p:
         # weights-only int8: dequantize to the activation dtype, matmul, fold
         # the per-out-channel float32 scale in after (exact: the scale is
@@ -167,26 +176,71 @@ def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
         y = ((x @ p["kernel"].to(x.dtype)) * p["scale"]).to(x.dtype)
     else:
         y = x @ p["kernel"]
+    if delta is not None:
+        y = y + delta.to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
 
 
-def _mlp(h: torch.Tensor, p: dict) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(h)) * up(h))."""
-    return _linear(F.silu(_linear(h, p["w_gate"])) * _linear(h, p["w_up"]),
-                   p["w_down"])
+class LoraRows:
+    """The rows' adapters of one forward pass (``models/lora.py``): from
+    the adapter indices ``idx`` (0 = base; [B] one per row of x [B, T, H],
+    or [B, T] one per token, the packed layout of the mixed dispatch) and
+    ``cols`` (the adapter of each of the N * r rank columns), the mask
+    [B, 1 or T, N * r] that keeps a row's own adapter's columns, in the
+    activation dtype; built once a forward pass (or a decode dispatch),
+    repeated once per group width."""
+
+    def __init__(self, idx: torch.Tensor, cols: torch.Tensor,
+                 dtype: torch.dtype):
+        m = (idx[..., None] == cols).to(dtype)
+        self.mask = m[:, None, :] if idx.ndim == 1 else m
+        self._tiled = {1: self.mask}
+
+    def delta(self, x: torch.Tensor, g: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+        """((x @ A) * mask) @ B of a group ``g`` (its members' outputs
+        concatenated)."""
+        k = g["A"].shape[-1] // self.mask.shape[-1]
+        m = self._tiled.get(k)
+        if m is None:
+            m = self._tiled[k] = self.mask.repeat(1, 1, k)
+        return ((x @ g["A"]) * m) @ g["B"]
+
+
+def _mlp(h: torch.Tensor, p: dict, lora: Optional[LoraRows] = None
+         ) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(h)) * up(h)), with the rows' LoRA deltas."""
+    dg = du = dd = None
+    if lora is not None and "lora_gu" in p:
+        d = lora.delta(h, p["lora_gu"])
+        n = p["w_gate"]["kernel"].shape[-1]
+        dg, du = d[..., :n], d[..., n:]
+    a = F.silu(_linear(h, p["w_gate"], dg)) * _linear(h, p["w_up"], du)
+    if lora is not None and "lora_down" in p:
+        dd = lora.delta(a, p["lora_down"])
+    return _linear(a, p["w_down"], dd)
 
 
 def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   cos: torch.Tensor, sin: torch.Tensor, attend: AttendFn,
-                  cache_l: Any) -> Tuple[torch.Tensor, Any]:
-    """One transformer block; ``p`` is a per-layer slice (no leading L)."""
+                  cache_l: Any, lora: Optional[LoraRows] = None
+                  ) -> Tuple[torch.Tensor, Any]:
+    """One transformer block; ``p`` is a per-layer slice (no leading L);
+    ``lora`` adds the rows' adapter deltas where ``p`` carries adapters."""
     B, T, _ = x.shape
     h = rms_norm(x, p["input_norm"]["weight"], cfg.norm_eps)
-    q = _linear(h, p["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = _linear(h, p["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = _linear(h, p["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    dq = dk = dv = None
+    if lora is not None and "lora_qkv" in p:
+        d = lora.delta(h, p["lora_qkv"])
+        qs, ks = cfg.q_size, cfg.kv_size
+        dq, dk, dv = d[..., :qs], d[..., qs:qs + ks], d[..., qs + ks:]
+    q = _linear(h, p["wq"], dq).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = _linear(h, p["wk"], dk).reshape(B, T, cfg.num_kv_heads,
+                                        cfg.head_dim)
+    v = _linear(h, p["wv"], dv).reshape(B, T, cfg.num_kv_heads,
+                                        cfg.head_dim)
     prep = QKPrep(p["q_norm"]["weight"] if cfg.qk_norm else None,
                   p["k_norm"]["weight"] if cfg.qk_norm else None,
                   cfg.norm_eps, cos, sin)
@@ -195,9 +249,12 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     else:
         q, k = prep_qk_plain(q, k, prep)
         ctx, cache_l = attend(q, k, v, cache_l)
-    x = x + _linear(ctx.reshape(B, T, cfg.q_size), p["wo"])
+    ctx = ctx.reshape(B, T, cfg.q_size)
+    do = lora.delta(ctx, p["lora_o"]) \
+        if lora is not None and "lora_o" in p else None
+    x = x + _linear(ctx, p["wo"], do)
     h2 = rms_norm(x, p["post_norm"]["weight"], cfg.norm_eps)
-    return x + _mlp(h2, p), cache_l
+    return x + _mlp(h2, p, lora), cache_l
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -246,30 +303,34 @@ def make_default_attend(cfg: ModelConfig) -> AttendFn:
 
 def model_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, attend: Optional[AttendFn] = None,
-                  layers: Optional[List[dict]] = None) -> torch.Tensor:
+                  layers: Optional[List[dict]] = None,
+                  lora: Optional[LoraRows] = None) -> torch.Tensor:
     """Run the decoder with causal attention (sliding-window where the
     config has one), or ``attend`` with a per-layer cache of None; returns
-    logits [B, T, V]."""
+    logits [B, T, V]. ``lora``: the rows' adapters
+    (``DecoderLM.lora_rows``)."""
     attend = attend or make_default_attend(cfg)
     layers = layers or layer_slices(params, cfg.num_layers)
     x, cos, sin = _embed_inputs(params, cfg, tokens, positions)
     for p_l in layers:
-        x, _ = decoder_block(cfg, p_l, x, cos, sin, attend, None)
+        x, _ = decoder_block(cfg, p_l, x, cos, sin, attend, None, lora)
     return _final_logits(params, cfg, x)
 
 
 def model_forward_carry(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                         positions: torch.Tensor, cache: Any, attend: AttendFn,
-                        layers: Optional[List[dict]] = None
+                        layers: Optional[List[dict]] = None,
+                        lora: Optional[LoraRows] = None
                         ) -> Tuple[torch.Tensor, Any]:
     """Decoder forward with the whole cache handed to every layer:
     ``attend`` receives ``(cache, layer_idx)`` and writes the layer's rows in
-    place (the serving decode, prefill and mixed paths)."""
+    place (the serving decode, prefill and mixed paths); ``lora`` as in
+    :func:`model_forward`."""
     layers = layers or layer_slices(params, cfg.num_layers)
     x, cos, sin = _embed_inputs(params, cfg, tokens, positions)
     for l, p_l in enumerate(layers):
         x, (cache, _) = decoder_block(cfg, p_l, x, cos, sin, attend,
-                                      (cache, l))
+                                      (cache, l), lora)
     return _final_logits(params, cfg, x), cache
 
 
@@ -377,14 +438,33 @@ class DecoderLM(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return self.final_norm__weight.dtype
 
+    @property
+    def has_lora(self) -> bool:
+        """Whether adapters are attached (``models/lora.attach``)."""
+        return "lora__cols" in self._names
+
+    def lora_rows(self, idx: Optional[torch.Tensor]) -> Optional[LoraRows]:
+        """:class:`LoraRows` of the adapter indices ``idx`` ([B] per row,
+        [B, T] per token; 0 = base), None without adapters or indices: the
+        ``lora`` of :meth:`forward` and :meth:`forward_carry`, built once a
+        forward pass (a decode dispatch: once for all its substeps). A
+        model without adapters gives None whatever ``idx`` is, so that it
+        runs no LoRA operation."""
+        if idx is None or not self.has_lora:
+            return None
+        return LoraRows(idx, self.lora__cols, self.compute_dtype)
+
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
-                attend: Optional[AttendFn] = None) -> torch.Tensor:
+                attend: Optional[AttendFn] = None,
+                lora: Optional[LoraRows] = None) -> torch.Tensor:
         params, layers = self._cached()
         return model_forward(params, self.cfg, tokens, positions, attend,
-                             layers)
+                             layers, lora)
 
     def forward_carry(self, tokens: torch.Tensor, positions: torch.Tensor,
-                      cache: Any, attend: AttendFn):
+                      cache: Any, attend: AttendFn,
+                      lora: Optional[LoraRows] = None):
+        """``lora``: the rows' adapters (:meth:`lora_rows`)."""
         params, layers = self._cached()
         return model_forward_carry(params, self.cfg, tokens, positions, cache,
-                                   attend, layers)
+                                   attend, layers, lora)

@@ -1,7 +1,7 @@
 """Token sampling: greedy, temperature, top-k and top-p, with seeded noise
 that reproduces the JAX package's bits; the presence, frequency and
 repetition penalties (:func:`apply_penalties`, bit-identical to the JAX
-package's).
+package's); the guided-decoding allow-mask (:func:`apply_allow`).
 
 Per-request parameters are [B] vectors, so one call serves any mix of greedy
 and sampled rows. As in the JAX package, top-k and top-p work on a static
@@ -113,6 +113,33 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
         out = torch.where(seen, torch.where(out > 0, out / r, out * r), out)
     return out - frequency.float()[:, None] * c \
         - presence.float()[:, None] * (c > 0).float()
+
+
+def allow_banned(allow: torch.Tensor, V: int) -> torch.Tensor:
+    """The tokens a guided-decoding allow-bitmask rejects, [B, V] bool:
+    token v is allowed iff bit (v & 31) of word ``allow[b, v >> 5]`` is
+    set. ``allow`` [B, ceil(V/32)] holds the grammar's uint32 words as
+    int32 with the same bits (torch has little uint32 arithmetic, on CUDA
+    least of all). The words are read as their little-endian bytes
+    (uint8: no sign to extend; bit j of byte i is token 8 i + j of the
+    word), so the unpacked bits take a quarter of an int32 unpacking's
+    memory. A dispatch unpacks its words once for all its substeps."""
+    B, W = allow.shape
+    octets = allow.contiguous().view(torch.uint8)               # [B, 4 W]
+    shifts = torch.arange(8, dtype=torch.uint8, device=allow.device)
+    bits = (octets[:, :, None] >> shifts) & 1                    # [B, 4W, 8]
+    return (bits == 0).reshape(B, W * 32)[:, :V]
+
+
+def apply_allow(logits: torch.Tensor, allow: torch.Tensor,
+                banned: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's ``apply_allow``: logits [B, V] with every token
+    that the allow words [B, ceil(V/32)] reject set to -inf (an all-ones
+    row is an exact no-op), in one select. ``banned`` (:func:`allow_banned`
+    of ``allow``, unpacked once) skips the unpacking."""
+    if banned is None:
+        banned = allow_banned(allow, logits.shape[-1])
+    return torch.where(banned, float("-inf"), logits)
 
 
 def sample(logits: torch.Tensor, temperature: torch.Tensor,

@@ -51,10 +51,11 @@ LEDGER_FIELDS = ("capacity_bytes_per_chip", "params_bytes_per_chip",
 
 def engine_fingerprint(engine) -> dict:
     """The configuration facts a manifest is bound to: the JAX
-    fingerprint's keys, plus ``sp`` and the speculation setup (spec on or
+    fingerprint's keys, plus ``sp``, the speculation setup (spec on or
     off, its method, the draft model), since the ledger counts the draft's
     parameters and cache and the program list its verify and draft
-    programs."""
+    programs, and the adapter names (the ledger counts their factors and
+    every program runs their path)."""
     return {
         "model": engine.cfg.name,
         "num_slots": engine.num_slots,
@@ -68,6 +69,7 @@ def engine_fingerprint(engine) -> dict:
         "spec_decode": engine.spec_decode,
         "spec_method": engine.serving.spec_method,
         "draft": engine.draft.cfg.name if engine.draft is not None else None,
+        "lora": list(engine.lora_names),
     }
 
 

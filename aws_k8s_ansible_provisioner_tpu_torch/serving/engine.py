@@ -87,8 +87,11 @@ Differences from the JAX engine:
 
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
-- not ported yet: guided decoding, LoRA (and with it the prefix chain's
-  salt), tracing and the flight recorder;
+- not ported yet: tracing and the flight recorder;
+- a guided slot's device carry is re-uploaded from the host mirrors after a
+  dispatch of horizon > 1 that it rode beside unguided slots (it emitted
+  substep 0's token only): the JAX pipeline feeds it the discarded
+  substeps' token and length (ROADMAP C26);
 - a request with ``prompt_logprobs`` admitted under a dispatch in flight
   takes the chunk walk, as in the JAX engine, and its one chunk computes
   the prompt's logprobs (the JAX walk computes none; ROADMAP C21);
@@ -158,6 +161,31 @@ with its token position, so a seeded stream does not depend on the batch
 around it and two engines with one ``derived_seed`` draw alike.
 ``ServingConfig.kv_dtype="int8"`` stores the pool or the dense cache int8
 with per-row scales.
+
+Guided decoding (``Request.guided``: a ``serving/guided.TokenGrammar``,
+which submit wraps in a cursor of its own, or a ``GuidedState``) is the JAX
+engine's: every draw of a guided slot is masked by its grammar's allow
+words (the decode graphs' always-on ``allow`` operand, all ones for an
+unguided slot; the prefills' and the chunk row's own words), and the
+cursor advances at every emit. The in-flight dispatch is settled before a
+decode dispatch with a guided slot, so that the mask is fresh; a batch of
+guided slots alone decodes at horizon 1; beside unguided slots a guided one
+emits substep 0's token only, and a penalized one gets its count row back
+from its host stream. The verify skips guided slots (their neighbours keep
+speculating). The device words are cached by the cursors' fingerprints
+(``_allow_row``, ``_allow_words``; hits counted in
+``counts["allow_words_hits"]``, the host's time building and uploading
+them in ``counts["allow_host_ns"]``, the cursors' mask time within it in
+``counts["allow_mask_ns"]``).
+
+Multi-LoRA (``Engine(lora={name: adapter dir})``, ``Request.lora``) is the
+JAX engine's: the adapters attach beside the base weights after the int8
+quantization (``models/lora.py``), every program carries the slots'
+adapter indices (the decode graphs as an operand buffer, only with
+adapters), the prefix chain of an adapter's pages is salted with
+``("lora", index)`` and the dense prefix cache matches only rows of the
+same adapter; the draft model stays adapter-free. LoRA under a mesh is
+refused.
 """
 
 from __future__ import annotations
@@ -182,6 +210,7 @@ from aws_k8s_ansible_provisioner_tpu_torch.config import (ModelConfig,
 from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
     DecoderLM, check_supported)
+from aws_k8s_ansible_provisioner_tpu_torch.models.lora import load_attached
 from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import \
@@ -193,9 +222,12 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
+from aws_k8s_ansible_provisioner_tpu_torch.serving.guided import (
+    GuidedState, TokenGrammar)
 from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import (
-    BAN_K, BIAS_K, LOGPROB_K, NO_TOKEN, DecodeGraphs, _host_lp, decode_steps,
-    mixed_step, prefill_batch_step, prefill_chunk_step, spec_decode_step)
+    BAN_K, BIAS_K, LOGPROB_K, NO_TOKEN, DecodeGraphs, _host_lp, allow_words,
+    decode_steps, mixed_step, prefill_batch_step, prefill_chunk_step,
+    spec_decode_step)
 
 log = logging.getLogger(__name__)
 
@@ -264,6 +296,12 @@ class Request:
     seed: Optional[int] = None
     # resolved at submit: the seed's low 32 bits, or the engine's draw
     eff_seed: int = 0
+    # Multi-LoRA: the name of an adapter registered at Engine construction,
+    # or None for the base model
+    lora: Optional[str] = None
+    # guided decoding: a serving/guided.TokenGrammar (submit wraps it in a
+    # GuidedState of this request's own) or a GuidedState; None = off
+    guided: object = None
     # end-to-end deadline in seconds from submission (None: the engine's
     # request_timeout_s); submit resolves it into the absolute t_deadline
     # (time.monotonic(); 0.0 = none)
@@ -315,13 +353,16 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: dict, serving: ServingConfig,
                  eos_token_id: Optional[int] = None, device=None,
-                 draft: Optional[tuple] = None, mesh=None):
+                 draft: Optional[tuple] = None, mesh=None,
+                 lora: Optional[dict] = None):
         """``draft=(draft_cfg, draft_params)`` is the draft model of
         ``spec_method="draft"``; its vocabulary must cover the target's.
         ``mesh`` (``parallel/mesh.make_mesh``; default: built from
         ``serving.mesh`` when that names more than one device) shards the
         dense cache over its ``sp`` axis; the engine then runs on the
-        mesh's lead device, and ``device`` may only name its type."""
+        mesh's lead device, and ``device`` may only name its type.
+        ``lora`` ({name: peft adapter dir}, in index order) registers the
+        adapters a request may name (refused under a mesh)."""
         check_supported(cfg)
         if serving.weights_dtype not in ("auto", "bf16", "int8"):
             raise ValueError(f"weights_dtype={serving.weights_dtype!r}: "
@@ -356,6 +397,17 @@ class Engine:
         params = _to_device(params, self.device)
         if serving.weights_dtype == "int8" and not weights_quantized(params):
             params = quantize_params(params, cfg)
+        # adapters attach after the quantization: their factors stay in the
+        # activation dtype (the parameters') beside int8 kernels
+        self.lora_names: List[str] = []
+        if lora:
+            if self.mesh is not None:
+                raise ValueError("multi-LoRA under a mesh is not wired yet "
+                                 "(adapter-axis pspecs)")
+            items = list(lora.items())
+            params = load_attached(params, items, cfg.num_layers,
+                                   params["final_norm"]["weight"].dtype)
+            self.lora_names = [name for name, _ in items]
         self.model = DecoderLM(cfg, params)
         self.eos_token_id = cfg.eos_token_id if eos_token_id is None \
             else eos_token_id
@@ -453,6 +505,17 @@ class Engine:
         self.pres_pens = np.zeros(self.num_slots, np.float32)
         self.freq_pens = np.zeros(self.num_slots, np.float32)
         self.rep_pens = np.ones(self.num_slots, np.float32)
+        # each slot's adapter index (0 = base); _slot_lora: the adapter that
+        # projected a dense slot's retained prompt rows (the dense prefix
+        # cache never crosses adapters)
+        self.lora_idx = np.zeros(self.num_slots, np.int32)
+        self._slot_lora = np.zeros(self.num_slots, np.int32)
+        # the guided allow words: the one-entry device cache of a chunking
+        # request's row (keyed by its cursor's fingerprint), and what the
+        # decode operand's guided rows hold ({slot: (request id, cursor
+        # fingerprint)}; every other row is all ones)
+        self._allow_dev = None
+        self._allow_key: dict = {}
         self.slot_req: List[Optional[Request]] = [None] * self.num_slots
         # free slots: admit from the front, release to the back
         self._free: collections.deque = collections.deque(
@@ -647,6 +710,11 @@ class Engine:
             # rebuilds prompt + resume and the admission gate counts its
             # pages (both read _resume_ctx once the request is queued)
             req.generated = [int(t) for t in req.resume_ids]
+            if req.guided is not None:
+                # the cursor stands where the first replica's stood: past
+                # every relayed token
+                for t in req.generated:
+                    req.guided.advance(t)
             self._resume_ctx[req.id] = list(req.prompt_ids) + req.generated
         with self._lock:
             depth = self.serving.max_queue_depth
@@ -669,8 +737,12 @@ class Engine:
         """The JAX engine's checks of the logit fields (ValueError): the
         min_tokens ban within BAN_K tokens, the bias within BIAS_K entries,
         a repetition penalty > 0 (a factor <= 0 would flip the logits'
-        signs), prompt_logprobs within [0, LOGPROB_K] and only on a prompt
-        that does not chunk (the chunk walk computes none)."""
+        signs), the grammar (a TokenGrammar, wrapped here in a cursor of
+        the request's own, or a GuidedState; its vocabulary within the
+        model's; no min_tokens with an exact-match grammar, whose final
+        state allows only eos), prompt_logprobs within [0, LOGPROB_K] and
+        only on a prompt that does not chunk (the chunk walk computes none),
+        a registered adapter."""
         if req.min_tokens > 0 and len(self._ban_set(req)) > BAN_K:
             raise ValueError(
                 f"min_tokens suppression supports at most {BAN_K} stop "
@@ -682,6 +754,22 @@ class Engine:
         if req.repetition_penalty is not None and req.repetition_penalty <= 0:
             raise ValueError(f"repetition_penalty must be > 0 "
                              f"(got {req.repetition_penalty})")
+        if req.guided is not None:
+            if isinstance(req.guided, TokenGrammar):
+                req.guided = GuidedState(req.guided)
+            elif not isinstance(req.guided, GuidedState):
+                raise ValueError("guided must be a TokenGrammar or "
+                                 "GuidedState (serving/guided.py)")
+            if req.guided.grammar.vocab_size > self.cfg.vocab_size:
+                raise ValueError(
+                    f"guided grammar vocab ({req.guided.grammar.vocab_size}) "
+                    f"exceeds model vocab ({self.cfg.vocab_size})")
+            if req.min_tokens > 0 and req.guided.grammar.exact:
+                # the min_tokens ban would mask the eos that an exact
+                # grammar's final state allows alone: an all -inf row
+                raise ValueError(
+                    "min_tokens cannot combine with exact-match guided "
+                    "decoding (guided_regex / guided_choice)")
         if req.prompt_logprobs is not None:
             if not 0 <= int(req.prompt_logprobs) <= LOGPROB_K:
                 raise ValueError(f"prompt_logprobs must be in "
@@ -690,6 +778,9 @@ class Engine:
                 raise ValueError(
                     "prompt_logprobs is not supported for prompts that "
                     "need chunked prefill (fits-in-bucket prompts only)")
+        if req.lora is not None and req.lora not in self.lora_names:
+            raise ValueError(f"unknown LoRA adapter {req.lora!r} "
+                             f"(registered: {self.lora_names})")
 
     def _estimated_wait_s(self) -> float:
         """Coarse queue-wait estimate: queued requests x recent tokens per
@@ -840,9 +931,9 @@ class Engine:
         self._free.append(slot)
 
     def _neutral_rows(self, slot: int):
-        """The slot's ban, bias and penalty rows back to their neutral
-        values (its count and prompt-mask rows stay: a neutral row ignores
-        them, and a request that penalizes resets them)."""
+        """The slot's ban, bias, penalty and adapter rows back to their
+        neutral values (its count and prompt-mask rows stay: a neutral row
+        ignores them, and a request that penalizes resets them)."""
         self.ban_ids[slot] = NO_TOKEN
         self.ban_until[slot] = 0
         self.bias_ids[slot] = NO_TOKEN
@@ -851,6 +942,19 @@ class Engine:
         self.pres_pens[slot] = 0.0
         self.freq_pens[slot] = 0.0
         self.rep_pens[slot] = 1.0
+        self.lora_idx[slot] = 0
+
+    def _lora_index(self, req: Request) -> int:
+        """The request's adapter index (0 = base)."""
+        return self.lora_names.index(req.lora) + 1 \
+            if req.lora is not None else 0
+
+    @staticmethod
+    def _lora_salt(idx: int):
+        """The prefix chain's salt of an adapter's pages: rows projected
+        under one adapter never match a request on another (None for the
+        base keeps the base chain unsalted)."""
+        return ("lora", int(idx)) if idx else None
 
     def _ban_set(self, req: Request) -> set:
         """The tokens a request's min_tokens suppresses: exactly those
@@ -859,10 +963,12 @@ class Engine:
         return base | set(req.stop_token_ids)
 
     def _fill_sampling_rows(self, req: Request, slot: int):
-        """The slot's min_tokens ban and logit_bias rows from the request
-        (the JAX engine's): before the prefill dispatch, so that the first
-        token honours both, and again at the activation (a resume)."""
+        """The slot's min_tokens ban, logit_bias and adapter rows from the
+        request (the JAX engine's): before the prefill dispatch, so that the
+        first token honours them, and again at the activation (a
+        resume)."""
         self._op_dirty_sampling = True
+        self.lora_idx[slot] = self._lora_index(req)
         self.ban_ids[slot] = NO_TOKEN
         if req.min_tokens > 0:
             bs = sorted(self._ban_set(req))[:BAN_K]
@@ -1125,8 +1231,11 @@ class Engine:
             return None
         ids = req.prompt_ids
         cap = len(ids) - 1
+        lidx = self._lora_index(req)
         best_n, best_s = 0, -1
         for s, toks in enumerate(self._slot_tokens):
+            if self._slot_lora[s] != lidx:
+                continue          # rows projected under another adapter
             m = min(len(toks), cap)
             if m <= best_n:
                 continue
@@ -1179,7 +1288,8 @@ class Engine:
         host_keys: List[tuple] = []
         if self.serving.prefix_cache and req.prompt_logprobs is None:
             # a prompt_logprobs request prefills every row (_find_prefix)
-            matched, n, host_keys = alloc.lookup_prefix(ids)
+            matched, n, host_keys = alloc.lookup_prefix(
+                ids, salt=self._lora_salt(self._lora_index(req)))
             # the last token runs through the walk to give the first sample
             while host_keys and n + len(host_keys) * ps > len(ids) - 1:
                 host_keys.pop()
@@ -1302,13 +1412,86 @@ class Engine:
         ps = self.page_size
         pages = self._slot_pages[slot]
         n_valid = len(ids) if n_valid is None else n_valid
-        key = None
+        key = self._lora_salt(self.lora_idx[slot])
         for p in range(min(n_valid // ps, len(pages))):
             key = self.allocator.index_page(pages[p], key,
                                             tuple(ids[p * ps:(p + 1) * ps]))
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _lora_dev(self, idx: np.ndarray) -> Optional[torch.Tensor]:
+        """Adapter indices on the device; None without adapters, which the
+        programs take as no LoRA."""
+        return self._dev(idx) if self.lora_names else None
+
+    def _fill_allow(self, aw: np.ndarray, i: int, req: Request) -> None:
+        """Row ``i`` of int32 allow words from the request's cursor (the
+        uint32 words' bits); a grammar over a smaller vocabulary pads with
+        zero bits, so no token past its tokenizer is ever drawn. The
+        cursor's mask time goes to ``counts["allow_mask_ns"]``."""
+        t0 = time.perf_counter_ns()
+        words = req.guided.mask_words()
+        self.counts["allow_mask_ns"] += time.perf_counter_ns() - t0
+        aw[i, :] = 0
+        aw[i, :len(words)] = words.view(np.int32)
+
+    def _allow_row(self, req: Request) -> Optional[torch.Tensor]:
+        """[1, ceil(V/32)] device allow words of a guided request (None when
+        it is unguided), cached in one entry by (request, cursor
+        fingerprint): the dispatches of a guided request's chunk walk reuse
+        one upload (its cursor does not move before the walk ends)."""
+        if req.guided is None:
+            return None
+        key = (req.id, req.guided.fingerprint())
+        if self._allow_dev is not None and self._allow_dev[0] == key:
+            self.counts["allow_words_hits"] += 1
+            return self._allow_dev[1]
+        t0 = time.perf_counter_ns()
+        row = np.zeros((1, (self.cfg.vocab_size + 31) // 32), np.int32)
+        self._fill_allow(row, 0, req)
+        arr = torch.empty(row.shape, dtype=torch.int32, device=self.device)
+        self._upload(arr, row)
+        self.counts["allow_host_ns"] += time.perf_counter_ns() - t0
+        self._allow_dev = (key, arr)
+        return arr
+
+    def _guided_slots(self, active: List[int]) -> frozenset:
+        return frozenset(s for s in active
+                         if self.slot_req[s] is not None
+                         and self.slot_req[s].guided is not None)
+
+    def _allow_words(self, gslots) -> bool:
+        """Bring the decode operand's allow words (``decoder.allow``) in
+        line with the guided slots' cursors, all ones elsewhere; returns
+        whether a slot is guided. Only the rows that changed are written:
+        those of a guided slot whose (request, cursor fingerprint) moved,
+        and back to all ones those of a slot no longer guided; all of them
+        in one upload of [G, 1 + ceil(V/32)] int32 (the row's slot, then
+        its words) and one ``index_copy_``. With no row to write, a guided
+        batch counts a hit in ``counts["allow_words_hits"]``."""
+        key = {s: (self.slot_req[s].id, self.slot_req[s].guided.fingerprint())
+               for s in gslots}
+        rows = sorted([s for s, k in key.items()
+                       if self._allow_key.get(s) != k]
+                      + [s for s in self._allow_key if s not in key])
+        self._allow_key = key
+        if not rows:
+            if key:
+                self.counts["allow_words_hits"] += 1
+            return bool(key)
+        t0 = time.perf_counter_ns()
+        aw = np.full((len(rows), 1 + self.decoder.allow.shape[1]), -1,
+                     np.int32)
+        aw[:, 0] = rows
+        for i, s in enumerate(rows):
+            if s in key:
+                self._fill_allow(aw[:, 1:], i, self.slot_req[s])
+        buf = torch.empty(aw.shape, dtype=torch.int32, device=self.device)
+        self._upload(buf, aw)
+        self.decoder.allow.index_copy_(0, buf[:, 0].long(), buf[:, 1:])
+        self.counts["allow_host_ns"] += time.perf_counter_ns() - t0
+        return bool(key)
 
     def _table_dev(self) -> Optional[torch.Tensor]:
         """The block table on the device; None for the dense cache, which
@@ -1372,6 +1555,13 @@ class Engine:
             self._fill_sampling_rows(req, slot)
         reps = np.array([r.repetition_penalty or 1.0 for r, _ in batch],
                         np.float32)
+        allow = None
+        if any(r.guided is not None for r, _ in batch):
+            aw = np.full((N, (self.cfg.vocab_size + 31) // 32), -1, np.int32)
+            for i, (req, _) in enumerate(batch):
+                if req.guided is not None:
+                    self._fill_allow(aw, i, req)
+            allow = self._dev(aw)
         want_lp = any(r.logprobs is not None for r, _ in batch)
         n_plp = max((len(r.prompt_ids) for r, _ in batch
                      if r.prompt_logprobs is not None), default=0)
@@ -1388,6 +1578,7 @@ class Engine:
             bias_ids=self._dev(self.bias_ids[slots]),
             bias_vals=self._dev(self.bias_vals[slots]),
             reps=self._dev(reps) if (reps != 1.0).any() else None,
+            allow=allow, lora_idx=self._lora_dev(self.lora_idx[slots]),
             logprobs=want_lp, prompt_logprobs=n_plp)
         self.cache, toks = out[0], out[1].cpu().numpy()
         lp_t = tuple(a.cpu().numpy() for a in out[2]) if want_lp else None
@@ -1491,6 +1682,13 @@ class Engine:
         if prev is not None and not self._carry_valid():
             self._drain_decode_pipeline("prefill")      # a preemption
             prev = None
+        if prev is not None and self._guided_slots(self._active_slots()):
+            # a guided decode row's mask comes from its cursor, which moves
+            # when the tokens in flight are emitted: settle them first (the
+            # carry stays); the chunking request's own cursor does not move
+            # before its walk ends
+            self._settle_inflight()
+            prev = None
         try:
             rec = self._mixed_dispatch(st, chunk, C)
             st["off"] = off + len(chunk)
@@ -1541,6 +1739,7 @@ class Engine:
         pen = dict(counts=d.counts, presence=d.presence,
                    frequency=d.frequency, repetition=d.repetition,
                    prompt_mask=d.prompt_mask) if want_pen else {}
+        guided = self._allow_words(self._guided_slots(active))
         res = mixed_step(
             self.model, self.cache, d.tokens, d.lengths, pdev, slot, off,
             len(chunk), d.table, d.temps, d.top_ks, d.top_ps, d.seeds,
@@ -1548,7 +1747,8 @@ class Engine:
             any_sampled=bool((self.temps > 0).any()), ban_ids=d.ban_ids,
             ban_until=d.ban_until, bias_ids=d.bias_ids,
             bias_vals=d.bias_vals, prep=st["rep"], prep_seen=st["rep_seen"],
-            logprobs=want_lp, chunk_logprobs=chunk_lp,
+            allow=d.allow if guided else None, pallow=self._allow_row(req),
+            lora_idx=d.lora_idx, logprobs=want_lp, chunk_logprobs=chunk_lp,
             chunk_prompt_logprobs=chunk_plp, **pen)
         self.cache, out, ptok = res[:3]
         lp = plp = clp = ()
@@ -1601,7 +1801,8 @@ class Engine:
             ban_until=self._dev(self.ban_until[rows]),
             bias_ids=self._dev(self.bias_ids[rows]),
             bias_vals=self._dev(self.bias_vals[rows]), rep=st["rep"],
-            rep_seen=st["rep_seen"], logprobs=want_lp)
+            rep_seen=st["rep_seen"], allow=self._allow_row(req),
+            lora_idx=self._lora_dev(self.lora_idx[rows]), logprobs=want_lp)
         self.cache, tok = out[0], int(out[1].cpu()[0])
         lp = _host_lp(tuple(a.cpu().numpy() for a in out[2]), 0,
                       req.logprobs) if want_lp else None
@@ -1678,6 +1879,8 @@ class Engine:
                              (d.frequency, self.freq_pens),
                              (d.repetition, self.rep_pens)):
                 self._upload(dst, arr)
+            if d.lora_idx is not None:
+                self._upload(d.lora_idx, self.lora_idx)
             self._op_dirty_sampling = False
         if self.paged and self._op_dirty_table:
             self._upload(d.table, self.table)
@@ -1745,7 +1948,23 @@ class Engine:
                     self._do_spec_decode(active, *proposal, skip=skip)
                     return
         self._spec_plain_due = False
-        rec = self._decode_dispatch(horizon, active)
+        gset = self._guided_slots(active)
+        if gset and prev is not None:
+            # a guided slot's mask comes from its cursor, which moves when
+            # the tokens in flight are emitted: settle them first (the carry
+            # stays, no drain is counted)
+            self._settle_inflight()
+            prev = None
+            active = self._active_slots()
+            if not active:
+                return
+            gset = self._guided_slots(active)
+        if gset and len(gset) == len(active):
+            # guided slots alone: one token a dispatch, each under a fresh
+            # mask (beside unguided slots the horizon stays, and the guided
+            # ones emit substep 0's token only)
+            horizon = 1
+        rec = self._decode_dispatch(horizon, active, gset)
         if self._pipeline_on():
             self._inflight = rec
             if prev is not None:
@@ -1759,14 +1978,17 @@ class Engine:
             self._decode_fetch(prev)
         self._decode_fetch(rec)
 
-    def _decode_dispatch(self, horizon: int, active: List[int]) -> dict:
+    def _decode_dispatch(self, horizon: int, active: List[int],
+                         gset: frozenset = frozenset()) -> dict:
         """Queue one decode dispatch of ``horizon`` substeps (a graph
         replay on a CUDA device) and return its record; nothing here waits
-        for the device."""
+        for the device. ``gset``: the guided slots, whose cursors' allow
+        words the operand takes first."""
         self._decode_operands()
-        want_lp = self._want_lp()
+        self._allow_words(gset)
+        want_lp, want_pen = self._want_lp(), self._want_pen()
         out = self.decoder.run(horizon, bool((self.temps > 0).any()),
-                               self._want_pen(), want_lp)
+                               want_pen, want_lp)
         lp = ()
         if want_lp:
             out, lp = out
@@ -1777,8 +1999,8 @@ class Engine:
         self.counts["pipeline_dispatches"] += 1
         _metrics.pipeline.dispatches.inc()
         return {"out": out[0], "lp": lp, "event": event,
-                "horizon": horizon, "active": list(active),
-                "t0": time.monotonic(),
+                "horizon": horizon, "active": list(active), "gset": gset,
+                "want_pen": want_pen, "t0": time.monotonic(),
                 "reqs": [self.slot_req[s] for s in active]}
 
     def _decode_fetch(self, rec: dict) -> None:
@@ -1786,7 +2008,11 @@ class Engine:
         to each slot that still serves the request it served when the
         dispatch was queued (a slot that finished since then was decoded as
         garbage; its surplus is discarded). A mixed dispatch's record also
-        yields the chunk's token."""
+        yields the chunk's token. A guided slot beside unguided ones emits
+        substep 0's token only (the later substeps drew under a stale mask):
+        its device carry and, when it penalizes, its count row no longer
+        describe it, so the carry is invalidated (the next dispatch copies
+        the mirrors in) and the count row restored from its stream."""
         if rec["event"] is not None:
             rec["event"].synchronize()
         out = rec["out"].numpy()
@@ -1803,10 +2029,13 @@ class Engine:
                 _host_prompt_lp(req, tuple(a.numpy()
                                            for a in rec["chunk_plp_t"]), 0)
         emitted = 0
+        gset = rec.get("gset", ())
         for s in range(rec["horizon"]):
             for slot, req in zip(rec["active"], rec["reqs"]):
                 if self.slot_req[slot] is not req:
                     continue             # finished earlier or since queued
+                if s > 0 and slot in gset:
+                    continue             # a guided slot's surplus substep
                 lp = None
                 if req.logprobs is not None and lp_t is not None:
                     lp = _host_lp(tuple(a[s] for a in lp_t), slot,
@@ -1814,7 +2043,31 @@ class Engine:
                 self.lengths[slot] += 1
                 self._emit(slot, int(out[s, slot]), lp)
                 emitted += 1
+        if gset and rec["horizon"] > 1:
+            self._resync_guided(rec)
         self._note_tokens(rec["t0"], emitted)
+
+    def _resync_guided(self, rec: dict) -> None:
+        """After a dispatch of horizon > 1 whose guided slots emitted one
+        token each: the carry's lanes of a guided slot still serving its
+        request hold the discarded substeps' token and length (invalidate
+        the carry), and a penalized one's count row counted them (restore
+        it from the emitted stream)."""
+        live = [s for s, r in zip(rec["active"], rec["reqs"])
+                if s in rec["gset"] and self.slot_req[s] is r]
+        if not live:
+            return
+        self._carry_gen += 1
+        if not rec["want_pen"]:
+            return
+        d = self.decoder
+        for slot in live:
+            req = self.slot_req[slot]
+            if self.pres_pens[slot] or self.freq_pens[slot] \
+                    or self.rep_pens[slot] != 1.0:
+                self._upload(d.counts[slot], np.bincount(
+                    np.asarray(req.generated, np.int64),
+                    minlength=self.cfg.vocab_size).astype(np.int32))
 
     def _note_tokens(self, t0: float, emitted: int) -> None:
         """The tokens_per_second gauge: tokens emitted by the last 50
@@ -1867,10 +2120,12 @@ class Engine:
         the draw (the JAX engine draws them from the verify's row 0; ROADMAP
         C9). The JAX engine's ineligible slots (``_slot_spec_ineligible``)
         need what only the plain step does: logprobs, a live penalty, a
-        live min_tokens ban, a logit bias."""
+        live min_tokens ban, a logit bias, a grammar (its mask needs the
+        host's cursor between every two tokens)."""
         return {s for s in active
                 if self.slot_req[s].temperature > 0.0
                 or self.slot_req[s].logprobs is not None
+                or self.slot_req[s].guided is not None
                 or self.pres_pens[s] or self.freq_pens[s]
                 or self.rep_pens[s] != 1.0
                 or self.ban_until[s] > self.lengths[s]
@@ -1890,7 +2145,8 @@ class Engine:
             self.model, R, self.cache, self._dev(tokens),
             self._dev(self.lengths), self._table_dev(),
             self._dev(self.temps), self._dev(self.top_ks),
-            self._dev(self.top_ps), self._dev(self.seeds))
+            self._dev(self.top_ps), self._dev(self.seeds),
+            lora_idx=self._lora_dev(self.lora_idx))
         out, accepted = out.cpu().numpy(), accepted.cpu().numpy()
         self.counts["spec_dispatches"] += 1
         m = self.metrics
@@ -1949,6 +2205,7 @@ class Engine:
             self._index_prompt_pages(slot, ids)
         else:
             self._slot_tokens[slot] = tuple(req.prompt_ids)
+            self._slot_lora[slot] = self._lora_index(req)
         self.slot_req[slot] = req
         self.lengths[slot] = len(ids) - 1 if resumed else len(ids)
         self.temps[slot] = req.temperature
@@ -1997,6 +2254,10 @@ class Engine:
         a stop token (the eos set unless ignore_eos, and stop_token_ids)
         ends the request only past min_tokens."""
         req = self.slot_req[slot]
+        if req.guided is not None:
+            # the next mask comes from the state past this token; a token
+            # the grammar rejects leaves only eos and whitespace
+            req.guided.advance(token)
         req.generated.append(token)
         if req.logprobs is not None:
             req.logprob_data.append(lp)
@@ -2006,6 +2267,8 @@ class Engine:
             req.out_queue.put(token)
         self.last_token[slot] = token
         self.counts["generated_tokens"] += 1
+        if req.guided is not None:
+            self.counts["guided_tokens"] += 1
         self.metrics.generated_tokens.inc()
         hit_eos = ((token in self._eos_set and not req.ignore_eos)
                    or token in req.stop_token_ids) \
@@ -2089,8 +2352,9 @@ class Engine:
     def _warmup_ops(self, n: int, fields: bool = False) -> dict:
         """Scratch sampling and logit operands of ``n`` rows: greedy and
         neutral, or (``fields``) sampled with a logit bias, a live
-        min_tokens ban and a repetition penalty, so that every branch of
-        the logit processing runs."""
+        min_tokens ban, a repetition penalty and allow words (all ones), so
+        that every branch of the logit processing runs; with adapters, base
+        adapter indices (the LoRA path runs, adding nothing)."""
         dev = self.device
         ban_ids = torch.full((n, BAN_K), NO_TOKEN, dtype=torch.int32,
                              device=dev)
@@ -2111,7 +2375,11 @@ class Engine:
             ban_until=torch.full((n,), self.max_len if fields else 0,
                                  dtype=torch.int32, device=dev),
             bias_ids=bias_ids, bias_vals=bias_vals,
-            reps=torch.full((n,), 1.1, device=dev) if fields else None)
+            reps=torch.full((n,), 1.1, device=dev) if fields else None,
+            allow=allow_words(n, self.cfg.vocab_size, dev) if fields
+            else None,
+            lora_idx=torch.zeros(n, dtype=torch.int32, device=dev)
+            if self.lora_names else None)
 
     def _warmup_tokens(self, n: int, T: int, seed: int) -> torch.Tensor:
         """[n, T] distinct token ids below the vocabulary."""
@@ -2153,6 +2421,7 @@ class Engine:
                 slots=slots, ban_ids=ops["ban_ids"],
                 ban_until=ops["ban_until"], bias_ids=ops["bias_ids"],
                 bias_vals=ops["bias_vals"], reps=ops["reps"],
+                allow=ops["allow"], lora_idx=ops["lora_idx"],
                 logprobs=fields, prompt_logprobs=LOGPROB_K if fields else 0)
 
         for b in self.buckets:
@@ -2192,6 +2461,8 @@ class Engine:
                     ban_ids=ops["ban_ids"], ban_until=ops["ban_until"],
                     bias_ids=ops["bias_ids"], bias_vals=ops["bias_vals"],
                     prep=1.1 if fields else 1.0, prep_seen=seen,
+                    allow=ops["allow"], pallow=self._warmup_ops(1, fields)[
+                        "allow"], lora_idx=ops["lora_idx"],
                     logprobs=fields, chunk_logprobs=fields,
                     chunk_prompt_logprobs=LOGPROB_K if fields else 0, **pen)
 
@@ -2226,6 +2497,7 @@ class Engine:
                         ban_until=ops["ban_until"], bias_ids=ops["bias_ids"],
                         bias_vals=ops["bias_vals"],
                         rep=1.1 if fields else 1.0, rep_seen=seen,
+                        allow=ops["allow"], lora_idx=ops["lora_idx"],
                         logprobs=fields)
 
                 progs.append((f"chunk_c{C}", lambda: chunk(False)))
@@ -2258,7 +2530,9 @@ class Engine:
                              any_sampled=False, ban_ids=ops["ban_ids"],
                              ban_until=ops["ban_until"],
                              bias_ids=ops["bias_ids"],
-                             bias_vals=ops["bias_vals"])
+                             bias_vals=ops["bias_vals"],
+                             allow=allow_words(B, V, dev),
+                             lora_idx=ops["lora_idx"])
 
             progs.append(("decode_h1", decode))
         if self.spec_decode:
@@ -2269,7 +2543,8 @@ class Engine:
                 spec_decode_step(model, R, self.cache,
                                  torch.zeros((B, R), dtype=i32, device=dev),
                                  lengths(R), table, ops["temps"],
-                                 ops["top_ks"], ops["top_ps"], ops["seeds"])
+                                 ops["top_ks"], ops["top_ps"], ops["seeds"],
+                                 lora_idx=ops["lora_idx"])
 
             progs.append((f"spec_verify_r{R}", verify))
         if self.draft is not None:

@@ -55,8 +55,16 @@ repetition over its prompt), the OpenAI ``logit_bias``, then the
 at that substep; the logprobs (:func:`_logprob_topk`) are taken from the
 processed logits, the prompt logprobs (:func:`_prompt_logprobs`) from the
 raw ones. A bias or ban entry that names no token of the vocabulary (the
-JAX programs' pad ``NO_TOKEN``) is masked, never indexed. Guided masks and
-LoRA of the JAX programs are not ported yet.
+JAX programs' pad ``NO_TOKEN``) is masked, never indexed. After the ban
+comes the guided-decoding allow-mask (``allow`` [rows, ceil(V/32)] int32
+words, ``ops/sampling.apply_allow``; all-ones for an unguided row), unpacked
+once a dispatch: the decode horizon reuses substep 0's mask, as the JAX
+program does, and ``mixed_step`` masks the chunk row with ``pallow``.
+
+Each takes the rows' LoRA adapter indices (``lora_idx``, 0 = base; only
+when adapters are attached, ``models/lora.py``): one per row, or in
+``mixed_step`` one per packed token, the chunk's rows taking
+``lora_idx[pslot]``.
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
     make_prefill_attend_batch, make_prefill_attend_batch_paged_carry,
     make_spec_attend_carry, make_spec_attend_carry_paged)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.sampling import (
-    apply_penalties, sample)
+    allow_banned, apply_allow, apply_penalties, sample)
 
 # The JAX programs' static widths (their serving/programs.py): the top-k of
 # a logprob record, a slot's min_tokens ban list (its eos set and stop
@@ -157,6 +165,19 @@ def _mask_banned(logits: torch.Tensor, ban_ids: Optional[torch.Tensor],
         return logits
     return _ban(logits, _ban_rows(ban_ids, logits.shape[-1], logits.dtype),
                 ban_until, lens)
+
+
+def _apply_allow(logits: torch.Tensor, allow: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The guided allow-mask of a prefill or chunk row (None: no row of the
+    dispatch is guided)."""
+    return logits if allow is None else apply_allow(logits, allow)
+
+
+def allow_words(rows: int, V: int, device) -> torch.Tensor:
+    """[rows, ceil(V/32)] int32 allow words that allow every token."""
+    return torch.full((rows, (V + 31) // 32), -1, dtype=torch.int32,
+                      device=device)
 
 
 def _apply_prefill_repetition(logits: torch.Tensor, tokens: torch.Tensor,
@@ -263,8 +284,8 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                        top_p: torch.Tensor, seeds: torch.Tensor,
                        slots: Optional[torch.Tensor] = None,
                        ban_ids=None, ban_until=None, bias_ids=None,
-                       bias_vals=None, reps=None, logprobs: bool = False,
-                       prompt_logprobs: int = 0):
+                       bias_vals=None, reps=None, allow=None, lora_idx=None,
+                       logprobs: bool = False, prompt_logprobs: int = 0):
     """Prefill N prompts in one forward pass.
 
     tokens: [N, T] right-padded; true_lens [N]; tables [N, max_pages] int32
@@ -273,9 +294,11 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     [N]. Each row's last logits go on in float32 (the JAX engine always
     hands its prefills a repetition factor, which casts them) through the
     repetition penalty over its prompt (``reps`` [N]; None when no row
-    penalizes), the bias ([N, BIAS_K]) and the ban ([N, BAN_K], at the
-    prompt's length). Returns (pool, first tokens [N] int32), then with
-    ``logprobs`` their (sel, vals, ids) records, then with
+    penalizes), the bias ([N, BIAS_K]), the ban ([N, BAN_K], at the
+    prompt's length) and the allow words ([N, ceil(V/32)]; None when no row
+    is guided); ``lora_idx`` [N] the rows' adapters. Returns (pool, first
+    tokens [N] int32), then with ``logprobs`` their (sel, vals, ids)
+    records, then with
     ``prompt_logprobs`` (the longest prompt that asks) the prompts' records
     (:func:`_prompt_logprobs`).
     """
@@ -286,12 +309,14 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     attend = make_prefill_attend_batch(slots, true_lens, window) \
         if tables is None else \
         make_prefill_attend_batch_paged_carry(tables, true_lens, window)
-    logits, pool = model.forward_carry(tokens, positions, pool, attend)
+    logits, pool = model.forward_carry(tokens, positions, pool, attend,
+                                       model.lora_rows(lora_idx))
     last = logits[torch.arange(N, device=tokens.device),
                   true_lens.long() - 1].float()
     last = _apply_prefill_repetition(last, tokens, true_lens, reps)
     last = _apply_logit_bias(last, bias_ids, bias_vals)
     last = _mask_banned(last, ban_ids, ban_until, true_lens)
+    last = _apply_allow(last, allow)
     toks = sample(last, temperature, top_k, top_p, seeds, true_lens)
     out = [pool, toks]
     if logprobs:
@@ -307,7 +332,7 @@ def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
                        top_p: torch.Tensor, seed: torch.Tensor,
                        ban_ids=None, ban_until=None, bias_ids=None,
                        bias_vals=None, rep: float = 1.0, rep_seen=None,
-                       logprobs: bool = False):
+                       allow=None, lora_idx=None, logprobs: bool = False):
     """Prefill one chunk of a long prompt into slot ``slot`` of the dense
     cache, at rows [start, start + C) (the JAX program's ``pages=None``
     branch).
@@ -321,14 +346,17 @@ def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
     keeps), so a seeded stream does not depend on the chunking. The row's
     logits go on in float32 through the repetition penalty ``rep`` over
     ``rep_seen`` ([V] bool, the whole context's tokens; skipped at 1.0),
-    the bias ([1, BIAS_K]) and the ban ([1, BAN_K], at ``start +
-    chunk_len``); with ``logprobs`` the token's record follows.
+    the bias ([1, BIAS_K]), the ban ([1, BAN_K], at ``start +
+    chunk_len``) and the allow words ([1, ceil(V/32)] or None);
+    ``lora_idx`` [1] the slot's adapter. With ``logprobs`` the token's
+    record follows.
     """
     C = tokens.shape[1]
     positions = start + torch.arange(C, dtype=torch.int32,
                                      device=tokens.device)[None]
     attend = make_chunk_prefill_attend(slot, start, model.cfg.sliding_window)
-    logits, cache = model.forward_carry(tokens, positions, cache, attend)
+    logits, cache = model.forward_carry(tokens, positions, cache, attend,
+                                        model.lora_rows(lora_idx))
     last = logits[0, chunk_len - 1][None].float()
     if rep != 1.0:
         last = _repetition(last, rep_seen[None], np.float32(rep))
@@ -336,6 +364,7 @@ def prefill_chunk_step(model: DecoderLM, cache: dict, tokens: torch.Tensor,
                        device=tokens.device)
     last = _apply_logit_bias(last, bias_ids, bias_vals)
     last = _mask_banned(last, ban_ids, ban_until, ctr)
+    last = _apply_allow(last, allow)
     token = sample(last, temperature, top_k, top_p, seed, ctr)
     if logprobs:
         return cache, token, _logprob_topk(last, token)
@@ -350,7 +379,8 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
                  any_sampled: Optional[bool] = None, counts=None,
                  presence=None, frequency=None, repetition=None,
                  prompt_mask=None, ban_ids=None, ban_until=None,
-                 bias_ids=None, bias_vals=None, logprobs: bool = False):
+                 bias_ids=None, bias_vals=None, allow=None, lora_idx=None,
+                 logprobs: bool = False):
     """``n_steps`` decode substeps for every slot.
 
     tokens/lengths: [B] int32 (the token to feed and the row it lands at);
@@ -368,7 +398,10 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
     substep's draws, so a repeat inside the horizon is penalized) the
     penalties (presence, frequency, repetition [B]; prompt_mask [B, V]),
     then the bias (bias_ids, bias_vals [B, BIAS_K]) and the ban (ban_ids
-    [B, BAN_K], ban_until [B]) at the substep's lengths.
+    [B, BAN_K], ban_until [B]) at the substep's lengths, then the allow
+    words (``allow`` [B, ceil(V/32)], unpacked once: every substep reuses
+    substep 0's mask). ``lora_idx`` [B]: the slots' adapters (their rows
+    built once for the horizon).
     Returns (pool, out [n_steps, B]); with ``logprobs`` out is (tokens
     [n_steps, B], (sel [n_steps, B], vals and ids [n_steps, B, K])). Slots
     that stop mid-horizon produce surplus tokens the host discards (and
@@ -381,12 +414,16 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
     window = model.cfg.sliding_window
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     bias = ban = None
+    # the allow mask and the adapters' rows once for the whole horizon
+    banned = None if allow is None \
+        else allow_banned(allow, model.cfg.vocab_size)
+    lora = model.lora_rows(lora_idx)
     for i in range(n_steps):
         attend = make_decode_attend_carry(lens, window, bblock, mesh) \
             if table is None \
             else make_decode_attend_carry_paged(lens, table, window)
         logits, pool = model.forward_carry(tok[:, None], lens[:, None], pool,
-                                           attend)
+                                           attend, lora)
         if i == 0:
             # the bias and ban rows once for the whole horizon
             bias, ban = _logit_rows(logits, counts is not None, ban_ids,
@@ -394,6 +431,8 @@ def decode_steps(model: DecoderLM, n_steps: int, pool,
         step_logits = _process(logits[:, 0], lens, counts, presence,
                                frequency, repetition, prompt_mask, bias, ban,
                                ban_until)
+        if banned is not None:
+            step_logits = apply_allow(step_logits, None, banned)
         tok = sample(step_logits, temperature, top_k, top_p, seeds,
                      lens + 1, any_sampled)
         if counts is not None:
@@ -420,8 +459,9 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                presence=None, frequency=None, repetition=None,
                prompt_mask=None, ban_ids=None, ban_until=None,
                bias_ids=None, bias_vals=None, prep: float = 1.0,
-               prep_seen=None, logprobs: bool = False,
-               chunk_logprobs: bool = False, chunk_prompt_logprobs: int = 0):
+               prep_seen=None, allow=None, pallow=None, lora_idx=None,
+               logprobs: bool = False, chunk_logprobs: bool = False,
+               chunk_prompt_logprobs: int = 0):
     """One ragged dispatch: a decode step for every slot AND one prefill
     chunk (``ptokens`` [1, C], ``plen`` valid) of slot ``pslot`` at rows
     [pstart, pstart + C). The chunk row samples with (ptemp, ptop_k,
@@ -433,9 +473,12 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     whole context's tokens; skipped at 1.0).
 
     The decode rows' logits take :func:`decode_steps`' processing (the
-    penalties with ``counts``, whose rows each count their draw); the
-    chunk's last valid row takes :func:`prefill_chunk_step`'s (float32,
-    repetition, bias, the ban at ``pstart + plen``).
+    penalties with ``counts``, whose rows each count their draw, then the
+    allow words ``allow`` [B, ceil(V/32)]); the chunk's last valid row takes
+    :func:`prefill_chunk_step`'s (float32, repetition, bias, the ban at
+    ``pstart + plen``, then ``pallow`` [1, ceil(V/32)] when the chunking
+    request is guided). ``lora_idx`` [B]: the slots' adapters; the packed
+    rows take them per token, the chunk's rows ``lora_idx[pslot]``.
 
     Returns (pool, out [1, B], chunk token [1]); ``out[0, pslot]`` is the
     dead passenger's token and is discarded. With ``logprobs`` out is
@@ -463,11 +506,15 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                                            row_limits.to(i32), row_tables,
                                            model.cfg.sliding_window,
                                            chunk_start=B)
-    logits, pool = model.forward_carry(packed, positions, pool, attend)
+    lora = None if lora_idx is None else model.lora_rows(
+        torch.cat([lora_idx, lora_idx[pslot].expand(C)])[None])
+    logits, pool = model.forward_carry(packed, positions, pool, attend,
+                                       lora)
     bias, ban = _logit_rows(logits, counts is not None, ban_ids, bias_ids,
                             bias_vals)
     dec = _process(logits[0, :B], lengths, counts, presence, frequency,
                    repetition, prompt_mask, bias, ban, ban_until)
+    dec = _apply_allow(dec, allow)
     nxt = sample(dec, temperature, top_k, top_p, seeds, lengths + 1,
                  any_sampled)
     if counts is not None:
@@ -490,6 +537,7 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     if ban_ids is not None:
         plast = _mask_banned(plast, ban_ids[pslot][None],
                              ban_until[pslot][None], pctr)
+    plast = _apply_allow(plast, pallow)
     ptok = sample(plast, one(ptemp, torch.float32), one(ptop_k, i32),
                   one(ptop_p, torch.float32), one(pseed, torch.int64),
                   pctr, ptemp > 0)
@@ -507,7 +555,7 @@ def spec_decode_step(model: DecoderLM, R: int, pool: dict,
                      tokens: torch.Tensor, lengths: torch.Tensor,
                      table: Optional[torch.Tensor], temperature: torch.Tensor,
                      top_k: torch.Tensor, top_p: torch.Tensor,
-                     seeds: torch.Tensor):
+                     seeds: torch.Tensor, lora_idx=None):
     """Speculative verify: R tokens per slot in one forward pass.
 
     tokens: [B, R] = [last emitted token, R - 1 drafts] at positions
@@ -515,7 +563,8 @@ def spec_decode_step(model: DecoderLM, R: int, pool: dict,
     pages must cover ``lengths + R``), None for the dense cache. Returns
     (pool, out [B, R], accepted [B]): ``out[b, :accepted[b]]`` are the
     emitted tokens, the longest draft prefix that matches the model's
-    argmax at every row, then the argmax after it. A sampled slot
+    argmax at every row, then the argmax after it (each slot through its
+    adapter, ``lora_idx`` [B]). A sampled slot
     (temperature > 0) accepts nothing and draws one token from row 0, keyed
     at ``lengths + 1`` as a decode step is. The K/V rows of all R positions
     are written; those past the accepted prefix lie beyond the slot's new
@@ -528,7 +577,8 @@ def spec_decode_step(model: DecoderLM, R: int, pool: dict,
     window = model.cfg.sliding_window
     attend = make_spec_attend_carry(lengths, window) if table is None \
         else make_spec_attend_carry_paged(lengths, table, window)
-    logits, pool = model.forward_carry(tokens, positions, pool, attend)
+    logits, pool = model.forward_carry(tokens, positions, pool, attend,
+                                       model.lora_rows(lora_idx))
     preds = torch.argmax(logits, dim=-1).to(torch.int32)          # [B, R]
     drafts = tokens[:, 1:].to(torch.int32)                        # [B, R-1]
     match = (drafts == preds[:, :-1]).to(torch.int32)
@@ -584,17 +634,22 @@ class DecodeGraphs:
     for the dense cache), ``temps``, ``top_ks``, ``top_ps`` and ``seeds``
     [B], the logit operands ``ban_ids`` [B, BAN_K], ``ban_until`` [B],
     ``bias_ids``, ``bias_vals`` [B, BIAS_K], ``presence``, ``frequency``,
-    ``repetition`` [B] and ``prompt_mask`` [B, V] bool are the operands; the
-    caller copies its host values into them. ``counts`` [B, V] int32 is the
-    penalties' carry, updated in place by every substep of a penalties
+    ``repetition`` [B], ``prompt_mask`` [B, V] bool, the guided allow words
+    ``allow`` [B, ceil(V/32)] int32 (all ones for an unguided slot) and,
+    when ``model`` has adapters attached, the adapter indices ``lora_idx``
+    [B] are the operands; the caller copies its host values into them.
+    ``counts`` [B, V] int32 is the penalties' carry, updated in place by
+    every substep of a penalties
     variant (the caller resets or restores a slot's row when a request
     takes it). :meth:`run` takes ``h`` substeps of :func:`decode_steps` for
     all B slots, returns out [h, B] (with logprobs, (out, records)) and
     leaves the carry in place: ``tokens`` becomes out[h - 1] and
     ``lengths`` advances by h, so the next run continues on the device
-    without a host round trip. The bias and the ban are always on (an
-    unused entry is masked, as the JAX programs take them as operands); the
-    penalties and the logprobs are variants.
+    without a host round trip. The bias, the ban and the allow words are
+    always on (an unused entry is masked, an all-ones row allows every
+    token: operands, not variants, so a guided request doubles no graph);
+    the adapter indices are on when adapters are attached; the penalties
+    and the logprobs are variants.
 
     With ``capture`` (a CUDA device, no sp mesh), each (horizon in
     ``horizons``, any row samples, penalties, logprobs) is captured once as
@@ -644,6 +699,9 @@ class DecodeGraphs:
         self.repetition = torch.ones(B, device=dev)
         self.counts = torch.zeros((B, V), dtype=i32, device=dev)
         self.prompt_mask = torch.zeros((B, V), dtype=torch.bool, device=dev)
+        self.allow = allow_words(B, V, dev)
+        self.lora_idx = torch.zeros(B, dtype=i32, device=dev) \
+            if model.has_lora else None
         self.graphs: dict = {}
         self.replays = 0
         # replays by (penalties, logprobs)
@@ -666,7 +724,8 @@ class DecodeGraphs:
                               any_sampled=sampled, ban_ids=self.ban_ids,
                               ban_until=self.ban_until,
                               bias_ids=self.bias_ids,
-                              bias_vals=self.bias_vals, logprobs=logprobs,
+                              bias_vals=self.bias_vals, allow=self.allow,
+                              lora_idx=self.lora_idx, logprobs=logprobs,
                               **pen)
         toks = out[0] if logprobs else out
         self.tokens.copy_(toks[-1])

@@ -38,7 +38,16 @@ prefill of n prompts rounds apart from a batch of one, ROADMAP C22),
 there), ``prompt_logprobs``, ``logit_bias`` and the presence, frequency
 and repetition penalties. A chat request reads the same fields but
 ``prompt`` and ``echo`` (refused), with ``temperature`` 1.0 by default,
-``best_of`` = ``n`` and ``logprobs: true`` with ``top_logprobs``.
+``best_of`` = ``n`` and ``logprobs: true`` with ``top_logprobs``. Both
+read the guided-decoding fields (``serving/guided.py``): OpenAI
+``response_format`` (``json_object``, ``json_schema``; ``text`` or null is
+no grammar) or one of vLLM's ``guided_json``, ``guided_regex`` and
+``guided_choice``; each choice of ``n`` > 1 gets a cursor of its own, and
+a malformed or conflicting spec gets 400 ``guided decoding: ...``.
+
+``model`` names the served model or one of the LoRA adapters registered
+with ``--lora NAME=PATH`` (``/v1/models`` lists them with their
+``parent``); the answer carries the name asked for.
 
 ``stream`` answers with ``text/event-stream`` over chunked transfer
 encoding: ``data: {...}`` events, one per ready piece of text and choice
@@ -66,10 +75,7 @@ clamps it to the room the prompt leaves); a field out of its range gets
 400; a deadline that is not a positive number of milliseconds gets 400, an
 expired one 408 (``deadline_exceeded``); a request the engine sheds gets
 429 ``engine_overloaded:<reason>`` with ``Retry-After``, or 503
-``draining`` with ``Retry-After`` and ``X-TPU-Draining: 1``. The fields of
-:data:`UNSERVED_FIELDS` (``response_format`` and guided decoding) are
-refused with 400, naming the field, unless it holds its neutral value: a
-completion that silently ignored it would be a wrong answer.
+``draining`` with ``Retry-After`` and ``X-TPU-Draining: 1``.
 
 With ``--checkpoint-dir`` it serves a local HF checkpoint directory
 (``build_state``: the directory's config, its weights through the
@@ -106,29 +112,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 log = logging.getLogger(__name__)
-
-
-# The JAX server's completions fields the port does not serve yet (its
-# serving/server.py:946-960, guided decoding), each with the test of its
-# neutral value: a request that sets one of them to anything else is
-# refused. null (or the field left out) is neutral for every one.
-UNSERVED_FIELDS = {
-    "response_format": lambda x: isinstance(x, dict) and set(x) <= {"type"}
-    and x.get("type") in (None, "text"),
-    "guided_json": lambda x: False,
-    "guided_regex": lambda x: False,
-    "guided_choice": lambda x: False,
-}
-
-
-def unserved_field(body: dict) -> Optional[str]:
-    """The first field of :data:`UNSERVED_FIELDS` that ``body`` sets to a
-    value other than null or its neutral one, or None."""
-    for name, neutral in UNSERVED_FIELDS.items():
-        value = body.get(name)
-        if value is not None and not neutral(value):
-            return name
-    return None
 
 
 def _parse_fields(body: dict, engine, ids, header_deadline=None,
@@ -519,7 +502,10 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
     through the converted-params cache, onto the engine's device. Without:
     random weights from ``seed`` and the byte tokenizer. With
     ``spec_method="draft"`` the draft model comes from
-    ``serving.draft_checkpoint_dir`` (required). The engine stops on the
+    ``serving.draft_checkpoint_dir`` (required). ``serving.lora_adapters``
+    (``"name=path"`` each) registers the adapters, in order; a malformed
+    spec, a duplicate name or one that shadows ``serving.model`` raises
+    ValueError. The engine stops on the
     tokenizer's eos beside the model's. A ``serving.mesh`` of more than one
     device takes that many CUDA cards (the engine's ``_build_mesh``), or on
     the CPU repeats the CPU."""
@@ -590,9 +576,22 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
     if dev.type == "cpu" and serving.mesh.num_devices > 1:
         # a dry run on the CPU: every shard of the mesh on the CPU
         mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices)
+    lora = None
+    if serving.lora_adapters:
+        lora = {}
+        for spec in serving.lora_adapters:
+            name, sep, path = spec.partition("=")
+            if not sep or not name or not path:
+                raise ValueError(f"--lora expects name=path, got {spec!r}")
+            if name in lora:
+                raise ValueError(f"duplicate LoRA adapter name {name!r}")
+            if name == serving.model:
+                raise ValueError(f"LoRA adapter name {name!r} would shadow "
+                                 f"the served base model id")
+            lora[name] = path
     engine = Engine(model_cfg, params, serving,
                     eos_token_id=tokenizer.eos_token_id, device=dev,
-                    draft=draft, mesh=mesh)
+                    draft=draft, mesh=mesh, lora=lora)
     templater = ChatTemplater(model_cfg.name, tokenizer,
                               template_path=serving.chat_template or None)
     return ServerState(engine, tokenizer, serving.model, templater)
@@ -643,10 +642,13 @@ class Handler(BaseHTTPRequestHandler):
         st = self.state
         eng = st.engine
         if path == "/v1/models":
-            self._json(200, {"object": "list", "data": [{
-                "id": st.model_name, "object": "model",
-                "created": st.started, "owned_by": "torch-serve",
-                "max_model_len": eng.max_len}]})
+            base = {"id": st.model_name, "object": "model",
+                    "created": st.started, "owned_by": "torch-serve",
+                    "max_model_len": eng.max_len}
+            # the adapters are served as model ids (vLLM --enable-lora)
+            adapters = [{**base, "id": name, "parent": st.model_name}
+                        for name in eng.lora_names]
+            self._json(200, {"object": "list", "data": [base] + adapters})
         elif path in ("/health", "/healthz", "/ping"):
             self._health()
         elif path == "/readyz":
@@ -796,15 +798,19 @@ class Handler(BaseHTTPRequestHandler):
         from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
             ContextLengthExceeded, EngineOverloaded, Request)
 
+        from aws_k8s_ansible_provisioner_tpu_torch.serving.guided import \
+            grammar_for_request
+
         st = self.state
         model = body.get("model") or st.model_name
-        if model != st.model_name:
+        lora_name = model if model in st.engine.lora_names else None
+        if model != st.model_name and lora_name is None:
             return self._error(404, f"model {model!r} not found; serving "
-                                    f"{st.model_name!r}", "model_not_found")
-        field = unserved_field(body)
-        if field is not None:
-            return self._error(400, f"'{field}' is not supported yet (only "
-                                    f"its neutral value is accepted)")
+                                    f"{st.model_name!r} (adapters: "
+                                    f"{st.engine.lora_names})",
+                               "model_not_found")
+        # the answer names the model id asked for (an adapter's)
+        self._model = model
         if chat:
             messages = body.get("messages")
             if not isinstance(messages, list) or not messages:
@@ -835,6 +841,15 @@ class Handler(BaseHTTPRequestHandler):
                                self.headers.get(DEADLINE_HEADER), chat)
         if isinstance(fields, str):
             return self._error(400, fields)
+        rf = body.get("response_format")
+        if rf is not None and not isinstance(rf, dict):
+            return self._error(400, "'response_format' must be an object")
+        try:
+            # a cached grammar; the engine gives each choice its own cursor
+            guided = grammar_for_request(st.tokenizer, body,
+                                         sorted(st.engine._eos_set))
+        except ValueError as e:
+            return self._error(400, f"guided decoding: {e}")
         n_choices, best_of, stops, echo, lp_n, seed, include_usage, \
             resume_chars, is_resume = (
                 fields.pop(k) for k in (
@@ -871,8 +886,8 @@ class Handler(BaseHTTPRequestHandler):
                 extra = {"out_queue": _NotifyQueue(notify)} if notify else {}
                 reqs.append(st.engine.submit(Request(
                     prompt_ids=list(ids), logprobs=eng_lp,
-                    seed=None if seed is None else seed + i, **fields,
-                    **extra)))
+                    seed=None if seed is None else seed + i, guided=guided,
+                    lora=lora_name, **fields, **extra)))
         except ContextLengthExceeded as e:
             self._cancel(reqs)
             return self._error(400, str(e))
@@ -971,7 +986,7 @@ class Handler(BaseHTTPRequestHandler):
         self._json(200, {
             "id": rid, "object": "chat.completion" if chat
             else "text_completion",
-            "created": int(time.time()), "model": st.model_name,
+            "created": int(time.time()), "model": self._model,
             "choices": choices,
             "usage": {"prompt_tokens": n_prompt,
                       "completion_tokens": completion_tokens,
@@ -1003,7 +1018,7 @@ class Handler(BaseHTTPRequestHandler):
         """The usage-only chunk of ``stream_options.include_usage`` (after a
         continuation marked ``failover: true``)."""
         final = {"id": rid, "object": obj, "created": int(time.time()),
-                 "model": self.state.model_name, "choices": [],
+                 "model": self._model, "choices": [],
                  "usage": {"prompt_tokens": n_prompt,
                            "completion_tokens": n_gen,
                            "total_tokens": n_prompt + n_gen}}
@@ -1024,7 +1039,7 @@ class Handler(BaseHTTPRequestHandler):
         else:
             payload["text"] = ""
         body = {"id": rid, "object": obj, "created": int(time.time()),
-                "model": self.state.model_name, "choices": [payload]}
+                "model": self._model, "choices": [payload]}
         if include_usage:
             body["usage"] = None
         self._sse_write(f"data: {json.dumps(body)}\n\n".encode())
@@ -1080,7 +1095,7 @@ class Handler(BaseHTTPRequestHandler):
             if tok_ids:
                 payload["token_ids"] = [int(t) for t in tok_ids]
             body = {"id": rid, "object": obj, "created": int(time.time()),
-                    "model": st.model_name, "choices": [payload]}
+                    "model": self._model, "choices": [payload]}
             if include_usage:
                 body["usage"] = None
             self._sse_write(f"data: {json.dumps(body)}\n\n".encode())
@@ -1365,6 +1380,10 @@ def build_parser(**kw) -> argparse.ArgumentParser:
                         "sequence axis split over sp cards, decode merging "
                         "the shards' flash partials (needs sp cards; with "
                         "--device cpu every shard on the CPU)")
+    p.add_argument("--lora", action="append", default=[],
+                   metavar="NAME=PATH",
+                   help="register a peft LoRA adapter dir, served as model "
+                        "id NAME (repeatable; vLLM --enable-lora parity)")
     p.add_argument("--request-timeout", type=float, default=600.0,
                    help="default/maximum end-to-end deadline in seconds "
                         "(per-request X-Request-Deadline-Ms / deadline_ms "
@@ -1413,7 +1432,8 @@ def serving_config(args):
         drain_timeout_s=args.drain_timeout,
         admission_max_wait_s=args.admission_max_wait,
         chat_template=args.chat_template, checkpoint_dir=args.checkpoint_dir,
-        draft_checkpoint_dir=args.draft_checkpoint_dir)
+        draft_checkpoint_dir=args.draft_checkpoint_dir,
+        lora_adapters=tuple(args.lora))
 
 
 def main(argv=None):

@@ -42,7 +42,7 @@ result when either is missing. Phases, in order (any failure raises):
    fused q/k prologue and row write must have launched once per layer of
    every paged forward (decode substep, mixed dispatch, verify) and the
    standalone row writes never (also in the profiled dispatch, the
-   prefix and the spec runs; the dense runs of 8, 11 and 12 hold the fused
+   prefix and the spec runs; the dense runs of 9, 12 and 13 hold the fused
    dense write to every layer of every dense forward the same way). The
    int8 run adds seeded sampled requests: one submitted alone and again
    beside other running requests must give the same stream. Then one
@@ -120,8 +120,32 @@ result when either is missing. Phases, in order (any failure raises):
    the first and later requests, ``tpu_serve_compile_seconds_total``, and
    greedy answers equal to the engine's; a manifest whose ``max_len`` was
    edited stops the server with a non-zero exit before warmup. The
+   manifest and the warmed run carry ``--lora a=DIR`` (a peft adapter
+   written here): ``/v1/models`` lists ``a``, ``model: "a"`` answers and
+   ``response_format: json_object`` parses, whole and streamed. The
    directory is removed at the end;
-6. prefix, once per KV pool: the prefix cache and the host KV tier at the
+6. guided and LoRA (``phase_guided_lora``), Qwen3-0.6B at full width over
+   the byte tokenizer's grammars: 4 unguided greedy requests, then beside
+   them 4 guided ones (json_object, a json_schema with required keys and an
+   enum, a regex, a choice) through ``mixed_step``, the decode graphs'
+   always-on allow operand and the pipeline: every guided answer finishes
+   and parses or matches, every neighbour's stream equals its stream
+   beside unguided requests of the same lengths; the host's mask time a
+   guided token, the allow words' cache hits, one default dispatch
+   profiled. Then two peft adapters (r 16 and r 8, all seven targets)
+   written here: a mixed batch (base, a, b, twice each) gives every slot
+   its one-adapter run's greedy stream; one decode step of the adapter rows
+   within LOGIT_TOL of a plain forward over the merged weights (the
+   engine's int8 kernels dequantized + A.B in float32, rounded to bf16)
+   and more than LORA_BASE_MIN x LOGIT_TOL from the base model's; no
+   prefix hit across adapters; prompt lookup over adapter slots
+   (K1-spec); one dispatch profiled, the graphs' capture time and memory.
+   The launch counts are zeroed just before the guided run, the mixed
+   adapter batch and the prompt-lookup run, and read just after each: K1
+   once a layer of every paged forward, its chunk body, the fused K2 once
+   a layer of every forward, K1-spec in the verifies, the int8 pool's
+   kernels never;
+7. prefix, once per KV pool: the prefix cache and the host KV tier at the
    defaults (prefix cache on, a 256 MiB host tier, the pipeline and the
    decode graphs on), Qwen3-0.6B at full width with the pool cut to 68
    pages: A (a 1,536-token history and a 64-token tail) cold, A again (a
@@ -139,7 +163,7 @@ result when either is missing. Phases, in order (any failure raises):
    on an engine and compare the runs (the seeded check of 3, the pipeline
    phase, spec, sp) turn the prefix cache off, so that both runs prefill
    alike;
-7. spec, once per KV pool: prompt-lookup speculative decoding
+8. spec, once per KV pool: prompt-lookup speculative decoding
    (``spec_decode=True``) at full width on repeated-pattern prompts, with
    its launch counts zeroed just before and read just after (verify
    dispatches, drafts and the verify kernel of that pool required); a
@@ -148,13 +172,13 @@ result when either is missing. Phases, in order (any failure raises):
    verify dispatch of 8 slots is held against plain decode steps of the
    same prefixes (logits within LOGIT_TOL, the emitted tokens the accept
    rule on the verify's argmax), then timed and profiled;
-8. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
+9. draft: ``spec_method="draft"`` with a self-draft and a divergent draft of
    the same width over the dense cache; a second wave of chunked prompts
    puts the drafts behind so that they catch up. The dense kernels must
    have launched, the fused writes once a layer of every target and draft
    forward (the draft's rollout substeps and catch-ups), and the
    self-draft must have accepted drafts;
-9. the window instances (after the kernels phase): K1 (decode, ragged,
+10. the window instances (after the kernels phase): K1 (decode, ragged,
    verify; bf16 and int8 pools), K4, K7 and K5 (4 slots per CTA; bf16 and
    int8 dense caches) at Mistral-7B-v0.1's shapes with its window of 4096,
    each held against its plain version and timed (the ragged call's 512
@@ -164,14 +188,14 @@ result when either is missing. Phases, in order (any failure raises):
    ragged call and the dense ones also with NaN pages or rows (int8:
    scales) outside their rows' ranges, which must change nothing; and K1
    at window 0 against window 4096 on rows of ~8000 columns;
-10. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
+11. Mistral-7B-v0.1 at full width (32 layers, window 4096, int8 weights, 16
    slots of 8192 rows, prefill_chunk 512), once per KV pool: the engine
    with launch counts (window instances only, the chunk body's among
    them), one decode step's logits
    at lengths past the window held against the plain versions and against
    window 0, one decode dispatch profiled, the server; then prompt lookup
    (the verify's window instance) and a self-draft (K4 and K7's);
-11. the dense engine (``ServingConfig(paged=False)``, every slot's window
+12. the dense engine (``ServingConfig(paged=False)``, every slot's window
    of rows reserved, prefill_chunk 256 so that long prompts take the dense
    chunk walk): Qwen3-0.6B at full width with bf16 KV and decode_bblock 4
    (K8, K5), then with int8 KV (K9, K4-int8; seeded sampled streams alone
@@ -184,7 +208,7 @@ result when either is missing. Phases, in order (any failure raises):
    10). Every dense forward (decode substep, verify) writes its rows
    through K8 or K9 with the q/k prologue fused in, once a layer, and the
    standalone K8/K9 never launch; the paged kernels' counts must be 0;
-12. sequence-parallel serving (after the window kernels, the kernels phase
+13. sequence-parallel serving (after the window kernels, the kernels phase
    "kernels, sp"): K6, the stats form of the dense decode, bf16 and int8,
    over every shard of a dense cache [28, 4, 8, 32768, 128] split into 4
    and into 2 sequence shards, against its plain version (the empty
@@ -5079,13 +5103,14 @@ def _first_chunk_ms(base, prompt, tag):
     return (times[first + 1] - times[0]) * 1e3
 
 
-def _server_run(ckpt, extra, prompts, streams, tag):
+def _server_run(ckpt, extra, prompts, streams, tag, checks=None):
     """``python -m ...serving.server --checkpoint-dir ckpt`` with ``extra``
     flags: the seconds to ``/readyz`` 200, the first request's and the
     second's time to their first streamed chunk (the first and the
     chunked prompt), each prompt's greedy stream (which must equal
-    ``streams``), the compile seconds counter and the server's own log of
-    its start; then SIGTERM, exit 0."""
+    ``streams``), ``checks(base URL)`` when given, the compile seconds
+    counter and the server's own log of its start; then SIGTERM, exit
+    0."""
     import signal
 
     with socket.socket() as s:
@@ -5131,6 +5156,8 @@ def _server_run(ckpt, extra, prompts, streams, tag):
                 raise AssertionError(f"{tag} prompt {i} (length {len(p)}): "
                                      f"the server's greedy stream {ids} "
                                      f"!= the engine's {want}")
+        if checks is not None:
+            checks(base)
         compile_s = _metric(base, "tpu_serve_compile_seconds_total")
         compiled = _metric(base, "tpu_serve_hbm_compiled_bytes")
         proc.send_signal(signal.SIGTERM)
@@ -5155,6 +5182,38 @@ def _server_run(ckpt, extra, prompts, streams, tag):
     return {"ready_s": t_ready, "ttft_ms": ttft, "compile_s": compile_s}
 
 
+def _http_lora_guided(base, tag, adapter):
+    """Over a server started with ``--lora <adapter>=DIR``: ``/v1/models``
+    lists the adapter under the served model; a completion on the adapter
+    answers with its id; ``response_format: json_object`` parses, on the
+    adapter whole and on the base model streamed."""
+    out = _http(base + "/v1/models")
+    ids = [m["id"] for m in out[1]["data"]]
+    if out[0] != 200 or len(ids) != 2 or ids[1] != adapter or \
+            out[1]["data"][1].get("parent") != ids[0]:
+        raise AssertionError(f"{tag} /v1/models: {out[:2]}")
+    out = _expect(f"{tag} adapter completion", _http(
+        base + "/v1/completions", {"model": adapter, "prompt": "hello",
+                                   "max_tokens": 8, "ignore_eos": True}),
+        200, model=adapter)
+    body = {"prompt": "Reply in JSON:", "max_tokens": GUIDED_TOKENS,
+            "response_format": {"type": "json_object"},
+            "logit_bias": GUIDED_BIAS}
+    whole = _expect(f"{tag} json_object on the adapter", _http(
+        base + "/v1/completions", {**body, "model": adapter}), 200)
+    text = whole[1]["choices"][0]["text"]
+    events, _ = _sse(base, "/v1/completions", {**body, "stream": True})
+    _whole_stream(events, f"{tag} json_object stream")
+    streamed, _, finish = _stream_parts(events)
+    for what, t in (("whole, adapter", text), ("streamed, base", streamed)):
+        if not isinstance(json.loads(t), dict):
+            raise AssertionError(f"{tag} json_object ({what}): {t!r}")
+    log(f"{tag} /v1/models {ids} (parent {ids[0]!r}); model {adapter!r} "
+        f"answered {out[1]['usage']['completion_tokens']} tokens; "
+        f"json_object on {adapter!r}: {text!r}, streamed on the base: "
+        f"{streamed!r} ({finish}): both parse")
+
+
 def phase_checkpoint(torch, np):
     """Loading and warmup at the published width of Qwen3-0.6B (28 layers,
     hidden 1024, vocab 151,936, tied, bf16): an HF directory of seeded
@@ -5170,7 +5229,11 @@ def phase_checkpoint(torch, np):
     ``--no-warmup`` (its greedy answers the engine's; seconds to /readyz,
     the first and second request's first chunk, the compile seconds); a
     manifest whose ``max_len`` was edited stopping the server before
-    warmup with a non-zero exit. The directory is removed at the end."""
+    warmup with a non-zero exit. The manifest and the warmed run carry
+    ``--lora a=DIR`` (a peft adapter written here, r 16, all seven
+    targets): the base streams stay the engine's, ``/v1/models`` lists
+    ``a``, ``model: "a"`` answers and ``response_format: json_object``
+    parses, whole and streamed. The directory is removed at the end."""
     import dataclasses
     import shutil
     import tempfile
@@ -5304,13 +5367,16 @@ def phase_checkpoint(torch, np):
         log(f"[checkpoint] greedy streams of {len(prompts)} prompts x "
             f"{CKPT_TOKENS} tokens: the loaded tree's = the in-memory "
             f"tree's")
+        adapter = os.path.join(tmp, "adapter_a")
+        _write_adapter_dir(torch, cfg, adapter, 16, 33)
+        lora_args = ("--lora", f"a={adapter}")
         manifest = os.path.join(tmp, "aot.json")
         t = time.monotonic()
         out = subprocess.run(
             [sys.executable, "-m",
              "aws_k8s_ansible_provisioner_tpu_torch.serving.aot",
              "--device", "cuda", "--checkpoint-dir", ckpt,
-             *CKPT_SERVER_ARGS, "--out", manifest],
+             *CKPT_SERVER_ARGS, *lora_args, "--out", manifest],
             cwd=ROOT, capture_output=True, text=True, timeout=600)
         if out.returncode != 0:
             raise AssertionError(f"[checkpoint] aot exit {out.returncode}: "
@@ -5334,9 +5400,11 @@ def phase_checkpoint(torch, np):
             f"{p['name']} {p['compile_seconds']:.3f}s "
             f"{p['temp_bytes'] / 2**20:.1f} MiB" for p in m["programs"]))
         runs = {
-            "warmup": _server_run(ckpt, ("--aot-manifest", manifest),
-                                  prompts, streams[0],
-                                  "[checkpoint server, manifest + warmup]"),
+            "warmup": _server_run(
+                ckpt, ("--aot-manifest", manifest) + lora_args, prompts,
+                streams[0], "[checkpoint server, manifest + warmup + lora]",
+                lambda base: _http_lora_guided(
+                    base, "[checkpoint server, lora]", "a")),
             "no-warmup": _server_run(ckpt, ("--no-warmup",), prompts,
                                      streams[0],
                                      "[checkpoint server, --no-warmup]"),
@@ -5353,7 +5421,7 @@ def phase_checkpoint(torch, np):
             [sys.executable, "-m",
              "aws_k8s_ansible_provisioner_tpu_torch.serving.server",
              "--device", "cuda", "--port", "0", "--checkpoint-dir", ckpt,
-             *CKPT_SERVER_ARGS, "--aot-manifest", bad],
+             *CKPT_SERVER_ARGS, *lora_args, "--aot-manifest", bad],
             cwd=ROOT, capture_output=True, text=True, timeout=300)
         text = out.stdout + out.stderr
         if out.returncode == 0 or "max_len" not in text or \
@@ -5369,6 +5437,495 @@ def phase_checkpoint(torch, np):
         shutil.rmtree(tmp, ignore_errors=True)
         if os.path.exists(tmp):
             raise AssertionError(f"[checkpoint] {tmp} was not removed")
+
+
+# guided decoding over the byte tokenizer (ids 0-255 bytes, 258 eos): the
+# whitespace bytes and the backslash banned, the closing bytes and eos
+# favoured, so that seeded random weights close their answers within the
+# budget (the grammar alone allows whitespace forever)
+GUIDED_EOS = 258
+GUIDED_BIAS = {**{str(b): -100.0 for b in b" \t\n\r\\"},
+               **{str(ord(c)): v for c, v in (('"', 20.0), ("}", 40.0),
+                                               ("]", 30.0))},
+               str(GUIDED_EOS): 100.0}
+GUIDED_SPECS = {
+    "json_object": {"response_format": {"type": "json_object"}},
+    "json_schema": {"response_format": {"type": "json_schema", "json_schema": {
+        "name": "pet", "schema": {
+            "type": "object",
+            "properties": {"kind": {"enum": ["cat", "dog", "bird"]},
+                           "n": {"type": "integer"}},
+            "required": ["kind", "n"]}}}},
+    "regex": {"guided_regex": r"[A-Z]{3}-\d{2}"},
+    "choice": {"guided_choice": ["alpha", "beta", "gamma"]},
+}
+GUIDED_TOKENS = 64
+# the adapters of the guided and LoRA phase: (name, rank, seed), all seven
+# targets, A ~ N(0, 0.02^2), B ~ N(0, 0.1^2), alpha = r: a delta of about
+# sqrt(r) x 0.1 (0.4 at r 16) of a random projection's output
+LORA_ADAPTERS = (("a", 16, 31), ("b", 8, 32))
+LORA_TOKENS = 40
+# an adapter row's logits must lie this many LOGIT_TOLs from the base
+# model's, so that the merged-weight check's tolerance would catch a
+# missing delta
+LORA_BASE_MIN = 5
+
+
+def _guided_answer_ok(kind, text):
+    """Whether a guided answer parses, or matches its regex or choice."""
+    if kind == "json_object":
+        return isinstance(json.loads(text), dict)
+    if kind == "json_schema":
+        obj = json.loads(text)
+        spec = GUIDED_SPECS[kind]["response_format"]["json_schema"]["schema"]
+        return (set(obj) == {"kind", "n"} and isinstance(obj["n"], int)
+                and obj["kind"] in spec["properties"]["kind"]["enum"])
+    if kind == "regex":
+        return re.fullmatch(GUIDED_SPECS[kind]["guided_regex"], text) \
+            is not None
+    return text in GUIDED_SPECS[kind]["guided_choice"]
+
+
+def _write_adapter_dir(torch, cfg, path, r, seed):
+    """A peft LoRA adapter directory at ``cfg``'s width: adapter_config.json
+    (r, lora_alpha = r, the seven targets) and adapter_model.safetensors of
+    seeded bf16 factors under peft's names (lora_A [r, in], lora_B [out, r])
+    written by :func:`_write_safetensors`."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    H, Q, KV, I = (cfg.hidden_size, cfg.q_size, cfg.kv_size,
+                   cfg.intermediate_size)
+    dims = {"self_attn.q_proj": (H, Q), "self_attn.k_proj": (H, KV),
+            "self_attn.v_proj": (H, KV), "self_attn.o_proj": (Q, H),
+            "mlp.gate_proj": (H, I), "mlp.up_proj": (H, I),
+            "mlp.down_proj": (I, H)}
+    tensors = {}
+    for layer in range(cfg.num_layers):
+        for mod, (din, dout) in dims.items():
+            base = f"base_model.model.model.layers.{layer}.{mod}"
+            tensors[base + ".lora_A.weight"] = (0.02 * torch.randn(
+                (r, din), generator=gen)).to(torch.bfloat16)
+            tensors[base + ".lora_B.weight"] = (0.1 * torch.randn(
+                (dout, r), generator=gen)).to(torch.bfloat16)
+    os.makedirs(path)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": r, "lora_alpha": r,
+                   "target_modules": [m.split(".")[1] for m in dims]}, f)
+    return _write_safetensors(torch, os.path.join(
+        path, "adapter_model.safetensors"), tensors)
+
+
+def _log_mask_time(tag, counts):
+    """The host's guided-mask time of a run (engine counts): the words'
+    building and upload, the cursors' mask computation within it, per
+    guided token; the allow words' cache hits."""
+    gtok = max(1, counts.get("guided_tokens", 0))
+    host_us = counts.get("allow_host_ns", 0) / 1e3
+    mask_us = counts.get("allow_mask_ns", 0) / 1e3
+    log(f"{tag}: host mask time {host_us:.0f} us over {gtok} guided tokens "
+        f"= {host_us / gtok:.1f} us a guided token, of which mask_words "
+        f"{mask_us / gtok:.1f} us; allow-words cache hits "
+        f"{counts.get('allow_words_hits', 0)}")
+
+
+def _check_run_launches(tag, engine, counts):
+    """The launches of one run of the guided and LoRA phase, zeroed just
+    before it (``counts`` the engine's counts of that run): K1 once a layer
+    of every paged forward (decode substeps and mixed dispatches; the
+    verifies launch K1-spec), its chunk body in the mixed dispatches, the
+    fused q/k prologue and row write once a layer of every forward, the
+    int8 pool's kernels never."""
+    launches = _launches()
+    forwards = counts.get("decode_substeps", 0) + \
+        counts.get("mixed_dispatches", 0)
+    _check_fused_writes(tag, engine, launches, counts)
+    others = _kernel_names(True) + ("paged_attention_spec_quant",)
+    if launches["paged_attention"] != engine.cfg.num_layers * forwards or \
+            launches["paged_attention chunk"] <= 0 or \
+            any(launches[k] for k in others):
+        raise AssertionError(f"{tag} launches {launches}, expected K1 "
+                             f"{engine.cfg.num_layers} x {forwards}, its "
+                             f"chunk body > 0, {others} 0")
+    log(f"{tag} K1 {launches['paged_attention']} launches = "
+        f"{engine.cfg.num_layers} layers x {forwards} paged forwards, its "
+        f"chunk body {launches['paged_attention chunk']}; int8 pool 0")
+    return launches
+
+
+def _run_requests(engine, reqs):
+    """Submit the engine requests ``reqs`` and run until idle."""
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_idle()
+    return reqs
+
+
+def _guided_run(engine, Request, neighbours, prompts, guided):
+    """4 greedy unguided neighbours admitted first (one prefill batch), then,
+    with their first decode dispatch in flight, 4 requests over
+    ``prompts``, guided by ``guided`` (a list of grammars) or, with
+    ``guided`` None, unguided with the same lengths, so that both runs
+    prefill, chunk and decode the neighbours alike. Returns (neighbour
+    requests, the others)."""
+    near = [engine.submit(Request(prompt_ids=p, max_tokens=GUIDED_TOKENS,
+                                  ignore_eos=True)) for p in neighbours]
+    while engine._inflight is None:
+        engine.step()
+    bias = tuple((int(k), v) for k, v in GUIDED_BIAS.items())
+    others = [engine.submit(Request(
+        prompt_ids=p, max_tokens=GUIDED_TOKENS,
+        guided=None if guided is None else guided[i],
+        logit_bias=bias if guided is not None else (),
+        ignore_eos=guided is None)) for i, p in enumerate(prompts)]
+    engine.run_until_idle()
+    return near, others
+
+
+def _lora_step_logits(torch, engine, slots):
+    """The next decode step of ``slots`` through the kernels and their
+    adapters (the engine's paged decode callback and its adapter indices),
+    on the engine's own pool (the step writes each slot's next row, which
+    the engine's next dispatch rewrites): logits [len(slots), V] float32."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        make_decode_attend_carry_paged
+
+    engine._settle_inflight()
+    engine._ensure_pages(1)
+    dev = engine.device
+    tok = torch.from_numpy(engine.last_token.copy()).to(dev)
+    lens = torch.from_numpy(engine.lengths.copy()).to(dev)
+    table = torch.from_numpy(engine.table.copy()).to(dev)
+    lora = torch.from_numpy(engine.lora_idx.copy()).to(dev)
+    logits, _ = engine.model.forward_carry(
+        tok[:, None], lens[:, None], engine.cache,
+        make_decode_attend_carry_paged(lens, table, 0),
+        engine.model.lora_rows(lora))
+    return logits[torch.tensor(slots, device=dev), 0].float()
+
+
+def _merged_models(torch, cfg, params, served, adapter):
+    """Two plain models with the adapter merged into the base weights, W +
+    A.B computed in float32: (``params``, the bf16 weights before the
+    engine quantized them, merged and then quantized to int8 as the engine
+    quantizes; the engine's own int8 weights ``served`` dequantized, merged
+    and rounded to the activation dtype, bf16: the weights the engine's
+    base kernels and adapter together apply, in one matrix)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+
+    requant = dict(params["layers"])
+    exact = {k: v for k, v in served["layers"].items()
+             if not k.startswith("lora_")}
+    for t, (a, b) in adapter["targets"].items():
+        dev = requant[t]["kernel"].device
+        ab = torch.einsum("lir,lro->lio", torch.from_numpy(a).to(dev),
+                          torch.from_numpy(b).to(dev))
+        requant[t] = {**requant[t], "kernel": requant[t]["kernel"].float()
+                      + ab}
+        q = served["layers"][t]
+        exact[t] = {"kernel": (q["kernel"].float() * q["scale"][:, None]
+                               + ab).to(torch.bfloat16)}
+    return (DecoderLM(cfg, quantize_params({**params, "layers": requant},
+                                           cfg)),
+            DecoderLM(cfg, {**{k: v for k, v in served.items()
+                               if k != "lora"}, "layers": exact}))
+
+
+def phase_guided_lora(torch, np):
+    """Guided decoding and multi-LoRA on the main path: Qwen3-0.6B at full
+    width (the default ServingConfig: paged, bf16 KV, int8 weights, 32
+    slots of 2048 rows; prefill_chunk 256; the prefix cache off where one
+    prompt runs twice), the byte tokenizer's grammars (eos 258).
+
+    Guided: 4 greedy unguided requests, then, with their decode dispatch in
+    flight, 4 guided ones (json_object, a json_schema with required keys
+    and an enum, a regex, a choice) that take the chunk walk (``mixed_step``
+    with the decode rows' allow words and the chunk row's own) and decode
+    beside them through the decode graphs (their always-on allow operand)
+    and the pipeline: every guided answer must finish and parse or match,
+    and every neighbour's stream must equal its stream in a run where the
+    4 others are unguided requests of the same lengths. The host's time a
+    guided token (mask words and their upload) and the words' cache hits
+    are logged; one default decode dispatch of 8 slots is profiled (device
+    operations and device ms a substep, with the allow operand).
+
+    LoRA: two peft adapters written here (r 16 and r 8, all seven
+    targets, seeded) and an engine over them: a mixed batch (base, a, b,
+    twice each; two prompts chunked) gives every slot the greedy stream of
+    the run where all 6 take that slot's adapter; one decode step of the
+    adapter rows through the kernels within LOGIT_TOL of a plain forward
+    over the merged weights (the engine's int8 kernels dequantized + A.B in
+    float32, rounded to bf16; the error against W + A.B quantized to int8
+    anew is logged beside it) and more than LORA_BASE_MIN x LOGIT_TOL from
+    the base model's; a prompt on adapter a, then on b (no prefix hit),
+    then on a (a hit); prompt lookup over adapter slots (verify dispatches
+    through K1-spec); one dispatch profiled, the graphs' capture time and
+    memory. The launch counts are zeroed just before the guided run, the
+    mixed adapter batch and the prompt-lookup run and checked just after
+    each (:func:`_check_run_launches`, :func:`_check_fused_writes`); the
+    hand-made step and the profiled dispatches are in no checked count."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from aws_k8s_ansible_provisioner_tpu_torch import config
+    from aws_k8s_ansible_provisioner_tpu_torch.models import lora as tlora
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import guided as tg
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+    from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
+        ByteTokenizer
+
+    cfg = config.QWEN3_0_6B
+    tok = ByteTokenizer()
+    serving = config.ServingConfig(prefill_chunk=256, derived_seed=0,
+                                   prefix_cache=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16)
+    tag = "[guided]"
+    t0 = time.monotonic()
+    engine = Engine(cfg, params, serving, eos_token_id=GUIDED_EOS,
+                    device="cuda")
+    torch.cuda.synchronize()
+    log(f"{tag} {cfg.name} engine: {_cache_layout(engine)}, "
+        f"{_dispatch_mode(engine)}; set-up {time.monotonic() - t0:.1f}s")
+    eos = sorted(engine._eos_set)
+    grammars = {k: tg.grammar_for_request(tok, body, eos)
+                for k, body in GUIDED_SPECS.items()}
+    rng = np.random.default_rng(7)
+    neighbours = [rng.integers(0, cfg.vocab_size, n).tolist()
+                  for n in (40, 90, 150, 60)]
+    prompts = [tok.encode(f"Answer as {k}: " + "x" * n)
+               for k, n in zip(GUIDED_SPECS, (20, 300, 80, 40))]
+    engine.run_until_idle()
+    replays0 = engine.decoder.replays
+    engine.counts.clear()
+    _reset_launches()
+    t = time.monotonic()
+    near, guided = _guided_run(engine, Request, neighbours, prompts,
+                               [grammars[k] for k in GUIDED_SPECS])
+    dt = time.monotonic() - t
+    counts = dict(engine.counts)
+    _check_run_launches(tag, engine, counts)
+    _check_replays(tag, engine, replays0)
+    for kind, req in zip(GUIDED_SPECS, guided):
+        text = tok.decode(req.generated)
+        if req.finish_reason != "stop" or not _guided_answer_ok(kind, text):
+            raise AssertionError(f"{tag} {kind}: {req.finish_reason} after "
+                                 f"{len(req.generated)} tokens: {text!r}")
+        log(f"{tag} {kind}: {len(req.generated)} tokens, {text!r}")
+    if counts.get("mixed_dispatches", 0) <= 0:
+        raise AssertionError(f"{tag} no guided request took mixed_step")
+    log(f"{tag} {len(guided)} guided + {len(near)} unguided requests in "
+        f"{dt:.2f}s; dispatches {counts}")
+    _log_mask_time(f"{tag} first run (every grammar state new)", counts)
+    ref_near, _ = _guided_run(engine, Request, neighbours, prompts, None)
+    for i, (a, b) in enumerate(zip(near, ref_near)):
+        if a.generated != b.generated:
+            raise AssertionError(f"{tag} neighbour {i}: its stream beside "
+                                 f"the guided requests differs from its "
+                                 f"stream beside unguided ones")
+    log(f"{tag} the {len(near)} unguided neighbours' streams "
+        f"({GUIDED_TOKENS} tokens each) = their streams beside unguided "
+        f"requests of the same lengths")
+    # the same guided run again: the grammars' masks of these states are
+    # cached, so the host's time is the words' building and upload
+    engine.counts.clear()
+    again = _guided_run(engine, Request, neighbours, prompts,
+                        [grammars[k] for k in GUIDED_SPECS])[1]
+    if [r.generated for r in again] != [r.generated for r in guided]:
+        raise AssertionError(f"{tag} the guided answers differ run to run")
+    _log_mask_time(f"{tag} second run (the states' masks cached)",
+                   dict(engine.counts))
+    default = {}
+    for _ in range(8):
+        engine.submit(Request(prompt_ids=rng.integers(
+            0, cfg.vocab_size, 100).tolist(), max_tokens=200,
+            ignore_eos=True))
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    engine.step()
+    _profile_dispatch(torch, engine, "[profile guided engine, default "
+                                     "dispatch]", stats=default)
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.run_until_idle()
+    g_capture, g_pool = engine.decoder.capture_s, engine.decoder.pool_bytes
+    del engine
+    _free(torch)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    tag = "[lora]"
+    try:
+        dirs = {}
+        for name, r, seed in LORA_ADAPTERS:
+            dirs[name] = os.path.join(tmp, name)
+            size = _write_adapter_dir(torch, cfg, dirs[name], r, seed)
+            log(f"{tag} adapter {name}: r {r}, seven targets, "
+                f"{size / 2**20:.1f} MiB")
+        t0 = time.monotonic()
+        serving = dataclasses.replace(serving, spec_decode=True)
+        engine = Engine(cfg, params, serving, device="cuda", lora=dirs)
+        torch.cuda.synchronize()
+        log(f"{tag} engine with adapters {engine.lora_names}: "
+            f"{_dispatch_mode(engine)}; set-up {time.monotonic() - t0:.1f}s")
+        plain = dataclasses.replace(serving, spec_decode=False)
+        engine.serving = plain
+        lens = (40, 300, 64, 120, 280, 90)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+        mix = [None, "a", "b", None, "a", "b"]
+
+        def run(names):
+            return [r.generated for r in _run_requests(engine, [
+                Request(prompt_ids=p, max_tokens=LORA_TOKENS,
+                        ignore_eos=True, lora=n)
+                for p, n in zip(prompts, names)])]
+
+        replays0 = engine.decoder.replays
+        engine.counts.clear()
+        _reset_launches()
+        mixed = run(mix)
+        _check_run_launches(tag, engine, engine.counts)
+        _check_replays(tag, engine, replays0)
+        alone = {n: run([n] * len(prompts)) for n in (None, "a", "b")}
+        for i, n in enumerate(mix):
+            if mixed[i] != alone[n][i]:
+                raise AssertionError(f"{tag} slot {i} (adapter {n}): its "
+                                     f"stream in the mixed batch differs "
+                                     f"from the one-adapter run")
+        differ = sum(alone["a"][i] != alone[None][i] for i in range(6))
+        log(f"{tag} mixed batch (adapters {mix}, prompts {list(lens)}): "
+            f"every slot's {LORA_TOKENS}-token stream = its one-adapter "
+            f"run's; adapter a's streams differ from the base's in "
+            f"{differ} of 6 prompts")
+        if differ == 0:
+            raise AssertionError(f"{tag} adapter a changes no stream")
+        # one decode step of the adapter rows against the merged weights
+        reqs = [Request(prompt_ids=p, max_tokens=4 * LORA_TOKENS,
+                        ignore_eos=True, lora=n)
+                for p, n in zip(prompts[:4], ("a", "b", "a", "b"))]
+        for r in reqs:
+            engine.submit(r)
+        while engine.pending or engine._chunk is not None:
+            engine.step()
+        for _ in range(2):
+            engine.step()
+        engine._settle_inflight()
+        slots = engine._active_slots()
+        if len(slots) != len(reqs):
+            raise AssertionError(f"{tag} {len(slots)} active slots of "
+                                 f"{len(reqs)}")
+        got = _lora_step_logits(torch, engine, slots)
+        errs = {"exact": [], "requant": [], "own": [], "base": []}
+        served = engine.model.params
+        for name, r, _ in LORA_ADAPTERS:
+            requant, exact = _merged_models(torch, cfg, params, served,
+                                            tlora.load_adapter(dirs[name]))
+            for j, s in enumerate(slots):
+                req = engine.slot_req[s]
+                if req.lora != name:
+                    continue
+                ids = req.prompt_ids + req.generated
+                x = torch.tensor([ids], device="cuda")
+                pos = torch.arange(len(ids), device="cuda")[None]
+                own = engine.model(x, pos, lora=engine.model.lora_rows(
+                    torch.tensor([engine.lora_idx[s]], device="cuda")))
+                for key, m in (("exact", exact), ("requant", requant),
+                               ("own", None), ("base", engine.model)):
+                    want = (own if m is None else m(x, pos))[0, -1].float()
+                    errs[key].append(float((got[j] - want).abs().max()))
+            del requant, exact
+            _free(torch)
+        torch.cuda.synchronize()
+        log(f"{tag} one decode step of {len(slots)} adapter rows through the "
+            f"kernels, max abs logit difference (per row) against a plain "
+            f"forward over: the merged weights, the engine's int8 kernels "
+            f"dequantized + A.B in float32, rounded to bf16: "
+            f"{max(errs['exact']):.3e} "
+            f"({[round(e, 4) for e in errs['exact']]}; tol {LOGIT_TOL}); "
+            f"the merged weights W + A.B in float32 quantized to int8 anew "
+            f"(two int8 roundings of different matrices): "
+            f"{max(errs['requant']):.3e} "
+            f"({[round(e, 4) for e in errs['requant']]}); the engine's own "
+            f"weights and adapters (plain attention): "
+            f"{max(errs['own']):.3e}; the base model without the adapter "
+            f"(plain attention): at least {min(errs['base']):.3e} "
+            f"({[round(e, 4) for e in errs['base']]}; must exceed "
+            f"{LORA_BASE_MIN * LOGIT_TOL})")
+        if not max(errs["exact"]) <= LOGIT_TOL:
+            raise AssertionError(f"{tag} adapter logits differ from the "
+                                 f"merged weights': {errs}")
+        if not min(errs["base"]) > LORA_BASE_MIN * LOGIT_TOL:
+            raise AssertionError(f"{tag} an adapter row's logits lie within "
+                                 f"{LORA_BASE_MIN} x {LOGIT_TOL} of the base "
+                                 f"model's: {errs}")
+        for r in reqs:
+            engine.cancel(r)
+        engine.run_until_idle()
+        # the prefix chain is salted by the adapter
+        engine.serving = dataclasses.replace(plain, prefix_cache=True)
+        shared = rng.integers(0, cfg.vocab_size, 200).tolist()
+        hits = []
+        for n in ("a", "b", "a"):
+            _run_requests(engine, [Request(prompt_ids=shared, max_tokens=8,
+                                           ignore_eos=True, lora=n)])
+            hits.append(engine.counts["prefix_cache_hits"])
+        if not (hits[1] == hits[0] and hits[2] > hits[1]):
+            raise AssertionError(f"{tag} prefix hits after a, b, a: {hits}")
+        log(f"{tag} a 200-token prompt on adapter a, then b, then a: prefix "
+            f"hits {hits} (b matched none of a's pages, a its own)")
+        # prompt lookup over adapter slots
+        engine.serving = serving
+        engine.counts.clear()
+        _reset_launches()
+        spec = _run_requests(engine, [Request(
+            prompt_ids=p, max_tokens=LORA_TOKENS, ignore_eos=True, lora=n)
+            for p, n in zip(_pattern_prompts(rng, cfg.vocab_size, 4),
+                            ("a", "b", None, "a"))])
+        sl = _launches()
+        _check_fused_writes(tag, engine, sl, engine.counts)
+        if engine.counts["spec_dispatches"] <= 0 or \
+                sl["paged_attention_spec"] <= 0 or \
+                any(len(r.generated) != LORA_TOKENS for r in spec):
+            raise AssertionError(f"{tag} prompt lookup over adapter slots: "
+                                 f"{dict(engine.counts)}, {sl}")
+        log(f"{tag} prompt lookup over adapter slots: "
+            f"{engine.counts['spec_dispatches']} verify dispatches, "
+            f"{engine.counts['spec_accepted_tokens']} of "
+            f"{engine.counts['spec_drafted_tokens']} drafts accepted, "
+            f"K1-spec {sl['paged_attention_spec']} launches")
+        engine.serving = plain
+        stats = {}
+        for i in range(8):
+            engine.submit(Request(prompt_ids=rng.integers(
+                0, cfg.vocab_size, 100).tolist(), max_tokens=200,
+                ignore_eos=True, lora=(None, "a", "b")[i % 3]))
+        while engine.pending or engine._chunk is not None:
+            engine.step()
+        engine.step()
+        _profile_dispatch(torch, engine, "[profile lora engine, 8 slots over "
+                                         "base, a, b]", stats=stats)
+        for s in engine._active_slots():
+            engine.cancel(engine.slot_req[s])
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        log(f"[guided and lora] default graph (allow operand on): "
+            f"{default.get('ops_per_substep', float('nan')):.1f} device "
+            f"operations and {default.get('busy_ms', float('nan')) / 8:.3f} "
+            f"device ms a substep (8 slots, horizon 8), capture "
+            f"{g_capture:.2f}s, {g_pool / 2**20:.1f} MiB; adapter engine: "
+            f"{stats.get('ops_per_substep', float('nan')):.1f} operations, "
+            f"{stats.get('busy_ms', float('nan')) / 8:.3f} device ms a "
+            f"substep, capture {engine.decoder.capture_s:.2f}s, "
+            f"{engine.decoder.pool_bytes / 2**20:.1f} MiB")
+        del engine
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"default": default, "lora": stats}
 
 
 def _phase(name, fn, *args):
@@ -5432,6 +5989,8 @@ def main() -> int:
         log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
     _phase("server process", phase_server_process)
     _phase("checkpoint", phase_checkpoint, torch, np)
+    _free(torch)
+    _phase("guided and LoRA", phase_guided_lora, torch, np)
     _free(torch)
     for kv_dtype in ("auto", "int8"):
         _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)

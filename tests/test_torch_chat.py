@@ -214,11 +214,17 @@ def test_refusals_like_the_jax_server(twin_server, jax_server, case):
     assert got[1]["error"]["message"] == want[1]["error"]["message"]
 
 
-def test_response_format_and_guided_stay_refused_on_chat(twin_server):
-    """The fields still unserved are refused on the chat route too."""
-    base, _ = twin_server
-    for extra in ({"response_format": {"type": "json_object"}},
-                  {"guided_regex": "a+"}):
-        status, out = _post(base + "/v1/chat/completions",
-                            {**_CHAT, **extra})
-        assert status == 400 and next(iter(extra)) in out["error"]["message"]
+def test_response_format_and_guided_stay_refused_on_chat(twin_server,
+                                                        jax_server):
+    """The guided-decoding fields are served on the chat route (held by
+    test_torch_guided.py); a malformed or conflicting spec stays refused
+    there, with the JAX server's 400 and message."""
+    (base, _), (jbase, _) = twin_server, jax_server
+    for extra in ({"response_format": {"type": "xml"}},
+                  {"response_format": "json"},
+                  {"guided_regex": ""},
+                  {"guided_regex": "a+", "guided_choice": ["a"]}):
+        got = _post(base + "/v1/chat/completions", {**_CHAT, **extra})
+        want = _post(jbase + "/v1/chat/completions", {**_CHAT, **extra})
+        assert got[0] == want[0] == 400, (extra, got, want)
+        assert got[1]["error"]["message"] == want[1]["error"]["message"]

@@ -1273,6 +1273,123 @@ def test_decode_graph_variants_replay_eager_decode_steps(dev, paged):
             assert torch.equal(cache[k], eager_cache[k]), k
 
 
+def _adapter_params(cfg, params, n, r, seed):
+    """``params`` with ``n`` seeded in-memory adapters of rank ``r`` over all
+    seven targets attached (``models/lora.py``)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models import lora
+
+    rng = np.random.default_rng(seed)
+    dims = {"wq": (cfg.hidden_size, cfg.q_size),
+            "wk": (cfg.hidden_size, cfg.kv_size),
+            "wv": (cfg.hidden_size, cfg.kv_size),
+            "wo": (cfg.q_size, cfg.hidden_size),
+            "w_gate": (cfg.hidden_size, cfg.intermediate_size),
+            "w_up": (cfg.hidden_size, cfg.intermediate_size),
+            "w_down": (cfg.intermediate_size, cfg.hidden_size)}
+    L = cfg.num_layers
+    loaded = [{"r": r, "targets": {
+        t: ((0.3 * rng.standard_normal((L, din, r))).astype(np.float32),
+            (0.3 * rng.standard_normal((L, r, dout))).astype(np.float32))
+        for t, (din, dout) in dims.items()}} for _ in range(n)]
+    return lora.attach(params, lora.stack_adapters(loaded, L),
+                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("guided", [False, True], ids=["all-ones", "guided"])
+@pytest.mark.parametrize("adapters", [False, True], ids=["base", "lora"])
+def test_decode_graph_allow_and_lora_replay_eager_decode_steps(
+        dev, paged, guided, adapters):
+    """Every variant of ``DecodeGraphs`` (any row samples, penalties,
+    logprobs) replayed with its always-on allow words (all ones, or a
+    guided row's mask, bit 31 set in some of its words) and, over a model
+    with two adapters attached, the adapter indices (base and both
+    adapters among the rows): tokens, logprob records, counts and every
+    K/V row bit-identical to eager ``decode_steps`` of the same variant and
+    operands on clones."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import programs
+
+    cfg = tiny_qwen3()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    params = init_params(cfg, gen, torch.bfloat16)
+    if adapters:
+        params = _adapter_params(cfg, params, 2, 4, 12)
+    model = DecoderLM(cfg, params)
+    assert model.has_lora == adapters
+    B, ps, maxp, S, V = 4, 8, 6, 48, cfg.vocab_size
+    rng = np.random.default_rng(13)
+    if paged:
+        cache = pkv.init_pool(cfg, B * maxp + 1, ps, torch.bfloat16, dev)
+        table = torch.from_numpy((rng.permutation(B * maxp) + 1).reshape(
+            B, maxp).astype(np.int32)).to(dev)
+    else:
+        cache = kvc.init_cache(cfg, B, S, torch.bfloat16, dev)
+        table = None
+    for leaf in cache.values():
+        leaf.copy_(torch.rand(leaf.shape, generator=gen, device=dev))
+    graphs = programs.DecodeGraphs(model, cache, B, maxp if paged else None,
+                                   (2,), capture=True)
+    assert (graphs.lora_idx is not None) == adapters
+    words = np.full(graphs.allow.shape, 0xFFFFFFFF, np.uint32)
+    if guided:
+        words[2] = rng.integers(0, 2**32, words.shape[1], dtype=np.uint64)
+        words[2, 0] |= np.uint32(1 << 31)
+    graphs.allow.copy_(torch.from_numpy(words.view(np.int32)).to(dev))
+    if adapters:
+        graphs.lora_idx.copy_(torch.tensor([0, 1, 2, 1], dtype=torch.int32))
+    ops = dict(
+        tokens=[3, 9, 27, 81], lengths=[0, 7, 20, 40],
+        temps=[0.0, 0.8, 0.0, 1.1], top_ks=[0, 20, 0, 5],
+        top_ps=[1.0, 0.9, 1.0, 0.8], seeds=[1, 2**32 - 1, 3, 4],
+        presence=[0.5, 0.0, 1.5, 0.0], frequency=[0.25, 0.0, 0.0, 0.7],
+        repetition=[1.3, 1.0, 1.0, 0.8], counts=rng.integers(0, 3, (B, V)),
+        prompt_mask=rng.random((B, V)) < 0.1)
+    for name, value in ops.items():
+        buf = getattr(graphs, name)
+        buf.copy_(torch.as_tensor(np.asarray(value)).to(buf.dtype))
+    if paged:
+        graphs.table.copy_(table)
+    state = {k: getattr(graphs, k).clone() for k in ("tokens", "lengths",
+                                                     "counts")}
+    for sampled, penalties, logprobs in programs.DecodeGraphs.VARIANTS:
+        for k, v in state.items():
+            getattr(graphs, k).copy_(v)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        counts = state["counts"].clone()
+        pen = dict(counts=counts, presence=graphs.presence,
+                   frequency=graphs.frequency,
+                   repetition=graphs.repetition,
+                   prompt_mask=graphs.prompt_mask) if penalties else {}
+        _, ref = programs.decode_steps(
+            model, 2, eager_cache, state["tokens"], state["lengths"], table,
+            graphs.temps, graphs.top_ks, graphs.top_ps, graphs.seeds,
+            any_sampled=sampled, ban_ids=graphs.ban_ids,
+            ban_until=graphs.ban_until, bias_ids=graphs.bias_ids,
+            bias_vals=graphs.bias_vals, allow=graphs.allow,
+            lora_idx=graphs.lora_idx, logprobs=logprobs, **pen)
+        out = graphs.run(2, sampled, penalties, logprobs)
+        torch.cuda.synchronize()
+        if logprobs:
+            (out, lp), (ref, ref_lp) = out, ref
+            for a, b in zip(lp, ref_lp):
+                assert torch.equal(a, b)
+        assert torch.equal(out, ref), (sampled, penalties, logprobs)
+        if guided:
+            # the guided row drew only tokens its words allow
+            for t in out[:, 2].tolist():
+                assert (int(words[2, t >> 5]) >> (t & 31)) & 1
+        assert torch.equal(graphs.counts, counts if penalties
+                           else state["counts"])
+        for k in cache:
+            assert torch.equal(cache[k], eager_cache[k]), k
+
+
 def _random_pool(dev, gen, cfg, pages, ps, quant):
     from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
 
