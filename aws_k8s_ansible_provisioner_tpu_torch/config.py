@@ -3,6 +3,9 @@
 The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
+The registry holds every dense entry of the JAX registry (Qwen3, Mistral,
+Llama, Gemma, Phi and OPT) and the tiny builders of each family; the MoE
+entry (``Qwen/Qwen3-30B-A3B``) comes with the slice that ports MoE.
 Only the serving fields the port reads are here (``lora_adapters``
 among them; guided decoding needs none); the rest of the JAX
 ``ServingConfig`` (tracing, telemetry, the TPU attention and ragged
@@ -19,11 +22,15 @@ from typing import Optional
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters for a decoder-only LM (same schema as the
-    JAX package's ``ModelConfig``). The port's forward pass serves the Qwen3
-    and Mistral families: ``norm="rmsnorm"``, ``pos_embed="rope"``, gated
-    SiLU MLP, optional qk-norm, optional sliding-window attention
-    (``sliding_window`` > 0: a query sees its last ``sliding_window`` keys),
-    no MoE."""
+    JAX package's ``ModelConfig``). The port's forward pass serves every
+    dense family of it: ``norm`` "rmsnorm" (optionally zero-centred, Gemma)
+    or "layernorm" (with bias: Phi, OPT); ``pos_embed`` "rope" (over the
+    first ``head_dim * rotary_pct`` columns, optionally with the llama3
+    frequency scaling) or "learned" (OPT); ``act`` "silu" and "gelu_tanh"
+    (gated MLPs) or "gelu_new" and "relu" (plain two-matrix MLPs); the
+    parallel block (Phi); optional qk-norm, biases and sliding-window
+    attention (``sliding_window`` > 0: a query sees its last
+    ``sliding_window`` keys). No MoE (``num_experts`` > 0)."""
 
     name: str
     vocab_size: int
@@ -63,6 +70,17 @@ class ModelConfig:
     moe_impl: str = "ragged"
     moe_capacity_factor: float = 2.0
     hf_repo: str = ""
+
+    @property
+    def gated_mlp(self) -> bool:
+        return self.act in ("silu", "gelu_tanh")
+
+    @property
+    def rotary_dim(self) -> int:
+        """Columns of a head that RoPE rotates: 0 with learned positions."""
+        if self.pos_embed != "rope":
+            return 0
+        return int(self.head_dim * self.rotary_pct)
 
     @property
     def q_size(self) -> int:
@@ -118,9 +136,187 @@ MISTRAL_7B_V01 = ModelConfig(
     hf_repo="mistralai/Mistral-7B-v0.1",
 )
 
+
+# Public HF config.json values of the other dense families (the JAX
+# registry's entries, field for field).
+QWEN3_8B = ModelConfig(
+    name="Qwen/Qwen3-8B",
+    vocab_size=151936,
+    hidden_size=4096,
+    intermediate_size=12288,
+    num_layers=36,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_seq_len=40960,
+    rope_theta=1e6,
+    qk_norm=True,
+    tie_embeddings=False,
+    bos_token_id=151643,
+    eos_token_id=151645,
+    hf_repo="Qwen/Qwen3-8B",
+)
+
+PHI_2 = ModelConfig(
+    name="microsoft/phi-2",
+    vocab_size=51200,
+    hidden_size=2560,
+    intermediate_size=10240,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=80,
+    max_seq_len=2048,
+    rope_theta=10000.0,
+    rotary_pct=0.4,
+    norm="layernorm",
+    norm_eps=1e-5,
+    act="gelu_new",
+    attention_bias=True,
+    mlp_bias=True,
+    parallel_block=True,
+    tie_embeddings=False,
+    bos_token_id=50256,
+    eos_token_id=50256,
+    hf_repo="microsoft/phi-2",
+)
+
+OPT_125M = ModelConfig(
+    name="facebook/opt-125m",
+    vocab_size=50272,
+    hidden_size=768,
+    intermediate_size=3072,
+    num_layers=12,
+    num_heads=12,
+    num_kv_heads=12,
+    head_dim=64,
+    max_seq_len=2048,
+    norm="layernorm",
+    norm_eps=1e-5,
+    act="relu",
+    pos_embed="learned",
+    attention_bias=True,
+    mlp_bias=True,
+    tie_embeddings=True,
+    bos_token_id=2,
+    eos_token_id=2,
+    hf_repo="facebook/opt-125m",
+)
+
+OPT_1_3B = ModelConfig(
+    name="facebook/opt-1.3b",
+    vocab_size=50272,
+    hidden_size=2048,
+    intermediate_size=8192,
+    num_layers=24,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=64,
+    max_seq_len=2048,
+    norm="layernorm",
+    norm_eps=1e-5,
+    act="relu",
+    pos_embed="learned",
+    attention_bias=True,
+    mlp_bias=True,
+    tie_embeddings=True,
+    bos_token_id=2,
+    eos_token_id=2,
+    hf_repo="facebook/opt-1.3b",
+)
+
+LLAMA_3_2_1B = ModelConfig(
+    name="meta-llama/Llama-3.2-1B",
+    vocab_size=128256,
+    hidden_size=2048,
+    intermediate_size=8192,
+    num_layers=16,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    max_seq_len=131072,
+    rope_theta=500000.0,
+    rope_scaling="llama3",
+    rope_factor=32.0,
+    rope_low_freq_factor=1.0,
+    rope_high_freq_factor=4.0,
+    rope_original_max_pos=8192,
+    tie_embeddings=True,
+    bos_token_id=128000,
+    eos_token_id=128001,
+    hf_repo="meta-llama/Llama-3.2-1B",
+)
+
+LLAMA_3_1_8B = ModelConfig(
+    name="meta-llama/Llama-3.1-8B",
+    vocab_size=128256,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    max_seq_len=131072,
+    rope_theta=500000.0,
+    rope_scaling="llama3",
+    rope_factor=8.0,
+    rope_low_freq_factor=1.0,
+    rope_high_freq_factor=4.0,
+    rope_original_max_pos=8192,
+    tie_embeddings=False,
+    bos_token_id=128000,
+    eos_token_id=128001,
+    hf_repo="meta-llama/Llama-3.1-8B",
+)
+
+TINYLLAMA_1_1B = ModelConfig(
+    name="TinyLlama/TinyLlama-1.1B-Chat-v1.0",
+    vocab_size=32000,
+    hidden_size=2048,
+    intermediate_size=5632,
+    num_layers=22,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=64,
+    max_seq_len=2048,
+    rope_theta=10000.0,
+    tie_embeddings=False,
+    bos_token_id=1,
+    eos_token_id=2,
+    hf_repo="TinyLlama/TinyLlama-1.1B-Chat-v1.0",
+)
+
+GEMMA_2B = ModelConfig(
+    name="google/gemma-2b",
+    vocab_size=256000,
+    hidden_size=2048,
+    intermediate_size=16384,
+    num_layers=18,
+    num_heads=8,
+    num_kv_heads=1,            # MQA
+    head_dim=256,
+    max_seq_len=8192,
+    rope_theta=10000.0,
+    norm_zero_centered=True,
+    embed_scale=True,
+    act="gelu_tanh",
+    tie_embeddings=True,
+    bos_token_id=2,
+    eos_token_id=1,
+    hf_repo="google/gemma-2b",
+)
+
 MODEL_REGISTRY = {
     "Qwen/Qwen3-0.6B": QWEN3_0_6B,
+    "Qwen/Qwen3-8B": QWEN3_8B,
+    "microsoft/phi-2": PHI_2,
+    "facebook/opt-125m": OPT_125M,
+    "facebook/opt-1.3b": OPT_1_3B,
+    "google/gemma-2b": GEMMA_2B,
     "mistralai/Mistral-7B-v0.1": MISTRAL_7B_V01,
+    "meta-llama/Llama-3.2-1B": LLAMA_3_2_1B,
+    "meta-llama/Llama-3.1-8B": LLAMA_3_1_8B,
+    "TinyLlama/TinyLlama-1.1B-Chat-v1.0": TINYLLAMA_1_1B,
 }
 
 
@@ -160,6 +356,109 @@ def tiny_mistral(**overrides) -> ModelConfig:
         sliding_window=8,
         rope_theta=10000.0,
         tie_embeddings=False,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_gemma(**overrides) -> ModelConfig:
+    """A miniature Gemma-shaped config (zero-centered norms, scaled embed,
+    GeGLU, MQA)."""
+    base = dict(
+        name="tiny-gemma",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=1,
+        head_dim=16,
+        max_seq_len=128,
+        rope_theta=10000.0,
+        norm_zero_centered=True,
+        embed_scale=True,
+        act="gelu_tanh",
+        tie_embeddings=True,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_llama(**overrides) -> ModelConfig:
+    """A miniature Llama-3-shaped config (GQA, llama3 rope scaling, no
+    qk-norm)."""
+    base = dict(
+        name="tiny-llama",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        max_seq_len=256,
+        rope_theta=500000.0,
+        rope_scaling="llama3",
+        rope_factor=8.0,
+        rope_low_freq_factor=1.0,
+        rope_high_freq_factor=4.0,
+        rope_original_max_pos=64,
+        tie_embeddings=True,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_opt(**overrides) -> ModelConfig:
+    """A miniature OPT-shaped config (learned positions, ReLU MLP,
+    pre-norm)."""
+    base = dict(
+        name="tiny-opt",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=16,
+        max_seq_len=128,
+        norm="layernorm",
+        norm_eps=1e-5,
+        act="relu",
+        pos_embed="learned",
+        attention_bias=True,
+        mlp_bias=True,
+        tie_embeddings=True,
+        eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_phi(**overrides) -> ModelConfig:
+    """A miniature Phi-2-shaped config (parallel block, partial rotary,
+    biases)."""
+    base = dict(
+        name="tiny-phi",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=4,
+        head_dim=16,
+        max_seq_len=128,
+        rope_theta=10000.0,
+        rotary_pct=0.5,
+        norm="layernorm",
+        norm_eps=1e-5,
+        act="gelu_new",
+        attention_bias=True,
+        mlp_bias=True,
+        parallel_block=True,
         eos_token_id=1,
     )
     base.update(overrides)

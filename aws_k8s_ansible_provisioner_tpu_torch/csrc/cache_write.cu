@@ -38,15 +38,20 @@
 // group of 8 heads), one warp per head row: with the prologue the row's Hq
 // q heads, then its Hkv k heads, then its Hkv v heads (the layer's raw
 // projections); without it the k and v heads. A warp holds its head row in
-// registers, E contiguous elements a lane (D = 32 E: at D = 128 four,
-// loaded in 8 bytes; below 32, one a lane on D lanes), and
+// registers, E contiguous elements a lane, E the power of two from 1 to 8
+// with 32 E >= D (D a multiple of 16 up to 256: at D = 128 four, loaded in
+// 8 bytes; at Phi-2's 80 four on 20 lanes, the other 12 masked), and
 // - q and k (prologue on): the norm (when the caller passes weights) as
-//   sum of squares by a shuffle reduction, rsqrtf(sum / D + eps), times
-//   the weight, rounded to the rows' type; then RoPE in float32 on that
-//   rounded value with the caller's float32 cos/sin tables [N, D]:
-//   x * cos + rotate_half(x) * sin, where rotate_half's partner of column
-//   c, c +- D / 2, is 16 lanes away at D >= 32 (one __shfl_xor_sync);
-//   rounded again.
+//   sum of squares by a shuffle reduction (masked lanes add 0),
+//   rsqrtf(sum / D + eps), times the weight, rounded to the rows' type;
+//   then RoPE in float32 on that rounded value over the first r columns
+//   (the rotary width: D, Phi-2's 32 of 80, or 0 with learned positions)
+//   with the caller's float32 cos/sin tables [N, r]: x * cos +
+//   rotate_half(x) * sin, where rotate_half's partner of column c < r is
+//   c +- r / 2, taken from its lane by a shuffle (at r / 2 = 16 E the lane
+//   16 away, as at Qwen3's D 128; any even r reaches it); rounded again.
+//   Columns >= r pass through as the norm rounded them (or as they
+//   came).
 //   Each product and sum rounds on its own (__fmul_rn, __fadd_rn) as the
 //   plain version's separate operations do; only the order of the sum of
 //   squares differs from it. q goes out to q_out for every row, kept or
@@ -151,11 +156,15 @@ struct QKPrologue {
   const void* q;           // [N, Hq, D], raw
   const void* q_w;         // [D] RMSNorm weights, or null (no norm)
   const void* k_w;
-  const float* cos;        // [N, D] float32
+  const float* cos;        // [N, rot] float32
   const float* sin;
   float eps;
   int hq;
+  int rot;                 // rotary width: columns [0, rot); 0 no RoPE
 };
+
+// the largest head dim of the fused write (E = 8 elements a lane)
+constexpr int kMaxPrepD = 256;
 
 // E elements of one lane, moved in one access (two above 16 bytes).
 template <typename T, int E>
@@ -214,11 +223,37 @@ __device__ __forceinline__ void store_row(T* dst, int c, int d,
   }
 }
 
+// f[e] for an index e that the whole warp shares but the compiler does not
+// know
+template <int E>
+__device__ __forceinline__ float pick(const float (&f)[E], int e) {
+  float v = f[0];
+#pragma unroll
+  for (int k = 1; k < E; ++k) v = k == e ? f[k] : v;
+  return v;
+}
+
+// Column lane E + j + off of the warp's row (E a lane), off shared by the
+// warp: element (j + off) mod E of lane lane + floor((j + off) / E); a
+// source lane outside the warp wraps (its value is not used)
+template <int E>
+__device__ __forceinline__ float column_at(const float (&f)[E], int j,
+                                           int off, int lane) {
+  const int t = j + off;
+  const int dl = t >= 0 ? t / E : -((E - 1 - t) / E);
+  return __shfl_sync(kFull, pick(f, t - dl * E), lane + dl);
+}
+
 // models/layers.py's rms_norm (when ``weight`` is given) then apply_rope on
-// one head row held by the warp (the lane's E columns from c; lanes past
-// the row, ``live`` false, hold zeros), rounding to T after each as the
-// plain version does. The row spans D / E lanes, so rotate_half's partner
-// of column c, c +- D / 2, is the same j of lane ^ (D / 2E).
+// one head row held by the warp (the lane's E columns from c = lane E;
+// lanes past the row, ``live`` false, hold zeros), rounding to T after
+// each as the plain version does. RoPE covers columns [0, r), r = p.rot:
+// rotate_half's partner of column c + j is c + j + r/2 (negated) below
+// r/2 and c + j - r/2 above. When r/2 is a multiple of E (every family the
+// port serves: r = D = 32 E, Phi-2's 32 of 80), the partner is element j
+// of lane +- r/2E, one shuffle with the lane's own source, and the tables
+// load as vectors; any other even r takes two shuffles an element and
+// scalar table loads.
 template <typename T, int E>
 __device__ __forceinline__ void qk_prologue(T (&x)[E], const T* weight,
                                             const QKPrologue& p, int n,
@@ -243,20 +278,42 @@ __device__ __forceinline__ void qk_prologue(T (&x)[E], const T* weight,
             __fmul_rn(__fmul_rn(f[j], inv), to_float(w.v[j]))));
     }
   }
-  Pack<float, E> cs{}, sn{};
-  if (live) {
-    const int64_t t = (int64_t)n * d + c;
-    cs = *reinterpret_cast<const Pack<float, E>*>(p.cos + t);
-    sn = *reinterpret_cast<const Pack<float, E>*>(p.sin + t);
-  }
-  // columns [0, D/2) take -x[c + D/2] from rotate_half, [D/2, D) x[c - D/2]
-  const int half = d / (2 * E);
-  const bool low = (lane & half) == 0;
+  const int half = p.rot / 2;
+  const float* cs = p.cos + (int64_t)n * p.rot;
+  const float* sn = p.sin + (int64_t)n * p.rot;
+  const bool rotated = live && c < p.rot;
+  if (half > 0 && half % E == 0) {
+    const int hl = half / E;
+    const bool low = lane < hl;
+    const int src = low ? lane + hl : lane - hl;
+    Pack<float, E> cv{}, sv{};
+    if (rotated) {
+      cv = *reinterpret_cast<const Pack<float, E>*>(cs + c);
+      sv = *reinterpret_cast<const Pack<float, E>*>(sn + c);
+    }
 #pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const float other = __shfl_xor_sync(kFull, f[j], half);
-    const float rot = low ? -other : other;
-    f[j] = __fadd_rn(__fmul_rn(f[j], cs.v[j]), __fmul_rn(rot, sn.v[j]));
+    for (int j = 0; j < E; ++j) {
+      const float other = __shfl_sync(kFull, f[j], src);
+      const float rot = low ? -other : other;
+      if (rotated)
+        f[j] = __fadd_rn(__fmul_rn(f[j], cv.v[j]), __fmul_rn(rot, sv.v[j]));
+    }
+  } else if (half > 0) {
+    // every partner read before any column is rotated (a partner may be
+    // another element of this lane's own row)
+    float up[E], down[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      up[j] = column_at(f, j, half, lane);
+      down[j] = column_at(f, j, -half, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const int col = c + j;
+      if (live && col < p.rot)
+        f[j] = __fadd_rn(__fmul_rn(f[j], cs[col]),
+                         __fmul_rn(col < half ? -up[j] : down[j], sn[col]));
+    }
   }
 #pragma unroll
   for (int j = 0; j < E; ++j) x[j] = from_float<T>(f[j]);
@@ -268,8 +325,8 @@ __device__ __forceinline__ void qk_prologue(T (&x)[E], const T* weight,
 // the packed row: q heads (PREP only), then k heads, then v heads; DENSE
 // addresses the dense slot cache (RowWrite::r_rows > 0). T: the rows' type
 // (without PREP and QUANT an unsigned integer of the element's size).
-// PREP needs D = 32 E, or E = 1 and D a power of two below 32 (the row on
-// lanes [0, D)); QUANT D <= 32 E.
+// PREP needs D <= 32 E and D % E == 0 (the row on lanes [0, D / E), one
+// pass); QUANT D <= 32 E.
 template <typename T, int E, bool PREP, bool QUANT, bool DENSE>
 __global__ void __launch_bounds__(32 * kWriteWarps)
 cache_write_rows_kernel(const RowWrite w, const QKPrologue p) {
@@ -349,17 +406,17 @@ int launch_rows(const RowWrite& w, const QKPrologue& p, int n_rows,
   return (int)cudaGetLastError();
 }
 
+// D a multiple of 16 up to 256, the rotary width even and at most D
 template <typename T, bool QUANT>
 int launch_prep(const RowWrite& w, const QKPrologue& p, int n_rows,
                 void* stream) {
-  switch (w.d) {
-    case 2: case 4: case 8: case 16: case 32:
-      return launch_rows<T, 1, true, QUANT>(w, p, n_rows, stream);
-    case 64: return launch_rows<T, 2, true, QUANT>(w, p, n_rows, stream);
-    case 128: return launch_rows<T, 4, true, QUANT>(w, p, n_rows, stream);
-    case 256: return launch_rows<T, 8, true, QUANT>(w, p, n_rows, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (w.d < 16 || w.d > kMaxPrepD || w.d % 16 || p.rot < 0 || p.rot > w.d
+      || p.rot % 2)
+    return (int)cudaErrorInvalidValue;
+  if (w.d <= 32) return launch_rows<T, 1, true, QUANT>(w, p, n_rows, stream);
+  if (w.d <= 64) return launch_rows<T, 2, true, QUANT>(w, p, n_rows, stream);
+  if (w.d <= 128) return launch_rows<T, 4, true, QUANT>(w, p, n_rows, stream);
+  return launch_rows<T, 8, true, QUANT>(w, p, n_rows, stream);
 }
 
 // The copy without the prologue, over elements of elem_size bytes (1, 2, 4
@@ -441,24 +498,25 @@ extern "C" int cache_write_rows_quant_paged(
 }
 
 // The paged write with the q/k prologue: q [N, Hq, D] -> q_out (normed when
-// q_w is given, RoPE'd), k [N, Hkv, D] normed (k_w) and RoPE'd, and v as it
-// is, into a pool of the rows' type (quant 0) or quantized into an int8
-// pool and its scale pools (quant 1). cos/sin [N, D] float32; weights [D]
-// of the rows' type or null; dtype 0 = float32, 1 = bfloat16; D a power of
-// two from 2 to 256 (the wrapper checks).
+// q_w is given, RoPE'd over its first rot columns), k [N, Hkv, D] normed
+// (k_w) and RoPE'd alike, and v as it is, into a pool of the rows' type
+// (quant 0) or quantized into an int8 pool and its scale pools (quant 1).
+// cos/sin [N, rot] float32 (rot even, 0 = no RoPE); weights [D] of the
+// rows' type or null; dtype 0 = float32, 1 = bfloat16; D a multiple of 16
+// up to 256.
 extern "C" int prep_write_rows_paged(
     void* q_out, const void* q, const void* q_w, const void* k_w,
-    const void* cos, const void* sin, float eps, int hq, void* pool_k,
-    void* pool_v, void* scale_k, void* scale_v, const void* k_new,
-    const void* v_new, const void* rows, const void* table, int n_rows,
-    int layer, int num_pages, int hkv, int ps, int d, int max_pages,
-    int dtype, int quant, void* stream) {
+    const void* cos, const void* sin, float eps, int hq, int rot,
+    void* pool_k, void* pool_v, void* scale_k, void* scale_v,
+    const void* k_new, const void* v_new, const void* rows,
+    const void* table, int n_rows, int layer, int num_pages, int hkv,
+    int ps, int d, int max_pages, int dtype, int quant, void* stream) {
   if (n_rows <= 0) return 0;
   const RowWrite w{pool_k, pool_v, (float*)scale_k, (float*)scale_v, k_new,
                    v_new, (const int32_t*)rows, (const int32_t*)table, layer,
                    num_pages, hkv, ps, d, max_pages, 0};
   const QKPrologue p{q_out, q, q_w, k_w, (const float*)cos,
-                     (const float*)sin, eps, hq};
+                     (const float*)sin, eps, hq, rot};
   return launch_prep_any(w, p, dtype, quant, n_rows, stream);
 }
 
@@ -509,19 +567,21 @@ extern "C" int cache_write_rows_quant_dense(
 // k [n_slots, r_rows, Hkv, D] normed and RoPE'd, and v as it is, at rows
 // [n_slots, r_rows] into a cache of the rows' type (quant 0) or quantized
 // into the int8 cache and its scales (quant 1). cos/sin [n_slots * r_rows,
-// D] float32; weights [D] of the rows' type or null; dtype 0 = float32,
-// 1 = bfloat16; D a power of two from 2 to 256 (the wrapper checks).
+// rot] float32 (RoPE over the first rot columns; 0 none); weights [D] of
+// the rows' type or null; dtype 0 = float32, 1 = bfloat16; D a multiple of
+// 16 up to 256.
 extern "C" int prep_write_rows_dense(
     void* q_out, const void* q, const void* q_w, const void* k_w,
-    const void* cos, const void* sin, float eps, int hq, void* cache_k,
-    void* cache_v, void* scale_k, void* scale_v, const void* k_new,
-    const void* v_new, const void* rows, int n_slots, int r_rows, int layer,
-    int hkv, int seq, int d, int dtype, int quant, void* stream) {
+    const void* cos, const void* sin, float eps, int hq, int rot,
+    void* cache_k, void* cache_v, void* scale_k, void* scale_v,
+    const void* k_new, const void* v_new, const void* rows, int n_slots,
+    int r_rows, int layer, int hkv, int seq, int d, int dtype, int quant,
+    void* stream) {
   if (n_slots <= 0 || r_rows <= 0) return 0;
   const RowWrite w = dense_rows(cache_k, cache_v, scale_k, scale_v, k_new,
                                 v_new, rows, n_slots, r_rows, layer, hkv,
                                 seq, d);
   const QKPrologue p{q_out, q, q_w, k_w, (const float*)cos,
-                     (const float*)sin, eps, hq};
+                     (const float*)sin, eps, hq, rot};
   return launch_prep_any(w, p, dtype, quant, n_slots * r_rows, stream);
 }

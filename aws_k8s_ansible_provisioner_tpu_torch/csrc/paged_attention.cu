@@ -418,7 +418,7 @@ extern "C" int paged_attention_verify(
 // and ws_l [splits, C, Hq] float32 receive each split's triples and the
 // combine, queued next on the same stream, writes out; else they are null.
 // Returns cudaGetLastError() after the launches (0 = launched). groups <=
-// 8, D % 16 == 0 and D <= 128 (the wrapper checks).
+// 8, D % 16 == 0 and D <= 128, or D 256 (the wrapper checks).
 extern "C" int paged_attention_chunk(
     void* out, void* ws_acc, void* ws_m, void* ws_l, const void* q,
     const void* pool_k, const void* pool_v, const void* pool_ks,
@@ -427,8 +427,9 @@ extern "C" int paged_attention_chunk(
     int max_pages, int layer, int window, float scale, int pool_dtype,
     int splits, void* stream) {
   if (n_rows <= 0) return 0;
-  if (groups < 1 || groups > kMaxGroups || d < 16 || d > split_chunk::kD ||
-      d % 16 || window < 0 || splits < 1 ||
+  if (groups < 1 || groups > kMaxGroups || d < 16 ||
+      (d > split_chunk::kD && d != split_chunk::kDWide) || d % 16 ||
+      window < 0 || splits < 1 ||
       (splits > 1) != (ws_acc != nullptr))
     return (int)cudaErrorInvalidValue;
   const split_chunk::Args a{

@@ -49,7 +49,13 @@
 // Shared memory: two stages of 64 columns (K and V rows padded by 16 bytes,
 // the int8 scales), the int8 stage's bf16 copy, then q [128][D + 8] bf16:
 // 102 KB at D 128 over a bf16 pool, 105 KB over an int8 one, two CTAs an
-// SM.
+// SM. Two instances of the output width KD: 128 (any D a multiple of 16 up
+// to 128) and 256 (Gemma's D). At 256 a warp's accumulators are 32 tiles of
+// 4 floats (128 registers a thread) and the CTA's shared memory 198 KB
+// (bf16 pool) or 201 KB (int8): one CTA an SM, launch bounds (256, 1), so
+// that the 255 registers a thread hold the accumulators, the scores and
+// the fragments; the row tile stays 128 rows (8 warps of 16), so a page
+// still feeds 128 query rows (8 chunk rows of an MQA head group of 8).
 
 #pragma once
 
@@ -71,7 +77,12 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;   // query rows of a row tile
 constexpr int kS = 64;               // columns of a stage
 constexpr int kStages = 2;
-constexpr int kD = 128;              // the largest D (a multiple of 16)
+// the largest D of each instance (a multiple of 16)
+constexpr int kD = 128;
+constexpr int kDWide = 256;
+// CTAs an SM the instance of output width KD is built for
+template <int KD>
+constexpr int ctas_per_sm() { return KD <= kD ? 2 : 1; }
 constexpr int kPad = 16;             // bytes after each shared row
 
 // Dynamic shared memory of one CTA (byte offsets), alike on the host and in
@@ -124,12 +135,14 @@ __device__ __forceinline__ void row_pages(const Args& a, int lim, int& lo,
   }
 }
 
-// grid (row tiles, hkv, splits); TC: the pool's type (bf16 or int8)
-template <typename TC>
-__global__ void __launch_bounds__(kThreads, 2) chunk_kernel(Args a) {
+// grid (row tiles, hkv, splits); TC: the pool's type (bf16 or int8); KD:
+// the largest D the accumulators hold
+template <typename TC, int KD>
+__global__ void __launch_bounds__(kThreads, ctas_per_sm<KD>())
+chunk_kernel(Args a) {
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   constexpr int kNT = kS / 8;    // a stage's columns in 8-column tiles
-  constexpr int kDN = kD / 8;    // output columns in 8-column tiles
+  constexpr int kDN = KD / 8;    // output columns in 8-column tiles
   const float kInf = __int_as_float(0x7f800000);
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -331,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_kernel(Args a) {
                           ((lane >> 4) * 8 + (lane & 7)) * kv_row +
                           ((lane >> 3) & 1) * 16;
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
+      for (int kk = 0; kk < KD / 16; ++kk) {
         if (kk * 16 >= d) break;
         unsigned a0, a1, a2, a3;
         ldsm_x4(qa + kk * 32, a0, a1, a2, a3);
@@ -426,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_kernel(Args a) {
       split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], h2, l2);
       split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], h3, l3);
 #pragma unroll
-      for (int dp = 0; dp < kD / 16; ++dp) {
+      for (int dp = 0; dp < KD / 16; ++dp) {
         if (dp * 16 >= d) break;
         unsigned b0, b1, b2, b3;
         ldsm_x4_trans(va + kc * 16 * kv_row + dp * 32, b0, b1, b2, b3);
@@ -480,13 +493,14 @@ __global__ void __launch_bounds__(kThreads, 2) chunk_kernel(Args a) {
   }
 }
 
-// Queue the chunk body's kernel and, with more than one split, the combine
-// on `s`. TC: the pool's type. Returns cudaGetLastError() (0 = launched).
-template <typename TC>
-int launch(const Args& a, int splits, cudaStream_t s) {
+// Queue the chunk body's kernel (the instance of output width KD) and, with
+// more than one split, the combine on `s`. TC: the pool's type. Returns
+// cudaGetLastError() (0 = launched).
+template <typename TC, int KD>
+int launch_width(const Args& a, int splits, cudaStream_t s) {
   constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   const Layout lay(a.d, (int)sizeof(TC), kQuant);
-  auto kernel = chunk_kernel<TC>;
+  auto kernel = chunk_kernel<TC, KD>;
   static int configured = 48 * 1024;   // dynamic shared memory allowed
   if (lay.total > configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -506,6 +520,16 @@ int launch(const Args& a, int splits, cudaStream_t s) {
   return split_combine::launch(a.out, nullptr, nullptr, nullptr, a.ws_acc,
                                a.ws_m, a.ws_l, splits,
                                (long long)a.n_rows * a.hq, a.d, 1, s);
+}
+
+// D a multiple of 16 up to 128 takes the KD 128 instance, D 256 the KD 256
+// one; any other D is refused.
+template <typename TC>
+int launch(const Args& a, int splits, cudaStream_t s) {
+  if (a.d >= 16 && a.d <= kD && a.d % 16 == 0)
+    return launch_width<TC, kD>(a, splits, s);
+  if (a.d == kDWide) return launch_width<TC, kDWide>(a, splits, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace split_chunk

@@ -36,25 +36,39 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def _expected_shapes(cfg: ModelConfig) -> dict:
-    L, H = cfg.num_layers, cfg.hidden_size
-    shapes = {
-        ("embed", "weight"): (cfg.vocab_size, H),
-        ("final_norm", "weight"): (H,),
-        ("layers", "wq", "kernel"): (L, H, cfg.q_size),
-        ("layers", "wk", "kernel"): (L, H, cfg.kv_size),
-        ("layers", "wv", "kernel"): (L, H, cfg.kv_size),
-        ("layers", "wo", "kernel"): (L, cfg.q_size, H),
-        ("layers", "w_gate", "kernel"): (L, H, cfg.intermediate_size),
-        ("layers", "w_up", "kernel"): (L, H, cfg.intermediate_size),
-        ("layers", "w_down", "kernel"): (L, cfg.intermediate_size, H),
-        ("layers", "input_norm", "weight"): (L, H),
-        ("layers", "post_norm", "weight"): (L, H),
-    }
+    """Every leaf the config's tree holds, with its shape: the norms' biases
+    with LayerNorm, the projections' biases, ``w_gate`` of a gated MLP,
+    ``post_norm`` outside a parallel block, OPT's ``pos_embed`` and Phi's
+    ``lm_head`` bias."""
+    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    dense = {"wq": (H, cfg.q_size), "wk": (H, cfg.kv_size),
+             "wv": (H, cfg.kv_size), "wo": (cfg.q_size, H),
+             "w_up": (H, I), "w_down": (I, H)}
+    if cfg.gated_mlp:
+        dense["w_gate"] = (H, I)
+    norms = [("layers", "input_norm", (L, H)), ("final_norm", None, (H,))]
+    if not cfg.parallel_block:
+        norms.append(("layers", "post_norm", (L, H)))
+    shapes = {("embed", "weight"): (cfg.vocab_size, H)}
+    for name, (din, dout) in dense.items():
+        shapes[("layers", name, "kernel")] = (L, din, dout)
+        bias = cfg.mlp_bias if name.startswith("w_") else cfg.attention_bias
+        if bias:
+            shapes[("layers", name, "bias")] = (L, dout)
+    for top, name, shape in norms:
+        path = (top, name) if name else (top,)
+        shapes[path + ("weight",)] = shape
+        if cfg.norm == "layernorm":
+            shapes[path + ("bias",)] = shape
     if cfg.qk_norm:
         shapes[("layers", "q_norm", "weight")] = (L, cfg.head_dim)
         shapes[("layers", "k_norm", "weight")] = (L, cfg.head_dim)
+    if cfg.pos_embed == "learned":
+        shapes[("pos_embed", "weight")] = (cfg.max_seq_len + 2, H)
     if not cfg.tie_embeddings:
         shapes[("lm_head", "kernel")] = (H, cfg.vocab_size)
+        if cfg.parallel_block:
+            shapes[("lm_head", "bias")] = (cfg.vocab_size,)
     return shapes
 
 

@@ -20,7 +20,7 @@ nothing here needs the ``safetensors`` package.
 (gated Qwen3/Llama/Mistral/Gemma, phi's parallel block, OPT with either key
 prefix, qwen3_moe's stacked experts); the engine's
 ``models/layers.check_supported`` refuses at build time what the port does
-not serve. Each stacked leaf is allocated once in the target dtype on the
+not serve (MoE). Each stacked leaf is allocated once in the target dtype on the
 target device and filled one layer at a time (the layer's matrix copied to
 the device in its stored dtype, transposed there, cast into its row of the
 leaf), so the peak is the finished tree plus one layer's matrix; the JAX

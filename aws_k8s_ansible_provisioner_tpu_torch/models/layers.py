@@ -1,4 +1,5 @@
-"""Decoder-only transformer (Qwen3 and Mistral families) in PyTorch.
+"""Decoder-only transformer (Qwen3, Mistral, Llama, Gemma, Phi and OPT
+families) in PyTorch.
 
 The same functions as the JAX package's ``models/layers.py``, written over
 torch tensors, with its parameter layout kept unchanged so that a converted
@@ -11,7 +12,11 @@ JAX parameter tree runs here as it is (``models/convert.py``):
   (``models/quant.py``), dequantized to the activation dtype before the
   matmul with the per-out-channel scale folded in after it.
 
-Norms and softmax accumulate in float32. ``model_forward`` takes an
+Norms (RMSNorm, optionally zero-centred; LayerNorm with its bias) and
+softmax accumulate in float32. RoPE rotates the first ``cfg.rotary_dim``
+columns of a head (all of them, Phi-2's 32 of 80, or none with OPT's
+learned positions), with the llama3 frequency scaling where the config
+asks for it. ``model_forward`` takes an
 ``attend`` callback so that the same block stack serves causal prefill,
 decode against the paged pool and the ragged mixed dispatch; with the carry
 form (``model_forward_carry``) the callback receives ``(pool, layer)`` and
@@ -49,40 +54,76 @@ AttendFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Any],
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architecture options this port does not serve yet."""
-    unsupported = {
-        "norm": cfg.norm != "rmsnorm",
-        "pos_embed": cfg.pos_embed != "rope",
-        "act": cfg.act != "silu",
-        "num_experts": cfg.num_experts > 0,
-        "parallel_block": cfg.parallel_block,
-        "rope_scaling": cfg.rope_scaling != "none",
-        "rotary_pct": cfg.rotary_pct != 1.0,
-        "norm_zero_centered": cfg.norm_zero_centered,
-        "embed_scale": cfg.embed_scale,
-    }
-    bad = sorted(k for k, v in unsupported.items() if v)
-    if bad:
+    """Raise for architecture options this port does not serve yet (MoE)."""
+    if cfg.num_experts > 0:
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not serve {bad} yet")
+            f"{cfg.name}: the PyTorch port does not serve MoE "
+            f"(num_experts {cfg.num_experts}) yet")
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with float32 accumulation (HF Qwen3 semantics)."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm with float32 accumulation (HF Qwen3 semantics);
+    ``zero_centered`` applies the weight as ``1 + w`` (Gemma)."""
     dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * weight.float()).to(dtype)
+    w = weight.float()
+    if zero_centered:
+        w = 1.0 + w
+    return (x * w).to(dtype)
 
 
-def rope_cos_sin(positions: torch.Tensor, rotary_dim: int,
-                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with its bias, float32 accumulation (Phi, OPT)."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
+
+
+def apply_norm(cfg: ModelConfig, x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The config's norm with the leaf ``p`` (``weight``, and ``bias`` for
+    LayerNorm)."""
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["weight"], cfg.norm_eps,
+                        zero_centered=cfg.norm_zero_centered)
+    return layer_norm(x, p["weight"], p["bias"], cfg.norm_eps)
+
+
+def _llama3_scale_inv_freq(inv_freq: torch.Tensor, cfg: ModelConfig
+                           ) -> torch.Tensor:
+    """The llama3 frequency scaling (HF ``rope_type: llama3``): short
+    wavelengths pass, long ones are divided by ``rope_factor``, a band
+    between the two corner wavelengths interpolates; float32 as the JAX
+    package computes it."""
+    low_wavelen = cfg.rope_original_max_pos / cfg.rope_low_freq_factor
+    high_wavelen = cfg.rope_original_max_pos / cfg.rope_high_freq_factor
+    wavelen = 2.0 * math.pi / inv_freq
+    scaled = inv_freq / cfg.rope_factor
+    smooth = (cfg.rope_original_max_pos / wavelen - cfg.rope_low_freq_factor) \
+        / (cfg.rope_high_freq_factor - cfg.rope_low_freq_factor)
+    smoothed = (1.0 - smooth) * scaled + smooth * inv_freq
+    out = torch.where(wavelen > low_wavelen, scaled, inv_freq)
+    mid = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
+    return torch.where(mid, smoothed, out)
+
+
+def rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float,
+                 cfg: Optional[ModelConfig] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 cos/sin tables for integer positions [..., T] (HF rotate_half
-    convention): returns [..., T, rotary_dim] each."""
+    convention): returns [..., T, rotary_dim] each; ``cfg`` with
+    ``rope_scaling == "llama3"`` scales the frequencies."""
     exponent = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
                             device=positions.device) / rotary_dim
     inv_freq = 1.0 / (theta ** exponent)
+    if cfg is not None and cfg.rope_scaling == "llama3":
+        inv_freq = _llama3_scale_inv_freq(inv_freq, cfg)
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -95,12 +136,20 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
-    """Full-dimension RoPE. x: [B, T, H, D]; cos/sin: [B, T, D] (or any
-    leading shape, one table row per row of heads)."""
+    """RoPE over the first r columns of each head, r the tables' width (all
+    of D, part of it, or 0: x as it is); the other columns pass through.
+    x: [B, T, H, D]; cos/sin: [B, T, r] (or any leading shape, one table
+    row per row of heads)."""
+    r = cos.shape[-1]
+    if r == 0:
+        return x
     dtype = x.dtype
-    rot = x.float()
+    rot = x[..., :r].float()
     cos, sin = cos[..., None, :], sin[..., None, :]
-    return (rot * cos + _rotate_half(rot) * sin).to(dtype)
+    rot = (rot * cos + _rotate_half(rot) * sin).to(dtype)
+    if r == x.shape[-1]:
+        return rot
+    return torch.cat([rot, x[..., r:]], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,20 +157,27 @@ class QKPrep:
     """What turns a layer's raw q/k rows into the rows that attend: the
     per-head RMSNorm weights [D] (None without ``cfg.qk_norm``), its eps,
     and the float32 RoPE tables ``cos``/``sin`` of the rows' positions
-    ([B, T, D] as ``_embed_inputs`` builds them; a fused callback hands its
-    kernel the same tables flattened to one row per packed row)."""
+    ([B, T, r] as ``_embed_inputs`` builds them, r the rotary width; a
+    fused callback hands its kernel the same tables flattened to one row
+    per packed row). RoPE rotates the first :attr:`rotary_dim` columns of
+    a head; 0 (OPT's zero-width tables) means no RoPE."""
     q_norm: Optional[torch.Tensor]
     k_norm: Optional[torch.Tensor]
     eps: float
     cos: torch.Tensor
     sin: torch.Tensor
 
+    @property
+    def rotary_dim(self) -> int:
+        return self.cos.shape[-1]
+
 
 def prep_qk_plain(q: torch.Tensor, k: torch.Tensor, prep: QKPrep
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The q/k prologue of every block: RMSNorm of each head (when the
-    prep carries weights), then RoPE; each rounds to the rows' dtype. q
-    [..., Hq, D] and k [..., Hkv, D] over tables [..., D]."""
+    prep carries weights), then RoPE over the first ``prep.rotary_dim``
+    columns (none at 0); each rounds to the rows' dtype. q [..., Hq, D]
+    and k [..., Hkv, D] over tables [..., r]."""
     if prep.q_norm is not None:
         q = rms_norm(q, prep.q_norm, prep.eps)
         k = rms_norm(k, prep.k_norm, prep.eps)
@@ -209,15 +265,33 @@ class LoraRows:
         return ((x @ g["A"]) * m) @ g["B"]
 
 
-def _mlp(h: torch.Tensor, p: dict, lora: Optional[LoraRows] = None
-         ) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(h)) * up(h)), with the rows' LoRA deltas."""
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"silu": F.silu, "gelu_tanh": _gelu_tanh, "gelu_new": _gelu_tanh,
+         "relu": F.relu}
+
+
+def _mlp(cfg: ModelConfig, h: torch.Tensor, p: dict,
+         lora: Optional[LoraRows] = None) -> torch.Tensor:
+    """The gated MLP, down(act(gate(h)) * up(h)) (SwiGLU, GeGLU), or the
+    plain one, down(act(up(h))) (Phi's gelu_new, OPT's ReLU), with the
+    rows' LoRA deltas (a family without ``w_gate`` has ``w_up`` alone in
+    its ``lora_gu`` group)."""
+    act = _ACTS[cfg.act]
     dg = du = dd = None
     if lora is not None and "lora_gu" in p:
         d = lora.delta(h, p["lora_gu"])
-        n = p["w_gate"]["kernel"].shape[-1]
-        dg, du = d[..., :n], d[..., n:]
-    a = F.silu(_linear(h, p["w_gate"], dg)) * _linear(h, p["w_up"], du)
+        if "w_gate" in p:
+            n = p["w_gate"]["kernel"].shape[-1]
+            dg, du = d[..., :n], d[..., n:]
+        else:
+            du = d
+    if "w_gate" in p:
+        a = act(_linear(h, p["w_gate"], dg)) * _linear(h, p["w_up"], du)
+    else:
+        a = act(_linear(h, p["w_up"], du))
     if lora is not None and "lora_down" in p:
         dd = lora.delta(a, p["lora_down"])
     return _linear(a, p["w_down"], dd)
@@ -230,7 +304,7 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One transformer block; ``p`` is a per-layer slice (no leading L);
     ``lora`` adds the rows' adapter deltas where ``p`` carries adapters."""
     B, T, _ = x.shape
-    h = rms_norm(x, p["input_norm"]["weight"], cfg.norm_eps)
+    h = apply_norm(cfg, x, p["input_norm"])
     dq = dk = dv = None
     if lora is not None and "lora_qkv" in p:
         d = lora.delta(h, p["lora_qkv"])
@@ -252,15 +326,22 @@ def decoder_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ctx = ctx.reshape(B, T, cfg.q_size)
     do = lora.delta(ctx, p["lora_o"]) \
         if lora is not None and "lora_o" in p else None
-    x = x + _linear(ctx, p["wo"], do)
-    h2 = rms_norm(x, p["post_norm"]["weight"], cfg.norm_eps)
-    return x + _mlp(h2, p, lora), cache_l
+    attn_out = _linear(ctx, p["wo"], do)
+    if cfg.parallel_block:
+        # Phi: attention and MLP both read the same normed input
+        return x + attn_out + _mlp(cfg, h, p, lora), cache_l
+    x = x + attn_out
+    h2 = apply_norm(cfg, x, p["post_norm"])
+    return x + _mlp(cfg, h2, p, lora), cache_l
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor):
-    """Token embedding (int8 table dequantized per gathered row) + RoPE
-    tables."""
+    """Token embedding (int8 table dequantized per gathered row; Gemma's
+    times sqrt(H), the factor cast to the embedding's dtype first) + RoPE
+    tables [..., T, rotary_dim], or OPT's learned positions (the table's
+    row ``positions + 2``, an index outside it clamped as the JAX gather
+    clamps it) and zero-width tables."""
     emb = params["embed"]
     if "scale" in emb:
         dt = params["final_norm"]["weight"].dtype
@@ -268,13 +349,24 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
              * emb["scale"][tokens][..., None]).to(dt)
     else:
         x = emb["weight"][tokens]
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    if cfg.pos_embed == "learned":
+        table = params["pos_embed"]["weight"]
+        n = table.shape[0]
+        # a finished slot's substeps in a decode horizon run past the
+        # table's end: clamped, as the JAX gather clamps
+        x = x + table[(positions.long() + 2).clamp(max=n - 1)]
+        cos = sin = torch.zeros(positions.shape + (0,), dtype=torch.float32,
+                                device=positions.device)
+        return x, cos, sin
+    cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta, cfg)
     return x, cos, sin
 
 
 def _final_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["weight"], cfg.norm_eps)
+    x = apply_norm(cfg, x, params["final_norm"])
     if cfg.tie_embeddings:
         emb = params["embed"]
         if "scale" in emb:
@@ -336,8 +428,12 @@ def model_forward_carry(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Random parameters (normal, std 0.02; norms at one) on the generator's
-    device, in the JAX package's layout. Same distribution as the JAX
+    """Random parameters (normal, std 0.02; norm weights at one, biases at
+    zero) on the generator's device, in the JAX package's layout: every
+    dense family's tree (norm biases with LayerNorm, projection biases, no
+    ``w_gate`` in a plain MLP, no ``post_norm`` in a parallel block,
+    OPT's ``pos_embed`` of ``max_seq_len + 2`` rows, Phi's ``lm_head``
+    bias). Same distribution as the JAX
     ``init_params``; not the same numbers (the generators differ). A stacked
     kernel is drawn one layer at a time into its ``dtype`` tensor, so the
     float32 draws never exceed one layer's matrix (Mistral-7B's bf16 tree is
@@ -359,27 +455,49 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def dense(din, dout, bias):
+        p = {"kernel": stacked(din, dout)}
+        if bias:
+            p["bias"] = zeros(L, dout)
+        return p
+
+    def norm(*lead):
+        p = {"weight": ones(*lead, H)}
+        if cfg.norm == "layernorm":
+            p["bias"] = zeros(*lead, H)
+        return p
+
+    I, ab, mb = cfg.intermediate_size, cfg.attention_bias, cfg.mlp_bias
     layers = {
-        "input_norm": {"weight": ones(L, H)},
-        "wq": {"kernel": stacked(H, cfg.q_size)},
-        "wk": {"kernel": stacked(H, cfg.kv_size)},
-        "wv": {"kernel": stacked(H, cfg.kv_size)},
-        "wo": {"kernel": stacked(cfg.q_size, H)},
-        "w_gate": {"kernel": stacked(H, cfg.intermediate_size)},
-        "w_up": {"kernel": stacked(H, cfg.intermediate_size)},
-        "w_down": {"kernel": stacked(cfg.intermediate_size, H)},
-        "post_norm": {"weight": ones(L, H)},
+        "input_norm": norm(L),
+        "wq": dense(H, cfg.q_size, ab),
+        "wk": dense(H, cfg.kv_size, ab),
+        "wv": dense(H, cfg.kv_size, ab),
+        "wo": dense(cfg.q_size, H, ab),
     }
     if cfg.qk_norm:
         layers["q_norm"] = {"weight": ones(L, cfg.head_dim)}
         layers["k_norm"] = {"weight": ones(L, cfg.head_dim)}
+    if cfg.gated_mlp:
+        layers["w_gate"] = dense(H, I, mb)
+    layers["w_up"] = dense(H, I, mb)
+    layers["w_down"] = dense(I, H, mb)
+    if not cfg.parallel_block:
+        layers["post_norm"] = norm(L)
     params = {
         "embed": {"weight": draw((cfg.vocab_size, H))},
         "layers": layers,
-        "final_norm": {"weight": ones(H)},
+        "final_norm": norm(),
     }
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = {"weight": draw((cfg.max_seq_len + 2, H))}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"kernel": draw((H, cfg.vocab_size))}
+        if cfg.parallel_block:
+            params["lm_head"]["bias"] = zeros(cfg.vocab_size)
     return params
 
 

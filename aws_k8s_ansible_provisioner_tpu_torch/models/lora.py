@@ -47,7 +47,8 @@ TARGET_MAP = {
 }
 
 # the projections that share an input, and the group's leaf name in the
-# layer tree; a group's output columns are its members' outputs in order
+# layer tree; a group's output columns are its members' outputs in order,
+# of those the model has (a plain MLP's lora_gu is w_up alone)
 GROUPS = (("lora_qkv", ("wq", "wk", "wv")),
           ("lora_gu", ("w_gate", "w_up")),
           ("lora_o", ("wo",)),
@@ -185,6 +186,7 @@ def attach(params: dict, stacked: dict, dtype: torch.dtype) -> dict:
         return a.reshape(L, n * r, a.shape[3])
 
     for group, members in GROUPS:
+        members = tuple(t for t in members if t in layers)
         present = [t for t in members if t in stacked]
         if not present:
             continue

@@ -6,10 +6,12 @@ to even: the same rule, in the same float32 arithmetic, as the JAX package's
 jit-compiled ``models/quant.py`` path (the one its single-device engine
 takes), so the int8 values and scales come out bit-identical.
 
-Quantized: the seven per-layer projections (scales ``[L, out]``), the
-embedding table (per-vocab-row scales ``[V]``) and an untied ``lm_head``.
-Norms stay in the model dtype. A quantized leaf is the same dict with
-``kernel``/``weight`` turned int8 plus a sibling ``scale``.
+Quantized: the per-layer projections (scales ``[L, out]``; six where a
+plain MLP has no ``w_gate``), the embedding table (per-vocab-row scales
+``[V]``) and an untied ``lm_head``. Norms, biases (Phi's ``lm_head`` bias
+among them) and OPT's learned position table stay in the model dtype. A
+quantized leaf is the same dict with ``kernel``/``weight`` turned int8
+plus a sibling ``scale``.
 """
 
 from __future__ import annotations

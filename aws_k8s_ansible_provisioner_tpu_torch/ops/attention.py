@@ -40,7 +40,9 @@ pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
 the quantizing row write and the scale-folding attention. They take the
 layer's raw q and k rows and its ``QKPrep`` (``fuses_qk_prep``): the row
 write is the fused one, which applies the q/k RMSNorm and RoPE in the
-launch that writes K and V and hands the attention its q. The dense decode,
+launch that writes K and V and hands the attention its q; RoPE over the
+first ``prep.rotary_dim`` columns of a head, none at 0 (every family:
+full, partial and absent RoPE, with or without the q/k norm). The dense decode,
 verify and sequence-parallel decode go through ``ops/dense_attention.py``
 the same way (the fused K8 or K9, then K4/K5, K7 or K6, bf16/f32 or int8).
 The prefill and chunk-prefill callbacks take q and k after the block's
@@ -109,7 +111,8 @@ def _prep_write_rows(pool: dict, q: torch.Tensor, k_new: torch.Tensor,
                      tables: torch.Tensor, prep: QKPrep):
     """The layer's q/k prologue and its new K/V rows into the pool in one
     launch of the fused row write (quantizing when the pool is int8): q
-    [N, Hq, D], k/v [N, Hkv, D] raw, ``prep``'s tables [N, D]. Returns (q
+    [N, Hq, D], k/v [N, Hkv, D] raw, ``prep``'s tables [N, r] (r the
+    rotary width, 0 for none). Returns (q
     after the prologue, the scale pools as the attention kernels take them;
     none for a bf16/f32 pool)."""
     if "ks" in pool:
@@ -122,10 +125,11 @@ def _prep_write_rows(pool: dict, q: torch.Tensor, k_new: torch.Tensor,
 
 
 def _packed(prep: QKPrep, n: int) -> QKPrep:
-    """``prep`` with its cos/sin tables [..., D] as one row per packed row
-    [n, D]."""
-    return dataclasses.replace(prep, cos=prep.cos.reshape(n, -1),
-                               sin=prep.sin.reshape(n, -1))
+    """``prep`` with its cos/sin tables [..., r] as one row per packed row
+    [n, r] (r the rotary width; 0 with learned positions)."""
+    r = prep.rotary_dim
+    return dataclasses.replace(prep, cos=prep.cos.reshape(n, r),
+                               sin=prep.sin.reshape(n, r))
 
 
 def _fused(attend):
@@ -236,7 +240,7 @@ def _prep_write_dense(cache: dict, q: torch.Tensor, k_new: torch.Tensor,
     """The layer's q/k prologue and its new K/V rows into the dense cache in
     one launch of the fused row write (quantizing when the cache is int8):
     q [B, R, Hq, D], k/v [B, R, Hkv, D] raw, at ``rows`` [B, R], ``prep``'s
-    tables [B, R, D]. Returns (q after the prologue, the scale caches as
+    tables [B, R, r]. Returns (q after the prologue, the scale caches as
     the attention kernels take them; none for a bf16/f32 cache)."""
     if kvc.is_quantized(cache):
         q = prep_write_rows_quant_dense(cache["k"], cache["v"], cache["ks"],

@@ -638,8 +638,9 @@ def _prep_lib():
     lib = cuda_build.load("cache_write")
     fn = lib.prep_write_rows_dense
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P,
-                       _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P]
         fn.restype = _I
     return fn
 
@@ -649,8 +650,8 @@ def _launch_prep(fn, caches: tuple, q, k_new, v_new, rows, layer: int,
     """Check the fused dense write's operands, launch it and count the
     launch on ``fn``, the wrapper. ``caches``: (k, v) of q's type, or int8
     (k, v) with their float32 scale caches (ks, vs); q [B, R, Hq, D], k/v
-    [B, R, Hkv, D], rows [B, R], prep's tables [B, R, D], which the kernel
-    reads as B * R packed rows. Returns q after the prologue."""
+    [B, R, Hkv, D], rows [B, R], prep's tables [B, R, r], which the
+    kernel reads as B * R packed rows. Returns q after the prologue."""
     what = fn.__name__
     _, B, Hkv, S, D, R = _check_dense_write(what, caches[0], caches[1], k_new,
                                             v_new, rows, layer)
@@ -682,10 +683,11 @@ def prep_write_rows_dense(cache_k: torch.Tensor, cache_v: torch.Tensor,
     returns q after the prologue (for every row, dropped or kept).
 
     q [B, R, Hq, D], k_new/v_new [B, R, Hkv, D], the layer's raw
-    projections, of the cache's type (bf16 or f32; D a power of two up to
-    256); cache [L, B, Hkv, S, D]; rows [B, R] int32 (rows outside [0, S)
-    drop); prep: the norm weights [D] of q's type (or None) and cos/sin
-    [B, R, D] float32. CPU tensors take the plain version; CUDA tensors
+    projections, of the cache's type (bf16 or f32; D a multiple of 16 up
+    to 256); cache [L, B, Hkv, S, D]; rows [B, R] int32 (rows outside [0,
+    S) drop); prep: the norm weights [D] of q's type (or None) and cos/sin
+    [B, R, r] float32 (RoPE over the first r columns, r even, 0 for none).
+    CPU tensors take the plain version; CUDA tensors
     launch the kernel (one launch for q, K and V)."""
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     if q.device.type == "cpu":

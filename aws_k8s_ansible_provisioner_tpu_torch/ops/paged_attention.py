@@ -72,14 +72,17 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_POOL = 2
 _MAX_QUANT_D = 256
-# head dims of the fused write: a lane holds D / 32 contiguous elements, or
-# one on D lanes below 32
-_PREP_D = (2, 4, 8, 16, 32, 64, 128, 256)
+# head dims of the fused write: a multiple of 16 up to 256 (a lane holds E
+# contiguous elements, E the power of two from 1 to 8 with 32 E >= D; lanes
+# past the row are masked)
+_MAX_PREP_D = 256
 _MAX_GROUPS = 8
 # the split kernels' P.V gives each thread two output columns: D / 2 <= 128
 _MAX_D = 256
-# the chunk body's accumulators hold D <= 128 output columns a row
+# the chunk body's instances: D a multiple of 16 up to 128 (two CTAs an
+# SM), and D 256 (one CTA an SM: its accumulators and shared memory)
 _MAX_CHUNK_D = 128
+_WIDE_CHUNK_D = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -269,9 +272,10 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
     max_pages = table.shape[1]
     b = N if chunk_start is None else chunk_start
     # the chunk body's tensor-core products take bf16 q and D a multiple of
-    # 16 up to 128; float32 q (the tests' type) keeps the per-row body
+    # 16 up to 128, or 256; float32 q (the tests' type) keeps the per-row
+    # body
     chunked = b < N and q.dtype == torch.bfloat16 and D % 16 == 0 \
-        and D <= _MAX_CHUNK_D
+        and (D <= _MAX_CHUNK_D or D == _WIDE_CHUNK_D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
 
@@ -289,7 +293,7 @@ def _launch_attention(what: str, q, pool_k, pool_v, pool_ks, pool_vs,
             splits, ws = split_kv.launch_plan(
                 C, Hkv, max_pages, Hq, D, q.device, stream,
                 splits=split_kv.chunk_splits(C, G, Hkv, max_pages,
-                                             split_kv.sm_count(q.device)))
+                                             split_kv.sm_count(q.device), D))
             return _chunk_lib()(
                 out[b:].data_ptr(), *ws, q[b:].data_ptr(), *pools,
                 limits[b:].data_ptr(), table[b].data_ptr(), C, Hkv, G, D, P,
@@ -762,9 +766,9 @@ def _prep_lib():
     lib = cuda_build.load("cache_write")
     fn = lib.prep_write_rows_paged
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P]
         fn.restype = _I
     return fn
 
@@ -772,27 +776,31 @@ def _prep_lib():
 def _check_prep(what: str, caches: tuple, q, k_new, v_new,
                 prep: QKPrep) -> None:
     """Check the fused write's operands over packed rows: q [..., Hq, D],
-    k_new/v_new [..., Hkv, D] and prep's tables [..., D], with the same
-    leading dims, against ``caches`` (a pool [L, P, Hkv, page, D] or a dense
-    cache [L, B, Hkv, S, D]): (k, v) of q's type, or int8 (k, v) with their
-    float32 scales (ks, vs). The caller checks the device."""
+    k_new/v_new [..., Hkv, D] and prep's tables [..., r] (r even, 0 <= r <=
+    D), with the same leading dims, against ``caches`` (a pool [L, P, Hkv,
+    page, D] or a dense cache [L, B, Hkv, S, D]): (k, v) of q's type, or
+    int8 (k, v) with their float32 scales (ks, vs). D a multiple of 16 up
+    to 256. The caller checks the device."""
     cache_k, cache_v = caches[:2]
     quant = len(caches) == 4
     Hkv, D = cache_k.shape[2], cache_k.shape[4]
     lead = q.shape[:-2]
     norms = (prep.q_norm, prep.k_norm)
-    if (q.dim() < 3 or q.shape[-1] != D or D not in _PREP_D
+    r = prep.rotary_dim
+    if (q.dim() < 3 or q.shape[-1] != D or D % 16 or not 0 < D <= _MAX_PREP_D
             or k_new.shape != lead + (Hkv, D)
             or v_new.shape != lead + (Hkv, D)
             or cache_v.shape != cache_k.shape
-            or prep.cos.shape != lead + (D,) or prep.sin.shape != lead + (D,)
+            or r % 2 or r > D
+            or prep.cos.shape != lead + (r,) or prep.sin.shape != lead + (r,)
             or (norms[0] is None) != (norms[1] is None)
             or (norms[0] is not None
                 and (norms[0].shape != (D,) or norms[1].shape != (D,)))):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} k "
                          f"{tuple(k_new.shape)} cache "
                          f"{tuple(cache_k.shape)} cos "
-                         f"{tuple(prep.cos.shape)} (D one of {_PREP_D})")
+                         f"{tuple(prep.cos.shape)} (D a multiple of 16 up "
+                         f"to {_MAX_PREP_D}, an even rotary width <= D)")
     cache_type = torch.int8 if quant else q.dtype
     if (q.dtype not in _DTYPE_CODES or k_new.dtype != q.dtype
             or v_new.dtype != q.dtype or cache_k.dtype != cache_type
@@ -814,14 +822,16 @@ def _check_prep(what: str, caches: tuple, q, k_new, v_new,
 def _prep_args(caches: tuple, q, k_new, v_new, prep: QKPrep,
                out: torch.Tensor) -> tuple:
     """The fused write's C arguments up to the cache's geometry: q_out, q,
-    the weights, cos, sin, eps, Hq, the caches and scales, k and v."""
+    the weights, cos, sin, eps, Hq, the rotary width, the caches and
+    scales, k and v."""
     scales = (caches[2].data_ptr(), caches[3].data_ptr()) \
         if len(caches) == 4 else (None, None)
     return (out.data_ptr(), q.data_ptr(),
             *(w.data_ptr() if w is not None else None
               for w in (prep.q_norm, prep.k_norm)),
             prep.cos.data_ptr(), prep.sin.data_ptr(), float(prep.eps),
-            q.shape[-2], caches[0].data_ptr(), caches[1].data_ptr(), *scales,
+            q.shape[-2], prep.rotary_dim, caches[0].data_ptr(),
+            caches[1].data_ptr(), *scales,
             k_new.data_ptr(), v_new.data_ptr())
 
 
@@ -875,11 +885,13 @@ def prep_write_rows_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     after the prologue (for every row, dropped or kept).
 
     q [N, Hq, D], k_new/v_new [N, Hkv, D], the layer's raw projections, of
-    the pool's type (bf16 or f32; D a power of two up to 256); pools [L, P,
-    Hkv, page, D]; rows [N] int32 (-1 drops); table [N, max_pages] int32; prep:
-    the norm weights [D] of q's type (or None) and cos/sin [N, D] float32,
-    one table row per packed row. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one launch for q, K and V).
+    the pool's type (bf16 or f32; D a multiple of 16 up to 256); pools [L,
+    P, Hkv, page, D]; rows [N] int32 (-1 drops); table [N, max_pages]
+    int32; prep: the norm weights [D] of q's type (or None) and cos/sin
+    [N, r] float32, one table row per packed row, RoPE over the first r
+    columns (r even, 0 for none; the other columns pass through). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    launch for q, K and V).
     """
     if q.device.type == "cpu":
         return prep_write_rows_paged_plain(pool_k, pool_v, q, k_new, v_new,

@@ -95,16 +95,18 @@ def chunk_tiles(c_rows: int, groups: int) -> int:
 
 
 def chunk_splits(c_rows: int, groups: int, hkv: int, tiles: int,
-                 sms: int) -> int:
+                 sms: int, d: int = 128) -> int:
     """CTAs per (row tile, kv head) of a ragged chunk of ``c_rows`` rows:
-    as many as one wave of CHUNK_CTAS_PER_SM CTAs on each of ``sms`` SMs
-    holds (rounded down: a chunk CTA streams many pages, and a partial
-    second wave would leave most SMs idle behind it), at most ``tiles``
+    as many as one wave of CHUNK_CTAS_PER_SM CTAs (one above head dim
+    128: the D 256 instance's shared memory) on each of ``sms`` SMs holds
+    (rounded down: a chunk CTA streams many pages, and a partial second
+    wave would leave most SMs idle behind it), at most ``tiles``
     (``max_pages``) and MAX_SPLITS, at least 1. Depends on shapes only."""
     pairs = chunk_tiles(c_rows, groups) * hkv
     if tiles <= 1:
         return 1
-    return max(1, min(CHUNK_CTAS_PER_SM * sms // pairs, tiles, MAX_SPLITS))
+    per_sm = CHUNK_CTAS_PER_SM if d <= 128 else 1
+    return max(1, min(per_sm * sms // pairs, tiles, MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)

@@ -95,7 +95,10 @@ tokenizer, as the JAX server does without ``--checkpoint-dir``::
 
 Any model of ``config.MODEL_REGISTRY`` serves this way, e.g. ``--model
 mistralai/Mistral-7B-v0.1`` (sliding-window attention; with int8 weights
-about 7.3 GB on the card).
+about 7.3 GB on the card), ``meta-llama/Llama-3.2-1B``, ``google/gemma-2b``,
+``microsoft/phi-2`` or ``facebook/opt-1.3b``; ``--chat-template`` takes a
+family's Jinja template (the ``template.jinja`` of
+``templates/<family>-chat-template.yaml``).
 """
 
 from __future__ import annotations
@@ -1326,9 +1329,13 @@ def build_parser(**kw) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(**kw)
     p.add_argument("--model", default="Qwen/Qwen3-0.6B",
                    help="the served model id; without --checkpoint-dir a "
-                        "registered model (Qwen/Qwen3-0.6B, "
-                        "mistralai/Mistral-7B-v0.1) with random weights, "
-                        "or tiny-qwen3 (byte-vocab dry run)")
+                        "registered dense model (Qwen/Qwen3-0.6B, "
+                        "Qwen/Qwen3-8B, mistralai/Mistral-7B-v0.1, "
+                        "meta-llama/Llama-3.2-1B, meta-llama/Llama-3.1-8B, "
+                        "TinyLlama/TinyLlama-1.1B-Chat-v1.0, "
+                        "google/gemma-2b, microsoft/phi-2, "
+                        "facebook/opt-125m, facebook/opt-1.3b) with random "
+                        "weights, or tiny-qwen3 (byte-vocab dry run)")
     p.add_argument("--checkpoint-dir", default="",
                    help="local HF checkpoint directory (config.json, "
                         "*.safetensors, tokenizer files) to serve")

@@ -225,7 +225,25 @@ result when either is missing. Phases, in order (any failure raises):
    zeroed just before and read just after (K6 and the fused row write
    ``L x sp`` times per decode substep, no other kernel), one decode step of
    all 4 slots held against the plain versions, the bf16 greedy streams
-   compared with the yardstick's, and the HTTP server over the int8 one.
+   compared with the yardstick's, and the HTTP server over the int8 one;
+14. the other dense families (``phase_kernels_families`` after "kernels,
+   sp", ``phase_families`` after the Mistral phases): Llama-3.2-1B (D 64,
+   G 4, llama3 RoPE), gemma-2b (D 256, MQA G 8), phi-2 (D 80, RoPE over
+   32 columns, MHA) and opt-1.3b (D 64, no RoPE). First each kernel of
+   their paths at their shapes against its plain version (the fused write
+   at RoPE over all of D, 32 of 80 columns and none, paged and dense, bf16
+   and int8; K1, its ragged entry with a 256-row chunk (the chunk body's
+   D 256 instance for gemma, timed beside the per-row route), K1-spec, K4,
+   K5 and K7). Then each family at its registered full width and depth on
+   seeded random int8 weights: the default ServingConfig (8 slots,
+   prefill_chunk 256), 8 greedy requests of prompts from 9 up to 700
+   tokens (up to 1,900 for phi and opt), logits held against the plain
+   path and one horizon-8 dispatch profiled; phi and gemma again with
+   int8 KV, with prompt lookup and with a self-draft over the dense bf16
+   cache at 4 slots per CTA; Llama on the dense engine with int8 KV at 4
+   slots per CTA and with a self-draft beside the paged pool. Each run's
+   launch counts are zeroed just before it and read just after, and every
+   family instance of the kernels line must have launched in its run.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -493,7 +511,7 @@ def _attention_case(torch, np, pools, limits_np, table_np, layer, label,
         splits = split_kv.split_count(chunk_start, Hkv, table_np.shape[1],
                                       sms)
         chunk_splits = split_kv.chunk_splits(C, hq // Hkv, Hkv,
-                                             table_np.shape[1], sms)
+                                             table_np.shape[1], sms, D)
         extra = (f"; chunk body: {C} rows in "
                  f"{split_kv.chunk_tiles(C, hq // Hkv)} row tiles x {Hkv} kv "
                  f"heads, {chunk_splits} splits")
@@ -657,7 +675,7 @@ def _graph(torch, fn):
 
 
 def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
-               label, hq, theta, norm, standalone=None):
+               label, hq, theta, norm, standalone=None, rot=None, cfg=None):
     """The fused q/k prologue and row write against its plain version
     (``models/layers.prep_qk_plain`` then the standalone write) on raw
     q/k/v rows at ``positions_np``: over a page pool (``table_np`` given:
@@ -674,7 +692,9 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     of the bytes over the memory rate and the prologue's float32 operations
     over the card's float32 rate. ``standalone``: the standalone write's
     case (:func:`_dense_write_case`) whose times the row keeps beside its
-    own (``standalone_ms``, ``standalone_device_ms``)."""
+    own (``standalone_ms``, ``standalone_device_ms``). ``rot``: the
+    rotary width (default the head dim; 0 for no RoPE), ``cfg`` a config
+    whose llama3 frequency scaling the tables take."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
         QKPrep, prep_qk_plain, rope_cos_sin)
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
@@ -707,8 +727,9 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     if norm:
         weights = tuple((1.0 + 0.1 * randn(D).float()).to(torch.bfloat16)
                         for _ in range(2))
-    cos, sin = rope_cos_sin(torch.from_numpy(positions_np).to(dev), D,
-                            theta)
+    rot = D if rot is None else rot
+    cos, sin = rope_cos_sin(torch.from_numpy(positions_np).to(dev), rot,
+                            theta, cfg)
     prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
     rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
     index = () if dense else (torch.from_numpy(table_np.astype(np.int32))
@@ -832,12 +853,13 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
     chain_graph_ms = timed_ms(torch, _graph(torch, chain))
     n_kept = len(sel)
     out_row = D * leaves[0].element_size() + (4 if quant else 0)
-    nbytes = (2 * N * hq * D * 2 + 2 * N * Hkv * D * 2 + 2 * N * D * 4
+    nbytes = (2 * N * hq * D * 2 + 2 * N * Hkv * D * 2 + 2 * N * rot * 4
               + (2 * D * 2 if norm else 0) + 2 * n_kept * Hkv * out_row
               + N * 4 + (0 if dense else n_kept * 4))
     # float32 operations of the prologue: RMSNorm (square, sum, scale,
-    # weight) and RoPE (two products, one sum) per q and k element
-    ops = N * (hq + Hkv) * D * ((4 if norm else 0) + 3)
+    # weight) per q and k element, RoPE (two products, one sum) per rotated
+    # one
+    ops = N * (hq + Hkv) * ((4 * D if norm else 0) + 3 * rot)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
     res = {"max_abs_err": err, "mean_abs_err": mean_err, "ms": ms,
            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
@@ -852,7 +874,8 @@ def _prep_case(torch, np, pools, rows_np, table_np, positions_np, layer,
         res["standalone_ms"] = standalone["ms"]
         res["standalone_device_ms"] = standalone["device_ms"]
     log(f"[kernels] {name} {label}: rows {N} ({n_kept} kept), Hq {hq}, "
-        f"{'q/k norm + ' if norm else ''}RoPE; q, k within 1 bf16 ulp of "
+        f"D {D}, {'q/k norm + ' if norm else ''}RoPE over {rot} columns; "
+        f"q, k within 1 bf16 ulp of "
         f"their row (bit-identical: q {q_same:.4f}, k {k_same:.4f} of "
         f"elements), v bit-exact"
         f"{', int8 codes within 1, scales within 2^-8, bit-identical on the '
@@ -5928,6 +5951,460 @@ def phase_guided_lora(torch, np):
     return {"default": default, "lora": stats}
 
 
+# -- the other dense families: Llama, Gemma, Phi and OPT ---------------------
+
+# the families' registered configs (full width and depth), by short name:
+# Llama-3.2-1B (D 64, G 4, llama3 RoPE), gemma-2b (D 256, MQA G 8,
+# zero-centred norms, GeGLU, scaled embedding), phi-2 (D 80, RoPE over 32
+# columns, MHA, the parallel block, biases), opt-1.3b (D 64, MHA, learned
+# positions: no RoPE, ReLU)
+FAMILIES = ("llama", "gemma", "phi", "opt")
+# the 8 greedy requests' prompt lengths: up to 700 tokens, and up to ~1,900
+# for the families whose learned or published window is 2048 rows
+FAMILY_PROMPTS = {"llama": (9, 40, 120, 256, 300, 450, 600, 700),
+                  "gemma": (9, 40, 120, 256, 300, 450, 600, 700),
+                  "phi": (9, 60, 200, 450, 700, 1100, 1500, 1900),
+                  "opt": (9, 60, 200, 450, 700, 1100, 1500, 1900)}
+FAMILY_NEW = 48
+# one decode step of a family at full width on random int8 weights,
+# kernels vs plain versions: each layer's attention held to the ulp rule in
+# the step itself; the logits carry those one-rounding differences through
+# 16 to 32 layers of random weights, as Mistral's do (MISTRAL_LOGIT_TOL)
+FAMILY_LOGIT_TOL = MISTRAL_LOGIT_TOL
+
+
+def _family_cfg(fam):
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (GEMMA_2B,
+                                                              LLAMA_3_2_1B,
+                                                              OPT_1_3B,
+                                                              PHI_2)
+
+    return {"llama": LLAMA_3_2_1B, "gemma": GEMMA_2B, "phi": PHI_2,
+            "opt": OPT_1_3B}[fam]
+
+
+def _family_label(cfg):
+    return (f"D {cfg.head_dim}, Hq {cfg.num_heads}, Hkv "
+            f"{cfg.num_kv_heads}, RoPE over {cfg.rotary_dim}")
+
+
+def phase_kernels_families(torch, np):
+    """Each kernel of the families' paths against its plain version at
+    their shapes (Hq, Hkv, D and rotary width of Llama-3.2-1B, gemma-2b,
+    phi-2 and opt-1.3b; page 64; 8 rows of up to 2048 columns; 2 layers,
+    the cut: a kernel reads one layer), over a bf16 and an int8 pool: the
+    fused q/k prologue and row write at the decode rows (RoPE over D, 32 of
+    80 columns or none; no q/k norm), K1 over the decode rows, K1's ragged
+    entry over them beside a 256-row chunk of one slot (the chunk body: its
+    D 256 instance for gemma), K1-spec over 8 x SPEC_R rows; then over a
+    dense bf16 and int8 cache [2, 8, Hkv, 2048, D]: the fused dense write,
+    K4, K5 (4 slots per CTA) and K7. Each timed beside its plain version,
+    a library call and the bound."""
+    out = {}
+    for i, fam in enumerate(FAMILIES):
+        cfg = _family_cfg(fam)
+        L, Hq, Hkv, D, rot = 2, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim, cfg.rotary_dim
+        ps, B, S = 64, 8, 2048
+        max_pages = S // ps
+        P = B * max_pages + 1
+        layer = L - 1
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(90 + i)
+        rng = np.random.default_rng(95 + i)
+        table = (rng.permutation(B * max_pages) + 1).reshape(B, max_pages)
+        lengths = rng.integers(1, S + 1, B)
+        lengths[:4] = [1, 64, 65, S]
+        pslot, pstart, C = 3, 512, 256
+        limits = np.concatenate([lengths, pstart + np.arange(C) + 1])
+        limits[pslot] = 0
+        tables = np.concatenate([table, np.repeat(table[pslot][None], C, 0)])
+        spec_len = np.minimum(lengths, S - SPEC_R)
+        spec_len[:2] = [0, 59]
+        label = f"{fam} ({_family_label(cfg)})"
+        res = out[fam] = {}
+        for name in ("bf16", "int8"):
+            pools = _make_pools(torch, gen, (L, P, Hkv, ps, D),
+                                name == "int8")
+            res[name] = {
+                "prep": _prep_case(torch, np, pools, lengths - 1, table,
+                                   lengths - 1, layer,
+                                   f"{label}, decode {B} rows", Hq,
+                                   cfg.rope_theta, cfg.qk_norm, rot=rot,
+                                   cfg=cfg),
+                "attention": _attention_case(torch, np, pools, lengths,
+                                             table, layer,
+                                             f"{label}, decode {B} rows", Hq),
+                "attention_ragged": _attention_case(
+                    torch, np, pools, limits, tables, layer,
+                    f"{label}, ragged {B}+{C}", Hq, chunk_start=B),
+                "spec": _spec_case(torch, np, pools, spec_len, table, layer,
+                                   f"{label}, verify {B} x {SPEC_R} rows",
+                                   Hq)}
+            if D > 128:
+                # the route the chunk rows took before the D 256 instance:
+                # the per-row body over every row of the same call
+                per_row = _attention_case(
+                    torch, np, pools, limits, tables, layer,
+                    f"{label}, ragged {B}+{C}, every row per-row", Hq)
+                chunked = res[name]["attention_ragged"]
+                log(f"[kernels] {fam} {name} ragged {B}+{C}: chunk body "
+                    f"{chunked['ms']:.4f} ms (device "
+                    f"{chunked['device_ms']:.4f}), per-row body "
+                    f"{per_row['ms']:.4f} ms (device "
+                    f"{per_row['device_ms']:.4f}): "
+                    f"{per_row['device_ms'] / chunked['device_ms']:.2f}x")
+                res[name]["per_row_ms"] = per_row["ms"]
+                res[name]["per_row_device_ms"] = per_row["device_ms"]
+            del pools
+            torch.cuda.empty_cache()
+        dense_len = lengths.copy()
+        dense_len[0] = 0
+        for name in ("bf16", "int8"):
+            cache = _dense_cache(torch, gen, (L, B, Hkv, S, D),
+                                 name == "int8")
+            res["dense" if name == "bf16" else "dense int8"] = {
+                "prep": _prep_case(
+                    torch, np, cache, dense_len[:, None] - 1, None,
+                    np.maximum(dense_len[:, None] - 1, 0), layer,
+                    f"{label}, decode {B} slots", Hq, cfg.rope_theta,
+                    cfg.qk_norm, rot=rot, cfg=cfg),
+                "attention": _dense_attention_case(
+                    torch, np, cache, dense_len, layer, 1,
+                    f"{label}, decode {B} slots", Hq),
+                "bblock": _dense_attention_case(
+                    torch, np, cache, dense_len, layer, 1,
+                    f"{label}, decode {B} slots, 4 per CTA", Hq, bb=4),
+                "spec": _dense_attention_case(
+                    torch, np, cache, spec_len, layer, SPEC_R,
+                    f"{label}, verify {B} x {SPEC_R} rows", Hq)}
+            del cache
+            torch.cuda.empty_cache()
+    return out
+
+
+def _family_params(torch, cfg, repeating=False):
+    """Seeded random weights of ``cfg`` at full width in the published
+    shapes (biases, learned positions and all), drawn layer by layer in
+    bf16 and quantized to int8 (the serving default). ``repeating``: the
+    embedding times REPEAT_EMBED_SCALE (an untied head holding its
+    unscaled rows, its bias kept), so that the current token's embedding
+    dominates what the head reads and the greedy stream repeats its token
+    (prompt lookup then finds n-grams)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16)
+    if repeating:
+        emb = params["embed"]["weight"]
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {**params["lm_head"],
+                                 "kernel": emb.T.contiguous()}
+        params["embed"] = {"weight": emb * REPEAT_EMBED_SCALE}
+    params = quantize_params(params, cfg)
+    torch.cuda.synchronize()
+    return params
+
+
+# a family's runs: (paged, KV dtype, decode_bblock, speculation)
+FAMILY_RUNS = {"auto": (True, "auto", 0, None),
+               "int8": (True, "int8", 0, None),
+               "dense int8": (False, "int8", 4, None),
+               "lookup": (True, "auto", 0, "prompt_lookup"),
+               "draft": (True, "auto", 0, "draft"),
+               "dense draft": (False, "auto", 4, "draft")}
+# the runs of each family (its default engine first)
+FAMILY_PLAN = {"llama": ("auto", "dense int8", "draft"),
+               "gemma": ("auto", "int8", "lookup", "dense draft"),
+               "phi": ("auto", "int8", "lookup", "dense draft"),
+               "opt": ("auto",)}
+
+
+def phase_family(torch, np, fam, kind, params):
+    """One run of a family at full width and depth on ``params`` (seeded
+    random int8 weights, :func:`_family_params`): the default
+    ``ServingConfig`` (paged, page 64, bf16 KV, int8 weights, the pipeline
+    and the decode graphs on, the prefix cache on) with 8 slots and
+    prefill_chunk 256, changed as ``kind`` says (FAMILY_RUNS): int8 KV;
+    the dense engine with int8 KV and 4 slots per CTA; prompt lookup; a
+    self-draft over its dense cache, beside the paged pool or the dense
+    bf16 cache with 4 slots per CTA. The launch counts are zeroed just
+    before the run and read just after. Plain runs: 8 greedy requests
+    (FAMILY_PROMPTS, FAMILY_NEW new tokens each); once every prompt is in,
+    the next decode step's logits are held against the plain versions
+    (:func:`_logits_check`, every layer's attention by the ulp rule) and
+    one horizon-8 decode dispatch is profiled, both taken out of the run's
+    counts; the path's kernels launched (the chunk body among them), the
+    fused row write once a layer of every forward, the other pool's and
+    the standalone writes never, one graph replay per decode dispatch.
+    Speculative runs: prompt lookup on repeated-pattern prompts
+    (repeating weights), or a self-draft over two waves (the second
+    chunked, so that the draft catches up): verifies and drafts > 0, the
+    verify kernel and (draft) the dense K4/K7 launched, the fused writes
+    once a layer of every target and draft forward, accepted drafts > 0
+    with the self-draft. Returns the run's launches."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import ServingConfig
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
+                                                                      Request)
+
+    cfg = _family_cfg(fam)
+    paged, kv_dtype, bblock, spec = FAMILY_RUNS[kind]
+    quant = kv_dtype == "int8"
+    serving = ServingConfig(model=cfg.name, max_decode_slots=8,
+                            prefill_chunk=256, derived_seed=0,
+                            kv_dtype=kv_dtype, paged=paged,
+                            decode_bblock=bblock,
+                            spec_decode=spec is not None,
+                            spec_method=spec or "prompt_lookup")
+    t0 = time.monotonic()
+    engine = Engine(cfg, params, serving, device="cuda",
+                    draft=(cfg, params) if spec == "draft" else None)
+    torch.cuda.synchronize()
+    tag = f"[{cfg.name} {kind}]"
+    log(f"{tag} {cfg.num_layers} layers, hidden {cfg.hidden_size}, MLP "
+        f"{cfg.intermediate_size} ({cfg.act}), {_family_label(cfg)}, vocab "
+        f"{cfg.vocab_size}, norm {cfg.norm}"
+        f"{' zero-centred' if cfg.norm_zero_centered else ''}"
+        f"{', parallel block' if cfg.parallel_block else ''}, positions "
+        f"{cfg.pos_embed}; int8 weights {_tree_bytes(params) / 1e9:.2f} GB; "
+        f"KV {kv_dtype}, 8 slots x {engine.max_len}, {_cache_layout(engine)}"
+        f"{f', {spec}' if spec else ''}; {_dispatch_mode(engine)}; "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    rng = np.random.default_rng(80 + FAMILIES.index(fam))
+    engine.submit(Request(prompt_ids=[5, 6, 7, 8, 9, 10, 11, 12],
+                          max_tokens=2, ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    replays0 = engine.decoder.replays
+    torch.cuda.synchronize()
+    if spec is not None:
+        return _family_spec_run(torch, np, engine, tag, rng, spec, quant)
+    lens = FAMILY_PROMPTS[fam]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=FAMILY_NEW,
+                                  ignore_eos=True)) for p in prompts]
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    before, counts0 = _launches(), dict(engine.counts)
+    _logits_check(torch, engine, FAMILY_LOGIT_TOL)
+    _profile_dispatch(torch, engine, f"[profile {cfg.name} {kind}]")
+    checks = _delta(_launches(), before)
+    check_counts = {k: v - counts0.get(k, 0)
+                    for k, v in engine.counts.items()}
+    t2 = time.monotonic()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t2 + t1 - t0
+    launches = _delta(_launches(), checks)
+    run_counts = {k: v - check_counts.get(k, 0)
+                  for k, v in engine.counts.items()}
+    n_gen = sum(len(r.generated) for r in reqs)
+    log(f"{tag} {len(reqs)} requests, prompts {list(lens)}, {FAMILY_NEW} "
+        f"new tokens each: {n_gen} tokens in {dt:.2f}s ({n_gen / dt:.1f} "
+        f"tok/s end to end, the checks' time taken out); dispatches "
+        f"{run_counts}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for r in reqs:
+        _finish_ok(cfg, r, FAMILY_NEW)
+    _check_replays(tag, engine, replays0)
+    if not paged:
+        _check_dense_launches(tag, engine, launches, counts=run_counts)
+    else:
+        attn, write = _kernel_names(quant)
+        if min(launches[attn], launches[write],
+               launches[attn + " chunk"]) <= 0:
+            raise AssertionError(f"{tag} a kernel of the path never "
+                                 f"launched (K1, its chunk body, the fused "
+                                 f"write): {launches}")
+        if max(launches[k] for k in _kernel_names(not quant)
+               + STANDALONE_WRITES) != 0:
+            raise AssertionError(f"{tag} the other pool's kernels or a "
+                                 f"standalone row write launched: "
+                                 f"{launches}")
+        _check_fused_writes(tag, engine, launches, run_counts)
+    del engine
+    return launches
+
+
+def _family_spec_run(torch, np, engine, tag, rng, spec, quant):
+    """The speculative run of :func:`phase_family`: prompt lookup over 4
+    repeated-pattern prompts, or a self-draft over 6 requests and then 2
+    prompts of 600 tokens walked in chunks beside them."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    cfg = engine.cfg
+    _reset_launches()
+    t0 = time.monotonic()
+    if spec == "prompt_lookup":
+        waves = [(_pattern_prompts(rng, cfg.vocab_size, 3, reps=40)
+                  + _pattern_prompts(rng, cfg.vocab_size, 1), 48)]
+    else:
+        waves = [([rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (40, 90, 130, 64, 200, 17)], 48),
+                 ([rng.integers(0, cfg.vocab_size, 600).tolist()
+                   for _ in range(2)], 24)]
+    reqs = []
+    for i, (prompts, new) in enumerate(waves):
+        reqs += [(engine.submit(Request(prompt_ids=p, max_tokens=new,
+                                        ignore_eos=True)), new)
+                 for p in prompts]
+        if i + 1 < len(waves):
+            while engine.pending:
+                engine.step()
+            engine.step()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _launches()
+    counts = dict(engine.counts)
+    for r, new in reqs:
+        _finish_ok(cfg, r, new)
+    n_gen = sum(new for _, new in reqs)
+    drafted = counts.get("spec_drafted_tokens", 0)
+    accepted = counts.get("spec_accepted_tokens", 0)
+    log(f"{tag} {len(reqs)} greedy requests: {n_gen} tokens in {dt:.2f}s "
+        f"({n_gen / dt:.1f} tok/s end to end with the prefill); dispatches "
+        f"{counts}; acceptance {accepted}/{drafted} = "
+        f"{accepted / max(drafted, 1):.3f}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if counts.get("spec_dispatches", 0) <= 0 or drafted <= 0:
+        raise AssertionError(f"{tag} no verify dispatch or no draft: {counts}")
+    if engine.paged:
+        verify = "paged_attention_spec" + ("_quant" if quant else "")
+        if launches[verify] <= 0:
+            raise AssertionError(f"{tag} the verify kernel never launched: "
+                                 f"{launches}")
+        if spec == "draft":
+            _check_draft_writes(tag, engine, launches, counts)
+        else:
+            _check_fused_writes(tag, engine, launches, counts)
+    else:
+        # the dense target (K5 decode, K7 verify) and the draft (K4
+        # rollout, K7 catch-up) write every forward's rows through the
+        # fused dense write
+        L = cfg.num_layers
+        forwards = (_dense_forwards(counts)
+                    + counts.get("draft_rollout_substeps", 0)
+                    + counts.get("draft_catch_ups", 0))
+        _check_fused_dense(tag, L, launches, forwards,
+                           "target and draft forwards")
+        mine = (_dense_name("decode_attend_dense", quant,
+                            engine.decode_bblock),
+                _dense_name("spec_attend_dense", quant),
+                "decode_attend_dense", "spec_attend_dense")
+        if min(launches[k] for k in mine) <= 0:
+            raise AssertionError(f"{tag} a kernel of the path never launched "
+                                 f"({mine}): {launches}")
+        if max(launches[k] for k in PAGED_KERNELS) != 0:
+            raise AssertionError(f"{tag} the dense engine launched a paged "
+                                 f"kernel: {launches}")
+    if spec == "draft" and accepted <= 0:
+        raise AssertionError(f"{tag} no draft token accepted: {counts}")
+    if spec == "draft" and min(launches[k] for k in (
+            "decode_attend_dense", "spec_attend_dense",
+            "prep_write_rows_dense")) <= 0:
+        raise AssertionError(f"{tag} a dense kernel of the draft never "
+                             f"launched (K4/K7/K8): {launches}")
+    del engine
+    return launches
+
+
+def phase_families(torch, np):
+    """Every family's runs (FAMILY_PLAN), each family's weights drawn once
+    (and once more, repeating, for its prompt-lookup run). Returns
+    {"<family> <run>": launches}."""
+    runs = {}
+    for fam in FAMILIES:
+        cfg = _family_cfg(fam)
+        t0 = time.monotonic()
+        params = _family_params(torch, cfg)
+        log(f"[{cfg.name}] weights drawn and quantized in "
+            f"{time.monotonic() - t0:.1f}s")
+        for kind in FAMILY_PLAN[fam]:
+            t1 = time.monotonic()
+            if kind == "lookup":
+                del params
+                _free(torch)
+                params = _family_params(torch, cfg, repeating=True)
+            runs[f"{fam} {kind}"] = phase_family(torch, np, fam, kind, params)
+            _free(torch)
+            log(f"[wall] {fam} {kind}: {time.monotonic() - t1:.1f}s")
+            if kind == "lookup":
+                del params
+                _free(torch)
+                params = _family_params(torch, cfg)
+        del params
+        _free(torch)
+    return runs
+
+
+def _family_kernel_rows(fk):
+    """The kernels line's rows of the families' instances: (name, source,
+    TPU line, result, run, launch-count key)."""
+    rows = []
+    for fam in FAMILIES:
+        f = fk[fam]
+        # the fused write of every family's decode rows: RoPE over all of
+        # D 64 (Llama), 32 of 80 columns (Phi), none (OPT), D 256 (Gemma)
+        rows.append((f"prep_write_rows_paged {fam}", WRITE_SRC, 1243,
+                     f["bf16"]["prep"], f"{fam} auto",
+                     "prep_write_rows_paged"))
+        rows.append((f"paged_attention {fam}", ATTN_SRC, 1080,
+                     f["bf16"]["attention"], f"{fam} auto",
+                     "paged_attention"))
+        rows.append((f"paged_attention chunk {fam}", CHUNK_SRC, 1120,
+                     f["bf16"]["attention_ragged"], f"{fam} auto",
+                     "paged_attention chunk"))
+        plan = FAMILY_PLAN[fam]
+        if "int8" in plan:
+            rows += [(f"prep_write_rows_quant_paged {fam}", WRITE_SRC, 1313,
+                      f["int8"]["prep"], f"{fam} int8",
+                      "prep_write_rows_quant_paged"),
+                     (f"paged_attention_quant {fam}", ATTN_SRC, 1014,
+                      f["int8"]["attention"], f"{fam} int8",
+                      "paged_attention_quant"),
+                     (f"paged_attention_quant chunk {fam}", CHUNK_SRC, 1120,
+                      f["int8"]["attention_ragged"], f"{fam} int8",
+                      "paged_attention_quant chunk")]
+        spec_run = next((k for k in ("lookup", "draft") if k in plan), None)
+        if spec_run:
+            rows.append((f"paged_attention_spec {fam}", ATTN_SRC, 1169,
+                         f["bf16"]["spec"], f"{fam} {spec_run}",
+                         "paged_attention_spec"))
+        if "dense int8" in plan:
+            rows += [(f"prep_write_rows_quant_dense {fam}", WRITE_SRC, 823,
+                      f["dense int8"]["prep"], f"{fam} dense int8",
+                      "prep_write_rows_quant_dense"),
+                     (f"decode_attend_dense quant bblock {fam}", DENSE_SRC,
+                      499, f["dense int8"]["bblock"], f"{fam} dense int8",
+                      "decode_attend_dense quant bblock")]
+        draft_run = next((k for k in ("dense draft", "draft") if k in plan),
+                         None)
+        if draft_run:
+            rows += [(f"prep_write_rows_dense {fam}", WRITE_SRC, 744,
+                      f["dense"]["prep"], f"{fam} {draft_run}",
+                      "prep_write_rows_dense"),
+                     (f"decode_attend_dense {fam}", DENSE_SRC, 516,
+                      f["dense"]["attention"], f"{fam} {draft_run}",
+                      "decode_attend_dense"),
+                     (f"spec_attend_dense {fam}", DENSE_SRC, 675,
+                      f["dense"]["spec"], f"{fam} {draft_run}",
+                      "spec_attend_dense")]
+        if draft_run == "dense draft":
+            rows.append((f"decode_attend_dense bblock {fam}", DENSE_SRC, 499,
+                         f["dense"]["bblock"], f"{fam} dense draft",
+                         "decode_attend_dense bblock"))
+    return rows
+
+
 def _phase(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.monotonic()
@@ -5967,6 +6444,7 @@ def main() -> int:
     kern = _phase("kernels", phase_kernels, torch, np)
     wkern = _phase("kernels, window", phase_kernels_window, torch, np)
     skern = _phase("kernels, sp", phase_kernels_sp, torch, np)
+    fkern = _phase("kernels, families", phase_kernels_families, torch, np)
     _phase("sampling", phase_sampling, torch, np)
     runs = {}
     for kv_dtype in ("auto", "int8"):
@@ -6046,6 +6524,8 @@ def main() -> int:
     del engine
     _free(torch)
     log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
+    # the Llama, Gemma, Phi and OPT families at full width and depth
+    runs.update(_phase("families", phase_families, torch, np))
     # sequence-parallel serving: the sp 1 dense engine's greedy streams are
     # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
     t_sp = time.monotonic()
@@ -6173,6 +6653,17 @@ def main() -> int:
                         **{k: res[k] for k in (
                             "graph_ms", "chain_graph_ms", "standalone_ms",
                             "standalone_device_ms") if k in res}})
+    for name, src, line, res, run, key in _family_kernel_rows(fkern):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{TPU_KERNELS}:{line}",
+                        "launches": runs[run][key],
+                        **{k: res[k] for k in keys},
+                        **{k: res[k] for k in ("graph_ms", "chain_graph_ms")
+                           if k in res}})
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernel instances with no launch in their "
+                             f"named run: {missing}")
     # the combine's launches beside those of the attention launches that
     # used it (a launch with more than one split is followed by one combine)
     for run, counts in runs.items():

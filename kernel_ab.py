@@ -2,8 +2,8 @@
 """The attention kernels' times, and the engine's decode substep, in several
 checkouts of the port, in turns, on one card.
 
-    python3 kernel_ab.py [--engine-only | --sp-only | --only WORD[,WORD...]]
-                         PATH ...
+    python3 kernel_ab.py [--engine-only | --sp-only | --only WORD[,WORD...]
+                          | --bits] PATH ...
 
 Each PATH is the root of a checkout that holds
 ``aws_k8s_ansible_provisioner_tpu_torch/``. For each PATH in the order
@@ -56,7 +56,12 @@ sequence-parallel decode of ``chip_smoke.py``'s sp phase: Qwen3-0.6B dense
 over 4 sequence shards on one card (4 slots of 32768 rows after prompts of
 40-27,000 tokens, bf16 KV), an eager, synchronous dispatch. ``--only spec,K7`` times only the kernel cases
 whose name holds one of the words (here the eight verify instances), and
-no engine.
+no engine. ``--bits`` times nothing: it runs the fused q/k prologue and
+row write (paged and dense, bf16 and int8 KV) at Qwen3-0.6B's decode rows
+(q/k RMSNorm and RoPE) and Mistral-7B's (RoPE only), head dim 128, on the
+same seeded inputs in each checkout, and compares every output (q after
+the prologue, every cache leaf and scale) bit for bit with the first
+checkout's; it exits non-zero when one differs.
 
 Give two versions as A B B A to compare them within one call. Prints the
 card's name and power limit, one JSON line per run, and then a table of
@@ -552,8 +557,70 @@ def _time_decode(torch, out, label, engine, setup_s, prompts, max_tokens):
         else 0.0}
 
 
+def _bits(torch, pa, da, out_file: str) -> int:
+    """The fused writes' outputs on seeded inputs (see ``--bits``), saved to
+    ``out_file``; returns their count."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models import layers
+
+    res = {}
+    for name, hq, hkv, norm, theta in (("qwen3", 16, 8, True, 1e6),
+                                       ("mistral", 32, 8, False, 1e4)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        D, N, ps, maxp, L, B, R = 128, 40, 64, 32, 2, 8, 5
+
+        def randn(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen,
+                                        device="cuda")).bfloat16()
+
+        q, k, v = randn(N, hq, D, scale=3.0), randn(N, hkv, D, scale=3.0), \
+            randn(N, hkv, D)
+        w = tuple((1 + 0.1 * randn(D).float()).bfloat16()
+                  for _ in range(2)) if norm else (None, None)
+        pos = torch.randint(0, 2000, (N,), generator=gen, device="cuda")
+        cos, sin = layers.rope_cos_sin(pos, D, theta)
+        rows = pos.to(torch.int32)
+        table = (torch.randperm(N * maxp, generator=gen, device="cuda")
+                 .to(torch.int32) + 1).reshape(N, maxp)
+        for quant in (False, True):
+            def leaves(shape):
+                if not quant:
+                    return [torch.zeros(shape, dtype=torch.bfloat16,
+                                        device="cuda") for _ in range(2)]
+                return ([torch.zeros(shape, dtype=torch.int8, device="cuda")
+                         for _ in range(2)]
+                        + [torch.zeros(shape[:-1], device="cuda")
+                           for _ in range(2)])
+
+            kind = "int8" if quant else "bf16"
+            pool = leaves((L, N * maxp + 1, hkv, ps, D))
+            fn = pa.prep_write_rows_quant_paged if quant \
+                else pa.prep_write_rows_paged
+            res[f"{name} paged {kind} q"] = fn(
+                *pool, q, k, v, rows, 1, table,
+                layers.QKPrep(*w, 1e-6, cos.contiguous(), sin.contiguous()))
+            cache = leaves((L, B, hkv, 2048, D))
+            fn = da.prep_write_rows_quant_dense if quant \
+                else da.prep_write_rows_dense
+            res[f"{name} dense {kind} q"] = fn(
+                *cache, *(x.reshape(B, R, *x.shape[1:]) for x in (q, k, v)),
+                rows.reshape(B, R).contiguous(), 1,
+                layers.QKPrep(*w, 1e-6, cos.reshape(B, R, D).contiguous(),
+                              sin.reshape(B, R, D).contiguous()))
+            for i, leaf in enumerate(pool + cache):
+                res[f"{name} {kind} leaf {i}"] = leaf
+    torch.save({k: v.cpu() for k, v in res.items()}, out_file)
+    return len(res)
+
+
+def _same_bits(torch, a, b) -> bool:
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+
+
 def one(path: str, engine_only: bool = False, only=(),
-        sp_only: bool = False) -> dict:
+        sp_only: bool = False, bits: str = "") -> dict:
     """Times of the checkout at ``path`` (run in its own process); with
     ``engine_only`` the engine's substeps alone; with ``only`` (words) the
     kernel cases named by one of them alone; with ``sp_only`` the sp 4
@@ -572,6 +639,9 @@ def one(path: str, engine_only: bool = False, only=(),
     torch.backends.cudnn.allow_tf32 = False
     cuda_build.build_kernels()
     out = {"path": path}
+    if bits:
+        out["bits"] = {"file": bits, "outputs": _bits(torch, pa, da, bits)}
+        return out
     ctx = {"out": out, "split_kv": None, "only": only}
     if importlib.util.find_spec(
             "aws_k8s_ansible_provisioner_tpu_torch.ops.split_kv"):
@@ -647,12 +717,16 @@ def main() -> int:
         one_path, args = args[1], args[2:]
     engine_only = args[:1] == ["--engine-only"]
     sp_only = args[:1] == ["--sp-only"]
+    bits = args[:1] == ["--bits"]
     only = ()
     if args[:1] == ["--only"] and len(args) > 1:
         only = tuple(args[1].split(","))
-    flags = args[:1] if engine_only or sp_only else args[:2] if only else []
+    flags = args[:1] if engine_only or sp_only or bits else \
+        args[:2] if only else []
     if one_path is not None:
-        print(json.dumps(one(one_path, engine_only, only, sp_only)))
+        bits_file = args[1] if bits else ""
+        print(json.dumps(one(one_path, engine_only, only, sp_only,
+                             bits_file)))
         return 0
     paths = args[len(flags):]
     if not paths:
@@ -663,6 +737,8 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip() if smi.returncode == 0
           else f"nvidia-smi failed ({smi.returncode})")
+    if bits:
+        return _compare_bits(paths)
     runs = []
     for path in paths:
         run = subprocess.run([sys.executable, __file__, "--one", path]
@@ -676,6 +752,35 @@ def main() -> int:
         runs.append(json.loads(line))
     _table(runs)
     return 0
+
+
+def _compare_bits(paths) -> int:
+    """``--bits``: each checkout's outputs (in its own process) against the
+    first checkout's, bit for bit."""
+    import tempfile
+
+    import torch
+
+    files = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, path in enumerate(paths):
+            out = f"{tmp}/bits{i}.pt"
+            run = subprocess.run([sys.executable, __file__, "--one", path,
+                                  "--bits", out], capture_output=True,
+                                 text=True, timeout=900)
+            if run.returncode != 0:
+                print(run.stderr[-4000:], file=sys.stderr)
+                return run.returncode
+            files.append(torch.load(out))
+        bad = 0
+        for path, got in zip(paths[1:], files[1:]):
+            differ = [k for k in files[0]
+                      if k not in got or not _same_bits(torch, files[0][k],
+                                                         got[k])]
+            bad += len(differ)
+            print(f"[bits] {path} against {paths[0]}: {len(files[0])} "
+                  f"outputs, {len(differ)} differ {differ}")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -1585,7 +1585,8 @@ def _chunk_case(dev, quant, G, ps, window, C, pstart, seed, hkv=2, d=128,
     assert _rows_within_ulps(per_row, ref, B + C)
     assert torch.isfinite(poisoned.float()).all()
     assert torch.equal(out, poisoned)
-    return split_kv.chunk_splits(C, G, hkv, maxp, split_kv.sm_count(dev))
+    return split_kv.chunk_splits(C, G, hkv, maxp, split_kv.sm_count(dev),
+                                 d)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
@@ -1649,11 +1650,12 @@ def _bf16_ulp_of_rows(ref):
     return torch.exp2(torch.floor(torch.log2(top)) - 7)
 
 
-def _prep_inputs(dev, dtype, quant, norm, hq, hkv, d, seed):
+def _prep_inputs(dev, dtype, quant, norm, hq, hkv, d, seed, rot=None):
     """Dropped rows (-1, past the window, OOB_PAGE tables), kept rows and
     chunk rows sharing one table's pages; raw q/k/v rows of ``dtype``, the
-    RoPE tables of the rows' positions, norm weights (or none), a random
-    pool (int8 with scales when ``quant``)."""
+    RoPE tables of the rows' positions over ``rot`` columns (default d),
+    norm weights (or none), a random pool (int8 with scales when
+    ``quant``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
         QKPrep, rope_cos_sin)
 
@@ -1672,7 +1674,8 @@ def _prep_inputs(dev, dtype, quant, norm, hq, hkv, d, seed):
         weights = tuple(torch.from_numpy(
             (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
                 dev, dtype) for _ in range(2))
-    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev), d, 1e6)
+    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev),
+                            d if rot is None else rot, 1e6)
     prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
     P = N * maxp + 1
     if quant:
@@ -1773,11 +1776,18 @@ def test_prep_write_quant_matches_plain(dev, dtype, norm, hq, hkv, d):
 def test_prep_write_refuses_what_the_kernel_does_not_take(dev):
     (q, k, v), rows, table, prep, pools = _prep_inputs(
         dev, torch.bfloat16, False, True, 4, 2, 64, seed=42)
-    with pytest.raises(ValueError):           # D 48: not a power of two
+    with pytest.raises(ValueError):           # D 40: not a multiple of 16
         tpa.prep_write_rows_paged(
-            *(p[..., :48].contiguous() for p in pools), q[..., :48]
-            .contiguous(), k[..., :48].contiguous(),
-            v[..., :48].contiguous(), rows, 1, table, prep)
+            *(p[..., :40].contiguous() for p in pools), q[..., :40]
+            .contiguous(), k[..., :40].contiguous(),
+            v[..., :40].contiguous(), rows, 1, table,
+            dataclasses.replace(prep, cos=prep.cos[:, :40].contiguous(),
+                                sin=prep.sin[:, :40].contiguous()))
+    with pytest.raises(ValueError):           # an odd rotary width
+        tpa.prep_write_rows_paged(
+            *pools, q, k, v, rows, 1, table,
+            dataclasses.replace(prep, cos=prep.cos[:, :31].contiguous(),
+                                sin=prep.sin[:, :31].contiguous()))
     with pytest.raises(TypeError):            # float32 weights, bf16 rows
         tpa.prep_write_rows_paged(
             *pools, q, k, v, rows, 1, table,
@@ -1792,12 +1802,13 @@ def test_prep_write_refuses_what_the_kernel_does_not_take(dev):
 # -- the fused q/k prologue and dense row write (K8, K9 with the prologue) --
 
 
-def _prep_dense_inputs(dev, dtype, quant, norm, hq, hkv, d, R, seed):
+def _prep_dense_inputs(dev, dtype, quant, norm, hq, hkv, d, R, seed,
+                       rot=None):
     """4 slots of R rows over a dense cache of 40 rows: kept rows at the
     cache's edges and dropped ones (-1, S, far past S); raw q/k/v rows
-    [4, R, H, d] of ``dtype``, the RoPE tables [4, R, d] of the rows'
-    positions, norm weights (or none), a random cache [2, 4, hkv, 40, d]
-    (int8 with scales when ``quant``)."""
+    [4, R, H, d] of ``dtype``, the RoPE tables [4, R, rot] (default d) of
+    the rows' positions, norm weights (or none), a random cache [2, 4,
+    hkv, 40, d] (int8 with scales when ``quant``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
         QKPrep, rope_cos_sin)
 
@@ -1815,7 +1826,8 @@ def _prep_dense_inputs(dev, dtype, quant, norm, hq, hkv, d, R, seed):
         weights = tuple(torch.from_numpy(
             (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(
                 dev, dtype) for _ in range(2))
-    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev), d, 1e6)
+    cos, sin = rope_cos_sin(torch.from_numpy(positions).to(dev),
+                            d if rot is None else rot, 1e6)
     prep = QKPrep(*weights, 1e-6, cos.contiguous(), sin.contiguous())
     if quant:
         cache = _int8_pools(rng, 2, B, hkv, S, d, dev)
@@ -1946,14 +1958,14 @@ def test_prep_write_dense_refuses_what_the_kernel_does_not_take(dev):
 
     (q, k, v), rows, prep, cache = _prep_dense_inputs(
         dev, torch.bfloat16, False, True, 4, 2, 64, 5, seed=42)
-    with pytest.raises(ValueError):           # D 48: not a power of two
+    with pytest.raises(ValueError):           # D 40: not a multiple of 16
         tda.prep_write_rows_dense(
-            *(c[..., :48].contiguous() for c in cache),
-            q[..., :48].contiguous(), k[..., :48].contiguous(),
-            v[..., :48].contiguous(), rows, 1,
+            *(c[..., :40].contiguous() for c in cache),
+            q[..., :40].contiguous(), k[..., :40].contiguous(),
+            v[..., :40].contiguous(), rows, 1,
             dataclasses.replace(prep, q_norm=None, k_norm=None,
-                                cos=prep.cos[..., :48].contiguous(),
-                                sin=prep.sin[..., :48].contiguous()))
+                                cos=prep.cos[..., :40].contiguous(),
+                                sin=prep.sin[..., :40].contiguous()))
     with pytest.raises(TypeError):            # float32 weights, bf16 rows
         tda.prep_write_rows_dense(
             *cache, q, k, v, rows, 1,
@@ -2051,3 +2063,164 @@ def test_prefill_batch_of_three_within_logits_tolerance(dev):
     # the three copies in one batch agree with each other exactly
     assert torch.equal(three[0], three[1]) and torch.equal(three[0],
                                                            three[2])
+
+
+# -- the other families' head dims: D 64, 80 and 256, partial and no RoPE --
+
+# (Hq, Hkv, D, rotary width): Phi-2, OPT, Gemma-2B, Llama-3.2-1B; and two
+# widths whose half is not a multiple of a lane's E elements (the
+# prologue's two-shuffle path)
+FAMILY_PREP = pytest.mark.parametrize("hq,hkv,d,rot", [
+    (32, 32, 80, 32), (32, 32, 64, 0), (8, 1, 256, 256), (32, 8, 64, 64),
+    (8, 2, 80, 20), (8, 2, 256, 36)],
+    ids=["phi_d80_r32", "opt_d64_r0", "gemma_d256", "llama_d64", "d80_r20",
+         "d256_r36"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("norm", [False, True], ids=["rope", "qk_norm"])
+@FAMILY_PREP
+def test_prep_write_family_shapes_match_plain(dev, dtype, quant, norm, hq,
+                                              hkv, d, rot):
+    """The fused paged and dense writes at the families' head dims (80 on
+    20 of 32 lanes, 64, 256) and rotary widths (32 of 80: the partners 16
+    columns apart, not D / 2; 0: no RoPE; 20 of 80 and 36 of 256, whose
+    partners sit at another element of another lane): without the norm
+    (these families have none) q and every cache leaf bit-identical to the
+    plain version; with it (masked lanes in the sum of squares) q within
+    the row tolerance. One launch each."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    (q, k, v), rows, table, prep, pools = _prep_inputs(
+        dev, dtype, quant, norm, hq, hkv, d, seed=200 + d + rot, rot=rot)
+    fn = tpa.prep_write_rows_quant_paged if quant \
+        else tpa.prep_write_rows_paged
+    plain = tpa.prep_write_rows_quant_paged_plain if quant \
+        else tpa.prep_write_rows_paged_plain
+    ref = [p.clone() for p in pools]
+    before = fn.launches
+    got_q = fn(*pools, q, k, v, rows, 1, table, prep)
+    assert fn.launches == before + 1
+    ref_q = plain(*ref, q, k, v, rows, 1, table, prep)
+    (dq, dk, dv), drows, dprep, cache = _prep_dense_inputs(
+        dev, dtype, quant, norm, hq, hkv, d, 5, seed=300 + d + rot, rot=rot)
+    dfn = tda.prep_write_rows_quant_dense if quant \
+        else tda.prep_write_rows_dense
+    dplain = tda.prep_write_rows_quant_dense_plain if quant \
+        else tda.prep_write_rows_dense_plain
+    dref = [c.clone() for c in cache]
+    before = dfn.launches
+    got_dq = dfn(*cache, dq, dk, dv, drows, 1, dprep)
+    assert dfn.launches == before + 1
+    ref_dq = dplain(*dref, dq, dk, dv, drows, 1, dprep)
+    torch.cuda.synchronize()
+    if norm:
+        assert _close_rows(got_q, ref_q, dtype)
+        assert _close_rows(got_dq, ref_dq, dtype)
+        assert torch.equal(pools[1], ref[1])
+        assert torch.equal(cache[1], dref[1])
+    else:
+        assert torch.equal(got_q, ref_q) and torch.equal(got_dq, ref_dq)
+        # k and v, and with int8 their scales, bit for bit
+        assert all(torch.equal(a, b) for a, b in zip(pools, ref))
+        assert all(torch.equal(a, b) for a, b in zip(cache, dref))
+    if rot < d and not norm:
+        # the columns past the rotary width pass through unrotated
+        assert torch.equal(got_q[..., rot:], q[..., rot:])
+
+
+# (Hq, Hkv, D): G 1 (Phi-2, OPT), 4 (Llama-3.2-1B), 8 (Gemma-2B, TinyLlama)
+FAMILY_ATTN = pytest.mark.parametrize("hq,hkv,d", [
+    (32, 32, 80), (32, 32, 64), (32, 8, 64), (8, 1, 256), (32, 4, 64)],
+    ids=["phi", "opt", "llama", "gemma", "tinyllama"])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@FAMILY_ATTN
+def test_family_paged_attention_matches_plain(dev, dtype, tol, quant, hq,
+                                              hkv, d):
+    """K1 (decode) and K1-spec (R = 5) at the families' head dims and head
+    groups over pages of 64: rows of limit 0, one row, page edges, the
+    full window, a split run; OOB_PAGE table entries past each row's
+    live range."""
+    maxp, ps, R = 6, 64, 5
+    rng, _, _, table = _layout(6, 1, hkv, ps, 16, maxp, seed=210 + d + hq)
+    P = 6 * maxp + 1
+    if quant:
+        pools = _int8_pools(rng, 2, P, hkv, ps, d, dev)
+    else:
+        pools = [torch.from_numpy(rng.standard_normal(
+            (2, P, hkv, ps, d)).astype(np.float32)).to(dev, dtype)
+            for _ in range(2)]
+    lengths = np.array([0, 1, ps, ps + 1, maxp * ps - R, 3 * ps + 7],
+                       np.int32)
+    for n, lim in enumerate(lengths):
+        table[n, max(-(-(int(lim) + R) // ps), 1):] = OOB_PAGE
+    tab = torch.from_numpy(table).to(dev)
+    lim = torch.from_numpy(lengths).to(dev)
+    q = torch.from_numpy(rng.standard_normal((6, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    out = tpa.decode_attend_paged(q[:, None], pools[0], pools[1], lim, 1,
+                                  tab, *pools[2:])
+    ref = tpa.paged_attention_plain(q, pools[0], pools[1], lim, 1, tab,
+                                    *pools[2:])
+    qs = torch.from_numpy(rng.standard_normal((6, R, hq, d)).astype(
+        np.float32)).to(dev, dtype)
+    fn = tpa.paged_attention_spec_quant if quant else tpa.paged_attention_spec
+    before = fn.launches
+    sout = tpa.decode_attend_spec_paged(qs, pools[0], pools[1], lim, 1, tab,
+                                        *pools[2:])
+    assert fn.launches == before + 1
+    sref = tpa.paged_attention_spec_plain(qs, pools[0], pools[1], lim, 1,
+                                          tab, *pools[2:])
+    torch.cuda.synchronize()
+    assert (out[:, 0].float() - ref.float()).abs().max().item() <= tol
+    assert (sout.float() - sref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@FAMILY_ATTN
+def test_family_dense_attention_matches_plain(dev, dtype, tol, quant, hq,
+                                              hkv, d):
+    """K4 (one slot a CTA), K5 (4 a CTA) and K7 (R = 5) at the families'
+    head dims and head groups: lengths 0, 1, a tile edge, the full window
+    of 200 rows, a partial last tile."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import \
+        dense_attention as tda
+
+    B, S, R = 8, 200, 5
+    rng = np.random.default_rng(220 + d + hq)
+    cache = _dense_cache(rng, B, S, hkv, d, dev, dtype, quant)
+    for lengths, rows, bb in (([0, 1, 64, 65, S, 130, 7, 199], 1, 1),
+                              ([0, 1, 64, 65, S, 130, 7, 199], 1, 4),
+                              ([0, 2, 60, 64, S - R, 131, 9, 100], R, 1)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.from_numpy(rng.standard_normal((B, rows, hq, d)).astype(
+            np.float32)).to(dev, dtype)
+        out = _dense_call(tda, q, cache, lens, 1, 0, bb, rows)
+        limits = lens if rows == 1 else lens + 1
+        ref = tda.dense_attention_plain(q, cache[0], cache[1], limits, 1, 0,
+                                        *cache[2:])
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("G,hkv,window", [(8, 1, 0), (8, 1, 200), (1, 2, 0),
+                                          (4, 2, 0)])
+def test_ragged_chunk_body_at_d256(dev, quant, G, hkv, window):
+    """The chunk body's D 256 instance (one CTA an SM): Gemma-2B's MQA
+    group of 8 over one kv head, with and without a window, and G 1 and
+    4; chunks of 1 row, of a row tile and one more, and of several tiles,
+    each within 1 bf16 ulp a row of plain, bit-identical with NaN pages
+    outside the rows' ranges (``_chunk_case``)."""
+    for C, pstart in ((1, 0), (128 // G + 1, 70), (300, 130)):
+        _chunk_case(dev, quant, G, 64, window, C, pstart,
+                    seed=230 + C + G, hkv=hkv, d=256)

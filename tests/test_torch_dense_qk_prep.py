@@ -12,8 +12,9 @@ the JAX verify makes them), on the same numpy-seeded bf16 inputs and the
 same float32 RoPE tables (the JAX and port ``rope_cos_sin`` differ in the
 last float32 bit). The decode rows (0, mid-cache, S - 1, S and -1), the
 verify's rows running past S and a sequence shard's ``lengths - off``
-rows (a non-owner's rows drop) are covered, tiny Qwen3 and tiny Mistral,
-bf16 and int8 caches. The prepped q, the caches and the scales must be
+rows (a non-owner's rows drop) are covered, tiny Qwen3 and tiny Mistral
+and the other families' head dims and rotary widths (D 80 with RoPE over
+32 columns, no RoPE, D 256, llama3 tables), bf16 and int8 caches. The prepped q, the caches and the scales must be
 bit-identical.
 
 Then the serving callbacks: ``model_forward_carry`` and ``decoder_block``
@@ -33,7 +34,10 @@ import torch
 from aws_k8s_ansible_provisioner_tpu.models import layers as jl
 from aws_k8s_ansible_provisioner_tpu.ops import pallas_attention as pa
 from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                          tiny_gemma,
+                                                          tiny_llama,
                                                           tiny_mistral,
+                                                          tiny_opt, tiny_phi,
                                                           tiny_qwen3)
 from aws_k8s_ansible_provisioner_tpu_torch.models import layers as tl
 from aws_k8s_ansible_provisioner_tpu_torch.ops import attention as tattn
@@ -45,7 +49,13 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as tkvc
 torch.set_num_threads(2)
 
 L, B, S = 2, 5, 32
-CFGS = {"qwen3": tiny_qwen3(), "mistral": tiny_mistral()}
+# Qwen3 (q/k norm) and Mistral at D 16, and the other families' head dims
+# and rotary widths: Phi-2's RoPE over 32 of 80 columns, OPT's none, Gemma's
+# D 256, Llama's llama3 frequencies
+CFGS = {"qwen3": tiny_qwen3(), "mistral": tiny_mistral(),
+        "phi_d80_r32": tiny_phi(head_dim=80, rotary_pct=0.4),
+        "opt_r0": tiny_opt(), "gemma_d256": tiny_gemma(head_dim=256),
+        "llama": tiny_llama()}
 
 
 def _rows(kind):
@@ -86,8 +96,8 @@ def _inputs(cfg, kind, quant, seed):
     norms = ((1.0 + 0.1 * bf16((D,)).float()).bfloat16(),
              (1.0 + 0.1 * bf16((D,)).float()).bfloat16()) \
         if cfg.qk_norm else (None, None)
-    cos, sin = tl.rope_cos_sin(torch.from_numpy(positions), D,
-                               cfg.rope_theta)
+    cos, sin = tl.rope_cos_sin(torch.from_numpy(positions), cfg.rotary_dim,
+                               cfg.rope_theta, cfg)
     prep = tl.QKPrep(*norms, cfg.norm_eps, cos, sin)
     shape = (L, B, hkv, S, D)
     if quant:
@@ -125,9 +135,10 @@ def _jax_prep_write(q, k, v, rows, prep, cache, layer):
     if prep.q_norm is not None:
         jq = jl.rms_norm(jq, _j(prep.q_norm), prep.eps)
         jk = jl.rms_norm(jk, _j(prep.k_norm), prep.eps)
-    D = q.shape[-1]
-    jq = jl.apply_rope(jq, cos, sin, D)
-    jk = jl.apply_rope(jk, cos, sin, D)
+    r = prep.rotary_dim
+    if r:
+        jq = jl.apply_rope(jq, cos, sin, r)
+        jk = jl.apply_rope(jk, cos, sin, r)
     jv = _j(v)
     out = {n: _j(t) for n, t in cache.items()}
     for r in range(rows.shape[1]):

@@ -5,8 +5,9 @@ Checkpoints are tiny HF models of every family the key map covers, built
 in process from seeded random weights (``tests/test_model_parity.py``'s
 and ``tests/test_moe.py``'s builders) and written with
 ``save_pretrained``: no download. Trees must agree leaf for leaf and bit
-for bit; configs ``dataclasses.asdict``-equal. The loaded tiny Qwen3 and
-Mistral run through both packages' forward passes (float32 logits within
+for bit; configs ``dataclasses.asdict``-equal. The loaded tiny model of
+every dense family (Qwen3, Mistral, Llama, Gemma, Phi, OPT) runs through
+both packages' forward passes (float32 logits within
 1e-5: both sum their float32 products in their own order, a few ulps at
 these widths) and through the port's engine against HF ``generate``
 (``utils/hf_parity.run``, greedy streams equal).
@@ -354,7 +355,10 @@ def test_registry_match_is_exact(tmp_path):
 # -- the loaded model ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("fam", ["qwen3", "mistral"])
+DENSE = ["qwen3", "mistral", "llama", "gemma", "phi", "opt"]
+
+
+@pytest.mark.parametrize("fam", DENSE)
 def test_loaded_logits_match_jax(checkpoints, fam):
     """Both packages' float32 forward passes over the trees each loads from
     the same directory: logits within 1e-5 (11 tokens: past tiny_mistral's
@@ -375,7 +379,7 @@ def test_loaded_logits_match_jax(checkpoints, fam):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("fam", ["qwen3", "mistral"])
+@pytest.mark.parametrize("fam", DENSE)
 def test_engine_greedy_equals_hf_generate(tmp_path, fam):
     """A tiny checkpoint with a byte-level BPE tokenizer, served by the
     port's engine on the CPU through ``build_state``: its greedy streams

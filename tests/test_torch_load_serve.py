@@ -574,3 +574,133 @@ def test_random_weights_path_still_warns(caplog):
     assert "RANDOM weights" in caplog.text
     assert re.search(r"tiny-qwen3", caplog.text)
     assert state.engine.cfg.name == "tiny-qwen3"
+
+
+# -- the other families -------------------------------------------------------
+
+
+def test_registry_and_tiny_builders_equal_the_jax_ones():
+    """Every port registry entry and tiny builder equals its JAX
+    counterpart field by field, and the port registers every dense JAX
+    entry (the MoE one waits for its slice). Mistral-7B-v0.1's
+    ``norm_eps`` is the one field apart: the port takes the checkpoint's
+    1e-5 where the JAX registry leaves 1e-6 (ROADMAP C10)."""
+    from aws_k8s_ansible_provisioner_tpu import config as jconfig
+    from aws_k8s_ansible_provisioner_tpu_torch import config as tconfig
+
+    dense = {k for k, v in jconfig.MODEL_REGISTRY.items()
+             if v.num_experts == 0}
+    assert set(tconfig.MODEL_REGISTRY) == dense
+    for name, cfg in tconfig.MODEL_REGISTRY.items():
+        want = dataclasses.asdict(jconfig.MODEL_REGISTRY[name])
+        if name == "mistralai/Mistral-7B-v0.1":
+            want["norm_eps"] = 1e-5
+        assert dataclasses.asdict(cfg) == want, name
+    for builder in ("tiny_qwen3", "tiny_mistral", "tiny_llama",
+                    "tiny_gemma", "tiny_opt", "tiny_phi"):
+        assert dataclasses.asdict(getattr(tconfig, builder)()) == \
+            dataclasses.asdict(getattr(jconfig, builder)()), builder
+        assert dataclasses.asdict(getattr(tconfig, builder)(num_layers=3)) \
+            == dataclasses.asdict(getattr(jconfig, builder)(num_layers=3))
+
+
+def _write_family_checkpoint(path, fam: str) -> str:
+    """A tiny HF directory of ``fam`` (``tests/test_model_parity.py``'s
+    builder, seeded) with the byte-level BPE tokenizer."""
+    from test_model_parity import _hf_gemma, _hf_phi
+    from test_real_checkpoint import _write_byte_level_tokenizer
+
+    from aws_k8s_ansible_provisioner_tpu import config as jconfig
+
+    build = {"phi": _hf_phi, "gemma": _hf_gemma}[fam]
+    torch.manual_seed(5)
+    model = build(getattr(jconfig, f"tiny_{fam}")(vocab_size=256))
+    model.save_pretrained(path, safe_serialization=True)
+    _write_byte_level_tokenizer(path)
+    return str(path)
+
+
+@pytest.mark.parametrize("fam", ["phi", "gemma"])
+def test_family_checkpoint_serves_the_hf_greedy_stream(tmp_path, fam):
+    """A tiny phi (LayerNorm, parallel block, partial RoPE, biases) and a
+    tiny gemma (MQA, zero-centred norms, GeGLU, scaled embedding)
+    directory served through the server's ``--checkpoint-dir`` flag on the
+    CPU (``build_parser`` -> ``serving_config`` -> ``build_state``, as
+    ``main`` does): each greedy completion over HTTP is HF ``generate``'s
+    greedy stream, decoded by the directory's tokenizer."""
+    from transformers import AutoModelForCausalLM
+
+    ckpt = _write_family_checkpoint(tmp_path / f"tiny-{fam}", fam)
+    args = tserver.build_parser().parse_args(
+        ["--checkpoint-dir", ckpt, "--device", "cpu", "--dtype", "float32",
+         "--weights-dtype", "auto", "--max-decode-slots", "4",
+         "--max-cache-len", "128", "--page-size", "8"])
+    state = tserver.build_state(tserver.serving_config(args),
+                                device=args.device)
+    cfg = state.engine.cfg
+    assert (cfg.parallel_block, cfg.norm_zero_centered) == \
+        ((True, False) if fam == "phi" else (False, True))
+    srv = tserver.make_server(state, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+    hf = AutoModelForCausalLM.from_pretrained(
+        ckpt, local_files_only=True, torch_dtype=torch.float32).eval()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        for prompt in ("hello w", "The capital of", "12345678"):
+            ids = state.tokenizer.encode(prompt)
+            with torch.no_grad():
+                gen = hf.generate(torch.tensor([ids]), max_new_tokens=8,
+                                  do_sample=False, num_beams=1,
+                                  eos_token_id=None, pad_token_id=0)
+            want = state.tokenizer.decode(gen[0, len(ids):].tolist())
+            code, body = _post(base + "/v1/completions",
+                               {"prompt": prompt, "max_tokens": 8,
+                                "temperature": 0.0, "ignore_eos": True})
+            assert code == 200, body
+            assert body["choices"][0]["text"] == want, (prompt, body)
+            assert body["usage"]["completion_tokens"] == 8
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.stop_engine()
+        th.join(10)
+
+
+@pytest.mark.parametrize("fam", ["llama", "gemma", "phi", "opt"])
+def test_family_chat_templates_render_like_the_jax_server(tmp_path, fam):
+    """``--chat-template`` with the family template shipped in
+    ``templates/`` (the ConfigMap's ``template.jinja``, as the deploy layer
+    mounts it): the port's templater renders every conversation as the JAX
+    server's does, with and without the generation prompt."""
+    import os
+
+    import yaml
+
+    from aws_k8s_ansible_provisioner_tpu.serving.chat_template import \
+        ChatTemplater as JTemplater
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
+        ChatTemplater
+
+    src = os.path.join(os.path.dirname(__file__), "..", "templates",
+                       f"{fam}-chat-template.yaml")
+    with open(src) as fh:
+        [(_, tpl)] = yaml.safe_load(fh)["data"].items()
+    path = tmp_path / "template.jinja"
+    path.write_text(tpl)
+    model = {"llama": "meta-llama/Llama-3.2-1B", "gemma": "google/gemma-2b",
+             "phi": "microsoft/phi-2", "opt": "facebook/opt-1.3b"}[fam]
+    serving = tserver.serving_config(tserver.build_parser().parse_args(
+        ["--model", model, "--chat-template", str(path), "--device", "cpu"]))
+    assert serving.chat_template == str(path) and serving.model == model
+    ours = ChatTemplater(serving.model, template_path=serving.chat_template)
+    theirs = JTemplater(serving.model, template_path=serving.chat_template)
+    turns = [{"role": "user", "content": "hi"},
+             {"role": "assistant", "content": "yo"},
+             {"role": "user", "content": "bye?"}]
+    for messages in (turns[:1], turns):
+        for gen in (True, False):
+            got = ours.render(messages, add_generation_prompt=gen)
+            assert got == theirs.render(messages, add_generation_prompt=gen)
+            assert "bye?" in got or len(messages) == 1

@@ -14,7 +14,10 @@ run one packed row per call in packed order: in interpret mode each grid
 step reads its 8-row (int8: 32-row) block, and its scale page, as it was
 before the call, so rows of one call that share a block keep only the last
 (ROADMAP C4, C6), where the JAX engine's path and the port keep every row.
-The prepped q, the pools and the scales must be bit-identical.
+The prepped q, the pools and the scales must be bit-identical. Besides
+tiny_qwen3 and tiny_mistral the cases take the other families' head dims
+and rotary widths: D 80 with RoPE over 32 columns (Phi-2), no RoPE (OPT),
+D 256 (Gemma) and Llama's llama3 tables.
 
 Then the serving callbacks: ``decoder_block`` and ``model_forward_carry``
 through the fused decode, verify and mixed callbacks give the bytes of the
@@ -31,7 +34,10 @@ import torch
 
 from aws_k8s_ansible_provisioner_tpu.models import layers as jl
 from aws_k8s_ansible_provisioner_tpu.ops import pallas_attention as pa
-from aws_k8s_ansible_provisioner_tpu_torch.config import (tiny_mistral,
+from aws_k8s_ansible_provisioner_tpu_torch.config import (tiny_gemma,
+                                                          tiny_llama,
+                                                          tiny_mistral,
+                                                          tiny_opt, tiny_phi,
                                                           tiny_qwen3)
 from aws_k8s_ansible_provisioner_tpu_torch.models import layers as tl
 from aws_k8s_ansible_provisioner_tpu_torch.ops import attention as tattn
@@ -42,7 +48,13 @@ from aws_k8s_ansible_provisioner_tpu_torch.serving.paged_kv import OOB_PAGE
 torch.set_num_threads(2)
 
 L, PS, MAXP = 2, 8, 4
-CFGS = {"qwen3": tiny_qwen3(), "mistral": tiny_mistral()}
+# Qwen3 (q/k norm) and Mistral at D 16, and the other families' head dims
+# and rotary widths: Phi-2's RoPE over 32 of 80 columns, OPT's none, Gemma's
+# D 256, Llama's llama3 frequencies
+CFGS = {"qwen3": tiny_qwen3(), "mistral": tiny_mistral(),
+        "phi_d80_r32": tiny_phi(head_dim=80, rotary_pct=0.4),
+        "opt_r0": tiny_opt(), "gemma_d256": tiny_gemma(head_dim=256),
+        "llama": tiny_llama()}
 
 
 def _layout(kind, rng):
@@ -95,8 +107,8 @@ def _inputs(cfg, kind, quant, seed):
     norms = ((1.0 + 0.1 * bf16((D,)).float()).bfloat16(),
              (1.0 + 0.1 * bf16((D,)).float()).bfloat16()) \
         if cfg.qk_norm else (None, None)
-    cos, sin = tl.rope_cos_sin(torch.from_numpy(positions), D,
-                               cfg.rope_theta)
+    cos, sin = tl.rope_cos_sin(torch.from_numpy(positions), cfg.rotary_dim,
+                               cfg.rope_theta, cfg)
     prep = tl.QKPrep(*norms, cfg.norm_eps, cos, sin)
     P = int(tables[tables != OOB_PAGE].max()) + 2
     shape = (L, P, cfg.num_kv_heads, PS, D)
@@ -138,9 +150,10 @@ def _jax_prep_write(q, k, v, rows, tables, prep, pool, layer):
     if prep.q_norm is not None:
         jq = jl.rms_norm(jq, _j(prep.q_norm), prep.eps)
         jk = jl.rms_norm(jk, _j(prep.k_norm), prep.eps)
-    D = q.shape[-1]
-    jq = jl.apply_rope(jq, cos, sin, D)
-    jk = jl.apply_rope(jk, cos, sin, D)
+    r = prep.rotary_dim
+    if r:
+        jq = jl.apply_rope(jq, cos, sin, r)
+        jk = jl.apply_rope(jk, cos, sin, r)
     jv = _j(v)
     out = {n: _j(t) for n, t in pool.items()}
     for n in range(len(rows)):
