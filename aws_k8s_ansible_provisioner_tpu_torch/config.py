@@ -3,9 +3,8 @@
 The port keeps its own copy of the architecture and serving knobs it reads,
 field for field with the JAX package's ``config.py`` so that a test can hand
 one config to both sides (``dataclasses.asdict`` round-trips between them).
-The registry holds every dense entry of the JAX registry (Qwen3, Mistral,
-Llama, Gemma, Phi and OPT) and the tiny builders of each family; the MoE
-entry (``Qwen/Qwen3-30B-A3B``) comes with the slice that ports MoE.
+The registry holds every entry of the JAX registry (Qwen3, Qwen3-MoE,
+Mistral, Llama, Gemma, Phi and OPT) and the tiny builders of each family.
 Only the serving fields the port reads are here (``lora_adapters``
 among them; guided decoding needs none); the rest of the JAX
 ``ServingConfig`` (tracing, telemetry, the TPU attention and ragged
@@ -30,7 +29,12 @@ class ModelConfig:
     (gated MLPs) or "gelu_new" and "relu" (plain two-matrix MLPs); the
     parallel block (Phi); optional qk-norm, biases and sliding-window
     attention (``sliding_window`` > 0: a query sees its last
-    ``sliding_window`` keys). No MoE (``num_experts`` > 0)."""
+    ``sliding_window`` keys); and the Qwen3-MoE MLP (``num_experts`` > 0:
+    a router and ``num_experts`` SwiGLU experts of width
+    ``moe_intermediate_size``, top ``num_experts_per_tok`` a token,
+    renormalized with ``norm_topk_prob``; ``moe_impl`` "ragged", exact
+    and no-drop, or "gshard", fixed capacity ``moe_capacity_factor``;
+    ``ops/moe.py``)."""
 
     name: str
     vocab_size: int
@@ -306,8 +310,31 @@ GEMMA_2B = ModelConfig(
     hf_repo="google/gemma-2b",
 )
 
+QWEN3_30B_A3B = ModelConfig(
+    name="Qwen/Qwen3-30B-A3B",
+    vocab_size=151936,
+    hidden_size=2048,
+    intermediate_size=6144,        # dense-MLP width (unused: all layers MoE)
+    num_layers=48,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=128,
+    max_seq_len=40960,
+    rope_theta=1e6,
+    qk_norm=True,
+    tie_embeddings=False,
+    bos_token_id=151643,
+    eos_token_id=151645,
+    num_experts=128,
+    num_experts_per_tok=8,
+    moe_intermediate_size=768,
+    norm_topk_prob=True,
+    hf_repo="Qwen/Qwen3-30B-A3B",
+)
+
 MODEL_REGISTRY = {
     "Qwen/Qwen3-0.6B": QWEN3_0_6B,
+    "Qwen/Qwen3-30B-A3B": QWEN3_30B_A3B,
     "Qwen/Qwen3-8B": QWEN3_8B,
     "microsoft/phi-2": PHI_2,
     "facebook/opt-125m": OPT_125M,
@@ -336,6 +363,30 @@ def tiny_qwen3(**overrides) -> ModelConfig:
         qk_norm=True,
         tie_embeddings=True,
         eos_token_id=1,
+    )
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def tiny_qwen3_moe(**overrides) -> ModelConfig:
+    """A miniature Qwen3-MoE-shaped config (router + SwiGLU experts, GQA)."""
+    base = dict(
+        name="tiny-qwen3-moe",
+        vocab_size=128,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        max_seq_len=128,
+        rope_theta=1e6,
+        qk_norm=True,
+        tie_embeddings=True,
+        eos_token_id=1,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=32,
     )
     base.update(overrides)
     return ModelConfig(**base)

@@ -8,7 +8,10 @@ cast) is written with ``torch.save`` to
 ``source_manifest.json`` holding the JAX cache's fingerprint (the shard
 names, sizes and mtimes plus the model config, hashed); a later start whose
 fingerprint matches restores the tree with one ``torch.load`` straight onto
-the engine's device. The behaviour on failure is the reference's, each case
+the engine's device. An int8 target (``quantize``) converts with the
+quantization done layer by layer (``hf_loader.convert_state_dict``) and
+caches the int8 tree in a directory of its own (``<dtype>-int8``). The
+behaviour on failure is the reference's, each case
 logged: a stale or unreadable cache is reconverted from the shards, and a
 cache that cannot be written (a read-only volume) leaves serving going on
 from the converted tree.
@@ -39,10 +42,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def cache_dir(checkpoint_dir: str, dtype: torch.dtype) -> str:
-    """The cache of ``dtype``'s tree: one directory per dtype."""
+def cache_dir(checkpoint_dir: str, dtype: torch.dtype,
+              quantize: bool = False) -> str:
+    """The cache of ``dtype``'s tree (int8-quantized with ``quantize``):
+    one directory per dtype and form."""
     return os.path.join(os.path.abspath(checkpoint_dir), "torch_cache",
-                        _dtype_name(dtype))
+                        _dtype_name(dtype) + ("-int8" if quantize else ""))
 
 
 def fingerprint(checkpoint_dir: str, cfg) -> str:
@@ -80,10 +85,13 @@ def save_params(params: dict, cache: str, fp: str) -> None:
     os.replace(tmp, manifest)
 
 
-def restore_params(cache: str, dtype: torch.dtype, device=None) -> dict:
+def restore_params(cache: str, dtype: torch.dtype, device=None,
+                   quantize: bool = False) -> dict:
     """The tree saved by :func:`save_params`, loaded onto ``device`` (the
     card unless the caller names another); raises when a leaf is not a
-    ``dtype`` tensor."""
+    ``dtype`` tensor (with ``quantize`` also an int8 kernel or its float32
+    scales)."""
+    allowed = {dtype, torch.int8, torch.float32} if quantize else {dtype}
     params = torch.load(os.path.join(cache, PARAMS_FILE), weights_only=True,
                         map_location=resolve_device(device))
 
@@ -91,7 +99,7 @@ def restore_params(cache: str, dtype: torch.dtype, device=None) -> dict:
         if isinstance(node, dict):
             for k, v in node.items():
                 check(v, path + (k,))
-        elif not isinstance(node, torch.Tensor) or node.dtype != dtype:
+        elif not isinstance(node, torch.Tensor) or node.dtype not in allowed:
             raise ValueError(f"cached leaf {'/'.join(path)} is not a "
                              f"{dtype} tensor")
 
@@ -101,18 +109,18 @@ def restore_params(cache: str, dtype: torch.dtype, device=None) -> dict:
 
 def load_checkpoint_cached(checkpoint_dir: str, cfg,
                            dtype: torch.dtype = torch.bfloat16,
-                           device=None) -> dict:
+                           device=None, quantize: bool = False) -> dict:
     """The checkpoint's parameter tree on ``device`` (the card unless the
-    caller names another): restored from the converted-params cache when
-    its fingerprint matches, else converted from the shards
-    (``models/hf_loader.load_checkpoint``) and cached. A cache that does not
-    restore is logged and reconverted; one that cannot be written is logged
-    and skipped."""
+    caller names another), int8-quantized with ``quantize``: restored from
+    the converted-params cache when its fingerprint matches, else converted
+    from the shards (``models/hf_loader.load_checkpoint``) and cached. A
+    cache that does not restore is logged and reconverted; one that cannot
+    be written is logged and skipped."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
         load_checkpoint
 
     device = resolve_device(device)
-    cache = cache_dir(checkpoint_dir, dtype)
+    cache = cache_dir(checkpoint_dir, dtype, quantize)
     fp = fingerprint(checkpoint_dir, cfg)
     if os.path.isdir(cache):
         try:
@@ -121,7 +129,7 @@ def load_checkpoint_cached(checkpoint_dir: str, cfg,
             if stored != fp:
                 raise ValueError("source checkpoint or config changed "
                                  "since the cache was written")
-            params = restore_params(cache, dtype, device)
+            params = restore_params(cache, dtype, device, quantize)
             log.info("restored converted params from cache %s", cache)
             return params
         # a corrupt or partial cache (a pod killed mid-write) must never
@@ -129,7 +137,11 @@ def load_checkpoint_cached(checkpoint_dir: str, cfg,
         except Exception as e:  # noqa: BLE001
             log.warning("checkpoint cache %s not usable (%s); reconverting",
                         cache, e)
-    params = load_checkpoint(checkpoint_dir, cfg, dtype, device)
+    if quantize:
+        params = load_checkpoint(checkpoint_dir, cfg, dtype, device,
+                                 quantize=True)
+    else:
+        params = load_checkpoint(checkpoint_dir, cfg, dtype, device)
     try:
         save_params(params, cache, fp)
         log.info("wrote converted-params cache %s", cache)

@@ -38,14 +38,16 @@ def _leaf(a, device) -> torch.Tensor:
 def _expected_shapes(cfg: ModelConfig) -> dict:
     """Every leaf the config's tree holds, with its shape: the norms' biases
     with LayerNorm, the projections' biases, ``w_gate`` of a gated MLP,
+    a MoE config's router [L, H, E] and stacked experts [L, E, in, out],
     ``post_norm`` outside a parallel block, OPT's ``pos_embed`` and Phi's
     ``lm_head`` bias."""
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     dense = {"wq": (H, cfg.q_size), "wk": (H, cfg.kv_size),
-             "wv": (H, cfg.kv_size), "wo": (cfg.q_size, H),
-             "w_up": (H, I), "w_down": (I, H)}
-    if cfg.gated_mlp:
-        dense["w_gate"] = (H, I)
+             "wv": (H, cfg.kv_size), "wo": (cfg.q_size, H)}
+    if cfg.num_experts == 0:
+        dense.update({"w_up": (H, I), "w_down": (I, H)})
+        if cfg.gated_mlp:
+            dense["w_gate"] = (H, I)
     norms = [("layers", "input_norm", (L, H)), ("final_norm", None, (H,))]
     if not cfg.parallel_block:
         norms.append(("layers", "post_norm", (L, H)))
@@ -55,6 +57,12 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
         bias = cfg.mlp_bias if name.startswith("w_") else cfg.attention_bias
         if bias:
             shapes[("layers", name, "bias")] = (L, dout)
+    if cfg.num_experts > 0:
+        E, M = cfg.num_experts, cfg.moe_intermediate_size
+        shapes[("layers", "router", "kernel")] = (L, H, E)
+        for name, din, dout in (("w_gate", H, M), ("w_up", H, M),
+                                ("w_down", M, H)):
+            shapes[("layers", name, "kernel")] = (L, E, din, dout)
     for top, name, shape in norms:
         path = (top, name) if name else (top,)
         shapes[path + ("weight",)] = shape

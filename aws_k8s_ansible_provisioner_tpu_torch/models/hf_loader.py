@@ -18,12 +18,14 @@ nothing here needs the ``safetensors`` package.
 
 :func:`convert_state_dict` is the JAX key map, every family included
 (gated Qwen3/Llama/Mistral/Gemma, phi's parallel block, OPT with either key
-prefix, qwen3_moe's stacked experts); the engine's
-``models/layers.check_supported`` refuses at build time what the port does
-not serve (MoE). Each stacked leaf is allocated once in the target dtype on the
+prefix, qwen3_moe's stacked experts). Each stacked leaf is allocated once in the target dtype on the
 target device and filled one layer at a time (the layer's matrix copied to
 the device in its stored dtype, transposed there, cast into its row of the
-leaf), so the peak is the finished tree plus one layer's matrix; the JAX
+leaf), so the peak is the finished tree plus one layer's matrix; with
+``quantize`` (an int8 target) each kernel, the embedding and an untied
+head is quantized (``models/quant.py``) as its layer's matrix arrives, so
+the peak is the int8 tree plus one layer's matrix (Qwen3-30B-A3B: its bf16
+tree, 61 GB, is never held); the JAX
 loader's float32 intermediates would hold Mistral-7B's ~29 GB on the host.
 
 Not ported: ``download_snapshot`` (it needs the network and
@@ -135,11 +137,16 @@ def _get(tensors: dict, key: str, shape: Optional[tuple] = None
 
 def convert_state_dict(cfg: ModelConfig, tensors: dict,
                        dtype: torch.dtype = torch.bfloat16,
-                       device=None) -> dict:
+                       device=None, quantize: bool = False) -> dict:
     """A flat HF state dict (torch tensors) -> the port's parameter tree in
     ``dtype`` on ``device``, the card unless the caller names another (the
     JAX ``convert_state_dict``'s tree, leaf for leaf). A missing key raises
-    KeyError, a weight of the wrong shape ValueError."""
+    KeyError, a weight of the wrong shape ValueError. ``quantize``: the
+    tree of ``quantize_params`` (bit for bit), each matrix quantized as it
+    is converted."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quant_kernel_chunked
+
     device = resolve_device(device)
     L, H = cfg.num_layers, cfg.hidden_size
     Q, KV, I = cfg.q_size, cfg.kv_size, cfg.intermediate_size
@@ -186,18 +193,50 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
         return torch.empty(shape, dtype=dtype, device=device).copy_(
             w.t() if transpose else w)
 
-    def stack(fmt: str, shape: tuple, transpose: bool) -> torch.Tensor:
-        """Layer i's weight ``fmt.format(i=i)`` (``shape`` after the
-        transpose) into row i of one preallocated [L, *shape] leaf."""
+    def stacked(layer_fn, shape: tuple) -> torch.Tensor:
+        """``layer_fn(i)`` into row i of one preallocated [L, *shape] leaf
+        in ``dtype``."""
         out = torch.empty((L,) + shape, dtype=dtype, device=device)
         for i in range(L):
-            w = _get(tensors, fmt.format(i=i),
-                     shape[::-1] if transpose else shape).to(device)
-            out[i].copy_(w.t() if transpose else w)
+            out[i].copy_(layer_fn(i))
         return out
 
+    def layer_matrix(fmt, i, shape, transpose):
+        """Layer i's weight ``fmt.format(i=i)`` (``shape`` after the
+        transpose), on ``device`` in its stored dtype."""
+        w = _get(tensors, fmt.format(i=i),
+                 shape[::-1] if transpose else shape).to(device)
+        return w.t() if transpose else w
+
+    def stack(fmt: str, shape: tuple, transpose: bool) -> torch.Tensor:
+        return stacked(lambda i: layer_matrix(fmt, i, shape, transpose),
+                       shape)
+
+    def kernel(layer_fn, shape: tuple, in_axis: int) -> dict:
+        """{"kernel"} [L, *shape] from ``layer_fn(i)`` (layer i's matrix);
+        with ``quantize`` int8 beside its scales, each layer cast to
+        ``dtype`` and quantized over ``in_axis`` of ``shape`` as it
+        arrives."""
+        if not quantize:
+            return {"kernel": stacked(layer_fn, shape)}
+        q = torch.empty((L,) + shape, dtype=torch.int8, device=device)
+        s = torch.empty((L,) + shape[:in_axis] + shape[in_axis + 1:],
+                        dtype=torch.float32, device=device)
+        for i in range(L):
+            w = torch.empty(shape, dtype=dtype, device=device)
+            w.copy_(layer_fn(i))
+            q[i], s[i] = quant_kernel_chunked(w, in_axis)
+        return {"kernel": q, "scale": s}
+
+    def quantized(p: dict, key: str, in_axis: int) -> dict:
+        if quantize:
+            p[key], p["scale"] = quant_kernel_chunked(p[key], in_axis)
+        return p
+
     def dense(hf_fmt: str, d_in: int, d_out: int, bias: bool) -> dict:
-        p = {"kernel": stack(hf_fmt + ".weight", (d_in, d_out), True)}
+        fmt = hf_fmt + ".weight"
+        p = kernel(lambda i: layer_matrix(fmt, i, (d_in, d_out), True),
+                   (d_in, d_out), 0)
         if bias:
             p["bias"] = stack(hf_fmt + ".bias", (d_out,), False)
         return p
@@ -208,18 +247,21 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
             p["bias"] = stack(hf_fmt + ".bias", (H,), False)
         return p
 
-    def stack_experts(proj: str, d_in: int, d_out: int) -> torch.Tensor:
-        """HF per-expert Linears into one [L, E, in, out] leaf, expert by
-        expert (the JAX loader's order and rounding)."""
+    def stack_experts(proj: str, d_in: int, d_out: int) -> dict:
+        """HF per-expert Linears into one [L, E, in, out] kernel leaf,
+        expert by expert (the JAX loader's order and rounding)."""
         E = cfg.num_experts
-        out = torch.empty((L, E, d_in, d_out), dtype=dtype, device=device)
-        for i in range(L):
+
+        def layer(i):
+            out = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
             for e in range(E):
                 w = _get(tensors, layer_pre.format(i=i)
                          + f"mlp.experts.{e}.{proj}.weight",
                          (d_out, d_in)).to(device)
-                out[i, e].copy_(w.t())
-        return out
+                out[e].copy_(w.t())
+            return out
+
+        return kernel(layer, (E, d_in, d_out), 1)
 
     ab, mb = cfg.attention_bias, cfg.mlp_bias
     layers: dict = {
@@ -234,9 +276,9 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
         M = cfg.moe_intermediate_size
         layers["router"] = {"kernel": stack(layer_pre + "mlp.gate.weight",
                                             (H, cfg.num_experts), True)}
-        layers["w_gate"] = {"kernel": stack_experts("gate_proj", H, M)}
-        layers["w_up"] = {"kernel": stack_experts("up_proj", H, M)}
-        layers["w_down"] = {"kernel": stack_experts("down_proj", M, H)}
+        layers["w_gate"] = stack_experts("gate_proj", H, M)
+        layers["w_up"] = stack_experts("up_proj", H, M)
+        layers["w_down"] = stack_experts("down_proj", M, H)
     elif cfg.act in ("silu", "gelu_tanh"):
         # SwiGLU (Qwen/Llama/Mistral) and GeGLU (Gemma): the same HF names
         layers["w_gate"] = dense(layer_pre + "mlp.gate_proj", H, I, mb)
@@ -254,7 +296,8 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
         layers["post_norm"] = norm(post_norm)
 
     params: dict = {
-        "embed": {"weight": leaf(embed_key, (cfg.vocab_size, H))},
+        "embed": quantized({"weight": leaf(embed_key, (cfg.vocab_size, H))},
+                           "weight", 1),
         "layers": layers,
         "final_norm": {"weight": leaf(final_norm + ".weight", (H,))},
     }
@@ -265,8 +308,9 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
     if cfg.norm == "layernorm":
         params["final_norm"]["bias"] = leaf(final_norm + ".bias", (H,))
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": leaf("lm_head.weight",
-                                            (H, cfg.vocab_size), True)}
+        params["lm_head"] = quantized(
+            {"kernel": leaf("lm_head.weight", (H, cfg.vocab_size), True)},
+            "kernel", 0)
         if "lm_head.bias" in tensors:
             params["lm_head"]["bias"] = leaf("lm_head.bias",
                                              (cfg.vocab_size,))
@@ -275,12 +319,12 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
 
 def load_checkpoint(checkpoint_dir: str, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
-                    device=None) -> dict:
+                    device=None, quantize: bool = False) -> dict:
     """Every ``*.safetensors`` shard of a HF checkpoint directory, read in
     sorted order (a later shard's key wins, as in the JAX loader) and
-    converted onto ``device`` (the card unless the caller names another).
-    Raises FileNotFoundError for a directory without a ``.safetensors``
-    file."""
+    converted onto ``device`` (the card unless the caller names another),
+    quantized as it converts with ``quantize``. Raises FileNotFoundError
+    for a directory without a ``.safetensors`` file."""
     files = sorted(f for f in os.listdir(checkpoint_dir)
                    if f.endswith(".safetensors"))
     if not files:
@@ -288,7 +332,7 @@ def load_checkpoint(checkpoint_dir: str, cfg: ModelConfig,
     tensors: Dict[str, torch.Tensor] = {}
     for f in files:
         tensors.update(read_safetensors(os.path.join(checkpoint_dir, f)))
-    return convert_state_dict(cfg, tensors, dtype, device)
+    return convert_state_dict(cfg, tensors, dtype, device, quantize)
 
 
 def config_from_hf_dir(checkpoint_dir: str) -> ModelConfig:

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (Qwen3, Mistral, Llama, Gemma, Phi and OPT
-families) in PyTorch.
+"""Decoder-only transformer (Qwen3, Qwen3-MoE, Mistral, Llama, Gemma, Phi
+and OPT families) in PyTorch.
 
 The same functions as the JAX package's ``models/layers.py``, written over
 torch tensors, with its parameter layout kept unchanged so that a converted
@@ -11,6 +11,10 @@ JAX parameter tree runs here as it is (``models/convert.py``):
 - a weights-only int8 projection is ``{"kernel": int8, "scale": f32}``
   (``models/quant.py``), dequantized to the activation dtype before the
   matmul with the per-out-channel scale folded in after it.
+
+A MoE config's MLP is ``ops/moe.moe_mlp`` over the block's tokens
+flattened to ``[B * T, H]`` (the router ``[L, H, E]`` and the stacked
+experts ``[L, E, H, I]`` / ``[L, E, I, H]``).
 
 Norms (RMSNorm, optionally zero-centred; LayerNorm with its bias) and
 softmax accumulate in float32. RoPE rotates the first ``cfg.rotary_dim``
@@ -44,6 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
+from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+    quant_kernel_chunked
+from aws_k8s_ansible_provisioner_tpu_torch.ops.moe import moe_mlp
 
 # attend(q [B,T,Hq,D], k [B,T,Hkv,D], v [B,T,Hkv,D], cache_l)
 #   -> (context [B,T,Hq,D], cache_l); q/k are already qk-normed and RoPE'd,
@@ -51,14 +58,6 @@ from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
 # q/k and a QKPrep as a fifth argument.
 AttendFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, Any],
                     Tuple[torch.Tensor, Any]]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for architecture options this port does not serve yet (MoE)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not serve MoE "
-            f"(num_experts {cfg.num_experts}) yet")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -278,7 +277,10 @@ def _mlp(cfg: ModelConfig, h: torch.Tensor, p: dict,
     """The gated MLP, down(act(gate(h)) * up(h)) (SwiGLU, GeGLU), or the
     plain one, down(act(up(h))) (Phi's gelu_new, OPT's ReLU), with the
     rows' LoRA deltas (a family without ``w_gate`` has ``w_up`` alone in
-    its ``lora_gu`` group)."""
+    its ``lora_gu`` group). With experts, the MoE MLP over the rows
+    flattened to [B * T, H] (adapters never target experts)."""
+    if cfg.num_experts > 0:
+        return moe_mlp(cfg, h.reshape(-1, h.shape[-1]), p).view(h.shape)
     act = _ACTS[cfg.act]
     dg = du = dd = None
     if lora is not None and "lora_gu" in p:
@@ -426,31 +428,57 @@ def model_forward_carry(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return _final_logits(params, cfg, x), cache
 
 
+def _draw(shape, generator: torch.Generator, dtype: torch.dtype
+          ) -> torch.Tensor:
+    """One normal draw of std 0.02 into ``dtype`` (float32 first)."""
+    t = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return t.mul_(0.02).to(dtype)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16,
+                quantize: bool = False) -> dict:
     """Random parameters (normal, std 0.02; norm weights at one, biases at
     zero) on the generator's device, in the JAX package's layout: every
-    dense family's tree (norm biases with LayerNorm, projection biases, no
+    family's tree (norm biases with LayerNorm, projection biases, no
     ``w_gate`` in a plain MLP, no ``post_norm`` in a parallel block,
     OPT's ``pos_embed`` of ``max_seq_len + 2`` rows, Phi's ``lm_head``
-    bias). Same distribution as the JAX
-    ``init_params``; not the same numbers (the generators differ). A stacked
-    kernel is drawn one layer at a time into its ``dtype`` tensor, so the
-    float32 draws never exceed one layer's matrix (Mistral-7B's bf16 tree is
-    14.5 GB; its float32 tree would be twice that)."""
-    check_supported(cfg)
+    bias; with experts the router [L, H, E] and the stacked experts). Same
+    distribution as the JAX ``init_params``; not the same numbers (the
+    generators differ). A stacked kernel is drawn one layer at a time into
+    its ``dtype`` tensor, so the float32 draws never exceed one layer's
+    matrix (Mistral-7B's bf16 tree is 14.5 GB; its float32 tree would be
+    twice that). ``quantize``: each kernel, the embedding and an untied
+    head is quantized (``models/quant.py``) as soon as it is drawn, a
+    stacked kernel layer by layer, so the ``dtype`` tensors held at once
+    never exceed one layer's matrix or the embedding (Qwen3-30B-A3B: a
+    30.6 GB int8 tree, where the bf16 tree is 61 GB); the result equals
+    ``quantize_params(init_params(...))`` bit for bit."""
     dev = generator.device
     L, H = cfg.num_layers, cfg.hidden_size
 
     def draw(shape):
-        return (0.02 * torch.randn(shape, generator=generator, device=dev,
-                                   dtype=torch.float32)).to(dtype)
+        return _draw(shape, generator, dtype)
 
     def stacked(*shape):
         out = torch.empty((L,) + shape, dtype=dtype, device=dev)
         for layer in range(L):
             out[layer] = draw(shape)
         return out
+
+    def kernel(*shape, in_axis=0):
+        """{"kernel"} of a stacked [L, *shape] matrix contracting over
+        ``in_axis`` of ``shape``; int8 beside its scales with
+        ``quantize``."""
+        if not quantize:
+            return {"kernel": stacked(*shape)}
+        q = torch.empty((L,) + shape, dtype=torch.int8, device=dev)
+        s = torch.empty((L,) + shape[:in_axis] + shape[in_axis + 1:],
+                        dtype=torch.float32, device=dev)
+        for layer in range(L):
+            q[layer], s[layer] = quant_kernel_chunked(draw(shape), in_axis)
+        return {"kernel": q, "scale": s}
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
@@ -459,7 +487,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     def dense(din, dout, bias):
-        p = {"kernel": stacked(din, dout)}
+        p = kernel(din, dout)
         if bias:
             p["bias"] = zeros(L, dout)
         return p
@@ -469,6 +497,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.norm == "layernorm":
             p["bias"] = zeros(*lead, H)
         return p
+
+    def quantized(p, in_axis):
+        """A whole (unstacked) weight leaf, quantized with ``quantize``."""
+        if not quantize:
+            return p
+        key = "weight" if "weight" in p else "kernel"
+        q, s = quant_kernel_chunked(p.pop(key), in_axis)
+        return {**p, key: q, "scale": s}
 
     I, ab, mb = cfg.intermediate_size, cfg.attention_bias, cfg.mlp_bias
     layers = {
@@ -481,23 +517,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm"] = {"weight": ones(L, cfg.head_dim)}
         layers["k_norm"] = {"weight": ones(L, cfg.head_dim)}
-    if cfg.gated_mlp:
-        layers["w_gate"] = dense(H, I, mb)
-    layers["w_up"] = dense(H, I, mb)
-    layers["w_down"] = dense(I, H, mb)
+    if cfg.num_experts > 0:
+        # the router stays in the model dtype; the experts contract over
+        # their in axis (1 of [E, in, out])
+        E, Im = cfg.num_experts, cfg.moe_intermediate_size
+        layers["router"] = {"kernel": stacked(H, E)}
+        layers["w_gate"] = kernel(E, H, Im, in_axis=1)
+        layers["w_up"] = kernel(E, H, Im, in_axis=1)
+        layers["w_down"] = kernel(E, Im, H, in_axis=1)
+    else:
+        if cfg.gated_mlp:
+            layers["w_gate"] = dense(H, I, mb)
+        layers["w_up"] = dense(H, I, mb)
+        layers["w_down"] = dense(I, H, mb)
     if not cfg.parallel_block:
         layers["post_norm"] = norm(L)
     params = {
-        "embed": {"weight": draw((cfg.vocab_size, H))},
+        "embed": quantized({"weight": draw((cfg.vocab_size, H))}, 1),
         "layers": layers,
         "final_norm": norm(),
     }
     if cfg.pos_embed == "learned":
         params["pos_embed"] = {"weight": draw((cfg.max_seq_len + 2, H))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"kernel": draw((H, cfg.vocab_size))}
+        head = {"kernel": draw((H, cfg.vocab_size))}
         if cfg.parallel_block:
-            params["lm_head"]["bias"] = zeros(cfg.vocab_size)
+            head["bias"] = zeros(cfg.vocab_size)
+        params["lm_head"] = quantized(head, 0)
     return params
 
 
@@ -519,7 +565,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self._names = []
         for name, t in _flatten(params):

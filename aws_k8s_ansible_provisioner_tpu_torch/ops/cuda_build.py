@@ -34,6 +34,8 @@ SOURCES = {
     "cache_write": "cache_write.cu",
     "dense_attention": "dense_attention.cu",
     "split_merge": "split_merge.cu",
+    "moe_route": "moe_route.cu",
+    "moe_grouped": "moe_grouped.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -208,8 +208,7 @@ import torch
 from aws_k8s_ansible_provisioner_tpu_torch.config import (ModelConfig,
                                                           ServingConfig)
 from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
-from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
-    DecoderLM, check_supported)
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
 from aws_k8s_ansible_provisioner_tpu_torch.models.lora import load_attached
 from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
@@ -362,8 +361,9 @@ class Engine:
         dense cache over its ``sp`` axis; the engine then runs on the
         mesh's lead device, and ``device`` may only name its type.
         ``lora`` ({name: peft adapter dir}, in index order) registers the
-        adapters a request may name (refused under a mesh)."""
-        check_supported(cfg)
+        adapters a request may name (refused under a mesh). A MoE
+        config under a mesh serves the gshard formulation (``ops/moe.py``),
+        switched with a warning as the JAX engine switches it."""
         if serving.weights_dtype not in ("auto", "bf16", "int8"):
             raise ValueError(f"weights_dtype={serving.weights_dtype!r}: "
                              f"expected 'int8', 'bf16' or 'auto'")
@@ -384,6 +384,15 @@ class Engine:
                     f"far; " + ", ".join(f"{a}={n}" for a, n in
                                          unserved.items())
                     + " > 1 is not ported yet")
+            if cfg.num_experts > 0 and cfg.moe_impl != "gshard":
+                # the JAX engine's switch under any mesh: the fixed-capacity
+                # dispatch in place of the exact one, said loudly
+                log.warning(
+                    "MoE under a mesh: switching moe_impl ragged -> gshard "
+                    "(capacity_factor=%s; tokens past an expert's capacity "
+                    "fall back to the residual stream)",
+                    cfg.moe_capacity_factor)
+                cfg = cfg.scaled(moe_impl="gshard")
             lead = self.mesh.lead
             if device is not None and torch.device(device).type != lead.type:
                 raise ValueError(f"device {device} is not the mesh's lead "

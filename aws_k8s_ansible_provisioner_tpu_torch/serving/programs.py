@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
-from aws_k8s_ansible_provisioner_tpu_torch.ops import (dense_attention,
+from aws_k8s_ansible_provisioner_tpu_torch.ops import (dense_attention, moe,
                                                        paged_attention,
                                                        split_kv)
 from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import (
@@ -601,12 +601,12 @@ def _launch_state() -> collections.Counter:
     """Every kernel wrapper's launch counters as one Counter, keyed by
     (wrapper, "launches" | "window_launches" | a form of
     ``form_launches``): the state that ``launch_counts`` of
-    ``ops/paged_attention.py``, ``ops/dense_attention.py`` and
-    ``ops/split_kv.py`` report."""
+    ``ops/paged_attention.py``, ``ops/dense_attention.py``,
+    ``ops/split_kv.py`` and ``ops/moe.py`` report."""
     state = collections.Counter()
     for fn in (paged_attention.counted_wrappers()
                + dense_attention.counted_wrappers()
-               + (split_kv.split_merge,)):
+               + (split_kv.split_merge,) + moe.counted_wrappers()):
         state[fn, "launches"] = fn.launches
         if hasattr(fn, "window_launches"):
             state[fn, "window_launches"] = fn.window_launches

@@ -515,15 +515,13 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
     import torch
 
     from aws_k8s_ansible_provisioner_tpu_torch.config import (
-        MODEL_REGISTRY, ServingConfig, tiny_qwen3)
+        MODEL_REGISTRY, ServingConfig, tiny_qwen3, tiny_qwen3_moe)
     from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
     from aws_k8s_ansible_provisioner_tpu_torch.models.checkpoint import \
         load_checkpoint_cached
     from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
         config_from_hf_dir
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
-    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
-        quantize_params
     from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
     from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
         ChatTemplater
@@ -546,25 +544,31 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                                    eos_token_id=tokenizer.eos_token_id,
                                    num_layers=4, hidden_size=128,
                                    intermediate_size=256)
+        elif serving.model == "tiny-qwen3-moe":
+            # the MoE dry-run model (router + experts), byte tokenizer
+            model_cfg = tiny_qwen3_moe(vocab_size=tokenizer.vocab_size,
+                                       eos_token_id=tokenizer.eos_token_id,
+                                       num_layers=4, hidden_size=128)
         else:
             raise ValueError(f"unknown model {serving.model!r} and no "
                              f"checkpoint")
     dtype = torch.bfloat16 if serving.dtype == "bfloat16" else torch.float32
     if params is None:
+        # an int8 engine's weights are quantized layer by layer as they
+        # are converted or drawn: the unquantized tree is never held
+        # (Qwen3-30B-A3B's bf16 tree, 61 GB, would not leave room)
+        quantize = serving.weights_dtype == "int8"
         if ckpt:
             # the first start converts the shards and caches the tree
             # beside them; a restart restores it
             params = load_checkpoint_cached(ckpt, model_cfg, dtype,
-                                            device=dev)
+                                            device=dev, quantize=quantize)
         else:
             log.warning("no checkpoint: serving RANDOM weights (%s, seed %d)",
                         model_cfg.name, seed)
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
-            params = init_params(model_cfg, gen, dtype)
-        if serving.weights_dtype == "int8":
-            # drop the unquantized tree before the engine sizes its pool
-            params = quantize_params(params, model_cfg)
+            params = init_params(model_cfg, gen, dtype, quantize=quantize)
     draft = None
     if serving.spec_decode and serving.spec_method == "draft":
         if not serving.draft_checkpoint_dir:

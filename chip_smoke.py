@@ -244,6 +244,28 @@ result when either is missing. Phases, in order (any failure raises):
    slots per CTA and with a self-draft beside the paged pool. Each run's
    launch counts are zeroed just before it and read just after, and every
    family instance of the kernels line must have launched in its run.
+15. Qwen3-30B-A3B (MoE; ``phase_kernels_moe`` after "kernels, families",
+   ``phase_moe`` after the families): first both MoE kernels at its widths
+   (H 2048, expert width 768, 128 experts, top 8) over one layer's bf16 and
+   int8 experts, against their plain versions, at 8 and 32 decode tokens,
+   a verify of 32 x 5, a mixed dispatch of 32 + 512 rows, every token on
+   the same 8 experts, only even experts live, and router ties: the
+   route-and-sort's experts, offsets, sorted rows and positions exact and
+   its weights within one bf16 ulp; the grouped gate + up (silu(g) * u)
+   and down products within one bf16 ulp a row; each timed beside its
+   plain version, its bound and ``torch._grouped_mm`` on bf16 weights (a
+   per-expert matmul loop where the card's torch lacks it). Then the model
+   at full width and depth (48 layers) on seeded weights drawn and
+   quantized to int8 layer by layer (the peak device memory before the
+   engine printed, under 35 GB), the default ServingConfig with 8 slots:
+   8 greedy requests of 9 to 700 tokens, one decode step's logits against
+   the plain path (the MoE MLP's plain versions included), one horizon-8
+   dispatch profiled (the grouped kernel's share of device time), one
+   eager forward profiled with shapes (no copy or cast of an expert
+   stack); then prompt lookup over the same weights (verify rows through
+   the MoE kernels), and the bf16 instances at full width with the depth
+   cut to 4 layers (bf16 weights). The MoE kernels must have launched once
+   a layer of every forward of each run, in the weights' instance.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1995,7 +2017,9 @@ def _profile_dispatch(torch, engine, tag, step=None, n_slots=None,
         n_ops = sum(e.count for e in events)
         if stats is not None:
             stats.update(wall_ms=wall_ms, prof_wall_ms=prof_wall_ms,
-                         busy_ms=busy_ms, ops_per_substep=n_ops / horizon)
+                         busy_ms=busy_ms, ops_per_substep=n_ops / horizon,
+                         by_kernel={e.key: (e.self_device_time_total,
+                                            e.count) for e in events})
         log(f"{tag} profiled dispatch: wall {prof_wall_ms:.2f} ms, "
             f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / prof_wall_ms:.3f}), "
@@ -2843,7 +2867,8 @@ def _logits_check(torch, engine, tol, slots=None):
     A sequence-parallel engine's kernels step writes each shard and merges
     K6's triples (its decode callback); its plain step writes each shard
     through the plain writers at the local rows and attends the rows
-    gathered from the shards in order."""
+    gathered from the shards in order. A MoE engine's plain step also runs
+    its MoE MLP through the plain versions (``_moe_plain_ragged``)."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import \
         prep_qk_plain
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
@@ -2947,7 +2972,16 @@ def _logits_check(torch, engine, tol, slots=None):
         return logits[rows, 0].float()
 
     lk = step(checked_attend)
-    lp = step(plain_attend)
+    if engine.cfg.num_experts > 0:
+        # the plain step's MoE MLP through the plain versions too
+        from unittest import mock
+
+        from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+        with mock.patch.object(moe, "moe_mlp_ragged", _moe_plain_ragged(moe)):
+            lp = step(plain_attend)
+    else:
+        lp = step(plain_attend)
     torch.cuda.synchronize()
     per_slot = (lk - lp).abs().amax(-1)
     err = float(per_slot.max())
@@ -2978,23 +3012,27 @@ def _logits_check(torch, engine, tol, slots=None):
 
 
 def _launches():
-    """Every kernel's launch count, the split-KV combine's included."""
+    """Every kernel's launch count, the split-KV combine's and the MoE
+    kernels' included."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     return {**pa.launch_counts(), **da.launch_counts(),
-            **split_kv.launch_counts()}
+            **split_kv.launch_counts(), **moe.launch_counts()}
 
 
 def _reset_launches():
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
     from aws_k8s_ansible_provisioner_tpu_torch.ops import paged_attention as pa
     from aws_k8s_ansible_provisioner_tpu_torch.ops import split_kv
 
     pa.reset_launch_counts()
     da.reset_launch_counts()
     split_kv.reset_launch_counts()
+    moe.reset_launch_counts()
 
 
 def _pattern_prompts(rng, vocab, n, reps=8, width=16):
@@ -6405,6 +6443,473 @@ def _family_kernel_rows(fk):
     return rows
 
 
+# -- Qwen3-30B-A3B (MoE): the route-and-sort and grouped expert kernels --------
+
+MOE_ROUTE_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/moe_route.cu"
+MOE_GROUPED_SRC = "aws_k8s_ansible_provisioner_tpu_torch/csrc/moe_grouped.cu"
+# the XLA regions of the JAX package the two kernels replace (MoE has no
+# pallas_call): route and the sort of moe_mlp_ragged; _expert_ffn_ragged's
+# ragged_dot products
+MOE_ROUTE_JAX = ("none (XLA: aws_k8s_ansible_provisioner_tpu/ops/moe.py:35 "
+                 "route, :80-84 the sort)")
+MOE_GROUPED_JAX = ("none (XLA: aws_k8s_ansible_provisioner_tpu/ops/moe.py:48 "
+                   "_expert_ffn_ragged, ragged_dot)")
+# (case, tokens): decode horizons of 8 and 32 slots, a verify of 32 x 5, a
+# mixed dispatch of 32 + 512 rows, every token on the same 8 experts, only
+# even experts live, router ties
+MOE_CASES = (("decode 8", 8), ("decode 32", 32), ("verify 32x5", 160),
+             ("mixed 32+512", 544), ("skewed", 64), ("empty experts", 24),
+             ("ties", 40))
+MOE_PROMPTS = (9, 40, 120, 256, 300, 450, 600, 700)
+MOE_NEW = 48
+# one decode step through the kernels vs the plain versions over 48 layers
+# of random weights: each layer's attention by the ulp rule, the logits as
+# the other families' (a router whose input moved by an ulp may pick
+# another expert of a near tie)
+MOE_LOGIT_TOL = MISTRAL_LOGIT_TOL
+# the seeded int8 tree's peak device memory (bytes) before the engine
+MOE_PEAK_LIMIT = 35e9
+# the bf16-weight run (the bf16 instances of the grouped kernel): full
+# width, depth cut to 4 layers (its bf16 tree at 48 would be 61 GB)
+MOE_BF16_LAYERS = 4
+
+
+def _moe_cfg(layers=None):
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_30B_A3B
+
+    if layers is None:
+        return QWEN3_30B_A3B
+    return QWEN3_30B_A3B.scaled(num_layers=layers)
+
+
+def _moe_logits(torch, np, case, n, seed, E, k):
+    """float32 router logits [n, E] of a case, on the card."""
+    rng = np.random.default_rng(seed)
+    logits = 2.0 * rng.standard_normal((n, E))
+    if case == "skewed":
+        logits[:, :k] += 50.0
+    elif case == "empty experts":
+        logits[:, 1::2] = -1e4
+    elif case == "ties":
+        logits[:, 0] += 12.0
+        for e in (1, 5, 9, 64):
+            logits[:, e] = logits[:, 0]
+    return torch.from_numpy(logits.astype(np.float32)).cuda()
+
+
+def _moe_plain_ragged(moe):
+    """The exact MoE MLP through the plain versions (the route and the
+    sort, the per-expert loops): what the logits check holds the kernels'
+    forward against."""
+    def ragged(cfg, x, p):
+        r = moe.route_sort_plain(moe.router_logits(x, p["router"]["kernel"]),
+                                 cfg.num_experts_per_tok, cfg.norm_topk_prob,
+                                 x.dtype)
+        a = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"], r.offsets,
+                                      r.row_token)
+        ys = moe.grouped_matmul_plain(a, p["w_down"], r.offsets)
+        return moe.combine(ys, r.weights, r.pos, x.dtype)
+    return ragged
+
+
+def _grouped_library(torch, xs, w, offsets):
+    """The yardstick of a grouped product over sorted rows ``xs`` and bf16
+    weights ``w`` [E, K, N]: one ``torch._grouped_mm`` call where the
+    card's torch has it, else a per-expert ``torch.matmul`` loop (the
+    offsets read on the host first). Returns (fn, its name)."""
+    ends = offsets[1:].contiguous()
+    if hasattr(torch, "_grouped_mm"):
+        for layout, wt in (("row-major", w),
+                           ("column-major",
+                            w.transpose(-2, -1).contiguous().transpose(-2,
+                                                                       -1))):
+            try:
+                torch._grouped_mm(xs, wt, offs=ends)
+                torch.cuda.synchronize()
+                return (lambda: torch._grouped_mm(xs, wt, offs=ends),
+                        f"torch._grouped_mm ({layout} weights)")
+            except (RuntimeError, TypeError, ValueError) as e:
+                log(f"[kernels, moe] torch._grouped_mm refused {layout} "
+                    f"weights: {str(e).splitlines()[0][:120]}")
+    off = offsets.tolist()
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+
+    def loop():
+        for e in range(w.shape[0]):
+            if off[e + 1] > off[e]:
+                torch.matmul(xs[off[e]:off[e + 1]], w[e],
+                             out=out[off[e]:off[e + 1]])
+        return out
+    return loop, "per-expert torch.matmul loop"
+
+
+def _moe_result(torch, what, check, ms, dev_ms, plain_ms, library_ms,
+                nbytes, ops, extra=""):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_OPS_PER_S
+    res = {**check, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes}
+    lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    log(f"[kernels, moe] {what}: max abs {check['max_abs_err']:.3e}, mean "
+        f"abs {check['mean_abs_err']:.3e}{extra}; kernel_ms {ms:.4f} "
+        f"device_ms {dev_ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
+        f"bound_ms {res['bound_ms']:.4f} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.2f} GFLOP, {100 * res['bound_ms'] / dev_ms:.1f}% of "
+        f"bound)")
+    return res
+
+
+def phase_kernels_moe(torch, np):
+    """Both MoE kernels against their plain versions at Qwen3-30B-A3B's
+    widths (H 2048, expert width 768, 128 experts, top 8), over one
+    layer's experts in bf16 and int8 (per-(expert, column) scales), at
+    MOE_CASES: the route-and-sort (experts, offsets, sorted rows and
+    positions exact; weights within one bf16 ulp), the grouped gate + up
+    (silu(g) * u) and down products (each row within one bf16 ulp of its
+    largest value), each timed (kernel and device ms) beside its plain
+    version, its bound (the touched experts' weights read once, the rows
+    and outputs once; 2 x rows x K x N operations) and the library
+    yardstick on bf16 weights (``_grouped_library``; the route has none).
+    Returns {instance: {case: result}}."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quant_kernel_chunked
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    cfg = _moe_cfg()
+    H, I, E, k = (cfg.hidden_size, cfg.moe_intermediate_size,
+                  cfg.num_experts, cfg.num_experts_per_tok)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(200)
+    layer = {"bf16": {}, "int8": {}}
+    for name, shape in (("w_gate", (E, H, I)), ("w_up", (E, H, I)),
+                        ("w_down", (E, I, H))):
+        w = (0.02 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        layer["bf16"][name] = {"kernel": w}
+        q, s = quant_kernel_chunked(w, 1)
+        layer["int8"][name] = {"kernel": q, "scale": s}
+    out = {name: {} for name in ("moe_route_sort", "moe_gate_up",
+                                 "moe_gate_up quant", "moe_grouped",
+                                 "moe_grouped quant")}
+    for i, (case, n) in enumerate(MOE_CASES):
+        logits = _moe_logits(torch, np, case, n, 210 + i, E, k)
+        r = moe.route_sort(logits, k, True, torch.bfloat16)
+        ref = moe.route_sort_plain(logits, k, True, torch.bfloat16)
+        torch.cuda.synchronize()
+        for name in ("experts", "offsets", "row_token", "row_expert", "pos"):
+            if not torch.equal(getattr(r, name), getattr(ref, name)):
+                raise AssertionError(f"[kernels, moe] {case}: route-and-sort "
+                                     f"{name} differs from the plain sort")
+        werr = (r.weights.float() - ref.weights.float()).abs()
+        if float(werr.max()) > 2.0 ** -8:
+            raise AssertionError(f"[kernels, moe] {case}: weights differ by "
+                                 f"{float(werr.max())} (> one bf16 ulp)")
+        counts = (r.offsets[1:] - r.offsets[:-1]).cpu()
+        touched = int((counts > 0).sum())
+        m = n * k
+        if case == "ties" and not bool((r.experts[:, :5] == torch.tensor(
+                [0, 1, 5, 9, 64], device="cuda")).all()):
+            raise AssertionError("[kernels, moe] ties: not in expert order")
+        if case == "empty experts" and int(counts[1::2].sum()) != 0:
+            raise AssertionError("[kernels, moe] an odd expert got rows")
+        route_bytes = n * E * 4 + m * (2 + 4 + 4 + 4 + 4) + (E + 1) * 4
+        out["moe_route_sort"][case] = _moe_result(
+            torch, f"route-and-sort, {case} ({n} tokens, {touched} of {E} "
+            f"experts touched)",
+            {"max_abs_err": float(werr.max()),
+             "mean_abs_err": float(werr.mean())},
+            timed_ms(torch, lambda: moe.route_sort(logits, k, True,
+                                                   torch.bfloat16)),
+            device_ms(torch, lambda: moe.route_sort(logits, k, True,
+                                                    torch.bfloat16)),
+            timed_ms(torch, lambda: moe.route_sort_plain(
+                logits, k, True, torch.bfloat16), iters=5, warmup=1),
+            None, route_bytes, 0)
+        x = torch.randn((n, H), generator=gen, device="cuda").bfloat16()
+        xs = x.index_select(0, r.row_token)
+        for quant in (False, True):
+            p = layer["int8" if quant else "bf16"]
+            wb = 1 if quant else 2
+            sfx = " quant" if quant else ""
+            a = moe.grouped_gate_up(x, p["w_gate"], p["w_up"], r.offsets,
+                                    r.row_token)
+            a_ref = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"],
+                                              r.offsets, r.row_token)
+            y = moe.grouped_matmul(a_ref, p["w_down"], r.offsets)
+            y_ref = moe.grouped_matmul_plain(a_ref, p["w_down"], r.offsets)
+            torch.cuda.synchronize()
+            label = (f"{'int8' if quant else 'bf16'} experts, {case} ({m} "
+                     f"rows, {touched} experts)")
+            for inst, got, want, width, kin, nw, fn, plain, lib in (
+                    ("moe_gate_up", a, a_ref, I, H, 2,
+                     lambda: moe.grouped_gate_up(x, p["w_gate"], p["w_up"],
+                                                 r.offsets, r.row_token),
+                     lambda: moe.grouped_gate_up_plain(
+                         x, p["w_gate"], p["w_up"], r.offsets, r.row_token),
+                     (xs, torch.cat([layer["bf16"]["w_gate"]["kernel"],
+                                     layer["bf16"]["w_up"]["kernel"]], -1))),
+                    ("moe_grouped", y, y_ref, H, I, 1,
+                     lambda: moe.grouped_matmul(a_ref, p["w_down"],
+                                                r.offsets),
+                     lambda: moe.grouped_matmul_plain(a_ref, p["w_down"],
+                                                      r.offsets),
+                     (a_ref, layer["bf16"]["w_down"]["kernel"]))):
+                check = _ulp_rows(torch, f"{inst}{sfx} {label}", got, want,
+                                  m, lambda bad: f"case {case}",
+                                  max_ulps=1.0)
+                lib_fn, lib_name = _grouped_library(torch, lib[0], lib[1],
+                                                    r.offsets)
+                nbytes = (touched * kin * width * wb * nw
+                          + (touched * width * 4 * nw if quant else 0)
+                          + (n * H * 2 if inst == "moe_gate_up"
+                             else m * I * 2)
+                          + m * 4 + (E + 1) * 4 + m * width * 2)
+                res = _moe_result(
+                    torch, f"{inst}{sfx}, {label}", check,
+                    timed_ms(torch, fn), device_ms(torch, fn),
+                    timed_ms(torch, plain, iters=5, warmup=1),
+                    device_ms(torch, lib_fn), nbytes,
+                    2.0 * m * kin * width * nw,
+                    extra=f", worst row {check['worst_row_max_ulps']:.2f} "
+                          f"ulp; library: {lib_name}")
+                out[inst + sfx][case] = res
+            del a, a_ref, y, y_ref
+        torch.cuda.empty_cache()
+    del layer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_copy_check(torch, engine, tag):
+    """One eager decode forward of the engine's slots under torch.profiler
+    with the ops' input shapes: no copy or dtype cast takes an expert
+    stack [E, H, I] / [E, I, H] (the experts are read in place, int8 as
+    int8). Returns the number of copy and cast ops seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = engine.cfg
+    E, H, I = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    stacks = ([E, H, I], [E, I, H])
+    tok = torch.zeros((engine.num_slots, 1), dtype=torch.int32,
+                      device="cuda")
+    pos = torch.zeros_like(tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        engine.model(tok, pos)
+        torch.cuda.synchronize()
+    casts = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in ("aten::to", "aten::_to_copy", "aten::copy_",
+                          "aten::type_as")]
+    bad = [(e.key, e.input_shapes) for e in casts
+           if any(list(s) in stacks for s in e.input_shapes)]
+    n = sum(e.count for e in casts)
+    if bad:
+        raise AssertionError(f"{tag} a copy or cast of an expert stack: "
+                             f"{bad[:4]}")
+    log(f"{tag} eager decode forward profiled with shapes: {n} copy/cast "
+        f"ops, none of an expert stack {stacks} (the experts are read in "
+        f"place by the grouped kernel)")
+    return n
+
+
+def _moe_engine(torch, cfg, params, **kw):
+    from aws_k8s_ansible_provisioner_tpu_torch.config import ServingConfig
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    serving = ServingConfig(model=cfg.name, max_decode_slots=8,
+                            prefill_chunk=256, derived_seed=0, **kw)
+    t0 = time.monotonic()
+    engine = Engine(cfg, params, serving, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{cfg.name}] {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_experts} experts of width {cfg.moe_intermediate_size}, "
+        f"top {cfg.num_experts_per_tok}, Hq {cfg.num_heads}, Hkv "
+        f"{cfg.num_kv_heads}, D {cfg.head_dim}, vocab {cfg.vocab_size}; "
+        f"weights {serving.weights_dtype} {_tree_bytes(params) / 1e9:.2f} "
+        f"GB; KV {serving.kv_dtype}, {_cache_layout(engine)}"
+        f"{', ' + serving.spec_method if serving.spec_decode else ''}; "
+        f"{_dispatch_mode(engine)}; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def _check_moe_launches(tag, cfg, launches, forwards, quant):
+    """The route-and-sort, the gate + up and the down launched once a
+    layer of every forward of the run (``forwards``: at least the decode
+    substeps, mixed dispatches and verifies), each in the weights' dtype's
+    instance, the other dtype's never."""
+    sfx = " quant" if quant else ""
+    route = launches["moe_route_sort"]
+    mine = (launches["moe_gate_up" + sfx], launches["moe_grouped" + sfx])
+    other = " quant" if not quant else ""
+    theirs = (launches["moe_gate_up" + other], launches["moe_grouped" + other])
+    if not (route > 0 and mine == (route, route) and theirs == (0, 0)
+            and route >= cfg.num_layers * forwards > 0):
+        raise AssertionError(f"{tag} MoE launches: route {route}, gate + up "
+                             f"and down {mine}, the other instances "
+                             f"{theirs}; {cfg.num_layers} layers x "
+                             f"{forwards} forwards")
+    log(f"{tag} MoE kernels: route-and-sort {route}, grouped gate + up{sfx} "
+        f"{mine[0]}, down{sfx} {mine[1]} launches (>= {cfg.num_layers} "
+        f"layers x {forwards} decode, mixed and verify forwards; the rest "
+        f"prefills)")
+
+
+def phase_moe(torch, np):
+    """Qwen3-30B-A3B at full width and depth (48 layers) on seeded random
+    weights drawn and quantized to int8 layer by layer
+    (``init_params(quantize=True)``; the peak device memory before the
+    engine printed and held under MOE_PEAK_LIMIT), served by the default
+    ServingConfig (paged, page 64, bf16 KV, the pipeline and the decode
+    graphs on, the prefix cache on) with 8 slots and prefill_chunk 256: 8
+    greedy requests (MOE_PROMPTS, MOE_NEW new tokens each) with the launch
+    counts zeroed just before and read just after; once every prompt is
+    in, the next decode step's logits through the kernels held against the
+    plain versions (the attention's and the MoE MLP's), one horizon-8
+    dispatch profiled (the grouped kernel's share of device time) and one
+    eager forward profiled with shapes (no copy of an expert stack), all
+    taken out of the run's counts. Then, the first engine's pool freed,
+    prompt lookup over the same weights (verify rows through the MoE
+    kernels); then the bf16 instances at full width, 4 layers, bf16
+    weights. Returns ({run: launches}, profile stats)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    cfg = _moe_cfg()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{cfg.name}] seeded weights drawn and quantized to int8 layer by "
+        f"layer in {time.monotonic() - t0:.1f}s: {_tree_bytes(params) / 1e9:.2f} "
+        f"GB; peak device memory {peak / 1e9:.2f} GB before the engine "
+        f"(limit {MOE_PEAK_LIMIT / 1e9:.0f} GB)")
+    if peak >= MOE_PEAK_LIMIT:
+        raise AssertionError(f"seeded int8 weights peaked at {peak} bytes")
+    runs, stats = {}, {}
+    engine = _moe_engine(torch, cfg, params)
+    tag = f"[{cfg.name}]"
+    rng = np.random.default_rng(77)
+    engine.submit(Request(prompt_ids=[5, 6, 7, 8, 9, 10, 11, 12],
+                          max_tokens=2, ignore_eos=True))
+    engine.run_until_idle()
+    engine.counts.clear()
+    replays0 = engine.decoder.replays
+    torch.cuda.synchronize()
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MOE_PROMPTS]
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=MOE_NEW,
+                                  ignore_eos=True)) for p in prompts]
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    before, counts0 = _launches(), dict(engine.counts)
+    _logits_check(torch, engine, MOE_LOGIT_TOL)
+    _profile_dispatch(torch, engine, f"[profile {cfg.name}]", stats=stats)
+    _moe_copy_check(torch, engine, tag)
+    checks = _delta(_launches(), before)
+    check_counts = {k: v - counts0.get(k, 0)
+                    for k, v in engine.counts.items()}
+    t2 = time.monotonic()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t2 + t1 - t0
+    launches = _delta(_launches(), checks)
+    counts = {k: v - check_counts.get(k, 0) for k, v in engine.counts.items()}
+    n_gen = sum(len(r.generated) for r in reqs)
+    log(f"{tag} {len(reqs)} requests, prompts {list(MOE_PROMPTS)}, "
+        f"{MOE_NEW} new tokens each: {n_gen} tokens in {dt:.2f}s "
+        f"({n_gen / dt:.1f} tok/s end to end, the checks' time taken out); "
+        f"dispatches {counts}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for r in reqs:
+        _finish_ok(cfg, r, MOE_NEW)
+    _check_replays(tag, engine, replays0)
+    attn, write = _kernel_names(False)
+    if min(launches[attn], launches[write], launches[attn + " chunk"]) <= 0:
+        raise AssertionError(f"{tag} an attention kernel of the path never "
+                             f"launched: {launches}")
+    _check_fused_writes(tag, engine, launches, counts)
+    forwards = sum(counts.get(k, 0) for k in (
+        "decode_substeps", "mixed_dispatches", "spec_dispatches"))
+    _check_moe_launches(tag, cfg, launches, forwards, quant=True)
+    busy = stats.get("by_kernel")
+    if busy:
+        grouped = sum(t for key, (t, _) in busy.items()
+                      if "grouped_kernel" in key)
+        route = sum(t for key, (t, _) in busy.items() if "route_" in key)
+        total = sum(t for t, _ in busy.values())
+        stats.update(grouped_share=grouped / total, route_share=route / total)
+        log(f"[profile {cfg.name}] the grouped kernel {100 * grouped / total:.1f}"
+            f"% of device time ({grouped / 1e3:.3f} ms), the route-and-sort "
+            f"{100 * route / total:.1f}% ({route / 1e3:.3f} ms)")
+    runs["moe"] = launches
+    del engine
+    _free(torch)
+    # prompt lookup over the same weights: verify rows through the kernels
+    engine = _moe_engine(torch, cfg, params, spec_decode=True,
+                         spec_method="prompt_lookup")
+    tag = f"[{cfg.name} lookup]"
+    prompts = _pattern_prompts(rng, cfg.vocab_size, 4)
+    _reset_launches()
+    t0 = time.monotonic()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=32,
+                                  ignore_eos=True)) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches, counts = _launches(), dict(engine.counts)
+    for r in reqs:
+        _finish_ok(cfg, r, 32)
+    log(f"{tag} {len(reqs)} greedy requests on repeated-pattern prompts: "
+        f"{32 * len(reqs)} tokens in {dt:.2f}s; dispatches {counts}; "
+        f"acceptance {counts.get('spec_accepted_tokens', 0)}/"
+        f"{counts.get('spec_drafted_tokens', 0)}")
+    if counts.get("spec_dispatches", 0) <= 0 or \
+            launches["paged_attention_spec"] <= 0:
+        raise AssertionError(f"{tag} no verify dispatch through K1-spec: "
+                             f"{counts} {launches}")
+    _check_fused_writes(tag, engine, launches, counts)
+    forwards = sum(counts.get(k, 0) for k in (
+        "decode_substeps", "mixed_dispatches", "spec_dispatches"))
+    _check_moe_launches(tag, cfg, launches, forwards, quant=True)
+    runs["moe lookup"] = launches
+    del engine, params
+    _free(torch)
+    # the bf16 instances: bf16 weights at full width, depth cut
+    cfg4 = _moe_cfg(MOE_BF16_LAYERS)
+    gen.manual_seed(1)
+    params = init_params(cfg4, gen, torch.bfloat16)
+    engine = _moe_engine(torch, cfg4, params, weights_dtype="bf16")
+    tag = f"[{cfg.name} bf16, {MOE_BF16_LAYERS} layers]"
+    _reset_launches()
+    reqs = [engine.submit(Request(prompt_ids=rng.integers(
+        0, cfg.vocab_size, n).tolist(), max_tokens=16, ignore_eos=True))
+        for n in (9, 120, 300, 40)]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches, counts = _launches(), dict(engine.counts)
+    for r in reqs:
+        _finish_ok(cfg4, r, 16)
+    forwards = sum(counts.get(k, 0) for k in (
+        "decode_substeps", "mixed_dispatches", "spec_dispatches"))
+    _check_moe_launches(tag, cfg4, launches, forwards, quant=False)
+    runs["moe bf16"] = launches
+    del engine, params
+    _free(torch)
+    return runs, stats
+
+
 def _phase(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.monotonic()
@@ -6445,6 +6950,7 @@ def main() -> int:
     wkern = _phase("kernels, window", phase_kernels_window, torch, np)
     skern = _phase("kernels, sp", phase_kernels_sp, torch, np)
     fkern = _phase("kernels, families", phase_kernels_families, torch, np)
+    mkern = _phase("kernels, moe", phase_kernels_moe, torch, np)
     _phase("sampling", phase_sampling, torch, np)
     runs = {}
     for kv_dtype in ("auto", "int8"):
@@ -6526,6 +7032,10 @@ def main() -> int:
     log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
     # the Llama, Gemma, Phi and OPT families at full width and depth
     runs.update(_phase("families", phase_families, torch, np))
+    # Qwen3-30B-A3B (MoE) at full width and depth, int8 weights; prompt
+    # lookup; the bf16 instances at 4 layers
+    moe_runs, _ = _phase("moe", phase_moe, torch, np)
+    runs.update(moe_runs)
     # sequence-parallel serving: the sp 1 dense engine's greedy streams are
     # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
     t_sp = time.monotonic()
@@ -6660,6 +7170,18 @@ def main() -> int:
                         **{k: res[k] for k in keys},
                         **{k: res[k] for k in ("graph_ms", "chain_graph_ms")
                            if k in res}})
+    # the MoE kernels, at a decode horizon of 32 slots (every case is in
+    # the log); they replace XLA regions, no pallas_call
+    for name, src, replaces, run in (
+            ("moe_route_sort", MOE_ROUTE_SRC, MOE_ROUTE_JAX, "moe"),
+            ("moe_gate_up quant", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe"),
+            ("moe_grouped quant", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe"),
+            ("moe_gate_up", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe bf16"),
+            ("moe_grouped", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe bf16")):
+        res = mkern[name]["decode 32"]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": runs[run][name],
+                        **{k: res[k] for k in keys}})
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernel instances with no launch in their "

@@ -2224,3 +2224,129 @@ def test_ragged_chunk_body_at_d256(dev, quant, G, hkv, window):
     for C, pstart in ((1, 0), (128 // G + 1, 70), (300, 130)):
         _chunk_case(dev, quant, G, 64, window, C, pstart,
                     seed=230 + C + G, hkv=hkv, d=256)
+
+
+# -- the MoE kernels (csrc/moe_route.cu, csrc/moe_grouped.cu) -----------------
+
+MOE_H, MOE_I, MOE_E, MOE_K = 2048, 768, 128, 8
+# tokens of each case at Qwen3-30B-A3B's widths: decode horizons of 8 and
+# 32 slots, a verify of 32 x 5, a mixed dispatch of 32 + 512 rows, every
+# token on the same 8 experts, only even experts live, router ties
+MOE_CASES = {"decode 8": 8, "decode 32": 32, "verify 32x5": 160,
+             "mixed 32+512": 544, "skewed": 64, "empty experts": 24,
+             "ties": 40}
+
+
+def _moe_logits(case, seed):
+    rng = np.random.default_rng(seed)
+    logits = 2.0 * rng.standard_normal((MOE_CASES[case], MOE_E))
+    if case == "skewed":
+        logits[:, :MOE_K] += 50.0
+    elif case == "empty experts":
+        logits[:, 1::2] = -1e4
+    elif case == "ties":
+        logits[:, 0] += 12.0
+        for e in (1, 5, 9, 64):
+            logits[:, e] = logits[:, 0]
+    return torch.from_numpy(logits.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def moe_layer():
+    """One layer's experts at Qwen3-30B-A3B's widths, bf16 and int8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quant_kernel_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {"bf16": {}, "int8": {}}
+    for name, shape in (("w_gate", (MOE_E, MOE_H, MOE_I)),
+                        ("w_up", (MOE_E, MOE_H, MOE_I)),
+                        ("w_down", (MOE_E, MOE_I, MOE_H))):
+        w = (0.02 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        out["bf16"][name] = {"kernel": w}
+        q, s = quant_kernel_chunked(w, 1)
+        out["int8"][name] = {"kernel": q, "scale": s}
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_route_sort_matches_plain(dev, case):
+    """The route-and-sort kernel against its plain version on the same
+    float32 logits: experts, offsets, sorted rows and positions exact;
+    weights within one bf16 ulp (the softmax sums in another order)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    logits = _moe_logits(case, 300).to(dev)
+    got = moe.route_sort(logits, MOE_K, True, torch.bfloat16)
+    want = moe.route_sort_plain(logits, MOE_K, True, torch.bfloat16)
+    torch.cuda.synchronize()
+    for name in ("experts", "offsets", "row_token", "row_expert", "pos"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.weights.float() - want.weights.float()).abs().max() <= 2**-8
+    if case == "ties":
+        assert (got.experts[:, :5] == torch.tensor(
+            [0, 1, 5, 9, 64], device=dev)).all()
+    if case == "empty experts":
+        counts = got.offsets[1:] - got.offsets[:-1]
+        assert (counts[1::2] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_grouped_matches_plain(dev, moe_layer, quant, case):
+    """The grouped gate + up product (silu(g) * u) over the sorted rows
+    gathered from the tokens, then the grouped down product, against the
+    plain per-expert loop: each row within one bf16 ulp of its largest
+    value (the products sum in another order)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    p = moe_layer["int8" if quant else "bf16"]
+    logits = _moe_logits(case, 301).to(dev)
+    r = moe.route_sort(logits, MOE_K, True, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(302)
+    x = torch.randn((logits.shape[0], MOE_H), generator=gen,
+                    device=dev).bfloat16()
+    a = moe.grouped_gate_up(x, p["w_gate"], p["w_up"], r.offsets,
+                            r.row_token)
+    a_ref = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"], r.offsets,
+                                      r.row_token)
+    y = moe.grouped_matmul(a_ref, p["w_down"], r.offsets)
+    y_ref = moe.grouped_matmul_plain(a_ref, p["w_down"], r.offsets)
+    torch.cuda.synchronize()
+    m = logits.shape[0] * MOE_K
+    assert a.shape == (m, MOE_I) and y.shape == (m, MOE_H)
+    assert _rows_within_ulps(a, a_ref, m, 1.0, 0.5)
+    assert _rows_within_ulps(y, y_ref, m, 1.0, 0.5)
+
+
+def test_moe_kernels_refuse_shapes_they_do_not_take(dev, moe_layer):
+    """E above 256, k above 32 or E, non-float32 logits; K or out not a
+    multiple of 64, float32 rows, gate and up of different dtypes,
+    int64 offsets: each raises before any launch."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    logits = torch.zeros((4, 300), device=dev)
+    with pytest.raises(ValueError):
+        moe.route_sort(logits, 8, True, torch.bfloat16)
+    with pytest.raises(ValueError):
+        moe.route_sort(logits[:, :128].contiguous(), 40, True,
+                       torch.bfloat16)
+    with pytest.raises(TypeError):
+        moe.route_sort(logits[:, :128].double(), 8, True, torch.bfloat16)
+    r = moe.route_sort(logits[:, :128].contiguous(), 8, True,
+                       torch.bfloat16)
+    p = moe_layer["bf16"]
+    x = torch.zeros((4, MOE_H), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        moe.grouped_matmul(x.float(), p["w_gate"], r.offsets, r.row_token)
+    with pytest.raises(ValueError):
+        moe.grouped_matmul(x[:, :100].contiguous(), p["w_gate"], r.offsets,
+                           r.row_token)
+    with pytest.raises(ValueError):
+        moe.grouped_matmul(x, p["w_gate"], r.offsets.long(), r.row_token)
+    with pytest.raises(TypeError):
+        moe.grouped_gate_up(x, p["w_gate"], moe_layer["int8"]["w_up"],
+                            r.offsets, r.row_token)

@@ -338,14 +338,28 @@ def test_greedy_stream_equals_hf_generate(fam):
             assert n > 0 and r.generated[:n] == want[:n], (fam, p)
 
 
-def test_check_supported_refuses_moe_alone():
-    """Every dense registry entry and tiny builder builds; a config with
-    experts is refused (MoE is a later slice)."""
+def test_unknown_moe_impl_raises_the_jax_value_error():
+    """Nothing in the port refuses a MoE config any more; an unknown
+    ``moe_impl`` raises the JAX package's ValueError at the MoE MLP, from
+    both packages alike."""
+    from aws_k8s_ansible_provisioner_tpu.ops import moe as jmoe
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe as tmoe
+
+    jcfg = jconfig.tiny_qwen3_moe(moe_impl="dense")
+    tcfg = tconfig.tiny_qwen3_moe(moe_impl="dense")
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg)
+    layer = {k: {kk: vv[0] for kk, vv in v.items()}
+             for k, v in tparams["layers"].items()}
+    x = np.zeros((3, tcfg.hidden_size), np.float32)
+    with pytest.raises(ValueError) as want:
+        jmoe.moe_mlp(jcfg, jnp.asarray(x), jax.tree.map(
+            lambda a: a[0], jparams["layers"]))
+    with pytest.raises(ValueError) as got:
+        tmoe.moe_mlp(tcfg, torch.from_numpy(x), layer)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="moe_impl='dense'"):
+        tl.DecoderLM(tcfg, tparams)(torch.tensor([[3, 4]]),
+                                    torch.arange(2)[None])
     for cfg in tconfig.MODEL_REGISTRY.values():
-        tl.check_supported(cfg)
-    for fam in FAMILIES:
-        tl.check_supported(_configs(fam)[1])
-    moe = tconfig.tiny_qwen3(num_experts=8, num_experts_per_tok=2,
-                             moe_intermediate_size=32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.check_supported(moe)
+        assert cfg.moe_impl in ("ragged", "gshard")

@@ -581,23 +581,22 @@ def test_random_weights_path_still_warns(caplog):
 
 def test_registry_and_tiny_builders_equal_the_jax_ones():
     """Every port registry entry and tiny builder equals its JAX
-    counterpart field by field, and the port registers every dense JAX
-    entry (the MoE one waits for its slice). Mistral-7B-v0.1's
-    ``norm_eps`` is the one field apart: the port takes the checkpoint's
-    1e-5 where the JAX registry leaves 1e-6 (ROADMAP C10)."""
+    counterpart field by field, and the port registers every JAX entry,
+    Qwen3-30B-A3B (MoE) among them. Mistral-7B-v0.1's ``norm_eps`` is the
+    one field apart: the port takes the checkpoint's 1e-5 where the JAX
+    registry leaves 1e-6 (ROADMAP C10)."""
     from aws_k8s_ansible_provisioner_tpu import config as jconfig
     from aws_k8s_ansible_provisioner_tpu_torch import config as tconfig
 
-    dense = {k for k, v in jconfig.MODEL_REGISTRY.items()
-             if v.num_experts == 0}
-    assert set(tconfig.MODEL_REGISTRY) == dense
+    assert set(tconfig.MODEL_REGISTRY) == set(jconfig.MODEL_REGISTRY)
+    assert tconfig.MODEL_REGISTRY["Qwen/Qwen3-30B-A3B"].num_experts == 128
     for name, cfg in tconfig.MODEL_REGISTRY.items():
         want = dataclasses.asdict(jconfig.MODEL_REGISTRY[name])
         if name == "mistralai/Mistral-7B-v0.1":
             want["norm_eps"] = 1e-5
         assert dataclasses.asdict(cfg) == want, name
-    for builder in ("tiny_qwen3", "tiny_mistral", "tiny_llama",
-                    "tiny_gemma", "tiny_opt", "tiny_phi"):
+    for builder in ("tiny_qwen3", "tiny_qwen3_moe", "tiny_mistral",
+                    "tiny_llama", "tiny_gemma", "tiny_opt", "tiny_phi"):
         assert dataclasses.asdict(getattr(tconfig, builder)()) == \
             dataclasses.asdict(getattr(jconfig, builder)()), builder
         assert dataclasses.asdict(getattr(tconfig, builder)(num_layers=3)) \
@@ -606,13 +605,16 @@ def test_registry_and_tiny_builders_equal_the_jax_ones():
 
 def _write_family_checkpoint(path, fam: str) -> str:
     """A tiny HF directory of ``fam`` (``tests/test_model_parity.py``'s
-    builder, seeded) with the byte-level BPE tokenizer."""
+    builder, or ``tests/test_moe.py``'s for qwen3_moe; seeded) with the
+    byte-level BPE tokenizer."""
     from test_model_parity import _hf_gemma, _hf_phi
+    from test_moe import _hf_qwen3_moe
     from test_real_checkpoint import _write_byte_level_tokenizer
 
     from aws_k8s_ansible_provisioner_tpu import config as jconfig
 
-    build = {"phi": _hf_phi, "gemma": _hf_gemma}[fam]
+    build = {"phi": _hf_phi, "gemma": _hf_gemma,
+             "qwen3_moe": _hf_qwen3_moe}[fam]
     torch.manual_seed(5)
     model = build(getattr(jconfig, f"tiny_{fam}")(vocab_size=256))
     model.save_pretrained(path, safe_serialization=True)
@@ -620,10 +622,11 @@ def _write_family_checkpoint(path, fam: str) -> str:
     return str(path)
 
 
-@pytest.mark.parametrize("fam", ["phi", "gemma"])
+@pytest.mark.parametrize("fam", ["phi", "gemma", "qwen3_moe"])
 def test_family_checkpoint_serves_the_hf_greedy_stream(tmp_path, fam):
-    """A tiny phi (LayerNorm, parallel block, partial RoPE, biases) and a
-    tiny gemma (MQA, zero-centred norms, GeGLU, scaled embedding)
+    """A tiny phi (LayerNorm, parallel block, partial RoPE, biases), a
+    tiny gemma (MQA, zero-centred norms, GeGLU, scaled embedding) and a
+    tiny qwen3_moe (router and experts, written by ``save_pretrained``)
     directory served through the server's ``--checkpoint-dir`` flag on the
     CPU (``build_parser`` -> ``serving_config`` -> ``build_state``, as
     ``main`` does): each greedy completion over HTTP is HF ``generate``'s
@@ -638,8 +641,10 @@ def test_family_checkpoint_serves_the_hf_greedy_stream(tmp_path, fam):
     state = tserver.build_state(tserver.serving_config(args),
                                 device=args.device)
     cfg = state.engine.cfg
-    assert (cfg.parallel_block, cfg.norm_zero_centered) == \
-        ((True, False) if fam == "phi" else (False, True))
+    assert (cfg.parallel_block, cfg.norm_zero_centered,
+            cfg.num_experts) == {"phi": (True, False, 0),
+                                 "gemma": (False, True, 0),
+                                 "qwen3_moe": (False, False, 8)}[fam]
     srv = tserver.make_server(state, "127.0.0.1", 0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -704,3 +709,94 @@ def test_family_chat_templates_render_like_the_jax_server(tmp_path, fam):
             got = ours.render(messages, add_generation_prompt=gen)
             assert got == theirs.render(messages, add_generation_prompt=gen)
             assert "bye?" in got or len(messages) == 1
+
+
+def test_int8_checkpoint_load_quantizes_layer_by_layer(tmp_path):
+    """A qwen3_moe directory loaded for an int8 engine
+    (``load_checkpoint_cached(quantize=True)``, as ``build_state`` loads
+    it): every leaf bit for bit the bf16 tree's ``quantize_params``, the
+    int8 tree cached in a directory of its own and restored from it."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3_moe
+    from aws_k8s_ansible_provisioner_tpu_torch.models import checkpoint as ck
+    from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
+        load_checkpoint
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quantize_params
+
+    ckpt = _write_family_checkpoint(tmp_path / "tiny-moe", "qwen3_moe")
+    cfg = tiny_qwen3_moe(vocab_size=256)
+    want = quantize_params(load_checkpoint(ckpt, cfg, torch.bfloat16,
+                                           device="cpu"), cfg)
+    for attempt in ("miss", "hit"):
+        got = ck.load_checkpoint_cached(ckpt, cfg, torch.bfloat16,
+                                        device="cpu", quantize=True)
+        flat = dict(_leaves(got))
+        assert flat.keys() == dict(_leaves(want)).keys()
+        for path, t in _leaves(want):
+            assert flat[path].dtype == t.dtype, (attempt, path)
+            assert torch.equal(flat[path], t), (attempt, path)
+    assert (tmp_path / "tiny-moe" / "torch_cache" / "bfloat16-int8").is_dir()
+    assert got["layers"]["w_up"]["kernel"].dtype == torch.int8
+    assert got["layers"]["router"]["kernel"].dtype == torch.bfloat16
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def test_tiny_qwen3_moe_server_answers_like_the_jax_server():
+    """``--model tiny-qwen3-moe --device cpu``: the port's server builds
+    the JAX server's dry-run MoE config (4 layers, hidden 128, the byte
+    vocabulary) and, over the JAX server's random weights converted,
+    answers a greedy and a seeded completion as the JAX server does."""
+    import jax
+
+    from aws_k8s_ansible_provisioner_tpu.config import \
+        ServingConfig as JServing
+    from aws_k8s_ansible_provisioner_tpu.serving import server as jserver
+    from aws_k8s_ansible_provisioner_tpu_torch.models.convert import \
+        from_jax_params
+
+    serve = {**SERVE, "prefix_cache": False}
+    jstate = jserver.build_state(JServing(model="tiny-qwen3-moe", **serve))
+    jport = _free_port()
+    ready, stop = threading.Event(), threading.Event()
+    jth = threading.Thread(target=jserver.serve,
+                           args=(jstate, "127.0.0.1", jport, ready, stop),
+                           daemon=True)
+    jth.start()
+    assert ready.wait(60)
+    args = tserver.build_parser().parse_args(
+        ["--model", "tiny-qwen3-moe", "--device", "cpu"])
+    assert args.model == "tiny-qwen3-moe"
+    jcfg = jstate.engine.cfg
+    params = from_jax_params(jax.tree.map(np.asarray, jstate.engine.params),
+                             jcfg)
+    state = tserver.build_state(ServingConfig(model=args.model, **serve),
+                                params=params, device=args.device)
+    assert dataclasses.asdict(state.engine.cfg) == dataclasses.asdict(jcfg)
+    assert (jcfg.num_layers, jcfg.hidden_size, jcfg.num_experts) == \
+        (4, 128, 8)
+    srv = tserver.make_server(state, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    state.start_engine()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        for body in (_BODIES["greedy-ignore-eos"], _BODIES["seeded"]):
+            got = _post(base + "/v1/completions", body)
+            want = _post(f"http://127.0.0.1:{jport}/v1/completions", body)
+            assert got[0] == want[0] == 200
+            assert got[1]["choices"][0]["text"] == \
+                want[1]["choices"][0]["text"], body
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        state.stop_engine()
+        th.join(10)
+        stop.set()
+        jth.join(30)
