@@ -47,9 +47,16 @@ or a dequantized copy of the experts (29 GB a forward at Qwen3-30B-A3B):
   the int8 instances convert the weights in registers and apply the scale
   in the epilogue with the roundings above, never writing a dequantized
   copy; :func:`grouped_gate_up` takes ``w_gate`` and ``w_up`` in one
-  launch and writes ``silu(g) * u``. The grid is (output tiles, experts),
-  fixed by the shapes, so the decode graphs capture it; a CTA whose expert
-  has no rows exits before it reads a weight. At decode this is a
+  launch and writes ``silu(g) * u``. The weight columns are the MMA's M
+  side and an expert's rows its N side (a row tile of up to 32 rows, so a
+  decode group of 1 to 8 rows fills one n8 tile). The grid is one CTA an
+  SM, fixed by the device, so the decode graphs capture it: each CTA reads
+  the offsets on the device and its workers (a warp a weight) walk the
+  work items (expert, column tile, row tile); an expert with no rows gives
+  no item and costs no byte. A warp owns the whole contraction of its
+  tile, so each output sums its products in one float32 chain over k, as
+  the plain version's matmul does: the result is the plain one's bit for
+  bit and never depends on scheduling. At serving sizes this is a
   bandwidth kernel: the bytes are the touched experts' weights.
 
 Each wrapper takes its plain version (:func:`route_sort_plain`,
@@ -69,14 +76,15 @@ import torch
 import torch.nn.functional as F
 
 from aws_k8s_ansible_provisioner_tpu_torch.config import ModelConfig
-from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build
+from aws_k8s_ansible_provisioner_tpu_torch.ops import cuda_build, split_kv
 
 # limits of the CUDA kernels (csrc/moe_route.cu kMaxExperts, kMaxTopK;
-# csrc/moe_grouped.cu kBN, kBK)
+# csrc/moe_grouped.cu kMaxExperts, a tile row's 128 bytes of int8
+# columns, its 32-deep stages)
 MAX_EXPERTS = 256
 MAX_TOP_K = 32
-GROUPED_TILE_N = 64
-GROUPED_TILE_K = 64
+GROUPED_TILE_N = 128
+GROUPED_TILE_K = 32
 # tokens of one block of the route kernel's count pass
 # (csrc/moe_route.cu kBlockTokens)
 ROUTE_BLOCK_TOKENS = 32
@@ -248,7 +256,7 @@ def _grouped_lib():
     fn = cuda_build.load("moe_grouped").moe_grouped
     if fn.argtypes is None:
         fn.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                       _P]
+                       _I, _P]
         fn.restype = _I
     return fn
 
@@ -256,10 +264,10 @@ def _grouped_lib():
 def _check_expert(what, p, e, k_in, n_out, dev):
     kernel, scale = p["kernel"], p.get("scale")
     if kernel.shape != (e, k_in, n_out) or kernel.device != dev \
-            or not kernel.is_contiguous():
+            or not kernel.is_contiguous() or kernel.data_ptr() % 16:
         raise ValueError(f"{what}: expert kernels {tuple(kernel.shape)} on "
-                         f"{kernel.device}, expected contiguous "
-                         f"{(e, k_in, n_out)} on {dev}")
+                         f"{kernel.device}, expected contiguous and 16-byte "
+                         f"aligned {(e, k_in, n_out)} on {dev}")
     if scale is None:
         if kernel.dtype != torch.bfloat16:
             raise TypeError(f"{what}: bf16 or int8 expert kernels expected, "
@@ -287,6 +295,8 @@ def _grouped(what, x, p0, p1, offsets, row_src):
                          f"{tuple(p0['kernel'].shape)} (K and out must be "
                          f"multiples of {GROUPED_TILE_K} and "
                          f"{GROUPED_TILE_N})")
+    if e > MAX_EXPERTS:
+        raise ValueError(f"{what}: {e} experts (at most {MAX_EXPERTS})")
     quant = "scale" in p0
     for p in (p0,) if p1 is None else (p0, p1):
         if ("scale" in p) != quant:
@@ -315,7 +325,7 @@ def _grouped(what, x, p0, p1, offsets, row_src):
             p0["kernel"].data_ptr(), ptr(p0.get("scale")),
             None if p1 is None else p1["kernel"].data_ptr(),
             None if p1 is None else ptr(p1.get("scale")), int(quant),
-            offsets.data_ptr(), out.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), split_kv.sm_count(dev),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -328,8 +338,9 @@ def grouped_matmul(x: torch.Tensor, p: dict, offsets: torch.Tensor,
     expert e (``offsets``), src(r) = ``row_src[r]`` or r; ``p`` is one
     layer's expert leaf ({"kernel" [E, K, out]} bf16, or int8 beside
     "scale" [E, out] float32). CPU tensors take
-    :func:`grouped_matmul_plain`; CUDA tensors (bf16 x, K and out multiples
-    of 64) launch the grouped kernel or raise."""
+    :func:`grouped_matmul_plain`; CUDA tensors (bf16 x, K a multiple of
+    32 and out of 128, at most MAX_EXPERTS experts) launch the grouped
+    kernel or raise."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, p, offsets, row_src)
     out, quant = _grouped("grouped_matmul", x, p, None, offsets, row_src)

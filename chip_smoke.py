@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME[,NAME...]]
 
 Runs from the root of a checkout and needs one CUDA card, nvcc and the
 port's package beside this file; it exits non-zero without printing a
-result when either is missing. Phases, in order (any failure raises):
+result when either is missing. ``--phases`` runs only the named phases
+(``PHASES``: kernels, kernels-window, kernels-sp, kernels-families,
+kernels-moe, sampling, engine, server-process, checkpoint, guided-lora,
+prefix, spec, draft, dense, mistral, families, moe, sp; the build always
+runs); the kernels line then lists the rows whose kernels phase and named
+run both ran, each still required to have launched there. With no
+argument every phase runs. Phases, in order (any failure raises):
 
 1. build: nvcc compiles every kernel of the serving path from ``csrc/``
    (one process per source, all started together);
@@ -249,10 +255,12 @@ result when either is missing. Phases, in order (any failure raises):
    (H 2048, expert width 768, 128 experts, top 8) over one layer's bf16 and
    int8 experts, against their plain versions, at 8 and 32 decode tokens,
    a verify of 32 x 5, a mixed dispatch of 32 + 512 rows, every token on
-   the same 8 experts, only even experts live, and router ties: the
+   the same 8 experts, only even experts live, router ties and a batch
+   prefill of 2048 tokens: the
    route-and-sort's experts, offsets, sorted rows and positions exact and
    its weights within one bf16 ulp; the grouped gate + up (silu(g) * u)
-   and down products within one bf16 ulp a row; each timed beside its
+   and down products within one bf16 ulp a row (the count of outputs that
+   differ from plain at all printed); each timed beside its
    plain version, its bound and ``torch._grouped_mm`` on bf16 weights (a
    per-expert matmul loop where the card's torch lacks it). Then the model
    at full width and depth (48 layers) on seeded weights drawn and
@@ -6456,10 +6464,11 @@ MOE_GROUPED_JAX = ("none (XLA: aws_k8s_ansible_provisioner_tpu/ops/moe.py:48 "
                    "_expert_ffn_ragged, ragged_dot)")
 # (case, tokens): decode horizons of 8 and 32 slots, a verify of 32 x 5, a
 # mixed dispatch of 32 + 512 rows, every token on the same 8 experts, only
-# even experts live, router ties
+# even experts live, router ties, a batch prefill of prompts that sum to
+# 2048 tokens (16,384 sorted rows, ~128 an expert)
 MOE_CASES = (("decode 8", 8), ("decode 32", 32), ("verify 32x5", 160),
              ("mixed 32+512", 544), ("skewed", 64), ("empty experts", 24),
-             ("ties", 40))
+             ("ties", 40), ("prefill 2048", 2048))
 MOE_PROMPTS = (9, 40, 120, 256, 300, 450, 600, 700)
 MOE_NEW = 48
 # one decode step through the kernels vs the plain versions over 48 layers
@@ -6658,6 +6667,7 @@ def phase_kernels_moe(torch, np):
                 check = _ulp_rows(torch, f"{inst}{sfx} {label}", got, want,
                                   m, lambda bad: f"case {case}",
                                   max_ulps=1.0)
+                check["differ"] = int((got != want).sum())
                 lib_fn, lib_name = _grouped_library(torch, lib[0], lib[1],
                                                     r.offsets)
                 nbytes = (touched * kin * width * wb * nw
@@ -6672,7 +6682,8 @@ def phase_kernels_moe(torch, np):
                     device_ms(torch, lib_fn), nbytes,
                     2.0 * m * kin * width * nw,
                     extra=f", worst row {check['worst_row_max_ulps']:.2f} "
-                          f"ulp; library: {lib_name}")
+                          f"ulp, {check['differ']} of {got.numel()} outputs "
+                          f"differ from plain; library: {lib_name}")
                 out[inst + sfx][case] = res
             del a, a_ref, y, y_ref
         torch.cuda.empty_cache()
@@ -6924,120 +6935,9 @@ def _free(torch):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    import aws_k8s_ansible_provisioner_tpu_torch  # noqa: F401  (needs the repo)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed ({smi.returncode})"
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t_start = time.monotonic()
-    _phase("build", phase_build)
-    kern = _phase("kernels", phase_kernels, torch, np)
-    wkern = _phase("kernels, window", phase_kernels_window, torch, np)
-    skern = _phase("kernels, sp", phase_kernels_sp, torch, np)
-    fkern = _phase("kernels, families", phase_kernels_families, torch, np)
-    mkern = _phase("kernels, moe", phase_kernels_moe, torch, np)
-    _phase("sampling", phase_sampling, torch, np)
-    runs = {}
-    for kv_dtype in ("auto", "int8"):
-        t0 = time.monotonic()
-        engine, launches = phase_engine(torch, np, kv_dtype)
-        phase_profile(torch, np, engine)
-        phase_logits(torch, np, engine)
-        if kv_dtype == "int8":
-            _phase("server lifecycle", phase_server, engine, True)
-            _phase("pipeline, paged", phase_pipeline, torch, np, engine)
-        else:
-            _phase("server, fields and streams", phase_server, engine,
-                   False, True)
-            _phase("request fields", phase_fields, torch, np, engine)
-            _phase("failover", phase_failover, torch, np, engine)
-            _phase("prefill batch (C22)", phase_prefill_batch, torch, np)
-        runs[kv_dtype] = launches
-        del engine
-        _free(torch)
-        log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
-    _phase("server process", phase_server_process)
-    _phase("checkpoint", phase_checkpoint, torch, np)
-    _free(torch)
-    _phase("guided and LoRA", phase_guided_lora, torch, np)
-    _free(torch)
-    for kv_dtype in ("auto", "int8"):
-        _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)
-        _free(torch)
-    for kv_dtype in ("auto", "int8"):
-        t0 = time.monotonic()
-        engine, launches, _ = phase_spec(torch, np, kv_dtype)
-        phase_verify(torch, np, engine)
-        runs["spec " + kv_dtype] = launches
-        del engine
-        _free(torch)
-        log(f"[wall] spec {kv_dtype}: {time.monotonic() - t0:.1f}s")
-    runs["draft"] = _phase("draft", phase_draft, torch, np)["self"][
-        "launches"]
-    # the dense engine (paged=False): bf16 KV through K5 (4 slots per
-    # CTA), int8 KV through K4-int8, int8 prompt lookup through K7-int8
-    # and K5-int8
-    for kv_dtype, bb in (("auto", 4), ("int8", 0)):
-        t0 = time.monotonic()
-        engine, runs["dense " + kv_dtype] = phase_engine(
-            torch, np, kv_dtype, paged=False, bblock=bb)
-        phase_profile(torch, np, engine)
-        phase_logits(torch, np, engine)
-        if kv_dtype == "int8":
-            phase_server(engine)
-            _phase("pipeline, dense", phase_pipeline, torch, np, engine)
-        del engine
-        _free(torch)
-        log(f"[wall] dense {kv_dtype}: {time.monotonic() - t0:.1f}s")
-    t0 = time.monotonic()
-    engine, runs["dense spec int8"], _ = phase_spec(torch, np, "int8",
-                                                    paged=False, bblock=4)
-    del engine
-    _free(torch)
-    log(f"[wall] dense spec int8: {time.monotonic() - t0:.1f}s")
-    for kv_dtype in ("auto", "int8"):
-        t0 = time.monotonic()
-        engine, runs["mistral " + kv_dtype] = phase_mistral(torch, np,
-                                                            kv_dtype)
-        phase_server(engine)
-        del engine
-        _free(torch)
-        log(f"[wall] mistral {kv_dtype}: {time.monotonic() - t0:.1f}s")
-    runs["mistral spec"] = _phase("mistral spec", phase_mistral_spec, torch,
-                                  np)
-    _free(torch)
-    runs["mistral draft"] = _phase("mistral draft", phase_mistral_draft,
-                                   torch, np)
-    _free(torch)
-    t0 = time.monotonic()
-    engine, runs["mistral dense int8"] = phase_mistral(
-        torch, np, "int8", paged=False, bblock=4)
-    del engine
-    _free(torch)
-    log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
-    # the Llama, Gemma, Phi and OPT families at full width and depth
-    runs.update(_phase("families", phase_families, torch, np))
-    # Qwen3-30B-A3B (MoE) at full width and depth, int8 weights; prompt
-    # lookup; the bf16 instances at 4 layers
-    moe_runs, _ = _phase("moe", phase_moe, torch, np)
-    runs.update(moe_runs)
-    # sequence-parallel serving: the sp 1 dense engine's greedy streams are
-    # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
+def _sp_phases(torch, np, runs):
+    """The sp 1 dense engine (the yardstick), then sp 4 and 2 over bf16 KV
+    and sp 4 over int8 KV, their launches into ``runs``."""
     t_sp = time.monotonic()
     params = _sp_params(torch)
     ref_engine, _, ref_reqs, ref_gaps = phase_sp_engine(torch, np, params,
@@ -7061,6 +6961,174 @@ def main() -> int:
     del params
     _free(torch)
     log(f"[wall] sp phases: {time.monotonic() - t_sp:.1f}s")
+
+
+# the phases of ``--phases``, in the order they run
+PHASES = ("kernels", "kernels-window", "kernels-sp", "kernels-families",
+          "kernels-moe", "sampling", "engine", "server-process",
+          "checkpoint", "guided-lora", "prefix", "spec", "draft", "dense",
+          "mistral", "families", "moe", "sp")
+
+
+class _NotRun(dict):
+    """The result of a kernels phase left out by ``--phases``: indexing it
+    gives itself, so that the kernels table can name its rows, and no row
+    of it is listed."""
+
+    def __getitem__(self, key):
+        return self
+
+
+NOT_RUN = _NotRun()
+
+
+def _selected(argv) -> tuple:
+    """The phases named by ``--phases NAME[,NAME...]`` (all by default)."""
+    if not argv:
+        return PHASES
+    names = tuple(n for n in argv[1].split(",") if n) \
+        if len(argv) == 2 and argv[0] == "--phases" else ()
+    unknown = [n for n in names if n not in PHASES]
+    if unknown or not names:
+        raise SystemExit(f"usage: chip_smoke.py [--phases NAME[,NAME...]]; "
+                         f"unknown {unknown or argv}; phases: "
+                         f"{', '.join(PHASES)}")
+    return names
+
+
+def main(argv=()) -> int:
+    import numpy as np
+    import torch
+
+    want = set(_selected(list(argv)))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import aws_k8s_ansible_provisioner_tpu_torch  # noqa: F401  (needs the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed ({smi.returncode})"
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+        f"phases {[p for p in PHASES if p in want]}")
+    t_start = time.monotonic()
+    _phase("build", phase_build)
+
+    def kernels(name, label, fn):
+        return _phase(label, fn, torch, np) if name in want else NOT_RUN
+
+    kern = kernels("kernels", "kernels", phase_kernels)
+    wkern = kernels("kernels-window", "kernels, window", phase_kernels_window)
+    skern = kernels("kernels-sp", "kernels, sp", phase_kernels_sp)
+    fkern = kernels("kernels-families", "kernels, families",
+                    phase_kernels_families)
+    mkern = kernels("kernels-moe", "kernels, moe", phase_kernels_moe)
+    if "sampling" in want:
+        _phase("sampling", phase_sampling, torch, np)
+    runs = {}
+    for kv_dtype in ("auto", "int8") if "engine" in want else ():
+        t0 = time.monotonic()
+        engine, launches = phase_engine(torch, np, kv_dtype)
+        phase_profile(torch, np, engine)
+        phase_logits(torch, np, engine)
+        if kv_dtype == "int8":
+            _phase("server lifecycle", phase_server, engine, True)
+            _phase("pipeline, paged", phase_pipeline, torch, np, engine)
+        else:
+            _phase("server, fields and streams", phase_server, engine,
+                   False, True)
+            _phase("request fields", phase_fields, torch, np, engine)
+            _phase("failover", phase_failover, torch, np, engine)
+            _phase("prefill batch (C22)", phase_prefill_batch, torch, np)
+        runs[kv_dtype] = launches
+        del engine
+        _free(torch)
+        log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    if "server-process" in want:
+        _phase("server process", phase_server_process)
+    if "checkpoint" in want:
+        _phase("checkpoint", phase_checkpoint, torch, np)
+        _free(torch)
+    if "guided-lora" in want:
+        _phase("guided and LoRA", phase_guided_lora, torch, np)
+        _free(torch)
+    for kv_dtype in ("auto", "int8") if "prefix" in want else ():
+        _phase(f"prefix {kv_dtype}", phase_prefix, torch, np, kv_dtype)
+        _free(torch)
+    for kv_dtype in ("auto", "int8") if "spec" in want else ():
+        t0 = time.monotonic()
+        engine, launches, _ = phase_spec(torch, np, kv_dtype)
+        phase_verify(torch, np, engine)
+        runs["spec " + kv_dtype] = launches
+        del engine
+        _free(torch)
+        log(f"[wall] spec {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    if "draft" in want:
+        runs["draft"] = _phase("draft", phase_draft, torch, np)["self"][
+            "launches"]
+    if "dense" in want:
+        # the dense engine (paged=False): bf16 KV through K5 (4 slots per
+        # CTA), int8 KV through K4-int8, int8 prompt lookup through K7-int8
+        # and K5-int8
+        for kv_dtype, bb in (("auto", 4), ("int8", 0)):
+            t0 = time.monotonic()
+            engine, runs["dense " + kv_dtype] = phase_engine(
+                torch, np, kv_dtype, paged=False, bblock=bb)
+            phase_profile(torch, np, engine)
+            phase_logits(torch, np, engine)
+            if kv_dtype == "int8":
+                phase_server(engine)
+                _phase("pipeline, dense", phase_pipeline, torch, np, engine)
+            del engine
+            _free(torch)
+            log(f"[wall] dense {kv_dtype}: {time.monotonic() - t0:.1f}s")
+        t0 = time.monotonic()
+        engine, runs["dense spec int8"], _ = phase_spec(
+            torch, np, "int8", paged=False, bblock=4)
+        del engine
+        _free(torch)
+        log(f"[wall] dense spec int8: {time.monotonic() - t0:.1f}s")
+    if "mistral" in want:
+        for kv_dtype in ("auto", "int8"):
+            t0 = time.monotonic()
+            engine, runs["mistral " + kv_dtype] = phase_mistral(torch, np,
+                                                                kv_dtype)
+            phase_server(engine)
+            del engine
+            _free(torch)
+            log(f"[wall] mistral {kv_dtype}: "
+                f"{time.monotonic() - t0:.1f}s")
+        runs["mistral spec"] = _phase("mistral spec", phase_mistral_spec,
+                                      torch, np)
+        _free(torch)
+        runs["mistral draft"] = _phase("mistral draft", phase_mistral_draft,
+                                       torch, np)
+        _free(torch)
+        t0 = time.monotonic()
+        engine, runs["mistral dense int8"] = phase_mistral(
+            torch, np, "int8", paged=False, bblock=4)
+        del engine
+        _free(torch)
+        log(f"[wall] mistral dense int8: {time.monotonic() - t0:.1f}s")
+    # the Llama, Gemma, Phi and OPT families at full width and depth
+    if "families" in want:
+        runs.update(_phase("families", phase_families, torch, np))
+    # Qwen3-30B-A3B (MoE) at full width and depth, int8 weights; prompt
+    # lookup; the bf16 instances at 4 layers
+    if "moe" in want:
+        moe_runs, _ = _phase("moe", phase_moe, torch, np)
+        runs.update(moe_runs)
+    # sequence-parallel serving: the sp 1 dense engine's greedy streams are
+    # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
+    if "sp" in want:
+        _sp_phases(torch, np, runs)
     keys = ("max_abs_err", "mean_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -7154,6 +7222,8 @@ def main() -> int:
             # the split-KV combine, part of K1's and the dense kernels'
             # port: it replaces no pallas_call of its own
             ("split_merge", MERGE_SRC, None, kern["merge"], "auto")):
+        if res is NOT_RUN or run not in runs:
+            continue
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": (f"{TPU_KERNELS}:{line}" if line
                                      else "none (part of K1, K4-K7)"),
@@ -7163,7 +7233,10 @@ def main() -> int:
                         **{k: res[k] for k in (
                             "graph_ms", "chain_graph_ms", "standalone_ms",
                             "standalone_device_ms") if k in res}})
-    for name, src, line, res, run, key in _family_kernel_rows(fkern):
+    for name, src, line, res, run, key in (
+            _family_kernel_rows(fkern) if fkern is not NOT_RUN else ()):
+        if run not in runs:
+            continue
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": f"{TPU_KERNELS}:{line}",
                         "launches": runs[run][key],
@@ -7179,6 +7252,8 @@ def main() -> int:
             ("moe_gate_up", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe bf16"),
             ("moe_grouped", MOE_GROUPED_SRC, MOE_GROUPED_JAX, "moe bf16")):
         res = mkern[name]["decode 32"]
+        if res is NOT_RUN or run not in runs:
+            continue
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": runs[run][name],
                         **{k: res[k] for k in keys}})
@@ -7193,7 +7268,10 @@ def main() -> int:
                  if v and ("attention" in k or "attend" in k)}
         log(f"[split] {run}: split_merge {counts['split_merge']} beside "
             f"{users}")
-    log(f"[done] {time.monotonic() - t_start:.1f}s")
+    seconds = time.monotonic() - t_start
+    log(f"[done] {seconds:.1f}s")
+    print(f"chip_smoke: {len(kernels)} kernel rows, phases "
+          f"{[p for p in PHASES if p in want]}, {seconds:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7203,4 +7281,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

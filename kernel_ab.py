@@ -2,8 +2,8 @@
 """The attention kernels' times, and the engine's decode substep, in several
 checkouts of the port, in turns, on one card.
 
-    python3 kernel_ab.py [--engine-only | --sp-only | --only WORD[,WORD...]
-                          | --bits] PATH ...
+    python3 kernel_ab.py [--engine-only [WORD[,WORD...]] | --sp-only
+                          | --only WORD[,WORD...] | --bits] PATH ...
 
 Each PATH is the root of a checkout that holds
 ``aws_k8s_ansible_provisioner_tpu_torch/``. For each PATH in the order
@@ -51,12 +51,26 @@ capture time and device memory. A checkout without graphs or a pipeline
 runs the same cases.
 ``--engine-only`` times the engines alone: the host's clock varies from
 run to run by more than a kernel edit moves it, so give many alternating
-runs (A B A B A B A B). ``--sp-only`` times, the same way, only the
+runs (A B A B A B A B); ``--engine-only moe`` (words before the paths)
+times only the engines whose label holds one of the words, among them
+Qwen3-30B-A3B (48 layers, 8 slots, bf16 paged KV, seeded random weights
+drawn and quantized to int8 layer by layer as ``chip_smoke.phase_moe``
+draws them), which only a word selects; its rows add the grouped expert
+kernel's device time a substep. ``--sp-only`` times, the same way, only the
 sequence-parallel decode of ``chip_smoke.py``'s sp phase: Qwen3-0.6B dense
 over 4 sequence shards on one card (4 slots of 32768 rows after prompts of
 40-27,000 tokens, bf16 KV), an eager, synchronous dispatch. ``--only spec,K7`` times only the kernel cases
 whose name holds one of the words (here the eight verify instances), and
-no engine. ``--bits`` times nothing: it runs the fused q/k prologue and
+no engine. ``--only moe`` times the MoE kernels of ``ops/moe.py`` at
+``chip_smoke.phase_kernels_moe``'s shapes (one layer of Qwen3-30B-A3B's
+experts, bf16 and int8) and ``chip_smoke.MOE_CASES`` (this script's
+copy of ``chip_smoke.py``): the route-and-sort and the four grouped
+instances (gate + up and down, bf16 and int8), each case with its bound
+(``bound_ms``: the touched experts' weights, scales, rows and outputs
+once over 3.35 TB/s, or its operations over 989 TFLOP/s) and the device
+time of ``torch._grouped_mm`` on bf16 weights (``library_ms``); a
+checkout whose ``ops/moe.py`` lacks the kernels is reported as lacking
+them. ``--bits`` times nothing: it runs the fused q/k prologue and
 row write (paged and dense, bf16 and int8 KV) at Qwen3-0.6B's decode rows
 (q/k RMSNorm and RoPE) and Mistral-7B's (RoPE only), head dim 128, on the
 same seeded inputs in each checkout, and compares every output (q after
@@ -90,6 +104,7 @@ from __future__ import annotations
 import gc
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -405,6 +420,11 @@ ENGINES = (("qwen3 paged bf16", "qwen3", "auto", True, 0),
            ("mistral dense int8", "mistral", "int8", False, 4))
 
 
+# the Qwen3-30B-A3B engine, timed only when a word of ``--engine-only``
+# names it
+MOE_ENGINES = (("moe qwen3-30b-a3b paged bf16", "moe", "auto", True, 0),)
+
+
 def _build_engine(torch, model, kv_dtype, paged, bblock):
     """Qwen3-0.6B (32 slots x 2048, prefill_chunk 256) or Mistral-7B-v0.1
     (16 slots x 8192, prefill_chunk 512), seeded random weights quantized
@@ -417,6 +437,16 @@ def _build_engine(torch, model, kv_dtype, paged, bblock):
         quantize_params
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
 
+    if model == "moe":
+        cfg = config.QWEN3_30B_A3B
+        serving = config.ServingConfig(
+            model=cfg.name, max_decode_slots=8, prefill_chunk=256,
+            derived_seed=0, kv_dtype=kv_dtype, paged=paged,
+            decode_bblock=bblock)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+        return Engine(cfg, params, serving, device="cuda")
     if model == "qwen3":
         cfg = config.QWEN3_0_6B
         serving = config.ServingConfig(prefill_chunk=256, derived_seed=0,
@@ -537,6 +567,8 @@ def _time_decode(torch, out, label, engine, setup_s, prompts, max_tokens):
               if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ops = sum(e.count for e in events if e.self_device_time_total > 0)
+    grouped = sum(e.self_device_time_total for e in events
+                  if "grouped_kernel" in e.key) / 1e3
     # the row write's device time a launch (a graph node under a replay)
     writes = [e for e in events if "cache_write" in e.key and e.count]
     write_us = (sum(e.self_device_time_total for e in writes)
@@ -551,6 +583,7 @@ def _time_decode(torch, out, label, engine, setup_s, prompts, max_tokens):
         "device_ops_per_substep": ops / (4 * horizon),
         "idle_share": 1 - busy / prof_ms if busy else float("nan"),
         "row_write_us": write_us,
+        "grouped_ms_per_substep": grouped / (4 * horizon),
         "setup_s": setup_s,
         "capture_s": dec.capture_s if dec is not None else 0.0,
         "graph_pool_mib": dec.pool_bytes / 2**20 if dec is not None
@@ -619,10 +652,104 @@ def _same_bits(torch, a, b) -> bool:
         a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
 
 
+def _chip_smoke():
+    """This script's ``chip_smoke.py`` (the MoE cases and helpers), whatever
+    checkout is first on the path."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab_chip_smoke",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _moe(torch, np, ctx):
+    """The MoE kernels of the checkout (see ``--only moe``)."""
+    import importlib
+
+    moe = importlib.import_module(
+        "aws_k8s_ansible_provisioner_tpu_torch.ops.moe")
+    if not all(hasattr(moe, f) for f in ("route_sort", "grouped_gate_up",
+                                         "grouped_matmul")):
+        ctx["out"]["moe"] = {"lacking": 1.0}
+        return
+    from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_30B_A3B
+    from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
+        quant_kernel_chunked
+
+    cs = _chip_smoke()
+    cfg = QWEN3_30B_A3B
+    H, I, E, k = (cfg.hidden_size, cfg.moe_intermediate_size,
+                  cfg.num_experts, cfg.num_experts_per_tok)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(200)
+    layer = {"bf16": {}, "int8": {}}
+    for name, shape in (("w_gate", (E, H, I)), ("w_up", (E, H, I)),
+                        ("w_down", (E, I, H))):
+        w = (0.02 * torch.randn(shape, generator=gen, device="cuda")
+             ).bfloat16()
+        layer["bf16"][name] = {"kernel": w}
+        q, sc = quant_kernel_chunked(w, 1)
+        layer["int8"][name] = {"kernel": q, "scale": sc}
+    gate_up_bf16 = torch.cat([layer["bf16"]["w_gate"]["kernel"],
+                              layer["bf16"]["w_up"]["kernel"]], -1)
+
+    def extra(key, nbytes, ops, lib):
+        row = ctx["out"].get(key)
+        if row is None:
+            return
+        t_bytes, t_ops = nbytes / 3.35e12, ops / 989e12
+        row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        row["library_ms"] = _times(torch, lib)[1] if lib else float("nan")
+
+    for i, (case, n) in enumerate(cs.MOE_CASES):
+        logits = cs._moe_logits(torch, np, case, n, 210 + i, E, k)
+        r = moe.route_sort(logits, k, True, torch.bfloat16)
+        counts = (r.offsets[1:] - r.offsets[:-1]).cpu()
+        touched = int((counts > 0).sum())
+        m = n * k
+        key = f"moe route_sort {case}"
+        _case(torch, ctx, key, lambda: moe.route_sort(logits, k, True,
+                                                      torch.bfloat16))
+        extra(key, n * E * 4 + m * 18 + (E + 1) * 4, 0, None)
+        x = torch.randn((n, H), generator=gen, device="cuda").bfloat16()
+        xs = x.index_select(0, r.row_token)
+        a = moe.grouped_gate_up_plain(x, layer["bf16"]["w_gate"],
+                                      layer["bf16"]["w_up"], r.offsets,
+                                      r.row_token)
+        lib_up, _ = cs._grouped_library(torch, xs, gate_up_bf16, r.offsets)
+        lib_down, _ = cs._grouped_library(torch, a,
+                                          layer["bf16"]["w_down"]["kernel"],
+                                          r.offsets)
+        for quant in (False, True):
+            p = layer["int8" if quant else "bf16"]
+            wb, kind = (1, "int8") if quant else (2, "bf16")
+            for inst, fn, width, kin, nw, lib in (
+                    ("gate_up", lambda: moe.grouped_gate_up(
+                        x, p["w_gate"], p["w_up"], r.offsets, r.row_token),
+                     I, H, 2, lib_up),
+                    ("down", lambda: moe.grouped_matmul(
+                        a, p["w_down"], r.offsets), H, I, 1, lib_down)):
+                key = f"moe {kind} {inst} {case}"
+                _case(torch, ctx, key, fn)
+                nbytes = (touched * kin * width * wb * nw
+                          + (touched * width * 4 * nw if quant else 0)
+                          + (n * H * 2 if inst == "gate_up" else m * I * 2)
+                          + m * 4 + (E + 1) * 4 + m * width * 2)
+                extra(key, nbytes, 2.0 * m * kin * width * nw, lib)
+        del a, xs, x
+        torch.cuda.empty_cache()
+
+
 def one(path: str, engine_only: bool = False, only=(),
-        sp_only: bool = False, bits: str = "") -> dict:
+        sp_only: bool = False, bits: str = "", engines=()) -> dict:
     """Times of the checkout at ``path`` (run in its own process); with
-    ``engine_only`` the engine's substeps alone; with ``only`` (words) the
+    ``engine_only`` the engine's substeps alone (``engines``: words, the
+    engines whose label holds one of them); with ``only`` (words) the
     kernel cases named by one of them alone; with ``sp_only`` the sp 4
     engine's substeps (bf16 KV) alone."""
     sys.path.insert(0, path)
@@ -651,8 +778,13 @@ def one(path: str, engine_only: bool = False, only=(),
         _sp_engine(torch, np, out, "auto", 4)
         return out
     if not engine_only:
-        _kernels(torch, np, da, pa, ctx)
-    for case in ENGINES if not only else ():
+        if not only or any(w != "moe" for w in only):
+            _kernels(torch, np, da, pa, ctx)
+        if any("moe" in w for w in only):
+            _moe(torch, np, ctx)
+    chosen = [c for c in ENGINES + MOE_ENGINES
+              if any(w in c[0] for w in engines)] if engines else ENGINES
+    for case in chosen if not only else ():
         _engine(torch, np, out, *case)
     return out
 
@@ -718,15 +850,18 @@ def main() -> int:
     engine_only = args[:1] == ["--engine-only"]
     sp_only = args[:1] == ["--sp-only"]
     bits = args[:1] == ["--bits"]
-    only = ()
+    only, engines = (), ()
     if args[:1] == ["--only"] and len(args) > 1:
         only = tuple(args[1].split(","))
-    flags = args[:1] if engine_only or sp_only or bits else \
-        args[:2] if only else []
+    # words after --engine-only (not a checkout's directory) pick engines
+    if engine_only and len(args) > 1 and not os.path.isdir(args[1]):
+        engines = tuple(args[1].split(","))
+    flags = args[:2] if only or engines else \
+        args[:1] if engine_only or sp_only or bits else []
     if one_path is not None:
         bits_file = args[1] if bits else ""
         print(json.dumps(one(one_path, engine_only, only, sp_only,
-                             bits_file)))
+                             bits_file, engines)))
         return 0
     paths = args[len(flags):]
     if not paths:

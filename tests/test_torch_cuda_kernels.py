@@ -2231,10 +2231,14 @@ def test_ragged_chunk_body_at_d256(dev, quant, G, hkv, window):
 MOE_H, MOE_I, MOE_E, MOE_K = 2048, 768, 128, 8
 # tokens of each case at Qwen3-30B-A3B's widths: decode horizons of 8 and
 # 32 slots, a verify of 32 x 5, a mixed dispatch of 32 + 512 rows, every
-# token on the same 8 experts, only even experts live, router ties
+# token on the same 8 experts, only even experts live, router ties, a batch
+# prefill of 2048 tokens (~128 rows an expert)
 MOE_CASES = {"decode 8": 8, "decode 32": 32, "verify 32x5": 160,
              "mixed 32+512": 544, "skewed": 64, "empty experts": 24,
-             "ties": 40}
+             "ties": 40, "prefill 2048": 2048}
+# rows of one expert's group: empty, inside one n8 tile, at and past its
+# edge, at and past a 32-row tile's and two's, past four
+MOE_GROUP_SIZES = (0, 1, 7, 8, 9, 63, 64, 65, 129)
 
 
 def _moe_logits(case, seed):
@@ -2294,13 +2298,41 @@ def test_moe_route_sort_matches_plain(dev, case):
         assert (counts[1::2] == 0).all()
 
 
+def _grouped_pair(moe, p, x, offsets, row_src, plain):
+    """The gate + up product of ``x`` (rows through ``row_src`` or none),
+    then the down product of its plain result over the same offsets (rows
+    through ``row_src`` again when given): the kernels or, ``plain``, the
+    plain versions."""
+    up = moe.grouped_gate_up_plain if plain else moe.grouped_gate_up
+    down = moe.grouped_matmul_plain if plain else moe.grouped_matmul
+    a = up(x, p["w_gate"], p["w_up"], offsets, row_src)
+    a_ref = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"], offsets,
+                                      row_src)
+    down_src = None if row_src is None else torch.arange(
+        a_ref.shape[0], dtype=torch.int32, device=x.device).flip(0)
+    down_in = a_ref if down_src is None else a_ref.flip(0).contiguous()
+    return a, down(down_in, p["w_down"], offsets, down_src)
+
+
+def _check_grouped(moe, p, x, offsets, row_src, m):
+    a, y = _grouped_pair(moe, p, x, offsets, row_src, False)
+    a_ref, y_ref = _grouped_pair(moe, p, x, offsets, row_src, True)
+    torch.cuda.synchronize()
+    assert a.shape == (m, MOE_I) and y.shape == (m, MOE_H)
+    assert _rows_within_ulps(a, a_ref, m, 1.0, 0.5)
+    assert _rows_within_ulps(y, y_ref, m, 1.0, 0.5)
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["row_src", "rows"])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("case", sorted(MOE_CASES))
-def test_moe_grouped_matches_plain(dev, moe_layer, quant, case):
+def test_moe_grouped_matches_plain(dev, moe_layer, quant, case, gather):
     """The grouped gate + up product (silu(g) * u) over the sorted rows
-    gathered from the tokens, then the grouped down product, against the
-    plain per-expert loop: each row within one bf16 ulp of its largest
-    value (the products sum in another order)."""
+    (gathered from the tokens through ``row_src``, or the sorted rows
+    themselves), then the grouped down product (its rows through a
+    reversing ``row_src``, or none), against the plain per-expert loop:
+    each row within one bf16 ulp of its largest value (the products sum in
+    another order)."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
 
     p = moe_layer["int8" if quant else "bf16"]
@@ -2309,23 +2341,98 @@ def test_moe_grouped_matches_plain(dev, moe_layer, quant, case):
     gen = torch.Generator(device="cuda").manual_seed(302)
     x = torch.randn((logits.shape[0], MOE_H), generator=gen,
                     device=dev).bfloat16()
-    a = moe.grouped_gate_up(x, p["w_gate"], p["w_up"], r.offsets,
-                            r.row_token)
-    a_ref = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"], r.offsets,
-                                      r.row_token)
-    y = moe.grouped_matmul(a_ref, p["w_down"], r.offsets)
-    y_ref = moe.grouped_matmul_plain(a_ref, p["w_down"], r.offsets)
-    torch.cuda.synchronize()
     m = logits.shape[0] * MOE_K
-    assert a.shape == (m, MOE_I) and y.shape == (m, MOE_H)
-    assert _rows_within_ulps(a, a_ref, m, 1.0, 0.5)
-    assert _rows_within_ulps(y, y_ref, m, 1.0, 0.5)
+    if gather:
+        _check_grouped(moe, p, x, r.offsets, r.row_token, m)
+    else:
+        xs = x.index_select(0, r.row_token).contiguous()
+        _check_grouped(moe, p, xs, r.offsets, None, m)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("gather", [True, False], ids=["row_src", "rows"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("size", MOE_GROUP_SIZES)
+def test_moe_grouped_group_sizes(dev, moe_layer, quant, size, gather, wide):
+    """Groups of ``size`` rows on the first, a middle and the last expert
+    and one row on another, every other expert empty: each row of both
+    products within one bf16 ulp of plain (row tiles of 32 or 64 rows, n8
+    tiles of 8: sizes on each side of their edges). ``wide`` adds 2048
+    rows on one more expert, so that the int8 instances take their 64-row
+    tiles (16 rows an expert or more on average)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    counts = np.zeros(MOE_E, np.int64)
+    counts[[0, 61, MOE_E - 1]] = size
+    counts[5] = 1
+    if wide:
+        counts[90] = 16 * MOE_E
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
+                               .astype(np.int32)).to(dev)
+    m = int(counts.sum())
+    gen = torch.Generator(device="cuda").manual_seed(303 + size)
+    p = moe_layer["int8" if quant else "bf16"]
+    if gather:
+        x = torch.randn((m + 3, MOE_H), generator=gen, device=dev).bfloat16()
+        src = torch.randint(0, m + 3, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        _check_grouped(moe, p, x, offsets, src, m)
+    else:
+        x = torch.randn((m, MOE_H), generator=gen, device=dev).bfloat16()
+        _check_grouped(moe, p, x, offsets, None, m)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_moe_grouped_graph_replays_new_offsets(dev, moe_layer, quant):
+    """Both grouped products captured in one CUDA graph over a decode
+    routing, then replayed after new offsets and row sources (a skewed
+    routing of the same token count) are copied into the captured buffers:
+    the persistent walk reads them on the device, so each replay equals
+    the plain versions on the routing it was given."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
+
+    p = moe_layer["int8" if quant else "bf16"]
+    n = 64
+    gen = torch.Generator(device="cuda").manual_seed(304)
+    x = torch.randn((n, MOE_H), generator=gen, device=dev).bfloat16()
+    routes = []
+    for i, case in enumerate(("decode 8", "skewed", "ties")):
+        logits = _moe_logits(case, 305 + i)
+        logits = logits.repeat(-(-n // logits.shape[0]), 1)[:n]
+        routes.append(moe.route_sort(logits.to(dev).contiguous(), MOE_K,
+                                     True, torch.bfloat16))
+    offsets = routes[0].offsets.clone()
+    src = routes[0].row_token.clone()
+
+    def run():
+        a = moe.grouped_gate_up(x, p["w_gate"], p["w_up"], offsets, src)
+        return a, moe.grouped_matmul(a, p["w_down"], offsets)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a, y = run()
+    m = n * MOE_K
+    for r in routes[1:] + routes[:1]:
+        offsets.copy_(r.offsets)
+        src.copy_(r.row_token)
+        graph.replay()
+        a_ref = moe.grouped_gate_up_plain(x, p["w_gate"], p["w_up"],
+                                          r.offsets, r.row_token)
+        y_ref = moe.grouped_matmul_plain(a, p["w_down"], r.offsets)
+        torch.cuda.synchronize()
+        assert _rows_within_ulps(a, a_ref, m, 1.0, 0.5)
+        assert _rows_within_ulps(y, y_ref, m, 1.0, 0.5)
 
 
 def test_moe_kernels_refuse_shapes_they_do_not_take(dev, moe_layer):
-    """E above 256, k above 32 or E, non-float32 logits; K or out not a
-    multiple of 64, float32 rows, gate and up of different dtypes,
-    int64 offsets: each raises before any launch."""
+    """E above 256, k above 32 or E, non-float32 logits; K not a multiple
+    of 32 or out of 128, more than 256 experts, float32 rows, gate and up
+    of different dtypes, int64 offsets: each raises before any launch."""
     from aws_k8s_ansible_provisioner_tpu_torch.ops import moe
 
     logits = torch.zeros((4, 300), device=dev)
@@ -2350,3 +2457,14 @@ def test_moe_kernels_refuse_shapes_they_do_not_take(dev, moe_layer):
     with pytest.raises(TypeError):
         moe.grouped_gate_up(x, p["w_gate"], moe_layer["int8"]["w_up"],
                             r.offsets, r.row_token)
+    # out a multiple of 64 but not of 128 (the int8 tile row's 128 bytes)
+    with pytest.raises(ValueError):
+        moe.grouped_matmul(x, {"kernel": p["w_gate"]["kernel"][:, :, :192]
+                               .contiguous()}, r.offsets, r.row_token)
+    many = {"kernel": torch.zeros((300, 128, 128), dtype=torch.int8,
+                                  device=dev),
+            "scale": torch.ones((300, 128), device=dev)}
+    with pytest.raises(ValueError):
+        moe.grouped_matmul(x[:, :128].contiguous(), many,
+                           torch.zeros(301, dtype=torch.int32, device=dev),
+                           r.row_token)
