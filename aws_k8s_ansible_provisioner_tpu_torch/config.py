@@ -522,7 +522,8 @@ class MeshConfig:
     for field): ``dp`` data-parallel replicas, ``tp`` tensor parallel,
     ``sp`` sequence parallel (the serving cache's sequence axis), ``ep``
     expert parallel, ``pp`` pipeline stages. The product is the device
-    count. The port serves ``sp`` only so far (``serving/engine.py``)."""
+    count. The port's engine serves ``sp`` alone, or ``dp``, ``tp`` and
+    ``ep`` together (``serving/engine.py``); not ``pp``."""
 
     dp: int = 1
     tp: int = 1

@@ -86,14 +86,17 @@ def save_params(params: dict, cache: str, fp: str) -> None:
 
 
 def restore_params(cache: str, dtype: torch.dtype, device=None,
-                   quantize: bool = False) -> dict:
+                   quantize: bool = False, place=None) -> dict:
     """The tree saved by :func:`save_params`, loaded onto ``device`` (the
     card unless the caller names another); raises when a leaf is not a
     ``dtype`` tensor (with ``quantize`` also an int8 kernel or its float32
-    scales)."""
+    scales). ``place(path, leaf)`` (``parallel/sharding.
+    make_sharded_put``): the tree is read onto the host and each leaf
+    replaced by what ``place`` makes of it, one leaf at a time."""
     allowed = {dtype, torch.int8, torch.float32} if quantize else {dtype}
     params = torch.load(os.path.join(cache, PARAMS_FILE), weights_only=True,
-                        map_location=resolve_device(device))
+                        map_location=resolve_device(
+                            device if place is None else "cpu"))
 
     def check(node, path):
         if isinstance(node, dict):
@@ -104,18 +107,33 @@ def restore_params(cache: str, dtype: torch.dtype, device=None,
                              f"{dtype} tensor")
 
     check(params, ())
-    return params
+    return params if place is None else _placed(params, place)
+
+
+def _placed(tree: dict, place, path: tuple = ()) -> dict:
+    """Each leaf of ``tree`` through ``place``, dropped from the tree as
+    it goes (the host keeps no leaf it has placed)."""
+    out = {}
+    for key in list(tree):
+        node = tree.pop(key)
+        out[key] = _placed(node, place, path + (key,)) \
+            if isinstance(node, dict) else place(path + (key,), node)
+    return out
 
 
 def load_checkpoint_cached(checkpoint_dir: str, cfg,
                            dtype: torch.dtype = torch.bfloat16,
-                           device=None, quantize: bool = False) -> dict:
+                           device=None, quantize: bool = False,
+                           place=None) -> dict:
     """The checkpoint's parameter tree on ``device`` (the card unless the
     caller names another), int8-quantized with ``quantize``: restored from
     the converted-params cache when its fingerprint matches, else converted
     from the shards (``models/hf_loader.load_checkpoint``) and cached. A
     cache that does not restore is logged and reconverted; one that cannot
-    be written is logged and skipped."""
+    be written is logged and skipped. With ``place`` (the sharded load)
+    the tree is converted or restored on the host, cached from there, and
+    each leaf placed (``restore_params``); no device holds the whole
+    tree."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
         load_checkpoint
 
@@ -129,7 +147,7 @@ def load_checkpoint_cached(checkpoint_dir: str, cfg,
             if stored != fp:
                 raise ValueError("source checkpoint or config changed "
                                  "since the cache was written")
-            params = restore_params(cache, dtype, device, quantize)
+            params = restore_params(cache, dtype, device, quantize, place)
             log.info("restored converted params from cache %s", cache)
             return params
         # a corrupt or partial cache (a pod killed mid-write) must never
@@ -137,15 +155,16 @@ def load_checkpoint_cached(checkpoint_dir: str, cfg,
         except Exception as e:  # noqa: BLE001
             log.warning("checkpoint cache %s not usable (%s); reconverting",
                         cache, e)
+    stage = device if place is None else torch.device("cpu")
     if quantize:
-        params = load_checkpoint(checkpoint_dir, cfg, dtype, device,
+        params = load_checkpoint(checkpoint_dir, cfg, dtype, stage,
                                  quantize=True)
     else:
-        params = load_checkpoint(checkpoint_dir, cfg, dtype, device)
+        params = load_checkpoint(checkpoint_dir, cfg, dtype, stage)
     try:
         save_params(params, cache, fp)
         log.info("wrote converted-params cache %s", cache)
     # a read-only volume or a full disk: serve without the cache
     except Exception as e:  # noqa: BLE001
         log.warning("could not write checkpoint cache %s: %s", cache, e)
-    return params
+    return params if place is None else _placed(params, place)

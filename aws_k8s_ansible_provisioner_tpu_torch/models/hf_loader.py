@@ -137,17 +137,29 @@ def _get(tensors: dict, key: str, shape: Optional[tuple] = None
 
 def convert_state_dict(cfg: ModelConfig, tensors: dict,
                        dtype: torch.dtype = torch.bfloat16,
-                       device=None, quantize: bool = False) -> dict:
+                       device=None, quantize: bool = False,
+                       place=None) -> dict:
     """A flat HF state dict (torch tensors) -> the port's parameter tree in
     ``dtype`` on ``device``, the card unless the caller names another (the
     JAX ``convert_state_dict``'s tree, leaf for leaf). A missing key raises
     KeyError, a weight of the wrong shape ValueError. ``quantize``: the
     tree of ``quantize_params`` (bit for bit), each matrix quantized as it
-    is converted."""
+    is converted. ``place(path, leaf)`` (the JAX loader's ``device_put``,
+    e.g. ``parallel/sharding.make_sharded_put``): each leaf, once
+    converted (and quantized), is handed to it with its keys in the tree
+    and replaced by what it returns, before the next leaf is converted;
+    ``device`` is then the staging device, the host unless named."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
         quant_kernel_chunked
 
-    device = resolve_device(device)
+    device = resolve_device(device if place is None else device or "cpu")
+
+    def placed(path: tuple, node: dict) -> dict:
+        """``node``'s leaves through ``place`` (itself without one)."""
+        if place is None:
+            return node
+        return {k: placed(path + (k,), v) if isinstance(v, dict)
+                else place(path + (k,), v) for k, v in node.items()}
     L, H = cfg.num_layers, cfg.hidden_size
     Q, KV, I = cfg.q_size, cfg.kv_size, cfg.intermediate_size
 
@@ -264,67 +276,74 @@ def convert_state_dict(cfg: ModelConfig, tensors: dict,
         return kernel(layer, (E, d_in, d_out), 1)
 
     ab, mb = cfg.attention_bias, cfg.mlp_bias
-    layers: dict = {
-        "input_norm": norm(input_norm),
-        "wq": dense(pre + "q_proj", H, Q, ab),
-        "wk": dense(pre + "k_proj", H, KV, ab),
-        "wv": dense(pre + "v_proj", H, KV, ab),
-        "wo": dense(pre + o_name, Q, H, ab),
-    }
+    layers: dict = {}
+
+    def add(name: str, make) -> None:
+        layers[name] = placed(("layers", name), make())
+
+    add("input_norm", lambda: norm(input_norm))
+    add("wq", lambda: dense(pre + "q_proj", H, Q, ab))
+    add("wk", lambda: dense(pre + "k_proj", H, KV, ab))
+    add("wv", lambda: dense(pre + "v_proj", H, KV, ab))
+    add("wo", lambda: dense(pre + o_name, Q, H, ab))
     if cfg.num_experts > 0:
         # Qwen3-MoE: router = mlp.gate [E, H] -> [H, E]; experts stacked
         M = cfg.moe_intermediate_size
-        layers["router"] = {"kernel": stack(layer_pre + "mlp.gate.weight",
-                                            (H, cfg.num_experts), True)}
-        layers["w_gate"] = stack_experts("gate_proj", H, M)
-        layers["w_up"] = stack_experts("up_proj", H, M)
-        layers["w_down"] = stack_experts("down_proj", M, H)
+        add("router", lambda: {"kernel": stack(
+            layer_pre + "mlp.gate.weight", (H, cfg.num_experts), True)})
+        add("w_gate", lambda: stack_experts("gate_proj", H, M))
+        add("w_up", lambda: stack_experts("up_proj", H, M))
+        add("w_down", lambda: stack_experts("down_proj", M, H))
     elif cfg.act in ("silu", "gelu_tanh"):
         # SwiGLU (Qwen/Llama/Mistral) and GeGLU (Gemma): the same HF names
-        layers["w_gate"] = dense(layer_pre + "mlp.gate_proj", H, I, mb)
-        layers["w_up"] = dense(layer_pre + "mlp.up_proj", H, I, mb)
-        layers["w_down"] = dense(layer_pre + down_name, I, H, mb)
+        add("w_gate", lambda: dense(layer_pre + "mlp.gate_proj", H, I, mb))
+        add("w_up", lambda: dense(layer_pre + "mlp.up_proj", H, I, mb))
+        add("w_down", lambda: dense(layer_pre + down_name, I, H, mb))
     else:
-        layers["w_up"] = dense(layer_pre + up_name, H, I, mb)
-        layers["w_down"] = dense(layer_pre + down_name, I, H, mb)
+        add("w_up", lambda: dense(layer_pre + up_name, H, I, mb))
+        add("w_down", lambda: dense(layer_pre + down_name, I, H, mb))
     if cfg.qk_norm:
-        layers["q_norm"] = {"weight": stack(pre + "q_norm.weight",
-                                            (cfg.head_dim,), False)}
-        layers["k_norm"] = {"weight": stack(pre + "k_norm.weight",
-                                            (cfg.head_dim,), False)}
+        add("q_norm", lambda: {"weight": stack(pre + "q_norm.weight",
+                                               (cfg.head_dim,), False)})
+        add("k_norm", lambda: {"weight": stack(pre + "k_norm.weight",
+                                               (cfg.head_dim,), False)})
     if not cfg.parallel_block:
-        layers["post_norm"] = norm(post_norm)
+        add("post_norm", lambda: norm(post_norm))
 
     params: dict = {
-        "embed": quantized({"weight": leaf(embed_key, (cfg.vocab_size, H))},
-                           "weight", 1),
+        "embed": placed(("embed",), quantized(
+            {"weight": leaf(embed_key, (cfg.vocab_size, H))}, "weight", 1)),
         "layers": layers,
-        "final_norm": {"weight": leaf(final_norm + ".weight", (H,))},
     }
+    final = {"weight": leaf(final_norm + ".weight", (H,))}
+    if cfg.norm == "layernorm":
+        final["bias"] = leaf(final_norm + ".bias", (H,))
+    params["final_norm"] = placed(("final_norm",), final)
     if opt:
         key = "model.decoder.embed_positions.weight"
-        params["pos_embed"] = {"weight": leaf(key, tuple(
-            _get(tensors, key).shape))}
-    if cfg.norm == "layernorm":
-        params["final_norm"]["bias"] = leaf(final_norm + ".bias", (H,))
+        params["pos_embed"] = placed(("pos_embed",), {"weight": leaf(
+            key, tuple(_get(tensors, key).shape))})
     if not cfg.tie_embeddings:
-        params["lm_head"] = quantized(
+        head = quantized(
             {"kernel": leaf("lm_head.weight", (H, cfg.vocab_size), True)},
             "kernel", 0)
         if "lm_head.bias" in tensors:
-            params["lm_head"]["bias"] = leaf("lm_head.bias",
-                                             (cfg.vocab_size,))
+            head["bias"] = leaf("lm_head.bias", (cfg.vocab_size,))
+        params["lm_head"] = placed(("lm_head",), head)
     return params
 
 
 def load_checkpoint(checkpoint_dir: str, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
-                    device=None, quantize: bool = False) -> dict:
+                    device=None, quantize: bool = False,
+                    place=None) -> dict:
     """Every ``*.safetensors`` shard of a HF checkpoint directory, read in
     sorted order (a later shard's key wins, as in the JAX loader) and
     converted onto ``device`` (the card unless the caller names another),
-    quantized as it converts with ``quantize``. Raises FileNotFoundError
-    for a directory without a ``.safetensors`` file."""
+    quantized as it converts with ``quantize``, each leaf handed to
+    ``place`` as it is produced (:func:`convert_state_dict`; the JAX
+    ``load_checkpoint(device_put=...)``). Raises FileNotFoundError for a
+    directory without a ``.safetensors`` file."""
     files = sorted(f for f in os.listdir(checkpoint_dir)
                    if f.endswith(".safetensors"))
     if not files:
@@ -332,7 +351,7 @@ def load_checkpoint(checkpoint_dir: str, cfg: ModelConfig,
     tensors: Dict[str, torch.Tensor] = {}
     for f in files:
         tensors.update(read_safetensors(os.path.join(checkpoint_dir, f)))
-    return convert_state_dict(cfg, tensors, dtype, device, quantize)
+    return convert_state_dict(cfg, tensors, dtype, device, quantize, place)
 
 
 def config_from_hf_dir(checkpoint_dir: str) -> ModelConfig:

@@ -43,6 +43,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -220,22 +221,38 @@ def causal_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
-def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor],
-            delta: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ kernel, plus a LoRA ``delta`` of the output's shape (in the JAX
-    order: before the bias), plus the bias."""
+def _product(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x @ kernel in x's dtype (an int8 kernel dequantized to it, its scale
+    not yet applied): the whole product, or a row-parallel shard's partial
+    sum."""
     if "scale" in p:
-        # weights-only int8: dequantize to the activation dtype, matmul, fold
-        # the per-out-channel float32 scale in after (exact: the scale is
-        # constant along the contraction axis)
-        y = ((x @ p["kernel"].to(x.dtype)) * p["scale"]).to(x.dtype)
-    else:
-        y = x @ p["kernel"]
+        return x @ p["kernel"].to(x.dtype)
+    return x @ p["kernel"]
+
+
+def _epilogue(y: torch.Tensor, p: Dict[str, torch.Tensor],
+              delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """After the product (for a row-parallel kernel, after the sum of its
+    shards' partials): the per-out-channel float32 int8 scale (exact to
+    fold in here: the scale is constant along the contraction axis), a
+    LoRA ``delta`` of the output's shape (in the JAX order: before the
+    bias), the bias."""
+    if "scale" in p:
+        y = (y * p["scale"]).to(y.dtype)
     if delta is not None:
         y = y + delta.to(y.dtype)
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+def _linear(x: torch.Tensor, p: Dict[str, torch.Tensor],
+            delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ kernel, plus a LoRA ``delta`` of the output's shape (in the JAX
+    order: before the bias), plus the bias; weights-only int8 is
+    dequantized to the activation dtype before the matmul, its scale folded
+    in after."""
+    return _epilogue(_product(x, p), p, delta)
 
 
 class LoraRows:
@@ -281,7 +298,6 @@ def _mlp(cfg: ModelConfig, h: torch.Tensor, p: dict,
     flattened to [B * T, H] (adapters never target experts)."""
     if cfg.num_experts > 0:
         return moe_mlp(cfg, h.reshape(-1, h.shape[-1]), p).view(h.shape)
-    act = _ACTS[cfg.act]
     dg = du = dd = None
     if lora is not None and "lora_gu" in p:
         d = lora.delta(h, p["lora_gu"])
@@ -290,10 +306,7 @@ def _mlp(cfg: ModelConfig, h: torch.Tensor, p: dict,
             dg, du = d[..., :n], d[..., n:]
         else:
             du = d
-    if "w_gate" in p:
-        a = act(_linear(h, p["w_gate"], dg)) * _linear(h, p["w_up"], du)
-    else:
-        a = act(_linear(h, p["w_up"], du))
+    a = _mlp_columns(cfg, h, p, dg, du)
     if lora is not None and "lora_down" in p:
         dd = lora.delta(a, p["lora_down"])
     return _linear(a, p["w_down"], dd)
@@ -351,6 +364,13 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
              * emb["scale"][tokens][..., None]).to(dt)
     else:
         x = emb["weight"][tokens]
+    return _position_inputs(params, cfg, x, positions)
+
+
+def _position_inputs(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor):
+    """The rest of :func:`_embed_inputs` after the token lookup ``x``:
+    Gemma's scale, the learned positions or the RoPE tables."""
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     if cfg.pos_embed == "learned":
@@ -368,7 +388,12 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _final_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:
-    x = apply_norm(cfg, x, params["final_norm"])
+    return _head(params, cfg, apply_norm(cfg, x, params["final_norm"]))
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The logits of the normed rows: the (tied) embedding's or the
+    head's columns that ``params`` holds (all of them, or a tp shard's)."""
     if cfg.tie_embeddings:
         emb = params["embed"]
         if "scale" in emb:
@@ -631,3 +656,214 @@ class DecoderLM(nn.Module):
         params, layers = self._cached()
         return model_forward_carry(params, self.cfg, tokens, positions, cache,
                                    attend, layers, lora)
+
+
+class MeshLM:
+    """The decoder served over a (dp, tp, ep) mesh by one process (the
+    JAX engine's sharded ``model_forward_carry`` under GSPMD), with
+    :class:`DecoderLM`'s serving interface (``forward_carry``, ``cfg``,
+    ``device``, ``compute_dtype``, ``lora_rows``).
+
+    The parameters are sliced by ``parallel/sharding.param_pspecs``
+    (Megatron tp, experts over ep, replicas over dp), each position's tree
+    on its device; a tp shard runs at :attr:`local_cfg`'s head counts
+    (Hq / tp, Hkv / tp). One forward pass splits the rows by dp group
+    (each paged callback's ``rows``, ``ops/attention.RowSplit``: a row's
+    slot, slots over groups contiguously, ``slots_per_group`` a group),
+    and runs each group's rows on its devices against its partition of
+    the pool (``parallel/sharding.ShardedPool``): the vocab-sharded
+    embedding lookup and one ``all_reduce``; in every layer the attention
+    and ``wo`` on each tp shard's heads, one ``all_reduce``, then the MLP
+    per shard (column-parallel gate and up, row-parallel down) and one
+    ``all_reduce`` (the parallel block, phi: both partials in one
+    reduction); a row-parallel kernel's int8 scale and bias after the sum;
+    the MoE MLP as the gshard dispatch over (ep, tp)
+    (``ops/moe.moe_mlp_gshard_sharded``); the head per shard and the
+    logits gathered in vocabulary order onto the mesh's lead device, where
+    the rows of every group are put back in order. Sampling and every
+    logit process after the forward read those full-vocabulary logits on
+    the lead, so they do not depend on the mesh. The collectives are
+    ``parallel/collectives.py``'s. No adapters (LoRA under a mesh is
+    refused)."""
+
+    has_lora = False
+
+    def __init__(self, cfg: ModelConfig, params: dict, mesh,
+                 slots_per_group: int):
+        from aws_k8s_ansible_provisioner_tpu_torch.parallel import \
+            sharding as shd
+
+        self.cfg, self.mesh = cfg, mesh
+        self.dp = shd.axis_size(mesh, "dp")
+        self.tp = shd.axis_size(mesh, "tp")
+        self.ep = shd.axis_size(mesh, "ep")
+        self.local_cfg = shd.tp_local_config(cfg, self.tp)
+        self.slots_per_group = slots_per_group
+        self.params = shd.shard_params(params, mesh, cfg)
+        # trees[g][e][t], the layer views alike; devices[g][e][t]
+        self.devices = [[[mesh.devices[g, 0, 0, e, t] for t in range(self.tp)]
+                         for e in range(self.ep)] for g in range(self.dp)]
+        self.trees = [[[shd.position_tree(self.params, (g, 0, 0, e, t))
+                        for t in range(self.tp)] for e in range(self.ep)]
+                      for g in range(self.dp)]
+        self.layers = [[[layer_slices(tree, cfg.num_layers) for tree in row]
+                        for row in grp] for grp in self.trees]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.lead
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.trees[0][0][0]["final_norm"]["weight"].dtype
+
+    def lora_rows(self, idx) -> None:
+        return None
+
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
+                lora: Optional[LoraRows] = None) -> torch.Tensor:
+        """Causal attention over the whole sequence (no cache), every row
+        on dp group 0's tp shards: logits [B, T, V] on the lead."""
+        if lora is not None:
+            raise ValueError("LoRA under a mesh is not served")
+        attend = make_default_attend(self.local_cfg)
+        return self._group_forward(0, tokens, positions, [None] * self.tp,
+                                   [attend] * self.tp)
+
+    def forward_carry(self, tokens: torch.Tensor, positions: torch.Tensor,
+                      cache: Any, attend: AttendFn,
+                      lora: Optional[LoraRows] = None):
+        """Logits [..., V] on the lead and the pool (written in place).
+        ``attend`` is a paged callback (``ops/attention``) over the whole
+        batch with global page ids; each group gets it rebuilt over its
+        rows, its tables rebased to its partition, on each tp shard's
+        device."""
+        if lora is not None:
+            raise ValueError("LoRA under a mesh is not served")
+        split = getattr(attend, "rows", None)
+        if split is None:
+            raise ValueError("a mesh with dp, tp or ep > 1 serves the paged "
+                             "callbacks only")
+        ax = split.axis
+        n = tokens.shape[ax]
+        if self.dp == 1:
+            groups = [(0, None)]
+        else:
+            slots = split.slots if split.slots is not None else np.arange(n)
+            grp = np.asarray(slots) // self.slots_per_group
+            groups = [(g, np.nonzero(grp == g)[0]) for g in range(self.dp)]
+            groups = [(g, idx) for g, idx in groups if len(idx)]
+        outs = []
+        for g, idx in groups:
+            if idx is None:
+                tok, pos = tokens, positions
+            else:
+                sel = torch.as_tensor(idx, dtype=torch.int64,
+                                      device=tokens.device)
+                tok = tokens.index_select(ax, sel)
+                pos = positions.index_select(ax, sel)
+            base = g * cache.group_pages
+            attends = [attend if (idx is None and base == 0
+                                  and str(dev) == str(tokens.device))
+                       else split.remake(idx, base, dev)
+                       for dev in self.devices[g][0]]
+            outs.append((idx, self._group_forward(g, tok, pos, cache.parts[g],
+                                                  attends)))
+        if len(outs) == 1 and outs[0][0] is None:
+            return outs[0][1], cache
+        first = outs[0][1]
+        shape = list(first.shape)
+        shape[ax] = n
+        logits = torch.empty(shape, dtype=first.dtype, device=first.device)
+        for idx, part in outs:
+            logits.index_copy_(ax, torch.as_tensor(
+                idx, dtype=torch.int64, device=first.device), part)
+        return logits, cache
+
+    def _group_forward(self, g: int, tokens, positions, pools, attends):
+        from aws_k8s_ansible_provisioner_tpu_torch.parallel.collectives \
+            import all_gather, all_reduce, broadcast, vocab_embed
+
+        cfg = self.cfg
+        devs = self.devices[g][0]
+        trees = self.trees[g][0]
+        # replicated work (norms, residual adds, RoPE tables) runs once on
+        # the group's lead and is broadcast to the shards that read it
+        lead = devs[:1]
+        x = all_reduce(vocab_embed([tr["embed"] for tr in trees],
+                                   broadcast(tokens, devs),
+                                   self.compute_dtype), lead)[0]
+        x, cos, sin = _position_inputs(trees[0], cfg, x,
+                                       positions.to(x.device))
+        cos_t, sin_t = broadcast(cos, devs), broadcast(sin, devs)
+        for layer in range(cfg.num_layers):
+            x = self._block(g, layer, x, cos_t, sin_t, pools, attends)
+        xn = apply_norm(cfg, x, trees[0]["final_norm"])
+        parts = [_head(tr, cfg, h) for tr, h in
+                 zip(trees, broadcast(xn, devs))]
+        return all_gather(parts, self.mesh.lead)
+
+    def _block(self, g: int, layer: int, x, cos_t, sin_t, pools, attends):
+        """One block of group g's rows (x on the group's lead device)."""
+        from aws_k8s_ansible_provisioner_tpu_torch.parallel.collectives \
+            import all_reduce, broadcast
+
+        cfg, lc = self.cfg, self.local_cfg
+        devs = self.devices[g][0]
+        ps = [ls[layer] for ls in self.layers[g][0]]
+        B, T, _ = x.shape
+        h = apply_norm(cfg, x, ps[0]["input_norm"])
+        hs = broadcast(h, devs)
+        attn_parts, mlp_parts = [], []
+        for t, p in enumerate(ps):
+            q = _linear(hs[t], p["wq"]).reshape(B, T, lc.num_heads,
+                                                lc.head_dim)
+            k = _linear(hs[t], p["wk"]).reshape(B, T, lc.num_kv_heads,
+                                                lc.head_dim)
+            v = _linear(hs[t], p["wv"]).reshape(B, T, lc.num_kv_heads,
+                                                lc.head_dim)
+            prep = QKPrep(p["q_norm"]["weight"] if cfg.qk_norm else None,
+                          p["k_norm"]["weight"] if cfg.qk_norm else None,
+                          cfg.norm_eps, cos_t[t], sin_t[t])
+            if getattr(attends[t], "fuses_qk_prep", False):
+                ctx, _ = attends[t](q, k, v, (pools[t], layer), prep)
+            else:
+                q, k = prep_qk_plain(q, k, prep)
+                ctx, _ = attends[t](q, k, v, (pools[t], layer))
+            attn_parts.append(_product(ctx.reshape(B, T, lc.q_size), p["wo"]))
+            if cfg.parallel_block:
+                mlp_parts.append(_product(_mlp_columns(cfg, hs[t], p),
+                                          p["w_down"]))
+        if cfg.parallel_block:
+            # attention's and the MLP's partials in one reduction
+            both = all_reduce([torch.stack(ab) for ab in
+                               zip(attn_parts, mlp_parts)], devs[:1])[0]
+            return (x + _epilogue(both[0], ps[0]["wo"])
+                    + _epilogue(both[1], ps[0]["w_down"]))
+        x = x + _epilogue(all_reduce(attn_parts, devs[:1])[0], ps[0]["wo"])
+        h2 = apply_norm(cfg, x, ps[0]["post_norm"])
+        if cfg.num_experts > 0:
+            from aws_k8s_ansible_provisioner_tpu_torch.ops.moe import \
+                moe_mlp_gshard_sharded
+
+            experts = [[ls[layer] for ls in row] for row in self.layers[g]]
+            out = moe_mlp_gshard_sharded(
+                cfg, h2.reshape(-1, h2.shape[-1]), ps[0]["router"]["kernel"],
+                experts, self.devices[g])
+            return x + out.view(h2.shape)
+        parts = [_product(_mlp_columns(cfg, h2t, p), p["w_down"])
+                 for p, h2t in zip(ps, broadcast(h2, devs))]
+        return x + _epilogue(all_reduce(parts, devs[:1])[0],
+                             ps[0]["w_down"])
+
+
+def _mlp_columns(cfg: ModelConfig, h: torch.Tensor, p: dict,
+                 dg: Optional[torch.Tensor] = None,
+                 du: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(gate(h)) * up(h), or act(up(h)), over the intermediate columns
+    that ``p`` holds (all, or a tp shard's: column-parallel, its bias
+    sliced), with the gate's and up's LoRA deltas."""
+    act = _ACTS[cfg.act]
+    if "w_gate" in p:
+        return act(_linear(h, p["w_gate"], dg)) * _linear(h, p["w_up"], du)
+    return act(_linear(h, p["w_up"], du))

@@ -34,6 +34,14 @@ device. The batched and chunk prefills write each row in the shard that
 holds it; a chunk attends its slot's rows gathered from the shards in
 order.
 
+Tensor and data parallel serving (``models/layers.MeshLM``) runs the
+paged callbacks per (dp group, tp shard): each carries ``rows``
+(:class:`RowSplit`), from which the model rebuilds it over one group's
+rows (a row's slot decides its group), its tables rebased from global to
+the group's local page ids, its operands on the shard's device; a tp
+shard's q, k and v hold its heads (Hq / tp, Hkv / tp) and its pool the
+same kv heads, so the kernels run unchanged at the per-shard head counts.
+
 The decode, verify and mixed callbacks go through the kernels of
 ``ops/paged_attention.py``: the row write and the attention over a bf16/f32
 pool, or, when the pool carries scale leaves (``"ks" in pool``, int8 KV),
@@ -59,8 +67,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
@@ -139,6 +148,39 @@ def _fused(attend):
     return attend
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """How a paged callback is rebuilt over a subset of its rows (a dp
+    group's) on one device (a tp shard's), for ``models/layers.MeshLM``:
+    ``axis`` is the axis of q/k/v (and of the tokens) that indexes the
+    rows, ``slots`` each row's slot on the host (None: row i is slot i),
+    and ``remake(idx, base, device)`` the callback over rows ``idx`` (a
+    host int array, None for all) with its page tables rebased by
+    ``-base`` (the group's first global page id; ``OOB_PAGE`` stays out of
+    every pool) and its operands on ``device``."""
+    axis: int
+    slots: Optional[np.ndarray]
+    remake: Callable
+
+
+def _take(t: torch.Tensor, idx: Optional[np.ndarray], device,
+          base: int = 0) -> torch.Tensor:
+    """Rows ``idx`` of ``t`` (all for None), ``base`` subtracted, on
+    ``device``."""
+    if idx is not None:
+        t = t.index_select(0, torch.as_tensor(idx, dtype=torch.int64,
+                                              device=t.device))
+    if base:
+        t = t - base
+    return t.to(device)
+
+
+def _split(attend, axis: int, slots, remake):
+    attend.rows = RowSplit(axis, None if slots is None else np.asarray(slots),
+                           remake)
+    return attend
+
+
 def make_decode_attend_carry_paged(lengths: torch.Tensor,
                                    table: torch.Tensor, window: int = 0):
     """Decode over the paged pool: slot b writes its new K/V row at row
@@ -158,7 +200,10 @@ def make_decode_attend_carry_paged(lengths: torch.Tensor,
                                   layer, table, **scales, window=window)
         return ctx, (pool, layer)
 
-    return _fused(attend)
+    return _split(_fused(attend), 0, None, lambda idx, base, dev:
+                  make_decode_attend_carry_paged(
+                      _take(lengths, idx, dev), _take(table, idx, dev, base),
+                      window))
 
 
 def make_spec_attend_carry_paged(lengths: torch.Tensor,
@@ -186,13 +231,17 @@ def make_spec_attend_carry_paged(lengths: torch.Tensor,
                                        **scales, window=window)
         return ctx, (pool, layer)
 
-    return _fused(attend)
+    return _split(_fused(attend), 0, None, lambda idx, base, dev:
+                  make_spec_attend_carry_paged(
+                      _take(lengths, idx, dev), _take(table, idx, dev, base),
+                      window))
 
 
 def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
                                   row_limits: torch.Tensor,
                                   row_tables: torch.Tensor, window: int = 0,
-                                  chunk_start: Optional[int] = None):
+                                  chunk_start: Optional[int] = None,
+                                  row_slots: Optional[np.ndarray] = None):
     """Ragged mixed batch over the paged pool: the packed sequence [1, N]
     holds B decode rows then C prefill-chunk rows. Per packed row i:
     ``write_rows[i]`` is where its K/V lands (-1 drops),
@@ -201,7 +250,9 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
     share row B's table row and their limits rise by one from row B's
     (``ragged_attend_paged``'s layout, which lets them share page loads on
     a card). Takes the raw q/k and the layer's ``QKPrep``: one fused
-    row-write launch preps the N rows' q and k and writes their K/V."""
+    row-write launch preps the N rows' q and k and writes their K/V.
+    ``row_slots`` (host, [N]): each packed row's slot, which a dp mesh
+    splits the rows by (:class:`RowSplit`)."""
 
     def attend(q, k, v, cache_l, prep) -> Tuple[torch.Tensor, tuple]:
         pool, layer = cache_l
@@ -213,16 +264,32 @@ def make_mixed_attend_carry_paged(write_rows: torch.Tensor,
                                   chunk_start=chunk_start)
         return ctx[None], (pool, layer)
 
-    return _fused(attend)
+    def remake(idx, base, dev):
+        start = chunk_start
+        if idx is not None and start is not None:
+            # the subset keeps the decode rows first: its chunk (if it
+            # holds the chunk's rows) starts after its decode rows
+            n_dec = int((idx < start).sum())
+            start = n_dec if n_dec < len(idx) else None
+        return make_mixed_attend_carry_paged(
+            _take(write_rows, idx, dev), _take(row_limits, idx, dev),
+            _take(row_tables, idx, dev, base), window, start,
+            None if row_slots is None or idx is None
+            else np.asarray(row_slots)[idx])
+
+    return _split(_fused(attend), 1, row_slots, remake)
 
 
 def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
                                           seq_lens: torch.Tensor,
-                                          window: int = 0):
+                                          window: int = 0,
+                                          row_slots: Optional[np.ndarray]
+                                          = None):
     """Batched prefill over the paged pool: causal attention over each
     right-padded prompt's fresh K/V, then its rows scatter through
     ``tables`` (quantized into an int8 pool; padding rows carry OOB_PAGE
-    and drop)."""
+    and drop). ``row_slots`` (host, [N]): each prompt's slot, which a dp
+    mesh splits the rows by (:class:`RowSplit`)."""
 
     def attend(q, k, v, cache_l):
         pool, layer = cache_l
@@ -231,7 +298,12 @@ def make_prefill_attend_batch_paged_carry(tables: torch.Tensor,
                                              pool["k"].shape[3])
         return ctx, (pool, layer)
 
-    return attend
+    return _split(attend, 0, row_slots, lambda idx, base, dev:
+                  make_prefill_attend_batch_paged_carry(
+                      _take(tables, idx, dev, base),
+                      _take(seq_lens, idx, dev), window,
+                      None if row_slots is None or idx is None
+                      else np.asarray(row_slots)[idx]))
 
 
 def _prep_write_dense(cache: dict, q: torch.Tensor, k_new: torch.Tensor,

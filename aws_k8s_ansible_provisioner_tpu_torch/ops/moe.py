@@ -404,15 +404,14 @@ def gshard_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return -(-cap // 4) * 4
 
 
-def moe_mlp_gshard(cfg: ModelConfig, x: torch.Tensor, p: dict
-                   ) -> torch.Tensor:
-    """Fixed-capacity dispatch MoE MLP. x: [N, H] -> [N, H]; a token's
-    assignment past its expert's capacity (arrival order, token-major)
-    adds nothing."""
+def _gshard_route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """The gshard dispatch of x [N, H]: (combine weights [N, E, C], the
+    experts' inputs [E, C, H]), C = :func:`gshard_capacity` slots an
+    expert filled in arrival order (token-major), in x's dtype."""
     n = x.shape[0]
     E = cfg.num_experts
     C = gshard_capacity(cfg, n)
-    w, idx = route(cfg, x, p["router"]["kernel"])
+    w, idx = route(cfg, x, router)
     onehot_e = F.one_hot(idx.reshape(-1).long(), E).to(torch.int32)
     pos = torch.cumsum(onehot_e, dim=0, dtype=torch.int32) - onehot_e
     pos = (pos * onehot_e).sum(-1).reshape(n, -1)                # [N, k]
@@ -423,18 +422,66 @@ def moe_mlp_gshard(cfg: ModelConfig, x: torch.Tensor, p: dict
     oe = onehot_e.reshape(n, -1, E).to(x.dtype)
     combine_w = torch.einsum("nk,nke,nkc->nec", w * keep, oe, onehot_c)
     dispatch = torch.einsum("nk,nke,nkc->nec", keep, oe, onehot_c)
-    xe = torch.einsum("nec,nh->ech", dispatch, x)
+    return combine_w, torch.einsum("nec,nh->ech", dispatch, x)
 
-    def mm(spec, v, q):
-        if "scale" in q:
-            out = torch.einsum(spec, v, q["kernel"].to(v.dtype))
-            return (out * q["scale"][:, None, :]).to(v.dtype)
-        return torch.einsum(spec, v, q["kernel"])
 
-    g = mm("ech,ehi->eci", xe, p["w_gate"])
-    u = mm("ech,ehi->eci", xe, p["w_up"])
-    y = mm("eci,eih->ech", F.silu(g) * u, p["w_down"])
+def moe_mlp_gshard(cfg: ModelConfig, x: torch.Tensor, p: dict
+                   ) -> torch.Tensor:
+    """Fixed-capacity dispatch MoE MLP. x: [N, H] -> [N, H]; a token's
+    assignment past its expert's capacity (arrival order, token-major)
+    adds nothing."""
+    combine_w, xe = _gshard_route(cfg, x, p["router"]["kernel"])
+    g = _gshard_mm("ech,ehi->eci", xe, p["w_gate"])
+    u = _gshard_mm("ech,ehi->eci", xe, p["w_up"])
+    y = _gshard_mm("eci,eih->ech", F.silu(g) * u, p["w_down"])
     return torch.einsum("nec,ech->nh", combine_w, y).to(x.dtype)
+
+
+def moe_mlp_gshard_sharded(cfg: ModelConfig, x: torch.Tensor,
+                           router: torch.Tensor, experts, devices
+                           ) -> torch.Tensor:
+    """:func:`moe_mlp_gshard` with the experts over an (ep, tp) grid (the
+    JAX engine's gshard under GSPMD with ``w_gate``/``w_up`` split
+    ``(ep, tp)`` on (expert, out) and ``w_down`` on (expert, in)):
+    ``experts[e][t]`` holds position (e, t)'s layer leaves (E / ep experts,
+    I / tp intermediate columns), on ``devices[e][t]``. The routing, the
+    dispatch and the combine weights are computed once on x's device (the
+    router is replicated); each position runs gate and up over its columns
+    and its partial of down; the partials are summed over tp in shard
+    order, the int8 scale of down applied after the sum; each ep shard
+    combines its experts' outputs, and those are summed over ep in shard
+    order on x's device. Returns [N, H] in x's dtype."""
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.collectives import \
+        all_reduce
+
+    combine_w, xe = _gshard_route(cfg, x, router)
+    el = cfg.num_experts // len(experts)
+    outs = []
+    for e, (row, devs) in enumerate(zip(experts, devices)):
+        span = slice(e * el, (e + 1) * el)
+        parts = []
+        for p, dev in zip(row, devs):
+            xe_p = xe[span].to(dev)
+            g = _gshard_mm("ech,ehi->eci", xe_p, p["w_gate"])
+            u = _gshard_mm("ech,ehi->eci", xe_p, p["w_up"])
+            parts.append(torch.einsum("eci,eih->ech", F.silu(g) * u,
+                                      p["w_down"]["kernel"].to(x.dtype)))
+        y = all_reduce(parts, devs)[0]
+        down = row[0]["w_down"]
+        if "scale" in down:
+            y = (y * down["scale"][:, None, :]).to(x.dtype)
+        outs.append(torch.einsum("nec,ech->nh", combine_w[:, span]
+                                 .to(y.device), y))
+    return all_reduce(outs, [x.device])[0].to(x.dtype)
+
+
+def _gshard_mm(spec: str, v: torch.Tensor, q: dict) -> torch.Tensor:
+    """One gshard expert product in v's dtype (int8 experts dequantized
+    to it, their scale [E, out] applied after)."""
+    if "scale" in q:
+        out = torch.einsum(spec, v, q["kernel"].to(v.dtype))
+        return (out * q["scale"][:, None, :]).to(v.dtype)
+    return torch.einsum(spec, v, q["kernel"])
 
 
 def moe_mlp(cfg: ModelConfig, x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -8,7 +8,11 @@ single-controller shape: a :class:`Mesh` is a numpy array of
 engine runs each shard's kernels on its device from the one process. No
 ``torch.distributed`` is involved: the sequence-parallel decode moves each
 shard's ``[B, Hq]`` and ``[B, Hq, D]`` partials to the lead device and
-merges them there (``ops/attention.make_decode_attend_carry``).
+merges them there (``ops/attention.make_decode_attend_carry``); the dp,
+tp and ep axes run ``models/layers.MeshLM``, whose partial sums and
+vocabulary slices move by the explicit copies of
+``parallel/collectives.py``. ``pp`` is not served (the pipeline schedule
+is training-only).
 
 Without a device list a mesh takes the visible CUDA cards, one per mesh
 position, and raises when there are fewer than it needs. An explicit list

@@ -65,7 +65,10 @@ def engine_fingerprint(engine) -> dict:
         "weights_dtype": engine.serving.weights_dtype,
         "kv_dtype": engine.serving.kv_dtype,
         "paged": engine.paged,
-        "dp": 1, "tp": 1, "sp": engine.sp,
+        "dp": engine.dp, "tp": engine.tp, "sp": engine.sp, "ep": engine.ep,
+        # pool pages per dp group (its scratch page included), as the JAX
+        # ProgramPlan sizes the pool
+        "group_pages": engine._group_pages if engine.paged else 0,
         "spec_decode": engine.spec_decode,
         "spec_method": engine.serving.spec_method,
         "draft": engine.draft.cfg.name if engine.draft is not None else None,
@@ -73,11 +76,23 @@ def engine_fingerprint(engine) -> dict:
     }
 
 
-def _bytes(tree) -> int:
+def _bytes(tree, device=None) -> int:
+    """Bytes of a tree's tensors; of a mesh's sharded parameters or pool,
+    those on ``device`` (a chip's), each storage once."""
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
+        ShardedLeaf, ShardedPool)
+
+    if isinstance(tree, ShardedLeaf):
+        on = {t.untyped_storage().data_ptr(): t for t in tree.parts.values()
+              if str(t.device) == str(device)}
+        return sum(_bytes(t) for t in on.values())
+    if isinstance(tree, ShardedPool):
+        return sum(_bytes(a) for _, a in tree.leaves()
+                   if str(a.device) == str(device))
     if isinstance(tree, dict):
-        return sum(_bytes(v) for v in tree.values())
+        return sum(_bytes(v, device) for v in tree.values())
     if isinstance(tree, (list, tuple)):
-        return sum(_bytes(v) for v in tree)
+        return sum(_bytes(v, device) for v in tree)
     return tree.numel() * tree.element_size()
 
 
@@ -91,8 +106,8 @@ def build_ledger(engine, entries: list,
         else:
             capacity_bytes = os.sysconf("SC_PAGE_SIZE") \
                 * os.sysconf("SC_PHYS_PAGES")
-    params = _bytes(engine.model.params)
-    kv = _bytes(engine.cache)
+    params = _bytes(engine.model.params, dev)
+    kv = _bytes(engine.cache, dev)
     if engine.draft is not None:
         params += _bytes(engine.draft.model.params)
         kv += _bytes(engine.draft.cache)

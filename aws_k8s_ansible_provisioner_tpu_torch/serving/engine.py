@@ -31,8 +31,25 @@ this slice reaches. Two layouts of the KV cache, as in the JAX engine:
   the prefills write each row in the shard that holds it. As in the JAX
   engine the layout is dense whatever ``paged`` says, speculation is off,
   and a sliding window or a window that does not split into 8-row-aligned
-  shards is refused; a mesh with ``dp``, ``tp``, ``pp`` or ``ep`` > 1 is
-  refused (not ported yet).
+  shards is refused;
+- paged over a (dp, tp, ep) mesh (``dp``, ``tp`` or ``ep`` > 1, the JAX
+  engine's multi-chip layout): the parameters Megatron-sharded over the
+  mesh (``models/layers.MeshLM``, ``parallel/sharding.param_pspecs``; a
+  MoE config switched to gshard with a warning, its experts over ``ep``),
+  the pool one partition per (dp group, tp shard)
+  (``parallel/sharding.ShardedPool``). Slots map to dp groups
+  contiguously; each group has its own allocator (``allocators``) in
+  local page ids and its own scratch page, the table holds global ids
+  (local + group * ``_group_pages``, the JAX layout) and each group's
+  forward rebases its rows' tables. Admission gates on the best group's
+  headroom and takes a free slot of a group that holds the request;
+  preemption victims come from the starving slot's own group; the prefix
+  cache is group-local, the host tier shared. Speculation stays on, the
+  decode runs eagerly (no graphs), the draft model stays whole on the
+  lead device, and under dp > 1 the chunk walk's mixed dispatches settle
+  at once (the JAX engine turns its ragged dispatch off there). ``pp`` >
+  1 (the pipeline schedule is training-only), ``sp`` beside another axis,
+  the dense engine and LoRA under such a mesh are refused.
 
 Decode runs the JAX engine's one-deep pipeline
 (``ServingConfig.decode_pipeline``, default 1): a decode dispatch, or a
@@ -193,7 +210,6 @@ from __future__ import annotations
 import collections
 import itertools
 import logging
-import math
 import os
 import queue
 import random
@@ -208,7 +224,8 @@ import torch
 from aws_k8s_ansible_provisioner_tpu_torch.config import (ModelConfig,
                                                           ServingConfig)
 from aws_k8s_ansible_provisioner_tpu_torch.device import resolve_device
-from aws_k8s_ansible_provisioner_tpu_torch.models.layers import DecoderLM
+from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (DecoderLM,
+                                                                 MeshLM)
 from aws_k8s_ansible_provisioner_tpu_torch.models.lora import load_attached
 from aws_k8s_ansible_provisioner_tpu_torch.models.quant import (
     quantize_params, weights_quantized)
@@ -216,7 +233,8 @@ from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import \
     fit_bblock
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
-    init_cache_sharded, sp_size)
+    axis_size, check_tp_divisibility, init_cache_sharded, init_pool_sharded,
+    is_sharded, sp_size)
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
@@ -358,8 +376,11 @@ class Engine:
         ``spec_method="draft"``; its vocabulary must cover the target's.
         ``mesh`` (``parallel/mesh.make_mesh``; default: built from
         ``serving.mesh`` when that names more than one device) shards the
-        dense cache over its ``sp`` axis; the engine then runs on the
-        mesh's lead device, and ``device`` may only name its type.
+        dense cache over its ``sp`` axis, or the parameters and the paged
+        pool over ``dp``, ``tp`` and ``ep`` (``params`` whole, or already
+        sharded by ``parallel/sharding.make_sharded_put``, then loaded
+        int8 when the weights are); the engine then runs on the mesh's
+        lead device, and ``device`` may only name its type.
         ``lora`` ({name: peft adapter dir}, in index order) registers the
         adapters a request may name (refused under a mesh). A MoE
         config under a mesh serves the gshard formulation (``ops/moe.py``),
@@ -375,15 +396,20 @@ class Engine:
                              f"'auto' or 'int8'")
         self.mesh = mesh if mesh is not None else self._build_mesh(serving)
         self.sp = sp_size(self.mesh)
+        self.dp, self.tp, self.ep = (axis_size(self.mesh, a)
+                                     for a in ("dp", "tp", "ep"))
+        # the Megatron-sharded path (models/layers.MeshLM): dp, tp or ep > 1
+        self._sharded = max(self.dp, self.tp, self.ep) > 1
         if self.mesh is not None:
-            unserved = {a: n for a, n in self.mesh.shape.items()
-                        if a != "sp" and n > 1}
-            if unserved:
+            if axis_size(self.mesh, "pp") > 1:
                 raise ValueError(
-                    f"mesh {self.mesh.shape}: only the sp axis is served so "
-                    f"far; " + ", ".join(f"{a}={n}" for a, n in
-                                         unserved.items())
-                    + " > 1 is not ported yet")
+                    f"mesh {self.mesh.shape}: pp > 1 is not served; the "
+                    f"pipeline schedule is training-only (not ported yet)")
+            if self.sp > 1 and self._sharded:
+                raise ValueError(
+                    f"mesh {self.mesh.shape}: sp > 1 beside dp, tp or ep > 1 "
+                    f"is not ported yet")
+            check_tp_divisibility(cfg, self.tp, self.ep)
             if cfg.num_experts > 0 and cfg.moe_impl != "gshard":
                 # the JAX engine's switch under any mesh: the fixed-capacity
                 # dispatch in place of the exact one, said loudly
@@ -403,8 +429,22 @@ class Engine:
         self.serving = serving
         self.dtype = (torch.bfloat16 if serving.dtype == "bfloat16"
                       else torch.float32)
-        params = _to_device(params, self.device)
+        self.num_slots = serving.max_decode_slots
+        if self.num_slots % self.dp:
+            raise ValueError(f"max_decode_slots={self.num_slots} must be "
+                             f"divisible by dp={self.dp}")
+        if self._sharded and not (serving.paged and self.sp == 1):
+            raise ValueError("the dense engine (paged=False) under dp, tp or "
+                             "ep > 1 is not ported yet")
+        if not self._sharded:
+            params = _to_device(params, self.device)
+        elif is_sharded(params) and serving.weights_dtype == "int8" and \
+                not weights_quantized(params):
+            raise ValueError("a tree loaded sharded is quantized as it "
+                             "loads (load_checkpoint(quantize=True))")
         if serving.weights_dtype == "int8" and not weights_quantized(params):
+            # whole, before any slicing (a column-parallel slice of the
+            # quantized kernel is then the quantization of that slice)
             params = quantize_params(params, cfg)
         # adapters attach after the quantization: their factors stay in the
         # activation dtype (the parameters') beside int8 kernels
@@ -417,12 +457,16 @@ class Engine:
             params = load_attached(params, items, cfg.num_layers,
                                    params["final_norm"]["weight"].dtype)
             self.lora_names = [name for name, _ in items]
-        self.model = DecoderLM(cfg, params)
+        # under dp, tp or ep the engine never keeps the whole tree: each
+        # mesh position's slices live on its device
+        self.model = MeshLM(cfg, params, self.mesh,
+                            self.num_slots // self.dp) \
+            if self._sharded else DecoderLM(cfg, params)
+        del params
         self.eos_token_id = cfg.eos_token_id if eos_token_id is None \
             else eos_token_id
         self._eos_set = ({self.eos_token_id, cfg.eos_token_id}
                          | set(cfg.extra_eos_token_ids))
-        self.num_slots = serving.max_decode_slots
         # the JAX engine rounds the window up to a 256 multiple
         self.max_len = -(-serving.max_cache_len // 256) * 256 \
             if serving.max_cache_len > 256 else serving.max_cache_len
@@ -445,7 +489,11 @@ class Engine:
         # slots per CTA of the dense cache's decode kernel (K5 when > 1)
         self.decode_bblock = fit_bblock(serving.decode_bblock,
                                         self.num_slots)
+        # one allocator per dp group (allocator: the only one at dp 1)
+        self.allocators: List[pkv.PagePool] = []
         self.allocator: Optional[pkv.PagePool] = None
+        self.dp_groups = self.dp
+        self._slots_per_group = self.num_slots // self.dp
         self.host_tier: Optional[pkv.HostTier] = None
         self.table: Optional[np.ndarray] = None
         if self.paged:
@@ -456,30 +504,56 @@ class Engine:
             self.pages_per_slot = -(-self.max_len // ps)
             pool_pages = serving.kv_pool_pages \
                 or self.num_slots * self.pages_per_slot
-            if pool_pages < self.pages_per_slot:
-                raise ValueError(f"kv_pool_pages={pool_pages} < pages for "
-                                 f"one full window ({self.pages_per_slot})")
-            # +1: physical page 0 is the scratch page idle slots point at
-            self.cache = pkv.init_pool(cfg, pool_pages + 1, ps, self.dtype,
-                                       self.device, quant=quant)
-            self.allocator = pkv.PagePool(pool_pages + 1, ps, first_page=1)
+            if serving.kv_pool_pages and pool_pages % self.dp:
+                raise ValueError(
+                    f"kv_pool_pages={pool_pages} must be divisible by the dp "
+                    f"group count ({self.dp})")
+            group_pages = pool_pages // self.dp
+            if group_pages < self.pages_per_slot:
+                # a lone max-length request must be able to grow to the
+                # window in its own group, or preemption would spin on it
+                raise ValueError(
+                    f"kv_pool_pages={pool_pages} over {self.dp} dp group(s) "
+                    f"gives {group_pages}/group < pages for one full window "
+                    f"({self.pages_per_slot})")
+            # dp groups: slots over groups contiguously, each group one
+            # partition of the pool with its own allocator working in local
+            # ids; the table holds GLOBAL ids (local + group * _group_pages,
+            # the JAX engine's layout) and each group's forward rebases its
+            # rows' tables (ops/attention.RowSplit). +1 a group: local page
+            # 0 is the group's scratch page its idle slots point at
+            self._group_pages = group_pages + 1
+            if self._sharded:
+                self.cache = init_pool_sharded(cfg, self._group_pages, ps,
+                                               self.dtype, self.mesh,
+                                               quant=quant)
+            else:
+                self.cache = pkv.init_pool(cfg, self._group_pages, ps,
+                                           self.dtype, self.device,
+                                           quant=quant)
+            self.allocators = [pkv.PagePool(self._group_pages, ps,
+                                            first_page=1)
+                               for _ in range(self.dp)]
+            if self.dp == 1:
+                self.allocator = self.allocators[0]
             # a page's payload over every leaf, and each leaf's per-page
             # shape [L, Hkv, page, (D)] (the tier's fetch check)
-            self._page_bytes = sum(
-                cfg.num_layers * math.prod(a.shape[2:]) * a.element_size()
-                for a in self.cache.values())
-            self._page_shapes = {name: (cfg.num_layers,) + tuple(a.shape[2:])
-                                 for name, a in self.cache.items()}
+            self._page_bytes = pkv.page_bytes(self.cache)
+            self._page_shapes = pkv.page_shapes(self.cache)
             # the host tier serves the prefix cache: without the cache, or
             # with a budget that holds no page, there is none (and no host
-            # memory is taken)
+            # memory is taken); one tier for every group, whose chain-hash
+            # keys do not depend on the group
             if serving.prefix_cache and \
                     serving.kv_host_tier_bytes >= self._page_bytes:
                 self.host_tier = pkv.HostTier(serving.kv_host_tier_bytes)
                 self.host_tier.reserve(self.cache)
-                self.allocator.host_tier = self.host_tier
+                for a in self.allocators:
+                    a.host_tier = self.host_tier
             self.table = np.zeros((self.num_slots, self.pages_per_slot),
                                   np.int32)
+            for slot in range(self.num_slots):
+                self.table[slot] = self._gbase(slot)
         elif self.sp > 1:
             # every slot reserves its whole window, split over the shards
             self.cache = init_cache_sharded(cfg, self.num_slots,
@@ -601,7 +675,8 @@ class Engine:
             self.model, self.cache, self.num_slots,
             self.pages_per_slot if self.paged else None, horizons,
             bblock=self.decode_bblock, mesh=self.mesh,
-            capture=self.device.type == "cuda" and self.sp == 1)
+            capture=(self.device.type == "cuda" and self.sp == 1
+                     and not self._sharded))
         self.metrics.decode_bblock.set(self.decode_bblock)
         self._pages_gauges()
 
@@ -909,6 +984,30 @@ class Engine:
     def _active_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    # dp groups: slots map to groups contiguously; each group's allocator
+    # works in local page ids (0 = its scratch page), the table in global
+    # ones (local + group * _group_pages); one group without dp
+
+    def _group(self, slot: int) -> int:
+        return slot // self._slots_per_group
+
+    def _alloc(self, slot: int) -> pkv.PagePool:
+        """The allocator of the slot's dp group's pool partition."""
+        return self.allocators[self._group(slot)]
+
+    def _gbase(self, slot: int) -> int:
+        """Global page id of the slot's group's first page (its scratch)."""
+        return self._group(slot) * self._group_pages
+
+    def _free_slot_for(self, pages: int) -> Optional[int]:
+        """The index in the free deque of the first slot whose group can
+        take ``pages`` now (free or evictable), or None: the admission
+        gate, on the best group's headroom."""
+        for i, slot in enumerate(self._free):
+            if self._alloc(slot).free_pages >= pages:
+                return i
+        return None
+
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
@@ -925,12 +1024,12 @@ class Engine:
         (:meth:`_activate`) invalidates the device carry."""
         if self.paged:
             # indexed pages go to the evictable LRU, still matchable
-            self.allocator.release_all(self._slot_pages[slot])
+            self._alloc(slot).release_all(self._slot_pages[slot])
             self._slot_pages[slot] = []
             # a restore queued for a slot torn down before its walk must
             # not be settled against a later tenant's
             self._restore_pending.pop(slot, None)
-            self.table[slot, :] = 0
+            self.table[slot, :] = self._gbase(slot)
             self.lengths[slot] = 0
             self._op_dirty_table = True
             self._pages_gauges()
@@ -1009,7 +1108,11 @@ class Engine:
         host tier's, from the allocator (paged engine only)."""
         if not self.paged:
             return
-        st, m = self.allocator.stats(), self.metrics
+        st = collections.Counter()
+        for a in self.allocators:
+            st.update({k: v for k, v in a.stats().items()
+                       if isinstance(v, int)})
+        m = self.metrics
         m.kv_pages_total.set(st["pages_total"])
         m.kv_pages_in_use.set(st["pages_live"])
         m.kv_pages_free.set(st["pages_free"])
@@ -1036,16 +1139,20 @@ class Engine:
             pages = self._slot_pages[slot]
             while len(pages) < -(-rows // ps):
                 need = -(-rows // ps) - len(pages)
-                got = self.allocator.alloc(need)
+                got = self._alloc(slot).alloc(need)
                 if got is not None:
                     # spill what this allocation reclaimed before the
                     # dispatch that writes the pages is queued
                     self._spill_reclaimed()
-                    self.table[slot, len(pages):len(pages) + need] = got
+                    self.table[slot, len(pages):len(pages) + need] = \
+                        np.asarray(got, np.int32) + self._gbase(slot)
                     self._op_dirty_table = True
                     pages.extend(got)
                     break
-                victim = max(self._active_slots(),
+                # the newest admission of this slot's own dp group yields:
+                # pages are group-local, so another group's free nothing
+                victim = max((s for s in self._active_slots()
+                              if self._group(s) == self._group(slot)),
                              key=lambda s: self._admit_seq[s])
                 self._preempt(victim)
                 if victim == slot:
@@ -1188,15 +1295,21 @@ class Engine:
                     req.out_queue.put(None)
                     continue
                 ids = self._resume_ctx.get(req.id, req.prompt_ids)
-                if self.paged and -(-(len(ids) + 1) // self.page_size) > \
-                        self.allocator.free_pages:
-                    break                  # head-of-line blocking: FCFS
+                pick = 0
+                if self.paged:
+                    # the best group's headroom gates (FCFS head-of-line
+                    # blocking); the slot comes from a group that holds it
+                    pick = self._free_slot_for(
+                        -(-(len(ids) + 1) // self.page_size))
+                    if pick is None:
+                        break
                 self._queue.popleft()
                 self.metrics.queue_depth.set(len(self._queue))
                 isolated = not batch and not self._queue
             if not req.t_prefill_start:
                 req.t_prefill_start = time.monotonic()
-            slot = self._free.popleft()
+            slot = self._free[pick]
+            del self._free[pick]
             if self.paged:
                 ids, off, resumed = self._paged_admit(req, slot, isolated)
                 # a hit or a resume walks the chunk program from the reuse
@@ -1291,7 +1404,8 @@ class Engine:
         resumed = ctx is not None
         ids = list(ctx) if resumed else list(req.prompt_ids)
         ps = self.page_size
-        alloc = self.allocator
+        alloc = self._alloc(slot)
+        gbase = self._gbase(slot)
         matched: List[int] = []
         n = 0
         host_keys: List[tuple] = []
@@ -1328,15 +1442,16 @@ class Engine:
         self._resume_ctx.pop(req.id, None)
         pages = matched + list(fresh)
         self._slot_pages[slot] = pages
-        self.table[slot, :] = 0
-        self.table[slot, :len(pages)] = pages
+        self.table[slot, :] = gbase
+        self.table[slot, :len(pages)] = np.asarray(pages, np.int32) + gbase
         self._op_dirty_table = True
         self._seq_counter += 1
         self._admit_seq[slot] = self._seq_counter
         off = n
         if restore:
             # the restored span starts at the first fresh page
-            self._schedule_restore(slot, fresh[:len(restore)], staged)
+            self._schedule_restore(slot, [p + gbase for p in
+                                          fresh[:len(restore)]], staged)
             off = n + len(restore) * ps
         if off > 0:
             self.counts["prefix_cache_hits"] += 1
@@ -1374,9 +1489,9 @@ class Engine:
     def _schedule_restore(self, slot: int, pids: List[int], staged: dict):
         """Queue the restore of host payloads, already copied to the device
         (``staged``, :func:`paged_kv.upload_pages`), into the slot's fresh
-        pages: one ``index_copy_`` a pool leaf, in place (the decode graphs
-        captured the pool's storage). Stream order puts it ahead of every
-        later dispatch; nothing waits here."""
+        pages (global ids): one ``index_copy_`` a pool leaf, in place (the
+        decode graphs captured the pool's storage). Stream order puts it
+        ahead of every later dispatch; nothing waits here."""
         pkv.restore_pages(self.cache, pids, staged)
         nbytes = len(pids) * self._page_bytes
         self.host_tier.note_restored(len(pids), nbytes)
@@ -1398,15 +1513,20 @@ class Engine:
         leaf, queued right after the allocation that reclaimed the pages,
         and the copies into the tier's host slots behind it; nothing waits
         here."""
-        tier, log = self.host_tier, self.allocator.evicted_log
-        if tier is None or not log:
+        tier = self.host_tier
+        if tier is None:
             return
-        self.allocator.evicted_log = []
-        tier.spill(log, pkv.gather_pages(self.cache,
-                                         [pid for pid, _, _ in log]),
-                   self._page_bytes)
-        self.counts["kv_spill_bytes"] += len(log) * self._page_bytes
-        self.metrics.kv_spill_bytes.inc(len(log) * self._page_bytes)
+        for g, alloc in enumerate(self.allocators):
+            log = alloc.evicted_log
+            if not log:
+                continue
+            alloc.evicted_log = []
+            base = g * self._group_pages
+            tier.spill(log, pkv.gather_pages(
+                self.cache, [pid + base for pid, _, _ in log]),
+                self._page_bytes)
+            self.counts["kv_spill_bytes"] += len(log) * self._page_bytes
+            self.metrics.kv_spill_bytes.inc(len(log) * self._page_bytes)
 
     def _index_prompt_pages(self, slot: int, ids: List[int],
                             n_valid: Optional[int] = None):
@@ -1423,7 +1543,7 @@ class Engine:
         n_valid = len(ids) if n_valid is None else n_valid
         key = self._lora_salt(self.lora_idx[slot])
         for p in range(min(n_valid // ps, len(pages))):
-            key = self.allocator.index_page(pages[p], key,
+            key = self._alloc(slot).index_page(pages[p], key,
                                             tuple(ids[p * ps:(p + 1) * ps]))
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
@@ -1588,7 +1708,7 @@ class Engine:
             bias_vals=self._dev(self.bias_vals[slots]),
             reps=self._dev(reps) if (reps != 1.0).any() else None,
             allow=allow, lora_idx=self._lora_dev(self.lora_idx[slots]),
-            logprobs=want_lp, prompt_logprobs=n_plp)
+            logprobs=want_lp, prompt_logprobs=n_plp, row_slots=slots_np)
         self.cache, toks = out[0], out[1].cpu().numpy()
         lp_t = tuple(a.cpu().numpy() for a in out[2]) if want_lp else None
         plp_t = tuple(a.cpu().numpy() for a in out[-1]) if n_plp else None
@@ -1834,8 +1954,11 @@ class Engine:
 
     def _ragged_on(self) -> bool:
         """May the paged chunk walk leave its mixed dispatches in flight
-        (and admissions take the walk under a dispatch in flight)?"""
-        return self.paged and self.serving.decode_pipeline > 0
+        (and admissions take the walk under a dispatch in flight)? Not
+        under dp > 1, as the JAX engine turns its ragged dispatch off there:
+        the walk's dispatches settle at once."""
+        return (self.paged and self.serving.decode_pipeline > 0
+                and self.dp == 1)
 
     def _carry_valid(self) -> bool:
         """Whether the operand buffers' token/length carry (the dispatch in
@@ -2446,6 +2569,10 @@ class Engine:
             progs.append((f"prefill_batch_n{nb}_b{b0}_fields",
                           lambda: prefill(b0, nb, True)))
         C = self._chunk_size
+        # every slot's table at its group's scratch page
+        table = self._dev(np.repeat(
+            np.array([self._gbase(s) for s in range(B)], np.int32)[:, None],
+            self.pages_per_slot, axis=1)) if self.paged else None
         if self.paged:
             def mixed(fields: bool):
                 ops = self._warmup_ops(B, fields)
@@ -2461,9 +2588,7 @@ class Engine:
                 mixed_step(
                     model, self.cache, torch.zeros(B, dtype=i32, device=dev),
                     torch.zeros(B, dtype=i32, device=dev),
-                    self._warmup_tokens(1, C, 97), 0, 0, C,
-                    torch.zeros((B, self.pages_per_slot), dtype=i32,
-                                device=dev),
+                    self._warmup_tokens(1, C, 97), 0, 0, C, table,
                     ops["temps"], ops["top_ks"], ops["top_ps"], ops["seeds"],
                     0.7 if fields else 0.0, 20 if fields else 0,
                     0.9 if fields else 1.0, 5, any_sampled=fields,
@@ -2525,8 +2650,6 @@ class Engine:
             return self._dev(np.minimum(self.lengths, self.max_len - rows)
                              .astype(np.int32))
 
-        table = torch.zeros((B, self.pages_per_slot), dtype=i32,
-                            device=dev) if self.paged else None
         if not self.decoder.graphs:
             # the CPU and the sp mesh decode eagerly
             def decode():

@@ -61,6 +61,24 @@ def init_pool(cfg: ModelConfig, num_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def page_bytes(pool) -> int:
+    """One page's payload over every leaf of the pool (a dict, or a mesh's
+    ``parallel/sharding.ShardedPool``, all its kv heads)."""
+    if not isinstance(pool, dict):
+        return pool.page_bytes()
+    return sum(a.shape[0] * a[0, 0].numel() * a.element_size()
+               for a in pool.values())
+
+
+def page_shapes(pool) -> dict:
+    """Each leaf's page payload shape ``[L, Hkv, page, (D)]`` (the host
+    tier's fetch check)."""
+    if not isinstance(pool, dict):
+        return pool.page_shapes()
+    return {name: (a.shape[0],) + tuple(a.shape[2:])
+            for name, a in pool.items()}
+
+
 def pool_bytes(cfg: ModelConfig, num_pages: int, page_size: int,
                dtype=torch.bfloat16, quant: bool = False) -> int:
     """Bytes of the pool's K and V (and scale) leaves."""
@@ -159,7 +177,11 @@ def gather_pages(pool: dict, pages: Sequence[int]) -> dict:
     pool: leaves ``[L, P, ...]``; pages: physical ids. Returns ``{name:
     [L, k, Hkv, page, (D)]}`` (the JAX layout), each a view of a contiguous
     ``[k, L, ...]`` buffer, so that one page's slice ``[:, i]`` is
-    contiguous for its copy to the host."""
+    contiguous for its copy to the host. A mesh's pool
+    (``parallel/sharding.ShardedPool``) gathers every shard's heads onto
+    its lead device."""
+    if not isinstance(pool, dict):
+        return pool.gather(pages)
     idx = _page_index(pages, pool["k"].device)
     return {name: arr.movedim(1, 0).index_select(0, idx).movedim(0, 1)
             for name, arr in pool.items()}
@@ -182,8 +204,11 @@ def upload_pages(entries: List[dict], device) -> dict:
 def restore_pages(pool: dict, pages: Sequence[int], data: dict) -> dict:
     """Write page payloads ``{name: [L, k, Hkv, page, (D)]}`` into the
     physical pages ``pages`` of the pool, in place (``index_copy_`` along
-    the page axis of every leaf; no leaf is reallocated). Returns the
-    pool."""
+    the page axis of every leaf; no leaf is reallocated; a mesh's pool
+    hands each shard its heads). Returns the pool."""
+    if not isinstance(pool, dict):
+        pool.restore(pages, data)
+        return pool
     idx = _page_index(pages, pool["k"].device)
     for name, arr in pool.items():
         arr.index_copy_(1, idx, data[name].to(arr.dtype))
@@ -242,7 +267,10 @@ class HostTier:
         """Take the page slots for the pages of ``pool`` (its leaves
         ``[L, P, ...]``): as many as the budget holds, one host tensor a
         leaf, pinned when the pool lies on a CUDA device. A budget that
-        holds no page is an error: the engine builds no tier then."""
+        holds no page is an error: the engine builds no tier then. A mesh's
+        pool takes the slots of its whole pages (all kv heads)."""
+        if not isinstance(pool, dict):
+            pool = pool.page_template()
         page_bytes = sum(a[:, 0].numel() * a.element_size()
                          for a in pool.values())
         n = self.budget_bytes // page_bytes

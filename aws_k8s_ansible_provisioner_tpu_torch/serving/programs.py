@@ -28,7 +28,7 @@ cache (updated in place) and device tensors, with the JAX package's
 operand buffers that stay in place, the carry left in them: on a CUDA card
 each horizon is one replay of a CUDA graph captured when the engine is
 built (the counterpart of the JAX program's static horizon); on the CPU,
-and under an sp mesh, it calls :func:`decode_steps`.
+and under any mesh, it calls :func:`decode_steps`.
 
 The paged pool serves the target model of the paged engine; the dense slot
 cache (``kv_cache.init_cache``) the dense engine (``paged=False``) and the
@@ -36,7 +36,13 @@ draft model of speculative decoding, bf16/f32 or (the dense engine's) int8.
 Under a mesh with ``sp`` > 1 the dense cache is a list of sequence shards
 (``parallel/sharding.init_cache_sharded``): ``prefill_batch_step`` and
 ``prefill_chunk_step`` take it as it is (their callbacks write each row in
-the shard that holds it), ``decode_steps`` takes the mesh.
+the shard that holds it), ``decode_steps`` takes the mesh. Under a (dp,
+tp, ep) mesh the model is ``models/layers.MeshLM`` and the pool a
+``parallel/sharding.ShardedPool``: every program runs unchanged, the
+model splitting each forward's rows by dp group (the prefill takes the
+rows' slots, ``row_slots``; the mixed dispatch's rows are slots and the
+chunk's slot) and gathering the full-vocabulary logits on the lead, where
+the sampling and the logit processing read them.
 
 Each honours the model's ``cfg.sliding_window`` in every attention of the
 step (prefill, decode, chunk rows and verify rows alike).
@@ -285,7 +291,8 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
                        slots: Optional[torch.Tensor] = None,
                        ban_ids=None, ban_until=None, bias_ids=None,
                        bias_vals=None, reps=None, allow=None, lora_idx=None,
-                       logprobs: bool = False, prompt_logprobs: int = 0):
+                       logprobs: bool = False, prompt_logprobs: int = 0,
+                       row_slots=None):
     """Prefill N prompts in one forward pass.
 
     tokens: [N, T] right-padded; true_lens [N]; tables [N, max_pages] int32
@@ -300,7 +307,8 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     tokens [N] int32), then with ``logprobs`` their (sel, vals, ids)
     records, then with
     ``prompt_logprobs`` (the longest prompt that asks) the prompts' records
-    (:func:`_prompt_logprobs`).
+    (:func:`_prompt_logprobs`). ``row_slots`` (host, [N]): the prompts'
+    slots, which a dp mesh's model splits the rows by.
     """
     N, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
@@ -308,7 +316,8 @@ def prefill_batch_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     window = model.cfg.sliding_window
     attend = make_prefill_attend_batch(slots, true_lens, window) \
         if tables is None else \
-        make_prefill_attend_batch_paged_carry(tables, true_lens, window)
+        make_prefill_attend_batch_paged_carry(tables, true_lens, window,
+                                              row_slots)
     logits, pool = model.forward_carry(tokens, positions, pool, attend,
                                        model.lora_rows(lora_idx))
     last = logits[torch.arange(N, device=tokens.device),
@@ -502,10 +511,10 @@ def mixed_step(model: DecoderLM, pool: dict, tokens: torch.Tensor,
     packed = torch.cat([tokens[None], ptokens], dim=1)          # [1, B + C]
     positions = torch.cat([torch.where(is_p, torch.zeros_like(lengths),
                                        lengths)[None], crows[None]], dim=1)
-    attend = make_mixed_attend_carry_paged(write_rows.to(i32),
-                                           row_limits.to(i32), row_tables,
-                                           model.cfg.sliding_window,
-                                           chunk_start=B)
+    attend = make_mixed_attend_carry_paged(
+        write_rows.to(i32), row_limits.to(i32), row_tables,
+        model.cfg.sliding_window, chunk_start=B,
+        row_slots=np.concatenate([np.arange(B), np.full(C, pslot)]))
     lora = None if lora_idx is None else model.lora_rows(
         torch.cat([lora_idx, lora_idx[pslot].expand(C)])[None])
     logits, pool = model.forward_carry(packed, positions, pool, attend,
@@ -651,7 +660,7 @@ class DecodeGraphs:
     the adapter indices are on when adapters are attached; the penalties
     and the logprobs are variants.
 
-    With ``capture`` (a CUDA device, no sp mesh), each (horizon in
+    With ``capture`` (a CUDA device, no mesh), each (horizon in
     ``horizons``, any row samples, penalties, logprobs) is captured once as
     a CUDA graph when the engine is built (the first penalized or logprob
     request pays no capture), after one eager horizon-1 warm-up per variant

@@ -510,8 +510,11 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
     spec, a duplicate name or one that shadows ``serving.model`` raises
     ValueError. The engine stops on the
     tokenizer's eos beside the model's. A ``serving.mesh`` of more than one
-    device takes that many CUDA cards (the engine's ``_build_mesh``), or on
-    the CPU repeats the CPU."""
+    device takes that many CUDA cards (``parallel/mesh.make_mesh``), or on
+    the CPU repeats the CPU; with dp, tp or ep > 1 a checkpoint loads
+    sharded (``parallel/sharding.make_sharded_put``: each converted leaf
+    sliced onto its mesh positions as it is produced, staged on the
+    host)."""
     import torch
 
     from aws_k8s_ansible_provisioner_tpu_torch.config import (
@@ -523,6 +526,8 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
         config_from_hf_dir
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import \
+        make_sharded_put
     from aws_k8s_ansible_provisioner_tpu_torch.serving.chat_template import \
         ChatTemplater
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
@@ -553,6 +558,14 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
             raise ValueError(f"unknown model {serving.model!r} and no "
                              f"checkpoint")
     dtype = torch.bfloat16 if serving.dtype == "bfloat16" else torch.float32
+    mesh = None
+    if serving.mesh.num_devices > 1:
+        # a dry run on the CPU: every shard of the mesh on the CPU
+        mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices
+                         if dev.type == "cpu" else None)
+    m = serving.mesh
+    place = make_sharded_put(mesh, model_cfg) \
+        if max(m.dp, m.tp, m.ep) > 1 else None
     if params is None:
         # an int8 engine's weights are quantized layer by layer as they
         # are converted or drawn: the unquantized tree is never held
@@ -562,7 +575,8 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
             # the first start converts the shards and caches the tree
             # beside them; a restart restores it
             params = load_checkpoint_cached(ckpt, model_cfg, dtype,
-                                            device=dev, quantize=quantize)
+                                            device=dev, quantize=quantize,
+                                            place=place)
         else:
             log.warning("no checkpoint: serving RANDOM weights (%s, seed %d)",
                         model_cfg.name, seed)
@@ -579,10 +593,6 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
             serving.draft_checkpoint_dir, draft_cfg, dtype, device=dev))
         log.info("draft model: %s (%s)", draft_cfg.name,
                  serving.draft_checkpoint_dir)
-    mesh = None
-    if dev.type == "cpu" and serving.mesh.num_devices > 1:
-        # a dry run on the CPU: every shard of the mesh on the CPU
-        mesh = make_mesh(serving.mesh, [dev] * serving.mesh.num_devices)
     lora = None
     if serving.lora_adapters:
         lora = {}
@@ -1386,6 +1396,14 @@ def build_parser(**kw) -> argparse.ArgumentParser:
     p.add_argument("--draft-checkpoint-dir", default="",
                    help="HF checkpoint dir of the draft model "
                         "(spec_method=draft)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (shards heads/MLP over the "
+                        "mesh; needs tp devices)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree (shards decode slots)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (MoE models: shards experts "
+                        "over the mesh)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel degree: the dense KV cache's "
                         "sequence axis split over sp cards, decode merging "
@@ -1437,7 +1455,7 @@ def serving_config(args):
         decode_bblock=args.decode_bblock,
         decode_pipeline=args.decode_pipeline, spec_decode=args.spec_decode,
         spec_k=args.spec_k, spec_method=args.spec_method,
-        mesh=MeshConfig(sp=args.sp),
+        mesh=MeshConfig(dp=args.dp, tp=args.tp, sp=args.sp, ep=args.ep),
         request_timeout_s=args.request_timeout,
         max_queue_depth=args.max_queue_depth,
         drain_timeout_s=args.drain_timeout,

@@ -8,7 +8,7 @@ port's package beside this file; it exits non-zero without printing a
 result when either is missing. ``--phases`` runs only the named phases
 (``PHASES``: kernels, kernels-window, kernels-sp, kernels-families,
 kernels-moe, sampling, engine, server-process, checkpoint, guided-lora,
-prefix, spec, draft, dense, mistral, families, moe, sp; the build always
+prefix, spec, draft, dense, mistral, families, moe, sp, mesh; the build always
 runs); the kernels line then lists the rows whose kernels phase and named
 run both ran, each still required to have launched there. With no
 argument every phase runs. Phases, in order (any failure raises):
@@ -222,9 +222,10 @@ argument every phase runs. Phases, in order (any failure raises):
    them against K4 (int8: K4-int8) over the whole cache by the ulp rule,
    timed beside its plain version and a memory-efficient attention call
    that returns the log-sum-exp, and the fused dense write into one shard
-   (one slot's row kept, three dropped); then, last, Qwen3-0.6B at full width
-   with 4 slots of 32768 rows, prefill_chunk 512 and prompts of about 40,
-   6,000, 14,000 and 27,000 tokens (32 new tokens each): the dense engine
+   (one slot's row kept, three dropped); then Qwen3-0.6B at full width
+   (its depth cut to SP_LAYERS, 8 of 28) with 4 slots of 32768 rows,
+   prefill_chunk 512 and prompts of about 40, 6,000, 14,000 and 27,000
+   tokens (32 new tokens each): the dense engine
    without a mesh (the yardstick), then ``Engine(..., mesh=)`` over
    ``[cuda:0] * sp`` with bf16 KV at sp 4 and sp 2 and int8 KV at sp 4
    (with a seeded sampled request, drawn twice), each with launch counts
@@ -240,9 +241,10 @@ argument every phase runs. Phases, in order (any failure raises):
    at RoPE over all of D, 32 of 80 columns and none, paged and dense, bf16
    and int8; K1, its ragged entry with a 256-row chunk (the chunk body's
    D 256 instance for gemma, timed beside the per-row route), K1-spec, K4,
-   K5 and K7). Then each family at its registered full width and depth on
-   seeded random int8 weights: the default ServingConfig (8 slots,
-   prefill_chunk 256), 8 greedy requests of prompts from 9 up to 700
+   K5 and K7). Then each family at its registered full width, its depth
+   cut to FAMILY_LAYERS (8), on seeded random int8 weights: the default
+   ServingConfig (8 slots, prefill_chunk 256), 8 greedy requests of
+   prompts from 9 up to 700
    tokens (up to 1,900 for phi and opt), logits held against the plain
    path and one horizon-8 dispatch profiled; phi and gemma again with
    int8 KV, with prompt lookup and with a self-draft over the dense bf16
@@ -274,6 +276,20 @@ argument every phase runs. Phases, in order (any failure raises):
    the MoE kernels), and the bf16 instances at full width with the depth
    cut to 4 layers (bf16 weights). The MoE kernels must have launched once
    a layer of every forward of each run, in the weights' instance.
+16. mesh, last (``phase_mesh``): tensor, data and expert parallel serving
+   on the paged engine, every mesh position on this card (two cards take
+   (a)'s tp shards on cards 0 and 1 as well): (a) Qwen3-8B over tp 2 at
+   full width and depth, plain and with prompt lookup, (b) Qwen3-0.6B over
+   dp 2 x tp 2 with prompt lookup, each against the same weights on the
+   engine without a mesh (first-token logits within MESH_LOGIT_TOL, greedy
+   streams equal up to the first draw whose unmeshed top-2 margin is
+   below it; K1, K1-spec and the fused K2 once a layer on every shard's
+   pool for every forward; (b): every slot's pages in its own group's
+   partition after every step), (c) Qwen3-30B-A3B at 4 layers over ep 2
+   x tp 2, the gshard forward against gshard whole on the card, and (d)
+   the checkpoint phase's Qwen3-0.6B directory loaded under tp 2, every
+   shard leaf its whole load's slice bit for bit. The kernels line adds
+   ``mesh_launches`` to the rows whose instance the mesh runs launched.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -3688,6 +3704,9 @@ def phase_mistral_draft(torch, np):
 # the sp engine runs: Qwen3-0.6B, 4 slots of 32768 rows (8192 rows a shard
 # at sp 4), prompts crossing 0 to 3 shard edges at sp 4
 SP_SLOTS, SP_WINDOW, SP_CHUNK = 4, 32768, 512
+# the sp engine runs' depth (of Qwen3-0.6B's 28 layers; full width): the
+# run's time limit holds the mesh phase too
+SP_LAYERS = 8
 SP_PROMPTS = (40, 6000, 14000, 27000)
 SP_NEW = 32
 # the seeded sampled request of the int8 sp 4 run: its prompt crosses the
@@ -3890,22 +3909,30 @@ def phase_kernels_sp(torch, np):
     return out
 
 
-def _sp_params(torch):
-    """Qwen3-0.6B's seeded random weights, quantized to int8 once for every
-    sp engine run (as the engine would quantize them)."""
+def _sp_cfg():
+    """Qwen3-0.6B at full width, its depth cut to SP_LAYERS."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import QWEN3_0_6B
+
+    return QWEN3_0_6B.scaled(num_layers=SP_LAYERS)
+
+
+def _sp_params(torch):
+    """The sp engines' seeded random weights (:func:`_sp_cfg`), quantized to
+    int8 once for every sp engine run (as the engine would quantize
+    them)."""
     from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
     from aws_k8s_ansible_provisioner_tpu_torch.models.quant import \
         quantize_params
 
+    cfg = _sp_cfg()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return quantize_params(init_params(QWEN3_0_6B, gen, torch.bfloat16),
-                           QWEN3_0_6B)
+    return quantize_params(init_params(cfg, gen, torch.bfloat16), cfg)
 
 
 def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
-    """The sequence-parallel path: Qwen3-0.6B at full width through
+    """The sequence-parallel path: Qwen3-0.6B at full width (SP_LAYERS of
+    its layers) through
     ``Engine(..., mesh=make_mesh(MeshConfig(sp=sp), [cuda:0] * sp))`` (sp 1:
     the dense engine without a mesh, the yardstick of the greedy streams),
     4 slots of 32768 rows, prefill_chunk 512; 4 greedy requests with
@@ -3919,14 +3946,13 @@ def phase_sp_engine(torch, np, params, kv_dtype, sp, profile=True):
     decode dispatch of the 4 slots profiled afterwards. Returns (engine, launches, the
     greedy requests, {(seed, context length): gap} or None)."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
-                                                              QWEN3_0_6B,
                                                               ServingConfig)
     from aws_k8s_ansible_provisioner_tpu_torch.ops import dense_attention as da
     from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
                                                                       Request)
 
-    cfg = QWEN3_0_6B
+    cfg = _sp_cfg()
     quant = kv_dtype == "int8"
     # the prefix cache off: the seeded request runs twice and must prefill
     # alike both times (phase_prefix holds the cache)
@@ -6012,6 +6038,10 @@ FAMILY_PROMPTS = {"llama": (9, 40, 120, 256, 300, 450, 600, 700),
                   "phi": (9, 60, 200, 450, 700, 1100, 1500, 1900),
                   "opt": (9, 60, 200, 450, 700, 1100, 1500, 1900)}
 FAMILY_NEW = 48
+# the families' engine runs at full width, their depth cut to this many
+# layers (the run's time limit holds the mesh phase too); the kernels
+# phase keeps every family's registered shapes
+FAMILY_LAYERS = 8
 # one decode step of a family at full width on random int8 weights,
 # kernels vs plain versions: each layer's attention held to the ulp rule in
 # the step itself; the logits carry those one-rounding differences through
@@ -6019,14 +6049,17 @@ FAMILY_NEW = 48
 FAMILY_LOGIT_TOL = MISTRAL_LOGIT_TOL
 
 
-def _family_cfg(fam):
+def _family_cfg(fam, layers=None):
+    """A family's registered config; ``layers``: its depth cut to that."""
     from aws_k8s_ansible_provisioner_tpu_torch.config import (GEMMA_2B,
                                                               LLAMA_3_2_1B,
                                                               OPT_1_3B,
                                                               PHI_2)
 
-    return {"llama": LLAMA_3_2_1B, "gemma": GEMMA_2B, "phi": PHI_2,
-            "opt": OPT_1_3B}[fam]
+    cfg = {"llama": LLAMA_3_2_1B, "gemma": GEMMA_2B, "phi": PHI_2,
+           "opt": OPT_1_3B}[fam]
+    return cfg if layers is None else cfg.scaled(
+        num_layers=min(layers, cfg.num_layers))
 
 
 def _family_label(cfg):
@@ -6196,7 +6229,7 @@ def phase_family(torch, np, fam, kind, params):
     from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (Engine,
                                                                       Request)
 
-    cfg = _family_cfg(fam)
+    cfg = _family_cfg(fam, FAMILY_LAYERS)
     paged, kv_dtype, bblock, spec = FAMILY_RUNS[kind]
     quant = kv_dtype == "int8"
     serving = ServingConfig(model=cfg.name, max_decode_slots=8,
@@ -6369,7 +6402,7 @@ def phase_families(torch, np):
     {"<family> <run>": launches}."""
     runs = {}
     for fam in FAMILIES:
-        cfg = _family_cfg(fam)
+        cfg = _family_cfg(fam, FAMILY_LAYERS)
         t0 = time.monotonic()
         params = _family_params(torch, cfg)
         log(f"[{cfg.name}] weights drawn and quantized in "
@@ -6921,6 +6954,550 @@ def phase_moe(torch, np):
     return runs, stats
 
 
+# -- tensor, data and expert parallel serving (the mesh phase) ---------------
+
+MESH_PROMPTS = (9, 40, 120, 256, 300, 450, 600, 700)
+MESH_NEW = 24
+# the repeated-pattern prompts that prompt lookup drafts from
+MESH_PATTERNS = 4
+# first-token logits of a meshed engine against the same engine without a
+# mesh, same weights: a tp shard rounds its row-parallel partial (wo,
+# w_down, each expert's down) to bf16 before the sum, one extra rounding
+# of up to 2^-9 of the partial per product; like the kernels' one-ulp
+# differences those are carried through the layers of random weights
+# (MISTRAL_LOGIT_TOL covers 16 to 48 such layers). A greedy draw can part
+# only where the unmeshed top-2 margin is below the tolerance's reach
+MESH_LOGIT_TOL = MISTRAL_LOGIT_TOL
+MESH_MOE_LAYERS = 4
+MESH_MOE_TOKENS = 128
+
+
+def _mesh_engine(torch, cfg, params, serving, mesh, tag):
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Engine
+
+    t0 = time.monotonic()
+    engine = Engine(cfg, params, serving, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    where = "no mesh" if mesh is None else (
+        f"mesh {dict((k, v) for k, v in mesh.shape.items() if v > 1)} over "
+        f"{sorted({str(d) for d in mesh.devices.flat})}")
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, "
+        f"vocab {cfg.vocab_size}; {where}; {engine.num_slots} slots x "
+        f"{engine.max_len}, page {serving.page_size}, pool pages a group "
+        f"{engine._group_pages}; {_dispatch_mode(engine)}"
+        f"{', ' + serving.spec_method if engine.spec_decode else ''}; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up "
+        f"{time.monotonic() - t0:.1f}s")
+    return engine
+
+
+def _first_logits(torch, engine, prompts):
+    """Each prompt's last-position logits [n, V] float32 (the logits of
+    its first token), one prompt a forward through the engine's model and
+    paged prefill callback with OOB tables (its rows drop)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.ops.attention import \
+        make_prefill_attend_batch_paged_carry
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+
+    dev, i32 = engine.device, torch.int32
+    out = []
+    for p in prompts:
+        n = len(p)
+        attend = make_prefill_attend_batch_paged_carry(
+            torch.full((1, engine.pages_per_slot), int(pkv.OOB_PAGE),
+                       dtype=i32, device=dev),
+            torch.tensor([n], dtype=i32, device=dev),
+            engine.cfg.sliding_window, [0])
+        logits, _ = engine.model.forward_carry(
+            torch.tensor([p], dtype=i32, device=dev),
+            torch.arange(n, dtype=i32, device=dev)[None], engine.cache,
+            attend)
+        out.append(logits[0, n - 1].float())
+    torch.cuda.synchronize()
+    return torch.stack(out)
+
+
+def _substep_ms(torch, engine, horizon=8, reps=3):
+    """One decode dispatch of ``horizon`` substeps of every slot, eager
+    (``programs.decode_steps``) on the engine's state once every prompt is
+    in: host-clock ms a substep, the median of ``reps``. Its rows land at
+    each slot's length onward, which the engine's next dispatch rewrites
+    (pages for them taken first, as that dispatch would)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.programs import \
+        decode_steps
+
+    engine._settle_inflight()
+    engine._ensure_pages(horizon)
+    tok, lens, table, top_ks, top_ps, seeds = (engine._dev(a) for a in (
+        engine.last_token, engine.lengths, engine.table, engine.top_ks,
+        engine.top_ps, engine.seeds))
+    temps = torch.zeros_like(top_ps)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        decode_steps(engine.model, horizon, engine.cache, tok, lens, table,
+                     temps, top_ks, top_ps, seeds, any_sampled=False)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3 / horizon)
+    return statistics.median(times)
+
+
+def _mesh_run(torch, engine, prompts, tag, gaps=False, check=None):
+    """Greedy requests (MESH_NEW tokens each) through the engine, the
+    launch counts zeroed just before and read just after; once every
+    prompt is in, one eager decode dispatch is timed (its launches taken
+    out of the run's). ``gaps``: every draw's top-2 margin recorded
+    (:func:`_recording_gaps`); ``check(engine)`` after every step.
+    Returns (requests, launches, counts, ms a substep, gaps). With
+    ``gaps`` the engine's decode graphs are dropped first: a replay calls
+    no Python ``sample``, so its draws would go unrecorded (the same
+    kernels run eagerly)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    if gaps:
+        engine.decoder.graphs.clear()
+        _free(torch)
+    engine.counts.clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    reqs = [engine.submit(Request(prompt_ids=p, max_tokens=MESH_NEW,
+                                  ignore_eos=True)) for p in prompts]
+    extra, ms = {}, None
+
+    def step():
+        nonlocal extra, ms
+        while not engine.idle():
+            engine.step()
+            if check is not None:
+                check(engine)
+            if ms is None and not engine.pending and engine._chunk is None \
+                    and engine._active_slots():
+                before = _launches()
+                ms = _substep_ms(torch, engine)
+                extra = _delta(_launches(), before)
+
+    t0 = time.monotonic()
+    got = _recording_gaps(torch, step) if gaps else step()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _delta(_launches(), extra)
+    counts = dict(engine.counts)
+    for r in reqs:
+        _finish_ok(engine.cfg, r, MESH_NEW)
+    log(f"{tag} {len(reqs)} requests, prompts {[len(p) for p in prompts]}: "
+        f"{sum(len(r.generated) for r in reqs)} tokens in {dt:.2f}s; "
+        f"dispatches {counts}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return reqs, launches, counts, ms, got
+
+
+def _check_mesh_launches(tag, engine, launches, counts):
+    """The paged kernels of the engine's pool (bf16 or int8 KV) launched
+    once a layer on every (dp group, tp shard) pool for every forward: the
+    attention per decode substep and mixed dispatch (a dispatch's decode
+    rows reach every group), the verify per verify dispatch, the fused q/k
+    prologue + row write per forward of the three; the other pool's
+    kernels and the standalone writes never. A MoE config's gshard MLP
+    (what a mesh serves) routes through the route-and-sort kernel, once a
+    layer of every forward (the prefills' too), and launches no grouped
+    expert kernel. The chunk body's launches (``<attention> chunk``) and
+    the split-KV combine ride the attention's."""
+    attn, write = _kernel_names(engine.serving.kv_dtype == "int8")
+    spec = attn.replace("attention", "attention_spec")
+    shards = engine.tp * engine.dp
+    per = engine.cfg.num_layers * shards
+    sub, mixed, ver = (counts.get(k, 0) for k in (
+        "decode_substeps", "mixed_dispatches", "spec_dispatches"))
+    want = {attn: per * (sub + mixed), write: per * (sub + mixed + ver),
+            spec: per * ver}
+    allowed = {"split_merge"}
+    routed = engine.cfg.num_layers * (sub + mixed + ver)
+    if engine.cfg.num_experts > 0:
+        allowed.add("moe_route_sort")
+    other = {k: v for k, v in launches.items()
+             if v and k not in want and k not in allowed
+             and not k.startswith(attn + " ")}
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if engine.cfg.num_experts > 0 and launches["moe_route_sort"] < routed:
+        bad["moe_route_sort"] = (launches["moe_route_sort"], f">= {routed}")
+    if bad or other or launches[attn] <= 0 or launches[write] <= 0:
+        raise AssertionError(f"{tag} launches (got, want) {bad}, unexpected "
+                             f"{other}; {counts}")
+    log(f"{tag} launches on each of the {shards} (dp group, tp shard) "
+        f"pools: {attn} {launches[attn] // shards}, {write} "
+        f"{launches[write] // shards}, {spec} {launches[spec] // shards} = "
+        f"{engine.cfg.num_layers} layers x ({sub} decode substeps + {mixed} "
+        f"mixed dispatches [+ {ver} verifies]); the chunk body "
+        f"{launches[attn + ' chunk']}, split_merge "
+        f"{launches['split_merge']}; no other kernel")
+
+
+def _streams_vs_ref(tag, reqs, ref_reqs, gaps, tol):
+    """Each greedy stream equals the unmeshed one up to the first draw
+    whose unmeshed top-2 margin is below ``tol``; logs the parts."""
+    same, parts = 0, []
+    for r, ref in zip(reqs, ref_reqs):
+        a, b = r.generated, ref.generated
+        if a == b:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        margins = [gaps.get((ref.eff_seed, len(ref.prompt_ids) + i))
+                   for i in range(j + 1)]
+        low = [i for i, m in enumerate(margins) if m is not None and m < tol]
+        parts.append((len(ref.prompt_ids), j, margins[j], low[:1]))
+        if margins[j] is None:
+            raise AssertionError(f"{tag} prompt {len(ref.prompt_ids)}: no "
+                                 f"unmeshed margin recorded at token {j}")
+        if not low:
+            raise AssertionError(
+                f"{tag} prompt {len(ref.prompt_ids)}: parts at token {j} "
+                f"with every unmeshed margin up to it >= {tol}: {margins}")
+    log(f"{tag} greedy streams identical to the unmeshed engine's: "
+        f"{same}/{len(reqs)}" + "".join(
+            f"; prompt {n} parts at token {j} (unmeshed margin there "
+            f"{m:.4f}, first below {tol} at {low})"
+            for n, j, m, low in parts))
+
+
+def _logits_vs_ref(torch, tag, got, ref, tol,
+                   what="first-token logits of {n} prompts vs the unmeshed "
+                        "engine"):
+    err = (got - ref).abs().amax(-1)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"{tag} {what.format(n=len(err))}: max |logit| "
+        f"{float(ref.abs().max()):.3f}, max abs diff "
+        f"{float(err.max()):.4e} (per prompt "
+        f"{[round(float(x), 4) for x in err]}; tol {tol}), argmax agreement "
+        f"{agree:.2f}")
+    if not (math.isfinite(float(err.max())) and float(err.max()) <= tol):
+        raise AssertionError(f"{tag} first-token logits differ by "
+                             f"{float(err.max())} > {tol}")
+
+
+def _repeating_int8(params):
+    """An untied int8 tree made repeating (:func:`_family_params`'s
+    ``repeating`` without a bf16 copy): the embedding's row scales times
+    REPEAT_EMBED_SCALE, the head the unscaled int8 embedding transposed
+    with its row scales (quantizing the transposed rows over their in axis
+    gives those very codes and scales). Other leaves shared."""
+    emb = params["embed"]
+    return {**params,
+            "embed": {"weight": emb["weight"],
+                      "scale": emb["scale"] * REPEAT_EMBED_SCALE},
+            "lm_head": {"kernel": emb["weight"].T.contiguous(),
+                        "scale": emb["scale"].clone()}}
+
+
+def _mesh_tp(torch, np, runs):
+    """(a) Qwen3-8B over tp 2 at full width and depth."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              QWEN3_8B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel import sharding
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = QWEN3_8B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+    torch.cuda.synchronize()
+    log(f"[mesh tp 2] {cfg.name}: int8 weights drawn layer by layer, "
+        f"{_tree_bytes(params) / 1e9:.2f} GB in {time.monotonic() - t0:.1f}s")
+    serving = ServingConfig(model=cfg.name, max_decode_slots=8,
+                            max_cache_len=2048, prefill_chunk=256,
+                            derived_seed=0, prefix_cache=False)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MESH_PROMPTS]
+    prompts += _pattern_prompts(rng, cfg.vocab_size, MESH_PATTERNS)
+    ref = _mesh_engine(torch, cfg, params, serving, None, "[mesh tp 2 ref]")
+    first_ref = _first_logits(torch, ref, prompts[:len(MESH_PROMPTS)])
+    ref_reqs, _, _, ref_ms, gaps = _mesh_run(torch, ref, prompts,
+                                             "[mesh tp 2 ref]", gaps=True)
+    del ref
+    _free(torch)
+    mesh = make_mesh(MeshConfig(tp=2), [torch.device("cuda", 0)] * 2)
+    tag = "[mesh tp 2]"
+    eng = _mesh_engine(torch, cfg, params, serving, mesh, tag)
+    _logits_vs_ref(torch, tag, _first_logits(
+        torch, eng, prompts[:len(MESH_PROMPTS)]), first_ref, MESH_LOGIT_TOL)
+    reqs, launches, counts, ms, _ = _mesh_run(torch, eng, prompts, tag)
+    _check_mesh_launches(tag, eng, launches, counts)
+    _streams_vs_ref(tag, reqs, ref_reqs, gaps, MESH_LOGIT_TOL)
+    runs["mesh tp 2"] = launches
+    # prompt lookup needs streams that repeat: the same int8 tree with the
+    # embedding scaled and an untied head of its unscaled rows (the
+    # families' repeating weights), the layers' shards shared
+    rep = _repeating_int8(params)
+    rep_sharded = {**eng.model.params, **sharding.map_tree(
+        sharding.make_sharded_put(mesh, cfg),
+        {k: rep[k] for k in ("embed", "lm_head")})}
+    del eng
+    _free(torch)
+    tag = "[mesh tp 2 lookup]"
+    ref = _mesh_engine(torch, cfg, rep, serving, None, tag + " ref")
+    rep_reqs, _, _, _, rep_gaps = _mesh_run(torch, ref, prompts,
+                                            tag + " ref", gaps=True)
+    del ref, rep
+    _free(torch)
+    eng = _mesh_engine(torch, cfg, rep_sharded, dataclasses.replace(
+        serving, spec_decode=True), mesh, tag)
+    reqs, launches, counts, ms_spec, _ = _mesh_run(torch, eng, prompts, tag)
+    if counts.get("spec_dispatches", 0) <= 0:
+        raise AssertionError(f"{tag} no verify dispatch: {counts}")
+    _check_mesh_launches(tag, eng, launches, counts)
+    _streams_vs_ref(tag, reqs, rep_reqs, rep_gaps, MESH_LOGIT_TOL)
+    runs["mesh tp 2 lookup"] = launches
+    del eng, rep_sharded
+    _free(torch)
+    log(f"[mesh tp 2] ms a decode substep, eager, 8 slots: meshed "
+        f"{ms:.2f}, unmeshed {ref_ms:.2f} ({ms / ref_ms:.2f}x); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; one card "
+        f"holds both shards, so this measures the shard loop's cost, not "
+        f"scaling")
+    if torch.cuda.device_count() >= 2:
+        devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        tag = "[mesh tp 2, two cards]"
+        eng = _mesh_engine(torch, cfg, params, serving,
+                           make_mesh(MeshConfig(tp=2), devs), tag)
+        reqs, launches, counts, ms2, _ = _mesh_run(torch, eng, prompts, tag)
+        _check_mesh_launches(tag, eng, launches, counts)
+        _streams_vs_ref(tag, reqs, ref_reqs, gaps, MESH_LOGIT_TOL)
+        log(f"{tag} shards on {[str(d) for d in devs]}: {ms2:.2f} ms a "
+            f"substep")
+        del eng
+    del params
+    _free(torch)
+
+
+def _mesh_dp_tp(torch, np, runs):
+    """(b) Qwen3-0.6B over dp 2 x tp 2 with prompt lookup."""
+    import dataclasses
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              QWEN3_0_6B,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import init_params
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = QWEN3_0_6B
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+    serving = ServingConfig(model=cfg.name, max_decode_slots=8,
+                            max_cache_len=2048, prefill_chunk=256,
+                            derived_seed=0)
+    rng = np.random.default_rng(29)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MESH_PROMPTS]
+    prompts += _pattern_prompts(rng, cfg.vocab_size, MESH_PATTERNS)
+    tag = "[mesh dp 2 tp 2 ref]"
+    ref = _mesh_engine(torch, cfg, params, serving, None, tag)
+    first_ref = _first_logits(torch, ref, prompts[:len(MESH_PROMPTS)])
+    ref_reqs, _, _, ref_ms, gaps = _mesh_run(torch, ref, prompts, tag,
+                                             gaps=True)
+    del ref
+    _free(torch)
+    tag = "[mesh dp 2 tp 2 lookup]"
+    mesh = make_mesh(MeshConfig(dp=2, tp=2), [torch.device("cuda", 0)] * 4)
+    eng = _mesh_engine(torch, cfg, params, dataclasses.replace(
+        serving, spec_decode=True), mesh, tag)
+    del params
+    _logits_vs_ref(torch, tag, _first_logits(
+        torch, eng, prompts[:len(MESH_PROMPTS)]), first_ref, MESH_LOGIT_TOL)
+    seen = {"steps": 0, "pages": 0}
+
+    def own_partition(e):
+        # every active slot's pages lie in its own dp group's partition
+        for slot, req in enumerate(e.slot_req):
+            if req is None:
+                continue
+            lo, pages = e._gbase(slot), e._slot_pages[slot]
+            live = e.table[slot, :len(pages)]
+            if not ((live > lo) & (live < lo + e._group_pages)).all():
+                raise AssertionError(f"{tag} slot {slot} (group "
+                                     f"{e._group(slot)}) holds pages "
+                                     f"{live.tolist()} outside "
+                                     f"[{lo}, {lo + e._group_pages})")
+            seen["pages"] += len(pages)
+        seen["steps"] += 1
+
+    reqs, launches, counts, ms, _ = _mesh_run(torch, eng, prompts, tag,
+                                              check=own_partition)
+    if counts.get("spec_dispatches", 0) <= 0:
+        raise AssertionError(f"{tag} no verify dispatch: {counts}")
+    _check_mesh_launches(tag, eng, launches, counts)
+    _streams_vs_ref(tag, reqs, ref_reqs, gaps, MESH_LOGIT_TOL)
+    log(f"{tag} every active slot's pages in its own group's partition "
+        f"after each of {seen['steps']} steps ({seen['pages']} slot-pages "
+        f"checked; {eng._group_pages} pages a group); ms a decode substep, "
+        f"eager: meshed {ms:.2f}, unmeshed {ref_ms:.2f}")
+    runs["mesh dp 2 tp 2 lookup"] = launches
+    del eng
+    _free(torch)
+
+
+def _mesh_ep(torch, np, runs):
+    """(c) Qwen3-30B-A3B over ep 2 x tp 2 at MESH_MOE_LAYERS layers: the
+    meshed gshard forward against gshard whole on the lead, then the
+    meshed engine serving a few requests."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              ServingConfig)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import (
+        DecoderLM, MeshLM, init_params)
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _moe_cfg(MESH_MOE_LAYERS).scaled(moe_impl="gshard")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+    mesh = make_mesh(MeshConfig(ep=2, tp=2), [torch.device("cuda", 0)] * 4)
+    tag = f"[mesh ep 2 tp 2, {cfg.name} {MESH_MOE_LAYERS} layers]"
+    rng = np.random.default_rng(31)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, MESH_MOE_TOKENS)).astype(np.int32)).cuda()
+    pos = torch.arange(MESH_MOE_TOKENS, dtype=torch.int32,
+                       device=tokens.device)[None].expand(2, -1)
+    whole = DecoderLM(cfg, params).forward(tokens, pos)[:, -1].float()
+    meshed = MeshLM(cfg, params, mesh, 1)
+    got = meshed.forward(tokens, pos)[:, -1].float()
+    torch.cuda.synchronize()
+    _logits_vs_ref(torch, tag, got, whole, MESH_LOGIT_TOL,
+                   f"last-position logits of {{n}} rows of {MESH_MOE_TOKENS} "
+                   f"tokens vs gshard whole on the card")
+    serving = ServingConfig(model=cfg.name, max_decode_slots=8,
+                            max_cache_len=2048, prefill_chunk=256,
+                            derived_seed=0)
+    eng = _mesh_engine(torch, cfg, meshed.params, serving, mesh, tag)
+    del meshed, params
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MESH_PROMPTS[:4]]
+    _, launches, counts, ms, _ = _mesh_run(torch, eng, prompts, tag)
+    _check_mesh_launches(tag, eng, launches, counts)
+    log(f"{tag} the experts over ep 2 x tp 2 through gshard (its einsums, "
+        f"as in the JAX engine under a mesh; route-and-sort "
+        f"{launches['moe_route_sort']} launches, the grouped kernels none); "
+        f"{ms:.2f} ms a decode substep, eager")
+    runs["mesh ep 2 tp 2"] = launches
+    del eng
+    _free(torch)
+
+
+def _mesh_load(torch, np):
+    """(d) The checkpoint phase's Qwen3-0.6B directory (the same writer and
+    seed) loaded under tp 2, int8 as the server loads it: every shard leaf
+    equal to the whole load's slice bit for bit, split leaves 1/tp of their
+    axis and owning their storage."""
+    import shutil
+    import tempfile
+
+    from aws_k8s_ansible_provisioner_tpu_torch.config import (MeshConfig,
+                                                              QWEN3_0_6B)
+    from aws_k8s_ansible_provisioner_tpu_torch.models.hf_loader import \
+        load_checkpoint
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel import sharding
+    from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = QWEN3_0_6B
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ckpt = os.path.join(tmp, "Qwen3-0.6B")
+        _write_hf_checkpoint(torch, cfg, ckpt)
+        _free(torch)
+        mesh = make_mesh(MeshConfig(tp=2), [torch.device("cuda", 0)] * 2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        placed = load_checkpoint(ckpt, cfg, torch.bfloat16, quantize=True,
+                                 place=sharding.make_sharded_put(mesh, cfg))
+        torch.cuda.synchronize()
+        t_sharded = time.monotonic() - t0
+        peak_sharded = torch.cuda.max_memory_allocated() - base
+        t0 = time.monotonic()
+        whole = load_checkpoint(ckpt, cfg, torch.bfloat16, "cuda",
+                                quantize=True)
+        torch.cuda.synchronize()
+        t_whole = time.monotonic() - t0
+        n_split = n_leaves = 0
+
+        def check(path, leaf):
+            nonlocal n_split, n_leaves
+            w = whole
+            for k in path:
+                w = w[k]
+            split = any(a is not None for a in leaf.spec)
+            n_leaves += 1
+            n_split += split
+            for pos, part in leaf.parts.items():
+                want = sharding._slice(w, leaf.spec, mesh,
+                                       sharding._slice_index(leaf.spec, mesh,
+                                                             pos))
+                if part.device != mesh.devices[pos]:
+                    raise AssertionError(f"[mesh load] {path} at {pos} on "
+                                         f"{part.device}, not on its "
+                                         f"position's {mesh.devices[pos]}")
+                if not torch.equal(part, want.to(part.device)):
+                    raise AssertionError(f"[mesh load] {path} at {pos} "
+                                         f"differs from the whole load's "
+                                         f"slice")
+                if split and part.untyped_storage().nbytes() != \
+                        part.numel() * part.element_size():
+                    raise AssertionError(f"[mesh load] {path} at {pos} "
+                                         f"shares a larger storage")
+
+        sharding.map_tree(check, placed)
+        log(f"[mesh load] {cfg.name} int8 under tp 2: {n_leaves} leaves "
+            f"({n_split} split), every shard leaf equal to the whole load's "
+            f"slice bit for bit; sharded load {t_sharded:.1f}s (converted "
+            f"on the host, each leaf placed as it was produced; peak device "
+            f"memory above the start {peak_sharded / 1e9:.2f} GB), whole "
+            f"load on the card {t_whole:.1f}s")
+        del placed, whole
+        _free(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh(torch, np):
+    """Tensor, data and expert parallel serving on the paged engine, every
+    mesh position on this card (``make_mesh`` over an explicit device
+    list): (a) Qwen3-8B (36 layers, hidden 4096, Hq 32, Hkv 8, vocab
+    151,936, untied) over tp 2 at full width and depth, seeded int8
+    weights drawn layer by layer, 8 slots x 2048 rows, bf16 KV; 8 greedy
+    requests of MESH_PROMPTS and MESH_PATTERNS repeated-pattern ones, once
+    plain and once with prompt lookup, against the same weights on the
+    same engine without a mesh: every prompt's first-token logits within
+    MESH_LOGIT_TOL, and the greedy streams equal up to the first draw
+    whose unmeshed top-2 margin is below it; ms a decode substep (eager,
+    meshed and unmeshed), K1, K1-spec and the fused K2 launches per shard,
+    the peak device memory; with two visible cards, the plain run again
+    with its shards on cards 0 and 1. (b) Qwen3-0.6B over dp 2 x tp 2 with
+    prompt lookup, the same checks, and every active slot's pages in its
+    own group's partition after every step. (c) Qwen3-30B-A3B at
+    MESH_MOE_LAYERS layers over ep 2 x tp 2: the meshed gshard forward's
+    logits against gshard whole on the card, then a short engine run. (d)
+    the sharded load (:func:`_mesh_load`). Every run's launches are zeroed
+    just before and read just after; returns {run: launches}."""
+    runs = {}
+    for name, fn in (("tp 2", _mesh_tp), ("dp 2 tp 2", _mesh_dp_tp),
+                     ("ep 2 tp 2", _mesh_ep)):
+        t0 = time.monotonic()
+        fn(torch, np, runs)
+        _free(torch)
+        log(f"[wall] mesh {name}: {time.monotonic() - t0:.1f}s")
+    _phase("mesh load", _mesh_load, torch, np)
+    return runs
+
+
 def _phase(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.monotonic()
@@ -6967,7 +7544,7 @@ def _sp_phases(torch, np, runs):
 PHASES = ("kernels", "kernels-window", "kernels-sp", "kernels-families",
           "kernels-moe", "sampling", "engine", "server-process",
           "checkpoint", "guided-lora", "prefix", "spec", "draft", "dense",
-          "mistral", "families", "moe", "sp")
+          "mistral", "families", "moe", "sp", "mesh")
 
 
 class _NotRun(dict):
@@ -7129,6 +7706,10 @@ def main(argv=()) -> int:
     # the yardstick of the bf16 sp runs; the int8 sp 4 engine serves HTTP
     if "sp" in want:
         _sp_phases(torch, np, runs)
+    # tensor, data and expert parallel serving, every shard on this card
+    mesh_runs = _phase("mesh", phase_mesh, torch, np) \
+        if "mesh" in want else {}
+    runs.update(mesh_runs)
     keys = ("max_abs_err", "mean_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -7224,11 +7805,14 @@ def main(argv=()) -> int:
             ("split_merge", MERGE_SRC, None, kern["merge"], "auto")):
         if res is NOT_RUN or run not in runs:
             continue
+        key = name if name in runs[run] else name.split()[0]
+        # the mesh phase's launches of this very instance
+        mesh = sum(r.get(name, 0) for r in mesh_runs.values())
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": (f"{TPU_KERNELS}:{line}" if line
                                      else "none (part of K1, K4-K7)"),
-                        "launches": runs[run][name if name in runs[run]
-                                              else name.split()[0]],
+                        "launches": runs[run][key],
+                        **({"mesh_launches": mesh} if mesh else {}),
                         **{k: res[k] for k in keys},
                         **{k: res[k] for k in (
                             "graph_ms", "chain_graph_ms", "standalone_ms",

@@ -46,6 +46,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "models.layers", "models.convert", "models.hf_loader",
                 "models.checkpoint", "serving.aot", "utils.tokenizer",
                 "utils.hf_parity", "parallel.mesh", "parallel.sharding",
+                "parallel.collectives",
                 "serving.guided", "models.lora", "ops.moe",
                 "models.quant", "ops.cuda_build"):
         assert f"{port.__name__}.{mod}" in expected

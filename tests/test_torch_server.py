@@ -193,6 +193,55 @@ def test_int8_kv_server_answers_on_the_cpu():
         th.join(10)
 
 
+def test_mesh_flags_build_a_meshed_engine_that_answers_alike():
+    """``--tp 2 --dp 2 --device cpu``: the state's engine serves the
+    (dp, tp) = (2, 2) mesh (every position on the CPU), and its answer to
+    a greedy completion is the unmeshed server's. The dry-run model's
+    vocabulary is padded to 260 rows (the byte tokenizer's 259 does not
+    split over tp 2)."""
+    from aws_k8s_ansible_provisioner_tpu_torch.config import tiny_qwen3
+    from aws_k8s_ansible_provisioner_tpu_torch.models.layers import MeshLM
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
+        build_parser, serving_config)
+    from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
+        ByteTokenizer
+
+    cfg = tiny_qwen3(vocab_size=260, eos_token_id=ByteTokenizer().eos_token_id,
+                     num_layers=4, hidden_size=128, intermediate_size=256)
+
+    flags = ["--model", "tiny-qwen3", "--max-decode-slots", "4",
+             "--max-cache-len", "64", "--page-size", "8", "--dtype",
+             "float32", "--weights-dtype", "bf16", "--device", "cpu"]
+    answers = []
+    for mesh in ([], ["--tp", "2", "--dp", "2"]):
+        args = build_parser().parse_args(flags + mesh)
+        state = build_state(serving_config(args), model_cfg=cfg,
+                            device=args.device)
+        eng = state.engine
+        if mesh:
+            assert eng.mesh.shape["tp"] == 2 and eng.mesh.shape["dp"] == 2
+            assert isinstance(eng.model, MeshLM) and eng.dp_groups == 2
+        else:
+            assert eng.mesh is None
+        srv = make_server(state, "127.0.0.1", 0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        state.start_engine()
+        try:
+            status, out = _post(
+                f"http://127.0.0.1:{srv.server_address[1]}/v1/completions",
+                {"prompt": "mesh", "max_tokens": 6, "temperature": 0,
+                 "ignore_eos": True})
+            assert status == 200
+            answers.append((out["choices"][0]["text"], out["usage"]))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            state.stop_engine()
+            th.join(10)
+    assert answers[0] == answers[1]
+
+
 # -- the answers of the JAX server (the same bodies to both, on the CPU) ------
 
 

@@ -397,8 +397,9 @@ def test_sp_engine_streams_match_jax(weights, sp, kv_dtype, case):
 def test_sp_engine_gates(weights):
     """The JAX engine's sp gates: a sliding window and a window that does
     not split into 8-row-aligned shards are refused, the layout is dense
-    whatever ``paged`` says, speculation is off; dp or tp > 1 is refused
-    rather than served as one device."""
+    whatever ``paged`` says, speculation is off; sp beside tp, and pp > 1,
+    are refused rather than served as one device (dp and tp alone are
+    served: tests/test_torch_mesh.py)."""
     _, tparams = weights
     serving = TServing(weights_dtype="bf16", **BASE)
     mcfg = ModelConfig(**dataclasses.asdict(jax_mistral()))
@@ -409,10 +410,14 @@ def test_sp_engine_gates(weights):
     with pytest.raises(ValueError, match="sequence shards"):
         TEngine(TCFG, tparams, dataclasses.replace(serving, max_cache_len=40),
                 device="cpu", mesh=_cpu_mesh(2))
-    for axes in (dict(dp=2), dict(tp=2), dict(sp=2, tp=2), dict(pp=2)):
+    for axes in (dict(sp=2, tp=2), dict(pp=2)):
         mesh = tmesh.make_mesh(MeshConfig(**axes), ["cpu"] * 4)
         with pytest.raises(ValueError, match="not ported"):
             TEngine(TCFG, tparams, serving, device="cpu", mesh=mesh)
+    for axes in (dict(dp=2), dict(tp=2)):
+        mesh = tmesh.make_mesh(MeshConfig(**axes), ["cpu"] * 4)
+        assert TEngine(TCFG, tparams, serving, device="cpu",
+                       mesh=mesh).paged
     te = TEngine(TCFG, tparams, dataclasses.replace(
         serving, paged=True, spec_decode=True), device="cpu",
         mesh=_cpu_mesh(2))
