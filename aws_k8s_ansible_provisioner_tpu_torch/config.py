@@ -682,3 +682,41 @@ class ServingConfig:
     # Multi-LoRA (models/lora.py): ("name=path", ...) peft adapter dirs,
     # served as model ids beside the base (the vLLM --enable-lora contract)
     lora_adapters: tuple = ()
+    # The JAX engine's switches of the ragged mixed dispatch and of the
+    # feature paths riding it. The port always runs both (1); 0 is refused
+    # by the server (the serialized chunk walk and the per-feature
+    # fallbacks are not ported).
+    ragged_attention: int = 1
+    ragged_features: int = 1
+    # ---- request tracing (serving/tracing.py) ----
+    # OTLP/HTTP trace collector base URL (spans POST to <endpoint>/v1/traces);
+    # empty falls back to $OTEL_EXPORTER_OTLP_ENDPOINT, and with neither the
+    # spans are created (their ids echo in the answers) but never exported
+    otlp_endpoint: str = ""
+    # root-span sampling probability in [0, 1]; a propagated context keeps
+    # the caller's decision
+    trace_sample: float = 1.0
+    # ---- SLO burn rates and the flight recorder (serving/slo.py,
+    # serving/flightrec.py) ----
+    # TTFT p95 objective in ms (0: no objective); the allowed fraction of
+    # requests finishing error or timeout (0: none)
+    slo_ttft_p95_ms: float = 0.0
+    slo_error_rate: float = 0.01
+    # directory of the anomaly dumps' capped JSONL spool (empty: in memory
+    # only, /debug/flight/<id>)
+    flight_spool_dir: str = ""
+    # ---- device telemetry (serving/devmon.py) ----
+    # the peaks the MFU and bandwidth gauges divide by: the H100 SXM's dense
+    # bf16 TFLOP/s and HBM3 GB/s (the JAX defaults are a v5e's); the
+    # live-over-ledger tolerance (MB) before /healthz's hbm_drift warns
+    devmon_enabled: bool = True
+    devmon_peak_tflops: float = 989.0
+    devmon_peak_hbm_gbps: float = 3350.0
+    devmon_hbm_tolerance_mb: float = 64.0
+    # ---- capacity and saturation (serving/capacity.py) ----
+    # the forecast's headroom (a replica's ready time; the JAX default),
+    # the rate window and the trend window
+    capacity_enabled: bool = True
+    capacity_headroom_s: float = 5.5
+    capacity_window_s: float = 60.0
+    capacity_trend_window_s: float = 300.0

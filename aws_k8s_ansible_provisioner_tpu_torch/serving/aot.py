@@ -176,7 +176,7 @@ def build_manifest(engine, capacity_bytes: Optional[int] = None) -> dict:
 
 def main(argv=None) -> int:
     from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
-        build_parser, build_state, serving_config)
+        build_parser, build_state, check_args, serving_config)
 
     p = build_parser(
         prog="python -m aws_k8s_ansible_provisioner_tpu_torch.serving.aot",
@@ -185,6 +185,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="",
                    help="manifest path (default: stdout)")
     args = p.parse_args(argv)
+    check_args(p, args)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")

@@ -104,7 +104,6 @@ Differences from the JAX engine:
 
 - every paged chunked prefill, and every preemption resume, goes through
   ``mixed_step``, also when no decode row is active;
-- not ported yet: tracing and the flight recorder;
 - a guided slot's device carry is re-uploaded from the host mirrors after a
   dispatch of horizon > 1 that it rode beside unguided slots (it emitted
   substep 0's token only): the JAX pipeline feeds it the discarded
@@ -148,8 +147,39 @@ The replica lifecycle is the JAX engine's:
   free, the lowest-progress running request is preempted and requeued at
   the back;
 - the stall watchdog of :meth:`Engine.run_forever` (``stalled_for_s``,
-  ``watchdog_stall_s``) and the metrics of ``serving/metrics.py``
-  (``Engine.metrics``; ``Engine.counts`` keeps the port's own counts).
+  ``watchdog_stall_s``), whose abort flag fails a stalled step's requests
+  (the chaos ``stalled_decode`` fault), and the metrics of
+  ``serving/metrics.py`` (``Engine.metrics``; ``Engine.counts`` keeps the
+  port's own counts).
+
+The replica's observability and fault layer is the JAX engine's, at the
+JAX engine's sites, through the port's copies of its modules (process
+singletons, configured by the server's ``build_state``):
+
+- the flight recorder (``serving/flightrec.py``): ``queue``, ``shed``,
+  ``failover_resume``, ``admit``, ``prefill_chunk``, ``pipeline_dispatch``,
+  ``pipeline_fetch``, ``preempt``, ``drain``, ``deadline_reap``,
+  ``cancel_reap``, ``watchdog_stall``, ``fail_all`` and each request's
+  terminal ``finish`` (an anomalous one snapshots its timeline);
+- the SLO engine (``serving/slo.py``: admissions, TTFTs, terminal
+  statuses) and the capacity estimator (``serving/capacity.py``: every
+  submit's token budget, shed or admitted; the queue depth);
+- device time (:class:`BusyClock`): each dispatch's seconds, from CUDA
+  timing events on a card (read where the engine already waits for the
+  dispatch, adding no synchronization) or host time on the CPU, feed
+  ``device_busy_seconds``, ``decode_step_duration`` and the device
+  monitor (``serving/devmon.py``) under the JAX program kinds
+  (``decode``, ``mixed_step``, ``prefill``, ``prefill_batch``,
+  ``prefill_chunk``, ``spec_decode``, ``prefix_copy``, ``kv_restore``);
+  the host gap between a fetch that left the device idle and the next
+  dispatch feeds ``decode_bubble_seconds``; devmon's HBM ledger reads
+  tensor metadata only (:meth:`Engine._install_devmon`);
+- the faults of ``serving/chaos.py`` at their JAX sites:
+  ``page_exhaustion`` (``PagePool.fail_next_allocs``; an admission whose
+  allocation fails after the gate is requeued), ``stalled_decode``,
+  ``pipeline_fetch_error``, ``ragged_dispatch_error``,
+  ``ragged_feature_error`` and ``kv_offload_error``
+  (``HostTier.corrupt``); each releases slots and pages once.
 
 The request's logit fields are the JAX engine's: the presence,
 frequency and repetition penalties (a [B, V] count carry on the device,
@@ -215,6 +245,7 @@ import queue
 import random
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -233,11 +264,16 @@ from aws_k8s_ansible_provisioner_tpu_torch.ops.dense_attention import \
     fit_bblock
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.mesh import make_mesh
 from aws_k8s_ansible_provisioner_tpu_torch.parallel.sharding import (
-    axis_size, check_tp_divisibility, init_cache_sharded, init_pool_sharded,
-    is_sharded, sp_size)
+    ShardedPool, axis_size, check_tp_divisibility, init_cache_sharded,
+    init_pool_sharded, is_sharded, sp_size)
+from aws_k8s_ansible_provisioner_tpu_torch.serving import capacity as _capacity
+from aws_k8s_ansible_provisioner_tpu_torch.serving import chaos as _chaos
+from aws_k8s_ansible_provisioner_tpu_torch.serving import devmon as _devmon
+from aws_k8s_ansible_provisioner_tpu_torch.serving import flightrec as _flight
 from aws_k8s_ansible_provisioner_tpu_torch.serving import kv_cache as kvc
 from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics as _metrics
 from aws_k8s_ansible_provisioner_tpu_torch.serving import paged_kv as pkv
+from aws_k8s_ansible_provisioner_tpu_torch.serving import slo as _slo
 from aws_k8s_ansible_provisioner_tpu_torch.serving.draft import DraftModel
 from aws_k8s_ansible_provisioner_tpu_torch.serving.guided import (
     GuidedState, TokenGrammar)
@@ -329,6 +365,9 @@ class Request:
     # them the first generated tokens and rebuilds prompt + resume as a
     # preemption resume (paged engine only)
     resume_ids: tuple = ()
+    # the trace id of the server's request span (empty: no tracing): the
+    # OpenMetrics exemplar of the ttft and request-duration buckets
+    trace_id: str = ""
     cancelled: bool = False
     id: int = field(default_factory=lambda: next(_REQUEST_IDS))
     generated: List[int] = field(default_factory=list)
@@ -357,6 +396,114 @@ class Request:
                 raise TimeoutError(f"request {self.id} timed out")
             if self.out_queue.get(timeout=remaining) is None:
                 return self.generated
+
+
+class BusyClock:
+    """Device seconds of the engine's dispatches, for
+    ``tpu_serve_device_busy_seconds_total`` and ``serving/devmon.py``.
+
+    On a CUDA device a dispatch is bracketed by two timing events on the
+    engine's stream (:meth:`start` before it is queued, :meth:`stop` right
+    behind it), and its seconds are read only after the engine has waited
+    for that dispatch or a later one (:meth:`settle`), so that reading them
+    waits for nothing. On the CPU the work is done by the time the call
+    returns, and the seconds are host time: from the dispatch to its
+    settle, never before the previous settle (the JAX engine's busy
+    watermark, so that pipelined dispatches are not counted twice).
+
+    An entry stopped with a program ``kind`` is booked through ``book``
+    (``book(kind, seconds, note)``): at once on the CPU, on a card by the
+    first :meth:`settle` after it; an entry without one is the caller's to
+    book with the seconds :meth:`settle` returns."""
+
+    def __init__(self, device: torch.device, book):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self._book = book
+        self._pending: collections.deque = collections.deque()
+        self.watermark = 0.0
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def start(self) -> tuple:
+        return (self._event() if self.cuda else None, time.monotonic())
+
+    def stop(self, mark: tuple, kind: Optional[str] = None, **note) -> tuple:
+        entry = (mark[0], self._event() if self.cuda else None, mark[1],
+                 kind, note)
+        if self.cuda or kind is None:
+            self._pending.append(entry)
+        else:
+            self._book(kind, self._seconds(entry), note)
+        return entry
+
+    def _seconds(self, entry: tuple) -> float:
+        if self.cuda:
+            return entry[0].elapsed_time(entry[1]) / 1e3
+        now = time.monotonic()
+        dt = max(0.0, now - max(entry[2], self.watermark))
+        self.watermark = now
+        return dt
+
+    def settle(self, entry: tuple) -> float:
+        """After the engine has waited for ``entry``'s dispatch: book every
+        entry queued before it and return its own seconds (0.0 when it was
+        discarded)."""
+        while self._pending:
+            e = self._pending.popleft()
+            dt = self._seconds(e)
+            if e is entry:
+                return dt
+            if e[3] is not None:
+                self._book(e[3], dt, e[4])
+        return 0.0
+
+    def discard(self) -> None:
+        """Forget the entries not settled (a failure discards their
+        dispatches, which the JAX engine never books either)."""
+        self._pending.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _label(pos) -> str:
+    return "[" + ",".join(str(int(i)) for i in pos) + "]"
+
+
+def _param_ledger(model) -> tuple:
+    """(the model's bytes, one copy of every leaf: the cost model's weight
+    stream; {component: bytes} of the parameters the devices hold:
+    ``params``, or under a mesh ``params[pos]`` a mesh position, a tensor
+    held by two positions counted once), from tensor metadata."""
+    if not isinstance(model, MeshLM):
+        n = sum(_nbytes(t) for t in model.buffers())
+        return n, {"params": float(n)}
+    held: collections.Counter = collections.Counter()
+    seen = set()
+    logical = 0
+
+    def visit(node):
+        nonlocal logical
+        for leaf in node.values():
+            if isinstance(leaf, dict):
+                visit(leaf)
+                continue
+            parts = leaf.parts
+            logical += int(np.prod(leaf.shape)) \
+                * next(iter(parts.values())).element_size()
+            for pos, t in parts.items():
+                key = (t.device, t.data_ptr())
+                if key not in seen:
+                    seen.add(key)
+                    held["params" + _label(pos)] += _nbytes(t)
+
+    visit(model.params)
+    return logical, {k: float(v) for k, v in held.items()}
 
 
 class Engine:
@@ -609,6 +756,8 @@ class Engine:
         # request id -> prompt + generated context of a preempted request
         self._resume_ctx: dict = {}
         self._lock = threading.Lock()
+        # held by run_forever's steps (see there)
+        self.step_lock = threading.Lock()
         self._work_event = threading.Event()
         self._chunk: Optional[dict] = None
         # the dense chunk walk alternates a chunk with a horizon-1 decode
@@ -679,6 +828,119 @@ class Engine:
                      and not self._sharded))
         self.metrics.decode_bblock.set(self.decode_bblock)
         self._pages_gauges()
+        # device time (the JAX engine's busy sites, BusyClock); the host
+        # time a fetch left the device idle with nothing queued behind it,
+        # which the next dispatch books as the decode bubble
+        self._busy = BusyClock(self.device, self._book_busy)
+        self._last_ready = 0.0
+        # the decode or mixed dispatch queued last (a fetch of it leaves
+        # nothing queued behind)
+        self._last_dispatch: Optional[dict] = None
+        # the memory-fit manifest adopted (load_aot_manifest), or None
+        self.aot: Optional[dict] = None
+        # the device monitor's cost model and HBM samplers, the capacity
+        # estimator's engine probes: pure wiring, the recording happens at
+        # the busy and submit sites
+        self._install_devmon()
+        self._install_capacity()
+
+    def _book_busy(self, kind: str, seconds: float, note: dict) -> None:
+        self.metrics.device_busy_seconds.inc(seconds)
+        _devmon.note(kind, seconds, **note)
+
+    def _install_devmon(self):
+        """Hand the device monitor (``serving/devmon.py``) the cost model
+        and the samplers of its HBM ledger, from tensor metadata only (no
+        device read). The JAX engine's components: ``params``, the paged
+        pool's ``kv_pages`` and ``kv_pages_evictable`` by the allocators'
+        page counts (the dense cache whole, ``kv_cache``),
+        ``sampler_carry`` (the decode carry's token and length buffers) and
+        ``operand_cache`` (the decode operand buffers). What the port holds
+        beside them has components of its own: ``decode_graphs`` (the
+        graphs' private pool), the draft model's ``draft_params`` and
+        ``draft_kv_cache``, and under a mesh each
+        shard apart (``params[pos]`` a mesh position, ``kv_pages[g,t]`` a
+        pool partition, ``kv_cache[i]`` an sp shard). The compiled total is
+        the adopted memory-fit manifest's (0 without one). The samplers
+        hold the engine by a weak reference: the process's monitor must
+        not keep a dropped engine's device memory alive."""
+        mon = _devmon.get()
+        ref = weakref.ref(self)
+        logical, params = _param_ledger(self.model)
+        mon.install_cost_model(_devmon.CostModel.from_config(
+            self.cfg, kv_dtype=self.serving.kv_dtype, weight_bytes=logical))
+        cache = self.cache
+        if isinstance(cache, ShardedPool):
+            kv = [(g, _label((g, t)), sum(_nbytes(a) for a in part.values()))
+                  for g, row in enumerate(cache.parts)
+                  for t, part in enumerate(row)]
+        elif isinstance(cache, list):
+            kv = [(0, _label((i,)), sum(_nbytes(a) for a in shard.values()))
+                  for i, shard in enumerate(cache)]
+        else:
+            kv = [(0, "", sum(_nbytes(a) for a in cache.values()))]
+        d = self.decoder
+        graphs = float(d.pool_bytes)
+        carry = float(_nbytes(d.tokens) + _nbytes(d.lengths))
+        operands = float(sum(
+            _nbytes(t) for t in (
+                d.table, d.temps, d.top_ks, d.top_ps, d.seeds, d.ban_ids,
+                d.ban_until, d.bias_ids, d.bias_vals, d.presence,
+                d.frequency, d.repetition, d.counts, d.prompt_mask, d.allow,
+                d.lora_idx) if t is not None))
+        draft = {}
+        if self.draft is not None:
+            draft = {"draft_params": float(sum(
+                _nbytes(t) for t in self.draft.model.buffers())),
+                "draft_kv_cache": float(sum(
+                    _nbytes(a) for a in self.draft.cache.values()))}
+
+        def _live() -> dict:
+            eng = ref()
+            if eng is None:
+                return {}
+            comp = dict(params)
+            for g, suffix, nbytes in kv:
+                if eng.paged:
+                    st = eng.allocators[g].stats()
+                    total = st["pages_total"] or 1
+                    comp["kv_pages" + suffix] = \
+                        nbytes * st["pages_live"] / total
+                    comp["kv_pages_evictable" + suffix] = \
+                        nbytes * st["pages_evictable"] / total
+                else:
+                    comp["kv_cache" + suffix] = float(nbytes)
+            comp["sampler_carry"] = carry
+            comp["operand_cache"] = operands
+            if graphs:
+                comp["decode_graphs"] = graphs
+            comp.update(draft)
+            return comp
+
+        def _compiled() -> float:
+            eng = ref()
+            return float(eng.aot["hbm_total_bytes"]) \
+                if eng is not None and eng.aot else 0.0
+
+        mon.install_hbm(_live, _compiled)
+
+    def _install_capacity(self):
+        """Hand the capacity estimator (``serving/capacity.py``) the queue
+        depth (its Little's-law delay) and the tokens-per-second gauge (its
+        ceiling until devmon has a decode window), through a weak reference
+        to the engine (0 once it is gone)."""
+        ref = weakref.ref(self)
+
+        def depth() -> int:
+            eng = ref()
+            return eng.pending if eng is not None else 0
+
+        def tps() -> float:
+            eng = ref()
+            return eng.metrics.tokens_per_second.value() \
+                if eng is not None else 0.0
+
+        _capacity.get().install_engine(depth, tps)
 
     @property
     def spec_decode(self) -> bool:
@@ -734,6 +996,7 @@ class Engine:
         req.t_submit = time.monotonic()
         if self.draining:
             self.metrics.requests_shed.inc(reason="draining")
+            self._note_shed(req, "draining")
             raise EngineOverloaded(
                 "draining", "engine is draining; not admitting new requests",
                 retry_after_s=max(1.0, self._drain_deadline
@@ -784,6 +1047,7 @@ class Engine:
             est = self._estimated_wait_s()
             if est > max_wait:
                 self.metrics.requests_shed.inc(reason="est_wait")
+                self._note_shed(req, "est_wait", est_wait_s=round(est, 3))
                 raise EngineOverloaded(
                     "est_wait",
                     f"estimated queue wait {est:.1f}s exceeds the "
@@ -810,12 +1074,32 @@ class Engine:
         if full:
             self._resume_ctx.pop(req.id, None)
             self.metrics.requests_shed.inc(reason="queue_full")
+            self._note_shed(req, "queue_full", queue_depth=waiting)
             raise EngineOverloaded(
                 "queue_full",
                 f"engine queue is full ({waiting} waiting, limit {depth})",
                 retry_after_s=self._estimated_wait_s() or 1.0)
+        _slo.get().observe_admission(shed=False)
+        _capacity.get().observe_submit(tokens=max(1, req.max_tokens),
+                                       shed=False)
+        _flight.record("queue", req.id, n_prompt=len(req.prompt_ids),
+                       max_tokens=req.max_tokens)
+        if req.resume_ids:
+            _flight.record("failover_resume", req.id,
+                           n_resume=len(req.resume_ids))
         self._work_event.set()
         return req
+
+    @staticmethod
+    def _note_shed(req: Request, reason: str, **data) -> None:
+        """A shed submission, as the JAX engine records it: a bad admission
+        for the SLO engine, offered load for the capacity estimator, and a
+        ``shed`` flight event closing the request's timeline."""
+        _slo.get().observe_admission(shed=True)
+        _capacity.get().observe_submit(tokens=max(1, req.max_tokens),
+                                       shed=True)
+        _flight.record("shed", req.id, reason=reason, **data)
+        _flight.finish(req.id, "shed", ok=False)
 
     def _check_fields(self, req: Request) -> None:
         """The JAX engine's checks of the logit fields (ValueError): the
@@ -901,6 +1185,7 @@ class Engine:
             self.draining = True
             self._drain_deadline = now + t
         self.metrics.draining.set(1)
+        _flight.record("drain", None, state="begin", timeout_s=t)
         self._work_event.set()
         return t
 
@@ -910,6 +1195,7 @@ class Engine:
             self.draining = False
             self._drain_deadline = 0.0
         self.metrics.draining.set(0)
+        _flight.record("drain", None, state="end")
         self._work_event.set()
 
     def _effective_deadline(self, req: Request) -> float:
@@ -932,6 +1218,8 @@ class Engine:
             if r is not None and 0 < self._effective_deadline(r) <= now:
                 r.finish_reason = "timeout"
                 self.metrics.deadline_expired.inc()
+                _flight.record("deadline_reap", r.id, slot=slot,
+                               phase="decode")
                 self._finish(slot)
         st = self._chunk
         if st is not None and 0 < self._effective_deadline(st["req"]) <= now:
@@ -953,6 +1241,8 @@ class Engine:
             r.finish_reason = "timeout"
             self.metrics.deadline_expired.inc()
             self.metrics.mark_request("timeout", now - r.t_submit)
+            _flight.record("deadline_reap", r.id, phase="queued")
+            _flight.finish(r.id, "timeout", ok=False)
             r.out_queue.put(None)
 
     def _relieve_admission_pressure(self) -> bool:
@@ -1186,6 +1476,8 @@ class Engine:
             self.metrics.queue_depth.set(len(self._queue))
         self.counts["preemptions"] += 1
         self.metrics.preemptions.inc()
+        _flight.record("preempt", req.id, slot=slot,
+                       n_generated=len(req.generated), front=front)
         self.metrics.active_requests.set(len(self._active_slots()))
 
     # -- the step -----------------------------------------------------------
@@ -1198,10 +1490,16 @@ class Engine:
         (the paged engine: or, when the queue head starves for pages with a
         slot free, relieve the pressure), else decode; with nothing to do,
         settle a dispatch still in flight. Cancelled and then expired
-        requests are reaped first. Returns whether any work was done."""
+        requests are reaped first. Returns whether any work was done. An
+        armed ``page_exhaustion`` fault (``serving/chaos.py``) makes the
+        allocators refuse their next allocations first."""
+        ch = _chaos.get()
+        if ch.enabled:
+            ch.on_engine_step(self)
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.cancelled:
                 r.finish_reason = "cancelled"
+                _flight.record("cancel_reap", r.id, slot=slot)
                 self._finish(slot)
         # deadlines are enforced here, between dispatches
         self._reap_expired()
@@ -1252,6 +1550,8 @@ class Engine:
                     self._release_slot(slot)
                     req.finish_reason = "error"
                     self.metrics.mark_request("error", 0.0)
+                    _flight.finish(req.id, "error", ok=False,
+                                   phase="prefill_batch")
                     req.out_queue.put(None)
                 raise
         if chunk_next is not None:
@@ -1279,10 +1579,11 @@ class Engine:
         (or a resume, a prefix hit, or any prompt of the paged engine while
         a dispatch is in flight) ends it. An arrival is isolated when the
         batch and the queue are empty: the dense engine consults its prefix
-        cache only then."""
+        cache only then. A cancelled head leaves the queue (finish
+        ``cancelled``) whether or not a slot is free, as the JAX
+        scheduler's admission pops it."""
         batch, chunk_next = [], None
-        while len(batch) < max(1, self.serving.max_prefill_batch) \
-                and self._free:
+        while len(batch) < max(1, self.serving.max_prefill_batch):
             with self._lock:
                 if not self._queue:
                     break
@@ -1292,8 +1593,12 @@ class Engine:
                     self.metrics.queue_depth.set(len(self._queue))
                     self._resume_ctx.pop(req.id, None)
                     req.finish_reason = "cancelled"
+                    _flight.record("cancel_reap", req.id, phase="queued")
+                    _flight.finish(req.id, "cancelled", ok=False)
                     req.out_queue.put(None)
                     continue
+                if not self._free:
+                    break
                 ids = self._resume_ctx.get(req.id, req.prompt_ids)
                 pick = 0
                 if self.paged:
@@ -1311,7 +1616,18 @@ class Engine:
             slot = self._free[pick]
             del self._free[pick]
             if self.paged:
-                ids, off, resumed = self._paged_admit(req, slot, isolated)
+                prep = self._paged_admit(req, slot, isolated)
+                if prep is None:
+                    # the pages the gate counted are gone (an allocation
+                    # refused, chaos's page_exhaustion): the slot goes back
+                    # where it was, the request to the queue's head, and
+                    # admission stops for this step
+                    self._free.insert(pick, slot)
+                    with self._lock:
+                        self._queue.appendleft(req)
+                        self.metrics.queue_depth.set(len(self._queue))
+                    break
+                ids, off, resumed = prep
                 # a hit or a resume walks the chunk program from the reuse
                 # offset; with a dispatch in flight every admission takes
                 # the walk, whose mixed dispatches ride the pipeline, where
@@ -1389,8 +1705,10 @@ class Engine:
         """Give an admitted request its pages: the resident pages of its
         longest indexed prefix (retained, shared), fresh pages for the rest,
         and a restore from the host tier into the first fresh pages where
-        the chain continues there. Returns (ids, reuse offset, resumed);
-        the admission gate has made sure the pool holds the rest.
+        the chain continues there. Returns (ids, reuse offset, resumed),
+        or None when the allocator refuses the fresh pages although the
+        admission gate counted them (the retained match is let go again;
+        the caller requeues).
 
         Under a burst (not ``isolated``) the match is dropped unless the
         prompt is a resume or would chunk anyway, or the match (resident
@@ -1426,7 +1744,9 @@ class Engine:
                 matched, n, host_keys = [], 0, []
         restore = self._host_entries(ids, n, host_keys)
         # queue the payloads' copies to the device before the allocation
-        # below, whose spills may refill their host slots
+        # below, whose spills may refill their host slots (the restore's
+        # device time runs from here)
+        mark = self._busy.start() if restore else None
         staged = pkv.upload_pages(restore, self.device) if restore else None
         for pid in matched:
             alloc.retain(pid)
@@ -1434,8 +1754,9 @@ class Engine:
         # the admission gate counted free and evictable pages for the whole
         # sequence; retaining the match takes at most len(matched) of them
         fresh = alloc.alloc(need) if need > 0 else []
-        assert fresh is not None, "admission gate let through a prompt " \
-            "the pool cannot hold"
+        if fresh is None:
+            alloc.release_all(matched)
+            return None
         # gather what this allocation reclaimed before the restore or the
         # walk can overwrite it: stream order does the rest
         self._spill_reclaimed()
@@ -1451,7 +1772,8 @@ class Engine:
         if restore:
             # the restored span starts at the first fresh page
             self._schedule_restore(slot, [p + gbase for p in
-                                          fresh[:len(restore)]], staged)
+                                          fresh[:len(restore)]], staged,
+                                   mark)
             off = n + len(restore) * ps
         if off > 0:
             self.counts["prefix_cache_hits"] += 1
@@ -1473,6 +1795,10 @@ class Engine:
         tier = self.host_tier
         if tier is None or not host_keys:
             return []
+        ch = _chaos.get()
+        if ch.enabled:
+            # an armed kv_offload_error corrupts the entries' payloads here
+            ch.on_kv_restore(tier, host_keys)
         ps = self.page_size
         p0 = n // ps
         entries: List[dict] = []
@@ -1486,13 +1812,18 @@ class Engine:
             entries.append(data)
         return entries
 
-    def _schedule_restore(self, slot: int, pids: List[int], staged: dict):
+    def _schedule_restore(self, slot: int, pids: List[int], staged: dict,
+                          mark: tuple):
         """Queue the restore of host payloads, already copied to the device
         (``staged``, :func:`paged_kv.upload_pages`), into the slot's fresh
         pages (global ids): one ``index_copy_`` a pool leaf, in place (the
         decode graphs captured the pool's storage). Stream order puts it
-        ahead of every later dispatch; nothing waits here."""
+        ahead of every later dispatch; nothing waits here. Its device time,
+        from ``mark`` (before the upload), is booked as ``kv_restore`` when
+        the engine next waits for a dispatch."""
         pkv.restore_pages(self.cache, pids, staged)
+        self._busy.stop(mark, "kv_restore",
+                        tokens=len(pids) * self.page_size)
         nbytes = len(pids) * self._page_bytes
         self.host_tier.note_restored(len(pids), nbytes)
         self._restore_pending[slot] = nbytes
@@ -1694,6 +2025,7 @@ class Engine:
         want_lp = any(r.logprobs is not None for r, _ in batch)
         n_plp = max((len(r.prompt_ids) for r, _ in batch
                      if r.prompt_logprobs is not None), default=0)
+        mark = self._busy.start()
         out = prefill_batch_step(
             self.model, self.cache, self._dev(tokens), self._dev(true_lens),
             self._dev(self.table[slots]) if self.paged else None,
@@ -1709,9 +2041,14 @@ class Engine:
             reps=self._dev(reps) if (reps != 1.0).any() else None,
             allow=allow, lora_idx=self._lora_dev(self.lora_idx[slots]),
             logprobs=want_lp, prompt_logprobs=n_plp, row_slots=slots_np)
+        busy = self._busy.stop(mark)
         self.cache, toks = out[0], out[1].cpu().numpy()
         lp_t = tuple(a.cpu().numpy() for a in out[2]) if want_lp else None
         plp_t = tuple(a.cpu().numpy() for a in out[-1]) if n_plp else None
+        # a batch of one is the JAX engine's prefill program
+        self._book_busy("prefill" if N == 1 else "prefill_batch",
+                        self._busy.settle(busy),
+                        {"batch": N, "tokens": int(true_lens.sum())})
         self.counts["prefill_dispatches"] += 1
         if self.draft is not None:
             self.draft.prefill(tokens, true_lens, slots_np)
@@ -1733,7 +2070,9 @@ class Engine:
             self._settle_restore(slot)
         elif off:
             if src != slot:
+                mark = self._busy.start()
                 kvc.copy_prefix(self.cache, src, slot, off)
+                self._busy.stop(mark, "prefix_copy", tokens=off)
             self.counts["prefix_cache_hits"] += 1
             self.counts["prefix_tokens_reused"] += off
             self.metrics.prefix_cache_hits.inc()
@@ -1789,6 +2128,12 @@ class Engine:
         req = st["req"]
         req.finish_reason = reason
         self.metrics.mark_request(reason, time.monotonic() - req.t_submit)
+        if reason == "timeout":
+            _flight.record("deadline_reap", req.id, slot=st["slot"],
+                           phase="prefill_chunk")
+        else:
+            _flight.record("cancel_reap", req.id, phase="prefill_chunk")
+        _flight.finish(req.id, reason, ok=False)
         req.out_queue.put(None)
 
     def _advance_chunk_mixed(self, st: dict, chunk: List[int], C: int):
@@ -1800,6 +2145,8 @@ class Engine:
         released here, exactly once, before the error propagates."""
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
         final = off + len(chunk) >= len(ids)
+        _flight.record("prefill_chunk", req.id, off=off, n=len(chunk),
+                       mixed=True)
         prev = self._inflight
         if prev is not None and not self._carry_valid():
             self._drain_decode_pipeline("prefill")
@@ -1837,6 +2184,7 @@ class Engine:
             self._release_slot(slot)
             req.finish_reason = "error"
             self.metrics.mark_request("error", 0.0)
+            _flight.finish(req.id, "error", ok=False, phase="prefill_chunk")
             req.out_queue.put(None)
             raise
         if final:
@@ -1868,7 +2216,9 @@ class Engine:
         pen = dict(counts=d.counts, presence=d.presence,
                    frequency=d.frequency, repetition=d.repetition,
                    prompt_mask=d.prompt_mask) if want_pen else {}
-        guided = self._allow_words(self._guided_slots(active))
+        gset = self._guided_slots(active)
+        guided = self._allow_words(gset)
+        mark = self._dispatch_mark()
         res = mixed_step(
             self.model, self.cache, d.tokens, d.lengths, pdev, slot, off,
             len(chunk), d.table, d.temps, d.top_ks, d.top_ps, d.seeds,
@@ -1893,17 +2243,35 @@ class Engine:
                            d.lengths + 1)
         d.tokens.copy_(tok)
         d.lengths.copy_(lens)
+        busy = self._busy.stop(mark)
         (out, ptok, lp, clp, plp), event = self._stage_groups(
             (out,), (ptok,), lp, clp, plp)
+        self._last_dispatch = rec = {
+            "mixed": True, "out": out[0], "pout": ptok[0], "lp": lp,
+            "chunk_lp_t": clp, "chunk_plp_t": plp, "chunk_req": req,
+            "event": event, "busy": busy, "horizon": 1, "active": active,
+            "gset": gset, "chunk_n": len(chunk),
+            "reqs": [self.slot_req[s] for s in active]}
         self._pipe_carry = self._carry_gen
         self.counts["mixed_dispatches"] += 1
         self.counts["pipeline_dispatches"] += 1
         _metrics.pipeline.dispatches.inc()
-        return {"mixed": True, "out": out[0], "pout": ptok[0], "lp": lp,
-                "chunk_lp_t": clp, "chunk_plp_t": plp, "chunk_req": req,
-                "event": event, "horizon": 1,
-                "active": active, "t0": time.monotonic(),
-                "reqs": [self.slot_req[s] for s in active]}
+        _flight.record("pipeline_dispatch", None, horizon=1,
+                       batch=len(active), mixed=True)
+        rec["t0"] = time.monotonic()
+        return rec
+
+    def _dispatch_mark(self) -> tuple:
+        """Before a decode or mixed dispatch is queued: book the host
+        bubble since a fetch left the device idle with nothing queued (the
+        JAX engine's ``decode_bubble_seconds``) and start the dispatch's
+        device time."""
+        t0 = time.monotonic()
+        if self._last_ready > 0.0:
+            self.metrics.decode_bubble_seconds.inc(
+                max(0.0, t0 - self._last_ready))
+            self._last_ready = 0.0
+        return self._busy.start()
 
     def _advance_chunk_dense(self, st: dict, chunk: List[int], C: int):
         """One chunk of the dense walk into rows [off, off + len(chunk)) of
@@ -1915,11 +2283,13 @@ class Engine:
         if self._inflight is not None:
             self._drain_decode_pipeline("chunk")
         req, slot, ids, off = st["req"], st["slot"], st["ids"], st["off"]
+        _flight.record("prefill_chunk", req.id, off=off, n=len(chunk))
         ptokens = np.zeros((1, C), np.int32)
         ptokens[0, :len(chunk)] = chunk
         final = off + len(chunk) >= len(ids)
         want_lp = req.logprobs is not None and not st["resumed"] and final
         rows = slice(slot, slot + 1)
+        mark = self._busy.start()
         out = prefill_chunk_step(
             self.model, self.cache, self._dev(ptokens), off, slot,
             len(chunk), self._dev(np.array([req.temperature], np.float32)),
@@ -1932,7 +2302,10 @@ class Engine:
             bias_vals=self._dev(self.bias_vals[rows]), rep=st["rep"],
             rep_seen=st["rep_seen"], allow=self._allow_row(req),
             lora_idx=self._lora_dev(self.lora_idx[rows]), logprobs=want_lp)
+        busy = self._busy.stop(mark)
         self.cache, tok = out[0], int(out[1].cpu()[0])
+        self._book_busy("prefill_chunk", self._busy.settle(busy),
+                        {"tokens": len(chunk)})
         lp = _host_lp(tuple(a.cpu().numpy() for a in out[2]), 0,
                       req.logprobs) if want_lp else None
         self.counts["chunk_dispatches"] += 1
@@ -2028,7 +2401,12 @@ class Engine:
         fairness floor's dispatch, takes the full horizon although a prompt
         could prefill next), or a verify dispatch when speculation proposes
         drafts; with the pipeline on, the new dispatch is left in flight and
-        its predecessor fetched. Ends the prefill streak."""
+        its predecessor fetched. Ends the prefill streak. An armed
+        ``stalled_decode`` fault (``serving/chaos.py``) wedges the step here
+        until the watchdog's abort flag (``_stall_abort``) fails it."""
+        ch = _chaos.get()
+        if ch.enabled:
+            ch.on_decode_step(self)
         self._prefill_streak = 0
         prev = self._inflight
         if prev is not None and not self._carry_valid():
@@ -2119,21 +2497,27 @@ class Engine:
         self._decode_operands()
         self._allow_words(gset)
         want_lp, want_pen = self._want_lp(), self._want_pen()
+        mark = self._dispatch_mark()
         out = self.decoder.run(horizon, bool((self.temps > 0).any()),
                                want_pen, want_lp)
         lp = ()
         if want_lp:
             out, lp = out
+        busy = self._busy.stop(mark)
         (out, lp), event = self._stage_groups((out,), lp)
         self._pipe_carry = self._carry_gen
         self.counts["decode_dispatches"] += 1
         self.counts["decode_substeps"] += horizon
         self.counts["pipeline_dispatches"] += 1
         _metrics.pipeline.dispatches.inc()
-        return {"out": out[0], "lp": lp, "event": event,
-                "horizon": horizon, "active": list(active), "gset": gset,
-                "want_pen": want_pen, "t0": time.monotonic(),
-                "reqs": [self.slot_req[s] for s in active]}
+        _flight.record("pipeline_dispatch", None, horizon=horizon,
+                       batch=len(active))
+        self._last_dispatch = rec = {
+            "out": out[0], "lp": lp, "event": event, "busy": busy,
+            "horizon": horizon, "active": list(active), "gset": gset,
+            "want_pen": want_pen, "t0": time.monotonic(),
+            "reqs": [self.slot_req[s] for s in active]}
+        return rec
 
     def _decode_fetch(self, rec: dict) -> None:
         """Wait for a dispatch's tokens and emit them: substep by substep,
@@ -2144,9 +2528,39 @@ class Engine:
         substep 0's token only (the later substeps drew under a stale mask):
         its device carry and, when it penalizes, its count row no longer
         describe it, so the carry is invalidated (the next dispatch copies
-        the mirrors in) and the count row restored from its stream."""
+        the mirrors in) and the count row restored from its stream.
+
+        The wait books the dispatch's device time (``device_busy_seconds``,
+        ``decode_step_duration`` a substep, devmon's ``decode`` or
+        ``mixed_step``). When nothing is queued behind it (it is the last
+        dispatch queued, the JAX fetch's ``tail``), the device goes idle
+        here and the next dispatch books the gap as the decode bubble. The armed faults of the JAX fetch
+        (``serving/chaos.py``) raise before the wait:
+        ``pipeline_fetch_error``, ``ragged_dispatch_error`` on a mixed
+        dispatch, ``ragged_feature_error`` (``kind=guided``) on one that
+        carried guided rows."""
+        ch = _chaos.get()
+        if ch.enabled:
+            ch.on_pipeline_fetch(self)
+            if rec.get("mixed"):
+                ch.on_mixed_fetch(self)
+            if rec.get("gset"):
+                ch.on_feature_path(self, kind="guided")
         if rec["event"] is not None:
             rec["event"].synchronize()
+        t_ready = time.monotonic()
+        tail = rec is self._last_dispatch
+        dev_dt = self._busy.settle(rec["busy"])
+        horizon, active = rec["horizon"], rec["active"]
+        mixed = bool(rec.get("mixed"))
+        self.metrics.device_busy_seconds.inc(dev_dt)
+        self.metrics.decode_step_duration.observe(dev_dt / horizon)
+        _devmon.note("mixed_step" if mixed else "decode", dev_dt,
+                     batch=len(active) + mixed,
+                     tokens=horizon * len(active) + rec.get("chunk_n", 0),
+                     ctx_rows=float(np.mean(self.lengths[active]))
+                     if active else 0.0,
+                     steps=horizon, guided_rows=len(rec.get("gset", ())))
         out = rec["out"].numpy()
         lp_t = None if rec["lp"] is None else \
             tuple(a.numpy() for a in rec["lp"])
@@ -2177,6 +2591,10 @@ class Engine:
                 emitted += 1
         if gset and rec["horizon"] > 1:
             self._resync_guided(rec)
+        if tail and any(r is not None for r in self.slot_req):
+            self._last_ready = t_ready
+        _flight.record("pipeline_fetch", None, horizon=horizon,
+                       emitted=emitted, tail=tail)
         self._note_tokens(rec["t0"], emitted)
 
     def _resync_guided(self, rec: dict) -> None:
@@ -2273,13 +2691,25 @@ class Engine:
         R = self.serving.spec_k + 1
         t0 = time.monotonic()
         tokens = np.concatenate([self.last_token[:, None], drafts], axis=1)
+        mark = self._busy.start()
         self.cache, out, accepted = spec_decode_step(
             self.model, R, self.cache, self._dev(tokens),
             self._dev(self.lengths), self._table_dev(),
             self._dev(self.temps), self._dev(self.top_ks),
             self._dev(self.top_ps), self._dev(self.seeds),
             lora_idx=self._lora_dev(self.lora_idx))
+        busy = self._busy.stop(mark)
+        ch = _chaos.get()
+        if ch.enabled:
+            # an armed ragged_feature_error (kind=spec) stands in for a
+            # corrupted verify row: nothing has been emitted, and the
+            # failure path releases every slot once (_fail_all)
+            ch.on_feature_path(self, kind="spec")
         out, accepted = out.cpu().numpy(), accepted.cpu().numpy()
+        self._book_busy("spec_decode", self._busy.settle(busy), {
+            "batch": len(active), "tokens": R * len(active),
+            "ctx_rows": float(np.mean(self.lengths[active]))
+            if active else 0.0})
         self.counts["spec_dispatches"] += 1
         m = self.metrics
         total = 0
@@ -2327,9 +2757,16 @@ class Engine:
         # a device carry no longer describes the batch once the slot joins
         self._carry_gen += 1
         self._op_dirty_sampling = True
+        now = time.monotonic()
         if not req.t_first_token:            # not again at a resume
-            req.t_first_token = time.monotonic()
-            self.metrics.ttft.observe(req.t_first_token - req.t_submit)
+            req.t_first_token = now
+            self.metrics.ttft.observe(now - req.t_submit,
+                                      trace_id=req.trace_id or None)
+            _slo.get().observe_ttft(now - req.t_submit)
+        _flight.record("admit", req.id, slot=slot, resumed=resumed,
+                       queue_wait_s=round(max(0.0, (req.t_prefill_start
+                                                    or now) - req.t_submit),
+                                          6))
         if not resumed:
             # a resume's context was counted at its first admission
             self.metrics.prompt_tokens.inc(len(ids))
@@ -2419,9 +2856,15 @@ class Engine:
         a prefix source until it is reused."""
         req = self.slot_req[slot]
         req.t_done = time.monotonic()
-        self.metrics.mark_request(
-            "success" if req.finish_reason in ("stop", "length")
-            else req.finish_reason or "success", req.t_done - req.t_submit)
+        status = ("success" if req.finish_reason in ("stop", "length")
+                  else req.finish_reason or "success")
+        self.metrics.mark_request(status, req.t_done - req.t_submit,
+                                  trace_id=req.trace_id or None)
+        # the terminal flight event: an OK finish frees the timeline, any
+        # other (timeout, error, cancelled) snapshots it
+        _flight.finish(req.id, reason=req.finish_reason or "stop",
+                       ok=status == "success", slot=slot,
+                       n_generated=len(req.generated))
         if self.paged:
             ids = req.prompt_ids + req.generated
             self._index_prompt_pages(slot, ids, n_valid=len(ids) - 1)
@@ -2741,6 +3184,8 @@ class Engine:
             "fit": True,
         }
         self.metrics.hbm_compiled_bytes.set(float(ledger["total_bytes"]))
+        # devmon's HBM ledger reconciles its live total against this one
+        self.aot = aot
         return aot
 
     # -- loop ---------------------------------------------------------------
@@ -2761,20 +3206,23 @@ class Engine:
         """Engine thread body: step until stopped, sleeping when idle, with
         the stall watchdog on a thread of its own. A failing step fails
         every in-flight and queued request (their waiters get the sentinel)
-        and the loop keeps serving."""
+        and the loop keeps serving. Each step holds ``step_lock``, which
+        another thread takes to act between two steps (the server's
+        profiler starts and stops there)."""
         threading.Thread(target=self._watchdog_loop, args=(stop,),
                          daemon=True, name="engine-watchdog").start()
         while not stop.is_set():
             self.last_step_start = time.monotonic()
             try:
-                did_work = self.step()
+                with self.step_lock:
+                    did_work = self.step()
             # boundary that must keep serving: record, fail the affected
             # requests, continue
             except Exception as e:  # noqa: BLE001
                 log.exception("engine step failed; failing in-flight "
                               "requests")
                 self.last_error = f"{type(e).__name__}: {e}"
-                self._fail_all()
+                self._fail_all(self.last_error)
                 did_work = False
             self.last_step_start = 0.0
             with self._lock:
@@ -2785,13 +3233,14 @@ class Engine:
 
     def _watchdog_loop(self, stop: threading.Event):
         """The stall watchdog: a step executing past STALL_AFTER_S is
-        counted once in ``watchdog_stalls`` and arms ``_stall_abort``, the
-        flag a cooperative wait inside the step would check to abort it.
-        Nothing in the port reads the flag yet (the fault injection that
-        does comes with the chaos suite); a wedged step shows as
-        ``stalled_for_s`` > 0, which the server answers with 503 "stalled"
-        until the liveness probe restarts the pod. This thread reads clocks
-        only and never touches the device."""
+        counted once in ``watchdog_stalls`` (a ``watchdog_stall`` flight
+        event) and arms ``_stall_abort``, the flag a cooperative wait inside
+        the step checks to abort it: the chaos ``stalled_decode`` wait
+        (``serving/chaos.py``) raises, run_forever fails the requests and
+        the engine keeps serving. A wedged device call never sees the flag;
+        it shows as ``stalled_for_s`` > 0, which the server answers with 503
+        "stalled" until the liveness probe restarts the pod. This thread
+        reads clocks only and never touches the device."""
         while not stop.is_set():
             if self.stalled_for_s > 0:
                 with self._lock:
@@ -2799,6 +3248,9 @@ class Engine:
                     self._stall_abort = True
                 if armed:
                     self.metrics.watchdog_stalls.inc()
+                    _flight.record("watchdog_stall", None,
+                                   stalled_for_s=round(self.stalled_for_s,
+                                                       3))
             stop.wait(min(1.0, max(0.05, self.STALL_AFTER_S / 4)))
 
     @property
@@ -2811,19 +3263,23 @@ class Engine:
         dt = time.monotonic() - t0
         return dt if dt >= self.STALL_AFTER_S else 0.0
 
-    def _fail_all(self):
+    def _fail_all(self, reason: str = ""):
+        _flight.record("fail_all", None, reason=reason)
         # discard the dispatch in flight un-emitted: its requests fail below
         # (one release each, through _finish), and fetching a dispatch that
-        # may be the failure would raise again
+        # may be the failure would raise again; its device time is not
+        # booked
         if self._inflight is not None:
             self._count_drain("fail")
         self._inflight = None
         self._pipe_carry = None
+        self._busy.discard()
         if self._chunk is not None:
             st, self._chunk = self._chunk, None
             self._release_slot(st["slot"])
             st["req"].finish_reason = "error"
             self.metrics.mark_request("error", 0.0)
+            _flight.finish(st["req"].id, "error", ok=False, detail=reason)
             st["req"].out_queue.put(None)
         for slot, r in enumerate(self.slot_req):
             if r is not None:
@@ -2836,6 +3292,7 @@ class Engine:
         for r in queued:
             r.finish_reason = "error"
             self.metrics.mark_request("error", 0.0)
+            _flight.finish(r.id, "error", ok=False, detail=reason)
             r.out_queue.put(None)
 
 

@@ -189,9 +189,7 @@ class Registry:
 
 class EngineMetrics:
     """The engine's metric set; names mirror the vLLM ones the collector
-    scrapes. Families of paths the port has not ported yet (the decode
-    bubble, device busy time, compile time, the AOT ledger) render at
-    zero."""
+    scrapes."""
 
     def __init__(self):
         self.registry = Registry()
@@ -352,7 +350,12 @@ class EngineMetrics:
         self.vllm_request_total.inc(status=status)
         self.request_duration.observe(duration_s, trace_id=trace_id)
         self.vllm_request_duration.observe(duration_s, trace_id=trace_id)
-        # the SLO burn-rate engine's feed (serving/slo.py) is not ported yet
+        # every terminal edge funnels through here: the SLO burn-rate
+        # engine's feed (serving/slo.py; imported here, as slo's module
+        # imports this one)
+        from aws_k8s_ansible_provisioner_tpu_torch.serving import slo as _slo
+
+        _slo.get().observe_request(status, duration_s)
 
 
 class PipelineMetrics:

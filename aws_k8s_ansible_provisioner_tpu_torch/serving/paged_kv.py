@@ -423,6 +423,10 @@ class PagePool:
         self._free: collections.deque = collections.deque(
             range(first_page, num_pages))
         self._ref = np.zeros(num_pages, np.int32)
+        # the fault hook of serving/chaos.py's ``page_exhaustion``: while
+        # positive, alloc() refuses and counts it down (a pool that is dry
+        # by fiat, healing deterministically)
+        self.fail_next_allocs = 0
         # page id -> (chain key, tokens) of an indexed page
         self._page_key: Dict[int, Tuple] = {}
         # chain key -> page id (the latest content wins)
@@ -457,7 +461,11 @@ class PagePool:
             del self._hash_to_page[key[0]]
 
     def alloc(self, n: int = 1) -> Optional[List[int]]:
-        """Allocate n pages (refcount 1 each), or None if not enough."""
+        """Allocate n pages (refcount 1 each), or None if not enough (or
+        while ``fail_next_allocs`` refuses)."""
+        if self.fail_next_allocs > 0:
+            self.fail_next_allocs -= 1
+            return None
         if n > self.free_pages:
             return None
         out = [self._pop_physical() for _ in range(n)]

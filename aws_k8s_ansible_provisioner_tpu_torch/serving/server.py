@@ -12,12 +12,21 @@ thread:
 - ``GET /health``, ``/healthz``, ``/ping``: one answer, status ``ok``,
   ``degraded`` (a step failed; ``last_error``), ``draining`` or
   ``stalled`` (a step has run past ``watchdog_stall_s``: 503, the liveness
-  probe's cue), with the JAX server's keys for what the port has;
+  probe's cue), with the JAX server's keys, its ``slo``, ``slo_burning``,
+  ``flight``, ``device``, ``hbm_drift`` and ``capacity`` blocks among them;
 - ``GET /readyz``: 200, or 503 while draining (``X-TPU-Draining: 1``) or
   stalled; ``GET /load``: active, queued, slots, draining (the router's
   poller); ``GET /metrics``: the engine's ``tpu_serve_*`` and ``vllm_*``
-  families and the decode pipeline's, Prometheus text or OpenMetrics by
-  ``Accept``;
+  families, tracing's, the flight recorder's, the SLO engine's, the
+  device monitor's (``tpu_device_*``), the capacity estimator's
+  (``tpu_capacity_*``) and the decode pipeline's, Prometheus text or
+  OpenMetrics by ``Accept`` (the autoscaler's family and the chips' come
+  with their own ports);
+- ``GET /debug/roofline`` (the device monitor's per-program table and HBM
+  ledger), ``/debug/capacity``, ``/debug/events?last=N`` (the flight
+  recorder's ring), ``/debug/flight/<request id>`` (an anomaly's
+  timeline) and ``/debug/profile?ms=N`` (a ``torch.profiler`` capture
+  written as a Chrome trace, its path returned);
 - ``POST`` (or ``GET``) ``/admin/drain`` (``timeout_s``, default
   ``--drain-timeout``; ``exit``, default true: stop the server once the
   drain is done) and ``POST /admin/undrain``. SIGTERM drains as
@@ -48,6 +57,15 @@ a malformed or conflicting spec gets 400 ``guided decoding: ...``.
 ``model`` names the served model or one of the LoRA adapters registered
 with ``--lora NAME=PATH`` (``/v1/models`` lists them with their
 ``parent``); the answer carries the name asked for.
+
+A completion continues an incoming W3C ``traceparent`` (or starts a
+trace) in a ``server.request`` span with the five phase children of the
+JAX server (``_completions``), exported by the tracer ``build_state``
+configures (``--otlp-endpoint``); the span's ids ride ``usage`` and error
+bodies. The flight recorder, the SLO engine, the device monitor and the
+capacity estimator are configured from the same ``ServingConfig``
+(:func:`configure_observability`), and the chaos faults of
+``serving/chaos.py`` arm from ``$TPU_SERVE_CHAOS``.
 
 ``stream`` answers with ``text/event-stream`` over chunked transfer
 encoding: ``data: {...}`` events, one per ready piece of text and choice
@@ -106,15 +124,52 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import queue
 import signal
+import tempfile
 import threading
 import time
+import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from aws_k8s_ansible_provisioner_tpu_torch.serving import (capacity, chaos,
+                                                           devmon, flightrec,
+                                                           metrics, slo,
+                                                           tracing)
+
 log = logging.getLogger(__name__)
+
+
+def _bubble_pct(eng) -> Optional[float]:
+    """The host bubble's share of the decode timeline: bubble / (bubble +
+    device busy time)."""
+    bubble = eng.metrics.decode_bubble_seconds.total()
+    busy = eng.metrics.device_busy_seconds.total()
+    if bubble + busy <= 0:
+        return None
+    return round(100.0 * bubble / (bubble + busy), 2)
+
+
+def _device_health() -> dict:
+    """The /healthz device block: the HBM ledger's drift verdict and
+    totals, the duty cycle and the decode program's roofline shares (the
+    whole table is /debug/roofline)."""
+    snap = devmon.get().snapshot()
+    hbm = snap["hbm"]
+    dec = snap["programs"].get("decode") or {}
+    return {
+        "hbm_drift": hbm["verdict"],
+        "hbm_live_bytes": int(hbm["live_bytes"]),
+        "hbm_compiled_bytes": int(hbm["compiled_bytes"]),
+        "hbm_drift_bytes": int(hbm["drift_bytes"]),
+        "duty_cycle": round(snap["duty_cycle"], 4),
+        "mfu": round(dec.get("mfu", 0.0), 4),
+        "membw_util": round(dec.get("membw_util", 0.0), 4),
+        "dma_wait_fraction": round(snap["dma_wait_fraction"], 4),
+    }
 
 
 def _parse_fields(body: dict, engine, ids, header_deadline=None,
@@ -414,6 +469,10 @@ class ServerState:
         self._drain_watcher: Optional[threading.Thread] = None
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        # the request spans' tracer (build_state's; None: no spans) and the
+        # lock that lets one /debug/profile capture run at a time
+        self.tracer: Optional[tracing.Tracer] = None
+        self.profile_lock = threading.Lock()
 
     def start_engine(self):
         self._thread = threading.Thread(target=self.engine.run_forever,
@@ -611,12 +670,42 @@ def build_state(serving=None, model_cfg=None, params=None, tokenizer=None,
                     draft=draft, mesh=mesh, lora=lora)
     templater = ChatTemplater(model_cfg.name, tokenizer,
                               template_path=serving.chat_template or None)
-    return ServerState(engine, tokenizer, serving.model, templater)
+    state = ServerState(engine, tokenizer, serving.model, templater)
+    configure_observability(state, serving)
+    return state
+
+
+def configure_observability(state: ServerState, serving) -> None:
+    """The JAX ``build_state``'s configuration of the observability
+    modules from ``serving``: the request spans' tracer (the config's OTLP
+    endpoint, else ``$OTEL_EXPORTER_OTLP_ENDPOINT``; with neither, spans
+    are made but not exported), the flight recorder's spool, the SLO
+    objectives, the device monitor's peaks and the capacity estimator's
+    windows. The monitor and the estimator keep the wiring the engine
+    installed when it was built."""
+    state.tracer = tracing.build_tracer(
+        "tpu-serve-engine", endpoint=serving.otlp_endpoint or None,
+        sample=serving.trace_sample)
+    flightrec.configure(spool_dir=serving.flight_spool_dir or "")
+    slo.configure(ttft_p95_ms=serving.slo_ttft_p95_ms,
+                  error_rate=serving.slo_error_rate)
+    devmon.configure(enabled=serving.devmon_enabled,
+                     peak_tflops=serving.devmon_peak_tflops,
+                     hbm_gbps=serving.devmon_peak_hbm_gbps,
+                     hbm_tolerance_mb=serving.devmon_hbm_tolerance_mb)
+    capacity.configure(enabled=serving.capacity_enabled,
+                       headroom_s=serving.capacity_headroom_s,
+                       window_s=serving.capacity_window_s,
+                       trend_window_s=serving.capacity_trend_window_s)
 
 
 class Handler(BaseHTTPRequestHandler):
     state: ServerState = None          # set by make_server
     protocol_version = "HTTP/1.1"
+    # the request span's context (a class default, so that a keep-alive
+    # connection never hands one request's ids to the next)
+    _trace_ctx: Optional[tracing.SpanContext] = None
+    _trace_reqs = None
 
     def log_message(self, fmt, *args):
         log.debug("%s " + fmt, self.address_string(), *args)
@@ -635,9 +724,15 @@ class Handler(BaseHTTPRequestHandler):
                etype: str = "invalid_request_error",
                err_code: Optional[str] = None,
                headers: Optional[dict] = None):
-        self._json(code, {"error": {"message": message, "type": etype,
-                                    "code": err_code or code}},
-                   headers=headers)
+        err = {"message": message, "type": etype, "code": err_code or code}
+        if self._trace_ctx is not None:
+            # the ids to look the failed request up by
+            err["trace_id"] = self._trace_ctx.trace_id
+            err["span_id"] = self._trace_ctx.span_id
+        if code >= 500:
+            # a ring-only breadcrumb beside the engine's events
+            flightrec.record("http_error", None, code=code, type=etype)
+        self._json(code, {"error": err}, headers=headers)
 
     def _overloaded(self, e):
         """A shed request (:class:`EngineOverloaded`): 503 ``draining``
@@ -688,12 +783,74 @@ class Handler(BaseHTTPRequestHandler):
         elif path == "/admin/drain":
             # a lifecycle httpGet hook can only GET: the POST's defaults
             self._admin_drain({})
+        elif path == "/debug/profile":
+            self._profile()
+        elif path == "/debug/roofline":
+            # the device monitor's per-program table and HBM ledger
+            self._json(200, devmon.get().snapshot())
+        elif path == "/debug/capacity":
+            self._json(200, capacity.get().snapshot())
+        elif path == "/debug/events":
+            # the flight recorder's ring, oldest first (?last=N, <= 4096)
+            vals = self._query().get("last")
+            n = min(int(vals[0]), 4096) if vals and vals[0].isdigit() \
+                else 100
+            self._json(200, {"events": flightrec.get().tail(n)})
+        elif path.startswith("/debug/flight/"):
+            # one request's anomaly dump, or its live timeline
+            rid = path[len("/debug/flight/"):]
+            dump = flightrec.get().dump_for(rid)
+            if dump is None and rid.isdigit():
+                dump = flightrec.get().dump_for(int(rid))
+            if dump is None:
+                return self._error(404, f"no flight timeline for {rid!r} "
+                                        "(snapshots keep the last anomalies "
+                                        "only; see /debug/events)")
+            self._json(200, dump)
         else:
             self._error(404, f"no route {path}")
 
+    def _query(self) -> dict:
+        q = self.path.split("?", 1)
+        return urllib.parse.parse_qs(q[1]) if len(q) == 2 else {}
+
+    def _profile(self):
+        """``/debug/profile?ms=N``: a ``torch.profiler`` capture of the
+        device and the host while the engine serves (N ms, default 1000,
+        at most 30000), written server-side as a Chrome trace (the JAX
+        server writes a JAX trace); answers with its path. The profiler
+        starts and stops between two engine steps (``Engine.step_lock``):
+        turning the device tracer on or off while the engine thread
+        launches its work could wedge the process."""
+        from torch.profiler import ProfilerActivity, profile
+
+        vals = self._query().get("ms")
+        ms = min(int(vals[0]), 30000) if vals and vals[0].isdigit() else 1000
+        out_dir = os.path.join(tempfile.gettempdir(), "torch-serve-profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{time.strftime('%Y%m%d-%H%M%S')}-"
+                                     f"{uuid.uuid4().hex[:8]}.json")
+        eng = self.state.engine
+        acts = [ProfilerActivity.CPU]
+        if eng.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with self.state.profile_lock:
+            prof = profile(activities=acts)
+            with eng.step_lock:
+                prof.start()
+            try:
+                time.sleep(ms / 1000.0)
+            finally:
+                with eng.step_lock:
+                    prof.stop()
+            prof.export_chrome_trace(path)
+        self._json(200, {"trace_path": path, "window_ms": ms,
+                         "view": "chrome://tracing or perfetto"})
+
     def _health(self):
-        """The JAX server's health answer over what the port has (the
-        blocks of unported modules are left out): 503 only when stalled."""
+        """The JAX server's health answer: 503 only when stalled. The
+        ``slo``, ``flight``, ``device`` (``hbm_drift`` its verdict) and
+        ``capacity`` blocks come from the observability modules."""
         st = self.state
         eng = st.engine
         m = eng.metrics
@@ -705,6 +862,7 @@ class Handler(BaseHTTPRequestHandler):
             status = "draining"
         if stalled:
             status = "stalled"
+        dev = _device_health()
         self._json(503 if stalled else 200, {
             "status": status,
             "draining": bool(eng.draining),
@@ -717,9 +875,14 @@ class Handler(BaseHTTPRequestHandler):
             "last_error": eng.last_error or None,
             "decode_bblock": eng.decode_bblock,
             "decode_pipeline": eng.serving.decode_pipeline,
+            "decode_bubble_pct": _bubble_pct(eng),
+            "ragged_attention": eng.serving.ragged_attention,
+            "ragged_features": eng.serving.ragged_features,
+            "pipeline": metrics.pipeline.snapshot(),
             "weights_dtype": eng.serving.weights_dtype,
             "kv_dtype": eng.serving.kv_dtype,
             "paged": bool(eng.paged),
+            "aot": eng.aot,
             "shed_total": int(m.requests_shed.total()),
             "deadline_expired_total": int(m.deadline_expired.total()),
             "watchdog_stalls_total": int(m.watchdog_stalls.total()),
@@ -736,17 +899,34 @@ class Handler(BaseHTTPRequestHandler):
                 for t in ("hbm", "host", "miss")},
             "kv_host_tier": (eng.host_tier.stats()
                              if eng.host_tier is not None else None),
+            "slo": slo.get().snapshot(),
+            "slo_burning": slo.get().burning(),
+            "flight": flightrec.get().summary(),
+            "device": dev,
+            "hbm_drift": dev["hbm_drift"],
+            "capacity": capacity.get().snapshot(),
         })
 
     def _metrics(self):
-        """The engine's registry and the decode pipeline's, as Prometheus
-        text, or as OpenMetrics (with its ``# EOF``) when ``Accept`` asks
-        for it."""
-        from aws_k8s_ansible_provisioner_tpu_torch.serving import metrics
-
+        """The engine's registry, then tracing's, the flight recorder's,
+        the SLO engine's, the device monitor's and the capacity
+        estimator's (each gauge family refreshed by its ``export()`` first;
+        the capacity estimator's drops rather than fails), then the decode
+        pipeline's: Prometheus text, or OpenMetrics (with its ``# EOF``)
+        when ``Accept`` asks for it. The autoscaler's family and the chips'
+        (``render_engine_chips``) come with the autoscaler and the node
+        exporter's ports."""
+        slo.get().export()
+        devmon.get().export()
+        capacity.get().export()
         om = "application/openmetrics-text" in (self.headers.get("Accept")
                                                 or "")
         text = (self.state.engine.metrics.registry.render(om)
+                + tracing.metrics.registry.render(om)
+                + flightrec.metrics.registry.render(om)
+                + slo.metrics.registry.render(om)
+                + devmon.metrics.registry.render(om)
+                + capacity.metrics.registry.render(om)
                 + metrics.pipeline.registry.render(om))
         if om:
             text += "# EOF\n"
@@ -762,6 +942,7 @@ class Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_POST(self):
+        self._trace_ctx = None      # keep-alive: not the last request's
         path = self.path.split("?")[0]
         try:
             n = int(self.headers.get("Content-Length", 0))
@@ -812,6 +993,68 @@ class Handler(BaseHTTPRequestHandler):
                          "queue_depth": eng.pending})
 
     def _completions(self, body: dict, chat: bool = False):
+        """The request's span (the JAX server's): a ``server.request``
+        span of kind SERVER continues an incoming ``traceparent`` (or
+        starts a trace), and once the answer is written its five phase
+        children are made from the engine Request's own timestamps
+        (:meth:`_emit_phase_spans`); the engine never holds the tracer."""
+        tracer = self.state.tracer
+        if tracer is None:
+            return self._completions_impl(body, chat)
+        t0 = time.monotonic()
+        parent = tracing.parse_traceparent(
+            self.headers.get(tracing.TRACEPARENT_HEADER))
+        span = tracer.start_span(
+            "server.request", parent=parent, kind=tracing.KIND_SERVER,
+            start_ns=tracing.mono_ns(t0),
+            attributes={"http.route": ("/v1/chat/completions" if chat
+                                       else "/v1/completions"),
+                        "request.stream": bool(body.get("stream", False))})
+        raw = body.get(DEADLINE_FIELD, self.headers.get(DEADLINE_HEADER))
+        if raw is not None:
+            try:
+                span.set_attribute("deadline.remaining_ms", int(float(raw)))
+            except (TypeError, ValueError):
+                pass
+        self._trace_ctx = span.context
+        self._trace_reqs = None
+        try:
+            return self._completions_impl(body, chat)
+        except Exception as e:
+            span.error(f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            self._emit_phase_spans(tracer, span, t0)
+
+    def _emit_phase_spans(self, tracer, span, t0: float):
+        """The phase children (``admission``, ``queue_wait``, ``prefill``,
+        ``decode``, ``stream_out``) between the handler's start, choice 0's
+        ``t_submit``, ``t_prefill_start``, ``t_first_token`` and
+        ``t_done``, and the handler's end, clamped to a non-decreasing chain
+        (an unset time makes its phase zero-wide), then the request span's
+        finish."""
+        end = time.monotonic()
+        reqs = self._trace_reqs
+        if reqs:
+            r = reqs[0]
+            bounds = [t0, r.t_submit, r.t_prefill_start, r.t_first_token,
+                      r.t_done, end]
+            for i in range(1, len(bounds)):
+                if bounds[i] <= 0.0 or bounds[i] < bounds[i - 1]:
+                    bounds[i] = bounds[i - 1]
+            for name, lo, hi in zip(("admission", "queue_wait", "prefill",
+                                     "decode", "stream_out"),
+                                    bounds, bounds[1:]):
+                tracer.emit_span(name, span.context, tracing.mono_ns(lo),
+                                 tracing.mono_ns(hi),
+                                 attributes={"phase.ms":
+                                             round((hi - lo) * 1e3, 3)})
+            span.set_attribute("request.n_choices", len(reqs))
+            if r.finish_reason:
+                span.set_attribute("request.finish_reason", r.finish_reason)
+        tracer.finish(span, end_ns=tracing.mono_ns(end))
+
+    def _completions_impl(self, body: dict, chat: bool):
         from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import (
             ContextLengthExceeded, EngineOverloaded, Request)
 
@@ -916,6 +1159,17 @@ class Handler(BaseHTTPRequestHandler):
         except (TypeError, ValueError) as e:
             self._cancel(reqs)
             return self._error(400, str(e))
+        # the span wrapper makes the phase spans of these requests' times
+        self._trace_reqs = reqs
+        if self._trace_ctx is not None:
+            for r in reqs:
+                # the exemplar of the engine's histograms, and the ids an
+                # anomaly dump of /debug/flight/<id> hoists
+                r.trace_id = self._trace_ctx.trace_id
+                flightrec.record("trace", r.id,
+                                 trace_id=self._trace_ctx.trace_id,
+                                 span_id=self._trace_ctx.span_id,
+                                 api_id=rid)
         if stream:
             return self._stream_response(
                 reqs, rid, chat, stops, len(ids), include_usage,
@@ -1005,9 +1259,16 @@ class Handler(BaseHTTPRequestHandler):
             else "text_completion",
             "created": int(time.time()), "model": self._model,
             "choices": choices,
-            "usage": {"prompt_tokens": n_prompt,
-                      "completion_tokens": completion_tokens,
-                      "total_tokens": n_prompt + completion_tokens}})
+            "usage": self._usage(n_prompt, completion_tokens)})
+
+    def _usage(self, n_prompt: int, n_gen: int) -> dict:
+        """The usage object, with the request span's ids when traced."""
+        usage = {"prompt_tokens": n_prompt, "completion_tokens": n_gen,
+                 "total_tokens": n_prompt + n_gen}
+        if self._trace_ctx is not None:
+            usage["trace_id"] = self._trace_ctx.trace_id
+            usage["span_id"] = self._trace_ctx.span_id
+        return usage
 
     # -- the SSE stream ------------------------------------------------------
 
@@ -1036,9 +1297,7 @@ class Handler(BaseHTTPRequestHandler):
         continuation marked ``failover: true``)."""
         final = {"id": rid, "object": obj, "created": int(time.time()),
                  "model": self._model, "choices": [],
-                 "usage": {"prompt_tokens": n_prompt,
-                           "completion_tokens": n_gen,
-                           "total_tokens": n_prompt + n_gen}}
+                 "usage": self._usage(n_prompt, n_gen)}
         if failover:
             final["failover"] = True
         self._sse_write(("data: " + json.dumps(final) + "\n\n").encode())
@@ -1093,6 +1352,7 @@ class Handler(BaseHTTPRequestHandler):
         tok = st.tokenizer
         self._sse_start()
         obj = "chat.completion.chunk" if chat else "text_completion"
+        sent = [0]          # content chunks sent (the kill_stream fault's)
 
         def chunk(idx: int, delta_text: Optional[str],
                   finish_reason: Optional[str], role: bool = False,
@@ -1116,6 +1376,13 @@ class Handler(BaseHTTPRequestHandler):
             if include_usage:
                 body["usage"] = None
             self._sse_write(f"data: {json.dumps(body)}\n\n".encode())
+            if delta_text or tok_ids:
+                sent[0] += 1
+                ch = chaos.get()
+                if ch.enabled:
+                    # an armed kill_stream resets the connection here and
+                    # raises: the replica dies mid-stream to its peer
+                    ch.on_stream_chunk(self, sent[0])
 
         def consume_skip(s, text: str) -> str:
             """Drop the leading characters a failed-over client already
@@ -1282,9 +1549,9 @@ class Handler(BaseHTTPRequestHandler):
                                 sum(len(s["req"].generated) for s in states),
                                 is_resume)
             self._sse_end()
-        except (BrokenPipeError, ConnectionResetError):
+        except (BrokenPipeError, ConnectionResetError, chaos.InjectedFault):
             self._cancel(s["req"] for s in states)
-            raise
+            raise BrokenPipeError
         except Exception:
             # the headers are out: no JSON error can follow; free the
             # slots and drop the connection
@@ -1435,8 +1702,79 @@ def build_parser(**kw) -> argparse.ArgumentParser:
                         "family's default style")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    p.add_argument("--platform", default="",
+                   help="the JAX server's platform switch: cpu means "
+                        "--device cpu; any other value is refused")
+    p.add_argument("--ragged-attention", type=int, default=1,
+                   help="the ragged mixed dispatch (chunked prefill packed "
+                        "beside the decode batch); the port always runs it: "
+                        "0 is refused")
+    p.add_argument("--ragged-features", type=int, default=1,
+                   help="guided, LoRA and speculative rows riding the "
+                        "ragged pipeline; the port always runs them: 0 is "
+                        "refused")
+    p.add_argument("--otlp-endpoint", default="",
+                   help="OTLP/HTTP trace collector base URL (spans POST to "
+                        "<endpoint>/v1/traces); empty falls back to "
+                        "$OTEL_EXPORTER_OTLP_ENDPOINT, neither = spans are "
+                        "not exported (their ids still echo in answers)")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="root-span sampling probability in [0, 1]; a "
+                        "propagated context keeps the caller's decision")
+    p.add_argument("--slo-ttft-p95-ms", type=float, default=0.0,
+                   help="TTFT p95 objective in milliseconds: slower first "
+                        "tokens burn the 5%% latency budget "
+                        "(tpu_serve_slo_burn_rate); 0 disables it")
+    p.add_argument("--slo-error-rate", type=float, default=0.01,
+                   help="error-rate SLO budget: the allowed fraction of "
+                        "requests finishing error or timeout (0 disables)")
+    p.add_argument("--flight-spool-dir", default="",
+                   help="directory of the flight recorder's anomaly dumps "
+                        "(capped JSONL); empty keeps them in memory only "
+                        "(/debug/flight/<id>)")
+    p.add_argument("--devmon-peak-tflops", type=float, default=989.0,
+                   help="the card's peak TFLOP/s that tpu_device_mfu "
+                        "divides by (default: H100 SXM dense bf16)")
+    p.add_argument("--devmon-peak-hbm-gbps", type=float, default=3350.0,
+                   help="the card's peak memory GB/s that "
+                        "tpu_device_membw_util divides by (default: H100 "
+                        "SXM HBM3)")
+    p.add_argument("--devmon-hbm-tolerance-mb", type=float, default=64.0,
+                   help="live-over-ledger HBM tolerance (MB) before "
+                        "/healthz's hbm_drift says 'warn' (never fails a "
+                        "probe)")
+    p.add_argument("--no-devmon", action="store_true",
+                   help="no device telemetry (the tpu_device_* gauges stay "
+                        "at their defaults)")
+    p.add_argument("--capacity-headroom-s", type=float, default=5.5,
+                   help="seconds ahead the recommended_replicas forecast "
+                        "looks: a replica's ready time")
+    p.add_argument("--capacity-window-s", type=float, default=60.0,
+                   help="window of the offered-load and utilization rates")
+    p.add_argument("--capacity-trend-window-s", type=float, default=300.0,
+                   help="window the saturation forecast fits its trend over")
+    p.add_argument("--no-capacity", action="store_true",
+                   help="no capacity estimator (the tpu_capacity_* gauges "
+                        "stay at their defaults)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
+
+
+def check_args(p: argparse.ArgumentParser, args) -> None:
+    """Refuse (``p.error``) the JAX flags' values the port does not
+    serve, and map ``--platform cpu`` onto ``--device cpu``."""
+    if args.platform:
+        if args.platform != "cpu":
+            p.error(f"--platform {args.platform}: the port runs on CUDA "
+                    f"(--device cuda, the default) or, with --platform cpu "
+                    f"or --device cpu, on the CPU")
+        args.device = "cpu"
+    for flag, val in (("--ragged-attention", args.ragged_attention),
+                      ("--ragged-features", args.ragged_features)):
+        if val != 1:
+            p.error(f"{flag} {val}: the port always runs the ragged mixed "
+                    f"dispatch and its feature paths; the serialized chunk "
+                    f"walk and the per-feature fallbacks are not ported")
 
 
 def serving_config(args):
@@ -1462,7 +1800,21 @@ def serving_config(args):
         admission_max_wait_s=args.admission_max_wait,
         chat_template=args.chat_template, checkpoint_dir=args.checkpoint_dir,
         draft_checkpoint_dir=args.draft_checkpoint_dir,
-        lora_adapters=tuple(args.lora))
+        lora_adapters=tuple(args.lora),
+        ragged_attention=args.ragged_attention,
+        ragged_features=args.ragged_features,
+        otlp_endpoint=args.otlp_endpoint, trace_sample=args.trace_sample,
+        slo_ttft_p95_ms=args.slo_ttft_p95_ms,
+        slo_error_rate=args.slo_error_rate,
+        flight_spool_dir=args.flight_spool_dir,
+        devmon_enabled=not args.no_devmon,
+        devmon_peak_tflops=args.devmon_peak_tflops,
+        devmon_peak_hbm_gbps=args.devmon_peak_hbm_gbps,
+        devmon_hbm_tolerance_mb=args.devmon_hbm_tolerance_mb,
+        capacity_enabled=not args.no_capacity,
+        capacity_headroom_s=args.capacity_headroom_s,
+        capacity_window_s=args.capacity_window_s,
+        capacity_trend_window_s=args.capacity_trend_window_s)
 
 
 def main(argv=None):
@@ -1476,6 +1828,7 @@ def main(argv=None):
                         "manifest of another configuration or a no-fit "
                         "ledger stops the server before warmup")
     args = p.parse_args(argv)
+    check_args(p, args)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")

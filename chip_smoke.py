@@ -7,9 +7,9 @@ Runs from the root of a checkout and needs one CUDA card, nvcc and the
 port's package beside this file; it exits non-zero without printing a
 result when either is missing. ``--phases`` runs only the named phases
 (``PHASES``: kernels, kernels-window, kernels-sp, kernels-families,
-kernels-moe, sampling, engine, server-process, checkpoint, guided-lora,
-prefix, spec, draft, dense, mistral, families, moe, sp, mesh; the build always
-runs); the kernels line then lists the rows whose kernels phase and named
+kernels-moe, sampling, engine, observability, server-process, checkpoint,
+guided-lora, prefix, spec, draft, dense, mistral, families, moe, sp, mesh;
+the build always runs); the kernels line then lists the rows whose kernels phase and named
 run both ran, each still required to have launched there. With no
 argument every phase runs. Phases, in order (any failure raises):
 
@@ -60,7 +60,22 @@ argument every phase runs. Phases, in order (any failure raises):
    eager ``decode_steps`` on a clone of the cache (tokens equal, every
    K/V row and scale bit-identical or the largest difference printed,
    launch counts equal), seeded streams equal with ``decode_pipeline`` 1
-   and 0, and a dispatch profiled with the pipeline off;
+   and 0, and a dispatch profiled with the pipeline off. After the bf16
+   run's logits, the observability phase (``phase_observability``) over
+   the same engine: 8 seeded streams equal with every observability module
+   recording and with none (ms per decode substep, A B B A); devmon's
+   device time of one horizon-8 decode dispatch (CUDA events) between the
+   profiler's kernel sum and its wall time; each program's MFU, bandwidth
+   share and the duty cycle (decode's and mixed_step's in (0, 1.05]); the
+   HBM ledger against ``torch.cuda.memory_allocated()``; over the
+   in-process server, an OTLP collector stub on 127.0.0.1 and a spool:
+   the busy counter on ``/metrics`` above 0, ``/healthz``'s blocks, a
+   traced request's span tree (``server.request`` and its five phases,
+   contiguous, within 1 ms of its width), and the faults
+   ``stalled_decode``, ``page_exhaustion``, ``pipeline_fetch_error``,
+   ``kv_offload_error`` and ``kill_stream``, each leaving the engine
+   serving with every slot and page back, the fault in the flight
+   recorder, and the next seeded request equal to the undisturbed one;
 4. server, for each engine: the port's HTTP server in-process on a free
    port answers ``GET /v1/models`` and ``POST /v1/completions`` (with the
    int8 engine, a seeded sampled completion twice, the same text). Over
@@ -2472,10 +2487,10 @@ def _prefix_wrappers(torch, engine, attn, ragged, restores, spills):
         uploads.append((e0, e1))
         return out
 
-    def timed_restore(slot, pids, staged):
+    def timed_restore(slot, pids, staged, *rest):
         e0, e1 = events()
         e0.record()
-        restore(slot, pids, staged)
+        restore(slot, pids, staged, *rest)
         e1.record()
         restores.append(uploads[-1] + (e0, e1, len(pids), list(pids)))
 
@@ -4520,12 +4535,13 @@ def phase_failover(torch, np, engine):
         + "; ".join(results))
 
 
-def _serve_in_process(engine):
+def _serve_in_process(engine, tracer=None):
     """The port's HTTP server over ``engine`` on a free port, the engine
-    stepping on its own thread; (base URL, stop function). Its tokenizer
-    encodes bytes and decodes token ids as their decimal numbers, so that
-    the random-weight model's streams (ids far past the byte range) show
-    in the text."""
+    stepping on its own thread (its request spans through ``tracer``,
+    when given); (base URL, stop function). Its tokenizer encodes bytes
+    and decodes token ids as their decimal numbers, so that the
+    random-weight model's streams (ids far past the byte range) show in
+    the text."""
     from aws_k8s_ansible_provisioner_tpu_torch.serving.server import (
         ServerState, make_server)
     from aws_k8s_ansible_provisioner_tpu_torch.utils.tokenizer import \
@@ -4539,6 +4555,7 @@ def _serve_in_process(engine):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     state = ServerState(engine, IdTokenizer(), engine.cfg.name)
+    state.tracer = tracer
     server = make_server(state, "127.0.0.1", port)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
@@ -7498,6 +7515,494 @@ def phase_mesh(torch, np):
     return runs
 
 
+# -- observability -----------------------------------------------------------
+
+OBS_STREAMS = 8            # seeded requests of the A/B streams check
+OBS_NEW = 64               # their new tokens
+OBS_PROBE = 40             # the fault drills' probe prompt (under one page)
+
+
+class _OtlpStub:
+    """An OTLP/HTTP collector on 127.0.0.1: the payloads POSTed to
+    ``/v1/traces``, kept in order."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        payloads = self.payloads = []
+
+        class H(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                payloads.append((self.path, json.loads(self.rfile.read(n))))
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def spans(self):
+        return [s for _, p in self.payloads for r in p["resourceSpans"]
+                for s in r["scopeSpans"][0]["spans"]]
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _obs_modules(serving, tracer_url, spool):
+    """The observability modules configured by the server's
+    ``configure_observability``: all on with a tracer and a spool, or
+    (``tracer_url`` None) as ``--no-devmon --no-capacity`` with no tracer
+    and no spool. Returns the tracer (or None)."""
+    import dataclasses
+    import types
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.server import \
+        configure_observability
+
+    on = tracer_url is not None
+    holder = types.SimpleNamespace(tracer=None)
+    configure_observability(holder, dataclasses.replace(
+        serving, devmon_enabled=on, capacity_enabled=on,
+        flight_spool_dir=spool if on else "",
+        otlp_endpoint=tracer_url or ""))
+    if not on:
+        # an empty endpoint falls back to $OTEL_EXPORTER_OTLP_ENDPOINT;
+        # run B has no tracer at all
+        holder.tracer = None
+    return holder.tracer
+
+
+def _obs_streams(torch, engine, Request, prompts):
+    """The seeded streams of ``prompts`` (even: greedy, odd: sampled with
+    seed 100 + i) submitted together and stepped by hand to the end; (the
+    streams, wall ms per decode substep)."""
+    reqs = [engine.submit(Request(
+        prompt_ids=p, max_tokens=OBS_NEW,
+        **(dict(ignore_eos=True) if i % 2 == 0
+           else dict(SAMPLED, seed=100 + i))))
+        for i, p in enumerate(prompts)]
+    sub0 = engine.counts["decode_substeps"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    for r in reqs:
+        _finish_ok(engine.cfg, r, OBS_NEW)
+    return ([r.generated for r in reqs],
+            1e3 * dt / max(1, engine.counts["decode_substeps"] - sub0))
+
+
+def _obs_device_time(torch, engine, Request, rng):
+    """One horizon-8 decode dispatch of 8 slots, settled at once (pipeline
+    off), under torch.profiler: the device seconds it booked must lie
+    between the sum of its kernels' device times and its wall time."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(8):
+        engine.submit(Request(prompt_ids=rng.integers(
+            0, engine.cfg.vocab_size, 100).tolist(), max_tokens=200,
+            ignore_eos=True))
+    while engine.pending or engine._chunk is not None:
+        engine.step()
+    engine._drain_decode_pipeline()
+    serving = engine.serving
+    engine.serving = dataclasses.replace(serving, decode_pipeline=0)
+    engine.step()                          # the synchronous path, warm
+    busy0 = engine.metrics.device_busy_seconds.total()
+    sub0 = engine.counts["decode_substeps"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    busy_ms = 1e3 * (engine.metrics.device_busy_seconds.total() - busy0)
+    horizon = engine.counts["decode_substeps"] - sub0
+    engine.serving = serving
+    for s in engine._active_slots():
+        engine.cancel(engine.slot_req[s])
+    engine.run_until_idle()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[observability] one decode dispatch of 8 slots, horizon "
+        f"{horizon}: devmon device {busy_ms:.3f} ms, the profiler's kernels "
+        f"{kernel_ms:.3f} ms ({sum(e.count for e in kernels)} launches), "
+        f"wall {wall_ms:.3f} ms")
+    if horizon != engine.serving.decode_horizon:
+        raise AssertionError(f"the measured step was no horizon-"
+                             f"{engine.serving.decode_horizon} decode: "
+                             f"{horizon} substeps")
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no kernel")
+    if not kernel_ms <= busy_ms <= wall_ms:
+        raise AssertionError(f"devmon's device time {busy_ms:.3f} ms lies "
+                             f"outside [kernels {kernel_ms:.3f}, wall "
+                             f"{wall_ms:.3f}] ms")
+    return {"busy_ms": busy_ms, "kernel_ms": kernel_ms, "wall_ms": wall_ms}
+
+
+def _obs_probe(engine, Request, prompt):
+    """The fault drills' probe: a seeded sampled request of ``prompt``
+    (under one page, so that it never hits the prefix cache), submitted to
+    the engine thread; its stream."""
+    r = engine.submit(Request(prompt_ids=prompt, max_tokens=24, seed=7,
+                              **SAMPLED))
+    r.wait(timeout=120)
+    _finish_ok(engine.cfg, r, 24)
+    return r.generated
+
+
+def _obs_fault(engine, Request, name, drill, probe, want):
+    """One fault drill on the running engine: ``drill()`` (which arms the
+    fault and drives it), then the engine must serve on, every slot and
+    page be back, the flight recorder hold the fault, and the probe give
+    the undisturbed stream."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import (chaos,
+                                                               flightrec)
+
+    t0 = time.monotonic()
+    detail = drill()
+    chaos.get().clear()
+    _settled(engine)
+    fired = [e for e in flightrec.get().tail(4096)
+             if e["type"] == "chaos_fault" and e.get("fault") == name]
+    if not fired:
+        raise AssertionError(f"{name}: no chaos_fault event recorded")
+    got = _obs_probe(engine, Request, probe)
+    _settled(engine)
+    if got != want:
+        raise AssertionError(f"{name}: the next seeded request differs from "
+                             f"the undisturbed stream")
+    log(f"[observability] fault {name}: {detail}; every slot and page back, "
+        f"{len(fired)} chaos_fault event(s), the next seeded request equal "
+        f"to the undisturbed one ({time.monotonic() - t0:.2f}s)")
+
+
+def _obs_faults(engine, Request, base, rng):
+    """The five fault drills on the card: stalled_decode, page_exhaustion,
+    pipeline_fetch_error, kv_offload_error, kill_stream."""
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import chaos
+
+    probe = rng.integers(0, engine.cfg.vocab_size, OBS_PROBE).tolist()
+    want = _obs_probe(engine, Request, probe)
+    _settled(engine)
+
+    def long_request(n=64):
+        return engine.submit(Request(prompt_ids=rng.integers(
+            0, engine.cfg.vocab_size, 80).tolist(), max_tokens=n,
+            ignore_eos=True))
+
+    def stalled():
+        stall = engine.STALL_AFTER_S
+        engine.STALL_AFTER_S = 0.5
+        try:
+            chaos.get().inject("stalled_decode", times=1, duration_s=60.0)
+            t0 = time.monotonic()
+            r = long_request()
+            r.wait(timeout=60)
+            dt = time.monotonic() - t0
+        finally:
+            engine.STALL_AFTER_S = stall
+        if r.finish_reason != "error" or "InjectedStall" not in \
+                engine.last_error:
+            raise AssertionError(f"stalled_decode: finish {r.finish_reason}, "
+                                 f"last error {engine.last_error!r}")
+        return (f"the request failed with error after {dt:.2f}s, "
+                f"{len(r.generated)} tokens")
+
+    def exhausted():
+        chaos.get().inject("page_exhaustion", times=1, allocs=1)
+        r = long_request(16)
+        r.wait(timeout=60)
+        _finish_ok(engine.cfg, r, 16)
+        return "the admission requeued and the request finished"
+
+    def fetch_error():
+        chaos.get().inject("pipeline_fetch_error", after=1, times=1)
+        r = long_request()
+        r.wait(timeout=60)
+        if r.finish_reason != "error":
+            raise AssertionError(f"pipeline_fetch_error: finish "
+                                 f"{r.finish_reason}")
+        return f"the request failed with error after {len(r.generated)} " \
+               f"tokens"
+
+    def offload_error():
+        # A's full pages, indexed at its finish, are reclaimed by an
+        # allocation while every other page is held, and spilled to the
+        # host tier; A again finds them only there, and the restore's
+        # entries are corrupted
+        a = rng.integers(0, engine.cfg.vocab_size, 300).tolist()
+        first = engine.submit(Request(prompt_ids=a, max_tokens=8,
+                                      ignore_eos=True))
+        first.wait(timeout=60)
+        _settled(engine)
+        alloc = engine.allocator
+        ps = engine.page_size
+        a_pages = len(a) // ps
+        held = alloc.alloc(alloc.free_pages - a_pages)
+        alloc.evicted_log = []         # older prefixes: not A's, let go
+        held += alloc.alloc(a_pages)   # reclaims A's pages, logged
+        engine._spill_reclaimed()
+        alloc.release_all(held)
+        engine._pages_gauges()
+        dropped0 = engine.metrics.kv_restore_dropped.total()
+        chaos.get().inject("kv_offload_error", times=1)
+        again = engine.submit(Request(prompt_ids=a, max_tokens=8,
+                                      ignore_eos=True))
+        again.wait(timeout=60)
+        _finish_ok(engine.cfg, again, 8)
+        dropped = engine.metrics.kv_restore_dropped.total() - dropped0
+        if dropped < 1:
+            raise AssertionError("kv_offload_error: no host entry dropped")
+        return (f"{a_pages} pages spilled, the corrupted entry dropped "
+                f"({int(dropped)}) and the span re-prefilled")
+
+    def killed():
+        chaos.kill_replica_after_chunks(3)
+        body = {"prompt": [int(t) for t in probe], "max_tokens": 48,
+                "ignore_eos": True, "stream": True}
+        try:
+            events, _ = _sse(base, "/v1/completions", body, timeout=60)
+        except (ConnectionError, http.client.HTTPException, OSError):
+            events = None
+        if events is not None and "[DONE]" in events:
+            raise AssertionError("kill_stream: the stream ended cleanly")
+        return "the connection was reset mid-stream"
+
+    for name, drill in (("stalled_decode", stalled),
+                        ("page_exhaustion", exhausted),
+                        ("pipeline_fetch_error", fetch_error),
+                        ("kv_offload_error", offload_error),
+                        ("kill_stream", killed)):
+        _obs_fault(engine, Request, name, drill, probe, want)
+
+
+def _obs_debug_routes(engine, base):
+    """``/debug/roofline``, ``/debug/capacity``, ``/debug/events`` and
+    ``/debug/profile`` over the card's engine: a 300 ms profile taken while
+    a completion runs holds its kernels."""
+    roof = _http(base + "/debug/roofline")
+    cap = _http(base + "/debug/capacity")
+    events = _http(base + "/debug/events?last=20")
+    if roof[0] != 200 or "decode" not in roof[1]["programs"] \
+            or cap[0] != 200 or events[0] != 200 \
+            or not 0 < len(events[1]["events"]) <= 20:
+        raise AssertionError(f"/debug routes: {roof[0]} {cap[0]} "
+                             f"{events[0]}")
+    box = {}
+    th = threading.Thread(target=lambda: box.update(out=_http(
+        base + "/v1/completions", {"prompt": "profile me", "max_tokens": 256,
+                                   "ignore_eos": True})))
+    th.start()
+    _running(engine)
+    prof = _http(base + "/debug/profile?ms=300")
+    th.join(120)
+    if prof[0] != 200 or box["out"][0] != 200:
+        raise AssertionError(f"/debug/profile {prof[0]} {prof[1]}")
+    with open(prof[1]["trace_path"], encoding="utf-8") as f:
+        trace = json.load(f)
+    os.remove(prof[1]["trace_path"])
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("/debug/profile: no kernel in the trace")
+    log(f"[observability] /debug/roofline, /debug/capacity, /debug/events "
+        f"200; /debug/profile?ms=300 beside a completion: "
+        f"{len(kernels)} kernel events in {len(trace['traceEvents'])}")
+
+
+def _obs_spans(stub, tracer, base):
+    """A request with a traceparent: at the collector (read after the
+    tracer's flush), ``server.request`` in the given trace as the given
+    span's child, and its five phases in order, contiguous, summing to the
+    request span's width within 1 ms."""
+    trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+    parent = "00f067aa0ba902b7"
+    out = _http(base + "/v1/completions",
+                {"prompt": "trace this request", "max_tokens": 16},
+                headers={"traceparent": f"00-{trace_id}-{parent}-01"})
+    if out[0] != 200 or out[1]["usage"].get("trace_id") != trace_id:
+        raise AssertionError(f"traced completion: {out[0]} {out[1]}")
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 30:
+        tracer.exporter.flush(5.0)
+        spans = [s for s in stub.spans() if s["traceId"] == trace_id]
+        if any(s["name"] == "server.request" for s in spans):
+            break
+        time.sleep(0.05)
+    root = [s for s in spans if s["name"] == "server.request"]
+    if len(root) != 1 or root[0].get("parentSpanId") != parent \
+            or root[0]["kind"] != 2:
+        raise AssertionError(f"server.request at the collector: {root}")
+    root = root[0]
+    phases = sorted((s for s in spans
+                     if s.get("parentSpanId") == root["spanId"]),
+                    key=lambda s: int(s["startTimeUnixNano"]))
+    names = [s["name"] for s in phases]
+    want = ["admission", "queue_wait", "prefill", "decode", "stream_out"]
+    if names != want:
+        raise AssertionError(f"phase spans {names}, expected {want}")
+    for a, b in zip(phases, phases[1:]):
+        if int(a["endTimeUnixNano"]) > int(b["startTimeUnixNano"]):
+            raise AssertionError(f"phases {a['name']} and {b['name']} "
+                                 f"overlap")
+    width = int(root["endTimeUnixNano"]) - int(root["startTimeUnixNano"])
+    total = sum(int(s["endTimeUnixNano"]) - int(s["startTimeUnixNano"])
+                for s in phases)
+    if abs(width - total) > 1e6:
+        raise AssertionError(f"phases sum to {total / 1e6:.3f} ms, the "
+                             f"request span is {width / 1e6:.3f} ms")
+    log(f"[observability] spans at the collector: server.request "
+        f"({width / 1e6:.3f} ms, child of the given span) and "
+        + ", ".join(f"{s['name']} "
+                    f"{(int(s['endTimeUnixNano']) - int(s['startTimeUnixNano'])) / 1e6:.3f}"
+                    for s in phases) + " ms")
+
+
+def phase_observability(torch, np, engine, card):
+    """The replica's observability and fault layer on the main engine
+    (Qwen3-0.6B, paged, bf16 KV, int8 weights, pipeline on): the seeded
+    streams of 8 requests equal with every module recording and with
+    ``--no-devmon --no-capacity``, no tracer and no spool (ms per decode
+    substep of both, alternated A B B A); devmon's device time of a
+    horizon-8 decode dispatch between the profiler's kernel sum and the
+    wall time; each program's MFU, bandwidth share and the duty cycle (the
+    decode's and mixed_step's in (0, 1.05]); the HBM ledger against
+    ``torch.cuda.memory_allocated()``; then the in-process server with an
+    OTLP collector on 127.0.0.1 and a spool under a temp dir: the busy
+    counter on /metrics, /healthz's blocks, the span tree of a traced
+    request, and five faults, each leaving the engine serving with every
+    page back."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import (devmon,
+                                                               flightrec)
+    from aws_k8s_ansible_provisioner_tpu_torch.serving.engine import Request
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    spool = os.path.join(tmp, "spool")
+    stub = _OtlpStub()
+    serving = engine.serving
+    # this engine's cost model and samplers (an engine built since took the
+    # process's monitor); the prefix cache off for the A/B runs: a second
+    # run of a prompt would walk from its cached pages (another rounding)
+    engine._install_devmon()
+    engine._install_capacity()
+    engine.serving = dataclasses.replace(serving, prefix_cache=False)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, engine.cfg.vocab_size, n).tolist()
+               for n in (9, 40, 120, 60, 200, 17, 90, 33)]
+    streams, ms = {}, {"A": [], "B": []}
+    try:
+        for run in ("A", "B", "B", "A"):
+            _obs_modules(serving, stub.url if run == "A" else None, spool)
+            got, per = _obs_streams(torch, engine, Request, prompts)
+            if streams.setdefault(run, got) != got:
+                raise AssertionError(f"run {run} changed its own streams")
+            ms[run].append(per)
+        if streams["A"] != streams["B"]:
+            raise AssertionError("recording changed a seeded stream")
+        log(f"[observability] {OBS_STREAMS} seeded streams (4 greedy, 4 "
+            f"sampled, {OBS_NEW} tokens) byte-identical with every module "
+            f"on (A) and with --no-devmon --no-capacity, no tracer, no spool "
+            f"(B); wall ms per decode substep A B B A: "
+            f"{ms['A'][0]:.3f} {ms['B'][0]:.3f} {ms['B'][1]:.3f} "
+            f"{ms['A'][1]:.3f}; {card}")
+        engine.serving = serving
+        tracer = _obs_modules(serving, stub.url, spool)
+        dev = _obs_device_time(torch, engine, Request, rng)
+        # a chunk walk beside running slots: mixed_step in devmon's window
+        reqs = [engine.submit(Request(prompt_ids=rng.integers(
+            0, engine.cfg.vocab_size, n).tolist(), max_tokens=32,
+            ignore_eos=True)) for n in (20, 600, 30, 700)]
+        engine.run_until_idle()
+        for r in reqs:
+            _finish_ok(engine.cfg, r, 32)
+        snap = devmon.get().export()
+        progs = snap["programs"]
+        for kind in ("decode", "mixed_step"):
+            p = progs.get(kind)
+            if not p or not (0 < p["mfu"] <= 1.05
+                             and 0 < p["membw_util"] <= 1.05):
+                raise AssertionError(f"devmon {kind}: {p}")
+        log(f"[observability] devmon over its {snap['window_s']:.0f} s "
+            f"window, peaks {snap['peak_tflops']:.0f} TFLOP/s and "
+            f"{snap['peak_hbm_gbps']:.0f} GB/s; {card}: duty cycle "
+            f"{snap['duty_cycle']:.4f}; " + "; ".join(
+                f"{k} x{p['dispatches']} {1e3 * p['device_seconds']:.1f} ms "
+                f"mfu {p['mfu']:.4f} membw {p['membw_util']:.4f} "
+                f"floor/measured {1 - p['dma_wait_fraction']:.3f}"
+                for k, p in sorted(progs.items())))
+        hbm = snap["hbm"]
+        allocated = torch.cuda.memory_allocated()
+        log(f"[observability] HBM ledger: " + ", ".join(
+            f"{k} {v / 2**20:.1f} MiB"
+            for k, v in sorted(hbm["components"].items()))
+            + f"; total {hbm['live_bytes'] / 2**20:.1f} MiB against "
+            f"torch.cuda.memory_allocated() {allocated / 2**20:.1f} MiB "
+            f"({hbm['live_bytes'] / allocated:.3f}); compiled ledger "
+            f"{hbm['compiled_bytes'] / 2**20:.1f} MiB, verdict "
+            f"{hbm['verdict']}")
+        # the server over this engine, the engine on its own thread
+        base, stop_server = _serve_in_process(engine, tracer)
+        try:
+            if _metric(base, "tpu_serve_device_busy_seconds_total") <= 0:
+                raise AssertionError("tpu_serve_device_busy_seconds_total "
+                                     "is 0")
+            _obs_spans(stub, tracer, base)
+            status, health, _ = _http(base + "/healthz")
+            missing = [k for k in ("slo", "slo_burning", "flight", "device",
+                                   "hbm_drift", "capacity")
+                       if k not in health]
+            if status != 200 or missing:
+                raise AssertionError(f"/healthz {status}, missing {missing}")
+            log(f"[observability] /healthz: hbm_drift "
+                f"{health['hbm_drift']}, device {health['device']}, "
+                f"decode_bubble_pct {health['decode_bubble_pct']}, slo "
+                f"{health['slo']}, capacity ceiling "
+                f"{health['capacity']['ceiling_tps']:.1f} tok/s "
+                f"({health['capacity']['ceiling_source']}); /metrics busy "
+                f"{_metric(base, 'tpu_serve_device_busy_seconds_total'):.3f}"
+                f" s, bubble "
+                f"{_metric(base, 'tpu_serve_decode_bubble_seconds_total'):.3f}"
+                f" s")
+            _obs_debug_routes(engine, base)
+            _obs_faults(engine, Request, base, rng)
+            flightrec.get().flush(10.0)
+            dumps = os.path.join(spool, "flight.jsonl")
+            n_dumps = len(open(dumps).read().splitlines()) \
+                if os.path.exists(dumps) else 0
+            log(f"[observability] flight recorder: "
+                f"{flightrec.get().summary()}; {n_dumps} dumps spooled")
+        finally:
+            stop_server()
+        return {"ms": ms, **dev}
+    finally:
+        engine.serving = serving
+        stub.close()
+        flightrec.configure()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _phase(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.monotonic()
@@ -7542,7 +8047,8 @@ def _sp_phases(torch, np, runs):
 
 # the phases of ``--phases``, in the order they run
 PHASES = ("kernels", "kernels-window", "kernels-sp", "kernels-families",
-          "kernels-moe", "sampling", "engine", "server-process",
+          "kernels-moe", "sampling", "engine", "observability",
+          "server-process",
           "checkpoint", "guided-lora", "prefix", "spec", "draft", "dense",
           "mistral", "families", "moe", "sp", "mesh")
 
@@ -7615,6 +8121,9 @@ def main(argv=()) -> int:
         engine, launches = phase_engine(torch, np, kv_dtype)
         phase_profile(torch, np, engine)
         phase_logits(torch, np, engine)
+        if kv_dtype == "auto" and "observability" in want:
+            _phase("observability", phase_observability, torch, np, engine,
+                   card)
         if kv_dtype == "int8":
             _phase("server lifecycle", phase_server, engine, True)
             _phase("pipeline, paged", phase_pipeline, torch, np, engine)
@@ -7628,6 +8137,15 @@ def main(argv=()) -> int:
         del engine
         _free(torch)
         log(f"[wall] engine {kv_dtype}: {time.monotonic() - t0:.1f}s")
+    if "observability" in want and "engine" not in want:
+        # the phase alone: the main engine built for it
+        t0 = time.monotonic()
+        engine, runs["auto"] = phase_engine(torch, np, "auto")
+        _phase("observability", phase_observability, torch, np, engine, card)
+        del engine
+        _free(torch)
+        log(f"[wall] engine auto for observability: "
+            f"{time.monotonic() - t0:.1f}s")
     if "server-process" in want:
         _phase("server process", phase_server_process)
     if "checkpoint" in want:

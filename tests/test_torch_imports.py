@@ -48,7 +48,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "utils.hf_parity", "parallel.mesh", "parallel.sharding",
                 "parallel.collectives",
                 "serving.guided", "models.lora", "ops.moe",
-                "models.quant", "ops.cuda_build"):
+                "models.quant", "ops.cuda_build", "serving.chaos",
+                "serving.tracing", "serving.flightrec", "serving.slo",
+                "serving.devmon", "serving.capacity"):
         assert f"{port.__name__}.{mod}" in expected
     loaded = res["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")

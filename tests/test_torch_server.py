@@ -137,7 +137,13 @@ def test_unserved_fields_are_refused_unless_neutral(server, extra):
     bare_status, bare = _post(base + "/v1/completions", _BARE)
     assert bare_status == 200
     assert out["choices"][0]["text"] == bare["choices"][0]["text"]
-    assert out["usage"] == bare["usage"]
+    # the counts; each answer echoes its own request span's ids
+    assert _counts(out["usage"]) == _counts(bare["usage"])
+
+
+def _counts(usage: dict) -> dict:
+    return {k: v for k, v in usage.items()
+            if k not in ("trace_id", "span_id")}
 
 
 def test_bad_requests_get_4xx(server):
@@ -152,9 +158,9 @@ def test_health_reports_ok(server):
     base, _ = server
     status, out = _get(base + "/health")
     assert status == 200 and out["status"] == "ok"
-    # C16: no string-valued ``device`` key (the JAX answer's ``device`` is
-    # the device monitor's dict, a module not ported yet)
-    assert "device" not in out and out["last_error"] is None
+    # C16: no string-valued ``device`` key: as in the JAX answer it is the
+    # device monitor's dict
+    assert isinstance(out["device"], dict) and out["last_error"] is None
     assert out["paged"] is True and out["kv_pages_total"] > 0
 
 
@@ -233,7 +239,8 @@ def test_mesh_flags_build_a_meshed_engine_that_answers_alike():
                 {"prompt": "mesh", "max_tokens": 6, "temperature": 0,
                  "ignore_eos": True})
             assert status == 200
-            answers.append((out["choices"][0]["text"], out["usage"]))
+            answers.append((out["choices"][0]["text"],
+                            _counts(out["usage"])))
         finally:
             srv.shutdown()
             srv.server_close()
