@@ -714,9 +714,10 @@ class ServingConfig:
     devmon_peak_hbm_gbps: float = 3350.0
     devmon_hbm_tolerance_mb: float = 64.0
     # ---- capacity and saturation (serving/capacity.py) ----
-    # the forecast's headroom (a replica's ready time; the JAX default),
-    # the rate window and the trend window
+    # the forecast's headroom (a replica's ready time: the default
+    # replica's on an H100 80GB HBM3 at 700 W, serving/capacity.py's
+    # DEFAULT_HEADROOM_S), the rate window and the trend window
     capacity_enabled: bool = True
-    capacity_headroom_s: float = 5.5
+    capacity_headroom_s: float = 15.0
     capacity_window_s: float = 60.0
     capacity_trend_window_s: float = 300.0

@@ -29,7 +29,7 @@ replica's ready-time (recommendation-only — no actuation here):
    EWMA level and a least-squares trend slope → ``seconds_to_saturation``
    (capped at ``FORECAST_CAP_S``; 0.0 = saturated now), and
    ``recommended_replicas`` sized so the fleet absorbs the demand projected
-   ``headroom_s`` ahead — headroom equal to the AOT manifest's measured
+   ``headroom_s`` ahead — headroom equal to a replica's measured
    ready-time, so a replica started on this signal is serving before the
    projection lands.
 
@@ -88,10 +88,12 @@ DUTY_FLOOR = 0.9
 # (no +Inf) and the dashboards sortable.
 FORECAST_CAP_S = 3600.0
 
-# Headroom the replica recommendation buys: a replica's ready-time. The
-# JAX package's default (a TPU replica's AOT start), kept as the default;
-# set it to the replica's own (--capacity-headroom-s).
-DEFAULT_HEADROOM_S = 5.5
+# Headroom the replica recommendation buys: a replica's ready-time — the
+# port's default replica from its start to /readyz 200 on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit, the median of chip_smoke.py's
+# fleet-phase launches rounded up to a whole second (the autoscaler's
+# DEFAULT_READY_S); --capacity-headroom-s sets a deployment's own.
+DEFAULT_HEADROOM_S = 15.0
 
 
 class CapacityMetrics:

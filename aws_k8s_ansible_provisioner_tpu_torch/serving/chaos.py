@@ -5,9 +5,9 @@ of that package). The serving stack's failure behavior is part of its
 contract: this module makes every defined degradation path *drivable* from a
 test — deterministically, with no timing races — so the tests can assert the
 documented behavior for each fault. The port's engine, server and page pool
-have the sites of the replica's faults; ``connect_refused``,
-``stream_read_error`` and the ``autoscale_*`` faults are the router's and the
-autoscaler's, which the port does not have yet:
+have the sites of the replica's faults; ``connect_refused`` and
+``stream_read_error`` fire in the port's router (``serving/router.py``), the
+``autoscale_*`` faults in its autoscaler (``serving/autoscaler.py``):
 
 ==========================  ==============================================
 fault                       defined degradation behavior

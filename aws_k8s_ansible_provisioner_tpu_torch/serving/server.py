@@ -19,9 +19,10 @@ thread:
   poller); ``GET /metrics``: the engine's ``tpu_serve_*`` and ``vllm_*``
   families, tracing's, the flight recorder's, the SLO engine's, the
   device monitor's (``tpu_device_*``), the capacity estimator's
-  (``tpu_capacity_*``) and the decode pipeline's, Prometheus text or
-  OpenMetrics by ``Accept`` (the autoscaler's family and the chips' come
-  with their own ports);
+  (``tpu_capacity_*``), the autoscaler's (``tpu_autoscale_*``, at its
+  defaults: a replica runs no controller) and the decode pipeline's,
+  Prometheus text or OpenMetrics by ``Accept`` (the per-card gauges of the
+  node exporter's source come with the training slice);
 - ``GET /debug/roofline`` (the device monitor's per-program table and HBM
   ledger), ``/debug/capacity``, ``/debug/events?last=N`` (the flight
   recorder's ring), ``/debug/flight/<request id>`` (an anomaly's
@@ -135,7 +136,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from aws_k8s_ansible_provisioner_tpu_torch.serving import (capacity, chaos,
+from aws_k8s_ansible_provisioner_tpu_torch.serving import (autoscaler,
+                                                           capacity, chaos,
                                                            devmon, flightrec,
                                                            metrics, slo,
                                                            tracing)
@@ -909,16 +911,19 @@ class Handler(BaseHTTPRequestHandler):
 
     def _metrics(self):
         """The engine's registry, then tracing's, the flight recorder's,
-        the SLO engine's, the device monitor's and the capacity
-        estimator's (each gauge family refreshed by its ``export()`` first;
-        the capacity estimator's drops rather than fails), then the decode
-        pipeline's: Prometheus text, or OpenMetrics (with its ``# EOF``)
-        when ``Accept`` asks for it. The autoscaler's family and the chips'
-        (``render_engine_chips``) come with the autoscaler and the node
-        exporter's ports."""
+        the SLO engine's, the device monitor's, the capacity estimator's and
+        the autoscaler's (each gauge family refreshed by its ``export()``
+        first; the capacity estimator's and the autoscaler's drop rather
+        than fail, and the replica process has no controller, so the
+        autoscaler's family renders at its defaults, as on the router),
+        then the decode pipeline's: Prometheus text, or OpenMetrics (with
+        its ``# EOF``) when ``Accept`` asks for it. The per-card gauges of
+        the node exporter's source (``render_engine_chips`` in the JAX
+        package) come with the training slice."""
         slo.get().export()
         devmon.get().export()
         capacity.get().export()
+        autoscaler.get().export()
         om = "application/openmetrics-text" in (self.headers.get("Accept")
                                                 or "")
         text = (self.state.engine.metrics.registry.render(om)
@@ -927,6 +932,7 @@ class Handler(BaseHTTPRequestHandler):
                 + slo.metrics.registry.render(om)
                 + devmon.metrics.registry.render(om)
                 + capacity.metrics.registry.render(om)
+                + autoscaler.metrics.registry.render(om)
                 + metrics.pipeline.registry.render(om))
         if om:
             text += "# EOF\n"
@@ -1746,9 +1752,11 @@ def build_parser(**kw) -> argparse.ArgumentParser:
     p.add_argument("--no-devmon", action="store_true",
                    help="no device telemetry (the tpu_device_* gauges stay "
                         "at their defaults)")
-    p.add_argument("--capacity-headroom-s", type=float, default=5.5,
+    p.add_argument("--capacity-headroom-s", type=float,
+                   default=capacity.DEFAULT_HEADROOM_S,
                    help="seconds ahead the recommended_replicas forecast "
-                        "looks: a replica's ready time")
+                        "looks: a replica's ready time (default: the "
+                        "default replica's on an H100 80GB HBM3 at 700 W)")
     p.add_argument("--capacity-window-s", type=float, default=60.0,
                    help="window of the offered-load and utilization rates")
     p.add_argument("--capacity-trend-window-s", type=float, default=300.0,

@@ -8,7 +8,8 @@ port's package beside this file; it exits non-zero without printing a
 result when either is missing. ``--phases`` runs only the named phases
 (``PHASES``: kernels, kernels-window, kernels-sp, kernels-families,
 kernels-moe, sampling, engine, observability, server-process, checkpoint,
-guided-lora, prefix, spec, draft, dense, mistral, families, moe, sp, mesh;
+guided-lora, prefix, spec, draft, dense, mistral, families, moe, sp, mesh,
+fleet;
 the build always runs); the kernels line then lists the rows whose kernels phase and named
 run both ran, each still required to have launched there. With no
 argument every phase runs. Phases, in order (any failure raises):
@@ -305,6 +306,15 @@ argument every phase runs. Phases, in order (any failure raises):
    the checkpoint phase's Qwen3-0.6B directory loaded under tp 2, every
    shard leaf its whole load's slice bit for bit. The kernels line adds
    ``mesh_launches`` to the rows whose instance the mesh runs launched.
+17. fleet, last (``phase_fleet``): port replicas, each the server process a
+   pod runs (the default ServingConfig on the card), behind the port's
+   router in this process: routed streams equal to straight ones, prefix
+   affinity onto one replica, spread over two, the router's
+   ``connect_refused`` fault and a SIGKILL mid-stream failed over, and the
+   autoscaler draining a replica under a stream, cold-starting a parked
+   fleet and retrying a transient launch fault; at most three replicas
+   alive at once. It launches no kernel in this process: the replicas'
+   device time shows on their ``/metrics``.
 
 Every phase logs its wall time. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -318,6 +328,7 @@ import json
 import math
 import os
 import re
+import shlex
 import socket
 import statistics
 import subprocess
@@ -4257,12 +4268,13 @@ def _http_fields(engine, base, tag):
         f"{len(plain)} -> {len(c['text'])} characters, finish stop")
 
 
-def _sse(base, path, body, timeout=300, close_after=None):
+def _sse(base, path, body, timeout=300, close_after=None, at=None):
     """POST a streamed ``body``; the parsed ``data:`` events (``"[DONE]"``
     kept as the string) and each one's arrival on the host's monotonic
     clock, the send time first. With ``close_after`` the connection is
     closed once that many events with ``token_ids`` have come (a client, or
-    a replica's relay, that goes away)."""
+    a replica's relay, that goes away); with ``at`` = (k, fn), ``fn()`` is
+    called once k such events have come, and the stream read on."""
     host, port = base.split("//")[1].split(":")
     conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
     t0 = time.monotonic()
@@ -4293,6 +4305,9 @@ def _sse(base, path, body, timeout=300, close_after=None):
                 resp.fp.readline()
                 break
             tagged += any(c.get("token_ids") for c in ev["choices"])
+            if at is not None and tagged >= at[0]:
+                at, fn = None, at[1]
+                fn()
             if close_after is not None and tagged >= close_after:
                 break
     finally:
@@ -4496,35 +4511,18 @@ def phase_failover(torch, np, engine):
             if any("role" in (c.get("delta") or {}) for ev in tail[:-1]
                    for c in ev["choices"]):
                 raise AssertionError("a continuation sent a role chunk")
-            w_text, w_ids, w_fin = _stream_parts(whole)
-            s_text, s_ids, s_fin = _stream_parts(head + tail)
-            if (s_text, s_ids, s_fin) == (w_text, w_ids, w_fin):
-                results.append(f"{label}: spliced = undisturbed "
-                               f"({len(w_ids)} tokens, cut after "
-                               f"{len(h_ids)})")
-                continue
-            p = next((i for i, (x, y) in enumerate(zip(s_ids, w_ids))
-                      if x != y), min(len(s_ids), len(w_ids)))
-            _settled(engine)
-            rec = _completion(a, {**{k: v for k, v in body.items()
-                                     if k != "stream"},
-                                  "max_tokens": p + 1, "logprobs": 2})
-            r_ids = [int(t) for t in rec["choices"][0]["text"].split()]
-            if r_ids != w_ids[:p + 1]:
-                raise AssertionError(f"{label}: the logprobs run {r_ids} is "
-                                     f"not the undisturbed stream "
-                                     f"{w_ids[:p + 1]}")
-            top = sorted(rec["choices"][0]["logprobs"]["top_logprobs"][p]
-                         .values(), reverse=True)
-            margin = top[0] - top[1]
-            msg = (f"{label}: the spliced stream parts from the undisturbed "
-                   f"one at token {p} of {len(w_ids)} (cut after "
-                   f"{len(h_ids)}), where the undisturbed top-2 logit margin "
-                   f"is {margin:.4f}")
-            if p < len(h_ids) or margin >= LOGIT_TOL or \
-                    s_ids[:p] != w_ids[:p]:
-                raise AssertionError(msg + f" (tolerance {LOGIT_TOL})")
-            results.append(msg)
+            def margin_at(p):
+                _settled(engine)
+                rec = _completion(a, {**{k: v for k, v in body.items()
+                                         if k != "stream"},
+                                      "max_tokens": p + 1, "logprobs": 2})
+                top = sorted(rec["choices"][0]["logprobs"]["top_logprobs"]
+                             [p].values(), reverse=True)
+                return ([int(t) for t in rec["choices"][0]["text"].split()],
+                        top[0] - top[1])
+
+            results.append(_splice_verdict(label, whole, head + tail,
+                                           len(h_ids), margin_at))
     finally:
         for _, stop in servers:
             stop()
@@ -4533,6 +4531,37 @@ def phase_failover(torch, np, engine):
     log("[failover] two servers on one card, the same weights and "
         "derived_seed; a stream cut on A and continued on B: "
         + "; ".join(results))
+
+
+def _splice_verdict(label, whole, spliced, n_head, margin_at):
+    """The C22 rule for a stream continued on another replica: the spliced
+    stream (events) must equal the undisturbed one, text and ids. Where it
+    does not, the first differing token ``p`` is allowed only past the
+    ``n_head`` relayed tokens and where the undisturbed stream's top-2
+    logit margin is below ``LOGIT_TOL`` (the continuation rebuilt prompt +
+    relayed tokens through the chunk program, where the first replica wrote
+    the relayed tokens' rows one decode row at a time), every token before
+    it equal. ``margin_at(p)`` reruns the request for ``p + 1`` tokens with
+    logprobs and returns (its token ids, the top-2 margin at ``p``); its ids
+    must be the undisturbed stream's. Returns the line to print, or
+    raises."""
+    w_text, w_ids, w_fin = _stream_parts(whole)
+    s_text, s_ids, s_fin = _stream_parts(spliced)
+    if (s_text, s_ids, s_fin) == (w_text, w_ids, w_fin):
+        return (f"{label}: spliced = undisturbed ({len(w_ids)} tokens, cut "
+                f"after {n_head})")
+    p = next((i for i, (x, y) in enumerate(zip(s_ids, w_ids)) if x != y),
+             min(len(s_ids), len(w_ids)))
+    r_ids, margin = margin_at(p)
+    if r_ids != w_ids[:p + 1]:
+        raise AssertionError(f"{label}: the logprobs run {r_ids} is not the "
+                             f"undisturbed stream {w_ids[:p + 1]}")
+    msg = (f"{label}: the spliced stream parts from the undisturbed one at "
+           f"token {p} of {len(w_ids)} (cut after {n_head}), where the "
+           f"undisturbed top-2 logit margin is {margin:.4f}")
+    if p < n_head or margin >= LOGIT_TOL or s_ids[:p] != w_ids[:p]:
+        raise AssertionError(msg + f" (tolerance {LOGIT_TOL})")
+    return msg
 
 
 def _serve_in_process(engine, tracer=None):
@@ -8003,6 +8032,548 @@ def phase_observability(torch, np, engine, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the fleet phase: port replicas (server processes, the default
+# ServingConfig on the card) behind the port's router in this process
+FLEET_SERVER = ("-m", "aws_k8s_ansible_provisioner_tpu_torch.serving.server",
+                "--device", "cuda")
+FLEET_EQUAL = 8               # seeded requests routed and sent straight
+FLEET_EQUAL_TOKENS = 64
+FLEET_TURNS = 8               # chat turns behind one leading system prompt
+# that prompt: the eighth turn, its template and 8 new tokens stay under
+# the replica's 2048 rows (the byte tokenizer: a token a character)
+FLEET_SYSTEM_CHARS = 1800
+FLEET_SPREAD = 32             # concurrent streams
+FLEET_SPREAD_TOKENS = 64
+FLEET_STAGGER_S = 0.005
+FLEET_KILL_TOKENS = 512       # the stream whose replica is killed
+FLEET_KILL_CUT = 24           # content chunks relayed before the kill
+FLEET_DRAIN_TOKENS = 1024     # the stream that runs on a draining replica
+FLEET_BACKOFF_S = 1.0         # the autoscaler's backoff base
+# every fleet request: the byte tokenizer decodes the random model's ids
+# past 255 to nothing, and the server holds a chunk until it has text; a
+# bias on the 64 bytes 64-127 keeps each token a character of its own (the
+# model still ranks them) and each token a chunk
+FLEET_BIAS = {str(i): 30.0 for i in range(64, 128)}
+
+
+def _fleet_text(base, name):
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    if name not in text:
+        raise AssertionError(f"{base}/metrics has no {name}")
+    return text
+
+
+def _fleet_start(env, logdir, tag):
+    """One replica process on a free port; (address, Popen, its start)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = open(os.path.join(logdir, f"{tag}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, *FLEET_SERVER, "--host", "127.0.0.1", "--port",
+         str(port)], cwd=ROOT, env=env, stdout=out,
+        stderr=subprocess.STDOUT)
+    out.close()
+    return f"127.0.0.1:{port}", proc, time.monotonic()
+
+
+def _fleet_ready(addr, proc, t0, logdir, tag, timeout=240.0):
+    """Seconds from the start until ``/readyz`` answers 200."""
+    while True:
+        if proc.poll() is not None:
+            with open(os.path.join(logdir, f"{tag}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"replica {tag} exited {proc.returncode} "
+                                 f"before it was ready: {tail}")
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"replica {tag} not ready in {timeout} s")
+        try:
+            if _http(f"http://{addr}/readyz", timeout=5)[0] == 200:
+                return time.monotonic() - t0
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+
+
+def _ttft_ms(events, times):
+    """Host-clock ms from the send to the first content chunk."""
+    for ev, t in zip(events, times[1:]):
+        if ev != "[DONE]" and any(c.get("token_ids") for c in ev["choices"]):
+            return (t - times[0]) * 1e3
+    raise AssertionError("a stream with no content chunk")
+
+
+def _fleet_counts(addrs, name):
+    return {a: _metric(f"http://{a}", name) for a in addrs}
+
+
+def _fleet_burst(base, n, tokens, tag):
+    """``n`` concurrent streams of ``tokens`` tokens, their sends
+    ``FLEET_STAGGER_S`` apart (a server's listen backlog is 5); the wall
+    seconds from the first send to the last stream's end."""
+    out = [None] * n
+
+    def one(i):
+        out[i] = _sse(base, "/v1/completions", {
+            "prompt": f"Spread {i}", "stream": True, "max_tokens": tokens,
+            "ignore_eos": True, "logit_bias": FLEET_BIAS})[0]
+
+    ths = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.monotonic()
+    for t in ths:
+        t.start()
+        time.sleep(FLEET_STAGGER_S)
+    for t in ths:
+        t.join(300)
+    wall = time.monotonic() - t0
+    for ev in out:
+        if ev is None:
+            raise AssertionError(f"{tag}: a stream did not finish")
+        _whole_stream(ev, tag)
+        if len(_stream_parts(ev)[1]) != tokens:
+            raise AssertionError(f"{tag}: a stream of "
+                                 f"{len(_stream_parts(ev)[1])} tokens")
+    return wall
+
+
+def _chat_margin(base, body, p):
+    """The chat request again for ``p + 1`` tokens, streamed with logprobs:
+    (its token ids, the top-2 logprob margin at token ``p``)."""
+    events, _ = _sse(base, "/v1/chat/completions", {
+        **body, "max_tokens": p + 1, "logprobs": True, "top_logprobs": 2})
+    ids, tops = [], []
+    for ev in events:
+        if ev == "[DONE]":
+            continue
+        for c in ev["choices"]:
+            ids += c.get("token_ids") or []
+            tops += [[t["logprob"] for t in d["top_logprobs"]] for d in
+                     ((c.get("logprobs") or {}).get("content") or [])]
+    top = sorted(tops[p], reverse=True)
+    return ids, top[0] - top[1]
+
+
+def _fleet_decisions():
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import flightrec
+
+    return [e for e in flightrec.get().tail(4096)
+            if e.get("type") == "autoscale_decision"]
+
+
+def phase_fleet(card):
+    """The fleet on the card: port replicas (``python -m
+    aws_k8s_ansible_provisioner_tpu_torch.serving.server --device cuda``,
+    the default ServingConfig: Qwen3-0.6B, seeded int8 weights, 32 slots x
+    2048, bf16 KV, pipeline and decode graphs on) behind the port's router
+    (``serving/router.py``, host code, in this process, its load poller at
+    0.2 s), at most three replica processes alive at once, every one reaped
+    at the end, also on failure.
+
+    1. Two replicas started together (seconds to ``/readyz`` 200 each):
+       ``FLEET_EQUAL`` seeded requests (greedy and sampled), one at a time
+       (ROADMAP C22), streamed straight to a replica and through the
+       router, equal in ids, text and finish; the router-added time to the
+       first chunk (client p50, host clock).
+    2. Affinity: ``FLEET_TURNS`` chat turns of one conversation behind a
+       system prompt of ``FLEET_SYSTEM_CHARS`` characters all on one
+       replica (the router's affinity entry, that replica's generated
+       tokens and prefix hits rising by every turn but the first, the
+       other's flat).
+    3. Spread: ``FLEET_SPREAD`` concurrent streams through the router, both
+       replicas serving some; aggregate tok/s routed and straight to one
+       replica (not gated).
+    4. The router's ``connect_refused`` fault: one backend dead-marked, the
+       request served by the other, the marked one back in rotation by the
+       poller's health probe. Then SIGKILL of the replica running a routed
+       seeded chat stream after ``FLEET_KILL_CUT`` chunks: the client's
+       stream ends through the survivor (one
+       ``tpu_router_stream_failovers_total``) equal to the undisturbed one
+       or parting only where :func:`_splice_verdict` allows; the next four
+       requests 200, ``/debug/fleet`` shows the dead replica cooling.
+    5. The autoscaler (``min_replicas`` 0, a ``CommandLauncher`` of the
+       server command above, an injected recommendation): (a) recommendation
+       0 while a stream runs on the survivor: it is drained (``POST
+       /admin/drain {"exit": false}``) and dropped only after the stream
+       ended 200 whole; (b) a request to the empty fleet is held, a replica
+       launched on the card serves it (request to first byte printed); (c)
+       ``autoscale_launch_error`` (transient) at the next scale-up: the
+       launch retried after ``backoff_schedule``'s delay, the new replica
+       serving; ``tpu_autoscale_*`` on the router's and every replica's
+       ``/metrics``, the decisions in the flight recorder's journal.
+
+    Returns the launches' seconds to ready (the initial two and the
+    autoscaler's)."""
+    import shutil
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    from aws_k8s_ansible_provisioner_tpu_torch.serving import (autoscaler,
+                                                               chaos, router)
+    from deploy.miniansible import backoff_schedule
+
+    t_phase = time.monotonic()
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    procs = []                # every replica process this phase started
+    pythonpath = os.environ.get("PYTHONPATH")
+    H = router.RouterHandler
+    saved = (H.pool, H.metrics, H.tracer)
+    poll_stop = threading.Event()
+    httpd = None
+    ctl = None
+    try:
+        started = [_fleet_start(env, logdir, tag) for tag in ("a", "b")]
+        procs += [p for _, p, _ in started]
+        ready = [_fleet_ready(addr, proc, t0, logdir, tag)
+                 for (addr, proc, t0), tag in zip(started, ("a", "b"))]
+        addrs = [addr for addr, _, _ in started]
+        by_addr = {addr: proc for addr, proc, _ in started}
+        log(f"[fleet] two replicas started together, /readyz 200 after "
+            + ", ".join(f"{t:.2f}" for t in ready) + f" s; {card}")
+        pool = router.BackendPool(",".join(addrs), cooldown_s=60.0)
+        H.pool, H.metrics, H.tracer = pool, router.RouterMetrics(), None
+        router.start_load_poller(pool, interval_s=0.2, stop=poll_stop,
+                                 metrics=H.metrics)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        rurl = f"http://127.0.0.1:{httpd.server_port}"
+        direct = f"http://{addrs[0]}"
+        m = H.metrics
+
+        # 1. routed = straight, one request at a time
+        t_direct, t_routed = [], []
+        for i in range(FLEET_EQUAL):
+            body = {"prompt": f"Fleet request {i}", "stream": True,
+                    "max_tokens": FLEET_EQUAL_TOKENS, "ignore_eos": True,
+                    "logit_bias": FLEET_BIAS}
+            if i % 2:
+                body.update(seed=300 + i, temperature=0.8, top_p=0.95)
+            d_ev, d_t = _sse(direct, "/v1/completions", body)
+            r_ev, r_t = _sse(rurl, "/v1/completions", body)
+            for ev in (d_ev, r_ev):
+                _whole_stream(ev, f"fleet request {i}")
+            text, ids, _ = _stream_parts(d_ev)
+            if _stream_parts(d_ev) != _stream_parts(r_ev) or \
+                    len(ids) != FLEET_EQUAL_TOKENS or \
+                    len(text) != FLEET_EQUAL_TOKENS:
+                raise AssertionError(f"fleet request {i} ({body}): routed "
+                                     f"{_stream_parts(r_ev)[1]} != straight "
+                                     f"{_stream_parts(d_ev)[1]}")
+            t_direct.append(_ttft_ms(d_ev, d_t))
+            t_routed.append(_ttft_ms(r_ev, r_t))
+        busy = _fleet_counts(addrs, "tpu_serve_device_busy_seconds_total")
+        if min(busy.values()) <= 0:
+            raise AssertionError(f"a replica booked no device time: {busy}")
+        p50_d, p50_r = statistics.median(t_direct), statistics.median(t_routed)
+        log(f"[fleet] {FLEET_EQUAL} seeded streams ({FLEET_EQUAL // 2} "
+            f"greedy, {FLEET_EQUAL // 2} sampled, {FLEET_EQUAL_TOKENS} "
+            f"tokens), one at a time: routed = straight (ids, text, finish);"
+            f" time to the first chunk, client p50, host clock: routed "
+            f"{p50_r:.2f} ms, straight {p50_d:.2f} ms, router added "
+            f"{p50_r - p50_d:.2f} ms (routed "
+            + ", ".join(f"{x:.2f}" for x in t_routed) + "); device busy "
+            + ", ".join(f"{a} {v:.3f} s" for a, v in busy.items()))
+
+        # 2. affinity: one conversation's turns on one replica
+        system = ("You are the fleet's test assistant; answer briefly. "
+                  * 40)[:FLEET_SYSTEM_CHARS]
+        msgs = [{"role": "system", "content": system},
+                {"role": "user", "content": "Turn 0: hello"}]
+        gen0 = _fleet_counts(addrs, "tpu_serve_generated_tokens_total")
+        hit0 = _fleet_counts(addrs, "tpu_serve_prefix_cache_hits_total")
+        key = router._affinity_key("/v1/chat/completions", json.dumps(
+            {"messages": msgs}).encode())
+        prompt_tokens = []
+        for t in range(FLEET_TURNS):
+            out = _http(rurl + "/v1/chat/completions",
+                        {"messages": msgs, "max_tokens": 8,
+                         "ignore_eos": True, "logit_bias": FLEET_BIAS})
+            if out[0] != 200:
+                raise AssertionError(f"chat turn {t}: {out[0]} {out[1]}")
+            prompt_tokens.append(out[1]["usage"]["prompt_tokens"])
+            msgs = msgs + [{"role": "assistant", "content": "ok"},
+                           {"role": "user", "content": f"Turn {t + 1}"}]
+        gen = {a: v - gen0[a] for a, v in _fleet_counts(
+            addrs, "tpu_serve_generated_tokens_total").items()}
+        hits = {a: v - hit0[a] for a, v in _fleet_counts(
+            addrs, "tpu_serve_prefix_cache_hits_total").items()}
+        sticky = max(gen, key=gen.get)
+        other = [a for a in addrs if a != sticky][0]
+        fleet = _http(rurl + "/debug/fleet")[1]
+        if gen[sticky] != 8 * FLEET_TURNS or gen[other] != 0 or \
+                hits[sticky] < FLEET_TURNS - 1 or hits[other] != 0 or \
+                pool._affinity.get(key) != sticky or \
+                sorted(fleet["replicas"]) != sorted(addrs):
+            raise AssertionError(f"affinity: generated {gen}, prefix hits "
+                                 f"{hits}, affinity entry "
+                                 f"{pool._affinity.get(key)}, /debug/fleet "
+                                 f"lists {sorted(fleet['replicas'])}")
+        log(f"[fleet] affinity: {FLEET_TURNS} chat turns ({prompt_tokens[0]}"
+            f"-{prompt_tokens[-1]} prompt tokens) all on {sticky} "
+            f"(generated +{gen[sticky]:.0f}, prefix hits "
+            f"+{hits[sticky]:.0f}; {other}: +{gen[other]:.0f}, "
+            f"+{hits[other]:.0f}); /debug/fleet lists both")
+
+        # 3. spread
+        gen0 = _fleet_counts(addrs, "tpu_serve_generated_tokens_total")
+        wall_r = _fleet_burst(rurl, FLEET_SPREAD, FLEET_SPREAD_TOKENS,
+                              "routed burst")
+        gen = {a: v - gen0[a] for a, v in _fleet_counts(
+            addrs, "tpu_serve_generated_tokens_total").items()}
+        if min(gen.values()) <= 0:
+            raise AssertionError(f"spread: generated tokens {gen}")
+        wall_d = _fleet_burst(direct, FLEET_SPREAD, FLEET_SPREAD_TOKENS,
+                              "straight burst")
+        n_tok = FLEET_SPREAD * FLEET_SPREAD_TOKENS
+        log(f"[fleet] spread: {FLEET_SPREAD} concurrent streams of "
+            f"{FLEET_SPREAD_TOKENS} tokens through the router, generated "
+            + ", ".join(f"{a} +{v:.0f}" for a, v in gen.items())
+            + f"; aggregate {n_tok / wall_r:.1f} tok/s routed over two "
+            f"replicas ({wall_r:.3f} s) against {n_tok / wall_d:.1f} tok/s "
+            f"straight to one ({wall_d:.3f} s); {card}")
+
+        # 4a. the router's connect_refused fault
+        chaos.reset()
+        dead0, fo0 = m.dead_marks.total(), m.failovers.total()
+        chaos.get().inject("connect_refused", times=1)
+        out = _http(rurl + "/v1/completions",
+                    {"prompt": "refused once", "max_tokens": 8,
+                     "ignore_eos": True, "logit_bias": FLEET_BIAS})
+        fired = chaos.get().stats()["connect_refused"]["fired"]
+        chaos.reset()
+        if out[0] != 200 or fired != 1 or m.dead_marks.total() != dead0 + 1 \
+                or m.failovers.total() != fo0 + 1:
+            raise AssertionError(f"connect_refused: {out[0]}, fired {fired},"
+                                 f" dead marks {m.dead_marks.total()}, "
+                                 f"failovers {m.failovers.total()}")
+        t0 = time.monotonic()
+        while pool.cooling():
+            if time.monotonic() - t0 > 10:
+                raise AssertionError(f"{pool.cooling()} not recovered")
+            time.sleep(0.05)
+        log(f"[fleet] connect_refused: one backend dead-marked, the "
+            f"request served by the other (failovers +1), both in rotation "
+            f"{time.monotonic() - t0:.2f} s later (the health probe)")
+
+        # 4b. SIGKILL under a routed seeded stream
+        body = {"messages": [{"role": "user", "content": "Fail me over"}],
+                "stream": True, "max_tokens": FLEET_KILL_TOKENS,
+                "ignore_eos": True, "seed": 1000, "temperature": 0.7,
+                "top_p": 0.95, "logit_bias": FLEET_BIAS}
+        whole, _ = _sse(rurl, "/v1/chat/completions", body)
+        _whole_stream(whole, "the undisturbed routed stream")
+        killed = []
+
+        def kill():
+            for a in addrs:
+                if _http(f"http://{a}/load")[1]["active"] > 0:
+                    by_addr[a].kill()
+                    killed.append(a)
+                    return
+            raise AssertionError("no replica runs the stream")
+
+        sfo0 = m.stream_failovers.total()
+        spliced, _ = _sse(rurl, "/v1/chat/completions", body,
+                          at=(FLEET_KILL_CUT, kill))
+        _whole_stream(spliced, "the stream whose replica was killed")
+        dead = killed[0]
+        survivor = [a for a in addrs if a != dead][0]
+        by_addr[dead].wait(30)
+        if m.stream_failovers.total() != sfo0 + 1:
+            raise AssertionError(f"stream failovers "
+                                 f"{m.stream_failovers.total() - sfo0}")
+        verdict = _splice_verdict(
+            "SIGKILL", whole, spliced, FLEET_KILL_CUT,
+            lambda p: _chat_margin(f"http://{survivor}", body, p))
+        codes = [_http(rurl + "/v1/completions",
+                       {"prompt": f"after the kill {i}", "max_tokens": 8,
+                        "ignore_eos": True, "logit_bias": FLEET_BIAS})[0]
+                 for i in range(4)]
+        fleet = _http(rurl + "/debug/fleet")[1]
+        if codes != [200] * 4 or not fleet["replicas"][dead]["cooling"] or \
+                dead not in fleet["cooling_down"]:
+            raise AssertionError(f"after the kill: {codes}, /debug/fleet "
+                                 f"{fleet}")
+        log(f"[fleet] SIGKILL of {dead} after {FLEET_KILL_CUT} chunks of a "
+            f"{FLEET_KILL_TOKENS}-token seeded chat stream: continued on "
+            f"{survivor}, tpu_router_stream_failovers_total +1; {verdict}; "
+            f"the next four requests 200, /debug/fleet: {dead} cooling")
+
+        # 5. the autoscaler
+        pool.remove_backend(dead)
+        launched = []
+
+        class Launcher(autoscaler.CommandLauncher):
+            def launch(self):
+                addr, proc = super().launch()
+                procs.append(proc)
+                launched.append(addr)
+                return addr, proc
+
+        template = " ".join([shlex.quote(sys.executable), *FLEET_SERVER,
+                             "--host", "{host}", "--port", "{port}"])
+        os.environ["PYTHONPATH"] = env["PYTHONPATH"]   # the launcher's
+        rec = {"recommended_replicas": 1, "offered_tps": 1.0,
+               "reporting_replicas": 1}
+        ctl = autoscaler.configure(
+            enabled=True, min_replicas=0, max_replicas=2, interval_s=0.2,
+            stable_s=0.5, cooldown_s=1.0, standby=0, idle_timeout_s=3600.0,
+            ready_timeout_s=120.0, drain_stuck_s=60.0, drain_escalate_s=120.0,
+            launch_retries=3, backoff_base_s=FLEET_BACKOFF_S)
+        ctl.install(pool=pool, launcher=Launcher(template),
+                    recommend_fn=lambda: dict(rec))
+        ctl.adopt(survivor)
+        ctl.start()
+        # (a) scale-down drains the survivor while a stream runs on it
+        box = {}
+        th = threading.Thread(target=lambda: box.update(out=_sse(
+            rurl, "/v1/completions", {
+                "prompt": "drain under me", "stream": True,
+                "max_tokens": FLEET_DRAIN_TOKENS, "ignore_eos": True,
+                "logit_bias": FLEET_BIAS})))
+        th.start()
+        t0 = time.monotonic()
+        while _http(f"http://{survivor}/load")[1]["active"] < 1:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("the drain's stream never ran")
+            time.sleep(0.01)
+        rec["recommended_replicas"] = 0
+        drained_during = False
+        while th.is_alive():
+            st = ctl.status()
+            if st["draining"] == 1:
+                drained_during = True
+            elif drained_during:
+                raise AssertionError(f"reaped while its stream ran: {st}")
+            time.sleep(0.02)
+        th.join()
+        events = box["out"][0]
+        _whole_stream(events, "the stream on the draining replica")
+        if not drained_during or \
+                len(_stream_parts(events)[1]) != FLEET_DRAIN_TOKENS:
+            raise AssertionError(f"drain: began during the stream "
+                                 f"{drained_during}, "
+                                 f"{len(_stream_parts(events)[1])} tokens")
+        t0 = time.monotonic()
+        while ctl.status()["draining"] or "drained" not in \
+                [e["decision"] for e in _fleet_decisions()]:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError(f"the drained replica was not reaped: "
+                                     f"{ctl.status()}")
+            time.sleep(0.05)
+        st = ctl.status()
+        drain_ev = [e for e in _fleet_decisions()
+                    if e["decision"] in ("drain", "drained")]
+        if st["actual"] or not st["parked"] or \
+                not drain_ev[0].get("accepted"):
+            raise AssertionError(f"after the drain: {st}, {drain_ev}")
+        load = _http(f"http://{survivor}/load")[1]
+        by_addr[survivor].terminate()
+        by_addr[survivor].wait(60)
+        log(f"[fleet] autoscaler scale-down: {survivor} drained (POST "
+            f"/admin/drain exit false, /load draining {load['draining']}) "
+            f"while a {FLEET_DRAIN_TOKENS}-token stream ran on it; the "
+            f"stream ended 200 whole, the replica dropped at inflight 0 "
+            f"after {drain_ev[-1].get('drain_s')} s; the fleet parked")
+        # (b) cold start: a request to the empty fleet is held
+        rec["recommended_replicas"] = 1
+        events, times = _sse(rurl, "/v1/completions", {
+            "prompt": "cold start", "stream": True, "max_tokens": 16,
+            "ignore_eos": True, "logit_bias": FLEET_BIAS})
+        _whole_stream(events, "the cold-start stream")
+        cold_s = times[1] - times[0]
+        st = ctl.status()
+        if st["cold_starts"] != 1 or st["actual"] != 1 or \
+                len(_stream_parts(events)[1]) != 16:
+            raise AssertionError(f"cold start: {st}")
+        log(f"[fleet] cold start: a request to the parked fleet held, "
+            f"{launched[0]} launched on the card served it; request to "
+            f"first byte {cold_s:.2f} s")
+        # (c) a transient launch fault at the next scale-up
+        chaos.get().inject("autoscale_launch_error", times=1)
+        rec["recommended_replicas"] = 2
+        t0 = time.monotonic()
+        while ctl.status()["actual"] < 2:
+            if time.monotonic() - t0 > 120:
+                raise AssertionError(f"scale-up: {ctl.status()}")
+            time.sleep(0.05)
+        chaos.reset()
+        dec = _fleet_decisions()
+        retry = [e for e in dec if e["decision"] == "launch_retry"]
+        want = backoff_schedule(FLEET_BACKOFF_S, 1, "serving-2")[0]
+        relaunch = [e for e in dec if e["decision"] == "launch"
+                    and e["t_mono_ns"] > retry[0]["t_mono_ns"]] \
+            if retry else []
+        waited = (relaunch[0]["t_mono_ns"] - retry[0]["t_mono_ns"]) / 1e9 \
+            if relaunch else -1.0
+        if len(retry) != 1 or retry[0]["delay_s"] != want or \
+                not want <= waited <= want + 1.0 or \
+                ctl.status()["launch_failures"] != {"transient": 1,
+                                                    "fatal": 0}:
+            raise AssertionError(f"launch retry: {retry}, waited {waited}, "
+                                 f"{ctl.status()}")
+        fresh = launched[1]
+        gen0 = _fleet_counts([fresh], "tpu_serve_generated_tokens_total")
+        codes = [_http(rurl + "/v1/completions",
+                       {"prompt": f"scaled up {i}", "max_tokens": 8,
+                        "ignore_eos": True, "logit_bias": FLEET_BIAS})[0]
+                 for i in range(4)]
+        served = _fleet_counts([fresh], "tpu_serve_generated_tokens_total")[
+            fresh] - gen0[fresh]
+        if codes != [200] * 4 or served <= 0:
+            raise AssertionError(f"after the retried launch: {codes}, "
+                                 f"{fresh} generated {served}")
+        for base in [rurl] + [f"http://{a}" for a in launched]:
+            text = _fleet_text(base, "tpu_autoscale_desired_replicas")
+            if base == rurl and "tpu_autoscale_desired_replicas 2" \
+                    not in text:
+                raise AssertionError("the router's tpu_autoscale_* family "
+                                     "is not the controller's")
+        names = {e["decision"] for e in _fleet_decisions()}
+        want_names = {"scale_down", "drain", "drained", "cold_start",
+                      "launch", "replica_ready", "scale_up",
+                      "launch_retry"}
+        if not want_names <= names:
+            raise AssertionError(f"journal: {sorted(names)}")
+        waits = [e["ready_wait_s"] for e in _fleet_decisions()
+                 if e["decision"] == "replica_ready"]
+        log(f"[fleet] autoscale_launch_error (transient) at the scale-up "
+            f"to 2: retried after {waited:.3f} s (backoff_schedule "
+            f"{want:.3f} s), {fresh} serving (generated +{served:.0f} of 4 "
+            f"routed requests); tpu_autoscale_* on the router's and "
+            f"{len(launched)} replicas' /metrics; journal: "
+            + ", ".join(sorted(names)))
+        times_ready = ready + waits
+        log(f"[fleet] seconds to /readyz 200 of the phase's launches: "
+            + ", ".join(f"{t:.2f}" for t in times_ready) + f" (median "
+            f"{statistics.median(times_ready):.2f}, rounded up "
+            f"{math.ceil(statistics.median(times_ready)):.0f}); {card}; "
+            f"the phase {time.monotonic() - t_phase:.1f} s")
+        return times_ready
+    finally:
+        chaos.reset()
+        if ctl is not None:
+            ctl.stop()
+        autoscaler.reset()
+        poll_stop.set()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        H.pool, H.metrics, H.tracer = saved
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(60)
+        shutil.rmtree(logdir, ignore_errors=True)
+        if pythonpath is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = pythonpath
+
+
 def _phase(name, fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.monotonic()
@@ -8050,7 +8621,7 @@ PHASES = ("kernels", "kernels-window", "kernels-sp", "kernels-families",
           "kernels-moe", "sampling", "engine", "observability",
           "server-process",
           "checkpoint", "guided-lora", "prefix", "spec", "draft", "dense",
-          "mistral", "families", "moe", "sp", "mesh")
+          "mistral", "families", "moe", "sp", "mesh", "fleet")
 
 
 class _NotRun(dict):
@@ -8228,6 +8799,11 @@ def main(argv=()) -> int:
     mesh_runs = _phase("mesh", phase_mesh, torch, np) \
         if "mesh" in want else {}
     runs.update(mesh_runs)
+    # port replicas (server processes) behind the port's router, the
+    # autoscaler launching and draining them
+    if "fleet" in want:
+        _free(torch)
+        _phase("fleet", phase_fleet, card)
     keys = ("max_abs_err", "mean_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -5,9 +5,10 @@ one server and re-issued to the other as the JAX router re-issues it (the
 ids and characters received, ``max_tokens`` decremented) splices into the
 undisturbed stream, text and ids, greedy, seeded and penalized; the
 continuation's events are the JAX server's for the same body. Then the
-JAX router (``serving/router.py`` imports no JAX) in front of two port
-replicas, with its ``stream_read_error`` fault: the client's stream is the
-undisturbed one, one failover is counted, and both engines quiesce.
+JAX router and the port's (``serving/router.py`` of either package imports
+no JAX) in front of two port replicas, with the router's
+``stream_read_error`` fault: the client's stream is the undisturbed one,
+one failover is counted, and both engines quiesce.
 """
 
 import http.client
@@ -255,30 +256,36 @@ def test_continuation_is_refused_on_the_dense_engine():
     assert streamed == req.generated[2:]
 
 
-@pytest.fixture
-def router_stack(jax_server):
-    """The JAX router with its load poller in front of two fresh port
-    replicas; yields (router URL, the replicas' (base, state))."""
-    from aws_k8s_ansible_provisioner_tpu.serving.router import (
-        BackendPool, RouterHandler, RouterMetrics, start_load_poller)
+@pytest.fixture(params=["jax", "port"])
+def router_stack(request, jax_server):
+    """The JAX router or the port's (``serving/router.py`` of either
+    package), with its load poller, in front of two fresh port replicas;
+    yields (router URL, the replicas' (base, state), the router module,
+    the chaos module it fires)."""
+    import importlib
 
+    pkg = {"jax": "aws_k8s_ansible_provisioner_tpu",
+           "port": "aws_k8s_ansible_provisioner_tpu_torch"}[request.param]
+    rt = importlib.import_module(pkg + ".serving.router")
+    chaos = importlib.import_module(pkg + ".serving.chaos")
     replicas = [_port_server(jax_server[1]) for _ in range(2)]
     addrs = ",".join(base.split("//")[1] for base, _, _ in replicas)
-    old = RouterHandler.pool, RouterHandler.metrics
-    RouterHandler.pool = BackendPool(addrs, cooldown_s=5.0)
-    RouterHandler.metrics = RouterMetrics()
+    H = rt.RouterHandler
+    old = H.pool, H.metrics
+    H.pool = rt.BackendPool(addrs, cooldown_s=5.0)
+    H.metrics = rt.RouterMetrics()
     poll_stop = threading.Event()
-    start_load_poller(RouterHandler.pool, interval_s=0.2, stop=poll_stop)
-    router = ThreadingHTTPServer(("127.0.0.1", 0), RouterHandler)
+    rt.start_load_poller(H.pool, interval_s=0.2, stop=poll_stop)
+    router = ThreadingHTTPServer(("127.0.0.1", 0), H)
     threading.Thread(target=router.serve_forever, daemon=True).start()
     yield (f"http://127.0.0.1:{router.server_port}",
-           [(base, state) for base, state, _ in replicas])
+           [(base, state) for base, state, _ in replicas], rt, chaos)
     poll_stop.set()
     router.shutdown()
     router.server_close()
     for _, _, stop in replicas:
         stop()
-    RouterHandler.pool, RouterHandler.metrics = old
+    H.pool, H.metrics = old
 
 
 @pytest.mark.parametrize("sampling", [{}, {"seed": 4242,
@@ -286,16 +293,14 @@ def router_stack(jax_server):
                          ids=["greedy", "seeded"])
 def test_router_fails_a_stream_over_to_a_port_replica(router_stack,
                                                       sampling):
-    """The JAX router's ``stream_read_error`` fault (a reset on the SSE
-    relay's backend read after 3 events) fails the stream over to the other
-    port replica as a continuation: the client's stream equals an
-    undisturbed run through the router, ids and text, with ``[DONE]``; one
-    ``tpu_router_stream_failovers_total``; both port engines quiesce
-    (``/load``: 0 active, 0 queued)."""
-    from aws_k8s_ansible_provisioner_tpu.serving import chaos
-    from aws_k8s_ansible_provisioner_tpu.serving.router import RouterHandler
-
-    rurl, replicas = router_stack
+    """The router's ``stream_read_error`` fault (a reset on the SSE
+    relay's backend read after 3 events; the JAX router's and the port's)
+    fails the stream over to the other port replica as a continuation: the
+    client's stream equals an undisturbed run through the router, ids and
+    text, with ``[DONE]``; one ``tpu_router_stream_failovers_total``; both
+    port engines quiesce (``/load``: 0 active, 0 queued)."""
+    rurl, replicas, rt, chaos = router_stack
+    RouterHandler = rt.RouterHandler
     payload = {"model": "tiny-qwen3", "prompt": "read error scenario",
                "max_tokens": 16, "stream": True, "ignore_eos": True,
                **sampling}

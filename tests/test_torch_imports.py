@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "serving.guided", "models.lora", "ops.moe",
                 "models.quant", "ops.cuda_build", "serving.chaos",
                 "serving.tracing", "serving.flightrec", "serving.slo",
-                "serving.devmon", "serving.capacity"):
+                "serving.devmon", "serving.capacity", "serving.autoscaler",
+                "serving.router", "serving.locksan"):
         assert f"{port.__name__}.{mod}" in expected
     loaded = res["loaded"]
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")
@@ -58,6 +59,30 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     ref = "aws_k8s_ansible_provisioner_tpu"
     assert not [m for m in loaded if m == ref or m.startswith(ref + ".")]
     assert "torch" in loaded
+
+
+_ROUTER_PROBE = """
+import json, sys
+import aws_k8s_ansible_provisioner_tpu_torch.serving.router
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_router_loads_neither_torch_nor_jax():
+    """The router's container needs nothing beyond the standard library:
+    importing the port's router (with the autoscaler and the observability
+    modules it imports) loads no ``torch``, no ``jax`` and nothing of the
+    JAX package."""
+    out = subprocess.run([sys.executable, "-c", _ROUTER_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "aws_k8s_ansible_provisioner_tpu_torch.serving.router" in loaded
+    assert "aws_k8s_ansible_provisioner_tpu_torch.serving.autoscaler" in \
+        loaded
+    ref = "aws_k8s_ansible_provisioner_tpu"
+    assert not [m for m in loaded
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", ref)]
 
 
 def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):

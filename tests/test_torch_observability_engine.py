@@ -114,6 +114,27 @@ def _run(eng, max_steps=20000):
     raise AssertionError("engine did not go idle")
 
 
+def _settled(eng):
+    """Make each ``step`` of a JAX engine wait for the device work it
+    dispatched. On the CPU the XLA client may alias an aligned numpy array
+    that ``jnp.asarray`` uploads instead of copying it: the JAX engine's
+    cached block table (``_decode_operands``) is such an upload, so a
+    pipelined dispatch still in flight can read the rows that the next
+    step's bookkeeping rewrites in place (a freed slot, a new page). Which
+    arrays alias depends on the heap's state, that is on the tests that ran
+    before in the process. Waiting after each step takes the race away and
+    changes no token of a correct run."""
+    step = eng.step
+
+    def settled_step():
+        busy = step()
+        jax.block_until_ready(eng.cache)
+        return busy
+
+    eng.step = settled_step
+    return eng
+
+
 def _prompts(n, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(20, 250, int(k)).tolist()
@@ -152,7 +173,8 @@ def test_streams_identical_with_recording_on_and_off(model, pipeline):
             assert not tflight.get().tail(1)
             assert not tdevmon.get().program_stats()
     assert streams[0] == streams[1]
-    je = JEngine(jcfg, jp, JServing(decode_pipeline=pipeline, **STREAMS))
+    je = _settled(JEngine(jcfg, jp, JServing(decode_pipeline=pipeline,
+                                              **STREAMS)))
     jreqs = [je.submit(r) for r in _stream_requests(JRequest)]
     _run(je)
     assert [r.generated for r in jreqs] == streams[0]
@@ -203,8 +225,9 @@ def test_flight_events_follow_the_jax_engine(model):
     both engines record the same sequence of lifecycle events (by name);
     the streams and finishes match too."""
     jcfg, jp, tcfg, tp = model
-    jring, jgen, jfin = _scenario(JEngine(jcfg, jp, JServing(**SCENARIO)),
-                                  JRequest, JOverloaded, jflight)
+    jring, jgen, jfin = _scenario(
+        _settled(JEngine(jcfg, jp, JServing(**SCENARIO))), JRequest,
+        JOverloaded, jflight)
     te = TEngine(tcfg, tp, TServing(**SCENARIO), device="cpu")
     tring, tgen, tfin = _scenario(te, TRequest, TOverloaded, tflight)
 

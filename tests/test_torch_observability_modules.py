@@ -85,6 +85,7 @@ def _dump(obj) -> str:
 
 
 def _chaos_script(pkg, tmp_path):
+    pkg.flightrec.reset()    # the ring holds this script's events only
     c = pkg.chaos.ChaosController(
         "stalled_decode:duration_s=2,page_exhaustion:times=3:allocs=2,"
         "kill_stream:after_chunks=4:times=-1,span_export:mode=\"5xx\"")
@@ -283,7 +284,7 @@ def _capacity_script(pkg, tmp_path):
     snap = est.export()
     out = {"snaps": snaps, "export": snap, "offered": est.offered(),
            "render": pkg.capacity.metrics.registry.render(False)}
-    est2 = pkg.capacity.CapacityEstimator(clock=clock)
+    est2 = pkg.capacity.CapacityEstimator(headroom_s=5.5, clock=clock)
     est2.install_devmon(lambda: 1 / 0)                   # a broken source
     out["broken"] = est2.snapshot()
     return out
@@ -397,7 +398,9 @@ def test_c28_cost_model_counts_the_parameters_a_token_touches(name, jax_over):
 def test_devmon_defaults_are_the_h100s():
     """The port's devmon defaults, the server's flags and ServingConfig
     give the H100 SXM's dense bf16 peak and HBM3 bandwidth (the JAX ones
-    are a v5e's); the constructor still takes other values."""
+    are a v5e's), and the capacity headroom a replica's ready time on the
+    H100 (the JAX one is a TPU replica's); the constructors still take
+    other values."""
     assert (tdevmon.DEFAULT_PEAK_TFLOPS, tdevmon.DEFAULT_HBM_GBPS) == \
         (989.0, 3350.0)
     mon = tdevmon.DevMon()
@@ -405,12 +408,16 @@ def test_devmon_defaults_are_the_h100s():
     s = tconfig.ServingConfig()
     assert (s.devmon_peak_tflops, s.devmon_peak_hbm_gbps) == (989.0, 3350.0)
     assert tdevmon.DevMon(peak_tflops=197.0).peak_flops == 197e12
+    assert s.capacity_headroom_s == tcapacity.DEFAULT_HEADROOM_S == \
+        tcapacity.CapacityEstimator().headroom_s == 15.0
+    assert tcapacity.CapacityEstimator(headroom_s=5.5).headroom_s == 5.5
     # every other observability field keeps the JAX name and default
     j = jconfig.ServingConfig()
+    assert j.capacity_headroom_s != s.capacity_headroom_s
     for f in ("otlp_endpoint", "trace_sample", "slo_ttft_p95_ms",
               "slo_error_rate", "flight_spool_dir", "devmon_enabled",
               "devmon_hbm_tolerance_mb", "capacity_enabled",
-              "capacity_headroom_s", "capacity_window_s",
+              "capacity_window_s",
               "capacity_trend_window_s", "ragged_attention",
               "ragged_features"):
         assert getattr(s, f) == getattr(j, f), f
